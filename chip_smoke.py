@@ -132,7 +132,7 @@ def phase_check() -> None:
         # 1001: the scalar path; 4096: 16-byte vectors; 2**20 + 64: more
         # units than the kernels' grid, so the grid-stride loop turns
         for chunk in (1001, 4096, 2**20 + 64):
-            for dtype in ("float32", "bfloat16"):
+            for dtype in ("float32", "bfloat16", "float16"):
                 x = fill((n, n * chunk), dtype)
                 got = ring_reduce_scatter(x)
                 want = torch.empty_like(x)
@@ -178,13 +178,19 @@ def phase_main_path() -> dict:
     import math
     import tempfile
 
-    from tpu_perf_torch import cli, kernels
-    from tpu_perf_torch.runner import sizes_for
-    from tpu_perf_torch.config import Options
-    from tpu_perf_torch.schema import ResultRow
+    import torch
 
+    from tpu_perf_torch import cli, kernels
+    from tpu_perf_torch.config import Options
+    from tpu_perf_torch.runner import sizes_for
+    from tpu_perf_torch.schema import ResultRow
+    from tpu_perf_torch.selftest import format_results, run_selftest
+    from tpu_perf_torch.world import SimWorld
+
+    dev = torch.device("cuda", torch.cuda.current_device())
     launches: dict[str, dict[str, int]] = {}
-    n_sizes = len(sizes_for(Options(sweep=SWEEP)))
+    sizes = sizes_for(Options(sweep=SWEEP))
+    n_sizes = len(sizes)
     for op, (needs, ranks) in PATHS.items():
         with tempfile.TemporaryDirectory(prefix=f"chip_smoke-{op}-") as logdir:
             kernels.reset_counts()
@@ -224,6 +230,17 @@ def phase_main_path() -> dict:
               f"{big.nbytes} B busbw {big.busbw_gbps:.1f} GB/s, smallest "
               f"point {small.nbytes} B lat {small.lat_us:.1f} us ({backend})")
         launches[op] = got
+        # the run's outputs at the sweep's ends, the same op built at the
+        # same flags on the same fill, against the selftest's numpy model
+        for nbytes in (min(sizes), max(sizes)):
+            results = run_selftest(SimWorld(ranks, dev), ops=[op],
+                                   nbytes=nbytes, iters=ITERS)
+            if any(r.status != "ok" for r in results):
+                fail(f"run --op {op} output at {nbytes} B:\n"
+                     f"{format_results(results)}")
+            print(f"path: run --op {op} output at {nbytes} B/rank, "
+                  f"iters={ITERS}: {results[0].detail} against the selftest "
+                  "model")
     return launches
 
 
@@ -281,8 +298,9 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     ring_reduce_scatter_plain(x, want, x.new_empty((n, n - 1, chunk)))
     err = check_close("ring_reduce_scatter at path shape", red, want, "float32")
     del want
-    # x read once, out written once; (n-1) adds per reduced element
-    bound = _bound(2 * x.numel() * isz, n * (n - 1) * chunk)
+    # the function's own bytes: x read once, each rank's reduced chunk
+    # written once; (n-1) adds per reduced element
+    bound = _bound((x.numel() + n * chunk) * isz, n * (n - 1) * chunk)
     stage = x.new_empty((n, n - 1, chunk))
     plain_out = torch.empty_like(x)
     out.append({
