@@ -13,15 +13,23 @@ exits non-zero):
    CUDA source, all started together; the Triton kernel compiles at its
    first launch) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card: ring
-   reduce-scatter and ring all-gather (both modes) at 5 and 8 ranks, and
-   the stream kernel, over several dtypes and ragged / multi-tile shapes;
-4. drive the port's run path through its CLI (``run --op pl_allreduce
-   --sweep 4K:256M``, then the other five ops of the slice) with the
-   launch counters reset just before each run and read just after, parse
-   the rows back, and check the outputs against the selftest models;
-5. time each kernel at the main path's largest shape beside its bound,
-   its plain version and one PyTorch library call computing the same
-   function, and print them as one JSON line.
+   reduce-scatter and ring all-gather (both modes) at 5 and 8 ranks, the
+   stream kernel, and the three bulk-copy kernels (copy, read sweep,
+   write sweep) at 1, 5 and 8 ranks, over several dtypes and ragged /
+   unaligned / multi-block shapes up to 1 GiB;
+4. drive the port's run paths through its CLI (``run --op pl_allreduce
+   --sweep 4K:256M``, the other five ops of the first slice, then the six
+   local memory ops at one rank) with the launch counters reset just
+   before each run and read just after, check each kernel's launches per
+   execution, parse the rows back, and check the outputs against the
+   selftest models;
+5. run ``grid --spec hbm`` over the eight local memory ops at 256 MiB and
+   1 GiB and print its verdict table, and show the read sweep's time
+   growing with the bytes it reads;
+6. time each kernel at the main path's largest shape beside its bound
+   (from the card's published rates in ``tpu_perf_torch.chips``), its
+   plain version and one PyTorch library call, and print them as one JSON
+   line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX and nothing of the JAX package ``tpu_perf``.
@@ -36,15 +44,13 @@ import sys
 import time
 
 
-#: H100 SXM published rates (NVIDIA data sheet): device memory and float32
-#: operations outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-
 SWEEP = "4K:256M"
 ITERS, RUNS = 5, 3
 MAIN_BYTES = 256 * 1024**2  # the sweep's largest point, per rank
 HEADLINE_BYTES = 4 * 1024**2
+#: the local memory ops, judged by one grid on the card
+GRID_OPS = ("hbm_stream,pl_hbm_stream,hbm_read,hbm_write,hbm_triad,"
+            "pl_hbm_copy,pl_hbm_read,pl_hbm_write")
 
 #: kernel-vs-plain tolerances: |kernel - plain| <= atol + rtol * |plain|.
 #: Both sides do the same arithmetic with the same roundings, so the cases
@@ -96,6 +102,17 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def card_rates() -> tuple[float, float]:
+    """(device-memory bytes/s, float32 operations/s) of this card, from
+    the port's table of published peaks; a card not in it fails."""
+    import torch
+
+    from tpu_perf_torch.chips import card_spec
+
+    spec = card_spec(torch.cuda.get_device_name(0))
+    return spec.hbm_gbps * 1e9, spec.f32_tflops * 1e12
+
+
 def phase_build() -> None:
     import torch
 
@@ -107,7 +124,8 @@ def phase_build() -> None:
     for dt in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
         stream(torch.ones(3, 5, dtype=dt, device="cuda"))
     torch.cuda.synchronize()
-    print(f"build: nvcc (2 sources, parallel) {nvcc_s:.1f} s, "
+    print(f"build: nvcc ({len(_build._ENTRIES)} sources, parallel) "
+          f"{nvcc_s:.1f} s, "
           f"triton first launches {time.perf_counter() - t0:.1f} s")
 
 
@@ -157,19 +175,85 @@ def phase_check() -> None:
             check_close(f"stream {shape} {dtype}", stream(x),
                         stream_plain(x), dtype)
             n_checks += 1
+    n_checks += check_bulk_kernels(fill)
     torch.cuda.synchronize()
     print(f"check: {n_checks} kernel-vs-plain cases agree within the stated "
           f"tolerances {RTOL}")
 
 
-#: op -> (kernels its run must launch, sim ranks)
+def check_bulk_kernels(fill) -> int:
+    """The three bulk-copy kernels against their plain versions; returns
+    the number of cases."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import DTYPES, build_op
+    from tpu_perf_torch.ops.pallas_ring import (
+        hbm_copy, hbm_copy_plain, hbm_dma_block_elems, hbm_write,
+        hbm_write_plain,
+    )
+    from tpu_perf_torch.world import SimWorld
+
+    n_checks = 0
+    for n in (1, 5, 8):
+        for dtype in ("float32", "bfloat16", "uint8"):
+            isz = DTYPES[dtype].itemsize
+            # the copy: the default 456131-byte buffer (rows start at
+            # 16-byte unaligned offsets when n > 1), one element, and a
+            # row of many pieces with a ragged end
+            for elems in (-(-456131 // isz), 1, 2**22 + 3):
+                x = fill((n, elems), dtype)
+                check_close(f"hbm_copy ({n}, {elems}) {dtype}", hbm_copy(x),
+                            hbm_copy_plain(x), dtype)
+                n_checks += 1
+            # the read and write sweeps: one 4 KiB DMA tile (a one-element
+            # request, rounded), and three blocks plus a 4 KiB rem tail
+            block = hbm_dma_block_elems(isz, 2**40)
+            for elems in (4096 // isz, 3 * block + 4096 // isz):
+                x = fill((n, elems), dtype)
+                blk = hbm_dma_block_elems(isz, elems)
+                check_close(f"hbm_write ({n}, {elems}) block {blk} {dtype}",
+                            hbm_write(x, blk), hbm_write_plain(x, blk), dtype)
+                check_read(f"hbm_read ({n}, {elems}) {dtype}", x, dtype)
+                n_checks += 2
+    # 1 GiB, one rank: 512 write blocks, 32768 read and copy pieces; the
+    # fill is made on the card, as the run path makes it
+    x = build_op("pl_hbm_write", SimWorld(1, torch.device("cuda")), 2**30,
+                 1).example_input
+    blk = hbm_dma_block_elems(4, x.shape[1])
+    check_close("hbm_write (1, 2**28) float32", hbm_write(x, blk),
+                hbm_write_plain(x, blk), "float32")
+    check_read("hbm_read (1, 2**28) float32", x, "float32")
+    check_close("hbm_copy (1, 2**28) float32", hbm_copy(x), hbm_copy_plain(x),
+                "float32")
+    return n_checks + 3
+
+
+def check_read(what: str, x, dtype: str) -> None:
+    """The read sweep returns its input itself, unchanged: the plain
+    version (the identity) of a copy taken before the launch."""
+    from tpu_perf_torch.ops.pallas_ring import hbm_read, hbm_read_plain
+
+    before = x.clone()
+    got = hbm_read(x)
+    if got is not x:
+        fail(f"{what}: the output is not the input tensor")
+    check_close(what, got, hbm_read_plain(before), dtype)
+
+
+#: op -> ({kernel: launches per execution}, sim ranks)
 PATHS = {
-    "pl_allreduce": (("ring_reduce_scatter", "ring_all_gather"), 8),
-    "allreduce": ((), 8),
-    "pl_reduce_scatter": (("ring_reduce_scatter",), 8),
-    "pl_all_gather": (("ring_all_gather",), 8),
-    "hbm_stream": ((), 1),
-    "pl_hbm_stream": (("stream",), 1),
+    "pl_allreduce": ({"ring_reduce_scatter": 7, "ring_all_gather": 7}, 8),
+    "allreduce": ({}, 8),
+    "pl_reduce_scatter": ({"ring_reduce_scatter": 7}, 8),
+    "pl_all_gather": ({"ring_all_gather": 7}, 8),
+    "hbm_stream": ({}, 1),
+    "pl_hbm_stream": ({"stream": 1}, 1),
+    "hbm_read": ({}, 1),
+    "hbm_write": ({}, 1),
+    "hbm_triad": ({}, 1),
+    "pl_hbm_copy": ({"hbm_copy": 1}, 1),
+    "pl_hbm_read": ({"hbm_read": 1}, 1),
+    "pl_hbm_write": ({"hbm_write": 1}, 1),
 }
 
 
@@ -191,6 +275,8 @@ def phase_main_path() -> dict:
     launches: dict[str, dict[str, int]] = {}
     sizes = sizes_for(Options(sweep=SWEEP))
     n_sizes = len(sizes)
+    # each point: one warm-up run and RUNS measured runs (driver.Driver)
+    executions = n_sizes * (1 + RUNS) * ITERS
     for op, (needs, ranks) in PATHS.items():
         with tempfile.TemporaryDirectory(prefix=f"chip_smoke-{op}-") as logdir:
             kernels.reset_counts()
@@ -209,6 +295,11 @@ def phase_main_path() -> dict:
         missing = [k for k in needs if got[k] == 0]
         if missing:
             fail(f"run --op {op}: kernels {missing} never launched ({got})")
+        wrong = {k: got[k] for k, per in needs.items()
+                 if got[k] != per * executions}
+        if wrong:
+            fail(f"run --op {op}: launches {wrong}, want {needs} per "
+                 f"execution over {executions} executions")
         extra = [k for k, v in got.items() if v and k not in needs]
         if extra:
             fail(f"run --op {op}: launched kernels {extra} off its path")
@@ -233,6 +324,7 @@ def phase_main_path() -> dict:
         # the run's outputs at the sweep's ends, the same op built at the
         # same flags on the same fill, against the selftest's numpy model
         for nbytes in (min(sizes), max(sizes)):
+            t0 = time.perf_counter()
             results = run_selftest(SimWorld(ranks, dev), ops=[op],
                                    nbytes=nbytes, iters=ITERS)
             if any(r.status != "ok" for r in results):
@@ -240,7 +332,7 @@ def phase_main_path() -> dict:
                      f"{format_results(results)}")
             print(f"path: run --op {op} output at {nbytes} B/rank, "
                   f"iters={ITERS}: {results[0].detail} against the selftest "
-                  "model")
+                  f"model ({time.perf_counter() - t0:.1f} s)")
     return launches
 
 
@@ -252,7 +344,8 @@ def phase_selftest() -> None:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     for n, dtype, iters in ((8, "float32", 3), (5, "float32", 1),
-                            (8, "bfloat16", 3), (8, "int32", 3)):
+                            (1, "float32", 3), (8, "bfloat16", 3),
+                            (8, "int32", 3), (1, "uint8", 2)):
         results = run_selftest(SimWorld(n, dev), nbytes=1 << 20,
                                dtype=dtype, iters=iters)
         if any(r.status == "fail" for r in results):
@@ -262,14 +355,54 @@ def phase_selftest() -> None:
               "numpy models")
 
 
+def phase_grid() -> None:
+    import torch
+
+    from tpu_perf_torch import cli
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.ops.pallas_ring import hbm_read
+    from tpu_perf_torch.world import SimWorld
+
+    argv = ["grid", "--op", GRID_OPS, "--sizes", "256M,1G", "--iters", "8,32",
+            "--spec", "hbm", "--sim-ranks", "1"]
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    if rc != 0:
+        fail(f"{' '.join(argv)} exited {rc}")
+    print(f"grid: {len(GRID_OPS.split(','))} ops x 2 sizes x 2 iters judged "
+          f"in {time.perf_counter() - t0:.1f} s")
+    # the read sweep's time grows with the bytes it reads: a sweep whose
+    # reads were dropped would take the same time at any size
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ms = {}
+    for nbytes in (MAIN_BYTES, 4 * MAIN_BYTES):
+        x = build_op("pl_hbm_read", SimWorld(1, dev), nbytes, 1).example_input
+        ms[nbytes] = cuda_ms(lambda: hbm_read(x), 20)
+        del x
+    ratio = ms[4 * MAIN_BYTES] / ms[MAIN_BYTES]
+    print(f"read sweep: {ms[MAIN_BYTES]:.4f} ms at 256 MiB, "
+          f"{ms[4 * MAIN_BYTES]:.4f} ms at 1 GiB: x{ratio:.2f} for 4x the "
+          "bytes")
+    if ratio < 3:
+        fail(f"hbm_read time grew only x{ratio:.2f} for 4x the bytes")
+
+
 def _bound(nbytes: int, ops: int) -> dict:
     """The least time for ``nbytes`` of device-memory traffic and ``ops``
-    float32 operations, with both counts kept for the printout."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    float32 operations at this card's published rates, with both counts
+    kept for the printout."""
+    hbm_bytes_per_s, f32_ops_per_s = card_rates()
+    t_bytes = nbytes / hbm_bytes_per_s * 1e3
+    t_ops = ops / f32_ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops}
+
+
+def _launches(launches: dict, op: str, name: str) -> dict:
+    """A kernel's launches over its path's run, and per execution."""
+    return {"launches": launches[op][name],
+            "launches_per_execution": PATHS[op][0][name]}
 
 
 def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
@@ -307,7 +440,7 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
         "name": "ring_reduce_scatter", "route": "cuda",
         "source": "tpu_perf_torch/csrc/ring_reduce_scatter.cu",
         "replaces": "tpu_perf/ops/pallas_ring.py:599",
-        "launches": launches["pl_allreduce"]["ring_reduce_scatter"],
+        **_launches(launches, "pl_allreduce", "ring_reduce_scatter"),
         "max_abs_err": err,
         "ms": cuda_ms(lambda: ring_reduce_scatter(x), 10),
         "plain_ms": cuda_ms(
@@ -335,7 +468,7 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
         "name": "ring_all_gather", "route": "cuda",
         "source": "tpu_perf_torch/csrc/ring_all_gather.cu",
         "replaces": "tpu_perf/ops/pallas_ring.py:481",
-        "launches": launches["pl_allreduce"]["ring_all_gather"],
+        **_launches(launches, "pl_allreduce", "ring_all_gather"),
         "max_abs_err": err,
         "ms": cuda_ms(lambda: ring_all_gather(red, src_full=True), 10),
         "plain_ms": cuda_ms(lambda: ring_all_gather_plain(red, want, True), 3, 1),
@@ -356,7 +489,7 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
         "name": "stream", "route": "triton",
         "source": "tpu_perf_torch/ops/stream_triton.py",
         "replaces": "tpu_perf/ops/pallas_ring.py:166",
-        "launches": launches["pl_hbm_stream"]["stream"],
+        **_launches(launches, "pl_hbm_stream", "stream"),
         "max_abs_err": err,
         "ms": cuda_ms(lambda: stream(x), 10),
         "plain_ms": cuda_ms(lambda: stream_plain(x), 10),
@@ -364,6 +497,75 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
         "library_ms": cuda_ms(lambda: torch.addcmul(shift, x, scale), 10),
         "shape": list(x.shape), "dtype": "float32",
     })
+    del x
+    out += _bulk_kernel_rows(per_rank_bytes, launches)
+    return out
+
+
+def _bulk_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
+    """The three bulk-copy kernels at the one-rank local paths' inputs."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.ops.pallas_ring import (
+        hbm_copy, hbm_copy_plain, hbm_dma_block_elems, hbm_read,
+        hbm_read_plain, hbm_write, hbm_write_plain,
+    )
+    from tpu_perf_torch.world import SimWorld
+
+    world = SimWorld(1, torch.device("cuda", torch.cuda.current_device()))
+    out = []
+
+    def row(name, replaces, op, err, ms, plain_ms, bound, library_ms, x):
+        return {"name": name, "route": "cuda",
+                "source": f"tpu_perf_torch/csrc/{name}.cu",
+                "replaces": f"tpu_perf/ops/pallas_ring.py:{replaces}",
+                **_launches(launches, op, name), "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, **bound,
+                "library_ms": library_ms, "shape": list(x.shape),
+                "dtype": "float32"}
+
+    # copy: x read once, out written once
+    x = build_op("pl_hbm_copy", world, per_rank_bytes, 1).example_input
+    nb = x.numel() * x.element_size()
+    err = check_close("hbm_copy at path shape", hbm_copy(x), hbm_copy_plain(x),
+                      "float32")
+    y = torch.empty_like(x)
+    out.append(row("hbm_copy", 266, "pl_hbm_copy", err,
+                   cuda_ms(lambda: hbm_copy(x), 10),
+                   cuda_ms(lambda: hbm_copy_plain(x), 10), _bound(2 * nb, 0),
+                   cuda_ms(lambda: y.copy_(x), 10), x))
+    del x, y
+
+    # read sweep: x read once.  The yardstick amax reads the same bytes but
+    # computes another function (the sweep computes nothing)
+    x = build_op("pl_hbm_read", world, per_rank_bytes, 1).example_input
+    nb = x.numel() * x.element_size()
+    err = check_close("hbm_read at path shape", hbm_read(x), hbm_read_plain(x),
+                      "float32")
+    out.append(row("hbm_read", 185, "pl_hbm_read", err,
+                   cuda_ms(lambda: hbm_read(x), 10),
+                   cuda_ms(lambda: hbm_read_plain(x), 10), _bound(nb, 0),
+                   cuda_ms(lambda: torch.amax(x), 10), x))
+
+    # write sweep: the output written once, the seed block read once; the
+    # yardstick is one copy_ of the expanded seed block
+    n, elems = x.shape
+    blk = hbm_dma_block_elems(x.element_size(), elems)
+    nblocks, rem = divmod(elems, blk)
+    if rem:
+        fail(f"write sweep at {elems} elements has a rem tail; the library "
+             "yardstick needs whole blocks")
+    err = check_close("hbm_write at path shape", hbm_write(x, blk),
+                      hbm_write_plain(x, blk), "float32")
+    y = torch.empty_like(x)
+    seed = x[:, None, :blk].expand(n, nblocks, blk)
+    out.append(row("hbm_write", 222, "pl_hbm_write", err,
+                   cuda_ms(lambda: hbm_write(x, blk), 10),
+                   cuda_ms(lambda: hbm_write_plain(x, blk), 10),
+                   _bound(nb + n * blk * x.element_size(), 0),
+                   cuda_ms(lambda: y.view(n, nblocks, blk).copy_(seed), 10),
+                   x))
     return out
 
 
@@ -382,21 +584,36 @@ def main() -> int:
          f"--id={torch.cuda.current_device()}"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
+    # the card's published rates, for every bound below; a card the port's
+    # table does not hold fails here
+    hbm, f32 = card_rates()
+    print(f"card rates: {hbm / 1e12:g} TB/s device memory, {f32 / 1e12:g} "
+          "TFLOP/s float32 (tpu_perf_torch.chips)")
     t_start = time.perf_counter()
-    phase_build()
-    phase_check()
-    launches = phase_main_path()
-    phase_selftest()
+    phase_s = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return result
+
+    timed("build", phase_build)
+    timed("check", phase_check)
+    launches = timed("paths", phase_main_path)
+    timed("selftest", phase_selftest)
+    timed("grid", phase_grid)
     for label, per_rank in (("4MiB", HEADLINE_BYTES), ("256MiB", MAIN_BYTES)):
         rows = _kernel_rows(per_rank, launches)
         for k in rows:
             print(f"kernel @{label}/rank: {k['name']} {k['shape']}: "
                   f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, library "
                   f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-                  f"({k['bound_by']}: {k['bytes']} B at 3.35 TB/s, "
-                  f"{k['ops']} f32 ops at 67 TFLOP/s), "
+                  f"({k['bound_by']}: {k['bytes']} B at {hbm / 1e12:g} TB/s, "
+                  f"{k['ops']} f32 ops at {f32 / 1e12:g} TFLOP/s), "
                   f"{k['bound_ms'] / k['ms']:.1%} of bound")
-    print(f"total: {time.perf_counter() - t_start:.1f} s, card: {smi}")
+    print(f"total: {time.perf_counter() - t_start:.1f} s (phases {phase_s}), "
+          f"card: {smi}")
     # the JSON line reports the main path's largest shape, the last rows
     for k in rows:
         for extra in ("shape", "dtype", "bytes", "ops"):

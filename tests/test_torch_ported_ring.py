@@ -134,6 +134,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     x = _ranks_input(4, 8, seed=0)
     tpr.ring_all_gather(tpr.ring_reduce_scatter(x), src_full=True)
     tpr.stream(x)
+    tpr.hbm_write(tpr.hbm_read(tpr.hbm_copy(x)), 4)
     assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0)
     assert kernels.PLAIN_CALLS == dict.fromkeys(kernels.KERNELS, 1)
 

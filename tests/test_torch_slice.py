@@ -166,7 +166,7 @@ def test_selftest_models_pass_on_the_cpu(dtype, n, iters):
 
 def test_selftest_cli_and_ops_listing(capsys):
     assert cli.main(["selftest", "--device", "cpu", "--sim-ranks", "5"]) == 0
-    assert "6 ok, 0 skipped, 0 failed" in capsys.readouterr().out
+    assert "12 ok, 0 skipped, 0 failed" in capsys.readouterr().out
     assert cli.main(["ops"]) == 0
     listed = capsys.readouterr().out.splitlines()
     assert "pl_allreduce" in listed and "pl_ring  (not yet ported)" in listed

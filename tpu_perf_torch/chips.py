@@ -1,0 +1,80 @@
+"""Per-card hardware specs for the port: the counterpart of
+``tpu_perf/chips.py`` for NVIDIA Hopper cards.
+
+The table is keyed by the name ``torch.cuda.get_device_name()`` reports.
+Its peaks are the published ones of NVIDIA's "H100 Tensor Core GPU"
+data sheet, dense rates without sparsity, at each form factor's full
+power limit: device-memory bandwidth, bf16 tensor-core rate and float32
+rate outside the tensor cores.  A card set below its power limit runs
+slower under load, so every number measured against these peaks is
+written beside the card's power limit.
+
+No floor or nominal is copied from the JAX table: its floors are v5e
+ratios, TPU numbers.  Every floor here stays ``None`` until a grid
+measured on the card defends one.  An unknown card raises; it never
+falls back to another card's figures (pass ``--spec-gbps`` instead).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+class UnknownCardError(ValueError):
+    """The card is not in the table: its peaks are not known here."""
+
+
+@dataclasses.dataclass(frozen=True)
+class CardSpec:
+    """One card's published peaks and its measured operating floors."""
+
+    kind: str          # short name ("h100-sxm")
+    device_name: str   # what torch.cuda.get_device_name() reports
+    hbm_gbps: float    # device-memory bandwidth, GB/s
+    bf16_tflops: float  # dense bf16 tensor-core rate
+    f32_tflops: float  # float32 outside the tensor cores
+    # the grid's degraded-window floor; None until measured on the card
+    stream_floor_gbps: float | None = None
+
+
+CARDS: dict[str, CardSpec] = {c.kind: c for c in (
+    CardSpec("h100-sxm", "NVIDIA H100 80GB HBM3", hbm_gbps=3350.0,
+             bf16_tflops=989.0, f32_tflops=67.0),
+    CardSpec("h100-pcie", "NVIDIA H100 PCIe", hbm_gbps=2000.0,
+             bf16_tflops=756.0, f32_tflops=51.0),
+    CardSpec("h100-nvl", "NVIDIA H100 NVL", hbm_gbps=3900.0,
+             bf16_tflops=835.0, f32_tflops=60.0),
+)}
+
+_BY_NAME = {c.device_name.lower(): c for c in CARDS.values()}
+
+
+def resolve_card(device_name: str) -> CardSpec | None:
+    """The table entry for ``device_name``, or None when it is unknown."""
+    return _BY_NAME.get(device_name.strip().lower())
+
+
+def detected_name() -> str | None:
+    """The first visible card's name, or None when no card is visible."""
+    import torch
+
+    return torch.cuda.get_device_name(0) if torch.cuda.is_available() else None
+
+
+def card_spec(device_name: str | None = None) -> CardSpec:
+    """The spec for ``device_name`` (default: the first visible card's).
+    Raises :class:`UnknownCardError` for a card the table does not hold or
+    when no card is visible."""
+    if device_name is None:
+        device_name = detected_name()
+        if device_name is None:
+            raise UnknownCardError(
+                "no CUDA device is visible, so no card spec applies; give "
+                "the peak explicitly with --spec-gbps")
+    spec = resolve_card(device_name)
+    if spec is None:
+        raise UnknownCardError(
+            f"card {device_name!r} is not in the spec table "
+            f"({', '.join(c.device_name for c in CARDS.values())}); give its "
+            "peak explicitly with --spec-gbps")
+    return spec

@@ -1,5 +1,5 @@
-"""Command-line interface (port of the ``run``, ``ops``, ``selftest`` and
-``bench`` subcommands of ``tpu_perf/cli.py``).
+"""Command-line interface (port of the ``run``, ``grid``, ``ops``,
+``chips``, ``selftest`` and ``bench`` subcommands of ``tpu_perf/cli.py``).
 
 Flag letters keep the reference's meanings (mpi_perf.c:273-339) where the
 slice has them: ``-i`` iters, ``-b`` buffer size, ``-r`` runs, ``-l`` log
@@ -8,7 +8,10 @@ and ``--device`` (``cuda``, the default, or ``cpu`` for the plain PyTorch
 versions)::
 
     python -m tpu_perf_torch run --op pl_allreduce --sweep 4K:256M
+    python -m tpu_perf_torch grid --op pl_hbm_copy,hbm_stream --sizes 256M,1G \
+        --iters 8,32 --spec hbm --sim-ranks 1
     python -m tpu_perf_torch ops
+    python -m tpu_perf_torch chips
     python -m tpu_perf_torch selftest
     python -m tpu_perf_torch bench
 """
@@ -22,7 +25,7 @@ from tpu_perf_torch.config import (
     DEF_ITERS, DEF_SIM_RANKS, FENCE_MODES, Options,
 )
 from tpu_perf_torch.schema import RESULT_HEADER
-from tpu_perf_torch.sweep import DEF_BUF_SZ, parse_size
+from tpu_perf_torch.sweep import DEF_BUF_SZ, format_size, parse_size
 
 
 def _add_world_flags(p: argparse.ArgumentParser) -> None:
@@ -50,6 +53,102 @@ def _cmd_run(args: argparse.Namespace) -> int:
         print(RESULT_HEADER)
         for row in rows:
             print(row.to_csv())
+    return 0
+
+
+def _cmd_grid(args: argparse.Namespace) -> int:
+    from tpu_perf_torch.config import new_job_id
+    from tpu_perf_torch.grid import grid_caption, grid_to_markdown, run_grid
+    from tpu_perf_torch.world import SimWorld, resolve_device
+
+    if (args.chip_spec_family == "mxu" or args.spec_tflops is not None
+            or args.floor_tflops is not None):
+        raise NotImplementedError(
+            "compute grids (--spec mxu, --spec-tflops, --floor-tflops) are "
+            "not yet ported: they wait for mxu_gemm; see ROADMAP")
+    world = SimWorld(args.sim_ranks, resolve_device(args.device))
+    source = "--spec-gbps" if args.spec_gbps is not None else "not given"
+    if args.chip_spec_family == "hbm":
+        # the card table's defaults for the judged metric; explicit flags win
+        from tpu_perf_torch.chips import card_spec
+
+        if args.spec_gbps is None:
+            spec = card_spec()
+            args.spec_gbps = spec.hbm_gbps
+            source = f"{spec.device_name}, card table"
+            if args.floor_gbps is None:
+                args.floor_gbps = spec.stream_floor_gbps
+    sizes = [parse_size(s) for s in args.sizes.split(",") if s.strip()]
+    iters_list = [int(s) for s in args.iters.split(",") if s.strip()]
+    if not sizes or not iters_list:
+        raise ValueError("grid needs at least one size and one iters value")
+
+    def progress(cell):
+        print(f"[grid] {cell.op} {format_size(cell.nbytes)} x{cell.iters}: "
+              f"p50 {cell.p50:.1f} GB/s -> {cell.verdict}",
+              file=sys.stderr)
+
+    job_id = new_job_id()
+    on_rows = None
+    grid_log = None
+    if args.logfolder:
+        # the raw rows behind the verdict table, in a rotating
+        # extended-schema log stamped with the grid's job id
+        from tpu_perf_torch.driver import RotatingCsvLog
+        from tpu_perf_torch.schema import EXT_PREFIX
+
+        grid_log = RotatingCsvLog(args.logfolder, job_id, 0,
+                                  refresh_sec=10**9, prefix=EXT_PREFIX)
+
+        def on_rows(rows):
+            for row in rows:
+                grid_log.write_row(row)
+
+    try:
+        cells = run_grid(world, args.op, sizes, iters_list, dtype=args.dtype,
+                         runs=args.runs, fence=args.fence,
+                         spec_gbps=args.spec_gbps, floor_gbps=args.floor_gbps,
+                         on_cell=progress, on_rows=on_rows, job_id=job_id)
+    finally:
+        if grid_log is not None:
+            grid_log.close()
+    print(grid_caption(args.spec_gbps, args.floor_gbps, source))
+    print(grid_to_markdown(cells, fence=args.fence))
+    chosen_by_op = {c.op: c for c in cells if c.chosen}
+    for c in chosen_by_op.values():
+        print(f"tpu-perf-torch: chosen operating point: {c.op} "
+              f"{format_size(c.nbytes)} x{c.iters} ({c.p50:.1f} GB/s p50)",
+              file=sys.stderr)
+    missing = sorted({c.op for c in cells} - set(chosen_by_op))
+    if missing:
+        print(f"tpu-perf-torch: grid found no ok operating point for "
+              f"{', '.join(missing)} (every cell unphysical/degraded/failed)",
+              file=sys.stderr)
+        return 4
+    return 0
+
+
+def _cmd_chips(args: argparse.Namespace) -> int:
+    from tpu_perf_torch.chips import CARDS, detected_name, resolve_card
+
+    name = args.kind if args.kind is not None else detected_name()
+    if name is None:
+        print("no CUDA device is visible; grid --spec hbm needs a card in "
+              "this table or an explicit --spec-gbps")
+    elif resolve_card(name) is None:
+        # an unknown card is never dressed up as a match
+        print(f"card {name!r} is not in the table; grid --spec hbm refuses "
+              "it (give --spec-gbps)")
+    found = resolve_card(name) if name is not None else None
+    print("| card | torch device name | HBM GB/s | bf16 dense TFLOP/s "
+          "| f32 TFLOP/s | stream floor |")
+    print("|---|---|---|---|---|---|")
+    for spec in CARDS.values():
+        mark = " (detected)" if spec is found else ""
+        floor = ("not measured" if spec.stream_floor_gbps is None
+                 else f"{spec.stream_floor_gbps:g}")
+        print(f"| {spec.kind}{mark} | {spec.device_name} | {spec.hbm_gbps:g} "
+              f"| {spec.bf16_tflops:g} | {spec.f32_tflops:g} | {floor} |")
     return 0
 
 
@@ -108,8 +207,49 @@ def build_parser() -> argparse.ArgumentParser:
     _add_world_flags(p_run)
     p_run.set_defaults(func=_cmd_run)
 
+    p_grid = sub.add_parser(
+        "grid", help="size x iters operating-point grid with physical-"
+                     "ceiling verdicts")
+    p_grid.add_argument("--op", required=True, help="comma-separated ops")
+    p_grid.add_argument("--sizes", required=True,
+                        help="comma-separated sizes (e.g. 256M,1G)")
+    p_grid.add_argument("--iters", required=True,
+                        help="comma-separated lo iteration counts (slope "
+                             "and trace time each against 4x)")
+    p_grid.add_argument("-r", "--runs", type=int, default=8)
+    p_grid.add_argument("--fence", choices=FENCE_MODES, default="slope")
+    p_grid.add_argument("--spec", choices=("hbm", "mxu"), default=None,
+                        dest="chip_spec_family",
+                        help="hbm: judge busbw against the detected card's "
+                             "device-memory peak (tpu_perf_torch.chips); "
+                             "mxu is not yet ported; explicit --spec-gbps / "
+                             "--floor-gbps override")
+    p_grid.add_argument("--spec-gbps", type=float, default=None,
+                        help="physical busbw ceiling (H100 SXM: 3350); p50 "
+                             "above it = unphysical")
+    p_grid.add_argument("--floor-gbps", type=float, default=None,
+                        help="plateau floor; p50 below it = degraded (none "
+                             "by default: no floor is defended yet)")
+    p_grid.add_argument("--spec-tflops", type=float, default=None,
+                        help="compute grids: not yet ported")
+    p_grid.add_argument("--floor-tflops", type=float, default=None,
+                        help="compute grids: not yet ported")
+    p_grid.add_argument("-l", "--logfolder", default=None,
+                        help="also write every cell's raw rows here "
+                             "(extended schema)")
+    _add_world_flags(p_grid)
+    p_grid.set_defaults(func=_cmd_grid)
+
     p_ops = sub.add_parser("ops", help="list measurement ops")
     p_ops.set_defaults(func=_cmd_ops)
+
+    p_chips = sub.add_parser(
+        "chips", help="print the card spec table (tpu_perf_torch.chips) and "
+                      "the entry the detected card resolves to")
+    p_chips.add_argument("--kind", default=None,
+                         help="resolve this device name instead of the "
+                              "detected card's (e.g. 'NVIDIA H100 PCIe')")
+    p_chips.set_defaults(func=_cmd_chips)
 
     p_self = sub.add_parser("selftest",
                             help="validate every op's payload numerics")

@@ -1,7 +1,8 @@
 """Build the CUDA C++ kernels with nvcc and load them with ctypes.
 
 Each ``tpu_perf_torch/csrc/<name>.cu`` exposes a plain C interface and is
-compiled on its own into ``tpu_perf_torch/_build/lib<name>.so``::
+compiled on its own (with the shared ``csrc/*.cuh`` headers) into
+``tpu_perf_torch/_build/lib<name>.so``::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o _build/lib<name>.so csrc/<name>.cu
@@ -39,6 +40,12 @@ _ENTRIES = {
     # (src, out, n, chunk_bytes, src_row_bytes, src_own_bytes, step, stream)
     "ring_all_gather": ("ring_all_gather_step",
                         [_P, _P, _I, _L, _L, _L, _I, _P]),
+    # (src, dst, n, row_bytes, stream)
+    "hbm_copy": ("hbm_copy_rows", [_P, _P, _I, _L, _P]),
+    # (src, n, row_bytes, stream)
+    "hbm_read": ("hbm_read_rows", [_P, _I, _L, _P]),
+    # (src, dst, n, row_bytes, block_bytes, stream)
+    "hbm_write": ("hbm_write_rows", [_P, _P, _I, _L, _L, _P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -58,9 +65,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    # a source is stale when it or any shared header is newer than its
+    # library
     lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    inputs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path]:

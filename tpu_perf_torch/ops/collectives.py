@@ -11,6 +11,9 @@ the mean, not the sum).  The ops of this slice:
   1/n, broadcast back to every rank;
 * ``hbm_stream`` — the local memory baseline, ``x * 1.0000001 + 1e-7``
   (``x + 1`` for integers) as plain PyTorch operations;
+* ``hbm_read``, ``hbm_write``, ``hbm_triad`` — the read, write and 2R:1W
+  memory instruments, as plain PyTorch operations that update the carry
+  in place (see their bodies);
 * the ``pl_*`` ops — the hand-written kernels, built by
   :func:`tpu_perf_torch.ops.pallas_ring.build_pallas_step`.
 """
@@ -72,9 +75,10 @@ def payload_elems(op: str, nbytes: int, n: int, itemsize: int) -> tuple[int, int
     return elems, elems * itemsize
 
 
-#: ops that reduce (scale by 1/n) — integer payloads would measure another
-#: computation (the JAX package's list, restricted to this slice's ops)
-FLOAT_ONLY_OPS = ("allreduce", "pl_allreduce", "pl_reduce_scatter")
+#: ops that reduce (scale by 1/n, or take a mean) — integer payloads would
+#: measure another computation (the JAX package's list, restricted to the
+#: ported ops)
+FLOAT_ONLY_OPS = ("allreduce", "hbm_read", "pl_allreduce", "pl_reduce_scatter")
 
 
 def is_float_dtype(dtype: str) -> bool:
@@ -150,9 +154,75 @@ def _hbm_stream(world: SimWorld, dtype: torch.dtype) -> Callable:
     return body
 
 
+# The three instruments below update the carry in place where the JAX
+# bodies rebuild it functionally: a clone per execution would add a full
+# copy to what the instrument times (the failure the JAX package recorded
+# for hbm_triad's first formulation on the TPU).  Each keeps the JAX
+# function's roundings: the constants are rounded to the dtype first and
+# every operation rounds to the dtype.
+
+
+def _hbm_read(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # slot 0 of each rank <- mean(max(row, row[0])), accumulated in float32
+    # and rounded once to the dtype.  Eager PyTorch makes two passes: the
+    # maximum writes a temporary the size of the buffer, the mean reads it.
+    def body(x):
+        s = torch.maximum(x, x[:, :1]).mean(dim=1, keepdim=True,
+                                            dtype=torch.float32)
+        x[:, :1] = s
+        return x
+
+    return body
+
+
+def _hbm_write(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # every row <- f(row[0]): one copy from the (n, 1) values broadcast over
+    # the buffer, which is what fill_ with a device tensor does; it writes
+    # the buffer once and reads n elements
+    if not dtype.is_floating_point:
+        def body(x):
+            return x.copy_((x[:, :1] + 1).expand_as(x))
+
+        return body
+    scale, shift = (c.to(world.device)
+                    for c in stream_triton.stream_constants(dtype))
+
+    def body(x):
+        return x.copy_((x[:, :1] * scale + shift).expand_as(x))
+
+    return body
+
+
+def _hbm_triad(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # first half a <- a * 1.0000001 + b * 1e-7 (a + b for integers) through
+    # two views of the halves; the second half b is read, never written.
+    # Eager: b * 1e-7 reads b and writes a temporary, a *= k1 reads and
+    # writes a, a += tmp reads both and writes a.
+    if not dtype.is_floating_point:
+        def body(x):
+            h = x.shape[1] // 2
+            x[:, :h].add_(x[:, h:])
+            return x
+
+        return body
+    scale, shift = (c.to(world.device)
+                    for c in stream_triton.stream_constants(dtype))
+
+    def body(x):
+        h = x.shape[1] // 2
+        bk = x[:, h:] * shift
+        x[:, :h].mul_(scale).add_(bk)
+        return x
+
+    return body
+
+
 OP_BUILDERS: dict[str, Callable] = {
     "allreduce": _allreduce,
+    "hbm_read": _hbm_read,
     "hbm_stream": _hbm_stream,
+    "hbm_triad": _hbm_triad,
+    "hbm_write": _hbm_write,
 }
 
 

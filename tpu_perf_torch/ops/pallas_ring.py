@@ -11,7 +11,11 @@ is written by hand for Hopper:
 * ``ring_all_gather`` — CUDA C++, ``csrc/ring_all_gather.cu`` (replaces
   ``_all_gather_kernel``, both modes);
 * ``stream`` — Triton, :mod:`tpu_perf_torch.ops.stream_triton` (replaces
-  ``_hbm_stream_vec_kernel``).
+  ``_hbm_stream_vec_kernel``);
+* ``hbm_copy``, ``hbm_read``, ``hbm_write`` — CUDA C++ on Hopper's TMA bulk
+  copies, ``csrc/hbm_{copy,read,write}.cu`` (replace ``_hbm_copy_kernel``,
+  ``_hbm_read_kernel`` and ``_hbm_write_kernel``, the TPU's local DMA
+  instruments).
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version, the same ring schedule step by step over the sim ranks,
@@ -38,15 +42,20 @@ PALLAS_OPS = (
 )
 #: the pl_* ops this package runs; the others raise NotImplementedError
 PORTED_OPS = ("pl_all_gather", "pl_reduce_scatter", "pl_allreduce",
-              "pl_hbm_stream")
+              "pl_hbm_stream", "pl_hbm_copy", "pl_hbm_read", "pl_hbm_write")
 
 #: the JAX package's chunk-rounding tile (its VMEM accumulation tile):
 #: reduce-scatter chunks above it round up to a multiple of it.  It decides
 #: ``nbytes`` on the curve keys, so it stays the JAX value; the CUDA
 #: kernels' own tile is a separate constant in their sources.
 _ACC_TILE_ELEMS = 65536
-#: the JAX package's stream tile, kept only for hbm_dma_block_elems
+#: the JAX package's stream tile: through hbm_dma_block_elems it fixes
+#: pl_hbm_write's output (the first block, tiled), so it stays the JAX
+#: value; the CUDA kernels' own tiles are constants in their sources
 _STREAM_TILE_ELEMS = 524288
+#: pl_hbm_read / pl_hbm_write rows round up to this many bytes, the TPU's
+#: 4 KiB DMA tiling (which also keeps every bulk copy 16-byte aligned here)
+_DMA_ALIGN_BYTES = 4096
 
 _RS_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -171,6 +180,98 @@ def ring_all_gather(x: torch.Tensor, *, src_full: bool = False) -> torch.Tensor:
     return out
 
 
+# --- the local memory instruments --------------------------------------
+# x is (n, elems): rank r's buffer is row r.  Each kernel is one launch
+# covering every rank.
+
+
+def hbm_copy_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the copy kernel: ``out = x``."""
+    kernels.PLAIN_CALLS["hbm_copy"] += 1
+    return x.clone()
+
+
+def hbm_copy(x: torch.Tensor) -> torch.Tensor:
+    """One full-buffer device-memory copy of every rank's row; returns a new
+    tensor.  Rows of any size and alignment."""
+    if x.device.type == "cpu":
+        return hbm_copy_plain(x)
+    _check_cuda("hbm_copy", x)
+    out = torch.empty_like(x)
+    n, row = x.shape
+    err = _build.entry("hbm_copy")(x.data_ptr(), out.data_ptr(), n,
+                                   row * x.element_size(), _stream_of(x))
+    _build.check("hbm_copy", err)
+    kernels.LAUNCHES["hbm_copy"] += 1
+    return out
+
+
+def _check_bulk_aligned(name: str, *values: int) -> None:
+    """A bulk copy takes 16-byte aligned addresses and sizes."""
+    for v in values:
+        if v % 16:
+            raise ValueError(
+                f"{name}: {v} is not a multiple of 16 bytes (the op rounds "
+                f"rows to {_DMA_ALIGN_BYTES} bytes)")
+
+
+def hbm_read_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the read sweep: the identity (the
+    output aliases the input)."""
+    kernels.PLAIN_CALLS["hbm_read"] += 1
+    return x
+
+
+def hbm_read(x: torch.Tensor) -> torch.Tensor:
+    """Read every byte of every rank's row into on-chip memory and write
+    nothing; returns ``x`` itself, as the TPU kernel's output aliases its
+    input.  Rows must be multiples of 16 bytes."""
+    if x.device.type == "cpu":
+        return hbm_read_plain(x)
+    _check_cuda("hbm_read", x)
+    n, row = x.shape
+    _check_bulk_aligned("hbm_read", x.data_ptr(), row * x.element_size())
+    err = _build.entry("hbm_read")(x.data_ptr(), n, row * x.element_size(),
+                                   _stream_of(x))
+    _build.check("hbm_read", err)
+    kernels.LAUNCHES["hbm_read"] += 1
+    return x
+
+
+def hbm_write_plain(x: torch.Tensor, block: int) -> torch.Tensor:
+    """The plain PyTorch version of the write sweep: each row's first
+    ``block`` elements tiled over the row, the last tile cut short."""
+    kernels.PLAIN_CALLS["hbm_write"] += 1
+    n, row = x.shape
+    nblocks, rem = divmod(row, block)
+    out = torch.empty_like(x)
+    out[:, :nblocks * block].view(n, nblocks, block).copy_(
+        x[:, None, :block].expand(n, nblocks, block))
+    out[:, nblocks * block:] = x[:, :rem]
+    return out
+
+
+def hbm_write(x: torch.Tensor, block: int) -> torch.Tensor:
+    """Write each rank's first ``block`` elements over its whole row
+    (tiled, the last tile cut short) into a new tensor, reading the block
+    once.  Row and block must be multiples of 16 bytes."""
+    n, row = x.shape
+    if not 0 < block <= row:
+        raise ValueError(f"hbm_write: block {block} outside (0, {row}]")
+    if x.device.type == "cpu":
+        return hbm_write_plain(x, block)
+    _check_cuda("hbm_write", x)
+    isz = x.element_size()
+    out = torch.empty_like(x)
+    _check_bulk_aligned("hbm_write", x.data_ptr(), out.data_ptr(), row * isz,
+                        block * isz)
+    err = _build.entry("hbm_write")(x.data_ptr(), out.data_ptr(), n,
+                                    row * isz, block * isz, _stream_of(x))
+    _build.check("hbm_write", err)
+    kernels.LAUNCHES["hbm_write"] += 1
+    return out
+
+
 # --- the pl_* ops -------------------------------------------------------
 
 
@@ -207,7 +308,14 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
             chunk = raw_chunk
         elems = chunk * n
         actual = elems * itemsize
-    else:  # pl_hbm_stream: exactly the hbm_stream rounding
+    elif op in ("pl_hbm_read", "pl_hbm_write"):
+        # the single-sided sweeps round up to the 4 KiB DMA tiling, not to
+        # the itemsize: every 4 KiB-multiple sweep size still lands on the
+        # hbm_read / hbm_write curve key
+        align = max(1, _DMA_ALIGN_BYTES // itemsize)
+        elems = chunk = -(-max(1, -(-nbytes // itemsize)) // align) * align
+        actual = elems * itemsize
+    else:  # pl_hbm_stream, pl_hbm_copy: exactly the hbm_stream rounding
         elems = chunk = max(1, -(-nbytes // itemsize))
         actual = elems * itemsize
 
@@ -221,8 +329,16 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
         # gather, then take the own shard back out (the JAX carry)
         return chained(lambda x: own_chunks(ring_all_gather(x)), iters), \
             elems, actual
+    # each iteration feeds the previous output forward, as in JAX
     if op == "pl_hbm_stream":
         return chained(stream, iters), elems, actual
+    if op == "pl_hbm_copy":
+        return chained(hbm_copy, iters), elems, actual
+    if op == "pl_hbm_read":
+        return chained(hbm_read, iters), elems, actual
+    if op == "pl_hbm_write":
+        block = hbm_dma_block_elems(itemsize, elems)
+        return chained(lambda x: hbm_write(x, block), iters), elems, actual
     inv = torch.tensor(1.0 / n, dtype=tdtype, device=world.device)
     if op == "pl_reduce_scatter":
         # own reduced chunk * 1/n, tiled over the whole buffer

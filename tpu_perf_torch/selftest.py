@@ -22,9 +22,8 @@ def _reduce_scatter(x: np.ndarray) -> np.ndarray:
     # ring carry convention: rank d ends with the mean of chunk d over
     # ranks, tiled n times over the whole buffer
     n = x.shape[0]
-    chunks = x.reshape(n, n, -1)
-    red = chunks.mean(axis=0)
-    return np.stack([np.tile(red[d], n) for d in range(n)])
+    red = x.reshape(n, n, -1).mean(axis=0)
+    return np.tile(red, n)  # row d: red[d], n times
 
 
 def _identity(x: np.ndarray) -> np.ndarray:
@@ -35,13 +34,69 @@ def _hbm_stream(x: np.ndarray) -> np.ndarray:
     return x * 1.0000001 + 1e-7
 
 
+def _hbm_read(x: np.ndarray) -> np.ndarray:
+    # per rank: slot 0 <- mean(max(row, row[0])); the rest untouched
+    m = np.maximum(x, x[:, :1])
+    out = x.copy()
+    out[:, 0] = m.mean(axis=1)
+    return out
+
+
+def _hbm_write(x: np.ndarray) -> np.ndarray:
+    # per rank: the whole row becomes f(row[0])
+    return np.broadcast_to(x[:, :1] * 1.0000001 + 1e-7, x.shape).copy()
+
+
+def _hbm_triad(x: np.ndarray) -> np.ndarray:
+    # first half <- a*k1 + b*k2 in place; second half untouched
+    h = x.shape[1] // 2
+    out = x.copy()
+    out[:, :h] = x[:, :h] * 1.0000001 + x[:, h:] * 1e-7
+    return out
+
+
+def _hbm_triad_int(x: np.ndarray) -> np.ndarray:
+    # wrapping add in the native dtype (integer models compose natively)
+    h = x.shape[1] // 2
+    out = x.copy()
+    out[:, :h] = x[:, :h] + x[:, h:]
+    return out
+
+
+def _pl_hbm_write_for(dtype: str) -> Callable[[np.ndarray], np.ndarray]:
+    """The kernel tiles each row's first DMA block over the row; the block
+    scales with the NATIVE itemsize, which must come from the measurement
+    dtype, not from the model array (floats compose in float64)."""
+    from tpu_perf_torch.ops.collectives import DTYPES
+    from tpu_perf_torch.ops.pallas_ring import hbm_dma_block_elems
+
+    itemsize = DTYPES[dtype].itemsize
+
+    def model(x: np.ndarray) -> np.ndarray:
+        block = hbm_dma_block_elems(itemsize, x.shape[1])
+        nfull, rem = divmod(x.shape[1], block)
+        full = np.tile(x[:, :block], nfull)
+        # the trailing partial block is the seed block's first rem elements
+        return np.concatenate([full, x[:, :rem]], axis=1) if rem else full
+
+    return model
+
+
 #: op -> model of ONE application on the (n_ranks, per_rank) global array
 EXPECTATIONS: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     "allreduce": _mean_all,
+    "hbm_read": _hbm_read,
     "hbm_stream": _hbm_stream,
+    "hbm_triad": _hbm_triad,
+    "hbm_write": _hbm_write,
     "pl_all_gather": _identity,  # gather + take-own-shard carry
     "pl_reduce_scatter": _reduce_scatter,
     "pl_allreduce": _mean_all,
+    "pl_hbm_copy": _identity,  # a copy is an exact identity
+    "pl_hbm_read": _identity,  # the read sweep writes nothing
+    # placeholder for totality; run_selftest takes the real model from
+    # _EXPECTATIONS_BY_DTYPE
+    "pl_hbm_write": _pl_hbm_write_for("float32"),
     "pl_hbm_stream": _hbm_stream,
 }
 
@@ -49,9 +104,40 @@ EXPECTATIONS: dict[str, Callable[[np.ndarray], np.ndarray]] = {
 _EXPECTATIONS_INT = {
     "hbm_stream": lambda x: x + 1,
     "pl_hbm_stream": lambda x: x + 1,
+    "hbm_write": lambda x: np.broadcast_to(x[:, :1] + 1, x.shape).copy(),
+    "hbm_triad": _hbm_triad_int,
+}
+
+#: ops whose model depends on the measurement dtype itself (not just on
+#: int against float): op -> factory(dtype) -> model.  Checked first.
+_EXPECTATIONS_BY_DTYPE = {
+    "pl_hbm_write": _pl_hbm_write_for,
 }
 
 _RTOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-3}
+
+#: elements per float64 piece of the comparison (16 MiB): a gigabyte
+#: output is compared piece by piece, reusing the same memory, instead of
+#: through several float64 temporaries the size of the whole buffer
+_CMP_PIECE = 1 << 21
+
+
+def _compare(got: np.ndarray, want: np.ndarray, rtol: float) -> tuple[int, float]:
+    """(elements off, max abs err) of ``got`` against ``want``, both
+    ``(n, cols)``, in float64: off where not finite or where
+    ``|got - want| > rtol * |want| + rtol`` (allclose with atol = rtol)."""
+    n, cols = got.shape
+    step = max(1, _CMP_PIECE // n)
+    n_bad, worst = 0, float("nan")
+    for lo in range(0, cols, step):
+        g = got[:, lo:lo + step].astype(np.float64)
+        w = np.asarray(want[:, lo:lo + step], dtype=np.float64)
+        err = np.abs(g - w)
+        n_bad += int((~np.isfinite(g) | (err > rtol * np.abs(w) + rtol)).sum())
+        finite = err[np.isfinite(err)]
+        if finite.size:
+            worst = float(finite.max()) if np.isnan(worst) else max(worst, float(finite.max()))
+    return n_bad, worst
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,28 +171,28 @@ def run_selftest(world, *, ops: list[str] | None = None, nbytes: int = 4096,
         if op in ("pl_allreduce", "pl_reduce_scatter") and world.n < 2:
             results.append(SelftestResult(op, "skip", "needs at least 2 ranks"))
             continue
-        model = (_EXPECTATIONS_INT.get(op, EXPECTATIONS[op]) if is_int
-                 else EXPECTATIONS[op])
+        if op in _EXPECTATIONS_BY_DTYPE:
+            model = _EXPECTATIONS_BY_DTYPE[op](dtype)
+        else:
+            model = (_EXPECTATIONS_INT.get(op, EXPECTATIONS[op]) if is_int
+                     else EXPECTATIONS[op])
         try:
             built = build_op(op, world, nbytes, iters=iters, dtype=dtype)
-            x_native = from_world(built.example_input)
-            out = from_world(built.step(built.example_input)).astype(np.float64)
             n = built.n_devices
+            # a clone: the in-place instruments update their input, and on
+            # the CPU from_world shares the tensor's memory
+            x_native = from_world(built.example_input.clone()).reshape(n, -1)
+            got = from_world(built.step(built.example_input)).reshape(n, -1)
             # integers compose in the native dtype so wraparound matches
-            want = (x_native if is_int
-                    else x_native.astype(np.float64)).reshape(n, -1)
+            want = x_native if is_int else x_native.astype(np.float64)
             for _ in range(iters):
                 want = model(want)
-            want = want.astype(np.float64)
-            got = out.reshape(n, -1)
-            err = np.abs(got - want)
-            bad = ~np.isfinite(got) | (err > rtol * np.abs(want) + rtol)
-            worst = float(np.nanmax(err)) if np.isfinite(err).any() else float("nan")
-            if not bad.any():
+            n_bad, worst = _compare(got, want, rtol)
+            if not n_bad:
                 results.append(SelftestResult(op, "ok", f"max abs err {worst:.2e}"))
             else:
                 results.append(SelftestResult(
-                    op, "fail", f"{int(bad.sum())}/{got.size} elements off "
+                    op, "fail", f"{n_bad}/{got.size} elements off "
                                 f"(max abs err {worst:.2e})"))
         except Exception as e:  # noqa: BLE001 — one op's failure must not
             # mask the others; the point is a complete report

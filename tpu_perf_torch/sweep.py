@@ -1,5 +1,5 @@
 """Message-size sweep generation (copy of ``tpu_perf/sweep.py``'s sweep
-parser).
+parser and size formatter).
 
 The reference benchmarks a single buffer size per invocation
 (``DEF_BUF_SZ = 456131`` at mpi_perf.c:14; 4 MiB in scripts/run-1-pair.sh:9).
@@ -25,6 +25,14 @@ def parse_size(text: str) -> int:
     if not m:
         raise ValueError(f"unparseable size: {text!r}")
     return int(m.group(1)) * _SUFFIX[m.group(2).upper()]
+
+
+def format_size(nbytes: int) -> str:
+    """Inverse of :func:`parse_size` for the largest exact suffix."""
+    for suffix in ("G", "M", "K"):
+        if nbytes % _SUFFIX[suffix] == 0 and nbytes >= _SUFFIX[suffix]:
+            return f"{nbytes // _SUFFIX[suffix]}{suffix}"
+    return str(nbytes)
 
 
 def sweep_sizes(
