@@ -14,15 +14,20 @@ exits non-zero):
    first launch) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card: ring
    reduce-scatter and ring all-gather (both modes) at 5 and 8 ranks, the
-   stream kernel, and the three bulk-copy kernels (copy, read sweep,
-   write sweep) at 1, 5 and 8 ranks, over several dtypes and ragged /
-   unaligned / multi-block shapes up to 1 GiB;
+   stream kernel, the three bulk-copy kernels (copy, read sweep, write
+   sweep) at 1, 5 and 8 ranks, and the point-to-point kernels (ring,
+   exchange, pingpong with its stage, barrier) at 2, 5, 6 and 8 ranks,
+   over several dtypes and ragged / unaligned / multi-block shapes up to
+   1 GiB, and 1000 chained barriers; then show, in a child process, that
+   a barrier that cannot complete fails its launch instead of hanging;
 4. drive the port's run paths through its CLI (``run --op pl_allreduce
-   --sweep 4K:256M``, the other five ops of the first slice, then the six
-   local memory ops at one rank) with the launch counters reset just
-   before each run and read just after, check each kernel's launches per
-   execution, parse the rows back, and check the outputs against the
-   selftest models;
+   --sweep 4K:256M``, the other five ops of the first slice, the six
+   local memory ops at one rank, the eleven point-to-point ops at eight,
+   then the reference's default ``run`` and its ``-u`` and ``-x``) with
+   the launch counters reset just before each run and read just after,
+   check each kernel's launches per execution over the op's own sizes,
+   parse the rows back, and check the outputs against the selftest
+   models;
 5. run ``grid --spec hbm`` over the eight local memory ops at 256 MiB and
    1 GiB and print its verdict table, and show the read sweep's time
    growing with the bytes it reads;
@@ -176,9 +181,11 @@ def phase_check() -> None:
                         stream_plain(x), dtype)
             n_checks += 1
     n_checks += check_bulk_kernels(fill)
+    n_checks += check_p2p_kernels(fill)
     torch.cuda.synchronize()
     print(f"check: {n_checks} kernel-vs-plain cases agree within the stated "
           f"tolerances {RTOL}")
+    check_barrier_traps()
 
 
 def check_bulk_kernels(fill) -> int:
@@ -228,6 +235,97 @@ def check_bulk_kernels(fill) -> int:
     return n_checks + 3
 
 
+def check_p2p_kernels(fill) -> int:
+    """The point-to-point kernels against their plain versions; returns the
+    number of cases."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import DTYPES
+    from tpu_perf_torch.ops.pallas_ring import (
+        barrier, barrier_plain, pair_exchange, pair_exchange_plain, pingpong,
+        pingpong_plain, ring_shift, ring_shift_plain,
+    )
+
+    n_checks = 0
+    for n in (2, 5, 6, 8):
+        for dtype in ("float32", "bfloat16", "uint8"):
+            isz = DTYPES[dtype].itemsize
+            # the default 456131-byte buffer (rows start 16-byte unaligned
+            # when n > 1; odd rows for uint8), one element, and a multi-MiB
+            # row with a ragged end
+            for elems in (-(-456131 // isz), 1, 2**22 + 3):
+                x = fill((n, elems), dtype)
+                what = f"({n}, {elems}) {dtype}"
+                check_close(f"ring {what}", ring_shift(x), ring_shift_plain(x),
+                            dtype)
+                check_close(f"barrier {what}", barrier(x), barrier_plain(x),
+                            dtype)
+                n_checks += 2
+                if n % 2:
+                    continue
+                check_close(f"exchange {what}", pair_exchange(x),
+                            pair_exchange_plain(x), dtype)
+                out, stage = pingpong(x)
+                want_out, want_stage = torch.empty_like(x), torch.empty_like(x)
+                pingpong_plain(x, want_out, want_stage)
+                check_close(f"pingpong {what}", out, want_out, dtype)
+                # the stage rows the kernel writes: group 0's payload
+                check_close(f"pingpong stage {what}", stage[n // 2:],
+                            want_stage[n // 2:], dtype)
+                n_checks += 3
+            x = fill((n, 1), dtype)
+            check_close(f"barrier ({n}, 1) {dtype}", barrier(x),
+                        barrier_plain(x), dtype)
+            n_checks += 1
+    # 1000 chained barriers at the path's shape: no trap, no lost arrival
+    x = fill((8, 1), "float32")
+    y = x
+    for _ in range(1000):
+        y = barrier(y)
+    torch.cuda.synchronize()
+    check_close("1000 chained barriers (8, 1)", y, x, "float32")
+    return n_checks + 1
+
+
+#: a child process that launches the barrier with a generation its own
+#: arrivals can never reach: fresh counters end at n, the CTAs wait for 2n
+_TRAP_PROBE = r"""
+import time
+import torch
+from tpu_perf_torch.kernels import _build
+x = torch.ones(4, 1, device="cuda")
+out = torch.empty_like(x)
+counters = torch.zeros(4, dtype=torch.int64, device="cuda")
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+err = _build.entry("barrier")(x.data_ptr(), out.data_ptr(), counters.data_ptr(),
+                              4, 4, 2, torch.cuda.current_stream().cuda_stream)
+if err:
+    raise SystemExit(f"the launch was refused: CUDA error {err}")
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print(f"trapped {time.perf_counter() - t0:.2f} s after the launch: "
+          f"{str(e).splitlines()[0]}", flush=True)
+    raise SystemExit(3)
+print("the barrier passed without its arrivals")
+"""
+
+
+def check_barrier_traps() -> None:
+    """A barrier that cannot complete must fail loudly, not hang and not
+    pass: the probe's synchronize must raise within seconds (the kernel
+    traps after about one second of spinning)."""
+    probe = subprocess.run(
+        [sys.executable, "-c", _TRAP_PROBE], capture_output=True, text=True,
+        timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    said = probe.stdout.strip()
+    if probe.returncode != 3 or not said.startswith("trapped"):
+        fail(f"barrier trap probe exited {probe.returncode}: {said} "
+             f"{probe.stderr.strip()[-500:]}")
+    print(f"check: a barrier that cannot complete: {said}")
+
+
 def check_read(what: str, x, dtype: str) -> None:
     """The read sweep returns its input itself, unchanged: the plain
     version (the identity) of a copy taken before the launch."""
@@ -254,85 +352,136 @@ PATHS = {
     "pl_hbm_copy": ({"hbm_copy": 1}, 1),
     "pl_hbm_read": ({"hbm_read": 1}, 1),
     "pl_hbm_write": ({"hbm_write": 1}, 1),
+    # the point-to-point slice: the library ops launch no kernel of the
+    # port; barrier and pl_barrier collapse the sweep to one point
+    "pingpong": ({}, 8),
+    "pingpong_unidir": ({}, 8),
+    "exchange": ({}, 8),
+    "ppermute": ({}, 8),
+    "ring": ({}, 8),
+    "halo": ({}, 8),
+    "barrier": ({}, 8),
+    "pl_ring": ({"ring": 1}, 8),
+    "pl_exchange": ({"exchange": 1}, 8),
+    "pl_pingpong": ({"pingpong": 2}, 8),
+    "pl_barrier": ({"barrier": 1}, 8),
 }
+#: per-rank sizes at which a path's output is checked, where not at the
+#: sweep's two ends: the library point-to-point ops stop at 16 MiB, since
+#: the host-side model check of 2 GiB a path is what costs the time (the
+#: kernels of the same functions are checked at 256 MiB)
+CHECK_BYTES = dict.fromkeys(
+    ("pingpong", "pingpong_unidir", "exchange", "ppermute", "ring", "halo"),
+    (4096, 16 * 1024**2))
+#: the reference's default run and its -u / -x: (flags, the op of the rows)
+DEFAULT_RUNS = (([], "pingpong"), (["-u"], "pingpong_unidir"),
+                (["-x"], "exchange"))
+
+
+def _drive(argv: list[str], what: str):
+    """One ``cli.main`` run with the counters set to 0 just before it and
+    read just after; returns (launches, plain calls, rows, wall s)."""
+    import glob
+    import tempfile
+
+    from tpu_perf_torch import cli, kernels
+    from tpu_perf_torch.schema import ResultRow
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as logdir:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["-l", logdir])
+        wall = time.perf_counter() - t0
+        got, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
+        rows = []
+        for path in sorted(glob.glob(os.path.join(logdir, "tpu-*.log"))):
+            with open(path) as fh:
+                rows += [ResultRow.from_csv(ln) for ln in fh if ln.strip()]
+    if rc != 0:
+        fail(f"{what} exited {rc}")
+    if any(plain.values()):
+        fail(f"{what}: plain versions called {plain}")
+    return got, rows, wall
 
 
 def phase_main_path() -> dict:
-    import glob
     import math
-    import tempfile
 
     import torch
 
-    from tpu_perf_torch import cli, kernels
     from tpu_perf_torch.config import Options
+    from tpu_perf_torch.metrics import is_latency_only
     from tpu_perf_torch.runner import sizes_for
-    from tpu_perf_torch.schema import ResultRow
     from tpu_perf_torch.selftest import format_results, run_selftest
     from tpu_perf_torch.world import SimWorld
 
     dev = torch.device("cuda", torch.cuda.current_device())
     launches: dict[str, dict[str, int]] = {}
-    sizes = sizes_for(Options(sweep=SWEEP))
-    n_sizes = len(sizes)
-    # each point: one warm-up run and RUNS measured runs (driver.Driver)
-    executions = n_sizes * (1 + RUNS) * ITERS
     for op, (needs, ranks) in PATHS.items():
-        with tempfile.TemporaryDirectory(prefix=f"chip_smoke-{op}-") as logdir:
-            kernels.reset_counts()
-            t0 = time.perf_counter()
-            rc = cli.main(["run", "--op", op, "--sweep", SWEEP, "-i",
-                           str(ITERS), "-r", str(RUNS), "-l", logdir,
-                           "--sim-ranks", str(ranks)])
-            wall = time.perf_counter() - t0
-            got, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
-            rows = []
-            for path in sorted(glob.glob(os.path.join(logdir, "tpu-*.log"))):
-                with open(path) as fh:
-                    rows += [ResultRow.from_csv(ln) for ln in fh if ln.strip()]
-        if rc != 0:
-            fail(f"run --op {op} exited {rc}")
+        # the op's own sizes: one point for the fixed-payload ops
+        sizes = sizes_for(Options(sweep=SWEEP, op=op))
+        n_sizes = len(sizes)
+        # each point: one warm-up run and RUNS measured runs (driver.Driver)
+        executions = n_sizes * (1 + RUNS) * ITERS
+        what = f"run --op {op}"
+        got, rows, wall = _drive(
+            ["run", "--op", op, "--sweep", SWEEP, "-i", str(ITERS), "-r",
+             str(RUNS), "--sim-ranks", str(ranks)], what)
         missing = [k for k in needs if got[k] == 0]
         if missing:
-            fail(f"run --op {op}: kernels {missing} never launched ({got})")
+            fail(f"{what}: kernels {missing} never launched ({got})")
         wrong = {k: got[k] for k, per in needs.items()
                  if got[k] != per * executions}
         if wrong:
-            fail(f"run --op {op}: launches {wrong}, want {needs} per "
-                 f"execution over {executions} executions")
+            fail(f"{what}: launches {wrong}, want {needs} per execution over "
+                 f"{executions} executions")
         extra = [k for k, v in got.items() if v and k not in needs]
         if extra:
-            fail(f"run --op {op}: launched kernels {extra} off its path")
-        if any(plain.values()):
-            fail(f"run --op {op}: plain versions called {plain}")
+            fail(f"{what}: launched kernels {extra} off its path")
         backend = "torch-sim" if ranks > 1 else "torch"
         if len(rows) != n_sizes * RUNS:
-            fail(f"run --op {op}: {len(rows)} rows, want {n_sizes * RUNS}")
+            fail(f"{what}: {len(rows)} rows, want {n_sizes * RUNS}")
+        latency_only = is_latency_only(op, ranks)
         for r in rows:
             if (r.op != op or r.backend != backend or r.n_devices != ranks
                     or r.iters != ITERS or not math.isfinite(r.busbw_gbps)
-                    or r.busbw_gbps <= 0):
-                fail(f"run --op {op}: bad row {r}")
+                    or (r.busbw_gbps <= 0) != latency_only or r.lat_us <= 0):
+                fail(f"{what}: bad row {r}")
         big = max(rows, key=lambda r: (r.nbytes, -r.time_ms))
         small = min(rows, key=lambda r: (r.nbytes, r.lat_us))
-        print(f"path: run --op {op} --sweep {SWEEP} --sim-ranks {ranks}: "
+        print(f"path: {what} --sweep {SWEEP} --sim-ranks {ranks}: "
               f"{len(rows)} rows in {wall:.1f} s, launches "
               f"{ {k: got[k] for k in needs} }, plain calls 0; largest point "
               f"{big.nbytes} B busbw {big.busbw_gbps:.1f} GB/s, smallest "
               f"point {small.nbytes} B lat {small.lat_us:.1f} us ({backend})")
         launches[op] = got
-        # the run's outputs at the sweep's ends, the same op built at the
-        # same flags on the same fill, against the selftest's numpy model
-        for nbytes in (min(sizes), max(sizes)):
+        # the run's outputs, the same op built at the same flags on the
+        # same fill, against the selftest's numpy model
+        for nbytes in sorted(set(CHECK_BYTES.get(op, (min(sizes),
+                                                      max(sizes))))):
             t0 = time.perf_counter()
             results = run_selftest(SimWorld(ranks, dev), ops=[op],
                                    nbytes=nbytes, iters=ITERS)
             if any(r.status != "ok" for r in results):
-                fail(f"run --op {op} output at {nbytes} B:\n"
+                fail(f"{what} output at {nbytes} B:\n"
                      f"{format_results(results)}")
-            print(f"path: run --op {op} output at {nbytes} B/rank, "
+            print(f"path: {what} output at {nbytes} B/rank, "
                   f"iters={ITERS}: {results[0].detail} against the selftest "
                   f"model ({time.perf_counter() - t0:.1f} s)")
+    # the reference's own default: no op named, -u, -x
+    for flags, op in DEFAULT_RUNS:
+        what = " ".join(["run", *flags])
+        got, rows, wall = _drive(["run", *flags], what)
+        if any(got.values()):
+            fail(f"{what}: launched kernels {got} (a library op)")
+        if (not rows or {(r.op, r.nbytes, r.n_devices, r.iters, r.backend)
+                         for r in rows}
+                != {(op, 456132, 8, 10, "torch-sim")}):
+            fail(f"{what}: rows {rows}, want {op} at 456132 B, 8 ranks, "
+                 "iters 10")
+        print(f"path: {what}: {len(rows)} row(s) of {op} at 456132 B, "
+              f"8 ranks, lat {rows[0].lat_us:.1f} us, busbw "
+              f"{rows[0].busbw_gbps:.1f} GB/s in {wall:.1f} s")
     return launches
 
 
@@ -499,6 +648,82 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     })
     del x
     out += _bulk_kernel_rows(per_rank_bytes, launches)
+    out += _p2p_kernel_rows(per_rank_bytes, launches)
+    return out
+
+
+def _p2p_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
+    """The point-to-point kernels at their 8-rank paths' inputs."""
+    import torch
+
+    from tpu_perf_torch.kernels import _build
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.ops.pallas_ring import (
+        barrier, barrier_plain, pair_exchange, pair_exchange_plain, pingpong,
+        pingpong_plain, ring_shift, ring_shift_plain,
+    )
+    from tpu_perf_torch.world import SimWorld
+
+    world = SimWorld(8, torch.device("cuda", torch.cuda.current_device()))
+    out = []
+
+    def row(name, source, replaces, op, err, ms, plain_ms, bound, library_ms,
+            x, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"tpu_perf_torch/csrc/{source}.cu",
+                "replaces": f"tpu_perf/ops/pallas_ring.py:{replaces}",
+                **_launches(launches, op, name), "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, **bound,
+                "library_ms": library_ms, **extra, "shape": list(x.shape),
+                "dtype": "float32"}
+
+    # ring and exchange: x read once, out written once
+    x = build_op("pl_ring", world, per_rank_bytes, 1).example_input
+    n = x.shape[0]
+    nb = x.numel() * x.element_size()
+    for name, replaces, op, kern, plain, shift in (
+            ("ring", 345, "pl_ring", ring_shift, ring_shift_plain, 1),
+            ("exchange", 365, "pl_exchange", pair_exchange,
+             pair_exchange_plain, n // 2)):
+        err = check_close(f"{name} at path shape", kern(x), plain(x),
+                          "float32")
+        out.append(row(name, "p2p_shift", replaces, op, err,
+                       cuda_ms(lambda: kern(x), 10),
+                       cuda_ms(lambda: plain(x), 10), _bound(2 * nb, 0),
+                       cuda_ms(lambda: torch.roll(x, shift, 0), 10), x))
+
+    # pingpong: the function reads x once and writes out once; its schedule
+    # moves group 0's payload through the stage, 3 * nb in all
+    got, stage = pingpong(x)
+    want, want_stage = torch.empty_like(x), torch.empty_like(x)
+    pingpong_plain(x, want, want_stage)
+    err = check_close("pingpong at path shape", got, want, "float32")
+    check_close("pingpong stage at path shape", stage[n // 2:],
+                want_stage[n // 2:], "float32")
+    del got, stage
+    schedule = _bound(3 * nb, 0)
+    out.append(row("pingpong", "pingpong", 385, "pl_pingpong", err,
+                   cuda_ms(lambda: pingpong(x), 10),
+                   cuda_ms(lambda: pingpong_plain(x, want, want_stage), 10),
+                   _bound(2 * nb, 0), cuda_ms(lambda: x.clone(), 10), x,
+                   schedule_bound_ms=schedule["bound_ms"],
+                   schedule_bytes=schedule["bytes"]))
+    del x, want, want_stage
+
+    # barrier at its path's one-element rows: a latency, set beside an
+    # empty kernel's launch through the same ctypes route and stream
+    x = build_op("pl_barrier", world, per_rank_bytes, 1).example_input
+    err = check_close("barrier at path shape", barrier(x), barrier_plain(x),
+                      "float32")
+    empty = _build.entry("barrier", "empty_launch")
+    stream_ptr = torch.cuda.current_stream().cuda_stream
+    reps = 2000
+    out.append(row("barrier", "barrier", 329, "pl_barrier", err,
+                   cuda_ms(lambda: barrier(x), reps),
+                   cuda_ms(lambda: barrier_plain(x), reps),
+                   _bound(2 * x.numel() * x.element_size(), 0),
+                   cuda_ms(lambda: x.clone(), reps), x,
+                   empty_launch_ms=cuda_ms(lambda: empty(stream_ptr), reps)))
     return out
 
 
@@ -612,12 +837,23 @@ def main() -> int:
                   f"({k['bound_by']}: {k['bytes']} B at {hbm / 1e12:g} TB/s, "
                   f"{k['ops']} f32 ops at {f32 / 1e12:g} TFLOP/s), "
                   f"{k['bound_ms'] / k['ms']:.1%} of bound")
+            if "schedule_bound_ms" in k:
+                print(f"kernel @{label}/rank: {k['name']}: the schedule "
+                      f"moves {k['schedule_bytes']} B, bound "
+                      f"{k['schedule_bound_ms']:.4f} ms, "
+                      f"{k['schedule_bound_ms'] / k['ms']:.1%} of it")
+            if "empty_launch_ms" in k:
+                print(f"kernel @{label}/rank: {k['name']} {k['shape']}: "
+                      f"{k['ms'] * 1e3:.2f} us per launch, an empty kernel's "
+                      f"launch {k['empty_launch_ms'] * 1e3:.2f} us, x.clone() "
+                      f"{k['library_ms'] * 1e3:.2f} us (one stream, "
+                      "back to back)")
     print(f"total: {time.perf_counter() - t_start:.1f} s (phases {phase_s}), "
           f"card: {smi}")
     # the JSON line reports the main path's largest shape, the last rows
     for k in rows:
-        for extra in ("shape", "dtype", "bytes", "ops"):
-            del k[extra]
+        for extra in ("shape", "dtype", "bytes", "ops", "schedule_bytes"):
+            k.pop(extra, None)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -97,7 +97,17 @@ def test_build_module_names_every_cuda_source_and_its_c_entry():
         assert m, symbol
         assert len(m.group(1).split(",")) == len(argtypes)
         assert "cudaGetLastError()" in text
-    assert set(kernels.KERNELS) == set(_build._ENTRIES) | {"stream"}
+    for (name, symbol), argtypes in _build._EXTRA_ENTRIES.items():
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        m = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text)
+        assert m and len(m.group(1).split(",")) == len(argtypes), symbol
+    # every counted kernel but the Triton stream is built from a source of
+    # the build module (ring and exchange share the row-shift source), and
+    # every source builds a counted kernel
+    source_of = {"ring": "p2p_shift", "exchange": "p2p_shift"}
+    cuda_kernels = set(kernels.KERNELS) - {"stream"}
+    assert ({source_of.get(k, k) for k in cuda_kernels}
+            == set(_build._ENTRIES))
 
 
 def test_build_outputs_are_ignored_by_git():

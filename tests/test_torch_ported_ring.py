@@ -135,6 +135,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     tpr.ring_all_gather(tpr.ring_reduce_scatter(x), src_full=True)
     tpr.stream(x)
     tpr.hbm_write(tpr.hbm_read(tpr.hbm_copy(x)), 4)
+    tpr.barrier(tpr.pingpong(tpr.pair_exchange(tpr.ring_shift(x)))[0])
     assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0)
     assert kernels.PLAIN_CALLS == dict.fromkeys(kernels.KERNELS, 1)
 

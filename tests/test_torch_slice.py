@@ -165,11 +165,12 @@ def test_selftest_models_pass_on_the_cpu(dtype, n, iters):
 
 
 def test_selftest_cli_and_ops_listing(capsys):
+    # at 5 ranks the six pair ops (even rank counts only) skip
     assert cli.main(["selftest", "--device", "cpu", "--sim-ranks", "5"]) == 0
-    assert "12 ok, 0 skipped, 0 failed" in capsys.readouterr().out
+    assert "17 ok, 6 skipped, 0 failed" in capsys.readouterr().out
     assert cli.main(["ops"]) == 0
     listed = capsys.readouterr().out.splitlines()
-    assert "pl_allreduce" in listed and "pl_ring  (not yet ported)" in listed
+    assert "pl_allreduce" in listed and "pl_all_to_all  (not yet ported)" in listed
 
 
 def test_bench_prints_one_labelled_json_line(monkeypatch, capsys):
@@ -243,8 +244,10 @@ def test_config_defaults_match():
     assert tconfig.FENCE_MODES == jtiming.FENCE_MODES
     assert ttiming.SLOPE_ITERS_FACTOR == jtiming.SLOPE_ITERS_FACTOR
     t, j = Options(), jconfig.Options()
-    assert (t.iters, t.buff_sz, t.num_runs, t.fence, t.dtype, t.warmup_runs) \
-        == (j.iters, j.buff_sz, j.num_runs, j.fence, j.dtype, j.warmup_runs)
+    assert (t.op, t.iters, t.buff_sz, t.num_runs, t.fence, t.dtype,
+            t.warmup_runs, t.uni_dir, t.nonblocking) \
+        == (j.op, j.iters, j.buff_sz, j.num_runs, j.fence, j.dtype,
+            j.warmup_runs, j.uni_dir, j.nonblocking)
 
 
 @pytest.mark.parametrize("bad", [dict(iters=0), dict(buff_sz=-1),

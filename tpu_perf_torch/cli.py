@@ -2,11 +2,16 @@
 ``chips``, ``selftest`` and ``bench`` subcommands of ``tpu_perf/cli.py``).
 
 Flag letters keep the reference's meanings (mpi_perf.c:273-339) where the
-slice has them: ``-i`` iters, ``-b`` buffer size, ``-r`` runs, ``-l`` log
-folder.  Additions: ``--sim-ranks`` (ranks of the single-card sim world)
-and ``--device`` (``cuda``, the default, or ``cpu`` for the plain PyTorch
+port has them: ``-i`` iters, ``-b`` buffer size, ``-r`` runs, ``-l`` log
+folder, ``-u`` unidirectional with a 1-byte ack, ``-x`` non-blocking
+exchange; the default op is the reference's blocking ping-pong.
+Additions: ``--sim-ranks`` (ranks of the single-card sim world) and
+``--device`` (``cuda``, the default, or ``cpu`` for the plain PyTorch
 versions)::
 
+    python -m tpu_perf_torch run            # pingpong at 456131 B, 8 ranks
+    python -m tpu_perf_torch run -u         # pingpong_unidir
+    python -m tpu_perf_torch run -x         # exchange
     python -m tpu_perf_torch run --op pl_allreduce --sweep 4K:256M
     python -m tpu_perf_torch grid --op pl_hbm_copy,hbm_stream --sizes 256M,1G \
         --iters 8,32 --spec hbm --sim-ranks 1
@@ -28,6 +33,18 @@ from tpu_perf_torch.schema import RESULT_HEADER
 from tpu_perf_torch.sweep import DEF_BUF_SZ, format_size, parse_size
 
 
+class _ZeroOne(argparse.Action):
+    """Reference-style boolean flag: bare ``-u`` means on, ``-u 0``/``-u 1``
+    are the reference's explicit spelling (mpi_perf.c:312,322)."""
+
+    def __init__(self, option_strings, dest, **kwargs):
+        super().__init__(option_strings, dest, nargs="?", const="1",
+                         default=False, choices=("0", "1"), **kwargs)
+
+    def __call__(self, parser, namespace, value, option_string=None):
+        setattr(namespace, self.dest, (value or "1") == "1")
+
+
 def _add_world_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--sim-ranks", type=int, default=DEF_SIM_RANKS,
                    help="ranks of the single-card sim world (rows of one "
@@ -44,7 +61,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
     opts = Options(
         logfolder=args.logfolder, iters=args.iters,
         buff_sz=parse_size(args.size), num_runs=args.runs, op=args.op,
-        sweep=args.sweep, dtype=args.dtype, fence=args.fence,
+        uni_dir=args.unidir, nonblocking=args.nonblocking, sweep=args.sweep,
+        dtype=args.dtype, fence=args.fence,
         stats_every=args.stats_every, log_refresh_sec=args.log_refresh_sec,
         sim_ranks=args.sim_ranks, device=args.device,
     )
@@ -193,9 +211,14 @@ def build_parser() -> argparse.ArgumentParser:
                        help="chained executions per run")
     p_run.add_argument("-b", "--size", default=str(DEF_BUF_SZ),
                        help="buffer size (e.g. 4M)")
+    p_run.add_argument("-u", "--unidir", action=_ZeroOne,
+                       help="unidirectional + ack kernel (pingpong_unidir)")
     p_run.add_argument("-r", "--runs", type=int, default=1, help="measured runs")
-    p_run.add_argument("--op", default="pl_allreduce",
-                       help="measurement op (see `ops`)")
+    p_run.add_argument("-x", "--nonblocking", action=_ZeroOne,
+                       help="both directions at once (exchange)")
+    p_run.add_argument("--op", default="pingpong",
+                       help="measurement op (see `ops`); -u / -x pick the "
+                            "kernel when it is the default pingpong")
     p_run.add_argument("--sweep", default=None, help="size sweep, e.g. 8:1G or 8,64K,4M")
     p_run.add_argument("--fence", choices=FENCE_MODES, default="block",
                        help="timing fence (tpu_perf_torch.timing); fused and "

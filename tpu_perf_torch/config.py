@@ -1,9 +1,10 @@
 """Run configuration for this package's ``run`` slice.
 
 Defaults and validation messages are the JAX package's
-(``tpu_perf/config.py``): iters 10 (mpi_perf.c:15), buffer 456131 bytes
-(mpi_perf.c:14), one run, the same payload dtypes and fence names.  The
-additions are the sim world's rank count and the device.
+(``tpu_perf/config.py``): op ``pingpong``, iters 10 (mpi_perf.c:15), buffer
+456131 bytes (mpi_perf.c:14), one run, the same payload dtypes and fence
+names, ``-u`` / ``-x``.  The additions are the sim world's rank count and
+the device.  The windowed ``-x`` (``--window``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ class Options:
     buff_sz: int = DEF_BUF_SZ         # -b
     num_runs: int = 1                 # -r
     uuid: str = dataclasses.field(default_factory=new_job_id)
-    op: str = "pl_allreduce"          # the slice's main path
+    op: str = "pingpong"              # the reference's blocking ping-pong
+    uni_dir: bool = False             # -u: payload one way, 1-element ack back
+    nonblocking: bool = False         # -x: both directions at once (exchange)
     sweep: str | None = None          # e.g. "8:1G"; None = single buff_sz point
     dtype: str = "float32"
     log_refresh_sec: int = LOG_REFRESH_TIME_SEC
@@ -83,3 +86,7 @@ class Options:
         if self.device not in (None, "cuda", "cpu"):
             raise ValueError(
                 f"device must be 'cuda' or 'cpu', got {self.device!r}")
+        if self.uni_dir and self.nonblocking:
+            # the reference picks one kernel by if / else if
+            # (mpi_perf.c:506-523); the conflict is made loud instead
+            raise ValueError("uni_dir and nonblocking are mutually exclusive")

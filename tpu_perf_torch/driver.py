@@ -26,7 +26,7 @@ from tpu_perf_torch.config import Options
 from tpu_perf_torch.metrics import summarize
 from tpu_perf_torch.ops.collectives import BuiltOp
 from tpu_perf_torch.runner import (
-    SweepPointResult, build_point_pair, sizes_for, world_for,
+    SweepPointResult, build_point_pair, op_for_options, sizes_for, world_for,
 )
 from tpu_perf_torch.schema import (
     EXT_PREFIX, LEGACY_PREFIX, LegacyRow, ResultRow, timestamp_now,
@@ -130,9 +130,10 @@ class Driver:
 
     def run(self) -> list[ResultRow]:
         """Execute the configured sweep; returns the extended-schema rows."""
+        op = op_for_options(self.opts)
         try:
-            for nbytes in sizes_for(self.opts):
-                self._run_finite(self.opts.op, nbytes)
+            for nbytes in sizes_for(self.opts, op):
+                self._run_finite(op, nbytes)
         finally:
             if self.log is not None:
                 self.log.close()

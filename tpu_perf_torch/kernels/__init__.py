@@ -11,7 +11,7 @@ main path must show launches and no plain calls.
 from __future__ import annotations
 
 KERNELS = ("ring_reduce_scatter", "ring_all_gather", "stream", "hbm_copy",
-           "hbm_read", "hbm_write")
+           "hbm_read", "hbm_write", "ring", "exchange", "pingpong", "barrier")
 
 #: kernel launches since the last reset_counts()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

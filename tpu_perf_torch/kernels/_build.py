@@ -46,9 +46,21 @@ _ENTRIES = {
     "hbm_read": ("hbm_read_rows", [_P, _I, _L, _P]),
     # (src, dst, n, row_bytes, block_bytes, stream)
     "hbm_write": ("hbm_write_rows", [_P, _P, _I, _L, _L, _P]),
+    # (src, out, n, row_bytes, shift, stream)
+    "p2p_shift": ("p2p_shift_rows", [_P, _P, _I, _L, _I, _P]),
+    # (x, out, stage, n, row_bytes, leg, stream)
+    "pingpong": ("pingpong_leg", [_P, _P, _P, _I, _L, _I, _P]),
+    # (src, out, counters, n, row_bytes, generation, stream)
+    "barrier": ("barrier_rows", [_P, _P, _P, _I, _L, _L, _P]),
+}
+#: further C entry points of a source, beside its kernel's: (source,
+#: symbol) -> argument types
+_EXTRA_ENTRIES = {
+    # an empty kernel's launch, the yardstick for the barrier's latency
+    ("barrier", "empty_launch"): [_P],
 }
 
-_loaded: dict[str, ctypes._CFuncPtr] = {}
+_loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -103,17 +115,20 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def entry(name: str):
-    """The C entry point of kernel source ``name`` (built if stale)."""
-    fn = _loaded.get(name)
+def entry(name: str, symbol: str | None = None):
+    """The C entry point of kernel source ``name`` (built if stale): its
+    kernel's, or the named one of ``_EXTRA_ENTRIES``."""
+    key = (name, symbol or _ENTRIES[name][0])
+    fn = _loaded.get(key)
     if fn is None:
         if _stale(name):
             _finish(name, *_start(name))
-        symbol, argtypes = _ENTRIES[name]
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
+        argtypes = (_ENTRIES[name][1] if symbol is None
+                    else _EXTRA_ENTRIES[key])
+        fn = getattr(ctypes.CDLL(str(_lib_path(name))), key[1])
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        _loaded[key] = fn
     return fn
 
 

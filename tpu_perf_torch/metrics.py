@@ -86,11 +86,16 @@ def bus_bandwidth_gbps(op: str, nbytes: int, seconds: float, n_devices: int) -> 
     return alg_bandwidth_gbps(nbytes, seconds) * factor
 
 
-def latency_us(seconds: float, iters: int) -> float:
-    """Per-operation latency in microseconds from a timed loop of ``iters``."""
+def latency_us(seconds: float, iters: int, *, round_trip: bool = False) -> float:
+    """Per-operation latency in microseconds from a timed loop of ``iters``.
+
+    With ``round_trip`` the time covers a full ping-pong round trip and the
+    one-way latency is half of it (the reference reports the round trip's
+    wall time; the rows report one way, as latency benchmarks do)."""
     if iters <= 0:
         raise ValueError(f"non-positive iters {iters}")
-    return seconds / iters * 1e6
+    t = seconds / iters
+    return (t / 2 if round_trip else t) * 1e6
 
 
 def percentile(samples: list[float], q: float) -> float:

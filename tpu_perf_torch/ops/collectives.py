@@ -8,7 +8,13 @@ the mean, not the sum).  The ops of this slice:
 
 * ``allreduce`` — the library reduction, as XLA's ``psum`` is a library
   collective there: in the sim world, ``torch.sum`` over the ranks times
-  1/n, broadcast back to every rank;
+  1/n, broadcast back to every rank; ``barrier`` is the same body on one
+  element;
+* the point-to-point ops ``pingpong``, ``pingpong_unidir``, ``exchange``
+  (alias ``ppermute``), ``ring`` and ``halo`` — XLA's ``ppermute`` as
+  PyTorch indexing on the ``(n, elems)`` rows: row d of the result is the
+  row its source rank sent, and a rank no one sends to gets zeros, as
+  ``ppermute`` zero-fills it;
 * ``hbm_stream`` — the local memory baseline, ``x * 1.0000001 + 1e-7``
   (``x + 1`` for integers) as plain PyTorch operations;
 * ``hbm_read``, ``hbm_write``, ``hbm_triad`` — the read, write and 2R:1W
@@ -78,7 +84,11 @@ def payload_elems(op: str, nbytes: int, n: int, itemsize: int) -> tuple[int, int
 #: ops that reduce (scale by 1/n, or take a mean) — integer payloads would
 #: measure another computation (the JAX package's list, restricted to the
 #: ported ops)
-FLOAT_ONLY_OPS = ("allreduce", "hbm_read", "pl_allreduce", "pl_reduce_scatter")
+FLOAT_ONLY_OPS = ("allreduce", "barrier", "hbm_read", "pl_allreduce",
+                  "pl_reduce_scatter")
+#: the point-to-point ops whose pair permutation needs an even rank count
+#: (ring and halo shift by one, valid for any n)
+_NEEDS_EVEN = ("pingpong", "pingpong_unidir", "exchange", "ppermute")
 
 
 def is_float_dtype(dtype: str) -> bool:
@@ -217,12 +227,93 @@ def _hbm_triad(world: SimWorld, dtype: torch.dtype) -> Callable:
     return body
 
 
+# The point-to-point bodies: XLA's ppermute over the rows.  ``shift_rows``
+# is the ring permutation i -> i + k; the pair ops split the ranks into
+# group 0 (rows [0, n/2)) and group 1 (rows [n/2, n)), rank i paired with
+# i + n/2 (tpu_perf/topology.py pair_permutation).
+
+
+def shift_rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``out[d] = x[(d - k) mod n]``: every rank sends its row to rank
+    d + k, in two slice copies."""
+    n = x.shape[0]
+    k %= n
+    out = torch.empty_like(x)
+    out[k:] = x[:n - k]
+    out[:k] = x[n - k:]
+    return out
+
+
+def _one_way(x: torch.Tensor, *, back: bool = False) -> torch.Tensor:
+    # group 0 -> group 1 (or back), the unidirectional half of the pair
+    # permutation; the ranks no one sends to get zeros
+    half = x.shape[0] // 2
+    src, dst = (slice(half, None), slice(None, half)) if back else \
+        (slice(None, half), slice(half, None))
+    out = torch.empty_like(x)
+    out[dst] = x[src]
+    out[src] = 0
+    return out
+
+
+def _pingpong(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # payload there and back: group 0 gets its payload back, group 1 ends
+    # with zeros (it is no target of the return leg)
+    def body(x):
+        return _one_way(_one_way(x), back=True)
+
+    return body
+
+
+def _pingpong_unidir(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # the payload goes one way; its first element comes back as the
+    # 1-element ack into slot 0 (mpi_perf.c:137,142).  Slot 0 is updated in
+    # place on the carry, as XLA updates the loop carry: group 0 gets its
+    # own first element back, group 1's slot 0 gets zero
+    def body(x):
+        ack = _one_way(x)[:, :1]
+        x[:, :1] = _one_way(ack, back=True)
+        return x
+
+    return body
+
+
+def _exchange(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # both directions of the pair permutation at once
+    half = world.n // 2
+    return lambda x: shift_rows(x, half)
+
+
+def _ring(world: SimWorld, dtype: torch.dtype) -> Callable:
+    return lambda x: shift_rows(x, 1)
+
+
+def _halo(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # my right edge -> right neighbour's left halo and my left edge -> left
+    # neighbour's right halo: each rank ends with [left neighbour's right
+    # edge, right neighbour's left edge]
+    def body(x):
+        h = x.shape[1] // 2
+        return torch.cat([shift_rows(x[:, h:], 1), shift_rows(x[:, :h], -1)],
+                         dim=1)
+
+    return body
+
+
 OP_BUILDERS: dict[str, Callable] = {
     "allreduce": _allreduce,
+    # a 1-element mean: the collective's latency (payload_elems fixes it)
+    "barrier": _allreduce,
+    "exchange": _exchange,
+    "halo": _halo,
     "hbm_read": _hbm_read,
     "hbm_stream": _hbm_stream,
     "hbm_triad": _hbm_triad,
     "hbm_write": _hbm_write,
+    "pingpong": _pingpong,
+    "pingpong_unidir": _pingpong_unidir,
+    "ppermute": _exchange,  # alias: the raw pairwise exchange
+    "ring": _ring,
 }
 
 
@@ -264,6 +355,8 @@ def build_op(op: str, world: SimWorld, nbytes: int, iters: int, *,
             f"{op} reduces/multiplies its payload and needs a float dtype, "
             f"got {dtype} (byte-movement ops accept any dtype)"
         )
+    if op in _NEEDS_EVEN and world.n % 2:
+        raise ValueError(f"{op} needs an even device count, got {world.n}")
     if op in PALLAS_OPS:
         step, elems, actual = build_pallas_step(op, world, nbytes, iters,
                                                 dtype=dtype)

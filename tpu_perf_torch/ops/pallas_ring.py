@@ -15,7 +15,15 @@ is written by hand for Hopper:
 * ``hbm_copy``, ``hbm_read``, ``hbm_write`` — CUDA C++ on Hopper's TMA bulk
   copies, ``csrc/hbm_{copy,read,write}.cu`` (replace ``_hbm_copy_kernel``,
   ``_hbm_read_kernel`` and ``_hbm_write_kernel``, the TPU's local DMA
-  instruments).
+  instruments);
+* ``ring_shift``, ``pair_exchange`` — CUDA C++, one row-shift kernel
+  ``csrc/p2p_shift.cu`` (replaces ``_ring_kernel`` and ``_exchange_kernel``;
+  counted apart as ``ring`` and ``exchange``);
+* ``pingpong`` — CUDA C++, ``csrc/pingpong.cu`` (replaces
+  ``_pingpong_kernel``), one launch per leg;
+* ``barrier`` — CUDA C++, ``csrc/barrier.cu`` (replaces ``_barrier_kernel``
+  with ``_global_barrier``), a cooperative launch of one CTA per rank that
+  meets at device-memory arrival counters.
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 PyTorch version, the same ring schedule step by step over the sim ranks,
@@ -42,7 +50,8 @@ PALLAS_OPS = (
 )
 #: the pl_* ops this package runs; the others raise NotImplementedError
 PORTED_OPS = ("pl_all_gather", "pl_reduce_scatter", "pl_allreduce",
-              "pl_hbm_stream", "pl_hbm_copy", "pl_hbm_read", "pl_hbm_write")
+              "pl_hbm_stream", "pl_hbm_copy", "pl_hbm_read", "pl_hbm_write",
+              "pl_ring", "pl_exchange", "pl_pingpong", "pl_barrier")
 
 #: the JAX package's chunk-rounding tile (its VMEM accumulation tile):
 #: reduce-scatter chunks above it round up to a multiple of it.  It decides
@@ -272,6 +281,140 @@ def hbm_write(x: torch.Tensor, block: int) -> torch.Tensor:
     return out
 
 
+# --- the point-to-point kernels ------------------------------------------
+# x is (n, elems): rank r's buffer is row r.  group 0 is ranks [0, n/2),
+# rank d's partner is d + n/2.
+
+
+def _shift_plain(name: str, x: torch.Tensor, shift: int) -> torch.Tensor:
+    # out[d] = x[(d - shift) mod n], one gather of whole rows
+    kernels.PLAIN_CALLS[name] += 1
+    n = x.shape[0]
+    return x[(torch.arange(n, device=x.device) - shift) % n]
+
+
+def _shift(name: str, x: torch.Tensor, shift: int) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return _shift_plain(name, x, shift)
+    _check_cuda(name, x)
+    n, row = x.shape
+    out = torch.empty_like(x)
+    err = _build.entry("p2p_shift")(x.data_ptr(), out.data_ptr(), n,
+                                    row * x.element_size(), shift % n,
+                                    _stream_of(x))
+    _build.check(name, err)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
+def ring_shift_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the ring kernel: ``out[d] = x[d-1]``."""
+    return _shift_plain("ring", x, 1)
+
+
+def ring_shift(x: torch.Tensor) -> torch.Tensor:
+    """Every rank sends its row to its right neighbour, (d+1) mod n; returns
+    a new tensor with ``out[d] = x[(d-1) mod n]``.  One launch."""
+    return _shift("ring", x, 1)
+
+
+def _check_even(name: str, n: int) -> None:
+    if n % 2:
+        raise ValueError(f"{name} needs an even rank count, got {n}")
+
+
+def pair_exchange_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the exchange kernel: the two groups
+    swap rows, ``out[d] = x[(d + n/2) mod n]``."""
+    _check_even("pair_exchange", x.shape[0])
+    return _shift_plain("exchange", x, x.shape[0] // 2)
+
+
+def pair_exchange(x: torch.Tensor) -> torch.Tensor:
+    """Every rank swaps its row with its partner d + n/2, both directions
+    at once; returns a new tensor.  Even n; one launch."""
+    _check_even("pair_exchange", x.shape[0])
+    return _shift("exchange", x, x.shape[0] // 2)
+
+
+def pingpong_plain(x: torch.Tensor, out: torch.Tensor,
+                   stage: torch.Tensor) -> None:
+    """The kernel's two legs in plain PyTorch, through the real stage:
+    group 0's rows go into the partners' stage rows and come back from
+    there into group 0's output; group 1 copies its own rows.  ``out`` and
+    ``stage`` are written in place; stage rows below n/2 are not."""
+    kernels.PLAIN_CALLS["pingpong"] += 1
+    half = x.shape[0] // 2
+    stage[half:] = x[:half]    # leg 1: group 0 -> the partner's stage
+    out[half:] = x[half:]      #        group 1 keeps its own payload
+    out[:half] = stage[half:]  # leg 2: the payload back into group 0
+
+
+def pingpong(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The serialized round trip between the groups; returns ``(out,
+    stage)``.  ``out`` equals ``x`` (group 0's rows went to the partner's
+    stage and back); ``stage[d + n/2]`` holds group 0's row d, the other
+    stage rows are left unwritten.  Even n; one launch per leg, the return
+    leg ordered after the first by the stream."""
+    n, row = x.shape
+    _check_even("pingpong", n)
+    out = torch.empty_like(x)
+    stage = torch.empty_like(x)
+    if x.device.type == "cpu":
+        pingpong_plain(x, out, stage)
+        return out, stage
+    _check_cuda("pingpong", x)
+    fn = _build.entry("pingpong")
+    stream_ptr = _stream_of(x)
+    for leg in (1, 2):
+        err = fn(x.data_ptr(), out.data_ptr(), stage.data_ptr(), n,
+                 row * x.element_size(), leg, stream_ptr)
+        _build.check("pingpong", err)
+        kernels.LAUNCHES["pingpong"] += 1
+    return out, stage
+
+
+#: (device index, n) -> [arrival counters, generations launched]: the
+#: barrier's state on one device, for launches on one stream.  Counters only
+#: grow; each launch waits for n * its generation.
+_BARRIER_STATE: dict[tuple[int, int], list] = {}
+
+
+def barrier_plain(x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the barrier kernel: with every rank in
+    one process the barrier itself is empty, and the copy is a clone."""
+    kernels.PLAIN_CALLS["barrier"] += 1
+    return x.clone()
+
+
+def barrier(x: torch.Tensor) -> torch.Tensor:
+    """Every rank signals all n ranks and waits for n signals, then copies
+    its row; returns a new tensor equal to ``x``.  One cooperative launch of
+    one CTA per rank; a barrier that does not complete within about a
+    second traps (an error at the next synchronize), never hangs."""
+    if x.device.type == "cpu":
+        return barrier_plain(x)
+    _check_cuda("barrier", x)
+    n, row = x.shape
+    key = (x.device.index, n)
+    state = _BARRIER_STATE.get(key)
+    if state is None:
+        state = _BARRIER_STATE[key] = [
+            torch.zeros(n, dtype=torch.int64, device=x.device), 0]
+    counters, generation = state[0], state[1] + 1
+    out = torch.empty_like(x)
+    err = _build.entry("barrier")(x.data_ptr(), out.data_ptr(),
+                                  counters.data_ptr(), n,
+                                  row * x.element_size(), generation,
+                                  _stream_of(x))
+    _build.check("barrier", err)
+    # advanced only once the launch is in: a refused launch adds nothing,
+    # and the next one must not wait for its arrivals
+    state[1] = generation
+    kernels.LAUNCHES["barrier"] += 1
+    return out
+
+
 # --- the pl_* ops -------------------------------------------------------
 
 
@@ -289,6 +432,8 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
     if op not in PORTED_OPS:
         raise NotImplementedError(f"{op} is not yet ported; see ROADMAP")
     n = world.n
+    if op in ("pl_exchange", "pl_pingpong") and n % 2:
+        raise ValueError(f"{op} needs an even device count, got {n}")
     tdtype = DTYPES[dtype]
     itemsize = tdtype.itemsize
     if op == "pl_all_gather":
@@ -315,7 +460,18 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
         align = max(1, _DMA_ALIGN_BYTES // itemsize)
         elems = chunk = -(-max(1, -(-nbytes // itemsize)) // align) * align
         actual = elems * itemsize
-    else:  # pl_hbm_stream, pl_hbm_copy: exactly the hbm_stream rounding
+    elif op == "pl_barrier":
+        if n < 2:
+            # the JAX package's message, kept word for word
+            raise ValueError(
+                "pl_barrier needs at least 2 devices; a single-device "
+                "run measures a local semaphore self-signal, not ICI"
+            )
+        # latency only: one element whatever -b asks, like the barrier op
+        elems = chunk = 1
+        actual = itemsize
+    else:  # the hbm_stream rounding: pl_hbm_stream, pl_hbm_copy, pl_ring,
+        # pl_exchange, pl_pingpong
         elems = chunk = max(1, -(-nbytes // itemsize))
         actual = elems * itemsize
 
@@ -339,6 +495,16 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
     if op == "pl_hbm_write":
         block = hbm_dma_block_elems(itemsize, elems)
         return chained(lambda x: hbm_write(x, block), iters), elems, actual
+    if op == "pl_ring":
+        return chained(ring_shift, iters), elems, actual
+    if op == "pl_exchange":
+        return chained(pair_exchange, iters), elems, actual
+    if op == "pl_pingpong":
+        # the round trip is the identity on both groups; the stage output
+        # is discarded, as the JAX step discards it
+        return chained(lambda x: pingpong(x)[0], iters), elems, actual
+    if op == "pl_barrier":
+        return chained(barrier, iters), elems, actual
     inv = torch.tensor(1.0 / n, dtype=tdtype, device=world.device)
     if op == "pl_reduce_scatter":
         # own reduced chunk * 1/n, tiled over the whole buffer

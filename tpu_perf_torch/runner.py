@@ -21,6 +21,26 @@ from tpu_perf_torch.timing import (
 )
 from tpu_perf_torch.world import SimWorld, resolve_device
 
+#: ops whose timing covers a round trip (latency convention: one way = t/2)
+_ROUND_TRIP_OPS = ("pingpong", "pl_pingpong")
+
+#: ops whose payload is fixed whatever -b / --sweep ask (sweeping them
+#: would time the identical kernel once per size)
+FIXED_PAYLOAD_OPS = ("barrier", "pl_barrier")
+
+
+def op_for_options(opts: Options) -> str:
+    """The kernel an Options selects, with the reference's precedence
+    (mpi_perf.c:504-523: nonblocking > unidir > blocking) when ``op`` is
+    the default pingpong; any other op is run as named."""
+    if opts.op != "pingpong":
+        return opts.op
+    if opts.nonblocking:
+        return "exchange"
+    if opts.uni_dir:
+        return "pingpong_unidir"
+    return "pingpong"
+
 
 def world_for(opts: Options) -> SimWorld:
     """The sim world an Options asks for: ``sim_ranks`` ranks on the card
@@ -41,9 +61,14 @@ class SweepPointResult:
 
     def rows(self, job_id: str, backend: str) -> list[ResultRow]:
         no_payload = is_latency_only(self.op, self.n_devices)
+        round_trip = self.op in _ROUND_TRIP_OPS
         out = []
         for run_id, t in enumerate(self.times.samples, start=1):
             per_op = t / self.iters
+            if round_trip:
+                # one iteration moves nbytes each way in t: bandwidth is
+                # per direction, over the one-way time of the halved lat_us
+                per_op = per_op / 2
             out.append(ResultRow(
                 timestamp=timestamp_now(),
                 job_id=job_id,
@@ -53,7 +78,7 @@ class SweepPointResult:
                 iters=self.iters,
                 run_id=run_id,
                 n_devices=self.n_devices,
-                lat_us=latency_us(t, self.iters),
+                lat_us=latency_us(t, self.iters, round_trip=round_trip),
                 algbw_gbps=0.0 if no_payload
                 else alg_bandwidth_gbps(self.nbytes, per_op),
                 busbw_gbps=bus_bandwidth_gbps(
@@ -83,7 +108,7 @@ def run_point(opts: Options, world: SimWorld, nbytes: int, *,
               op: str | None = None) -> SweepPointResult:
     """Measure one sweep point: ``opts.num_runs`` runs of ``opts.iters``
     chained executions each."""
-    op = op or opts.op
+    op = op or op_for_options(opts)
     built, built_hi = build_point_pair(opts, world, op, nbytes)
     x = built.example_input
     if opts.fence in ("slope", "trace"):
@@ -101,14 +126,22 @@ def run_point(opts: Options, world: SimWorld, nbytes: int, *,
                             dtype=opts.dtype)
 
 
-def sizes_for(opts: Options) -> list[int]:
-    """The sweep (or single buff_sz) for ``opts``, dtype-aligned."""
+def sizes_for(opts: Options, op: str | None = None) -> list[int]:
+    """The sweep (or single buff_sz) for ``opts``, dtype-aligned; one
+    point for the fixed-payload ops (their builders clamp the payload, so
+    more sizes would time the identical kernel).  ``op`` overrides the
+    options' own kernel selection."""
     if opts.sweep:
-        return parse_sweep(opts.sweep, align=DTYPES[opts.dtype].itemsize)
-    return [opts.buff_sz]
+        sizes = parse_sweep(opts.sweep, align=DTYPES[opts.dtype].itemsize)
+    else:
+        sizes = [opts.buff_sz]
+    if (op or op_for_options(opts)) in FIXED_PAYLOAD_OPS:
+        sizes = sizes[:1]
+    return sizes
 
 
 def run_sweep(opts: Options, world: SimWorld) -> Iterator[SweepPointResult]:
     """Run every point of the configured sweep (or the single buff_sz)."""
-    for nbytes in sizes_for(opts):
-        yield run_point(opts, world, nbytes)
+    op = op_for_options(opts)
+    for nbytes in sizes_for(opts, op):
+        yield run_point(opts, world, nbytes, op=op)

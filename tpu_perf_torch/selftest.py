@@ -26,6 +26,42 @@ def _reduce_scatter(x: np.ndarray) -> np.ndarray:
     return np.tile(red, n)  # row d: red[d], n times
 
 
+def _pingpong(x: np.ndarray) -> np.ndarray:
+    # payload there and back: group 0 (first half) gets its payload back,
+    # group 1 ends at zero (ppermute zero-fills the ranks it does not target)
+    out = np.zeros_like(x)
+    out[: x.shape[0] // 2] = x[: x.shape[0] // 2]
+    return out
+
+
+def _pingpong_unidir(x: np.ndarray) -> np.ndarray:
+    # group 0 keeps its buffer and receives its own first element back as
+    # the 1-element ack; group 1's ack slot is zeroed (no inbound ack)
+    out = x.copy()
+    out[x.shape[0] // 2:, 0] = 0
+    return out
+
+
+def _exchange(x: np.ndarray) -> np.ndarray:
+    half = x.shape[0] // 2
+    return np.concatenate([x[half:], x[:half]])
+
+
+def _ring(x: np.ndarray) -> np.ndarray:
+    return np.roll(x, 1, axis=0)
+
+
+def _halo(x: np.ndarray) -> np.ndarray:
+    # each rank ends with [left neighbour's right edge, right neighbour's
+    # left edge]
+    n, elems = x.shape
+    h = elems // 2
+    out = np.empty_like(x)
+    for d in range(n):
+        out[d] = np.concatenate([x[(d - 1) % n][elems - h:], x[(d + 1) % n][:h]])
+    return out
+
+
 def _identity(x: np.ndarray) -> np.ndarray:
     return x
 
@@ -85,6 +121,19 @@ def _pl_hbm_write_for(dtype: str) -> Callable[[np.ndarray], np.ndarray]:
 #: op -> model of ONE application on the (n_ranks, per_rank) global array
 EXPECTATIONS: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     "allreduce": _mean_all,
+    "barrier": _mean_all,
+    "exchange": _exchange,
+    "halo": _halo,
+    "pingpong": _pingpong,
+    "pingpong_unidir": _pingpong_unidir,
+    "ppermute": _exchange,
+    "ring": _ring,
+    "pl_ring": _ring,
+    "pl_exchange": _exchange,
+    # round trip: both groups end with their own payload (group 1 keeps it
+    # by the local copy), so any wrong dispatch fails
+    "pl_pingpong": _identity,
+    "pl_barrier": _identity,  # barrier + the 1-element copy
     "hbm_read": _hbm_read,
     "hbm_stream": _hbm_stream,
     "hbm_triad": _hbm_triad,
@@ -147,6 +196,23 @@ class SelftestResult:
     detail: str = ""
 
 
+#: the ops whose pair permutation needs an even rank count
+_EVEN_OPS = ("pingpong", "pingpong_unidir", "exchange", "ppermute",
+             "pl_exchange", "pl_pingpong")
+#: the ops that need a peer
+_TWO_OR_MORE_OPS = ("pl_reduce_scatter", "pl_allreduce", "pl_barrier")
+
+
+def _skip_reason(op: str, n: int) -> str | None:
+    """The rank-count constraint an n-rank world fails, if any (the JAX
+    package's reasons; the sim world is always one axis)."""
+    if op in _EVEN_OPS and n % 2:
+        return "needs an even device count"
+    if op in _TWO_OR_MORE_OPS and n < 2:
+        return "needs at least 2 devices"
+    return None
+
+
 def run_selftest(world, *, ops: list[str] | None = None, nbytes: int = 4096,
                  dtype: str = "float32", iters: int = 1) -> list[SelftestResult]:
     """Validate each op's payload numerics on ``world``; never raises per
@@ -165,11 +231,12 @@ def run_selftest(world, *, ops: list[str] | None = None, nbytes: int = 4096,
     rtol = _RTOL.get(dtype, 1e-5)
     results: list[SelftestResult] = []
     for op in todo:
+        reason = _skip_reason(op, world.n)
+        if reason:
+            results.append(SelftestResult(op, "skip", reason))
+            continue
         if is_int and op in FLOAT_ONLY_OPS:
             results.append(SelftestResult(op, "skip", "float dtypes only"))
-            continue
-        if op in ("pl_allreduce", "pl_reduce_scatter") and world.n < 2:
-            results.append(SelftestResult(op, "skip", "needs at least 2 ranks"))
             continue
         if op in _EXPECTATIONS_BY_DTYPE:
             model = _EXPECTATIONS_BY_DTYPE[op](dtype)
