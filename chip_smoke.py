@@ -15,15 +15,18 @@ exits non-zero):
 3. hold each kernel against its plain PyTorch version on the card: ring
    reduce-scatter and ring all-gather (both modes) at 5 and 8 ranks, the
    stream kernel, the three bulk-copy kernels (copy, read sweep, write
-   sweep) at 1, 5 and 8 ranks, and the point-to-point kernels (ring,
+   sweep) at 1, 5 and 8 ranks, the point-to-point kernels (ring,
    exchange, pingpong with its stage, barrier) at 2, 5, 6 and 8 ranks,
+   and the collective kernels (all-to-all, and the bidirectional ring
+   all-gather over its whole gathered buffer) at 1, 2, 5 and 8 ranks,
    over several dtypes and ragged / unaligned / multi-block shapes up to
    1 GiB, and 1000 chained barriers; then show, in a child process, that
    a barrier that cannot complete fails its launch instead of hanging;
 4. drive the port's run paths through its CLI (``run --op pl_allreduce
    --sweep 4K:256M``, the other five ops of the first slice, the six
    local memory ops at one rank, the eleven point-to-point ops at eight,
-   then the reference's default ``run`` and its ``-u`` and ``-x``) with
+   the seven collectives at eight, then the reference's default ``run``
+   and its ``-u`` and ``-x``) with
    the launch counters reset just before each run and read just after,
    check each kernel's launches per execution over the op's own sizes,
    parse the rows back, and check the outputs against the selftest
@@ -182,6 +185,7 @@ def phase_check() -> None:
             n_checks += 1
     n_checks += check_bulk_kernels(fill)
     n_checks += check_p2p_kernels(fill)
+    n_checks += check_collective_kernels(fill)
     torch.cuda.synchronize()
     print(f"check: {n_checks} kernel-vs-plain cases agree within the stated "
           f"tolerances {RTOL}")
@@ -287,6 +291,46 @@ def check_p2p_kernels(fill) -> int:
     return n_checks + 1
 
 
+def check_collective_kernels(fill) -> int:
+    """The all-to-all and the bidirectional ring all-gather against their
+    plain versions; returns the number of cases."""
+    from tpu_perf_torch.ops.collectives import DTYPES
+    from tpu_perf_torch.ops.pallas_ring import (
+        all_to_all, all_to_all_plain, ring_all_gather_bidir,
+        ring_all_gather_bidir_plain,
+    )
+
+    n_checks = 0
+    for n in (1, 2, 5, 8):
+        for dtype in ("float32", "bfloat16", "uint8"):
+            isz = DTYPES[dtype].itemsize
+            elems = -(-456131 // isz)
+            # the default 456131-byte buffer per rank (chunks start 16-byte
+            # unaligned), one-element chunks, and a multi-MiB chunk with a
+            # ragged end
+            for chunk in (-(-elems // n), 1, 2**20 + 3):
+                x = fill((n, n * chunk), dtype)
+                check_close(f"all_to_all ({n}, {n * chunk}) {dtype}",
+                            all_to_all(x), all_to_all_plain(x), dtype)
+                n_checks += 1
+            # the default buffer as the gathered total (odd half-chunks in
+            # bfloat16 and uint8), the smallest chunk, and a multi-MiB
+            # chunk with a ragged half; the whole gathered buffer, not the
+            # carry, which takes only the own chunk back
+            default = max(2, -(-456131 // (isz * n)))
+            for chunk in (default + default % 2, 2, 2**21 + 6):
+                x = fill((n, chunk), dtype)
+                got = ring_all_gather_bidir(x)
+                want = x.new_empty((n, n * chunk))
+                ring_all_gather_bidir_plain(x, want)
+                what = f"ring_all_gather_bidir ({n}, {chunk}) {dtype}"
+                check_close(what, got, want, dtype)
+                check_close(f"{what} against every rank's chunk", got,
+                            x.reshape(1, -1).expand(n, -1), dtype)
+                n_checks += 1
+    return n_checks
+
+
 #: a child process that launches the barrier with a generation its own
 #: arrivals can never reach: fresh counters end at n, the CTAs wait for 2n
 _TRAP_PROBE = r"""
@@ -365,13 +409,25 @@ PATHS = {
     "pl_exchange": ({"exchange": 1}, 8),
     "pl_pingpong": ({"pingpong": 2}, 8),
     "pl_barrier": ({"barrier": 1}, 8),
+    # the collectives slice: the library collectives launch no kernel of
+    # the port
+    "all_gather": ({}, 8),
+    "reduce_scatter": ({}, 8),
+    "all_to_all": ({}, 8),
+    "broadcast": ({}, 8),
+    "broadcast_psum": ({}, 8),
+    "pl_all_gather_bidir": ({"ring_all_gather_bidir": 7}, 8),
+    "pl_all_to_all": ({"all_to_all": 1}, 8),
 }
 #: per-rank sizes at which a path's output is checked, where not at the
-#: sweep's two ends: the library point-to-point ops stop at 16 MiB, since
-#: the host-side model check of 2 GiB a path is what costs the time (the
-#: kernels of the same functions are checked at 256 MiB)
+#: sweep's two ends: the library point-to-point ops and collectives stop
+#: at 16 MiB, since the host-side model check of 2 GiB a path is what
+#: costs the time (the kernels of the same functions are checked at
+#: 256 MiB)
 CHECK_BYTES = dict.fromkeys(
-    ("pingpong", "pingpong_unidir", "exchange", "ppermute", "ring", "halo"),
+    ("pingpong", "pingpong_unidir", "exchange", "ppermute", "ring", "halo",
+     "all_gather", "reduce_scatter", "all_to_all", "broadcast",
+     "broadcast_psum"),
     (4096, 16 * 1024**2))
 #: the reference's default run and its -u / -x: (flags, the op of the rows)
 DEFAULT_RUNS = (([], "pingpong"), (["-u"], "pingpong_unidir"),
@@ -554,6 +610,21 @@ def _launches(launches: dict, op: str, name: str) -> dict:
             "launches_per_execution": PATHS[op][0][name]}
 
 
+def _cuda_row(launches: dict, name: str, replaces: int, op: str, err: float,
+              ms: float, plain_ms: float, bound: dict, library_ms: float,
+              shape, source: str | None = None, **extra) -> dict:
+    """One CUDA kernel's entry of the kernels line, float32, from the
+    source ``csrc/<source or name>.cu``; ``shape`` and ``dtype`` are for the
+    printout and leave the JSON line."""
+    return {"name": name, "route": "cuda",
+            "source": f"tpu_perf_torch/csrc/{source or name}.cu",
+            "replaces": f"tpu_perf/ops/pallas_ring.py:{replaces}",
+            **_launches(launches, op, name), "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": library_ms, **extra, "shape": list(shape),
+            "dtype": "float32"}
+
+
 def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     import torch
 
@@ -649,6 +720,57 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     del x
     out += _bulk_kernel_rows(per_rank_bytes, launches)
     out += _p2p_kernel_rows(per_rank_bytes, launches)
+    out += _collective_kernel_rows(per_rank_bytes, launches)
+    return out
+
+
+def _collective_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
+    """The collective kernels at their 8-rank paths' inputs."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.ops.pallas_ring import (
+        all_to_all, all_to_all_plain, ring_all_gather_bidir,
+        ring_all_gather_bidir_plain,
+    )
+    from tpu_perf_torch.world import SimWorld
+
+    world = SimWorld(8, torch.device("cuda", torch.cuda.current_device()))
+    out = []
+
+    # all-to-all at the pl_all_to_all path's input: x read once, out
+    # written once; the yardstick is the chunk transpose's copy
+    x = build_op("pl_all_to_all", world, per_rank_bytes, 1).example_input
+    n = x.shape[0]
+    chunks = x.view(n, n, -1)
+    err = check_close("all_to_all at path shape", all_to_all(x),
+                      all_to_all_plain(x), "float32")
+    out.append(_cuda_row(
+        launches, "all_to_all", 291, "pl_all_to_all", err,
+        cuda_ms(lambda: all_to_all(x), 10),
+        cuda_ms(lambda: all_to_all_plain(x), 3, 1),
+        _bound(2 * x.numel() * x.element_size(), 0),
+        cuda_ms(lambda: chunks.transpose(0, 1).contiguous(), 10), x.shape))
+    del x, chunks
+
+    # bidirectional all-gather at the pl_all_gather_bidir path's input:
+    # each rank's shard read once, the gathered rows written once; checked
+    # over the whole gathered buffer; the yardstick is row 2's expand copy
+    x = build_op("pl_all_gather_bidir", world, per_rank_bytes,
+                 1).example_input
+    got = ring_all_gather_bidir(x)
+    want = x.new_empty((n, n * x.shape[1]))
+    ring_all_gather_bidir_plain(x, want)
+    err = check_close("ring_all_gather_bidir at path shape", got, want,
+                      "float32")
+    del got
+    out.append(_cuda_row(
+        launches, "ring_all_gather_bidir", 430, "pl_all_gather_bidir", err,
+        cuda_ms(lambda: ring_all_gather_bidir(x), 10),
+        cuda_ms(lambda: ring_all_gather_bidir_plain(x, want), 3, 1),
+        _bound((x.numel() + want.numel()) * x.element_size(), 0),
+        cuda_ms(lambda: x.reshape(1, -1).expand(n, -1).contiguous(), 10),
+        want.shape))
     return out
 
 
@@ -667,16 +789,6 @@ def _p2p_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     world = SimWorld(8, torch.device("cuda", torch.cuda.current_device()))
     out = []
 
-    def row(name, source, replaces, op, err, ms, plain_ms, bound, library_ms,
-            x, **extra):
-        return {"name": name, "route": "cuda",
-                "source": f"tpu_perf_torch/csrc/{source}.cu",
-                "replaces": f"tpu_perf/ops/pallas_ring.py:{replaces}",
-                **_launches(launches, op, name), "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, **bound,
-                "library_ms": library_ms, **extra, "shape": list(x.shape),
-                "dtype": "float32"}
-
     # ring and exchange: x read once, out written once
     x = build_op("pl_ring", world, per_rank_bytes, 1).example_input
     n = x.shape[0]
@@ -687,10 +799,11 @@ def _p2p_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
              pair_exchange_plain, n // 2)):
         err = check_close(f"{name} at path shape", kern(x), plain(x),
                           "float32")
-        out.append(row(name, "p2p_shift", replaces, op, err,
-                       cuda_ms(lambda: kern(x), 10),
-                       cuda_ms(lambda: plain(x), 10), _bound(2 * nb, 0),
-                       cuda_ms(lambda: torch.roll(x, shift, 0), 10), x))
+        out.append(_cuda_row(launches, name, replaces, op, err,
+                             cuda_ms(lambda: kern(x), 10),
+                             cuda_ms(lambda: plain(x), 10), _bound(2 * nb, 0),
+                             cuda_ms(lambda: torch.roll(x, shift, 0), 10),
+                             x.shape, source="p2p_shift"))
 
     # pingpong: the function reads x once and writes out once; its schedule
     # moves group 0's payload through the stage, 3 * nb in all
@@ -702,12 +815,13 @@ def _p2p_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
                 want_stage[n // 2:], "float32")
     del got, stage
     schedule = _bound(3 * nb, 0)
-    out.append(row("pingpong", "pingpong", 385, "pl_pingpong", err,
-                   cuda_ms(lambda: pingpong(x), 10),
-                   cuda_ms(lambda: pingpong_plain(x, want, want_stage), 10),
-                   _bound(2 * nb, 0), cuda_ms(lambda: x.clone(), 10), x,
-                   schedule_bound_ms=schedule["bound_ms"],
-                   schedule_bytes=schedule["bytes"]))
+    out.append(_cuda_row(
+        launches, "pingpong", 385, "pl_pingpong", err,
+        cuda_ms(lambda: pingpong(x), 10),
+        cuda_ms(lambda: pingpong_plain(x, want, want_stage), 10),
+        _bound(2 * nb, 0), cuda_ms(lambda: x.clone(), 10), x.shape,
+        schedule_bound_ms=schedule["bound_ms"],
+        schedule_bytes=schedule["bytes"]))
     del x, want, want_stage
 
     # barrier at its path's one-element rows: a latency, set beside an
@@ -718,12 +832,13 @@ def _p2p_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     empty = _build.entry("barrier", "empty_launch")
     stream_ptr = torch.cuda.current_stream().cuda_stream
     reps = 2000
-    out.append(row("barrier", "barrier", 329, "pl_barrier", err,
-                   cuda_ms(lambda: barrier(x), reps),
-                   cuda_ms(lambda: barrier_plain(x), reps),
-                   _bound(2 * x.numel() * x.element_size(), 0),
-                   cuda_ms(lambda: x.clone(), reps), x,
-                   empty_launch_ms=cuda_ms(lambda: empty(stream_ptr), reps)))
+    out.append(_cuda_row(
+        launches, "barrier", 329, "pl_barrier", err,
+        cuda_ms(lambda: barrier(x), reps),
+        cuda_ms(lambda: barrier_plain(x), reps),
+        _bound(2 * x.numel() * x.element_size(), 0),
+        cuda_ms(lambda: x.clone(), reps), x.shape,
+        empty_launch_ms=cuda_ms(lambda: empty(stream_ptr), reps)))
     return out
 
 
@@ -741,25 +856,17 @@ def _bulk_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     world = SimWorld(1, torch.device("cuda", torch.cuda.current_device()))
     out = []
 
-    def row(name, replaces, op, err, ms, plain_ms, bound, library_ms, x):
-        return {"name": name, "route": "cuda",
-                "source": f"tpu_perf_torch/csrc/{name}.cu",
-                "replaces": f"tpu_perf/ops/pallas_ring.py:{replaces}",
-                **_launches(launches, op, name), "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, **bound,
-                "library_ms": library_ms, "shape": list(x.shape),
-                "dtype": "float32"}
-
     # copy: x read once, out written once
     x = build_op("pl_hbm_copy", world, per_rank_bytes, 1).example_input
     nb = x.numel() * x.element_size()
     err = check_close("hbm_copy at path shape", hbm_copy(x), hbm_copy_plain(x),
                       "float32")
     y = torch.empty_like(x)
-    out.append(row("hbm_copy", 266, "pl_hbm_copy", err,
-                   cuda_ms(lambda: hbm_copy(x), 10),
-                   cuda_ms(lambda: hbm_copy_plain(x), 10), _bound(2 * nb, 0),
-                   cuda_ms(lambda: y.copy_(x), 10), x))
+    out.append(_cuda_row(launches, "hbm_copy", 266, "pl_hbm_copy", err,
+                         cuda_ms(lambda: hbm_copy(x), 10),
+                         cuda_ms(lambda: hbm_copy_plain(x), 10),
+                         _bound(2 * nb, 0), cuda_ms(lambda: y.copy_(x), 10),
+                         x.shape))
     del x, y
 
     # read sweep: x read once.  The yardstick amax reads the same bytes but
@@ -768,10 +875,10 @@ def _bulk_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     nb = x.numel() * x.element_size()
     err = check_close("hbm_read at path shape", hbm_read(x), hbm_read_plain(x),
                       "float32")
-    out.append(row("hbm_read", 185, "pl_hbm_read", err,
-                   cuda_ms(lambda: hbm_read(x), 10),
-                   cuda_ms(lambda: hbm_read_plain(x), 10), _bound(nb, 0),
-                   cuda_ms(lambda: torch.amax(x), 10), x))
+    out.append(_cuda_row(launches, "hbm_read", 185, "pl_hbm_read", err,
+                         cuda_ms(lambda: hbm_read(x), 10),
+                         cuda_ms(lambda: hbm_read_plain(x), 10), _bound(nb, 0),
+                         cuda_ms(lambda: torch.amax(x), 10), x.shape))
 
     # write sweep: the output written once, the seed block read once; the
     # yardstick is one copy_ of the expanded seed block
@@ -785,12 +892,12 @@ def _bulk_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
                       hbm_write_plain(x, blk), "float32")
     y = torch.empty_like(x)
     seed = x[:, None, :blk].expand(n, nblocks, blk)
-    out.append(row("hbm_write", 222, "pl_hbm_write", err,
-                   cuda_ms(lambda: hbm_write(x, blk), 10),
-                   cuda_ms(lambda: hbm_write_plain(x, blk), 10),
-                   _bound(nb + n * blk * x.element_size(), 0),
-                   cuda_ms(lambda: y.view(n, nblocks, blk).copy_(seed), 10),
-                   x))
+    out.append(_cuda_row(
+        launches, "hbm_write", 222, "pl_hbm_write", err,
+        cuda_ms(lambda: hbm_write(x, blk), 10),
+        cuda_ms(lambda: hbm_write_plain(x, blk), 10),
+        _bound(nb + n * blk * x.element_size(), 0),
+        cuda_ms(lambda: y.view(n, nblocks, blk).copy_(seed), 10), x.shape))
     return out
 
 

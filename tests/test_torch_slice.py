@@ -167,10 +167,10 @@ def test_selftest_models_pass_on_the_cpu(dtype, n, iters):
 def test_selftest_cli_and_ops_listing(capsys):
     # at 5 ranks the six pair ops (even rank counts only) skip
     assert cli.main(["selftest", "--device", "cpu", "--sim-ranks", "5"]) == 0
-    assert "17 ok, 6 skipped, 0 failed" in capsys.readouterr().out
+    assert "24 ok, 6 skipped, 0 failed" in capsys.readouterr().out
     assert cli.main(["ops"]) == 0
     listed = capsys.readouterr().out.splitlines()
-    assert "pl_allreduce" in listed and "pl_all_to_all  (not yet ported)" in listed
+    assert "pl_allreduce" in listed and "pl_all_to_all" in listed
 
 
 def test_bench_prints_one_labelled_json_line(monkeypatch, capsys):

@@ -13,6 +13,8 @@ versions)::
     python -m tpu_perf_torch run -u         # pingpong_unidir
     python -m tpu_perf_torch run -x         # exchange
     python -m tpu_perf_torch run --op pl_allreduce --sweep 4K:256M
+    python -m tpu_perf_torch run --op all_to_all --sweep 4K:256M
+    python -m tpu_perf_torch run --op pl_all_gather_bidir --sweep 4K:256M
     python -m tpu_perf_torch grid --op pl_hbm_copy,hbm_stream --sizes 256M,1G \
         --iters 8,32 --spec hbm --sim-ranks 1
     python -m tpu_perf_torch ops
@@ -172,11 +174,8 @@ def _cmd_chips(args: argparse.Namespace) -> int:
 
 def _cmd_ops(_args: argparse.Namespace) -> int:
     from tpu_perf_torch.ops.collectives import known_ops
-    from tpu_perf_torch.ops.pallas_ring import PALLAS_OPS, PORTED_OPS
 
-    for name in known_ops():
-        unported = name in PALLAS_OPS and name not in PORTED_OPS
-        print(f"{name}  (not yet ported)" if unported else name)
+    print("\n".join(known_ops()))
     return 0
 
 

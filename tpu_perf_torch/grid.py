@@ -69,17 +69,12 @@ class GridCell:
 
 def _check_ops(ops: list[str]) -> None:
     from tpu_perf_torch.ops.collectives import known_ops
-    from tpu_perf_torch.ops.pallas_ring import PALLAS_OPS, PORTED_OPS
 
     if not ops:
         raise ValueError("grid needs at least one op")
     unknown = [o for o in ops if o not in known_ops()]
     if unknown:
         raise ValueError(f"unknown op(s) {unknown}; known: {known_ops()}")
-    unported = [o for o in ops if o in PALLAS_OPS and o not in PORTED_OPS]
-    if unported:
-        raise NotImplementedError(
-            f"op(s) {unported} are not yet ported; see ROADMAP")
     latency_only = [o for o in ops if is_latency_only(o)]
     if latency_only:
         raise ValueError(

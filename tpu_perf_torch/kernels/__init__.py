@@ -11,7 +11,8 @@ main path must show launches and no plain calls.
 from __future__ import annotations
 
 KERNELS = ("ring_reduce_scatter", "ring_all_gather", "stream", "hbm_copy",
-           "hbm_read", "hbm_write", "ring", "exchange", "pingpong", "barrier")
+           "hbm_read", "hbm_write", "ring", "exchange", "pingpong", "barrier",
+           "all_to_all", "ring_all_gather_bidir")
 
 #: kernel launches since the last reset_counts()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -52,6 +52,11 @@ _ENTRIES = {
     "pingpong": ("pingpong_leg", [_P, _P, _P, _I, _L, _I, _P]),
     # (src, out, counters, n, row_bytes, generation, stream)
     "barrier": ("barrier_rows", [_P, _P, _P, _I, _L, _L, _P]),
+    # (src, out, n, chunk_bytes, stream)
+    "all_to_all": ("all_to_all_rows", [_P, _P, _I, _L, _P]),
+    # (src, out, n, half_bytes, step, stream)
+    "ring_all_gather_bidir": ("ring_all_gather_bidir_step",
+                              [_P, _P, _I, _L, _I, _P]),
 }
 #: further C entry points of a source, beside its kernel's: (source,
 #: symbol) -> argument types

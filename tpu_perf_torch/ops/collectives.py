@@ -10,6 +10,10 @@ the mean, not the sum).  The ops of this slice:
   collective there: in the sim world, ``torch.sum`` over the ranks times
   1/n, broadcast back to every rank; ``barrier`` is the same body on one
   element;
+* the collectives ``all_gather``, ``reduce_scatter``, ``all_to_all``,
+  ``broadcast`` (the binomial tree from rank 0) and ``broadcast_psum``
+  (the masked sum from rank 0) — XLA's collectives as PyTorch operations
+  on the rows (see their bodies);
 * the point-to-point ops ``pingpong``, ``pingpong_unidir``, ``exchange``
   (alias ``ppermute``), ``ring`` and ``halo`` — XLA's ``ppermute`` as
   PyTorch indexing on the ``(n, elems)`` rows: row d of the result is the
@@ -84,8 +88,8 @@ def payload_elems(op: str, nbytes: int, n: int, itemsize: int) -> tuple[int, int
 #: ops that reduce (scale by 1/n, or take a mean) — integer payloads would
 #: measure another computation (the JAX package's list, restricted to the
 #: ported ops)
-FLOAT_ONLY_OPS = ("allreduce", "barrier", "hbm_read", "pl_allreduce",
-                  "pl_reduce_scatter")
+FLOAT_ONLY_OPS = ("allreduce", "barrier", "reduce_scatter", "hbm_read",
+                  "pl_allreduce", "pl_reduce_scatter")
 #: the point-to-point ops whose pair permutation needs an even rank count
 #: (ring and halo shift by one, valid for any n)
 _NEEDS_EVEN = ("pingpong", "pingpong_unidir", "exchange", "ppermute")
@@ -146,6 +150,77 @@ def _allreduce(world: SimWorld, dtype: torch.dtype) -> Callable:
 
     def body(x):
         return (x.sum(dim=0, keepdim=True) * inv).expand_as(x).contiguous()
+
+    return body
+
+
+def _all_gather(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # gather every rank's shard into every row (a real copy: the result is
+    # the identity, so the gather must not be elided), then take the own
+    # shard back out, the JAX carry
+    n = world.n
+    d = torch.arange(n, device=world.device)
+
+    def body(x):
+        g = x.reshape(1, -1).expand(n, -1).contiguous()
+        return g.view(n, n, -1)[d, d]
+
+    return body
+
+
+def _reduce_scatter(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # row d's chunk d <- (sum over ranks of chunk d) * 1/n, in the dtype,
+    # updated in place on the carry as XLA's dynamic_update_slice does; the
+    # other chunks stay as they are
+    n = world.n
+    inv = torch.tensor(1.0 / n, dtype=dtype, device=world.device)
+
+    def body(x):
+        chunks = x.view(n, n, -1)
+        chunks.diagonal(0, 0, 1).copy_((chunks.sum(0) * inv).T)
+        return x
+
+    return body
+
+
+def _all_to_all(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # the chunk transpose: out[d][s] = x[s][d]
+    n = world.n
+
+    def body(x):
+        return x.view(n, n, -1).transpose(0, 1).contiguous().view(n, -1)
+
+    return body
+
+
+def _broadcast(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # the binomial tree from rank 0 (tpu_perf's _perms_for): round k copies
+    # rows [0, hi - lo) to [lo, hi), lo = 2**k, in place, one slice copy a
+    # round: ceil(log2 n) rounds and n - 1 row copies in all
+    rounds = []
+    lo = 1
+    while lo < world.n:
+        hi = min(2 * lo, world.n)
+        rounds.append((lo, hi))
+        lo = hi
+
+    def body(x):
+        for lo, hi in rounds:
+            x[lo:hi] = x[:hi - lo]
+        return x
+
+    return body
+
+
+def _broadcast_psum(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # rank 0's row, zeros elsewhere, summed over the ranks and broadcast
+    # back: exact in any dtype (one nonzero term)
+    root = (torch.arange(world.n, device=world.device) == 0)[:, None]
+    zero = torch.zeros((), dtype=dtype, device=world.device)
+
+    def body(x):
+        masked = torch.where(root, x, zero)
+        return masked.sum(0, keepdim=True, dtype=dtype).expand_as(x).contiguous()
 
     return body
 
@@ -301,9 +376,13 @@ def _halo(world: SimWorld, dtype: torch.dtype) -> Callable:
 
 
 OP_BUILDERS: dict[str, Callable] = {
+    "all_gather": _all_gather,
+    "all_to_all": _all_to_all,
     "allreduce": _allreduce,
     # a 1-element mean: the collective's latency (payload_elems fixes it)
     "barrier": _allreduce,
+    "broadcast": _broadcast,
+    "broadcast_psum": _broadcast_psum,
     "exchange": _exchange,
     "halo": _halo,
     "hbm_read": _hbm_read,
@@ -313,6 +392,7 @@ OP_BUILDERS: dict[str, Callable] = {
     "pingpong": _pingpong,
     "pingpong_unidir": _pingpong_unidir,
     "ppermute": _exchange,  # alias: the raw pairwise exchange
+    "reduce_scatter": _reduce_scatter,
     "ring": _ring,
 }
 

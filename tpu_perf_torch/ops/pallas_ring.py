@@ -23,12 +23,19 @@ is written by hand for Hopper:
   ``_pingpong_kernel``), one launch per leg;
 * ``barrier`` — CUDA C++, ``csrc/barrier.cu`` (replaces ``_barrier_kernel``
   with ``_global_barrier``), a cooperative launch of one CTA per rank that
-  meets at device-memory arrival counters.
+  meets at device-memory arrival counters;
+* ``all_to_all`` — CUDA C++, ``csrc/all_to_all.cu`` (replaces
+  ``_all_to_all_direct_kernel``; stream order stands in for its
+  ``_global_barrier``), every (destination, source) pair in one launch;
+* ``ring_all_gather_bidir`` — CUDA C++, ``csrc/ring_all_gather_bidir.cu``
+  (replaces ``_all_gather_bidir_kernel``), half-chunks both ways round the
+  ring, one launch per ring step.
 
-Each wrapper launches its kernel for a CUDA tensor and runs its plain
-PyTorch version, the same ring schedule step by step over the sim ranks,
-for a CPU tensor; anything else raises.  The sizes, carries and op names
-are the JAX package's, so rows land on the same curve keys.
+Every ``pl_*`` op of the JAX package is ported.  Each wrapper launches its
+kernel for a CUDA tensor and runs its plain PyTorch version, the same ring
+schedule step by step over the sim ranks, for a CPU tensor; anything else
+raises.  The sizes, carries and op names are the JAX package's, so rows
+land on the same curve keys.
 """
 
 from __future__ import annotations
@@ -48,10 +55,6 @@ PALLAS_OPS = (
     "pl_hbm_stream", "pl_hbm_read", "pl_hbm_write", "pl_barrier",
     "pl_all_to_all",
 )
-#: the pl_* ops this package runs; the others raise NotImplementedError
-PORTED_OPS = ("pl_all_gather", "pl_reduce_scatter", "pl_allreduce",
-              "pl_hbm_stream", "pl_hbm_copy", "pl_hbm_read", "pl_hbm_write",
-              "pl_ring", "pl_exchange", "pl_pingpong", "pl_barrier")
 
 #: the JAX package's chunk-rounding tile (its VMEM accumulation tile):
 #: reduce-scatter chunks above it round up to a multiple of it.  It decides
@@ -186,6 +189,51 @@ def ring_all_gather(x: torch.Tensor, *, src_full: bool = False) -> torch.Tensor:
                  src_own, step, stream_ptr)
         _build.check("ring_all_gather", err)
         kernels.LAUNCHES["ring_all_gather"] += 1
+    return out
+
+
+def ring_all_gather_bidir_plain(x: torch.Tensor, out: torch.Tensor) -> None:
+    """The kernel's schedule in plain PyTorch: at ring step k every rank d
+    stores the first half of chunk (d-1-k) mod n its left neighbour
+    forwards and the second half of chunk (d+1+k) mod n its right
+    neighbour forwards; step 0 also places the rank's own chunk.  ``out``
+    is written in place."""
+    kernels.PLAIN_CALLS["ring_all_gather_bidir"] += 1
+    n, chunk = x.shape
+    h = chunk // 2
+    oc = out.view(n, n, chunk)
+    d = torch.arange(n, device=x.device)
+    left, right = (d - 1) % n, (d + 1) % n
+    for step in range(max(1, n - 1)):
+        if n > 1:
+            cw, ccw = (left - step) % n, (right + step) % n
+            oc[d, cw, :h] = x[left, :h] if step == 0 else oc[left, cw, :h]
+            oc[d, ccw, h:] = x[right, h:] if step == 0 else oc[right, ccw, h:]
+        if step == 0:
+            oc[d, d] = x
+
+
+def ring_all_gather_bidir(x: torch.Tensor) -> torch.Tensor:
+    """Bidirectional ring all-gather over the sim ranks: ``x`` is ``(n,
+    chunk)`` with chunk even; returns ``(n, n*chunk)`` with every row the
+    gathered chunks, first halves carried clockwise and second halves
+    counter-clockwise.  One kernel launch per ring step (one when n = 1)."""
+    n, chunk = x.shape
+    if chunk % 2:
+        raise ValueError(
+            f"ring_all_gather_bidir splits chunks in half, got {chunk} elements")
+    out = x.new_empty((n, n * chunk))
+    if x.device.type == "cpu":
+        ring_all_gather_bidir_plain(x, out)
+        return out
+    _check_cuda("ring_all_gather_bidir", x)
+    fn = _build.entry("ring_all_gather_bidir")
+    half_bytes = chunk // 2 * x.element_size()
+    stream_ptr = _stream_of(x)
+    for step in range(max(1, n - 1)):
+        err = fn(x.data_ptr(), out.data_ptr(), n, half_bytes, step, stream_ptr)
+        _build.check("ring_all_gather_bidir", err)
+        kernels.LAUNCHES["ring_all_gather_bidir"] += 1
     return out
 
 
@@ -415,6 +463,48 @@ def barrier(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# --- all-to-all ---------------------------------------------------------
+
+
+def _check_whole_chunks(name: str, x: torch.Tensor) -> int:
+    n, row = x.shape
+    if row % n:
+        raise ValueError(f"{name} needs whole chunks, got {tuple(x.shape)}")
+    return row // n
+
+
+def all_to_all_plain(x: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's schedule in plain PyTorch: transfer j of every rank
+    s sends its chunk (s+j) mod n to that rank's slot s (j = 0 is the local
+    copy), ``out[d][s] = x[s][d]``."""
+    kernels.PLAIN_CALLS["all_to_all"] += 1
+    n = x.shape[0]
+    chunk = _check_whole_chunks("all_to_all", x)
+    out = torch.empty_like(x)
+    xc, oc = x.view(n, n, chunk), out.view(n, n, chunk)
+    s = torch.arange(n, device=x.device)
+    for j in range(n):
+        d = (s + j) % n
+        oc[d, s] = xc[s, d]
+    return out
+
+
+def all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """Every rank sends chunk d of its row to rank d, which stores it at
+    the sender's slot; returns a new tensor with ``out[d][s] = x[s][d]``.
+    One launch covers every pair."""
+    chunk = _check_whole_chunks("all_to_all", x)
+    if x.device.type == "cpu":
+        return all_to_all_plain(x)
+    _check_cuda("all_to_all", x)
+    out = torch.empty_like(x)
+    err = _build.entry("all_to_all")(x.data_ptr(), out.data_ptr(), x.shape[0],
+                                     chunk * x.element_size(), _stream_of(x))
+    _build.check("all_to_all", err)
+    kernels.LAUNCHES["all_to_all"] += 1
+    return out
+
+
 # --- the pl_* ops -------------------------------------------------------
 
 
@@ -429,8 +519,6 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
 
     if op not in PALLAS_OPS:
         raise ValueError(f"unknown pallas op {op!r}; known: {PALLAS_OPS}")
-    if op not in PORTED_OPS:
-        raise NotImplementedError(f"{op} is not yet ported; see ROADMAP")
     n = world.n
     if op in ("pl_exchange", "pl_pingpong") and n % 2:
         raise ValueError(f"{op} needs an even device count, got {n}")
@@ -441,6 +529,19 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
         chunk = max(1, -(-nbytes // (itemsize * n)))
         elems = chunk
         actual = chunk * n * itemsize
+    elif op == "pl_all_gather_bidir":
+        # the same gathered-total semantics; the shard splits into two
+        # half-chunks, one per ring direction, so chunk rounds up to even
+        chunk = max(2, -(-nbytes // (itemsize * n)))
+        chunk += chunk % 2
+        elems = chunk
+        actual = chunk * n * itemsize
+    elif op == "pl_all_to_all":
+        # nbytes = per-rank input buffer; chunk = elems/n per destination
+        raw = max(1, -(-nbytes // itemsize))
+        chunk = max(1, -(-raw // n))
+        elems = chunk * n
+        actual = elems * itemsize
     elif op in ("pl_reduce_scatter", "pl_allreduce"):
         if n < 2:
             raise ValueError(f"{op} needs at least 2 devices, got {n}")
@@ -485,7 +586,12 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
         # gather, then take the own shard back out (the JAX carry)
         return chained(lambda x: own_chunks(ring_all_gather(x)), iters), \
             elems, actual
+    if op == "pl_all_gather_bidir":
+        return chained(lambda x: own_chunks(ring_all_gather_bidir(x)),
+                       iters), elems, actual
     # each iteration feeds the previous output forward, as in JAX
+    if op == "pl_all_to_all":
+        return chained(all_to_all, iters), elems, actual
     if op == "pl_hbm_stream":
         return chained(stream, iters), elems, actual
     if op == "pl_hbm_copy":

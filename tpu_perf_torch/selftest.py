@@ -26,6 +26,26 @@ def _reduce_scatter(x: np.ndarray) -> np.ndarray:
     return np.tile(red, n)  # row d: red[d], n times
 
 
+def _reduce_scatter_inplace(x: np.ndarray) -> np.ndarray:
+    # library carry convention: rank d keeps its buffer with only its own
+    # chunk replaced by the mean of chunk d over ranks
+    n = x.shape[0]
+    chunks = x.reshape(n, n, -1).copy()
+    red = chunks.mean(axis=0)
+    for d in range(n):
+        chunks[d, d] = red[d]
+    return chunks.reshape(n, -1)
+
+
+def _all_to_all(x: np.ndarray) -> np.ndarray:
+    n = x.shape[0]
+    return x.reshape(n, n, -1).transpose(1, 0, 2).reshape(n, -1)
+
+
+def _broadcast(x: np.ndarray) -> np.ndarray:
+    return np.broadcast_to(x[0], x.shape)
+
+
 def _pingpong(x: np.ndarray) -> np.ndarray:
     # payload there and back: group 0 (first half) gets its payload back,
     # group 1 ends at zero (ppermute zero-fills the ranks it does not target)
@@ -122,6 +142,11 @@ def _pl_hbm_write_for(dtype: str) -> Callable[[np.ndarray], np.ndarray]:
 EXPECTATIONS: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     "allreduce": _mean_all,
     "barrier": _mean_all,
+    "all_gather": _identity,  # gather + take-own-shard carry
+    "reduce_scatter": _reduce_scatter_inplace,
+    "all_to_all": _all_to_all,
+    "broadcast": _broadcast,
+    "broadcast_psum": _broadcast,
     "exchange": _exchange,
     "halo": _halo,
     "pingpong": _pingpong,
@@ -147,6 +172,9 @@ EXPECTATIONS: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     # _EXPECTATIONS_BY_DTYPE
     "pl_hbm_write": _pl_hbm_write_for("float32"),
     "pl_hbm_stream": _hbm_stream,
+    # gather + take-own-shard carry, like pl_all_gather
+    "pl_all_gather_bidir": _identity,
+    "pl_all_to_all": _all_to_all,  # chunk transpose, like the library op
 }
 
 #: integer-dtype model overrides (the ops whose body is dtype-dependent)
