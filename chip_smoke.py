@@ -12,16 +12,17 @@ exits non-zero):
 2. build every kernel from the sources in this checkout (one nvcc per
    CUDA source, all started together; the Triton kernel compiles at its
    first launch) and print the build time;
-3. hold each kernel against its plain PyTorch version on the card: ring
-   reduce-scatter and ring all-gather (both modes) at 5 and 8 ranks, the
-   stream kernel, the three bulk-copy kernels (copy, read sweep, write
-   sweep) at 1, 5 and 8 ranks, the point-to-point kernels (ring,
-   exchange, pingpong with its stage, barrier) at 2, 5, 6 and 8 ranks,
-   and the collective kernels (all-to-all, and the bidirectional ring
-   all-gather over its whole gathered buffer) at 1, 2, 5 and 8 ranks,
-   over several dtypes and ragged / unaligned / multi-block shapes up to
-   1 GiB, and 1000 chained barriers; then show, in a child process, that
-   a barrier that cannot complete fails its launch instead of hanging;
+3. hold each kernel against its plain PyTorch version on the card: the
+   direct reduce-scatter at 2, 5 and 8 ranks and at the path's shape, the
+   ring all-gather (both modes) at 5 and 8 ranks, the stream kernel, the
+   three bulk-copy kernels (copy, read sweep, write sweep) at 1, 5 and 8
+   ranks, the point-to-point kernels (ring, exchange, pingpong with its
+   stage, barrier) at 2, 5, 6 and 8 ranks, the cluster barrier at 9, 64
+   and 256 ranks, and the collective kernels (all-to-all, and the
+   bidirectional ring all-gather over its whole gathered buffer) at 1, 2,
+   5 and 8 ranks, over several dtypes and ragged / unaligned / multi-block
+   shapes up to 2 GiB; then show that 1000 chained barriers at 8 and 64
+   ranks return their input and that 257 ranks are refused at the wrapper;
 4. drive the port's run paths through its CLI (``run --op pl_allreduce
    --sweep 4K:256M``, the other five ops of the first slice, the six
    local memory ops at one rank, the eleven point-to-point ops at eight,
@@ -36,8 +37,9 @@ exits non-zero):
    growing with the bytes it reads;
 6. time each kernel at the main path's largest shape beside its bound
    (from the card's published rates in ``tpu_perf_torch.chips``), its
-   plain version and one PyTorch library call, and print them as one JSON
-   line.
+   plain version and one PyTorch library call (the barrier also from a
+   CUDA graph of 100 chained launches, beside an empty kernel's), and
+   print them as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX and nothing of the JAX package ``tpu_perf``.
@@ -140,12 +142,15 @@ def phase_build() -> None:
 def phase_check() -> None:
     import torch
 
-    from tpu_perf_torch.ops.collectives import DTYPES, make_fill, to_tensor
+    from tpu_perf_torch.ops.collectives import (
+        DTYPES, build_op, make_fill, to_tensor,
+    )
     from tpu_perf_torch.ops.pallas_ring import (
-        ring_all_gather, ring_all_gather_plain, ring_reduce_scatter,
-        ring_reduce_scatter_plain,
+        direct_reduce_scatter, direct_reduce_scatter_plain, ring_all_gather,
+        ring_all_gather_plain,
     )
     from tpu_perf_torch.ops.stream_triton import stream, stream_plain
+    from tpu_perf_torch.world import SimWorld
 
     def fill(shape, dtype):
         total = 1
@@ -154,19 +159,27 @@ def phase_check() -> None:
         return to_tensor(make_fill(total, dtype).reshape(shape), dtype, "cuda")
 
     n_checks = 0
-    for n in (5, 8):
-        # 1001: the scalar path; 4096: 16-byte vectors; 2**20 + 64: more
-        # units than the kernels' grid, so the grid-stride loop turns
-        for chunk in (1001, 4096, 2**20 + 64):
+    # 1001: the scalar path; 4096: 16-byte vectors; 2**20 + 64: more units
+    # than the kernels' grid, so the grid-stride loop turns
+    chunks = (1001, 4096, 2**20 + 64)
+    for n in (2, 5, 8):
+        for chunk in chunks:
             for dtype in ("float32", "bfloat16", "float16"):
                 x = fill((n, n * chunk), dtype)
-                got = ring_reduce_scatter(x)
-                want = torch.empty_like(x)
-                ring_reduce_scatter_plain(
-                    x, want, x.new_empty((n, n - 1, chunk)))
-                check_close(f"ring_reduce_scatter n={n} chunk={chunk} {dtype}",
-                            got, want, dtype)
+                check_close(f"direct_reduce_scatter n={n} chunk={chunk} "
+                            f"{dtype}", direct_reduce_scatter(x),
+                            direct_reduce_scatter_plain(x), dtype)
                 n_checks += 1
+    # the pl_allreduce path's own input: 8 ranks x 256 MiB
+    x = build_op("pl_allreduce", SimWorld(8, torch.device("cuda")), MAIN_BYTES,
+                 1).example_input
+    check_close(f"direct_reduce_scatter {tuple(x.shape)} float32",
+                direct_reduce_scatter(x), direct_reduce_scatter_plain(x),
+                "float32")
+    n_checks += 1
+    del x
+    for n in (5, 8):
+        for chunk in chunks:
             for dtype in ("float32", "bfloat16", "int32", "uint8"):
                 for src_full in (False, True):
                     shape = (n, n * chunk) if src_full else (n, chunk)
@@ -189,7 +202,7 @@ def phase_check() -> None:
     torch.cuda.synchronize()
     print(f"check: {n_checks} kernel-vs-plain cases agree within the stated "
           f"tolerances {RTOL}")
-    check_barrier_traps()
+    check_barrier_chains(fill)
 
 
 def check_bulk_kernels(fill) -> int:
@@ -281,14 +294,14 @@ def check_p2p_kernels(fill) -> int:
             check_close(f"barrier ({n}, 1) {dtype}", barrier(x),
                         barrier_plain(x), dtype)
             n_checks += 1
-    # 1000 chained barriers at the path's shape: no trap, no lost arrival
-    x = fill((8, 1), "float32")
-    y = x
-    for _ in range(1000):
-        y = barrier(y)
-    torch.cuda.synchronize()
-    check_close("1000 chained barriers (8, 1)", y, x, "float32")
-    return n_checks + 1
+    # the cluster barrier's other layouts: 8 CTAs of 2, 8 and 32 warps
+    for n in (9, 64, 256):
+        for dtype in ("float32", "uint8"):
+            x = fill((n, 1001), dtype)
+            check_close(f"barrier ({n}, 1001) {dtype}", barrier(x),
+                        barrier_plain(x), dtype)
+            n_checks += 1
+    return n_checks
 
 
 def check_collective_kernels(fill) -> int:
@@ -331,43 +344,34 @@ def check_collective_kernels(fill) -> int:
     return n_checks
 
 
-#: a child process that launches the barrier with a generation its own
-#: arrivals can never reach: fresh counters end at n, the CTAs wait for 2n
-_TRAP_PROBE = r"""
-import time
-import torch
-from tpu_perf_torch.kernels import _build
-x = torch.ones(4, 1, device="cuda")
-out = torch.empty_like(x)
-counters = torch.zeros(4, dtype=torch.int64, device="cuda")
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-err = _build.entry("barrier")(x.data_ptr(), out.data_ptr(), counters.data_ptr(),
-                              4, 4, 2, torch.cuda.current_stream().cuda_stream)
-if err:
-    raise SystemExit(f"the launch was refused: CUDA error {err}")
-try:
-    torch.cuda.synchronize()
-except RuntimeError as e:
-    print(f"trapped {time.perf_counter() - t0:.2f} s after the launch: "
-          f"{str(e).splitlines()[0]}", flush=True)
-    raise SystemExit(3)
-print("the barrier passed without its arrivals")
-"""
+def check_barrier_chains(fill) -> None:
+    """The cluster barrier keeps no state between launches: 1000 chained
+    barriers at the path's 8 ranks (one warp per CTA) and at 64 (8 warps
+    per CTA) return their input; 257 ranks, more than one cluster holds,
+    are refused at the wrapper before any launch."""
+    import torch
 
+    from tpu_perf_torch import kernels
+    from tpu_perf_torch.ops.pallas_ring import barrier
 
-def check_barrier_traps() -> None:
-    """A barrier that cannot complete must fail loudly, not hang and not
-    pass: the probe's synchronize must raise within seconds (the kernel
-    traps after about one second of spinning)."""
-    probe = subprocess.run(
-        [sys.executable, "-c", _TRAP_PROBE], capture_output=True, text=True,
-        timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
-    said = probe.stdout.strip()
-    if probe.returncode != 3 or not said.startswith("trapped"):
-        fail(f"barrier trap probe exited {probe.returncode}: {said} "
-             f"{probe.stderr.strip()[-500:]}")
-    print(f"check: a barrier that cannot complete: {said}")
+    for n in (8, 64):
+        x = fill((n, 1), "float32")
+        y = x
+        for _ in range(1000):
+            y = barrier(y)
+        torch.cuda.synchronize()
+        check_close(f"1000 chained barriers ({n}, 1)", y, x, "float32")
+    before = kernels.LAUNCHES["barrier"]
+    try:
+        barrier(fill((257, 1), "float32"))
+    except ValueError as e:
+        said = str(e)
+    else:
+        fail("a barrier of 257 ranks was not refused")
+    if kernels.LAUNCHES["barrier"] != before:
+        fail("the refused barrier launched")
+    print("check: 1000 chained barriers at (8, 1) and (64, 1) return their "
+          f"input; 257 ranks refused: {said}")
 
 
 def check_read(what: str, x, dtype: str) -> None:
@@ -384,9 +388,9 @@ def check_read(what: str, x, dtype: str) -> None:
 
 #: op -> ({kernel: launches per execution}, sim ranks)
 PATHS = {
-    "pl_allreduce": ({"ring_reduce_scatter": 7, "ring_all_gather": 7}, 8),
+    "pl_allreduce": ({"direct_reduce_scatter": 1, "ring_all_gather": 7}, 8),
     "allreduce": ({}, 8),
-    "pl_reduce_scatter": ({"ring_reduce_scatter": 7}, 8),
+    "pl_reduce_scatter": ({"direct_reduce_scatter": 1}, 8),
     "pl_all_gather": ({"ring_all_gather": 7}, 8),
     "hbm_stream": ({}, 1),
     "pl_hbm_stream": ({"stream": 1}, 1),
@@ -630,8 +634,8 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
 
     from tpu_perf_torch.ops.collectives import build_op
     from tpu_perf_torch.ops.pallas_ring import (
-        ring_all_gather, ring_all_gather_plain, ring_reduce_scatter,
-        ring_reduce_scatter_plain,
+        direct_reduce_scatter, direct_reduce_scatter_plain, ring_all_gather,
+        ring_all_gather_plain,
     )
     from tpu_perf_torch.ops.stream_triton import (
         stream, stream_constants, stream_plain,
@@ -641,61 +645,39 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     dev = torch.device("cuda", torch.cuda.current_device())
     out = []
 
-    # ring reduce-scatter at the pl_allreduce path's input
+    # direct reduce-scatter at the pl_allreduce path's input
     x = build_op("pl_allreduce", SimWorld(8, dev), per_rank_bytes, 1).example_input
     n = x.shape[0]
     chunk = x.shape[1] // n
     isz = x.element_size()
-    red = ring_reduce_scatter(x)
-    want = torch.empty_like(x)
-    ring_reduce_scatter_plain(x, want, x.new_empty((n, n - 1, chunk)))
-    err = check_close("ring_reduce_scatter at path shape", red, want, "float32")
-    del want
+    red = direct_reduce_scatter(x)
+    err = check_close("direct_reduce_scatter at path shape", red,
+                      direct_reduce_scatter_plain(x), "float32")
     # the function's own bytes: x read once, each rank's reduced chunk
     # written once; (n-1) adds per reduced element
-    bound = _bound((x.numel() + n * chunk) * isz, n * (n - 1) * chunk)
-    stage = x.new_empty((n, n - 1, chunk))
-    plain_out = torch.empty_like(x)
-    out.append({
-        "name": "ring_reduce_scatter", "route": "cuda",
-        "source": "tpu_perf_torch/csrc/ring_reduce_scatter.cu",
-        "replaces": "tpu_perf/ops/pallas_ring.py:599",
-        **_launches(launches, "pl_allreduce", "ring_reduce_scatter"),
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: ring_reduce_scatter(x), 10),
-        "plain_ms": cuda_ms(
-            lambda: ring_reduce_scatter_plain(x, plain_out, stage), 3, 1),
-        **bound,
-        "library_ms": cuda_ms(lambda: x.view(n, n, chunk).sum(0), 10),
-        "shape": [n, n * chunk], "dtype": "float32",
-    })
-    del stage, plain_out
+    out.append(_cuda_row(
+        launches, "direct_reduce_scatter", 599, "pl_allreduce", err,
+        cuda_ms(lambda: direct_reduce_scatter(x), 10),
+        cuda_ms(lambda: direct_reduce_scatter_plain(x), 3, 1),
+        _bound((x.numel() + n * chunk) * isz, n * (n - 1) * chunk),
+        cuda_ms(lambda: x.view(n, n, chunk).sum(0), 10), x.shape,
+        source="reduce_scatter"))
 
-    # ring all-gather (src_full) at the pl_allreduce path's phase-2 input
-    got = ring_all_gather(red, src_full=True)
+    # ring all-gather at the pl_allreduce path's phase-2 input, the owned
+    # chunks
+    got = ring_all_gather(red)
     want = red.new_empty((n, n * chunk))
-    ring_all_gather_plain(red, want, True)
+    ring_all_gather_plain(red, want)
     err = check_close("ring_all_gather at path shape", got, want, "float32")
     del got
-
-    def gather_library():
-        own = red.view(n, n, chunk).diagonal(0, 0, 1).T
-        return own.unsqueeze(0).expand(n, n, chunk).reshape(n, n * chunk)
-
     # each rank's own chunk read once, the gathered rows written once
-    bound = _bound((n * chunk + n * n * chunk) * isz, 0)
-    out.append({
-        "name": "ring_all_gather", "route": "cuda",
-        "source": "tpu_perf_torch/csrc/ring_all_gather.cu",
-        "replaces": "tpu_perf/ops/pallas_ring.py:481",
-        **_launches(launches, "pl_allreduce", "ring_all_gather"),
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: ring_all_gather(red, src_full=True), 10),
-        "plain_ms": cuda_ms(lambda: ring_all_gather_plain(red, want, True), 3, 1),
-        **bound,
-        "library_ms": cuda_ms(gather_library, 10),
-        "shape": [n, n * chunk], "dtype": "float32",
-    })
+    out.append(_cuda_row(
+        launches, "ring_all_gather", 481, "pl_allreduce", err,
+        cuda_ms(lambda: ring_all_gather(red), 10),
+        cuda_ms(lambda: ring_all_gather_plain(red, want), 3, 1),
+        _bound((n * chunk + n * n * chunk) * isz, 0),
+        cuda_ms(lambda: red.reshape(1, -1).expand(n, -1).contiguous(), 10),
+        want.shape))
     del x, red, want
 
     # stream at the pl_hbm_stream path's input (one rank: the card itself)
@@ -781,8 +763,9 @@ def _p2p_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     from tpu_perf_torch.kernels import _build
     from tpu_perf_torch.ops.collectives import build_op
     from tpu_perf_torch.ops.pallas_ring import (
-        barrier, barrier_plain, pair_exchange, pair_exchange_plain, pingpong,
-        pingpong_plain, ring_shift, ring_shift_plain,
+        barrier, barrier_layout, barrier_plain, pair_exchange,
+        pair_exchange_plain, pingpong, pingpong_plain, ring_shift,
+        ring_shift_plain,
     )
     from tpu_perf_torch.world import SimWorld
 
@@ -825,21 +808,76 @@ def _p2p_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     del x, want, want_stage
 
     # barrier at its path's one-element rows: a latency, set beside an
-    # empty kernel's launch through the same ctypes route and stream
+    # empty kernel's launch through the same ctypes route, back to back on
+    # one stream (host-bound) and replayed from a CUDA graph (the device's
+    # own time per launch)
     x = build_op("pl_barrier", world, per_rank_bytes, 1).example_input
     err = check_close("barrier at path shape", barrier(x), barrier_plain(x),
                       "float32")
     empty = _build.entry("barrier", "empty_launch")
-    stream_ptr = torch.cuda.current_stream().cuda_stream
     reps = 2000
+
+    def chained_barriers():
+        y = x
+        for _ in range(GRAPH_LAUNCHES):
+            y = barrier(y)
+        return y
+
+    def empty_launches():
+        stream_ptr = torch.cuda.current_stream().cuda_stream
+        for _ in range(GRAPH_LAUNCHES):
+            _build.check("empty_launch", empty(stream_ptr))
+
+    stream_ptr = torch.cuda.current_stream().cuda_stream
+    # the cluster launch alone: the C entry on a fixed output, without the
+    # wrapper's checks and allocation
+    launch = _build.entry("barrier")
+    y = torch.empty_like(x)
+    args = (x.data_ptr(), y.data_ptr(), x.shape[0], *barrier_layout(x.shape[0]),
+            x.shape[1] * x.element_size(), stream_ptr)
     out.append(_cuda_row(
         launches, "barrier", 329, "pl_barrier", err,
         cuda_ms(lambda: barrier(x), reps),
         cuda_ms(lambda: barrier_plain(x), reps),
         _bound(2 * x.numel() * x.element_size(), 0),
         cuda_ms(lambda: x.clone(), reps), x.shape,
-        empty_launch_ms=cuda_ms(lambda: empty(stream_ptr), reps)))
+        launch_ms=cuda_ms(lambda: launch(*args), reps),
+        empty_launch_ms=cuda_ms(lambda: empty(stream_ptr), reps),
+        graph_ms=graph_ms(chained_barriers, x),
+        empty_launch_graph_ms=graph_ms(empty_launches)))
     return out
+
+
+#: launches captured in one CUDA graph for the barrier's device time
+GRAPH_LAUNCHES = 100
+
+
+def graph_ms(capture, want=None, replays: int = 50) -> float:
+    """Device time per launch of ``capture()``'s GRAPH_LAUNCHES launches,
+    captured once into a CUDA graph and replayed ``replays`` times back to
+    back; where ``want`` is given, the graph's output must equal it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        capture()  # warm-up outside the graph, as capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = capture()
+    graph.replay()
+    torch.cuda.synchronize()
+    if want is not None:
+        check_close("graph of chained barriers", got, want, "float32")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (replays * GRAPH_LAUNCHES)
 
 
 def _bulk_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
@@ -951,10 +989,14 @@ def main() -> int:
                       f"{k['schedule_bound_ms'] / k['ms']:.1%} of it")
             if "empty_launch_ms" in k:
                 print(f"kernel @{label}/rank: {k['name']} {k['shape']}: "
-                      f"{k['ms'] * 1e3:.2f} us per launch, an empty kernel's "
+                      f"{k['ms'] * 1e3:.2f} us per launch (the C entry alone "
+                      f"{k['launch_ms'] * 1e3:.2f} us), an empty kernel's "
                       f"launch {k['empty_launch_ms'] * 1e3:.2f} us, x.clone() "
                       f"{k['library_ms'] * 1e3:.2f} us (one stream, "
-                      "back to back)")
+                      f"back to back); from a CUDA graph of "
+                      f"{GRAPH_LAUNCHES}: {k['graph_ms'] * 1e3:.3f} us per "
+                      f"barrier, {k['empty_launch_graph_ms'] * 1e3:.3f} us "
+                      "per empty launch")
     print(f"total: {time.perf_counter() - t_start:.1f} s (phases {phase_s}), "
           f"card: {smi}")
     # the JSON line reports the main path's largest shape, the last rows

@@ -104,7 +104,8 @@ def test_build_module_names_every_cuda_source_and_its_c_entry():
     # every counted kernel but the Triton stream is built from a source of
     # the build module (ring and exchange share the row-shift source), and
     # every source builds a counted kernel
-    source_of = {"ring": "p2p_shift", "exchange": "p2p_shift"}
+    source_of = {"ring": "p2p_shift", "exchange": "p2p_shift",
+                 "direct_reduce_scatter": "reduce_scatter"}
     cuda_kernels = set(kernels.KERNELS) - {"stream"}
     assert ({source_of.get(k, k) for k in cuda_kernels}
             == set(_build._ENTRIES))

@@ -210,6 +210,31 @@ def test_p2p_wrappers_refuse_other_devices(wrapper):
         wrapper(torch.empty((4, 8), device="meta"))
 
 
+@pytest.mark.parametrize("n,layout", [(2, (2, 1)), (8, (8, 1)), (9, (8, 2)),
+                                      (256, (8, 32)), (257, None)])
+def test_barrier_layout(n, layout):
+    # min(n, 8) CTAs of one portable cluster, ceil(n / ctas) warps each
+    if layout is None:
+        with pytest.raises(ValueError, match="at most 256"):
+            tpr.barrier_layout(n)
+        return
+    ctas, warps = tpr.barrier_layout(n)
+    assert (ctas, warps) == layout
+    # rank r is warp r % warps of CTA r // warps: every rank has a warp of
+    # its own inside the cluster (at n = 9 CTAs 5-7 hold none and only
+    # join the barrier), and fewer warps would not do
+    assert (n - 1) // warps < ctas <= 8 and warps <= 32
+    assert ctas * (warps - 1) < n
+
+
+def test_barrier_refuses_more_ranks_than_one_cluster_holds():
+    # the plain version takes what the kernel takes, no more
+    assert torch.equal(tpr.barrier(_small_ints(256, 1, seed=4)),
+                       _small_ints(256, 1, seed=4))
+    with pytest.raises(ValueError, match="at most 256"):
+        tpr.barrier(_small_ints(257, 1, seed=5))
+
+
 def test_the_steps_chain_the_kernels(eight_devices):
     kernels.reset_counts()
     world = SimWorld(4, CPU)

@@ -3,11 +3,12 @@ JAX package's Pallas kernels under the TPU interpreter, on the same
 ``make_fill`` input carried across with ``to_world``.
 
 Tolerance: rtol 1e-6 for float32 — both sides sum each chunk in ring
-order (the interpreter's tiled adds and the plain version's per-step
-adds visit the ranks in the same order), so they agree to the last bit
-or nearly.  bfloat16 is held to one bfloat16 unit in the last place
-(rtol 8e-3): the adds round identically, but XLA may keep the 1/n scale's
-product in float32 before its final rounding.
+order (the interpreter's tiled adds and the plain version's adds visit the
+ranks in the same order), so they agree to the last bit; the
+order-sensitive reduce-scatter tests hold that exactly (rtol 0).  bfloat16
+is held to one bfloat16 unit in the last place (rtol 8e-3): the adds round
+identically, but XLA may keep the 1/n scale's product in float32 before its
+final rounding.
 """
 
 import jax
@@ -78,7 +79,7 @@ def test_pl_hbm_stream_matches_jax(dtype, eight_devices):
     _compare("pl_hbm_stream", 8, 4 * 37, 3, dtype)
 
 
-# --- the ring schedules on their own: ownership, wire rows, n = 1 ---
+# --- the kernels on their own: ownership, order of accumulation, n = 1 ---
 
 
 def _ranks_input(n, row, seed):
@@ -92,31 +93,81 @@ def _ranks_input(n, row, seed):
 def test_ring_reduce_scatter_ownership(n):
     chunk = 3
     x = _ranks_input(n, n * chunk, seed=n)
-    out = tpr.ring_reduce_scatter(x)
-    total = x.view(n, n, chunk).sum(0)  # chunk c summed over ranks
-    for d in range(n):
-        # rank d owns chunk d (psum_scatter(tiled=True)) ...
-        assert torch.equal(out.view(n, n, chunk)[d, d], total[d])
-        # ... and its own forwarded chunk d-1 stays its unreduced input
-        assert torch.equal(out.view(n, n, chunk)[d, (d - 1) % n],
-                           x.view(n, n, chunk)[d, (d - 1) % n])
+    out = tpr.direct_reduce_scatter(x)
+    # rank d owns chunk d summed over ranks (psum_scatter(tiled=True))
+    assert out.shape == (n, chunk)
+    assert torch.equal(out, x.view(n, n, chunk).sum(0))
 
 
-@pytest.mark.parametrize("n", [3, 5])
-def test_ring_reduce_scatter_stage_rows_hold_the_wire(n):
-    # staging row k of rank d holds the left neighbour's running partial
-    # of chunk (d-2-k) mod n: the sum of that chunk over ranks d-1-k..d-1
-    chunk = 2
-    x = _ranks_input(n, n * chunk, seed=10 + n)
-    out = torch.empty_like(x)
-    stage = x.new_empty((n, n - 1, chunk))
-    tpr.ring_reduce_scatter_plain(x, out, stage)
-    xc = x.view(n, n, chunk)
-    for d in range(n):
-        for k in range(n - 1):
-            r = (d - 2 - k) % n
-            want = sum(xc[(d - 1 - j) % n, r] for j in range(k + 1))
-            assert torch.equal(stage[d, k], want)
+def _ring_order_sum(xc, dtype=np.float32):
+    # numpy, one add at a time in the TPU ring's order: chunk c starts from
+    # rank c+1 and adds ranks c+2, ..., c+n (mod n), rounding to the
+    # working type after every add
+    n = xc.shape[0]
+    out = np.empty((n, xc.shape[2]), dtype)
+    for c in range(n):
+        acc = xc[(c + 1) % n, c].astype(dtype)
+        for j in range(2, n + 1):
+            acc = (acc + xc[(c + j) % n, c].astype(dtype)).astype(dtype)
+        out[c] = acc
+    return out
+
+
+def _order_sensitive(n, chunk, seed):
+    # 1e8 swallows a 1 in float32 (its unit in the last place is 8), so the
+    # order of addition decides the sum
+    rng = np.random.default_rng(seed)
+    return rng.choice(np.array([1e8, -1e8, 1.0, -1.0, 3.0, 0.5], np.float32),
+                      (n, n * chunk))
+
+
+@pytest.mark.parametrize("n", [2, 5, 8])
+def test_direct_reduce_scatter_sums_in_ring_order(n, eight_devices):
+    chunk = 64
+    xg = _order_sensitive(n, chunk, seed=30 + n)
+    xc = xg.reshape(n, n, chunk)
+    want = _ring_order_sum(xc)
+    got = tpr.direct_reduce_scatter(torch.from_numpy(xg)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if n > 2:
+        # the inputs do tell the orders apart (two ranks' sum has only one)
+        in_rank_order = xc[0].copy()
+        for s in range(1, n):
+            in_rank_order = in_rank_order + xc[s]
+        assert not np.array_equal(want, in_rank_order.reshape(n, chunk))
+    # the JAX kernel under the Pallas interpreter, through the same carry:
+    # owned chunk * 1/n tiled over the row, rounded the same way
+    mesh = make_mesh(devices=jax.devices()[:n])
+    jb = jax_build_op("pl_reduce_scatter", mesh, n * chunk * 4, 1)
+    jy = np.asarray(jax.device_get(jb.step(jax.device_put(
+        xg.reshape(-1), jb.example_input.sharding))))
+    pb = build_op("pl_reduce_scatter", SimWorld(n, CPU), n * chunk * 4, 1)
+    py = from_world(pb.step(torch.from_numpy(xg)))
+    np.testing.assert_array_equal(py, jy)
+    if n in (2, 8):
+        # 1/n is a power of two: the JAX kernel's owned chunks come back
+        # exactly
+        owned = jy.reshape(n, n, chunk)[:, 0] * np.float32(n)
+        np.testing.assert_array_equal(got, owned)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_direct_reduce_scatter_rounds_after_every_add(dtype):
+    import ml_dtypes
+
+    np_dtype = np.float16 if dtype == "float16" else ml_dtypes.bfloat16
+    n, chunk = 8, 256
+    rng = np.random.default_rng(40)
+    xg = (rng.standard_normal((n, n * chunk))
+          * rng.choice([1.0, 64.0, 1 / 64], (n, n * chunk))).astype(np_dtype)
+    xc = xg.reshape(n, n, chunk)
+    want = _ring_order_sum(xc, np_dtype).astype(np.float32)
+    x = torch.from_numpy(xg.astype(np.float32)).to(getattr(torch, dtype))
+    got = tpr.direct_reduce_scatter(x).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    # one rounding of the float32 sum would give other values
+    once = xc.astype(np.float32).sum(0).astype(np_dtype).astype(np.float32)
+    assert not np.array_equal(got, once)
 
 
 @pytest.mark.parametrize("src_full", [False, True])
@@ -132,7 +183,7 @@ def test_ring_all_gather_every_row_gathers_every_chunk(n, src_full):
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     kernels.reset_counts()
     x = _ranks_input(4, 8, seed=0)
-    tpr.ring_all_gather(tpr.ring_reduce_scatter(x), src_full=True)
+    tpr.ring_all_gather(tpr.direct_reduce_scatter(x))
     tpr.stream(x)
     tpr.hbm_write(tpr.hbm_read(tpr.hbm_copy(x)), 4)
     tpr.barrier(tpr.pingpong(tpr.pair_exchange(tpr.ring_shift(x)))[0])
@@ -142,7 +193,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
 
 
 @pytest.mark.parametrize("wrapper", [
-    lambda x: tpr.ring_reduce_scatter(x),
+    lambda x: tpr.direct_reduce_scatter(x),
     lambda x: tpr.ring_all_gather(x),
     lambda x: tpr.stream(x),
 ])
@@ -155,9 +206,11 @@ def test_wrappers_refuse_other_devices(wrapper):
 
 def test_ring_reduce_scatter_rejects_ints_and_one_rank():
     with pytest.raises(ValueError, match="floats"):
-        tpr.ring_reduce_scatter(torch.zeros((2, 4), dtype=torch.int32))
+        tpr.direct_reduce_scatter(torch.zeros((2, 4), dtype=torch.int32))
     with pytest.raises(ValueError, match=">= 2 ranks"):
-        tpr.ring_reduce_scatter(torch.zeros((1, 4)))
+        tpr.direct_reduce_scatter(torch.zeros((1, 4)))
+    with pytest.raises(ValueError, match="whole chunks"):
+        tpr.direct_reduce_scatter(torch.zeros((2, 5)))
 
 
 # --- sizes: the same rounding as the JAX package ---

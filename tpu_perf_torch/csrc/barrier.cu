@@ -1,99 +1,98 @@
 // Global signal barrier over the ranks of the sim world, then a copy of
-// each rank's row.
+// each rank's row, on Hopper's thread-block cluster barrier.
 //
 // Replaces: tpu_perf/ops/pallas_ring.py `_barrier_kernel` (pl_barrier)
 // with `_global_barrier`: every device signals all n devices (itself
 // included) on a barrier semaphore and waits for n signals, then copies its
 // one element, so that the chained carry depends on the barrier.
 //
-// What it computes.  One CTA per rank, all launched together with
-// cudaLaunchCooperativeKernel, which guarantees that the n spinning CTAs
-// are resident at once (if they cannot be, the launch fails instead of
-// hanging).  CTA d:
-//   1. adds 1 to every rank's arrival counter (n atomics, release order);
-//   2. spins with acquire loads until its own counter reaches
-//      n * generation;
-//   3. copies row d of src to row d of out.
-// The counters are a uint64 buffer the host wrapper owns, one per rank,
-// never reset: the host passes the generation (launches so far, this one
-// included) and advances it, so no reset can race a late arrival.
+// What it computes.  The n ranks are laid out over one thread-block
+// cluster of C = min(n, 8) CTAs (the portable cluster size) with W =
+// ceil(n / C) warps each: rank r is warp r % W of CTA r / W (the host
+// computes C and W, `barrier_layout` in ops/pallas_ring.py).  At the path's
+// n = 8 that is one CTA per rank, the TPU kernel's own picture; up to
+// 8 x 32 = 256 ranks fit.  Every thread of the cluster arrives on the
+// hardware cluster barrier with release semantics and waits on it with
+// acquire semantics: "signal all n ranks, wait for n signals" in one
+// instruction pair.  Then each rank's warp copies its row of src to out.
 //
-// A barrier that never completes must fail loudly: after about a second of
-// spinning (the device's global timer) the CTA calls __trap(), which
-// aborts the launch with an error the next synchronize reports.
+// State.  None is kept between launches: no counters, no generation.  The
+// hardware co-schedules the CTAs of a cluster on one GPC, so no CTA can
+// wait for one that is not resident; a cluster the card cannot hold is
+// refused at launch (an error the wrapper raises), and the wrapper asks
+// cudaOccupancyMaxActiveClusters before its first launch of a layout.
+// There is nothing to time out.
 //
 // Bound on an H100: latency, not bytes (a few bytes per rank move).  The
-// cost is the launch plus one round of device-scope atomics through L2;
-// chip_smoke.py sets it beside an empty kernel's launch.
+// cost is the launch plus one cluster barrier, a round through the SMs'
+// distributed shared-memory network; chip_smoke.py sets it beside an empty
+// kernel's launch, back to back from the host and replayed in a CUDA graph.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 32;
-constexpr unsigned long long kTimeoutNs = 1000000000ull;  // about a second
-
-__device__ __forceinline__ void add_release(unsigned long long* p) {
-  asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(p) : "memory");
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-__device__ __forceinline__ unsigned long long load_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-__global__ void __launch_bounds__(kThreads)
-barrier_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ out,
-               unsigned long long* counters, int n, long long row_bytes,
-               unsigned long long generation) {
-  const int d = blockIdx.x;
-  if (threadIdx.x == 0) {
-    for (int r = 0; r < n; ++r) add_release(counters + r);
-    const unsigned long long target = (unsigned long long)n * generation;
-    const unsigned long long t0 = now_ns();
-    while (load_acquire(counters + d) < target) {
-      if (now_ns() - t0 > kTimeoutNs) __trap();
-      __nanosleep(64);
-    }
-  }
-  __syncthreads();
-  const long long base = (long long)d * row_bytes;
-  for (long long i = threadIdx.x; i < row_bytes; i += blockDim.x) {
+__global__ void barrier_kernel(const uint8_t* __restrict__ src,
+                               uint8_t* __restrict__ out, int n, int warps,
+                               long long row_bytes) {
+  // every thread takes part, those of warps past rank n - 1 included
+  cluster_barrier();
+  const int rank = blockIdx.x * warps + (int)(threadIdx.x / 32);
+  if (rank >= n) return;
+  const long long base = (long long)rank * row_bytes;
+  for (long long i = threadIdx.x % 32; i < row_bytes; i += 32) {
     out[base + i] = src[base + i];
   }
 }
 
 __global__ void empty_kernel() {}
 
+cudaLaunchConfig_t cluster_config(int ctas, int warps, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)ctas);
+  config.blockDim = dim3((unsigned)(32 * warps));
+  config.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
 }  // namespace
 
-// src and out are (n, row_bytes) buffers, counters n uint64 words that only
-// barrier launches on this stream touch.  generation is the number of
-// launches on these counters, this one included.  Returns the launch's
-// error, else cudaGetLastError().
-extern "C" int barrier_rows(const void* src, void* out, void* counters, int n,
-                            long long row_bytes, long long generation,
-                            void* stream) {
-  const uint8_t* s = static_cast<const uint8_t*>(src);
-  uint8_t* o = static_cast<uint8_t*>(out);
-  unsigned long long* c = static_cast<unsigned long long*>(counters);
-  unsigned long long g = (unsigned long long)generation;
-  void* args[] = {&s, &o, &c, &n, &row_bytes, &g};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)barrier_kernel, dim3((unsigned)n), dim3(kThreads), args, 0,
-      static_cast<cudaStream_t>(stream));
+// How many clusters of `ctas` CTAs of `warps` warps the current device can
+// hold at once, into *clusters (0: the barrier cannot launch).  Returns the
+// query's error, else cudaGetLastError().
+extern "C" int barrier_max_active_clusters(int ctas, int warps, int* clusters) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = cluster_config(ctas, warps, 0, &attr);
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      clusters, (const void*)barrier_kernel, &config);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// src and out are (n, row_bytes) buffers; n ranks over `ctas` CTAs of
+// `warps` warps, ctas <= 8, ctas * warps >= n.  Returns the launch's error,
+// else cudaGetLastError().
+extern "C" int barrier_rows(const void* src, void* out, int n, int ctas,
+                            int warps, long long row_bytes, void* stream) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = cluster_config(
+      ctas, warps, static_cast<cudaStream_t>(stream), &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, barrier_kernel, static_cast<const uint8_t*>(src),
+      static_cast<uint8_t*>(out), n, warps, row_bytes);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }

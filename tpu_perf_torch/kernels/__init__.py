@@ -10,7 +10,7 @@ main path must show launches and no plain calls.
 
 from __future__ import annotations
 
-KERNELS = ("ring_reduce_scatter", "ring_all_gather", "stream", "hbm_copy",
+KERNELS = ("direct_reduce_scatter", "ring_all_gather", "stream", "hbm_copy",
            "hbm_read", "hbm_write", "ring", "exchange", "pingpong", "barrier",
            "all_to_all", "ring_all_gather_bidir")
 

@@ -34,9 +34,8 @@ _L = ctypes.c_longlong
 
 #: C entry point and its argument types, per source
 _ENTRIES = {
-    # (x, out, stage, n, chunk, step, dtype_code, stream)
-    "ring_reduce_scatter": ("ring_reduce_scatter_step",
-                            [_P, _P, _P, _I, _L, _I, _I, _P]),
+    # (x, out, n, chunk, dtype_code, stream)
+    "reduce_scatter": ("direct_reduce_scatter", [_P, _P, _I, _L, _I, _P]),
     # (src, out, n, chunk_bytes, src_row_bytes, src_own_bytes, step, stream)
     "ring_all_gather": ("ring_all_gather_step",
                         [_P, _P, _I, _L, _L, _L, _I, _P]),
@@ -50,8 +49,8 @@ _ENTRIES = {
     "p2p_shift": ("p2p_shift_rows", [_P, _P, _I, _L, _I, _P]),
     # (x, out, stage, n, row_bytes, leg, stream)
     "pingpong": ("pingpong_leg", [_P, _P, _P, _I, _L, _I, _P]),
-    # (src, out, counters, n, row_bytes, generation, stream)
-    "barrier": ("barrier_rows", [_P, _P, _P, _I, _L, _L, _P]),
+    # (src, out, n, ctas, warps, row_bytes, stream)
+    "barrier": ("barrier_rows", [_P, _P, _I, _I, _I, _L, _P]),
     # (src, out, n, chunk_bytes, stream)
     "all_to_all": ("all_to_all_rows", [_P, _P, _I, _L, _P]),
     # (src, out, n, half_bytes, step, stream)
@@ -63,6 +62,9 @@ _ENTRIES = {
 _EXTRA_ENTRIES = {
     # an empty kernel's launch, the yardstick for the barrier's latency
     ("barrier", "empty_launch"): [_P],
+    # (ctas, warps, &clusters): how many barrier clusters the card holds
+    ("barrier", "barrier_max_active_clusters"): [_I, _I,
+                                                 ctypes.POINTER(ctypes.c_int)],
 }
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}

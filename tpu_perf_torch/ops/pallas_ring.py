@@ -5,9 +5,10 @@ interconnect with remote DMA.  Here the sim world
 (:mod:`tpu_perf_torch.world`) stands in for the ranks, and each kernel
 is written by hand for Hopper:
 
-* ``ring_reduce_scatter`` — CUDA C++, ``csrc/ring_reduce_scatter.cu``
+* ``direct_reduce_scatter`` — CUDA C++, ``csrc/reduce_scatter.cu``
   (replaces ``_reduce_scatter_kernel`` with ``_acc_add`` and
-  ``_ring_barrier``);
+  ``_ring_barrier``), every rank's owned chunk in one launch, summed in the
+  ring's order;
 * ``ring_all_gather`` — CUDA C++, ``csrc/ring_all_gather.cu`` (replaces
   ``_all_gather_kernel``, both modes);
 * ``stream`` — Triton, :mod:`tpu_perf_torch.ops.stream_triton` (replaces
@@ -22,8 +23,8 @@ is written by hand for Hopper:
 * ``pingpong`` — CUDA C++, ``csrc/pingpong.cu`` (replaces
   ``_pingpong_kernel``), one launch per leg;
 * ``barrier`` — CUDA C++, ``csrc/barrier.cu`` (replaces ``_barrier_kernel``
-  with ``_global_barrier``), a cooperative launch of one CTA per rank that
-  meets at device-memory arrival counters;
+  with ``_global_barrier``), the ranks laid over one thread-block cluster
+  that meets at Hopper's hardware cluster barrier;
 * ``all_to_all`` — CUDA C++, ``csrc/all_to_all.cu`` (replaces
   ``_all_to_all_direct_kernel``; stream order stands in for its
   ``_global_barrier``), every (destination, source) pair in one launch;
@@ -32,14 +33,16 @@ is written by hand for Hopper:
   ring, one launch per ring step.
 
 Every ``pl_*`` op of the JAX package is ported.  Each wrapper launches its
-kernel for a CUDA tensor and runs its plain PyTorch version, the same ring
-schedule step by step over the sim ranks, for a CPU tensor; anything else
-raises.  The sizes, carries and op names are the JAX package's, so rows
-land on the same curve keys.
+kernel for a CUDA tensor and runs its plain PyTorch version, the kernel's
+schedule (or order of accumulation) step by step over the sim ranks, for a
+CPU tensor; anything else raises.  The sizes, carries and op names are the
+JAX package's, so rows land on the same curve keys.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Callable
 
 import torch
@@ -80,7 +83,9 @@ def hbm_dma_block_elems(itemsize: int, elems: int) -> int:
 
 
 def _stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    # the raw handle of the current stream on t's card, without building a
+    # torch.cuda.Stream object (which costs a few microseconds a launch)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -91,55 +96,45 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensor is not contiguous")
 
 
-# --- ring reduce-scatter ------------------------------------------------
+# --- reduce-scatter ------------------------------------------------------
 
 
-def ring_reduce_scatter_plain(x: torch.Tensor, out: torch.Tensor,
-                              stage: torch.Tensor) -> None:
-    """The kernel's schedule in plain PyTorch: for each ring step, every
-    rank d copies its left neighbour's partial of chunk r = (d-2-k) mod n
-    into staging row k and adds it into its own chunk r.  ``out`` and
-    ``stage`` are written in place."""
-    kernels.PLAIN_CALLS["ring_reduce_scatter"] += 1
+def direct_reduce_scatter_plain(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's order of accumulation in plain PyTorch: rank c's owned
+    chunk starts from rank c+1's chunk c and adds ranks c+2, ..., c+n (mod
+    n) one at a time, rounding to the working type after every add, as the
+    ring forwards it round to rank c.  Returns ``(n, chunk)``."""
+    kernels.PLAIN_CALLS["direct_reduce_scatter"] += 1
     n = x.shape[0]
-    chunk = x.shape[1] // n
-    xc, oc = x.view(n, n, chunk), out.view(n, n, chunk)
-    d = torch.arange(n, device=x.device)
-    left = (d - 1) % n
-    for step in range(n - 1):
-        r = (d + 2 * n - 2 - step) % n
-        partial = (xc if step == 0 else oc)[left, r]
-        stage[:, step] = partial
-        oc[d, r] = xc[d, r] + partial
-        if step == 0:
-            oc[d, left] = xc[d, left]  # own chunk, forwarded unreduced
+    xc = x.view(n, n, x.shape[1] // n)
+    c = torch.arange(n, device=x.device)
+    acc = xc[(c + 1) % n, c]
+    for j in range(2, n + 1):
+        acc = acc + xc[(c + j) % n, c]
+    return acc
 
 
-def ring_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
-    """Ring reduce-scatter over the sim ranks: ``x`` is ``(n, n*chunk)``;
-    returns ``out`` of the same shape, where rank d's chunk d is the sum
-    over ranks of chunk d (the other chunks hold the partials the ring
-    left there, as on the TPU).  One kernel launch per ring step."""
+def direct_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
+    """Reduce-scatter over the sim ranks: ``x`` is ``(n, n*chunk)``; returns
+    ``(n, chunk)`` whose row d is the sum over ranks of chunk d
+    (psum_scatter(tiled=True) ownership), added in the TPU ring's order.
+    One kernel launch for every rank."""
     n, row = x.shape
     if n < 2 or row % n:
         raise ValueError(
-            f"ring_reduce_scatter needs >= 2 ranks and whole chunks, got {tuple(x.shape)}")
+            f"direct_reduce_scatter needs >= 2 ranks and whole chunks, got {tuple(x.shape)}")
     if x.dtype not in _RS_DTYPE_CODES:
-        raise ValueError(f"ring_reduce_scatter reduces floats, got {x.dtype}")
-    chunk = row // n
-    out = torch.empty_like(x)
-    stage = x.new_empty((n, n - 1, chunk))
+        raise ValueError(f"direct_reduce_scatter reduces floats, got {x.dtype}")
     if x.device.type == "cpu":
-        ring_reduce_scatter_plain(x, out, stage)
-        return out
-    _check_cuda("ring_reduce_scatter", x)
-    fn = _build.entry("ring_reduce_scatter")
-    stream_ptr = _stream_of(x)
-    for step in range(n - 1):
-        err = fn(x.data_ptr(), out.data_ptr(), stage.data_ptr(), n, chunk,
-                 step, _RS_DTYPE_CODES[x.dtype], stream_ptr)
-        _build.check("ring_reduce_scatter", err)
-        kernels.LAUNCHES["ring_reduce_scatter"] += 1
+        return direct_reduce_scatter_plain(x)
+    _check_cuda("direct_reduce_scatter", x)
+    chunk = row // n
+    out = x.new_empty((n, chunk))
+    err = _build.entry("reduce_scatter")(x.data_ptr(), out.data_ptr(), n,
+                                         chunk, _RS_DTYPE_CODES[x.dtype],
+                                         _stream_of(x))
+    _build.check("direct_reduce_scatter", err)
+    kernels.LAUNCHES["direct_reduce_scatter"] += 1
     return out
 
 
@@ -422,10 +417,36 @@ def pingpong(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return out, stage
 
 
-#: (device index, n) -> [arrival counters, generations launched]: the
-#: barrier's state on one device, for launches on one stream.  Counters only
-#: grow; each launch waits for n * its generation.
-_BARRIER_STATE: dict[tuple[int, int], list] = {}
+#: a portable thread-block cluster holds 8 CTAs, and a CTA 32 warps: the
+#: barrier takes one warp per rank
+_CLUSTER_CTAS, _CTA_WARPS = 8, 32
+BARRIER_MAX_RANKS = _CLUSTER_CTAS * _CTA_WARPS
+
+
+def barrier_layout(n: int) -> tuple[int, int]:
+    """The barrier kernel's ``(ctas, warps)`` for n ranks: ``min(n, 8)``
+    CTAs of one cluster, ``ceil(n / ctas)`` warps each; rank r is warp
+    r % warps of CTA r // warps."""
+    if not 1 <= n <= BARRIER_MAX_RANKS:
+        raise ValueError(
+            f"barrier: {n} ranks; one thread-block cluster holds at most "
+            f"{BARRIER_MAX_RANKS} ({_CLUSTER_CTAS} CTAs of {_CTA_WARPS} warps)")
+    ctas = min(n, _CLUSTER_CTAS)
+    return ctas, -(-n // ctas)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_cluster_fits(device_index: int, ctas: int, warps: int) -> None:
+    # asked once per device and layout, before the first launch
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _build.entry("barrier", "barrier_max_active_clusters")(
+            ctas, warps, ctypes.byref(clusters))
+    _build.check("barrier occupancy query", err)
+    if clusters.value < 1:
+        raise RuntimeError(
+            f"barrier: card {device_index} cannot hold a cluster of {ctas} "
+            f"CTAs of {warps} warps")
 
 
 def barrier_plain(x: torch.Tensor) -> torch.Tensor:
@@ -437,28 +458,21 @@ def barrier_plain(x: torch.Tensor) -> torch.Tensor:
 
 def barrier(x: torch.Tensor) -> torch.Tensor:
     """Every rank signals all n ranks and waits for n signals, then copies
-    its row; returns a new tensor equal to ``x``.  One cooperative launch of
-    one CTA per rank; a barrier that does not complete within about a
-    second traps (an error at the next synchronize), never hangs."""
-    if x.device.type == "cpu":
+    its row; returns a new tensor equal to ``x``.  One launch of one
+    thread-block cluster (:func:`barrier_layout`) that meets at the
+    hardware cluster barrier; nothing is kept between launches.  At most
+    256 ranks, on the CPU too."""
+    n, row = x.shape
+    ctas, warps = barrier_layout(n)
+    if x.is_cpu:
         return barrier_plain(x)
     _check_cuda("barrier", x)
-    n, row = x.shape
-    key = (x.device.index, n)
-    state = _BARRIER_STATE.get(key)
-    if state is None:
-        state = _BARRIER_STATE[key] = [
-            torch.zeros(n, dtype=torch.int64, device=x.device), 0]
-    counters, generation = state[0], state[1] + 1
+    _check_cluster_fits(x.get_device(), ctas, warps)
     out = torch.empty_like(x)
-    err = _build.entry("barrier")(x.data_ptr(), out.data_ptr(),
-                                  counters.data_ptr(), n,
-                                  row * x.element_size(), generation,
+    err = _build.entry("barrier")(x.data_ptr(), out.data_ptr(), n, ctas,
+                                  warps, row * x.element_size(),
                                   _stream_of(x))
     _build.check("barrier", err)
-    # advanced only once the launch is in: a refused launch adds nothing,
-    # and the next one must not wait for its arrivals
-    state[1] = generation
     kernels.LAUNCHES["barrier"] += 1
     return out
 
@@ -615,14 +629,14 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
     if op == "pl_reduce_scatter":
         # own reduced chunk * 1/n, tiled over the whole buffer
         def rs_carry(x):
-            return (own_chunks(ring_reduce_scatter(x)) * inv).repeat(1, n)
+            return (direct_reduce_scatter(x) * inv).repeat(1, n)
 
         return chained(rs_carry, iters), elems, actual
 
     def allreduce_carry(x):
-        # reduce-scatter phase, all-gather phase, * 1/n — the scale is done
-        # in place on the gathered buffer, which saves one buffer the size
-        # of the payload
-        return ring_all_gather(ring_reduce_scatter(x), src_full=True).mul_(inv)
+        # reduce-scatter phase, all-gather phase of the owned chunks, * 1/n —
+        # the scale is done in place on the gathered buffer, which saves one
+        # buffer the size of the payload
+        return ring_all_gather(direct_reduce_scatter(x)).mul_(inv)
 
     return chained(allreduce_carry, iters), elems, actual
