@@ -13,7 +13,9 @@ exits non-zero):
    CUDA source, all started together; the Triton kernel compiles at its
    first launch) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card: the
-   direct reduce-scatter at 2, 5 and 8 ranks and at the path's shape, the
+   direct reduce-scatter at 2, 5 and 8 ranks and at the path's shape
+   (unscaled, and with the carries' 1/5 and 1/8 scale, owned chunk alone
+   and tiled over the row), the
    ring all-gather (both modes) at 5 and 8 ranks, the stream kernel, the
    three bulk-copy kernels (copy, read sweep, write sweep) at 1, 5 and 8
    ranks, the point-to-point kernels (ring, exchange, pingpong with its
@@ -22,7 +24,11 @@ exits non-zero):
    bidirectional ring all-gather over its whole gathered buffer) at 1, 2,
    5 and 8 ranks, over several dtypes and ragged / unaligned / multi-block
    shapes up to 2 GiB; then show that 1000 chained barriers at 8 and 64
-   ranks return their input and that 257 ranks are refused at the wrapper;
+   ranks return their input and that 257 ranks are refused at the wrapper,
+   that pingpong's return leg waits for its payload (two inputs in turn
+   through a stage that holds a sentinel), and that 1000 chained round
+   trips at 8 ranks return their input and leave the pair counters at
+   zero;
 4. drive the port's run paths through its CLI (``run --op pl_allreduce
    --sweep 4K:256M``, the other five ops of the first slice, the six
    local memory ops at one rank, the eleven point-to-point ops at eight,
@@ -38,7 +44,8 @@ exits non-zero):
 6. time each kernel at the main path's largest shape beside its bound
    (from the card's published rates in ``tpu_perf_torch.chips``), its
    plain version and one PyTorch library call (the barrier also from a
-   CUDA graph of 100 chained launches, beside an empty kernel's), and
+   CUDA graph of 100 chained launches, beside an empty kernel's; the
+   reduce-scatter in both modes, beside the carries it replaced), and
    print them as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
@@ -146,8 +153,8 @@ def phase_check() -> None:
         DTYPES, build_op, make_fill, to_tensor,
     )
     from tpu_perf_torch.ops.pallas_ring import (
-        direct_reduce_scatter, direct_reduce_scatter_plain, ring_all_gather,
-        ring_all_gather_plain,
+        direct_reduce_scatter, direct_reduce_scatter_plain, mean_scale,
+        ring_all_gather, ring_all_gather_plain,
     )
     from tpu_perf_torch.ops.stream_triton import stream, stream_plain
     from tpu_perf_torch.world import SimWorld
@@ -170,13 +177,31 @@ def phase_check() -> None:
                             f"{dtype}", direct_reduce_scatter(x),
                             direct_reduce_scatter_plain(x), dtype)
                 n_checks += 1
-    # the pl_allreduce path's own input: 8 ranks x 256 MiB
+                if n == 2:
+                    continue
+                # the carries' epilogue: 1/n rounded to the dtype (not a
+                # power of two at 5), the owned chunk alone (pl_allreduce)
+                # and tiled over the row (pl_reduce_scatter)
+                scale = mean_scale(n, DTYPES[dtype])
+                for tiles in (1, n):
+                    check_close(f"direct_reduce_scatter n={n} chunk={chunk} "
+                                f"{dtype} scale={scale} tiles={tiles}",
+                                direct_reduce_scatter(x, scale=scale,
+                                                      tiles=tiles),
+                                direct_reduce_scatter_plain(x, scale, tiles),
+                                dtype)
+                    n_checks += 1
+    # the pl_allreduce path's own input, 8 ranks x 256 MiB: unscaled, and
+    # as both carries launch it
     x = build_op("pl_allreduce", SimWorld(8, torch.device("cuda")), MAIN_BYTES,
                  1).example_input
-    check_close(f"direct_reduce_scatter {tuple(x.shape)} float32",
-                direct_reduce_scatter(x), direct_reduce_scatter_plain(x),
-                "float32")
-    n_checks += 1
+    inv = mean_scale(8, x.dtype)
+    for scale, tiles in ((1.0, 1), (inv, 1), (inv, 8)):
+        check_close(f"direct_reduce_scatter {tuple(x.shape)} float32 "
+                    f"scale={scale} tiles={tiles}",
+                    direct_reduce_scatter(x, scale=scale, tiles=tiles),
+                    direct_reduce_scatter_plain(x, scale, tiles), "float32")
+        n_checks += 1
     del x
     for n in (5, 8):
         for chunk in chunks:
@@ -203,6 +228,7 @@ def phase_check() -> None:
     print(f"check: {n_checks} kernel-vs-plain cases agree within the stated "
           f"tolerances {RTOL}")
     check_barrier_chains(fill)
+    check_pingpong_order(fill)
 
 
 def check_bulk_kernels(fill) -> int:
@@ -374,6 +400,60 @@ def check_barrier_chains(fill) -> None:
           f"input; 257 ranks refused: {said}")
 
 
+def check_pingpong_order(fill) -> None:
+    """Each pair's return leg waits for its whole payload: two different
+    inputs in turn through one stage that holds a sentinel before every
+    call (NaN, 0xFF for uint8) come back exactly, the partners' stage rows
+    hold the payload and group 0's stage rows keep the sentinel.  (A new
+    stage could be a block that already holds the same payload, and an
+    early return leg would go unseen.)  Then 1000 chained round trips at
+    8 ranks return their input and leave the pair counters at zero."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import DTYPES
+    from tpu_perf_torch.ops.pallas_ring import pingpong, pingpong_counters
+
+    cases = 0
+    for n in (2, 8):
+        for dtype, sentinel in (("float32", float("nan")), ("uint8", 255)):
+            isz = DTYPES[dtype].itemsize
+            for elems in (-(-456131 // isz), 16 * 1024**2 // isz):
+                a = fill((n, elems), dtype)
+                b = a.roll(1, 1)
+                if torch.equal(a, b):
+                    fail(f"pingpong order ({n}, {elems}) {dtype}: the two "
+                         "inputs are equal")
+                stage = torch.empty_like(a)
+                half = n // 2
+                for i in range(20):
+                    x = a if i % 2 == 0 else b
+                    stage.fill_(sentinel)
+                    out, _ = pingpong(x, stage)
+                    held = (stage[:half].isnan() if dtype == "float32"
+                            else stage[:half] == sentinel)
+                    if not (torch.equal(out, x)
+                            and torch.equal(stage[half:], x[:half])
+                            and bool(held.all())):
+                        fail(f"pingpong order ({n}, {elems}) {dtype}, call "
+                             f"{i}: the round trip did not return its own "
+                             "input through the stage")
+                cases += 1
+    x = fill((8, -(-456131 // 4)), "float32")
+    y = x
+    for _ in range(1000):
+        y = pingpong(y)[0]
+    torch.cuda.synchronize()
+    check_close("1000 chained round trips (8, 114033)", y, x, "float32")
+    counters = pingpong_counters(x.device, 4)
+    if counters.any():
+        fail(f"pingpong counters left non-zero after 1000 round trips: "
+             f"{counters.tolist()}")
+    print(f"check: pingpong's return leg waited for its payload in {cases} "
+          "sentinel-stage cases of 20 alternating calls; 1000 chained round "
+          f"trips at (8, 114033) return their input, counters "
+          f"{counters.tolist()}")
+
+
 def check_read(what: str, x, dtype: str) -> None:
     """The read sweep returns its input itself, unchanged: the plain
     version (the identity) of a copy taken before the launch."""
@@ -411,7 +491,7 @@ PATHS = {
     "barrier": ({}, 8),
     "pl_ring": ({"ring": 1}, 8),
     "pl_exchange": ({"exchange": 1}, 8),
-    "pl_pingpong": ({"pingpong": 2}, 8),
+    "pl_pingpong": ({"pingpong": 1}, 8),
     "pl_barrier": ({"barrier": 1}, 8),
     # the collectives slice: the library collectives launch no kernel of
     # the port
@@ -634,8 +714,8 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
 
     from tpu_perf_torch.ops.collectives import build_op
     from tpu_perf_torch.ops.pallas_ring import (
-        direct_reduce_scatter, direct_reduce_scatter_plain, ring_all_gather,
-        ring_all_gather_plain,
+        direct_reduce_scatter, direct_reduce_scatter_plain, mean_scale,
+        ring_all_gather, ring_all_gather_plain,
     )
     from tpu_perf_torch.ops.stream_triton import (
         stream, stream_constants, stream_plain,
@@ -645,23 +725,50 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     dev = torch.device("cuda", torch.cuda.current_device())
     out = []
 
-    # direct reduce-scatter at the pl_allreduce path's input
+    # direct reduce-scatter at the pl_allreduce path's input, as that path
+    # launches it (scaled by 1/n, the owned chunk alone)
     x = build_op("pl_allreduce", SimWorld(8, dev), per_rank_bytes, 1).example_input
     n = x.shape[0]
     chunk = x.shape[1] // n
     isz = x.element_size()
-    red = direct_reduce_scatter(x)
+    inv = mean_scale(n, x.dtype)
+    red = direct_reduce_scatter(x, scale=inv)
     err = check_close("direct_reduce_scatter at path shape", red,
-                      direct_reduce_scatter_plain(x), "float32")
-    # the function's own bytes: x read once, each rank's reduced chunk
-    # written once; (n-1) adds per reduced element
+                      direct_reduce_scatter_plain(x, inv), "float32")
+    tiled_err = check_close(
+        "direct_reduce_scatter tiled at path shape",
+        direct_reduce_scatter(x, scale=inv, tiles=n),
+        direct_reduce_scatter_plain(x, inv, n), "float32")
+    # the carries the epilogue replaced, and the same carries now
+    inv_t = torch.tensor(inv, dtype=x.dtype, device=dev)
+    carries = {
+        "pl_reduce_scatter_carry_before_ms":
+            lambda: (direct_reduce_scatter(x) * inv_t).repeat(1, n),
+        "pl_reduce_scatter_carry_ms":
+            lambda: direct_reduce_scatter(x, scale=inv, tiles=n),
+        "pl_allreduce_carry_before_ms":
+            lambda: ring_all_gather(direct_reduce_scatter(x)).mul_(inv_t),
+        "pl_allreduce_carry_ms":
+            lambda: ring_all_gather(direct_reduce_scatter(x, scale=inv)),
+    }
+    # the function's own bytes: x read once, each rank's output row written
+    # once; (n-1) adds and one multiply per reduced element
+    tiled_bound = _bound((x.numel() + n * n * chunk) * isz, n * n * chunk)
     out.append(_cuda_row(
         launches, "direct_reduce_scatter", 599, "pl_allreduce", err,
-        cuda_ms(lambda: direct_reduce_scatter(x), 10),
-        cuda_ms(lambda: direct_reduce_scatter_plain(x), 3, 1),
-        _bound((x.numel() + n * chunk) * isz, n * (n - 1) * chunk),
+        cuda_ms(lambda: direct_reduce_scatter(x, scale=inv), 10),
+        cuda_ms(lambda: direct_reduce_scatter_plain(x, inv), 3, 1),
+        _bound((x.numel() + n * chunk) * isz, n * n * chunk),
         cuda_ms(lambda: x.view(n, n, chunk).sum(0), 10), x.shape,
-        source="reduce_scatter"))
+        source="reduce_scatter",
+        tiled_ms=cuda_ms(lambda: direct_reduce_scatter(x, scale=inv, tiles=n),
+                         10),
+        tiled_plain_ms=cuda_ms(
+            lambda: direct_reduce_scatter_plain(x, inv, n), 3, 1),
+        tiled_bound_ms=tiled_bound["bound_ms"],
+        tiled_max_abs_err=tiled_err,
+        **{k: cuda_ms(fn, 10) for k, fn in carries.items()}))
+    del carries
 
     # ring all-gather at the pl_allreduce path's phase-2 input, the owned
     # chunks
@@ -982,6 +1089,19 @@ def main() -> int:
                   f"({k['bound_by']}: {k['bytes']} B at {hbm / 1e12:g} TB/s, "
                   f"{k['ops']} f32 ops at {f32 / 1e12:g} TFLOP/s), "
                   f"{k['bound_ms'] / k['ms']:.1%} of bound")
+            if "tiled_ms" in k:
+                print(f"kernel @{label}/rank: {k['name']} tiled (n tiles a "
+                      f"row): {k['tiled_ms']:.4f} ms, plain "
+                      f"{k['tiled_plain_ms']:.4f} ms, bound "
+                      f"{k['tiled_bound_ms']:.4f} ms, "
+                      f"{k['tiled_bound_ms'] / k['tiled_ms']:.1%} of bound; "
+                      "carries: pl_reduce_scatter "
+                      f"{k['pl_reduce_scatter_carry_ms']:.4f} ms (before: "
+                      f"scale and repeat after the kernel "
+                      f"{k['pl_reduce_scatter_carry_before_ms']:.4f}), "
+                      f"pl_allreduce {k['pl_allreduce_carry_ms']:.4f} ms "
+                      "(before: mul_ after the gather "
+                      f"{k['pl_allreduce_carry_before_ms']:.4f})")
             if "schedule_bound_ms" in k:
                 print(f"kernel @{label}/rank: {k['name']}: the schedule "
                       f"moves {k['schedule_bytes']} B, bound "

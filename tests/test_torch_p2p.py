@@ -170,6 +170,67 @@ def test_pingpong_plain_writes_only_the_partners_stage_rows():
     assert torch.equal(stage[2:], x[:2])
 
 
+def _sentinel_stage(x):
+    # NaN for floats, 0xFF for uint8: a stage row the round trip must not
+    # touch keeps it
+    if x.dtype.is_floating_point:
+        return torch.full_like(x, float("nan"))
+    return torch.full_like(x, 255)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_pingpong_writes_the_partners_stage_rows_only(n, dtype):
+    # the wrapper's (out, stage): out is x, stage rows >= n/2 hold group 0's
+    # payload, stage rows < n/2 keep the sentinel a given stage holds
+    x = _small_ints(n, 7, seed=n).to(dtype)
+    stage = _sentinel_stage(x)
+    kept = stage[: n // 2].clone()
+    out, got_stage = tpr.pingpong(x, stage)
+    assert got_stage is stage
+    assert torch.equal(out, x)
+    assert torch.equal(stage[n // 2:], x[: n // 2])
+    torch.testing.assert_close(stage[: n // 2], kept, rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_pingpong_alternating_inputs_through_one_stage(n):
+    # two different payloads in turn through one stage, re-filled with the
+    # sentinel before each call: each round trip returns its own input, so
+    # a return leg that read the stage before its payload landed would
+    # show the sentinel or the other payload
+    a = _small_ints(n, 9, seed=7)
+    b = a.flip(1) + 100
+    stage = _sentinel_stage(a)
+    for x in (a, b, a, b):
+        stage.fill_(float("nan"))
+        out, _ = tpr.pingpong(x, stage)
+        assert torch.equal(out, x)
+        assert torch.equal(stage[n // 2:], x[: n // 2])
+        assert stage[: n // 2].isnan().all()
+
+
+def test_pingpong_refuses_a_stage_of_another_shape_or_dtype():
+    x = _small_ints(4, 3, seed=8)
+    for stage in (torch.empty(4, 4), torch.empty(4, 3, dtype=torch.float16)):
+        with pytest.raises(ValueError, match="pingpong: stage"):
+            tpr.pingpong(x, stage)
+
+
+def test_pingpong_counters_are_zero_and_grow_per_card(monkeypatch):
+    # one buffer per card, three words a pair, zero when made, grown (zeroed
+    # anew) for more pairs
+    monkeypatch.setattr(tpr, "_PINGPONG_COUNTERS", {})
+    counters = tpr.pingpong_counters(CPU, 4)
+    assert counters.dtype == torch.int32 and counters.numel() == 12
+    assert not counters.any()
+    assert tpr.pingpong_counters(CPU, 2) is counters
+    bigger = tpr.pingpong_counters(CPU, 128)
+    assert bigger.numel() == 384 and not bigger.any()
+    assert tpr.pingpong_counters(CPU, 4) is bigger
+
+
 @pytest.mark.parametrize("n", [2, 5, 8])
 def test_ring_and_exchange_plain_versions_shift_rows(n):
     x = _small_ints(n, 4, seed=n)

@@ -8,7 +8,8 @@ ranks in the same order), so they agree to the last bit; the
 order-sensitive reduce-scatter tests hold that exactly (rtol 0).  bfloat16
 is held to one bfloat16 unit in the last place (rtol 8e-3): the adds round
 identically, but XLA may keep the 1/n scale's product in float32 before its
-final rounding.
+final rounding.  The scaled carries on seeded inputs are held exactly in
+float32, bfloat16 and float16 (``test_scaled_carries_match_jax``).
 """
 
 import jax
@@ -170,6 +171,115 @@ def test_direct_reduce_scatter_rounds_after_every_add(dtype):
     assert not np.array_equal(got, once)
 
 
+# --- the carry's 1/n scale and tiling, in the kernel's epilogue ---
+
+
+def _np_dtype(dtype):
+    import ml_dtypes
+
+    return {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16,
+            "float16": np.float16}[dtype]
+
+
+def _dtype_inv(n, dtype):
+    # 1/n rounded to the dtype, as the JAX carries' jnp.asarray(inv, dtype)
+    return float(np.asarray(1.0 / n).astype(_np_dtype(dtype)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_mean_scale_is_the_jax_carries_rounding(dtype):
+    import jax.numpy as jnp
+
+    for n in range(2, 257):
+        want = float(np.asarray(jnp.asarray(1.0 / n, getattr(jnp, dtype)),
+                                np.float64))
+        assert tpr.mean_scale(n, getattr(torch, dtype)) == want, n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("n,iters", [(5, 1), (5, 3), (8, 1)])
+@pytest.mark.parametrize("op", ["pl_reduce_scatter", "pl_allreduce"])
+def test_scaled_carries_match_jax(op, n, iters, dtype, eight_devices):
+    """The kernel's epilogue (sum, times 1/n in the dtype, rounded once;
+    tiled for pl_reduce_scatter) against the JAX carries under the Pallas
+    interpreter (the owned chunk times 1/n, then tiled or gathered), on
+    seeded normal inputs.  Exact in every dtype (rtol 0): a product of two
+    16-bit floats is exact in float32, so rounding it once to the dtype is
+    what XLA's 16-bit multiply does, and the gather only moves values.  At
+    n = 5, 1/n is not a power of two, so the scale does round."""
+    chunk = 24
+    itemsize = np.dtype(_np_dtype(dtype)).itemsize
+    rng = np.random.default_rng(50 + n + iters)
+    xg = (rng.standard_normal((n, n * chunk)) * 8).astype(_np_dtype(dtype))
+    mesh = make_mesh(devices=jax.devices()[:n])
+    jb = jax_build_op(op, mesh, n * chunk * itemsize, iters, dtype=dtype)
+    jy = np.asarray(jax.device_get(jb.step(jax.device_put(
+        xg.reshape(-1), jb.example_input.sharding)))).astype(np.float64)
+    pb = build_op(op, SimWorld(n, CPU), n * chunk * itemsize, iters,
+                  dtype=dtype)
+    x = to_tensor(xg.astype(np.float64), dtype, CPU)
+    assert x.shape == pb.example_input.shape
+    got = from_world(pb.step(x)).astype(np.float64)
+    np.testing.assert_allclose(got, jy, rtol=0, atol=0)
+    if n == 5:
+        # the scale is not a power of two: the carry really multiplied
+        assert _dtype_inv(n, dtype) != 1 / n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("n", [2, 5, 8])
+def test_tiled_reduce_scatter_ownership(n, dtype):
+    # every tile of row c is chunk c's sum times the scale: exact small
+    # integers, so a misrouted chunk or tile is an exact mismatch
+    chunk = 3
+    x = _ranks_input(n, n * chunk, seed=60 + n).to(getattr(torch, dtype))
+    scale = _dtype_inv(n, dtype)
+    out = tpr.direct_reduce_scatter(x, scale=scale, tiles=n)
+    assert out.shape == (n, n * chunk) and out.dtype == x.dtype
+    owned = x.float().view(n, n, chunk).sum(0).to(x.dtype) * scale
+    for t in range(n):
+        assert torch.equal(out[:, t * chunk:(t + 1) * chunk], owned), t
+    assert torch.equal(tpr.direct_reduce_scatter(x, scale=scale), owned)
+
+
+@pytest.mark.parametrize("tiles", [1, "n"])
+@pytest.mark.parametrize("n", [2, 5, 8])
+def test_unit_scale_keeps_the_ring_order_bits(n, tiles):
+    # scale 1.0 is exact: on inputs where the order of addition decides the
+    # sum, the output is the unscaled ring-order sum bit for bit, in every
+    # tile
+    chunk = 64
+    xg = _order_sensitive(n, chunk, seed=30 + n)
+    want = _ring_order_sum(xg.reshape(n, n, chunk))
+    t = n if tiles == "n" else 1
+    got = tpr.direct_reduce_scatter(torch.from_numpy(xg), scale=1.0,
+                                    tiles=t).numpy()
+    np.testing.assert_array_equal(got, np.tile(want, t))
+    np.testing.assert_array_equal(
+        tpr.direct_reduce_scatter(torch.from_numpy(xg)).numpy(), want)
+
+
+@pytest.mark.parametrize("op", ["pl_reduce_scatter", "pl_allreduce"])
+def test_carries_are_the_kernels_alone(op):
+    # nothing runs after the kernels: the step is the scaled kernel (and the
+    # gather), one plain call each per execution
+    n, chunk = 5, 4
+    built = build_op(op, SimWorld(n, CPU), n * chunk * 4, 2)
+    x = built.example_input
+    kernels.reset_counts()
+    got = built.step(x)
+    assert kernels.PLAIN_CALLS["direct_reduce_scatter"] == 2
+    assert kernels.PLAIN_CALLS["ring_all_gather"] == (
+        0 if op == "pl_reduce_scatter" else 2)
+    inv = _dtype_inv(n, "float32")
+    want = x
+    for _ in range(2):
+        red = tpr.direct_reduce_scatter(want, scale=inv,
+                                        tiles=n if op == "pl_reduce_scatter" else 1)
+        want = red if op == "pl_reduce_scatter" else tpr.ring_all_gather(red)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("src_full", [False, True])
 @pytest.mark.parametrize("n", [1, 5, 8])
 def test_ring_all_gather_every_row_gathers_every_chunk(n, src_full):
@@ -211,6 +321,12 @@ def test_ring_reduce_scatter_rejects_ints_and_one_rank():
         tpr.direct_reduce_scatter(torch.zeros((1, 4)))
     with pytest.raises(ValueError, match="whole chunks"):
         tpr.direct_reduce_scatter(torch.zeros((2, 5)))
+
+
+@pytest.mark.parametrize("tiles", [0, 2, 3, 5])
+def test_reduce_scatter_tiles_is_one_or_n(tiles):
+    with pytest.raises(ValueError, match="tiles is 1 or 4"):
+        tpr.direct_reduce_scatter(torch.zeros((4, 8)), tiles=tiles)
 
 
 # --- sizes: the same rounding as the JAX package ---

@@ -24,9 +24,22 @@
 // A multi-card world reads peer chunks over NVLink the same way (symmetric
 // memory), so the direct reduce has a counterpart there.
 //
+// The carry's epilogue.  Both JAX carries scale the owned chunk by 1/n
+// (`pl_reduce_scatter` tiles it over the row, `pl_allreduce` gathers it
+// first; the gather only moves values), so the kernel takes them: each
+// reduced element is multiplied by `scale` (1/n already rounded to the
+// dtype) and rounded once more, and the unit is stored `tiles` times along
+// the owner's output row (tiles = 1: out is (n, chunk); tiles = n: out is
+// (n, n*chunk), row c chunk c's scaled sum n times, JAX's
+// `jnp.tile(mine * inv, n)`).  A product of two bfloat16 or two float16
+// values is exact in float32, so that one rounding is the framework's
+// multiply in the dtype; __fmul_rn keeps the compiler from fusing the last
+// add into it.  A scale of 1.0 changes no bit.
+//
 // Bound on an H100 (80 GB HBM3 at 3.35 TB/s): memory.  x is read once and
-// each rank's owned chunk written once, (n*n*chunk + n*chunk) elements; one
-// add per element read, far below the card's operation rate.  The design:
+// each rank's output row written once, (n*n*chunk + tiles*n*chunk)
+// elements; one add per element read and one multiply per reduced element,
+// far below the card's operation rate.  The design:
 // one thread owns one 16-byte unit of one owned chunk and issues the loads
 // of all n ranks' units (up to kGroup at a time) before it adds, so n x 16
 // bytes per thread are in flight; a grid-stride loop over (chunk, unit)
@@ -65,15 +78,17 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
 
 // One unit is V consecutive elements; block row c of the grid owns chunk c.
 // Unit u of out[c] is the sum over ring offsets j = 1..n of unit u of
-// x[(c + j) % n][c], taken in that order.
+// x[(c + j) % n][c], taken in that order, times scale; it is stored at
+// tiles offsets chunk apart along out's row c.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 direct_reduce(const T* __restrict__ x, T* __restrict__ out, int n,
-              long long chunk) {
+              long long chunk, float scale, int tiles) {
   using P = Pack<T, V>;
   const int c = blockIdx.y;  // the owned chunk, and its owner
   const long long units = chunk / V;
   const long long row = (long long)n * chunk;
+  T* const out_row = out + (long long)c * tiles * chunk;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        u < units; u += stride) {
@@ -102,15 +117,21 @@ direct_reduce(const T* __restrict__ x, T* __restrict__ out, int n,
         }
       }
     }
-    *reinterpret_cast<P*>(out + off) = acc;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      acc.v[e] = from_f32<T>(__fmul_rn(to_f32(acc.v[e]), scale));
+    }
+    for (int t = 0; t < tiles; ++t) {
+      *reinterpret_cast<P*>(out_row + t * chunk + u * V) = acc;
+    }
   }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T>
-int launch(const void* x, void* out, int n, long long chunk,
-           cudaStream_t stream) {
+int launch(const void* x, void* out, int n, long long chunk, float scale,
+           int tiles, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = chunk % V == 0 && aligned16(x) && aligned16(out);
   const long long units = vec ? chunk / V : chunk;
@@ -126,24 +147,29 @@ int launch(const void* x, void* out, int n, long long chunk,
   const T* xs = static_cast<const T*>(x);
   T* os = static_cast<T*>(out);
   if (vec) {
-    direct_reduce<T, V><<<grid, kThreads, 0, stream>>>(xs, os, n, chunk);
+    direct_reduce<T, V><<<grid, kThreads, 0, stream>>>(xs, os, n, chunk,
+                                                       scale, tiles);
   } else {
-    direct_reduce<T, 1><<<grid, kThreads, 0, stream>>>(xs, os, n, chunk);
+    direct_reduce<T, 1><<<grid, kThreads, 0, stream>>>(xs, os, n, chunk,
+                                                       scale, tiles);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x is (n, n * chunk), out (n, chunk), both contiguous and distinct.
-// dtype: 0 float32, 1 bfloat16, 2 float16.  Returns cudaGetLastError().
+// x is (n, n * chunk), out (n, tiles * chunk), both contiguous and
+// distinct; tiles is 1 or n.  scale is exact in the dtype.  dtype: 0
+// float32, 1 bfloat16, 2 float16.  Returns cudaGetLastError().
 extern "C" int direct_reduce_scatter(const void* x, void* out, int n,
-                                     long long chunk, int dtype, void* stream) {
+                                     long long chunk, int dtype, float scale,
+                                     int tiles, void* stream) {
+  if (tiles != 1 && tiles != n) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(x, out, n, chunk, s);
-    case 1: return launch<__nv_bfloat16>(x, out, n, chunk, s);
-    case 2: return launch<__half>(x, out, n, chunk, s);
+    case 0: return launch<float>(x, out, n, chunk, scale, tiles, s);
+    case 1: return launch<__nv_bfloat16>(x, out, n, chunk, scale, tiles, s);
+    case 2: return launch<__half>(x, out, n, chunk, scale, tiles, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -31,11 +31,13 @@ BUILD_DIR = _PKG / "_build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: C entry point and its argument types, per source
 _ENTRIES = {
-    # (x, out, n, chunk, dtype_code, stream)
-    "reduce_scatter": ("direct_reduce_scatter", [_P, _P, _I, _L, _I, _P]),
+    # (x, out, n, chunk, dtype_code, scale, tiles, stream)
+    "reduce_scatter": ("direct_reduce_scatter",
+                       [_P, _P, _I, _L, _I, _F, _I, _P]),
     # (src, out, n, chunk_bytes, src_row_bytes, src_own_bytes, step, stream)
     "ring_all_gather": ("ring_all_gather_step",
                         [_P, _P, _I, _L, _L, _L, _I, _P]),
@@ -47,8 +49,8 @@ _ENTRIES = {
     "hbm_write": ("hbm_write_rows", [_P, _P, _I, _L, _L, _P]),
     # (src, out, n, row_bytes, shift, stream)
     "p2p_shift": ("p2p_shift_rows", [_P, _P, _I, _L, _I, _P]),
-    # (x, out, stage, n, row_bytes, leg, stream)
-    "pingpong": ("pingpong_leg", [_P, _P, _P, _I, _L, _I, _P]),
+    # (x, out, stage, counters, n, row_bytes, stream)
+    "pingpong": ("pingpong_rows", [_P, _P, _P, _P, _I, _L, _P]),
     # (src, out, n, ctas, warps, row_bytes, stream)
     "barrier": ("barrier_rows", [_P, _P, _I, _I, _I, _L, _P]),
     # (src, out, n, chunk_bytes, stream)

@@ -21,7 +21,8 @@ is written by hand for Hopper:
   ``csrc/p2p_shift.cu`` (replaces ``_ring_kernel`` and ``_exchange_kernel``;
   counted apart as ``ring`` and ``exchange``);
 * ``pingpong`` — CUDA C++, ``csrc/pingpong.cu`` (replaces
-  ``_pingpong_kernel``), one launch per leg;
+  ``_pingpong_kernel``), both legs in one cooperative launch, each pair's
+  return leg held by a device arrival count;
 * ``barrier`` — CUDA C++, ``csrc/barrier.cu`` (replaces ``_barrier_kernel``
   with ``_global_barrier``), the ranks laid over one thread-block cluster
   that meets at Hopper's hardware cluster barrier;
@@ -99,11 +100,20 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 # --- reduce-scatter ------------------------------------------------------
 
 
-def direct_reduce_scatter_plain(x: torch.Tensor) -> torch.Tensor:
+def mean_scale(n: int, dtype: torch.dtype) -> float:
+    """1/n rounded to ``dtype``, as the JAX carries' ``jnp.asarray(inv,
+    dtype)``: the scale the reduce-scatter carries pass the kernel."""
+    return float(torch.tensor(1.0 / n, dtype=dtype))
+
+
+def direct_reduce_scatter_plain(x: torch.Tensor, scale: float = 1.0,
+                                tiles: int = 1) -> torch.Tensor:
     """The kernel's order of accumulation in plain PyTorch: rank c's owned
     chunk starts from rank c+1's chunk c and adds ranks c+2, ..., c+n (mod
     n) one at a time, rounding to the working type after every add, as the
-    ring forwards it round to rank c.  Returns ``(n, chunk)``."""
+    ring forwards it round to rank c; then times ``scale``, rounded once
+    more, and repeated ``tiles`` times along the row.  Returns ``(n,
+    tiles*chunk)``."""
     kernels.PLAIN_CALLS["direct_reduce_scatter"] += 1
     n = x.shape[0]
     xc = x.view(n, n, x.shape[1] // n)
@@ -111,28 +121,35 @@ def direct_reduce_scatter_plain(x: torch.Tensor) -> torch.Tensor:
     acc = xc[(c + 1) % n, c]
     for j in range(2, n + 1):
         acc = acc + xc[(c + j) % n, c]
-    return acc
+    # scale is exact in the dtype, so this is the dtype's own multiply
+    acc = acc * scale
+    return acc.repeat(1, tiles) if tiles > 1 else acc
 
 
-def direct_reduce_scatter(x: torch.Tensor) -> torch.Tensor:
+def direct_reduce_scatter(x: torch.Tensor, *, scale: float = 1.0,
+                          tiles: int = 1) -> torch.Tensor:
     """Reduce-scatter over the sim ranks: ``x`` is ``(n, n*chunk)``; returns
-    ``(n, chunk)`` whose row d is the sum over ranks of chunk d
-    (psum_scatter(tiled=True) ownership), added in the TPU ring's order.
-    One kernel launch for every rank."""
+    ``(n, tiles*chunk)`` whose row d is the sum over ranks of chunk d
+    (psum_scatter(tiled=True) ownership), added in the TPU ring's order,
+    times ``scale`` and written ``tiles`` (1 or n) times along the row.
+    ``scale`` must be exact in x's dtype (the carries pass 1/n rounded to
+    it); 1.0 changes no bit.  One kernel launch for every rank."""
     n, row = x.shape
     if n < 2 or row % n:
         raise ValueError(
             f"direct_reduce_scatter needs >= 2 ranks and whole chunks, got {tuple(x.shape)}")
     if x.dtype not in _RS_DTYPE_CODES:
         raise ValueError(f"direct_reduce_scatter reduces floats, got {x.dtype}")
+    if tiles not in (1, n):
+        raise ValueError(f"direct_reduce_scatter: tiles is 1 or {n}, got {tiles}")
     if x.device.type == "cpu":
-        return direct_reduce_scatter_plain(x)
+        return direct_reduce_scatter_plain(x, scale, tiles)
     _check_cuda("direct_reduce_scatter", x)
     chunk = row // n
-    out = x.new_empty((n, chunk))
+    out = x.new_empty((n, tiles * chunk))
     err = _build.entry("reduce_scatter")(x.data_ptr(), out.data_ptr(), n,
                                          chunk, _RS_DTYPE_CODES[x.dtype],
-                                         _stream_of(x))
+                                         scale, tiles, _stream_of(x))
     _build.check("direct_reduce_scatter", err)
     kernels.LAUNCHES["direct_reduce_scatter"] += 1
     return out
@@ -393,27 +410,53 @@ def pingpong_plain(x: torch.Tensor, out: torch.Tensor,
     out[:half] = stage[half:]  # leg 2: the payload back into group 0
 
 
-def pingpong(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+#: per card, the pingpong kernel's pair counters (uint32, zero between
+#: launches; the kernel returns them to zero itself)
+_PINGPONG_COUNTERS: dict[int, torch.Tensor] = {}
+#: counters per pair: next tile, arrivals, CTAs done
+_PINGPONG_COUNTERS_PER_PAIR = 3
+
+
+def pingpong_counters(device: torch.device, pairs: int) -> torch.Tensor:
+    """The card's pair-counter buffer, enough for ``pairs`` pairs, zeroed
+    once when it is made or grown.  Launches that share it must be ordered
+    on one stream."""
+    words = _PINGPONG_COUNTERS_PER_PAIR * pairs
+    counters = _PINGPONG_COUNTERS.get(device.index)
+    if counters is None or counters.numel() < words:
+        counters = _PINGPONG_COUNTERS[device.index] = torch.zeros(
+            words, dtype=torch.int32, device=device)
+    return counters
+
+
+def pingpong(x: torch.Tensor, stage: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The serialized round trip between the groups; returns ``(out,
     stage)``.  ``out`` equals ``x`` (group 0's rows went to the partner's
     stage and back); ``stage[d + n/2]`` holds group 0's row d, the other
-    stage rows are left unwritten.  Even n; one launch per leg, the return
-    leg ordered after the first by the stream."""
+    stage rows are left as they were (a new buffer's unwritten).  Even n;
+    one launch, each pair's return leg held on the device until its whole
+    payload is in the stage."""
     n, row = x.shape
     _check_even("pingpong", n)
     out = torch.empty_like(x)
-    stage = torch.empty_like(x)
+    if stage is None:
+        stage = torch.empty_like(x)
+    elif (stage.shape, stage.dtype, stage.device) != (x.shape, x.dtype,
+                                                       x.device):
+        raise ValueError(f"pingpong: stage {tuple(stage.shape)} {stage.dtype} "
+                         f"on {stage.device} for x {tuple(x.shape)} {x.dtype} "
+                         f"on {x.device}")
     if x.device.type == "cpu":
         pingpong_plain(x, out, stage)
         return out, stage
-    _check_cuda("pingpong", x)
-    fn = _build.entry("pingpong")
-    stream_ptr = _stream_of(x)
-    for leg in (1, 2):
-        err = fn(x.data_ptr(), out.data_ptr(), stage.data_ptr(), n,
-                 row * x.element_size(), leg, stream_ptr)
-        _build.check("pingpong", err)
-        kernels.LAUNCHES["pingpong"] += 1
+    _check_cuda("pingpong", x, stage)
+    counters = pingpong_counters(x.device, n // 2)
+    err = _build.entry("pingpong")(x.data_ptr(), out.data_ptr(),
+                                   stage.data_ptr(), counters.data_ptr(), n,
+                                   row * x.element_size(), _stream_of(x))
+    _build.check("pingpong", err)
+    kernels.LAUNCHES["pingpong"] += 1
     return out, stage
 
 
@@ -625,18 +668,14 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
         return chained(lambda x: pingpong(x)[0], iters), elems, actual
     if op == "pl_barrier":
         return chained(barrier, iters), elems, actual
-    inv = torch.tensor(1.0 / n, dtype=tdtype, device=world.device)
+    # the kernel scales each reduced element by 1/n (the gather only moves
+    # values, so scaling before it gives JAX's bits)
+    inv = mean_scale(n, tdtype)
     if op == "pl_reduce_scatter":
         # own reduced chunk * 1/n, tiled over the whole buffer
-        def rs_carry(x):
-            return (direct_reduce_scatter(x) * inv).repeat(1, n)
-
-        return chained(rs_carry, iters), elems, actual
-
-    def allreduce_carry(x):
-        # reduce-scatter phase, all-gather phase of the owned chunks, * 1/n —
-        # the scale is done in place on the gathered buffer, which saves one
-        # buffer the size of the payload
-        return ring_all_gather(direct_reduce_scatter(x)).mul_(inv)
-
-    return chained(allreduce_carry, iters), elems, actual
+        return chained(lambda x: direct_reduce_scatter(x, scale=inv, tiles=n),
+                       iters), elems, actual
+    # reduce-scatter phase (scaled), all-gather phase of the owned chunks
+    return chained(
+        lambda x: ring_all_gather(direct_reduce_scatter(x, scale=inv)),
+        iters), elems, actual
