@@ -23,12 +23,19 @@ exits non-zero):
    and 256 ranks, and the collective kernels (all-to-all, and the
    bidirectional ring all-gather over its whole gathered buffer) at 1, 2,
    5 and 8 ranks, over several dtypes and ragged / unaligned / multi-block
-   shapes up to 2 GiB; then show that 1000 chained barriers at 8 and 64
+   shapes up to 2 GiB, the row-copy kernels (copy, ring, exchange) also at
+   their tiles' edges (one tile, one tile plus a word or an element, more
+   tiles than twice the CTAs the card holds) and the copy from a view one
+   element into its storage (source and output misaligned to each other),
+   with no bit of difference;
+   then show that 1000 chained barriers at 8 and 64
    ranks return their input and that 257 ranks are refused at the wrapper,
    that pingpong's return leg waits for its payload (two inputs in turn
-   through a stage that holds a sentinel), and that 1000 chained round
+   through a stage that holds a sentinel), that 1000 chained round
    trips at 8 ranks return their input and leave the pair counters at
-   zero;
+   zero, and that 1000 chained copies, ring shifts and exchanges return
+   their input, leave their tile counters at zero and replay from a CUDA
+   graph to the eager result;
 4. drive the port's run paths through its CLI (``run --op pl_allreduce
    --sweep 4K:256M``, the other five ops of the first slice, the six
    local memory ops at one rank, the eleven point-to-point ops at eight,
@@ -43,8 +50,10 @@ exits non-zero):
    growing with the bytes it reads;
 6. time each kernel at the main path's largest shape beside its bound
    (from the card's published rates in ``tpu_perf_torch.chips``), its
-   plain version and one PyTorch library call (the barrier also from a
-   CUDA graph of 100 chained launches, beside an empty kernel's; the
+   plain version and one PyTorch library call (the row gather ``x[idx]``
+   for ring and exchange, with ``index_select`` and ``torch.roll`` beside it;
+   the barrier, the copy, ring and exchange also from a CUDA graph of 100
+   chained launches, the barrier beside an empty kernel's; the
    reduce-scatter in both modes, beside the carries it replaced), and
    print them as one JSON line.
 
@@ -68,6 +77,10 @@ HEADLINE_BYTES = 4 * 1024**2
 #: the local memory ops, judged by one grid on the card
 GRID_OPS = ("hbm_stream,pl_hbm_stream,hbm_read,hbm_write,hbm_triad,"
             "pl_hbm_copy,pl_hbm_read,pl_hbm_write")
+
+#: resident blocks an H100 SM holds at most: a persistent grid never has
+#: more than this many CTAs per SM
+MAX_CTAS_PER_SM = 32
 
 #: kernel-vs-plain tolerances: |kernel - plain| <= atol + rtol * |plain|.
 #: Both sides do the same arithmetic with the same roundings, so the cases
@@ -229,6 +242,20 @@ def phase_check() -> None:
           f"tolerances {RTOL}")
     check_barrier_chains(fill)
     check_pingpong_order(fill)
+    check_row_copy_chains(fill)
+
+
+def tile_edge_elems(tile_bytes: int, isz: int, n: int) -> tuple[int, ...]:
+    """Per-rank element counts at a row-copy kernel's tile edges: one tile,
+    one tile plus one 16-byte word, one tile plus one element (the row
+    moves in narrower words), and more tiles over the n rows than twice
+    the CTAs the card can hold (a ragged last tile)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_row = -(-(2 * MAX_CTAS_PER_SM * sms + 5) // n)
+    tile = tile_bytes // isz
+    return (tile, tile + 16 // isz, tile + 1, (per_row - 1) * tile + 3)
 
 
 def check_bulk_kernels(fill) -> int:
@@ -238,8 +265,8 @@ def check_bulk_kernels(fill) -> int:
 
     from tpu_perf_torch.ops.collectives import DTYPES, build_op
     from tpu_perf_torch.ops.pallas_ring import (
-        hbm_copy, hbm_copy_plain, hbm_dma_block_elems, hbm_write,
-        hbm_write_plain,
+        ROW_COPY_TILE_BYTES, hbm_copy, hbm_copy_plain,
+        hbm_dma_block_elems, hbm_write, hbm_write_plain,
     )
     from tpu_perf_torch.world import SimWorld
 
@@ -248,12 +275,23 @@ def check_bulk_kernels(fill) -> int:
         for dtype in ("float32", "bfloat16", "uint8"):
             isz = DTYPES[dtype].itemsize
             # the copy: the default 456131-byte buffer (rows start at
-            # 16-byte unaligned offsets when n > 1), one element, and a
-            # row of many pieces with a ragged end
-            for elems in (-(-456131 // isz), 1, 2**22 + 3):
+            # 16-byte unaligned offsets when n > 1), one element, a
+            # row of many tiles with a ragged end, and the tiles' edges
+            for elems in (-(-456131 // isz), 1, 2**22 + 3,
+                          *tile_edge_elems(ROW_COPY_TILE_BYTES, isz, n)):
                 x = fill((n, elems), dtype)
-                check_close(f"hbm_copy ({n}, {elems}) {dtype}", hbm_copy(x),
-                            hbm_copy_plain(x), dtype)
+                check_exact(f"hbm_copy ({n}, {elems}) {dtype}", hbm_copy(x),
+                            hbm_copy_plain(x))
+                n_checks += 1
+            # a contiguous view one element into its storage: source and
+            # output (fresh, aligned) are misaligned to each other, so the
+            # tiles go a byte a thread; one tile, a tile and an element,
+            # and a row of many tiles with a ragged end
+            tile = ROW_COPY_TILE_BYTES // isz
+            for elems in (tile, tile + 1, 5 * tile + 3):
+                x = fill((n * elems + 1,), dtype)[1:].view(n, elems)
+                check_exact(f"hbm_copy ({n}, {elems}) {dtype} at storage "
+                            "offset 1", hbm_copy(x), hbm_copy_plain(x))
                 n_checks += 1
             # the read and write sweeps: one 4 KiB DMA tile (a one-element
             # request, rounded), and three blocks plus a 4 KiB rem tail
@@ -273,8 +311,7 @@ def check_bulk_kernels(fill) -> int:
     check_close("hbm_write (1, 2**28) float32", hbm_write(x, blk),
                 hbm_write_plain(x, blk), "float32")
     check_read("hbm_read (1, 2**28) float32", x, "float32")
-    check_close("hbm_copy (1, 2**28) float32", hbm_copy(x), hbm_copy_plain(x),
-                "float32")
+    check_exact("hbm_copy (1, 2**28) float32", hbm_copy(x), hbm_copy_plain(x))
     return n_checks + 3
 
 
@@ -285,8 +322,9 @@ def check_p2p_kernels(fill) -> int:
 
     from tpu_perf_torch.ops.collectives import DTYPES
     from tpu_perf_torch.ops.pallas_ring import (
-        barrier, barrier_plain, pair_exchange, pair_exchange_plain, pingpong,
-        pingpong_plain, ring_shift, ring_shift_plain,
+        ROW_COPY_TILE_BYTES, barrier, barrier_plain, pair_exchange,
+        pair_exchange_plain, pingpong, pingpong_plain, ring_shift,
+        ring_shift_plain,
     )
 
     n_checks = 0
@@ -299,15 +337,14 @@ def check_p2p_kernels(fill) -> int:
             for elems in (-(-456131 // isz), 1, 2**22 + 3):
                 x = fill((n, elems), dtype)
                 what = f"({n}, {elems}) {dtype}"
-                check_close(f"ring {what}", ring_shift(x), ring_shift_plain(x),
-                            dtype)
+                check_exact(f"ring {what}", ring_shift(x), ring_shift_plain(x))
                 check_close(f"barrier {what}", barrier(x), barrier_plain(x),
                             dtype)
                 n_checks += 2
                 if n % 2:
                     continue
-                check_close(f"exchange {what}", pair_exchange(x),
-                            pair_exchange_plain(x), dtype)
+                check_exact(f"exchange {what}", pair_exchange(x),
+                            pair_exchange_plain(x))
                 out, stage = pingpong(x)
                 want_out, want_stage = torch.empty_like(x), torch.empty_like(x)
                 pingpong_plain(x, want_out, want_stage)
@@ -320,6 +357,16 @@ def check_p2p_kernels(fill) -> int:
             check_close(f"barrier ({n}, 1) {dtype}", barrier(x),
                         barrier_plain(x), dtype)
             n_checks += 1
+            # the row shift at its tiles' edges
+            for elems in tile_edge_elems(ROW_COPY_TILE_BYTES, isz, n):
+                x = fill((n, elems), dtype)
+                what = f"({n}, {elems}) {dtype}"
+                check_exact(f"ring {what}", ring_shift(x), ring_shift_plain(x))
+                n_checks += 1
+                if n % 2 == 0:
+                    check_exact(f"exchange {what}", pair_exchange(x),
+                                pair_exchange_plain(x))
+                    n_checks += 1
     # the cluster barrier's other layouts: 8 CTAs of 2, 8 and 32 warps
     for n in (9, 64, 256):
         for dtype in ("float32", "uint8"):
@@ -452,6 +499,63 @@ def check_pingpong_order(fill) -> None:
           "sentinel-stage cases of 20 alternating calls; 1000 chained round "
           f"trips at (8, 114033) return their input, counters "
           f"{counters.tolist()}")
+
+
+def check_row_copy_chains(fill) -> None:
+    """The row-copy kernels keep nothing between launches but their tile
+    counters, which they return to zero: 1000 chained copies, ring shifts
+    and exchanges at (8, 114033) return their input (1000 ring shifts at 8
+    ranks are the identity), the counters end at zero, and a CUDA graph of
+    100 chained launches replays to the eager result."""
+    import torch
+
+    from tpu_perf_torch.ops.pallas_ring import (
+        hbm_copy, pair_exchange, ring_shift, row_copy_counters,
+    )
+
+    x = fill((8, -(-456131 // 4)), "float32")
+    said = []
+    for name, kern, source in (("hbm_copy", hbm_copy, "hbm_copy"),
+                               ("ring", ring_shift, "p2p_shift"),
+                               ("exchange", pair_exchange, "p2p_shift")):
+        y = x
+        for _ in range(1000):
+            y = kern(y)
+        torch.cuda.synchronize()
+        check_exact(f"1000 chained {name} (8, 114033)", y, x)
+        counters = row_copy_counters(source, x.device)
+        if counters.any():
+            fail(f"{name}: tile counters left non-zero after 1000 launches: "
+                 f"{counters.tolist()}")
+        ms = graph_ms(lambda kern=kern: chain(kern, x), chain(kern, x),
+                      what=f"graph of 100 chained {name} (8, 114033)")
+        said.append(f"{name} {ms * 1e3:.2f} us")
+    print("check: 1000 chained hbm_copy / ring / exchange at (8, 114033) "
+          "return their input, tile counters zero; graphs of "
+          f"{GRAPH_LAUNCHES} chained launches replay to the eager result "
+          f"({', '.join(said)} per launch)")
+
+
+def chain(kern, x):
+    """GRAPH_LAUNCHES chained launches of ``kern`` from ``x``."""
+    y = x
+    for _ in range(GRAPH_LAUNCHES):
+        y = kern(y)
+    return y
+
+
+def check_exact(what: str, got, want) -> float:
+    """A kernel that only moves bytes: the same bytes as its plain version
+    (max abs err 0)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {tuple(got.shape)} {got.dtype} != "
+             f"{tuple(want.shape)} {want.dtype}")
+    if not torch.equal(got, want):
+        fail(f"{what}: {int((got != want).sum())} of {got.numel()} elements "
+             f"differ (max abs err {max_abs_err(got, want):.3e})")
+    return 0.0
 
 
 def check_read(what: str, x, dtype: str) -> None:
@@ -883,17 +987,23 @@ def _p2p_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     x = build_op("pl_ring", world, per_rank_bytes, 1).example_input
     n = x.shape[0]
     nb = x.numel() * x.element_size()
+    # the yardstick is the fastest PyTorch call of the function, the row
+    # gather x[idx], its index built outside the timed call; index_select
+    # and torch.roll beside it
     for name, replaces, op, kern, plain, shift in (
             ("ring", 345, "pl_ring", ring_shift, ring_shift_plain, 1),
             ("exchange", 365, "pl_exchange", pair_exchange,
              pair_exchange_plain, n // 2)):
-        err = check_close(f"{name} at path shape", kern(x), plain(x),
-                          "float32")
-        out.append(_cuda_row(launches, name, replaces, op, err,
-                             cuda_ms(lambda: kern(x), 10),
-                             cuda_ms(lambda: plain(x), 10), _bound(2 * nb, 0),
-                             cuda_ms(lambda: torch.roll(x, shift, 0), 10),
-                             x.shape, source="p2p_shift"))
+        err = check_exact(f"{name} at path shape", kern(x), plain(x))
+        idx = (torch.arange(n, device=x.device) - shift) % n
+        out.append(_cuda_row(
+            launches, name, replaces, op, err, cuda_ms(lambda: kern(x), 10),
+            cuda_ms(lambda: plain(x), 10), _bound(2 * nb, 0),
+            cuda_ms(lambda: x[idx], 10), x.shape, source="p2p_shift",
+            index_select_ms=cuda_ms(lambda: x.index_select(0, idx), 10),
+            roll_ms=cuda_ms(lambda: torch.roll(x, shift, 0), 10),
+            graph_ms=graph_ms(lambda: chain(kern, x), chain(kern, x), 3,
+                              f"graph of 100 chained {name} at path shape")))
 
     # pingpong: the function reads x once and writes out once; its schedule
     # moves group 0's payload through the stage, 3 * nb in all
@@ -959,7 +1069,8 @@ def _p2p_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
 GRAPH_LAUNCHES = 100
 
 
-def graph_ms(capture, want=None, replays: int = 50) -> float:
+def graph_ms(capture, want=None, replays: int = 50,
+             what: str = "graph of chained barriers") -> float:
     """Device time per launch of ``capture()``'s GRAPH_LAUNCHES launches,
     captured once into a CUDA graph and replayed ``replays`` times back to
     back; where ``want`` is given, the graph's output must equal it."""
@@ -976,7 +1087,7 @@ def graph_ms(capture, want=None, replays: int = 50) -> float:
     graph.replay()
     torch.cuda.synchronize()
     if want is not None:
-        check_close("graph of chained barriers", got, want, "float32")
+        check_close(what, got, want, "float32")
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -1004,14 +1115,14 @@ def _bulk_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     # copy: x read once, out written once
     x = build_op("pl_hbm_copy", world, per_rank_bytes, 1).example_input
     nb = x.numel() * x.element_size()
-    err = check_close("hbm_copy at path shape", hbm_copy(x), hbm_copy_plain(x),
-                      "float32")
+    err = check_exact("hbm_copy at path shape", hbm_copy(x), hbm_copy_plain(x))
     y = torch.empty_like(x)
-    out.append(_cuda_row(launches, "hbm_copy", 266, "pl_hbm_copy", err,
-                         cuda_ms(lambda: hbm_copy(x), 10),
-                         cuda_ms(lambda: hbm_copy_plain(x), 10),
-                         _bound(2 * nb, 0), cuda_ms(lambda: y.copy_(x), 10),
-                         x.shape))
+    out.append(_cuda_row(
+        launches, "hbm_copy", 266, "pl_hbm_copy", err,
+        cuda_ms(lambda: hbm_copy(x), 10), cuda_ms(lambda: hbm_copy_plain(x), 10),
+        _bound(2 * nb, 0), cuda_ms(lambda: y.copy_(x), 10), x.shape,
+        graph_ms=graph_ms(lambda: chain(hbm_copy, x), x, 5,
+                          "graph of 100 chained hbm_copy at path shape")))
     del x, y
 
     # read sweep: x read once.  The yardstick amax reads the same bytes but
@@ -1107,6 +1218,15 @@ def main() -> int:
                       f"moves {k['schedule_bytes']} B, bound "
                       f"{k['schedule_bound_ms']:.4f} ms, "
                       f"{k['schedule_bound_ms'] / k['ms']:.1%} of it")
+            if "roll_ms" in k:
+                print(f"kernel @{label}/rank: {k['name']}: library is the row "
+                      f"gather x[idx]; x.index_select(0, idx) "
+                      f"{k['index_select_ms']:.4f} ms, torch.roll "
+                      f"{k['roll_ms']:.4f} ms")
+            if "graph_ms" in k and "empty_launch_ms" not in k:
+                print(f"kernel @{label}/rank: {k['name']}: from a CUDA graph "
+                      f"of {GRAPH_LAUNCHES} chained launches "
+                      f"{k['graph_ms']:.4f} ms per launch")
             if "empty_launch_ms" in k:
                 print(f"kernel @{label}/rank: {k['name']} {k['shape']}: "
                       f"{k['ms'] * 1e3:.2f} us per launch (the C entry alone "

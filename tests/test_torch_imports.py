@@ -111,6 +111,21 @@ def test_build_module_names_every_cuda_source_and_its_c_entry():
             == set(_build._ENTRIES))
 
 
+def test_row_copy_tiles_are_the_sources():
+    # the tile edges the tests and chip_smoke.py probe are the kernels' own
+    from tpu_perf_torch.ops import pallas_ring as tpr
+
+    cuh = (_build.CSRC / "row_copy.cuh").read_text()
+    threads = int(re.search(r"kThreads = (\d+);", cuh).group(1))
+    unroll = int(re.search(r"kUnroll = (\d+);", cuh).group(1))
+    assert threads * unroll * 16 == tpr.ROW_COPY_TILE_BYTES
+    # both row-copy sources take their tiles through the shared header
+    for name in ("p2p_shift", "hbm_copy"):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "row_copy.cuh"' in text
+        assert "row_copy::for_each_tile(" in text
+
+
 def test_build_outputs_are_ignored_by_git():
     ignored = (REPO / ".gitignore").read_text().splitlines()
     assert "tpu_perf_torch/_build/" in ignored

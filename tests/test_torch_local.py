@@ -57,16 +57,34 @@ def _compare(op, n, nbytes, iters, dtype):
     np.testing.assert_allclose(got, want.astype(np.float64), rtol=rtol, atol=0)
 
 
+#: the row-copy kernels' tile edges: one tile, one tile and an element,
+#: and a size that is no multiple of 16 bytes (at n = 8 the rows start
+#: 16-byte unaligned)
+TILE_EDGES = ["tile", "tile+item", "unaligned"]
+
+
+def tile_edge_nbytes(edge: str, itemsize: int) -> int:
+    tile = tpr.ROW_COPY_TILE_BYTES
+    return {"tile": tile, "tile+item": tile + itemsize,
+            "unaligned": 2 * tile + 4}[edge]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32", "uint8"])
 @pytest.mark.parametrize("iters", [1, 3])
 @pytest.mark.parametrize("n", [1, 8])
-@pytest.mark.parametrize("op", LOCAL_OPS)
-def test_local_op_matches_jax(op, n, iters, dtype, eight_devices):
+@pytest.mark.parametrize(
+    "op,edge", [pytest.param(op, None, id=op) for op in LOCAL_OPS]
+    + [pytest.param("pl_hbm_copy", edge, id=f"pl_hbm_copy-{edge}")
+       for edge in TILE_EDGES])
+def test_local_op_matches_jax(op, edge, n, iters, dtype, eight_devices):
+    # the RAGGED size, or the copy at its kernel's tile edges
+    nbytes = (RAGGED if edge is None
+              else tile_edge_nbytes(edge, DTYPES[dtype].itemsize))
     if op in FLOAT_ONLY_OPS and dtype in ("int32", "uint8"):
         with pytest.raises(ValueError, match="float dtype"):
-            build_op(op, SimWorld(n, CPU), RAGGED, iters, dtype=dtype)
+            build_op(op, SimWorld(n, CPU), nbytes, iters, dtype=dtype)
         return
-    _compare(op, n, RAGGED, iters, dtype)
+    _compare(op, n, nbytes, iters, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "uint8"])

@@ -53,14 +53,31 @@ def _compare(op, n, nbytes, iters, dtype):
     np.testing.assert_allclose(got, want.astype(np.float64), rtol=rtol, atol=0)
 
 
+def tile_edge_nbytes(edge: str, itemsize: int) -> int:
+    """Per-rank bytes at the row shift's tile edge: one tile, one tile plus
+    an element (the last tile holds one), or a size that is no multiple of
+    16 bytes."""
+    tile = tpr.ROW_COPY_TILE_BYTES
+    return {"tile": tile, "tile+item": tile + itemsize,
+            "unaligned": 2 * tile + 4}[edge]
+
+
 @pytest.mark.parametrize("dtype", DTYPE_NAMES)
 @pytest.mark.parametrize("iters", [1, 3])
-@pytest.mark.parametrize("op,n", [("pl_ring", 5), ("pl_ring", 8),
-                                  ("pl_exchange", 2), ("pl_exchange", 8),
-                                  ("pl_pingpong", 2), ("pl_pingpong", 8),
-                                  ("pl_barrier", 2), ("pl_barrier", 8)])
-def test_pl_op_matches_jax(op, n, iters, dtype, eight_devices):
-    _compare(op, n, NBYTES, iters, dtype)
+@pytest.mark.parametrize(
+    "op,n,edge",
+    [pytest.param(op, n, None, id=f"{op}-{n}")
+     for op, n in [("pl_ring", 5), ("pl_ring", 8), ("pl_exchange", 2),
+                   ("pl_exchange", 8), ("pl_pingpong", 2), ("pl_pingpong", 8),
+                   ("pl_barrier", 2), ("pl_barrier", 8)]]
+    + [pytest.param(op, n, edge, id=f"{op}-{n}-{edge}")
+       for op, n in [("pl_ring", 5), ("pl_ring", 8), ("pl_exchange", 8)]
+       for edge in ["tile", "tile+item", "unaligned"]])
+def test_pl_op_matches_jax(op, n, edge, iters, dtype, eight_devices):
+    # NBYTES, or the row shift at its kernel's tile edges
+    nbytes = (NBYTES if edge is None
+              else tile_edge_nbytes(edge, DTYPES[dtype].itemsize))
+    _compare(op, n, nbytes, iters, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPE_NAMES)
@@ -229,6 +246,23 @@ def test_pingpong_counters_are_zero_and_grow_per_card(monkeypatch):
     bigger = tpr.pingpong_counters(CPU, 128)
     assert bigger.numel() == 384 and not bigger.any()
     assert tpr.pingpong_counters(CPU, 4) is bigger
+
+
+@pytest.mark.parametrize("source", ["p2p_shift", "hbm_copy"])
+def test_row_copy_counters_are_zero_and_one_buffer_per_source_and_card(
+        source, monkeypatch):
+    # one buffer per source and card, two words (next tile, CTAs done),
+    # zero when made, the same buffer on every later call
+    monkeypatch.setattr(tpr, "_ROW_COPY_COUNTERS",
+                        {"p2p_shift": {}, "hbm_copy": {}})
+    counters = tpr.row_copy_counters(source, CPU)
+    assert counters.dtype == torch.int32 and counters.numel() == 2
+    assert not counters.any()
+    assert tpr.row_copy_counters(source, CPU) is counters
+    other = "hbm_copy" if source == "p2p_shift" else "p2p_shift"
+    assert tpr.row_copy_counters(other, CPU) is not counters
+    with pytest.raises(KeyError):
+        tpr.row_copy_counters("pingpong", CPU)
 
 
 @pytest.mark.parametrize("n", [2, 5, 8])

@@ -1,12 +1,12 @@
 // Hopper TMA 1-D bulk copies (cp.async.bulk), shared by the local memory
-// kernels (hbm_copy.cu, hbm_read.cu, hbm_write.cu).
+// kernels hbm_read.cu and hbm_write.cu.
 //
 // One thread asks the copy engine for a whole piece of contiguous bytes:
 //   * global -> shared completes on an mbarrier in shared memory, which the
 //     issuing thread arms with the byte count (expect_tx) and waits on by
 //     phase parity;
 //   * shared -> global joins the thread's current bulk group; commit_group
-//     closes the group and wait_group[.read] waits for it.
+//     closes the group and wait_group waits for it.
 // Both addresses must be 16-byte aligned and the size a multiple of 16.
 // These are the Hopper counterparts of the TPU's pltpu.make_async_copy
 // DMA with its semaphore.
@@ -75,11 +75,6 @@ __device__ __forceinline__ void store(void* gmem, const void* smem,
 
 __device__ __forceinline__ void commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// The committed stores have read their shared memory (it may be reused).
-__device__ __forceinline__ void wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // The committed stores are complete in global memory.

@@ -6,82 +6,93 @@
 // Bound on an H100 (80 GB HBM3 at 3.35 TB/s): memory.  Each byte is read
 // once and written once, so the least time is 2 * nbytes / 3.35 TB/s.
 //
-// Design.  The TPU kernel hands the whole copy to the DMA engine; Hopper's
-// counterpart is the TMA bulk copy, so the data never passes through the
-// threads' registers.  Each block owns 32 KiB pieces of its rank's row
-// (rank = blockIdx.y, pieces strided over blockIdx.x): one thread bulk-loads
-// a piece into shared memory, waits on the mbarrier, bulk-stores it and
-// waits until the store has read the buffer before loading the next piece
-// (one stage, like the JAX kernel's start-then-wait).  Many resident
-// blocks per SM keep enough pieces in flight to fill the memory pipe.
+// Design (row_copy.cuh), the row shift's routine at shift 0.  All n rows
+// form one list of n * F tiles of 8 KB, F tiles a row, and a persistent
+// grid (four CTAs an SM, no more than the tiles) takes them in address
+// order from a device counter; each tile goes through registers, two
+// 16-byte words in flight a thread.  The TPU kernel hands the copy to its
+// DMA engine, whose Hopper counterpart is the TMA bulk copy; bulk copies
+// through a ring of shared-memory stages, with the same tiles in order,
+// trailed this design at every piece size and stage count tried
+// (python -m tpu_perf_torch.tools.row_copy_designs times both), so the
+// copy goes through registers.
 //
-// Alignment.  A bulk copy needs 16-byte aligned addresses and sizes, but
-// `pl_hbm_copy` only rounds to the itemsize (the default 456131-byte
-// buffer is 456132 bytes), so at n > 1 a row starts at an unaligned
-// offset.  Each row is cut into an unaligned head, a 16-byte aligned body
-// (bulk) and a tail shorter than 16 bytes; head and tail are copied by
+// Alignment.  `pl_hbm_copy` only rounds to the itemsize (the default
+// 456131-byte buffer is 456132 bytes), so at n > 1 a row starts at an
+// unaligned offset.  Each row is cut into an unaligned head, a 16-byte
+// aligned body (the tiles, in 16-byte words) and a tail shorter than 16
+// bytes; the CTA that takes a row's first tile copies head and tail by
 // plain byte stores.  Where source and destination are misaligned to each
-// other no bulk copy is possible, and the whole row goes by plain stores.
+// other, each tile goes by plain byte stores.
 
-#include "bulk_copy.cuh"
+#include "row_copy.cuh"
 
 namespace {
 
-constexpr int kThreads = 32;
-constexpr uint32_t kPiece = 32768;       // bytes per bulk copy (this kernel's tile)
-constexpr long long kMaxBlocksX = 1024;  // blocks per rank; the loop strides
+using row_copy::kThreads;
+constexpr long long kTile = row_copy::kTileBytes;
 
 __global__ void __launch_bounds__(kThreads)
-hbm_copy_kernel(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-                long long row_bytes) {
-  __shared__ __align__(128) uint8_t buf[kPiece];
-  __shared__ uint64_t bar;
-  const long long base = (long long)blockIdx.y * row_bytes;
-  const uint8_t* s = src + base;
-  uint8_t* d = dst + base;
-  const uintptr_t sa = reinterpret_cast<uintptr_t>(s);
-  const uintptr_t da = reinterpret_cast<uintptr_t>(d);
-  long long head = row_bytes, body = 0;
-  if (((sa ^ da) & (bulk::kAlign - 1)) == 0) {
-    head = (long long)((bulk::kAlign - (sa & (bulk::kAlign - 1))) & (bulk::kAlign - 1));
-    if (head > row_bytes) head = row_bytes;
-    body = (row_bytes - head) & ~(bulk::kAlign - 1);
-  }
-  // plain stores: [0, head) and the tail [head + body, row_bytes)
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long i = first; i < head; i += stride) d[i] = s[i];
-  for (long long i = head + body + first; i < row_bytes; i += stride) d[i] = s[i];
-
-  if (threadIdx.x != 0 || body == 0) return;
-  const long long pieces = (body + kPiece - 1) / kPiece;
-  if ((long long)blockIdx.x >= pieces) return;
-  bulk::barrier_init(&bar);
-  uint32_t phase = 0;
-  for (long long p = blockIdx.x; p < pieces; p += gridDim.x) {
-    const long long off = head + p * kPiece;
-    const long long left = body - p * kPiece;
-    const uint32_t bytes = left < kPiece ? (uint32_t)left : kPiece;
-    bulk::load(buf, s + off, bytes, &bar);
-    bulk::wait(&bar, phase);
-    phase ^= 1;
-    bulk::store(d + off, buf, bytes);
-    bulk::commit();
-    bulk::wait_read();
-  }
-  bulk::wait_done();
+copy_rows(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
+          unsigned int* counters, int n, long long row_bytes,
+          unsigned int per_row) {
+  row_copy::for_each_tile(
+      counters, (unsigned int)n * per_row, [&](unsigned int t) {
+        const unsigned int r = t / per_row;
+        const long long k = (long long)(t - r * per_row);
+        const uint8_t* s = src + (long long)r * row_bytes;
+        uint8_t* d = dst + (long long)r * row_bytes;
+        const uintptr_t sa = reinterpret_cast<uintptr_t>(s);
+        if ((sa ^ reinterpret_cast<uintptr_t>(d)) & 15) {
+          // one byte a thread at a time: a register tile of bytes would
+          // take registers, and so residency, from every tile
+          const long long end = (k + 1) * kTile < row_bytes ? (k + 1) * kTile
+                                                            : row_bytes;
+          for (long long i = k * kTile + threadIdx.x; i < end; i += kThreads) {
+            d[i] = s[i];
+          }
+          return;
+        }
+        long long head = (long long)((16 - (sa & 15)) & 15);
+        if (head > row_bytes) head = row_bytes;
+        const long long words = (row_bytes - head) / 16;
+        row_copy::copy_tile(reinterpret_cast<const uint4*>(s + head),
+                            reinterpret_cast<uint4*>(d + head), words,
+                            k * row_copy::kTileWords<uint4>);
+        if (k == 0) {
+          // head [0, head) by threads 0-15, tail [head + 16 * words,
+          // row_bytes) by threads 16-31: under 16 bytes each
+          const long long i = threadIdx.x < 16
+                                  ? (long long)threadIdx.x
+                                  : head + 16 * words + threadIdx.x - 16;
+          if ((threadIdx.x < 16 && i < head) ||
+              (threadIdx.x >= 16 && threadIdx.x < 32 && i < row_bytes)) {
+            d[i] = s[i];
+          }
+        }
+      });
 }
 
 }  // namespace
 
-// src and dst are (n, row_bytes) byte buffers.  Returns cudaGetLastError().
-extern "C" int hbm_copy_rows(const void* src, void* dst, int n,
+// src and dst are (n, row_bytes) byte buffers; counters is 2 uint32 words,
+// zero, that only launches ordered on one stream touch (the kernel leaves
+// them zero).  Returns the occupancy query's error, else
+// cudaGetLastError().
+extern "C" int hbm_copy_rows(const void* src, void* dst, void* counters, int n,
                              long long row_bytes, void* stream) {
-  long long bx = (row_bytes + kPiece - 1) / kPiece;
-  if (bx > kMaxBlocksX) bx = kMaxBlocksX;
-  if (bx < 1) bx = 1;
-  const dim3 grid((unsigned)bx, (unsigned)n);
-  hbm_copy_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst), row_bytes);
+  if (n < 1 || row_bytes < 1) return (int)cudaErrorInvalidValue;
+  static int resident_cache[row_copy::kMaxDevices] = {0};
+  cudaError_t err = cudaSuccess;
+  const int resident =
+      row_copy::resident_ctas((const void*)copy_rows, resident_cache, &err);
+  if (err != cudaSuccess) return (int)err;
+  const long long per_row = (row_bytes + kTile - 1) / kTile;
+  const int grid = row_copy::grid_for(n * per_row, resident, &err);
+  if (err != cudaSuccess) return (int)err;
+  copy_rows<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), static_cast<uint8_t*>(dst),
+      static_cast<unsigned int*>(counters), n, row_bytes,
+      (unsigned int)per_row);
   return (int)cudaGetLastError();
 }

@@ -41,14 +41,14 @@ _ENTRIES = {
     # (src, out, n, chunk_bytes, src_row_bytes, src_own_bytes, step, stream)
     "ring_all_gather": ("ring_all_gather_step",
                         [_P, _P, _I, _L, _L, _L, _I, _P]),
-    # (src, dst, n, row_bytes, stream)
-    "hbm_copy": ("hbm_copy_rows", [_P, _P, _I, _L, _P]),
+    # (src, dst, counters, n, row_bytes, stream)
+    "hbm_copy": ("hbm_copy_rows", [_P, _P, _P, _I, _L, _P]),
     # (src, n, row_bytes, stream)
     "hbm_read": ("hbm_read_rows", [_P, _I, _L, _P]),
     # (src, dst, n, row_bytes, block_bytes, stream)
     "hbm_write": ("hbm_write_rows", [_P, _P, _I, _L, _L, _P]),
-    # (src, out, n, row_bytes, shift, stream)
-    "p2p_shift": ("p2p_shift_rows", [_P, _P, _I, _L, _I, _P]),
+    # (src, out, counters, n, row_bytes, shift, stream)
+    "p2p_shift": ("p2p_shift_rows", [_P, _P, _P, _I, _L, _I, _P]),
     # (x, out, stage, counters, n, row_bytes, stream)
     "pingpong": ("pingpong_rows", [_P, _P, _P, _P, _I, _L, _P]),
     # (src, out, n, ctas, warps, row_bytes, stream)

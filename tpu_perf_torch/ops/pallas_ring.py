@@ -13,13 +13,15 @@ is written by hand for Hopper:
   ``_all_gather_kernel``, both modes);
 * ``stream`` — Triton, :mod:`tpu_perf_torch.ops.stream_triton` (replaces
   ``_hbm_stream_vec_kernel``);
-* ``hbm_copy``, ``hbm_read``, ``hbm_write`` — CUDA C++ on Hopper's TMA bulk
-  copies, ``csrc/hbm_{copy,read,write}.cu`` (replace ``_hbm_copy_kernel``,
-  ``_hbm_read_kernel`` and ``_hbm_write_kernel``, the TPU's local DMA
-  instruments);
-* ``ring_shift``, ``pair_exchange`` — CUDA C++, one row-shift kernel
-  ``csrc/p2p_shift.cu`` (replaces ``_ring_kernel`` and ``_exchange_kernel``;
-  counted apart as ``ring`` and ``exchange``);
+* ``hbm_read``, ``hbm_write`` — CUDA C++ on Hopper's TMA bulk copies,
+  ``csrc/hbm_{read,write}.cu`` (replace ``_hbm_read_kernel`` and
+  ``_hbm_write_kernel``, the TPU's local DMA instruments);
+* ``hbm_copy`` — CUDA C++, ``csrc/hbm_copy.cu`` (replaces
+  ``_hbm_copy_kernel``), and ``ring_shift``, ``pair_exchange`` — CUDA C++,
+  one row-shift kernel ``csrc/p2p_shift.cu`` (replaces ``_ring_kernel`` and
+  ``_exchange_kernel``; counted apart as ``ring`` and ``exchange``): the
+  row copies, persistent grids that take 8 KB tiles of all rows in order
+  from a device counter (``csrc/row_copy.cuh``);
 * ``pingpong`` — CUDA C++, ``csrc/pingpong.cu`` (replaces
   ``_pingpong_kernel``), both legs in one cooperative launch, each pair's
   return leg held by a device arrival count;
@@ -72,6 +74,10 @@ _STREAM_TILE_ELEMS = 524288
 #: pl_hbm_read / pl_hbm_write rows round up to this many bytes, the TPU's
 #: 4 KiB DMA tiling (which also keeps every bulk copy 16-byte aligned here)
 _DMA_ALIGN_BYTES = 4096
+
+#: the row-copy kernels' tile (``csrc/row_copy.cuh`` kTileBytes, the copy's
+#: and the row shift's), the edge the checks probe
+ROW_COPY_TILE_BYTES = 8192
 
 _RS_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -249,6 +255,37 @@ def ring_all_gather_bidir(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# --- device counters -----------------------------------------------------
+# Kernels that hand out work on the device keep their counters in a buffer
+# per card, zero between launches (each kernel returns its counters to zero
+# itself), so nothing passes from the host per launch and a CUDA graph can
+# replay it.  Launches that share a buffer must be ordered on one stream.
+
+
+def _card_counters(store: dict[int, torch.Tensor], device: torch.device,
+                   words: int) -> torch.Tensor:
+    # the card's buffer in store, made (or grown) zeroed with >= words words
+    counters = store.get(device.index)
+    if counters is None or counters.numel() < words:
+        counters = store[device.index] = torch.zeros(
+            words, dtype=torch.int32, device=device)
+    return counters
+
+
+#: per row-copy source and card, its tile counters (uint32: next tile, CTAs
+#: done; csrc/row_copy.cuh)
+_ROW_COPY_COUNTERS: dict[str, dict[int, torch.Tensor]] = {
+    "hbm_copy": {}, "p2p_shift": {}}
+_ROW_COPY_COUNTER_WORDS = 2
+
+
+def row_copy_counters(source: str, device: torch.device) -> torch.Tensor:
+    """The card's tile counters of row-copy source ``source`` (``hbm_copy``
+    or ``p2p_shift``; ring and exchange share one), zeroed once when made."""
+    return _card_counters(_ROW_COPY_COUNTERS[source], device,
+                          _ROW_COPY_COUNTER_WORDS)
+
+
 # --- the local memory instruments --------------------------------------
 # x is (n, elems): rank r's buffer is row r.  Each kernel is one launch
 # covering every rank.
@@ -262,13 +299,16 @@ def hbm_copy_plain(x: torch.Tensor) -> torch.Tensor:
 
 def hbm_copy(x: torch.Tensor) -> torch.Tensor:
     """One full-buffer device-memory copy of every rank's row; returns a new
-    tensor.  Rows of any size and alignment."""
+    tensor.  Rows of any size and alignment; one launch, its tiles taken
+    in order from the card's ``hbm_copy`` tile counters."""
     if x.device.type == "cpu":
         return hbm_copy_plain(x)
     _check_cuda("hbm_copy", x)
     out = torch.empty_like(x)
     n, row = x.shape
-    err = _build.entry("hbm_copy")(x.data_ptr(), out.data_ptr(), n,
+    counters = row_copy_counters("hbm_copy", x.device)
+    err = _build.entry("hbm_copy")(x.data_ptr(), out.data_ptr(),
+                                   counters.data_ptr(), n,
                                    row * x.element_size(), _stream_of(x))
     _build.check("hbm_copy", err)
     kernels.LAUNCHES["hbm_copy"] += 1
@@ -359,7 +399,9 @@ def _shift(name: str, x: torch.Tensor, shift: int) -> torch.Tensor:
     _check_cuda(name, x)
     n, row = x.shape
     out = torch.empty_like(x)
-    err = _build.entry("p2p_shift")(x.data_ptr(), out.data_ptr(), n,
+    counters = row_copy_counters("p2p_shift", x.device)
+    err = _build.entry("p2p_shift")(x.data_ptr(), out.data_ptr(),
+                                    counters.data_ptr(), n,
                                     row * x.element_size(), shift % n,
                                     _stream_of(x))
     _build.check(name, err)
@@ -421,12 +463,8 @@ def pingpong_counters(device: torch.device, pairs: int) -> torch.Tensor:
     """The card's pair-counter buffer, enough for ``pairs`` pairs, zeroed
     once when it is made or grown.  Launches that share it must be ordered
     on one stream."""
-    words = _PINGPONG_COUNTERS_PER_PAIR * pairs
-    counters = _PINGPONG_COUNTERS.get(device.index)
-    if counters is None or counters.numel() < words:
-        counters = _PINGPONG_COUNTERS[device.index] = torch.zeros(
-            words, dtype=torch.int32, device=device)
-    return counters
+    return _card_counters(_PINGPONG_COUNTERS, device,
+                          _PINGPONG_COUNTERS_PER_PAIR * pairs)
 
 
 def pingpong(x: torch.Tensor, stage: torch.Tensor | None = None
