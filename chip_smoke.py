@@ -10,18 +10,21 @@ exits non-zero):
 
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build every kernel from the sources in this checkout (one nvcc per
-   CUDA source, all started together; the Triton kernel compiles at its
-   first launch) and print the build time;
+   CUDA source, all started together with the gather's designs, each
+   built from an edited copy of the sources; the Triton kernel compiles
+   at its first launch) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card: the
    direct reduce-scatter at 2, 5 and 8 ranks and at the path's shape
    (unscaled, and with the carries' 1/5 and 1/8 scale, owned chunk alone
-   and tiled over the row), the
-   ring all-gather (both modes) at 5 and 8 ranks, the stream kernel, the
+   and tiled over the row), the two gather entries (the gather in both
+   modes, the bidirectional gather) at 1, 2, 5 and 8 ranks, at their
+   tiles' edges, odd chunks and from sources one element into their
+   storage, the stream kernel, the
    three bulk-copy kernels (copy, read sweep, write sweep) at 1, 5 and 8
    ranks, the point-to-point kernels (ring, exchange, pingpong with its
    stage, barrier) at 2, 5, 6 and 8 ranks, the cluster barrier at 9, 64
    and 256 ranks, and the collective kernels (all-to-all, and the
-   bidirectional ring all-gather over its whole gathered buffer) at 1, 2,
+   bidirectional all-gather over its whole gathered buffer) at 1, 2,
    5 and 8 ranks, over several dtypes and ragged / unaligned / multi-block
    shapes up to 2 GiB, the row-copy kernels (copy, ring, exchange) also at
    their tiles' edges (one tile, one tile plus a word or an element, more
@@ -33,9 +36,9 @@ exits non-zero):
    that pingpong's return leg waits for its payload (two inputs in turn
    through a stage that holds a sentinel), that 1000 chained round
    trips at 8 ranks return their input and leave the pair counters at
-   zero, and that 1000 chained copies, ring shifts and exchanges return
-   their input, leave their tile counters at zero and replay from a CUDA
-   graph to the eager result;
+   zero, and that 1000 chained copies, ring shifts, exchanges and both
+   gathers return their input (the gathers: its gather), leave their tile
+   counters at zero and replay from a CUDA graph to the eager result;
 4. drive the port's run paths through its CLI (``run --op pl_allreduce
    --sweep 4K:256M``, the other five ops of the first slice, the six
    local memory ops at one rank, the eleven point-to-point ops at eight,
@@ -54,8 +57,10 @@ exits non-zero):
    for ring and exchange, with ``index_select`` and ``torch.roll`` beside it;
    the barrier, the copy, ring and exchange also from a CUDA graph of 100
    chained launches, the barrier beside an empty kernel's; the
-   reduce-scatter in both modes, beside the carries it replaced), and
-   print them as one JSON line.
+   reduce-scatter in both modes, beside the carries it replaced; the
+   gathers beside a broadcast ``copy_`` into a preallocated output, each
+   design of ``tpu_perf_torch.tools.gather_designs`` and the own-shard
+   carry of ``pl_all_gather``), and print them as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 nothing of JAX and nothing of the JAX package ``tpu_perf``.
@@ -143,20 +148,30 @@ def card_rates() -> tuple[float, float]:
     return spec.hbm_gbps * 1e9, spec.f32_tflops * 1e12
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build every kernel, and the gather's designs beside them (each from
+    an edited copy of its sources, all nvcc started together); returns
+    the designs' C entries by name."""
     import torch
 
     from tpu_perf_torch.kernels import _build
     from tpu_perf_torch.ops.stream_triton import stream
+    from tpu_perf_torch.tools import gather_designs
+    from tpu_perf_torch.tools.row_copy_designs import finish_variants
 
-    nvcc_s = _build.build_all()
+    t0 = time.perf_counter()
+    jobs = gather_designs.start(gather_designs.designs_dir())
+    _build.build_all()
+    designs = finish_variants(jobs)
+    nvcc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for dt in (torch.float32, torch.bfloat16, torch.int32, torch.uint8):
         stream(torch.ones(3, 5, dtype=dt, device="cuda"))
     torch.cuda.synchronize()
-    print(f"build: nvcc ({len(_build._ENTRIES)} sources, parallel) "
-          f"{nvcc_s:.1f} s, "
+    print(f"build: nvcc ({len(_build._ENTRIES)} sources and {len(designs)} "
+          f"gather designs, parallel) {nvcc_s:.1f} s, "
           f"triton first launches {time.perf_counter() - t0:.1f} s")
+    return designs
 
 
 def phase_check() -> None:
@@ -167,7 +182,6 @@ def phase_check() -> None:
     )
     from tpu_perf_torch.ops.pallas_ring import (
         direct_reduce_scatter, direct_reduce_scatter_plain, mean_scale,
-        ring_all_gather, ring_all_gather_plain,
     )
     from tpu_perf_torch.ops.stream_triton import stream, stream_plain
     from tpu_perf_torch.world import SimWorld
@@ -216,18 +230,7 @@ def phase_check() -> None:
                     direct_reduce_scatter_plain(x, scale, tiles), "float32")
         n_checks += 1
     del x
-    for n in (5, 8):
-        for chunk in chunks:
-            for dtype in ("float32", "bfloat16", "int32", "uint8"):
-                for src_full in (False, True):
-                    shape = (n, n * chunk) if src_full else (n, chunk)
-                    x = fill(shape, dtype)
-                    got = ring_all_gather(x, src_full=src_full)
-                    want = x.new_empty((n, n * chunk))
-                    ring_all_gather_plain(x, want, src_full)
-                    check_close(f"ring_all_gather n={n} chunk={chunk} "
-                                f"src_full={src_full} {dtype}", got, want, dtype)
-                    n_checks += 1
+    n_checks += check_gather_kernels(fill, chunks)
     for dtype in DTYPES:
         for shape in ((1, 1), (8, 1000003), (1, 3 * 2**22 + 5)):
             x = fill(shape, dtype)
@@ -243,6 +246,59 @@ def phase_check() -> None:
     check_barrier_chains(fill)
     check_pingpong_order(fill)
     check_row_copy_chains(fill)
+
+
+def check_gather_kernels(fill, chunks) -> int:
+    """Both gather entries against their plain versions, exactly, at 1, 2,
+    5 and 8 ranks in float32, bfloat16, int32 and uint8: the gather in
+    both modes and the bidirectional gather, at ``chunks`` elements a
+    chunk, one element either side of a tile (two for the bidirectional
+    entry, whose chunks are even), and odd chunks in the 16-bit and 8-bit
+    types (odd half-chunks for the bidirectional entry); then from sources
+    one element into their storage (misaligned to the fresh output).
+    Returns the number of cases."""
+    from tpu_perf_torch.ops.collectives import DTYPES
+    from tpu_perf_torch.ops.pallas_ring import (
+        ROW_COPY_TILE_BYTES, direct_all_gather, direct_all_gather_bidir,
+        direct_all_gather_bidir_plain, direct_all_gather_plain,
+    )
+
+    def cases(x, chunk, what):
+        # the gather of own chunks x (n, chunk), and the bidirectional
+        # gather where the chunk is even; returns the cases checked
+        check_exact(f"direct_all_gather {what}", direct_all_gather(x),
+                    direct_all_gather_plain(x))
+        if chunk % 2 == 0:
+            check_exact(f"direct_all_gather_bidir {what}",
+                        direct_all_gather_bidir(x),
+                        direct_all_gather_bidir_plain(x))
+        return 1 + (chunk % 2 == 0)
+
+    n_checks = 0
+    for n in (1, 2, 5, 8):
+        for dtype in ("float32", "bfloat16", "int32", "uint8"):
+            tile = ROW_COPY_TILE_BYTES // DTYPES[dtype].itemsize
+            sizes = sorted({*chunks, tile - 2, tile - 1, tile, tile + 1,
+                            tile + 2, 2 * 501, 3 * tile + 1})
+            for chunk in sizes:
+                what = f"({n}, {chunk}) {dtype}"
+                n_checks += cases(fill((n, chunk), dtype), chunk, what)
+                x = fill((n, n * chunk), dtype)
+                check_exact(f"direct_all_gather src_full ({n}, {n * chunk}) "
+                            f"{dtype}", direct_all_gather(x, src_full=True),
+                            direct_all_gather_plain(x, src_full=True))
+                n_checks += 1
+            # one element into the storage: the words narrow to the dtype
+            for chunk in (tile, tile + 2, 5 * tile + 4):
+                what = f"({n}, {chunk}) {dtype} at storage offset 1"
+                x = fill((n * chunk + 1,), dtype)[1:].view(n, chunk)
+                n_checks += cases(x, chunk, what)
+                x = fill((n * n * chunk + 1,), dtype)[1:].view(n, n * chunk)
+                check_exact(f"direct_all_gather src_full {what}",
+                            direct_all_gather(x, src_full=True),
+                            direct_all_gather_plain(x, src_full=True))
+                n_checks += 1
+    return n_checks
 
 
 def tile_edge_elems(tile_bytes: int, isz: int, n: int) -> tuple[int, ...]:
@@ -378,12 +434,12 @@ def check_p2p_kernels(fill) -> int:
 
 
 def check_collective_kernels(fill) -> int:
-    """The all-to-all and the bidirectional ring all-gather against their
-    plain versions; returns the number of cases."""
+    """The all-to-all and the bidirectional all-gather against their plain
+    versions; returns the number of cases."""
     from tpu_perf_torch.ops.collectives import DTYPES
     from tpu_perf_torch.ops.pallas_ring import (
-        all_to_all, all_to_all_plain, ring_all_gather_bidir,
-        ring_all_gather_bidir_plain,
+        all_to_all, all_to_all_plain, direct_all_gather_bidir,
+        direct_all_gather_bidir_plain,
     )
 
     n_checks = 0
@@ -406,11 +462,10 @@ def check_collective_kernels(fill) -> int:
             default = max(2, -(-456131 // (isz * n)))
             for chunk in (default + default % 2, 2, 2**21 + 6):
                 x = fill((n, chunk), dtype)
-                got = ring_all_gather_bidir(x)
-                want = x.new_empty((n, n * chunk))
-                ring_all_gather_bidir_plain(x, want)
-                what = f"ring_all_gather_bidir ({n}, {chunk}) {dtype}"
-                check_close(what, got, want, dtype)
+                got = direct_all_gather_bidir(x)
+                want = direct_all_gather_bidir_plain(x)
+                what = f"direct_all_gather_bidir ({n}, {chunk}) {dtype}"
+                check_exact(what, got, want)
                 check_close(f"{what} against every rank's chunk", got,
                             x.reshape(1, -1).expand(n, -1), dtype)
                 n_checks += 1
@@ -502,36 +557,58 @@ def check_pingpong_order(fill) -> None:
 
 
 def check_row_copy_chains(fill) -> None:
-    """The row-copy kernels keep nothing between launches but their tile
-    counters, which they return to zero: 1000 chained copies, ring shifts
-    and exchanges at (8, 114033) return their input (1000 ring shifts at 8
-    ranks are the identity), the counters end at zero, and a CUDA graph of
-    100 chained launches replays to the eager result."""
+    """The row-copy kernels and the gathers keep nothing between launches
+    but their tile counters, which they return to zero: 1000 chained
+    copies, ring shifts and exchanges at (8, 114033) return their input
+    (1000 ring shifts at 8 ranks are the identity), 1000 chained gathers
+    (the gather in src_full mode, whose output is its next input; the
+    bidirectional gather through the path's own-shard carry) at 8 chunks
+    of 14254 return the gathered input, the counters end at zero, and a
+    CUDA graph of 100 chained launches replays to the eager result."""
     import torch
 
     from tpu_perf_torch.ops.pallas_ring import (
+        direct_all_gather, direct_all_gather_bidir, direct_all_gather_plain,
         hbm_copy, pair_exchange, ring_shift, row_copy_counters,
     )
 
     x = fill((8, -(-456131 // 4)), "float32")
+    chunk = 14254
+    full = fill((8, 8 * chunk), "float32")
+    own = fill((8, chunk), "float32")
+    d = torch.arange(8, device=own.device)
+
+    def gather_full(y):
+        return direct_all_gather(y, src_full=True)
+
+    def gather_bidir(y):
+        return direct_all_gather_bidir(y).view(8, 8, chunk)[d, d]
+
     said = []
-    for name, kern, source in (("hbm_copy", hbm_copy, "hbm_copy"),
-                               ("ring", ring_shift, "p2p_shift"),
-                               ("exchange", pair_exchange, "p2p_shift")):
-        y = x
+    for name, kern, source, x0, want in (
+            ("hbm_copy", hbm_copy, "hbm_copy", x, x),
+            ("ring", ring_shift, "p2p_shift", x, x),
+            ("exchange", pair_exchange, "p2p_shift", x, x),
+            ("direct_all_gather", gather_full, "all_gather", full,
+             direct_all_gather_plain(full, src_full=True)),
+            ("direct_all_gather_bidir", gather_bidir, "all_gather", own,
+             own)):
+        y = x0
         for _ in range(1000):
             y = kern(y)
         torch.cuda.synchronize()
-        check_exact(f"1000 chained {name} (8, 114033)", y, x)
-        counters = row_copy_counters(source, x.device)
+        check_exact(f"1000 chained {name} {tuple(x0.shape)}", y, want)
+        counters = row_copy_counters(source, x0.device)
         if counters.any():
             fail(f"{name}: tile counters left non-zero after 1000 launches: "
                  f"{counters.tolist()}")
-        ms = graph_ms(lambda kern=kern: chain(kern, x), chain(kern, x),
-                      what=f"graph of 100 chained {name} (8, 114033)")
+        ms = graph_ms(lambda kern=kern, x0=x0: chain(kern, x0),
+                      chain(kern, x0),
+                      what=f"graph of 100 chained {name} {tuple(x0.shape)}")
         said.append(f"{name} {ms * 1e3:.2f} us")
-    print("check: 1000 chained hbm_copy / ring / exchange at (8, 114033) "
-          "return their input, tile counters zero; graphs of "
+    print("check: 1000 chained hbm_copy / ring / exchange at (8, 114033) and "
+          "gathers of 8 chunks of 14254 return their input (the gathers: "
+          "its gather), tile counters zero; graphs of "
           f"{GRAPH_LAUNCHES} chained launches replay to the eager result "
           f"({', '.join(said)} per launch)")
 
@@ -572,10 +649,10 @@ def check_read(what: str, x, dtype: str) -> None:
 
 #: op -> ({kernel: launches per execution}, sim ranks)
 PATHS = {
-    "pl_allreduce": ({"direct_reduce_scatter": 1, "ring_all_gather": 7}, 8),
+    "pl_allreduce": ({"direct_reduce_scatter": 1, "direct_all_gather": 1}, 8),
     "allreduce": ({}, 8),
     "pl_reduce_scatter": ({"direct_reduce_scatter": 1}, 8),
-    "pl_all_gather": ({"ring_all_gather": 7}, 8),
+    "pl_all_gather": ({"direct_all_gather": 1}, 8),
     "hbm_stream": ({}, 1),
     "pl_hbm_stream": ({"stream": 1}, 1),
     "hbm_read": ({}, 1),
@@ -604,7 +681,7 @@ PATHS = {
     "all_to_all": ({}, 8),
     "broadcast": ({}, 8),
     "broadcast_psum": ({}, 8),
-    "pl_all_gather_bidir": ({"ring_all_gather_bidir": 7}, 8),
+    "pl_all_gather_bidir": ({"direct_all_gather_bidir": 1}, 8),
     "pl_all_to_all": ({"all_to_all": 1}, 8),
 }
 #: per-rank sizes at which a path's output is checked, where not at the
@@ -813,13 +890,53 @@ def _cuda_row(launches: dict, name: str, replaces: int, op: str, err: float,
             "dtype": "float32"}
 
 
-def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
+def _gather_row(launches: dict, name: str, replaces: int, op: str,
+                own, designs: dict) -> dict:
+    """The kernels line's entry of gather entry ``name`` on own chunks
+    ``own`` (n, chunk), as path ``op`` launches it: beside the expand copy
+    (the library call), a broadcast ``copy_`` into a preallocated output,
+    each design of the gather (``gather_designs``, checked exactly first)
+    and ``pl_all_gather``'s own-shard carry after the gather."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring
+    from tpu_perf_torch.tools.gather_designs import launcher
+
+    kern = getattr(pallas_ring, name)
+    plain = getattr(pallas_ring, f"{name}_plain")
+    n, chunk = own.shape
+    want = plain(own)
+    err = check_exact(f"{name} at path shape", kern(own), want)
+    out = torch.empty_like(want)
+    designs_ms = {}
+    for design, entry in designs.items():
+        out.zero_()
+        call = launcher(entry, own, out)
+        call()
+        check_exact(f"{name} design {design} at path shape", out, want)
+        designs_ms[design] = cuda_ms(call, 10)
+    d = torch.arange(n, device=own.device)
+    # each rank's own chunk read once, the gathered rows written once
+    return _cuda_row(
+        launches, name, replaces, op, err, cuda_ms(lambda: kern(own), 10),
+        cuda_ms(lambda: plain(own), 10),
+        _bound((own.numel() + want.numel()) * own.element_size(), 0),
+        cuda_ms(lambda: own.reshape(1, -1).expand(n, -1).contiguous(), 10),
+        want.shape, source="all_gather",
+        copy_broadcast_ms=cuda_ms(lambda: out.view(n, n, chunk).copy_(
+            own.unsqueeze(0).expand(n, n, chunk)), 10),
+        carry_ms=cuda_ms(lambda: want.view(n, n, chunk)[d, d], 10),
+        designs_ms=designs_ms)
+
+
+def _kernel_rows(per_rank_bytes: int, launches: dict,
+                 designs: dict) -> list[dict]:
     import torch
 
     from tpu_perf_torch.ops.collectives import build_op
     from tpu_perf_torch.ops.pallas_ring import (
-        direct_reduce_scatter, direct_reduce_scatter_plain, mean_scale,
-        ring_all_gather, ring_all_gather_plain,
+        direct_all_gather, direct_reduce_scatter, direct_reduce_scatter_plain,
+        mean_scale,
     )
     from tpu_perf_torch.ops.stream_triton import (
         stream, stream_constants, stream_plain,
@@ -851,9 +968,9 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
         "pl_reduce_scatter_carry_ms":
             lambda: direct_reduce_scatter(x, scale=inv, tiles=n),
         "pl_allreduce_carry_before_ms":
-            lambda: ring_all_gather(direct_reduce_scatter(x)).mul_(inv_t),
+            lambda: direct_all_gather(direct_reduce_scatter(x)).mul_(inv_t),
         "pl_allreduce_carry_ms":
-            lambda: ring_all_gather(direct_reduce_scatter(x, scale=inv)),
+            lambda: direct_all_gather(direct_reduce_scatter(x, scale=inv)),
     }
     # the function's own bytes: x read once, each rank's output row written
     # once; (n-1) adds and one multiply per reduced element
@@ -874,22 +991,11 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
         **{k: cuda_ms(fn, 10) for k, fn in carries.items()}))
     del carries
 
-    # ring all-gather at the pl_allreduce path's phase-2 input, the owned
-    # chunks
-    got = ring_all_gather(red)
-    want = red.new_empty((n, n * chunk))
-    ring_all_gather_plain(red, want)
-    err = check_close("ring_all_gather at path shape", got, want, "float32")
-    del got
-    # each rank's own chunk read once, the gathered rows written once
-    out.append(_cuda_row(
-        launches, "ring_all_gather", 481, "pl_allreduce", err,
-        cuda_ms(lambda: ring_all_gather(red), 10),
-        cuda_ms(lambda: ring_all_gather_plain(red, want), 3, 1),
-        _bound((n * chunk + n * n * chunk) * isz, 0),
-        cuda_ms(lambda: red.reshape(1, -1).expand(n, -1).contiguous(), 10),
-        want.shape))
-    del x, red, want
+    # the gather at the pl_allreduce path's phase-2 input, the owned chunks
+    del x
+    out.append(_gather_row(launches, "direct_all_gather", 481, "pl_allreduce",
+                           red, designs))
+    del red
 
     # stream at the pl_hbm_stream path's input (one rank: the card itself)
     x = build_op("pl_hbm_stream", SimWorld(1, dev), per_rank_bytes, 1).example_input
@@ -913,19 +1019,17 @@ def _kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
     del x
     out += _bulk_kernel_rows(per_rank_bytes, launches)
     out += _p2p_kernel_rows(per_rank_bytes, launches)
-    out += _collective_kernel_rows(per_rank_bytes, launches)
+    out += _collective_kernel_rows(per_rank_bytes, launches, designs)
     return out
 
 
-def _collective_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
+def _collective_kernel_rows(per_rank_bytes: int, launches: dict,
+                            designs: dict) -> list[dict]:
     """The collective kernels at their 8-rank paths' inputs."""
     import torch
 
     from tpu_perf_torch.ops.collectives import build_op
-    from tpu_perf_torch.ops.pallas_ring import (
-        all_to_all, all_to_all_plain, ring_all_gather_bidir,
-        ring_all_gather_bidir_plain,
-    )
+    from tpu_perf_torch.ops.pallas_ring import all_to_all, all_to_all_plain
     from tpu_perf_torch.world import SimWorld
 
     world = SimWorld(8, torch.device("cuda", torch.cuda.current_device()))
@@ -946,24 +1050,12 @@ def _collective_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
         cuda_ms(lambda: chunks.transpose(0, 1).contiguous(), 10), x.shape))
     del x, chunks
 
-    # bidirectional all-gather at the pl_all_gather_bidir path's input:
-    # each rank's shard read once, the gathered rows written once; checked
-    # over the whole gathered buffer; the yardstick is row 2's expand copy
+    # the bidirectional gather at the pl_all_gather_bidir path's input,
+    # checked over the whole gathered buffer
     x = build_op("pl_all_gather_bidir", world, per_rank_bytes,
                  1).example_input
-    got = ring_all_gather_bidir(x)
-    want = x.new_empty((n, n * x.shape[1]))
-    ring_all_gather_bidir_plain(x, want)
-    err = check_close("ring_all_gather_bidir at path shape", got, want,
-                      "float32")
-    del got
-    out.append(_cuda_row(
-        launches, "ring_all_gather_bidir", 430, "pl_all_gather_bidir", err,
-        cuda_ms(lambda: ring_all_gather_bidir(x), 10),
-        cuda_ms(lambda: ring_all_gather_bidir_plain(x, want), 3, 1),
-        _bound((x.numel() + want.numel()) * x.element_size(), 0),
-        cuda_ms(lambda: x.reshape(1, -1).expand(n, -1).contiguous(), 10),
-        want.shape))
+    out.append(_gather_row(launches, "direct_all_gather_bidir", 430,
+                           "pl_all_gather_bidir", x, designs))
     return out
 
 
@@ -1186,13 +1278,13 @@ def main() -> int:
         phase_s[name] = round(time.perf_counter() - t0, 1)
         return result
 
-    timed("build", phase_build)
+    designs = timed("build", phase_build)
     timed("check", phase_check)
     launches = timed("paths", phase_main_path)
     timed("selftest", phase_selftest)
     timed("grid", phase_grid)
     for label, per_rank in (("4MiB", HEADLINE_BYTES), ("256MiB", MAIN_BYTES)):
-        rows = _kernel_rows(per_rank, launches)
+        rows = _kernel_rows(per_rank, launches, designs)
         for k in rows:
             print(f"kernel @{label}/rank: {k['name']} {k['shape']}: "
                   f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, library "
@@ -1223,6 +1315,12 @@ def main() -> int:
                       f"gather x[idx]; x.index_select(0, idx) "
                       f"{k['index_select_ms']:.4f} ms, torch.roll "
                       f"{k['roll_ms']:.4f} ms")
+            if "designs_ms" in k:
+                print(f"kernel @{label}/rank: {k['name']}: broadcast copy_ "
+                      f"into a preallocated output {k['copy_broadcast_ms']:.4f}"
+                      f" ms; pl_all_gather's own-shard carry after it "
+                      f"{k['carry_ms']:.4f} ms; designs " + ", ".join(
+                          f"{d} {ms:.4f}" for d, ms in k["designs_ms"].items()))
             if "graph_ms" in k and "empty_launch_ms" not in k:
                 print(f"kernel @{label}/rank: {k['name']}: from a CUDA graph "
                       f"of {GRAPH_LAUNCHES} chained launches "

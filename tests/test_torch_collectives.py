@@ -141,9 +141,7 @@ def test_bidir_plain_gathers_the_jax_kernels_whole_buffer(n, chunk, dtype,
     # swapped half or a counter-clockwise index off by one
     host = (np.arange(n * chunk) % 251).astype(dtype).reshape(n, chunk)
     want = _jax_bidir_gather(host, n, chunk)
-    x = torch.from_numpy(host.copy())
-    out = x.new_empty((n, n * chunk))
-    tpr.ring_all_gather_bidir_plain(x, out)
+    out = tpr.direct_all_gather_bidir_plain(torch.from_numpy(host.copy()))
     np.testing.assert_array_equal(out.numpy(), want)
     np.testing.assert_array_equal(want, np.broadcast_to(host.reshape(-1),
                                                         want.shape))
@@ -173,9 +171,9 @@ def test_all_to_all_ownership(n):
 
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 8])
 def test_ring_all_gather_bidir_ownership(n):
-    chunk = 6  # halves of 3: the odd half-chunk the kernel moves in bytes
+    chunk = 6  # halves of 3: the odd half-chunk of the TPU kernel's split
     x = _owned(n, chunk)
-    out = tpr.ring_all_gather_bidir(x)
+    out = tpr.direct_all_gather_bidir(x)
     for d in range(n):
         assert torch.equal(out[d], x.reshape(-1)), d
 
@@ -270,18 +268,18 @@ def test_cpu_tensors_take_the_collective_plain_versions(eight_devices):
     kernels.reset_counts()
     world = SimWorld(8, CPU)
     for op, name in (("pl_all_to_all", "all_to_all"),
-                     ("pl_all_gather_bidir", "ring_all_gather_bidir")):
+                     ("pl_all_gather_bidir", "direct_all_gather_bidir")):
         built = build_op(op, world, 4096, 3)
         built.step(built.example_input)
         assert kernels.PLAIN_CALLS[name] == 3, op
     assert kernels.PLAIN_CALLS == {**dict.fromkeys(kernels.KERNELS, 0),
-                                   "all_to_all": 3, "ring_all_gather_bidir": 3}
+                                   "all_to_all": 3, "direct_all_gather_bidir": 3}
     assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0)
 
 
 @pytest.mark.parametrize("wrapper", [
     lambda x: tpr.all_to_all(x),
-    lambda x: tpr.ring_all_gather_bidir(x),
+    lambda x: tpr.direct_all_gather_bidir(x),
 ])
 def test_collective_wrappers_refuse_other_devices(wrapper):
     # only a CPU tensor takes the plain version; any other non-CUDA device
@@ -294,7 +292,7 @@ def test_collective_wrappers_refuse_shapes_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="whole chunks"):
         tpr.all_to_all(torch.zeros((4, 6)))
     with pytest.raises(ValueError, match="in half"):
-        tpr.ring_all_gather_bidir(torch.zeros((4, 3)))
+        tpr.direct_all_gather_bidir(torch.zeros((4, 3)))
 
 
 # --- sizes: the JAX package's ---------------------------------------------
@@ -395,8 +393,8 @@ def test_selftest_cannot_see_a_bidir_that_swaps_the_peers_halves(monkeypatch):
         return out
 
     x = _owned(4, 4)
-    assert not torch.equal(swapped(x), tpr.ring_all_gather_bidir(x))
-    monkeypatch.setattr(tpr, "ring_all_gather_bidir", swapped)
+    assert not torch.equal(swapped(x), tpr.direct_all_gather_bidir(x))
+    monkeypatch.setattr(tpr, "direct_all_gather_bidir", swapped)
     (result,) = run_selftest(SimWorld(4, CPU), ops=["pl_all_gather_bidir"],
                              nbytes=64, iters=1)
     assert result.status == "ok"

@@ -105,7 +105,9 @@ def test_build_module_names_every_cuda_source_and_its_c_entry():
     # the build module (ring and exchange share the row-shift source), and
     # every source builds a counted kernel
     source_of = {"ring": "p2p_shift", "exchange": "p2p_shift",
-                 "direct_reduce_scatter": "reduce_scatter"}
+                 "direct_reduce_scatter": "reduce_scatter",
+                 "direct_all_gather": "all_gather",
+                 "direct_all_gather_bidir": "all_gather"}
     cuda_kernels = set(kernels.KERNELS) - {"stream"}
     assert ({source_of.get(k, k) for k in cuda_kernels}
             == set(_build._ENTRIES))
@@ -119,11 +121,46 @@ def test_row_copy_tiles_are_the_sources():
     threads = int(re.search(r"kThreads = (\d+);", cuh).group(1))
     unroll = int(re.search(r"kUnroll = (\d+);", cuh).group(1))
     assert threads * unroll * 16 == tpr.ROW_COPY_TILE_BYTES
-    # both row-copy sources take their tiles through the shared header
-    for name in ("p2p_shift", "hbm_copy"):
+    # the row-copy sources and the gather take their tiles through the
+    # shared header
+    for name in ("p2p_shift", "hbm_copy", "all_gather"):
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "row_copy.cuh"' in text
         assert "row_copy::for_each_tile(" in text
+
+
+def test_row_copy_designs_edit_the_shipped_sources(tmp_path):
+    # each design is an edited copy of the shipped sources; an edit whose
+    # text the sources no longer hold exactly once raises
+    from tpu_perf_torch.tools import row_copy_designs as rcd
+
+    path, _ = rcd.write_design(tmp_path, "p2p_shift.cu",
+                               [(rcd.DRAW, rcd.STATIC_DEAL + rcd.DRAW)])
+    assert path.read_text() == (_build.CSRC / "p2p_shift.cu").read_text()
+    assert rcd.STATIC_DEAL in (tmp_path / "row_copy.cuh").read_text()
+    with pytest.raises(RuntimeError, match="not once"):
+        rcd.write_design(tmp_path, "p2p_shift.cu", [("no such text", "")])
+
+
+def test_gather_designs_edit_the_shipped_sources(tmp_path):
+    # the destination-major design is the shipped source; the fan-out and
+    # plain-store designs are edits of it that must still apply
+    from tpu_perf_torch.tools import gather_designs
+
+    found = gather_designs.designs(tmp_path, fanouts="2x4,1x8",
+                                   tma="16384x4")
+    assert len(found) == 7
+    shipped = (_build.CSRC / "all_gather.cu").read_text()
+    assert (tmp_path / "dest_major_2x4" / "all_gather.cu").read_text() == shipped
+    fan = (tmp_path / "fan_out_2x4" / "all_gather.cu").read_text()
+    assert "for (int d = 0; d < n; ++d)" in fan and "u / " not in fan
+    assert "__stcs(" in fan
+    plain = (tmp_path / "fan_out_2x4_plain" / "all_gather.cu").read_text()
+    assert "o[i] = v[r][k];" in plain and "__stcs(" not in plain
+    plain = (tmp_path / "dest_major_2x4_plain" / "all_gather.cu").read_text()
+    assert "copy_tile<false>(" in plain and "copy_tile<true>(" not in plain
+    unroll = (tmp_path / "fan_out_1x8" / "row_copy.cuh").read_text()
+    assert "kUnroll = 1;" in unroll and "kCtasPerSm = 8;" in unroll
 
 
 def test_build_outputs_are_ignored_by_git():
@@ -133,6 +170,6 @@ def test_build_outputs_are_ignored_by_git():
 
 
 def test_launch_errors_raise():
-    _build.check("ring_all_gather", 0)
+    _build.check("direct_all_gather", 0)
     with pytest.raises(RuntimeError, match="CUDA error 9"):
-        _build.check("ring_all_gather", 9)
+        _build.check("direct_all_gather", 9)

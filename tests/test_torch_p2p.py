@@ -248,19 +248,19 @@ def test_pingpong_counters_are_zero_and_grow_per_card(monkeypatch):
     assert tpr.pingpong_counters(CPU, 4) is bigger
 
 
-@pytest.mark.parametrize("source", ["p2p_shift", "hbm_copy"])
+@pytest.mark.parametrize("source", ["p2p_shift", "hbm_copy", "all_gather"])
 def test_row_copy_counters_are_zero_and_one_buffer_per_source_and_card(
         source, monkeypatch):
     # one buffer per source and card, two words (next tile, CTAs done),
     # zero when made, the same buffer on every later call
     monkeypatch.setattr(tpr, "_ROW_COPY_COUNTERS",
-                        {"p2p_shift": {}, "hbm_copy": {}})
+                        {"p2p_shift": {}, "hbm_copy": {}, "all_gather": {}})
     counters = tpr.row_copy_counters(source, CPU)
     assert counters.dtype == torch.int32 and counters.numel() == 2
     assert not counters.any()
     assert tpr.row_copy_counters(source, CPU) is counters
-    other = "hbm_copy" if source == "p2p_shift" else "p2p_shift"
-    assert tpr.row_copy_counters(other, CPU) is not counters
+    for other in {"p2p_shift", "hbm_copy", "all_gather"} - {source}:
+        assert tpr.row_copy_counters(other, CPU) is not counters
     with pytest.raises(KeyError):
         tpr.row_copy_counters("pingpong", CPU)
 

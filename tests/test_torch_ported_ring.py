@@ -13,11 +13,17 @@ float32, bfloat16 and float16 (``test_scaled_carries_match_jax``).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as P
 
 import tpu_perf.ops.pallas_ring as jpr
+from tpu_perf.compat import shard_map
 from tpu_perf.ops import build_op as jax_build_op
 from tpu_perf.ops import payload_elems as jax_payload_elems
 from tpu_perf.parallel import make_mesh
@@ -269,14 +275,14 @@ def test_carries_are_the_kernels_alone(op):
     kernels.reset_counts()
     got = built.step(x)
     assert kernels.PLAIN_CALLS["direct_reduce_scatter"] == 2
-    assert kernels.PLAIN_CALLS["ring_all_gather"] == (
+    assert kernels.PLAIN_CALLS["direct_all_gather"] == (
         0 if op == "pl_reduce_scatter" else 2)
     inv = _dtype_inv(n, "float32")
     want = x
     for _ in range(2):
         red = tpr.direct_reduce_scatter(want, scale=inv,
                                         tiles=n if op == "pl_reduce_scatter" else 1)
-        want = red if op == "pl_reduce_scatter" else tpr.ring_all_gather(red)
+        want = red if op == "pl_reduce_scatter" else tpr.direct_all_gather(red)
     assert torch.equal(got, want)
 
 
@@ -286,25 +292,74 @@ def test_ring_all_gather_every_row_gathers_every_chunk(n, src_full):
     chunk = 3
     x = _ranks_input(n, n * chunk if src_full else chunk, seed=20 + n)
     own = x.view(n, n, chunk)[range(n), range(n)] if src_full else x
-    out = tpr.ring_all_gather(x, src_full=src_full)
+    out = tpr.direct_all_gather(x, src_full=src_full)
     assert torch.equal(out, own.reshape(1, -1).expand(n, -1))
+
+
+def _jax_gather(host: np.ndarray, n: int, chunk: int,
+                src_full: bool) -> np.ndarray:
+    """The raw ring Pallas kernel ``_all_gather_kernel`` (no take-own-shard
+    carry) under the TPU interpreter: every device's whole gathered buffer,
+    ``(n, n*chunk)``.  ``host`` is ``(n, chunk)``, or ``(n, n*chunk)`` with
+    ``src_full``."""
+    mesh = make_mesh(devices=jax.devices()[:n])
+    axis = mesh.axis_names[0]
+    kern = jpr._all_gather_kernel(axis, n, chunk, src_full=src_full)
+    sems = pltpu.SemaphoreType.DMA((max(n - 1, 1),))
+
+    def call(x):
+        return pl.pallas_call(
+            kern,
+            out_shape=jax.ShapeDtypeStruct((chunk * n,), x.dtype),
+            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
+            out_specs=pl.BlockSpec(memory_space=pl.ANY),
+            scratch_shapes=[pltpu.SemaphoreType.DMA, sems, sems],
+            compiler_params=pltpu.CompilerParams(
+                collective_id=jpr._COLLECTIVE_IDS["pl_all_gather"]),
+            interpret=pltpu.InterpretParams(),
+        )(x)
+
+    step = jax.jit(shard_map(call, mesh=mesh, in_specs=P(axis),
+                             out_specs=P(axis), check_vma=False))
+    x = jax.device_put(jnp.asarray(host.reshape(-1)),
+                       NamedSharding(mesh, P(axis)))
+    return np.asarray(jax.device_get(step(x))).reshape(n, n * chunk)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("n,chunk", [(2, 2), (5, 6), (8, 4)])
+@pytest.mark.parametrize("src_full", [False, True])
+def test_direct_gather_plain_is_the_jax_ring_kernels_whole_buffer(
+        src_full, n, chunk, dtype, eight_devices):
+    # the ring forwards chunks without adding anything, so dropping its
+    # order of forwarding changes no bit of the whole gathered buffer (the
+    # take-own-shard carry would hide a chunk in the wrong slot)
+    width = n * chunk if src_full else chunk
+    host = ((np.arange(n * width) * 7 + 3) % 251).astype(dtype).reshape(
+        n, width)
+    want = _jax_gather(host, n, chunk, src_full)
+    got = tpr.direct_all_gather_plain(torch.from_numpy(host.copy()), src_full)
+    np.testing.assert_array_equal(got.numpy(), want)
+    own = host.reshape(n, n, chunk)[range(n), range(n)] if src_full else host
+    np.testing.assert_array_equal(want, np.broadcast_to(own.reshape(-1),
+                                                        want.shape))
 
 
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     kernels.reset_counts()
     x = _ranks_input(4, 8, seed=0)
-    tpr.ring_all_gather(tpr.direct_reduce_scatter(x))
+    tpr.direct_all_gather(tpr.direct_reduce_scatter(x))
     tpr.stream(x)
     tpr.hbm_write(tpr.hbm_read(tpr.hbm_copy(x)), 4)
     tpr.barrier(tpr.pingpong(tpr.pair_exchange(tpr.ring_shift(x)))[0])
-    tpr.ring_all_gather_bidir(tpr.all_to_all(x))
+    tpr.direct_all_gather_bidir(tpr.all_to_all(x))
     assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0)
     assert kernels.PLAIN_CALLS == dict.fromkeys(kernels.KERNELS, 1)
 
 
 @pytest.mark.parametrize("wrapper", [
     lambda x: tpr.direct_reduce_scatter(x),
-    lambda x: tpr.ring_all_gather(x),
+    lambda x: tpr.direct_all_gather(x),
     lambda x: tpr.stream(x),
 ])
 def test_wrappers_refuse_other_devices(wrapper):

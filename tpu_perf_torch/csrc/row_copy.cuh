@@ -1,5 +1,5 @@
 // Persistent row copies with tiles taken in order, shared by the row-copy
-// kernels (p2p_shift.cu, hbm_copy.cu).
+// kernels (p2p_shift.cu, hbm_copy.cu) and the all-gather (all_gather.cu).
 //
 // Why tiles in order.  On the H100 a grid whose CTAs each stream a fixed
 // share of the rows (grid-stride) trails PyTorch's copy, whose short-lived
@@ -83,8 +83,9 @@ __device__ __forceinline__ void for_each_tile(unsigned int* counters,
 // registers: each warp 32 * kUnroll consecutive spans, its lanes 32 apart,
 // so every load and store instruction of the warp is coalesced.  A thread
 // loads all its words of the tile before it stores any (kUnroll * 16 /
-// sizeof(W) loads in flight).
-template <typename W>
+// sizeof(W) loads in flight).  kStreaming stores evict-first
+// (st.global.cs), for output the kernel does not read back.
+template <bool kStreaming = false, typename W>
 __device__ __forceinline__ void copy_tile(const W* __restrict__ s,
                                           W* __restrict__ o, long long row,
                                           long long t0) {
@@ -105,7 +106,12 @@ __device__ __forceinline__ void copy_tile(const W* __restrict__ s,
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       const long long i = lane0 + (long long)r * kThreads * kUnroll + 32 * k;
-      if (i < row) o[i] = v[r][k];
+      if (i >= row) continue;
+      if constexpr (kStreaming) {
+        __stcs(&o[i], v[r][k]);
+      } else {
+        o[i] = v[r][k];
+      }
     }
   }
 }

@@ -10,9 +10,9 @@ main path must show launches and no plain calls.
 
 from __future__ import annotations
 
-KERNELS = ("direct_reduce_scatter", "ring_all_gather", "stream", "hbm_copy",
-           "hbm_read", "hbm_write", "ring", "exchange", "pingpong", "barrier",
-           "all_to_all", "ring_all_gather_bidir")
+KERNELS = ("direct_reduce_scatter", "direct_all_gather", "stream",
+           "hbm_copy", "hbm_read", "hbm_write", "ring", "exchange", "pingpong",
+           "barrier", "all_to_all", "direct_all_gather_bidir")
 
 #: kernel launches since the last reset_counts()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

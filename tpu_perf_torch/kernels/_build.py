@@ -38,9 +38,9 @@ _ENTRIES = {
     # (x, out, n, chunk, dtype_code, scale, tiles, stream)
     "reduce_scatter": ("direct_reduce_scatter",
                        [_P, _P, _I, _L, _I, _F, _I, _P]),
-    # (src, out, n, chunk_bytes, src_row_bytes, src_own_bytes, step, stream)
-    "ring_all_gather": ("ring_all_gather_step",
-                        [_P, _P, _I, _L, _L, _L, _I, _P]),
+    # (src, out, counters, n, chunk_bytes, src_row_bytes, src_own_bytes,
+    # stream)
+    "all_gather": ("direct_all_gather", [_P, _P, _P, _I, _L, _L, _L, _P]),
     # (src, dst, counters, n, row_bytes, stream)
     "hbm_copy": ("hbm_copy_rows", [_P, _P, _P, _I, _L, _P]),
     # (src, n, row_bytes, stream)
@@ -55,9 +55,6 @@ _ENTRIES = {
     "barrier": ("barrier_rows", [_P, _P, _I, _I, _I, _L, _P]),
     # (src, out, n, chunk_bytes, stream)
     "all_to_all": ("all_to_all_rows", [_P, _P, _I, _L, _P]),
-    # (src, out, n, half_bytes, step, stream)
-    "ring_all_gather_bidir": ("ring_all_gather_bidir_step",
-                              [_P, _P, _I, _L, _I, _P]),
 }
 #: further C entry points of a source, beside its kernel's: (source,
 #: symbol) -> argument types
@@ -67,6 +64,8 @@ _EXTRA_ENTRIES = {
     # (ctas, warps, &clusters): how many barrier clusters the card holds
     ("barrier", "barrier_max_active_clusters"): [_I, _I,
                                                  ctypes.POINTER(ctypes.c_int)],
+    # the bidirectional gather: (src, out, counters, n, chunk_bytes, stream)
+    ("all_gather", "direct_all_gather_bidir"): [_P, _P, _P, _I, _L, _P],
 }
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -132,7 +131,7 @@ def entry(name: str, symbol: str | None = None):
     if fn is None:
         if _stale(name):
             _finish(name, *_start(name))
-        argtypes = (_ENTRIES[name][1] if symbol is None
+        argtypes = (_ENTRIES[name][1] if key[1] == _ENTRIES[name][0]
                     else _EXTRA_ENTRIES[key])
         fn = getattr(ctypes.CDLL(str(_lib_path(name))), key[1])
         fn.argtypes = argtypes

@@ -9,8 +9,12 @@ is written by hand for Hopper:
   (replaces ``_reduce_scatter_kernel`` with ``_acc_add`` and
   ``_ring_barrier``), every rank's owned chunk in one launch, summed in the
   ring's order;
-* ``ring_all_gather`` — CUDA C++, ``csrc/ring_all_gather.cu`` (replaces
-  ``_all_gather_kernel``, both modes);
+* ``direct_all_gather``, ``direct_all_gather_bidir`` — CUDA C++, one
+  source ``csrc/all_gather.cu`` (replaces ``_all_gather_kernel``, both
+  modes, and ``_all_gather_bidir_kernel``; counted apart): every rank's
+  own chunk copied into every row in one launch, whose 8 KB tiles, the
+  destinations of one source tile side by side, are taken in order from a
+  device counter (``csrc/row_copy.cuh``);
 * ``stream`` — Triton, :mod:`tpu_perf_torch.ops.stream_triton` (replaces
   ``_hbm_stream_vec_kernel``);
 * ``hbm_read``, ``hbm_write`` — CUDA C++ on Hopper's TMA bulk copies,
@@ -30,15 +34,12 @@ is written by hand for Hopper:
   that meets at Hopper's hardware cluster barrier;
 * ``all_to_all`` — CUDA C++, ``csrc/all_to_all.cu`` (replaces
   ``_all_to_all_direct_kernel``; stream order stands in for its
-  ``_global_barrier``), every (destination, source) pair in one launch;
-* ``ring_all_gather_bidir`` — CUDA C++, ``csrc/ring_all_gather_bidir.cu``
-  (replaces ``_all_gather_bidir_kernel``), half-chunks both ways round the
-  ring, one launch per ring step.
+  ``_global_barrier``), every (destination, source) pair in one launch.
 
 Every ``pl_*`` op of the JAX package is ported.  Each wrapper launches its
-kernel for a CUDA tensor and runs its plain PyTorch version, the kernel's
-schedule (or order of accumulation) step by step over the sim ranks, for a
-CPU tensor; anything else raises.  The sizes, carries and op names are the
+kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
+tensor (the reduce-scatter's in the kernel's order of accumulation);
+anything else raises.  The sizes, carries and op names are the
 JAX package's, so rows land on the same curve keys.
 """
 
@@ -161,98 +162,83 @@ def direct_reduce_scatter(x: torch.Tensor, *, scale: float = 1.0,
     return out
 
 
-# --- ring all-gather ----------------------------------------------------
+# --- all-gather ---------------------------------------------------------
 
 
-def ring_all_gather_plain(x: torch.Tensor, out: torch.Tensor,
-                          src_full: bool = False) -> None:
-    """The kernel's schedule in plain PyTorch: at ring step k every rank d
-    stores the chunk (d-1-k) mod n its left neighbour forwards; step 0
-    also places the rank's own chunk.  ``out`` is written in place."""
-    kernels.PLAIN_CALLS["ring_all_gather"] += 1
+def _gather_plain(own: torch.Tensor) -> torch.Tensor:
+    # every rank's row is the n own chunks in rank order: (n, n*chunk)
+    n, chunk = own.shape
+    out = own.new_empty((n, n * chunk))
+    out.view(n, n, chunk).copy_(own.unsqueeze(0).expand(n, n, chunk))
+    return out
+
+
+def direct_all_gather_plain(x: torch.Tensor,
+                            src_full: bool = False) -> torch.Tensor:
+    """The gather's function in plain PyTorch: the n own chunks broadcast
+    into every row.  ``x`` as :func:`direct_all_gather` takes it."""
+    kernels.PLAIN_CALLS["direct_all_gather"] += 1
+    n, row = x.shape
+    if src_full:
+        d = torch.arange(n, device=x.device)
+        x = x.view(n, n, row // n)[d, d]
+    return _gather_plain(x)
+
+
+def _gather(name: str, x: torch.Tensor, chunk: int,
+            *entry_args: int) -> torch.Tensor:
+    # one launch of the fan-out gather through C entry `name` of
+    # csrc/all_gather.cu; entry_args follow its chunk_bytes
+    _check_cuda(name, x)
     n = x.shape[0]
-    chunk = out.shape[1] // n
-    oc = out.view(n, n, chunk)
-    d = torch.arange(n, device=x.device)
-    left = (d - 1) % n
-    own = x.view(n, n, chunk)[d, d] if src_full else x
-    for step in range(max(1, n - 1)):
-        c = (left - step) % n
-        oc[d, c] = own[left] if step == 0 else oc[left, c]
-        if step == 0:
-            oc[d, d] = own
+    out = x.new_empty((n, n * chunk))
+    counters = row_copy_counters("all_gather", x.device)
+    isz = x.element_size()
+    err = _build.entry("all_gather", name)(
+        x.data_ptr(), out.data_ptr(), counters.data_ptr(), n, chunk * isz,
+        *entry_args, _stream_of(x))
+    _build.check(name, err)
+    kernels.LAUNCHES[name] += 1
+    return out
 
 
-def ring_all_gather(x: torch.Tensor, *, src_full: bool = False) -> torch.Tensor:
-    """Ring all-gather over the sim ranks.  ``x`` is ``(n, chunk)`` (each
-    rank's own chunk) or, with ``src_full``, ``(n, n*chunk)`` whose chunk d
-    of row d is rank d's own; returns ``(n, n*chunk)`` with every row the
-    gathered chunks.  One kernel launch per ring step (one when n = 1)."""
+def direct_all_gather(x: torch.Tensor, *, src_full: bool = False) -> torch.Tensor:
+    """All-gather over the sim ranks.  ``x`` is ``(n, chunk)`` (each rank's
+    own chunk) or, with ``src_full``, ``(n, n*chunk)`` whose chunk d of row
+    d is rank d's own; returns ``(n, n*chunk)`` with every row the gathered
+    chunks.  One launch that copies each own chunk into every row."""
     n, row = x.shape
     if src_full and row % n:
         raise ValueError(f"src_full needs whole chunks, got {tuple(x.shape)}")
-    chunk = row // n if src_full else row
-    out = x.new_empty((n, n * chunk))
     if x.device.type == "cpu":
-        ring_all_gather_plain(x, out, src_full)
-        return out
-    _check_cuda("ring_all_gather", x)
-    fn = _build.entry("ring_all_gather")
+        return direct_all_gather_plain(x, src_full)
+    chunk = row // n if src_full else row
     isz = x.element_size()
-    src_row = row * isz
-    src_own = chunk * isz if src_full else 0
-    stream_ptr = _stream_of(x)
-    for step in range(max(1, n - 1)):
-        err = fn(x.data_ptr(), out.data_ptr(), n, chunk * isz, src_row,
-                 src_own, step, stream_ptr)
-        _build.check("ring_all_gather", err)
-        kernels.LAUNCHES["ring_all_gather"] += 1
-    return out
+    return _gather("direct_all_gather", x, chunk, row * isz,
+                   chunk * isz if src_full else 0)
 
 
-def ring_all_gather_bidir_plain(x: torch.Tensor, out: torch.Tensor) -> None:
-    """The kernel's schedule in plain PyTorch: at ring step k every rank d
-    stores the first half of chunk (d-1-k) mod n its left neighbour
-    forwards and the second half of chunk (d+1+k) mod n its right
-    neighbour forwards; step 0 also places the rank's own chunk.  ``out``
-    is written in place."""
-    kernels.PLAIN_CALLS["ring_all_gather_bidir"] += 1
-    n, chunk = x.shape
-    h = chunk // 2
-    oc = out.view(n, n, chunk)
-    d = torch.arange(n, device=x.device)
-    left, right = (d - 1) % n, (d + 1) % n
-    for step in range(max(1, n - 1)):
-        if n > 1:
-            cw, ccw = (left - step) % n, (right + step) % n
-            oc[d, cw, :h] = x[left, :h] if step == 0 else oc[left, cw, :h]
-            oc[d, ccw, h:] = x[right, h:] if step == 0 else oc[right, ccw, h:]
-        if step == 0:
-            oc[d, d] = x
+def direct_all_gather_bidir_plain(x: torch.Tensor) -> torch.Tensor:
+    """The bidirectional gather's function in plain PyTorch: the n own
+    chunks broadcast into every row, as :func:`direct_all_gather_plain`."""
+    kernels.PLAIN_CALLS["direct_all_gather_bidir"] += 1
+    return _gather_plain(x)
 
 
-def ring_all_gather_bidir(x: torch.Tensor) -> torch.Tensor:
-    """Bidirectional ring all-gather over the sim ranks: ``x`` is ``(n,
+def direct_all_gather_bidir(x: torch.Tensor) -> torch.Tensor:
+    """The bidirectional all-gather over the sim ranks: ``x`` is ``(n,
     chunk)`` with chunk even; returns ``(n, n*chunk)`` with every row the
-    gathered chunks, first halves carried clockwise and second halves
-    counter-clockwise.  One kernel launch per ring step (one when n = 1)."""
+    gathered chunks.  On the TPU first halves go clockwise and second
+    halves counter-clockwise; on one card both directions are the same
+    device memory, so it is the gather's one launch (the half-chunk split
+    returns with a multi-card world, where they are two links)."""
     n, chunk = x.shape
     if chunk % 2:
         raise ValueError(
-            f"ring_all_gather_bidir splits chunks in half, got {chunk} elements")
-    out = x.new_empty((n, n * chunk))
+            f"direct_all_gather_bidir splits chunks in half, got {chunk} elements")
     if x.device.type == "cpu":
-        ring_all_gather_bidir_plain(x, out)
-        return out
-    _check_cuda("ring_all_gather_bidir", x)
-    fn = _build.entry("ring_all_gather_bidir")
-    half_bytes = chunk // 2 * x.element_size()
-    stream_ptr = _stream_of(x)
-    for step in range(max(1, n - 1)):
-        err = fn(x.data_ptr(), out.data_ptr(), n, half_bytes, step, stream_ptr)
-        _build.check("ring_all_gather_bidir", err)
-        kernels.LAUNCHES["ring_all_gather_bidir"] += 1
-    return out
+        return direct_all_gather_bidir_plain(x)
+    return _gather("direct_all_gather_bidir", x, chunk)
 
 
 # --- device counters -----------------------------------------------------
@@ -275,13 +261,14 @@ def _card_counters(store: dict[int, torch.Tensor], device: torch.device,
 #: per row-copy source and card, its tile counters (uint32: next tile, CTAs
 #: done; csrc/row_copy.cuh)
 _ROW_COPY_COUNTERS: dict[str, dict[int, torch.Tensor]] = {
-    "hbm_copy": {}, "p2p_shift": {}}
+    "hbm_copy": {}, "p2p_shift": {}, "all_gather": {}}
 _ROW_COPY_COUNTER_WORDS = 2
 
 
 def row_copy_counters(source: str, device: torch.device) -> torch.Tensor:
-    """The card's tile counters of row-copy source ``source`` (``hbm_copy``
-    or ``p2p_shift``; ring and exchange share one), zeroed once when made."""
+    """The card's tile counters of row-copy source ``source`` (``hbm_copy``,
+    ``p2p_shift`` or ``all_gather``; ring and exchange share one, as do the
+    two gathers), zeroed once when made."""
     return _card_counters(_ROW_COPY_COUNTERS[source], device,
                           _ROW_COPY_COUNTER_WORDS)
 
@@ -679,10 +666,10 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
 
     if op == "pl_all_gather":
         # gather, then take the own shard back out (the JAX carry)
-        return chained(lambda x: own_chunks(ring_all_gather(x)), iters), \
+        return chained(lambda x: own_chunks(direct_all_gather(x)), iters), \
             elems, actual
     if op == "pl_all_gather_bidir":
-        return chained(lambda x: own_chunks(ring_all_gather_bidir(x)),
+        return chained(lambda x: own_chunks(direct_all_gather_bidir(x)),
                        iters), elems, actual
     # each iteration feeds the previous output forward, as in JAX
     if op == "pl_all_to_all":
@@ -715,5 +702,5 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
                        iters), elems, actual
     # reduce-scatter phase (scaled), all-gather phase of the owned chunks
     return chained(
-        lambda x: ring_all_gather(direct_reduce_scatter(x, scale=inv)),
+        lambda x: direct_all_gather(direct_reduce_scatter(x, scale=inv)),
         iters), elems, actual

@@ -202,37 +202,43 @@ STATIC_DEAL = ("  for (unsigned int t = blockIdx.x; t < tiles; t += gridDim.x) "
 
 
 def write_design(out_dir: Path, source: str, edits: list[tuple[str, str]],
-                 defines: list[str] = ()) -> tuple[Path, list[str]]:
+                 defines: list[str] = (),
+                 source_edits: list[tuple[str, str]] = ()
+                 ) -> tuple[Path, list[str]]:
     """A copy of the kernel sources in ``out_dir`` with each ``(old, new)``
-    edit made in ``row_copy.cuh``, exactly once; ``source`` is the name of
-    a file of ``csrc/`` or the text of a source.  Returns the source file
-    to build and its -D defines."""
+    edit made in ``row_copy.cuh`` and each of ``source_edits`` in the
+    source, exactly once; ``source`` is the name of a file of ``csrc/`` or
+    the text of a source.  Returns the source file to build and its -D
+    defines."""
     from tpu_perf_torch.kernels import _build
+
+    def edited(what: str, text: str, pairs) -> str:
+        for old, new in pairs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{what} holds {old!r} "
+                                   f"{text.count(old)} times, not once")
+            text = text.replace(old, new)
+        return text
 
     out_dir.mkdir(parents=True, exist_ok=True)
     for header in _build.CSRC.glob("*.cuh"):
         shutil.copy(header, out_dir / header.name)
     cuh = out_dir / "row_copy.cuh"
-    text = cuh.read_text()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise RuntimeError(f"row_copy.cuh holds {old!r} "
-                               f"{text.count(old)} times, not once")
-        text = text.replace(old, new)
-    cuh.write_text(text)
+    cuh.write_text(edited("row_copy.cuh", cuh.read_text(), edits))
     if source.endswith(".cu"):
         path = out_dir / source
-        shutil.copy(_build.CSRC / source, path)
+        text = (_build.CSRC / source).read_text()
     else:
         path = out_dir / "design.cu"
-        path.write_text(source)
+        text = source
+    path.write_text(edited(path.name, text, source_edits))
     return path, list(defines)
 
 
-def build_variants(variants: dict[str, tuple[Path, str, list[str]]]) -> dict:
-    """Build each variant, ``name -> (source file, entry key of
-    _build._ENTRIES, -D defines)``, one nvcc each, all started together;
-    returns ``name -> C entry``."""
+def start_variants(variants: dict[str, tuple[Path, str, list[str]]]) -> list:
+    """Start one nvcc for each variant, ``name -> (source file, entry key
+    of _build._ENTRIES, -D defines)``, all at once; finish_variants waits
+    for them."""
     from tpu_perf_torch.kernels import _build
 
     jobs = []
@@ -245,6 +251,14 @@ def build_variants(variants: dict[str, tuple[Path, str, list[str]]]) -> dict:
         jobs.append((name, key, lib,
                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)))
+    return jobs
+
+
+def finish_variants(jobs: list) -> dict:
+    """Wait for the builds of start_variants, printing each kernel's
+    register and shared-memory use; returns ``name -> C entry``."""
+    from tpu_perf_torch.kernels import _build
+
     entries = {}
     for name, key, lib, proc in jobs:
         said, _ = proc.communicate()
@@ -314,9 +328,9 @@ def main(argv=None) -> int:
         out_dir / "shift_static", "p2p_shift.cu", [(DRAW, STATIC_DEAL + DRAW)])
     keys = {**dict.fromkeys(copies, "hbm_copy"),
             **dict.fromkeys(shifts, "p2p_shift")}
-    entries = build_variants({name: (src, keys[name], defines)
-                              for name, (src, defines)
-                              in {**copies, **shifts}.items()})
+    entries = finish_variants(start_variants(
+        {name: (src, keys[name], defines)
+         for name, (src, defines) in {**copies, **shifts}.items()}))
     dev = torch.device("cuda", torch.cuda.current_device())
     copy_ctr = row_copy_counters("hbm_copy", dev).data_ptr()
     shift_ctr = row_copy_counters("p2p_shift", dev).data_ptr()
