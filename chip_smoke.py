@@ -48,10 +48,24 @@ exits non-zero):
    check each kernel's launches per execution over the op's own sizes,
    parse the rows back, and check the outputs against the selftest
    models;
-5. run ``grid --spec hbm`` over the eight local memory ops at 256 MiB and
+5. drive the fences, the daemon and the report through the CLI:
+   ``run --op pl_allreduce --fence fused`` over the same sweep and every
+   other ``pl_*`` op and ``allreduce`` fused at 4 KiB and 16 MiB a rank
+   (the launches are the warm-up's and the capture's only, and each
+   point's CUDA graph, replayed twice, must equal its eager chain),
+   printing ``pl_allreduce``'s fused and block lat_us at 4 KiB and busbw
+   at 256 MiB side by side; ``--fence auto`` (must resolve to trace) and
+   ``--measure-dispatch`` (``overhead_us`` > 0 under block and readback,
+   0 under slope); ``--profile-dir`` traces of ``pl_allreduce`` at 4 KiB
+   and 256 MiB under block and fused, with each window's device time and
+   idle share; a ``monitor --fence fused`` daemon rotating its logs every
+   second into a ``TPU_PERF_INGEST=local:`` sink (the rotated files must
+   arrive there and leave the log folder, no row lost); and ``report``,
+   ``--compare-pallas`` and ``--format json`` over the block paths' logs;
+6. run ``grid --spec hbm`` over the eight local memory ops at 256 MiB and
    1 GiB and print its verdict table, and show the read sweep's time
    growing with the bytes it reads;
-6. time each kernel at the main path's largest shape beside its bound
+7. time each kernel at the main path's largest shape beside its bound
    (from the card's published rates in ``tpu_perf_torch.chips``), its
    plain version and one PyTorch library call (the row gather ``x[idx]``
    for ring and exchange, with ``index_select`` and ``torch.roll`` beside it;
@@ -699,10 +713,12 @@ DEFAULT_RUNS = (([], "pingpong"), (["-u"], "pingpong_unidir"),
                 (["-x"], "exchange"))
 
 
-def _drive(argv: list[str], what: str):
+def _drive(argv: list[str], what: str, keep: str | None = None):
     """One ``cli.main`` run with the counters set to 0 just before it and
-    read just after; returns (launches, plain calls, rows, wall s)."""
+    read just after; returns (launches, rows, wall s).  ``keep`` names a
+    folder the run's extended logs are copied into."""
     import glob
+    import shutil
     import tempfile
 
     from tpu_perf_torch import cli, kernels
@@ -718,6 +734,8 @@ def _drive(argv: list[str], what: str):
         for path in sorted(glob.glob(os.path.join(logdir, "tpu-*.log"))):
             with open(path) as fh:
                 rows += [ResultRow.from_csv(ln) for ln in fh if ln.strip()]
+            if keep is not None:
+                shutil.copy(path, keep)
     if rc != 0:
         fail(f"{what} exited {rc}")
     if any(plain.values()):
@@ -747,7 +765,9 @@ def phase_main_path() -> dict:
         what = f"run --op {op}"
         got, rows, wall = _drive(
             ["run", "--op", op, "--sweep", SWEEP, "-i", str(ITERS), "-r",
-             str(RUNS), "--sim-ranks", str(ranks)], what)
+             str(RUNS), "--sim-ranks", str(ranks)], what, keep=REPORT_DIR)
+        if op == "pl_allreduce":
+            BLOCK_ROWS.extend(rows)
         missing = [k for k in needs if got[k] == 0]
         if missing:
             fail(f"{what}: kernels {missing} never launched ({got})")
@@ -1248,6 +1268,335 @@ def _bulk_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
         cuda_ms(lambda: y.view(n, nblocks, blk).copy_(seed), 10), x.shape))
     return out
 
+#: the block main path's extended logs, for the report phase (a temporary
+#: folder made in main)
+REPORT_DIR: str | None = None
+#: the block sweep's pl_allreduce rows, set beside the fused sweep's
+BLOCK_ROWS: list = []
+#: per-rank sizes of the fused phase for every op but the main path's
+FUSED_BYTES = (4096, 16 * 1024**2)
+#: ops whose fused output is held within RTOL (they compute); the others
+#: move bytes and are held exactly
+ARITH_OPS = ("pl_allreduce", "pl_reduce_scatter", "allreduce",
+             "pl_hbm_stream")
+#: measured runs of the daemon phase: a visit takes well under a
+#: millisecond, so this many outlast several 1 s log rotations
+DAEMON_RUNS = 12000
+
+
+def _check_fused_point(op: str, ranks: int, nbytes: int) -> list[float]:
+    """One point's CUDA graph against the eager chain: warm a FusedRunner
+    (eager run, capture, one replay), then replay twice; each replay must
+    pass through no Python wrapper and leave the working buffer equal to
+    RUNS eager runs of the op's step from the buffer it started from.
+    Returns the last replay's per-run device times."""
+    from tpu_perf_torch import kernels
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.runner import build_fused_point
+    from tpu_perf_torch.timing import FusedRunner
+    from tpu_perf_torch.world import SimWorld, resolve_device
+
+    built = build_op(op, SimWorld(ranks, resolve_device()), nbytes, ITERS)
+    runner = FusedRunner(build_fused_point(built, (RUNS,)), built)
+    try:
+        runner.warm()
+        for replay in (1, 2):
+            what = f"fused {op} at {nbytes} B/rank, replay {replay}"
+            start = runner.buffer.clone()
+            kernels.reset_counts()
+            times = runner.chunk(RUNS)
+            if any(kernels.LAUNCHES.values()) or any(
+                    kernels.PLAIN_CALLS.values()):
+                fail(f"{what}: the replay went through Python wrappers "
+                     f"{kernels.LAUNCHES} {kernels.PLAIN_CALLS}")
+            if len(times) != RUNS or not all(t > 0 for t in times):
+                fail(f"{what}: per-run device times {times}")
+            want = start
+            for _ in range(RUNS):
+                want = built.step(want)
+            if op in ARITH_OPS:
+                check_close(what, runner.buffer, want, "float32")
+            else:
+                check_exact(what, runner.buffer, want)
+    finally:
+        runner.close()
+    return times
+
+
+def _median(values):
+    v = sorted(values)
+    return v[len(v) // 2]
+
+
+def phase_fused() -> None:
+    """Every pl_* op and allreduce under --fence fused through the CLI
+    (pl_allreduce over the main sweep at full width, the rest at 4 KiB and
+    16 MiB a rank), and each point's graph against its eager chain."""
+    import math
+
+    from tpu_perf_torch.config import Options
+    from tpu_perf_torch.runner import sizes_for
+
+    fused_rows = []
+    for op, (needs, ranks) in PATHS.items():
+        if not (op.startswith("pl_") or op == "allreduce"):
+            continue
+        sweep = (SWEEP if op == "pl_allreduce"
+                 else ",".join(str(b) for b in FUSED_BYTES))
+        sizes = sizes_for(Options(sweep=sweep, op=op))
+        # a point launches through the wrappers twice: the eager warm-up
+        # run of its chunk and the capture; replays launch from the graph
+        executions = len(sizes) * 2 * RUNS * ITERS
+        what = f"run --op {op} --fence fused"
+        got, rows, wall = _drive(
+            ["run", "--op", op, "--sweep", sweep, "-i", str(ITERS), "-r",
+             str(RUNS), "--sim-ranks", str(ranks), "--fence", "fused"], what)
+        wrong = {k: got[k] for k, per in needs.items()
+                 if got[k] != per * executions}
+        extra = [k for k, v in got.items() if v and k not in needs]
+        if wrong or extra:
+            fail(f"{what}: launches {got}, want {needs} per execution over "
+                 f"{executions} warm-up and captured executions")
+        if len(rows) != len(sizes) * RUNS:
+            fail(f"{what}: {len(rows)} rows, want {len(sizes) * RUNS}")
+        for r in rows:
+            if (r.op != op or r.mode != "oneshot" or r.iters != ITERS
+                    or not math.isfinite(r.busbw_gbps) or r.lat_us <= 0):
+                fail(f"{what}: bad row {r}")
+        checked = []
+        for nbytes in ((4096, MAIN_BYTES) if op == "pl_allreduce"
+                       else FUSED_BYTES[:len(sizes)]):
+            times = _check_fused_point(op, ranks, nbytes)
+            checked.append(f"{nbytes} B/rank {_median(times) * 1e3:.4f} ms "
+                           "a run")
+        print(f"fused: {what} --sweep {sweep} --sim-ranks {ranks}: "
+              f"{len(rows)} rows in {wall:.1f} s, launches "
+              f"{ {k: got[k] for k in needs} } (warm-up and capture only); "
+              f"graph = eager chain over two replays at "
+              f"{', '.join(checked)}")
+        if op == "pl_allreduce":
+            fused_rows = rows
+    for nbytes, metric in ((4096, "lat_us"), (MAIN_BYTES, "busbw_gbps")):
+        fused = _median([getattr(r, metric) for r in fused_rows
+                         if r.nbytes == nbytes])
+        block = _median([getattr(r, metric) for r in BLOCK_ROWS
+                         if r.nbytes == nbytes])
+        print(f"fused vs block: pl_allreduce at {nbytes} B/rank, 8 ranks, "
+              f"-i {ITERS} -r {RUNS}: {metric} p50 fused {fused:.3f}, block "
+              f"{block:.3f}")
+
+
+def phase_fences() -> None:
+    """auto resolves to trace on the card; --measure-dispatch fills
+    overhead_us under block and readback and leaves 0 under slope."""
+    from tpu_perf_torch.config import Options
+    from tpu_perf_torch.driver import Driver
+
+    resolved = Driver(Options(op="pl_allreduce", fence="auto")).opts.fence
+    if resolved != "trace":
+        fail(f"--fence auto resolved to {resolved!r} on the card")
+    base = ["run", "--op", "pl_allreduce", "-b", "4K", "-i", str(ITERS),
+            "-r", str(RUNS)]
+    got, rows, _ = _drive(base + ["--fence", "auto"], "run --fence auto")
+    # the trace fence's pair: lo and hi (4x) executions, a warm-up and
+    # RUNS measured pairs
+    want = (1 + RUNS) * 5 * ITERS
+    if (got["direct_reduce_scatter"], got["direct_all_gather"]) != (want, want):
+        fail(f"run --fence auto: launches {got}, want {want} of each kernel")
+    if len(rows) != RUNS or any(r.lat_us <= 0 for r in rows):
+        fail(f"run --fence auto: rows {rows}")
+    said = [f"auto -> {resolved}, lat p50 {_median([r.lat_us for r in rows]):.2f} us"]
+    # two chunks: graphs of 2 runs and of 1 share the working buffer; the
+    # warm-up runs the first chunk, the captures both
+    got, rows, _ = _drive(base + ["--fence", "fused", "--fused-chunks", "2"],
+                          "run --fence fused --fused-chunks 2")
+    want = (2 + 2 + 1) * ITERS
+    if ((got["direct_reduce_scatter"], got["direct_all_gather"]) != (want, want)
+            or [r.run_id for r in rows] != list(range(1, RUNS + 1))):
+        fail(f"--fused-chunks 2: launches {got}, rows {rows}")
+    said.append(f"fused in 2 chunks, lat p50 "
+                f"{_median([r.lat_us for r in rows]):.2f} us")
+    for fence in ("block", "readback", "slope"):
+        _, rows, _ = _drive(base + ["--fence", fence, "--measure-dispatch"],
+                            f"run --fence {fence} --measure-dispatch")
+        over = {r.overhead_us for r in rows}
+        if len(rows) != RUNS or (fence == "slope") != (over == {0.0}) or any(
+                o < 0 for o in over):
+            fail(f"--fence {fence} --measure-dispatch: overhead_us {over}")
+        said.append(f"{fence} overhead_us {sorted(over)}")
+    print("fences: pl_allreduce at 4 KiB/rank: " + "; ".join(said))
+
+
+def phase_profile() -> None:
+    """--profile-dir traces of pl_allreduce at 4 KiB and 256 MiB a rank,
+    under block and fused: each point's measured window is one kept trace,
+    whose device time and idle share are printed."""
+    import glob
+    import tempfile
+
+    from tpu_perf_torch.traceparse import device_summary
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-profile-") as root:
+        for nbytes in (4096, MAIN_BYTES):
+            for fence in ("block", "fused"):
+                pdir = os.path.join(root, f"{fence}-{nbytes}")
+                what = f"run --fence {fence} -b {nbytes} --profile-dir"
+                _drive(["run", "--op", "pl_allreduce", "-b", str(nbytes),
+                        "-i", str(ITERS), "-r", str(RUNS), "--fence", fence,
+                        "--profile-dir", pdir], what)
+                traces = glob.glob(os.path.join(pdir, "*.json"))
+                if len(traces) != 1:
+                    fail(f"{what}: traces {traces}, want one")
+                s = device_summary(traces[0])
+                counts = {key: sum(c for name, (c, _) in s.kernels.items()
+                                   if key in name)
+                          for key in ("direct_reduce", "gather")}
+                if set(counts.values()) != {RUNS * ITERS}:
+                    fail(f"{what}: kernels in the trace {s.kernels}")
+                print(f"profile: pl_allreduce {fence} at {nbytes} B/rank, "
+                      f"8 ranks, -i {ITERS} -r {RUNS}: kernels "
+                      f"{counts} {s.kernel_s * 1e3:.4f} ms, device busy "
+                      f"{s.busy_s * 1e3:.4f} ms of a {s.window_s * 1e3:.4f} "
+                      f"ms window, idle share {s.idle_share:.4f}")
+
+
+def phase_daemon() -> None:
+    """monitor --fence fused with rotation every second and a local ingest
+    sink: the rotated logs arrive in the sink and leave the log folder,
+    and no row is lost."""
+    import glob
+    import tempfile
+
+    from tpu_perf_torch import cli, kernels
+    from tpu_perf_torch.schema import LegacyRow, ResultRow
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-daemon-") as root:
+        logs, sink = os.path.join(root, "logs"), os.path.join(root, "sink")
+        old = os.environ.get("TPU_PERF_INGEST")
+        os.environ["TPU_PERF_INGEST"] = f"local:{sink}"
+        try:
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["monitor", "--op", "pl_allreduce", "--sweep",
+                           "4K,16M", "--fence", "fused", "--max-runs",
+                           str(DAEMON_RUNS), "--log-refresh-sec", "1",
+                           "--stats-every", str(DAEMON_RUNS), "-l", logs])
+            wall = time.perf_counter() - t0
+        finally:
+            if old is None:
+                os.environ.pop("TPU_PERF_INGEST")
+            else:
+                os.environ["TPU_PERF_INGEST"] = old
+        got = dict(kernels.LAUNCHES)
+        what = "monitor --fence fused"
+        if rc != 0:
+            fail(f"{what} exited {rc}")
+        # two points, each an eager warm-up run and a captured run of the
+        # default 10 iterations; every visit replayed a graph
+        if {k: v for k, v in got.items() if v} != {
+                "direct_reduce_scatter": 40, "direct_all_gather": 40}:
+            fail(f"{what}: launches {got}")
+        arrived = sorted(os.listdir(sink)) if os.path.isdir(sink) else []
+        left = sorted(os.listdir(logs))
+        kinds = {n.split("-")[0] for n in arrived}
+        if kinds != {"tcp", "tpu"} or set(arrived) & set(left):
+            fail(f"{what}: sink {arrived}, log folder {left}")
+        ext, legacy = [], []
+        for folder in (sink, logs):
+            for path in glob.glob(os.path.join(folder, "*.log")):
+                with open(path) as fh:
+                    lines = [ln for ln in fh if ln.strip()]
+                if os.path.basename(path).startswith("tpu-"):
+                    ext += [ResultRow.from_csv(ln) for ln in lines]
+                else:
+                    legacy += [LegacyRow.from_csv(ln) for ln in lines]
+        if (sorted(r.run_id for r in ext) != list(range(1, DAEMON_RUNS + 1))
+                or len(legacy) != DAEMON_RUNS
+                or {r.mode for r in ext} != {"daemon"}
+                or {r.nbytes for r in ext} != {4096, 16 * 1024**2}):
+            fail(f"{what}: {len(ext)} extended and {len(legacy)} legacy rows "
+                 f"in the sink and the log folder, modes "
+                 f"{ {r.mode for r in ext} }")
+        lat = {nb: _median([r.lat_us for r in ext if r.nbytes == nb])
+               for nb in (4096, 16 * 1024**2)}
+        # a trace-fenced daemon: each visit one (lo, hi) pair of event
+        # pairs on the device clock, after one warm-up pair
+        kernels.reset_counts()
+        rc = cli.main(["monitor", "--op", "pl_allreduce", "-b", "4K", "-i",
+                       str(ITERS), "--fence", "trace", "--max-runs", "20",
+                       "-l", os.path.join(root, "trace")])
+        want = 21 * 5 * ITERS
+        trace_rows = []
+        for path in glob.glob(os.path.join(root, "trace", "tpu-*.log")):
+            with open(path) as fh:
+                trace_rows += [ResultRow.from_csv(ln) for ln in fh
+                               if ln.strip()]
+        if (rc != 0 or {k: v for k, v in kernels.LAUNCHES.items() if v} != {
+                "direct_reduce_scatter": want, "direct_all_gather": want}
+                or sorted(r.run_id for r in trace_rows) != list(range(1, 21))
+                or {r.mode for r in trace_rows} != {"daemon"}):
+            fail(f"monitor --fence trace: rc {rc}, launches "
+                 f"{kernels.LAUNCHES}, {len(trace_rows)} rows")
+        print(f"daemon: {what} --sweep 4K,16M --max-runs {DAEMON_RUNS} "
+              f"--log-refresh-sec 1: {wall:.1f} s, "
+              f"{len(arrived) // 2} rotated file pair(s) ingested into the "
+              f"local sink and gone from the log folder ({len(left)} newest "
+              f"files stay), all {DAEMON_RUNS} rows mode=daemon, launches "
+              f"{ {k: v for k, v in got.items() if v} } (warm-up and "
+              f"capture only); lat p50 {lat[4096]:.2f} us at 4 KiB, "
+              f"{lat[16 * 1024**2]:.2f} us at 16 MiB a rank; monitor --fence "
+              f"trace: 20 visits, lat p50 "
+              f"{_median([r.lat_us for r in trace_rows]):.2f} us at 4 KiB")
+
+
+def phase_report() -> None:
+    """report, --compare-pallas and --format json over the block paths'
+    logs: pl_allreduce paired with allreduce at every size of the sweep."""
+    import contextlib
+    import io
+
+    from tpu_perf_torch import cli
+    from tpu_perf_torch.config import Options
+    from tpu_perf_torch.runner import sizes_for
+
+    def report(*flags) -> str:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["report", REPORT_DIR, *flags])
+        if rc != 0:
+            fail(f"report {' '.join(flags)} exited {rc}")
+        return out.getvalue()
+
+    n_sizes = len(sizes_for(Options(sweep=SWEEP, op="pl_allreduce")))
+    table = report()
+    curves = [ln for ln in table.splitlines()
+              if ln.startswith("| torch-sim | pl_allreduce |")]
+    points = json.loads(report("--format", "json"))
+    sizes = {op: {p["nbytes"] for p in points if p["op"] == op}
+             for op in ("pl_allreduce", "allreduce")}
+    # the two ops round a size alike except 456131 B (pl_allreduce takes
+    # whole chunks of its ranks): those keys are one-sided, the rest pair
+    shared = sizes["pl_allreduce"] & sizes["allreduce"]
+    pairs = []
+    for ln in report("--compare-pallas").splitlines():
+        cells = [c.strip() for c in ln.strip("|").split("|")]
+        if cells[:2] == ["allreduce", "pl_allreduce"]:
+            if "—" not in cells[4:6]:
+                pairs.append(cells)
+    ours = [p for p in points if p["op"] == "pl_allreduce"]
+    if (len(curves) != n_sizes or len(ours) != n_sizes
+            or {p["runs"] for p in ours} != {RUNS}
+            or len(shared) < n_sizes - 1 or len(pairs) != len(shared)):
+        fail(f"report: {len(curves)} curve lines and {len(ours)} json "
+             f"points of pl_allreduce, want {n_sizes}; {len(pairs)} pairs "
+             f"with allreduce, want {len(shared)}")
+    top = pairs[-1]
+    print(f"report: {len(points)} curve points over the block paths' logs; "
+          f"--compare-pallas pairs pl_allreduce with allreduce at the "
+          f"{len(pairs)} sizes both hold of its {n_sizes} (at {top[2]}: "
+          f"busbw p50 {top[4]} library, {top[5]} kernel, ratio {top[6]})")
+
+
 
 def main() -> int:
     import torch
@@ -1278,9 +1627,22 @@ def main() -> int:
         phase_s[name] = round(time.perf_counter() - t0, 1)
         return result
 
-    designs = timed("build", phase_build)
-    timed("check", phase_check)
-    launches = timed("paths", phase_main_path)
+    global REPORT_DIR
+    import shutil
+    import tempfile
+
+    REPORT_DIR = tempfile.mkdtemp(prefix="chip_smoke-report-")
+    try:
+        designs = timed("build", phase_build)
+        timed("check", phase_check)
+        launches = timed("paths", phase_main_path)
+        timed("fused", phase_fused)
+        timed("fences", phase_fences)
+        timed("profile", phase_profile)
+        timed("daemon", phase_daemon)
+        timed("report", phase_report)
+    finally:
+        shutil.rmtree(REPORT_DIR, ignore_errors=True)
     timed("selftest", phase_selftest)
     timed("grid", phase_grid)
     for label, per_rank in (("4MiB", HEADLINE_BYTES), ("256MiB", MAIN_BYTES)):

@@ -45,6 +45,27 @@ def test_no_module_of_the_port_imports_jax_or_tpu_perf():
     assert bad == "[]"
 
 
+#: the modules of the fences, report and daemon slice
+SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
+                 "tpu_perf_torch.ingest", "tpu_perf_torch.ingest.pipeline",
+                 "tpu_perf_torch.timing", "tpu_perf_torch.driver")
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_the_slice_modules_import_no_jax_or_tpu_perf(module):
+    probe = (f"import sys, {module}; print(sorted(m for m in sys.modules "
+             "if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_perf')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    path = REPO / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = REPO / module.replace(".", "/") / "__init__.py"
+    assert not {"jax", "tpu_perf", "jaxlib"} & set(_imported_roots(path))
+
+
 def _imported_roots(path):
     tree = ast.parse(Path(path).read_text())
     for node in ast.walk(tree):

@@ -1,5 +1,6 @@
-"""Command-line interface (port of the ``run``, ``grid``, ``ops``,
-``chips``, ``selftest`` and ``bench`` subcommands of ``tpu_perf/cli.py``).
+"""Command-line interface (port of the ``run``, ``monitor``, ``ingest``,
+``report``, ``grid``, ``ops``, ``chips``, ``selftest`` and ``bench``
+subcommands of ``tpu_perf/cli.py``).
 
 Flag letters keep the reference's meanings (mpi_perf.c:273-339) where the
 port has them: ``-i`` iters, ``-b`` buffer size, ``-r`` runs, ``-l`` log
@@ -15,6 +16,11 @@ versions)::
     python -m tpu_perf_torch run --op pl_allreduce --sweep 4K:256M
     python -m tpu_perf_torch run --op all_to_all --sweep 4K:256M
     python -m tpu_perf_torch run --op pl_all_gather_bidir --sweep 4K:256M
+    python -m tpu_perf_torch run --op pl_allreduce --sweep 4K:256M --fence fused
+    python -m tpu_perf_torch monitor --op pl_allreduce --sweep 4K,16M \
+        --fence fused -l /tmp/logs         # -r -1; ingest on each rotation
+    python -m tpu_perf_torch ingest -d /tmp/logs
+    python -m tpu_perf_torch report /tmp/logs --compare-pallas
     python -m tpu_perf_torch grid --op pl_hbm_copy,hbm_stream --sizes 256M,1G \
         --iters 8,32 --spec hbm --sim-ranks 1
     python -m tpu_perf_torch ops
@@ -29,7 +35,8 @@ import argparse
 import sys
 
 from tpu_perf_torch.config import (
-    DEF_ITERS, DEF_SIM_RANKS, FENCE_MODES, Options,
+    DEF_ITERS, DEF_SIM_RANKS, DEFAULT_LOG_DIR, FENCE_MODES,
+    LOG_REFRESH_TIME_SEC, Options,
 )
 from tpu_perf_torch.schema import RESULT_HEADER
 from tpu_perf_torch.sweep import DEF_BUF_SZ, format_size, parse_size
@@ -57,22 +64,146 @@ def _add_world_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dtype", default="float32")
 
 
-def _cmd_run(args: argparse.Namespace) -> int:
+def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
     from tpu_perf_torch.driver import Driver
 
     opts = Options(
         logfolder=args.logfolder, iters=args.iters,
-        buff_sz=parse_size(args.size), num_runs=args.runs, op=args.op,
+        buff_sz=parse_size(args.size),
+        num_runs=-1 if infinite else args.runs, op=args.op,
         uni_dir=args.unidir, nonblocking=args.nonblocking, sweep=args.sweep,
-        dtype=args.dtype, fence=args.fence,
+        dtype=args.dtype, fence=args.fence, fused_chunks=args.fused_chunks,
+        measure_dispatch=args.measure_dispatch, profile_dir=args.profile_dir,
+        max_runs=args.max_runs,
         stats_every=args.stats_every, log_refresh_sec=args.log_refresh_sec,
         sim_ranks=args.sim_ranks, device=args.device,
     )
-    rows = Driver(opts).run()
+    on_rotate = None
+    if opts.logfolder:
+        # the ingest pass (both families, through the `ingest` subcommand)
+        # runs in its own process, so a slow pass never stalls the next
+        # measured run, as the reference forks its uploader
+        # (mpi_perf.c:363-364); TPU_PERF_INGEST_CMD overrides the command
+        from tpu_perf_torch.ingest import SubprocessIngest, ingest_command
+
+        on_rotate = SubprocessIngest(ingest_command(opts.logfolder, 1))
+    try:
+        rows = Driver(opts, on_rotate=on_rotate).run()
+    finally:
+        if on_rotate is not None:
+            on_rotate.finish()
     if args.csv or not opts.logfolder:
         print(RESULT_HEADER)
         for row in rows:
             print(row.to_csv())
+    return 0
+
+
+def _cmd_ingest(args: argparse.Namespace) -> int:
+    from tpu_perf_torch.ingest import (
+        build_backend_from_env, list_quarantined, requeue_quarantined,
+        run_all_ingest_passes,
+    )
+
+    if args.list_quarantined and args.requeue:
+        # the list branch runs no pass and mutates nothing; skipping the
+        # requeue silently would leave the poison files where they are
+        print("tpu-perf-torch: error: --list-quarantined and --requeue are "
+              "exclusive (list first, then requeue)", file=sys.stderr)
+        return 2
+    if args.list_quarantined:
+        paths = list_quarantined(args.folder)
+        for path in paths:
+            print(path)
+        print(f"{len(paths)} quarantined file(s) in {args.folder}",
+              file=sys.stderr)
+        return 0
+    if args.requeue:
+        restored = requeue_quarantined(args.folder)
+        print(f"requeued {len(restored)} quarantined file(s)"
+              + (": " + ", ".join(restored) if restored else ""),
+              file=sys.stderr)
+    n = run_all_ingest_passes(args.folder, skip_newest=args.flows,
+                              backend=build_backend_from_env())
+    print(f"ingested {n} files", file=sys.stderr)
+    return 0
+
+
+def _cmd_report(args: argparse.Namespace) -> int:
+    from tpu_perf_torch import report
+    from tpu_perf_torch.schema import LEGACY_PREFIX
+
+    if args.legacy:
+        if (args.compare or args.compare_pallas or args.diff is not None
+                or args.format != "markdown"):
+            print("tpu-perf-torch: error: --legacy renders markdown only "
+                  "and is exclusive with --compare*/--diff", file=sys.stderr)
+            return 2
+        paths = report.collect_paths(args.target, prefix=LEGACY_PREFIX)
+        if not paths:
+            print(f"tpu-perf-torch: no legacy logs match {args.target!r}",
+                  file=sys.stderr)
+            return 1
+        print(report.legacy_to_markdown(report.aggregate_legacy(
+            report.read_legacy_rows(paths))))
+        return 0
+    if args.diff is not None:
+        if args.compare or args.compare_pallas or args.format != "markdown":
+            print("tpu-perf-torch: error: --diff renders markdown only and "
+                  "is exclusive with --compare*", file=sys.stderr)
+            return 2
+        base = report.points_from_artifact(args.diff)
+        new = report.points_from_artifact(args.target)
+        if not base or not new:
+            which = args.diff if not base else args.target
+            print(f"tpu-perf-torch: no curve points in {which!r}",
+                  file=sys.stderr)
+            return 1
+        diffs = report.diff_points(base, new,
+                                   threshold_pct=args.diff_threshold)
+        print(report.diff_to_markdown(diffs))
+        # a vanished curve point and a zero judged metric fail the gate
+        # as a regression does
+        regressed = [d for d in diffs if d.verdict == "regressed"]
+        missing = [] if args.diff_ignore_missing else \
+            [d for d in diffs if d.verdict == "base-only"]
+        incomparable = [d for d in diffs if d.verdict == "incomparable"]
+        if regressed or missing or incomparable:
+            parts = []
+            if regressed:
+                parts.append(f"{len(regressed)} curve point(s) regressed "
+                             f"beyond {args.diff_threshold:g}%")
+            if missing:
+                parts.append(f"{len(missing)} base curve point(s) missing "
+                             "from the new run (--diff-ignore-missing to "
+                             "allow subset comparisons)")
+            if incomparable:
+                parts.append(f"{len(incomparable)} curve point(s) "
+                             "incomparable (zero judged metric on one "
+                             "side — corrupt or partial artifact)")
+            print(f"tpu-perf-torch: {'; '.join(parts)}", file=sys.stderr)
+            return 3
+        return 0
+    paths = report.collect_paths(args.target)
+    if not paths:
+        print(f"tpu-perf-torch: no result files match {args.target!r}",
+              file=sys.stderr)
+        return 1
+    points = report.stream_aggregate(paths)
+    if args.compare or args.compare_pallas:
+        if args.format != "markdown" or (args.compare and args.compare_pallas):
+            print("tpu-perf-torch: error: --compare/--compare-pallas render "
+                  "markdown only and are mutually exclusive", file=sys.stderr)
+            return 2
+        if args.compare_pallas:
+            print(report.compare_pallas_to_markdown(
+                report.compare_pallas(points)))
+        else:
+            print(report.compare_to_markdown(report.compare(points)))
+        return 0
+    fmt = {"markdown": report.to_markdown, "csv": report.to_csv,
+           "json": report.to_json}[args.format]
+    print(fmt(points))
     return 0
 
 
@@ -198,36 +329,109 @@ def _cmd_bench(args: argparse.Namespace) -> int:
     return 0
 
 
+def _add_run_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-l", "--logfolder", default=None,
+                   help="CSV log folder (rotating tcp-*/tpu-* logs)")
+    p.add_argument("-i", "--iters", type=int, default=DEF_ITERS,
+                   help="chained executions per run")
+    p.add_argument("-b", "--size", default=str(DEF_BUF_SZ),
+                   help="buffer size (e.g. 4M)")
+    p.add_argument("-u", "--unidir", action=_ZeroOne,
+                   help="unidirectional + ack kernel (pingpong_unidir)")
+    p.add_argument("-r", "--runs", type=int, default=1,
+                   help="measured runs (-1 = infinite, as monitor)")
+    p.add_argument("-x", "--nonblocking", action=_ZeroOne,
+                   help="both directions at once (exchange)")
+    p.add_argument("--op", default="pingpong",
+                   help="measurement op (see `ops`); -u / -x pick the "
+                        "kernel when it is the default pingpong")
+    p.add_argument("--sweep", default=None,
+                   help="size sweep, e.g. 8:1G or 8,64K,4M")
+    p.add_argument("--fence", choices=FENCE_MODES, default="block",
+                   help="timing fence (tpu_perf_torch.timing); auto picks "
+                        "trace (device clock) on a card and slope on the "
+                        "CPU; fused captures a sweep point's whole run "
+                        "budget into one CUDA graph replayed once, with "
+                        "per-run device times from events inside the "
+                        "graph (chunk means on the CPU) — the fence for "
+                        "microsecond message sizes, where the host launch "
+                        "is every per-run fence's floor")
+    p.add_argument("--fused-chunks", type=int, default=0, metavar="N",
+                   help="--fence fused sub-dispatch count per point "
+                        "(0 = auto: one dispatch on a fixed budget)")
+    p.add_argument("--measure-dispatch", action="store_true",
+                   help="measure the launch floor once per point and "
+                        "record it in each row's overhead_us column "
+                        "(block/readback fences; slope rows record 0 — "
+                        "the slope already cancels constant overheads)")
+    p.add_argument("--profile-dir", default=None,
+                   help="keep one torch.profiler chrome trace per point's "
+                        "measured window here (finite runs)")
+    p.add_argument("--max-runs", type=int, default=None, metavar="N",
+                   help="daemon mode (monitor, -r -1): stop after N "
+                        "measured runs (the soak/CI safety valve)")
+    p.add_argument("--stats-every", type=int, default=1000)
+    p.add_argument("--log-refresh-sec", type=int,
+                   default=LOG_REFRESH_TIME_SEC)
+    p.add_argument("--csv", action="store_true",
+                   help="print extended rows as CSV to stdout")
+    _add_world_flags(p)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="tpu-perf-torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="command", required=True)
 
     p_run = sub.add_parser("run", help="one-shot benchmark / sweep")
-    p_run.add_argument("-l", "--logfolder", default=None,
-                       help="CSV log folder (rotating tcp-*/tpu-* logs)")
-    p_run.add_argument("-i", "--iters", type=int, default=DEF_ITERS,
-                       help="chained executions per run")
-    p_run.add_argument("-b", "--size", default=str(DEF_BUF_SZ),
-                       help="buffer size (e.g. 4M)")
-    p_run.add_argument("-u", "--unidir", action=_ZeroOne,
-                       help="unidirectional + ack kernel (pingpong_unidir)")
-    p_run.add_argument("-r", "--runs", type=int, default=1, help="measured runs")
-    p_run.add_argument("-x", "--nonblocking", action=_ZeroOne,
-                       help="both directions at once (exchange)")
-    p_run.add_argument("--op", default="pingpong",
-                       help="measurement op (see `ops`); -u / -x pick the "
-                            "kernel when it is the default pingpong")
-    p_run.add_argument("--sweep", default=None, help="size sweep, e.g. 8:1G or 8,64K,4M")
-    p_run.add_argument("--fence", choices=FENCE_MODES, default="block",
-                       help="timing fence (tpu_perf_torch.timing); fused and "
-                            "auto are not yet ported")
-    p_run.add_argument("--stats-every", type=int, default=1000)
-    p_run.add_argument("--log-refresh-sec", type=int, default=900)
-    p_run.add_argument("--csv", action="store_true",
-                       help="print extended rows as CSV to stdout")
-    _add_world_flags(p_run)
+    _add_run_flags(p_run)
     p_run.set_defaults(func=_cmd_run)
+
+    p_mon = sub.add_parser("monitor", help="infinite monitoring daemon (-r -1)")
+    _add_run_flags(p_mon)  # --max-runs is the daemon's safety valve
+    p_mon.set_defaults(func=lambda a: _cmd_run(a, infinite=True))
+
+    p_ing = sub.add_parser("ingest", help="one telemetry ingest pass")
+    p_ing.add_argument("-d", "--folder", default=DEFAULT_LOG_DIR)
+    p_ing.add_argument("-f", "--flows", type=int, default=10,
+                       help="skip this many newest files (kusto_ingest.py:38-40)")
+    p_ing.add_argument("--list-quarantined", action="store_true",
+                       help="list files quarantined after repeated ingest "
+                            "failures (<name>.quarantined) and exit; no "
+                            "pass runs")
+    p_ing.add_argument("--requeue", action="store_true",
+                       help="strip the .quarantined suffix (and clear any "
+                            "stale sidecar failure count a killed pass "
+                            "left armed) on every quarantined file, then "
+                            "run the pass")
+    p_ing.set_defaults(func=_cmd_ingest)
+
+    p_rep = sub.add_parser("report", help="aggregate result logs into "
+                                          "curve tables")
+    p_rep.add_argument("target", help="file, log folder, or glob of tpu-*.log")
+    p_rep.add_argument("--format", choices=("markdown", "csv", "json"),
+                       default="markdown")
+    p_rep.add_argument("--compare", action="store_true",
+                       help="pivot backends into side-by-side columns per "
+                            "(op, size) with torch/mpi ratios")
+    p_rep.add_argument("--compare-pallas", action="store_true",
+                       help="pivot each pl_* kernel against its library "
+                            "counterpart per (op, size)")
+    p_rep.add_argument("--legacy", action="store_true",
+                       help="aggregate reference-schema tcp-*.log rows "
+                            "(wall-time stats per measurement config)")
+    p_rep.add_argument("--diff", metavar="BASE", default=None,
+                       help="diff TARGET against BASE (each a report-JSON "
+                            "artifact or raw logs); exits 3 when any curve "
+                            "point regressed beyond the threshold")
+    p_rep.add_argument("--diff-threshold", type=float, default=10.0,
+                       metavar="PCT",
+                       help="regression threshold in percent (default 10)")
+    p_rep.add_argument("--diff-ignore-missing", action="store_true",
+                       help="do not fail the gate on base-only curve "
+                            "points (for diffing a subset run against a "
+                            "full published artifact)")
+    p_rep.set_defaults(func=_cmd_report)
 
     p_grid = sub.add_parser(
         "grid", help="size x iters operating-point grid with physical-"

@@ -3,8 +3,9 @@
 Defaults and validation messages are the JAX package's
 (``tpu_perf/config.py``): op ``pingpong``, iters 10 (mpi_perf.c:15), buffer
 456131 bytes (mpi_perf.c:14), one run, the same payload dtypes and fence
-names, ``-u`` / ``-x``.  The additions are the sim world's rank count and
-the device.  The windowed ``-x`` (``--window``) is not ported yet.
+names, ``-u`` / ``-x``, ``-r -1`` for the infinite daemon, and the
+fused fence's chunk count.  The additions are the sim world's rank count
+and the device.  The windowed ``-x`` (``--window``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import uuid as _uuid
 
 from tpu_perf_torch.sweep import DEF_BUF_SZ
 
+#: the reference's log folder (run-*.sh), ``ingest``'s default
+DEFAULT_LOG_DIR = "/mnt/tcp-logs"
 #: mpi_perf.c:15 — default number of messages per run.
 DEF_ITERS = 10
 #: mpi_perf.c:16 — log-rotation period, seconds.
@@ -26,10 +29,9 @@ DEF_SIM_RANKS = 8
 #: payload dtypes supported by the kernels
 SUPPORTED_DTYPES = ("float32", "bfloat16", "float16", "int32", "uint8")
 
-#: how a timed call is fenced (tpu_perf_torch.timing).  The names are the
-#: JAX package's; ``fused`` and ``auto`` are not ported yet.
+#: how a timed call is fenced (tpu_perf_torch.timing); the JAX package's
+#: names
 FENCE_MODES = ("block", "readback", "slope", "trace", "fused", "auto")
-_UNPORTED_FENCES = ("fused", "auto")
 
 
 def new_job_id() -> str:
@@ -45,7 +47,7 @@ class Options:
     logfolder: str | None = None      # -l
     iters: int = DEF_ITERS            # -i
     buff_sz: int = DEF_BUF_SZ         # -b
-    num_runs: int = 1                 # -r
+    num_runs: int = 1                 # -r  (-1 = infinite daemon mode)
     uuid: str = dataclasses.field(default_factory=new_job_id)
     op: str = "pingpong"              # the reference's blocking ping-pong
     uni_dir: bool = False             # -u: payload one way, 1-element ack back
@@ -56,6 +58,13 @@ class Options:
     stats_every: int = STATS_EVERY_RUNS
     warmup_runs: int = 1              # run 0 skipped as warm-up (mpi_perf.c:545)
     fence: str = "block"              # FENCE_MODES
+    fused_chunks: int = 0             # --fused-chunks: dispatches a point
+                                      # (0 = auto: one)
+    measure_dispatch: bool = False    # --measure-dispatch: each row's
+                                      # overhead_us (block/readback)
+    profile_dir: str | None = None    # --profile-dir: torch.profiler traces
+    max_runs: int | None = None       # --max-runs: the daemon stops after
+                                      # this many measured runs
     sim_ranks: int = DEF_SIM_RANKS    # --sim-ranks
     device: str | None = None         # None = "cuda"; "cpu" only when asked
 
@@ -64,18 +73,39 @@ class Options:
             raise ValueError(f"iters must be positive, got {self.iters}")
         if self.buff_sz <= 0:
             raise ValueError(f"buff_sz must be positive, got {self.buff_sz}")
-        if self.num_runs == -1:
-            raise ValueError(
-                "daemon mode (-r -1) is not yet ported; see ROADMAP")
-        if self.num_runs <= 0:
+        if self.num_runs == 0 or self.num_runs < -1:
             raise ValueError(f"num_runs must be positive or -1, got {self.num_runs}")
         if self.fence not in FENCE_MODES:
             raise ValueError(
                 f"fence must be one of {'|'.join(FENCE_MODES)}, got {self.fence!r}"
             )
-        if self.fence in _UNPORTED_FENCES:
+        if self.fused_chunks < 0:
             raise ValueError(
-                f"fence {self.fence!r} is not yet ported; see ROADMAP")
+                f"fused_chunks must be >= 0 (0 = auto), got "
+                f"{self.fused_chunks}"
+            )
+        if self.fused_chunks and self.fence != "fused":
+            # a knob nothing will consult is a loud error, never a silent
+            # no-op mistaken for chunked fused measurement
+            raise ValueError(
+                f"fused_chunks applies to --fence fused only (fence is "
+                f"{self.fence!r})"
+            )
+        if self.fused_chunks and self.infinite:
+            raise ValueError(
+                "fused_chunks applies to finite sweeps; daemon visits "
+                "are one run (one dispatch) each"
+            )
+        if self.max_runs is not None and self.max_runs < 1:
+            raise ValueError(f"max_runs must be >= 1, got {self.max_runs}")
+        if self.max_runs is not None and not self.infinite:
+            # on a finite run --max-runs is the JAX package's adaptive
+            # cap, and adaptive runs are not ported yet
+            raise ValueError(
+                "max_runs on a finite run is the adaptive cap, and adaptive "
+                "runs are not yet ported (use -r for a fixed budget; in "
+                "daemon mode --max-runs keeps its stop-after-N meaning)"
+            )
         if self.dtype not in SUPPORTED_DTYPES:
             raise ValueError(
                 f"unsupported dtype {self.dtype!r}; supported: {SUPPORTED_DTYPES}"
@@ -90,3 +120,8 @@ class Options:
             # the reference picks one kernel by if / else if
             # (mpi_perf.c:506-523); the conflict is made loud instead
             raise ValueError("uni_dir and nonblocking are mutually exclusive")
+
+    @property
+    def infinite(self) -> bool:
+        """Daemon mode: ``-r -1`` (``monitor``)."""
+        return self.num_runs == -1

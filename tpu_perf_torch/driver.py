@@ -1,16 +1,23 @@
-"""Benchmark driver: the finite run loop and rotating CSV logs (port of the
-finite path of ``tpu_perf/driver.py``).
+"""Benchmark driver: the finite run loop, the monitoring daemon and the
+rotating CSV logs (port of ``tpu_perf/driver.py``).
 
 * warm-up runs are executed and never logged (the reference's run-0 skip,
   mpi_perf.c:545);
 * with a logfolder, rows go out in both schemas: legacy rows to
   ``tcp-*.log`` (mpi_perf.c:550-554) and extended rows to ``tpu-*.log``;
-  files rotate every ``log_refresh_sec`` (mpi_perf.c:16,479);
+  files rotate every ``log_refresh_sec`` (mpi_perf.c:16,479), and each
+  rotation of the legacy log fires the ingest hook (mpi_perf.c:483-490);
 * every ``stats_every`` runs a min/max/avg/p50 heartbeat goes to stderr
-  (mpi_perf.c:564-568).
+  (mpi_perf.c:564-568);
+* ``-r -1`` is the infinite daemon: one measured run per visit,
+  round-robin over the sweep's points, rows in the rotating logs only
+  (``mode="daemon"``), stopped by ``max_runs`` or a signal;
+* under ``--fence fused`` a finite point's whole budget is one replay of
+  a CUDA graph per chunk, and a daemon visit one replay of its point's
+  one-run graph.
 
-The daemon, chaos, push and span paths of the JAX driver are not ported
-yet (ROADMAP).
+The multi-op daemon family, chaos, push and span paths of the JAX driver
+are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -26,14 +33,17 @@ from tpu_perf_torch.config import Options
 from tpu_perf_torch.metrics import summarize
 from tpu_perf_torch.ops.collectives import BuiltOp
 from tpu_perf_torch.runner import (
-    SweepPointResult, build_point_pair, op_for_options, sizes_for, world_for,
+    SweepPointResult, build_point_pair, op_for_options, run_point_fused,
+    sizes_for, world_for,
 )
 from tpu_perf_torch.schema import (
     EXT_PREFIX, LEGACY_PREFIX, LegacyRow, ResultRow, timestamp_now,
 )
 from tpu_perf_torch.timing import (
-    RunTimes, fence, slope_sample, time_trace,
+    FusedPoint, FusedRunner, RunTimes, fence, measure_overhead,
+    resolve_fence, slope_sample, time_trace,
 )
+from tpu_perf_torch.traceparse import profile_window
 
 
 def local_ip() -> str:
@@ -53,17 +63,24 @@ def log_file_name(uuid: str, rank: int, now: float | None = None, *,
 
 
 class RotatingCsvLog:
-    """Append-only CSV log with timed rotation (mpi_perf.c:479-497)."""
+    """Append-only CSV log with timed rotation (mpi_perf.c:479-497).
+    ``on_rotate`` fires after each rotation closes the old file, never on
+    the first open; a hook that raises is reported on stderr and counted
+    in ``hook_failures``, and never stops the caller: the files it left
+    are retried at the next rotation."""
 
     def __init__(self, folder: str, uuid: str, rank: int, *,
                  refresh_sec: int, clock: Callable[[], float] = time.time,
-                 prefix: str = LEGACY_PREFIX):
+                 prefix: str = LEGACY_PREFIX,
+                 on_rotate: Callable[[], None] | None = None):
         self.folder = folder
         self.uuid = uuid
         self.rank = rank
         self.refresh_sec = refresh_sec
         self.clock = clock
         self.prefix = prefix
+        self.on_rotate = on_rotate
+        self.hook_failures = 0
         self._fh = None
         self._opened_at = None
         os.makedirs(folder, exist_ok=True)
@@ -78,15 +95,23 @@ class RotatingCsvLog:
 
     def maybe_rotate(self) -> bool:
         """Open on first use; close and reopen when the refresh period has
-        elapsed.  Returns True on a rotation."""
+        elapsed, firing the hook in between.  Returns True on a rotation."""
         if self._fh is None:
             self._open()
             return False
-        if self.clock() - self._opened_at >= self.refresh_sec:
-            self._fh.close()
-            self._open()
-            return True
-        return False
+        if self.clock() - self._opened_at < self.refresh_sec:
+            return False
+        self._fh.close()
+        if self.on_rotate is not None:
+            try:
+                self.on_rotate()
+            except Exception as e:  # noqa: BLE001 — a failing ingest must
+                # never kill the monitoring daemon
+                self.hook_failures += 1
+                print(f"[tpu-perf-torch] ingest hook failed: {e}",
+                      file=sys.stderr)
+        self._open()
+        return True
 
     def write_row(self, row: LegacyRow | ResultRow) -> None:
         if self._fh is None:
@@ -101,14 +126,19 @@ class RotatingCsvLog:
 
 
 class Driver:
-    """One finite benchmark invocation over the configured sweep."""
+    """One benchmark invocation: a finite sweep, or the daemon (-r -1)."""
 
     def __init__(self, opts: Options, *,
                  clock: Callable[[], float] = time.time,
                  perf_clock: Callable[[], float] = time.perf_counter,
+                 on_rotate: Callable[[], None] | None = None,
                  err=None):
-        self.opts = opts
         self.world = world_for(opts)
+        if opts.fence == "auto":
+            # resolved once for the whole job, by the device
+            opts = dataclasses.replace(
+                opts, fence=resolve_fence(opts.fence, self.world.device))
+        self.opts = opts
         self.clock = clock
         self.perf_clock = perf_clock
         self.err = err if err is not None else sys.stderr
@@ -117,23 +147,38 @@ class Driver:
         self.log: RotatingCsvLog | None = None
         self.ext_log: RotatingCsvLog | None = None
         if opts.logfolder:
+            # ingest fires off the legacy log's rotation only: one
+            # rotation, one ingest pass
             self.log = RotatingCsvLog(
                 opts.logfolder, opts.uuid, self.rank,
                 refresh_sec=opts.log_refresh_sec, clock=clock,
-                prefix=LEGACY_PREFIX)
+                prefix=LEGACY_PREFIX, on_rotate=on_rotate)
             self.ext_log = RotatingCsvLog(
                 opts.logfolder, opts.uuid, self.rank,
                 refresh_sec=opts.log_refresh_sec, clock=clock,
                 prefix=EXT_PREFIX)
+        if opts.profile_dir and opts.infinite:
+            print("[tpu-perf-torch] --profile-dir is ignored in daemon mode "
+                  "(a trace kept per visit would grow without bound); "
+                  "profile a finite run instead", file=self.err)
+        # a daemon would grow these without bound: its rows live in the
+        # rotating logs only
+        self.retain_rows = not opts.infinite
         self.result_rows: list[ResultRow] = []
         self.legacy_rows: list[LegacyRow] = []
+        # (op, nbytes) -> the launch floor of --measure-dispatch, seconds
+        self._overhead_s: dict[tuple[str, int], float] = {}
 
     def run(self) -> list[ResultRow]:
-        """Execute the configured sweep; returns the extended-schema rows."""
+        """Execute the configured job; returns the extended-schema rows
+        (none in daemon mode)."""
         op = op_for_options(self.opts)
         try:
-            for nbytes in sizes_for(self.opts, op):
-                self._run_finite(op, nbytes)
+            if self.opts.infinite:
+                self._run_daemon(op)
+            else:
+                for nbytes in sizes_for(self.opts, op):
+                    self._run_finite(op, nbytes)
         finally:
             if self.log is not None:
                 self.log.close()
@@ -147,10 +192,24 @@ class Driver:
             fence(built.step(built.example_input), fmode)
             if built_hi is not None:
                 fence(built_hi.step(built_hi.example_input), fmode)
+        if self.opts.measure_dispatch and built_hi is None:
+            # once a point, after the warm-up, outside every timed window,
+            # fenced as the samples are; slope rows skip it (the slope
+            # cancels constant costs)
+            self._overhead_s[(built.name, built.nbytes)] = measure_overhead(
+                built.example_input, fence_mode=fmode)
 
-    def _measure(self, built: BuiltOp, built_hi: BuiltOp | None) -> float | None:
+    def _measure(self, built: BuiltOp, built_hi) -> float | None:
         """One run's wall time for `iters` executions under opts.fence;
         None when a slope sample is lost to timing noise."""
+        if isinstance(built_hi, FusedRunner):
+            # a fused daemon visit: one replay of the point's one-run graph
+            return built_hi.chunk(1)[0]
+        if self.opts.fence == "trace":
+            # a daemon visit: one (lo, hi) event pair on the device clock
+            times = time_trace(built.step, built_hi.step, built.example_input,
+                               built.iters, built_hi.iters, 1, warmup_runs=0)
+            return times.samples[0] * built.iters
         if built_hi is not None:  # slope
             s = slope_sample(built.step, built_hi.step, built.example_input,
                              built_hi.example_input,
@@ -161,25 +220,77 @@ class Driver:
         fence(built.step(built.example_input), self.opts.fence)
         return self.perf_clock() - t0
 
+    def _profile(self, built: BuiltOp):
+        """The point's measured window, kept as a trace under
+        --profile-dir."""
+        return profile_window(self.opts.profile_dir,
+                              f"{built.name}-{built.nbytes}",
+                              built.example_input.device)
+
     def _run_finite(self, op: str, nbytes: int) -> None:
         built, built_hi = build_point_pair(self.opts, self.world, op, nbytes)
         window: list[float] = []
+        if isinstance(built_hi, FusedPoint):
+            # the whole budget in one graph replay a chunk, per-run device
+            # times from the events inside the graph
+            times = run_point_fused(self.opts, built, built_hi,
+                                    perf_clock=self.perf_clock)
+            for run_id, t in enumerate(times.samples, start=1):
+                self._record_run(built, run_id, t, window)
+            return
         if self.opts.fence == "trace":
             # one batch of event pairs covers the point's whole budget
-            times = time_trace(built.step, built_hi.step, built.example_input,
-                               built.iters, built_hi.iters,
-                               self.opts.num_runs,
-                               warmup_runs=self.opts.warmup_runs)
+            with self._profile(built):
+                times = time_trace(built.step, built_hi.step,
+                                   built.example_input, built.iters,
+                                   built_hi.iters, self.opts.num_runs,
+                                   warmup_runs=self.opts.warmup_runs)
             for run_id, t in enumerate(times.samples, start=1):
                 self._record_run(built, run_id, t * built.iters, window)
             return
         self._warm(built, built_hi)
-        for run_id in range(1, self.opts.num_runs + 1):
-            t = self._measure(built, built_hi)
-            if t is None:
-                print(f"[tpu-perf-torch] run {run_id}: slope sample lost "
-                      "to noise, skipped", file=self.err)
-            self._record_run(built, run_id, t, window)
+        with self._profile(built):
+            for run_id in range(1, self.opts.num_runs + 1):
+                t = self._measure(built, built_hi)
+                if t is None:
+                    print(f"[tpu-perf-torch] run {run_id}: slope sample lost "
+                          "to noise, skipped", file=self.err)
+                self._record_run(built, run_id, t, window)
+
+    def _run_daemon(self, op: str) -> None:
+        """Infinite monitoring: one measured run per visit, round-robin
+        over the sweep's points.  Every point is built (and warmed) before
+        run 1, so a bad combination fails before any row is written.
+        Points whose example inputs have the same spec share one buffer;
+        a fused daemon holds one warmed runner (a private working buffer
+        and a one-run graph) per point."""
+        canon: dict[tuple, object] = {}
+        points = []
+        for nbytes in sizes_for(self.opts, op):
+            built, built_hi = build_point_pair(self.opts, self.world, op,
+                                               nbytes)
+            x = built.example_input
+            keep = canon.setdefault((tuple(x.shape), x.dtype, x.device), x)
+            if keep is not x:
+                built = dataclasses.replace(built, example_input=keep)
+                if isinstance(built_hi, BuiltOp):
+                    built_hi = dataclasses.replace(built_hi,
+                                                   example_input=keep)
+                del x
+            if isinstance(built_hi, FusedPoint):
+                built_hi = FusedRunner(built_hi, built,
+                                       perf_clock=self.perf_clock)
+                built_hi.warm()
+            else:
+                self._warm(built, built_hi)  # trace visits skip their own
+            points.append((built, built_hi))
+        window: list[float] = []
+        run_id = 0
+        while self.opts.max_runs is None or run_id < self.opts.max_runs:
+            run_id += 1
+            built, built_hi = points[(run_id - 1) % len(points)]
+            self._record_run(built, run_id, self._measure(built, built_hi),
+                             window)
 
     def _record_run(self, built: BuiltOp, run_id: int, t: float | None,
                     window: list[float]) -> None:
@@ -209,7 +320,11 @@ class Driver:
         point = SweepPointResult(
             op=built.name, nbytes=built.nbytes, iters=built.iters,
             n_devices=built.n_devices,
-            times=RunTimes(samples=[t], warmup_s=0.0), dtype=self.opts.dtype)
+            times=RunTimes(samples=[t], warmup_s=0.0,
+                           overhead_s=self._overhead_s.get(
+                               (built.name, built.nbytes), 0.0)),
+            dtype=self.opts.dtype,
+            mode="daemon" if self.opts.infinite else "oneshot")
         rrow = point.rows(self.opts.uuid, backend=self.world.backend)[0]
         rrow = dataclasses.replace(rrow, run_id=run_id)
         lrow = LegacyRow(
@@ -225,8 +340,9 @@ class Driver:
             time_taken_ms=t * 1e3,
             run_id=run_id,
         )
-        self.result_rows.append(rrow)
-        self.legacy_rows.append(lrow)
+        if self.retain_rows:
+            self.result_rows.append(rrow)
+            self.legacy_rows.append(lrow)
         if self.log is not None:
             self.log.write_row(lrow)
         if self.ext_log is not None:

@@ -407,6 +407,29 @@ def chained(call: Callable, iters: int) -> Callable:
     return step
 
 
+def build_fused_step(built: BuiltOp, reps: int) -> Callable:
+    """The fused measurement loop (``tpu_perf/ops/collectives.py``
+    build_fused_step): ``reps`` whole runs of ``built.step``, each fed the
+    previous run's output, so no run can be skipped or reordered.
+    ``on_run(i)``, when given, is called after run i is issued: the timing
+    layer records its events there.  The CUDA graph that makes the loop
+    one device dispatch lives in the timing layer
+    (:class:`tpu_perf_torch.timing.FusedRunner`)."""
+    if reps <= 0:
+        raise ValueError(f"reps must be positive, got {reps}")
+    inner = built.step
+
+    def fused(x, on_run=None):
+        for i in range(reps):
+            x = inner(x)
+            if on_run is not None:
+                on_run(i)
+        return x
+
+    fused.__name__ = fused.__qualname__ = f"tpuperf_fused_{built.name}"
+    return fused
+
+
 def known_ops() -> list[str]:
     from tpu_perf_torch.ops.pallas_ring import PALLAS_OPS
 

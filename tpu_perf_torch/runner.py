@@ -1,24 +1,30 @@
 """Sweep runner: build op -> time -> rows (port of ``tpu_perf/runner.py``).
 
-One sweep point is measured under the configured fence; the driver
-(:mod:`tpu_perf_torch.driver`) owns logging and the CLI's run loop.
+One sweep point is measured under the configured fence (``auto``
+resolved once, by the device); the driver (:mod:`tpu_perf_torch.driver`)
+owns logging and the CLI's run loop, finite and daemon.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+import time
+from typing import Callable, Iterator
 
 from tpu_perf_torch.config import Options
 from tpu_perf_torch.metrics import (
     alg_bandwidth_gbps, bus_bandwidth_gbps, is_latency_only, latency_us,
 )
-from tpu_perf_torch.ops.collectives import DTYPES, BuiltOp, build_op
+from tpu_perf_torch.ops.collectives import (
+    DTYPES, BuiltOp, build_fused_step, build_op,
+)
 from tpu_perf_torch.schema import ResultRow, timestamp_now
 from tpu_perf_torch.sweep import parse_sweep
 from tpu_perf_torch.timing import (
-    SLOPE_ITERS_FACTOR, RunTimes, time_slope, time_step, time_trace,
+    SLOPE_ITERS_FACTOR, FusedPoint, FusedRunner, RunTimes, fused_chunk_plan,
+    resolve_fence, time_slope, time_step, time_trace,
 )
+from tpu_perf_torch.traceparse import profile_window
 from tpu_perf_torch.world import SimWorld, resolve_device
 
 #: ops whose timing covers a round trip (latency convention: one way = t/2)
@@ -58,6 +64,7 @@ class SweepPointResult:
     n_devices: int
     times: RunTimes
     dtype: str = "float32"
+    mode: str = "oneshot"  # "oneshot" | "daemon"
 
     def rows(self, job_id: str, backend: str) -> list[ResultRow]:
         no_payload = is_latency_only(self.op, self.n_devices)
@@ -85,16 +92,38 @@ class SweepPointResult:
                     self.op, self.nbytes, per_op, self.n_devices),
                 time_ms=t * 1e3,
                 dtype=self.dtype,
+                mode=self.mode,
+                overhead_us=self.times.overhead_s * 1e6,
             ))
         return out
 
 
-def build_point_pair(opts: Options, world: SimWorld, op: str,
-                     nbytes: int) -> tuple[BuiltOp, BuiltOp | None]:
+def fused_plan_for(opts: Options, *,
+                   budget: int | None = None) -> tuple[int, ...]:
+    """The fused fence's chunk plan for one job: ``budget`` defaults to
+    the -r budget (a daemon visit is one run); ``--fused-chunks`` 0 is
+    one dispatch a point."""
+    if budget is None:
+        budget = 1 if opts.infinite else opts.num_runs
+    return fused_chunk_plan(budget, max(1, opts.fused_chunks))
+
+
+def build_fused_point(built: BuiltOp, plan: tuple[int, ...]) -> FusedPoint:
+    """One point's fused programs (ops.build_fused_step), one per
+    distinct chunk size in ``plan``."""
+    return FusedPoint(op=built.name, plan=tuple(plan), programs={
+        reps: build_fused_step(built, reps) for reps in sorted(set(plan))})
+
+
+def build_point_pair(opts: Options, world: SimWorld, op: str, nbytes: int
+                     ) -> tuple[BuiltOp, BuiltOp | FusedPoint | None]:
     """One point's (lo, hi) op pair for the configured fence: hi is the
     same op at ``iters * SLOPE_ITERS_FACTOR`` executions under slope/trace
-    (sharing lo's example buffer), else None."""
+    (sharing lo's example buffer), the point's :class:`FusedPoint` under
+    fused, else None."""
     built = build_op(op, world, nbytes, opts.iters, dtype=opts.dtype)
+    if opts.fence == "fused":
+        return built, build_fused_point(built, fused_plan_for(opts))
     built_hi = None
     if opts.fence in ("slope", "trace"):
         built_hi = build_op(op, world, nbytes,
@@ -104,14 +133,39 @@ def build_point_pair(opts: Options, world: SimWorld, op: str,
     return built, built_hi
 
 
+def run_point_fused(opts: Options, built: BuiltOp, fp: FusedPoint, *,
+                    perf_clock: Callable[[], float] = time.perf_counter
+                    ) -> RunTimes:
+    """One finite point under the fused fence: warm (capture), then one
+    measured dispatch per chunk (one by default), the measured window kept
+    as a trace under --profile-dir.  The point's graphs are freed before
+    it returns, so the next point's fit beside nothing of this one."""
+    runner = FusedRunner(fp, built, perf_clock=perf_clock)
+    try:
+        runner.warm()
+        samples: list[float] = []
+        with profile_window(opts.profile_dir, f"{built.name}-{built.nbytes}",
+                            built.example_input.device):
+            for reps in fp.plan:
+                samples.extend(runner.chunk(reps))
+    finally:
+        runner.close()
+    return RunTimes(samples=samples, warmup_s=runner.warmup_s)
+
+
 def run_point(opts: Options, world: SimWorld, nbytes: int, *,
               op: str | None = None) -> SweepPointResult:
     """Measure one sweep point: ``opts.num_runs`` runs of ``opts.iters``
     chained executions each."""
+    if opts.fence == "auto":
+        opts = dataclasses.replace(
+            opts, fence=resolve_fence(opts.fence, world.device))
     op = op or op_for_options(opts)
     built, built_hi = build_point_pair(opts, world, op, nbytes)
     x = built.example_input
-    if opts.fence in ("slope", "trace"):
+    if opts.fence == "fused":
+        times = run_point_fused(opts, built, built_hi)
+    elif opts.fence in ("slope", "trace"):
         timer = time_trace if opts.fence == "trace" else time_slope
         per_exec = timer(built.step, built_hi.step, x, built.iters,
                          built_hi.iters, opts.num_runs,
@@ -120,7 +174,8 @@ def run_point(opts: Options, world: SimWorld, nbytes: int, *,
                          warmup_s=per_exec.warmup_s)
     else:
         times = time_step(built.step, x, opts.num_runs,
-                          warmup_runs=opts.warmup_runs, fence_mode=opts.fence)
+                          warmup_runs=opts.warmup_runs, fence_mode=opts.fence,
+                          measure_dispatch=opts.measure_dispatch)
     return SweepPointResult(op=op, nbytes=built.nbytes, iters=built.iters,
                             n_devices=built.n_devices, times=times,
                             dtype=opts.dtype)

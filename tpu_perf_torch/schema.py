@@ -181,3 +181,20 @@ class ResultRow:
             load=parts[23] if len(parts) >= 24 else "",
         )
 
+
+
+def decorate_op(op: str, algo: str = "", skew_us: int = 0,
+                imbalance: int = 1, load: str = "") -> str:
+    """The decorated point label (``op[algo]@500us%8&load``), the JAX
+    package's one spelling; ``native``/empty algo, zero skew, imbalance 1
+    and an empty load decorate nothing, so this package's rows keep their
+    bare op names."""
+    if algo and algo != "native":
+        op = f"{op}[{algo}]"
+    if skew_us:
+        op = f"{op}@{skew_us}us"
+    if imbalance > 1:
+        op = f"{op}%{imbalance}"
+    if load:
+        op = f"{op}&{load}"
+    return op

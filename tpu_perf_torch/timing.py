@@ -12,10 +12,21 @@ timed call ends in a fence:
   executions cancels every constant cost (launch, fence round trip);
 * ``trace``    — the device's own clock: CUDA events recorded around each
   run of the (lo, hi) pair, slope-disciplined like ``slope``.  It stands
-  in for the JAX package's ``jax.profiler`` device lane.
+  in for the JAX package's ``jax.profiler`` device lane;
+* ``fused``    — a point's whole run budget in one device dispatch: the
+  runs are captured once into a CUDA graph (one graph per distinct chunk
+  size of :func:`fused_chunk_plan`) and the graph is replayed, so no host
+  launch lands between runs.  Per-run device times come from CUDA events
+  recorded between the runs inside the graph (``external=True`` events,
+  which a replay records on the device clock): the counterpart of the JAX
+  package's per-run device-lane durations of one fused program;
+* ``auto``     — resolved once, by the device: ``trace`` on a card,
+  ``slope`` on the CPU (:func:`resolve_fence`).
 
 On a CPU tensor ``block`` and ``readback`` are host-clock timings of the
-plain PyTorch versions; ``trace`` needs a card.
+plain PyTorch versions, and ``fused`` runs each chunk eagerly and spreads
+its host wall evenly over the chunk's runs (chunk means); ``trace`` needs
+a card.
 """
 
 from __future__ import annotations
@@ -46,6 +57,40 @@ def fence(out: torch.Tensor, mode: str = "block") -> None:
         out.reshape(-1)[0].item()
     else:
         raise ValueError(f"fence() takes block|readback, got {mode!r}")
+
+
+def trace_fence_available(device: torch.device) -> bool:
+    """Whether the trace fence can run on ``device``: CUDA events time
+    the device's own clock on a card and nowhere else.  The JAX package
+    decides by probing its runtime; here the device decides."""
+    return device.type == "cuda"
+
+
+def resolve_fence(fence_mode: str, device: torch.device) -> str:
+    """Resolve ``auto`` to ``trace`` on a card and ``slope`` on the CPU;
+    other modes pass through.  Callers resolve once, up front."""
+    if fence_mode != "auto":
+        return fence_mode
+    return "trace" if trace_fence_available(device) else "slope"
+
+
+def measure_overhead(x: torch.Tensor, *, reps: int = 10,
+                     fence_mode: str = "block") -> float:
+    """Median wall time of one fenced launch of a trivial device op (a
+    one-element copy) on ``x``'s device, under the timed window's own
+    fence: the launch-and-fence floor below every block / readback
+    sample.  Rows record raw times; subtracting is the reader's choice."""
+    def trivial():
+        return x.reshape(-1)[:1].clone()
+
+    fence(trivial(), fence_mode)
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fence(trivial(), fence_mode)
+        ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return ts[len(ts) // 2]
 
 
 def slope_sample(
@@ -80,6 +125,7 @@ class RunTimes:
 
     samples: list[float]  # one entry per *measured* run (warm-ups excluded)
     warmup_s: float  # duration of the warm-up call(s)
+    overhead_s: float = 0.0  # measured launch floor, 0.0 if not measured
 
 
 def time_step(
@@ -89,6 +135,7 @@ def time_step(
     *,
     warmup_runs: int = 1,
     fence_mode: str = "block",
+    measure_dispatch: bool = False,
 ) -> RunTimes:
     """Time ``num_runs`` fenced executions of ``step(x)`` after
     ``warmup_runs`` discarded ones (the reference's run-0 skip,
@@ -101,12 +148,15 @@ def time_step(
     for _ in range(max(1, warmup_runs)):
         fence(step(x), fence_mode)
     warmup_s = time.perf_counter() - t0
+    overhead_s = (measure_overhead(x, fence_mode=fence_mode)
+                  if measure_dispatch else 0.0)
     samples = []
     for _ in range(num_runs):
         t0 = time.perf_counter()
         fence(step(x), fence_mode)
         samples.append(time.perf_counter() - t0)
-    return RunTimes(samples=samples, warmup_s=warmup_s)
+    return RunTimes(samples=samples, warmup_s=warmup_s,
+                    overhead_s=overhead_s)
 
 
 def time_slope(
@@ -197,3 +247,128 @@ def time_trace(
                 f"({d_lo:.6f} -> {d_hi:.6f} s)")
         samples.append((d_hi - d_lo) / d_iters)
     return RunTimes(samples=samples, warmup_s=warmup_s)
+
+
+def fused_chunk_plan(num_runs: int, chunks: int = 1) -> tuple[int, ...]:
+    """Split a point's run budget into per-dispatch chunk sizes: ``chunks``
+    = 1 is the whole budget in one dispatch; sizes differ by at most one,
+    so a point captures at most two distinct graphs."""
+    if num_runs <= 0:
+        raise ValueError(f"num_runs must be positive, got {num_runs}")
+    k = max(1, min(chunks, num_runs))
+    base, rem = divmod(num_runs, k)
+    return tuple([base + 1] * rem + [base] * (k - rem))
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPoint:
+    """One sweep point's fused build (runner.build_fused_point): the
+    measured chunk plan and one program per distinct chunk size
+    (ops.build_fused_step).  Holds no device buffer: the runner copies the
+    example input into a private working buffer."""
+
+    op: str
+    plan: tuple[int, ...]  # measured runs per chunk dispatch
+    programs: dict         # reps -> fused program
+
+
+class FusedRunner:
+    """Drives one sweep point's fused measurement loop.
+
+    ``warm()`` copies the example input into a private working buffer
+    (the example input stays intact), runs the first chunk's program once
+    eagerly on it (this builds the kernels, compiles the Triton JIT,
+    allocates the kernels' device counters and asks the occupancy
+    queries: nothing of that may happen under capture), and on a card
+    captures one CUDA graph per distinct chunk size and replays the first
+    once, unrecorded.  ``chunk(reps)`` is one measured dispatch of
+    ``reps`` whole runs and returns their per-run times:
+
+    * on a card, one replay of the chunk's graph.  The graph records a
+      CUDA event before the first run and after each run, so every run's
+      time is device time between two events, no host time in it.  The
+      graph ends by copying its last output into the working buffer, so
+      the next replay carries on from it; the copy lies outside every
+      run's events;
+    * on the CPU, the chunk's program run eagerly; its fenced host wall
+      is spread evenly over its runs (chunk means).
+
+    Every dispatch is block-fenced.  ``dispatches`` counts measured
+    dispatches only.  ``close()`` frees the graphs and their memory
+    pools; a finite sweep closes each point's runner before it builds the
+    next.
+    """
+
+    def __init__(self, point: FusedPoint, built, *,
+                 perf_clock: Callable[[], float] = time.perf_counter):
+        self.point = point
+        self.built = built
+        self.perf_clock = perf_clock
+        self.dispatches = 0
+        self.warmup_s = 0.0
+        self._x: torch.Tensor | None = None
+        self._graphs: dict[int, tuple[torch.cuda.CUDAGraph, list]] = {}
+
+    @property
+    def buffer(self) -> torch.Tensor | None:
+        """The private working buffer the runs carry (None before warm)."""
+        return self._x
+
+    def _capture(self, reps: int) -> None:
+        events = [torch.cuda.Event(enable_timing=True, external=True)
+                  for _ in range(reps + 1)]
+        graph = torch.cuda.CUDAGraph()
+        x = self._x
+        with torch.cuda.graph(graph):
+            events[0].record()
+            y = self.point.programs[reps](
+                x, on_run=lambda i: events[i + 1].record())
+            if y is not x:
+                x.copy_(y)
+            del y
+        self._graphs[reps] = (graph, events)
+
+    def warm(self) -> None:
+        t0 = self.perf_clock()
+        first = self.point.plan[0]
+        self._x = self.built.example_input.clone()
+        if self._x.is_cuda:
+            # the eager run on a side stream, as capture asks
+            side = torch.cuda.Stream(self._x.device)
+            side.wait_stream(torch.cuda.current_stream(self._x.device))
+            with torch.cuda.stream(side):
+                self._x.copy_(self.point.programs[first](self._x))
+            torch.cuda.current_stream(self._x.device).wait_stream(side)
+            torch.cuda.synchronize(self._x.device)
+            for reps in sorted(set(self.point.plan)):
+                self._capture(reps)
+            self._graphs[first][0].replay()
+        else:
+            self._x = self.point.programs[first](self._x)
+        fence(self._x)
+        self.warmup_s = self.perf_clock() - t0
+
+    def chunk(self, reps: int) -> list[float]:
+        """One measured dispatch of ``reps`` whole runs; returns the runs'
+        times in seconds."""
+        if self._x is None:
+            self.warm()
+        self.dispatches += 1
+        if self._x.is_cuda:
+            graph, events = self._graphs[reps]
+            graph.replay()
+            # the events of a replay are complete once the fence returns
+            fence(self._x)
+            return [events[i].elapsed_time(events[i + 1]) * 1e-3
+                    for i in range(reps)]
+        t0 = self.perf_clock()
+        self._x = self.point.programs[reps](self._x)
+        fence(self._x)
+        wall = self.perf_clock() - t0
+        return [wall / reps] * reps
+
+    def close(self) -> None:
+        """Free the graphs (and their private memory pools) and the
+        working buffer."""
+        self._graphs.clear()
+        self._x = None
