@@ -62,6 +62,16 @@ exits non-zero):
    second into a ``TPU_PERF_INGEST=local:`` sink (the rotated files must
    arrive there and leave the log folder, no row lost); and ``report``,
    ``--compare-pallas`` and ``--format json`` over the block paths' logs;
+   then the rest of the reference's run surface: ``run -x --window W`` at
+   the default buffer for W = 1, 8 and 256 (rows at one nbytes, iters
+   10·W, the output equal to the plain windowed exchange computed by
+   rows), a ``monitor --fence fused`` daemon over an eight-op family (15
+   points, each visited within one of the others, JSON heartbeats whose
+   points sum to their samples, no row lost to the ``local:`` sink), the
+   repo's C baseline (``run --backend mpi``, the port's shim build) and
+   the port's windowed exchange paired by ``report --compare``, ``--hosts
+   --dry-run`` printing one ``mpirun`` line, ``-f`` / ``-n`` / ``-p``
+   against the sim world (``-n 3`` refused before any kernel) and ``-d``;
 6. run ``grid --spec hbm`` over the eight local memory ops at 256 MiB and
    1 GiB and print its verdict table, and show the read sweep's time
    growing with the bytes it reads;
@@ -1598,6 +1608,347 @@ def phase_report() -> None:
 
 
 
+#: the reference's default buffer (mpi_perf.c:14)
+DEF_BUF = 456131
+#: the windowed runs: the reference's default buffer at windows of 1, 8
+#: and the reference's 256-slot request window (mpi_perf.c:88)
+SURFACE_WINDOWS = (1, 8, 256)
+#: the production daemon's instrument family (the barrier is one point)
+FAMILY = ("pl_allreduce,pl_reduce_scatter,pl_all_gather,pl_hbm_copy,"
+          "pl_ring,pl_pingpong,pl_barrier,allreduce")
+FAMILY_SWEEP = (4096, 16 * 1024**2)
+#: the family daemon's measured runs and its heartbeat period
+FAMILY_RUNS, FAMILY_STATS = 6000, 1000
+#: launches per execution of each family op's kernels (PATHS)
+FAMILY_KERNELS = {op: PATHS[op][0] for op in FAMILY.split(",")}
+
+
+def _host_cpu() -> str:
+    """The host CPU, the label of the C baseline's numbers: lscpu's model
+    name, /proc/cpuinfo's, and the logical CPUs this process may use."""
+    names = []
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             check=True).stdout
+        names += [f"lscpu {ln.split(':', 1)[1].strip()!r}"
+                  for ln in out.splitlines() if ln.startswith("Model name:")]
+    except (OSError, subprocess.CalledProcessError):
+        names.append("no lscpu")
+    with open("/proc/cpuinfo") as fh:
+        model = {ln.split(":", 1)[1].strip() for ln in fh
+                 if ln.startswith("model name")}
+    names.append(f"/proc/cpuinfo {', '.join(sorted(model)) or 'none'!r}")
+    return f"{'; '.join(names)}; {len(os.sched_getaffinity(0))} CPUs"
+
+
+def _plain_windowed_exchange(window: int, n: int, elems: int, iters: int,
+                             dev):
+    """The windowed exchange computed on ``dev`` by rows, in the JAX
+    global layout ``(W, n*elems)``: make_fill's values, then ``iters``
+    rounds in which every rank's W buffers go to its pair partner."""
+    import torch
+
+    from tpu_perf_torch.topology import pair_permutation
+
+    total = window * n * elems
+    g = (torch.arange(total, dtype=torch.float64, device=dev)
+         .remainder_(251).div_(251.0).add_(1.0).float())
+    v = g.view(window, n, elems)
+    for _ in range(iters):
+        nxt = torch.empty_like(v)
+        for src, dst in pair_permutation(n):
+            nxt[:, dst] = v[:, src]
+        v = nxt
+    return v.reshape(window, n * elems)
+
+
+def _surface_windows() -> None:
+    """(a) run -x --window W at the reference's default buffer, W = 1, 8,
+    256: the rows share nbytes, iters counts every message, and the
+    output equals the plain windowed exchange exactly."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.world import SimWorld, resolve_device
+
+    nbytes = None
+    for w in SURFACE_WINDOWS:
+        what = f"run -x --window {w}"
+        got, rows, wall = _drive(["run", "-x", "--window", str(w), "-b",
+                                  str(DEF_BUF), "-i", "10", "-r", "3",
+                                  "--sim-ranks", "8"], what)
+        if any(got.values()):
+            fail(f"{what}: launched kernels {got} (a library op)")
+        if not rows:
+            fail(f"{what}: no rows")
+        keys = {(r.op, r.nbytes, r.iters, r.n_devices, r.backend)
+                for r in rows}
+        nbytes = nbytes or rows[0].nbytes
+        if len(rows) != 3 or keys != {("exchange", nbytes, 10 * w, 8,
+                                       "torch-sim")}:
+            fail(f"{what}: rows {keys}, want exchange at one nbytes with "
+                 f"iters {10 * w}")
+        # the output at the run's flags (10: even, the input again) and at
+        # one iteration, where a layout that mixed the windows would show
+        world = SimWorld(8, resolve_device())
+        for iters in (10, 1):
+            built = build_op("exchange", world, DEF_BUF, iters, window=w)
+            x = built.example_input
+            out = built.step(x)
+            elems = x.shape[-1]
+            check_exact(f"{what} output, -i {iters}",
+                        out.reshape(8, w, elems).transpose(0, 1)
+                        .reshape(w, -1),
+                        _plain_windowed_exchange(w, 8, elems, iters,
+                                                 x.device))
+            del built, x, out
+        torch.cuda.empty_cache()
+        print(f"surface: {what} -b {DEF_BUF} -i 10 -r 3 --sim-ranks 8: "
+              f"{len(rows)} rows at {nbytes} B, iters {10 * w}, "
+              f"{w * 8 * nbytes} B in flight; lat p50 "
+              f"{_median([r.lat_us for r in rows]):.3f} us, busbw p50 "
+              f"{_median([r.busbw_gbps for r in rows]):.3f} GB/s "
+              f"({wall:.1f} s); output = the plain windowed exchange "
+              "at -i 10 and -i 1")
+
+
+def _surface_family() -> None:
+    """(b) monitor over an instrument family under --fence fused, logs
+    rotating every second into a local: sink, JSON heartbeats."""
+    import contextlib
+    import datetime
+    import glob
+    import io
+    import tempfile
+
+    from tpu_perf_torch import cli, kernels
+    from tpu_perf_torch.config import Options
+    from tpu_perf_torch.runner import sizes_for
+    from tpu_perf_torch.schema import LegacyRow, ResultRow
+
+    sweep = ",".join(str(b) for b in FAMILY_SWEEP)
+    points = [(op, nb) for op in FAMILY.split(",")
+              for nb in sizes_for(Options(sweep=sweep, op=op))]
+    what = "monitor --op <family> --fence fused"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-family-") as root:
+        logs, sink = os.path.join(root, "logs"), os.path.join(root, "sink")
+        old = os.environ.get("TPU_PERF_INGEST")
+        os.environ["TPU_PERF_INGEST"] = f"local:{sink}"
+        err = io.StringIO()
+        try:
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["monitor", "--op", FAMILY, "--fence", "fused",
+                               "--sweep", sweep, "--max-runs",
+                               str(FAMILY_RUNS), "--heartbeat-format",
+                               "json", "--stats-every", str(FAMILY_STATS),
+                               "--log-refresh-sec", "1", "-l", logs])
+            wall = time.perf_counter() - t0
+        finally:
+            if old is None:
+                os.environ.pop("TPU_PERF_INGEST")
+            else:
+                os.environ["TPU_PERF_INGEST"] = old
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if rc != 0:
+            fail(f"{what} exited {rc}: {err.getvalue()[-2000:]}")
+        # each point: an eager warm-up run and a captured run of the
+        # default 10 iterations; every visit replayed a graph
+        want: dict[str, int] = {}
+        for op, _ in points:
+            for k, per in FAMILY_KERNELS[op].items():
+                want[k] = want.get(k, 0) + 2 * 10 * per
+        if got != want or any(kernels.PLAIN_CALLS.values()):
+            fail(f"{what}: launches {got}, want {want} (warm-up and capture "
+                 f"only), plain calls {kernels.PLAIN_CALLS}")
+        lines = err.getvalue().splitlines()
+        beats = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        held = [ln for ln in lines if "daemon:" in ln]
+        if (len(beats) != FAMILY_RUNS // FAMILY_STATS
+                or any(sum(b["points"].values()) != b["samples"]
+                       or b["samples"] != FAMILY_STATS for b in beats)
+                or [b["run"] for b in beats]
+                != list(range(FAMILY_STATS, FAMILY_RUNS + 1, FAMILY_STATS))):
+            fail(f"{what}: heartbeats {beats}")
+        ext, legacy = [], []
+        for folder in (sink, logs):
+            for path in glob.glob(os.path.join(folder, "*.log")):
+                with open(path) as fh:
+                    rows = [ln for ln in fh if ln.strip()]
+                if os.path.basename(path).startswith("tpu-"):
+                    ext += [ResultRow.from_csv(ln) for ln in rows]
+                else:
+                    legacy += [LegacyRow.from_csv(ln) for ln in rows]
+        arrived = os.listdir(sink) if os.path.isdir(sink) else []
+        counts: dict[tuple, int] = {}
+        for r in ext:
+            counts[(r.op, r.nbytes)] = counts.get((r.op, r.nbytes), 0) + 1
+        even = FAMILY_RUNS / len(points)
+        if (sorted(r.run_id for r in ext) != list(range(1, FAMILY_RUNS + 1))
+                or len(legacy) != FAMILY_RUNS or len(counts) != len(points)
+                or any(abs(c - even) > 1 for c in counts.values())
+                or not arrived):
+            fail(f"{what}: {len(ext)} extended and {len(legacy)} legacy rows, "
+                 f"points {counts}, {len(arrived)} files in the sink")
+        stamps = sorted(datetime.datetime.strptime(r.timestamp,
+                                                   "%Y-%m-%d %H:%M:%S.%f")
+                        for r in ext)
+        span = (stamps[-1] - stamps[0]).total_seconds()
+        lat = {k: _median([r.lat_us for r in ext if (r.op, r.nbytes) == k])
+               for k in counts}
+    print(f"surface: {held[0] if held else 'daemon: no residency line'}")
+    print(f"surface: {what} ({len(points)} points: {FAMILY}, --sweep "
+          f"{sweep}) --max-runs {FAMILY_RUNS}: {wall:.1f} s with the builds "
+          f"and captures; {FAMILY_RUNS} visits in {span:.3f} s between the "
+          f"first and the last row, {(FAMILY_RUNS - 1) / span:.1f} visits "
+          f"a second; every point visited {min(counts.values())}-"
+          f"{max(counts.values())} times; {len(beats)} JSON heartbeats, "
+          f"points summing to samples; {len(arrived) // 2} rotated pairs "
+          f"ingested, no row lost; launches {got} (warm-up and capture "
+          "only); lat p50 us " + ", ".join(
+              f"{op}/{nb} {v:.2f}" for (op, nb), v in sorted(lat.items())))
+
+
+def _surface_mpi() -> None:
+    """(c) the repo's C baseline (through the port's shim build) and the
+    port's windowed exchange into one folder, paired by report."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_perf_torch import cli, mpi_launch, report
+
+    cpu = _host_cpu()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-mpi-") as logs:
+        t0 = time.perf_counter()
+        rc = cli.main(["run", "--backend", "mpi", "-x", "-b", "65536", "-i",
+                       "40", "-r", "3", "-l", logs])
+        shim_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"run --backend mpi exited {rc}")
+        if not (mpi_launch.BUILD_DIR / "mpi_perf_shim").exists():
+            fail(f"no shim in {mpi_launch.BUILD_DIR}")
+        got, _, _ = _drive(["run", "-x", "--window", "4", "--sim-ranks", "2",
+                            "-b", "65536", "-i", "10", "-r", "3", "-p",
+                            "1"], "run -x --window 4 --sim-ranks 2",
+                           keep=logs)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["report", logs, "--format", "json"])
+        if rc != 0:
+            fail(f"report --format json exited {rc}")
+        curve = {p["backend"]: p for p in json.loads(out.getvalue())
+                 if (p["op"], p["nbytes"]) == ("exchange", 65536)}
+        pairs = [c for c in report.compare(report.stream_aggregate(
+            report.collect_paths(logs))) if (c.op, c.nbytes)
+            == ("exchange", 65536)]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["report", logs, "--compare"])
+        line = [ln for ln in out.getvalue().splitlines()
+                if ln.startswith("| exchange | 64K | float32 |")]
+        if (set(curve) != {"mpi", "torch-sim"} or len(pairs) != 1
+                or pairs[0].torch is None or pairs[0].mpi is None
+                or rc != 0 or len(line) != 1 or "—" in line[0]):
+            fail(f"report: exchange@65536 curves {sorted(curve)}, compare "
+                 f"{pairs}, markdown {line}")
+    # the cluster launch, printed and never started
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-hosts-") as root:
+        group = os.path.join(root, "group1")
+        with open(group, "w") as fh:
+            fh.write("h1\n")
+        out = io.StringIO()
+        real_run = subprocess.run
+
+        def no_launch(*a, **k):
+            raise RuntimeError(f"a dry run launched {a}")
+
+        subprocess.run = no_launch
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["run", "--backend", "mpi", "--hosts", "h0,h1",
+                               "--dry-run", "-x", "-f", group])
+        finally:
+            subprocess.run = real_run
+        printed = out.getvalue().splitlines()
+        if rc != 0 or len(printed) != 1 or not printed[0].startswith(
+                "mpirun -np 2 --host h0,h1 "):
+            fail(f"--backend mpi --hosts --dry-run: rc {rc}, printed "
+                 f"{printed}")
+    m, t = curve["mpi"], curve["torch-sim"]
+    print(f"surface: run --backend mpi -x -b 65536 -i 40 -r 3 (the shim at "
+          f"-np 2, built into {mpi_launch.BUILD_DIR}, {shim_s:.1f} s): "
+          f"host CPU {cpu}: lat p50 "
+          f"{m['lat_us']['p50']:.3f} us, busbw p50 "
+          f"{m['busbw_gbps']['p50']:.3f} GB/s")
+    print(f"surface: run -x --window 4 --sim-ranks 2 -b 65536 -i 10 -r 3 "
+          f"-p 1 on the card: lat p50 {t['lat_us']['p50']:.3f} us, busbw "
+          f"p50 {t['busbw_gbps']['p50']:.3f} GB/s; report --compare pairs "
+          f"exchange@65536 torch-sim with mpi: {line[0]}")
+    print(f"surface: --backend mpi --hosts h0,h1 --dry-run printed one line "
+          f"and launched nothing: {printed[0]}")
+
+
+def _surface_groups_extern() -> None:
+    """(d) -f / -n / -p against the sim world's ranks, and -d."""
+    import contextlib
+    import glob
+    import io
+    import tempfile
+
+    from tpu_perf_torch import cli, kernels
+    from tpu_perf_torch.schema import LegacyRow
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-groups-") as root:
+        group = os.path.join(root, "group1")
+        with open(group, "w") as fh:
+            fh.write("host4\nhost5\nhost6\nhost7\n")
+        base = ["run", "--op", "pl_pingpong", "-f", group, "--sim-ranks",
+                "8"]
+        got, rows, _ = _drive(base + ["-n", "4", "-p", "1"],
+                              "run -f <4 hosts> -n 4 -p 1")
+        if got["pingpong"] != 2 * 10 or len(rows) != 1:
+            fail(f"run -f -n 4 -p 1: launches {got}, {len(rows)} rows")
+        kernels.reset_counts()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(base + ["-n", "3"])
+        if rc != 2 or any(kernels.LAUNCHES.values()) or "-n 3 but" not in \
+                err.getvalue():
+            fail(f"run -f <4 hosts> -n 3: rc {rc}, launches "
+                 f"{kernels.LAUNCHES}, {err.getvalue()}")
+        logs = os.path.join(root, "extern")
+        err = io.StringIO()
+        kernels.reset_counts()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["run", "-d", "-r", "3", "-p", "2", "-l", logs])
+        printed = [ln for ln in err.getvalue().splitlines()
+                   if ln.startswith("extern-bench ")]
+        legacy = []
+        for path in glob.glob(os.path.join(logs, "tcp-*.log")):
+            with open(path) as fh:
+                legacy += [LegacyRow.from_csv(ln) for ln in fh if ln.strip()]
+        if (rc != 0 or len(printed) != 3 or len(legacy) != 3
+                or {r.num_flows for r in legacy} != {2}
+                or any(kernels.LAUNCHES.values())
+                or printed[0].split()[1] != "server"):
+            fail(f"run -d: rc {rc}, printed {printed}, {len(legacy)} rows")
+    print(f"surface: run --op pl_pingpong -f <4 hosts> -n 4 -p 1 "
+          f"--sim-ranks 8: {got['pingpong']} launches; -n 3 exits 2 before "
+          f"any kernel; run -d -r 3 -p 2: 3 rows (NumOfFlows 2) and "
+          f"stderr {printed[0]!r}")
+
+
+def phase_surface() -> None:
+    """The rest of the reference's run surface: the windowed -x, the
+    family daemon, the C baseline beside the port, -f / -n / -p and -d."""
+    _surface_windows()
+    _surface_family()
+    _surface_mpi()
+    _surface_groups_extern()
+
+
 def main() -> int:
     import torch
 
@@ -1641,6 +1992,7 @@ def main() -> int:
         timed("profile", phase_profile)
         timed("daemon", phase_daemon)
         timed("report", phase_report)
+        timed("surface", phase_surface)
     finally:
         shutil.rmtree(REPORT_DIR, ignore_errors=True)
     timed("selftest", phase_selftest)

@@ -45,10 +45,13 @@ def test_no_module_of_the_port_imports_jax_or_tpu_perf():
     assert bad == "[]"
 
 
-#: the modules of the fences, report and daemon slice
+#: the modules of the fences, report and daemon slice, and of the run
+#: surface (the group topology, the external launcher, the C baseline)
 SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.ingest", "tpu_perf_torch.ingest.pipeline",
-                 "tpu_perf_torch.timing", "tpu_perf_torch.driver")
+                 "tpu_perf_torch.timing", "tpu_perf_torch.driver",
+                 "tpu_perf_torch.topology", "tpu_perf_torch.extern_launch",
+                 "tpu_perf_torch.mpi_launch")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -5,14 +5,21 @@ subcommands of ``tpu_perf/cli.py``).
 Flag letters keep the reference's meanings (mpi_perf.c:273-339) where the
 port has them: ``-i`` iters, ``-b`` buffer size, ``-r`` runs, ``-l`` log
 folder, ``-u`` unidirectional with a 1-byte ack, ``-x`` non-blocking
-exchange; the default op is the reference's blocking ping-pong.
-Additions: ``--sim-ranks`` (ranks of the single-card sim world) and
-``--device`` (``cuda``, the default, or ``cpu`` for the plain PyTorch
-versions)::
+exchange (``--window W`` buffers in flight), ``-p`` flows per node,
+``-f`` / ``-n`` the group-1 file and its host count, ``-d`` the
+print-only external launcher; the default op is the reference's blocking
+ping-pong.  ``--backend mpi`` runs the repo's C baseline (backends/mpi)
+on the host instead.  Additions: ``--sim-ranks`` (ranks of the
+single-card sim world) and ``--device`` (``cuda``, the default, or
+``cpu`` for the plain PyTorch versions)::
 
     python -m tpu_perf_torch run            # pingpong at 456131 B, 8 ranks
     python -m tpu_perf_torch run -u         # pingpong_unidir
     python -m tpu_perf_torch run -x         # exchange
+    python -m tpu_perf_torch run -x --window 256   # 256 buffers in flight
+    python -m tpu_perf_torch run --backend mpi -x -b 64K -l /tmp/logs
+    python -m tpu_perf_torch monitor --op pl_allreduce,pl_ring,allreduce \
+        --sweep 4K,16M --heartbeat-format json
     python -m tpu_perf_torch run --op pl_allreduce --sweep 4K:256M
     python -m tpu_perf_torch run --op all_to_all --sweep 4K:256M
     python -m tpu_perf_torch run --op pl_all_gather_bidir --sweep 4K:256M
@@ -35,9 +42,10 @@ import argparse
 import sys
 
 from tpu_perf_torch.config import (
-    DEF_ITERS, DEF_SIM_RANKS, DEFAULT_LOG_DIR, FENCE_MODES,
-    LOG_REFRESH_TIME_SEC, Options,
+    BACKENDS, DEF_ITERS, DEF_SIM_RANKS, DEFAULT_LOG_DIR, FENCE_MODES,
+    HEARTBEAT_FORMATS, LOG_REFRESH_TIME_SEC, Options,
 )
+from tpu_perf_torch.extern_launch import DEFAULT_TEMPLATE
 from tpu_perf_torch.schema import RESULT_HEADER
 from tpu_perf_torch.sweep import DEF_BUF_SZ, format_size, parse_size
 
@@ -65,19 +73,37 @@ def _add_world_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
-    from tpu_perf_torch.driver import Driver
-
     opts = Options(
-        logfolder=args.logfolder, iters=args.iters,
+        logfolder=args.logfolder, iters=args.iters, ppn=args.ppn,
         buff_sz=parse_size(args.size),
         num_runs=-1 if infinite else args.runs, op=args.op,
-        uni_dir=args.unidir, nonblocking=args.nonblocking, sweep=args.sweep,
+        uni_dir=args.unidir, nonblocking=args.nonblocking,
+        extern_cmd=args.extern_cmd, window=args.window,
+        group1_file=args.group1_file, n_group1=args.group1_hosts,
+        backend=args.backend, heartbeat_format=args.heartbeat_format,
+        sweep=args.sweep,
         dtype=args.dtype, fence=args.fence, fused_chunks=args.fused_chunks,
         measure_dispatch=args.measure_dispatch, profile_dir=args.profile_dir,
         max_runs=args.max_runs,
         stats_every=args.stats_every, log_refresh_sec=args.log_refresh_sec,
         sim_ranks=args.sim_ranks, device=args.device,
     )
+    if opts.backend == "mpi":
+        # before anything of the card: the C baseline runs on the host,
+        # and must run where no card is visible
+        from tpu_perf_torch.mpi_launch import run_mpi_backend
+
+        return run_mpi_backend(opts, hosts=args.hosts, dry_run=args.dry_run)
+    if args.dry_run or args.hosts:
+        # both are mpirun launcher knobs; a local run under cluster host
+        # names would mislabel its rows as cluster results
+        flag = "--dry-run" if args.dry_run else "--hosts"
+        print(f"tpu-perf-torch: error: {flag} applies to --backend mpi (the "
+              "torch backend runs in-process)", file=sys.stderr)
+        return 2
+
+    from tpu_perf_torch.driver import Driver
+
     on_rotate = None
     if opts.logfolder:
         # the ingest pass (both families, through the `ingest` subcommand)
@@ -86,7 +112,7 @@ def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
         # (mpi_perf.c:363-364); TPU_PERF_INGEST_CMD overrides the command
         from tpu_perf_torch.ingest import SubprocessIngest, ingest_command
 
-        on_rotate = SubprocessIngest(ingest_command(opts.logfolder, 1))
+        on_rotate = SubprocessIngest(ingest_command(opts.logfolder, opts.ppn))
     try:
         rows = Driver(opts, on_rotate=on_rotate).run()
     finally:
@@ -340,11 +366,39 @@ def _add_run_flags(p: argparse.ArgumentParser) -> None:
                    help="unidirectional + ack kernel (pingpong_unidir)")
     p.add_argument("-r", "--runs", type=int, default=1,
                    help="measured runs (-1 = infinite, as monitor)")
+    p.add_argument("-p", "--ppn", type=int, default=1,
+                   help="flows per node (NumOfFlows)")
     p.add_argument("-x", "--nonblocking", action=_ZeroOne,
-                   help="both directions at once (exchange)")
+                   help="windowed exchange kernel (both directions at once)")
+    p.add_argument("-d", "--extern-cmd", nargs="?", const=DEFAULT_TEMPLATE,
+                   default=None, metavar="TEMPLATE",
+                   help="print-only external launcher mode: render TEMPLATE "
+                        "({role} {ip} {port} {flows} {bytes} {iters}) per "
+                        "process instead of running a kernel")
+    p.add_argument("-f", "--group1-file", default=None,
+                   help="group-1 hostnames (validation)")
+    p.add_argument("-n", "--group1-hosts", type=int, default=0,
+                   help="expected group-1 host count (cross-checked against "
+                        "the -f file, mpi_perf.c:287-289)")
+    p.add_argument("--window", type=int, default=1,
+                   help="buffers in flight (exchange)")
+    p.add_argument("--backend", choices=BACKENDS, default="torch",
+                   help="torch runs this package on the card; mpi runs the "
+                        "repo's C baseline (backends/mpi) on the host")
+    p.add_argument("--hosts", default=None,
+                   help="mpi backend: comma-separated hosts for the real "
+                        "mpirun launch (omit to run the no-MPI pthread "
+                        "shim on this machine)")
+    p.add_argument("--dry-run", action="store_true",
+                   help="mpi backend: print the exact launch command "
+                        "instead of executing it (DRY_RUN=1 in the "
+                        "profile scripts)")
     p.add_argument("--op", default="pingpong",
-                   help="measurement op (see `ops`); -u / -x pick the "
-                        "kernel when it is the default pingpong")
+                   help="measurement op (see `ops`), or a comma-separated "
+                        "family: the run walks it op by op, the daemon "
+                        "round-robins over every (op, size) point; -u / "
+                        "-x pick the kernel when it is the default "
+                        "pingpong")
     p.add_argument("--sweep", default=None,
                    help="size sweep, e.g. 8:1G or 8,64K,4M")
     p.add_argument("--fence", choices=FENCE_MODES, default="block",
@@ -371,6 +425,10 @@ def _add_run_flags(p: argparse.ArgumentParser) -> None:
                    help="daemon mode (monitor, -r -1): stop after N "
                         "measured runs (the soak/CI safety valve)")
     p.add_argument("--stats-every", type=int, default=1000)
+    p.add_argument("--heartbeat-format", choices=HEARTBEAT_FORMATS,
+                   default="human",
+                   help="stderr heartbeat format; json emits one machine-"
+                        "readable object per stats boundary")
     p.add_argument("--log-refresh-sec", type=int,
                    default=LOG_REFRESH_TIME_SEC)
     p.add_argument("--csv", action="store_true",

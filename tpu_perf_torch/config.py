@@ -4,8 +4,11 @@ Defaults and validation messages are the JAX package's
 (``tpu_perf/config.py``): op ``pingpong``, iters 10 (mpi_perf.c:15), buffer
 456131 bytes (mpi_perf.c:14), one run, the same payload dtypes and fence
 names, ``-u`` / ``-x``, ``-r -1`` for the infinite daemon, and the
-fused fence's chunk count.  The additions are the sim world's rank count
-and the device.  The windowed ``-x`` (``--window``) is not ported yet.
+fused fence's chunk count, ``-p`` flows per node, the windowed ``-x``
+(``--window``), the ``-f`` / ``-n`` group-1 file, ``-d`` the print-only
+external launcher, ``--backend mpi`` and the JSON heartbeat.  The
+additions are the sim world's rank count and the device; ``backend``
+names ``torch`` where the JAX package names ``jax``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,11 @@ SUPPORTED_DTYPES = ("float32", "bfloat16", "float16", "int32", "uint8")
 #: how a timed call is fenced (tpu_perf_torch.timing); the JAX package's
 #: names
 FENCE_MODES = ("block", "readback", "slope", "trace", "fused", "auto")
+#: who runs the measurement: this package on the card, or the repo's C
+#: baseline (backends/mpi) on the host
+BACKENDS = ("torch", "mpi")
+#: the stderr heartbeat's formats
+HEARTBEAT_FORMATS = ("human", "json")
 
 
 def new_job_id() -> str:
@@ -46,12 +54,25 @@ class Options:
 
     logfolder: str | None = None      # -l
     iters: int = DEF_ITERS            # -i
+    ppn: int = 1                      # -p  (flows per node; NumOfFlows column)
     buff_sz: int = DEF_BUF_SZ         # -b
     num_runs: int = 1                 # -r  (-1 = infinite daemon mode)
     uuid: str = dataclasses.field(default_factory=new_job_id)
-    op: str = "pingpong"              # the reference's blocking ping-pong
+    op: str = "pingpong"              # the reference's blocking ping-pong,
+                                      # or a comma-separated family
     uni_dir: bool = False             # -u: payload one way, 1-element ack back
     nonblocking: bool = False         # -x: both directions at once (exchange)
+    extern_cmd: str | None = None     # -d: print-only external launcher
+                                      # template (mpi_perf.c:147-168); takes
+                                      # precedence over every kernel
+    window: int = 1                   # buffers in flight for -x (MAX_REQ_NUM
+                                      # analogue, mpi_perf.c:88)
+    group1_file: str | None = None    # -f: hostnames of group 1
+    n_group1: int = 0                 # -n: expected group-1 host count,
+                                      # checked against the file (0 =
+                                      # unchecked; mpi_perf.c:287-289)
+    backend: str = "torch"            # BACKENDS
+    heartbeat_format: str = "human"   # HEARTBEAT_FORMATS
     sweep: str | None = None          # e.g. "8:1G"; None = single buff_sz point
     dtype: str = "float32"
     log_refresh_sec: int = LOG_REFRESH_TIME_SEC
@@ -75,6 +96,36 @@ class Options:
             raise ValueError(f"buff_sz must be positive, got {self.buff_sz}")
         if self.num_runs == 0 or self.num_runs < -1:
             raise ValueError(f"num_runs must be positive or -1, got {self.num_runs}")
+        if self.ppn <= 0:
+            raise ValueError(f"ppn must be positive, got {self.ppn}")
+        if self.n_group1 < 0:
+            raise ValueError(f"n_group1 must be >= 0, got {self.n_group1}")
+        if self.n_group1 and not self.group1_file:
+            # a bare -n is the JAX package's stale iters spelling; ignoring
+            # it would run with the default iters
+            raise ValueError(
+                "-n/--group1-hosts needs -f/--group1-file (note: iters moved "
+                "to -i, matching the reference's flags)"
+            )
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"backend must be one of {'|'.join(BACKENDS)}, got "
+                f"{self.backend!r}")
+        if self.op == "extern" and not self.extern_cmd:
+            raise ValueError(
+                "op='extern' needs a command template (extern_cmd / -d)"
+            )
+        if self.window < 1:
+            raise ValueError(f"window must be >= 1, got {self.window}")
+        if self.window > 1 and not self.nonblocking and self.op not in (
+            "exchange", "ppermute",
+        ):
+            raise ValueError("window > 1 requires the windowed kernel (-x or op=exchange)")
+        if self.heartbeat_format not in HEARTBEAT_FORMATS:
+            raise ValueError(
+                "heartbeat_format must be 'human' or 'json', "
+                f"got {self.heartbeat_format!r}"
+            )
         if self.fence not in FENCE_MODES:
             raise ValueError(
                 f"fence must be one of {'|'.join(FENCE_MODES)}, got {self.fence!r}"

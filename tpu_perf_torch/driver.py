@@ -9,20 +9,30 @@ rotating CSV logs (port of ``tpu_perf/driver.py``).
   rotation of the legacy log fires the ingest hook (mpi_perf.c:483-490);
 * every ``stats_every`` runs a min/max/avg/p50 heartbeat goes to stderr
   (mpi_perf.c:564-568);
+* ``--heartbeat-format json`` prints the heartbeat as one JSON object a
+  line, with the JAX package's keys where this package has the value;
 * ``-r -1`` is the infinite daemon: one measured run per visit,
-  round-robin over the sweep's points, rows in the rotating logs only
-  (``mode="daemon"``), stopped by ``max_runs`` or a signal;
+  round-robin over every ``(op, nbytes)`` point of the op family and the
+  sweep, rows in the rotating logs only (``mode="daemon"``), stopped by
+  ``max_runs`` or a signal;
+* a finite run walks the family op by op, each over its sizes;
 * under ``--fence fused`` a finite point's whole budget is one replay of
   a CUDA graph per chunk, and a daemon visit one replay of its point's
-  one-run graph.
+  one-run graph;
+* ``-d`` (op ``extern``) runs no kernel: each run prints the rendered
+  external command to stderr and its rows record the print's wall time
+  (mpi_perf.c:147-168, 504-507);
+* ``-f`` / ``-n`` check the group-1 file against the sim world's ranks,
+  and ``-p`` fills the legacy rows' NumOfFlows.
 
-The multi-op daemon family, chaos, push and span paths of the JAX driver
-are not ported yet (ROADMAP).
+The chaos, push and span paths of the JAX driver are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import socket
 import sys
@@ -33,12 +43,14 @@ from tpu_perf_torch.config import Options
 from tpu_perf_torch.metrics import summarize
 from tpu_perf_torch.ops.collectives import BuiltOp
 from tpu_perf_torch.runner import (
-    SweepPointResult, build_point_pair, op_for_options, run_point_fused,
+    SweepPointResult, build_point_pair, ops_for_options, run_point_fused,
     sizes_for, world_for,
 )
 from tpu_perf_torch.schema import (
     EXT_PREFIX, LEGACY_PREFIX, LegacyRow, ResultRow, timestamp_now,
+    window_index,
 )
+from tpu_perf_torch.topology import validate_groups
 from tpu_perf_torch.timing import (
     FusedPoint, FusedRunner, RunTimes, fence, measure_overhead,
     resolve_fence, slope_sample, time_trace,
@@ -125,6 +137,17 @@ class RotatingCsvLog:
             self._fh = None
 
 
+@dataclasses.dataclass(frozen=True)
+class _ExternOp:
+    """Stand-in for BuiltOp in the print-only external-launcher mode
+    (mpi_perf.c:147-168): what row emission needs, no kernel."""
+
+    name: str
+    nbytes: int
+    iters: int
+    n_devices: int
+
+
 class Driver:
     """One benchmark invocation: a finite sweep, or the daemon (-r -1)."""
 
@@ -168,16 +191,38 @@ class Driver:
         self.legacy_rows: list[LegacyRow] = []
         # (op, nbytes) -> the launch floor of --measure-dispatch, seconds
         self._overhead_s: dict[tuple[str, int], float] = {}
+        # runs whose slope sample was lost to noise, over the whole job
+        self.dropped = 0
+        # (op, nbytes) -> recorded runs in the current heartbeat window
+        self._window_points: dict[tuple[str, int], int] = {}
+        if opts.group1_file:
+            self._validate_group_file(opts.group1_file)
+
+    def _validate_group_file(self, path: str) -> None:
+        """The reference's group-size check (mpi_perf.c:399-419): group-1
+        hosts * ppn must equal half the sim world's ranks, whose pairing
+        is positional (first half against second half), so the file only
+        validates counts.  A non-zero -n (mpi_perf.c:287-289) must match
+        the file too."""
+        with open(path) as fh:
+            hosts = [ln.strip() for ln in fh if ln.strip()]
+        if self.opts.n_group1 and self.opts.n_group1 != len(hosts):
+            raise ValueError(
+                f"-n {self.opts.n_group1} but {path} lists {len(hosts)} hosts"
+            )
+        validate_groups(self.world.n, len(hosts), self.opts.ppn)
 
     def run(self) -> list[ResultRow]:
         """Execute the configured job; returns the extended-schema rows
-        (none in daemon mode)."""
-        op = op_for_options(self.opts)
+        (none in daemon mode).  The plan is op-major: every size of the
+        family's first op, then the next op's."""
+        plan = [(op, nbytes) for op in ops_for_options(self.opts)
+                for nbytes in sizes_for(self.opts, op)]
         try:
             if self.opts.infinite:
-                self._run_daemon(op)
+                self._run_daemon(plan)
             else:
-                for nbytes in sizes_for(self.opts, op):
+                for op, nbytes in plan:
                     self._run_finite(op, nbytes)
         finally:
             if self.log is not None:
@@ -185,6 +230,28 @@ class Driver:
             if self.ext_log is not None:
                 self.ext_log.close()
         return self.result_rows
+
+    def _build(self, op: str, nbytes: int):
+        """One point's (built, built_hi) pair; extern builds nothing."""
+        if op == "extern":
+            return _ExternOp("extern", nbytes, self.opts.iters,
+                             self.world.n), None
+        return build_point_pair(self.opts, self.world, op, nbytes)
+
+    def _extern_command(self, nbytes: int) -> str:
+        """The external client/server command for this process, from the
+        two-group pair topology (mpi_perf.c:147-168).  One process drives
+        every sim rank: it is its own loopback pair, its peer's IP its
+        own."""
+        from tpu_perf_torch.extern_launch import (
+            pair_for_rank, render_extern_command,
+        )
+
+        group, peer = pair_for_rank(self.rank, 1)
+        return render_extern_command(
+            self.opts.extern_cmd, group=group, rank=self.rank,
+            peer_rank=peer, my_ip=self.ip, peer_ip=self.ip,
+            ppn=self.opts.ppn, buff_sz=nbytes, iters=self.opts.iters)
 
     def _warm(self, built: BuiltOp, built_hi: BuiltOp | None) -> None:
         fmode = "readback" if built_hi is not None else self.opts.fence
@@ -202,6 +269,14 @@ class Driver:
     def _measure(self, built: BuiltOp, built_hi) -> float | None:
         """One run's wall time for `iters` executions under opts.fence;
         None when a slope sample is lost to timing noise."""
+        if isinstance(built, _ExternOp):
+            # print-only, as the reference's commented-out system() call:
+            # the command goes to stderr every run and the run records the
+            # print's wall time (mpi_perf.c:157-165)
+            t0 = self.perf_clock()
+            print(self._extern_command(built.nbytes), file=self.err,
+                  flush=True)
+            return self.perf_clock() - t0
         if isinstance(built_hi, FusedRunner):
             # a fused daemon visit: one replay of the point's one-run graph
             return built_hi.chunk(1)[0]
@@ -228,8 +303,13 @@ class Driver:
                               built.example_input.device)
 
     def _run_finite(self, op: str, nbytes: int) -> None:
-        built, built_hi = build_point_pair(self.opts, self.world, op, nbytes)
+        built, built_hi = self._build(op, nbytes)
         window: list[float] = []
+        if isinstance(built, _ExternOp):
+            for run_id in range(1, self.opts.num_runs + 1):
+                self._record_run(built, run_id, self._measure(built, None),
+                                 window)
+            return
         if isinstance(built_hi, FusedPoint):
             # the whole budget in one graph replay a chunk, per-run device
             # times from the events inside the graph
@@ -257,18 +337,23 @@ class Driver:
                           "to noise, skipped", file=self.err)
                 self._record_run(built, run_id, t, window)
 
-    def _run_daemon(self, op: str) -> None:
+    def _run_daemon(self, plan: list[tuple[str, int]]) -> None:
         """Infinite monitoring: one measured run per visit, round-robin
-        over the sweep's points.  Every point is built (and warmed) before
-        run 1, so a bad combination fails before any row is written.
-        Points whose example inputs have the same spec share one buffer;
-        a fused daemon holds one warmed runner (a private working buffer
-        and a one-run graph) per point."""
+        over every (op, nbytes) point of the plan, so a family
+        (``--op a,b,c``) rotates the whole instrument set through one
+        daemon.  Every point is built (and warmed) before run 1, so a bad
+        combination fails before any row is written, and stays resident
+        for the daemon's life.  Points whose example inputs have the same
+        spec share one buffer; a fused daemon holds one warmed runner (a
+        private working buffer and a one-run graph) per point and never
+        captures again."""
         canon: dict[tuple, object] = {}
         points = []
-        for nbytes in sizes_for(self.opts, op):
-            built, built_hi = build_point_pair(self.opts, self.world, op,
-                                               nbytes)
+        for op, nbytes in plan:
+            built, built_hi = self._build(op, nbytes)
+            if isinstance(built, _ExternOp):
+                points.append((built, None))
+                continue
             x = built.example_input
             keep = canon.setdefault((tuple(x.shape), x.dtype, x.device), x)
             if keep is not x:
@@ -284,6 +369,7 @@ class Driver:
             else:
                 self._warm(built, built_hi)  # trace visits skip their own
             points.append((built, built_hi))
+        self._print_residency(points, len(canon))
         window: list[float] = []
         run_id = 0
         while self.opts.max_runs is None or run_id < self.opts.max_runs:
@@ -292,6 +378,24 @@ class Driver:
             self._record_run(built, run_id, self._measure(built, built_hi),
                              window)
 
+    def _print_residency(self, points, n_inputs: int) -> None:
+        """What the daemon holds on the device for its whole life: the
+        bytes of each point's input (shared by the points of one spec)
+        and, under the fused fence, of its private working buffer."""
+        held = []
+        for built, built_hi in points:
+            if isinstance(built, _ExternOp):
+                continue
+            x = built.example_input
+            nb = x.numel() * x.element_size()
+            if isinstance(built_hi, FusedRunner):
+                nb += nb  # the runner's working copy of the input
+            held.append(f"{built.name}/{built.nbytes}={nb}")
+        print(f"[tpu-perf-torch] daemon: {len(points)} points, {n_inputs} "
+              f"input buffer(s); bytes each point holds (input, and its "
+              f"working copy under fused): {', '.join(held) or 'none'}",
+              file=self.err, flush=True)
+
     def _record_run(self, built: BuiltOp, run_id: int, t: float | None,
                     window: list[float]) -> None:
         for log in (self.log, self.ext_log):
@@ -299,12 +403,43 @@ class Driver:
                 log.maybe_rotate()
         if t is not None:
             window.append(t)
+            key = (built.name, built.nbytes)
+            self._window_points[key] = self._window_points.get(key, 0) + 1
             self._emit(built, run_id, t)
+        else:
+            self.dropped += 1
         if run_id % self.opts.stats_every == 0:
             self._heartbeat(run_id, window)
             window.clear()
+            self._window_points.clear()
 
     def _heartbeat(self, run_id: int, samples: list[float]) -> None:
+        if self.opts.heartbeat_format == "json":
+            # one object a boundary, the JAX package's keys: `window` is
+            # the boundary's heartbeat-window index, `points` each
+            # (op, nbytes) point's recorded runs in the window
+            data = {
+                "event": "heartbeat",
+                "run": run_id,
+                "window": window_index(run_id, self.opts.stats_every),
+                "samples": len(samples),
+                "dropped": self.dropped,
+                "points": {
+                    f"{op}/{nbytes}": n
+                    for (op, nbytes), n in sorted(self._window_points.items())
+                },
+            }
+            if samples:
+                s = summarize(samples)
+                data.update(
+                    total_ms=sum(samples) * 1e3,
+                    min_ms=s["min"] * 1e3,
+                    max_ms=s["max"] * 1e3,
+                    avg_ms=s["avg"] * 1e3,
+                    p50_ms=s["p50"] * 1e3,
+                )
+            print(json.dumps(data, sort_keys=True), file=self.err, flush=True)
+            return
         if not samples:
             print(f"[tpu-perf-torch] run {run_id}: no samples this window",
                   file=self.err, flush=True)
@@ -334,7 +469,7 @@ class Driver:
             vm_count=1,
             local_ip=self.ip,
             remote_ip=self.ip,  # the sim ranks share this host
-            num_flows=1,
+            num_flows=self.opts.ppn,
             buffer_size=built.nbytes,
             num_buffers=built.iters,
             time_taken_ms=t * 1e3,

@@ -56,6 +56,9 @@ _BUS_FACTORS = {
     "pl_hbm_write": lambda n: 1.0,
     "pl_barrier": lambda n: 0.0,
     "pl_all_to_all": lambda n: (n - 1) / n if n > 1 else 1.0,
+    # print-only external launcher (mpi_perf.c:147-168): nothing crosses the
+    # wire; rows record only the wall time, like the reference's CSV does
+    "extern": lambda n: 0.0,
 }
 
 KNOWN_OPS = tuple(sorted(_BUS_FACTORS))

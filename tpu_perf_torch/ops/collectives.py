@@ -57,10 +57,11 @@ class BuiltOp:
 
     name: str
     step: Callable[[torch.Tensor], torch.Tensor]  # runs `iters` chained ops
-    example_input: torch.Tensor  # (n_devices, elems) on the world's device
+    example_input: torch.Tensor  # (n_devices, elems) on the world's device;
+                                 # windowed (n_devices, W, elems)
     nbytes: int  # actual message size in bytes (after rounding)
     n_devices: int
-    iters: int
+    iters: int  # messages a step moves: executions * window
 
 
 def payload_elems(op: str, nbytes: int, n: int, itemsize: int) -> tuple[int, int]:
@@ -119,14 +120,18 @@ def to_tensor(host: np.ndarray, dtype: str, device) -> torch.Tensor:
     return t.to(DTYPES[dtype]).to(device)
 
 
-def example_input(world: SimWorld, elems: int, dtype: str) -> torch.Tensor:
+def example_input(world: SimWorld, elems: int, dtype: str, *,
+                  window: int = 1) -> torch.Tensor:
     """The make_fill input in sim-world rows: global ``(n*elems,)`` ->
-    ``(n, elems)``, rank r on row r.  Computed on the world's device with
-    make_fill's float64 arithmetic (each step correctly rounded, so the
-    values are make_fill's bit for bit) and cast as :func:`to_tensor`
-    casts: a gigabyte buffer is not filled element by element on the
-    host.  The float64 staging goes in pieces of _FILL_PIECE elements."""
-    total = world.n * elems
+    ``(n, elems)``, rank r on row r; windowed, the fill of the global
+    ``(W, n*elems)`` in the sim world's ``(n, W, elems)``
+    (:func:`tpu_perf_torch.world.to_world`).  Computed on the world's
+    device with make_fill's float64 arithmetic (each step correctly
+    rounded, so the values are make_fill's bit for bit) and cast as
+    :func:`to_tensor` casts: a gigabyte buffer is not filled element by
+    element on the host.  The float64 staging goes in pieces of
+    _FILL_PIECE elements."""
+    total = window * world.n * elems
     out = torch.empty(total, dtype=DTYPES[dtype], device=world.device)
     for lo in range(0, total, _FILL_PIECE):
         hi = min(total, lo + _FILL_PIECE)
@@ -137,6 +142,8 @@ def example_input(world: SimWorld, elems: int, dtype: str) -> torch.Tensor:
         if DTYPES[dtype] in (torch.bfloat16, torch.float16):
             fill = fill.to(torch.float32)
         out[lo:hi] = fill
+    if window > 1:
+        return out.view(window, world.n, elems).transpose(0, 1).contiguous()
     return out.view(world.n, elems)
 
 
@@ -355,6 +362,8 @@ def _pingpong_unidir(world: SimWorld, dtype: torch.dtype) -> Callable:
 
 def _exchange(world: SimWorld, dtype: torch.dtype) -> Callable:
     # both directions of the pair permutation at once
+    # (tpu_perf_torch.topology.pair_permutation); on the windowed
+    # (n, W, elems) rows one shift moves every buffer of the window
     half = world.n // 2
     return lambda x: shift_rows(x, half)
 
@@ -437,9 +446,15 @@ def known_ops() -> list[str]:
 
 
 def build_op(op: str, world: SimWorld, nbytes: int, iters: int, *,
-             dtype: str = "float32",
+             dtype: str = "float32", window: int = 1,
              reuse_input: torch.Tensor | None = None) -> BuiltOp:
     """Build the measurement step for ``op`` at message size ``nbytes``.
+
+    ``window`` (``exchange`` / ``ppermute`` only) stacks W buffers that
+    every execution exchanges, the reference's windowed non-blocking
+    kernel (mpi_perf.c:85-125): the input is ``(n, W, elems)``, the row's
+    ``nbytes`` stays one message and ``iters`` counts ``iters * W``
+    messages, the JAX package's convention.
 
     ``reuse_input`` adopts an existing example buffer (the slope and trace
     fences build one op at two trip counts; the fill is identical, so one
@@ -458,6 +473,12 @@ def build_op(op: str, world: SimWorld, nbytes: int, iters: int, *,
             f"{op} reduces/multiplies its payload and needs a float dtype, "
             f"got {dtype} (byte-movement ops accept any dtype)"
         )
+    if op in PALLAS_OPS and window != 1:
+        raise ValueError("window does not apply to pallas ops")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if window > 1 and op not in ("exchange", "ppermute"):
+        raise ValueError(f"window only applies to exchange/ppermute, got {op!r}")
     if op in _NEEDS_EVEN and world.n % 2:
         raise ValueError(f"{op} needs an even device count, got {world.n}")
     if op in PALLAS_OPS:
@@ -468,7 +489,7 @@ def build_op(op: str, world: SimWorld, nbytes: int, iters: int, *,
         elems, actual = payload_elems(op, nbytes, world.n, itemsize)
         step = chained(OP_BUILDERS[op](world, DTYPES[dtype]), iters)
     if reuse_input is not None:
-        want = (world.n, elems)
+        want = (world.n, window, elems) if window > 1 else (world.n, elems)
         if (tuple(reuse_input.shape) != want
                 or reuse_input.dtype != DTYPES[dtype]
                 or reuse_input.device != world.device):
@@ -478,6 +499,6 @@ def build_op(op: str, world: SimWorld, nbytes: int, iters: int, *,
                 f"{DTYPES[dtype]}/{world.device}")
         x = reuse_input
     else:
-        x = example_input(world, elems, dtype)
+        x = example_input(world, elems, dtype, window=window)
     return BuiltOp(name=op, step=step, example_input=x, nbytes=actual,
-                   n_devices=world.n, iters=iters)
+                   n_devices=world.n, iters=iters * window)

@@ -33,12 +33,25 @@ _ROUND_TRIP_OPS = ("pingpong", "pl_pingpong")
 #: ops whose payload is fixed whatever -b / --sweep ask (sweeping them
 #: would time the identical kernel once per size)
 FIXED_PAYLOAD_OPS = ("barrier", "pl_barrier")
+#: the JAX package's uneven-payload ops (tpu_perf/scenarios/vops.py), named
+#: in the unknown-op error
+NOT_PORTED_V_OPS = ("allgatherv", "reduce_scatter_v", "all_to_all_v",
+                    "seg_allreduce")
 
 
 def op_for_options(opts: Options) -> str:
     """The kernel an Options selects, with the reference's precedence
-    (mpi_perf.c:504-523: nonblocking > unidir > blocking) when ``op`` is
-    the default pingpong; any other op is run as named."""
+    (mpi_perf.c:504-523: extern > nonblocking > unidir > blocking) when
+    ``op`` is the default pingpong; any other op is run as named."""
+    if opts.extern_cmd:
+        return "extern"
+    if "," in opts.op:
+        # a family reached a single-kernel path: truncating it to its
+        # first op would drop the rest without a word
+        raise ValueError(
+            f"op family {opts.op!r} is not valid here; this path runs a "
+            "single kernel (families are supported by run/monitor)"
+        )
     if opts.op != "pingpong":
         return opts.op
     if opts.nonblocking:
@@ -46,6 +59,31 @@ def op_for_options(opts: Options) -> str:
     if opts.uni_dir:
         return "pingpong_unidir"
     return "pingpong"
+
+
+def ops_for_options(opts: Options) -> list[str]:
+    """All kernels the job runs.  ``--op a,b,c`` names an instrument
+    family (the finite run walks it op by op, the daemon round-robins
+    over it); a single op keeps the reference's flag precedence.  An
+    empty family or an unknown name fails here, before any kernel has
+    run: a daemon must not die on its fifth op after four wrote rows."""
+    if "," not in opts.op:
+        return [op_for_options(opts)]
+    from tpu_perf_torch.ops.collectives import known_ops
+
+    ops = [s.strip() for s in opts.op.split(",") if s.strip()]
+    if not ops:
+        raise ValueError(f"empty op family {opts.op!r}")
+    unknown = [o for o in ops if o not in known_ops()]
+    if unknown:
+        raise ValueError(
+            f"unknown op(s) {unknown} in family {opts.op!r}; "
+            f"known: {sorted(known_ops())} (the v-ops {NOT_PORTED_V_OPS} "
+            "are not ported yet)"
+        )
+    if opts.extern_cmd:
+        raise ValueError("extern mode runs a single op, not a family")
+    return ops
 
 
 def world_for(opts: Options) -> SimWorld:
@@ -121,14 +159,15 @@ def build_point_pair(opts: Options, world: SimWorld, op: str, nbytes: int
     same op at ``iters * SLOPE_ITERS_FACTOR`` executions under slope/trace
     (sharing lo's example buffer), the point's :class:`FusedPoint` under
     fused, else None."""
-    built = build_op(op, world, nbytes, opts.iters, dtype=opts.dtype)
+    built = build_op(op, world, nbytes, opts.iters, dtype=opts.dtype,
+                     window=opts.window)
     if opts.fence == "fused":
         return built, build_fused_point(built, fused_plan_for(opts))
     built_hi = None
     if opts.fence in ("slope", "trace"):
         built_hi = build_op(op, world, nbytes,
                             opts.iters * SLOPE_ITERS_FACTOR,
-                            dtype=opts.dtype,
+                            dtype=opts.dtype, window=opts.window,
                             reuse_input=built.example_input)
     return built, built_hi
 
@@ -161,6 +200,10 @@ def run_point(opts: Options, world: SimWorld, nbytes: int, *,
         opts = dataclasses.replace(
             opts, fence=resolve_fence(opts.fence, world.device))
     op = op or op_for_options(opts)
+    if op == "extern":
+        raise ValueError(
+            "extern mode is print-only and runs through "
+            "tpu_perf_torch.driver.Driver")
     built, built_hi = build_point_pair(opts, world, op, nbytes)
     x = built.example_input
     if opts.fence == "fused":
@@ -170,7 +213,7 @@ def run_point(opts: Options, world: SimWorld, nbytes: int, *,
         per_exec = timer(built.step, built_hi.step, x, built.iters,
                          built_hi.iters, opts.num_runs,
                          warmup_runs=opts.warmup_runs)
-        times = RunTimes(samples=[t * opts.iters for t in per_exec.samples],
+        times = RunTimes(samples=[t * built.iters for t in per_exec.samples],
                          warmup_s=per_exec.warmup_s)
     else:
         times = time_step(built.step, x, opts.num_runs,

@@ -35,6 +35,12 @@ RESULT_HEADER = (
 )
 
 
+def window_index(run_id: int, stats_every: int) -> int:
+    """Heartbeat-window index of a run: runs ``1..stats_every`` and the
+    boundary heartbeat that covers them share window 0."""
+    return max(0, run_id - 1) // max(1, stats_every)
+
+
 def timestamp_now() -> str:
     """Wall-clock timestamp in the reference's format (mpi_perf.c:341-353):
     ``YYYY-MM-DD HH:MM:SS.mmm``, local time."""

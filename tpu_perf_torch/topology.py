@@ -1,0 +1,41 @@
+"""Two-group pairwise topology, pure logic (the parts of
+``tpu_perf/topology.py`` this package uses).
+
+The reference splits its ranks into two host groups: rank 0 reads a file
+of "group 1" hostnames (mpi_perf.c:405-431), and each rank's peer is the
+rank of the other group with the same group rank (get_peer_rank,
+mpi_perf.c:200-238).  In the sim world the pairing is positional: rank i
+of the first half pairs with rank i + n/2, which is what the exchange
+body's half shift (``ops.collectives._exchange``) moves; the group-1 file
+only validates counts (:func:`validate_groups`).
+"""
+
+from __future__ import annotations
+
+
+def validate_groups(world_size: int, group1_size: int, ppn: int) -> None:
+    """The reference's sanity check (mpi_perf.c:399-403): each group must
+    hold exactly half the world, i.e. group-1 hosts * ppn == world / 2."""
+    if world_size % 2 != 0:
+        raise ValueError(
+            f"world_size {world_size} must be even for pairwise runs")
+    expected = world_size // (2 * ppn)
+    if group1_size != expected:
+        raise ValueError(
+            f"group-1 size {group1_size} != world_size/(2*ppn) = {expected} "
+            f"(world={world_size}, ppn={ppn})"
+        )
+
+
+def pair_permutation(n: int) -> list[tuple[int, int]]:
+    """The pair topology on ``n`` ranks as ``(source, destination)``
+    pairs: rank i of group 0 (the first half) and rank i + n/2 of group 1
+    send to each other."""
+    if n % 2 != 0:
+        raise ValueError(f"need an even device count, got {n}")
+    half = n // 2
+    perm = []
+    for i in range(half):
+        perm.append((i, i + half))
+        perm.append((i + half, i))
+    return perm

@@ -11,6 +11,15 @@ The state both packages compute on is the JAX package's *global* layout,
 a ``(n * elems,)`` array sharded ``P(axis)``: device d holds elements
 ``[d*elems, (d+1)*elems)``.  :func:`to_world` and :func:`from_world`
 convert between that layout and the sim world's rows.
+
+The windowed exchange (``--window W``) has the JAX global shape
+``(W, n * elems)`` sharded ``P(None, axis)``: device d holds
+``[:, d*elems:(d+1)*elems]``, its W buffers.  The sim world keeps the rank
+axis first, ``(n, W, elems)``: rank r's W buffers are row r, one
+contiguous block as on a device, every row-wise body (the exchange's row
+shift) moves all W buffers of a rank in one slice copy, and one
+allocation holds every window.  W first would leave each rank's buffers
+strided over the allocation and make the shift run along axis 1.
 """
 
 from __future__ import annotations
@@ -59,18 +68,31 @@ class SimWorld:
 
 
 def to_world(global_np: np.ndarray, n: int) -> np.ndarray:
-    """JAX global ``(n*elems,)`` layout -> sim-world rows ``(n, elems)``."""
-    flat = np.asarray(global_np).reshape(-1)
+    """JAX global layout -> sim-world rows: ``(n*elems,)`` -> ``(n, elems)``,
+    and the windowed ``(W, n*elems)`` -> ``(n, W, elems)``."""
+    arr = np.asarray(global_np)
+    if arr.ndim == 2:
+        w, total = arr.shape
+        if total % n:
+            raise ValueError(f"{total} elements do not split over {n} ranks")
+        return np.ascontiguousarray(
+            arr.reshape(w, n, total // n).transpose(1, 0, 2))
+    flat = arr.reshape(-1)
     if flat.size % n:
         raise ValueError(f"{flat.size} elements do not split over {n} ranks")
     return flat.reshape(n, -1)
 
 
 def from_world(t: torch.Tensor) -> np.ndarray:
-    """Sim-world rows ``(n, elems)`` -> JAX global ``(n*elems,)`` layout, on
-    the host.  bfloat16 has no numpy dtype and comes back as float32
-    (exact: every bfloat16 value is a float32 value)."""
-    t = t.detach().reshape(-1).cpu()
+    """Sim-world rows -> JAX global layout, on the host: ``(n, elems)`` ->
+    ``(n*elems,)``, and the windowed ``(n, W, elems)`` -> ``(W, n*elems)``.
+    bfloat16 has no numpy dtype and comes back as float32 (exact: every
+    bfloat16 value is a float32 value)."""
+    t = t.detach().cpu()
+    if t.dim() == 3:
+        t = t.transpose(0, 1).reshape(t.shape[1], -1)
+    else:
+        t = t.reshape(-1)
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
