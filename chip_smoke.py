@@ -72,6 +72,24 @@ exits non-zero):
    the port's windowed exchange paired by ``report --compare``, ``--hosts
    --dry-run`` printing one ``mpirun`` line, ``-f`` / ``-n`` / ``-p``
    against the sim world (``-n 3`` refused before any kernel) and ``-d``;
+   then the compute instruments: ``run --op mxu_gemm --sim-ranks 1`` at m
+   = 4096 in float32 and bfloat16 (the output at ``-i 1`` against a plain
+   ``x @ q * a + b``, TFLOP/s against the card's peak for the dtype, one
+   device op an iteration in a ``--profile-dir`` trace), ``grid --spec
+   mxu`` over two sizes in each dtype, and ``overlap_ring`` at 8 ranks at
+   4 MiB and 256 MiB a rank beside ``ring`` and ``mxu_gemm`` at its own m
+   (the share of the ring hidden under the product, and its fused graph,
+   the side stream a parallel branch, against the eager chain); the stream
+   engine: ``run --streams 4`` over a six-op family (the serial run's rows
+   and launches, lanes 1–4), the counter race (``pl_ring`` beside
+   ``pl_exchange``, two sizes of the gather, the copy beside itself, on two
+   lanes 50 times, every output exact and each lane's counters zero), the
+   pingpong race beside a copy load in a process of its own under a
+   wall-clock limit, and ``contend`` on ``allreduce`` and ``pl_allreduce``
+   under ``mxu_gemm``, ``hbm_stream`` and ``pl_hbm_copy``, rendered by
+   ``report``'s interference matrix; and ``bench`` once (its JSON line,
+   the JAX one-device labels, each ratio against the detected card's
+   entry);
 6. run ``grid --spec hbm`` over the eight local memory ops at 256 MiB and
    1 GiB and print its verdict table, and show the read sweep's time
    growing with the bytes it reads;
@@ -1204,7 +1222,8 @@ def graph_ms(capture, want=None, replays: int = 50,
         capture()  # warm-up outside the graph, as capture asks
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warm-up's stream, whose kernel counters it made
+    with torch.cuda.graph(graph, stream=side):
         got = capture()
     graph.replay()
     torch.cuda.synchronize()
@@ -1278,6 +1297,8 @@ def _bulk_kernel_rows(per_rank_bytes: int, launches: dict) -> list[dict]:
         cuda_ms(lambda: y.view(n, nblocks, blk).copy_(seed), 10), x.shape))
     return out
 
+#: the card's name and power limit as nvidia-smi gives them (set in main)
+CARD = "card not read"
 #: the block main path's extended logs, for the report phase (a temporary
 #: folder made in main)
 REPORT_DIR: str | None = None
@@ -1324,7 +1345,9 @@ def _check_fused_point(op: str, ranks: int, nbytes: int) -> list[float]:
             want = start
             for _ in range(RUNS):
                 want = built.step(want)
-            if op in ARITH_OPS:
+            if op in GEMM_OPS:
+                check_gemm(what, runner.buffer, want, "float32")
+            elif op in ARITH_OPS:
                 check_close(what, runner.buffer, want, "float32")
             else:
                 check_exact(what, runner.buffer, want)
@@ -1949,6 +1972,435 @@ def phase_surface() -> None:
     _surface_groups_extern()
 
 
+#: the compute phase: mxu_gemm's matrix side on the path (m = 4096: 64 MiB
+#: in float32, 32 MiB in bfloat16)
+GEMM_M = 4096
+#: the product against a plain ``x @ q * a + b`` on the card:
+#: |got - want| <= tol * (1 + |want|).  The path folds the multiply-add
+#: into the product's epilogue and rounds once, the plain version rounds
+#: after each operation, and the two products may sum in other orders:
+#: a few units in the last place in float32, one in bfloat16.
+GEMM_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+#: the ops whose fused graph is held within GEMM_TOL of the eager chain
+GEMM_OPS = ("mxu_gemm", "overlap_ring")
+#: overlap_ring's ring payloads a rank, 8 ranks
+OVERLAP_BYTES = (4 * 1024**2, MAIN_BYTES)
+#: the overlapped sweep: an instrument family over two sizes, on 4 lanes
+STREAMS_FAMILY = ("pl_allreduce,pl_ring,pl_exchange,pl_all_gather,"
+                  "pl_hbm_copy,allreduce")
+STREAMS_SWEEP = "4K,16M"
+STREAMS_K = 4
+#: rounds of each two-lane counter race
+RACE_ROUNDS = 50
+#: wall-clock limit of the pingpong race's process, seconds
+PINGPONG_LIMIT_S = 240
+#: contend's loads and victims, 8 ranks at 4 MiB a rank
+CONTEND_LOADS = ("mxu_gemm", "hbm_stream", "pl_hbm_copy")
+CONTEND_VICTIMS = ("allreduce", "pl_allreduce")
+#: bench's JAX one-device labels: (label prefix, peak family, dtype)
+BENCH_LABELS = (("hbm_stream_busbw_p50@", "hbm", "float32"),
+                ("hbm_triad_busbw_p50@", "hbm", "float32"),
+                ("mxu_gemm_tflops_p50@m4096bf16[1dev]", "mxu", "bfloat16"))
+
+
+def check_gemm(what: str, got, want, dtype: str) -> float:
+    """A product against its plain version within GEMM_TOL."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {tuple(got.shape)} {got.dtype} != "
+             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.double(), want.double()
+    if not torch.isfinite(g).all():
+        fail(f"{what}: non-finite output")
+    bad = (g - w).abs() > GEMM_TOL[dtype] * (1 + w.abs())
+    err = max_abs_err(got, want)
+    if bad.any():
+        fail(f"{what}: {int(bad.sum())} of {g.numel()} elements off (max abs "
+             f"err {err:.3e}, tol {GEMM_TOL[dtype]} * (1 + |want|))")
+    return err
+
+
+def _gemm_plain(x, m: int, dtype: str):
+    """One mxu_gemm iteration in plain PyTorch operations: ``x @ q`` times
+    1.0000001 plus 1e-7, q and the constants rounded to the dtype."""
+    from tpu_perf_torch.ops.collectives import _ortho, to_tensor
+    from tpu_perf_torch.ops.stream_triton import stream_constants
+
+    q = to_tensor(_ortho(m), dtype, x.device)
+    a, b = (c.to(x.device) for c in stream_constants(x.dtype))
+    return (x.reshape(-1, m) @ q * a + b).view(x.shape)
+
+
+def _trace_kernels(argv: list[str], what: str, per: int) -> tuple:
+    """``argv`` under --profile-dir: the device work in the one kept trace
+    (kernels, copies and sets), by name, and its count over ``per`` (the
+    iterations measured)."""
+    import glob
+    import tempfile
+
+    from tpu_perf_torch.traceparse import (
+        DEVICE_CATEGORIES, device_summary, read_events,
+    )
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-trace-") as pdir:
+        _drive(argv + ["--profile-dir", pdir], what)
+        traces = glob.glob(os.path.join(pdir, "*.json"))
+        if len(traces) != 1:
+            fail(f"{what}: traces {traces}, want one")
+        s = device_summary(traces[0])
+        names: dict[str, int] = {}
+        for e in read_events(traces[0]):
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES:
+                name = f"{e['cat']}:{e.get('name', '')[:50]}"
+                names[name] = names.get(name, 0) + 1
+    return sum(names.values()) / per, names, s
+
+
+def _compute_path(dtype: str) -> None:
+    """run --op mxu_gemm at m = GEMM_M on one rank through the CLI, its
+    output at -i 1 against the plain product, its TFLOP/s against the
+    card's peak, and its kernels an iteration from a trace."""
+    import torch
+
+    from tpu_perf_torch.chips import card_peak, card_spec
+    from tpu_perf_torch.metrics import flops_per_iter_dtype
+    from tpu_perf_torch.ops.collectives import DTYPES, build_op
+    from tpu_perf_torch.world import SimWorld, resolve_device
+
+    nbytes = GEMM_M * GEMM_M * DTYPES[dtype].itemsize
+    what = f"run --op mxu_gemm --dtype {dtype}"
+    argv = ["run", "--op", "mxu_gemm", "-b", str(nbytes), "--dtype", dtype,
+            "-i", str(ITERS), "-r", str(RUNS), "--sim-ranks", "1"]
+    got, rows, wall = _drive(argv + ["--fence", "trace"], what)
+    if any(got.values()):
+        fail(f"{what}: launched kernels {got} (a library product)")
+    if len(rows) != RUNS or {(r.op, r.nbytes, r.backend, r.dtype)
+                             for r in rows} != {("mxu_gemm", nbytes, "torch",
+                                                 dtype)}:
+        fail(f"{what}: rows {rows}")
+    flops = flops_per_iter_dtype("mxu_gemm", nbytes, dtype)
+    tflops = _median([flops / (r.lat_us * 1e-6) / 1e12 for r in rows])
+    peak = card_peak(card_spec(torch.cuda.get_device_name(0)), "mxu", dtype)
+    built = build_op("mxu_gemm", SimWorld(1, resolve_device()), nbytes, 1,
+                     dtype=dtype)
+    x = built.example_input
+    err = check_gemm(f"{what} output at -i 1", built.step(x),
+                     _gemm_plain(x, GEMM_M, dtype), dtype)
+    del built, x
+    per_iter, names, _ = _trace_kernels(
+        argv + ["--fence", "block"], f"{what} --profile-dir", RUNS * ITERS)
+    kernels = {k: c for k, c in names.items() if k.startswith("kernel:")}
+    if len(kernels) != 1 or not 0 < sum(kernels.values()) <= RUNS * ITERS:
+        # the wrap-add belongs in the product's epilogue: the only kernel
+        # of the window is the product, one an iteration (the profiler may
+        # miss the window's first few: the count is at most one), beside
+        # whatever copies or sets the library issues with it
+        fail(f"{what}: {per_iter:g} device ops an iteration ({names})")
+    print(f"compute: {what} at m={GEMM_M} ({nbytes} B), -i {ITERS} -r "
+          f"{RUNS}, trace fence: TFLOP/s p50 {tflops:.1f}, "
+          f"{tflops / peak:.1%} of the card's {peak:g} ({CARD}); lat p50 "
+          f"{_median([r.lat_us for r in rows]):.1f} us; output at -i 1 "
+          f"max abs err {err:.3e} against x @ q * a + b (tol "
+          f"{GEMM_TOL[dtype]} * (1 + |want|)); device ops an iteration "
+          f"{per_iter:g}: {names} ({wall:.1f} s)")
+
+
+def _compute_grid() -> None:
+    """grid --spec mxu over two sizes in bfloat16 and float32, each judged
+    against the card's peak for its dtype."""
+    import contextlib
+    import io
+
+    from tpu_perf_torch import cli
+
+    for dtype, sizes in (("bfloat16", "8M,32M"), ("float32", "16M,64M")):
+        argv = ["grid", "--op", "mxu_gemm", "--sizes", sizes, "--iters",
+                "10,20", "-r", "5", "--fence", "trace", "--spec", "mxu",
+                "--dtype", dtype, "--sim-ranks", "1"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        table = out.getvalue()
+        if rc != 0 or "TFLOP/s spec ceiling" not in table:
+            fail(f"{' '.join(argv)} exited {rc}:\n{table}")
+        print(f"compute: {' '.join(argv)}:\n{table.rstrip()}")
+
+
+def _overlap_shares() -> None:
+    """overlap_ring at 8 ranks beside ring and mxu_gemm at its own m: the
+    share of the ring's time hidden under the product, and the fused
+    graph (the side stream a parallel branch) against the eager chain."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import _overlap_split, payload_elems
+
+    for nbytes in OVERLAP_BYTES:
+        elems, _ = payload_elems("overlap_ring", nbytes, 8, 4)
+        _, m = _overlap_split(elems)
+        lat = {}
+        for op, b in (("ring", nbytes), ("mxu_gemm", m * m * 4),
+                      ("overlap_ring", nbytes)):
+            # the earlier phases' cached blocks go back to the card first:
+            # a 2 GiB output that fits none of them would otherwise make
+            # the allocator free its cache (a synchronize) inside a timed
+            # run, and a device-time pair would read it as a stall
+            torch.cuda.empty_cache()
+            what = f"run --op {op} -b {b} --sim-ranks 8"
+            got, rows, _ = _drive(["run", "--op", op, "-b", str(b), "-i",
+                                   str(ITERS), "-r", str(RUNS), "--sim-ranks",
+                                   "8", "--fence", "trace"], what)
+            if any(got.values()) or len(rows) != RUNS:
+                fail(f"{what}: launches {got}, {len(rows)} rows")
+            lat[op] = _median([r.lat_us for r in rows])
+        hidden = (lat["ring"] + lat["mxu_gemm"] - lat["overlap_ring"]) \
+            / lat["ring"]
+        per_iter, names, s = _trace_kernels(
+            ["run", "--op", "overlap_ring", "-b", str(nbytes), "-i",
+             str(ITERS), "-r", str(RUNS), "--sim-ranks", "8"],
+            f"overlap_ring -b {nbytes} --profile-dir", RUNS * ITERS)
+        times = _check_fused_point("overlap_ring", 8, nbytes)
+        print(f"compute: overlap_ring at {nbytes} B/rank, 8 ranks, m={m} "
+              f"float32, trace fence: lat p50 ring {lat['ring']:.1f} us, "
+              f"mxu_gemm {lat['mxu_gemm']:.1f} us, overlap_ring "
+              f"{lat['overlap_ring']:.1f} us: hidden share {hidden:.3f}; "
+              f"block-fenced trace: {per_iter:g} device ops an iteration "
+              f"{names}, idle share {s.idle_share:.4f}; fused graph = eager "
+              f"chain, {_median(times) * 1e3:.4f} ms a run")
+
+
+def phase_compute() -> None:
+    for dtype in ("float32", "bfloat16"):
+        _compute_path(dtype)
+    _compute_grid()
+    _overlap_shares()
+
+
+def _streams_sweep() -> None:
+    """The family over two sizes serially and on STREAMS_K lanes: the same
+    (op, nbytes, run) rows and the same launches, each lane row's stream
+    in 1..K."""
+    base = ["run", "--op", STREAMS_FAMILY, "--sweep", STREAMS_SWEEP, "-i",
+            str(ITERS), "-r", str(RUNS), "--sim-ranks", "8"]
+    got_s, rows_s, wall_s = _drive(base, "run (serial family)")
+    got_k, rows_k, wall_k = _drive(base + ["--streams", str(STREAMS_K)],
+                                   f"run --streams {STREAMS_K}")
+
+    def coords(rows):
+        return sorted((r.op, r.nbytes, r.run_id) for r in rows)
+
+    lanes = {r.stream for r in rows_k}
+    if coords(rows_s) != coords(rows_k) or not lanes <= set(
+            range(1, STREAMS_K + 1)) or {r.stream for r in rows_s} != {0}:
+        fail(f"run --streams {STREAMS_K}: rows {coords(rows_k)} lanes "
+             f"{lanes}, serial {coords(rows_s)}")
+    if got_s != got_k or not any(got_k.values()):
+        fail(f"run --streams {STREAMS_K}: launches {got_k}, serial {got_s}")
+    print(f"streams: run --op {STREAMS_FAMILY} --sweep {STREAMS_SWEEP} -i "
+          f"{ITERS} -r {RUNS} --sim-ranks 8: {len(rows_k)} rows on lanes "
+          f"{sorted(lanes)}, the serial run's (op, nbytes, run) set and "
+          f"launches { {k: v for k, v in got_k.items() if v} }; wall "
+          f"{wall_k:.2f} s on {STREAMS_K} streams, {wall_s:.2f} s serial")
+
+
+def check_counter_race(rounds: int = RACE_ROUNDS) -> None:
+    """Kernels that draw tiles from device counters, two at once on two
+    lanes, ``rounds`` times: pl_ring beside pl_exchange (one row-shift
+    source), two sizes of the gather, the copy beside itself.  Every
+    output equals its plain version exactly, and each lane's counters end
+    at zero."""
+    import torch
+
+    from tpu_perf_torch.ops.pallas_ring import (
+        direct_all_gather, direct_all_gather_plain, hbm_copy, hbm_copy_plain,
+        pair_exchange, pair_exchange_plain, ring_shift, ring_shift_plain,
+        row_copy_counters,
+    )
+    from tpu_perf_torch.ops.collectives import make_fill, to_tensor
+    from tpu_perf_torch.streams.engine import StreamEngine
+
+    def fill(shape):
+        total = shape[0] * shape[1]
+        return to_tensor(make_fill(total, "float32").reshape(shape),
+                         "float32", "cuda")
+
+    row = 4 * 1024**2  # 16 MiB a rank
+    races = (
+        ("pl_ring beside pl_exchange", "p2p_shift",
+         (ring_shift, ring_shift_plain, fill((8, row))),
+         (pair_exchange, pair_exchange_plain, fill((8, row)).roll(1, 1))),
+        ("two sizes of pl_all_gather", "all_gather",
+         (direct_all_gather, direct_all_gather_plain, fill((8, 2**21))),
+         (direct_all_gather, direct_all_gather_plain, fill((8, 2**20 + 5)))),
+        ("pl_hbm_copy beside itself", "hbm_copy",
+         (hbm_copy, hbm_copy_plain, fill((8, row))),
+         (hbm_copy, hbm_copy_plain, fill((1, 8 * row + 3)))),
+    )
+    said = []
+    for name, source, *sides in races:
+        wants = [plain(x) for _, plain, x in sides]
+        engine = StreamEngine(2)
+        t0 = time.perf_counter()
+        for i in range(rounds):
+            outs = [engine.dispatch(lane, kern, x)
+                    for lane, (kern, _, x) in enumerate(sides)]
+            engine.fence_all()
+            for lane, (out, want) in enumerate(zip(outs, wants)):
+                check_exact(f"counter race {name}, round {i}, lane {lane}",
+                            out, want)
+        wall = time.perf_counter() - t0
+        for lane in range(2):
+            with torch.cuda.stream(engine._lanes[lane]):
+                counters = row_copy_counters(source, sides[0][2].device)
+                if counters.any():
+                    fail(f"counter race {name}: lane {lane}'s counters "
+                         f"{counters.tolist()}")
+        said.append(f"{name} {wall * 1e3 / rounds:.3f} ms a round")
+    print(f"streams: counter race, {rounds} rounds each on two lanes, every "
+          f"output equal to its plain version, each lane's counters zero: "
+          f"{'; '.join(said)}")
+
+
+def race_pingpong(rounds: int = RACE_ROUNDS) -> None:
+    """pl_pingpong (pair counters, a spin-wait) on lane 0 beside a
+    pl_hbm_copy load on lane 1, ``rounds`` times; run by phase_streams in
+    a process of its own under a wall-clock limit."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import make_fill, to_tensor
+    from tpu_perf_torch.ops.pallas_ring import (
+        hbm_copy, pingpong, pingpong_counters,
+    )
+    from tpu_perf_torch.streams.engine import StreamEngine
+
+    x = to_tensor(make_fill(8 * 114033, "float32").reshape(8, -1), "float32",
+                  "cuda")
+    big = torch.arange(64 * 1024**2, dtype=torch.float32,
+                       device="cuda").view(1, -1)
+    engine = StreamEngine(2)
+    t0 = time.perf_counter()
+    for i in range(rounds):
+        copied = engine.dispatch(1, hbm_copy, big)
+        back = engine.dispatch(0, lambda y: pingpong(y)[0], x)
+        engine.fence_all()
+        check_exact(f"pingpong race round {i}", back, x)
+        check_exact(f"pingpong race load round {i}", copied, big)
+    wall = time.perf_counter() - t0
+    with torch.cuda.stream(engine._lanes[0]):
+        counters = pingpong_counters(x.device, 4)
+        if counters.any():
+            fail(f"pingpong race: pair counters {counters.tolist()}")
+    print(f"pingpong race: {rounds} round trips at (8, 114033) beside a "
+          f"256 MiB pl_hbm_copy on the other lane returned their input, "
+          f"pair counters zero, {wall * 1e3 / rounds:.3f} ms a round")
+
+
+def _contend() -> None:
+    """contend on allreduce and pl_allreduce at 8 ranks under each load,
+    then report's interference matrix over their rows."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_perf_torch import cli
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-contend-") as keep:
+        said = []
+        for victim in CONTEND_VICTIMS:
+            for load in CONTEND_LOADS:
+                what = f"contend --op {victim} --load {load}"
+                got, rows, wall = _drive(
+                    ["contend", "--op", victim, "--load", load, "-b",
+                     str(HEADLINE_BYTES), "-i", str(ITERS), "-r", "10",
+                     "--sim-ranks", "8"], what, keep=keep)
+                idle = [r for r in rows if not r.load]
+                loaded = [r for r in rows if r.load]
+                needs = set(PATHS.get(victim, ({}, 0))[0])
+                needs |= set(PATHS.get(load, ({}, 0))[0])
+                if (len(idle) != 10 or len(loaded) != 10
+                        or {r.stream for r in idle} != {0}
+                        or {(r.load, r.stream) for r in loaded} != {(load, 1)}
+                        or {k for k, v in got.items() if v} != needs):
+                    fail(f"{what}: {len(idle)} idle and {len(loaded)} loaded "
+                         f"rows, launches {got}")
+                slow = (_median([r.lat_us for r in loaded])
+                        / _median([r.lat_us for r in idle]))
+                said.append(f"{victim} under {load} x{slow:.3f}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["report", keep])
+        text = out.getvalue()
+        matrix = text.split("### Interference matrix", 1)[-1]
+        cells = [ln for ln in matrix.splitlines() if ln.startswith("| ")
+                 and not ln.startswith("| op ")]
+        if rc != 0 or "### Interference matrix" not in text or len(cells) != \
+                len(CONTEND_VICTIMS) * len(CONTEND_LOADS):
+            fail(f"report over contend's rows: rc {rc}, matrix {cells}")
+    print(f"streams: contend at {HEADLINE_BYTES} B/rank, 8 ranks, -i {ITERS} "
+          f"-r 10, block fence, loaded p50 over idle p50: {', '.join(said)}; "
+          f"report's interference matrix:\n" + "\n".join(cells))
+
+
+def phase_streams() -> None:
+    _streams_sweep()
+    check_counter_race()
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; "
+             "chip_smoke.race_pingpong()"], cwd=here, capture_output=True,
+            text=True, timeout=PINGPONG_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"pingpong race: no end within {PINGPONG_LIMIT_S} s (deadlock)")
+    if out.returncode != 0:
+        fail(f"pingpong race exited {out.returncode}:\n{out.stderr[-4000:]}")
+    print(f"streams: {out.stdout.strip()}")
+    _contend()
+
+
+def phase_bench() -> None:
+    """``bench`` once through the CLI: its JSON line, the JAX one-device
+    labels, and each ratio against the detected card's entry."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tpu_perf_torch import cli
+    from tpu_perf_torch.chips import card_peak, card_spec
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["bench"])
+    wall = time.perf_counter() - t0
+    line = out.getvalue().strip().splitlines()[-1]
+    print(line)
+    payload = json.loads(line)
+    spec = card_spec(torch.cuda.get_device_name(0))
+    inst = payload["metrics"][:len(BENCH_LABELS)]
+    if rc != 0 or payload["metric"] != inst[0]["metric"]:
+        fail(f"bench: rc {rc}, headline {payload['metric']}")
+    for m, (label, family, dtype) in zip(inst, BENCH_LABELS):
+        want = m["value"] / card_peak(spec, family, dtype)
+        if (not m["metric"].startswith(label) or m["vs_peak"] is None
+                or abs(m["vs_peak"] - want) > 1e-3 * want):
+            fail(f"bench: {m} against {label} and the {spec.kind} "
+                 f"{family} peak")
+    d, c = payload["dispatch_overhead"], payload["contention"]
+    if len(d["points"]) != 3 or not c["slowdown"] > 0:
+        fail(f"bench: dispatch_overhead {d}, contention {c}")
+    print(f"bench: {len(payload['metrics'])} metrics in {wall:.1f} s; "
+          + "; ".join(f"{m['metric']} {m['value']} {m['unit']} "
+                      f"({m['vs_peak']:.1%} of the {spec.kind} peak)"
+                      for m in inst)
+          + "; dispatch_overhead host/overlapped/fused us "
+          + ", ".join(f"{p['nbytes']} B {p['host_us']:.2f}/"
+                      f"{p['overlapped_us']:.2f}/{p['fused_us']:.2f}"
+                      for p in d["points"])
+          + f"; contention slowdown {c['slowdown']:.3f} ({CARD})")
+
+
 def main() -> int:
     import torch
 
@@ -1964,6 +2416,8 @@ def main() -> int:
          f"--id={torch.cuda.current_device()}"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
+    global CARD
+    CARD = smi
     # the card's published rates, for every bound below; a card the port's
     # table does not hold fails here
     hbm, f32 = card_rates()
@@ -1993,6 +2447,9 @@ def main() -> int:
         timed("daemon", phase_daemon)
         timed("report", phase_report)
         timed("surface", phase_surface)
+        timed("compute", phase_compute)
+        timed("streams", phase_streams)
+        timed("bench", phase_bench)
     finally:
         shutil.rmtree(REPORT_DIR, ignore_errors=True)
     timed("selftest", phase_selftest)

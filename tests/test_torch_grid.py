@@ -173,11 +173,17 @@ def test_grid_cli_exits_4_when_an_op_has_no_ok_cell(capsys):
 
 @pytest.mark.parametrize("extra", [["--spec", "mxu"], ["--spec-tflops", "1"],
                                    ["--floor-tflops", "1"]])
-def test_compute_grids_are_not_yet_ported(extra, capsys):
+def test_compute_grids_are_not_yet_ported(extra, monkeypatch, capsys):
+    # compute grids are ported now: a bandwidth op in one is refused for
+    # having no FLOP model, never as "not yet ported"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *a: "NVIDIA H100 80GB HBM3")
     rc = cli.main(["grid", "--op", "hbm_stream", "--sizes", "4K", "--iters",
                    "1", "--device", "cpu"] + extra)
     assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "not yet ported" not in err and "no FLOP model" in err
 
 
 def test_spec_hbm_without_a_card_names_the_flag(monkeypatch, capsys):

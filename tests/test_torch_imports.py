@@ -45,13 +45,18 @@ def test_no_module_of_the_port_imports_jax_or_tpu_perf():
     assert bad == "[]"
 
 
-#: the modules of the fences, report and daemon slice, and of the run
-#: surface (the group topology, the external launcher, the C baseline)
+#: the modules of the fences, report and daemon slice, of the run surface
+#: (the group topology, the external launcher, the C baseline), and of the
+#: compute instruments, the stream engine, contend and bench
 SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.ingest", "tpu_perf_torch.ingest.pipeline",
                  "tpu_perf_torch.timing", "tpu_perf_torch.driver",
                  "tpu_perf_torch.topology", "tpu_perf_torch.extern_launch",
-                 "tpu_perf_torch.mpi_launch")
+                 "tpu_perf_torch.mpi_launch", "tpu_perf_torch.streams",
+                 "tpu_perf_torch.streams.engine",
+                 "tpu_perf_torch.streams.plans",
+                 "tpu_perf_torch.streams.contend", "tpu_perf_torch.bench",
+                 "tpu_perf_torch.grid", "tpu_perf_torch.selftest")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

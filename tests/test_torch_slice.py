@@ -171,26 +171,102 @@ def test_selftest_models_pass_on_the_cpu(dtype, n, iters):
 def test_selftest_cli_and_ops_listing(capsys):
     # at 5 ranks the six pair ops (even rank counts only) skip
     assert cli.main(["selftest", "--device", "cpu", "--sim-ranks", "5"]) == 0
-    assert "24 ok, 6 skipped, 0 failed" in capsys.readouterr().out
+    assert "26 ok, 6 skipped, 0 failed" in capsys.readouterr().out
     assert cli.main(["ops"]) == 0
     listed = capsys.readouterr().out.splitlines()
     assert "pl_allreduce" in listed and "pl_all_to_all" in listed
 
 
-def test_bench_prints_one_labelled_json_line(monkeypatch, capsys):
+def _small_bench(monkeypatch):
+    """bench's sizes patched small (they are module constants)."""
     import tpu_perf_torch.bench as bench
 
+    monkeypatch.setattr(bench, "STREAM_POINTS", ((1, 2), (1, 3)))
+    monkeypatch.setattr(bench, "STREAM_RUNS", 3)
+    monkeypatch.setattr(bench, "MXU_M", 128)
+    monkeypatch.setattr(bench, "MXU_ITERS", 2)
+    monkeypatch.setattr(bench, "MXU_RUNS", 3)
+    monkeypatch.setattr(bench, "DISPATCH_RUNS", 4)
+    monkeypatch.setattr(bench, "CONTEND_RUNS", 3)
     monkeypatch.setattr(bench, "STREAM_POINT", (4096, 2, 2))
     monkeypatch.setattr(bench, "ALLREDUCE_POINT", (8, 4096, 2, 2))
+    return bench
+
+
+#: bench's JAX one-device labels at the patched sizes: (label, peak
+#: family, dtype)
+BENCH_SET = (("hbm_stream_busbw_p50@1MiB[1dev]", "hbm", "float32"),
+             ("hbm_triad_busbw_p50@1MiB[1dev]", "hbm", "float32"),
+             ("mxu_gemm_tflops_p50@m128bf16[1dev]", "mxu", "bfloat16"))
+
+
+def test_bench_prints_one_labelled_json_line(monkeypatch, capsys):
+    _small_bench(monkeypatch)
     assert cli.main(["bench", "--device", "cpu"]) == 0
     (line,) = capsys.readouterr().out.splitlines()
     payload = json.loads(line)
-    assert payload["metric"] == "pl_hbm_stream_busbw_p50"
-    assert [m["op"] for m in payload["metrics"]] == [
+    # the JAX package's one-device set first, then the port's own entries
+    assert payload["metric"] == "hbm_stream_busbw_p50@1MiB[1dev]"
+    assert [m.get("metric") for m in payload["metrics"][:3]] == \
+        [label for label, _, _ in BENCH_SET]
+    assert [m.get("op") for m in payload["metrics"][3:]] == [
         "pl_hbm_stream", "hbm_stream", "pl_allreduce"]
     assert all(m["card"] == {"name": "cpu", "power_limit": "not measured"}
                for m in payload["metrics"])
-    assert payload["metrics"][2]["backend"] == "torch-sim"
+    assert payload["metrics"][5]["backend"] == "torch-sim"
+    # on the CPU no ratio is given
+    assert payload["vs_peak"] is None
+    assert all(m["vs_peak"] is None for m in payload["metrics"][:3])
+    d = payload["dispatch_overhead"]
+    assert d["lanes"] == 4 and [p["nbytes"] for p in d["points"]] == \
+        [8, 512, 4096]
+    assert all(p["host_us"] > 0 and p["overlapped_us"] > 0
+               and p["fused_us"] > 0 for p in d["points"])
+    c = payload["contention"]
+    assert (c["op"], c["load"], c["nbytes"], c["n_devices"]) == \
+        ("allreduce", "hbm_stream", 262144, 1)
+    assert c["slowdown"] == pytest.approx(c["loaded_lat_us"]
+                                          / c["idle_lat_us"])
+
+
+@pytest.mark.parametrize("name", ["NVIDIA H100 PCIe", "NVIDIA H100 NVL"])
+def test_bench_divides_by_the_detected_cards_peak(name, monkeypatch):
+    # the bench fault: every ratio was taken against the H100 SXM's
+    # 3350 GB/s whatever card was present
+    from tpu_perf_torch import chips
+
+    bench = _small_bench(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: name)
+    spec = bench.card_entry(torch.device("cuda", 0))
+    assert spec is chips.card_spec(name)
+    assert bench.instrument("m", 1000.0, "GB/s", spec, "hbm", "float32",
+                            "trace", 1, 0)["vs_peak"] == 1000.0 / spec.hbm_gbps
+    assert bench.instrument("m", 500.0, "TFLOP/s", spec, "mxu", "bfloat16",
+                            "trace", 1, 0)["vs_peak"] == \
+        500.0 / spec.bf16_tflops
+    # a whole bench against that entry (run on the CPU): each of the JAX
+    # set's ratios divides by the card's own peak for its family
+    monkeypatch.setattr(bench, "card_entry", lambda device: spec)
+    payload = bench.main("cpu")
+    for m, (label, family, dtype) in zip(payload["metrics"], BENCH_SET):
+        peak = spec.hbm_gbps if family == "hbm" else spec.bf16_tflops
+        assert m["metric"] == label
+        assert m["vs_peak"] == pytest.approx(m["value"] / peak, rel=1e-3)
+    assert payload["vs_peak"] == payload["metrics"][0]["vs_peak"]
+
+
+def test_bench_gives_no_ratio_on_the_cpu_and_raises_on_an_unknown_card(
+        monkeypatch):
+    from tpu_perf_torch import chips
+
+    bench = _small_bench(monkeypatch)
+    assert bench.card_entry(CPU) is None
+    assert bench.instrument("m", 1.0, "GB/s", None, "hbm", "float32",
+                            "slope", 1, 0)["vs_peak"] is None
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda *a: "NVIDIA A100-SXM4-80GB")
+    with pytest.raises(chips.UnknownCardError, match="not in the spec table"):
+        bench.card_entry(torch.device("cuda", 0))
 
 
 # --- the copied tables stay the JAX package's ---

@@ -9,6 +9,9 @@ rate outside the tensor cores.  A card set below its power limit runs
 slower under load, so every number measured against these peaks is
 written beside the card's power limit.
 
+:func:`card_peak` gives one entry's peak for an instrument family and
+dtype; ``grid --spec`` and ``bench`` both read their peaks through it.
+
 No floor or nominal is copied from the JAX table: its floors are v5e
 ratios, TPU numbers.  Every floor here stays ``None`` until a grid
 measured on the card defends one.  An unknown card raises; it never
@@ -54,6 +57,31 @@ def resolve_card(device_name: str) -> CardSpec | None:
     return _BY_NAME.get(device_name.strip().lower())
 
 
+#: the instrument families a peak is given for
+PEAK_FAMILIES = ("hbm", "mxu")
+
+
+def card_peak(spec: CardSpec, family: str, dtype: str = "float32") -> float:
+    """``spec``'s published peak for one instrument family: ``hbm`` the
+    device-memory rate in GB/s (any dtype), ``mxu`` the dense product rate
+    in TFLOP/s of the dtype: the tensor-core rate for the 16-bit floats
+    (bfloat16 and float16 share it on Hopper), the float32 rate outside
+    the tensor cores for float32 (TF32 stays off).  Other dtypes have no
+    compute peak and raise."""
+    if family == "hbm":
+        return spec.hbm_gbps
+    if family == "mxu":
+        if dtype in ("bfloat16", "float16"):
+            return spec.bf16_tflops
+        if dtype == "float32":
+            return spec.f32_tflops
+        raise ValueError(
+            f"no compute peak for dtype {dtype!r}: the product runs "
+            "float32, bfloat16 or float16")
+    raise ValueError(
+        f"unknown peak family {family!r}; known: {'|'.join(PEAK_FAMILIES)}")
+
+
 def detected_name() -> str | None:
     """The first visible card's name, or None when no card is visible."""
     import torch
@@ -70,11 +98,11 @@ def card_spec(device_name: str | None = None) -> CardSpec:
         if device_name is None:
             raise UnknownCardError(
                 "no CUDA device is visible, so no card spec applies; give "
-                "the peak explicitly with --spec-gbps")
+                "the peak explicitly with --spec-gbps / --spec-tflops")
     spec = resolve_card(device_name)
     if spec is None:
         raise UnknownCardError(
             f"card {device_name!r} is not in the spec table "
             f"({', '.join(c.device_name for c in CARDS.values())}); give its "
-            "peak explicitly with --spec-gbps")
+            "peak explicitly with --spec-gbps / --spec-tflops")
     return spec

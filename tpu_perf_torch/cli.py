@@ -1,6 +1,6 @@
-"""Command-line interface (port of the ``run``, ``monitor``, ``ingest``,
-``report``, ``grid``, ``ops``, ``chips``, ``selftest`` and ``bench``
-subcommands of ``tpu_perf/cli.py``).
+"""Command-line interface (port of the ``run``, ``monitor``, ``contend``,
+``ingest``, ``report``, ``grid``, ``ops``, ``chips``, ``selftest`` and
+``bench`` subcommands of ``tpu_perf/cli.py``).
 
 Flag letters keep the reference's meanings (mpi_perf.c:273-339) where the
 port has them: ``-i`` iters, ``-b`` buffer size, ``-r`` runs, ``-l`` log
@@ -30,6 +30,13 @@ single-card sim world) and ``--device`` (``cuda``, the default, or
     python -m tpu_perf_torch report /tmp/logs --compare-pallas
     python -m tpu_perf_torch grid --op pl_hbm_copy,hbm_stream --sizes 256M,1G \
         --iters 8,32 --spec hbm --sim-ranks 1
+    python -m tpu_perf_torch run --op mxu_gemm,overlap_ring -b 4M --sim-ranks 8
+    python -m tpu_perf_torch grid --op mxu_gemm --sizes 16M,32M --iters 10,20 \
+        --spec mxu --dtype bfloat16 --sim-ranks 1 --fence trace
+    python -m tpu_perf_torch run --op pl_allreduce,pl_ring --sweep 4K,16M \
+        --streams 4
+    python -m tpu_perf_torch contend --op allreduce --load hbm_stream -b 256K \
+        -i 4 -r 12 -l /tmp/logs; python -m tpu_perf_torch report /tmp/logs
     python -m tpu_perf_torch ops
     python -m tpu_perf_torch chips
     python -m tpu_perf_torch selftest
@@ -72,11 +79,11 @@ def _add_world_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dtype", default="float32")
 
 
-def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
-    opts = Options(
+def _options_from(args: argparse.Namespace, **overrides) -> Options:
+    """The run flags as Options; ``overrides`` win."""
+    kw = dict(
         logfolder=args.logfolder, iters=args.iters, ppn=args.ppn,
-        buff_sz=parse_size(args.size),
-        num_runs=-1 if infinite else args.runs, op=args.op,
+        buff_sz=parse_size(args.size), num_runs=args.runs, op=args.op,
         uni_dir=args.unidir, nonblocking=args.nonblocking,
         extern_cmd=args.extern_cmd, window=args.window,
         group1_file=args.group1_file, n_group1=args.group1_hosts,
@@ -86,8 +93,14 @@ def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
         measure_dispatch=args.measure_dispatch, profile_dir=args.profile_dir,
         max_runs=args.max_runs,
         stats_every=args.stats_every, log_refresh_sec=args.log_refresh_sec,
-        sim_ranks=args.sim_ranks, device=args.device,
+        streams=args.streams, sim_ranks=args.sim_ranks, device=args.device,
     )
+    kw.update(overrides)
+    return Options(**kw)
+
+
+def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
+    opts = _options_from(args, num_runs=-1 if infinite else args.runs)
     if opts.backend == "mpi":
         # before anything of the card: the C baseline runs on the host,
         # and must run where no card is visible
@@ -119,9 +132,87 @@ def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
         if on_rotate is not None:
             on_rotate.finish()
     if args.csv or not opts.logfolder:
-        print(RESULT_HEADER)
+        _print_rows(rows)
+    return 0
+
+
+def _print_rows(rows) -> None:
+    """The rows as one rectangular CSV table: lane rows (``--streams``)
+    carry the trailing columns up to ``stream``, loaded rows (``contend``)
+    up to ``load``, and every row pads to the header's width."""
+    header = RESULT_HEADER
+    if any(r.load for r in rows):
+        header += ",span_id,algo,skew_us,imbalance,stream,load"
+    elif any(r.stream > 0 for r in rows):
+        header += ",span_id,algo,skew_us,imbalance,stream"
+    width = header.count(",") + 1
+    print(header)
+    for row in rows:
+        parts = row.to_csv().split(",")
+        print(",".join(parts + [""] * (width - len(parts))))
+
+
+def _cmd_contend(args: argparse.Namespace) -> int:
+    """The contention race (tpu_perf_torch.streams.contend): a victim op
+    against a concurrent load on the stream engine's lanes, a compute
+    kernel (--load mxu_gemm / hbm_stream) or a sibling op (--load OP).
+    Every point is measured idle and loaded in one job, so `report`
+    renders the interference matrix from the rows."""
+    from tpu_perf_torch.schema import EXT_PREFIX
+    from tpu_perf_torch.streams.contend import run_contend
+
+    if bool(args.load) == bool(args.split):
+        print("tpu-perf-torch: error: name exactly one load shape: --load "
+              "OP (a compute kernel or sibling collective) or --split K "
+              "(K concurrent split-channel ppermute lanes)", file=sys.stderr)
+        return 2
+    if args.split and args.split < 2:
+        print(f"tpu-perf-torch: error: --split needs K >= 2 lanes, got "
+              f"{args.split}", file=sys.stderr)
+        return 2
+    refused = [
+        (args.victim_axis is not None or args.load_axis is not None,
+         "--victim-axis / --load-axis need the multi-card world"),
+        (args.synthetic is not None,
+         "--synthetic needs the fault injector's seeded series"),
+        (args.algo != "native", f"--algo {args.algo} needs the arena"),
+    ]
+    for hit, why in refused:
+        if hit:
+            raise NotImplementedError(f"{why}: not yet ported, see ROADMAP")
+    if args.streams != 1:
+        # contend's lane count comes from the load shape (2 for a race)
+        print("tpu-perf-torch: error: --streams applies to run/monitor "
+              "(contend derives its lane count from the load shape)",
+              file=sys.stderr)
+        return 2
+    if args.backend == "mpi":
+        print("tpu-perf-torch: error: contend drives the torch backend (the "
+              "stream engine dispatches in-process steps; the C baseline "
+              "has no dispatch lanes)", file=sys.stderr)
+        return 2
+    opts = _options_from(
+        args, load=f"split:{args.split}" if args.split else args.load)
+    rows = run_contend(opts)
+    if opts.logfolder:
+        # the rotating extended-row family, so `report <folder>` renders
+        # the interference matrix from this job
+        from tpu_perf_torch.driver import RotatingCsvLog
+
+        log = RotatingCsvLog(opts.logfolder, opts.uuid, 0,
+                             refresh_sec=opts.log_refresh_sec,
+                             prefix=EXT_PREFIX)
         for row in rows:
-            print(row.to_csv())
+            log.write_row(row)
+        log.close()
+    if args.csv or not opts.logfolder:
+        _print_rows(rows)
+    from tpu_perf_torch.report import aggregate, interference_matrix
+
+    for cell in interference_matrix(aggregate(rows)):
+        slow = "—" if cell.slowdown is None else f"{cell.slowdown:.3g}x"
+        print(f"[tpu-perf-torch contend] {cell.op} @ {cell.nbytes} B under "
+              f"{cell.load}: slowdown {slow}", file=sys.stderr)
     return 0
 
 
@@ -230,6 +321,13 @@ def _cmd_report(args: argparse.Namespace) -> int:
     fmt = {"markdown": report.to_markdown, "csv": report.to_csv,
            "json": report.to_json}[args.format]
     print(fmt(points))
+    if args.format == "markdown":
+        # contend's loaded rows against their idle twins; only when loaded
+        # rows exist, so every other report is unchanged
+        interference = report.interference_matrix(points)
+        if interference:
+            print("\n### Interference matrix\n")
+            print(report.interference_to_markdown(interference))
     return 0
 
 
@@ -238,23 +336,27 @@ def _cmd_grid(args: argparse.Namespace) -> int:
     from tpu_perf_torch.grid import grid_caption, grid_to_markdown, run_grid
     from tpu_perf_torch.world import SimWorld, resolve_device
 
-    if (args.chip_spec_family == "mxu" or args.spec_tflops is not None
-            or args.floor_tflops is not None):
-        raise NotImplementedError(
-            "compute grids (--spec mxu, --spec-tflops, --floor-tflops) are "
-            "not yet ported: they wait for mxu_gemm; see ROADMAP")
     world = SimWorld(args.sim_ranks, resolve_device(args.device))
-    source = "--spec-gbps" if args.spec_gbps is not None else "not given"
-    if args.chip_spec_family == "hbm":
-        # the card table's defaults for the judged metric; explicit flags win
-        from tpu_perf_torch.chips import card_spec
+    source = ("--spec-tflops" if args.spec_tflops is not None
+              else "--spec-gbps" if args.spec_gbps is not None
+              else "not given")
+    if args.chip_spec_family:
+        # the card table's peak for the judged metric (and, for mxu, the
+        # run's dtype); explicit flags win.  An unknown card raises.
+        from tpu_perf_torch.chips import card_peak, card_spec
 
-        if args.spec_gbps is None:
-            spec = card_spec()
-            args.spec_gbps = spec.hbm_gbps
-            source = f"{spec.device_name}, card table"
+        spec = card_spec()
+        peak = card_peak(spec, args.chip_spec_family, args.dtype)
+        if args.chip_spec_family == "hbm":
+            if args.spec_gbps is None:
+                args.spec_gbps = peak
+                source = f"{spec.device_name}, card table"
             if args.floor_gbps is None:
                 args.floor_gbps = spec.stream_floor_gbps
+        elif args.spec_tflops is None:
+            args.spec_tflops = peak
+            source = f"{spec.device_name}, card table, {args.dtype}"
+    compute = args.spec_tflops is not None or args.floor_tflops is not None
     sizes = [parse_size(s) for s in args.sizes.split(",") if s.strip()]
     iters_list = [int(s) for s in args.iters.split(",") if s.strip()]
     if not sizes or not iters_list:
@@ -262,7 +364,7 @@ def _cmd_grid(args: argparse.Namespace) -> int:
 
     def progress(cell):
         print(f"[grid] {cell.op} {format_size(cell.nbytes)} x{cell.iters}: "
-              f"p50 {cell.p50:.1f} GB/s -> {cell.verdict}",
+              f"p50 {cell.p50:.1f} {cell.unit} -> {cell.verdict}",
               file=sys.stderr)
 
     job_id = new_job_id()
@@ -285,17 +387,23 @@ def _cmd_grid(args: argparse.Namespace) -> int:
         cells = run_grid(world, args.op, sizes, iters_list, dtype=args.dtype,
                          runs=args.runs, fence=args.fence,
                          spec_gbps=args.spec_gbps, floor_gbps=args.floor_gbps,
+                         spec_tflops=args.spec_tflops,
+                         floor_tflops=args.floor_tflops,
                          on_cell=progress, on_rows=on_rows, job_id=job_id)
     finally:
         if grid_log is not None:
             grid_log.close()
-    print(grid_caption(args.spec_gbps, args.floor_gbps, source))
+    if compute:
+        print(grid_caption(args.spec_tflops, args.floor_tflops, source,
+                           unit="TFLOP/s"))
+    else:
+        print(grid_caption(args.spec_gbps, args.floor_gbps, source))
     print(grid_to_markdown(cells, fence=args.fence))
     chosen_by_op = {c.op: c for c in cells if c.chosen}
     for c in chosen_by_op.values():
         print(f"tpu-perf-torch: chosen operating point: {c.op} "
-              f"{format_size(c.nbytes)} x{c.iters} ({c.p50:.1f} GB/s p50)",
-              file=sys.stderr)
+              f"{format_size(c.nbytes)} x{c.iters} ({c.p50:.1f} {c.unit} "
+              "p50)", file=sys.stderr)
     missing = sorted({c.op for c in cells} - set(chosen_by_op))
     if missing:
         print(f"tpu-perf-torch: grid found no ok operating point for "
@@ -410,6 +518,12 @@ def _add_run_flags(p: argparse.ArgumentParser) -> None:
                         "graph (chunk means on the CPU) — the fence for "
                         "microsecond message sizes, where the host launch "
                         "is every per-run fence's floor")
+    p.add_argument("--streams", type=int, default=1, metavar="K",
+                   help="overlapped dispatch: keep up to K sweep points in "
+                        "flight, each on its own CUDA stream, fenced in "
+                        "dispatch order (block/readback fences, finite "
+                        "runs); rows carry their 1-based lane in the "
+                        "stream column")
     p.add_argument("--fused-chunks", type=int, default=0, metavar="N",
                    help="--fence fused sub-dispatch count per point "
                         "(0 = auto: one dispatch on a fixed budget)")
@@ -504,10 +618,13 @@ def build_parser() -> argparse.ArgumentParser:
     p_grid.add_argument("--fence", choices=FENCE_MODES, default="slope")
     p_grid.add_argument("--spec", choices=("hbm", "mxu"), default=None,
                         dest="chip_spec_family",
-                        help="hbm: judge busbw against the detected card's "
-                             "device-memory peak (tpu_perf_torch.chips); "
-                             "mxu is not yet ported; explicit --spec-gbps / "
-                             "--floor-gbps override")
+                        help="take the judged metric's ceiling from the "
+                             "detected card's entry (tpu_perf_torch.chips): "
+                             "hbm = busbw against its device-memory peak, "
+                             "mxu = TFLOP/s against its product peak for "
+                             "--dtype (bf16/f16: tensor cores; f32: the "
+                             "float32 rate, TF32 off); explicit --spec-gbps "
+                             "/ --spec-tflops override")
     p_grid.add_argument("--spec-gbps", type=float, default=None,
                         help="physical busbw ceiling (H100 SXM: 3350); p50 "
                              "above it = unphysical")
@@ -515,14 +632,44 @@ def build_parser() -> argparse.ArgumentParser:
                         help="plateau floor; p50 below it = degraded (none "
                              "by default: no floor is defended yet)")
     p_grid.add_argument("--spec-tflops", type=float, default=None,
-                        help="compute grids: not yet ported")
+                        help="judge cells on TFLOP/s against this compute "
+                             "ceiling instead of bus bandwidth (H100 SXM "
+                             "bf16: 989, f32: 67); compute instruments only")
     p_grid.add_argument("--floor-tflops", type=float, default=None,
-                        help="compute grids: not yet ported")
+                        help="compute plateau floor; p50 below it = "
+                             "degraded (none by default)")
     p_grid.add_argument("-l", "--logfolder", default=None,
                         help="also write every cell's raw rows here "
                              "(extended schema)")
     _add_world_flags(p_grid)
     p_grid.set_defaults(func=_cmd_grid)
+
+    p_ct = sub.add_parser(
+        "contend",
+        help="contention race (tpu_perf_torch.streams.contend): a victim op "
+             "against a concurrent load on the stream engine's lanes, a "
+             "compute kernel (--load mxu_gemm/hbm_stream) or a sibling op "
+             "(--load OP); every point is measured idle and loaded so "
+             "`report` renders the interference matrix")
+    _add_run_flags(p_ct)
+    p_ct.add_argument("--load", default="", metavar="OP",
+                      help="background load: a compute kernel (mxu_gemm, "
+                           "hbm_stream) or any op from `ops`")
+    p_ct.add_argument("--split", type=int, default=0, metavar="K",
+                      help="split-channel lanes (not yet ported)")
+    p_ct.add_argument("--victim-axis", default=None, metavar="AXIS",
+                      help="the victim's mesh axis (not yet ported)")
+    p_ct.add_argument("--load-axis", default=None, metavar="AXIS",
+                      help="the load's mesh axis (not yet ported)")
+    p_ct.add_argument("--synthetic", type=float, default=None,
+                      metavar="SECONDS",
+                      help="seeded synthetic samples (not yet ported)")
+    p_ct.add_argument("--algo", default="native",
+                      help="the victim's decomposition (only native is "
+                           "ported)")
+    # the default victim: the bandwidth-bound collective the interference
+    # question is usually asked about
+    p_ct.set_defaults(func=_cmd_contend, op="allreduce")
 
     p_ops = sub.add_parser("ops", help="list measurement ops")
     p_ops.set_defaults(func=_cmd_ops)

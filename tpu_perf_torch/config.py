@@ -6,7 +6,8 @@ Defaults and validation messages are the JAX package's
 names, ``-u`` / ``-x``, ``-r -1`` for the infinite daemon, and the
 fused fence's chunk count, ``-p`` flows per node, the windowed ``-x``
 (``--window``), the ``-f`` / ``-n`` group-1 file, ``-d`` the print-only
-external launcher, ``--backend mpi`` and the JSON heartbeat.  The
+external launcher, ``--backend mpi``, the JSON heartbeat, ``--streams``
+(overlapped dispatch) and ``contend``'s background ``load``.  The
 additions are the sim world's rank count and the device; ``backend``
 names ``torch`` where the JAX package names ``jax``.
 """
@@ -86,6 +87,17 @@ class Options:
     profile_dir: str | None = None    # --profile-dir: torch.profiler traces
     max_runs: int | None = None       # --max-runs: the daemon stops after
                                       # this many measured runs
+    streams: int = 1                  # --streams K: keep up to K sweep
+                                      # points in flight, each on its own
+                                      # CUDA stream, fenced in dispatch
+                                      # order (tpu_perf_torch.streams);
+                                      # rows carry their 1-based lane in
+                                      # the stream column; 1 = serial
+    load: str = ""                    # `contend`: the background load the
+                                      # victim races ("mxu_gemm",
+                                      # "hbm_stream" or any ported op);
+                                      # "" = a quiet card (every other
+                                      # subcommand)
     sim_ranks: int = DEF_SIM_RANKS    # --sim-ranks
     device: str | None = None         # None = "cuda"; "cpu" only when asked
 
@@ -167,6 +179,45 @@ class Options:
         if self.device not in (None, "cuda", "cpu"):
             raise ValueError(
                 f"device must be 'cuda' or 'cpu', got {self.device!r}")
+        if self.streams < 1:
+            raise ValueError(
+                f"streams must be >= 1 (1 = serial dispatch), got "
+                f"{self.streams}")
+        if self.streams > 1:
+            # K steps are in flight before the first fence: every mode
+            # whose timing or semantics need one step alone on the card
+            # fails loudly
+            if self.backend != "torch":
+                raise ValueError(
+                    "overlapped dispatch (--streams) rides the torch async "
+                    f"dispatch; backend={self.backend!r} has no in-flight "
+                    "window")
+            if self.extern_cmd:
+                raise ValueError(
+                    "extern mode runs no kernel; --streams does not apply")
+            if self.infinite:
+                raise ValueError(
+                    "overlapped dispatch applies to finite sweeps; the "
+                    "daemon's round-robin is one visit (one dispatch) at "
+                    "a time by design")
+            if self.fence in ("fused", "trace", "slope"):
+                raise ValueError(
+                    f"overlapped dispatch needs a per-run fence that "
+                    f"tolerates concurrent lanes (block/readback); the "
+                    f"{self.fence!r} fence's batched/paired capture "
+                    f"assumes its program is alone in flight")
+        if self.load:
+            if self.backend != "torch":
+                raise ValueError(
+                    "contention loads (--load) are torch programs; "
+                    f"backend={self.backend!r} cannot race them")
+            if self.extern_cmd:
+                raise ValueError(
+                    "extern mode runs no kernel; --load does not apply")
+            if self.infinite:
+                raise ValueError(
+                    "contention runs (--load) are finite measurements; "
+                    "daemon mode does not race a background load")
         if self.uni_dir and self.nonblocking:
             # the reference picks one kernel by if / else if
             # (mpi_perf.c:506-523); the conflict is made loud instead

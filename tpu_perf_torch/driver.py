@@ -15,7 +15,9 @@ rotating CSV logs (port of ``tpu_perf/driver.py``).
   round-robin over every ``(op, nbytes)`` point of the op family and the
   sweep, rows in the rotating logs only (``mode="daemon"``), stopped by
   ``max_runs`` or a signal;
-* a finite run walks the family op by op, each over its sizes;
+* a finite run walks the family op by op, each over its sizes; with
+  ``--streams K`` the same plan rides K CUDA streams in waves
+  (:meth:`Driver._run_overlapped`), each row carrying its lane;
 * under ``--fence fused`` a finite point's whole budget is one replay of
   a CUDA graph per chunk, and a daemon visit one replay of its point's
   one-run graph;
@@ -193,6 +195,11 @@ class Driver:
         self._overhead_s: dict[tuple[str, int], float] = {}
         # runs whose slope sample was lost to noise, over the whole job
         self.dropped = 0
+        # the overlapped sweep's self-audit (--streams K): window_s sums
+        # the lanes' dispatch-to-fence windows, wall_s the waves' host
+        # walls; with lanes really in flight together window_s > wall_s
+        self.stream_totals = {"k": opts.streams, "waves": 0,
+                              "window_s": 0.0, "wall_s": 0.0}
         # (op, nbytes) -> recorded runs in the current heartbeat window
         self._window_points: dict[tuple[str, int], int] = {}
         if opts.group1_file:
@@ -216,11 +223,19 @@ class Driver:
         """Execute the configured job; returns the extended-schema rows
         (none in daemon mode).  The plan is op-major: every size of the
         family's first op, then the next op's."""
+        if self.opts.load:
+            # an idle point under a loaded label would be the mislabelling
+            # the load column exists to prevent
+            raise ValueError(
+                "load is not valid on the run/monitor path; background "
+                "load is raced by `tpu-perf-torch contend`")
         plan = [(op, nbytes) for op in ops_for_options(self.opts)
                 for nbytes in sizes_for(self.opts, op)]
         try:
             if self.opts.infinite:
                 self._run_daemon(plan)
+            elif self.opts.streams > 1:
+                self._run_overlapped(plan, self.opts.streams)
             else:
                 for op, nbytes in plan:
                     self._run_finite(op, nbytes)
@@ -337,6 +352,43 @@ class Driver:
                           "to noise, skipped", file=self.err)
                 self._record_run(built, run_id, t, window)
 
+    def _run_overlapped(self, plan: list[tuple[str, int]], k: int) -> None:
+        """The overlapped finite sweep (``--streams K``): the plan's points
+        ride K lanes in waves (:func:`~tpu_perf_torch.streams.plans.wave_plan`),
+        each run dispatching every lane back to back and fencing them in
+        dispatch order, so up to K different steps are in flight on the
+        card at once without changing any measured step.  A wave's points
+        are built and warmed serially before it starts.  The rows carry
+        exactly the serial sweep's coordinates, plus each row's 1-based
+        lane in the stream column.  Each wave's runs are one window under
+        --profile-dir."""
+        from tpu_perf_torch.streams.engine import StreamEngine
+        from tpu_perf_torch.streams.plans import wave_plan
+
+        for w, wave in enumerate(wave_plan(plan, k)):
+            lanes = []
+            for lane, (op, nbytes) in wave:
+                built, built_hi = self._build(op, nbytes)
+                self._warm(built, built_hi)
+                lanes.append((lane, built))
+            engine = StreamEngine(len(lanes), fence_mode=self.opts.fence,
+                                  perf_clock=self.perf_clock)
+            windows: dict[int, list[float]] = {lane: [] for lane, _ in lanes}
+            self.stream_totals["waves"] += 1
+            with profile_window(self.opts.profile_dir, f"streams{k}-wave{w}",
+                                self.world.device):
+                for run_id in range(1, self.opts.num_runs + 1):
+                    t0 = self.perf_clock()
+                    for lane, built in lanes:
+                        engine.dispatch(lane, built.step,
+                                        built.example_input, label=built.name)
+                    walls = engine.fence_all()
+                    self.stream_totals["wall_s"] += self.perf_clock() - t0
+                    for lane, built in lanes:
+                        self.stream_totals["window_s"] += walls[lane]
+                        self._record_run(built, run_id, walls[lane],
+                                         windows[lane], stream=lane + 1)
+
     def _run_daemon(self, plan: list[tuple[str, int]]) -> None:
         """Infinite monitoring: one measured run per visit, round-robin
         over every (op, nbytes) point of the plan, so a family
@@ -397,7 +449,7 @@ class Driver:
               file=self.err, flush=True)
 
     def _record_run(self, built: BuiltOp, run_id: int, t: float | None,
-                    window: list[float]) -> None:
+                    window: list[float], *, stream: int = 0) -> None:
         for log in (self.log, self.ext_log):
             if log is not None:
                 log.maybe_rotate()
@@ -405,7 +457,7 @@ class Driver:
             window.append(t)
             key = (built.name, built.nbytes)
             self._window_points[key] = self._window_points.get(key, 0) + 1
-            self._emit(built, run_id, t)
+            self._emit(built, run_id, t, stream=stream)
         else:
             self.dropped += 1
         if run_id % self.opts.stats_every == 0:
@@ -451,7 +503,8 @@ class Driver:
             f"avg {s['avg']*1e3:.3f} p50 {s['p50']*1e3:.3f} ms",
             file=self.err, flush=True)
 
-    def _emit(self, built: BuiltOp, run_id: int, t: float) -> None:
+    def _emit(self, built: BuiltOp, run_id: int, t: float, *,
+              stream: int = 0) -> None:
         point = SweepPointResult(
             op=built.name, nbytes=built.nbytes, iters=built.iters,
             n_devices=built.n_devices,
@@ -461,7 +514,7 @@ class Driver:
             dtype=self.opts.dtype,
             mode="daemon" if self.opts.infinite else "oneshot")
         rrow = point.rows(self.opts.uuid, backend=self.world.backend)[0]
-        rrow = dataclasses.replace(rrow, run_id=run_id)
+        rrow = dataclasses.replace(rrow, run_id=run_id, stream=stream)
         lrow = LegacyRow(
             timestamp=timestamp_now(),
             job_id=self.opts.uuid,

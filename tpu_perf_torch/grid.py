@@ -1,11 +1,16 @@
-"""Operating-point grid (port of ``tpu_perf/grid.py``, bandwidth family).
+"""Operating-point grid (port of ``tpu_perf/grid.py``).
 
 A size x iters grid of one or more ops, each cell judged against the
 card's physical ceiling and a plateau floor, and the most stable ``ok``
-cell of each op marked as its operating point.  The rules are the JAX
-package's:
+cell of each op marked as its operating point.  Two families, one
+discipline: **bandwidth** cells are judged on bus bandwidth (GB/s,
+``--spec-gbps`` / ``--floor-gbps``, ``--spec hbm``), **compute** cells on
+TFLOP/s from each row's latency and the op's FLOP model
+(``metrics.FLOPS_PER_ITER``: mxu_gemm 2m^3 an iteration;
+``--spec-tflops`` / ``--floor-tflops``, ``--spec mxu``).  The rules are
+the JAX package's:
 
-* ``unphysical`` — p50 or p75 of the cell's busbw exceeds the spec
+* ``unphysical`` — p50 or p75 of the cell's metric exceeds the spec
   ceiling: timing jitter, or a cache standing in for device memory (an
   H100's 50 MB L2 holds a chained small buffer; take ``--spec hbm`` grids
   at 256 MiB and above);
@@ -17,8 +22,6 @@ package's:
   ``_CHOSEN_P50_FRACTION`` of the op's best p50, is chosen.
 
 Cells run on a :class:`~tpu_perf_torch.world.SimWorld` instead of a mesh.
-The compute family (``--spec mxu``, ``--spec-tflops``) waits for
-``mxu_gemm`` (ROADMAP) and raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ from __future__ import annotations
 import dataclasses
 
 from tpu_perf_torch.config import Options, new_job_id
-from tpu_perf_torch.metrics import is_latency_only, percentile
+from tpu_perf_torch.metrics import (
+    DTYPE_ITEMSIZE, FLOPS_PER_ITER, is_latency_only, percentile,
+)
 from tpu_perf_torch.runner import run_point
 from tpu_perf_torch.sweep import format_size
 from tpu_perf_torch.timing import SLOPE_ITERS_FACTOR
@@ -48,7 +53,8 @@ def judge(p50: float, spec: float | None, floor: float | None, *,
 @dataclasses.dataclass(frozen=True)
 class GridCell:
     """One (size, iters) operating point with its verdict; ``p25``..
-    ``vmax`` are busbw in GB/s."""
+    ``vmax`` are in the judged metric's ``unit``: busbw in GB/s, or
+    TFLOP/s for compute grids."""
 
     op: str
     nbytes: int
@@ -63,11 +69,12 @@ class GridCell:
     vmax: float
     lat_p50_us: float
     verdict: str
+    unit: str = "GB/s"
     note: str = ""
     chosen: bool = False
 
 
-def _check_ops(ops: list[str]) -> None:
+def _check_ops(ops: list[str], compute: bool) -> None:
     from tpu_perf_torch.ops.collectives import known_ops
 
     if not ops:
@@ -75,6 +82,15 @@ def _check_ops(ops: list[str]) -> None:
     unknown = [o for o in ops if o not in known_ops()]
     if unknown:
         raise ValueError(f"unknown op(s) {unknown}; known: {known_ops()}")
+    if compute:
+        # mixing compute and bandwidth instruments would judge half the
+        # cells on a meaningless axis
+        no_model = [o for o in ops if o not in FLOPS_PER_ITER]
+        if no_model:
+            raise ValueError(
+                f"op(s) {no_model} have no FLOP model; compute grids "
+                f"support: {sorted(FLOPS_PER_ITER)}")
+        return
     latency_only = [o for o in ops if is_latency_only(o)]
     if latency_only:
         raise ValueError(
@@ -93,12 +109,16 @@ def run_grid(
     fence: str = "slope",
     spec_gbps: float | None = None,
     floor_gbps: float | None = None,
+    spec_tflops: float | None = None,
+    floor_tflops: float | None = None,
     on_cell=None,
     on_rows=None,
     job_id: str | None = None,
 ) -> list[GridCell]:
     """Measure every (op, size, iters) cell on ``world`` and judge it; each
-    op gets its own chosen operating point.
+    op gets its own chosen operating point.  ``spec_tflops`` /
+    ``floor_tflops`` switch the judged metric to TFLOP/s; every op must
+    then have a FLOP model, and the bandwidth limits must not be given.
 
     A cell whose measurement raises is recorded as verdict ``failed`` with
     the error in the note: one broken operating point must not lose the
@@ -107,7 +127,14 @@ def run_grid(
     ``job_id`` (one is made per grid when not given)."""
     if isinstance(ops, str):
         ops = [s.strip() for s in ops.split(",") if s.strip()]
-    _check_ops(ops)
+    compute = spec_tflops is not None or floor_tflops is not None
+    if compute and (spec_gbps is not None or floor_gbps is not None):
+        raise ValueError(
+            "grid judges ONE metric: give either --spec-gbps/--floor-gbps "
+            "(bandwidth) or --spec-tflops/--floor-tflops (compute), not both")
+    spec, floor, unit = ((spec_tflops, floor_tflops, "TFLOP/s") if compute
+                         else (spec_gbps, floor_gbps, "GB/s"))
+    _check_ops(ops, compute)
     job_id = job_id or new_job_id()
     cells = []
     for op, nbytes in ((o, s) for o in ops for s in sizes):
@@ -122,7 +149,7 @@ def run_grid(
                     op=op, nbytes=nbytes, dtype=dtype, iters=iters,
                     n_devices=0, runs=0, drops=runs, p25=0.0, p50=0.0,
                     p75=0.0, vmax=0.0, lat_p50_us=0.0, verdict="failed",
-                    note=f"{type(e).__name__}: {e}")
+                    unit=unit, note=f"{type(e).__name__}: {e}")
                 cells.append(cell)
                 if on_cell:
                     on_cell(cell)
@@ -130,13 +157,17 @@ def run_grid(
             rows = point.rows(job_id, backend=world.backend)
             if on_rows:
                 on_rows(rows)
-            vals = [r.busbw_gbps for r in rows]
+            if compute:
+                flops = FLOPS_PER_ITER[op](point.nbytes, DTYPE_ITEMSIZE[dtype])
+                vals = [flops / (r.lat_us * 1e-6) / 1e12 for r in rows]
+            else:
+                vals = [r.busbw_gbps for r in rows]
             p50, p75 = percentile(vals, 50), percentile(vals, 75)
             note = ""
-            if spec_gbps is not None and max(vals) > spec_gbps:
+            if spec is not None and max(vals) > spec:
                 note = "max>spec (slope artifact)"
-            verdict = judge(p50, spec_gbps, floor_gbps, p75=p75)
-            if verdict == "unphysical" and p50 <= spec_gbps:
+            verdict = judge(p50, spec, floor, p75=p75)
+            if verdict == "unphysical" and p50 <= spec:
                 note = "p75>spec (jitter-widened)"
             cell = GridCell(
                 op=point.op, nbytes=point.nbytes, dtype=dtype, iters=iters,
@@ -144,7 +175,7 @@ def run_grid(
                 drops=max(0, runs - len(vals)), p25=percentile(vals, 25),
                 p50=p50, p75=p75, vmax=max(vals),
                 lat_p50_us=percentile([r.lat_us for r in rows], 50),
-                verdict=verdict, note=note)
+                verdict=verdict, unit=unit, note=note)
             cells.append(cell)
             if on_cell:
                 on_cell(cell)
@@ -188,22 +219,25 @@ def mark_chosen(cells: list[GridCell]) -> list[GridCell]:
     return [dataclasses.replace(c, chosen=id(c) in chosen) for c in cells]
 
 
-def grid_caption(spec_gbps: float | None, floor_gbps: float | None,
-                 source: str) -> str:
+def grid_caption(spec: float | None, floor: float | None, source: str, *,
+                 unit: str = "GB/s") -> str:
     """The line above the verdict table: what the cells were judged
-    against, and where that came from."""
-    spec = "none" if spec_gbps is None else f"{spec_gbps:g} GB/s"
-    floor = ("none: no cell is judged degraded" if floor_gbps is None
-             else f"{floor_gbps:g} GB/s")
-    return f"busbw spec ceiling {spec} ({source}); floor {floor}"
+    against, in ``unit``, and where that came from."""
+    metric = "TFLOP/s" if unit == "TFLOP/s" else "busbw"
+    spec_s = "none" if spec is None else f"{spec:g} {unit}"
+    floor_s = ("none: no cell is judged degraded" if floor is None
+               else f"{floor:g} {unit}")
+    return f"{metric} spec ceiling {spec_s} ({source}); floor {floor_s}"
 
 
 def grid_to_markdown(cells: list[GridCell], *, fence: str = "slope") -> str:
     """Render the verdict table (the JAX package's layout).  With the
     slope/trace fences the iters column shows the lo/hi pair."""
     iters_head = "iters (lo/hi)" if fence in ("slope", "trace") else "iters"
+    unit = cells[0].unit if cells else "GB/s"
+    metric = "TFLOP/s" if unit == "TFLOP/s" else "busbw"
     lines = [
-        f"| op | size | dtype | {iters_head} | busbw p25/p50/p75 (GB/s) "
+        f"| op | size | dtype | {iters_head} | {metric} p25/p50/p75 ({unit}) "
         "| max | dropped | verdict |",
         "|---|---|---|---|---|---|---|---|",
     ]

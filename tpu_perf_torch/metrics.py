@@ -11,6 +11,10 @@ a wire.
 
 from __future__ import annotations
 
+import math
+
+from tpu_perf_torch.config import SUPPORTED_DTYPES
+
 # Bus-bandwidth correction factor per collective, as a function of the number
 # of participating devices n.  busbw = algbw * factor(n).
 _BUS_FACTORS = {
@@ -62,6 +66,42 @@ _BUS_FACTORS = {
 }
 
 KNOWN_OPS = tuple(sorted(_BUS_FACTORS))
+
+#: FLOPs one iteration performs, per compute op: (nbytes, itemsize) ->
+#: flops.  mxu_gemm's buffer is the m x m operand, one m x m x m product
+#: an iteration = 2m^3 (the wrap-add's 2m^2 is not counted, the JAX
+#: package's convention).  The grid's TFLOP/s verdicts, the report's
+#: tflops column and bench read it.
+FLOPS_PER_ITER = {
+    "mxu_gemm":
+        lambda nbytes, itemsize: 2.0 * math.isqrt(nbytes // itemsize) ** 3,
+}
+
+#: itemsize per supported payload dtype, by name (no torch import: the
+#: report reads it)
+DTYPE_ITEMSIZE = {
+    "float32": 4, "bfloat16": 2, "float16": 2, "int32": 4, "uint8": 1,
+}
+if set(DTYPE_ITEMSIZE) != set(SUPPORTED_DTYPES):
+    raise RuntimeError(
+        "DTYPE_ITEMSIZE and config.SUPPORTED_DTYPES drifted apart: "
+        f"{sorted(set(DTYPE_ITEMSIZE) ^ set(SUPPORTED_DTYPES))}")
+
+
+def flops_per_iter(op: str, nbytes: int, itemsize: int) -> float | None:
+    """FLOPs one iteration of ``op`` performs, or None for ops without a
+    compute model."""
+    fn = FLOPS_PER_ITER.get(op)
+    return None if fn is None else fn(nbytes, itemsize)
+
+
+def flops_per_iter_dtype(op: str, nbytes: int, dtype: str) -> float | None:
+    """:func:`flops_per_iter` from the dtype's name; None for ops without
+    a model and for dtypes outside the table."""
+    itemsize = DTYPE_ITEMSIZE.get(dtype)
+    if itemsize is None or op not in FLOPS_PER_ITER:
+        return None
+    return flops_per_iter(op, nbytes, itemsize)
 
 
 def is_latency_only(op: str, n_devices: int = 2) -> bool:

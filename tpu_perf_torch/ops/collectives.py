@@ -24,6 +24,10 @@ the mean, not the sum).  The ops of this slice:
 * ``hbm_read``, ``hbm_write``, ``hbm_triad`` — the read, write and 2R:1W
   memory instruments, as plain PyTorch operations that update the carry
   in place (see their bodies);
+* ``mxu_gemm`` — the compute roofline: each rank's m x m carry times a
+  fixed orthogonal matrix, wrap-added, one ``addmm`` an iteration;
+  ``overlap_ring`` — a ring shift of a payload and the same product in one
+  iteration, the shift on a side stream so it can run under the product;
 * the ``pl_*`` ops — the hand-written kernels, built by
   :func:`tpu_perf_torch.ops.pallas_ring.build_pallas_step`.
 """
@@ -31,6 +35,7 @@ the mean, not the sum).  The ops of this slice:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
@@ -64,16 +69,59 @@ class BuiltOp:
     iters: int  # messages a step moves: executions * window
 
 
+# mxu_gemm's matrix side: multiples of 128, capped at 4096 (the JAX
+# package's bounds, so both packages build the same matrix for a size);
+# overlap_ring keeps its own smaller cap, so its compute block stays
+# comparable across sizes
+_GEMM_MIN_M, _GEMM_MAX_M = 128, 4096
+_OVERLAP_MAX_M = 2048
+
+
+def _gemm_m(elems: int, max_m: int | None = None) -> int:
+    """Matrix side for a compute block scaled to ``elems`` buffer elements;
+    ``max_m`` None reads the module cap at call time."""
+    m = int(round(math.sqrt(max(1, elems)) / 128)) * 128
+    return max(_GEMM_MIN_M, min(_GEMM_MAX_M if max_m is None else max_m, m))
+
+
+def _overlap_split(total: int) -> tuple[int, int]:
+    """Invert payload_elems's overlap_ring sizing: per-rank ``total`` ->
+    (ring_elems, m); the largest matching m is unique."""
+    for m in range(_OVERLAP_MAX_M, _GEMM_MIN_M - 1, -128):
+        r = total - m * m
+        if r >= 1 and _gemm_m(r, _OVERLAP_MAX_M) == m:
+            return r, m
+    raise ValueError(f"not an overlap_ring payload size: {total}")
+
+
+def _ortho(m: int, _cache={}) -> np.ndarray:
+    """Deterministic m x m orthogonal matrix (float64): iterated ``x @ q``
+    keeps the norm, so long chains stay bounded."""
+    if m not in _cache:
+        rng = np.random.default_rng(7)
+        q, _ = np.linalg.qr(rng.standard_normal((m, m)))
+        _cache[m] = q
+    return _cache[m]
+
+
 def payload_elems(op: str, nbytes: int, n: int, itemsize: int) -> tuple[int, int]:
     """Per-device element count for ``op`` at message size ``nbytes``.
 
     Returns ``(elems_per_device, actual_nbytes)``, rounded exactly as the
     JAX package rounds (nccl-tests size semantics): ``all_gather``'s
     ``nbytes`` is the gathered total, ``reduce_scatter``/``all_to_all``'s
-    the per-device input, everything else the per-device buffer."""
+    the per-device input, ``mxu_gemm``'s the m x m operand (m from the
+    size), ``overlap_ring``'s the ring payload (the m x m block rides
+    beside it), everything else the per-device buffer."""
     if op == "barrier":
         return 1, itemsize
     elems = max(1, -(-nbytes // itemsize))
+    if op == "mxu_gemm":
+        m = _gemm_m(elems)
+        return m * m, m * m * itemsize
+    if op == "overlap_ring":
+        m = _gemm_m(elems, _OVERLAP_MAX_M)
+        return elems + m * m, elems * itemsize
     if op == "all_gather":
         shard = max(1, -(-elems // n))
         return shard, shard * n * itemsize
@@ -89,8 +137,9 @@ def payload_elems(op: str, nbytes: int, n: int, itemsize: int) -> tuple[int, int
 #: ops that reduce (scale by 1/n, or take a mean) — integer payloads would
 #: measure another computation (the JAX package's list, restricted to the
 #: ported ops)
-FLOAT_ONLY_OPS = ("allreduce", "barrier", "reduce_scatter", "hbm_read",
-                  "pl_allreduce", "pl_reduce_scatter")
+FLOAT_ONLY_OPS = ("allreduce", "barrier", "reduce_scatter", "mxu_gemm",
+                  "overlap_ring", "hbm_read", "pl_allreduce",
+                  "pl_reduce_scatter")
 #: the point-to-point ops whose pair permutation needs an even rank count
 #: (ring and halo shift by one, valid for any n)
 _NEEDS_EVEN = ("pingpong", "pingpong_unidir", "exchange", "ppermute")
@@ -384,6 +433,84 @@ def _halo(world: SimWorld, dtype: torch.dtype) -> Callable:
     return body
 
 
+# The compute ops.  Their carry is not the (n, elems) rows: mxu_gemm
+# carries the ranks' m x m matrices stacked as one (n*m, m) matrix across
+# iterations (a reshape back and forth every iteration would be a copy),
+# overlap_ring the pair (ring payload, matrices).  Each builder returns
+# (pre, body, post): pre and post convert between the rows and the carry
+# once a step, body is one iteration.
+
+
+def _gemm_operands(m: int, dtype: str, device: torch.device):
+    """(q, alpha, bias) of one iteration ``x @ q * 1.0000001 + 1e-7``: q
+    cast as ``jnp.asarray(_ortho(m), dtype)`` casts, the constants rounded
+    to the dtype (stream_triton.stream_constants), the shift as a
+    contiguous bias row, so the iteration is one ``addmm`` whose
+    multiply-add cuBLASLt does in the product's epilogue."""
+    q = to_tensor(_ortho(m), dtype, device)
+    scale, shift = stream_triton.stream_constants(DTYPES[dtype])
+    bias = torch.full((m,), float(shift), dtype=DTYPES[dtype], device=device)
+    return q, float(scale), bias
+
+
+def _mxu_gemm(world: SimWorld, dtype: str, elems: int):
+    # every rank's m x m carry times the same q: the (n, m, m) @ (m, m)
+    # batch is one (n*m, m) @ (m, m) product.  The wrap-add keeps the chain
+    # from being folded into powers of q.
+    n, m = world.n, math.isqrt(elems)
+    q, alpha, bias = _gemm_operands(m, dtype, world.device)
+
+    def body(x):
+        return torch.addmm(bias, x, q, alpha=alpha)
+
+    return (lambda x: x.view(n * m, m)), body, (lambda c: c.view(n, m * m))
+
+
+def _overlap_ring(world: SimWorld, dtype: str, elems: int):
+    # one iteration: the ring shift of the first r elements of every rank
+    # and the gemm of its m x m block.  On a card the shift runs on a side
+    # stream that forks from the current stream and joins it after the
+    # product, so the two can overlap (under graph capture the fork is a
+    # parallel branch); on one stream they would run one after the other.
+    n = world.n
+    r, m = _overlap_split(elems)
+    q, alpha, bias = _gemm_operands(m, dtype, world.device)
+    side = (torch.cuda.Stream(world.device) if world.device.type == "cuda"
+            else None)
+
+    def pre(x):
+        return x[:, :r].contiguous(), x[:, r:].reshape(n * m, m)
+
+    def body(carry):
+        comm, comp = carry
+        if side is None:
+            return shift_rows(comm, 1), torch.addmm(bias, comp, q,
+                                                    alpha=alpha)
+        cur = torch.cuda.current_stream(world.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            moved = shift_rows(comm, 1)
+        y = torch.addmm(bias, comp, q, alpha=alpha)
+        cur.wait_stream(side)
+        comm.record_stream(side)
+        moved.record_stream(cur)
+        return moved, y
+
+    def post(carry):
+        comm, comp = carry
+        return torch.cat([comm, comp.view(n, m * m)], dim=1)
+
+    return pre, body, post
+
+
+#: ops whose carry is not the rows: op -> (world, dtype name, elems) ->
+#: (pre, body, post)
+CARRY_BUILDERS: dict[str, Callable] = {
+    "mxu_gemm": _mxu_gemm,
+    "overlap_ring": _overlap_ring,
+}
+
+
 OP_BUILDERS: dict[str, Callable] = {
     "all_gather": _all_gather,
     "all_to_all": _all_to_all,
@@ -406,12 +533,17 @@ OP_BUILDERS: dict[str, Callable] = {
 }
 
 
-def chained(call: Callable, iters: int) -> Callable:
-    """``iters`` executions of ``call``, each fed the previous output."""
+def chained(call: Callable, iters: int, pre: Callable | None = None,
+            post: Callable | None = None) -> Callable:
+    """``iters`` executions of ``call``, each fed the previous output;
+    ``pre`` and ``post`` convert the input into the carry and back, once
+    a step."""
     def step(x):
+        if pre is not None:
+            x = pre(x)
         for _ in range(iters):
             x = call(x)
-        return x
+        return post(x) if post is not None else x
 
     return step
 
@@ -442,7 +574,7 @@ def build_fused_step(built: BuiltOp, reps: int) -> Callable:
 def known_ops() -> list[str]:
     from tpu_perf_torch.ops.pallas_ring import PALLAS_OPS
 
-    return sorted(OP_BUILDERS) + list(PALLAS_OPS)
+    return sorted([*OP_BUILDERS, *CARRY_BUILDERS]) + list(PALLAS_OPS)
 
 
 def build_op(op: str, world: SimWorld, nbytes: int, iters: int, *,
@@ -461,7 +593,7 @@ def build_op(op: str, world: SimWorld, nbytes: int, iters: int, *,
     buffer serves both)."""
     from tpu_perf_torch.ops.pallas_ring import PALLAS_OPS, build_pallas_step
 
-    if op not in OP_BUILDERS and op not in PALLAS_OPS:
+    if op not in known_ops():
         raise ValueError(f"unknown op {op!r}; known: {known_ops()}")
     if iters <= 0:
         raise ValueError(f"iters must be positive, got {iters}")
@@ -487,7 +619,11 @@ def build_op(op: str, world: SimWorld, nbytes: int, iters: int, *,
     else:
         itemsize = DTYPES[dtype].itemsize
         elems, actual = payload_elems(op, nbytes, world.n, itemsize)
-        step = chained(OP_BUILDERS[op](world, DTYPES[dtype]), iters)
+        if op in CARRY_BUILDERS:
+            pre, body, post = CARRY_BUILDERS[op](world, dtype, elems)
+            step = chained(body, iters, pre, post)
+        else:
+            step = chained(OP_BUILDERS[op](world, DTYPES[dtype]), iters)
     if reuse_input is not None:
         want = (world.n, window, elems) if window > 1 else (world.n, elems)
         if (tuple(reuse_input.shape) != want

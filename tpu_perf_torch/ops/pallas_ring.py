@@ -242,33 +242,49 @@ def direct_all_gather_bidir(x: torch.Tensor) -> torch.Tensor:
 
 
 # --- device counters -----------------------------------------------------
-# Kernels that hand out work on the device keep their counters in a buffer
-# per card, zero between launches (each kernel returns its counters to zero
-# itself), so nothing passes from the host per launch and a CUDA graph can
-# replay it.  Launches that share a buffer must be ordered on one stream.
+# Kernels that hand out work on the device keep their counters in a buffer,
+# zero between launches (each kernel returns its counters to zero itself),
+# so nothing passes from the host per launch and a CUDA graph can replay
+# it.  Launches that share a buffer must be ordered, so there is one buffer
+# per card and stream: the launches of one stream share it (a graph
+# captured on a stream replays with that stream's buffer), and two
+# launches on two streams (--streams, contend) never draw each other's
+# tiles.
 
 
-def _card_counters(store: dict[int, torch.Tensor], device: torch.device,
+def _stream_key(device: torch.device) -> tuple:
+    """The counter stores' key: the card and its current stream (the raw
+    handle); the CPU has one key."""
+    if device.type != "cuda":
+        return (device.type, None)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return (index, torch._C._cuda_getCurrentRawStream(index))
+
+
+def _card_counters(store: dict[tuple, torch.Tensor], device: torch.device,
                    words: int) -> torch.Tensor:
-    # the card's buffer in store, made (or grown) zeroed with >= words words
-    counters = store.get(device.index)
+    # the buffer of the card's current stream in store, made (or grown)
+    # zeroed with >= words words, on that stream
+    key = _stream_key(device)
+    counters = store.get(key)
     if counters is None or counters.numel() < words:
-        counters = store[device.index] = torch.zeros(
+        counters = store[key] = torch.zeros(
             words, dtype=torch.int32, device=device)
     return counters
 
 
-#: per row-copy source and card, its tile counters (uint32: next tile, CTAs
-#: done; csrc/row_copy.cuh)
-_ROW_COPY_COUNTERS: dict[str, dict[int, torch.Tensor]] = {
+#: per row-copy source, card and stream, its tile counters (uint32: next
+#: tile, CTAs done; csrc/row_copy.cuh)
+_ROW_COPY_COUNTERS: dict[str, dict[tuple, torch.Tensor]] = {
     "hbm_copy": {}, "p2p_shift": {}, "all_gather": {}}
 _ROW_COPY_COUNTER_WORDS = 2
 
 
 def row_copy_counters(source: str, device: torch.device) -> torch.Tensor:
-    """The card's tile counters of row-copy source ``source`` (``hbm_copy``,
+    """The tile counters of row-copy source ``source`` (``hbm_copy``,
     ``p2p_shift`` or ``all_gather``; ring and exchange share one, as do the
-    two gathers), zeroed once when made."""
+    two gathers) for the card's current stream, zeroed once when made."""
     return _card_counters(_ROW_COPY_COUNTERS[source], device,
                           _ROW_COPY_COUNTER_WORDS)
 
@@ -439,17 +455,16 @@ def pingpong_plain(x: torch.Tensor, out: torch.Tensor,
     out[:half] = stage[half:]  # leg 2: the payload back into group 0
 
 
-#: per card, the pingpong kernel's pair counters (uint32, zero between
-#: launches; the kernel returns them to zero itself)
-_PINGPONG_COUNTERS: dict[int, torch.Tensor] = {}
+#: per card and stream, the pingpong kernel's pair counters (uint32, zero
+#: between launches; the kernel returns them to zero itself)
+_PINGPONG_COUNTERS: dict[tuple, torch.Tensor] = {}
 #: counters per pair: next tile, arrivals, CTAs done
 _PINGPONG_COUNTERS_PER_PAIR = 3
 
 
 def pingpong_counters(device: torch.device, pairs: int) -> torch.Tensor:
-    """The card's pair-counter buffer, enough for ``pairs`` pairs, zeroed
-    once when it is made or grown.  Launches that share it must be ordered
-    on one stream."""
+    """The pair-counter buffer of the card's current stream, enough for
+    ``pairs`` pairs, zeroed once when it is made or grown."""
     return _card_counters(_PINGPONG_COUNTERS, device,
                           _PINGPONG_COUNTERS_PER_PAIR * pairs)
 

@@ -7,9 +7,10 @@ Feed it rotated ``tpu-*.log`` files (or ``run --csv`` stdout) and get the
 pivot (``compare``), each ``pl_*`` kernel beside its library op
 (``compare_pallas``), and the diff of two artifacts.  The pivots keep this
 package's backends, ``torch`` (one rank) and ``torch-sim`` (the sim
-world), where the JAX package's keep ``jax``.  The chaos, arena, hier,
-straggler, scenario, imbalance, interference, adaptive, phases and push
-views wait for their modules (ROADMAP).
+world), where the JAX package's keep ``jax``; so does the interference
+matrix of ``contend``'s loaded rows against their idle twins.  The
+chaos, arena, hier, straggler, scenario, imbalance, adaptive, phases and
+push views wait for their modules (ROADMAP).
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import os
 import sys
 from typing import Iterable
 
-from tpu_perf_torch.metrics import KNOWN_OPS, is_latency_only, summarize
+from tpu_perf_torch.metrics import (
+    KNOWN_OPS, flops_per_iter_dtype, is_latency_only, summarize,
+)
 from tpu_perf_torch.schema import (
     EXT_PREFIX, LEGACY_HEADER, LegacyRow, ResultRow, decorate_op,
 )
@@ -54,9 +57,8 @@ class CurvePoint:
     mode: str = "oneshot"  # "oneshot" | "daemon" | "chaos" (pre-mode
     # artifacts were all one-shot grid/publish runs, so the default
     # backfills them)
-    tflops: dict[str, float] | None = None  # compute ops only; none is
-    # ported yet, so this package's aggregates leave it None (artifacts
-    # of the JAX package may carry it)
+    tflops: dict[str, float] | None = None  # compute ops only
+    # (metrics.FLOPS_PER_ITER): TFLOP/s from each row's latency
     algo: str = "native"  # collective decomposition (the JAX arena's);
     # part of the key — an arena experiment's rows must never pool with
     # the native lowering's curve, and like chaos rows they stay out of
@@ -209,9 +211,20 @@ def aggregate(rows: list[ResultRow]) -> list[CurvePoint]:
                 skew_us=skew_us,
                 imbalance=imbalance,
                 load=load,
+                tflops=_tflops(flops_per_iter_dtype(op, nbytes, dtype),
+                               [r.lat_us for r in grp]),
             )
         )
     return points
+
+
+def _tflops(flops: float | None, lats) -> dict[str, float] | None:
+    """The derived TFLOP/s summary of one point's latencies; None for an
+    op without a FLOP model, and for a point with any ``lat_us <= 0`` (a
+    corrupt or foreign row: the bandwidth columns still render)."""
+    if flops is None or any(v <= 0 for v in lats):
+        return None
+    return summarize([flops / (v * 1e-6) / 1e12 for v in lats])
 
 
 def _fold_curve(groups: dict, r: ResultRow) -> None:
@@ -244,6 +257,7 @@ def _curve_points(groups: dict) -> list[CurvePoint]:
             algbw_gbps=summarize(list(g["alg"])),
             dtype=dtype, mode=mode, algo=algo, skew_us=skew_us,
             imbalance=imbalance, load=load,
+            tflops=_tflops(flops_per_iter_dtype(op, nbytes, dtype), lat),
         ))
     return points
 
@@ -550,6 +564,81 @@ def compare_to_markdown(cmp: list[ComparePoint]) -> str:
             f"| {fmt(ml, '.2f')} | {fmt(c.latency_ratio, '.3g')} "
             f"| {_devices_cell(c.torch, c.mpi)} "
             f"| {_mode_cell(c.torch, c.mpi)} |"
+        )
+    return "\n".join(lines)
+
+
+@dataclasses.dataclass(frozen=True)
+class InterferencePoint:
+    """One cell of the interference matrix: a victim point under one
+    background load against its idle twin (same op, size, dtype, algo;
+    ``contend`` measures both in one job).  ``slowdown`` is loaded p50
+    latency over idle p50 latency.  A cell whose idle twin is missing
+    keeps its row with a dash."""
+
+    op: str
+    nbytes: int
+    dtype: str
+    load: str
+    algo: str = "native"
+    loaded: CurvePoint | None = None
+    idle: CurvePoint | None = None
+
+    @property
+    def slowdown(self) -> float | None:
+        if self.loaded is None or self.idle is None:
+            return None
+        idle_lat = self.idle.lat_us["p50"]
+        return (self.loaded.lat_us["p50"] / idle_lat) if idle_lat else None
+
+
+def interference_matrix(points: list[CurvePoint]) -> list[InterferencePoint]:
+    """Pivot loaded points (``contend``) against their idle twins: one row
+    per (op, nbytes, dtype, algo, load) a loaded row measured.  Only this
+    package's rows (``torch``, ``torch-sim``) take part, where the JAX
+    package's view keeps ``jax``; chaos, skewed and imbalanced rows stay
+    out of both sides; when several modes or device counts hold a slot,
+    the one-shot largest-world point wins, as in :func:`compare`."""
+    loaded_pts: dict[tuple, CurvePoint] = {}
+    idle_pts: dict[tuple, CurvePoint] = {}
+    for p in points:
+        if (p.backend not in TORCH_BACKENDS or p.mode == "chaos"
+                or p.skew_us or p.imbalance > 1):
+            continue
+        key = (p.op, p.nbytes, p.dtype, p.algo)
+        table, slot = ((loaded_pts, key + (p.load,)) if p.load
+                       else (idle_pts, key))
+        cur = table.get(slot)
+        if cur is None or _pivot_pref(p) > _pivot_pref(cur):
+            table[slot] = p
+    return [
+        InterferencePoint(
+            op=op, nbytes=nbytes, dtype=dtype, algo=algo, load=load,
+            loaded=lp, idle=idle_pts.get((op, nbytes, dtype, algo)),
+        )
+        for (op, nbytes, dtype, algo, load), lp
+        in sorted(loaded_pts.items())
+    ]
+
+
+def interference_to_markdown(cmp: list[InterferencePoint]) -> str:
+    """The interference matrix: per (op, size), the slowdown each
+    background load induces over the idle baseline."""
+    lines = [
+        "| op | size | dtype | load | idle lat p50 (us) "
+        "| loaded lat p50 (us) | slowdown | loaded busbw p50 (GB/s) "
+        "| mode |",
+        "|---|---|---|---|---|---|---|---|---|",
+    ]
+    for c in cmp:
+        lines.append(
+            f"| {_op_cell(c.op, c.algo)} | {format_size(c.nbytes)} "
+            f"| {c.dtype} | {c.load} "
+            f"| {_fmt(c.idle.lat_us['p50'] if c.idle else None, '.2f')} "
+            f"| {_fmt(c.loaded.lat_us['p50'] if c.loaded else None, '.2f')} "
+            f"| {_fmt(c.slowdown, '.3g')} "
+            f"| {_fmt(c.loaded.busbw_gbps['p50'] if c.loaded else None)} "
+            f"| {_mode_cell(c.idle, c.loaded)} |"
         )
     return "\n".join(lines)
 

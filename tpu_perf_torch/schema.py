@@ -98,8 +98,9 @@ class ResultRow:
 
     The fields and their CSV rendering are the JAX package's, column for
     column.  Trailing optional columns (span, algo, skew, imbalance,
-    stream, load) are rendered only when set, exactly as there; this
-    package's slice never sets them, so its rows are the 18-field form.
+    stream, load) are rendered only when set, exactly as there: this
+    package sets ``stream`` (``run --streams K``: the 1-based lane) and
+    ``load`` (``contend``), so most of its rows are the 18-field form.
     """
 
     timestamp: str

@@ -277,12 +277,14 @@ class FusedRunner:
 
     ``warm()`` copies the example input into a private working buffer
     (the example input stays intact), runs the first chunk's program once
-    eagerly on it (this builds the kernels, compiles the Triton JIT,
-    allocates the kernels' device counters and asks the occupancy
-    queries: nothing of that may happen under capture), and on a card
-    captures one CUDA graph per distinct chunk size and replays the first
-    once, unrecorded.  ``chunk(reps)`` is one measured dispatch of
-    ``reps`` whole runs and returns their per-run times:
+    eagerly on it on a side stream (this builds the kernels, compiles the
+    Triton JIT, allocates the kernels' device counters of that stream and
+    asks the occupancy queries: nothing of that may happen under
+    capture), and on a card captures one CUDA graph per distinct chunk
+    size on the same stream and replays the first once, unrecorded.
+    ``chunk(reps)`` is one measured dispatch of ``reps`` whole runs and
+    returns their per-run times (``wall(reps)`` the same dispatch's host
+    wall, no event read):
 
     * on a card, one replay of the chunk's graph.  The graph records a
       CUDA event before the first run and after each run, so every run's
@@ -307,6 +309,7 @@ class FusedRunner:
         self.dispatches = 0
         self.warmup_s = 0.0
         self._x: torch.Tensor | None = None
+        self._side = None  # the warm run's and the captures' stream
         self._graphs: dict[int, tuple[torch.cuda.CUDAGraph, list]] = {}
 
     @property
@@ -319,7 +322,9 @@ class FusedRunner:
                   for _ in range(reps + 1)]
         graph = torch.cuda.CUDAGraph()
         x = self._x
-        with torch.cuda.graph(graph):
+        # captured on the stream the eager run warmed: the kernels' device
+        # counters are per stream, and the warm run made this one's
+        with torch.cuda.graph(graph, stream=self._side):
             events[0].record()
             y = self.point.programs[reps](
                 x, on_run=lambda i: events[i + 1].record())
@@ -333,8 +338,9 @@ class FusedRunner:
         first = self.point.plan[0]
         self._x = self.built.example_input.clone()
         if self._x.is_cuda:
-            # the eager run on a side stream, as capture asks
-            side = torch.cuda.Stream(self._x.device)
+            # the eager run on a side stream, as capture asks; the graphs
+            # are captured on the same stream
+            side = self._side = torch.cuda.Stream(self._x.device)
             side.wait_stream(torch.cuda.current_stream(self._x.device))
             with torch.cuda.stream(side):
                 self._x.copy_(self.point.programs[first](self._x))
@@ -348,23 +354,29 @@ class FusedRunner:
         fence(self._x)
         self.warmup_s = self.perf_clock() - t0
 
-    def chunk(self, reps: int) -> list[float]:
-        """One measured dispatch of ``reps`` whole runs; returns the runs'
-        times in seconds."""
+    def wall(self, reps: int) -> float:
+        """One measured dispatch of ``reps`` whole runs, block-fenced;
+        returns its host wall in seconds (no event is read)."""
         if self._x is None:
             self.warm()
         self.dispatches += 1
+        t0 = self.perf_clock()
         if self._x.is_cuda:
-            graph, events = self._graphs[reps]
-            graph.replay()
+            self._graphs[reps][0].replay()
+        else:
+            self._x = self.point.programs[reps](self._x)
+        fence(self._x)
+        return self.perf_clock() - t0
+
+    def chunk(self, reps: int) -> list[float]:
+        """One measured dispatch of ``reps`` whole runs; returns the runs'
+        times in seconds."""
+        wall = self.wall(reps)
+        if self._x.is_cuda:
             # the events of a replay are complete once the fence returns
-            fence(self._x)
+            events = self._graphs[reps][1]
             return [events[i].elapsed_time(events[i + 1]) * 1e-3
                     for i in range(reps)]
-        t0 = self.perf_clock()
-        self._x = self.point.programs[reps](self._x)
-        fence(self._x)
-        wall = self.perf_clock() - t0
         return [wall / reps] * reps
 
     def close(self) -> None:
