@@ -89,7 +89,19 @@ exits non-zero):
    under ``mxu_gemm``, ``hbm_stream`` and ``pl_hbm_copy``, rendered by
    ``report``'s interference matrix; and ``bench`` once (its JSON line,
    the JAX one-device labels, each ratio against the detected card's
-   entry);
+   entry); then the multi-rank world: ``run --distributed`` in an NCCL
+   world of one (this process, torchrun's variables set for one rank)
+   over the library collectives, ``ring`` and ``pl_allreduce`` (rows with
+   backend torch, ``dist.get_backend()`` nccl, ``pl_allreduce`` through
+   the three peer kernels and no plain call, also replayed from a CUDA
+   graph under ``--fence fused``), ``hier_allreduce`` on a 2 x 4 ``(dcn,
+   ici)`` mesh of the sim world against its selftest model, and the peer
+   kernels' loopback in a process of its own under a wall-clock limit (n
+   = 2, 4, 8 rank buffers as n allocations, each rank's launch on its own
+   stream: bit for bit the sim kernels in float32 and the plain versions
+   in bfloat16, with and without a tail, 50 chained executions and 20
+   replays of each rank's captured graph, then their times at 8 x 256
+   MiB beside the sim kernels');
 6. run ``grid --spec hbm`` over the eight local memory ops at 256 MiB and
    1 GiB and print its verdict table, and show the read sweep's time
    growing with the bytes it reads;
@@ -2401,6 +2413,618 @@ def phase_bench() -> None:
           + f"; contention slowdown {c['slowdown']:.3f} ({CARD})")
 
 
+# --- the multi-rank world ---------------------------------------------------
+
+#: the NCCL world of one: the library collectives, ring and pl_allreduce
+DIST_OPS = ("allreduce,all_gather,reduce_scatter,all_to_all,broadcast,"
+            "broadcast_psum,barrier,ring,pl_allreduce")
+DIST_SWEEP = "4K:16M"
+#: the peer kernels, and their launches per execution of pl_allreduce (the
+#: barrier also once a step: 2 an execution and the step's last)
+PEER_KERNELS = ("peer_reduce_scatter", "peer_all_gather", "peer_barrier")
+#: the loopback's wall-clock limit: a rank waiting on a peer's signal that
+#: never comes fails the smoke, never hangs it
+LOOPBACK_LIMIT_S = 300
+LOOPBACK_RANKS = (2, 4, 8)
+LOOPBACK_CHAIN, LOOPBACK_REPLAYS = 50, 20
+#: the two processes of the IPC pair: their wall-clock limit
+IPC_LIMIT_S = 120
+HIER_BYTES = 4 * 1024**2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_world_of_one() -> dict:
+    """(a) ``run --distributed`` in an NCCL world of one, in this process
+    through ``cli.main``: rows that parse with backend torch, NCCL the
+    group's backend, pl_allreduce through the three peer kernels and no
+    plain call; returns the peer kernels' launches."""
+    import torch.distributed as dist
+
+    from tpu_perf_torch.config import Options
+    from tpu_perf_torch.runner import sizes_for
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    argv = ["run", "--distributed", "--op", DIST_OPS, "--sweep", DIST_SWEEP,
+            "-i", str(ITERS), "-r", str(RUNS)]
+    what = " ".join(argv)
+    fused_argv = ["run", "--distributed", "--op", "pl_allreduce", "--sweep",
+                  ",".join(str(b) for b in FUSED_BYTES), "-i", str(ITERS),
+                  "-r", str(RUNS), "--fence", "fused"]
+    try:
+        got, rows, wall = _drive(argv, what)
+        backend = dist.get_backend()
+        # the peer kernels replayed from a CUDA graph in the same world:
+        # launches are the warm-up's and the capture's only
+        fused_got, fused_rows, _ = _drive(fused_argv, " ".join(fused_argv))
+        checked = _check_world_of_one()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"distributed: dist.get_backend() = {backend}")
+    if backend != "nccl":
+        fail(f"{what}: backend {backend}, want nccl")
+    want_rows = sum(len(sizes_for(Options(sweep=DIST_SWEEP, op=op))) * RUNS
+                    for op in DIST_OPS.split(","))
+    if len(rows) != want_rows or any(
+            r.backend != "torch" or r.n_devices != 1 or r.lat_us <= 0
+            for r in rows):
+        fail(f"{what}: {len(rows)} rows (want {want_rows}) or a bad row")
+    steps = len(sizes_for(Options(sweep=DIST_SWEEP, op="pl_allreduce"))) * (
+        1 + RUNS)
+    want = {"peer_reduce_scatter": steps * ITERS,
+            "peer_all_gather": steps * ITERS,
+            "peer_barrier": steps * (2 * ITERS + 1)}
+    launched = {k: got[k] for k in PEER_KERNELS}
+    if launched != want or any(v for k, v in got.items() if k not in want):
+        fail(f"{what}: launches {got}, want {want} and nothing else")
+    fused_steps = len(FUSED_BYTES) * 2 * RUNS
+    fused_want = {"peer_reduce_scatter": fused_steps * ITERS,
+                  "peer_all_gather": fused_steps * ITERS,
+                  "peer_barrier": fused_steps * (2 * ITERS + 1)}
+    if ({k: fused_got[k] for k in PEER_KERNELS} != fused_want
+            or len(fused_rows) != len(FUSED_BYTES) * RUNS):
+        fail(f"{' '.join(fused_argv)}: launches {fused_got}, want "
+             f"{fused_want}; {len(fused_rows)} rows")
+    print(f"distributed: {' '.join(fused_argv)}: {len(fused_rows)} rows, "
+          "launches the warm-up's and the capture's only; lat_us "
+          + ", ".join(f"{r.nbytes} B {r.lat_us:.2f}" for r in fused_rows))
+    print(f"distributed: {checked}")
+    big = max((r for r in rows if r.op == "pl_allreduce"),
+              key=lambda r: r.nbytes)
+    print(f"distributed: {what}: {len(rows)} rows (backend torch, 1 rank) "
+          f"in {wall:.1f} s; pl_allreduce launches {launched} over {steps} "
+          f"steps of {ITERS}, plain calls 0; pl_allreduce at {big.nbytes} B "
+          f"{big.busbw_gbps:.1f} GB/s ({CARD})")
+    return launched
+
+
+def _check_world_of_one() -> str:
+    """pl_allreduce of the NCCL world of one, built as the run builds it
+    at the sweep's smallest and largest size: a step run eagerly and from
+    a CUDA graph (captured on a side stream after the eager step, replayed
+    twice), each output bit for bit the peer kernels' plain versions'
+    chain on the same input (at n = 1, the input itself)."""
+    import torch
+
+    from tpu_perf_torch.config import Options
+    from tpu_perf_torch.ops import pallas_ring as pr
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.runner import sizes_for, world_for
+
+    world = world_for(Options(distributed=True, sim_ranks=1))
+    sizes = sizes_for(Options(sweep=DIST_SWEEP, op="pl_allreduce"))
+    for nbytes in (min(sizes), max(sizes)):
+        built = build_op("pl_allreduce", world, nbytes, ITERS)
+        x = built.example_input
+        want = x
+        scale = pr.mean_scale(1, x.dtype)
+        for _ in range(ITERS):
+            want = pr.peer_all_gather_plain(
+                [pr.peer_reduce_scatter_plain([want], 0, scale)])
+        what = f"world of one: pl_allreduce at {nbytes} B"
+        check_exact(f"{what}, an eager step", built.step(x), want)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            got = built.step(x)
+        for replay in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            check_exact(f"{what}, graph replay {replay}", got, want)
+        check_exact(f"{what}: the input itself", want, x)
+        del graph, built
+    return (f"pl_allreduce at {min(sizes)} and {max(sizes)} B, an eager "
+            "step and two graph replays each: bit for bit the plain "
+            "versions' chain (the input)")
+
+
+def _hier_on_the_sim_world() -> None:
+    """(b) hier_allreduce on a 2 x 4 (dcn, ici) mesh of the sim world, its
+    output against its selftest model."""
+    import torch
+
+    from tpu_perf_torch.parallel import make_mesh
+    from tpu_perf_torch.selftest import format_results, run_selftest
+    from tpu_perf_torch.world import SimWorld
+
+    argv = ["run", "--op", "hier_allreduce", "--mesh", "2x4", "--axes",
+            "dcn,ici", "--sim-ranks", "8", "-b", str(HIER_BYTES), "-i",
+            str(ITERS), "-r", str(RUNS)]
+    got, rows, wall = _drive(argv, " ".join(argv))
+    if any(got.values()) or len(rows) != RUNS or any(
+            r.op != "hier_allreduce" or r.n_devices != 8 for r in rows):
+        fail(f"hier_allreduce: launches {got}, rows {rows}")
+    world = SimWorld(8, torch.device("cuda", torch.cuda.current_device()),
+                     make_mesh((2, 4), ("dcn", "ici"), n=8))
+    results = run_selftest(world, ops=["hier_allreduce"], nbytes=HIER_BYTES,
+                           iters=ITERS)
+    if any(r.status != "ok" for r in results):
+        fail(f"hier_allreduce output:\n{format_results(results)}")
+    print(f"distributed: {' '.join(argv)}: {len(rows)} rows in {wall:.1f} s, "
+          f"busbw {max(r.busbw_gbps for r in rows):.1f} GB/s; output "
+          f"{results[0].detail} against the selftest model")
+
+
+def phase_distributed() -> tuple[dict, list[dict]]:
+    """The multi-rank world: (a) an NCCL world of one through the CLI, (b)
+    hier_allreduce in the sim world, (c) pl_allreduce across two processes
+    on the card through CUDA IPC, (d) the peer kernels' loopback in a
+    process of its own; (c) and (d) under wall-clock limits.  Returns the peer
+    kernels' launches on the main path and their kernels-line entries."""
+    launched = _dist_world_of_one()
+    _hier_on_the_sim_world()
+    _ipc_pair()
+    here = os.path.dirname(os.path.abspath(__file__))
+    # one hardware queue a stream, so no rank's launch queues behind
+    # another rank's waiting barrier
+    env = dict(os.environ, CUDA_DEVICE_MAX_CONNECTIONS="32")
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.loopback()"],
+            cwd=here, env=env, capture_output=True, text=True,
+            timeout=LOOPBACK_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"loopback: no end within {LOOPBACK_LIMIT_S} s (a rank waits "
+             "on a signal that never comes)")
+    if out.returncode != 0:
+        fail(f"loopback exited {out.returncode}:\n{out.stdout[-3000:]}\n"
+             f"{out.stderr[-4000:]}")
+    entries = None
+    for line in out.stdout.splitlines():
+        if line.startswith("LOOPBACK_KERNELS "):
+            entries = json.loads(line.split(" ", 1)[1])
+        else:
+            print(f"loopback: {line}")
+    if entries is None:
+        fail("loopback: no kernels line")
+    per_exec = {"peer_reduce_scatter": 1, "peer_all_gather": 1,
+                "peer_barrier": 2 + 1 / ITERS}
+    for k in entries:
+        k["launches"] = launched[k["name"]]
+        k["launches_per_execution"] = per_exec[k["name"]]
+    return launched, entries
+
+
+def ipc_pair(rank: int, port: int) -> None:
+    """(c) one of two processes on one card, each a rank of a world of two
+    whose pl_allreduce reads the other's buffers through CUDA IPC
+    (``PeerBuffers``: ``peer_alloc``, ``peer_ipc_handle``,
+    ``peer_ipc_open``) and meets it on signal pads across the two
+    processes.  NCCL refuses two ranks on one card, so the handles cross
+    over a gloo group; the data path is the peer kernels alone.  Two steps
+    at each size, each output bit for bit its row of the sim kernels'
+    chain; run by phase_distributed under a wall-clock limit."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_perf_torch import kernels
+    from tpu_perf_torch.ops import pallas_ring as pr
+    from tpu_perf_torch.ops.collectives import build_op, example_input
+    from tpu_perf_torch.parallel import make_mesh
+    from tpu_perf_torch.world import DistWorld, SimWorld
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = DistWorld(rank=rank, n=2, local_rank=0, device=dev,
+                      mesh=make_mesh(n=2))
+    kernels.reset_counts()
+    for nbytes in (4108, 16 * 1024**2):
+        built = build_op("pl_allreduce", world, nbytes, ITERS)
+        rows = example_input(SimWorld(2, dev), built.example_input.numel(),
+                             "float32")
+        scale = pr.mean_scale(2, torch.float32)
+        want = rows
+        for _ in range(ITERS):
+            want = pr.direct_all_gather(pr.direct_reduce_scatter(
+                want, scale=scale))
+        for step in range(2):
+            got = built.step(built.example_input)
+            torch.cuda.synchronize()
+            check_exact(f"ipc pair rank {rank} at {nbytes} B, step {step}",
+                        got, want[rank])
+        del built
+    print(f"rank {rank}: pl_allreduce across two processes on one card "
+          f"through CUDA IPC at 4108 B and 16 MiB, two steps each: bit for "
+          f"bit the sim kernels; launches "
+          f"{ {k: kernels.LAUNCHES[k] for k in PEER_KERNELS} }")
+    dist.destroy_process_group()
+
+
+def _ipc_pair() -> None:
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.ipc_pair({r}, {port})"],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=IPC_LIMIT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        fail(f"ipc pair: no end within {IPC_LIMIT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            fail(f"ipc pair exited {p.returncode}:\n{out}\n{err[-4000:]}")
+        print(f"distributed: {out.strip()}")
+
+
+def _loopback_world(xs, chunk: int):
+    """Per-rank buffers of an n-rank loopback: each rank's input is its own
+    allocation (``xs``), as are its owned chunk, output, pad, generation
+    and stream; the owned chunks and the pads with their pointer tables."""
+    import torch
+
+    from tpu_perf_torch.ops.pallas_ring import PeerParts
+
+    n = len(xs)
+    dev = xs[0].device
+    return {
+        "n": n, "chunk": chunk,
+        "streams": [torch.cuda.Stream(dev) for _ in range(n)],
+        "mids": PeerParts(torch.empty(chunk, dtype=xs[0].dtype, device=dev)
+                          for _ in range(n)),
+        "outs": [torch.empty(n * chunk, dtype=xs[0].dtype, device=dev)
+                 for _ in range(n)],
+        "pads": PeerParts(torch.zeros(n, dtype=torch.int32, device=dev)
+                          for _ in range(n)),
+        "gens": [torch.zeros(1, dtype=torch.int32, device=dev)
+                 for _ in range(n)],
+    }
+
+
+def _rank_parts(xs, chunk: int) -> list:
+    """What rank r's reduce-scatter reads: chunk r of every rank's input,
+    with its pointer table, for each r."""
+    from tpu_perf_torch.ops.pallas_ring import PeerParts
+
+    n = len(xs)
+    return [PeerParts(x.view(n, chunk)[r] for x in xs) for r in range(n)]
+
+
+def _on_streams(w, launch) -> None:
+    """``launch(r)`` for every rank, each on its own stream, forked from
+    and joined back to the current one."""
+    import torch
+
+    main = torch.cuda.current_stream()
+    for s in w["streams"]:
+        s.wait_stream(main)
+    for r, s in enumerate(w["streams"]):
+        with torch.cuda.stream(s):
+            launch(r)
+    for s in w["streams"]:
+        main.wait_stream(s)
+
+
+def _loopback_execution(w, parts, outs, scale: float) -> None:
+    """One pl_allreduce execution of every rank of the loopback, phase by
+    phase: barrier, reduce-scatter of the rank's chunk from every rank's
+    input (``parts``, :func:`_rank_parts`), barrier, all-gather of the
+    owned chunks into ``outs``."""
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    def barrier(r):
+        pr.peer_barrier(w["pads"], w["gens"][r], r)
+
+    _on_streams(w, barrier)
+    _on_streams(w, lambda r: pr.peer_reduce_scatter(
+        parts[r], r, scale=scale, out=w["mids"][r]))
+    _on_streams(w, barrier)
+    _on_streams(w, lambda r: pr.peer_all_gather(w["mids"], out=outs[r]))
+
+
+def _rank_inputs(n: int, chunk: int, dtype: str):
+    """Rank r's input, its own allocation, and every rank's as the sim
+    world's rows: the ranks' shards of one make_fill."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import example_input
+    from tpu_perf_torch.world import SimWorld
+
+    rows = example_input(SimWorld(n, torch.device("cuda")), n * chunk, dtype)
+    return [rows[r].clone() for r in range(n)], rows
+
+
+def _loopback_case(n: int, dtype: str, chunk: int) -> None:
+    """One execution at n ranks: the owned chunks bit for bit the sim
+    reduce-scatter's (float32) and the peer plain version's (every dtype),
+    each output its row of the sim gather, every pad and generation at 2,
+    and a third round of barriers its plain version's."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    xs, rows = _rank_inputs(n, chunk, dtype)
+    w = _loopback_world(xs, chunk)
+    scale = pr.mean_scale(n, xs[0].dtype)
+    _loopback_execution(w, _rank_parts(xs, chunk), w["outs"], scale)
+    torch.cuda.synchronize()
+    mids = torch.stack(w["mids"])
+    what = f"loopback n={n} {dtype} chunk={chunk}"
+    for r in range(n):
+        check_exact(f"{what}: rank {r} reduce-scatter against its plain "
+                    "version", w["mids"][r], pr.peer_reduce_scatter_plain(
+                        [x.view(n, chunk)[r] for x in xs], r, scale))
+        check_exact(f"{what}: rank {r} gather against its plain version",
+                    w["outs"][r], pr.peer_all_gather_plain(w["mids"]))
+    if dtype == "float32":
+        check_exact(f"{what}: reduce-scatter against the sim kernel", mids,
+                    pr.direct_reduce_scatter(rows, scale=scale))
+        check_exact(f"{what}: gather against the sim kernel",
+                    torch.stack(w["outs"]), pr.direct_all_gather(mids))
+    _check_barriers(w, 2, what)
+
+
+def _check_barriers(w, rounds: int, what: str) -> float:
+    """After ``rounds`` barriers a rank, every generation and every pad
+    slot at ``rounds``; then one more round of the kernel, every rank on
+    its stream, against the plain version's from the same pads and
+    generations.  Returns that round's max abs err."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    pads, gens = torch.stack(list(w["pads"])), torch.cat(w["gens"])
+    if not (bool((pads == rounds).all()) and bool((gens == rounds).all())):
+        fail(f"{what}: pads {pads.tolist()}, generations {gens.tolist()}, "
+             f"want {rounds}")
+    want_pads = [p.clone() for p in w["pads"]]
+    want_gens = [g.clone() for g in w["gens"]]
+    for r in range(w["n"]):
+        pr.peer_barrier_plain(want_pads, want_gens[r], r)
+    _on_streams(w, lambda r: pr.peer_barrier(w["pads"], w["gens"][r], r))
+    torch.cuda.synchronize()
+    return check_exact(f"{what}: a round of barriers against its plain "
+                       "version", torch.cat([*w["pads"], *w["gens"]]),
+                       torch.cat([*want_pads, *want_gens]))
+
+
+def _loopback_chain(n: int, chunk: int) -> None:
+    """LOOPBACK_CHAIN chained executions (each rank's output its next
+    input), then a CUDA graph of two executions a rank, captured on the
+    rank's stream and replayed LOOPBACK_REPLAYS times: every step bit for
+    bit the sim kernels' chain, the generations advanced on the device."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    xs, rows = _rank_inputs(n, chunk, "float32")
+    ys = [torch.empty_like(x) for x in xs]
+    w = _loopback_world(xs, chunk)
+    scale = pr.mean_scale(n, xs[0].dtype)
+    parts = [_rank_parts(xs, chunk), _rank_parts(ys, chunk)]
+
+    def sim(y, k):
+        for _ in range(k):
+            y = pr.direct_all_gather(pr.direct_reduce_scatter(y, scale=scale))
+        return y
+
+    for j in range(LOOPBACK_CHAIN):
+        _loopback_execution(w, parts[j % 2], ys if j % 2 == 0 else xs, scale)
+    torch.cuda.synchronize()
+    want = sim(rows, LOOPBACK_CHAIN)
+    check_exact(f"loopback n={n}: {LOOPBACK_CHAIN} chained executions",
+                torch.stack(xs), want)
+    graphs = []
+    for r, s in enumerate(w["streams"]):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            for b, dst in enumerate((ys, xs)):
+                pr.peer_barrier(w["pads"], w["gens"][r], r)
+                pr.peer_reduce_scatter(parts[b][r], r, scale=scale,
+                                       out=w["mids"][r])
+                pr.peer_barrier(w["pads"], w["gens"][r], r)
+                pr.peer_all_gather(w["mids"], out=dst[r])
+        graphs.append(g)
+    t0 = time.perf_counter()
+    for _ in range(LOOPBACK_REPLAYS):
+        _on_streams(w, lambda r: graphs[r].replay())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_exact(f"loopback n={n}: {LOOPBACK_REPLAYS} replays of a graph of "
+                "two executions", torch.stack(xs),
+                sim(want, 2 * LOOPBACK_REPLAYS))
+    executions = LOOPBACK_CHAIN + 2 * LOOPBACK_REPLAYS
+    _check_barriers(w, 2 * executions, f"loopback n={n}")
+    print(f"n={n} float32 chunk={chunk}: {LOOPBACK_CHAIN} chained executions "
+          f"and {LOOPBACK_REPLAYS} replays of each rank's graph of two "
+          f"equal the sim kernels' chain bit for bit; generations "
+          f"{2 * executions} (advanced on the device); replays "
+          f"{wall * 1e3 / LOOPBACK_REPLAYS:.3f} ms each")
+
+
+def _loopback_timing() -> list[dict]:
+    """The peer kernels at 8 ranks x MAIN_BYTES, every rank's launch on its
+    own stream, beside the sim kernels on the same rows: the
+    kernels-line entries."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    n = 8
+    chunk = MAIN_BYTES // 4 // n
+    xs, rows = _rank_inputs(n, chunk, "float32")
+    w = _loopback_world(xs, chunk)
+    scale = pr.mean_scale(n, torch.float32)
+    parts = _rank_parts(xs, chunk)
+
+    def rs():
+        _on_streams(w, lambda r: pr.peer_reduce_scatter(
+            parts[r], r, scale=scale, out=w["mids"][r]))
+
+    def ag():
+        _on_streams(w, lambda r: pr.peer_all_gather(w["mids"],
+                                                    out=w["outs"][r]))
+
+    def barrier():
+        _on_streams(w, lambda r: pr.peer_barrier(w["pads"], w["gens"][r], r))
+
+    def plain_rs():
+        _on_streams(w, lambda r: pr.peer_reduce_scatter_plain(parts[r], r,
+                                                              scale))
+
+    def plain_ag():
+        _on_streams(w, lambda r: pr.peer_all_gather_plain(w["mids"]))
+
+    rs()
+    ag()
+    torch.cuda.synchronize()
+    red = pr.direct_reduce_scatter(rows, scale=scale)
+    rs_err = check_exact("loopback at 8 x 256 MiB: reduce-scatter",
+                         torch.stack(list(w["mids"])), red)
+    ag_err = check_exact("loopback at 8 x 256 MiB: gather",
+                         torch.stack(w["outs"]), pr.direct_all_gather(red))
+    isz = 4
+    data_bound = _bound((n * n * chunk + n * chunk) * isz, n * n * chunk)
+    gather_bound = _bound((n * chunk + n * n * chunk) * isz, 0)
+    sim_rs = cuda_ms(lambda: pr.direct_reduce_scatter(rows, scale=scale), 10)
+    sim_ag = cuda_ms(lambda: pr.direct_all_gather(red), 10)
+    eager_rounds, eager_warmup = 200, 5
+    barrier_ms = cuda_ms(barrier, eager_rounds, warmup=eager_warmup)
+    # the barrier's device time: each rank's graph of GRAPH_LAUNCHES chained
+    # barriers, captured on its stream, all replayed together
+    graphs = []
+    for r, s in enumerate(w["streams"]):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            for _ in range(GRAPH_LAUNCHES):
+                pr.peer_barrier(w["pads"], w["gens"][r], r)
+        graphs.append(g)
+    replays, replay_warmup = 20, 2
+    barrier_graph_ms = cuda_ms(
+        lambda: _on_streams(w, lambda r: graphs[r].replay()), replays,
+        warmup=replay_warmup) / GRAPH_LAUNCHES
+    # every timed barrier met every rank: the pads and generations count
+    # them, and one more round equals its plain version
+    barrier_err = _check_barriers(
+        w, eager_warmup + eager_rounds
+        + (replay_warmup + replays) * GRAPH_LAUNCHES,
+        "loopback at 8 ranks, after the timed barriers")
+    source = "tpu_perf_torch/csrc/peer_collectives.cu"
+    entries = [
+        {"name": "peer_reduce_scatter", "route": "cuda", "source": source,
+         "replaces": "tpu_perf/ops/pallas_ring.py:599", "max_abs_err": rs_err,
+         "ms": cuda_ms(rs, 10), "plain_ms": cuda_ms(plain_rs, 3, 1),
+         **data_bound,
+         "library_ms": cuda_ms(lambda: rows.view(n, n, chunk).sum(0), 10),
+         "sim_kernel_ms": sim_rs},
+        {"name": "peer_all_gather", "route": "cuda", "source": source,
+         "replaces": "tpu_perf/ops/pallas_ring.py:481", "max_abs_err": ag_err,
+         "ms": cuda_ms(ag, 10), "plain_ms": cuda_ms(plain_ag, 3, 1),
+         **gather_bound,
+         "library_ms": cuda_ms(
+             lambda: red.reshape(1, -1).expand(n, -1).contiguous(), 10),
+         "sim_kernel_ms": sim_ag},
+        {"name": "peer_barrier", "route": "cuda", "source": source,
+         "replaces": "tpu_perf/ops/pallas_ring.py:278",
+         "max_abs_err": barrier_err, "ms": barrier_ms, "plain_ms": cuda_ms(
+             lambda: [pr.peer_barrier_plain(w["pads"], w["gens"][r], r)
+                      for r in range(n)], 20),
+         **_bound(2 * n * n * 4, 0), "library_ms": None,
+         "graph_ms": barrier_graph_ms},
+    ]
+    torch.cuda.synchronize()
+    for k in entries:
+        k.pop("bytes")
+        k.pop("ops")
+    return entries
+
+
+def loopback() -> None:
+    """(d) the peer kernels on one card: n rank buffers as n separate
+    allocations, each rank's launch on its own stream, reading its peers
+    through the pointer tables; run by phase_distributed in a process of
+    its own under a wall-clock limit.  Prints its checks and, last, the
+    peer kernels' kernels-line entries."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    cap = pr.peer_barrier_capacity(torch.cuda.current_device())
+    if max(LOOPBACK_RANKS) > cap:
+        fail(f"loopback: {max(LOOPBACK_RANKS)} waiting barriers do not fit "
+             f"the card ({cap} CTAs)")
+    t0 = time.perf_counter()
+    cases = 0
+    for n in LOOPBACK_RANKS:
+        for dtype in ("float32", "bfloat16"):
+            # a whole number of 16-byte units, and a chunk with a tail
+            for chunk in (1 << 16, (1 << 16) + 3):
+                _loopback_case(n, dtype, chunk)
+                cases += 1
+    print(f"{cases} cases at n = {LOOPBACK_RANKS}, float32 and bfloat16, "
+          "with and without a tail: the owned chunks and outputs equal the "
+          "plain versions (and, in float32, the sim kernels) bit for bit, "
+          "pads and generations at 2, a third round of barriers its plain "
+          f"version's ({time.perf_counter() - t0:.1f} s; "
+          f"the card holds {cap} waiting barriers)")
+    for n in LOOPBACK_RANKS:
+        _loopback_chain(n, (1 << 16) + 5)
+    entries = _loopback_timing()
+    for k in entries:
+        print(f"{k['name']} at 8 x 256 MiB, 8 streams: {k['ms']:.4f} ms "
+              f"(sim kernel {k.get('sim_kernel_ms', float('nan')):.4f}), "
+              f"plain {k['plain_ms']:.4f}, bound {k['bound_ms']:.4f} ms "
+              f"({card_line()})")
+    print(f"peer_barrier: 8 ranks from graphs of {GRAPH_LAUNCHES} chained "
+          f"barriers a rank: {entries[-1]['graph_ms'] * 1e3:.3f} us a "
+          "barrier (the eager time above is host launches)")
+    print("LOOPBACK_KERNELS " + json.dumps(entries))
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    import torch
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         f"--id={torch.cuda.current_device()}"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def main() -> int:
     import torch
 
@@ -2411,10 +3035,7 @@ def main() -> int:
     # fails and the script exits non-zero before printing any result
     import tpu_perf_torch  # noqa: F401
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-         f"--id={torch.cuda.current_device()}"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_line()
     print(smi)
     global CARD
     CARD = smi
@@ -2450,6 +3071,7 @@ def main() -> int:
         timed("compute", phase_compute)
         timed("streams", phase_streams)
         timed("bench", phase_bench)
+        _, peer_rows = timed("distributed", phase_distributed)
     finally:
         shutil.rmtree(REPORT_DIR, ignore_errors=True)
     timed("selftest", phase_selftest)
@@ -2506,13 +3128,21 @@ def main() -> int:
                       f"{GRAPH_LAUNCHES}: {k['graph_ms'] * 1e3:.3f} us per "
                       f"barrier, {k['empty_launch_graph_ms'] * 1e3:.3f} us "
                       "per empty launch")
+    for k in peer_rows:
+        print(f"kernel @256MiB/rank: {k['name']} (8 ranks, one stream "
+              f"each, loopback): {k['ms']:.4f} ms, "
+              f"{k['launches_per_execution']:g} launches an execution "
+              f"({k['launches']} on the NCCL world of one's path), bound "
+              f"{k['bound_ms']:.4f} ms; the sim kernel "
+              f"{k.get('sim_kernel_ms', float('nan')):.4f} ms")
     print(f"total: {time.perf_counter() - t_start:.1f} s (phases {phase_s}), "
           f"card: {smi}")
-    # the JSON line reports the main path's largest shape, the last rows
+    # the JSON line reports the main path's largest shape, the last rows,
+    # and the peer kernels at 8 ranks x 256 MiB
     for k in rows:
         for extra in ("shape", "dtype", "bytes", "ops", "schedule_bytes"):
             k.pop(extra, None)
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows + peer_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

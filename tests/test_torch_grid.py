@@ -136,7 +136,7 @@ def test_run_grid_records_a_failing_cell_and_keeps_going():
 
 
 @pytest.mark.parametrize("ops,err", [
-    ("nope", ValueError), ("hier_allreduce", ValueError),
+    ("nope", ValueError), ("allgatherv", ValueError),
     ("", ValueError), ("pl_barrier", ValueError),
 ])
 def test_run_grid_refuses_bad_op_lists_up_front(ops, err):

@@ -46,8 +46,9 @@ def test_no_module_of_the_port_imports_jax_or_tpu_perf():
 
 
 #: the modules of the fences, report and daemon slice, of the run surface
-#: (the group topology, the external launcher, the C baseline), and of the
-#: compute instruments, the stream engine, contend and bench
+#: (the group topology, the external launcher, the C baseline), of the
+#: compute instruments, the stream engine, contend and bench, and of the
+#: multi-rank world (the meshes and the multi-process world)
 SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.ingest", "tpu_perf_torch.ingest.pipeline",
                  "tpu_perf_torch.timing", "tpu_perf_torch.driver",
@@ -56,7 +57,9 @@ SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.streams.engine",
                  "tpu_perf_torch.streams.plans",
                  "tpu_perf_torch.streams.contend", "tpu_perf_torch.bench",
-                 "tpu_perf_torch.grid", "tpu_perf_torch.selftest")
+                 "tpu_perf_torch.grid", "tpu_perf_torch.selftest",
+                 "tpu_perf_torch.parallel", "tpu_perf_torch.parallel.mesh",
+                 "tpu_perf_torch.parallel.multihost")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -136,7 +139,10 @@ def test_build_module_names_every_cuda_source_and_its_c_entry():
     source_of = {"ring": "p2p_shift", "exchange": "p2p_shift",
                  "direct_reduce_scatter": "reduce_scatter",
                  "direct_all_gather": "all_gather",
-                 "direct_all_gather_bidir": "all_gather"}
+                 "direct_all_gather_bidir": "all_gather",
+                 "peer_reduce_scatter": "peer_collectives",
+                 "peer_all_gather": "peer_collectives",
+                 "peer_barrier": "peer_collectives"}
     cuda_kernels = set(kernels.KERNELS) - {"stream"}
     assert ({source_of.get(k, k) for k in cuda_kernels}
             == set(_build._ENTRIES))

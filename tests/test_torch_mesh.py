@@ -1,0 +1,306 @@
+"""The port's meshes, its hier_allreduce in the sim world, the peer
+kernels' plain versions and the multi-rank flags, against the JAX package
+on its eight virtual CPU devices.
+
+Tolerances: the mesh functions are held to the JAX package's shapes, axis
+names, rank order and error messages exactly.  ``hier_allreduce`` sums in
+another order than XLA's: float32 rtol 1e-6, bfloat16 rtol 8e-3, as
+``tests/test_torch_collectives.py`` holds the sums.  The peer kernels'
+plain reduce-scatter is held bit for bit to the sim world's
+(``direct_reduce_scatter_plain``) in float32: both sum in the ring's
+order.
+"""
+
+import argparse
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import tpu_perf.cli as jcli
+from tpu_perf.ops import build_op as jax_build_op
+from tpu_perf.parallel import make_mesh as jax_make_mesh
+from tpu_perf.parallel import mesh_devices_flat
+
+import tpu_perf_torch.ops.pallas_ring as tpr
+from tpu_perf_torch import cli, kernels
+from tpu_perf_torch.config import Options
+from tpu_perf_torch.ops.collectives import build_op, to_tensor
+from tpu_perf_torch.parallel import make_hybrid_mesh, make_mesh
+from tpu_perf_torch.parallel.mesh import mesh_ranks_flat
+from tpu_perf_torch.runner import world_for
+from tpu_perf_torch.selftest import run_selftest
+from tpu_perf_torch.world import (
+    NoDeviceError, SimWorld, from_world, to_rank, to_world,
+)
+
+CPU = torch.device("cpu")
+RTOL = {"float32": 1e-6, "bfloat16": 8e-3}
+MESHES = [((), ()), ((8,), ("x",)), ((2, 4), ("dcn", "ici")),
+          ((4, 2), ("dcn", "ici")), ((-1, 2), ("a", "b")),
+          ((2, -1), ("dcn", "ici")), ((2, 2, 2), ("p", "q", "r"))]
+BAD_MESHES = [((3, 4), ("dcn", "ici")), ((2, 4), ("x",)),
+              ((-1, -1), ("a", "b")), ((3, -1), ("a", "b")),
+              ((0, -1), ("a", "b"))]
+
+
+@pytest.mark.parametrize("shape,axes", MESHES)
+def test_make_mesh_matches_jax(shape, axes, eight_devices):
+    theirs = jax_make_mesh(shape, axes, devices=eight_devices)
+    ours = make_mesh(shape, axes, n=8)
+    assert ours.shape == theirs.devices.shape
+    assert ours.axis_names == theirs.axis_names
+    # rank r sits where device r sits in the JAX mesh of the same shape
+    ids = [d.id for d in mesh_devices_flat(theirs)]
+    assert mesh_ranks_flat(ours) == ids
+    for r in range(8):
+        assert theirs.devices[ours.coords(r)].id == r
+
+
+@pytest.mark.parametrize("shape,axes", BAD_MESHES)
+def test_make_mesh_errors_match_jax(shape, axes, eight_devices):
+    with pytest.raises(ValueError) as theirs:
+        jax_make_mesh(shape, axes, devices=eight_devices)
+    with pytest.raises(ValueError) as ours:
+        make_mesh(shape, axes, n=8)
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_axis_groups_are_the_ranks_along_an_axis():
+    mesh = make_mesh((2, 4), ("dcn", "ici"), n=8)
+    assert mesh.axis_groups("ici") == [[0, 1, 2, 3], [4, 5, 6, 7]]
+    assert mesh.axis_groups("dcn") == [[0, 4], [1, 5], [2, 6], [3, 7]]
+
+
+@pytest.mark.parametrize("mesh,axes", [(None, None), ("8", None),
+                                       ("2x4", None), ("2x4", "dcn,ici"),
+                                       ("2,2,2", "a,b,c"), (None, "dcn,ici"),
+                                       ("-1x2", "dcn,ici")])
+def test_parse_mesh_matches_jax(mesh, axes):
+    args = argparse.Namespace(mesh=mesh, axes=axes)
+    assert cli._parse_mesh(args) == jcli._parse_mesh(args)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_permutations_match_jax(n):
+    import tpu_perf.topology as jtopo
+
+    from tpu_perf_torch import topology
+
+    for shift in (1, -1, 3):
+        assert (topology.ring_permutation(n, shift=shift)
+                == jtopo.ring_permutation(n, shift=shift))
+    if n % 2 == 0:
+        for reverse in (False, True):
+            assert (topology.one_way_permutation(n, reverse=reverse)
+                    == jtopo.one_way_permutation(n, reverse=reverse))
+
+
+def test_hybrid_mesh_is_nodes_by_local_ranks():
+    mesh = make_hybrid_mesh(n=8, per_node=4)
+    assert (mesh.shape, mesh.axis_names) == ((2, 4), ("dcn", "ici"))
+    # a single process is one node of one rank
+    assert make_hybrid_mesh().shape == (1, 1)
+    with pytest.raises(ValueError, match="degraded pod"):
+        make_hybrid_mesh(n=6, per_node=4)
+
+
+# --- hier_allreduce in the sim world ---------------------------------------
+
+
+def _compare_hier(shape, nbytes, iters, dtype):
+    jmesh = jax_make_mesh(shape, ("dcn", "ici"),
+                          devices=jax.devices()[:int(np.prod(shape))])
+    jb = jax_build_op("hier_allreduce", jmesh, nbytes, iters, dtype=dtype)
+    x = np.asarray(jax.device_get(jb.example_input)).astype(np.float64)
+    want = np.asarray(jax.device_get(jb.step(jb.example_input)))
+    n = jb.n_devices
+    world = SimWorld(n, CPU, make_mesh(shape, ("dcn", "ici"), n=n))
+    pb = build_op("hier_allreduce", world, nbytes, iters, dtype=dtype)
+    xt = to_tensor(to_world(x, n), dtype, CPU)
+    assert torch.equal(xt, pb.example_input)
+    assert (pb.nbytes, pb.n_devices) == (jb.nbytes, jb.n_devices)
+    got = from_world(pb.step(xt)).astype(np.float64)
+    np.testing.assert_allclose(got, want.astype(np.float64),
+                               rtol=RTOL[dtype], atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("iters", [1, 3])
+@pytest.mark.parametrize("shape", [(2, 4), (4, 2), (1, 8), (2, 2)])
+def test_hier_allreduce_in_the_sim_world_matches_jax(shape, iters, dtype,
+                                                     eight_devices):
+    _compare_hier(shape, 4 * 37, iters, dtype)
+
+
+def test_hier_allreduce_needs_two_axes_with_the_jax_message(eight_devices):
+    with pytest.raises(ValueError) as theirs:
+        jax_build_op("hier_allreduce", jax_make_mesh(devices=eight_devices),
+                     64, 1)
+    with pytest.raises(ValueError) as ours:
+        build_op("hier_allreduce", SimWorld(8, CPU), 64, 1)
+    assert str(ours.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("op", ["ring", "pingpong", "pl_ring",
+                                "pl_allreduce"])
+def test_one_axis_ops_refuse_a_two_axis_mesh_as_jax_does(op, eight_devices):
+    jmesh = jax_make_mesh((2, 4), ("dcn", "ici"), devices=eight_devices)
+    with pytest.raises(ValueError) as theirs:
+        jax_build_op(op, jmesh, 64, 1)
+    world = SimWorld(8, CPU, make_mesh((2, 4), ("dcn", "ici"), n=8))
+    with pytest.raises(ValueError) as ours:
+        build_op(op, world, 64, 1)
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_selftest_on_a_two_axis_sim_world():
+    world = SimWorld(8, CPU, make_mesh((2, 4), ("dcn", "ici"), n=8))
+    by_op = {r.op: r for r in run_selftest(world, iters=2)}
+    assert by_op["hier_allreduce"].status == "ok"
+    assert by_op["allreduce"].status == "ok"
+    assert by_op["ring"].detail == "needs a single-axis mesh"
+    flat = {r.op: r for r in run_selftest(SimWorld(8, CPU),
+                                          ops=["hier_allreduce"])}
+    assert flat["hier_allreduce"].detail == "needs a 2-axis (dcn, ici) mesh"
+
+
+def test_cli_runs_hier_allreduce_on_a_sim_mesh(capsys):
+    rc = cli.main(["run", "--op", "hier_allreduce", "--mesh", "2x4",
+                   "--axes", "dcn,ici", "-b", "4K", "-i", "2", "-r", "2",
+                   "--device", "cpu"])
+    assert rc == 0
+    lines = capsys.readouterr().out.strip().splitlines()[1:]
+    assert len(lines) == 2
+    assert all(",torch-sim,hier_allreduce,4096,2," in ln for ln in lines)
+
+
+# --- the carry-across helper and the peer kernels' plain versions --------
+
+
+@pytest.mark.parametrize("window", [1, 3])
+def test_to_rank_is_the_ranks_shard_of_the_global_layout(window):
+    n, elems = 4, 5
+    g = np.arange(window * n * elems, dtype=np.float32)
+    g = g.reshape(window, -1) if window > 1 else g
+    for r in range(n):
+        got = to_rank(g, n, r)
+        if window == 1:
+            np.testing.assert_array_equal(got, g[r * elems:(r + 1) * elems])
+        else:
+            np.testing.assert_array_equal(got,
+                                          g[:, r * elems:(r + 1) * elems])
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_peer_plain_reduce_scatter_is_the_sim_plain_bit_for_bit(n, dtype):
+    chunk = 7
+    rng = np.random.default_rng(n)
+    # values that round differently in another order of addition
+    x = torch.from_numpy(rng.standard_normal((n, n * chunk)) * 1e4
+                         ).to(dtype)
+    scale = tpr.mean_scale(n, dtype)
+    xs = [x[r].clone() for r in range(n)]  # separate buffers, one a rank
+    got = torch.stack([tpr.peer_reduce_scatter(
+        [b.view(n, chunk)[r] for b in xs], r, scale=scale)
+        for r in range(n)])
+    if n > 1:
+        want = tpr.direct_reduce_scatter_plain(x, scale)
+    else:
+        want = x * scale
+    assert torch.equal(got, want)
+    gathered = [tpr.peer_all_gather(list(got)) for _ in range(n)]
+    assert all(torch.equal(g, got.reshape(-1)) for g in gathered)
+
+
+def test_peer_barrier_plain_signals_every_pad():
+    n = 3
+    pads = [torch.zeros(n, dtype=torch.int32) for _ in range(n)]
+    gens = [torch.zeros(1, dtype=torch.int32) for _ in range(n)]
+    for _ in range(2):
+        for r in range(n):
+            tpr.peer_barrier(pads, gens[r], r)
+    assert all(p.tolist() == [2] * n for p in pads)
+    assert [int(g) for g in gens] == [2] * n
+    with pytest.raises(ValueError, match="int32"):
+        tpr.peer_barrier([p.float() for p in pads], gens[0], 0)
+
+
+def test_peer_wrappers_count_plain_calls_on_the_cpu():
+    kernels.reset_counts()
+    parts = [torch.ones(4), torch.ones(4)]
+    tpr.peer_reduce_scatter(parts, 0)
+    tpr.peer_all_gather(parts)
+    assert kernels.PLAIN_CALLS["peer_reduce_scatter"] == 1
+    assert kernels.PLAIN_CALLS["peer_all_gather"] == 1
+    assert not any(kernels.LAUNCHES.values())
+    with pytest.raises(ValueError, match="rank 2 outside"):
+        tpr.peer_reduce_scatter(parts, 2)
+
+
+def test_peer_parts_carry_a_table_on_the_card_only():
+    parts = [torch.ones(4), torch.zeros(4)]
+    held = tpr.PeerParts(parts)
+    assert held.table is None
+    assert len(held) == 2 and held[1] is parts[1]
+    assert torch.equal(tpr.peer_reduce_scatter(held, 0), torch.ones(4))
+    assert torch.equal(tpr.peer_all_gather(held), torch.cat(parts))
+    # a launch on the card reads its parts through a PeerParts' table only
+    for given in (parts, held):
+        with pytest.raises(TypeError, match="PeerParts"):
+            tpr._table_ptr("peer_all_gather", given)
+
+
+# --- the flags ---------------------------------------------------------------
+
+
+def test_hybrid_mesh_and_mesh_are_exclusive(capsys):
+    rc = cli.main(["run", "--op", "allreduce", "--hybrid-mesh", "--mesh",
+                   "2x4", "--device", "cpu"])
+    assert rc == 2
+    assert "--hybrid-mesh and --mesh are exclusive" in capsys.readouterr().err
+
+
+def test_sim_ranks_with_distributed_is_an_error(capsys):
+    rc = cli.main(["run", "--distributed", "--sim-ranks", "8", "--device",
+                   "cpu"])
+    assert rc == 2
+    assert "holds one rank" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="holds one rank"):
+        Options(distributed=True)
+
+
+def test_dry_run_keeps_its_message(capsys):
+    assert cli.main(["run", "--dry-run", "--device", "cpu"]) == 2
+    assert "uses --distributed" in capsys.readouterr().err
+
+
+def test_mesh_with_the_mpi_backend_is_not_yet_ported(capsys):
+    assert cli.main(["run", "--backend", "mpi", "--mesh", "2", "-x"]) == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_mesh_shape_and_axes_must_match():
+    with pytest.raises(ValueError, match="matching length"):
+        Options(mesh_shape=(2, 4), mesh_axes=("x",))
+
+
+def test_distributed_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NoDeviceError, match="--device cpu"):
+        cli.main(["run", "--distributed", "--op", "allreduce"])
+
+
+def test_distributed_with_no_cluster_stays_single_process(monkeypatch,
+                                                          capsys):
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
+    world = world_for(Options(distributed=True, sim_ranks=1, device="cpu"))
+    assert isinstance(world, SimWorld) and world.n == 1
+    assert "not joining a multi-host cluster" in capsys.readouterr().err
+    assert cli.main(["run", "--distributed", "--op", "allreduce", "-b", "64",
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert ",torch,allreduce,64,10,1,1," in out[1]

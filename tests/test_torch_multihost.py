@@ -1,0 +1,337 @@
+"""The port's multi-process world on the CPU: gloo worlds of 1, 2 and 4
+processes, one rank each, against the JAX package on 1, 2 and 4 of the
+eight virtual CPU devices.
+
+Each spawned rank imports torch and the port only (no JAX), joins the
+world through ``initialize_distributed`` (torchrun's variables, set here;
+every world takes a free port from the OS), builds each op in its
+``DistWorld`` from its own shard of the same ``make_fill`` input, runs
+one step and writes its output; the test assembles the ranks' outputs in
+the JAX global layout and compares them with the JAX op on a mesh of the
+same size.  A worker that fails or outlives its timeout fails the test,
+and every worker is killed when the test ends.
+
+Tolerances, as in ``tests/test_torch_collectives.py``: exact for every
+op that only moves bytes, every dtype; float32 rtol 1e-6 and bfloat16
+rtol 8e-3 for the sums (``allreduce``, ``barrier``, ``reduce_scatter``,
+``hier_allreduce``, ``pl_allreduce``), which gloo orders differently
+from XLA (``pl_allreduce``'s plain versions sum in the ring's order, as
+the Pallas kernel does); ``hbm_stream`` float32 rtol 1e-6, since XLA may
+fuse its multiply-add into one rounding (as ``tests/test_torch_slice.py``
+holds it).
+"""
+
+import json
+import math
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+import tpu_perf.schema as jschema
+from tpu_perf.ops import build_op as jax_build_op
+from tpu_perf.parallel import allreduce_times as jax_allreduce_times
+from tpu_perf.parallel import make_mesh as jax_make_mesh
+
+REPO = Path(__file__).resolve().parent.parent
+RTOL = {"float32": 1e-6, "bfloat16": 8e-3, "int32": 0}
+NBYTES, ITERS = 150, 3
+#: ops that only move bytes, in every dtype; and the sums, in the floats
+MOVE_OPS = ["all_gather", "all_to_all", "broadcast", "broadcast_psum",
+            "ring", "halo", "exchange", "ppermute", "pingpong",
+            "pingpong_unidir"]
+SUM_OPS = ["allreduce", "barrier", "reduce_scatter", "pl_allreduce"]
+CASES = ([(op, dt) for op in MOVE_OPS for dt in ("float32", "bfloat16",
+                                                   "int32")]
+         + [(op, dt) for op in SUM_OPS for dt in ("float32", "bfloat16")]
+         + [("hbm_stream", "float32")])
+#: a world's wall-clock limit
+WORKER_TIMEOUT_S = 90
+
+_WORKER = textwrap.dedent("""
+    import json, math, sys
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.parallel import (
+        allreduce_times, exchange_ips, initialize_distributed,
+        make_hybrid_mesh)
+    from tpu_perf_torch.world import dist_world
+
+    plan, out = json.loads(sys.argv[1]), sys.argv[2]
+    assert initialize_distributed(device="cpu")
+    world = dist_world(torch.device("cpu"))
+    arrays, errors = {}, {}
+
+    def run(key, op, w, dtype):
+        try:
+            b = build_op(op, w, plan["nbytes"], plan["iters"], dtype=dtype)
+            x = b.example_input.double().numpy().copy()
+            y = b.step(b.example_input)
+        except Exception as e:
+            errors[key] = f"{type(e).__name__}: {e}"
+            return
+        arrays[key] = y.double().numpy()
+        arrays[key + "|x"] = x
+
+    for op, dtype in plan["cases"]:
+        run(f"{op}/{dtype}", op, world, dtype)
+    if plan.get("hybrid"):
+        hw = dist_world(torch.device("cpu"), make_hybrid_mesh())
+        for dtype in ("float32", "bfloat16"):
+            run(f"hier/{dtype}", "hier_allreduce", hw, dtype)
+    r = world.rank
+    info = {
+        "rank": r, "n": world.n, "errors": errors,
+        # rank 1 has no data this window: it still enters the collective
+        "times": allreduce_times(float("nan") if r == 1
+                                 else [r + 1.0, r + 3.0, r + 2.0]),
+        "all_nan": allreduce_times([]),
+        "ips": exchange_ips(f"10.0.0.{r}"),
+        "max": world.max_over_ranks([float(r), None, None if r else 5.0]),
+    }
+    np.savez(f"{out}/rank{r}.npz", **arrays)
+    with open(f"{out}/rank{r}.json", "w") as fh:
+        json.dump(info, fh)
+    dist.destroy_process_group()
+""")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _env(rank: int, n: int, port: int, per_node: int | None = None) -> dict:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # one thread a rank: the ranks share the host with the other tests
+    env.update(RANK=str(rank), WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), PYTHONPATH=str(REPO),
+               OMP_NUM_THREADS="1")
+    per_node = per_node or n
+    env.update(LOCAL_RANK=str(rank % per_node),
+               LOCAL_WORLD_SIZE=str(per_node))
+    return env
+
+
+def _spawn(argvs: list[list[str]], envs: list[dict]) -> list[tuple]:
+    """Run one world's processes to their end; returns (rc, stdout,
+    stderr) each.  A worker past the limit fails the test, and every
+    worker is killed at the end."""
+    procs = [subprocess.Popen(argv, cwd=REPO, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for argv, env in zip(argvs, envs)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=WORKER_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                pytest.fail(f"a rank did not end within {WORKER_TIMEOUT_S} s")
+            outs.append((p.returncode, out, err))
+    finally:
+        # one failed rank leaves the others waiting in a collective
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rc, out, err in outs:
+        assert rc == 0, f"a rank failed:\n{out}\n{err}"
+    return outs
+
+
+def _world(n: int, tmp: Path, cases, *, hybrid_per_node: int | None = None):
+    plan = json.dumps({"nbytes": NBYTES, "iters": ITERS, "cases": cases,
+                       "hybrid": hybrid_per_node is not None})
+    port = _free_port()
+    _spawn([[sys.executable, "-c", _WORKER, plan, str(tmp)]] * n,
+           [_env(r, n, port, hybrid_per_node) for r in range(n)])
+    ranks = []
+    for r in range(n):
+        with np.load(tmp / f"rank{r}.npz") as z:
+            arrays = dict(z)
+        info = json.loads((tmp / f"rank{r}.json").read_text())
+        ranks.append((arrays, info))
+    return ranks
+
+
+@pytest.fixture(scope="module")
+def world2(tmp_path_factory):
+    return _world(2, tmp_path_factory.mktemp("world2"),
+                  CASES + [("pl_ring", "float32")])
+
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory):
+    # two nodes of two ranks: the hybrid mesh is 2 x 2
+    return _world(4, tmp_path_factory.mktemp("world4"), CASES,
+                  hybrid_per_node=2)
+
+
+def _jax(op, n, dtype, *, shape=(), axes=()):
+    mesh = jax_make_mesh(shape, axes, devices=jax.devices()[:n])
+    jb = jax_build_op(op, mesh, NBYTES, ITERS, dtype=dtype)
+    x = np.asarray(jax.device_get(jb.example_input)).astype(np.float64)
+    y = np.asarray(jax.device_get(jb.step(jb.example_input)))
+    return x, y.astype(np.float64)
+
+
+def _check(ranks, key, op, dtype, **mesh):
+    n = len(ranks)
+    for arrays, info in ranks:
+        assert key in arrays, info["errors"].get(key)
+    x, want = _jax(op, n, dtype, **mesh)
+    # every rank's input is its shard of the JAX global input
+    np.testing.assert_array_equal(
+        np.concatenate([a[key + "|x"] for a, _ in ranks]), x)
+    got = np.concatenate([a[key] for a, _ in ranks])
+    rtol = RTOL[dtype] if op in (*SUM_OPS, "hier_allreduce",
+                                 "hbm_stream") else 0
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("op,dtype", CASES)
+def test_two_process_world_matches_jax_on_two_devices(world2, op, dtype,
+                                                      eight_devices):
+    _check(world2, f"{op}/{dtype}", op, dtype)
+
+
+@pytest.mark.parametrize("op,dtype", CASES)
+def test_four_process_world_matches_jax_on_four_devices(world4, op, dtype,
+                                                        eight_devices):
+    _check(world4, f"{op}/{dtype}", op, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hier_allreduce_on_a_hybrid_2x2_world_matches_jax(world4, dtype,
+                                                           eight_devices):
+    _check(world4, f"hier/{dtype}", "hier_allreduce", dtype,
+           shape=(2, 2), axes=("dcn", "ici"))
+
+
+def test_other_pallas_ops_across_ranks_are_not_yet_ported(world2):
+    for _, info in world2:
+        assert info["errors"]["pl_ring/float32"].startswith(
+            "NotImplementedError") and "not yet ported" in \
+            info["errors"]["pl_ring/float32"]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_allreduce_times_across_ranks_skips_a_nan_rank(n, world2, world4):
+    ranks = world2 if n == 2 else world4
+    # rank 1 passed NaN; the others the windows [r+1, r+3, r+2]
+    windows = {r: [r + 1.0, r + 3.0, r + 2.0] for r in range(n) if r != 1}
+    want = {"min": min(w[0] for w in windows.values()),
+            "max": max(w[1] for w in windows.values()),
+            "avg": sum(sum(w) / 3 for w in windows.values()) / len(windows)}
+    for _, info in ranks:
+        assert info["times"] == pytest.approx(want)
+        assert all(math.isnan(v) for v in info["all_nan"].values())
+        assert info["ips"] == [f"10.0.0.{r}" for r in range(n)]
+        # each sample is its maximum over the ranks; one every rank lost
+        # stays None
+        assert info["max"] == [float(n - 1), None, 5.0]
+
+
+def test_allreduce_times_locally_matches_jax():
+    from tpu_perf_torch.parallel import allreduce_times
+
+    for arg in (0.5, [3.0, 1.0, 2.0], [float("nan"), 2.0], np.float32(1.5),
+                float("nan"), [float("nan")] * 2, []):
+        assert allreduce_times(arg) == pytest.approx(jax_allreduce_times(arg),
+                                                     nan_ok=True)
+
+
+# --- a world of one --------------------------------------------------------
+
+
+def _one_rank_cases():
+    from tpu_perf_torch.ops.collectives import known_ops
+
+    return [(op, "float32") for op in known_ops()]
+
+
+@pytest.fixture(scope="module")
+def world1(tmp_path_factory):
+    return _world(1, tmp_path_factory.mktemp("world1"), _one_rank_cases())
+
+
+@pytest.mark.parametrize("op", [op for op, _ in _one_rank_cases()])
+def test_a_world_of_one_does_what_jax_does_on_one_device(world1, op,
+                                                         eight_devices):
+    (arrays, info), = world1
+    key = f"{op}/float32"
+    if op == "pl_allreduce":
+        # the peer kernels run at any world size (the JAX Pallas op asks
+        # for two devices): the mean over one rank is the input
+        np.testing.assert_array_equal(arrays[key], arrays[key + "|x"])
+        return
+    try:
+        x, want = _jax(op, 1, "float32")
+    except ValueError as e:
+        assert info["errors"][key] == f"ValueError: {e}"
+        return
+    assert key in arrays, info["errors"].get(key)
+    np.testing.assert_array_equal(arrays[key + "|x"], x)
+    # the products are held as tests/test_torch_compute.py holds them:
+    # within 1e-5 * (1 + |want|), an m-deep sum in another order
+    tol = 1e-5 if op in ("mxu_gemm", "overlap_ring") else 0
+    np.testing.assert_allclose(arrays[key], want,
+                               rtol=tol or RTOL["float32"], atol=tol)
+
+
+# --- the CLI and extern across two processes -------------------------------
+
+
+def test_cli_across_two_processes(tmp_path, eight_devices):
+    port = _free_port()
+    argv = [sys.executable, "-m", "tpu_perf_torch", "run", "--distributed",
+            "--device", "cpu", "--op", "allreduce,pl_allreduce", "-b", "4K",
+            "-i", "2", "-r", "3", "--stats-every", "2",
+            "--heartbeat-format", "json", "-l", str(tmp_path)]
+    outs = _spawn([argv] * 2, [_env(r, 2, port) for r in range(2)])
+    rows = {}
+    for r in range(2):
+        (path,) = tmp_path.glob(f"tpu-*-{r}-*.log")
+        rows[r] = [jschema.ResultRow.from_csv(ln)
+                   for ln in path.read_text().splitlines() if ln.strip()]
+        (legacy,) = tmp_path.glob(f"tcp-*-{r}-*.log")
+        lrows = [jschema.LegacyRow.from_csv(ln)
+                 for ln in legacy.read_text().splitlines() if ln.strip()]
+        assert {(lr.rank, lr.vm_count) for lr in lrows} == {(r, 2)}
+    for r in range(2):
+        assert [(x.op, x.run_id) for x in rows[r]] == [
+            (op, i) for op in ("allreduce", "pl_allreduce") for i in (1, 2, 3)]
+        assert {(x.backend, x.n_devices, x.nbytes) for x in rows[r]} == {
+            ("torch", 2, 4096)}
+    # every rank's rows carry the same times: each run's maximum
+    assert ([x.time_ms for x in rows[0]] == [x.time_ms for x in rows[1]])
+    beats = [[json.loads(ln) for ln in err.splitlines()
+              if ln.startswith("{")] for _, _, err in outs]
+    assert len(beats[0]) == 2 and beats[1] == []
+    assert all(b["event"] == "heartbeat" and b["hosts"]["max"] > 0
+               for b in beats[0])
+
+
+def test_extern_pairs_across_two_processes(tmp_path):
+    port = _free_port()
+    argv = [sys.executable, "-m", "tpu_perf_torch", "run", "--distributed",
+            "--device", "cpu", "-d", "bench {role} {ip} {port}", "-r", "1",
+            "-b", "64"]
+    outs = _spawn([argv] * 2, [_env(r, 2, port) for r in range(2)])
+    lines = [[ln for ln in err.splitlines() if ln.startswith("bench ")][0]
+             for _, _, err in outs]
+    client, server = lines
+    assert client.startswith("bench client ")
+    assert server.startswith("bench server ")
+    # the client dials its peer's address and port, from the allgather
+    assert client.split()[2:] == server.split()[2:]
+    assert client.split()[-1] == "40001"

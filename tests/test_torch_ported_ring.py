@@ -353,6 +353,11 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     tpr.hbm_write(tpr.hbm_read(tpr.hbm_copy(x)), 4)
     tpr.barrier(tpr.pingpong(tpr.pair_exchange(tpr.ring_shift(x)))[0])
     tpr.direct_all_gather_bidir(tpr.all_to_all(x))
+    # the peer kernels, one rank's launch each, on CPU parts
+    parts = list(x.view(4, 4, 2)[:, 0])
+    tpr.peer_all_gather([tpr.peer_reduce_scatter(parts, 0)] * 4)
+    tpr.peer_barrier([torch.zeros(4, dtype=torch.int32)] * 4,
+                     torch.zeros(1, dtype=torch.int32), 0)
     assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0)
     assert kernels.PLAIN_CALLS == dict.fromkeys(kernels.KERNELS, 1)
 

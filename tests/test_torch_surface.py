@@ -209,7 +209,7 @@ def test_ops_for_options_matches_jax(kw):
     assert ops_for_options(Options(**kw)) == want
 
 
-@pytest.mark.parametrize("op", ["hier_allreduce,allreduce", "allgatherv,ring"])
+@pytest.mark.parametrize("op", ["seg_allreduce,allreduce", "allgatherv,ring"])
 def test_a_family_naming_an_op_not_yet_ported_is_refused(op):
     assert jrunner.ops_for_options(jconfig.Options(op=op))
     with pytest.raises(ValueError, match="unknown op") as e:

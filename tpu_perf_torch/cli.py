@@ -9,9 +9,11 @@ exchange (``--window W`` buffers in flight), ``-p`` flows per node,
 ``-f`` / ``-n`` the group-1 file and its host count, ``-d`` the
 print-only external launcher; the default op is the reference's blocking
 ping-pong.  ``--backend mpi`` runs the repo's C baseline (backends/mpi)
-on the host instead.  Additions: ``--sim-ranks`` (ranks of the
-single-card sim world) and ``--device`` (``cuda``, the default, or
-``cpu`` for the plain PyTorch versions)::
+on the host instead.  ``--distributed`` joins a ``torch.distributed``
+world, one process a rank (``torchrun``); ``--mesh`` / ``--axes`` and
+``--hybrid-mesh`` lay the ranks over a named mesh.  Additions:
+``--sim-ranks`` (ranks of the single-card sim world) and ``--device``
+(``cuda``, the default, or ``cpu`` for the plain PyTorch versions)::
 
     python -m tpu_perf_torch run            # pingpong at 456131 B, 8 ranks
     python -m tpu_perf_torch run -u         # pingpong_unidir
@@ -21,6 +23,9 @@ single-card sim world) and ``--device`` (``cuda``, the default, or
     python -m tpu_perf_torch monitor --op pl_allreduce,pl_ring,allreduce \
         --sweep 4K,16M --heartbeat-format json
     python -m tpu_perf_torch run --op pl_allreduce --sweep 4K:256M
+    python -m tpu_perf_torch run --op hier_allreduce --mesh 2x4 --axes dcn,ici
+    torchrun --nproc-per-node 8 -m tpu_perf_torch run --distributed \
+        --op allreduce,pl_allreduce --sweep 4K:256M
     python -m tpu_perf_torch run --op all_to_all --sweep 4K:256M
     python -m tpu_perf_torch run --op pl_all_gather_bidir --sweep 4K:256M
     python -m tpu_perf_torch run --op pl_allreduce --sweep 4K:256M --fence fused
@@ -70,17 +75,45 @@ class _ZeroOne(argparse.Action):
 
 
 def _add_world_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--sim-ranks", type=int, default=DEF_SIM_RANKS,
-                   help="ranks of the single-card sim world (rows of one "
-                        "allocation; rows carry backend torch-sim when > 1)")
+    p.add_argument("--sim-ranks", type=int, default=None,
+                   help=f"ranks of the single-card sim world (rows of one "
+                        f"allocation; rows carry backend torch-sim when > 1; "
+                        f"default {DEF_SIM_RANKS}, 1 under --distributed)")
     p.add_argument("--device", choices=("cuda", "cpu"), default=None,
                    help="cuda (default) runs the kernels on the card; cpu "
                         "runs their plain PyTorch versions")
     p.add_argument("--dtype", default="float32")
 
 
+def _sim_ranks(args: argparse.Namespace) -> int:
+    """--sim-ranks, or its default: a process of a distributed world holds
+    one rank."""
+    if args.sim_ranks is not None:
+        return args.sim_ranks
+    return 1 if getattr(args, "distributed", False) else DEF_SIM_RANKS
+
+
+def _parse_mesh(args: argparse.Namespace) -> tuple[tuple[int, ...],
+                                                   tuple[str, ...]]:
+    """``--mesh 2x4`` / ``--axes dcn,ici`` as (shape, axis names); a shape
+    without names gets ``ax0, ax1, ...`` (``x`` for one axis), as the JAX
+    CLI names them."""
+    shape: tuple[int, ...] = ()
+    axes: tuple[str, ...] = ()
+    if args.mesh:
+        shape = tuple(int(s) for s in
+                      args.mesh.lower().replace("x", ",").split(",") if s)
+    if args.axes:
+        axes = tuple(a.strip() for a in args.axes.split(",") if a.strip())
+    if shape and not axes:
+        axes = (tuple(f"ax{i}" for i in range(len(shape))) if len(shape) > 1
+                else ("x",))
+    return shape, axes
+
+
 def _options_from(args: argparse.Namespace, **overrides) -> Options:
     """The run flags as Options; ``overrides`` win."""
+    mesh_shape, mesh_axes = _parse_mesh(args)
     kw = dict(
         logfolder=args.logfolder, iters=args.iters, ppn=args.ppn,
         buff_sz=parse_size(args.size), num_runs=args.runs, op=args.op,
@@ -93,7 +126,9 @@ def _options_from(args: argparse.Namespace, **overrides) -> Options:
         measure_dispatch=args.measure_dispatch, profile_dir=args.profile_dir,
         max_runs=args.max_runs,
         stats_every=args.stats_every, log_refresh_sec=args.log_refresh_sec,
-        streams=args.streams, sim_ranks=args.sim_ranks, device=args.device,
+        streams=args.streams, sim_ranks=_sim_ranks(args), device=args.device,
+        mesh_shape=mesh_shape, mesh_axes=mesh_axes,
+        distributed=args.distributed, hybrid_mesh=args.hybrid_mesh,
     )
     kw.update(overrides)
     return Options(**kw)
@@ -101,6 +136,10 @@ def _options_from(args: argparse.Namespace, **overrides) -> Options:
 
 def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
     opts = _options_from(args, num_runs=-1 if infinite else args.runs)
+    if opts.backend == "mpi" and (opts.mesh_shape or opts.hybrid_mesh):
+        # the shim runs the JAX default of 2 x ppn ranks on one axis
+        raise NotImplementedError(
+            "--backend mpi with a mesh: not yet ported, see ROADMAP")
     if opts.backend == "mpi":
         # before anything of the card: the C baseline runs on the host,
         # and must run where no card is visible
@@ -112,7 +151,12 @@ def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
         # names would mislabel its rows as cluster results
         flag = "--dry-run" if args.dry_run else "--hosts"
         print(f"tpu-perf-torch: error: {flag} applies to --backend mpi (the "
-              "torch backend runs in-process)", file=sys.stderr)
+              "torch backend runs in-process; a multi-process torch world "
+              "uses --distributed)", file=sys.stderr)
+        return 2
+    if opts.hybrid_mesh and opts.mesh_shape:
+        print("tpu-perf-torch: error: --hybrid-mesh and --mesh are exclusive",
+              file=sys.stderr)
         return 2
 
     from tpu_perf_torch.driver import Driver
@@ -173,6 +217,8 @@ def _cmd_contend(args: argparse.Namespace) -> int:
     refused = [
         (args.victim_axis is not None or args.load_axis is not None,
          "--victim-axis / --load-axis need the multi-card world"),
+        (args.distributed or args.hybrid_mesh or bool(args.mesh),
+         "contend in a multi-rank world or on a mesh"),
         (args.synthetic is not None,
          "--synthetic needs the fault injector's seeded series"),
         (args.algo != "native", f"--algo {args.algo} needs the arena"),
@@ -336,7 +382,7 @@ def _cmd_grid(args: argparse.Namespace) -> int:
     from tpu_perf_torch.grid import grid_caption, grid_to_markdown, run_grid
     from tpu_perf_torch.world import SimWorld, resolve_device
 
-    world = SimWorld(args.sim_ranks, resolve_device(args.device))
+    world = SimWorld(_sim_ranks(args), resolve_device(args.device))
     source = ("--spec-tflops" if args.spec_tflops is not None
               else "--spec-gbps" if args.spec_gbps is not None
               else "not given")
@@ -448,7 +494,7 @@ def _cmd_selftest(args: argparse.Namespace) -> int:
     from tpu_perf_torch.selftest import format_results, run_selftest
     from tpu_perf_torch.world import SimWorld, resolve_device
 
-    world = SimWorld(args.sim_ranks, resolve_device(args.device))
+    world = SimWorld(_sim_ranks(args), resolve_device(args.device))
     ops = [o.strip() for o in args.ops.split(",") if o.strip()] if args.ops else None
     results = run_selftest(world, ops=ops, nbytes=parse_size(args.size),
                            dtype=args.dtype, iters=args.iters)
@@ -547,6 +593,18 @@ def _add_run_flags(p: argparse.ArgumentParser) -> None:
                    default=LOG_REFRESH_TIME_SEC)
     p.add_argument("--csv", action="store_true",
                    help="print extended rows as CSV to stdout")
+    p.add_argument("--mesh", default=None,
+                   help="mesh shape over the ranks, e.g. 8 or 2x4")
+    p.add_argument("--axes", default=None, help="axis names, e.g. dcn,ici")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed world, one process a rank "
+                        "(torchrun's RANK / WORLD_SIZE / LOCAL_RANK / "
+                        "MASTER_ADDR / MASTER_PORT): NCCL on the card, gloo "
+                        "with --device cpu")
+    p.add_argument("--hybrid-mesh", action="store_true",
+                   help="lay the ranks over a (dcn, ici) mesh: the nodes "
+                        "(WORLD_SIZE / LOCAL_WORLD_SIZE) by the ranks of a "
+                        "node")
     _add_world_flags(p)
 
 

@@ -7,9 +7,10 @@ names, ``-u`` / ``-x``, ``-r -1`` for the infinite daemon, and the
 fused fence's chunk count, ``-p`` flows per node, the windowed ``-x``
 (``--window``), the ``-f`` / ``-n`` group-1 file, ``-d`` the print-only
 external launcher, ``--backend mpi``, the JSON heartbeat, ``--streams``
-(overlapped dispatch) and ``contend``'s background ``load``.  The
-additions are the sim world's rank count and the device; ``backend``
-names ``torch`` where the JAX package names ``jax``.
+(overlapped dispatch), ``contend``'s background ``load``, and the mesh
+and multi-process flags (``--mesh`` / ``--axes``, ``--distributed``,
+``--hybrid-mesh``).  The additions are the sim world's rank count and the
+device; ``backend`` names ``torch`` where the JAX package names ``jax``.
 """
 
 from __future__ import annotations
@@ -99,6 +100,12 @@ class Options:
                                       # "" = a quiet card (every other
                                       # subcommand)
     sim_ranks: int = DEF_SIM_RANKS    # --sim-ranks
+    mesh_shape: tuple[int, ...] = ()  # --mesh; () = every rank on one axis
+    mesh_axes: tuple[str, ...] = ()   # --axes, names matching mesh_shape
+    distributed: bool = False         # --distributed: one process a rank
+                                      # of a torch.distributed world
+    hybrid_mesh: bool = False         # --hybrid-mesh: (dcn, ici) over the
+                                      # nodes and their local ranks
     device: str | None = None         # None = "cuda"; "cpu" only when asked
 
     def __post_init__(self) -> None:
@@ -176,6 +183,27 @@ class Options:
         if self.sim_ranks < 1:
             raise ValueError(
                 f"sim_ranks must be >= 1, got {self.sim_ranks}")
+        if len(self.mesh_shape) != len(self.mesh_axes):
+            raise ValueError(
+                f"mesh_shape {self.mesh_shape} and mesh_axes {self.mesh_axes} "
+                "must have matching length"
+            )
+        if self.distributed and self.sim_ranks > 1:
+            # a process of a distributed world holds one rank; n rows of
+            # one allocation would be a sim world inside each process
+            raise ValueError(
+                f"sim_ranks {self.sim_ranks} with distributed: a process of "
+                "a distributed world holds one rank (drop --sim-ranks; the "
+                "world's size comes from the launcher)")
+        if self.distributed and self.backend != "torch":
+            raise ValueError(
+                "distributed joins a torch.distributed world; "
+                f"backend={self.backend!r} launches its own ranks")
+        if self.distributed and self.streams > 1:
+            raise ValueError(
+                "overlapped dispatch (--streams) is not yet ported to a "
+                "distributed world (a rank's collectives and barriers keep "
+                "one order on one stream), see ROADMAP")
         if self.device not in (None, "cuda", "cpu"):
             raise ValueError(
                 f"device must be 'cuda' or 'cpu', got {self.device!r}")

@@ -25,7 +25,14 @@ rotating CSV logs (port of ``tpu_perf/driver.py``).
   external command to stderr and its rows record the print's wall time
   (mpi_perf.c:147-168, 504-507);
 * ``-f`` / ``-n`` check the group-1 file against the sim world's ranks,
-  and ``-p`` fills the legacy rows' NumOfFlows.
+  and ``-p`` fills the legacy rows' NumOfFlows;
+* in a multi-process world (``--distributed``) every rank drives its own
+  rank: each run's time is its maximum over the ranks (one
+  ``all_reduce(MAX)`` a point, after its last fence), the logs are named
+  by rank, every rank enters the heartbeat's cross-rank min/max/avg
+  triple and rank 0 alone prints it, and the peer of the pair topology
+  (its IP from the rank-card allgather) is the legacy rows' remote and
+  ``extern``'s peer.
 
 The chaos, push and span paths of the JAX driver are not ported yet
 (ROADMAP).
@@ -35,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import socket
 import sys
@@ -45,8 +53,8 @@ from tpu_perf_torch.config import Options
 from tpu_perf_torch.metrics import summarize
 from tpu_perf_torch.ops.collectives import BuiltOp
 from tpu_perf_torch.runner import (
-    SweepPointResult, build_point_pair, ops_for_options, run_point_fused,
-    sizes_for, world_for,
+    SweepPointResult, build_point_pair, max_over_ranks, ops_for_options,
+    run_point_fused, sizes_for, world_for,
 )
 from tpu_perf_torch.schema import (
     EXT_PREFIX, LEGACY_PREFIX, LegacyRow, ResultRow, timestamp_now,
@@ -58,6 +66,7 @@ from tpu_perf_torch.timing import (
     resolve_fence, slope_sample, time_trace,
 )
 from tpu_perf_torch.traceparse import profile_window
+from tpu_perf_torch.world import is_dist
 
 
 def local_ip() -> str:
@@ -167,8 +176,25 @@ class Driver:
         self.clock = clock
         self.perf_clock = perf_clock
         self.err = err if err is not None else sys.stderr
-        self.rank = 0  # one process drives every sim rank
+        # one process drives every sim rank; a distributed world's
+        # process drives its own
+        dist_world = is_dist(self.world)
+        self.rank = self.world.rank if dist_world else 0
+        self.n_hosts = self.world.n if dist_world else 1
         self.ip = local_ip()
+        # the pair topology's peer and its IP (the rank-card allgather,
+        # made once here by every rank); a process of one is its own
+        self.peer_ip = self.ip
+        self._peer_ips = [self.ip]
+        if self.n_hosts > 1:
+            from tpu_perf_torch.parallel import exchange_ips
+
+            self._peer_ips = exchange_ips(self.ip)
+            if self.n_hosts % 2 == 0:
+                from tpu_perf_torch.extern_launch import pair_for_rank
+
+                _, peer = pair_for_rank(self.rank, self.n_hosts)
+                self.peer_ip = self._peer_ips[peer]
         self.log: RotatingCsvLog | None = None
         self.ext_log: RotatingCsvLog | None = None
         if opts.logfolder:
@@ -255,17 +281,18 @@ class Driver:
 
     def _extern_command(self, nbytes: int) -> str:
         """The external client/server command for this process, from the
-        two-group pair topology (mpi_perf.c:147-168).  One process drives
-        every sim rank: it is its own loopback pair, its peer's IP its
-        own."""
+        two-group pair topology (mpi_perf.c:147-168).  One process driving
+        every sim rank is its own loopback pair, its peer's IP its own; a
+        distributed world's process pairs with its peer rank, whose IP the
+        rank-card allgather brought."""
         from tpu_perf_torch.extern_launch import (
             pair_for_rank, render_extern_command,
         )
 
-        group, peer = pair_for_rank(self.rank, 1)
+        group, peer = pair_for_rank(self.rank, self.n_hosts)
         return render_extern_command(
             self.opts.extern_cmd, group=group, rank=self.rank,
-            peer_rank=peer, my_ip=self.ip, peer_ip=self.ip,
+            peer_rank=peer, my_ip=self.ip, peer_ip=self._peer_ips[peer],
             ppn=self.opts.ppn, buff_sz=nbytes, iters=self.opts.iters)
 
     def _warm(self, built: BuiltOp, built_hi: BuiltOp | None) -> None:
@@ -319,38 +346,34 @@ class Driver:
 
     def _run_finite(self, op: str, nbytes: int) -> None:
         built, built_hi = self._build(op, nbytes)
-        window: list[float] = []
+        runs = range(self.opts.num_runs)
         if isinstance(built, _ExternOp):
-            for run_id in range(1, self.opts.num_runs + 1):
-                self._record_run(built, run_id, self._measure(built, None),
-                                 window)
-            return
-        if isinstance(built_hi, FusedPoint):
+            times = [self._measure(built, None) for _ in runs]
+        elif isinstance(built_hi, FusedPoint):
             # the whole budget in one graph replay a chunk, per-run device
             # times from the events inside the graph
             times = run_point_fused(self.opts, built, built_hi,
-                                    perf_clock=self.perf_clock)
-            for run_id, t in enumerate(times.samples, start=1):
-                self._record_run(built, run_id, t, window)
-            return
-        if self.opts.fence == "trace":
+                                    perf_clock=self.perf_clock).samples
+        elif self.opts.fence == "trace":
             # one batch of event pairs covers the point's whole budget
             with self._profile(built):
-                times = time_trace(built.step, built_hi.step,
-                                   built.example_input, built.iters,
-                                   built_hi.iters, self.opts.num_runs,
-                                   warmup_runs=self.opts.warmup_runs)
-            for run_id, t in enumerate(times.samples, start=1):
-                self._record_run(built, run_id, t * built.iters, window)
-            return
-        self._warm(built, built_hi)
-        with self._profile(built):
-            for run_id in range(1, self.opts.num_runs + 1):
-                t = self._measure(built, built_hi)
-                if t is None:
-                    print(f"[tpu-perf-torch] run {run_id}: slope sample lost "
-                          "to noise, skipped", file=self.err)
-                self._record_run(built, run_id, t, window)
+                per_exec = time_trace(built.step, built_hi.step,
+                                      built.example_input, built.iters,
+                                      built_hi.iters, self.opts.num_runs,
+                                      warmup_runs=self.opts.warmup_runs)
+            times = [t * built.iters for t in per_exec.samples]
+        else:
+            self._warm(built, built_hi)
+            with self._profile(built):
+                times = [self._measure(built, built_hi) for _ in runs]
+        # after the point's last fence, outside every timed window
+        window: list[float] = []
+        for run_id, t in enumerate(max_over_ranks(self.world, times),
+                                   start=1):
+            if t is None:
+                print(f"[tpu-perf-torch] run {run_id}: slope sample lost "
+                      "to noise, skipped", file=self.err)
+            self._record_run(built, run_id, t, window)
 
     def _run_overlapped(self, plan: list[tuple[str, int]], k: int) -> None:
         """The overlapped finite sweep (``--streams K``): the plan's points
@@ -427,8 +450,9 @@ class Driver:
         while self.opts.max_runs is None or run_id < self.opts.max_runs:
             run_id += 1
             built, built_hi = points[(run_id - 1) % len(points)]
-            self._record_run(built, run_id, self._measure(built, built_hi),
-                             window)
+            t = self._measure(built, built_hi)
+            self._record_run(built, run_id,
+                             max_over_ranks(self.world, [t])[0], window)
 
     def _print_residency(self, points, n_inputs: int) -> None:
         """What the daemon holds on the device for its whole life: the
@@ -466,6 +490,17 @@ class Driver:
             self._window_points.clear()
 
     def _heartbeat(self, run_id: int, samples: list[float]) -> None:
+        # across ranks: the reference's Allreduce min/max/avg triple over
+        # the whole window (mpi_perf.c:560-562).  Every rank enters it,
+        # one with no samples this window too (NaN: no data), or the
+        # others would wait in it; rank 0 alone prints.
+        x = None
+        if self.n_hosts > 1:
+            from tpu_perf_torch.parallel import allreduce_times
+
+            x = allreduce_times(samples if samples else float("nan"))
+        if self.rank != 0:
+            return
         if self.opts.heartbeat_format == "json":
             # one object a boundary, the JAX package's keys: `window` is
             # the boundary's heartbeat-window index, `points` each
@@ -490,17 +525,25 @@ class Driver:
                     avg_ms=s["avg"] * 1e3,
                     p50_ms=s["p50"] * 1e3,
                 )
+            if x is not None:
+                # an all-NaN triple is null, never bare NaN (invalid JSON)
+                data["hosts"] = {k: None if math.isnan(x[k]) else x[k] * 1e3
+                                 for k in ("min", "max", "avg")}
             print(json.dumps(data, sort_keys=True), file=self.err, flush=True)
             return
+        xhost = ""
+        if x is not None:
+            xhost = (f" | hosts min {x['min']*1e3:.3f} max {x['max']*1e3:.3f} "
+                     f"avg {x['avg']*1e3:.3f} ms")
         if not samples:
-            print(f"[tpu-perf-torch] run {run_id}: no samples this window",
-                  file=self.err, flush=True)
+            print(f"[tpu-perf-torch] run {run_id}: no samples this "
+                  f"window{xhost}", file=self.err, flush=True)
             return
         s = summarize(samples)
         print(
             f"[tpu-perf-torch] run {run_id}: total {sum(samples)*1e3:.3f} ms, "
             f"min {s['min']*1e3:.3f} max {s['max']*1e3:.3f} "
-            f"avg {s['avg']*1e3:.3f} p50 {s['p50']*1e3:.3f} ms",
+            f"avg {s['avg']*1e3:.3f} p50 {s['p50']*1e3:.3f} ms{xhost}",
             file=self.err, flush=True)
 
     def _emit(self, built: BuiltOp, run_id: int, t: float, *,
@@ -519,9 +562,10 @@ class Driver:
             timestamp=timestamp_now(),
             job_id=self.opts.uuid,
             rank=self.rank,
-            vm_count=1,
+            vm_count=self.n_hosts,
             local_ip=self.ip,
-            remote_ip=self.ip,  # the sim ranks share this host
+            remote_ip=self.peer_ip,  # the sim ranks share this host; a
+                                     # distributed rank names its peer's
             num_flows=self.opts.ppn,
             buffer_size=built.nbytes,
             num_buffers=built.iters,

@@ -65,6 +65,9 @@ _BUS_FACTORS = {
     "extern": lambda n: 0.0,
 }
 
+# hier_allreduce is allreduce over a (dcn, ici) mesh: the same wire math
+_BUS_FACTORS["hier_allreduce"] = _BUS_FACTORS["allreduce"]
+
 KNOWN_OPS = tuple(sorted(_BUS_FACTORS))
 
 #: FLOPs one iteration performs, per compute op: (nbytes, itemsize) ->

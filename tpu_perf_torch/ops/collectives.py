@@ -28,8 +28,19 @@ the mean, not the sum).  The ops of this slice:
   fixed orthogonal matrix, wrap-added, one ``addmm`` an iteration;
   ``overlap_ring`` — a ring shift of a payload and the same product in one
   iteration, the shift on a side stream so it can run under the product;
+* ``hier_allreduce`` — the two-level all-reduce of a ``(dcn, ici)``
+  mesh: a reduce-scatter over ``ici``, an all-reduce over ``dcn``, an
+  all-gather over ``ici``, times 1/n;
 * the ``pl_*`` ops — the hand-written kernels, built by
   :func:`tpu_perf_torch.ops.pallas_ring.build_pallas_step`.
+
+In a multi-process world (:class:`tpu_perf_torch.world.DistWorld`) each
+rank holds its own ``(elems,)`` buffer and the library ops are
+``torch.distributed`` calls on it (NCCL on the card, gloo on the CPU),
+with the same sizes and carries: the collectives on ``dist.*``, the
+point-to-point ops as ``batch_isend_irecv`` of XLA's ``ppermute``
+permutations.  A rank never sends to itself: its own pair is a local
+copy, so a world of one does what the JAX op does on one device.
 """
 
 from __future__ import annotations
@@ -43,7 +54,10 @@ import torch
 
 from tpu_perf_torch.config import SUPPORTED_DTYPES
 from tpu_perf_torch.ops import stream_triton
-from tpu_perf_torch.world import SimWorld
+from tpu_perf_torch.topology import (
+    one_way_permutation, pair_permutation, ring_permutation,
+)
+from tpu_perf_torch.world import DistWorld, SimWorld, is_dist
 
 DTYPES = {
     "float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -63,7 +77,9 @@ class BuiltOp:
     name: str
     step: Callable[[torch.Tensor], torch.Tensor]  # runs `iters` chained ops
     example_input: torch.Tensor  # (n_devices, elems) on the world's device;
-                                 # windowed (n_devices, W, elems)
+                                 # windowed (n_devices, W, elems); in a
+                                 # DistWorld this rank's (elems,) or
+                                 # (W, elems)
     nbytes: int  # actual message size in bytes (after rounding)
     n_devices: int
     iters: int  # messages a step moves: executions * window
@@ -137,12 +153,19 @@ def payload_elems(op: str, nbytes: int, n: int, itemsize: int) -> tuple[int, int
 #: ops that reduce (scale by 1/n, or take a mean) — integer payloads would
 #: measure another computation (the JAX package's list, restricted to the
 #: ported ops)
-FLOAT_ONLY_OPS = ("allreduce", "barrier", "reduce_scatter", "mxu_gemm",
-                  "overlap_ring", "hbm_read", "pl_allreduce",
+FLOAT_ONLY_OPS = ("allreduce", "barrier", "hier_allreduce", "reduce_scatter",
+                  "mxu_gemm", "overlap_ring", "hbm_read", "pl_allreduce",
                   "pl_reduce_scatter")
 #: the point-to-point ops whose pair permutation needs an even rank count
 #: (ring and halo shift by one, valid for any n)
 _NEEDS_EVEN = ("pingpong", "pingpong_unidir", "exchange", "ppermute")
+#: the ops built on ppermute: they run over one mesh axis
+_PAIRWISE = ("pingpong", "pingpong_unidir", "exchange", "ppermute", "halo",
+             "ring", "broadcast", "overlap_ring")
+#: the ops whose function is the same on every rank's own buffer, whatever
+#: the world: a multi-process world runs their one-rank bodies
+_LOCAL_OPS = ("hbm_stream", "hbm_read", "hbm_write", "hbm_triad",
+              "mxu_gemm")
 
 
 def is_float_dtype(dtype: str) -> bool:
@@ -169,28 +192,42 @@ def to_tensor(host: np.ndarray, dtype: str, device) -> torch.Tensor:
     return t.to(DTYPES[dtype]).to(device)
 
 
-def example_input(world: SimWorld, elems: int, dtype: str, *,
-                  window: int = 1) -> torch.Tensor:
-    """The make_fill input in sim-world rows: global ``(n*elems,)`` ->
-    ``(n, elems)``, rank r on row r; windowed, the fill of the global
-    ``(W, n*elems)`` in the sim world's ``(n, W, elems)``
-    (:func:`tpu_perf_torch.world.to_world`).  Computed on the world's
-    device with make_fill's float64 arithmetic (each step correctly
-    rounded, so the values are make_fill's bit for bit) and cast as
-    :func:`to_tensor` casts: a gigabyte buffer is not filled element by
-    element on the host.  The float64 staging goes in pieces of
-    _FILL_PIECE elements."""
-    total = window * world.n * elems
-    out = torch.empty(total, dtype=DTYPES[dtype], device=world.device)
+def _fill(out: torch.Tensor, start: int, dtype: str) -> None:
+    """Write make_fill's elements ``[start, start + out.numel())`` into the
+    flat ``out``, in float64 pieces of _FILL_PIECE elements."""
+    total = out.numel()
     for lo in range(0, total, _FILL_PIECE):
         hi = min(total, lo + _FILL_PIECE)
-        fill = torch.arange(lo, hi, dtype=torch.float64,
-                            device=world.device).remainder_(251)
+        fill = torch.arange(start + lo, start + hi, dtype=torch.float64,
+                            device=out.device).remainder_(251)
         if is_float_dtype(dtype):
             fill = fill.div_(251.0).add_(1.0)
         if DTYPES[dtype] in (torch.bfloat16, torch.float16):
             fill = fill.to(torch.float32)
         out[lo:hi] = fill
+
+
+def example_input(world: SimWorld | DistWorld, elems: int, dtype: str, *,
+                  window: int = 1) -> torch.Tensor:
+    """The make_fill input in sim-world rows: global ``(n*elems,)`` ->
+    ``(n, elems)``, rank r on row r; windowed, the fill of the global
+    ``(W, n*elems)`` in the sim world's ``(n, W, elems)``
+    (:func:`tpu_perf_torch.world.to_world`).  In a multi-process world,
+    this rank's part of the same global fill: ``(elems,)``, or its ``(W,
+    elems)`` columns (:func:`tpu_perf_torch.world.to_rank`).  Computed on
+    the world's device with make_fill's float64 arithmetic (each step
+    correctly rounded, so the values are make_fill's bit for bit) and cast
+    as :func:`to_tensor` casts: a gigabyte buffer is not filled element by
+    element on the host."""
+    if is_dist(world):
+        out = torch.empty(window, elems, dtype=DTYPES[dtype],
+                          device=world.device)
+        for w in range(window):
+            _fill(out[w], (w * world.n + world.rank) * elems, dtype)
+        return out if window > 1 else out.view(elems)
+    out = torch.empty(window * world.n * elems, dtype=DTYPES[dtype],
+                      device=world.device)
+    _fill(out, 0, dtype)
     if window > 1:
         return out.view(window, world.n, elems).transpose(0, 1).contiguous()
     return out.view(world.n, elems)
@@ -358,6 +395,24 @@ def _hbm_triad(world: SimWorld, dtype: torch.dtype) -> Callable:
     return body
 
 
+def _hier_allreduce(world: SimWorld, dtype: torch.dtype) -> Callable:
+    # the (dcn, ici) mesh's schedule as row ops on (dcn, ici, elems): rank
+    # (d, i)'s row is the sum over its ici group of chunk i (the
+    # reduce-scatter), summed over dcn (the all-reduce), gathered back over
+    # ici and scaled by 1/n; each sum rounds to the dtype as a collective
+    # does
+    dcn, ici = world.mesh.shape
+    n = world.n
+    inv = torch.tensor(1.0 / n, dtype=dtype, device=world.device)
+
+    def body(x):
+        chunks = x.view(dcn, ici, ici, -1)
+        owned = chunks.sum(1, dtype=dtype).sum(0, dtype=dtype)  # (ici, c)
+        return (owned.reshape(1, -1) * inv).expand(n, -1).contiguous()
+
+    return body
+
+
 # The point-to-point bodies: XLA's ppermute over the rows.  ``shift_rows``
 # is the ring permutation i -> i + k; the pair ops split the ranks into
 # group 0 (rows [0, n/2)) and group 1 (rows [n/2, n)), rank i paired with
@@ -512,6 +567,7 @@ CARRY_BUILDERS: dict[str, Callable] = {
 
 
 OP_BUILDERS: dict[str, Callable] = {
+    "hier_allreduce": _hier_allreduce,
     "all_gather": _all_gather,
     "all_to_all": _all_to_all,
     "allreduce": _allreduce,
@@ -531,6 +587,233 @@ OP_BUILDERS: dict[str, Callable] = {
     "reduce_scatter": _reduce_scatter,
     "ring": _ring,
 }
+
+
+# --- the multi-process world's bodies -----------------------------------
+# x is this rank's own buffer.  Each maker returns (body, in_place); an
+# in-place body updates the carry it is given, so the step copies its
+# input once first (the example input stays as it was).  The collectives
+# run on the world's group at any size (a world of one too); only a
+# hier_allreduce axis of one rank, which has no group, is local.
+
+
+def _ppermute(world: DistWorld, x: torch.Tensor,
+              perm: list[tuple[int, int]]) -> torch.Tensor:
+    """XLA's ppermute on this rank: the buffer its source sent it, or zeros
+    when no rank sends to it; its own pair is a local copy, never a send
+    to itself.  One ``batch_isend_irecv``."""
+    import torch.distributed as dist
+
+    rank = world.rank
+    srcs = [s for s, d in perm if d == rank]
+    out = torch.empty_like(x) if srcs else torch.zeros_like(x)
+    ops = []
+    for s, d in perm:
+        if s == d == rank:
+            out.copy_(x)
+        elif s == rank:
+            ops.append(dist.P2POp(dist.isend, x, d, world.group))
+        elif d == rank:
+            ops.append(dist.P2POp(dist.irecv, out, s, world.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+def _dist_allreduce(world: DistWorld, dtype: torch.dtype):
+    import torch.distributed as dist
+
+    inv = torch.tensor(1.0 / world.n, dtype=dtype, device=world.device)
+
+    def body(x):
+        dist.all_reduce(x, group=world.group)
+        return x.mul_(inv)
+
+    return body, True
+
+
+def _dist_all_gather(world: DistWorld, dtype: torch.dtype):
+    from tpu_perf_torch.parallel.multihost import _all_gather_tensor
+
+    n, r = world.n, world.rank
+
+    def body(x):
+        g = x.new_empty(n * x.numel())
+        _all_gather_tensor(g, x, group=world.group)
+        return g.view(n, -1)[r]
+
+    return body, False
+
+
+def _dist_reduce_scatter(world: DistWorld, dtype: torch.dtype):
+    # this rank's chunk <- the sum of chunk r over the ranks * 1/n, in
+    # place on the carry, as the sim body updates its rows
+    from tpu_perf_torch.parallel.multihost import _reduce_scatter_tensor
+
+    n, r = world.n, world.rank
+    inv = torch.tensor(1.0 / n, dtype=dtype, device=world.device)
+
+    def body(x):
+        mine = x.view(n, -1)[r]
+        s = torch.empty_like(mine)
+        _reduce_scatter_tensor(s, x, group=world.group)
+        mine.copy_(s.mul_(inv))
+        return x
+
+    return body, True
+
+
+def _dist_all_to_all(world: DistWorld, dtype: torch.dtype):
+    import torch.distributed as dist
+
+    def body(x):
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=world.group)
+        return out
+
+    return body, False
+
+
+def _dist_broadcast(world: DistWorld, dtype: torch.dtype):
+    # the library's own broadcast from rank 0, in place
+    import torch.distributed as dist
+
+    def body(x):
+        dist.broadcast(x, src=0, group=world.group)
+        return x
+
+    return body, True
+
+
+def _dist_broadcast_psum(world: DistWorld, dtype: torch.dtype):
+    # rank 0's buffer, zeros elsewhere, summed over the ranks
+    import torch.distributed as dist
+
+    def body(x):
+        y = x.clone() if world.rank == 0 else torch.zeros_like(x)
+        dist.all_reduce(y, group=world.group)
+        return y
+
+    return body, False
+
+
+def _dist_pingpong(world: DistWorld, dtype: torch.dtype):
+    fwd = one_way_permutation(world.n)
+    back = one_way_permutation(world.n, reverse=True)
+    return (lambda x: _ppermute(world, _ppermute(world, x, fwd), back)), False
+
+
+def _dist_pingpong_unidir(world: DistWorld, dtype: torch.dtype):
+    # the payload one way, its first element back as the ack into slot 0
+    fwd = one_way_permutation(world.n)
+    back = one_way_permutation(world.n, reverse=True)
+
+    def body(x):
+        ack = _ppermute(world, x, fwd)[:1]
+        x[:1] = _ppermute(world, ack, back)
+        return x
+
+    return body, True
+
+
+def _dist_exchange(world: DistWorld, dtype: torch.dtype):
+    perm = pair_permutation(world.n)
+    return (lambda x: _ppermute(world, x, perm)), False
+
+
+def _dist_ring(world: DistWorld, dtype: torch.dtype):
+    perm = ring_permutation(world.n)
+    return (lambda x: _ppermute(world, x, perm)), False
+
+
+def _dist_halo(world: DistWorld, dtype: torch.dtype):
+    # my right edge -> right neighbour's left halo, my left edge -> left
+    # neighbour's right halo
+    fwd = ring_permutation(world.n, shift=1)
+    back = ring_permutation(world.n, shift=-1)
+
+    def body(x):
+        h = x.shape[-1] // 2
+        return torch.cat([_ppermute(world, x[x.shape[-1] - h:], fwd),
+                          _ppermute(world, x[:h], back)])
+
+    return body, False
+
+
+def _dist_hier_allreduce(world: DistWorld, dtype: torch.dtype):
+    # a reduce-scatter over ici, an all-reduce over dcn, an all-gather
+    # over ici, then 1/n; the axis groups are made once per world
+    import torch.distributed as dist
+
+    from tpu_perf_torch.parallel.multihost import (
+        _all_gather_tensor, _reduce_scatter_tensor,
+    )
+
+    dcn_axis, ici_axis = world.axis_names
+    ici, ici_ranks = world.axis_group(ici_axis)
+    dcn, dcn_ranks = world.axis_group(dcn_axis)
+    n_ici, n_dcn = len(ici_ranks), len(dcn_ranks)
+    inv = torch.tensor(1.0 / world.n, dtype=dtype, device=world.device)
+
+    def body(x):
+        if n_ici > 1:
+            s = x.new_empty(x.numel() // n_ici)
+            _reduce_scatter_tensor(s, x, group=ici)
+        else:
+            s = x.clone()
+        if n_dcn > 1:
+            dist.all_reduce(s, group=dcn)
+        if n_ici > 1:
+            y = x.new_empty(x.numel())
+            _all_gather_tensor(y, s, group=ici)
+        else:
+            y = s
+        return y.mul_(inv)
+
+    return body, False
+
+
+#: op -> (world, dtype) -> (body, in_place), in a multi-process world
+DIST_BODIES: dict[str, Callable] = {
+    "all_gather": _dist_all_gather,
+    "all_to_all": _dist_all_to_all,
+    "allreduce": _dist_allreduce,
+    "barrier": _dist_allreduce,
+    "broadcast": _dist_broadcast,
+    "broadcast_psum": _dist_broadcast_psum,
+    "exchange": _dist_exchange,
+    "halo": _dist_halo,
+    "hier_allreduce": _dist_hier_allreduce,
+    "pingpong": _dist_pingpong,
+    "pingpong_unidir": _dist_pingpong_unidir,
+    "ppermute": _dist_exchange,
+    "reduce_scatter": _dist_reduce_scatter,
+    "ring": _dist_ring,
+}
+
+
+def _dist_step(op: str, world: DistWorld, dtype: str, elems: int,
+               iters: int) -> Callable:
+    """The step of a non-``pl_*`` op on one rank of a multi-process world:
+    the library bodies above, or, for the ops whose function is each
+    rank's own (and ``overlap_ring`` in a world of one), the sim world's
+    body at one rank on this rank's buffer."""
+    if op in DIST_BODIES:
+        body, in_place = DIST_BODIES[op](world, DTYPES[dtype])
+        return chained(body, iters, pre=(lambda x: x.clone()) if in_place
+                       else None)
+    if op not in _LOCAL_OPS and world.n > 1:
+        raise NotImplementedError(
+            f"{op} across {world.n} ranks is not yet ported, see ROADMAP")
+    one = SimWorld(1, world.device)
+    if op in CARRY_BUILDERS:
+        pre, body, post = CARRY_BUILDERS[op](one, dtype, elems)
+        return chained(body, iters, lambda x: pre(x.view(1, -1)),
+                       lambda c: post(c).view(-1))
+    body = OP_BUILDERS[op](one, DTYPES[dtype])
+    return chained(body, iters, lambda x: x.unsqueeze(0),
+                   lambda x: x.squeeze(0))
 
 
 def chained(call: Callable, iters: int, pre: Callable | None = None,
@@ -577,7 +860,7 @@ def known_ops() -> list[str]:
     return sorted([*OP_BUILDERS, *CARRY_BUILDERS]) + list(PALLAS_OPS)
 
 
-def build_op(op: str, world: SimWorld, nbytes: int, iters: int, *,
+def build_op(op: str, world: SimWorld | DistWorld, nbytes: int, iters: int, *,
              dtype: str = "float32", window: int = 1,
              reuse_input: torch.Tensor | None = None) -> BuiltOp:
     """Build the measurement step for ``op`` at message size ``nbytes``.
@@ -611,6 +894,12 @@ def build_op(op: str, world: SimWorld, nbytes: int, iters: int, *,
         raise ValueError(f"window must be >= 1, got {window}")
     if window > 1 and op not in ("exchange", "ppermute"):
         raise ValueError(f"window only applies to exchange/ppermute, got {op!r}")
+    axes = world.axis_names
+    if op == "hier_allreduce" and len(axes) != 2:
+        raise ValueError(
+            f"hier_allreduce needs a 2-axis (dcn, ici) mesh, got {axes}")
+    if op in _PAIRWISE and len(axes) != 1:
+        raise ValueError(f"{op} needs a single mesh axis, got {axes}")
     if op in _NEEDS_EVEN and world.n % 2:
         raise ValueError(f"{op} needs an even device count, got {world.n}")
     if op in PALLAS_OPS:
@@ -619,13 +908,16 @@ def build_op(op: str, world: SimWorld, nbytes: int, iters: int, *,
     else:
         itemsize = DTYPES[dtype].itemsize
         elems, actual = payload_elems(op, nbytes, world.n, itemsize)
-        if op in CARRY_BUILDERS:
+        if is_dist(world):
+            step = _dist_step(op, world, dtype, elems, iters)
+        elif op in CARRY_BUILDERS:
             pre, body, post = CARRY_BUILDERS[op](world, dtype, elems)
             step = chained(body, iters, pre, post)
         else:
             step = chained(OP_BUILDERS[op](world, DTYPES[dtype]), iters)
     if reuse_input is not None:
-        want = (world.n, window, elems) if window > 1 else (world.n, elems)
+        rows = () if is_dist(world) else (world.n,)
+        want = (*rows, window, elems) if window > 1 else (*rows, elems)
         if (tuple(reuse_input.shape) != want
                 or reuse_input.dtype != DTYPES[dtype]
                 or reuse_input.device != world.device):

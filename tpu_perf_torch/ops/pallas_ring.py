@@ -34,7 +34,13 @@ is written by hand for Hopper:
   that meets at Hopper's hardware cluster barrier;
 * ``all_to_all`` — CUDA C++, ``csrc/all_to_all.cu`` (replaces
   ``_all_to_all_direct_kernel``; stream order stands in for its
-  ``_global_barrier``), every (destination, source) pair in one launch.
+  ``_global_barrier``), every (destination, source) pair in one launch;
+* ``peer_reduce_scatter``, ``peer_all_gather``, ``peer_barrier`` — CUDA
+  C++, ``csrc/peer_collectives.cu``: ``pl_allreduce`` in a multi-rank
+  world (:class:`tpu_perf_torch.world.DistWorld`), one launch a rank,
+  each reading its peers through a table of pointers and meeting them on
+  signal pads (replace ``_reduce_scatter_kernel``, ``_all_gather_kernel``
+  and the barrier semaphores across cards).
 
 Every ``pl_*`` op of the JAX package is ported.  Each wrapper launches its
 kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
@@ -46,6 +52,7 @@ JAX package's, so rows land on the same curve keys.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Callable
 
@@ -54,7 +61,7 @@ import torch
 from tpu_perf_torch import kernels
 from tpu_perf_torch.kernels import _build
 from tpu_perf_torch.ops.stream_triton import stream
-from tpu_perf_torch.world import SimWorld
+from tpu_perf_torch.world import DistWorld, SimWorld, is_dist
 
 PALLAS_OPS = (
     "pl_ring", "pl_exchange", "pl_all_gather", "pl_reduce_scatter",
@@ -602,10 +609,429 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# --- the peer kernels of a multi-rank world -------------------------------
+# Each call is one rank's.  A part is a rank's buffer (a tensor, or a
+# RemoteBuffer of a peer's memory mapped into this process); on the card
+# the kernels read the parts through the device table of their pointers
+# that a PeerParts makes once, eagerly, so that a graph captured later
+# replays with it.
+
+_PEER_MAX_RANKS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class RemoteBuffer:
+    """A peer's buffer mapped into this process (CUDA IPC): what the peer
+    kernels read of a part, where no tensor of this process owns it."""
+
+    ptr: int
+    numel: int
+    dtype: torch.dtype
+    device: torch.device
+
+    def data_ptr(self) -> int:
+        return self.ptr
+
+    def element_size(self) -> int:
+        return self.dtype.itemsize
+
+    def is_contiguous(self) -> bool:
+        return True
+
+
+class PeerParts(tuple):
+    """n ranks' parts, in rank order, and on the card ``table``: the device
+    table of their pointers, made here and freed with the object (None on
+    the CPU, where the plain versions take the parts themselves)."""
+
+    table: torch.Tensor | None
+
+    def __new__(cls, parts):
+        self = super().__new__(cls, parts)
+        self.table = None
+        if self and self[0].device.type == "cuda":
+            dev = self[0].device
+            self.table = torch.tensor([p.data_ptr() for p in self],
+                                      dtype=torch.int64, device=dev)
+            # other ranks' streams read it too (a one-card loopback): the
+            # copy is done before any launch takes it
+            torch.cuda.current_stream(dev).synchronize()
+        return self
+
+
+def _table_ptr(name: str, parts) -> int:
+    # the device table of a launch's parts
+    if not isinstance(parts, PeerParts) or parts.table is None:
+        raise TypeError(f"{name} on the card takes PeerParts of card "
+                        "buffers: their pointer table is made once, outside "
+                        "any graph")
+    return parts.table.data_ptr()
+
+
+def _numel(p) -> int:
+    return p.numel if isinstance(p, RemoteBuffer) else p.numel()
+
+
+def _check_parts(name: str, parts, rank: int | None = None) -> int:
+    # n parts of one dtype, device and length; returns the length
+    n = len(parts)
+    if not 1 <= n <= _PEER_MAX_RANKS:
+        raise ValueError(f"{name}: {n} ranks, the kernels take 1 to "
+                         f"{_PEER_MAX_RANKS}")
+    if rank is not None and not 0 <= rank < n:
+        raise ValueError(f"{name}: rank {rank} outside {n} ranks")
+    first = parts[0]
+    size = _numel(first)
+    for p in parts:
+        if (p.dtype, p.device, _numel(p)) != (first.dtype, first.device, size):
+            raise ValueError(f"{name}: parts differ in dtype, device or "
+                             "length")
+        if not p.is_contiguous():
+            raise ValueError(f"{name}: a part is not contiguous")
+    return size
+
+
+def _widest_word(nbytes: int, *ptrs: int) -> int:
+    # the widest word (16, 4, 2 or 1 bytes) that divides every address
+    # and the length
+    for word in (16, 4, 2):
+        if nbytes % word == 0 and all(p % word == 0 for p in ptrs):
+            return word
+    return 1
+
+
+def peer_reduce_scatter_plain(parts: list[torch.Tensor], rank: int,
+                              scale: float = 1.0) -> torch.Tensor:
+    """The peer reduce-scatter in plain PyTorch: ``parts[s]`` is rank s's
+    chunk ``rank`` (``(chunk,)``); returns their sum in the ring's order,
+    ((parts[rank+1] + parts[rank+2]) + ...) + parts[rank+n], rounding to
+    the dtype after every add, then times ``scale``: the order of
+    :func:`direct_reduce_scatter_plain` and of the TPU ring."""
+    kernels.PLAIN_CALLS["peer_reduce_scatter"] += 1
+    n = len(parts)
+    acc = parts[(rank + 1) % n]
+    for j in range(2, n + 1):
+        acc = acc + parts[(rank + j) % n]
+    return acc * scale
+
+
+def peer_reduce_scatter(parts, rank: int, *, scale: float = 1.0,
+                        out: torch.Tensor | None = None) -> torch.Tensor:
+    """Rank ``rank``'s reduce-scatter: ``parts[s]`` is rank s's chunk
+    ``rank`` (a view into its buffer, or a :class:`RemoteBuffer`); returns
+    (into ``out`` when given) the ring-order sum over the n parts times
+    ``scale`` (exact in the dtype).  One launch, reading every part
+    through the pointer table: on the card ``parts`` is a
+    :class:`PeerParts`."""
+    chunk = _check_parts("peer_reduce_scatter", parts, rank)
+    dtype = parts[0].dtype
+    if dtype not in _RS_DTYPE_CODES:
+        raise ValueError(f"peer_reduce_scatter reduces floats, got {dtype}")
+    if parts[0].device.type == "cpu":
+        got = peer_reduce_scatter_plain(parts, rank, scale)
+        return got if out is None else out.copy_(got)
+    if out is None:
+        out = torch.empty(chunk, dtype=dtype, device=parts[0].device)
+    _check_cuda("peer_reduce_scatter", out)
+    if out.numel() != chunk or out.dtype != dtype:
+        raise ValueError(f"peer_reduce_scatter: out {tuple(out.shape)} "
+                         f"{out.dtype} for {chunk} elements of {dtype}")
+    vec = _widest_word(chunk * dtype.itemsize, out.data_ptr(),
+                       *(p.data_ptr() for p in parts)) == 16
+    err = _build.entry("peer_collectives")(
+        _table_ptr("peer_reduce_scatter", parts), out.data_ptr(), len(parts),
+        rank, chunk, _RS_DTYPE_CODES[dtype], scale, int(vec), _stream_of(out))
+    _build.check("peer_reduce_scatter", err)
+    kernels.LAUNCHES["peer_reduce_scatter"] += 1
+    return out
+
+
+def peer_all_gather_plain(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The peer all-gather in plain PyTorch: the n owned chunks in rank
+    order."""
+    kernels.PLAIN_CALLS["peer_all_gather"] += 1
+    return torch.cat(list(parts))
+
+
+def peer_all_gather(parts, *, out: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """A rank's all-gather: ``parts[s]`` is rank s's owned chunk; returns
+    (into ``out`` when given) the n chunks in rank order, ``(n*chunk,)``.
+    One launch that pulls every peer's chunk into this rank's output; on
+    the card ``parts`` is a :class:`PeerParts`."""
+    chunk = _check_parts("peer_all_gather", parts)
+    n, dtype = len(parts), parts[0].dtype
+    if parts[0].device.type == "cpu":
+        got = peer_all_gather_plain(parts)
+        return got if out is None else out.copy_(got)
+    if out is None:
+        out = torch.empty(n * chunk, dtype=dtype, device=parts[0].device)
+    _check_cuda("peer_all_gather", out)
+    if out.numel() != n * chunk or out.dtype != dtype:
+        raise ValueError(f"peer_all_gather: out {tuple(out.shape)} "
+                         f"{out.dtype} for {n} x {chunk} of {dtype}")
+    nbytes = chunk * dtype.itemsize
+    word = _widest_word(nbytes, out.data_ptr(),
+                        *(p.data_ptr() for p in parts))
+    err = _build.entry("peer_collectives", "peer_all_gather")(
+        _table_ptr("peer_all_gather", parts), out.data_ptr(), n, nbytes, word,
+        _stream_of(out))
+    _build.check("peer_all_gather", err)
+    kernels.LAUNCHES["peer_all_gather"] += 1
+    return out
+
+
+def peer_barrier_plain(pads: list[torch.Tensor], generation: torch.Tensor,
+                       rank: int) -> None:
+    """The barrier's signals in plain PyTorch: bump ``generation`` and
+    write it into slot ``rank`` of every pad.  Nothing waits: the ranks of
+    one process run one after another, and a CPU world's ranks meet in
+    their collectives."""
+    kernels.PLAIN_CALLS["peer_barrier"] += 1
+    generation += 1
+    for pad in pads:
+        pad[rank] = generation[0]
+
+
+def peer_barrier(pads, generation: torch.Tensor, rank: int) -> None:
+    """Rank ``rank`` signals every rank's pad (``pads[s]``: n int32 slots,
+    zero at first) with its next barrier generation and waits until every
+    slot of its own pad holds it.  ``generation`` is this rank's own (1,)
+    int32 count, which only its barriers touch, on the device: a replayed
+    graph advances it.  One launch of one warp; a wait past a minute of
+    device time traps.  On the card ``pads`` is a :class:`PeerParts`."""
+    n = len(pads)
+    if _check_parts("peer_barrier", pads, rank) != n or pads[0].dtype != torch.int32:
+        raise ValueError(f"peer_barrier: pads are {n} int32 slots each")
+    if generation.dtype != torch.int32 or generation.numel() != 1:
+        raise ValueError("peer_barrier: generation is one int32")
+    if generation.device.type == "cpu":
+        peer_barrier_plain(pads, generation, rank)
+        return
+    _check_cuda("peer_barrier", generation)
+    err = _build.entry("peer_collectives", "peer_barrier")(
+        _table_ptr("peer_barrier", pads), generation.data_ptr(), n, rank,
+        _stream_of(generation))
+    _build.check("peer_barrier", err)
+    kernels.LAUNCHES["peer_barrier"] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def peer_barrier_capacity(device_index: int) -> int:
+    """How many barrier CTAs card ``device_index`` holds at once: a
+    one-card loopback of n ranks needs n waiting barriers resident."""
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _build.entry("peer_collectives", "peer_barrier_capacity")(
+            ctypes.byref(ctas))
+    _build.check("peer barrier occupancy query", err)
+    return ctas.value
+
+
+class _DeviceBytes:
+    # a device allocation this package made, seen by torch.as_tensor
+    # through the CUDA array interface (torch takes no ownership)
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "version": 2, "strides": None}
+
+
+def _release_peer_memory(own: int, opened: list[int]) -> None:
+    # at the buffers' end (or the interpreter's): close the peers'
+    # mappings, free this rank's allocation; errors are not raised here
+    try:
+        for ptr in opened:
+            _build.entry("peer_collectives", "peer_ipc_close")(ptr)
+        _build.entry("peer_collectives", "peer_free")(own)
+    except Exception:  # noqa: BLE001 — a finalizer must not raise
+        pass
+
+
+#: byte alignment of each buffer in a rank's symmetric allocation
+_PEER_ALIGN = 256
+
+
+class PeerBuffers:
+    """One rank's symmetric buffers for ``pl_allreduce`` on the card, and
+    its views of its peers': two input buffers the executions alternate
+    between, the owned-chunk buffer and the signal pad, in one
+    allocation per rank (``peer_alloc``) whose IPC handle every peer opens
+    (``all_gather_object`` on the world's group).  Every rank lays its
+    allocation out alike, so a buffer sits at the same offset in each.
+    ``ins[b][s]``, ``mids[s]`` and ``pads[s]`` are rank s's; this rank's
+    are tensors, a peer's are :class:`RemoteBuffer` objects; ``mids`` and
+    ``pads`` are :class:`PeerParts`, their tables made here and freed with
+    the buffers.  ``generation`` is this rank's barrier count."""
+
+    def __init__(self, world: DistWorld, elems: int, chunk: int,
+                 dtype: torch.dtype):
+        import weakref
+
+        n, rank, dev = world.n, world.rank, world.device
+        isz = dtype.itemsize
+        sizes = (elems * isz, elems * isz, chunk * isz, 4 * n)
+        offsets, total = [], 0
+        for size in sizes:
+            offsets.append(total)
+            total += -(-size // _PEER_ALIGN) * _PEER_ALIGN
+        entry = functools.partial(_build.entry, "peer_collectives")
+        own = ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            _build.check("peer_alloc", entry("peer_alloc")(
+                total, ctypes.byref(own)))
+        bases, opened = [own.value] * n, []
+        self._finalizer = weakref.finalize(self, _release_peer_memory,
+                                           own.value, opened)
+        if n > 1:
+            import torch.distributed as dist
+
+            handle = ctypes.create_string_buffer(64)
+            _build.check("peer_ipc_handle",
+                         entry("peer_ipc_handle")(own.value, handle))
+            handles: list = [None] * n
+            dist.all_gather_object(handles, handle.raw, group=world.group)
+            with torch.cuda.device(dev):
+                for s in range(n):
+                    if s == rank:
+                        continue
+                    ptr = ctypes.c_void_p()
+                    _build.check("peer_ipc_open", entry("peer_ipc_open")(
+                        ctypes.create_string_buffer(handles[s], 64),
+                        ctypes.byref(ptr)))
+                    bases[s] = ptr.value
+                    opened.append(ptr.value)
+        region = torch.as_tensor(_DeviceBytes(own.value, total), device=dev)
+
+        def parts(k: int, numel: int, pdtype: torch.dtype) -> list:
+            lo = offsets[k]
+            return [region[lo:lo + numel * pdtype.itemsize].view(pdtype)
+                    if s == rank else
+                    RemoteBuffer(bases[s] + lo, numel, pdtype, dev)
+                    for s in range(n)]
+
+        self.ins = [parts(0, elems, dtype), parts(1, elems, dtype)]
+        self.mids = PeerParts(parts(2, chunk, dtype))
+        self.pads = PeerParts(parts(3, n, torch.int32))
+        self.generation = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._region = region
+
+
+def _dist_allreduce_step(world: DistWorld, elems: int, chunk: int,
+                         iters: int, tdtype: torch.dtype) -> Callable:
+    """``pl_allreduce`` on one rank of a multi-rank world: per execution a
+    reduce-scatter of the owned chunk (scaled by 1/n) and an all-gather of
+    the owned chunks, the peer kernels' two data launches.
+
+    On the card the input is copied into this rank's symmetric buffer
+    once a step; each execution meets its peers at a barrier before it
+    reads their inputs and again before it reads their owned chunks, and
+    writes its gather into the other input buffer (the last one into a new
+    tensor, which the step returns); a last barrier keeps a peer's next
+    step from overwriting what this rank still reads.  On the CPU the
+    peer kernels' plain versions run on what gloo's collectives bring: the
+    n parts of the owned chunk (``all_to_all_single``), then the owned
+    chunks (an all-gather)."""
+    from tpu_perf_torch.parallel.multihost import _all_gather_tensor
+
+    n, rank = world.n, world.rank
+    inv = mean_scale(n, tdtype)
+    if world.device.type == "cpu":
+        import torch.distributed as dist
+
+        def execution(x):
+            if n == 1:
+                recv = x
+            else:
+                recv = torch.empty_like(x)
+                dist.all_to_all_single(recv, x, group=world.group)
+            mine = peer_reduce_scatter(list(recv.view(n, chunk)), rank,
+                                       scale=inv)
+            if n == 1:
+                owned = mine.view(1, chunk)
+            else:
+                owned = torch.empty(n, chunk, dtype=tdtype)
+                _all_gather_tensor(owned.view(-1), mine, group=world.group)
+            return peer_all_gather(list(owned))
+
+        def cpu_step(x):
+            for _ in range(iters):
+                x = execution(x)
+            return x
+
+        return cpu_step
+
+    buffers = PeerBuffers(world, elems, chunk, tdtype)
+    reads = [PeerParts(
+        part.view(n, chunk)[rank] if isinstance(part, torch.Tensor)
+        else RemoteBuffer(part.ptr + rank * chunk * tdtype.itemsize, chunk,
+                          tdtype, part.device)
+        for part in ins) for ins in buffers.ins]
+    mine = buffers.mids[rank]
+
+    def barrier():
+        peer_barrier(buffers.pads, buffers.generation, rank)
+
+    def step(x):
+        buffers.ins[0][rank].copy_(x)
+        out = None
+        for j in range(iters):
+            cur = j % 2
+            barrier()
+            peer_reduce_scatter(reads[cur], rank, scale=inv, out=mine)
+            barrier()
+            out = (torch.empty(elems, dtype=tdtype, device=world.device)
+                   if j == iters - 1 else buffers.ins[1 - cur][rank])
+            peer_all_gather(buffers.mids, out=out)
+        barrier()
+        return out
+
+    return step
+
+
+def _rs_chunk(nbytes: int, itemsize: int, n: int) -> int:
+    """The reduce-scatter ops' chunk: the per-rank input's n-th, rounded
+    up to a whole number of the JAX package's accumulation tiles."""
+    raw_chunk = max(1, -(-max(1, -(-nbytes // itemsize)) // n))
+    if raw_chunk > _ACC_TILE_ELEMS:
+        return -(-raw_chunk // _ACC_TILE_ELEMS) * _ACC_TILE_ELEMS
+    return raw_chunk
+
+
+def _build_dist_pallas_step(op: str, world: DistWorld, nbytes: int,
+                            iters: int, *, dtype: str
+                            ) -> tuple[Callable, int, int]:
+    """A ``pl_*`` op on one rank of a multi-rank world.  ``pl_allreduce``
+    runs the peer kernels at any world size (one rank too: the world of
+    one still meets at its barrier and reads through its tables).  In a
+    world of one every other op is its sim kernel at n = 1 on the rank's
+    buffer, as the JAX package runs its Pallas ops on one chip; across
+    ranks their signal-pad forms are still to come."""
+    from tpu_perf_torch.ops.collectives import DTYPES
+
+    if len(world.axis_names) != 1:
+        raise ValueError(
+            f"pallas ops need a single-axis mesh, got axes {world.axis_names}")
+    if op == "pl_allreduce":
+        tdtype = DTYPES[dtype]
+        chunk = _rs_chunk(nbytes, tdtype.itemsize, world.n)
+        elems = chunk * world.n
+        return (_dist_allreduce_step(world, elems, chunk, iters, tdtype),
+                elems, elems * tdtype.itemsize)
+    if world.n == 1:
+        step, elems, actual = build_pallas_step(
+            op, SimWorld(1, world.device), nbytes, iters, dtype=dtype)
+        return (lambda x: step(x.view(1, -1)).view(-1)), elems, actual
+    raise NotImplementedError(
+        f"{op} on a world of {world.n} ranks: its signal-pad form is not "
+        "yet ported, see ROADMAP")
+
+
 # --- the pl_* ops -------------------------------------------------------
 
 
-def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
+def build_pallas_step(op: str, world: SimWorld | DistWorld, nbytes: int,
+                      iters: int, *,
                       dtype: str = "float32") -> tuple[Callable, int, int]:
     """The step executing ``iters`` chained kernel executions for ``op``.
 
@@ -616,6 +1042,12 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
 
     if op not in PALLAS_OPS:
         raise ValueError(f"unknown pallas op {op!r}; known: {PALLAS_OPS}")
+    if is_dist(world):
+        return _build_dist_pallas_step(op, world, nbytes, iters, dtype=dtype)
+    if len(world.axis_names) != 1:
+        # the kernels address ranks by their index on one axis
+        raise ValueError(
+            f"pallas ops need a single-axis mesh, got axes {world.axis_names}")
     n = world.n
     if op in ("pl_exchange", "pl_pingpong") and n % 2:
         raise ValueError(f"{op} needs an even device count, got {n}")
@@ -644,11 +1076,7 @@ def build_pallas_step(op: str, world: SimWorld, nbytes: int, iters: int, *,
             raise ValueError(f"{op} needs at least 2 devices, got {n}")
         # nbytes = per-rank input buffer; chunk = elems/n, rounded up to a
         # whole number of the JAX package's accumulation tiles
-        raw_chunk = max(1, -(-max(1, -(-nbytes // itemsize)) // n))
-        if raw_chunk > _ACC_TILE_ELEMS:
-            chunk = -(-raw_chunk // _ACC_TILE_ELEMS) * _ACC_TILE_ELEMS
-        else:
-            chunk = raw_chunk
+        chunk = _rs_chunk(nbytes, itemsize, n)
         elems = chunk * n
         actual = elems * itemsize
     elif op in ("pl_hbm_read", "pl_hbm_write"):

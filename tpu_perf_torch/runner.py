@@ -2,7 +2,9 @@
 
 One sweep point is measured under the configured fence (``auto``
 resolved once, by the device); the driver (:mod:`tpu_perf_torch.driver`)
-owns logging and the CLI's run loop, finite and daemon.
+owns logging and the CLI's run loop, finite and daemon.  In a
+multi-process world each run's time is its maximum over the ranks
+(:func:`max_over_ranks`), so every rank's rows carry the same times.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from tpu_perf_torch.timing import (
     resolve_fence, time_slope, time_step, time_trace,
 )
 from tpu_perf_torch.traceparse import profile_window
-from tpu_perf_torch.world import SimWorld, resolve_device
+from tpu_perf_torch.world import DistWorld, SimWorld, is_dist, resolve_device
 
 #: ops whose timing covers a round trip (latency convention: one way = t/2)
 _ROUND_TRIP_OPS = ("pingpong", "pl_pingpong")
@@ -86,10 +88,42 @@ def ops_for_options(opts: Options) -> list[str]:
     return ops
 
 
-def world_for(opts: Options) -> SimWorld:
-    """The sim world an Options asks for: ``sim_ranks`` ranks on the card
-    (or on the CPU when ``device="cpu"``)."""
-    return SimWorld(opts.sim_ranks, resolve_device(opts.device))
+def world_for(opts: Options) -> SimWorld | DistWorld:
+    """The world an Options asks for: under ``distributed``, this
+    process' rank of the joined ``torch.distributed`` world (NCCL on card
+    ``LOCAL_RANK``, gloo on the CPU); otherwise, or when no cluster is
+    found, ``sim_ranks`` sim ranks on the card (or on the CPU when
+    ``device="cpu"``).  ``mesh_shape`` / ``hybrid_mesh`` lay the ranks
+    over a named mesh.  A card asked for and not visible raises
+    :class:`~tpu_perf_torch.world.NoDeviceError` first."""
+    from tpu_perf_torch.parallel import (
+        initialize_distributed, make_hybrid_mesh, make_mesh,
+    )
+    from tpu_perf_torch.world import dist_world
+
+    device = resolve_device(opts.device)
+    if opts.distributed and initialize_distributed(device=device.type):
+        import torch.distributed as dist
+
+        n = dist.get_world_size()
+        mesh = (make_hybrid_mesh() if opts.hybrid_mesh
+                else make_mesh(opts.mesh_shape, opts.mesh_axes, n=n))
+        return dist_world(device, mesh)
+    n = opts.sim_ranks
+    mesh = None
+    if opts.hybrid_mesh:
+        mesh = make_hybrid_mesh(n=n, per_node=n)
+    elif opts.mesh_shape:
+        mesh = make_mesh(opts.mesh_shape, opts.mesh_axes, n=n)
+    return SimWorld(n, device, mesh)
+
+
+def max_over_ranks(world, samples: list[float | None]
+                   ) -> list[float | None]:
+    """A point's run times, each its maximum over the ranks of a
+    multi-process world (one ``all_reduce(MAX)``, after the point's last
+    fence); the sim world's, as they are."""
+    return world.max_over_ranks(samples) if is_dist(world) else list(samples)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,7 +226,7 @@ def run_point_fused(opts: Options, built: BuiltOp, fp: FusedPoint, *,
     return RunTimes(samples=samples, warmup_s=runner.warmup_s)
 
 
-def run_point(opts: Options, world: SimWorld, nbytes: int, *,
+def run_point(opts: Options, world: SimWorld | DistWorld, nbytes: int, *,
               op: str | None = None) -> SweepPointResult:
     """Measure one sweep point: ``opts.num_runs`` runs of ``opts.iters``
     chained executions each."""
@@ -219,6 +253,9 @@ def run_point(opts: Options, world: SimWorld, nbytes: int, *,
         times = time_step(built.step, x, opts.num_runs,
                           warmup_runs=opts.warmup_runs, fence_mode=opts.fence,
                           measure_dispatch=opts.measure_dispatch)
+    if is_dist(world):
+        times = dataclasses.replace(
+            times, samples=max_over_ranks(world, times.samples))
     return SweepPointResult(op=op, nbytes=built.nbytes, iters=built.iters,
                             n_devices=built.n_devices, times=times,
                             dtype=opts.dtype)

@@ -168,6 +168,7 @@ def _pl_hbm_write_for(dtype: str) -> Callable[[np.ndarray], np.ndarray]:
 #: op -> model of ONE application on the (n_ranks, per_rank) global array
 EXPECTATIONS: dict[str, Callable[[np.ndarray], np.ndarray]] = {
     "allreduce": _mean_all,
+    "hier_allreduce": _mean_all,
     "barrier": _mean_all,
     "all_gather": _identity,  # gather + take-own-shard carry
     "reduce_scatter": _reduce_scatter_inplace,
@@ -269,11 +270,19 @@ _EVEN_OPS = ("pingpong", "pingpong_unidir", "exchange", "ppermute",
              "pl_exchange", "pl_pingpong")
 #: the ops that need a peer
 _TWO_OR_MORE_OPS = ("pl_reduce_scatter", "pl_allreduce", "pl_barrier")
+#: the ops that run over one mesh axis (ppermute schedules, the kernels)
+_ONE_AXIS_OPS = ("pingpong", "pingpong_unidir", "exchange", "ppermute",
+                 "ring", "halo", "broadcast", "overlap_ring")
 
 
-def _skip_reason(op: str, n: int) -> str | None:
-    """The rank-count constraint an n-rank world fails, if any (the JAX
-    package's reasons; the sim world is always one axis)."""
+def _skip_reason(op: str, n: int, axes: tuple[str, ...] = ("x",)
+                 ) -> str | None:
+    """The constraint an n-rank world over mesh ``axes`` fails, if any
+    (the JAX package's reasons)."""
+    if op == "hier_allreduce":
+        return None if len(axes) == 2 else "needs a 2-axis (dcn, ici) mesh"
+    if len(axes) != 1 and (op in _ONE_AXIS_OPS or op.startswith("pl_")):
+        return "needs a single-axis mesh"
     if op in _EVEN_OPS and n % 2:
         return "needs an even device count"
     if op in _TWO_OR_MORE_OPS and n < 2:
@@ -302,7 +311,7 @@ def run_selftest(world, *, ops: list[str] | None = None, nbytes: int = 4096,
         floor = (_MATMUL_RTOL_CARD if world.device.type == "cuda"
                  else _MATMUL_RTOL_CPU)
         rtol = max(base_rtol, floor if op in _MATMUL_OPS else 0.0)
-        reason = _skip_reason(op, world.n)
+        reason = _skip_reason(op, world.n, world.axis_names)
         if reason:
             results.append(SelftestResult(op, "skip", reason))
             continue

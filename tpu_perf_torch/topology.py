@@ -27,6 +27,25 @@ def validate_groups(world_size: int, group1_size: int, ppn: int) -> None:
         )
 
 
+def one_way_permutation(n: int, *, reverse: bool = False
+                        ) -> list[tuple[int, int]]:
+    """Half of :func:`pair_permutation`: group 0 -> group 1 (or back)
+    only, the unidirectional payload's direction."""
+    if n % 2 != 0:
+        raise ValueError(f"need an even device count, got {n}")
+    half = n // 2
+    if reverse:
+        return [(i + half, i) for i in range(half)]
+    return [(i, i + half) for i in range(half)]
+
+
+def ring_permutation(n: int, *, shift: int = 1) -> list[tuple[int, int]]:
+    """The ring shift: rank i sends to rank (i + shift) mod n."""
+    if n <= 0:
+        raise ValueError(f"need positive device count, got {n}")
+    return [(i, (i + shift) % n) for i in range(n)]
+
+
 def pair_permutation(n: int) -> list[tuple[int, int]]:
     """The pair topology on ``n`` ranks as ``(source, destination)``
     pairs: rank i of group 0 (the first half) and rank i + n/2 of group 1

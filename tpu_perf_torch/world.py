@@ -1,4 +1,5 @@
-"""The single-card sim world (counterpart of ``tpu_perf/parallel/mesh.py``).
+"""The worlds an op runs in: the single-card sim world and the
+multi-process world (counterparts of ``tpu_perf/parallel``).
 
 The JAX package runs its collectives on a named mesh; its tests fake a
 mesh with 8 virtual CPU devices (``claim_cpu_devices``).  One H100 has no
@@ -20,14 +21,26 @@ contiguous block as on a device, every row-wise body (the exchange's row
 shift) moves all W buffers of a rank in one slice copy, and one
 allocation holds every window.  W first would leave each rank's buffers
 strided over the allocation and make the shift run along axis 1.
+
+The multi-process world (:class:`DistWorld`) is the PyTorch idiom of the
+JAX package's mesh over several processes: one process a rank, joined
+through ``torch.distributed`` (NCCL on the card, gloo on the CPU), each
+rank holding its own ``(elems,)`` buffer, the JAX global layout's
+``[r*elems, (r+1)*elems)`` (:func:`to_rank`).  Either world may carry a
+named mesh (:mod:`tpu_perf_torch.parallel.mesh`) over its ranks; the
+hierarchical ``hier_allreduce`` needs its two axes ``(dcn, ici)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import math
+
 import numpy as np
 import torch
+
+from tpu_perf_torch.parallel.mesh import Mesh, make_mesh
 
 
 class NoDeviceError(RuntimeError):
@@ -49,22 +62,112 @@ def resolve_device(name: str | None = None) -> torch.device:
     return torch.device(name)
 
 
+def _check_mesh(mesh: Mesh | None, n: int) -> None:
+    if mesh is not None and mesh.size != n:
+        raise ValueError(f"mesh shape {mesh.shape} does not cover {n} devices")
+
+
 @dataclasses.dataclass(frozen=True)
 class SimWorld:
-    """n sim ranks on one device; rank r's buffer is row r."""
+    """n sim ranks on one device; rank r's buffer is row r.  ``mesh``
+    (None: one axis ``"x"``) names the ranks' layout, row-major."""
 
     n: int
     device: torch.device
+    mesh: Mesh | None = None
 
     def __post_init__(self) -> None:
         if self.n < 1:
             raise ValueError(f"a sim world needs at least one rank, got {self.n}")
+        _check_mesh(self.mesh, self.n)
 
     @property
     def backend(self) -> str:
         """The rows' backend column: a one-rank world measures the card
         itself; more ranks share it and measure an emulation."""
         return "torch-sim" if self.n > 1 else "torch"
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return self.mesh.axis_names if self.mesh is not None else ("x",)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DistWorld:
+    """This process' rank of a ``torch.distributed`` world of ``n`` ranks:
+    its buffers are ``(elems,)`` tensors on ``device`` (``cuda:LOCAL_RANK``,
+    or the CPU when asked), its collectives run on ``group`` (None: the
+    default group) and ``mesh`` lays the ranks out (one axis ``"x"`` by
+    default).  Rows carry ``backend="torch"``: each rank measures its own
+    card and its links."""
+
+    rank: int
+    n: int
+    local_rank: int
+    device: torch.device
+    mesh: Mesh
+    group: object = None
+    #: axis name -> (this rank's process group along it, its ranks); the
+    #: groups are made once, the first time an axis is asked for
+    _axis_groups: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self) -> None:
+        _check_mesh(self.mesh, self.n)
+
+    backend = "torch"
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return self.mesh.axis_names
+
+    def axis_group(self, axis: str) -> tuple[object, list[int]]:
+        """``(group, ranks)`` of this rank along mesh axis ``axis``: the
+        ranks whose other coordinates equal this rank's.  Every rank makes
+        every group of the axis in the same order (``new_group`` is a
+        collective of the whole world) the first time the axis is asked
+        for; a group of one rank is None and its collectives are local."""
+        if axis not in self._axis_groups:
+            import torch.distributed as dist
+
+            for ranks in self.mesh.axis_groups(axis):
+                group = dist.new_group(ranks) if len(ranks) > 1 else None
+                if self.rank in ranks:
+                    self._axis_groups[axis] = (group, ranks)
+        return self._axis_groups[axis]
+
+    def max_over_ranks(self, samples: list[float | None]
+                       ) -> list[float | None]:
+        """Each sample replaced by its maximum over the ranks, in one
+        ``all_reduce(MAX)`` (nccl-tests' convention: a collective takes as
+        long as its slowest rank).  None is a sample this rank lost; a
+        sample every rank lost stays None."""
+        if self.n == 1 or not samples:
+            return list(samples)
+        import torch.distributed as dist
+
+        t = torch.tensor([-math.inf if s is None else s for s in samples],
+                         dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return [None if v == -math.inf else v for v in t.tolist()]
+
+
+def dist_world(device: torch.device, mesh: Mesh | None = None) -> DistWorld:
+    """This process' :class:`DistWorld` in the joined default group
+    (:func:`tpu_perf_torch.parallel.initialize_distributed`); ``mesh``
+    defaults to one axis over every rank."""
+    import torch.distributed as dist
+
+    from tpu_perf_torch.parallel.multihost import local_rank
+
+    n = dist.get_world_size()
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return DistWorld(rank=dist.get_rank(), n=n, local_rank=local_rank(),
+                     device=device, mesh=mesh or make_mesh(n=n))
+
+
+def is_dist(world) -> bool:
+    return isinstance(world, DistWorld)
 
 
 def to_world(global_np: np.ndarray, n: int) -> np.ndarray:
@@ -81,6 +184,14 @@ def to_world(global_np: np.ndarray, n: int) -> np.ndarray:
     if flat.size % n:
         raise ValueError(f"{flat.size} elements do not split over {n} ranks")
     return flat.reshape(n, -1)
+
+
+def to_rank(global_np: np.ndarray, n: int, rank: int) -> np.ndarray:
+    """JAX global layout -> rank ``rank``'s own buffer in an ``n``-rank
+    world: ``(n*elems,)`` -> its ``[rank*elems, (rank+1)*elems)``, and the
+    windowed ``(W, n*elems)`` -> its ``(W, elems)`` columns."""
+    rows = to_world(global_np, n)
+    return np.ascontiguousarray(rows[rank])
 
 
 def from_world(t: torch.Tensor) -> np.ndarray:
