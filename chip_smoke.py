@@ -91,17 +91,25 @@ exits non-zero):
    the JAX one-device labels, each ratio against the detected card's
    entry); then the multi-rank world: ``run --distributed`` in an NCCL
    world of one (this process, torchrun's variables set for one rank)
-   over the library collectives, ``ring`` and ``pl_allreduce`` (rows with
-   backend torch, ``dist.get_backend()`` nccl, ``pl_allreduce`` through
-   the three peer kernels and no plain call, also replayed from a CUDA
-   graph under ``--fence fused``), ``hier_allreduce`` on a 2 x 4 ``(dcn,
-   ici)`` mesh of the sim world against its selftest model, and the peer
-   kernels' loopback in a process of its own under a wall-clock limit (n
-   = 2, 4, 8 rank buffers as n allocations, each rank's launch on its own
-   stream: bit for bit the sim kernels in float32 and the plain versions
-   in bfloat16, with and without a tail, 50 chained executions and 20
-   replays of each rank's captured graph, then their times at 8 x 256
-   MiB beside the sim kernels');
+   over the library collectives and ``ring`` (rows with backend torch,
+   ``dist.get_backend()`` nccl, no kernel of the port), then each ``pl_*``
+   op a world of one runs (``pl_allreduce``, ``pl_ring``,
+   ``pl_all_to_all``, both gathers, the four local memory ops) under the
+   block fence over 4K:16M and fused at 4 KiB and 16 MiB, each run's
+   launches its path's and no plain call, and each op's output at the
+   sweep's ends, eager and from a graph, its plain versions' chain;
+   ``hier_allreduce`` on a 2 x 4 ``(dcn, ici)`` mesh of the sim world
+   against its selftest model; worlds of 2 and 4 processes sharing the
+   card through CUDA IPC, every ``pl_*`` op at 4108 B and 16 MiB bit for
+   bit the sim kernels' chain with its launches; the barrier of one from
+   graphs beside NCCL's; and the peer kernels' loopback in a process of
+   its own under a wall-clock limit (n = 2, 4, 8 rank buffers as n
+   allocations, each rank's launch on its own stream: every peer kernel
+   against its plain version in float32, bfloat16 and int32, with and
+   without a tail; 50 chained ``pl_allreduce`` executions and 20 replays
+   of each rank's captured graph; every peer op's own steps, eager and
+   from graphs, bit for bit the sim kernels' chain; then their times at 8
+   x 256 MiB beside the sim kernels');
 6. run ``grid --spec hbm`` over the eight local memory ops at 256 MiB and
    1 GiB and print its verdict table, and show the read sweep's time
    growing with the bytes it reads;
@@ -2415,20 +2423,60 @@ def phase_bench() -> None:
 
 # --- the multi-rank world ---------------------------------------------------
 
-#: the NCCL world of one: the library collectives, ring and pl_allreduce
+#: the NCCL world of one's library ops: no kernel of the port
 DIST_OPS = ("allreduce,all_gather,reduce_scatter,all_to_all,broadcast,"
-            "broadcast_psum,barrier,ring,pl_allreduce")
+            "broadcast_psum,barrier,ring")
 DIST_SWEEP = "4K:16M"
-#: the peer kernels, and their launches per execution of pl_allreduce (the
-#: barrier also once a step: 2 an execution and the step's last)
-PEER_KERNELS = ("peer_reduce_scatter", "peer_all_gather", "peer_barrier")
+#: op -> {kernel: (launches an execution, launches a step besides)} of
+#: each pl_* path on a rank of a multi-rank world (the pingpong's copies
+#: are group 0's: group 1 adds its local copy, see peer_launches)
+PEER_PATHS = {
+    "pl_allreduce": {"peer_reduce_scatter": (1, 0), "peer_all_gather": (1, 0),
+                     "peer_barrier": (2, 1)},
+    "pl_reduce_scatter": {"peer_reduce_scatter": (1, 0),
+                          "peer_barrier": (1, 1)},
+    "pl_ring": {"peer_ring": (1, 0), "peer_barrier": (1, 1)},
+    "pl_exchange": {"peer_exchange": (1, 0), "peer_barrier": (1, 1)},
+    "pl_pingpong": {"peer_pingpong": (1, 0), "peer_barrier": (2, 1)},
+    "pl_barrier": {"peer_barrier_copy": (1, 0)},
+    "pl_all_to_all": {"peer_all_to_all": (1, 0), "peer_barrier": (1, 1)},
+    "pl_all_gather": {"peer_all_gather": (1, 0), "peer_barrier": (1, 1)},
+    "pl_all_gather_bidir": {"peer_all_gather_bidir": (1, 0),
+                            "peer_barrier": (1, 1)},
+    "pl_hbm_stream": {"stream": (1, 0)},
+    "pl_hbm_copy": {"hbm_copy": (1, 0)},
+    "pl_hbm_read": {"hbm_read": (1, 0)},
+    "pl_hbm_write": {"hbm_write": (1, 0)},
+}
+#: the pl_* ops of a world of one: those the JAX package runs on one
+#: device, and pl_allreduce, whose peer form runs at any size
+ONE_RANK_OPS = ("pl_allreduce", "pl_ring", "pl_all_to_all", "pl_all_gather",
+                "pl_all_gather_bidir", "pl_hbm_stream", "pl_hbm_copy",
+                "pl_hbm_read", "pl_hbm_write")
+#: the launch counters of csrc/peer_collectives.cu
+PEER_KERNELS = ("peer_reduce_scatter", "peer_all_gather", "peer_barrier",
+                "peer_ring", "peer_exchange", "peer_pingpong",
+                "peer_all_to_all", "peer_all_gather_bidir",
+                "peer_barrier_copy")
+#: the ops that read a peer's memory: the loopback runs their real steps
+PEER_OPS = ("pl_allreduce", "pl_reduce_scatter", "pl_ring", "pl_exchange",
+            "pl_pingpong", "pl_barrier", "pl_all_to_all", "pl_all_gather",
+            "pl_all_gather_bidir")
 #: the loopback's wall-clock limit: a rank waiting on a peer's signal that
 #: never comes fails the smoke, never hangs it
-LOOPBACK_LIMIT_S = 300
+LOOPBACK_LIMIT_S = 400
 LOOPBACK_RANKS = (2, 4, 8)
 LOOPBACK_CHAIN, LOOPBACK_REPLAYS = 50, 20
-#: the two processes of the IPC pair: their wall-clock limit
-IPC_LIMIT_S = 120
+#: the per-rank sizes of the loopback's step cases (one not 16-byte
+#: divisible) and their chains: eager steps, then graph replays
+STEP_BYTES = (4108, (1 << 20) + 16)
+STEP_CHAIN, STEP_REPLAYS = 6, 6
+#: the IPC worlds: their sizes, the per-rank sizes and steps of each op,
+#: and each world's wall-clock limit
+IPC_RANKS = (2, 4)
+IPC_BYTES = (4108, 16 * 1024**2)
+IPC_STEPS = 2
+IPC_LIMIT_S = 240
 HIER_BYTES = 4 * 1024**2
 
 
@@ -2440,11 +2488,27 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+def peer_launches(op: str, n: int, rank: int, steps: int) -> dict:
+    """A rank's launches over ``steps`` steps of ``op`` at ITERS
+    executions each, by kernel: PEER_PATHS, group 1 of the pingpong with
+    its local copy besides its leg."""
+    want = {}
+    for name, (per_exec, per_step) in PEER_PATHS[op].items():
+        if op == "pl_pingpong" and name == "peer_pingpong" and rank >= n // 2:
+            per_exec = 2
+        want[name] = steps * (per_exec * ITERS + per_step)
+    return want
+
+
 def _dist_world_of_one() -> dict:
     """(a) ``run --distributed`` in an NCCL world of one, in this process
-    through ``cli.main``: rows that parse with backend torch, NCCL the
-    group's backend, pl_allreduce through the three peer kernels and no
-    plain call; returns the peer kernels' launches."""
+    through ``cli.main``: the library ops' rows (backend torch, NCCL the
+    group's backend, no kernel of the port), then each pl_* op of
+    ONE_RANK_OPS over DIST_SWEEP under the block fence and at FUSED_BYTES
+    under the fused one, each run's launches (counted from 0 just before
+    it, read just after) its path's and no plain call; then each op's
+    output against its plain chain (:func:`_check_world_of_one`).
+    Returns the launches by kernel, summed over the pl_* runs."""
     import torch.distributed as dist
 
     from tpu_perf_torch.config import Options
@@ -2458,15 +2522,40 @@ def _dist_world_of_one() -> dict:
     argv = ["run", "--distributed", "--op", DIST_OPS, "--sweep", DIST_SWEEP,
             "-i", str(ITERS), "-r", str(RUNS)]
     what = " ".join(argv)
-    fused_argv = ["run", "--distributed", "--op", "pl_allreduce", "--sweep",
-                  ",".join(str(b) for b in FUSED_BYTES), "-i", str(ITERS),
-                  "-r", str(RUNS), "--fence", "fused"]
+    launched, said = {}, []
     try:
         got, rows, wall = _drive(argv, what)
         backend = dist.get_backend()
-        # the peer kernels replayed from a CUDA graph in the same world:
-        # launches are the warm-up's and the capture's only
-        fused_got, fused_rows, _ = _drive(fused_argv, " ".join(fused_argv))
+        if any(got.values()):
+            fail(f"{what}: launches {got}, want none")
+        for op in ONE_RANK_OPS:
+            sizes = sizes_for(Options(sweep=DIST_SWEEP, op=op))
+            for fence, points, steps in (
+                    ("block", sizes, len(sizes) * (1 + RUNS)),
+                    # launches are the warm-up's and the capture's only
+                    ("fused", FUSED_BYTES, len(FUSED_BYTES) * 2 * RUNS)):
+                op_argv = ["run", "--distributed", "--op", op, "--sweep",
+                           ",".join(str(b) for b in points), "-i", str(ITERS),
+                           "-r", str(RUNS), "--fence", fence]
+                op_what = " ".join(op_argv)
+                op_got, op_rows, op_wall = _drive(op_argv, op_what)
+                want = peer_launches(op, 1, 0, steps)
+                if {k: v for k, v in op_got.items() if v} != want:
+                    fail(f"{op_what}: launches {op_got}, want {want} and "
+                         "nothing else")
+                if len(op_rows) != len(points) * RUNS or any(
+                        r.backend != "torch" or r.n_devices != 1
+                        or r.lat_us <= 0 for r in op_rows):
+                    fail(f"{op_what}: {len(op_rows)} rows or a bad row")
+                for k, v in want.items():
+                    launched[k] = launched.get(k, 0) + v
+                big = max(op_rows, key=lambda r: r.nbytes)
+                lo = min(r.nbytes for r in op_rows)
+                said.append(f"{op} {fence} {len(op_rows)} rows in "
+                            f"{op_wall:.1f} s ({big.nbytes} B "
+                            f"{big.busbw_gbps:.1f} GB/s; lat_us at {lo} B "
+                            + "/".join(f"{r.lat_us:.2f}" for r in op_rows
+                                       if r.nbytes == lo) + ")")
         checked = _check_world_of_one()
     finally:
         if dist.is_initialized():
@@ -2485,74 +2574,88 @@ def _dist_world_of_one() -> dict:
             r.backend != "torch" or r.n_devices != 1 or r.lat_us <= 0
             for r in rows):
         fail(f"{what}: {len(rows)} rows (want {want_rows}) or a bad row")
-    steps = len(sizes_for(Options(sweep=DIST_SWEEP, op="pl_allreduce"))) * (
-        1 + RUNS)
-    want = {"peer_reduce_scatter": steps * ITERS,
-            "peer_all_gather": steps * ITERS,
-            "peer_barrier": steps * (2 * ITERS + 1)}
-    launched = {k: got[k] for k in PEER_KERNELS}
-    if launched != want or any(v for k, v in got.items() if k not in want):
-        fail(f"{what}: launches {got}, want {want} and nothing else")
-    fused_steps = len(FUSED_BYTES) * 2 * RUNS
-    fused_want = {"peer_reduce_scatter": fused_steps * ITERS,
-                  "peer_all_gather": fused_steps * ITERS,
-                  "peer_barrier": fused_steps * (2 * ITERS + 1)}
-    if ({k: fused_got[k] for k in PEER_KERNELS} != fused_want
-            or len(fused_rows) != len(FUSED_BYTES) * RUNS):
-        fail(f"{' '.join(fused_argv)}: launches {fused_got}, want "
-             f"{fused_want}; {len(fused_rows)} rows")
-    print(f"distributed: {' '.join(fused_argv)}: {len(fused_rows)} rows, "
-          "launches the warm-up's and the capture's only; lat_us "
-          + ", ".join(f"{r.nbytes} B {r.lat_us:.2f}" for r in fused_rows))
-    print(f"distributed: {checked}")
-    big = max((r for r in rows if r.op == "pl_allreduce"),
-              key=lambda r: r.nbytes)
     print(f"distributed: {what}: {len(rows)} rows (backend torch, 1 rank) "
-          f"in {wall:.1f} s; pl_allreduce launches {launched} over {steps} "
-          f"steps of {ITERS}, plain calls 0; pl_allreduce at {big.nbytes} B "
-          f"{big.busbw_gbps:.1f} GB/s ({CARD})")
+          f"in {wall:.1f} s, no kernel of the port")
+    print("distributed: the pl_* ops of a world of one, each run's launches "
+          f"its path's, plain calls 0: {'; '.join(said)} ({CARD})")
+    print(f"distributed: {checked}")
     return launched
 
 
+def _plain_chain_of_one(op: str, x, nbytes: int):
+    """``op``'s plain versions' chain of ITERS executions at n = 1 on x:
+    what a world of one's step must give."""
+    from tpu_perf_torch.ops import pallas_ring as pr
+    from tpu_perf_torch.ops.stream_triton import stream_plain
+
+    y = x
+    for _ in range(ITERS):
+        if op == "pl_allreduce":
+            y = pr.peer_all_gather_plain([pr.peer_reduce_scatter_plain(
+                [y], 0, pr.mean_scale(1, y.dtype))])
+        elif op == "pl_ring":
+            y = pr.peer_copy_plain("peer_ring", y)
+        elif op == "pl_all_to_all":
+            y = pr.peer_all_to_all_plain([y])
+        elif op == "pl_all_gather":
+            y = pr.peer_all_gather_plain([y])
+        elif op == "pl_all_gather_bidir":
+            y = pr.peer_all_gather_bidir_plain([y], 0)
+        elif op == "pl_hbm_stream":
+            y = stream_plain(y)
+        elif op == "pl_hbm_copy":
+            y = pr.hbm_copy_plain(y)
+        elif op == "pl_hbm_read":
+            y = pr.hbm_read_plain(y)
+        else:
+            block = pr.hbm_dma_block_elems(y.element_size(), y.numel())
+            y = pr.hbm_write_plain(y.view(1, -1), block).view(-1)
+    return y
+
+
 def _check_world_of_one() -> str:
-    """pl_allreduce of the NCCL world of one, built as the run builds it
-    at the sweep's smallest and largest size: a step run eagerly and from
-    a CUDA graph (captured on a side stream after the eager step, replayed
-    twice), each output bit for bit the peer kernels' plain versions'
-    chain on the same input (at n = 1, the input itself)."""
+    """Each op of ONE_RANK_OPS in the NCCL world of one, built as the run
+    builds it at the sweep's smallest and largest size: a step run
+    eagerly, then captured into a CUDA graph on the same stream and
+    replayed twice, each output its plain versions' chain on the same
+    input (bit for bit; the stream within its tolerance)."""
     import torch
 
     from tpu_perf_torch.config import Options
-    from tpu_perf_torch.ops import pallas_ring as pr
     from tpu_perf_torch.ops.collectives import build_op
     from tpu_perf_torch.runner import sizes_for, world_for
 
     world = world_for(Options(distributed=True, sim_ranks=1))
-    sizes = sizes_for(Options(sweep=DIST_SWEEP, op="pl_allreduce"))
-    for nbytes in (min(sizes), max(sizes)):
-        built = build_op("pl_allreduce", world, nbytes, ITERS)
-        x = built.example_input
-        want = x
-        scale = pr.mean_scale(1, x.dtype)
-        for _ in range(ITERS):
-            want = pr.peer_all_gather_plain(
-                [pr.peer_reduce_scatter_plain([want], 0, scale)])
-        what = f"world of one: pl_allreduce at {nbytes} B"
-        check_exact(f"{what}, an eager step", built.step(x), want)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            got = built.step(x)
-        for replay in range(2):
-            graph.replay()
+    for op in ONE_RANK_OPS:
+        sizes = sizes_for(Options(sweep=DIST_SWEEP, op=op))
+        for nbytes in (min(sizes), max(sizes)):
+            built = build_op(op, world, nbytes, ITERS)
+            x = built.example_input
+            want = _plain_chain_of_one(op, x.clone(), nbytes)
+            what = f"world of one: {op} at {nbytes} B"
+
+            def check(label, got):
+                if op == "pl_hbm_stream":
+                    check_close(f"{what}, {label}", got, want, "float32")
+                else:
+                    check_exact(f"{what}, {label}", got, want)
+
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                eager = built.step(x)
             torch.cuda.synchronize()
-            check_exact(f"{what}, graph replay {replay}", got, want)
-        check_exact(f"{what}: the input itself", want, x)
-        del graph, built
-    return (f"pl_allreduce at {min(sizes)} and {max(sizes)} B, an eager "
-            "step and two graph replays each: bit for bit the plain "
-            "versions' chain (the input)")
+            check("an eager step", eager)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                got = built.step(x)
+            for replay in range(2):
+                graph.replay()
+                torch.cuda.synchronize()
+                check(f"graph replay {replay}", got)
+            del graph, built
+    return (f"{', '.join(ONE_RANK_OPS)} at the sweep's ends, an eager step "
+            "and two graph replays each: their plain versions' chain")
 
 
 def _hier_on_the_sim_world() -> None:
@@ -2584,13 +2687,16 @@ def _hier_on_the_sim_world() -> None:
 
 def phase_distributed() -> tuple[dict, list[dict]]:
     """The multi-rank world: (a) an NCCL world of one through the CLI, (b)
-    hier_allreduce in the sim world, (c) pl_allreduce across two processes
-    on the card through CUDA IPC, (d) the peer kernels' loopback in a
-    process of its own; (c) and (d) under wall-clock limits.  Returns the peer
-    kernels' launches on the main path and their kernels-line entries."""
+    hier_allreduce in the sim world, (c) every pl_* op across two and
+    four processes on the card through CUDA IPC, (d) the peer kernels'
+    loopback in a process of its own; (c) and (d) under wall-clock
+    limits.  Returns the peer
+    kernels' launches on the main path (the world of one's runs and the
+    IPC worlds' steps) and their kernels-line entries."""
     launched = _dist_world_of_one()
     _hier_on_the_sim_world()
-    _ipc_pair()
+    for k, v in _ipc_worlds().items():
+        launched[k] = launched.get(k, 0) + v
     here = os.path.dirname(os.path.abspath(__file__))
     # one hardware queue a stream, so no rank's launch queues behind
     # another rank's waiting barrier
@@ -2614,23 +2720,32 @@ def phase_distributed() -> tuple[dict, list[dict]]:
             print(f"loopback: {line}")
     if entries is None:
         fail("loopback: no kernels line")
+    missing = [k for k in PEER_KERNELS if not launched.get(k)]
+    if missing:
+        fail(f"the main path launched no {missing}")
+    # launches an execution on the path each row's kernel first serves
     per_exec = {"peer_reduce_scatter": 1, "peer_all_gather": 1,
-                "peer_barrier": 2 + 1 / ITERS}
+                "peer_barrier": 2 + 1 / ITERS, "peer_ring": 1,
+                "peer_exchange": 1, "peer_pingpong": 1.5,
+                "peer_all_to_all": 1, "peer_all_gather_bidir": 1,
+                "peer_barrier_copy": 1}
     for k in entries:
         k["launches"] = launched[k["name"]]
         k["launches_per_execution"] = per_exec[k["name"]]
     return launched, entries
 
 
-def ipc_pair(rank: int, port: int) -> None:
-    """(c) one of two processes on one card, each a rank of a world of two
-    whose pl_allreduce reads the other's buffers through CUDA IPC
+def ipc_world(n: int, rank: int, port: int) -> None:
+    """(c) one of n processes on one card, each a rank of a world of n
+    whose pl_* ops read the others' buffers through CUDA IPC
     (``PeerBuffers``: ``peer_alloc``, ``peer_ipc_handle``,
-    ``peer_ipc_open``) and meets it on signal pads across the two
-    processes.  NCCL refuses two ranks on one card, so the handles cross
-    over a gloo group; the data path is the peer kernels alone.  Two steps
-    at each size, each output bit for bit its row of the sim kernels'
-    chain; run by phase_distributed under a wall-clock limit."""
+    ``peer_ipc_open``) and meet them on signal pads across the processes.
+    NCCL refuses two ranks on one card, so the handles cross over a gloo
+    group; the data path is the peer kernels alone.  Every pl_* op at
+    IPC_BYTES, IPC_STEPS steps each, each output bit for bit its row of
+    the sim kernels' chain and the op's launches its path's, no plain
+    call; prints the launches as IPC_LAUNCHES json.  Run by
+    phase_distributed under a wall-clock limit."""
     import torch
     import torch.distributed as dist
 
@@ -2641,54 +2756,77 @@ def ipc_pair(rank: int, port: int) -> None:
     from tpu_perf_torch.world import DistWorld, SimWorld
 
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=2, rank=rank)
+                            world_size=n, rank=rank)
     dev = torch.device("cuda", torch.cuda.current_device())
-    world = DistWorld(rank=rank, n=2, local_rank=0, device=dev,
-                      mesh=make_mesh(n=2))
-    kernels.reset_counts()
-    for nbytes in (4108, 16 * 1024**2):
-        built = build_op("pl_allreduce", world, nbytes, ITERS)
-        rows = example_input(SimWorld(2, dev), built.example_input.numel(),
-                             "float32")
-        scale = pr.mean_scale(2, torch.float32)
-        want = rows
-        for _ in range(ITERS):
-            want = pr.direct_all_gather(pr.direct_reduce_scatter(
-                want, scale=scale))
-        for step in range(2):
-            got = built.step(built.example_input)
-            torch.cuda.synchronize()
-            check_exact(f"ipc pair rank {rank} at {nbytes} B, step {step}",
-                        got, want[rank])
-        del built
-    print(f"rank {rank}: pl_allreduce across two processes on one card "
-          f"through CUDA IPC at 4108 B and 16 MiB, two steps each: bit for "
-          f"bit the sim kernels; launches "
-          f"{ {k: kernels.LAUNCHES[k] for k in PEER_KERNELS} }")
+    world = DistWorld(rank=rank, n=n, local_rank=0, device=dev,
+                      mesh=make_mesh(n=n))
+    sim = SimWorld(n, dev)
+    totals = {}
+    for op in pr.PALLAS_OPS:
+        wants = {}
+        for nbytes in IPC_BYTES:
+            step, elems, _ = pr.build_pallas_step(op, sim, nbytes, ITERS)
+            wants[nbytes] = step(example_input(sim, elems, "float32"))[rank]
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        for nbytes in IPC_BYTES:
+            built = build_op(op, world, nbytes, ITERS)
+            for step in range(IPC_STEPS):
+                got = built.step(built.example_input)
+                torch.cuda.synchronize()
+                check_exact(f"ipc world of {n}, rank {rank}: {op} at {nbytes} "
+                            f"B, step {step}", got, wants[nbytes])
+            del built
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = peer_launches(op, n, rank, len(IPC_BYTES) * IPC_STEPS)
+        if got != want or any(kernels.PLAIN_CALLS.values()):
+            fail(f"ipc world of {n}, rank {rank}: {op} launched {got}, want "
+                 f"{want}; plain calls {kernels.PLAIN_CALLS}")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+    print(f"rank {rank} of {n}: every pl_* op across {n} processes on one "
+          f"card through CUDA IPC at {IPC_BYTES[0]} B and 16 MiB, "
+          f"{IPC_STEPS} steps each: bit for bit the sim kernels, each op's "
+          f"launches its path's")
+    print("IPC_LAUNCHES " + json.dumps(totals))
     dist.destroy_process_group()
 
 
-def _ipc_pair() -> None:
+def _ipc_worlds() -> dict:
+    """ipc_world at each size of IPC_RANKS, a process a rank; returns the
+    launches by kernel, summed over the ranks and worlds."""
     here = os.path.dirname(os.path.abspath(__file__))
-    port = _free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c",
-         f"import chip_smoke; chip_smoke.ipc_pair({r}, {port})"],
-        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(2)]
-    try:
-        outs = [p.communicate(timeout=IPC_LIMIT_S) for p in procs]
-    except subprocess.TimeoutExpired:
-        fail(f"ipc pair: no end within {IPC_LIMIT_S} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, (out, err) in zip(procs, outs):
-        if p.returncode != 0:
-            fail(f"ipc pair exited {p.returncode}:\n{out}\n{err[-4000:]}")
-        print(f"distributed: {out.strip()}")
+    totals = {}
+    for n in IPC_RANKS:
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.ipc_world({n}, {r}, {port})"],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(n)]
+        try:
+            outs = [p.communicate(timeout=IPC_LIMIT_S) for p in procs]
+        except subprocess.TimeoutExpired:
+            fail(f"ipc world of {n}: no end within {IPC_LIMIT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, (out, err) in zip(procs, outs):
+            if p.returncode != 0:
+                fail(f"ipc world of {n} exited {p.returncode}:\n{out}\n"
+                     f"{err[-4000:]}")
+            for line in out.splitlines():
+                if line.startswith("IPC_LAUNCHES "):
+                    for k, v in json.loads(line.split(" ", 1)[1]).items():
+                        totals[k] = totals.get(k, 0) + v
+                else:
+                    print(f"distributed: {line}")
+        print(f"distributed: the ipc world of {n} in "
+              f"{time.perf_counter() - t0:.1f} s")
+    return totals
 
 
 def _loopback_world(xs, chunk: int):
@@ -2701,6 +2839,7 @@ def _loopback_world(xs, chunk: int):
 
     n = len(xs)
     dev = xs[0].device
+    pads, gens = _pads(n, dev)
     return {
         "n": n, "chunk": chunk,
         "streams": [torch.cuda.Stream(dev) for _ in range(n)],
@@ -2708,16 +2847,24 @@ def _loopback_world(xs, chunk: int):
                           for _ in range(n)),
         "outs": [torch.empty(n * chunk, dtype=xs[0].dtype, device=dev)
                  for _ in range(n)],
-        "pads": PeerParts(torch.zeros(n, dtype=torch.int32, device=dev)
-                          for _ in range(n)),
-        "gens": [torch.zeros(1, dtype=torch.int32, device=dev)
-                 for _ in range(n)],
+        "pads": pads, "gens": gens,
     }
 
 
+def _pads(n: int, dev):
+    """n ranks' signal pads, zeroed, with their table, and generations."""
+    import torch
+
+    from tpu_perf_torch.ops.pallas_ring import PeerParts
+
+    return (PeerParts(torch.zeros(n, dtype=torch.int32, device=dev)
+                      for _ in range(n)),
+            [torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(n)])
+
+
 def _rank_parts(xs, chunk: int) -> list:
-    """What rank r's reduce-scatter reads: chunk r of every rank's input,
-    with its pointer table, for each r."""
+    """What rank r's reduce-scatter and all-to-all read: chunk r of every
+    rank's input, with its pointer table, for each r."""
     from tpu_perf_torch.ops.pallas_ring import PeerParts
 
     n = len(xs)
@@ -2798,25 +2945,43 @@ def _loopback_case(n: int, dtype: str, chunk: int) -> None:
     _check_barriers(w, 2, what)
 
 
-def _check_barriers(w, rounds: int, what: str) -> float:
-    """After ``rounds`` barriers a rank, every generation and every pad
-    slot at ``rounds``; then one more round of the kernel, every rank on
-    its stream, against the plain version's from the same pads and
-    generations.  Returns that round's max abs err."""
+def _check_barriers(w, rounds: int, what: str, peers: str = "all",
+                    copies=None) -> float:
+    """After ``rounds`` barriers of set ``peers`` a rank, every generation
+    at ``rounds`` and every pad slot of a rank's set at ``rounds`` (the
+    others at 0); then one more round of the kernel, every rank on its
+    stream (with ``copies[r] = (src, dst)`` its tail copies), against the
+    plain version's from the same pads and generations.  Returns that
+    round's max abs err."""
     import torch
 
     from tpu_perf_torch.ops import pallas_ring as pr
 
+    n = w["n"]
     pads, gens = torch.stack(list(w["pads"])), torch.cat(w["gens"])
-    if not (bool((pads == rounds).all()) and bool((gens == rounds).all())):
+    want = torch.zeros_like(pads)
+    for r in range(n):
+        for s in pr.barrier_set(peers, n, r):
+            want[s, r] = rounds
+    if not (torch.equal(pads, want) and bool((gens == rounds).all())):
         fail(f"{what}: pads {pads.tolist()}, generations {gens.tolist()}, "
-             f"want {rounds}")
+             f"want {want.tolist()} and {rounds}")
     want_pads = [p.clone() for p in w["pads"]]
     want_gens = [g.clone() for g in w["gens"]]
-    for r in range(w["n"]):
-        pr.peer_barrier_plain(want_pads, want_gens[r], r)
-    _on_streams(w, lambda r: pr.peer_barrier(w["pads"], w["gens"][r], r))
+    want_dsts = []
+    for r in range(n):
+        copy = None
+        if copies is not None:
+            copy = (copies[r][0], torch.empty_like(copies[r][1]))
+            want_dsts.append(copy[1])
+        pr.peer_barrier_plain(want_pads, want_gens[r], r, peers, copy)
+    _on_streams(w, lambda r: pr.peer_barrier(
+        w["pads"], w["gens"][r], r, peers=peers,
+        copy=None if copies is None else copies[r]))
     torch.cuda.synchronize()
+    if copies is not None:
+        check_exact(f"{what}: the tail copies against their plain version",
+                    torch.cat([c[1] for c in copies]), torch.cat(want_dsts))
     return check_exact(f"{what}: a round of barriers against its plain "
                        "version", torch.cat([*w["pads"], *w["gens"]]),
                        torch.cat([*want_pads, *want_gens]))
@@ -2876,6 +3041,145 @@ def _loopback_chain(n: int, chunk: int) -> None:
           f"{wall * 1e3 / LOOPBACK_REPLAYS:.3f} ms each")
 
 
+class LoopbackMemory:
+    """The symmetric allocations of an n-rank loopback, every rank's
+    ``DistWorld.peer_memory``: the k-th ``PeerBuffers`` each rank makes
+    gets the k-th set of n zeroed allocations, one a rank, made when the
+    first rank asks and kept as long as this object."""
+
+    def __init__(self, n: int):
+        self.n, self._sets, self._asked = n, [], [0] * n
+
+    def __call__(self, rank: int, nbytes: int) -> tuple[int, list[int]]:
+        import torch
+
+        k = self._asked[rank]
+        self._asked[rank] += 1
+        if k == len(self._sets):
+            self._sets.append([torch.zeros(nbytes, dtype=torch.uint8,
+                                           device="cuda")
+                               for _ in range(self.n)])
+        ptrs = [t.data_ptr() for t in self._sets[k]]
+        return ptrs[rank], ptrs
+
+
+def _loopback_ranks(n: int) -> list:
+    """The n ranks of a loopback world, one process and one card: each a
+    DistWorld whose symmetric buffers a shared LoopbackMemory gives."""
+    import torch
+
+    from tpu_perf_torch.parallel import make_mesh
+    from tpu_perf_torch.world import DistWorld
+
+    memory = LoopbackMemory(n)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return [DistWorld(rank=r, n=n, local_rank=0, device=dev,
+                      mesh=make_mesh(n=n), peer_memory=memory)
+            for r in range(n)]
+
+
+def _loopback_steps(n: int, op: str, nbytes: int, dtype: str) -> None:
+    """``op``'s own per-rank steps (``build_op`` in a DistWorld a rank) on
+    an n-rank loopback, every rank's step on its own stream: STEP_CHAIN
+    eager steps, each rank's output its next input, then STEP_REPLAYS
+    replays of each rank's graph of one step that feeds its output back:
+    bit for bit the sim kernels' chain of steps."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.world import SimWorld
+
+    builts = [build_op(op, world, nbytes, ITERS, dtype=dtype)
+              for world in _loopback_ranks(n)]
+    sim_step, _, _ = pr.build_pallas_step(
+        op, SimWorld(n, builts[0].example_input.device), nbytes, ITERS,
+        dtype=dtype)
+    w = {"streams": [torch.cuda.Stream() for _ in range(n)]}
+    ys = [b.example_input for b in builts]
+    want = torch.stack(ys)
+    for _ in range(STEP_CHAIN):
+        outs = [None] * n
+
+        def one(r):
+            outs[r] = builts[r].step(ys[r])
+
+        _on_streams(w, one)
+        ys = outs
+        want = sim_step(want)
+    torch.cuda.synchronize()
+    what = f"loopback n={n}: {op} {dtype} at {nbytes} B"
+    check_exact(f"{what}, {STEP_CHAIN} eager steps", torch.stack(ys), want)
+    xs = [y.clone() for y in ys]
+    graphs = []
+    for r, s in enumerate(w["streams"]):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            xs[r].copy_(builts[r].step(xs[r]))
+        graphs.append(g)
+    for _ in range(STEP_REPLAYS):
+        _on_streams(w, lambda r: graphs[r].replay())
+        want = sim_step(want)
+    torch.cuda.synchronize()
+    check_exact(f"{what}, {STEP_REPLAYS} graph replays", torch.stack(xs),
+                want)
+
+
+def _loopback_kernels(n: int, dtype: str, chunk: int) -> None:
+    """Each new peer kernel at n ranks, every rank's launch on its own
+    stream, against its plain version on the same parts: the copies from
+    the ring's and the pair's source, the all-to-all over chunk r of every
+    rank's input, the bidirectional gather (chunk even) and the tiled
+    reduce-scatter (floats); then the ring and pair barriers, and the
+    all-rank one with its tail copy, two rounds each, against theirs."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    xs, _ = _rank_inputs(n, chunk, dtype)
+    w = _loopback_world(xs, chunk)
+    parts = _rank_parts(xs, chunk)
+    what = f"loopback n={n} {dtype} chunk={chunk}"
+    outs = [torch.empty_like(x) for x in xs]
+    for name, shift in (("peer_ring", 1), ("peer_exchange", n // 2),
+                        ("peer_pingpong", n // 2)):
+        _on_streams(w, lambda r: pr.peer_copy(name, xs[(r - shift) % n],
+                                              out=outs[r]))
+        torch.cuda.synchronize()
+        for r in range(n):
+            check_exact(f"{what}: rank {r} {name}", outs[r],
+                        pr.peer_copy_plain(name, xs[(r - shift) % n]))
+    _on_streams(w, lambda r: pr.peer_all_to_all(parts[r], out=outs[r]))
+    torch.cuda.synchronize()
+    for r in range(n):
+        check_exact(f"{what}: rank {r} peer_all_to_all", outs[r],
+                    pr.peer_all_to_all_plain(list(parts[r])))
+    if chunk % 2 == 0:
+        _on_streams(w, lambda r: pr.peer_all_gather_bidir(
+            parts[0], r, out=outs[r]))
+        torch.cuda.synchronize()
+        for r in range(n):
+            check_exact(f"{what}: rank {r} peer_all_gather_bidir", outs[r],
+                        pr.peer_all_gather_bidir_plain(list(parts[0]), r))
+    if dtype != "int32":
+        scale = pr.mean_scale(n, xs[0].dtype)
+        _on_streams(w, lambda r: pr.peer_reduce_scatter(
+            parts[r], r, scale=scale, tiles=n, out=outs[r]))
+        torch.cuda.synchronize()
+        for r in range(n):
+            check_exact(f"{what}: rank {r} tiled peer_reduce_scatter",
+                        outs[r], pr.peer_reduce_scatter_plain(
+                            list(parts[r]), r, scale, n))
+    for peers in ("ring", "pair", "all"):
+        w["pads"], w["gens"] = _pads(n, xs[0].device)
+        copies = ([(xs[r][:1], outs[r][:1]) for r in range(n)]
+                  if peers == "all" else None)
+        _on_streams(w, lambda r: pr.peer_barrier(
+            w["pads"], w["gens"][r], r, peers=peers,
+            copy=None if copies is None else copies[r]))
+        _check_barriers(w, 1, f"{what}: {peers} barriers", peers, copies)
+
+
 def _loopback_timing() -> list[dict]:
     """The peer kernels at 8 ranks x MAIN_BYTES, every rank's launch on its
     own stream, beside the sim kernels on the same rows: the
@@ -2924,33 +3228,40 @@ def _loopback_timing() -> list[dict]:
     sim_ag = cuda_ms(lambda: pr.direct_all_gather(red), 10)
     eager_rounds, eager_warmup = 200, 5
     barrier_ms = cuda_ms(barrier, eager_rounds, warmup=eager_warmup)
-    # the barrier's device time: each rank's graph of GRAPH_LAUNCHES chained
-    # barriers, captured on its stream, all replayed together
-    graphs = []
-    for r, s in enumerate(w["streams"]):
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, stream=s):
-            for _ in range(GRAPH_LAUNCHES):
-                pr.peer_barrier(w["pads"], w["gens"][r], r)
-        graphs.append(g)
-    replays, replay_warmup = 20, 2
-    barrier_graph_ms = cuda_ms(
-        lambda: _on_streams(w, lambda r: graphs[r].replay()), replays,
-        warmup=replay_warmup) / GRAPH_LAUNCHES
+    barrier_graph_ms = _barrier_graph_ms(w, "all")
     # every timed barrier met every rank: the pads and generations count
     # them, and one more round equals its plain version
     barrier_err = _check_barriers(
-        w, eager_warmup + eager_rounds
-        + (replay_warmup + replays) * GRAPH_LAUNCHES,
+        w, eager_warmup + eager_rounds + (2 + 20) * GRAPH_LAUNCHES,
         "loopback at 8 ranks, after the timed barriers")
     source = "tpu_perf_torch/csrc/peer_collectives.cu"
+    # the tiled reduce-scatter (pl_reduce_scatter's carry in the kernel)
+    # into each rank's whole buffer
+    full = [torch.empty_like(x) for x in xs]
+
+    def rs_tiled():
+        _on_streams(w, lambda r: pr.peer_reduce_scatter(
+            parts[r], r, scale=scale, tiles=n, out=full[r]))
+
+    rs_tiled()
+    torch.cuda.synchronize()
+    tiled_err = check_exact(
+        "loopback at 8 x 256 MiB: tiled reduce-scatter", torch.stack(full),
+        pr.direct_reduce_scatter(rows, scale=scale, tiles=n))
+    tiled = {"tiled_ms": cuda_ms(rs_tiled, 10),
+             "tiled_plain_ms": cuda_ms(lambda: _on_streams(
+                 w, lambda r: pr.peer_reduce_scatter_plain(
+                     parts[r], r, scale, n)), 3, 1),
+             "tiled_bound_ms": _bound(2 * n * n * chunk * isz,
+                                      n * n * chunk)["bound_ms"],
+             "tiled_max_abs_err": tiled_err}
     entries = [
         {"name": "peer_reduce_scatter", "route": "cuda", "source": source,
          "replaces": "tpu_perf/ops/pallas_ring.py:599", "max_abs_err": rs_err,
          "ms": cuda_ms(rs, 10), "plain_ms": cuda_ms(plain_rs, 3, 1),
          **data_bound,
          "library_ms": cuda_ms(lambda: rows.view(n, n, chunk).sum(0), 10),
-         "sim_kernel_ms": sim_rs},
+         "sim_kernel_ms": sim_rs, **tiled},
         {"name": "peer_all_gather", "route": "cuda", "source": source,
          "replaces": "tpu_perf/ops/pallas_ring.py:481", "max_abs_err": ag_err,
          "ms": cuda_ms(ag, 10), "plain_ms": cuda_ms(plain_ag, 3, 1),
@@ -2966,11 +3277,183 @@ def _loopback_timing() -> list[dict]:
          **_bound(2 * n * n * 4, 0), "library_ms": None,
          "graph_ms": barrier_graph_ms},
     ]
+    new, set_graph_ms = _loopback_timing_new(w, xs, rows, full, red, source)
+    # the barrier's other sets, from graphs: modes of its row
+    barrier_row, = (k for k in entries if k["name"] == "peer_barrier")
+    barrier_row.update(set_graph_ms)
+    entries += new
     torch.cuda.synchronize()
     for k in entries:
         k.pop("bytes")
         k.pop("ops")
     return entries
+
+
+def _barrier_graph_ms(w, peers: str, copies=None) -> float:
+    """The barrier's device time at the loopback's ranks: each rank's graph
+    of GRAPH_LAUNCHES chained barriers of set ``peers`` (with its tail
+    copy), captured on its stream, all replayed together twice to warm
+    up and 20 times timed: the time a barrier."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    graphs = []
+    for r, s in enumerate(w["streams"]):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s):
+            for _ in range(GRAPH_LAUNCHES):
+                pr.peer_barrier(w["pads"], w["gens"][r], r, peers=peers,
+                                copy=None if copies is None else copies[r])
+        graphs.append(g)
+    return cuda_ms(lambda: _on_streams(w, lambda r: graphs[r].replay()), 20,
+                   warmup=2) / GRAPH_LAUNCHES
+
+
+def _loopback_timing_new(w, xs, rows, full, red,
+                         source: str) -> tuple[list[dict], dict]:
+    """This slice's kernels at 8 ranks x MAIN_BYTES: the ring's and the
+    exchange's copies, a pingpong execution (two pair barriers and its
+    legs, as the step runs it), the all-to-all, the bidirectional gather
+    of the owned chunks, and pl_barrier's barrier with its tail copy,
+    each first held against the sim kernel's function on the same rows,
+    its max abs err on its row; returns those rows and the ring and pair
+    barriers' times from graphs."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    n, chunk, isz = w["n"], w["chunk"], 4
+    elems = n * chunk
+    half = n // 2
+    parts = _rank_parts(xs, chunk)
+    idx = torch.arange(n, device=rows.device)
+    move_bound = _bound(2 * n * elems * isz, 0)
+    stage = [torch.empty_like(x) for x in xs]
+    w["pads"], w["gens"] = _pads(n, xs[0].device)
+
+    def copies(name, shift):
+        return lambda: _on_streams(w, lambda r: pr.peer_copy(
+            name, xs[(r - shift) % n], out=full[r]))
+
+    def plain_copies(name, shift):
+        return lambda: _on_streams(w, lambda r: pr.peer_copy_plain(
+            name, xs[(r - shift) % n]))
+
+    def pingpong():
+        def one(r):
+            pr.peer_barrier(w["pads"], w["gens"][r], r, peers="pair")
+            if r >= half:
+                pr.peer_copy("peer_pingpong", xs[r - half], out=stage[r])
+                pr.peer_copy("peer_pingpong", xs[r], out=full[r])
+            pr.peer_barrier(w["pads"], w["gens"][r], r, peers="pair")
+            if r < half:
+                pr.peer_copy("peer_pingpong", stage[r + half], out=full[r])
+
+        _on_streams(w, one)
+
+    def plain_pingpong():
+        def one(r):
+            if r >= half:
+                pr.peer_copy_plain("peer_pingpong", xs[r - half], stage[r])
+                pr.peer_copy_plain("peer_pingpong", xs[r], full[r])
+
+        _on_streams(w, one)
+        _on_streams(w, lambda r: pr.peer_copy_plain(
+            "peer_pingpong", stage[r + half], full[r]) if r < half else None)
+
+    entries = []
+    for name, replaces, shift in (("peer_ring", 345, 1),
+                                  ("peer_exchange", 365, half)):
+        copies(name, shift)()
+        torch.cuda.synchronize()
+        want = rows[(idx - shift) % n]
+        err = check_exact(f"loopback at 8 x 256 MiB: {name}",
+                          torch.stack(full), want)
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"tpu_perf/ops/pallas_ring.py:{replaces}",
+            "max_abs_err": err, "ms": cuda_ms(copies(name, shift), 10),
+            "plain_ms": cuda_ms(plain_copies(name, shift), 3, 1),
+            **move_bound,
+            "library_ms": cuda_ms(lambda: rows[(idx - shift) % n], 10),
+            "sim_kernel_ms": cuda_ms(
+                (lambda: pr.ring_shift(rows)) if name == "peer_ring"
+                else (lambda: pr.pair_exchange(rows)), 10)})
+    pingpong()
+    torch.cuda.synchronize()
+    pp_err = check_exact("loopback at 8 x 256 MiB: a pingpong execution",
+                         torch.stack(full), rows)
+    entries.append({
+        "name": "peer_pingpong", "route": "cuda", "source": source,
+        "replaces": "tpu_perf/ops/pallas_ring.py:385", "max_abs_err": pp_err,
+        "ms": cuda_ms(pingpong, 10), "plain_ms": cuda_ms(plain_pingpong, 3, 1),
+        **move_bound, "library_ms": cuda_ms(rows.clone, 10),
+        # the legs' schedule: three copies of half the ranks' buffers
+        "schedule_bound_ms": _bound(3 * half * 2 * elems * isz, 0)["bound_ms"],
+        "sim_kernel_ms": cuda_ms(lambda: pr.pingpong(rows), 10)})
+
+    def a2a():
+        _on_streams(w, lambda r: pr.peer_all_to_all(parts[r], out=full[r]))
+
+    a2a()
+    torch.cuda.synchronize()
+    a2a_err = check_exact("loopback at 8 x 256 MiB: peer_all_to_all",
+                          torch.stack(full), pr.all_to_all(rows))
+    entries.append({
+        "name": "peer_all_to_all", "route": "cuda", "source": source,
+        "replaces": "tpu_perf/ops/pallas_ring.py:291", "max_abs_err": a2a_err,
+        "ms": cuda_ms(a2a, 10), "plain_ms": cuda_ms(lambda: _on_streams(
+            w, lambda r: pr.peer_all_to_all_plain(parts[r])), 3, 1),
+        **move_bound,
+        "library_ms": cuda_ms(lambda: rows.view(n, n, chunk).transpose(
+            0, 1).contiguous(), 10),
+        "sim_kernel_ms": cuda_ms(lambda: pr.all_to_all(rows), 10)})
+    mids = pr.PeerParts(red[r].clone() for r in range(n))
+
+    def bidir():
+        _on_streams(w, lambda r: pr.peer_all_gather_bidir(mids, r,
+                                                          out=full[r]))
+
+    bidir()
+    torch.cuda.synchronize()
+    bidir_err = check_exact("loopback at 8 x 256 MiB: peer_all_gather_bidir",
+                            torch.stack(full), pr.direct_all_gather(red))
+    entries.append({
+        "name": "peer_all_gather_bidir", "route": "cuda", "source": source,
+        "replaces": "tpu_perf/ops/pallas_ring.py:430",
+        "max_abs_err": bidir_err, "ms": cuda_ms(bidir, 10),
+        "plain_ms": cuda_ms(lambda: _on_streams(
+            w, lambda r: pr.peer_all_gather_bidir_plain(list(mids), r)), 3, 1),
+        **_bound((n * chunk + n * n * chunk) * isz, 0),
+        "library_ms": cuda_ms(
+            lambda: red.reshape(1, -1).expand(n, -1).contiguous(), 10),
+        "sim_kernel_ms": cuda_ms(
+            lambda: pr.direct_all_gather_bidir(red), 10)})
+    # the barriers from graphs: ring and pair sets, and pl_barrier's
+    graph_ms, errs = {}, {}
+    ones = [(xs[r][:1], full[r][:1]) for r in range(n)]
+    for peers, tail in (("ring", None), ("pair", None), ("all", ones)):
+        w["pads"], w["gens"] = _pads(n, xs[0].device)
+        graph_ms[peers] = _barrier_graph_ms(w, peers, tail)
+        errs[peers] = _check_barriers(
+            w, (2 + 20) * GRAPH_LAUNCHES,
+            f"loopback at 8 ranks: {peers} barriers", peers, tail)
+    w["pads"], w["gens"] = _pads(n, xs[0].device)
+    copy_eager = cuda_ms(lambda: _on_streams(w, lambda r: pr.peer_barrier(
+        w["pads"], w["gens"][r], r, copy=ones[r])), 200, warmup=5)
+    entries.append({
+        "name": "peer_barrier_copy", "route": "cuda", "source": source,
+        "replaces": "tpu_perf/ops/pallas_ring.py:329",
+        "max_abs_err": errs["all"],
+        "ms": copy_eager, "plain_ms": cuda_ms(
+            lambda: [pr.peer_barrier_plain(w["pads"], w["gens"][r], r,
+                                           copy=ones[r]) for r in range(n)],
+            20),
+        **_bound(2 * n * n * 4 + 2 * n * isz, 0), "library_ms": None,
+        "graph_ms": graph_ms["all"]})
+    return entries, {"ring_graph_ms": graph_ms["ring"],
+                     "pair_graph_ms": graph_ms["pair"]}
 
 
 def loopback() -> None:
@@ -3001,17 +3484,61 @@ def loopback() -> None:
           "pads and generations at 2, a third round of barriers its plain "
           f"version's ({time.perf_counter() - t0:.1f} s; "
           f"the card holds {cap} waiting barriers)")
+    t0 = time.perf_counter()
+    cases = 0
+    for n in LOOPBACK_RANKS:
+        for dtype in ("float32", "bfloat16", "int32"):
+            # even chunks (16-byte units and a tail), and an odd one
+            for chunk in (1 << 16, (1 << 16) + 6, (1 << 16) + 3):
+                _loopback_kernels(n, dtype, chunk)
+                cases += 1
+    print(f"{cases} cases at n = {LOOPBACK_RANKS}, float32, bfloat16 and "
+          "int32, even and odd chunks: the copies, the all-to-all, the "
+          "bidirectional gather, the tiled reduce-scatter and the ring, "
+          "pair and all-rank barriers (with pl_barrier's tail copy) equal "
+          f"their plain versions bit for bit ({time.perf_counter() - t0:.1f}"
+          " s)")
     for n in LOOPBACK_RANKS:
         _loopback_chain(n, (1 << 16) + 5)
+    t0 = time.perf_counter()
+    cases = 0
+    for n in LOOPBACK_RANKS:
+        for op in PEER_OPS:
+            dtypes = ["float32"]
+            if n == 4:
+                dtypes += ["bfloat16"] if op in ("pl_allreduce",
+                                                 "pl_reduce_scatter") else [
+                    "bfloat16", "int32"]
+            for dtype in dtypes:
+                for nbytes in STEP_BYTES:
+                    if op in ("pl_exchange", "pl_pingpong") and n % 2:
+                        continue
+                    _loopback_steps(n, op, nbytes, dtype)
+                    cases += 1
+    print(f"{cases} cases of every peer op's own steps at n = "
+          f"{LOOPBACK_RANKS} and {STEP_BYTES} B a rank, float32 (and at n = "
+          f"4 bfloat16 and int32): {STEP_CHAIN} eager steps and "
+          f"{STEP_REPLAYS} replays of each rank's graph of a step equal the "
+          f"sim kernels' chain bit for bit ({time.perf_counter() - t0:.1f} s)")
     entries = _loopback_timing()
     for k in entries:
         print(f"{k['name']} at 8 x 256 MiB, 8 streams: {k['ms']:.4f} ms "
               f"(sim kernel {k.get('sim_kernel_ms', float('nan')):.4f}), "
-              f"plain {k['plain_ms']:.4f}, bound {k['bound_ms']:.4f} ms "
+              f"plain {k['plain_ms']:.4f}, bound {k['bound_ms']:.4f} ms, "
+              f"library {k['library_ms'] or float('nan'):.4f} ms "
               f"({card_line()})")
-    print(f"peer_barrier: 8 ranks from graphs of {GRAPH_LAUNCHES} chained "
-          f"barriers a rank: {entries[-1]['graph_ms'] * 1e3:.3f} us a "
-          "barrier (the eager time above is host launches)")
+        for extra in ("graph_ms", "ring_graph_ms", "pair_graph_ms"):
+            if extra in k:
+                print(f"{k['name']}: {extra} {k[extra] * 1e3:.3f} us a "
+                      "barrier, 8 ranks from graphs of "
+                      f"{GRAPH_LAUNCHES} chained barriers a rank")
+        if "tiled_ms" in k:
+            print(f"{k['name']} tiled (pl_reduce_scatter): "
+                  f"{k['tiled_ms']:.4f} ms, plain {k['tiled_plain_ms']:.4f},"
+                  f" bound {k['tiled_bound_ms']:.4f} ms")
+        if "schedule_bound_ms" in k:
+            print(f"{k['name']}: the legs' schedule bound "
+                  f"{k['schedule_bound_ms']:.4f} ms")
     print("LOOPBACK_KERNELS " + json.dumps(entries))
 
 
@@ -3132,7 +3659,8 @@ def main() -> int:
         print(f"kernel @256MiB/rank: {k['name']} (8 ranks, one stream "
               f"each, loopback): {k['ms']:.4f} ms, "
               f"{k['launches_per_execution']:g} launches an execution "
-              f"({k['launches']} on the NCCL world of one's path), bound "
+              f"({k['launches']} on the main path: the world of one's "
+              f"runs and the IPC worlds' steps), bound "
               f"{k['bound_ms']:.4f} ms; the sim kernel "
               f"{k.get('sim_kernel_ms', float('nan')):.4f} ms")
     print(f"total: {time.perf_counter() - t_start:.1f} s (phases {phase_s}), "

@@ -142,7 +142,11 @@ def test_build_module_names_every_cuda_source_and_its_c_entry():
                  "direct_all_gather_bidir": "all_gather",
                  "peer_reduce_scatter": "peer_collectives",
                  "peer_all_gather": "peer_collectives",
-                 "peer_barrier": "peer_collectives"}
+                 "peer_barrier": "peer_collectives",
+                 **dict.fromkeys(
+                     ("peer_ring", "peer_exchange", "peer_pingpong",
+                      "peer_all_to_all", "peer_all_gather_bidir",
+                      "peer_barrier_copy"), "peer_collectives")}
     cuda_kernels = set(kernels.KERNELS) - {"stream"}
     assert ({source_of.get(k, k) for k in cuda_kernels}
             == set(_build._ENTRIES))

@@ -7,8 +7,8 @@ names, rank order and error messages exactly.  ``hier_allreduce`` sums in
 another order than XLA's: float32 rtol 1e-6, bfloat16 rtol 8e-3, as
 ``tests/test_torch_collectives.py`` holds the sums.  The peer kernels'
 plain reduce-scatter is held bit for bit to the sim world's
-(``direct_reduce_scatter_plain``) in float32: both sum in the ring's
-order.
+(``direct_reduce_scatter_plain``), unscaled, scaled and tiled: both sum
+in the ring's order; the byte movers are held exactly.
 """
 
 import argparse
@@ -253,6 +253,117 @@ def test_peer_parts_carry_a_table_on_the_card_only():
             tpr._table_ptr("peer_all_gather", given)
 
 
+@pytest.mark.parametrize("name", tpr.PEER_COPIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_peer_copy_plain_copies_and_counts_its_op(name, dtype):
+    kernels.reset_counts()
+    src = torch.arange(11).to(dtype)
+    got = tpr.peer_copy(name, src)
+    assert torch.equal(got, src) and got.data_ptr() != src.data_ptr()
+    out = torch.empty_like(src)
+    assert tpr.peer_copy(name, src, out=out) is out
+    assert torch.equal(out, src)
+    assert kernels.PLAIN_CALLS[name] == 2
+    assert tpr.peer_copy_plain(name, src).tolist() == src.tolist()
+    assert not any(kernels.LAUNCHES.values())
+    with pytest.raises(ValueError, match="peer_copy counts one of"):
+        tpr.peer_copy("peer_gather", src)
+
+
+@pytest.mark.parametrize("peers,n", [("all", 1), ("all", 5), ("ring", 1),
+                                     ("ring", 2), ("ring", 5), ("pair", 2),
+                                     ("pair", 6)])
+def test_peer_barrier_signals_only_its_set(peers, n):
+    # one round: slot r of pad s is set exactly when s is in r's set, and
+    # each set is symmetric, so every rank's waited-on slots are all set
+    pads = [torch.zeros(n, dtype=torch.int32) for _ in range(n)]
+    gens = [torch.zeros(1, dtype=torch.int32) for _ in range(n)]
+    for r in range(n):
+        tpr.peer_barrier(pads, gens[r], r, peers=peers)
+    for r in range(n):
+        members = set(tpr.barrier_set(peers, n, r))
+        for s in range(n):
+            assert int(pads[s][r]) == (1 if s in members else 0)
+            assert (r in set(tpr.barrier_set(peers, n, s))) == (s in members)
+        assert all(int(pads[r][s]) == 1 for s in members)
+    if n > 2:
+        assert tpr.barrier_set(peers, n, 2) == {
+            "all": list(range(n)), "ring": [1, 3 % n],
+            "pair": [(2 + n // 2) % n]}[peers]
+
+
+def test_peer_barrier_refuses_a_pair_of_odd_ranks_and_unknown_sets():
+    pads = [torch.zeros(3, dtype=torch.int32) for _ in range(3)]
+    gen = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="even rank count"):
+        tpr.peer_barrier(pads, gen, 0, peers="pair")
+    with pytest.raises(ValueError, match="known"):
+        tpr.peer_barrier(pads, gen, 0, peers="star")
+    assert int(gen) == 0
+
+
+def test_peer_barrier_tail_copy_is_counted_apart():
+    kernels.reset_counts()
+    pads = [torch.zeros(2, dtype=torch.int32) for _ in range(2)]
+    gen = torch.zeros(1, dtype=torch.int32)
+    src, dst = torch.tensor([7.5]), torch.zeros(1)
+    tpr.peer_barrier(pads, gen, 1, copy=(src, dst))
+    assert float(dst) == 7.5 and int(gen) == 1
+    assert [int(p[1]) for p in pads] == [1, 1]
+    assert kernels.PLAIN_CALLS["peer_barrier_copy"] == 1
+    assert kernels.PLAIN_CALLS["peer_barrier"] == 0
+    with pytest.raises(ValueError, match="src and dst differ"):
+        tpr.peer_barrier(pads, gen, 1, copy=(src, torch.zeros(2)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_bidir_order_takes_each_half_once_in_both_directions(n):
+    for rank in range(n):
+        order = tpr.bidir_order(n, rank)
+        assert sorted((h, s) for _, h, s in order) == [
+            (h, s) for h in (0, 1) for s in range(n)]
+        assert [s for _, h, s in order if h == 0] == [
+            (rank - k) % n for k in range(n)]
+        assert [s for _, h, s in order if h == 1] == [
+            (rank + k) % n for k in range(n)]
+        parts = [torch.arange(6, dtype=torch.int32) + 10 * s
+                 for s in range(n)]
+        got = tpr.peer_all_gather_bidir(parts, rank)
+        assert torch.equal(got, torch.cat(parts))
+    with pytest.raises(ValueError, match="in half"):
+        tpr.peer_all_gather_bidir([torch.ones(3)] * n, 0)
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_peer_reduce_scatter_tiles_is_the_sim_tiled_plain(n, dtype):
+    chunk = 5
+    rng = np.random.default_rng(n + 10)
+    x = torch.from_numpy(rng.standard_normal((n, n * chunk)) * 1e4).to(dtype)
+    scale = tpr.mean_scale(n, dtype)
+    got = torch.stack([tpr.peer_reduce_scatter(
+        [x[s].view(n, chunk)[r] for s in range(n)], r, scale=scale, tiles=n)
+        for r in range(n)])
+    assert torch.equal(got, tpr.direct_reduce_scatter_plain(x, scale, n))
+    assert torch.equal(got.view(n, n, chunk)[:, 0],
+                       tpr.direct_reduce_scatter_plain(x, scale))
+    with pytest.raises(ValueError, match="tiles 0"):
+        tpr.peer_reduce_scatter([x[0]], 0, tiles=0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_peer_all_to_all_plain_is_the_sim_all_to_all(n):
+    chunk = 3
+    x = torch.arange(n * n * chunk, dtype=torch.int32).view(n, n * chunk)
+    xs = [x[s].clone() for s in range(n)]  # separate buffers, one a rank
+    kernels.reset_counts()
+    got = torch.stack([tpr.peer_all_to_all(
+        [b.view(n, chunk)[r] for b in xs]) for r in range(n)])
+    assert torch.equal(got, tpr.all_to_all_plain(x))
+    assert kernels.PLAIN_CALLS["peer_all_to_all"] == n
+
+
 # --- the flags ---------------------------------------------------------------
 
 
@@ -304,3 +415,124 @@ def test_distributed_with_no_cluster_stays_single_process(monkeypatch,
                      "--device", "cpu"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert ",torch,allreduce,64,10,1,1," in out[1]
+
+
+# --- the card-side peer steps, their protocol run in threads ----------------
+
+
+class _CpuPeerBuffers:
+    """PeerBuffers on shared CPU regions: the k-th buffers each rank makes
+    are views of the k-th set of n regions (``world.peer_memory``)."""
+
+    def __init__(self, world, layout):
+        n, rank = world.n, world.rank
+        shapes = [*layout.values(), (n, torch.int32)]
+        offsets, total = [], 0
+        for numel, dtype in shapes:
+            offsets.append(total)
+            total += -(-numel * dtype.itemsize // 256) * 256
+        regions = world.peer_memory(rank, total)
+
+        def parts(k):
+            lo, (numel, dtype) = offsets[k], shapes[k]
+            return [region[lo:lo + numel * dtype.itemsize].view(dtype)
+                    for region in regions]
+
+        self._parts = {name: parts(k) for k, name in enumerate(layout)}
+        self.pads = tpr.PeerParts(parts(len(layout)))
+        self.generation = torch.zeros(1, dtype=torch.int32)
+
+    def __getitem__(self, name):
+        return self._parts[name]
+
+
+class _CpuRegions:
+    def __init__(self, n):
+        self.n, self.sets, self.asked = n, [], [0] * n
+
+    def __call__(self, rank, nbytes):
+        k = self.asked[rank]
+        self.asked[rank] += 1
+        if k == len(self.sets):
+            self.sets.append([torch.zeros(nbytes, dtype=torch.uint8)
+                              for _ in range(self.n)])
+        return self.sets[k]
+
+
+def _threaded_barrier(cond):
+    """peer_barrier's protocol on CPU pads: signal the set's pads, then wait
+    (under ``cond``) until each member has signalled this rank's."""
+    def barrier(pads, generation, rank, *, peers="all", copy=None):
+        members = tpr.barrier_set(peers, len(pads), rank)
+        with cond:
+            generation += 1
+            gen = int(generation)
+            for s in members:
+                pads[s][rank] = gen
+            cond.notify_all()
+            assert cond.wait_for(lambda: all(
+                int(pads[rank][s]) >= gen for s in members), timeout=30), \
+                f"rank {rank} waits at {peers} barrier {gen}"
+        if copy is not None:
+            copy[1].copy_(copy[0])
+
+    return barrier
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("op", ["pl_allreduce", "pl_reduce_scatter",
+                                "pl_ring", "pl_exchange", "pl_pingpong",
+                                "pl_barrier", "pl_all_to_all",
+                                "pl_all_gather", "pl_all_gather_bidir"])
+def test_card_steps_match_the_sim_chain_with_ranks_in_threads(op, n,
+                                                              monkeypatch):
+    # the card-side steps on CPU tensors, one thread a rank, each running
+    # three chained steps with random pauses around every data launch:
+    # the barriers alone order the ranks, so a missing one shows as a
+    # mismatch with the sim world's chain (exactly, float32)
+    import random
+    import threading
+    import time
+
+    from tpu_perf_torch.ops.collectives import example_input
+    from tpu_perf_torch.world import DistWorld
+
+    random.seed(n)
+    monkeypatch.setattr(tpr, "_gloo_path", lambda world: False)
+    monkeypatch.setattr(tpr, "PeerBuffers", _CpuPeerBuffers)
+    monkeypatch.setattr(tpr, "peer_barrier",
+                        _threaded_barrier(threading.Condition()))
+    for name in ("peer_copy", "peer_all_to_all", "peer_all_gather",
+                 "peer_all_gather_bidir", "peer_reduce_scatter"):
+        def paused(*a, _fn=getattr(tpr, name), **k):
+            time.sleep(random.random() * 2e-3)
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(tpr, name, paused)
+    regions = _CpuRegions(n)
+    worlds = [DistWorld(rank=r, n=n, local_rank=0, device=CPU,
+                        mesh=make_mesh(n=n), peer_memory=regions)
+              for r in range(n)]
+    steps = [tpr.build_pallas_step(op, w, 4108, 3)[0] for w in worlds]
+    sim_step, elems, _ = tpr.build_pallas_step(op, SimWorld(n, CPU), 4108, 3)
+    rows = example_input(SimWorld(n, CPU), elems, "float32")
+    ys, errors = [rows[r].clone() for r in range(n)], []
+
+    def rank(r):
+        try:
+            for _ in range(3):
+                ys[r] = steps[r](ys[r])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads), "a rank never ended"
+    assert not errors, errors
+    want = rows
+    for _ in range(3):
+        want = sim_step(want)
+    assert torch.equal(torch.stack(ys), want)

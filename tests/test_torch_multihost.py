@@ -11,14 +11,17 @@ the JAX global layout and compares them with the JAX op on a mesh of the
 same size.  A worker that fails or outlives its timeout fails the test,
 and every worker is killed when the test ends.
 
+Every ``pl_*`` op runs across the ranks as its peer form's plain
+versions on what gloo brings (the Pallas interpreter on the JAX side).
+
 Tolerances, as in ``tests/test_torch_collectives.py``: exact for every
 op that only moves bytes, every dtype; float32 rtol 1e-6 and bfloat16
 rtol 8e-3 for the sums (``allreduce``, ``barrier``, ``reduce_scatter``,
-``hier_allreduce``, ``pl_allreduce``), which gloo orders differently
-from XLA (``pl_allreduce``'s plain versions sum in the ring's order, as
-the Pallas kernel does); ``hbm_stream`` float32 rtol 1e-6, since XLA may
-fuse its multiply-add into one rounding (as ``tests/test_torch_slice.py``
-holds it).
+``hier_allreduce``, ``pl_allreduce``, ``pl_reduce_scatter``), which gloo
+orders differently from XLA (the ``pl_*`` sums' plain versions add in the
+ring's order, as the Pallas kernels do); ``hbm_stream`` and
+``pl_hbm_stream`` float32 rtol 1e-6, since XLA may fuse their multiply-add
+into one rounding (as ``tests/test_torch_slice.py`` holds it).
 """
 
 import json
@@ -47,10 +50,19 @@ MOVE_OPS = ["all_gather", "all_to_all", "broadcast", "broadcast_psum",
             "ring", "halo", "exchange", "ppermute", "pingpong",
             "pingpong_unidir"]
 SUM_OPS = ["allreduce", "barrier", "reduce_scatter", "pl_allreduce"]
-CASES = ([(op, dt) for op in MOVE_OPS for dt in ("float32", "bfloat16",
-                                                   "int32")]
-         + [(op, dt) for op in SUM_OPS for dt in ("float32", "bfloat16")]
-         + [("hbm_stream", "float32")])
+#: the pl_* ops across ranks: the byte movers in every dtype, the
+#: reduce-scatter in the floats, the stream in float32
+PL_MOVE_OPS = ["pl_ring", "pl_exchange", "pl_pingpong", "pl_all_to_all",
+               "pl_all_gather", "pl_all_gather_bidir", "pl_barrier",
+               "pl_hbm_copy", "pl_hbm_read", "pl_hbm_write"]
+PL_SUM_OPS = ["pl_reduce_scatter"]
+CASES = ([(op, dt) for op in MOVE_OPS + PL_MOVE_OPS
+          for dt in ("float32", "bfloat16", "int32")]
+         + [(op, dt) for op in SUM_OPS + PL_SUM_OPS
+            for dt in ("float32", "bfloat16")]
+         + [("hbm_stream", "float32"), ("pl_hbm_stream", "float32")])
+#: what a world of two still refuses across its ranks
+REFUSED = ("overlap_ring", "float32")
 #: a world's wall-clock limit
 WORKER_TIMEOUT_S = 90
 
@@ -165,8 +177,7 @@ def _world(n: int, tmp: Path, cases, *, hybrid_per_node: int | None = None):
 
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
-    return _world(2, tmp_path_factory.mktemp("world2"),
-                  CASES + [("pl_ring", "float32")])
+    return _world(2, tmp_path_factory.mktemp("world2"), CASES + [REFUSED])
 
 
 @pytest.fixture(scope="module")
@@ -193,8 +204,8 @@ def _check(ranks, key, op, dtype, **mesh):
     np.testing.assert_array_equal(
         np.concatenate([a[key + "|x"] for a, _ in ranks]), x)
     got = np.concatenate([a[key] for a, _ in ranks])
-    rtol = RTOL[dtype] if op in (*SUM_OPS, "hier_allreduce",
-                                 "hbm_stream") else 0
+    rtol = RTOL[dtype] if op in (*SUM_OPS, *PL_SUM_OPS, "hier_allreduce",
+                                 "hbm_stream", "pl_hbm_stream") else 0
     np.testing.assert_allclose(got, want, rtol=rtol, atol=0)
 
 
@@ -218,10 +229,14 @@ def test_hier_allreduce_on_a_hybrid_2x2_world_matches_jax(world4, dtype,
 
 
 def test_other_pallas_ops_across_ranks_are_not_yet_ported(world2):
+    # every pl_* op runs across ranks (the cases above); what is still
+    # refused, overlap_ring, says so
+    key = "/".join(REFUSED)
     for _, info in world2:
-        assert info["errors"]["pl_ring/float32"].startswith(
-            "NotImplementedError") and "not yet ported" in \
-            info["errors"]["pl_ring/float32"]
+        assert info["errors"][key].startswith("NotImplementedError") and \
+            "not yet ported" in info["errors"][key]
+        assert not any("not yet ported" in e for k, e in
+                       info["errors"].items() if k.startswith("pl_"))
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -271,7 +286,9 @@ def test_a_world_of_one_does_what_jax_does_on_one_device(world1, op,
     key = f"{op}/float32"
     if op == "pl_allreduce":
         # the peer kernels run at any world size (the JAX Pallas op asks
-        # for two devices): the mean over one rank is the input
+        # for two devices): the mean over one rank is the input; every
+        # other pl_* op runs its peer form where JAX accepts one device
+        # and refuses it in JAX's words where JAX does
         np.testing.assert_array_equal(arrays[key], arrays[key + "|x"])
         return
     try:

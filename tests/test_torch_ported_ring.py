@@ -358,6 +358,13 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     tpr.peer_all_gather([tpr.peer_reduce_scatter(parts, 0)] * 4)
     tpr.peer_barrier([torch.zeros(4, dtype=torch.int32)] * 4,
                      torch.zeros(1, dtype=torch.int32), 0)
+    for name in tpr.PEER_COPIES:
+        tpr.peer_copy(name, parts[0])
+    tpr.peer_all_to_all(parts)
+    tpr.peer_all_gather_bidir(parts, 1)
+    tpr.peer_barrier([torch.zeros(4, dtype=torch.int32)] * 4,
+                     torch.zeros(1, dtype=torch.int32), 0, peers="ring",
+                     copy=(parts[0], torch.empty(2)))
     assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0)
     assert kernels.PLAIN_CALLS == dict.fromkeys(kernels.KERNELS, 1)
 

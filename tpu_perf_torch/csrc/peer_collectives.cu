@@ -1,52 +1,71 @@
-// Peer collectives of a multi-rank world: the reduce-scatter and the
-// all-gather of pl_allreduce and the barrier between them, each launch one
-// rank's, reading its peers' buffers through a table of device pointers and
-// meeting them on signal pads.
+// Peer collectives of a multi-rank world: every pl_* op that reads another
+// rank's memory, one launch a rank, reading its peers' buffers through a
+// table of device pointers (or one pointer) and meeting them on signal pads.
 //
 // Replaces, for a world of ranks on their own cards:
-//   tpu_perf/ops/pallas_ring.py `_reduce_scatter_kernel` (with `_acc_add`)
-//     -> peer_reduce;
-//   `_all_gather_kernel` (`src_full`, the all-reduce's second phase)
-//     -> peer_gather;
-//   the barrier semaphores `_ring_barrier` / `_global_barrier` that both
-//   start with -> peer_barrier_kernel.
-// The sim world's kernels (reduce_scatter.cu, all_gather.cu) do every rank
-// of one card in one launch; here each rank launches its own, on its own
-// card (or, in the one-card loopback that proves the protocol, on its own
-// stream), and a rank's buffers are never assumed to sit next to another's:
-// every kernel takes a table of the n pointers, never a row stride.
+//   tpu_perf/ops/pallas_ring.py `_reduce_scatter_kernel` (with `_acc_add`,
+//     and pl_reduce_scatter's tiled carry) -> peer_reduce;
+//   `_all_gather_kernel` (pl_all_gather, and `src_full`, the all-reduce's
+//     second phase) and `_all_to_all_direct_kernel` -> peer_gather;
+//   `_all_gather_bidir_kernel` -> peer_gather in its half-chunk mode;
+//   `_ring_kernel`, `_exchange_kernel` and the two legs of
+//     `_pingpong_kernel` -> peer_copy_kernel;
+//   the barrier semaphores `_ring_barrier`, `_pair_barrier` and
+//     `_global_barrier`, and `_barrier_kernel` (the global barrier and its
+//     tiny local copy) -> peer_barrier_kernel.
+// The sim world's kernels (reduce_scatter.cu, all_gather.cu, p2p_shift.cu,
+// ...) do every rank of one card in one launch; here each rank launches its
+// own, on its own card (or, in the one-card loopback that proves the
+// protocol, on its own stream), and a rank's buffers are never assumed to
+// sit next to another's: every kernel takes pointers, never a row stride.
 //
 // What they compute (rank d of n; `parts[s]` is the s-th pointer of the
 // table the kernel gets):
 //   peer_reduce:  out = ((parts[d+1] + parts[d+2]) + ...) + parts[d+n]
 //                 (ranks mod n; parts[s] is rank s's chunk d), rounded to
 //                 the working type after every add, then times `scale`
-//                 rounded once more.  That is the order of reduce_scatter.cu
-//                 and of the TPU ring (each rank adds its own chunk to the
-//                 partial that arrives), so a float32 sum is bit-identical
-//                 to the sim kernel's and to JAX's.
+//                 rounded once more, stored `tiles` times along out.  That
+//                 is the order of reduce_scatter.cu and of the TPU ring
+//                 (each rank adds its own chunk to the partial that
+//                 arrives), so a float32 sum is bit-identical to the sim
+//                 kernel's and to JAX's.
 //   peer_gather:  out[s*chunk : (s+1)*chunk] = parts[s][0 : chunk] for
-//                 every rank s: the rank pulls every peer's owned chunk
-//                 into its own output, so every write stays on its card.
-//   peer_barrier: the rank signals slot d of every peer's pad (its own
-//                 included) with its barrier generation and waits until
-//                 every slot of its own pad holds that generation.
+//                 every rank s: the rank pulls every peer's part into its
+//                 own output, so every write stays on its card.  In the
+//                 half-chunk mode ring step k pulls the first half of rank
+//                 d-k's part (clockwise) and the second half of rank d+k's
+//                 (counter-clockwise); the output is the same.
+//   peer_copy:    dst = src, one peer's buffer (or the rank's own) pulled
+//                 into the rank's own.
+//   peer_barrier: the rank signals slot d of the pad of every rank of its
+//                 set with its barrier generation and waits until the
+//                 slot of each of them in its own pad holds it; then,
+//                 optionally, copies a few local bytes.  The sets, after
+//                 the TPU kernels' three barriers: all ranks (its own
+//                 included), the ring neighbours {d-1, d+1}, the pair
+//                 partner {d+n/2}.  Each set is symmetric: s is in d's set
+//                 exactly when d is in s's.
 //
 // Memory order.  Peers sit on other cards, so the signal is a release and
 // the wait an acquire at system scope (st.release.sys / ld.acquire.sys,
 // after a __threadfence_system()); gpu scope would pass on one card and be
 // wrong across two.  A rank's earlier kernels are done when its barrier
 // starts (stream order), so what they wrote is visible to a peer that has
-// seen the signal.
+// seen the signal, and what they read is read.
 //
 // Generations, and graph replay.  A CUDA graph freezes its kernels'
 // arguments, so no host-side epoch can tell one replay's barrier from the
 // next.  Each rank keeps its barrier count in a word of device memory that
 // only its own barrier launches touch (in stream order): a launch bumps it
 // and signals the new value, and a slot counts as arrived when it holds at
-// least that value (compared mod 2^32).  A peer is never more than one
-// barrier ahead (it cannot pass barrier k+1 before this rank signals it),
-// so a slot never skips a value a waiter needs.  The pads start at zero.
+// least that value (compared mod 2^32).  Slot s of a pad is written by
+// rank s alone, and only grows.  Every rank runs the same sequence of
+// barriers (an op's steps use one set throughout), so at its k-th barrier
+// rank d waits for the k-th of each rank s of its set, and s, which has d
+// in its own set, cannot pass that barrier before d signals it: a
+// waited-on peer is never more than one generation ahead, and a slot
+// never skips a value a waiter needs.  A rank outside d's set may run
+// further ahead; d never reads its slot.  The pads start at zero.
 //
 // Hangs.  A wait that passes kTimeoutNs of the device's global timer calls
 // __trap(), which aborts the launch with an error the next synchronize
@@ -55,15 +74,15 @@
 // resident together as long as n CTAs fit (peer_barrier_capacity), and the
 // data kernels never wait on anything.
 //
-// Bounds on an H100 (80 GB HBM3 at 3.35 TB/s): the two data kernels are
+// Bounds on an H100 (80 GB HBM3 at 3.35 TB/s): the data kernels are
 // memory-bound, the barrier latency-bound.  Across cards each rank reads
-// its n chunks (peer_reduce) or n owned chunks (peer_gather) over NVLink
-// (450 GB/s each way) and writes its own output; in the loopback the n
-// launches share one card's memory and move the sim kernels' bytes in all.
-// The design is the sim kernels' first one: one thread a 16-byte unit,
-// the loads of up to kGroup peers issued before their adds, a grid-stride
-// loop sized to the SMs; ragged or misaligned chunks go one element (or
-// word) a thread.
+// its n chunks (peer_reduce), n parts (peer_gather) or one buffer
+// (peer_copy) over NVLink (450 GB/s each way) and writes its own output;
+// in the loopback the n launches share one card's memory and move the sim
+// kernels' bytes in all.  The design is the sim kernels' first one: one
+// thread a 16-byte unit, the loads of up to kGroup peers issued before
+// their adds, a grid-stride loop sized to the SMs; ragged or misaligned
+// chunks go one element (or word) a thread.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -98,13 +117,13 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
 }
 
-// Sum in ring order: unit u of out is the sum over k = 0..n-1 of unit u of
-// parts[(rank + 1 + k) % n], times scale.  The table is staged in shared
-// memory in that order once a block.
+// Sum in ring order: unit u of out (and of each of its `tiles` copies) is
+// the sum over k = 0..n-1 of unit u of parts[(rank + 1 + k) % n], times
+// scale.  The table is staged in shared memory in that order once a block.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 peer_reduce(const T* const* __restrict__ parts, T* __restrict__ out, int n,
-            int rank, long long chunk, float scale) {
+            int rank, long long chunk, float scale, int tiles) {
   using P = Pack<T, V>;
   __shared__ const T* src[kMaxRanks];
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
@@ -139,19 +158,38 @@ peer_reduce(const T* const* __restrict__ parts, T* __restrict__ out, int n,
     for (int e = 0; e < V; ++e) {
       acc.v[e] = from_f32<T>(__fmul_rn(to_f32(acc.v[e]), scale));
     }
-    *reinterpret_cast<P*>(out + u * V) = acc;
+    for (int t = 0; t < tiles; ++t) {
+      *reinterpret_cast<P*>(out + t * chunk + u * V) = acc;
+    }
   }
 }
 
-// Row s of the grid pulls rank s's chunk (`words` words of W) into
-// out[s * words ...].
+// Each part is `words` words of W.  halves == 1: row s of the grid pulls
+// rank s's part into out[s * words ...].  halves == 2: grid row k, layer h
+// is ring step k of direction h, which pulls half h of rank (rank - k) mod
+// n's part (h = 0, clockwise) or of rank (rank + k) mod n's (h = 1,
+// counter-clockwise) into that rank's place in out.
 template <typename W>
 __global__ void __launch_bounds__(kThreads)
 peer_gather(const W* const* __restrict__ parts, W* __restrict__ out,
-            long long words) {
-  const int s = blockIdx.y;
-  const W* __restrict__ src = parts[s];
-  W* __restrict__ dst = out + (long long)s * words;
+            long long words, int n, int rank, int halves) {
+  const int k = blockIdx.y, h = blockIdx.z;
+  const int s = halves == 1 ? k : (h == 0 ? (rank - k + n) % n : (rank + k) % n);
+  const long long len = words / halves;
+  const W* __restrict__ src = parts[s] + h * len;
+  W* __restrict__ dst = out + (long long)s * words + h * len;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < len; i += stride) {
+    dst[i] = src[i];
+  }
+}
+
+// dst = src, `words` words of W; src may be a peer's buffer.
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+peer_copy_kernel(const W* __restrict__ src, W* __restrict__ dst,
+                 long long words) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < words; i += stride) {
@@ -181,11 +219,28 @@ __device__ __forceinline__ unsigned long long now_ns() {
   return t;
 }
 
+// The barrier's sets of ranks: all, the ring neighbours, the pair partner.
+enum PeerSet { kAll = 0, kRing = 1, kPair = 2 };
+
+__device__ __forceinline__ int set_size(int set, int n) {
+  return set == kAll ? n : set == kRing ? 2 : 1;
+}
+
+// The k-th rank of `rank`'s set (a ring of one or two names a rank twice).
+__device__ __forceinline__ int set_member(int set, int n, int rank, int k) {
+  if (set == kRing) return k == 0 ? (rank + n - 1) % n : (rank + 1) % n;
+  if (set == kPair) return (rank + n / 2) % n;
+  return k;
+}
+
 // One CTA of one warp: bump this rank's generation, signal slot `rank` of
-// every pad, wait for every slot of this rank's pad.
+// the pad of every rank of its set, wait for those ranks' slots of this
+// rank's pad; then copy `nbytes` bytes from src to dst (none when 0).
 __global__ void __launch_bounds__(kBarrierThreads)
 peer_barrier_kernel(unsigned int* const* __restrict__ pads,
-                    unsigned int* __restrict__ generation, int n, int rank) {
+                    unsigned int* __restrict__ generation, int n, int rank,
+                    int set, const unsigned char* __restrict__ src,
+                    unsigned char* __restrict__ dst, long long nbytes) {
   __shared__ unsigned int gen;
   if (threadIdx.x == 0) {
     gen = *generation + 1u;
@@ -193,21 +248,25 @@ peer_barrier_kernel(unsigned int* const* __restrict__ pads,
   }
   __syncthreads();
   const unsigned int g = gen;
+  const int peers = set_size(set, n);
   __threadfence_system();
-  for (int s = threadIdx.x; s < n; s += blockDim.x) {
-    store_release_sys(pads[s] + rank, g);
+  for (int k = threadIdx.x; k < peers; k += blockDim.x) {
+    store_release_sys(pads[set_member(set, n, rank, k)] + rank, g);
   }
   const unsigned int* mine = pads[rank];
-  for (int s = threadIdx.x; s < n; s += blockDim.x) {
+  for (int k = threadIdx.x; k < peers; k += blockDim.x) {
+    const unsigned int* slot = mine + set_member(set, n, rank, k);
     const unsigned long long t0 = now_ns();
-    while ((int)(load_acquire_sys(mine + s) - g) < 0) {
+    while ((int)(load_acquire_sys(slot) - g) < 0) {
       if (now_ns() - t0 > kTimeoutNs) __trap();
       __nanosleep(64);
     }
   }
-  // what each waiter acquired, ordered before the rank's next kernel
+  // what each waiter acquired, ordered before the copy and the rank's
+  // next kernel
   __threadfence_system();
   __syncthreads();
+  for (long long i = threadIdx.x; i < nbytes; i += blockDim.x) dst[i] = src[i];
 }
 
 int data_grid(long long work) {
@@ -223,82 +282,139 @@ int data_grid(long long work) {
 
 template <typename T>
 int launch_reduce(const void* table, void* out, int n, int rank,
-                  long long chunk, float scale, int vec, cudaStream_t stream) {
+                  long long chunk, float scale, int tiles, int vec,
+                  cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const T* const* parts = static_cast<const T* const*>(table);
   T* o = static_cast<T*>(out);
   if (vec) {
     peer_reduce<T, V><<<data_grid(chunk / V), kThreads, 0, stream>>>(
-        parts, o, n, rank, chunk, scale);
+        parts, o, n, rank, chunk, scale, tiles);
   } else {
     peer_reduce<T, 1><<<data_grid(chunk), kThreads, 0, stream>>>(
-        parts, o, n, rank, chunk, scale);
+        parts, o, n, rank, chunk, scale, tiles);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename W>
-int launch_gather(const void* table, void* out, int n, long long chunk_bytes,
-                  cudaStream_t stream) {
+int launch_gather(const void* table, void* out, int n, int rank,
+                  long long chunk_bytes, int halves, cudaStream_t stream) {
   const long long words = chunk_bytes / (long long)sizeof(W);
-  const dim3 grid((unsigned)data_grid(words), (unsigned)n);
+  const dim3 grid((unsigned)data_grid(words / halves), (unsigned)n,
+                  (unsigned)halves);
   peer_gather<W><<<grid, kThreads, 0, stream>>>(
-      static_cast<const W* const*>(table), static_cast<W*>(out), words);
+      static_cast<const W* const*>(table), static_cast<W*>(out), words, n,
+      rank, halves);
   return (int)cudaGetLastError();
+}
+
+template <typename W>
+int launch_copy(const void* src, void* dst, long long nbytes,
+                cudaStream_t stream) {
+  const long long words = nbytes / (long long)sizeof(W);
+  peer_copy_kernel<W><<<data_grid(words), kThreads, 0, stream>>>(
+      static_cast<const W*>(src), static_cast<W*>(dst), words);
+  return (int)cudaGetLastError();
+}
+
+bool is_word(int word) {
+  return word == 16 || word == 4 || word == 2 || word == 1;
+}
+
+// One gather launch of the width `word` (checked by the caller).
+int gather_by_word(const void* table, void* out, int n, int rank,
+                   long long chunk_bytes, int halves, int word,
+                   cudaStream_t s) {
+  switch (word) {
+    case 16: return launch_gather<uint4>(table, out, n, rank, chunk_bytes, halves, s);
+    case 4: return launch_gather<uint32_t>(table, out, n, rank, chunk_bytes, halves, s);
+    case 2: return launch_gather<uint16_t>(table, out, n, rank, chunk_bytes, halves, s);
+    default: return launch_gather<uint8_t>(table, out, n, rank, chunk_bytes, halves, s);
+  }
 }
 
 }  // namespace
 
 // Rank `rank`'s reduce-scatter: `table` is a device array of n pointers,
-// entry s at rank s's chunk `rank` (chunk elements); out holds chunk
-// elements.  vec: every pointer, out and the chunk's bytes are multiples
-// of 16 bytes.  dtype: 0 float32, 1 bfloat16, 2 float16.  scale is exact
-// in the dtype.  Returns cudaGetLastError().
+// entry s at rank s's chunk `rank` (chunk elements); out holds tiles *
+// chunk elements (tiles >= 1).  vec: every pointer, out and the chunk's
+// bytes are multiples of 16 bytes.  dtype: 0 float32, 1 bfloat16, 2
+// float16.  scale is exact in the dtype.  Returns cudaGetLastError().
 extern "C" int peer_reduce_scatter(const void* table, void* out, int n,
                                    int rank, long long chunk, int dtype,
-                                   float scale, int vec, void* stream) {
-  if (n < 1 || n > kMaxRanks || rank < 0 || rank >= n) {
+                                   float scale, int tiles, int vec,
+                                   void* stream) {
+  if (n < 1 || n > kMaxRanks || rank < 0 || rank >= n || tiles < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_reduce<float>(table, out, n, rank, chunk, scale, vec, s);
-    case 1: return launch_reduce<__nv_bfloat16>(table, out, n, rank, chunk, scale, vec, s);
-    case 2: return launch_reduce<__half>(table, out, n, rank, chunk, scale, vec, s);
+    case 0: return launch_reduce<float>(table, out, n, rank, chunk, scale, tiles, vec, s);
+    case 1: return launch_reduce<__nv_bfloat16>(table, out, n, rank, chunk, scale, tiles, vec, s);
+    case 2: return launch_reduce<__half>(table, out, n, rank, chunk, scale, tiles, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// A rank's all-gather: `table` is a device array of n pointers, entry s at
-// rank s's owned chunk of chunk_bytes; out holds n * chunk_bytes.  word
+// A rank's all-gather (or all-to-all): `table` is a device array of n
+// pointers, entry s at the part rank s gives this rank (its owned chunk,
+// or its chunk `rank`), chunk_bytes each; out holds n * chunk_bytes.  word
 // (16, 4, 2 or 1) divides every pointer, out and chunk_bytes.
 extern "C" int peer_all_gather(const void* table, void* out, int n,
                                long long chunk_bytes, int word,
                                void* stream) {
-  if (n < 1 || (word != 16 && word != 4 && word != 2 && word != 1) ||
-      chunk_bytes % word) {
+  if (n < 1 || !is_word(word) || chunk_bytes % word) {
     return (int)cudaErrorInvalidValue;
   }
+  return gather_by_word(table, out, n, 0, chunk_bytes, 1, word,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The same gather in half-chunks, both ring directions from rank `rank`:
+// word divides every pointer, out and chunk_bytes / 2.
+extern "C" int peer_all_gather_bidir(const void* table, void* out, int n,
+                                     int rank, long long chunk_bytes,
+                                     int word, void* stream) {
+  if (n < 1 || rank < 0 || rank >= n || !is_word(word) ||
+      chunk_bytes % (2 * word)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return gather_by_word(table, out, n, rank, chunk_bytes, 2, word,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// dst = src, nbytes; word (16, 4, 2 or 1) divides both pointers and nbytes.
+extern "C" int peer_copy(const void* src, void* dst, long long nbytes,
+                         int word, void* stream) {
+  if (!is_word(word) || nbytes % word) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (word) {
-    case 16: return launch_gather<uint4>(table, out, n, chunk_bytes, s);
-    case 4: return launch_gather<uint32_t>(table, out, n, chunk_bytes, s);
-    case 2: return launch_gather<uint16_t>(table, out, n, chunk_bytes, s);
-    case 1: return launch_gather<uint8_t>(table, out, n, chunk_bytes, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 16: return launch_copy<uint4>(src, dst, nbytes, s);
+    case 4: return launch_copy<uint32_t>(src, dst, nbytes, s);
+    case 2: return launch_copy<uint16_t>(src, dst, nbytes, s);
+    default: return launch_copy<uint8_t>(src, dst, nbytes, s);
   }
 }
 
 // A rank's barrier: `table` is a device array of the n ranks' signal pads
 // (n uint32 each, zero at first); `generation` is this rank's own uint32
-// count, zero at first, touched by nothing else.
+// count, zero at first, touched by nothing else; `set` is 0 (all ranks), 1
+// (ring neighbours) or 2 (pair partner, n even).  After the wait, nbytes
+// (0: none) are copied from src to dst.
 extern "C" int peer_barrier(const void* table, void* generation, int n,
-                            int rank, void* stream) {
-  if (n < 1 || rank < 0 || rank >= n) return (int)cudaErrorInvalidValue;
+                            int rank, int set, const void* src, void* dst,
+                            long long nbytes, void* stream) {
+  if (n < 1 || rank < 0 || rank >= n || set < kAll || set > kPair ||
+      (set == kPair && n % 2) || nbytes < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   peer_barrier_kernel<<<1, kBarrierThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned int* const*>(table),
-      static_cast<unsigned int*>(generation), n, rank);
+      static_cast<unsigned int*>(generation), n, rank, set,
+      static_cast<const unsigned char*>(src),
+      static_cast<unsigned char*>(dst), nbytes);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,9 @@ from __future__ import annotations
 KERNELS = ("direct_reduce_scatter", "direct_all_gather", "stream",
            "hbm_copy", "hbm_read", "hbm_write", "ring", "exchange", "pingpong",
            "barrier", "all_to_all", "direct_all_gather_bidir",
-           "peer_reduce_scatter", "peer_all_gather", "peer_barrier")
+           "peer_reduce_scatter", "peer_all_gather", "peer_barrier",
+           "peer_ring", "peer_exchange", "peer_pingpong", "peer_all_to_all",
+           "peer_all_gather_bidir", "peer_barrier_copy")
 
 #: kernel launches since the last reset_counts()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

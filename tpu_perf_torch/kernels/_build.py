@@ -55,9 +55,9 @@ _ENTRIES = {
     "barrier": ("barrier_rows", [_P, _P, _I, _I, _I, _L, _P]),
     # (src, out, n, chunk_bytes, stream)
     "all_to_all": ("all_to_all_rows", [_P, _P, _I, _L, _P]),
-    # (table, out, n, rank, chunk, dtype_code, scale, vec, stream)
+    # (table, out, n, rank, chunk, dtype_code, scale, tiles, vec, stream)
     "peer_collectives": ("peer_reduce_scatter",
-                         [_P, _P, _I, _I, _L, _I, _F, _I, _P]),
+                         [_P, _P, _I, _I, _L, _I, _F, _I, _I, _P]),
 }
 #: further C entry points of a source, beside its kernel's: (source,
 #: symbol) -> argument types
@@ -69,10 +69,16 @@ _EXTRA_ENTRIES = {
                                                  ctypes.POINTER(ctypes.c_int)],
     # the bidirectional gather: (src, out, counters, n, chunk_bytes, stream)
     ("all_gather", "direct_all_gather_bidir"): [_P, _P, _P, _I, _L, _P],
-    # the peer kernels' gather and barrier: (table, out, n, chunk_bytes,
-    # word, stream) and (pad table, generation, n, rank, stream)
+    # the peer kernels' gathers, copy and barrier: (table, out, n,
+    # chunk_bytes, word, stream), (table, out, n, rank, chunk_bytes, word,
+    # stream), (src, dst, nbytes, word, stream) and (pad table, generation,
+    # n, rank, set, src, dst, nbytes, stream)
     ("peer_collectives", "peer_all_gather"): [_P, _P, _I, _L, _I, _P],
-    ("peer_collectives", "peer_barrier"): [_P, _P, _I, _I, _P],
+    ("peer_collectives", "peer_all_gather_bidir"): [_P, _P, _I, _I, _L, _I,
+                                                    _P],
+    ("peer_collectives", "peer_copy"): [_P, _P, _L, _I, _P],
+    ("peer_collectives", "peer_barrier"): [_P, _P, _I, _I, _I, _P, _P, _L,
+                                           _P],
     # (&ctas): the barrier CTAs the card holds at once
     ("peer_collectives", "peer_barrier_capacity"): [ctypes.POINTER(_I)],
     # a rank's symmetric allocation and its IPC handle: (bytes, &ptr),

@@ -35,12 +35,16 @@ is written by hand for Hopper:
 * ``all_to_all`` — CUDA C++, ``csrc/all_to_all.cu`` (replaces
   ``_all_to_all_direct_kernel``; stream order stands in for its
   ``_global_barrier``), every (destination, source) pair in one launch;
-* ``peer_reduce_scatter``, ``peer_all_gather``, ``peer_barrier`` — CUDA
-  C++, ``csrc/peer_collectives.cu``: ``pl_allreduce`` in a multi-rank
-  world (:class:`tpu_perf_torch.world.DistWorld`), one launch a rank,
-  each reading its peers through a table of pointers and meeting them on
-  signal pads (replace ``_reduce_scatter_kernel``, ``_all_gather_kernel``
-  and the barrier semaphores across cards).
+* ``peer_reduce_scatter``, ``peer_all_gather``, ``peer_all_to_all``,
+  ``peer_all_gather_bidir``, ``peer_copy`` (counted as ``peer_ring``,
+  ``peer_exchange`` and ``peer_pingpong``) and ``peer_barrier`` (with its
+  tail copy, ``peer_barrier_copy``) — CUDA C++,
+  ``csrc/peer_collectives.cu``: every ``pl_*`` op that reads another
+  rank's memory, in a multi-rank world
+  (:class:`tpu_perf_torch.world.DistWorld`), one launch a rank, each
+  reading its peers through pointers and meeting them on signal pads
+  (replace the TPU kernels' remote copies and their barrier semaphores
+  across cards); the local memory instruments run per rank as they are.
 
 Every ``pl_*`` op of the JAX package is ported.  Each wrapper launches its
 kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
@@ -672,6 +676,15 @@ def _numel(p) -> int:
     return p.numel if isinstance(p, RemoteBuffer) else p.numel()
 
 
+def _sub(part, offset: int, numel: int):
+    """Elements ``[offset, offset + numel)`` of a part: a view of a tensor,
+    or a :class:`RemoteBuffer` of that much of a peer's."""
+    if isinstance(part, RemoteBuffer):
+        return RemoteBuffer(part.ptr + offset * part.element_size(), numel,
+                            part.dtype, part.device)
+    return part[offset:offset + numel]
+
+
 def _check_parts(name: str, parts, rank: int | None = None) -> int:
     # n parts of one dtype, device and length; returns the length
     n = len(parts)
@@ -691,6 +704,18 @@ def _check_parts(name: str, parts, rank: int | None = None) -> int:
     return size
 
 
+def _check_out(name: str, out: torch.Tensor | None, numel: int,
+               dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # the launch's output: a new tensor, or the given one checked
+    if out is None:
+        return torch.empty(numel, dtype=dtype, device=device)
+    _check_cuda(name, out)
+    if out.numel() != numel or out.dtype != dtype:
+        raise ValueError(f"{name}: out {tuple(out.shape)} {out.dtype} for "
+                         f"{numel} elements of {dtype}")
+    return out
+
+
 def _widest_word(nbytes: int, *ptrs: int) -> int:
     # the widest word (16, 4, 2 or 1 bytes) that divides every address
     # and the length
@@ -701,46 +726,50 @@ def _widest_word(nbytes: int, *ptrs: int) -> int:
 
 
 def peer_reduce_scatter_plain(parts: list[torch.Tensor], rank: int,
-                              scale: float = 1.0) -> torch.Tensor:
+                              scale: float = 1.0,
+                              tiles: int = 1) -> torch.Tensor:
     """The peer reduce-scatter in plain PyTorch: ``parts[s]`` is rank s's
     chunk ``rank`` (``(chunk,)``); returns their sum in the ring's order,
     ((parts[rank+1] + parts[rank+2]) + ...) + parts[rank+n], rounding to
-    the dtype after every add, then times ``scale``: the order of
-    :func:`direct_reduce_scatter_plain` and of the TPU ring."""
+    the dtype after every add, then times ``scale``, repeated ``tiles``
+    times: the order of :func:`direct_reduce_scatter_plain` and of the TPU
+    ring."""
     kernels.PLAIN_CALLS["peer_reduce_scatter"] += 1
     n = len(parts)
     acc = parts[(rank + 1) % n]
     for j in range(2, n + 1):
         acc = acc + parts[(rank + j) % n]
-    return acc * scale
+    acc = acc * scale
+    return acc.repeat(tiles) if tiles > 1 else acc
 
 
 def peer_reduce_scatter(parts, rank: int, *, scale: float = 1.0,
+                        tiles: int = 1,
                         out: torch.Tensor | None = None) -> torch.Tensor:
     """Rank ``rank``'s reduce-scatter: ``parts[s]`` is rank s's chunk
     ``rank`` (a view into its buffer, or a :class:`RemoteBuffer`); returns
     (into ``out`` when given) the ring-order sum over the n parts times
-    ``scale`` (exact in the dtype).  One launch, reading every part
-    through the pointer table: on the card ``parts`` is a
-    :class:`PeerParts`."""
+    ``scale`` (exact in the dtype), written ``tiles`` times along the
+    output (``pl_reduce_scatter``'s carry tiles it n times).  One launch,
+    reading every part through the pointer table: on the card ``parts`` is
+    a :class:`PeerParts`."""
     chunk = _check_parts("peer_reduce_scatter", parts, rank)
     dtype = parts[0].dtype
     if dtype not in _RS_DTYPE_CODES:
         raise ValueError(f"peer_reduce_scatter reduces floats, got {dtype}")
+    if tiles < 1:
+        raise ValueError(f"peer_reduce_scatter: tiles {tiles} < 1")
     if parts[0].device.type == "cpu":
-        got = peer_reduce_scatter_plain(parts, rank, scale)
+        got = peer_reduce_scatter_plain(parts, rank, scale, tiles)
         return got if out is None else out.copy_(got)
-    if out is None:
-        out = torch.empty(chunk, dtype=dtype, device=parts[0].device)
-    _check_cuda("peer_reduce_scatter", out)
-    if out.numel() != chunk or out.dtype != dtype:
-        raise ValueError(f"peer_reduce_scatter: out {tuple(out.shape)} "
-                         f"{out.dtype} for {chunk} elements of {dtype}")
+    out = _check_out("peer_reduce_scatter", out, tiles * chunk, dtype,
+                     parts[0].device)
     vec = _widest_word(chunk * dtype.itemsize, out.data_ptr(),
                        *(p.data_ptr() for p in parts)) == 16
     err = _build.entry("peer_collectives")(
         _table_ptr("peer_reduce_scatter", parts), out.data_ptr(), len(parts),
-        rank, chunk, _RS_DTYPE_CODES[dtype], scale, int(vec), _stream_of(out))
+        rank, chunk, _RS_DTYPE_CODES[dtype], scale, tiles, int(vec),
+        _stream_of(out))
     _build.check("peer_reduce_scatter", err)
     kernels.LAUNCHES["peer_reduce_scatter"] += 1
     return out
@@ -753,6 +782,57 @@ def peer_all_gather_plain(parts: list[torch.Tensor]) -> torch.Tensor:
     return torch.cat(list(parts))
 
 
+def peer_all_to_all_plain(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The peer all-to-all in plain PyTorch: ``parts[s]`` is rank s's chunk
+    for this rank; they land in rank order, ``out[s] = x_s[rank]``."""
+    kernels.PLAIN_CALLS["peer_all_to_all"] += 1
+    return torch.cat(list(parts))
+
+
+def bidir_order(n: int, rank: int) -> list[tuple[int, int, int]]:
+    """The half-chunk gather's ``(ring step, half, source rank)`` for rank
+    ``rank``: at step k half 0 comes clockwise from rank ``rank - k`` and
+    half 1 counter-clockwise from rank ``rank + k`` (mod n), the TPU
+    kernel's two directions; step 0 is the rank's own chunk."""
+    return [(k, h, (rank - k) % n if h == 0 else (rank + k) % n)
+            for k in range(n) for h in (0, 1)]
+
+
+def peer_all_gather_bidir_plain(parts: list[torch.Tensor],
+                                rank: int) -> torch.Tensor:
+    """The half-chunk gather in plain PyTorch, half by half in the order
+    of :func:`bidir_order`: the n owned chunks in rank order."""
+    kernels.PLAIN_CALLS["peer_all_gather_bidir"] += 1
+    n, chunk = len(parts), _numel(parts[0])
+    half = chunk // 2
+    out = parts[0].new_empty(n * chunk)
+    for _, h, s in bidir_order(n, rank):
+        lo = s * chunk + h * half
+        out[lo:lo + half] = parts[s][h * half:(h + 1) * half]
+    return out
+
+
+def _launch_gather(name: str, parts, out: torch.Tensor | None, chunk: int,
+                   rank: int | None = None) -> torch.Tensor:
+    # one launch of the pull gather: whole parts in rank order, or (rank
+    # given) half-chunks in both ring directions from rank
+    n, dtype = len(parts), parts[0].dtype
+    out = _check_out(name, out, n * chunk, dtype, parts[0].device)
+    nbytes = chunk * dtype.itemsize
+    word = _widest_word(nbytes if rank is None else nbytes // 2,
+                        out.data_ptr(), *(p.data_ptr() for p in parts))
+    table = _table_ptr(name, parts)
+    if rank is None:
+        err = _build.entry("peer_collectives", "peer_all_gather")(
+            table, out.data_ptr(), n, nbytes, word, _stream_of(out))
+    else:
+        err = _build.entry("peer_collectives", "peer_all_gather_bidir")(
+            table, out.data_ptr(), n, rank, nbytes, word, _stream_of(out))
+    _build.check(name, err)
+    kernels.LAUNCHES[name] += 1
+    return out
+
+
 def peer_all_gather(parts, *, out: torch.Tensor | None = None
                     ) -> torch.Tensor:
     """A rank's all-gather: ``parts[s]`` is rank s's owned chunk; returns
@@ -760,60 +840,154 @@ def peer_all_gather(parts, *, out: torch.Tensor | None = None
     One launch that pulls every peer's chunk into this rank's output; on
     the card ``parts`` is a :class:`PeerParts`."""
     chunk = _check_parts("peer_all_gather", parts)
-    n, dtype = len(parts), parts[0].dtype
     if parts[0].device.type == "cpu":
         got = peer_all_gather_plain(parts)
         return got if out is None else out.copy_(got)
-    if out is None:
-        out = torch.empty(n * chunk, dtype=dtype, device=parts[0].device)
-    _check_cuda("peer_all_gather", out)
-    if out.numel() != n * chunk or out.dtype != dtype:
-        raise ValueError(f"peer_all_gather: out {tuple(out.shape)} "
-                         f"{out.dtype} for {n} x {chunk} of {dtype}")
-    nbytes = chunk * dtype.itemsize
-    word = _widest_word(nbytes, out.data_ptr(),
-                        *(p.data_ptr() for p in parts))
-    err = _build.entry("peer_collectives", "peer_all_gather")(
-        _table_ptr("peer_all_gather", parts), out.data_ptr(), n, nbytes, word,
-        _stream_of(out))
-    _build.check("peer_all_gather", err)
-    kernels.LAUNCHES["peer_all_gather"] += 1
+    return _launch_gather("peer_all_gather", parts, out, chunk)
+
+
+def peer_all_to_all(parts, *, out: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """A rank's all-to-all: ``parts[s]`` is rank s's chunk for this rank
+    (chunk ``rank`` of its input); returns (into ``out`` when given) the n
+    chunks in rank order, ``out[s] = x_s[rank]``.  The gather's one
+    launch over this table; on the card ``parts`` is a
+    :class:`PeerParts`."""
+    chunk = _check_parts("peer_all_to_all", parts)
+    if parts[0].device.type == "cpu":
+        got = peer_all_to_all_plain(parts)
+        return got if out is None else out.copy_(got)
+    return _launch_gather("peer_all_to_all", parts, out, chunk)
+
+
+def peer_all_gather_bidir(parts, rank: int, *,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """Rank ``rank``'s bidirectional all-gather: the gather of
+    :func:`peer_all_gather` (chunks even) in half-chunks, the first halves
+    pulled clockwise and the second counter-clockwise
+    (:func:`bidir_order`); on a ring of links the halves take the two
+    directions, on all-to-all links or one card the output and the bytes
+    are the gather's.  One launch; on the card ``parts`` is a
+    :class:`PeerParts`."""
+    chunk = _check_parts("peer_all_gather_bidir", parts, rank)
+    if chunk % 2:
+        raise ValueError(f"peer_all_gather_bidir splits chunks in half, got "
+                         f"{chunk} elements")
+    if parts[0].device.type == "cpu":
+        got = peer_all_gather_bidir_plain(parts, rank)
+        return got if out is None else out.copy_(got)
+    return _launch_gather("peer_all_gather_bidir", parts, out, chunk, rank)
+
+
+#: the ops whose peer form pulls a whole buffer with peer_copy, each
+#: counted apart (one source, as ring and exchange share p2p_shift.cu)
+PEER_COPIES = ("peer_ring", "peer_exchange", "peer_pingpong")
+
+
+def peer_copy_plain(name: str, src: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """The peer copy in plain PyTorch: ``out = src``."""
+    kernels.PLAIN_CALLS[name] += 1
+    return src.clone() if out is None else out.copy_(src)
+
+
+def peer_copy(name: str, src, *, out: torch.Tensor | None = None
+              ) -> torch.Tensor:
+    """``out = src`` for the op that ``name`` counts (one of
+    :data:`PEER_COPIES`): ``src`` is a peer's buffer (a
+    :class:`RemoteBuffer`) or this rank's own tensor, ``out`` this rank's
+    (a new tensor when not given).  One launch that pulls it in the widest
+    word dividing both addresses and the length; it never waits."""
+    if name not in PEER_COPIES:
+        raise ValueError(f"peer_copy counts one of {PEER_COPIES}, got {name!r}")
+    if src.device.type == "cpu":
+        return peer_copy_plain(name, src, out)
+    _check_cuda(name, src)
+    out = _check_out(name, out, _numel(src), src.dtype, src.device)
+    nbytes = _numel(src) * src.dtype.itemsize
+    word = _widest_word(nbytes, src.data_ptr(), out.data_ptr())
+    err = _build.entry("peer_collectives", "peer_copy")(
+        src.data_ptr(), out.data_ptr(), nbytes, word, _stream_of(out))
+    _build.check(name, err)
+    kernels.LAUNCHES[name] += 1
     return out
 
 
+#: the barrier's sets of ranks, by their code in the kernel: every rank
+#: (``_global_barrier``), the ring neighbours (``_ring_barrier``), the pair
+#: partner (``_pair_barrier``)
+PEER_SETS = {"all": 0, "ring": 1, "pair": 2}
+
+
+def barrier_set(peers: str, n: int, rank: int) -> list[int]:
+    """The ranks a barrier of set ``peers`` signals and waits for, as the
+    kernel names them: all n, the ring neighbours ``rank - 1`` and ``rank
+    + 1``, or the pair partner ``rank + n/2`` (mod n)."""
+    if peers == "ring":
+        return [(rank - 1) % n, (rank + 1) % n]
+    if peers == "pair":
+        return [(rank + n // 2) % n]
+    return list(range(n))
+
+
 def peer_barrier_plain(pads: list[torch.Tensor], generation: torch.Tensor,
-                       rank: int) -> None:
+                       rank: int, peers: str = "all",
+                       copy: tuple | None = None) -> None:
     """The barrier's signals in plain PyTorch: bump ``generation`` and
-    write it into slot ``rank`` of every pad.  Nothing waits: the ranks of
-    one process run one after another, and a CPU world's ranks meet in
-    their collectives."""
-    kernels.PLAIN_CALLS["peer_barrier"] += 1
+    write it into slot ``rank`` of the pad of every rank of the set, then
+    copy ``copy = (src, dst)``.  Nothing waits: the ranks of one process
+    run one after another, and a CPU world's ranks meet in their
+    collectives."""
+    kernels.PLAIN_CALLS["peer_barrier" if copy is None
+                        else "peer_barrier_copy"] += 1
     generation += 1
-    for pad in pads:
-        pad[rank] = generation[0]
+    for s in barrier_set(peers, len(pads), rank):
+        pads[s][rank] = generation[0]
+    if copy is not None:
+        copy[1].copy_(copy[0])
 
 
-def peer_barrier(pads, generation: torch.Tensor, rank: int) -> None:
-    """Rank ``rank`` signals every rank's pad (``pads[s]``: n int32 slots,
-    zero at first) with its next barrier generation and waits until every
-    slot of its own pad holds it.  ``generation`` is this rank's own (1,)
-    int32 count, which only its barriers touch, on the device: a replayed
-    graph advances it.  One launch of one warp; a wait past a minute of
-    device time traps.  On the card ``pads`` is a :class:`PeerParts`."""
+def peer_barrier(pads, generation: torch.Tensor, rank: int, *,
+                 peers: str = "all", copy: tuple | None = None) -> None:
+    """Rank ``rank`` signals the pads (``pads[s]``: n int32 slots, zero at
+    first) of the ranks of set ``peers`` (:data:`PEER_SETS`,
+    :func:`barrier_set`) with its next barrier generation and waits until
+    each of them has signalled its own pad; then, with ``copy = (src,
+    dst)``, copies src into dst (``pl_barrier``'s one element, counted as
+    ``peer_barrier_copy``).  ``generation`` is this rank's own (1,) int32
+    count, which only its barriers touch, on the device: a replayed graph
+    advances it.  One launch of one warp; a wait past a minute of device
+    time traps.  On the card ``pads`` is a :class:`PeerParts`."""
     n = len(pads)
     if _check_parts("peer_barrier", pads, rank) != n or pads[0].dtype != torch.int32:
         raise ValueError(f"peer_barrier: pads are {n} int32 slots each")
     if generation.dtype != torch.int32 or generation.numel() != 1:
         raise ValueError("peer_barrier: generation is one int32")
+    if peers not in PEER_SETS:
+        raise ValueError(f"peer_barrier: set {peers!r}, known: "
+                         f"{tuple(PEER_SETS)}")
+    if peers == "pair" and n % 2:
+        raise ValueError(f"peer_barrier: a pair barrier needs an even rank "
+                         f"count, got {n}")
+    name = "peer_barrier"
+    if copy is not None:
+        name = "peer_barrier_copy"
+        src, dst = copy
+        if (src.numel(), src.dtype, src.device) != (dst.numel(), dst.dtype,
+                                                     dst.device):
+            raise ValueError("peer_barrier: the copy's src and dst differ")
     if generation.device.type == "cpu":
-        peer_barrier_plain(pads, generation, rank)
+        peer_barrier_plain(pads, generation, rank, peers, copy)
         return
-    _check_cuda("peer_barrier", generation)
+    _check_cuda(name, generation, *(copy or ()))
+    src_ptr, dst_ptr, nbytes = ((copy[0].data_ptr(), copy[1].data_ptr(),
+                                 copy[0].numel() * copy[0].element_size())
+                                if copy is not None else (0, 0, 0))
     err = _build.entry("peer_collectives", "peer_barrier")(
-        _table_ptr("peer_barrier", pads), generation.data_ptr(), n, rank,
-        _stream_of(generation))
-    _build.check("peer_barrier", err)
-    kernels.LAUNCHES["peer_barrier"] += 1
+        _table_ptr(name, pads), generation.data_ptr(), n, rank,
+        PEER_SETS[peers], src_ptr, dst_ptr, nbytes, _stream_of(generation))
+    _build.check(name, err)
+    kernels.LAUNCHES[name] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -853,28 +1027,53 @@ _PEER_ALIGN = 256
 
 
 class PeerBuffers:
-    """One rank's symmetric buffers for ``pl_allreduce`` on the card, and
-    its views of its peers': two input buffers the executions alternate
-    between, the owned-chunk buffer and the signal pad, in one
-    allocation per rank (``peer_alloc``) whose IPC handle every peer opens
-    (``all_gather_object`` on the world's group).  Every rank lays its
-    allocation out alike, so a buffer sits at the same offset in each.
-    ``ins[b][s]``, ``mids[s]`` and ``pads[s]`` are rank s's; this rank's
-    are tensors, a peer's are :class:`RemoteBuffer` objects; ``mids`` and
-    ``pads`` are :class:`PeerParts`, their tables made here and freed with
-    the buffers.  ``generation`` is this rank's barrier count."""
+    """One rank's symmetric buffers for a peer op on the card, and its
+    views of its peers': the op's named buffers (``layout``: name ->
+    (elements, dtype)) and the signal pad, in one allocation per rank
+    (``peer_alloc``) whose IPC handle every peer opens (one
+    ``all_gather_object`` on the world's group), or, where the world's
+    ranks share one process, the allocations its ``peer_memory`` gives.
+    Every rank lays its allocation out alike, so a buffer sits at the same
+    offset in each.  ``self[name][s]`` is rank s's buffer ``name``: this
+    rank's a tensor, a peer's a :class:`RemoteBuffer`.  ``pads`` is a
+    :class:`PeerParts`, its table made here and freed with the buffers;
+    ``generation`` is this rank's barrier count."""
 
-    def __init__(self, world: DistWorld, elems: int, chunk: int,
-                 dtype: torch.dtype):
+    def __init__(self, world: DistWorld,
+                 layout: dict[str, tuple[int, torch.dtype]]):
+        n, rank, dev = world.n, world.rank, world.device
+        shapes = [*layout.values(), (n, torch.int32)]
+        offsets, total = [], 0
+        for numel, dtype in shapes:
+            offsets.append(total)
+            total += -(-numel * dtype.itemsize // _PEER_ALIGN) * _PEER_ALIGN
+        if world.peer_memory is not None:
+            own, bases = world.peer_memory(rank, total)
+            # the allocations' owner lives as long as the buffers
+            self._memory = world.peer_memory
+        else:
+            own, bases = self._open(world, total)
+        region = torch.as_tensor(_DeviceBytes(own, total), device=dev)
+
+        def parts(k: int) -> list:
+            lo, (numel, dtype) = offsets[k], shapes[k]
+            return [region[lo:lo + numel * dtype.itemsize].view(dtype)
+                    if s == rank else
+                    RemoteBuffer(bases[s] + lo, numel, dtype, dev)
+                    for s in range(n)]
+
+        self._parts = {name: parts(k) for k, name in enumerate(layout)}
+        self.pads = PeerParts(parts(len(layout)))
+        self.generation = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._region = region
+
+    def _open(self, world: DistWorld, total: int) -> tuple[int, list[int]]:
+        # this rank's allocation and every rank's base as this process
+        # maps it; the mappings are closed and the allocation freed with
+        # the buffers
         import weakref
 
         n, rank, dev = world.n, world.rank, world.device
-        isz = dtype.itemsize
-        sizes = (elems * isz, elems * isz, chunk * isz, 4 * n)
-        offsets, total = [], 0
-        for size in sizes:
-            offsets.append(total)
-            total += -(-size // _PEER_ALIGN) * _PEER_ALIGN
         entry = functools.partial(_build.entry, "peer_collectives")
         own = ctypes.c_void_p()
         with torch.cuda.device(dev):
@@ -901,20 +1100,49 @@ class PeerBuffers:
                         ctypes.byref(ptr)))
                     bases[s] = ptr.value
                     opened.append(ptr.value)
-        region = torch.as_tensor(_DeviceBytes(own.value, total), device=dev)
+        return own.value, bases
 
-        def parts(k: int, numel: int, pdtype: torch.dtype) -> list:
-            lo = offsets[k]
-            return [region[lo:lo + numel * pdtype.itemsize].view(pdtype)
-                    if s == rank else
-                    RemoteBuffer(bases[s] + lo, numel, pdtype, dev)
-                    for s in range(n)]
+    def __getitem__(self, name: str) -> list:
+        return self._parts[name]
 
-        self.ins = [parts(0, elems, dtype), parts(1, elems, dtype)]
-        self.mids = PeerParts(parts(2, chunk, dtype))
-        self.pads = PeerParts(parts(3, n, torch.int32))
-        self.generation = torch.zeros(1, dtype=torch.int32, device=dev)
-        self._region = region
+
+def _peer_chain(buffers: PeerBuffers, rank: int, iters: int, peers: str,
+                load: Callable, execution: Callable) -> Callable:
+    """The card's step of a peer op: ``load(x)`` puts the input into this
+    rank's symmetric buffer once a step; each execution meets the ranks of
+    set ``peers`` at a barrier before it reads a peer, then
+    ``execution(cur, last)`` reads the peers' input buffer ``cur`` (the
+    two alternate) and writes this rank's other one, or a new tensor at
+    the last execution, whose result the step returns; a last barrier
+    keeps a peer's next step from overwriting what this rank still
+    reads."""
+    def barrier():
+        peer_barrier(buffers.pads, buffers.generation, rank, peers=peers)
+
+    def step(x):
+        load(x)
+        out = None
+        for j in range(iters):
+            barrier()
+            out = execution(j % 2, j == iters - 1)
+        barrier()
+        return out
+
+    return step
+
+
+def _inputs(world: DistWorld, elems: int, tdtype: torch.dtype,
+            **more: tuple[int, torch.dtype]) -> PeerBuffers:
+    # the two input buffers the executions alternate between, and more
+    return PeerBuffers(world, {"in0": (elems, tdtype), "in1": (elems, tdtype),
+                               **more})
+
+
+def _chunk_tables(ins: list[list], rank: int, chunk: int) -> list[PeerParts]:
+    """What rank ``rank`` reads of each input buffer in the reduce and the
+    all-to-all: chunk ``rank`` of every rank's, with its pointer table."""
+    return [PeerParts(_sub(p, rank * chunk, chunk) for p in parts)
+            for parts in ins]
 
 
 def _dist_allreduce_step(world: DistWorld, elems: int, chunk: int,
@@ -924,29 +1152,25 @@ def _dist_allreduce_step(world: DistWorld, elems: int, chunk: int,
     the owned chunks, the peer kernels' two data launches.
 
     On the card the input is copied into this rank's symmetric buffer
-    once a step; each execution meets its peers at a barrier before it
+    once a step; each execution meets every rank at a barrier before it
     reads their inputs and again before it reads their owned chunks, and
     writes its gather into the other input buffer (the last one into a new
-    tensor, which the step returns); a last barrier keeps a peer's next
-    step from overwriting what this rank still reads.  On the CPU the
-    peer kernels' plain versions run on what gloo's collectives bring: the
-    n parts of the owned chunk (``all_to_all_single``), then the owned
-    chunks (an all-gather)."""
+    tensor, which the step returns).  Every rank reads every rank's input
+    and owned chunk, so the all-rank barrier orders each read after the
+    write it needs and each write after the last read of what it
+    overwrites; a last barrier keeps a peer's next step from overwriting
+    what this rank still reads.  On the CPU the peer kernels' plain
+    versions run on what gloo's collectives bring: the n parts of the
+    owned chunk (``all_to_all_single``), then the owned chunks (an
+    all-gather)."""
     from tpu_perf_torch.parallel.multihost import _all_gather_tensor
 
     n, rank = world.n, world.rank
     inv = mean_scale(n, tdtype)
-    if world.device.type == "cpu":
-        import torch.distributed as dist
-
+    if _gloo_path(world):
         def execution(x):
-            if n == 1:
-                recv = x
-            else:
-                recv = torch.empty_like(x)
-                dist.all_to_all_single(recv, x, group=world.group)
-            mine = peer_reduce_scatter(list(recv.view(n, chunk)), rank,
-                                       scale=inv)
+            mine = peer_reduce_scatter(list(_all_to_all_cpu(world, x, chunk)),
+                                       rank, scale=inv)
             if n == 1:
                 owned = mine.view(1, chunk)
             else:
@@ -954,39 +1178,298 @@ def _dist_allreduce_step(world: DistWorld, elems: int, chunk: int,
                 _all_gather_tensor(owned.view(-1), mine, group=world.group)
             return peer_all_gather(list(owned))
 
-        def cpu_step(x):
-            for _ in range(iters):
-                x = execution(x)
-            return x
+        return _chain(execution, iters)
 
-        return cpu_step
+    buffers = _inputs(world, elems, tdtype, mid=(chunk, tdtype))
+    ins = [buffers["in0"], buffers["in1"]]
+    reads = _chunk_tables(ins, rank, chunk)
+    mids = PeerParts(buffers["mid"])
 
-    buffers = PeerBuffers(world, elems, chunk, tdtype)
-    reads = [PeerParts(
-        part.view(n, chunk)[rank] if isinstance(part, torch.Tensor)
-        else RemoteBuffer(part.ptr + rank * chunk * tdtype.itemsize, chunk,
-                          tdtype, part.device)
-        for part in ins) for ins in buffers.ins]
-    mine = buffers.mids[rank]
-
-    def barrier():
+    def execution(cur, last):
+        peer_reduce_scatter(reads[cur], rank, scale=inv, out=mids[rank])
         peer_barrier(buffers.pads, buffers.generation, rank)
+        return peer_all_gather(mids, out=_fresh(world, elems, tdtype)
+                               if last else ins[1 - cur][rank])
 
-    def step(x):
-        buffers.ins[0][rank].copy_(x)
-        out = None
-        for j in range(iters):
-            cur = j % 2
-            barrier()
-            peer_reduce_scatter(reads[cur], rank, scale=inv, out=mine)
-            barrier()
-            out = (torch.empty(elems, dtype=tdtype, device=world.device)
-                   if j == iters - 1 else buffers.ins[1 - cur][rank])
-            peer_all_gather(buffers.mids, out=out)
-        barrier()
+    return _peer_chain(buffers, rank, iters, "all", ins[0][rank].copy_,
+                       execution)
+
+
+def _gloo_path(world: DistWorld) -> bool:
+    """Whether a peer op's step runs its plain versions on what gloo's
+    collectives bring (a CPU world) rather than the peer kernels on
+    symmetric buffers (a world of cards)."""
+    return world.device.type == "cpu"
+
+
+def _chain(execution: Callable, iters: int) -> Callable:
+    # iters chained executions, each fed the previous output
+    from tpu_perf_torch.ops.collectives import chained
+
+    return chained(execution, iters)
+
+
+def _fresh(world: DistWorld, numel: int, tdtype: torch.dtype) -> torch.Tensor:
+    # the last execution's output, which the step returns
+    return torch.empty(numel, dtype=tdtype, device=world.device)
+
+
+def _all_to_all_cpu(world: DistWorld, x: torch.Tensor, chunk: int):
+    # on the CPU: the n chunks the ranks send this rank, (n, chunk)
+    import torch.distributed as dist
+
+    if world.n == 1:
+        return x.view(1, chunk)
+    recv = torch.empty_like(x)
+    dist.all_to_all_single(recv, x, group=world.group)
+    return recv.view(world.n, chunk)
+
+
+def _dist_shift_step(op: str, world: DistWorld, elems: int, iters: int,
+                     tdtype: torch.dtype) -> Callable:
+    """``pl_ring`` (``out[d] = x[d-1]``, ring-neighbour barriers) or
+    ``pl_exchange`` (``out[d] = x[d+n/2]``, pair barriers) on one rank:
+    per execution one ``peer_copy`` that pulls the source rank's input
+    into this rank's buffer, one launch as the TPU kernel's one remote
+    copy (which pushes to d+1 or d+n/2: the same function).
+
+    Hazards on the card.  Rank d reads only its source's buffers, and only
+    its reader (d+1, or the partner) reads d's; source and reader are both
+    in d's barrier set.  At execution j rank d reads its source's input
+    buffer j%2, which the source wrote (at j-1, or its copy-in) before it
+    signalled barrier j, and writes its own buffer 1-j%2, which its reader
+    last read at j-1, before it signalled barrier j: d passed barrier j
+    only after both.  The reader reads what d wrote at j+1, after d's
+    signal of barrier j+1.  The last barrier keeps the next step's copy-in
+    off a buffer the reader still reads.  A rank outside d's set (d+2 on
+    a ring) never touches d's buffers, so it may run ahead.  On the CPU
+    ``batch_isend_irecv`` brings the source's buffer and the plain version
+    copies it."""
+    from tpu_perf_torch.ops.collectives import _ppermute
+    from tpu_perf_torch.topology import ring_permutation
+
+    n, rank = world.n, world.rank
+    name, shift = (("peer_ring", 1) if op == "pl_ring"
+                   else ("peer_exchange", n // 2))
+    if _gloo_path(world):
+        perm = ring_permutation(n, shift=shift)
+        return _chain(lambda x: peer_copy(name, _ppermute(world, x, perm)),
+                      iters)
+    buffers = _inputs(world, elems, tdtype)
+    ins = [buffers["in0"], buffers["in1"]]
+    src = (rank - shift) % n
+
+    def execution(cur, last):
+        return peer_copy(name, ins[cur][src], out=_fresh(
+            world, elems, tdtype) if last else ins[1 - cur][rank])
+
+    return _peer_chain(buffers, rank, iters,
+                       "ring" if op == "pl_ring" else "pair",
+                       ins[0][rank].copy_, execution)
+
+
+def _dist_pingpong_step(world: DistWorld, elems: int, iters: int,
+                        tdtype: torch.dtype) -> Callable:
+    """``pl_pingpong`` on one rank: the round trip between partners d and
+    d+n/2 as two serial legs, each a pull, so that no data kernel waits.
+    Per execution: a pair barrier; group 1 (d >= n/2) pulls its partner's
+    input into its stage (leg 1) and copies its own input into its output
+    (the TPU kernel's local copy); a pair barrier; group 0 pulls its
+    partner's stage into its output (leg 2).  The op is the identity on
+    both groups.  Launches an execution: two barriers, and one copy in
+    group 0, two in group 1; a step adds its last barrier.
+
+    Hazards on the card.  Partners read only each other's buffers: group
+    1 group 0's input, group 0 group 1's stage.  Leg 1 of execution j reads
+    group 0's input buffer j%2, written (copy-in, or leg 2 of j-1) before
+    group 0 signalled the first barrier of j, and overwrites group 1's
+    stage, which group 0 last read in leg 2 of j-1, also before that
+    signal.  Leg 2 reads the stage after the second barrier, which group 1
+    signals after leg 1.  Group 0's output, its input buffer 1-j%2, was
+    last read by leg 1 of j-1, before group 1 signalled the second barrier
+    of j-1, and is next read by leg 1 of j+1.  Across steps the buffers
+    alone would need no last barrier, but the step's end does: group 1
+    leaves the last execution at its second barrier while group 0's leg 2
+    still reads group 1's stage, so a rank that drops the step (and with
+    it the buffers) before the last barrier would free memory a partner
+    still reads.  The last pair barrier, as every other reading op's,
+    keeps each rank in the step until its partner's last read is done.
+    On the CPU each leg is a ``batch_isend_irecv`` and the plain version
+    copies what it brings."""
+    from tpu_perf_torch.ops.collectives import _ppermute
+    from tpu_perf_torch.topology import one_way_permutation
+
+    n, rank = world.n, world.rank
+    group1 = rank >= n // 2
+    if _gloo_path(world):
+        fwd = one_way_permutation(n)
+        back = one_way_permutation(n, reverse=True)
+
+        def execution(x):
+            got = _ppermute(world, x, fwd)  # group 1: the partner's input
+            if group1:
+                stage = peer_copy("peer_pingpong", got)
+                out = peer_copy("peer_pingpong", x)
+                _ppermute(world, stage, back)
+                return out
+            return peer_copy("peer_pingpong", _ppermute(world, x, back))
+
+        return _chain(execution, iters)
+
+    buffers = _inputs(world, elems, tdtype, stage=(elems, tdtype))
+    ins, stage = [buffers["in0"], buffers["in1"]], buffers["stage"]
+    partner = (rank + n // 2) % n
+
+    def execution(cur, last):
+        out = _fresh(world, elems, tdtype) if last else ins[1 - cur][rank]
+        if group1:
+            peer_copy("peer_pingpong", ins[cur][partner], out=stage[rank])
+            peer_copy("peer_pingpong", ins[cur][rank], out=out)
+        peer_barrier(buffers.pads, buffers.generation, rank, peers="pair")
+        if not group1:
+            peer_copy("peer_pingpong", stage[partner], out=out)
         return out
 
+    return _peer_chain(buffers, rank, iters, "pair", ins[0][rank].copy_,
+                       execution)
+
+
+def _dist_barrier_step(world: DistWorld, iters: int,
+                       tdtype: torch.dtype) -> Callable:
+    """``pl_barrier`` on one rank: per execution one all-rank
+    ``peer_barrier`` with its tail copy of the one element, the TPU
+    kernel's global barrier and tiny local copy in one launch, as that is
+    one ``pallas_call``.  No rank reads another's data, so the pads are
+    the only symmetric buffer and no last barrier is needed; the copies
+    alternate between two local buffers (the last into a new tensor).  On
+    the CPU the ranks meet at gloo's barrier, then the plain version
+    signals stand-ins for the peers' pads and copies."""
+    n, rank = world.n, world.rank
+    if _gloo_path(world):
+        import torch.distributed as dist
+
+        pads = [torch.zeros(n, dtype=torch.int32) for _ in range(n)]
+        generation = torch.zeros(1, dtype=torch.int32)
+
+        def execution(x):
+            dist.barrier(group=world.group)
+            out = torch.empty_like(x)
+            peer_barrier(pads, generation, rank, copy=(x, out))
+            return out
+
+        return _chain(execution, iters)
+
+    buffers = PeerBuffers(world, {})
+    spare = [_fresh(world, 1, tdtype) for _ in range(2)]
+
+    def step(x):
+        for j in range(iters):
+            out = torch.empty_like(x) if j == iters - 1 else spare[j % 2]
+            peer_barrier(buffers.pads, buffers.generation, rank,
+                         copy=(x, out))
+            x = out
+        return x
+
     return step
+
+
+def _dist_all_to_all_step(world: DistWorld, elems: int, chunk: int,
+                          iters: int, tdtype: torch.dtype) -> Callable:
+    """``pl_all_to_all`` on one rank, ``out[s] = x_s[d]``: per execution
+    one ``peer_all_to_all``, the gather over the table of every rank's
+    chunk d of its input, after an all-rank barrier (the TPU kernel's
+    ``_global_barrier``).  Every rank reads every rank's input, so the
+    shift's argument holds with every rank as source and reader: a read
+    of buffer j%2 follows its write, and the write of buffer 1-j%2 its
+    last read, across barrier j; a last barrier closes the step.  On the
+    CPU ``all_to_all_single`` brings the n chunks."""
+    n, rank = world.n, world.rank
+    if _gloo_path(world):
+        return _chain(lambda x: peer_all_to_all(
+            list(_all_to_all_cpu(world, x, chunk))), iters)
+    buffers = _inputs(world, elems, tdtype)
+    ins = [buffers["in0"], buffers["in1"]]
+    reads = _chunk_tables(ins, rank, chunk)
+
+    def execution(cur, last):
+        return peer_all_to_all(reads[cur], out=_fresh(world, elems, tdtype)
+                               if last else ins[1 - cur][rank])
+
+    return _peer_chain(buffers, rank, iters, "all", ins[0][rank].copy_,
+                       execution)
+
+
+def _dist_reduce_scatter_step(world: DistWorld, elems: int, chunk: int,
+                              iters: int, tdtype: torch.dtype) -> Callable:
+    """``pl_reduce_scatter`` on one rank: per execution one
+    ``peer_reduce_scatter`` of chunk d of every rank's input, in the
+    ring's order, scaled by 1/n and written n times along the output (the
+    JAX carry ``jnp.tile(mine * inv, n)``, in the kernel), after an
+    all-rank barrier.  Every rank reads every rank's input: the argument
+    of :func:`_dist_all_to_all_step`.  On the CPU ``all_to_all_single``
+    brings the n parts."""
+    n, rank = world.n, world.rank
+    inv = mean_scale(n, tdtype)
+    if _gloo_path(world):
+        return _chain(lambda x: peer_reduce_scatter(
+            list(_all_to_all_cpu(world, x, chunk)), rank, scale=inv,
+            tiles=n), iters)
+    buffers = _inputs(world, elems, tdtype)
+    ins = [buffers["in0"], buffers["in1"]]
+    reads = _chunk_tables(ins, rank, chunk)
+
+    def execution(cur, last):
+        return peer_reduce_scatter(
+            reads[cur], rank, scale=inv, tiles=n,
+            out=_fresh(world, elems, tdtype) if last else ins[1 - cur][rank])
+
+    return _peer_chain(buffers, rank, iters, "all", ins[0][rank].copy_,
+                       execution)
+
+
+def _dist_gather_step(op: str, world: DistWorld, chunk: int, iters: int,
+                      tdtype: torch.dtype) -> Callable:
+    """``pl_all_gather`` (``peer_all_gather``) or ``pl_all_gather_bidir``
+    (``peer_all_gather_bidir``) on one rank: per execution one gather of
+    every rank's own chunk, then the JAX carry, the own chunk taken back
+    out.  On the card each rank keeps two symmetric gathered buffers
+    (``n * chunk``) and each execution gathers into the other one, reading
+    rank s's chunk s of the current one: the carry's own chunk is read in
+    place, so no slice copy runs between executions, and the step returns
+    the own chunk of its last gather.  Every rank reads every rank's
+    buffer: the argument of :func:`_dist_all_to_all_step`, with all-rank
+    barriers.  On the CPU an all-gather brings the owned chunks."""
+    from tpu_perf_torch.parallel.multihost import _all_gather_tensor
+
+    n, rank = world.n, world.rank
+    mine = slice(rank * chunk, (rank + 1) * chunk)
+
+    def gather(parts, out=None):
+        if op == "pl_all_gather":
+            return peer_all_gather(parts, out=out)
+        return peer_all_gather_bidir(parts, rank, out=out)
+
+    if _gloo_path(world):
+        def execution(x):
+            owned = x.view(1, chunk)
+            if n > 1:
+                owned = torch.empty(n, chunk, dtype=tdtype)
+                _all_gather_tensor(owned.view(-1), x, group=world.group)
+            return gather(list(owned))[mine]
+
+        return _chain(execution, iters)
+
+    buffers = _inputs(world, n * chunk, tdtype)
+    gathered = [buffers["in0"], buffers["in1"]]
+    owns = [PeerParts(_sub(p, s * chunk, chunk) for s, p in enumerate(parts))
+            for parts in gathered]
+
+    def execution(cur, last):
+        return gather(owns[cur], out=_fresh(world, n * chunk, tdtype)
+                      if last else gathered[1 - cur][rank])[mine]
+
+    return _peer_chain(buffers, rank, iters, "all",
+                       gathered[0][rank][mine].copy_, execution)
 
 
 def _rs_chunk(nbytes: int, itemsize: int, n: int) -> int:
@@ -998,36 +1481,103 @@ def _rs_chunk(nbytes: int, itemsize: int, n: int) -> int:
     return raw_chunk
 
 
+#: the local memory instruments: their function is each rank's own
+_LOCAL_PALLAS_OPS = ("pl_hbm_stream", "pl_hbm_copy", "pl_hbm_read",
+                     "pl_hbm_write")
+
+
 def _build_dist_pallas_step(op: str, world: DistWorld, nbytes: int,
                             iters: int, *, dtype: str
                             ) -> tuple[Callable, int, int]:
-    """A ``pl_*`` op on one rank of a multi-rank world.  ``pl_allreduce``
-    runs the peer kernels at any world size (one rank too: the world of
-    one still meets at its barrier and reads through its tables).  In a
-    world of one every other op is its sim kernel at n = 1 on the rank's
-    buffer, as the JAX package runs its Pallas ops on one chip; across
-    ranks their signal-pad forms are still to come."""
+    """A ``pl_*`` op on one rank of a multi-rank world, at any world size
+    the JAX op accepts.  The local memory instruments run the rank's sim
+    kernel at n = 1 on its own buffer, as the JAX package runs them on
+    every device of its mesh; every other op runs its peer form
+    (``pl_allreduce`` in a world of one too, where the JAX op asks for
+    two devices: the world of one still meets at its barrier and reads
+    through its tables).  Sizes and refusals are the sim world's."""
     from tpu_perf_torch.ops.collectives import DTYPES
 
     if len(world.axis_names) != 1:
         raise ValueError(
             f"pallas ops need a single-axis mesh, got axes {world.axis_names}")
+    n, tdtype = world.n, DTYPES[dtype]
     if op == "pl_allreduce":
-        tdtype = DTYPES[dtype]
-        chunk = _rs_chunk(nbytes, tdtype.itemsize, world.n)
-        elems = chunk * world.n
+        chunk = _rs_chunk(nbytes, tdtype.itemsize, n)
+        elems = chunk * n
         return (_dist_allreduce_step(world, elems, chunk, iters, tdtype),
                 elems, elems * tdtype.itemsize)
-    if world.n == 1:
-        step, elems, actual = build_pallas_step(
+    elems, chunk, actual = _pallas_sizes(op, n, nbytes, tdtype.itemsize)
+    if op in _LOCAL_PALLAS_OPS:
+        step, _, _ = build_pallas_step(
             op, SimWorld(1, world.device), nbytes, iters, dtype=dtype)
         return (lambda x: step(x.view(1, -1)).view(-1)), elems, actual
-    raise NotImplementedError(
-        f"{op} on a world of {world.n} ranks: its signal-pad form is not "
-        "yet ported, see ROADMAP")
+    if op in ("pl_ring", "pl_exchange"):
+        step = _dist_shift_step(op, world, elems, iters, tdtype)
+    elif op == "pl_pingpong":
+        step = _dist_pingpong_step(world, elems, iters, tdtype)
+    elif op == "pl_barrier":
+        step = _dist_barrier_step(world, iters, tdtype)
+    elif op == "pl_all_to_all":
+        step = _dist_all_to_all_step(world, elems, chunk, iters, tdtype)
+    elif op == "pl_reduce_scatter":
+        step = _dist_reduce_scatter_step(world, elems, chunk, iters, tdtype)
+    else:  # pl_all_gather, pl_all_gather_bidir
+        step = _dist_gather_step(op, world, chunk, iters, tdtype)
+    return step, elems, actual
 
 
 # --- the pl_* ops -------------------------------------------------------
+
+
+def _pallas_sizes(op: str, n: int, nbytes: int,
+                  itemsize: int) -> tuple[int, int, int]:
+    """``(elems_per_rank, chunk, actual_nbytes)`` of ``op`` on n ranks: the
+    JAX package's sizes, and its refusals word for word."""
+    if op in ("pl_exchange", "pl_pingpong") and n % 2:
+        raise ValueError(f"{op} needs an even device count, got {n}")
+    if op == "pl_all_gather":
+        # nbytes = gathered total; per-rank shard = nbytes/n
+        chunk = max(1, -(-nbytes // (itemsize * n)))
+        return chunk, chunk, chunk * n * itemsize
+    if op == "pl_all_gather_bidir":
+        # the same gathered-total semantics; the shard splits into two
+        # half-chunks, one per ring direction, so chunk rounds up to even
+        chunk = max(2, -(-nbytes // (itemsize * n)))
+        chunk += chunk % 2
+        return chunk, chunk, chunk * n * itemsize
+    if op == "pl_all_to_all":
+        # nbytes = per-rank input buffer; chunk = elems/n per destination
+        raw = max(1, -(-nbytes // itemsize))
+        chunk = max(1, -(-raw // n))
+        return chunk * n, chunk, chunk * n * itemsize
+    if op in ("pl_reduce_scatter", "pl_allreduce"):
+        if n < 2:
+            raise ValueError(f"{op} needs at least 2 devices, got {n}")
+        # nbytes = per-rank input buffer; chunk = elems/n, rounded up to a
+        # whole number of the JAX package's accumulation tiles
+        chunk = _rs_chunk(nbytes, itemsize, n)
+        return chunk * n, chunk, chunk * n * itemsize
+    if op in ("pl_hbm_read", "pl_hbm_write"):
+        # the single-sided sweeps round up to the 4 KiB DMA tiling, not to
+        # the itemsize: every 4 KiB-multiple sweep size still lands on the
+        # hbm_read / hbm_write curve key
+        align = max(1, _DMA_ALIGN_BYTES // itemsize)
+        elems = -(-max(1, -(-nbytes // itemsize)) // align) * align
+        return elems, elems, elems * itemsize
+    if op == "pl_barrier":
+        if n < 2:
+            # the JAX package's message, kept word for word
+            raise ValueError(
+                "pl_barrier needs at least 2 devices; a single-device "
+                "run measures a local semaphore self-signal, not ICI"
+            )
+        # latency only: one element whatever -b asks, like the barrier op
+        return 1, 1, itemsize
+    # the hbm_stream rounding: pl_hbm_stream, pl_hbm_copy, pl_ring,
+    # pl_exchange, pl_pingpong
+    elems = max(1, -(-nbytes // itemsize))
+    return elems, elems, elems * itemsize
 
 
 def build_pallas_step(op: str, world: SimWorld | DistWorld, nbytes: int,
@@ -1038,7 +1588,7 @@ def build_pallas_step(op: str, world: SimWorld | DistWorld, nbytes: int,
     Returns ``(step, elems_per_rank, actual_nbytes)``; the caller
     (ops.build_op) makes the example input and wraps it into a BuiltOp.
     """
-    from tpu_perf_torch.ops.collectives import DTYPES, chained
+    from tpu_perf_torch.ops.collectives import DTYPES
 
     if op not in PALLAS_OPS:
         raise ValueError(f"unknown pallas op {op!r}; known: {PALLAS_OPS}")
@@ -1049,57 +1599,9 @@ def build_pallas_step(op: str, world: SimWorld | DistWorld, nbytes: int,
         raise ValueError(
             f"pallas ops need a single-axis mesh, got axes {world.axis_names}")
     n = world.n
-    if op in ("pl_exchange", "pl_pingpong") and n % 2:
-        raise ValueError(f"{op} needs an even device count, got {n}")
     tdtype = DTYPES[dtype]
     itemsize = tdtype.itemsize
-    if op == "pl_all_gather":
-        # nbytes = gathered total; per-rank shard = nbytes/n
-        chunk = max(1, -(-nbytes // (itemsize * n)))
-        elems = chunk
-        actual = chunk * n * itemsize
-    elif op == "pl_all_gather_bidir":
-        # the same gathered-total semantics; the shard splits into two
-        # half-chunks, one per ring direction, so chunk rounds up to even
-        chunk = max(2, -(-nbytes // (itemsize * n)))
-        chunk += chunk % 2
-        elems = chunk
-        actual = chunk * n * itemsize
-    elif op == "pl_all_to_all":
-        # nbytes = per-rank input buffer; chunk = elems/n per destination
-        raw = max(1, -(-nbytes // itemsize))
-        chunk = max(1, -(-raw // n))
-        elems = chunk * n
-        actual = elems * itemsize
-    elif op in ("pl_reduce_scatter", "pl_allreduce"):
-        if n < 2:
-            raise ValueError(f"{op} needs at least 2 devices, got {n}")
-        # nbytes = per-rank input buffer; chunk = elems/n, rounded up to a
-        # whole number of the JAX package's accumulation tiles
-        chunk = _rs_chunk(nbytes, itemsize, n)
-        elems = chunk * n
-        actual = elems * itemsize
-    elif op in ("pl_hbm_read", "pl_hbm_write"):
-        # the single-sided sweeps round up to the 4 KiB DMA tiling, not to
-        # the itemsize: every 4 KiB-multiple sweep size still lands on the
-        # hbm_read / hbm_write curve key
-        align = max(1, _DMA_ALIGN_BYTES // itemsize)
-        elems = chunk = -(-max(1, -(-nbytes // itemsize)) // align) * align
-        actual = elems * itemsize
-    elif op == "pl_barrier":
-        if n < 2:
-            # the JAX package's message, kept word for word
-            raise ValueError(
-                "pl_barrier needs at least 2 devices; a single-device "
-                "run measures a local semaphore self-signal, not ICI"
-            )
-        # latency only: one element whatever -b asks, like the barrier op
-        elems = chunk = 1
-        actual = itemsize
-    else:  # the hbm_stream rounding: pl_hbm_stream, pl_hbm_copy, pl_ring,
-        # pl_exchange, pl_pingpong
-        elems = chunk = max(1, -(-nbytes // itemsize))
-        actual = elems * itemsize
+    elems, chunk, actual = _pallas_sizes(op, n, nbytes, itemsize)
 
     d = torch.arange(n, device=world.device)
 
@@ -1109,41 +1611,41 @@ def build_pallas_step(op: str, world: SimWorld | DistWorld, nbytes: int,
 
     if op == "pl_all_gather":
         # gather, then take the own shard back out (the JAX carry)
-        return chained(lambda x: own_chunks(direct_all_gather(x)), iters), \
+        return _chain(lambda x: own_chunks(direct_all_gather(x)), iters), \
             elems, actual
     if op == "pl_all_gather_bidir":
-        return chained(lambda x: own_chunks(direct_all_gather_bidir(x)),
-                       iters), elems, actual
+        return _chain(lambda x: own_chunks(direct_all_gather_bidir(x)),
+                      iters), elems, actual
     # each iteration feeds the previous output forward, as in JAX
     if op == "pl_all_to_all":
-        return chained(all_to_all, iters), elems, actual
+        return _chain(all_to_all, iters), elems, actual
     if op == "pl_hbm_stream":
-        return chained(stream, iters), elems, actual
+        return _chain(stream, iters), elems, actual
     if op == "pl_hbm_copy":
-        return chained(hbm_copy, iters), elems, actual
+        return _chain(hbm_copy, iters), elems, actual
     if op == "pl_hbm_read":
-        return chained(hbm_read, iters), elems, actual
+        return _chain(hbm_read, iters), elems, actual
     if op == "pl_hbm_write":
         block = hbm_dma_block_elems(itemsize, elems)
-        return chained(lambda x: hbm_write(x, block), iters), elems, actual
+        return _chain(lambda x: hbm_write(x, block), iters), elems, actual
     if op == "pl_ring":
-        return chained(ring_shift, iters), elems, actual
+        return _chain(ring_shift, iters), elems, actual
     if op == "pl_exchange":
-        return chained(pair_exchange, iters), elems, actual
+        return _chain(pair_exchange, iters), elems, actual
     if op == "pl_pingpong":
         # the round trip is the identity on both groups; the stage output
         # is discarded, as the JAX step discards it
-        return chained(lambda x: pingpong(x)[0], iters), elems, actual
+        return _chain(lambda x: pingpong(x)[0], iters), elems, actual
     if op == "pl_barrier":
-        return chained(barrier, iters), elems, actual
+        return _chain(barrier, iters), elems, actual
     # the kernel scales each reduced element by 1/n (the gather only moves
     # values, so scaling before it gives JAX's bits)
     inv = mean_scale(n, tdtype)
     if op == "pl_reduce_scatter":
         # own reduced chunk * 1/n, tiled over the whole buffer
-        return chained(lambda x: direct_reduce_scatter(x, scale=inv, tiles=n),
-                       iters), elems, actual
+        return _chain(lambda x: direct_reduce_scatter(x, scale=inv, tiles=n),
+                      iters), elems, actual
     # reduce-scatter phase (scaled), all-gather phase of the owned chunks
-    return chained(
+    return _chain(
         lambda x: direct_all_gather(direct_reduce_scatter(x, scale=inv)),
         iters), elems, actual

@@ -110,6 +110,12 @@ class DistWorld:
     #: axis name -> (this rank's process group along it, its ranks); the
     #: groups are made once, the first time an axis is asked for
     _axis_groups: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: where the peer ops' symmetric allocations come from when the ranks
+    #: share one process (the one-card loopback): ``(rank, nbytes) ->
+    #: (this rank's pointer, every rank's pointer)``, the allocations its
+    #: own; None: one allocation a process, whose IPC handle every peer
+    #: opens (:class:`tpu_perf_torch.ops.pallas_ring.PeerBuffers`)
+    peer_memory: object = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self) -> None:
         _check_mesh(self.mesh, self.n)
