@@ -308,6 +308,7 @@ def phase_check() -> None:
     check_barrier_chains(fill)
     check_pingpong_order(fill)
     check_row_copy_chains(fill)
+    check_peer_tile_kernels(fill)
 
 
 def check_gather_kernels(fill, chunks) -> int:
@@ -673,6 +674,103 @@ def check_row_copy_chains(fill) -> None:
           "its gather), tile counters zero; graphs of "
           f"{GRAPH_LAUNCHES} chained launches replay to the eager result "
           f"({', '.join(said)} per launch)")
+
+
+PEER_REPLAYS = 20
+
+
+def _replayed(launch, out, source: str, what: str):
+    """``launch()`` (which writes ``out``) run eagerly on a side stream,
+    captured there into a CUDA graph, ``out`` zeroed and the graph replayed
+    PEER_REPLAYS times; fails unless the side stream's ``source`` tile
+    counters are zero after the eager launch and after the replays.
+    Returns ``out``."""
+    import torch
+
+    from tpu_perf_torch.ops.pallas_ring import row_copy_counters
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        launch()
+        counters = row_copy_counters(source, out.device)
+        side.synchronize()
+        if counters.any():
+            fail(f"{what}: {source} counters {counters.tolist()} after a "
+                 "launch")
+        with torch.cuda.graph(graph, stream=side):
+            launch()
+        out.zero_()
+        for _ in range(PEER_REPLAYS):
+            graph.replay()
+        side.synchronize()
+        if counters.any():
+            fail(f"{what}: {source} counters {counters.tolist()} after "
+                 f"{PEER_REPLAYS} graph replays")
+    torch.cuda.current_stream().wait_stream(side)
+    return out
+
+
+def check_peer_tile_kernels(fill) -> None:
+    """The two peer kernels that draw tiles in order, bit for bit against
+    their plain versions at their tiles' edges (tile_edge_elems: one tile,
+    one more 16-byte unit, one more element, and more tiles than twice the
+    CTAs the card holds, ragged): the copy in float32, bfloat16, float16
+    and uint8, also from a view one element into its storage, which
+    together take all four words; the reduce-scatter at 8 and 5 ranks in
+    the three float dtypes, scaled by 1/n, one tile and n tiles, also at
+    many tiles with a last of three units (a chunk that is not whole
+    16-byte units takes the element path).  Each output is the one
+    PEER_REPLAYS replays of its graph wrote, and the tile counters are
+    zero after every launch."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+    from tpu_perf_torch.ops.collectives import DTYPES
+
+    cases, words = 0, set()
+    for dtype in ("float32", "bfloat16", "float16", "uint8"):
+        isz = DTYPES[dtype].itemsize
+        for elems in tile_edge_elems(pr.ROW_COPY_TILE_BYTES, isz, 1):
+            for offset in (0, 1):
+                src = fill((elems + offset,), dtype)[offset:]
+                out = torch.empty_like(src)
+                words.add(pr._widest_word(elems * isz, src.data_ptr(),
+                                          out.data_ptr()))
+                what = f"peer_copy {elems} {dtype} at storage offset {offset}"
+                got = _replayed(lambda: pr.peer_copy("peer_ring", src, out=out),
+                                out, "peer_copy", what)
+                check_exact(what, got, pr.peer_copy_plain("peer_ring", src))
+                cases += 1
+    if words != {16, 4, 2, 1}:
+        fail(f"peer_copy: the cases took the words {sorted(words)}")
+    for dtype in ("float32", "bfloat16", "float16"):
+        isz = DTYPES[dtype].itemsize
+        for n in (8, 5):
+            scale = pr.mean_scale(n, DTYPES[dtype])
+            edges = tile_edge_elems(pr.PEER_REDUCE_TILE_BYTES, isz, 1)
+            # and many tiles whose last holds three 16-byte units
+            for chunk in (*edges, edges[-1] - 3 + 3 * (16 // isz)):
+                x = fill((n, chunk), dtype)
+                parts = pr.PeerParts(x.unbind(0))
+                rank = n - 3
+                for tiles in (1, n):
+                    out = torch.empty(tiles * chunk, dtype=x.dtype,
+                                      device=x.device)
+                    what = (f"peer_reduce_scatter n={n} rank {rank} chunk "
+                            f"{chunk} {dtype} tiles {tiles}")
+                    got = _replayed(
+                        lambda: pr.peer_reduce_scatter(
+                            parts, rank, scale=scale, tiles=tiles, out=out),
+                        out, "peer_reduce", what)
+                    check_exact(what, got, pr.peer_reduce_scatter_plain(
+                        list(parts), rank, scale, tiles))
+                    cases += 1
+    print(f"check: {cases} peer_copy / peer_reduce_scatter cases at their "
+          "tiles' edges (the copy in words 16, 4, 2 and 1) equal their plain "
+          f"versions bit for bit after {PEER_REPLAYS} replays of each one's "
+          "graph; the tile counters zero after every launch")
 
 
 def chain(kern, x):
@@ -2226,15 +2324,17 @@ def _streams_sweep() -> None:
 def check_counter_race(rounds: int = RACE_ROUNDS) -> None:
     """Kernels that draw tiles from device counters, two at once on two
     lanes, ``rounds`` times: pl_ring beside pl_exchange (one row-shift
-    source), two sizes of the gather, the copy beside itself.  Every
-    output equals its plain version exactly, and each lane's counters end
-    at zero."""
+    source), two sizes of the gather, the copy beside itself, and the peer
+    copy and the peer reduce-scatter (scaled, one tile and n tiles) each
+    beside itself.  Every output equals its plain version exactly, and
+    each lane's counters end at zero."""
     import torch
 
     from tpu_perf_torch.ops.pallas_ring import (
-        direct_all_gather, direct_all_gather_plain, hbm_copy, hbm_copy_plain,
-        pair_exchange, pair_exchange_plain, ring_shift, ring_shift_plain,
-        row_copy_counters,
+        PeerParts, direct_all_gather, direct_all_gather_plain, hbm_copy,
+        hbm_copy_plain, mean_scale, pair_exchange, pair_exchange_plain,
+        peer_copy, peer_reduce_scatter, peer_reduce_scatter_plain,
+        ring_shift, ring_shift_plain, row_copy_counters,
     )
     from tpu_perf_torch.ops.collectives import make_fill, to_tensor
     from tpu_perf_torch.streams.engine import StreamEngine
@@ -2245,6 +2345,17 @@ def check_counter_race(rounds: int = RACE_ROUNDS) -> None:
                          "float32", "cuda")
 
     row = 4 * 1024**2  # 16 MiB a rank
+    inv = mean_scale(8, torch.float32)
+
+    def peer_reduce(x, tiles):
+        # a rank's reduce-scatter over x's rows (8 ranks' chunks), its
+        # table made here, outside the race; the lane passes x
+        parts = PeerParts(x.unbind(0))
+        return (lambda _: peer_reduce_scatter(parts, 5, scale=inv,
+                                              tiles=tiles),
+                lambda _: peer_reduce_scatter_plain(list(parts), 5, inv,
+                                                    tiles), x)
+
     races = (
         ("pl_ring beside pl_exchange", "p2p_shift",
          (ring_shift, ring_shift_plain, fill((8, row))),
@@ -2255,6 +2366,14 @@ def check_counter_race(rounds: int = RACE_ROUNDS) -> None:
         ("pl_hbm_copy beside itself", "hbm_copy",
          (hbm_copy, hbm_copy_plain, fill((8, row))),
          (hbm_copy, hbm_copy_plain, fill((1, 8 * row + 3)))),
+        ("peer_copy beside itself", "peer_copy",
+         (lambda x: peer_copy("peer_ring", x.view(-1)),
+          lambda x: x.reshape(-1).clone(), fill((8, row))),
+         (lambda x: peer_copy("peer_exchange", x.view(-1)),
+          lambda x: x.reshape(-1).clone(), fill((1, 8 * row + 3)))),
+        ("peer_reduce_scatter beside itself", "peer_reduce",
+         peer_reduce(fill((8, row)), 1),
+         peer_reduce(fill((8, row // 2 + 4)), 8)),
     )
     said = []
     for name, source, *sides in races:
@@ -2502,16 +2621,19 @@ def peer_launches(op: str, n: int, rank: int, steps: int) -> dict:
 
 def _dist_world_of_one() -> dict:
     """(a) ``run --distributed`` in an NCCL world of one, in this process
-    through ``cli.main``: the library ops' rows (backend torch, NCCL the
-    group's backend, no kernel of the port), then each pl_* op of
-    ONE_RANK_OPS over DIST_SWEEP under the block fence and at FUSED_BYTES
-    under the fused one, each run's launches (counted from 0 just before
-    it, read just after) its path's and no plain call; then each op's
-    output against its plain chain (:func:`_check_world_of_one`).
-    Returns the launches by kernel, summed over the pl_* runs."""
+    through ``cli.main``: the library ops' rows (backend torch, no kernel
+    of the port), the command joining the world and leaving it when it
+    ends; then, in a world this process joins first (NCCL its backend),
+    which each command leaves alone, each pl_* op of ONE_RANK_OPS over
+    DIST_SWEEP under the block fence and at FUSED_BYTES under the fused
+    one, each run's launches (counted from 0 just before it, read just
+    after) its path's and no plain call; then each op's output against
+    its plain chain (:func:`_check_world_of_one`).  Returns the launches
+    by kernel, summed over the pl_* runs."""
     import torch.distributed as dist
 
     from tpu_perf_torch.config import Options
+    from tpu_perf_torch.parallel import initialize_distributed
     from tpu_perf_torch.runner import sizes_for
 
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
@@ -2525,9 +2647,13 @@ def _dist_world_of_one() -> dict:
     launched, said = {}, []
     try:
         got, rows, wall = _drive(argv, what)
-        backend = dist.get_backend()
+        if dist.is_initialized():
+            fail(f"{what}: the command left its process group behind")
         if any(got.values()):
             fail(f"{what}: launches {got}, want none")
+        os.environ["MASTER_PORT"] = str(_free_port())
+        initialize_distributed(device="cuda")
+        backend = dist.get_backend()
         for op in ONE_RANK_OPS:
             sizes = sizes_for(Options(sweep=DIST_SWEEP, op=op))
             for fence, points, steps in (
@@ -2575,7 +2701,8 @@ def _dist_world_of_one() -> dict:
             for r in rows):
         fail(f"{what}: {len(rows)} rows (want {want_rows}) or a bad row")
     print(f"distributed: {what}: {len(rows)} rows (backend torch, 1 rank) "
-          f"in {wall:.1f} s, no kernel of the port")
+          f"in {wall:.1f} s, no kernel of the port; the command left its "
+          "NCCL group (barrier, destroy_process_group)")
     print("distributed: the pl_* ops of a world of one, each run's launches "
           f"its path's, plain calls 0: {'; '.join(said)} ({CARD})")
     print(f"distributed: {checked}")
@@ -3259,7 +3386,7 @@ def _loopback_timing() -> list[dict]:
         {"name": "peer_reduce_scatter", "route": "cuda", "source": source,
          "replaces": "tpu_perf/ops/pallas_ring.py:599", "max_abs_err": rs_err,
          "ms": cuda_ms(rs, 10), "plain_ms": cuda_ms(plain_rs, 3, 1),
-         **data_bound,
+         **data_bound, "library_call": "view(n,n,c).sum(0)",
          "library_ms": cuda_ms(lambda: rows.view(n, n, chunk).sum(0), 10),
          "sim_kernel_ms": sim_rs, **tiled},
         {"name": "peer_all_gather", "route": "cuda", "source": source,
@@ -3367,16 +3494,17 @@ def _loopback_timing_new(w, xs, rows, full, red,
                                   ("peer_exchange", 365, half)):
         copies(name, shift)()
         torch.cuda.synchronize()
-        want = rows[(idx - shift) % n]
+        # the library's row gather takes an index made outside its timing
+        perm = (idx - shift) % n
         err = check_exact(f"loopback at 8 x 256 MiB: {name}",
-                          torch.stack(full), want)
+                          torch.stack(full), rows[perm])
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": f"tpu_perf/ops/pallas_ring.py:{replaces}",
             "max_abs_err": err, "ms": cuda_ms(copies(name, shift), 10),
             "plain_ms": cuda_ms(plain_copies(name, shift), 3, 1),
-            **move_bound,
-            "library_ms": cuda_ms(lambda: rows[(idx - shift) % n], 10),
+            **move_bound, "library_call": "x[idx]",
+            "library_ms": cuda_ms(lambda perm=perm: rows[perm], 10),
             "sim_kernel_ms": cuda_ms(
                 (lambda: pr.ring_shift(rows)) if name == "peer_ring"
                 else (lambda: pr.pair_exchange(rows)), 10)})
@@ -3388,7 +3516,8 @@ def _loopback_timing_new(w, xs, rows, full, red,
         "name": "peer_pingpong", "route": "cuda", "source": source,
         "replaces": "tpu_perf/ops/pallas_ring.py:385", "max_abs_err": pp_err,
         "ms": cuda_ms(pingpong, 10), "plain_ms": cuda_ms(plain_pingpong, 3, 1),
-        **move_bound, "library_ms": cuda_ms(rows.clone, 10),
+        **move_bound, "library_call": "x.clone()",
+        "library_ms": cuda_ms(rows.clone, 10),
         # the legs' schedule: three copies of half the ranks' buffers
         "schedule_bound_ms": _bound(3 * half * 2 * elems * isz, 0)["bound_ms"],
         "sim_kernel_ms": cuda_ms(lambda: pr.pingpong(rows), 10)})
@@ -3522,11 +3651,13 @@ def loopback() -> None:
           f"sim kernels' chain bit for bit ({time.perf_counter() - t0:.1f} s)")
     entries = _loopback_timing()
     for k in entries:
+        library = k.get("library_call", "")
         print(f"{k['name']} at 8 x 256 MiB, 8 streams: {k['ms']:.4f} ms "
               f"(sim kernel {k.get('sim_kernel_ms', float('nan')):.4f}), "
               f"plain {k['plain_ms']:.4f}, bound {k['bound_ms']:.4f} ms, "
-              f"library {k['library_ms'] or float('nan'):.4f} ms "
-              f"({card_line()})")
+              f"library {library} {k['library_ms'] or float('nan'):.4f} ms"
+              + (f", kernel / library {k['ms'] / k['library_ms']:.4f}"
+                 if library else "") + f" ({card_line()})")
         for extra in ("graph_ms", "ring_graph_ms", "pair_graph_ms"):
             if extra in k:
                 print(f"{k['name']}: {extra} {k[extra] * 1e3:.3f} us a "

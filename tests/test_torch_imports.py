@@ -47,8 +47,9 @@ def test_no_module_of_the_port_imports_jax_or_tpu_perf():
 
 #: the modules of the fences, report and daemon slice, of the run surface
 #: (the group topology, the external launcher, the C baseline), of the
-#: compute instruments, the stream engine, contend and bench, and of the
-#: multi-rank world (the meshes and the multi-process world)
+#: compute instruments, the stream engine, contend and bench, of the
+#: multi-rank world (the meshes and the multi-process world), and the peer
+#: kernels' design tool
 SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.ingest", "tpu_perf_torch.ingest.pipeline",
                  "tpu_perf_torch.timing", "tpu_perf_torch.driver",
@@ -59,7 +60,8 @@ SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.streams.contend", "tpu_perf_torch.bench",
                  "tpu_perf_torch.grid", "tpu_perf_torch.selftest",
                  "tpu_perf_torch.parallel", "tpu_perf_torch.parallel.mesh",
-                 "tpu_perf_torch.parallel.multihost")
+                 "tpu_perf_torch.parallel.multihost",
+                 "tpu_perf_torch.tools.peer_designs")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -212,3 +214,45 @@ def test_launch_errors_raise():
     _build.check("direct_all_gather", 0)
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         _build.check("direct_all_gather", 9)
+
+
+def test_peer_kernels_take_their_tiles_in_order():
+    # the peer copy and the peer reduce-scatter draw their tiles through the
+    # shared header; the reduce's tile is the one the checks probe
+    from tpu_perf_torch.ops import pallas_ring as tpr
+
+    text = (_build.CSRC / "peer_collectives.cu").read_text()
+    assert '#include "row_copy.cuh"' in text
+    assert text.count("row_copy::for_each_tile(") == 2
+    units = int(re.search(r"kReduceUnits = (\d+);", text).group(1))
+    cuh = (_build.CSRC / "row_copy.cuh").read_text()
+    threads = int(re.search(r"kThreads = (\d+);", cuh).group(1))
+    assert threads * units * 16 == tpr.PEER_REDUCE_TILE_BYTES
+    # both grow the counters' pointer in their C entries
+    for symbol in ("peer_reduce_scatter", "peer_copy"):
+        m = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text)
+        assert "counters" in m.group(1), symbol
+
+
+def test_peer_designs_edit_the_shipped_sources(tmp_path):
+    # every design of the peer kernels is an edit of the shipped sources
+    # that must still apply
+    from tpu_perf_torch.tools import peer_designs
+
+    found = peer_designs.designs(tmp_path, "1x4,2x2", "4096x2")
+    assert sorted(found) == ["reduce loads cs", "reduce loads nc",
+                             "reduce plain stores",
+                             "reduce tma span 4096 stages 2",
+                             "reduce units 1 ctas/sm 4",
+                             "reduce units 2 ctas/sm 2"]
+    # the shipped design is the shipped sources
+    path, _ = found["reduce units 1 ctas/sm 4"]
+    for name in (path.name, "row_copy.cuh"):
+        assert ((path.parent / name).read_text()
+                == (_build.CSRC / name).read_text())
+    path, _ = found["reduce plain stores"]
+    assert peer_designs.PLAIN_STORE in path.read_text()
+    assert peer_designs.STREAMING_STORE not in path.read_text()
+    path, defines = found["reduce tma span 4096 stages 2"]
+    assert "cp.async.bulk" in path.read_text()
+    assert defines == ["PEER_TMA_SPAN=4096", "PEER_TMA_STAGES=2"]

@@ -352,3 +352,104 @@ def test_extern_pairs_across_two_processes(tmp_path):
     # the client dials its peer's address and port, from the allgather
     assert client.split()[2:] == server.split()[2:]
     assert client.split()[-1] == "40001"
+
+
+# --- leaving the world ------------------------------------------------------
+
+
+@pytest.fixture
+def world_of_one_env(monkeypatch):
+    """torchrun's variables for an in-process gloo world of one on a free
+    port; leaves the process out of any group at the end."""
+    import torch.distributed as dist
+
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.fixture
+def leaves(monkeypatch):
+    """Each teardown cli.main makes, as its barrier flag."""
+    import tpu_perf_torch.parallel as parallel
+
+    calls, leave = [], parallel.leave_world
+
+    def spy(*, barrier=True):
+        calls.append(barrier)
+        leave(barrier=barrier)
+
+    monkeypatch.setattr(parallel, "leave_world", spy)
+    return calls
+
+
+RUN_ONE = ["run", "--distributed", "--device", "cpu", "-b", "4K", "-r", "1"]
+
+
+def test_a_command_leaves_the_world_it_joined(world_of_one_env, leaves,
+                                              capsys):
+    import torch.distributed as dist
+
+    from tpu_perf_torch.cli import main
+
+    assert main(RUN_ONE + ["--op", "allreduce"]) == 0
+    assert not dist.is_initialized() and leaves == [True]
+    # a second command in the same process joins again, and leaves again
+    assert main(RUN_ONE + ["--op", "allreduce,pl_allreduce"]) == 0
+    assert not dist.is_initialized() and leaves == [True, True]
+    rows = [ln for ln in capsys.readouterr().out.splitlines()
+            if ",torch," in ln]
+    assert [r.split(",")[3] for r in rows] == [
+        "allreduce", "allreduce", "pl_allreduce"]
+
+
+@pytest.mark.parametrize("op", ["pl_exchange", "pingpong"])
+def test_a_command_that_fails_in_the_world_leaves_it(op, world_of_one_env,
+                                                     leaves, capsys):
+    import torch.distributed as dist
+
+    from tpu_perf_torch.cli import main
+
+    # refused inside the world: an even rank count, in the JAX words
+    assert main(RUN_ONE + ["--op", op]) == 2
+    assert "even device count" in capsys.readouterr().err
+    # left without the barrier a lost peer would never meet
+    assert not dist.is_initialized() and leaves == [False]
+    assert main(RUN_ONE + ["--op", "allreduce"]) == 0
+    assert not dist.is_initialized() and leaves == [False, True]
+
+
+def test_an_interrupted_daemon_leaves_the_world(world_of_one_env, leaves,
+                                                monkeypatch):
+    import torch.distributed as dist
+
+    from tpu_perf_torch.cli import main
+    from tpu_perf_torch.driver import Driver
+
+    def interrupted(self, plan):
+        assert dist.is_initialized()
+        raise KeyboardInterrupt
+
+    argv = ["monitor", "--distributed", "--device", "cpu", "--op",
+            "allreduce", "-b", "4K"]
+    assert main(argv + ["--max-runs", "3"]) == 0
+    assert not dist.is_initialized() and leaves == [True]
+    monkeypatch.setattr(Driver, "_run_daemon", interrupted)
+    with pytest.raises(KeyboardInterrupt):
+        main(argv)
+    assert not dist.is_initialized() and leaves == [True, False]
+
+
+def test_a_group_joined_before_the_command_stays(world_of_one_env, leaves):
+    import torch.distributed as dist
+
+    from tpu_perf_torch.cli import main
+    from tpu_perf_torch.parallel import initialize_distributed
+
+    assert initialize_distributed(device="cpu")
+    assert main(RUN_ONE + ["--op", "allreduce"]) == 0
+    assert dist.is_initialized() and leaves == []

@@ -369,7 +369,8 @@ def fake_streams(monkeypatch):
     monkeypatch.setattr(tpr, "_stream_key",
                         lambda device: (device.index, current["stream"]))
     monkeypatch.setattr(tpr, "_ROW_COPY_COUNTERS",
-                        {"p2p_shift": {}, "hbm_copy": {}, "all_gather": {}})
+                        {"p2p_shift": {}, "hbm_copy": {}, "all_gather": {},
+                         "peer_copy": {}, "peer_reduce": {}})
     monkeypatch.setattr(tpr, "_PINGPONG_COUNTERS", {})
     return current
 
@@ -377,6 +378,8 @@ def fake_streams(monkeypatch):
 @pytest.mark.parametrize("get", [
     lambda: tpr.row_copy_counters("p2p_shift", CPU),
     lambda: tpr.row_copy_counters("all_gather", CPU),
+    lambda: tpr.row_copy_counters("peer_copy", CPU),
+    lambda: tpr.row_copy_counters("peer_reduce", CPU),
     lambda: tpr.pingpong_counters(CPU, 4),
 ])
 def test_two_streams_get_two_counter_buffers(get, fake_streams):

@@ -51,6 +51,7 @@ world, one process a rank (``torchrun``); ``--mesh`` / ``--axes`` and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 
 from tpu_perf_torch.config import (
@@ -755,11 +756,45 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+@contextlib.contextmanager
+def _world_scope():
+    """Around a command: leave the distributed world it joined when it
+    ends (``multihost.leave_world``).  On success the ranks meet at a
+    barrier before the group goes; when the command raises, the group goes
+    without one (a peer may never arrive) and the command's own error
+    propagates, whatever the teardown does.  A group joined before the
+    command is left alone, and a command that never loaded
+    ``torch.distributed`` (``--backend mpi``, ``ingest``) joined none."""
+
+    def joined() -> bool:
+        if "torch.distributed" not in sys.modules:
+            return False
+        from tpu_perf_torch.parallel.multihost import joined
+
+        return joined()
+
+    before = joined()
+    try:
+        yield
+    except BaseException:
+        if not before and joined():
+            from tpu_perf_torch.parallel import leave_world
+
+            with contextlib.suppress(Exception):
+                leave_world(barrier=False)
+        raise
+    if not before and joined():
+        from tpu_perf_torch.parallel import leave_world
+
+        leave_world()
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        rc = args.func(args)
-        sys.stdout.flush()
+        with _world_scope():
+            rc = args.func(args)
+            sys.stdout.flush()
         return rc
     except (ValueError, NotImplementedError) as e:
         print(f"tpu-perf-torch: error: {e}", file=sys.stderr)

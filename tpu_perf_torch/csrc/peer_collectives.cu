@@ -79,10 +79,30 @@
 // its n chunks (peer_reduce), n parts (peer_gather) or one buffer
 // (peer_copy) over NVLink (450 GB/s each way) and writes its own output;
 // in the loopback the n launches share one card's memory and move the sim
-// kernels' bytes in all.  The design is the sim kernels' first one: one
-// thread a 16-byte unit, the loads of up to kGroup peers issued before
-// their adds, a grid-stride loop sized to the SMs; ragged or misaligned
-// chunks go one element (or word) a thread.
+// kernels' bytes in all.
+//
+// Design.  peer_copy_kernel and peer_reduce's 16-byte path are persistent
+// grids that draw tiles in address order from a per-launch counter pair
+// (row_copy.cuh: the counters sit in a buffer the host wrapper keeps per
+// card and stream, and the last CTA returns them to zero), so the tiles in
+// flight stay within a few MB of one another and no tail wave runs with
+// few loads in flight; a grid-stride loop (four CTAs an SM, a word a
+// thread a trip) trailed PyTorch's copy and its sum (on an H100, 8 ranks x
+// 256 MiB in the one-card loopback: 1.50 ms against x[idx]'s 1.43-1.45,
+// 0.80 against view(n,n,c).sum(0)'s 0.78).
+// The copy is row_copy's own tile copy (8 KB tiles, 2 x 16 bytes a thread
+// in flight, four CTAs an SM, streaming stores: its output is not read
+// back), in the widest word (16, 4, 2 or 1 bytes) that divides both
+// addresses and the length.  peer_reduce's tile is kThreads x
+// kReduceUnits 16-byte units of the owned chunk; a thread loads its units
+// of up to kGroup peers before it adds, and stores the sum and its `tiles`
+// copies evict-first (st.global.cs), so the output does not push the
+// peers' chunks out of L2.  Units in flight and CTAs an SM were chosen on
+// an H100 at 8 x 256 MiB, n = 8: see kReduceUnits.  The kernels never
+// wait on anything: the barrier stays the only waiter.  A chunk that is
+// not a whole number of aligned 16-byte units (vec == 0) goes one element
+// a thread in a grid-stride loop: it is off the paths' 256 MiB points,
+// whose chunks are aligned.  peer_gather keeps the grid-stride loop.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -90,11 +110,26 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "row_copy.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;     // threads per data block
-constexpr int kBlocksPerSm = 4;   // data grid = SMs x this, the loop strides
+constexpr int kThreads = row_copy::kThreads;  // threads per data block
+constexpr int kBlocksPerSm = 4;   // grid-stride grids: SMs x this
 constexpr int kGroup = 8;         // peer loads issued before their adds
+// peer_reduce's tile: 16-byte units a thread.  One unit a thread (eight
+// peers' loads, 128 bytes, in flight; 62 registers in float32, so four
+// CTAs fill an SM) at row_copy's four CTAs an SM took 0.7984-0.8002 ms
+// scaled and 1.4616-1.4666 tiled; view(n,n,c).sum(0) took 0.7770-0.7894.
+// The runner-up scaled, the same with non-coherent loads, took
+// 0.7974-0.8003; the best tiled, four units at two CTAs an SM,
+// 1.4562-1.4583.  Every other design took within 2.5% of the choice: one,
+// two or four units at one to eight CTAs an SM, plain stores, evict-first
+// loads (0.8160-0.8228, the slowest), and TMA bulk loads of the n spans
+// into shared memory (2-8 KB spans, 2-4 stages: 0.8029-0.8138).  (NVIDIA
+// H100 80GB HBM3, 700 W, loopback 8 ranks x 256 MiB float32, three rounds
+// each: python -m tpu_perf_torch.tools.peer_designs.)
+constexpr int kReduceUnits = 1;
 constexpr int kMaxRanks = 64;     // pointer-table entries a block stages
 constexpr int kBarrierThreads = 32;
 constexpr unsigned long long kTimeoutNs = 60ull * 1000000000ull;
@@ -117,29 +152,118 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
 }
 
-// Sum in ring order: unit u of out (and of each of its `tiles` copies) is
-// the sum over k = 0..n-1 of unit u of parts[(rank + 1 + k) % n], times
-// scale.  The table is staged in shared memory in that order once a block.
+// The ring-order sum of one unit of 16 bytes: acc = ((v[0] + v[1]) + ...)
+// + v[n-1] with v[k] from src[k] (the table in ring order), rounded to T
+// after every add, then times scale, rounded once more.
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-peer_reduce(const T* const* __restrict__ parts, T* __restrict__ out, int n,
-            int rank, long long chunk, float scale, int tiles) {
-  using P = Pack<T, V>;
-  __shared__ const T* src[kMaxRanks];
+__device__ __forceinline__ void add_unit(Pack<T, V>& acc, const Pack<T, V>& v) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    acc.v[e] = from_f32<T>(to_f32(acc.v[e]) + to_f32(v.v[e]));
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void scale_unit(Pack<T, V>& acc, float scale) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    acc.v[e] = from_f32<T>(__fmul_rn(to_f32(acc.v[e]), scale));
+  }
+}
+
+// Stage the pointer table in shared memory in ring order: src[k] is
+// parts[(rank + 1 + k) % n].  All threads call it.
+template <typename T>
+__device__ __forceinline__ void stage_ring(const T** src,
+                                           const T* const* parts, int n,
+                                           int rank) {
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     src[k] = parts[(rank + 1 + k) % n];
   }
   __syncthreads();
+}
+
+// Sum in ring order, the 16-byte path: unit u of out (and of each of its
+// `tiles` copies) is the sum over k = 0..n-1 of unit u of parts[(rank + 1
+// + k) % n], times scale.  Tiles of kThreads x U units are drawn in order
+// (row_copy::for_each_tile); within a tile each warp takes 32 x U
+// consecutive units, its lanes 32 apart, so every load and store of the
+// warp is coalesced.
+template <typename T, int U>
+__global__ void __launch_bounds__(kThreads)
+peer_reduce(const T* const* __restrict__ parts, T* __restrict__ out,
+            unsigned int* counters, int n, int rank, long long chunk,
+            float scale, int tiles) {
+  constexpr int V = 16 / (int)sizeof(T);
+  using P = Pack<T, V>;
+  __shared__ const T* staged[kMaxRanks];
+  stage_ring(staged, parts, n, rank);
+  const T* const* src = staged;
   const long long units = chunk / V;
+  constexpr long long per_tile = (long long)kThreads * U;
+  row_copy::for_each_tile(
+      counters, (unsigned int)((units + per_tile - 1) / per_tile),
+      [&](unsigned int t) {
+        const long long lane0 = (long long)t * per_tile +
+                                (long long)(threadIdx.x & ~31) * U +
+                                (threadIdx.x & 31);
+        P acc[U];
+        for (int k0 = 0; k0 < n; k0 += kGroup) {
+          P v[kGroup][U];
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            if (k0 + g >= n) continue;
+            const P* s = reinterpret_cast<const P*>(src[k0 + g]);
+#pragma unroll
+            for (int j = 0; j < U; ++j) {
+              const long long i = lane0 + 32 * j;
+              if (i < units) v[g][j] = s[i];
+            }
+          }
+#pragma unroll
+          for (int g = 0; g < kGroup; ++g) {
+            const int k = k0 + g;
+#pragma unroll
+            for (int j = 0; j < U; ++j) {
+              if (k == 0) {
+                acc[j] = v[g][j];
+              } else if (k < n) {
+                add_unit(acc[j], v[g][j]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          const long long i = lane0 + 32 * j;
+          if (i >= units) continue;
+          scale_unit(acc[j], scale);
+          const uint4 bits = *reinterpret_cast<const uint4*>(&acc[j]);
+          for (int c = 0; c < tiles; ++c) {
+            __stcs(reinterpret_cast<uint4*>(out + c * chunk) + i, bits);
+          }
+        }
+      });
+}
+
+// The same sum one element a thread, for chunks that are not whole
+// aligned 16-byte units: a grid-stride loop (off the paths' large points).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+peer_reduce_elems(const T* const* __restrict__ parts, T* __restrict__ out,
+                  int n, int rank, long long chunk, float scale, int tiles) {
+  using P = Pack<T, 1>;
+  __shared__ const T* src[kMaxRanks];
+  stage_ring(src, parts, n, rank);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       u < units; u += stride) {
+       u < chunk; u += stride) {
     P acc;
     for (int k0 = 0; k0 < n; k0 += kGroup) {
       P v[kGroup];
 #pragma unroll
       for (int g = 0; g < kGroup; ++g) {
-        if (k0 + g < n) v[g] = *reinterpret_cast<const P*>(src[k0 + g] + u * V);
+        if (k0 + g < n) v[g].v[0] = src[k0 + g][u];
       }
 #pragma unroll
       for (int g = 0; g < kGroup; ++g) {
@@ -147,20 +271,12 @@ peer_reduce(const T* const* __restrict__ parts, T* __restrict__ out, int n,
         if (k == 0) {
           acc = v[g];
         } else if (k < n) {
-#pragma unroll
-          for (int e = 0; e < V; ++e) {
-            acc.v[e] = from_f32<T>(to_f32(acc.v[e]) + to_f32(v[g].v[e]));
-          }
+          add_unit(acc, v[g]);
         }
       }
     }
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      acc.v[e] = from_f32<T>(__fmul_rn(to_f32(acc.v[e]), scale));
-    }
-    for (int t = 0; t < tiles; ++t) {
-      *reinterpret_cast<P*>(out + t * chunk + u * V) = acc;
-    }
+    scale_unit(acc, scale);
+    for (int t = 0; t < tiles; ++t) out[t * chunk + u] = acc.v[0];
   }
 }
 
@@ -185,16 +301,18 @@ peer_gather(const W* const* __restrict__ parts, W* __restrict__ out,
   }
 }
 
-// dst = src, `words` words of W; src may be a peer's buffer.
+// dst = src, `words` words of W; src may be a peer's buffer.  One row of
+// 8 KB tiles drawn in order; the last tile may be ragged.
 template <typename W>
 __global__ void __launch_bounds__(kThreads)
 peer_copy_kernel(const W* __restrict__ src, W* __restrict__ dst,
-                 long long words) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < words; i += stride) {
-    dst[i] = src[i];
-  }
+                 unsigned int* counters, long long words) {
+  constexpr long long tile = row_copy::kTileWords<W>;
+  row_copy::for_each_tile(
+      counters, (unsigned int)((words + tile - 1) / tile),
+      [&](unsigned int t) {
+        row_copy::copy_tile<true>(src, dst, words, (long long)t * tile);
+      });
 }
 
 __device__ __forceinline__ void store_release_sys(unsigned int* p,
@@ -280,20 +398,41 @@ int data_grid(long long work) {
   return (int)blocks;
 }
 
+// The persistent grid of `kernel` for `tiles` tiles: its resident CTAs
+// (asked once per card into `cache`), no more than the tiles, and one CTA
+// for none (it draws past the end and zeroes the counters); 0 with *err
+// set when the query fails or the draws would overflow the counter.
+int tile_grid(const void* kernel, int* cache, long long tiles,
+              cudaError_t* err) {
+  const int resident = row_copy::resident_ctas(kernel, cache, err);
+  if (*err != cudaSuccess) return 0;
+  const int grid = row_copy::grid_for(tiles, resident, err);
+  if (*err != cudaSuccess) return 0;
+  return grid < 1 ? 1 : grid;
+}
+
 template <typename T>
-int launch_reduce(const void* table, void* out, int n, int rank,
-                  long long chunk, float scale, int tiles, int vec,
+int launch_reduce(const void* table, void* out, void* counters, int n,
+                  int rank, long long chunk, float scale, int tiles, int vec,
                   cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
   const T* const* parts = static_cast<const T* const*>(table);
   T* o = static_cast<T*>(out);
-  if (vec) {
-    peer_reduce<T, V><<<data_grid(chunk / V), kThreads, 0, stream>>>(
+  if (!vec) {
+    peer_reduce_elems<T><<<data_grid(chunk), kThreads, 0, stream>>>(
         parts, o, n, rank, chunk, scale, tiles);
-  } else {
-    peer_reduce<T, 1><<<data_grid(chunk), kThreads, 0, stream>>>(
-        parts, o, n, rank, chunk, scale, tiles);
+    return (int)cudaGetLastError();
   }
+  static int resident_cache[row_copy::kMaxDevices] = {0};
+  constexpr long long per_tile = (long long)kThreads * kReduceUnits;
+  const long long units = chunk / (16 / (long long)sizeof(T));
+  cudaError_t err = cudaSuccess;
+  const int grid = tile_grid((const void*)peer_reduce<T, kReduceUnits>,
+                             resident_cache,
+                             (units + per_tile - 1) / per_tile, &err);
+  if (err != cudaSuccess) return (int)err;
+  peer_reduce<T, kReduceUnits><<<grid, kThreads, 0, stream>>>(
+      parts, o, static_cast<unsigned int*>(counters), n, rank, chunk, scale,
+      tiles);
   return (int)cudaGetLastError();
 }
 
@@ -310,11 +449,18 @@ int launch_gather(const void* table, void* out, int n, int rank,
 }
 
 template <typename W>
-int launch_copy(const void* src, void* dst, long long nbytes,
+int launch_copy(const void* src, void* dst, void* counters, long long nbytes,
                 cudaStream_t stream) {
+  static int resident_cache[row_copy::kMaxDevices] = {0};
+  constexpr long long tile = row_copy::kTileWords<W>;
   const long long words = nbytes / (long long)sizeof(W);
-  peer_copy_kernel<W><<<data_grid(words), kThreads, 0, stream>>>(
-      static_cast<const W*>(src), static_cast<W*>(dst), words);
+  cudaError_t err = cudaSuccess;
+  const int grid = tile_grid((const void*)peer_copy_kernel<W>, resident_cache,
+                             (words + tile - 1) / tile, &err);
+  if (err != cudaSuccess) return (int)err;
+  peer_copy_kernel<W><<<grid, kThreads, 0, stream>>>(
+      static_cast<const W*>(src), static_cast<W*>(dst),
+      static_cast<unsigned int*>(counters), words);
   return (int)cudaGetLastError();
 }
 
@@ -339,20 +485,24 @@ int gather_by_word(const void* table, void* out, int n, int rank,
 // Rank `rank`'s reduce-scatter: `table` is a device array of n pointers,
 // entry s at rank s's chunk `rank` (chunk elements); out holds tiles *
 // chunk elements (tiles >= 1).  vec: every pointer, out and the chunk's
-// bytes are multiples of 16 bytes.  dtype: 0 float32, 1 bfloat16, 2
-// float16.  scale is exact in the dtype.  Returns cudaGetLastError().
-extern "C" int peer_reduce_scatter(const void* table, void* out, int n,
-                                   int rank, long long chunk, int dtype,
-                                   float scale, int tiles, int vec,
-                                   void* stream) {
+// bytes are multiples of 16 bytes.  counters is 2 uint32 words, zero, that
+// only launches ordered on one stream touch (the kernel leaves them zero;
+// the vec == 0 path does not use them).  dtype: 0 float32, 1 bfloat16, 2
+// float16.  scale is exact in the dtype.  Returns the occupancy query's
+// error, else cudaGetLastError().
+extern "C" int peer_reduce_scatter(const void* table, void* out,
+                                   void* counters, int n, int rank,
+                                   long long chunk, int dtype, float scale,
+                                   int tiles, int vec, void* stream) {
   if (n < 1 || n > kMaxRanks || rank < 0 || rank >= n || tiles < 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void* c = counters;
   switch (dtype) {
-    case 0: return launch_reduce<float>(table, out, n, rank, chunk, scale, tiles, vec, s);
-    case 1: return launch_reduce<__nv_bfloat16>(table, out, n, rank, chunk, scale, tiles, vec, s);
-    case 2: return launch_reduce<__half>(table, out, n, rank, chunk, scale, tiles, vec, s);
+    case 0: return launch_reduce<float>(table, out, c, n, rank, chunk, scale, tiles, vec, s);
+    case 1: return launch_reduce<__nv_bfloat16>(table, out, c, n, rank, chunk, scale, tiles, vec, s);
+    case 2: return launch_reduce<__half>(table, out, c, n, rank, chunk, scale, tiles, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -384,16 +534,19 @@ extern "C" int peer_all_gather_bidir(const void* table, void* out, int n,
                         static_cast<cudaStream_t>(stream));
 }
 
-// dst = src, nbytes; word (16, 4, 2 or 1) divides both pointers and nbytes.
-extern "C" int peer_copy(const void* src, void* dst, long long nbytes,
-                         int word, void* stream) {
-  if (!is_word(word) || nbytes % word) return (int)cudaErrorInvalidValue;
+// dst = src, nbytes; word (16, 4, 2 or 1) divides both pointers and nbytes;
+// counters as peer_reduce_scatter's.
+extern "C" int peer_copy(const void* src, void* dst, void* counters,
+                         long long nbytes, int word, void* stream) {
+  if (!is_word(word) || nbytes < 0 || nbytes % word) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (word) {
-    case 16: return launch_copy<uint4>(src, dst, nbytes, s);
-    case 4: return launch_copy<uint32_t>(src, dst, nbytes, s);
-    case 2: return launch_copy<uint16_t>(src, dst, nbytes, s);
-    default: return launch_copy<uint8_t>(src, dst, nbytes, s);
+    case 16: return launch_copy<uint4>(src, dst, counters, nbytes, s);
+    case 4: return launch_copy<uint32_t>(src, dst, counters, nbytes, s);
+    case 2: return launch_copy<uint16_t>(src, dst, counters, nbytes, s);
+    default: return launch_copy<uint8_t>(src, dst, counters, nbytes, s);
   }
 }
 

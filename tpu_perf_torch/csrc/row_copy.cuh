@@ -1,5 +1,6 @@
 // Persistent row copies with tiles taken in order, shared by the row-copy
-// kernels (p2p_shift.cu, hbm_copy.cu) and the all-gather (all_gather.cu).
+// kernels (p2p_shift.cu, hbm_copy.cu), the all-gather (all_gather.cu) and
+// the peer copy and reduce-scatter (peer_collectives.cu).
 //
 // Why tiles in order.  On the H100 a grid whose CTAs each stream a fixed
 // share of the rows (grid-stride) trails PyTorch's copy, whose short-lived

@@ -55,9 +55,10 @@ _ENTRIES = {
     "barrier": ("barrier_rows", [_P, _P, _I, _I, _I, _L, _P]),
     # (src, out, n, chunk_bytes, stream)
     "all_to_all": ("all_to_all_rows", [_P, _P, _I, _L, _P]),
-    # (table, out, n, rank, chunk, dtype_code, scale, tiles, vec, stream)
+    # (table, out, counters, n, rank, chunk, dtype_code, scale, tiles, vec,
+    # stream)
     "peer_collectives": ("peer_reduce_scatter",
-                         [_P, _P, _I, _I, _L, _I, _F, _I, _I, _P]),
+                         [_P, _P, _P, _I, _I, _L, _I, _F, _I, _I, _P]),
 }
 #: further C entry points of a source, beside its kernel's: (source,
 #: symbol) -> argument types
@@ -71,12 +72,12 @@ _EXTRA_ENTRIES = {
     ("all_gather", "direct_all_gather_bidir"): [_P, _P, _P, _I, _L, _P],
     # the peer kernels' gathers, copy and barrier: (table, out, n,
     # chunk_bytes, word, stream), (table, out, n, rank, chunk_bytes, word,
-    # stream), (src, dst, nbytes, word, stream) and (pad table, generation,
-    # n, rank, set, src, dst, nbytes, stream)
+    # stream), (src, dst, counters, nbytes, word, stream) and (pad table,
+    # generation, n, rank, set, src, dst, nbytes, stream)
     ("peer_collectives", "peer_all_gather"): [_P, _P, _I, _L, _I, _P],
     ("peer_collectives", "peer_all_gather_bidir"): [_P, _P, _I, _I, _L, _I,
                                                     _P],
-    ("peer_collectives", "peer_copy"): [_P, _P, _L, _I, _P],
+    ("peer_collectives", "peer_copy"): [_P, _P, _P, _L, _I, _P],
     ("peer_collectives", "peer_barrier"): [_P, _P, _I, _I, _I, _P, _P, _L,
                                            _P],
     # (&ctas): the barrier CTAs the card holds at once

@@ -39,8 +39,9 @@ is written by hand for Hopper:
   ``peer_all_gather_bidir``, ``peer_copy`` (counted as ``peer_ring``,
   ``peer_exchange`` and ``peer_pingpong``) and ``peer_barrier`` (with its
   tail copy, ``peer_barrier_copy``) — CUDA C++,
-  ``csrc/peer_collectives.cu``: every ``pl_*`` op that reads another
-  rank's memory, in a multi-rank world
+  ``csrc/peer_collectives.cu`` (the copy and the reduce-scatter draw
+  their tiles in order, ``csrc/row_copy.cuh``): every ``pl_*`` op that
+  reads another rank's memory, in a multi-rank world
   (:class:`tpu_perf_torch.world.DistWorld`), one launch a rank, each
   reading its peers through pointers and meeting them on signal pads
   (replace the TPU kernels' remote copies and their barrier semaphores
@@ -90,6 +91,9 @@ _DMA_ALIGN_BYTES = 4096
 #: the row-copy kernels' tile (``csrc/row_copy.cuh`` kTileBytes, the copy's
 #: and the row shift's), the edge the checks probe
 ROW_COPY_TILE_BYTES = 8192
+#: the peer reduce-scatter's tile (``csrc/peer_collectives.cu``: kThreads x
+#: kReduceUnits 16-byte units of the owned chunk), the edge the checks probe
+PEER_REDUCE_TILE_BYTES = 4096
 
 _RS_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -285,17 +289,19 @@ def _card_counters(store: dict[tuple, torch.Tensor], device: torch.device,
     return counters
 
 
-#: per row-copy source, card and stream, its tile counters (uint32: next
-#: tile, CTAs done; csrc/row_copy.cuh)
+#: per kernel that draws tiles in order (csrc/row_copy.cuh), card and
+#: stream, its tile counters (uint32: next tile, CTAs done)
 _ROW_COPY_COUNTERS: dict[str, dict[tuple, torch.Tensor]] = {
-    "hbm_copy": {}, "p2p_shift": {}, "all_gather": {}}
+    "hbm_copy": {}, "p2p_shift": {}, "all_gather": {}, "peer_copy": {},
+    "peer_reduce": {}}
 _ROW_COPY_COUNTER_WORDS = 2
 
 
 def row_copy_counters(source: str, device: torch.device) -> torch.Tensor:
-    """The tile counters of row-copy source ``source`` (``hbm_copy``,
-    ``p2p_shift`` or ``all_gather``; ring and exchange share one, as do the
-    two gathers) for the card's current stream, zeroed once when made."""
+    """The tile counters of ``source`` (``hbm_copy``, ``p2p_shift``,
+    ``all_gather``, ``peer_copy`` or ``peer_reduce``; ring and exchange
+    share one, as do the two gathers and the three peer copies) for the
+    card's current stream, zeroed once when made."""
     return _card_counters(_ROW_COPY_COUNTERS[source], device,
                           _ROW_COPY_COUNTER_WORDS)
 
@@ -751,8 +757,9 @@ def peer_reduce_scatter(parts, rank: int, *, scale: float = 1.0,
     (into ``out`` when given) the ring-order sum over the n parts times
     ``scale`` (exact in the dtype), written ``tiles`` times along the
     output (``pl_reduce_scatter``'s carry tiles it n times).  One launch,
-    reading every part through the pointer table: on the card ``parts`` is
-    a :class:`PeerParts`."""
+    reading every part through the pointer table (on the card ``parts`` is
+    a :class:`PeerParts`), its tiles drawn in order from the card's
+    ``peer_reduce`` counters."""
     chunk = _check_parts("peer_reduce_scatter", parts, rank)
     dtype = parts[0].dtype
     if dtype not in _RS_DTYPE_CODES:
@@ -766,10 +773,11 @@ def peer_reduce_scatter(parts, rank: int, *, scale: float = 1.0,
                      parts[0].device)
     vec = _widest_word(chunk * dtype.itemsize, out.data_ptr(),
                        *(p.data_ptr() for p in parts)) == 16
+    counters = row_copy_counters("peer_reduce", out.device)
     err = _build.entry("peer_collectives")(
-        _table_ptr("peer_reduce_scatter", parts), out.data_ptr(), len(parts),
-        rank, chunk, _RS_DTYPE_CODES[dtype], scale, tiles, int(vec),
-        _stream_of(out))
+        _table_ptr("peer_reduce_scatter", parts), out.data_ptr(),
+        counters.data_ptr(), len(parts), rank, chunk, _RS_DTYPE_CODES[dtype],
+        scale, tiles, int(vec), _stream_of(out))
     _build.check("peer_reduce_scatter", err)
     kernels.LAUNCHES["peer_reduce_scatter"] += 1
     return out
@@ -897,7 +905,8 @@ def peer_copy(name: str, src, *, out: torch.Tensor | None = None
     :data:`PEER_COPIES`): ``src`` is a peer's buffer (a
     :class:`RemoteBuffer`) or this rank's own tensor, ``out`` this rank's
     (a new tensor when not given).  One launch that pulls it in the widest
-    word dividing both addresses and the length; it never waits."""
+    word dividing both addresses and the length, its 8 KB tiles drawn in
+    order from the card's ``peer_copy`` counters; it never waits."""
     if name not in PEER_COPIES:
         raise ValueError(f"peer_copy counts one of {PEER_COPIES}, got {name!r}")
     if src.device.type == "cpu":
@@ -906,8 +915,10 @@ def peer_copy(name: str, src, *, out: torch.Tensor | None = None
     out = _check_out(name, out, _numel(src), src.dtype, src.device)
     nbytes = _numel(src) * src.dtype.itemsize
     word = _widest_word(nbytes, src.data_ptr(), out.data_ptr())
+    counters = row_copy_counters("peer_copy", out.device)
     err = _build.entry("peer_collectives", "peer_copy")(
-        src.data_ptr(), out.data_ptr(), nbytes, word, _stream_of(out))
+        src.data_ptr(), out.data_ptr(), counters.data_ptr(), nbytes, word,
+        _stream_of(out))
     _build.check(name, err)
     kernels.LAUNCHES[name] += 1
     return out

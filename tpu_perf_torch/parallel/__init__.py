@@ -10,5 +10,6 @@ from tpu_perf_torch.parallel.multihost import (  # noqa: F401
     allreduce_times,
     exchange_ips,
     initialize_distributed,
+    leave_world,
     make_hybrid_mesh,
 )

@@ -15,7 +15,9 @@ through ``torch.distributed`` with NCCL on the card and gloo on the CPU:
 * :func:`make_hybrid_mesh` lays the ranks over ``(dcn, ici)``: the nodes
   (``WORLD_SIZE / LOCAL_WORLD_SIZE``) by the ranks of a node;
 * :func:`exchange_ips` is the reference's rank-card allgather;
-* :func:`allreduce_times` is the min/max/avg triple over every rank.
+* :func:`allreduce_times` is the min/max/avg triple over every rank;
+* :func:`leave_world` ends the process group (``cli.main`` calls it
+  when a command that joined one ends, on every exit path).
 
 A process that never joined takes the no-op paths, so every call here
 is safe to make unconditionally.
@@ -108,6 +110,22 @@ def initialize_distributed(coordinator: str | None = None,
     else:
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return True
+
+
+def leave_world(*, barrier: bool = True) -> None:
+    """End this process' process group: one ``barrier`` first (every rank
+    has flushed its last row when it arrives), then
+    ``destroy_process_group``, which joins the backend's threads.  A
+    process still in its group at interpreter exit dies there with SIGABRT
+    (the gloo and NCCL threads are destroyed while joinable), though its
+    run was whole.  A process that never joined does nothing."""
+    if not joined():
+        return
+    try:
+        if barrier:
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
 
 
 def local_rank() -> int:
