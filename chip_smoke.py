@@ -309,6 +309,7 @@ def phase_check() -> None:
     check_pingpong_order(fill)
     check_row_copy_chains(fill)
     check_peer_tile_kernels(fill)
+    check_peer_gather_kernels()
 
 
 def check_gather_kernels(fill, chunks) -> int:
@@ -771,6 +772,85 @@ def check_peer_tile_kernels(fill) -> None:
           "tiles' edges (the copy in words 16, 4, 2 and 1) equal their plain "
           f"versions bit for bit after {PEER_REPLAYS} replays of each one's "
           "graph; the tile counters zero after every launch")
+
+
+def check_peer_gather_kernels() -> None:
+    """The peer gathers on in-order tiles, bit for bit, at 1, 2, 5 and 8
+    ranks in float32, bfloat16 and uint8, at their tiles' edges
+    (tile_edge_elems: a chunk of one tile, one that is no whole number of
+    16-byte words, a ragged last tile of more tiles than twice the CTAs
+    the card holds), also from sources one element into their storage,
+    which together take all four words: every rank's push (whole chunks,
+    and half-chunks where the chunk is even) and pull (the same) against
+    the sim gather ``direct_all_gather``, and every rank's pull
+    all-to-all against the sim ``all_to_all``.  Each output is the one
+    PEER_REPLAYS replays of its graph wrote, and the ``peer_gather``
+    counters are zero after every launch.  The inputs are drawn on the
+    card from a seeded generator (the largest are hundreds of MB)."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+    from tpu_perf_torch.ops.collectives import DTYPES
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+
+    def fill(shape, dtype):
+        t = DTYPES[dtype]
+        if t.is_floating_point:
+            return torch.rand(shape, generator=gen, device="cuda").to(t)
+        return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                             dtype=t)
+
+    cases, words = 0, set()
+    for dtype in ("float32", "bfloat16", "uint8"):
+        isz = DTYPES[dtype].itemsize
+        for n in (1, 2, 5, 8):
+            for chunk in tile_edge_elems(pr.ROW_COPY_TILE_BYTES, isz, n):
+                for offset in (0, 1):
+                    own = fill((n * chunk + offset,), dtype)[offset:].view(
+                        n, chunk)
+                    out = torch.empty(n, n * chunk, dtype=own.dtype,
+                                      device=own.device)
+                    outs, parts = pr.PeerParts(out.unbind(0)), pr.PeerParts(
+                        own.unbind(0))
+                    want = pr.direct_all_gather(own)
+                    at = f"n={n} chunk={chunk} {dtype} at storage offset " \
+                         f"{offset}"
+                    for bidir in (False, True)[:1 + (chunk % 2 == 0)]:
+                        nbytes = chunk * isz // (1 + bidir)
+                        words |= {pr._widest_word(
+                            nbytes, own[r].data_ptr(), *(
+                                o.data_ptr() + r * chunk * isz for o in outs))
+                            for r in range(n)}
+                        what = f"push{' bidir' * bidir} {at}"
+                        got = _replayed(lambda: [pr.peer_all_gather_push(
+                            own[r], outs, r, bidir=bidir) for r in range(n)],
+                            out, "peer_gather", what)
+                        check_exact(what, got, want)
+                        what = f"pull{' bidir' * bidir} {at}"
+                        got = _replayed(lambda: [
+                            pr.peer_all_gather_bidir(parts, r, out=out[r])
+                            if bidir else pr.peer_all_gather(parts, out=out[r])
+                            for r in range(n)], out, "peer_gather", what)
+                        check_exact(what, got, want)
+                        cases += 2
+                    x = fill((n * n * chunk + offset,), dtype)[offset:].view(
+                        n, n * chunk)
+                    rows = [pr.PeerParts(x.view(n, n, chunk)[:, r].unbind(0))
+                            for r in range(n)]
+                    what = f"pull all-to-all {at}"
+                    got = _replayed(lambda: [pr.peer_all_to_all(
+                        rows[r], out=out[r]) for r in range(n)], out,
+                        "peer_gather", what)
+                    check_exact(what, got, pr.all_to_all(x.clone()))
+                    cases += 1
+    if words != {16, 4, 2, 1}:
+        fail(f"peer gathers: the cases took the words {sorted(words)}")
+    print(f"check: {cases} peer gather cases (push and pull, whole and "
+          "half-chunks, and the all-to-all) at 1, 2, 5 and 8 ranks at their "
+          "tiles' edges, in words 16, 4, 2 and 1, equal the sim kernels bit "
+          f"for bit after {PEER_REPLAYS} replays of each one's graph; the "
+          "peer_gather counters zero after every launch")
 
 
 def chain(kern, x):
@@ -2324,17 +2404,21 @@ def _streams_sweep() -> None:
 def check_counter_race(rounds: int = RACE_ROUNDS) -> None:
     """Kernels that draw tiles from device counters, two at once on two
     lanes, ``rounds`` times: pl_ring beside pl_exchange (one row-shift
-    source), two sizes of the gather, the copy beside itself, and the peer
+    source), two sizes of the gather, the copy beside itself, the peer
     copy and the peer reduce-scatter (scaled, one tile and n tiles) each
-    beside itself.  Every output equals its plain version exactly, and
-    each lane's counters end at zero."""
+    beside itself, and the peer gathers' push beside their pull (the
+    all-to-all), every rank's launch in turn on its lane.  Every output
+    equals its plain version exactly, and each lane's counters end at
+    zero."""
     import torch
 
     from tpu_perf_torch.ops.pallas_ring import (
-        PeerParts, direct_all_gather, direct_all_gather_plain, hbm_copy,
-        hbm_copy_plain, mean_scale, pair_exchange, pair_exchange_plain,
-        peer_copy, peer_reduce_scatter, peer_reduce_scatter_plain,
-        ring_shift, ring_shift_plain, row_copy_counters,
+        PeerParts, all_to_all_plain, direct_all_gather,
+        direct_all_gather_plain, hbm_copy, hbm_copy_plain, mean_scale,
+        pair_exchange, pair_exchange_plain, peer_all_gather_push,
+        peer_all_to_all, peer_copy, peer_reduce_scatter,
+        peer_reduce_scatter_plain, ring_shift, ring_shift_plain,
+        row_copy_counters,
     )
     from tpu_perf_torch.ops.collectives import make_fill, to_tensor
     from tpu_perf_torch.streams.engine import StreamEngine
@@ -2356,6 +2440,34 @@ def check_counter_race(rounds: int = RACE_ROUNDS) -> None:
                 lambda _: peer_reduce_scatter_plain(list(parts), 5, inv,
                                                     tiles), x)
 
+    def peer_push(x):
+        # every rank's push of its row of x into one output of n rows,
+        # whose table is made here, outside the race
+        n = x.shape[0]
+        out = torch.empty(n, x.numel(), dtype=x.dtype, device=x.device)
+        outs = PeerParts(out.unbind(0))
+
+        def kern(_):
+            for r in range(n):
+                peer_all_gather_push(x[r], outs, r)
+            return out
+
+        return kern, lambda _: direct_all_gather_plain(x), x
+
+    def peer_a2a(x):
+        # every rank's pull of chunk r of each row of x
+        n = x.shape[0]
+        out = torch.empty_like(x)
+        rows = [PeerParts(x.view(n, n, -1)[:, r].unbind(0))
+                for r in range(n)]
+
+        def kern(_):
+            for r in range(n):
+                peer_all_to_all(rows[r], out=out[r])
+            return out
+
+        return kern, lambda _: all_to_all_plain(x), x
+
     races = (
         ("pl_ring beside pl_exchange", "p2p_shift",
          (ring_shift, ring_shift_plain, fill((8, row))),
@@ -2374,6 +2486,9 @@ def check_counter_race(rounds: int = RACE_ROUNDS) -> None:
         ("peer_reduce_scatter beside itself", "peer_reduce",
          peer_reduce(fill((8, row)), 1),
          peer_reduce(fill((8, row // 2 + 4)), 8)),
+        ("the peer gathers' push beside their pull", "peer_gather",
+         peer_push(fill((8, 2**18 + 3))),
+         peer_a2a(fill((8, 8 * (2**17 + 1))))),
     )
     said = []
     for name, source, *sides in races:
@@ -2480,10 +2595,23 @@ def _contend() -> None:
           f"report's interference matrix:\n" + "\n".join(cells))
 
 
+def _release_cache(what: str) -> None:
+    """Give this process' cached blocks back to the card before a child
+    process needs the card's memory, and say what stays."""
+    import torch
+
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"{what}: this process holds {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB in tensors; the card has {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB free")
+
+
 def phase_streams() -> None:
     _streams_sweep()
     check_counter_race()
     here = os.path.dirname(os.path.abspath(__file__))
+    _release_cache("streams: before the pingpong race's process")
     try:
         out = subprocess.run(
             [sys.executable, "-c", "import chip_smoke; "
@@ -2822,12 +2950,16 @@ def phase_distributed() -> tuple[dict, list[dict]]:
     IPC worlds' steps) and their kernels-line entries."""
     launched = _dist_world_of_one()
     _hier_on_the_sim_world()
+    _release_cache("distributed: before the IPC worlds' processes")
     for k, v in _ipc_worlds().items():
         launched[k] = launched.get(k, 0) + v
     here = os.path.dirname(os.path.abspath(__file__))
     # one hardware queue a stream, so no rank's launch queues behind
-    # another rank's waiting barrier
-    env = dict(os.environ, CUDA_DEVICE_MAX_CONNECTIONS="32")
+    # another rank's waiting barrier; every kernel loaded up front, since
+    # loading one at its first launch waits for the card, where a rank's
+    # barrier waits for a rank this thread has not yet enqueued
+    env = dict(os.environ, CUDA_DEVICE_MAX_CONNECTIONS="32",
+               CUDA_MODULE_LOADING="EAGER")
     try:
         out = subprocess.run(
             [sys.executable, "-c", "import chip_smoke; chip_smoke.loopback()"],
@@ -2862,8 +2994,10 @@ def phase_distributed() -> tuple[dict, list[dict]]:
     return launched, entries
 
 
-def ipc_world(n: int, rank: int, port: int) -> None:
-    """(c) one of n processes on one card, each a rank of a world of n
+def ipc_world(n: int, rank: int, port: int, cards: int = 1) -> None:
+    """(c) one of n processes on one card (or, with ``cards``, rank r on
+    card r % cards, so that pushes and signals cross NVLink), each a rank
+    of a world of n
     whose pl_* ops read the others' buffers through CUDA IPC
     (``PeerBuffers``: ``peer_alloc``, ``peer_ipc_handle``,
     ``peer_ipc_open``) and meet them on signal pads across the processes.
@@ -2884,6 +3018,7 @@ def ipc_world(n: int, rank: int, port: int) -> None:
 
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=n, rank=rank)
+    torch.cuda.set_device(rank % cards)
     dev = torch.device("cuda", torch.cuda.current_device())
     world = DistWorld(rank=rank, n=n, local_rank=0, device=dev,
                       mesh=make_mesh(n=n))
@@ -2911,17 +3046,40 @@ def ipc_world(n: int, rank: int, port: int) -> None:
                  f"{want}; plain calls {kernels.PLAIN_CALLS}")
         for k, v in got.items():
             totals[k] = totals.get(k, 0) + v
-    print(f"rank {rank} of {n}: every pl_* op across {n} processes on one "
-          f"card through CUDA IPC at {IPC_BYTES[0]} B and 16 MiB, "
+    # the barriers alone, across the processes: each set's pad slots and
+    # the generation must count them
+    for peers in ("all", "ring", "pair"):
+        buffers = pr.PeerBuffers(world, {})
+        for _ in range(BARRIER_CHAIN):
+            pr.peer_barrier(buffers.pads, buffers.generation, rank,
+                            peers=peers)
+        torch.cuda.synchronize()
+        own = buffers.pads[rank].tolist()
+        want = [BARRIER_CHAIN if s in pr.barrier_set(peers, n, rank) else 0
+                for s in range(n)]
+        if own != want or int(buffers.generation) != BARRIER_CHAIN:
+            fail(f"ipc world of {n}, rank {rank}: after {BARRIER_CHAIN} "
+                 f"{peers} barriers pad {own} and generation "
+                 f"{int(buffers.generation)}, want {want}")
+        # no rank frees its pad while a peer may still signal it
+        dist.barrier()
+        del buffers
+    kernels.reset_counts()
+    print(f"rank {rank} of {n}: every pl_* op across {n} processes on "
+          f"{min(n, cards)} card(s) through CUDA IPC at {IPC_BYTES[0]} B and 16 MiB, "
           f"{IPC_STEPS} steps each: bit for bit the sim kernels, each op's "
-          f"launches its path's")
+          f"launches its path's; {BARRIER_CHAIN} chained barriers of each "
+          "set: the pads and generation count them")
     print("IPC_LAUNCHES " + json.dumps(totals))
     dist.destroy_process_group()
 
 
-def _ipc_worlds() -> dict:
-    """ipc_world at each size of IPC_RANKS, a process a rank; returns the
-    launches by kernel, summed over the ranks and worlds."""
+def _ipc_worlds(cards: int = 1) -> dict:
+    """ipc_world at each size of IPC_RANKS, a process a rank, over
+    ``cards`` cards; returns the launches by kernel, summed over the ranks
+    and worlds.  Across cards (the pushes' and the barrier's stores into
+    another card's memory over NVLink) it needs that many cards:
+    ``python3 -c "import chip_smoke as c; c.ipc_across_cards(4)"``."""
     here = os.path.dirname(os.path.abspath(__file__))
     totals = {}
     for n in IPC_RANKS:
@@ -2929,7 +3087,8 @@ def _ipc_worlds() -> dict:
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, "-c",
-             f"import chip_smoke; chip_smoke.ipc_world({n}, {r}, {port})"],
+             f"import chip_smoke; chip_smoke.ipc_world({n}, {r}, {port}, "
+             f"{cards})"],
             cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True) for r in range(n)]
         try:
@@ -2951,15 +3110,39 @@ def _ipc_worlds() -> dict:
                         totals[k] = totals.get(k, 0) + v
                 else:
                     print(f"distributed: {line}")
-        print(f"distributed: the ipc world of {n} in "
-              f"{time.perf_counter() - t0:.1f} s")
+        print(f"distributed: the ipc world of {n} on {min(n, cards)} "
+              f"card(s) in {time.perf_counter() - t0:.1f} s")
     return totals
+
+
+def ipc_across_cards(cards: int) -> int:
+    """The IPC worlds of IPC_RANKS processes with rank r on card r % cards
+    (every card of one host, peer to peer): every pl_* op bit for bit the
+    sim kernels' chain, and the chained barriers of each set, with the
+    pushes and signals crossing cards.  Builds the kernels first; prints
+    the card names and the ok line."""
+    import torch
+
+    from tpu_perf_torch.kernels import _build
+
+    if torch.cuda.device_count() < cards:
+        fail(f"ipc across cards: {cards} cards asked, "
+             f"{torch.cuda.device_count()} visible")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    _build.build_all()
+    totals = _ipc_worlds(cards)
+    print(json.dumps({"ok": True, "cards": cards, "launches": totals}))
+    return 0
 
 
 def _loopback_world(xs, chunk: int):
     """Per-rank buffers of an n-rank loopback: each rank's input is its own
     allocation (``xs``), as are its owned chunk, output, pad, generation
-    and stream; the owned chunks and the pads with their pointer tables."""
+    and stream; the owned chunks, the outputs and the pads with their
+    pointer tables."""
     import torch
 
     from tpu_perf_torch.ops.pallas_ring import PeerParts
@@ -2972,8 +3155,8 @@ def _loopback_world(xs, chunk: int):
         "streams": [torch.cuda.Stream(dev) for _ in range(n)],
         "mids": PeerParts(torch.empty(chunk, dtype=xs[0].dtype, device=dev)
                           for _ in range(n)),
-        "outs": [torch.empty(n * chunk, dtype=xs[0].dtype, device=dev)
-                 for _ in range(n)],
+        "outs": PeerParts(torch.empty(n * chunk, dtype=xs[0].dtype,
+                                      device=dev) for _ in range(n)),
         "pads": pads, "gens": gens,
     }
 
@@ -3016,8 +3199,9 @@ def _on_streams(w, launch) -> None:
 def _loopback_execution(w, parts, outs, scale: float) -> None:
     """One pl_allreduce execution of every rank of the loopback, phase by
     phase: barrier, reduce-scatter of the rank's chunk from every rank's
-    input (``parts``, :func:`_rank_parts`), barrier, all-gather of the
-    owned chunks into ``outs``."""
+    input (``parts``, :func:`_rank_parts`), barrier, each rank's push of
+    its owned chunk into ``outs`` (a PeerParts of every rank's output),
+    whole once every stream is joined or at the next barrier."""
     from tpu_perf_torch.ops import pallas_ring as pr
 
     def barrier(r):
@@ -3027,7 +3211,7 @@ def _loopback_execution(w, parts, outs, scale: float) -> None:
     _on_streams(w, lambda r: pr.peer_reduce_scatter(
         parts[r], r, scale=scale, out=w["mids"][r]))
     _on_streams(w, barrier)
-    _on_streams(w, lambda r: pr.peer_all_gather(w["mids"], out=outs[r]))
+    _on_streams(w, lambda r: pr.peer_all_gather_push(w["mids"][r], outs, r))
 
 
 def _rank_inputs(n: int, chunk: int, dtype: str):
@@ -3128,6 +3312,7 @@ def _loopback_chain(n: int, chunk: int) -> None:
     w = _loopback_world(xs, chunk)
     scale = pr.mean_scale(n, xs[0].dtype)
     parts = [_rank_parts(xs, chunk), _rank_parts(ys, chunk)]
+    outs = [pr.PeerParts(ys), pr.PeerParts(xs)]
 
     def sim(y, k):
         for _ in range(k):
@@ -3135,7 +3320,7 @@ def _loopback_chain(n: int, chunk: int) -> None:
         return y
 
     for j in range(LOOPBACK_CHAIN):
-        _loopback_execution(w, parts[j % 2], ys if j % 2 == 0 else xs, scale)
+        _loopback_execution(w, parts[j % 2], outs[j % 2], scale)
     torch.cuda.synchronize()
     want = sim(rows, LOOPBACK_CHAIN)
     check_exact(f"loopback n={n}: {LOOPBACK_CHAIN} chained executions",
@@ -3144,12 +3329,12 @@ def _loopback_chain(n: int, chunk: int) -> None:
     for r, s in enumerate(w["streams"]):
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g, stream=s):
-            for b, dst in enumerate((ys, xs)):
+            for b in (0, 1):
                 pr.peer_barrier(w["pads"], w["gens"][r], r)
                 pr.peer_reduce_scatter(parts[b][r], r, scale=scale,
                                        out=w["mids"][r])
                 pr.peer_barrier(w["pads"], w["gens"][r], r)
-                pr.peer_all_gather(w["mids"], out=dst[r])
+                pr.peer_all_gather_push(w["mids"][r], outs[b], r)
         graphs.append(g)
     t0 = time.perf_counter()
     for _ in range(LOOPBACK_REPLAYS):
@@ -3168,63 +3353,29 @@ def _loopback_chain(n: int, chunk: int) -> None:
           f"{wall * 1e3 / LOOPBACK_REPLAYS:.3f} ms each")
 
 
-class LoopbackMemory:
-    """The symmetric allocations of an n-rank loopback, every rank's
-    ``DistWorld.peer_memory``: the k-th ``PeerBuffers`` each rank makes
-    gets the k-th set of n zeroed allocations, one a rank, made when the
-    first rank asks and kept as long as this object."""
-
-    def __init__(self, n: int):
-        self.n, self._sets, self._asked = n, [], [0] * n
-
-    def __call__(self, rank: int, nbytes: int) -> tuple[int, list[int]]:
-        import torch
-
-        k = self._asked[rank]
-        self._asked[rank] += 1
-        if k == len(self._sets):
-            self._sets.append([torch.zeros(nbytes, dtype=torch.uint8,
-                                           device="cuda")
-                               for _ in range(self.n)])
-        ptrs = [t.data_ptr() for t in self._sets[k]]
-        return ptrs[rank], ptrs
-
-
-def _loopback_ranks(n: int) -> list:
-    """The n ranks of a loopback world, one process and one card: each a
-    DistWorld whose symmetric buffers a shared LoopbackMemory gives."""
-    import torch
-
-    from tpu_perf_torch.parallel import make_mesh
-    from tpu_perf_torch.world import DistWorld
-
-    memory = LoopbackMemory(n)
-    dev = torch.device("cuda", torch.cuda.current_device())
-    return [DistWorld(rank=r, n=n, local_rank=0, device=dev,
-                      mesh=make_mesh(n=n), peer_memory=memory)
-            for r in range(n)]
-
-
 def _loopback_steps(n: int, op: str, nbytes: int, dtype: str) -> None:
     """``op``'s own per-rank steps (``build_op`` in a DistWorld a rank) on
     an n-rank loopback, every rank's step on its own stream: STEP_CHAIN
     eager steps, each rank's output its next input, then STEP_REPLAYS
     replays of each rank's graph of one step that feeds its output back:
-    bit for bit the sim kernels' chain of steps."""
+    bit for bit the sim kernels' chain of steps.  Every eager step's
+    output is held to the end: no later step may overwrite it."""
     import torch
 
     from tpu_perf_torch.ops import pallas_ring as pr
     from tpu_perf_torch.ops.collectives import build_op
-    from tpu_perf_torch.world import SimWorld
+    from tpu_perf_torch.world import SimWorld, loopback_ranks
 
+    dev = torch.device("cuda", torch.cuda.current_device())
     builts = [build_op(op, world, nbytes, ITERS, dtype=dtype)
-              for world in _loopback_ranks(n)]
-    sim_step, _, _ = pr.build_pallas_step(
-        op, SimWorld(n, builts[0].example_input.device), nbytes, ITERS,
-        dtype=dtype)
+              for world in loopback_ranks(n, dev)]
+    sim_step, _, _ = pr.build_pallas_step(op, SimWorld(n, dev), nbytes,
+                                          ITERS, dtype=dtype)
     w = {"streams": [torch.cuda.Stream() for _ in range(n)]}
     ys = [b.example_input for b in builts]
+    pr.warm_loopback_streams(w["streams"], dev, n * ys[0].nbytes)
     want = torch.stack(ys)
+    kept = []
     for _ in range(STEP_CHAIN):
         outs = [None] * n
 
@@ -3234,9 +3385,12 @@ def _loopback_steps(n: int, op: str, nbytes: int, dtype: str) -> None:
         _on_streams(w, one)
         ys = outs
         want = sim_step(want)
+        kept.append((ys, want))
     torch.cuda.synchronize()
     what = f"loopback n={n}: {op} {dtype} at {nbytes} B"
-    check_exact(f"{what}, {STEP_CHAIN} eager steps", torch.stack(ys), want)
+    for k, (got, step_want) in enumerate(kept):
+        check_exact(f"{what}, eager step {k} after {STEP_CHAIN} steps",
+                    torch.stack(got), step_want)
     xs = [y.clone() for y in ys]
     graphs = []
     for r, s in enumerate(w["streams"]):
@@ -3307,6 +3461,41 @@ def _loopback_kernels(n: int, dtype: str, chunk: int) -> None:
         _check_barriers(w, 1, f"{what}: {peers} barriers", peers, copies)
 
 
+#: chained barriers of each set in the loopback and the IPC worlds, and
+#: how many each rank enqueues before the next rank (the streams' queues
+#: stay short)
+BARRIER_CHAIN, BARRIER_BATCH = 1000, 50
+
+
+def _loopback_barrier_chains() -> None:
+    """BARRIER_CHAIN chained barriers of each set at each n of
+    LOOPBACK_RANKS, each rank's on its stream, BARRIER_BATCH a rank at a
+    time: every pad slot of a rank's set and every generation count them,
+    and one more round equals its plain version."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for n in LOOPBACK_RANKS:
+        w = {"n": n, "streams": [torch.cuda.Stream(dev) for _ in range(n)]}
+        for peers in ("all", "ring", "pair"):
+            w["pads"], w["gens"] = _pads(n, dev)
+            for _ in range(BARRIER_CHAIN // BARRIER_BATCH):
+                _on_streams(w, lambda r: [pr.peer_barrier(
+                    w["pads"], w["gens"][r], r, peers=peers)
+                    for _ in range(BARRIER_BATCH)])
+            torch.cuda.synchronize()
+            _check_barriers(w, BARRIER_CHAIN, f"loopback n={n}: "
+                            f"{BARRIER_CHAIN} chained {peers} barriers",
+                            peers)
+    print(f"{BARRIER_CHAIN} chained barriers of each set (all, ring, pair) "
+          f"at n = {LOOPBACK_RANKS}: pads and generations count them, one "
+          "more round its plain version's "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def _loopback_timing() -> list[dict]:
     """The peer kernels at 8 ranks x MAIN_BYTES, every rank's launch on its
     own stream, beside the sim kernels on the same rows: the
@@ -3327,6 +3516,10 @@ def _loopback_timing() -> list[dict]:
             parts[r], r, scale=scale, out=w["mids"][r]))
 
     def ag():
+        _on_streams(w, lambda r: pr.peer_all_gather_push(
+            w["mids"][r], w["outs"], r))
+
+    def ag_pull():
         _on_streams(w, lambda r: pr.peer_all_gather(w["mids"],
                                                     out=w["outs"][r]))
 
@@ -3338,7 +3531,8 @@ def _loopback_timing() -> list[dict]:
                                                               scale))
 
     def plain_ag():
-        _on_streams(w, lambda r: pr.peer_all_gather_plain(w["mids"]))
+        _on_streams(w, lambda r: pr.peer_all_gather_push_plain(
+            w["mids"][r], w["outs"], r))
 
     rs()
     ag()
@@ -3346,8 +3540,16 @@ def _loopback_timing() -> list[dict]:
     red = pr.direct_reduce_scatter(rows, scale=scale)
     rs_err = check_exact("loopback at 8 x 256 MiB: reduce-scatter",
                          torch.stack(list(w["mids"])), red)
-    ag_err = check_exact("loopback at 8 x 256 MiB: gather",
-                         torch.stack(w["outs"]), pr.direct_all_gather(red))
+    gathered = pr.direct_all_gather(red)
+    ag_err = check_exact("loopback at 8 x 256 MiB: gather (push)",
+                         torch.stack(w["outs"]), gathered)
+    for o in w["outs"]:
+        o.zero_()
+    ag_pull()
+    torch.cuda.synchronize()
+    check_exact("loopback at 8 x 256 MiB: gather (pull)",
+                torch.stack(w["outs"]), gathered)
+    del gathered
     isz = 4
     data_bound = _bound((n * n * chunk + n * chunk) * isz, n * n * chunk)
     gather_bound = _bound((n * chunk + n * n * chunk) * isz, 0)
@@ -3392,9 +3594,7 @@ def _loopback_timing() -> list[dict]:
         {"name": "peer_all_gather", "route": "cuda", "source": source,
          "replaces": "tpu_perf/ops/pallas_ring.py:481", "max_abs_err": ag_err,
          "ms": cuda_ms(ag, 10), "plain_ms": cuda_ms(plain_ag, 3, 1),
-         **gather_bound,
-         "library_ms": cuda_ms(
-             lambda: red.reshape(1, -1).expand(n, -1).contiguous(), 10),
+         **gather_bound, **_gather_calls(w, w["mids"], red, ag_pull),
          "sim_kernel_ms": sim_ag},
         {"name": "peer_barrier", "route": "cuda", "source": source,
          "replaces": "tpu_perf/ops/pallas_ring.py:278",
@@ -3414,6 +3614,23 @@ def _loopback_timing() -> list[dict]:
         k.pop("bytes")
         k.pop("ops")
     return entries
+
+
+def _gather_calls(w, mids, red, pull) -> dict:
+    """A peer gather's yardsticks at the loopback's ranks: the expand copy
+    of the stacked owned chunks (one call for every rank's output, the
+    library call), ``torch.cat`` of the owned chunks on every rank's
+    stream, and the pull gather (``pull()``)."""
+    import torch
+
+    n = w["n"]
+    return {
+        "library_call": "reshape(1,-1).expand(n,-1).contiguous()",
+        "library_ms": cuda_ms(
+            lambda: red.reshape(1, -1).expand(n, -1).contiguous(), 10),
+        "cat_ms": cuda_ms(lambda: _on_streams(
+            w, lambda r: torch.cat(list(mids))), 10),
+        "pull_ms": cuda_ms(pull, 10)}
 
 
 def _barrier_graph_ms(w, peers: str, copies=None) -> float:
@@ -3539,24 +3756,35 @@ def _loopback_timing_new(w, xs, rows, full, red,
             0, 1).contiguous(), 10),
         "sim_kernel_ms": cuda_ms(lambda: pr.all_to_all(rows), 10)})
     mids = pr.PeerParts(red[r].clone() for r in range(n))
+    dsts = pr.PeerParts(full)
 
     def bidir():
+        _on_streams(w, lambda r: pr.peer_all_gather_push(
+            mids[r], dsts, r, bidir=True))
+
+    def bidir_pull():
         _on_streams(w, lambda r: pr.peer_all_gather_bidir(mids, r,
                                                           out=full[r]))
 
-    bidir()
-    torch.cuda.synchronize()
-    bidir_err = check_exact("loopback at 8 x 256 MiB: peer_all_gather_bidir",
-                            torch.stack(full), pr.direct_all_gather(red))
+    gathered = pr.direct_all_gather(red)
+    for launch, how in ((bidir_pull, "pull"), (bidir, "push")):
+        for o in full:
+            o.zero_()
+        launch()
+        torch.cuda.synchronize()
+        bidir_err = check_exact("loopback at 8 x 256 MiB: "
+                                f"peer_all_gather_bidir ({how})",
+                                torch.stack(full), gathered)
+    del gathered
     entries.append({
         "name": "peer_all_gather_bidir", "route": "cuda", "source": source,
         "replaces": "tpu_perf/ops/pallas_ring.py:430",
         "max_abs_err": bidir_err, "ms": cuda_ms(bidir, 10),
         "plain_ms": cuda_ms(lambda: _on_streams(
-            w, lambda r: pr.peer_all_gather_bidir_plain(list(mids), r)), 3, 1),
+            w, lambda r: pr.peer_all_gather_push_plain(
+                mids[r], dsts, r, bidir=True)), 3, 1),
         **_bound((n * chunk + n * n * chunk) * isz, 0),
-        "library_ms": cuda_ms(
-            lambda: red.reshape(1, -1).expand(n, -1).contiguous(), 10),
+        **_gather_calls(w, mids, red, bidir_pull),
         "sim_kernel_ms": cuda_ms(
             lambda: pr.direct_all_gather_bidir(red), 10)})
     # the barriers from graphs: ring and pair sets, and pl_barrier's
@@ -3629,6 +3857,7 @@ def loopback() -> None:
           " s)")
     for n in LOOPBACK_RANKS:
         _loopback_chain(n, (1 << 16) + 5)
+    _loopback_barrier_chains()
     t0 = time.perf_counter()
     cases = 0
     for n in LOOPBACK_RANKS:
@@ -3663,6 +3892,13 @@ def loopback() -> None:
                 print(f"{k['name']}: {extra} {k[extra] * 1e3:.3f} us a "
                       "barrier, 8 ranks from graphs of "
                       f"{GRAPH_LAUNCHES} chained barriers a rank")
+        if "cat_ms" in k:
+            print(f"{k['name']}: torch.cat on every rank's stream "
+                  f"{k['cat_ms']:.4f} ms (kernel / cat "
+                  f"{k['ms'] / k['cat_ms']:.4f}), expand copy "
+                  f"{k['library_ms']:.4f} ms, the pull gather "
+                  f"{k['pull_ms']:.4f} ms (push / pull "
+                  f"{k['ms'] / k['pull_ms']:.4f})")
         if "tiled_ms" in k:
             print(f"{k['name']} tiled (pl_reduce_scatter): "
                   f"{k['tiled_ms']:.4f} ms, plain {k['tiled_plain_ms']:.4f},"

@@ -217,19 +217,21 @@ def test_launch_errors_raise():
 
 
 def test_peer_kernels_take_their_tiles_in_order():
-    # the peer copy and the peer reduce-scatter draw their tiles through the
-    # shared header; the reduce's tile is the one the checks probe
+    # the peer copy, the peer reduce-scatter and the peer gather (push and
+    # pull) draw their tiles through the shared header; the reduce's tile
+    # is the one the checks probe
     from tpu_perf_torch.ops import pallas_ring as tpr
 
     text = (_build.CSRC / "peer_collectives.cu").read_text()
     assert '#include "row_copy.cuh"' in text
-    assert text.count("row_copy::for_each_tile(") == 2
+    assert text.count("row_copy::for_each_tile(") == 3
     units = int(re.search(r"kReduceUnits = (\d+);", text).group(1))
     cuh = (_build.CSRC / "row_copy.cuh").read_text()
     threads = int(re.search(r"kThreads = (\d+);", cuh).group(1))
     assert threads * units * 16 == tpr.PEER_REDUCE_TILE_BYTES
-    # both grow the counters' pointer in their C entries
-    for symbol in ("peer_reduce_scatter", "peer_copy"):
+    # each takes the counters' pointer in its C entries
+    for symbol in ("peer_reduce_scatter", "peer_copy", "peer_gather_push",
+                   "peer_gather_pull"):
         m = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text)
         assert "counters" in m.group(1), symbol
 
@@ -256,3 +258,47 @@ def test_peer_designs_edit_the_shipped_sources(tmp_path):
     path, defines = found["reduce tma span 4096 stages 2"]
     assert "cp.async.bulk" in path.read_text()
     assert defines == ["PEER_TMA_SPAN=4096", "PEER_TMA_STAGES=2"]
+
+
+def test_peer_barrier_designs_edit_the_shipped_sources(tmp_path):
+    # every barrier variant is an edit of the shipped source that must
+    # still apply; the shipped one is the source itself, and the gpu
+    # scope, a yardstick, never ships
+    from tpu_perf_torch.tools import peer_designs
+
+    found = peer_designs.barrier_designs(tmp_path)
+    assert sorted(found) == sorted(f"barrier {name}"
+                                   for name in peer_designs.BARRIER_DESIGNS)
+    shipped = (_build.CSRC / "peer_collectives.cu").read_text()
+    texts = {name: path.read_text() for name, (path, _) in found.items()}
+    assert texts["barrier shipped"] == shipped
+    assert len(set(texts.values())) == len(texts)
+    for name, text in texts.items():
+        gpu = "gpu scope" in name
+        for sys_asm in (peer_designs.SIGNAL_SYS, peer_designs.WAIT_SYS):
+            assert (sys_asm in text) != gpu
+            assert (sys_asm.replace(".sys", ".gpu") in text) == gpu
+    assert ".gpu.global" not in shipped
+
+
+def test_peer_step_designs_edit_the_shipped_sources(tmp_path):
+    # each push step's other last execution is an edit of pallas_ring.py
+    # that must still apply: allreduce's last pull goes and its step
+    # copies; the gather's step stops copying and its last execution
+    # pulls
+    from tpu_perf_torch.ops import pallas_ring
+    from tpu_perf_torch.tools import peer_designs
+
+    shipped = Path(pallas_ring.__file__).read_text()
+    found = peer_designs.step_designs(tmp_path)
+    assert sorted(found) == sorted(peer_designs.STEP_DESIGNS)
+    texts = {op: path.read_text() for op, path in found.items()}
+    for op, text in texts.items():
+        compile(text, str(found[op]), "exec")
+    copies = shipped.count("execution, torch.clone)")
+    assert texts["pl_allreduce"].count("execution, torch.clone)") == copies + 1
+    assert texts["pl_all_gather"].count("execution, torch.clone)") == copies - 1
+    assert peer_designs.ALLREDUCE_LAST_PULL in shipped
+    assert peer_designs.ALLREDUCE_LAST_PULL not in texts["pl_allreduce"]
+    assert peer_designs.GATHER_LAST_PULL not in shipped
+    assert peer_designs.GATHER_LAST_PULL in texts["pl_all_gather"]

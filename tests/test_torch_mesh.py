@@ -12,6 +12,7 @@ in the ring's order; the byte movers are held exactly.
 """
 
 import argparse
+import sys
 
 import jax
 import numpy as np
@@ -335,6 +336,125 @@ def test_bidir_order_takes_each_half_once_in_both_directions(n):
         tpr.peer_all_gather_bidir([torch.ones(3)] * n, 0)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_push_order_rotates_and_takes_each_half_once(n):
+    for rank in range(n):
+        whole = tpr.push_order(n, rank)
+        assert [s for _, _, s in whole] == [(rank + k) % n for k in range(n)]
+        assert {h for _, h, _ in whole} == {0}
+        both = tpr.push_order(n, rank, bidir=True)
+        assert sorted((h, s) for _, h, s in both) == [
+            (h, s) for h in (0, 1) for s in range(n)]
+        assert [s for _, h, s in both if h == 1] == [
+            (rank - k) % n for k in range(n)]
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32, torch.uint8])
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_push_plain_writes_only_its_slot_and_gathers_like_cat(n, dtype,
+                                                              bidir):
+    chunk = 6
+    owns = [(torch.arange(chunk) * 3 + 11 * s).to(dtype) for s in range(n)]
+    sentinel = torch.tensor(97).to(dtype)
+    outs = [torch.full((n * chunk,), int(sentinel)).to(dtype)
+            for _ in range(n)]
+    kernels.reset_counts()
+    for r in range(n):
+        before = [o.clone() for o in outs]
+        tpr.peer_all_gather_push(owns[r], outs, r, bidir=bidir)
+        for o, b in zip(outs, before):
+            mine = slice(r * chunk, (r + 1) * chunk)
+            assert torch.equal(o[mine], owns[r])
+            o_rest, b_rest = o.clone(), b.clone()
+            o_rest[mine], b_rest[mine] = 0, 0
+            assert torch.equal(o_rest, b_rest), "a store outside its slot"
+    assert all(torch.equal(o, torch.cat(owns)) for o in outs)
+    name = "peer_all_gather_bidir" if bidir else "peer_all_gather"
+    assert kernels.PLAIN_CALLS[name] == n
+    assert not any(kernels.LAUNCHES.values())
+
+
+def test_push_refuses_what_it_cannot_store():
+    outs = [torch.zeros(8) for _ in range(2)]
+    with pytest.raises(ValueError, match="into 2 outputs"):
+        tpr.peer_all_gather_push(torch.ones(3), outs, 0)
+    with pytest.raises(ValueError, match="into 2 outputs"):
+        tpr.peer_all_gather_push(torch.ones(4, dtype=torch.int32), outs, 0)
+    with pytest.raises(ValueError, match="rank 2 outside"):
+        tpr.peer_all_gather_push(torch.ones(4), outs, 2)
+    with pytest.raises(ValueError, match="in half"):
+        tpr.peer_all_gather_push(torch.ones(3), [torch.zeros(6)] * 2, 1,
+                                 bidir=True)
+
+
+def _jax_gather_kernel(host: np.ndarray, n: int, chunk: int,
+                       bidir: bool) -> np.ndarray:
+    """The raw Pallas gather kernel (``_all_gather_kernel``, or
+    ``_all_gather_bidir_kernel``; no take-own-shard carry) under the TPU
+    interpreter: every device's whole gathered buffer, ``(n, n*chunk)``,
+    from ``host`` ``(n, chunk)``."""
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    import tpu_perf.ops.pallas_ring as jpr
+    from tpu_perf.compat import shard_map
+
+    mesh = jax_make_mesh(devices=jax.devices()[:n])
+    axis = mesh.axis_names[0]
+    if bidir:
+        kern = jpr._all_gather_bidir_kernel(axis, n, chunk)
+        sems = pltpu.SemaphoreType.DMA((n - 1,))
+        scratch = [pltpu.SemaphoreType.DMA, sems, sems, sems, sems]
+        op = "pl_all_gather_bidir"
+    else:
+        kern = jpr._all_gather_kernel(axis, n, chunk, src_full=False)
+        sems = pltpu.SemaphoreType.DMA((max(n - 1, 1),))
+        scratch = [pltpu.SemaphoreType.DMA, sems, sems]
+        op = "pl_all_gather"
+
+    def call(x):
+        return pl.pallas_call(
+            kern,
+            out_shape=jax.ShapeDtypeStruct((chunk * n,), x.dtype),
+            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
+            out_specs=pl.BlockSpec(memory_space=pl.ANY),
+            scratch_shapes=scratch,
+            compiler_params=pltpu.CompilerParams(
+                collective_id=jpr._COLLECTIVE_IDS[op]),
+            interpret=pltpu.InterpretParams(),
+        )(x)
+
+    step = jax.jit(shard_map(call, mesh=mesh, in_specs=P(axis),
+                             out_specs=P(axis), check_vma=False))
+    x = jax.device_put(jnp.asarray(host.reshape(-1)),
+                       NamedSharding(mesh, P(axis)))
+    return np.asarray(jax.device_get(step(x))).reshape(n, n * chunk)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("n,chunk", [(2, 2), (5, 6), (8, 4)])
+@pytest.mark.parametrize("bidir", [False, True])
+def test_push_plain_is_the_jax_gather_kernels_whole_buffer(bidir, n, chunk,
+                                                           dtype,
+                                                           eight_devices):
+    # every rank pushes its own chunk into every rank's buffer: the whole
+    # gathered buffers are the JAX kernel's, whose ring sends (pushes)
+    # each chunk on to its neighbour
+    host = ((np.arange(n * chunk) * 7 + 3) % 251).astype(dtype).reshape(
+        n, chunk)
+    want = _jax_gather_kernel(host, n, chunk, bidir)
+    own = torch.from_numpy(host.copy())
+    outs = [torch.zeros(n * chunk, dtype=own.dtype) for _ in range(n)]
+    for r in range(n):
+        tpr.peer_all_gather_push(own[r], outs, r, bidir=bidir)
+    np.testing.assert_array_equal(torch.stack(outs).numpy(), want)
+
+
 @pytest.mark.parametrize("n", [2, 3, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_peer_reduce_scatter_tiles_is_the_sim_tiled_plain(n, dtype):
@@ -479,17 +599,17 @@ def _threaded_barrier(cond):
     return barrier
 
 
-@pytest.mark.parametrize("n", [2, 4])
-@pytest.mark.parametrize("op", ["pl_allreduce", "pl_reduce_scatter",
-                                "pl_ring", "pl_exchange", "pl_pingpong",
-                                "pl_barrier", "pl_all_to_all",
-                                "pl_all_gather", "pl_all_gather_bidir"])
-def test_card_steps_match_the_sim_chain_with_ranks_in_threads(op, n,
-                                                              monkeypatch):
-    # the card-side steps on CPU tensors, one thread a rank, each running
-    # three chained steps with random pauses around every data launch:
-    # the barriers alone order the ranks, so a missing one shows as a
-    # mismatch with the sim world's chain (exactly, float32)
+#: the steps whose gathers push on the card
+PUSH_OPS = ("pl_allreduce", "pl_all_gather", "pl_all_gather_bidir")
+
+
+def _steps_in_threads(op, n, monkeypatch, steps=3, fresh=False):
+    """``op``'s card-side steps on CPU tensors, one thread a rank, each
+    running ``steps`` chained steps (with ``fresh``, each step on an input
+    of its own) with random pauses before every data launch: the barriers
+    alone order the ranks.  Returns each step's outputs as the ranks
+    returned them (held to the end), the sim world's outputs of the same
+    steps, and the ranks that pushed."""
     import random
     import threading
     import time
@@ -502,10 +622,14 @@ def test_card_steps_match_the_sim_chain_with_ranks_in_threads(op, n,
     monkeypatch.setattr(tpr, "PeerBuffers", _CpuPeerBuffers)
     monkeypatch.setattr(tpr, "peer_barrier",
                         _threaded_barrier(threading.Condition()))
+    pushed = []
     for name in ("peer_copy", "peer_all_to_all", "peer_all_gather",
-                 "peer_all_gather_bidir", "peer_reduce_scatter"):
-        def paused(*a, _fn=getattr(tpr, name), **k):
+                 "peer_all_gather_bidir", "peer_reduce_scatter",
+                 "peer_all_gather_push"):
+        def paused(*a, _fn=getattr(tpr, name), _name=name, **k):
             time.sleep(random.random() * 2e-3)
+            if _name == "peer_all_gather_push":
+                pushed.append(a[2])
             return _fn(*a, **k)
 
         monkeypatch.setattr(tpr, name, paused)
@@ -513,15 +637,18 @@ def test_card_steps_match_the_sim_chain_with_ranks_in_threads(op, n,
     worlds = [DistWorld(rank=r, n=n, local_rank=0, device=CPU,
                         mesh=make_mesh(n=n), peer_memory=regions)
               for r in range(n)]
-    steps = [tpr.build_pallas_step(op, w, 4108, 3)[0] for w in worlds]
+    built = [tpr.build_pallas_step(op, w, 4108, 3)[0] for w in worlds]
     sim_step, elems, _ = tpr.build_pallas_step(op, SimWorld(n, CPU), 4108, 3)
     rows = example_input(SimWorld(n, CPU), elems, "float32")
-    ys, errors = [rows[r].clone() for r in range(n)], []
+    inputs = [rows + 17 * k for k in range(steps)]
+    outs, errors = [[None] * n for _ in range(steps)], []
 
     def rank(r):
         try:
-            for _ in range(3):
-                ys[r] = steps[r](ys[r])
+            y = rows[r].clone()
+            for k in range(steps):
+                y = inputs[k][r].clone() if fresh else y
+                y = outs[k][r] = built[r](y)
         except Exception as e:  # noqa: BLE001 — reported below
             errors.append(repr(e))
 
@@ -532,7 +659,57 @@ def test_card_steps_match_the_sim_chain_with_ranks_in_threads(op, n,
         t.join(timeout=60)
     assert not any(t.is_alive() for t in threads), "a rank never ended"
     assert not errors, errors
-    want = rows
-    for _ in range(3):
-        want = sim_step(want)
-    assert torch.equal(torch.stack(ys), want)
+    wants, want = [], rows
+    for k in range(steps):
+        want = sim_step(inputs[k] if fresh else want)
+        wants.append(want)
+    return [torch.stack(o) for o in outs], wants, set(pushed)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("op", ["pl_allreduce", "pl_reduce_scatter",
+                                "pl_ring", "pl_exchange", "pl_pingpong",
+                                "pl_barrier", "pl_all_to_all",
+                                "pl_all_gather", "pl_all_gather_bidir"])
+def test_card_steps_match_the_sim_chain_with_ranks_in_threads(op, n,
+                                                              monkeypatch):
+    # the card-side steps on CPU tensors, one thread a rank, each running
+    # three chained steps with random pauses around every data launch:
+    # the barriers alone order the ranks, so a missing one shows as a
+    # mismatch with the sim world's chain (exactly, float32); the gathers
+    # of pl_allreduce and the two all-gathers push through the push's
+    # plain version, which writes into the other ranks' buffers
+    got, wants, pushed = _steps_in_threads(op, n, monkeypatch)
+    assert torch.equal(got[-1], wants[-1])
+    assert pushed == (set(range(n)) if op in PUSH_OPS else set())
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("op", PUSH_OPS)
+def test_a_steps_result_outlives_the_later_steps(op, n, monkeypatch):
+    # with the push a rank's symmetric buffers take the peers' stores at
+    # every later step: each step returns a tensor no later step writes
+    # (each step on an input of its own: the ops' outputs are fixed
+    # points of their steps)
+    got, wants, pushed = _steps_in_threads(op, n, monkeypatch, steps=4,
+                                           fresh=True)
+    for k, (g, want) in enumerate(zip(got, wants)):
+        assert torch.equal(g, want), f"step {k}'s result changed"
+    assert pushed == set(range(n))
+
+
+@pytest.mark.parametrize("op", ["pl_allreduce", "pl_all_gather"])
+def test_the_designs_tools_step_edits_match_the_sim_chain(op, tmp_path,
+                                                          monkeypatch):
+    # the other way of a step's last execution, which the designs tool
+    # times as an edit of pallas_ring.py, is the same chain, and its
+    # results outlive the later steps too
+    from tpu_perf_torch.tools import peer_designs
+
+    edited = peer_designs.load_steps(peer_designs.step_designs(tmp_path)[op])
+    monkeypatch.setattr(sys.modules[__name__], "tpr", edited)
+    got, wants, pushed = _steps_in_threads(op, 2, monkeypatch, steps=4,
+                                           fresh=True)
+    for k, (g, want) in enumerate(zip(got, wants)):
+        assert torch.equal(g, want), f"step {k}'s result changed"
+    assert pushed == {0, 1}

@@ -305,6 +305,44 @@ def test_a_world_of_one_does_what_jax_does_on_one_device(world1, op,
                                rtol=tol or RTOL["float32"], atol=tol)
 
 
+@pytest.mark.parametrize("op", ["pl_allreduce", "pl_all_gather",
+                                "pl_all_gather_bidir"])
+def test_the_gloo_path_keeps_the_pull_gather(op, monkeypatch,
+                                             eight_devices):
+    # a CPU world's rank cannot reach its peers' outputs, so its gathers
+    # pull (the plain gather of what gloo brings) and never push; a world
+    # of one needs no collective and gives what JAX gives on one device
+    # (pl_allreduce, which JAX runs on two or more, the mean over one rank:
+    # its input)
+    import torch
+
+    import tpu_perf_torch.ops.pallas_ring as tpr
+    from tpu_perf_torch import kernels
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.parallel import make_mesh
+    from tpu_perf_torch.world import DistWorld
+
+    def no_push(*args, **kwargs):
+        raise AssertionError("the gloo path pushed")
+
+    monkeypatch.setattr(tpr, "peer_all_gather_push", no_push)
+    world = DistWorld(rank=0, n=1, local_rank=0, device=torch.device("cpu"),
+                      mesh=make_mesh(n=1))
+    built = build_op(op, world, NBYTES, ITERS)
+    x = built.example_input.numpy().astype(np.float64)
+    kernels.reset_counts()
+    got = built.step(built.example_input).numpy().astype(np.float64)
+    name = ("peer_all_gather_bidir" if op == "pl_all_gather_bidir"
+            else "peer_all_gather")
+    assert kernels.PLAIN_CALLS[name] == ITERS
+    if op == "pl_allreduce":
+        np.testing.assert_array_equal(got, x)
+        return
+    jx, want = _jax(op, 1, "float32")
+    np.testing.assert_array_equal(x, jx)
+    np.testing.assert_array_equal(got, want)
+
+
 # --- the CLI and extern across two processes -------------------------------
 
 

@@ -370,7 +370,8 @@ def fake_streams(monkeypatch):
                         lambda device: (device.index, current["stream"]))
     monkeypatch.setattr(tpr, "_ROW_COPY_COUNTERS",
                         {"p2p_shift": {}, "hbm_copy": {}, "all_gather": {},
-                         "peer_copy": {}, "peer_reduce": {}})
+                         "peer_copy": {}, "peer_reduce": {},
+                         "peer_gather": {}})
     monkeypatch.setattr(tpr, "_PINGPONG_COUNTERS", {})
     return current
 
@@ -380,6 +381,7 @@ def fake_streams(monkeypatch):
     lambda: tpr.row_copy_counters("all_gather", CPU),
     lambda: tpr.row_copy_counters("peer_copy", CPU),
     lambda: tpr.row_copy_counters("peer_reduce", CPU),
+    lambda: tpr.row_copy_counters("peer_gather", CPU),
     lambda: tpr.pingpong_counters(CPU, 4),
 ])
 def test_two_streams_get_two_counter_buffers(get, fake_streams):

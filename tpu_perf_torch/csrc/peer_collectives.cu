@@ -1,6 +1,7 @@
-// Peer collectives of a multi-rank world: every pl_* op that reads another
-// rank's memory, one launch a rank, reading its peers' buffers through a
-// table of device pointers (or one pointer) and meeting them on signal pads.
+// Peer collectives of a multi-rank world: every pl_* op that reaches
+// another rank's memory, one launch a rank, reading or writing its peers'
+// buffers through a table of device pointers (or one pointer) and meeting
+// them on signal pads.
 //
 // Replaces, for a world of ranks on their own cards:
 //   tpu_perf/ops/pallas_ring.py `_reduce_scatter_kernel` (with `_acc_add`,
@@ -29,12 +30,15 @@
 //                 (each rank adds its own chunk to the partial that
 //                 arrives), so a float32 sum is bit-identical to the sim
 //                 kernel's and to JAX's.
-//   peer_gather:  out[s*chunk : (s+1)*chunk] = parts[s][0 : chunk] for
-//                 every rank s: the rank pulls every peer's part into its
-//                 own output, so every write stays on its card.  In the
-//                 half-chunk mode ring step k pulls the first half of rank
-//                 d-k's part (clockwise) and the second half of rank d+k's
-//                 (counter-clockwise); the output is the same.
+//   peer_gather:  out_s[d*chunk : (d+1)*chunk] = own for every rank s
+//                 (push: the rank stores its own chunk into its slot of
+//                 every rank's output, as the TPU kernels send theirs), or
+//                 out[s*chunk : (s+1)*chunk] = parts[s][0 : chunk] for
+//                 every rank s (pull: the all-to-all, and a gather into a
+//                 tensor no peer can reach).  In the half-chunk mode the
+//                 first halves go clockwise (push to d+k, pull from d-k)
+//                 and the second counter-clockwise; the output is the
+//                 same.
 //   peer_copy:    dst = src, one peer's buffer (or the rank's own) pulled
 //                 into the rank's own.
 //   peer_barrier: the rank signals slot d of the pad of every rank of its
@@ -46,12 +50,42 @@
 //                 partner {d+n/2}.  Each set is symmetric: s is in d's set
 //                 exactly when d is in s's.
 //
-// Memory order.  Peers sit on other cards, so the signal is a release and
-// the wait an acquire at system scope (st.release.sys / ld.acquire.sys,
-// after a __threadfence_system()); gpu scope would pass on one card and be
-// wrong across two.  A rank's earlier kernels are done when its barrier
-// starts (stream order), so what they wrote is visible to a peer that has
-// seen the signal, and what they read is read.
+// Memory order.  Peers sit on other cards, so every signal is a release
+// and every wait an acquire at system scope (st.release.sys /
+// ld.acquire.sys); gpu scope would pass on one card and be wrong across
+// two.  The hard case is a push: rank d's previous kernel stored into
+// peer s's memory, and s's next kernel reads those bytes once s has
+// passed the barrier.  Stream order puts d's previous kernels (their
+// stores into peers' memory and their loads of it) before its barrier
+// kernel, so they happen before each of its signals; the st.release.sys
+// of a signal is a release at system scope, and a release is cumulative:
+// it orders before the signal every write that happens before it, the
+// previous kernel's stores into a peer's memory included.  It is the
+// instruction that orders them.  On s, the ld.acquire.sys that sees the
+// signal orders every later access of its thread after d's release;
+// __syncthreads (bar.sync) orders the rest of the CTA (the tail copy)
+// after it, and stream order s's next kernel.  So s reads d's pushed
+// bytes, and d's earlier reads of s's memory are done before s
+// overwrites it.  No full fence is needed beside them: the kernel's two
+// __threadfence_system() (fence.sc.sys, before the signals and after the
+// waits) took 4.6-4.9 of its 8.0-8.4 us in a world of one and made no
+// order the release and acquire lack (python -m
+// tpu_perf_torch.tools.peer_designs --parts barrier, NVIDIA H100 80GB
+// HBM3, 700 W; PERF.md).
+// Sources.  Release and acquire patterns, their scopes and the
+// cumulativity of a release through causality order: the PTX ISA's
+// "Memory Consistency Model" chapter.  That a stream runs its kernels in
+// order, each after the previous one's memory operations are done: the
+// CUDA C++ Programming Guide's "Streams" section.  The argument rests on
+// that rule holding at system scope, for stores into another card's
+// memory over NVLink as for local ones; the PTX model itself has no
+// kernel boundaries.  PyTorch's SymmetricMemory rests on the same
+// premise: its barrier kernel (c10d CUDASymmetricMemory.cu, with
+// put_signal / wait_signal of CUDASymmetricMemory-inl.h) signals with a
+// release and waits with an acquire at system scope, with no fence,
+// between kernels that store into peers' buffers and kernels that read
+// them.  chip_smoke.ipc_across_cards runs the push chain across cards
+// bit for bit (PERF.md section 7).
 //
 // Generations, and graph replay.  A CUDA graph freezes its kernels'
 // arguments, so no host-side epoch can tell one replay's barrier from the
@@ -76,10 +110,12 @@
 //
 // Bounds on an H100 (80 GB HBM3 at 3.35 TB/s): the data kernels are
 // memory-bound, the barrier latency-bound.  Across cards each rank reads
-// its n chunks (peer_reduce), n parts (peer_gather) or one buffer
+// its n chunks (peer_reduce), n parts (the pull gather) or one buffer
 // (peer_copy) over NVLink (450 GB/s each way) and writes its own output;
-// in the loopback the n launches share one card's memory and move the sim
-// kernels' bytes in all.
+// the push gather reads its own chunk once and writes n slots, n - 1 of
+// them over NVLink.  In the loopback the n launches share one card's
+// memory: the pushes move the sim gather's bytes (n chunks read, n * n
+// written), where n pulls read n * n.
 //
 // Design.  peer_copy_kernel and peer_reduce's 16-byte path are persistent
 // grids that draw tiles in address order from a per-launch counter pair
@@ -102,7 +138,18 @@
 // wait on anything: the barrier stays the only waiter.  A chunk that is
 // not a whole number of aligned 16-byte units (vec == 0) goes one element
 // a thread in a grid-stride loop: it is off the paths' 256 MiB points,
-// whose chunks are aligned.  peer_gather keeps the grid-stride loop.
+// whose chunks are aligned.  peer_gather is the copy's tile list over n
+// destinations (push) or n sources (pull), in the widest word that
+// divides every address and the chunk's (or half's) bytes.  Its push
+// takes all_gather.cu's order: a source tile, then its n destinations,
+// so L2 serves the rereads; each rank starts at its own output (s = d, d
+// + 1, ...), so across cards no output takes every rank's first stores.
+// At 8 x 256 MiB in the one-card loopback the push takes 0.874-0.875 ms
+// (82% of the gather's bound; the sim gather 0.846-0.853), torch.cat of
+// the chunks on every rank's stream 1.447-1.462 and the expand copy
+// 1.707-1.726; the pull on the same tiles 1.149-1.158, as a grid-stride
+// loop 1.46-1.48 (each rank reads all n chunks: n * n in the loopback)
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -280,25 +327,62 @@ peer_reduce_elems(const T* const* __restrict__ parts, T* __restrict__ out,
   }
 }
 
-// Each part is `words` words of W.  halves == 1: row s of the grid pulls
-// rank s's part into out[s * words ...].  halves == 2: grid row k, layer h
-// is ring step k of direction h, which pulls half h of rank (rank - k) mod
-// n's part (h = 0, clockwise) or of rank (rank + k) mod n's (h = 1,
-// counter-clockwise) into that rank's place in out.
+// The gather's tile list, in `push` or pull mode.  A part is `words`
+// words of W in `halves` rows of len = words / halves (half-chunks when
+// halves == 2), each row cut into per_half tiles of 8 KB (the last may be
+// ragged).  Ring step k of half h names rank s: in push mode s = rank + k
+// for h == 0 (clockwise) and rank - k for h == 1 (counter-clockwise), mod
+// n; in pull mode the other way round, s = rank - k and rank + k, and s =
+// k when halves == 1 (the output in address order).
+//   push: tile u = (p, h, k), k fastest: tile p of half h of this rank's
+//     own part is stored into slot `rank` of rank s's output, table[s]
+//     (its base).  The n stores of one source tile run side by side, so
+//     the first reads it from device memory and the others find it in L2.
+//   pull: tile u = (k, h, p), p fastest: tile p of half h of table[s] is
+//     stored into slot s of out.
 template <typename W>
 __global__ void __launch_bounds__(kThreads)
-peer_gather(const W* const* __restrict__ parts, W* __restrict__ out,
-            long long words, int n, int rank, int halves) {
-  const int k = blockIdx.y, h = blockIdx.z;
-  const int s = halves == 1 ? k : (h == 0 ? (rank - k + n) % n : (rank + k) % n);
+peer_gather(W* const* __restrict__ table, const W* __restrict__ own,
+            W* __restrict__ out, unsigned int* counters, int n, int rank,
+            long long words, int halves, int push) {
+  __shared__ W* ptrs[kMaxRanks];
+  for (int k = threadIdx.x; k < n; k += blockDim.x) ptrs[k] = table[k];
+  __syncthreads();
+  constexpr long long tile = row_copy::kTileWords<W>;
   const long long len = words / halves;
-  const W* __restrict__ src = parts[s] + h * len;
-  W* __restrict__ dst = out + (long long)s * words + h * len;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < len; i += stride) {
-    dst[i] = src[i];
-  }
+  const unsigned int per_half = (unsigned int)((len + tile - 1) / tile);
+  const unsigned int un = (unsigned int)n;
+  row_copy::for_each_tile(
+      counters, un * (unsigned int)halves * per_half, [&](unsigned int u) {
+        unsigned int k, q, p;
+        if (push) {
+          k = u % un;
+          q = u / un;
+        } else {
+          p = u % per_half;
+          q = u / per_half;
+        }
+        const int h = (int)(q % (unsigned int)halves);
+        q /= (unsigned int)halves;
+        if (push) {
+          p = q;
+        } else {
+          k = q;
+        }
+        const int ahead = (int)((rank + k) % un);
+        const int behind = (int)((rank + un - k) % un);
+        const long long at = (long long)h * len;
+        const long long t0 = (long long)p * tile;
+        if (push) {
+          const int s = h == 0 ? ahead : behind;
+          row_copy::copy_tile<true>(own + at, ptrs[s] + rank * words + at,
+                                    len, t0);
+        } else {
+          const int s = halves == 1 ? (int)k : (h == 0 ? behind : ahead);
+          row_copy::copy_tile<true>(ptrs[s] + at, out + s * words + at, len,
+                                    t0);
+        }
+      });
 }
 
 // dst = src, `words` words of W; src may be a peer's buffer.  One row of
@@ -351,23 +435,20 @@ __device__ __forceinline__ int set_member(int set, int n, int rank, int k) {
   return k;
 }
 
-// One CTA of one warp: bump this rank's generation, signal slot `rank` of
-// the pad of every rank of its set, wait for those ranks' slots of this
-// rank's pad; then copy `nbytes` bytes from src to dst (none when 0).
+// One CTA of one warp (kBarrierThreads): bump this rank's generation,
+// signal slot `rank` of the pad of every rank of its set, wait for those
+// ranks' slots of this rank's pad; then copy `nbytes` bytes from src to
+// dst (none when 0).
 __global__ void __launch_bounds__(kBarrierThreads)
 peer_barrier_kernel(unsigned int* const* __restrict__ pads,
                     unsigned int* __restrict__ generation, int n, int rank,
                     int set, const unsigned char* __restrict__ src,
                     unsigned char* __restrict__ dst, long long nbytes) {
-  __shared__ unsigned int gen;
-  if (threadIdx.x == 0) {
-    gen = *generation + 1u;
-    *generation = gen;
-  }
-  __syncthreads();
-  const unsigned int g = gen;
+  // every thread of the warp loads the count before thread 0 bumps it
+  const unsigned int g = *generation + 1u;
+  __syncwarp();
+  if (threadIdx.x == 0) *generation = g;
   const int peers = set_size(set, n);
-  __threadfence_system();
   for (int k = threadIdx.x; k < peers; k += blockDim.x) {
     store_release_sys(pads[set_member(set, n, rank, k)] + rank, g);
   }
@@ -380,9 +461,6 @@ peer_barrier_kernel(unsigned int* const* __restrict__ pads,
       __nanosleep(64);
     }
   }
-  // what each waiter acquired, ordered before the copy and the rank's
-  // next kernel
-  __threadfence_system();
   __syncthreads();
   for (long long i = threadIdx.x; i < nbytes; i += blockDim.x) dst[i] = src[i];
 }
@@ -437,14 +515,21 @@ int launch_reduce(const void* table, void* out, void* counters, int n,
 }
 
 template <typename W>
-int launch_gather(const void* table, void* out, int n, int rank,
-                  long long chunk_bytes, int halves, cudaStream_t stream) {
+int launch_gather(const void* table, const void* own, void* out,
+                  void* counters, int n, int rank, long long chunk_bytes,
+                  int halves, int push, cudaStream_t stream) {
+  static int resident_cache[row_copy::kMaxDevices] = {0};
+  constexpr long long tile = row_copy::kTileWords<W>;
   const long long words = chunk_bytes / (long long)sizeof(W);
-  const dim3 grid((unsigned)data_grid(words / halves), (unsigned)n,
-                  (unsigned)halves);
+  const long long per_half = (words / halves + tile - 1) / tile;
+  cudaError_t err = cudaSuccess;
+  const int grid = tile_grid((const void*)peer_gather<W>, resident_cache,
+                             (long long)n * halves * per_half, &err);
+  if (err != cudaSuccess) return (int)err;
   peer_gather<W><<<grid, kThreads, 0, stream>>>(
-      static_cast<const W* const*>(table), static_cast<W*>(out), words, n,
-      rank, halves);
+      static_cast<W* const*>(const_cast<void*>(table)),
+      static_cast<const W*>(own), static_cast<W*>(out),
+      static_cast<unsigned int*>(counters), n, rank, words, halves, push);
   return (int)cudaGetLastError();
 }
 
@@ -468,15 +553,22 @@ bool is_word(int word) {
   return word == 16 || word == 4 || word == 2 || word == 1;
 }
 
-// One gather launch of the width `word` (checked by the caller).
-int gather_by_word(const void* table, void* out, int n, int rank,
-                   long long chunk_bytes, int halves, int word,
-                   cudaStream_t s) {
+// One gather launch in the word `word`, after the entries' common checks.
+int gather_by_word(const void* table, const void* own, void* out,
+                   void* counters, int n, int rank, long long chunk_bytes,
+                   int halves, int word, int push, void* stream) {
+  if (n < 1 || n > kMaxRanks || rank < 0 || rank >= n ||
+      (halves != 1 && halves != 2) || !is_word(word) || chunk_bytes < 0 ||
+      chunk_bytes % ((long long)halves * word)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long b = chunk_bytes;
   switch (word) {
-    case 16: return launch_gather<uint4>(table, out, n, rank, chunk_bytes, halves, s);
-    case 4: return launch_gather<uint32_t>(table, out, n, rank, chunk_bytes, halves, s);
-    case 2: return launch_gather<uint16_t>(table, out, n, rank, chunk_bytes, halves, s);
-    default: return launch_gather<uint8_t>(table, out, n, rank, chunk_bytes, halves, s);
+    case 16: return launch_gather<uint4>(table, own, out, counters, n, rank, b, halves, push, s);
+    case 4: return launch_gather<uint32_t>(table, own, out, counters, n, rank, b, halves, push, s);
+    case 2: return launch_gather<uint16_t>(table, own, out, counters, n, rank, b, halves, push, s);
+    default: return launch_gather<uint8_t>(table, own, out, counters, n, rank, b, halves, push, s);
   }
 }
 
@@ -507,31 +599,36 @@ extern "C" int peer_reduce_scatter(const void* table, void* out,
   }
 }
 
-// A rank's all-gather (or all-to-all): `table` is a device array of n
-// pointers, entry s at the part rank s gives this rank (its owned chunk,
-// or its chunk `rank`), chunk_bytes each; out holds n * chunk_bytes.  word
-// (16, 4, 2 or 1) divides every pointer, out and chunk_bytes.
-extern "C" int peer_all_gather(const void* table, void* out, int n,
-                               long long chunk_bytes, int word,
-                               void* stream) {
-  if (n < 1 || !is_word(word) || chunk_bytes % word) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return gather_by_word(table, out, n, 0, chunk_bytes, 1, word,
-                        static_cast<cudaStream_t>(stream));
+// Rank `rank`'s push all-gather: its own part `own` (chunk_bytes) is
+// stored into bytes [rank * chunk_bytes, (rank + 1) * chunk_bytes) of every
+// rank's output; `table` is a device array of the n outputs' bases.  halves
+// 2: the first half-chunk goes clockwise (rank + k), the second
+// counter-clockwise (rank - k).  word (16, 4, 2 or 1) divides own, every
+// destination slot and chunk_bytes / halves.  counters is 2 uint32 words,
+// zero, that only launches ordered on one stream touch (the kernel leaves
+// them zero).  A rank's output is whole once every rank's push is done:
+// the caller's next barrier.  Returns the occupancy query's error, else
+// cudaGetLastError().
+extern "C" int peer_gather_push(const void* own, const void* table,
+                                void* counters, int n, int rank,
+                                long long chunk_bytes, int halves, int word,
+                                void* stream) {
+  return gather_by_word(table, own, nullptr, counters, n, rank, chunk_bytes,
+                        halves, word, 1, stream);
 }
 
-// The same gather in half-chunks, both ring directions from rank `rank`:
-// word divides every pointer, out and chunk_bytes / 2.
-extern "C" int peer_all_gather_bidir(const void* table, void* out, int n,
-                                     int rank, long long chunk_bytes,
-                                     int word, void* stream) {
-  if (n < 1 || rank < 0 || rank >= n || !is_word(word) ||
-      chunk_bytes % (2 * word)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  return gather_by_word(table, out, n, rank, chunk_bytes, 2, word,
-                        static_cast<cudaStream_t>(stream));
+// Rank `rank`'s pull gather (the all-to-all, and the gathers into a
+// tensor no peer can reach): `table` is a device array of n pointers,
+// entry s at the part rank s gives this rank (its owned chunk, or its
+// chunk `rank`), chunk_bytes each, pulled into out[s * chunk_bytes ...];
+// halves 2 pulls the first halves from rank - k and the second from rank
+// + k.  word divides every pointer, out and chunk_bytes / halves; counters
+// as peer_gather_push's.
+extern "C" int peer_gather_pull(const void* table, void* out, void* counters,
+                                int n, int rank, long long chunk_bytes,
+                                int halves, int word, void* stream) {
+  return gather_by_word(table, nullptr, out, counters, n, rank, chunk_bytes,
+                        halves, word, 0, stream);
 }
 
 // dst = src, nbytes; word (16, 4, 2 or 1) divides both pointers and nbytes;

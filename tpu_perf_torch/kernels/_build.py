@@ -70,13 +70,15 @@ _EXTRA_ENTRIES = {
                                                  ctypes.POINTER(ctypes.c_int)],
     # the bidirectional gather: (src, out, counters, n, chunk_bytes, stream)
     ("all_gather", "direct_all_gather_bidir"): [_P, _P, _P, _I, _L, _P],
-    # the peer kernels' gathers, copy and barrier: (table, out, n,
-    # chunk_bytes, word, stream), (table, out, n, rank, chunk_bytes, word,
-    # stream), (src, dst, counters, nbytes, word, stream) and (pad table,
-    # generation, n, rank, set, src, dst, nbytes, stream)
-    ("peer_collectives", "peer_all_gather"): [_P, _P, _I, _L, _I, _P],
-    ("peer_collectives", "peer_all_gather_bidir"): [_P, _P, _I, _I, _L, _I,
-                                                    _P],
+    # the peer kernels' gathers, copy and barrier: (own, table, counters,
+    # n, rank, chunk_bytes, halves, word, stream), (table, out, counters, n,
+    # rank, chunk_bytes, halves, word, stream), (src, dst, counters,
+    # nbytes, word, stream) and (pad table, generation, n, rank, set, src,
+    # dst, nbytes, stream)
+    ("peer_collectives", "peer_gather_push"): [_P, _P, _P, _I, _I, _L, _I,
+                                               _I, _P],
+    ("peer_collectives", "peer_gather_pull"): [_P, _P, _P, _I, _I, _L, _I,
+                                               _I, _P],
     ("peer_collectives", "peer_copy"): [_P, _P, _P, _L, _I, _P],
     ("peer_collectives", "peer_barrier"): [_P, _P, _I, _I, _I, _P, _P, _L,
                                            _P],

@@ -39,13 +39,16 @@ is written by hand for Hopper:
   ``peer_all_gather_bidir``, ``peer_copy`` (counted as ``peer_ring``,
   ``peer_exchange`` and ``peer_pingpong``) and ``peer_barrier`` (with its
   tail copy, ``peer_barrier_copy``) — CUDA C++,
-  ``csrc/peer_collectives.cu`` (the copy and the reduce-scatter draw
-  their tiles in order, ``csrc/row_copy.cuh``): every ``pl_*`` op that
-  reads another rank's memory, in a multi-rank world
+  ``csrc/peer_collectives.cu`` (the copy, the reduce-scatter and the
+  gathers draw their tiles in order, ``csrc/row_copy.cuh``): every
+  ``pl_*`` op that reaches another rank's memory, in a multi-rank world
   (:class:`tpu_perf_torch.world.DistWorld`), one launch a rank, each
-  reading its peers through pointers and meeting them on signal pads
+  reaching its peers through pointers and meeting them on signal pads
   (replace the TPU kernels' remote copies and their barrier semaphores
-  across cards); the local memory instruments run per rank as they are.
+  across cards); the gathers of the ops' steps push each rank's own
+  chunk into every rank's output (``peer_all_gather_push``), as the TPU
+  kernels send theirs, and the rest pull; the local memory instruments
+  run per rank as they are.
 
 Every ``pl_*`` op of the JAX package is ported.  Each wrapper launches its
 kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
@@ -293,17 +296,36 @@ def _card_counters(store: dict[tuple, torch.Tensor], device: torch.device,
 #: stream, its tile counters (uint32: next tile, CTAs done)
 _ROW_COPY_COUNTERS: dict[str, dict[tuple, torch.Tensor]] = {
     "hbm_copy": {}, "p2p_shift": {}, "all_gather": {}, "peer_copy": {},
-    "peer_reduce": {}}
+    "peer_reduce": {}, "peer_gather": {}}
 _ROW_COPY_COUNTER_WORDS = 2
 
 
 def row_copy_counters(source: str, device: torch.device) -> torch.Tensor:
     """The tile counters of ``source`` (``hbm_copy``, ``p2p_shift``,
-    ``all_gather``, ``peer_copy`` or ``peer_reduce``; ring and exchange
-    share one, as do the two gathers and the three peer copies) for the
-    card's current stream, zeroed once when made."""
+    ``all_gather``, ``peer_copy``, ``peer_reduce`` or ``peer_gather``;
+    ring and exchange share one, as do the two gathers, the three peer
+    copies and the peer gathers' push and pull) for the card's current
+    stream, zeroed once when made."""
     return _card_counters(_ROW_COPY_COUNTERS[source], device,
                           _ROW_COPY_COUNTER_WORDS)
+
+
+def warm_loopback_streams(streams: list, device: torch.device,
+                          nbytes: int) -> None:
+    """Make, on each of a loopback's rank streams and with the card idle,
+    what a rank's first step there would make: the kernels' tile counters
+    and a cached block of ``nbytes`` for its output.  The loopback
+    enqueues one rank's launches after another's from one thread, and a
+    device allocation (cudaMalloc) between two streams' commands keeps
+    them from running at once (the CUDA guide's implicit
+    synchronization): a rank's barrier would then wait for a rank whose
+    barrier cannot start."""
+    for s in streams:
+        with torch.cuda.stream(s):
+            for source in _ROW_COPY_COUNTERS:
+                row_copy_counters(source, device)
+            torch.empty(nbytes, dtype=torch.uint8, device=device)
+    torch.cuda.synchronize(device)
 
 
 # --- the local memory instruments --------------------------------------
@@ -806,6 +828,19 @@ def bidir_order(n: int, rank: int) -> list[tuple[int, int, int]]:
             for k in range(n) for h in (0, 1)]
 
 
+def push_order(n: int, rank: int,
+               bidir: bool = False) -> list[tuple[int, int, int]]:
+    """The push gather's ``(ring step, half, destination rank)`` for rank
+    ``rank``, in the order the kernel stores each source tile: the whole
+    chunk (half 0) to ``rank + k``, or with ``bidir`` half 0 clockwise to
+    ``rank + k`` and half 1 counter-clockwise to ``rank - k`` (mod n);
+    step 0 is the rank's own output.  Every rank starts at its own
+    output, so across cards no output takes every rank's first store."""
+    halves = (0, 1) if bidir else (0,)
+    return [(k, h, (rank + k) % n if h == 0 else (rank - k) % n)
+            for h in halves for k in range(n)]
+
+
 def peer_all_gather_bidir_plain(parts: list[torch.Tensor],
                                 rank: int) -> torch.Tensor:
     """The half-chunk gather in plain PyTorch, half by half in the order
@@ -826,16 +861,14 @@ def _launch_gather(name: str, parts, out: torch.Tensor | None, chunk: int,
     # given) half-chunks in both ring directions from rank
     n, dtype = len(parts), parts[0].dtype
     out = _check_out(name, out, n * chunk, dtype, parts[0].device)
+    halves = 1 if rank is None else 2
     nbytes = chunk * dtype.itemsize
-    word = _widest_word(nbytes if rank is None else nbytes // 2,
-                        out.data_ptr(), *(p.data_ptr() for p in parts))
-    table = _table_ptr(name, parts)
-    if rank is None:
-        err = _build.entry("peer_collectives", "peer_all_gather")(
-            table, out.data_ptr(), n, nbytes, word, _stream_of(out))
-    else:
-        err = _build.entry("peer_collectives", "peer_all_gather_bidir")(
-            table, out.data_ptr(), n, rank, nbytes, word, _stream_of(out))
+    word = _widest_word(nbytes // halves, out.data_ptr(),
+                        *(p.data_ptr() for p in parts))
+    counters = row_copy_counters("peer_gather", out.device)
+    err = _build.entry("peer_collectives", "peer_gather_pull")(
+        _table_ptr(name, parts), out.data_ptr(), counters.data_ptr(), n,
+        rank or 0, nbytes, halves, word, _stream_of(out))
     _build.check(name, err)
     kernels.LAUNCHES[name] += 1
     return out
@@ -843,10 +876,13 @@ def _launch_gather(name: str, parts, out: torch.Tensor | None, chunk: int,
 
 def peer_all_gather(parts, *, out: torch.Tensor | None = None
                     ) -> torch.Tensor:
-    """A rank's all-gather: ``parts[s]`` is rank s's owned chunk; returns
-    (into ``out`` when given) the n chunks in rank order, ``(n*chunk,)``.
-    One launch that pulls every peer's chunk into this rank's output; on
-    the card ``parts`` is a :class:`PeerParts`."""
+    """A rank's pull all-gather: ``parts[s]`` is rank s's owned chunk;
+    returns (into ``out`` when given, which no peer need reach) the n
+    chunks in rank order, ``(n*chunk,)``.  One launch that pulls every
+    peer's chunk into this rank's output, its 8 KB tiles in output order
+    from the card's ``peer_gather`` counters; on the card ``parts`` is a
+    :class:`PeerParts`.  :func:`peer_all_gather_push` is the same gather
+    with each rank reading only its own chunk."""
     chunk = _check_parts("peer_all_gather", parts)
     if parts[0].device.type == "cpu":
         got = peer_all_gather_plain(parts)
@@ -858,9 +894,9 @@ def peer_all_to_all(parts, *, out: torch.Tensor | None = None
                     ) -> torch.Tensor:
     """A rank's all-to-all: ``parts[s]`` is rank s's chunk for this rank
     (chunk ``rank`` of its input); returns (into ``out`` when given) the n
-    chunks in rank order, ``out[s] = x_s[rank]``.  The gather's one
-    launch over this table; on the card ``parts`` is a
-    :class:`PeerParts`."""
+    chunks in rank order, ``out[s] = x_s[rank]``.  The pull gather's one
+    launch over this table (a push would move the same bytes); on the
+    card ``parts`` is a :class:`PeerParts`."""
     chunk = _check_parts("peer_all_to_all", parts)
     if parts[0].device.type == "cpu":
         got = peer_all_to_all_plain(parts)
@@ -870,7 +906,7 @@ def peer_all_to_all(parts, *, out: torch.Tensor | None = None
 
 def peer_all_gather_bidir(parts, rank: int, *,
                           out: torch.Tensor | None = None) -> torch.Tensor:
-    """Rank ``rank``'s bidirectional all-gather: the gather of
+    """Rank ``rank``'s bidirectional pull all-gather: the gather of
     :func:`peer_all_gather` (chunks even) in half-chunks, the first halves
     pulled clockwise and the second counter-clockwise
     (:func:`bidir_order`); on a ring of links the halves take the two
@@ -885,6 +921,62 @@ def peer_all_gather_bidir(parts, rank: int, *,
         got = peer_all_gather_bidir_plain(parts, rank)
         return got if out is None else out.copy_(got)
     return _launch_gather("peer_all_gather_bidir", parts, out, chunk, rank)
+
+
+def peer_all_gather_push_plain(own: torch.Tensor, outs: list[torch.Tensor],
+                               rank: int, bidir: bool = False) -> None:
+    """The push gather in plain PyTorch: ``own`` into slot ``rank`` of
+    each destination ``outs[s]``, half by half in :func:`push_order`; no
+    other element of any destination is written."""
+    kernels.PLAIN_CALLS["peer_all_gather_bidir" if bidir
+                        else "peer_all_gather"] += 1
+    chunk = own.numel()
+    width = chunk // 2 if bidir else chunk
+    for _, h, s in push_order(len(outs), rank, bidir):
+        lo = rank * chunk + h * width
+        outs[s][lo:lo + width] = own[h * width:(h + 1) * width]
+
+
+def peer_all_gather_push(own: torch.Tensor, outs, rank: int, *,
+                         bidir: bool = False) -> None:
+    """Rank ``rank``'s push all-gather: stores its own chunk ``own`` into
+    slot ``rank`` (elements ``[rank*chunk, (rank+1)*chunk)``) of every
+    rank's output ``outs[s]`` (``(n*chunk,)``: this rank's a tensor, a
+    peer's a :class:`RemoteBuffer`; on the card a :class:`PeerParts`).
+    With ``bidir`` (chunk even, counted as ``peer_all_gather_bidir``) the
+    first halves go clockwise and the second counter-clockwise
+    (:func:`push_order`), the TPU kernel's two directions.  One launch
+    that reads ``own`` once and stores each 8 KB tile into all n outputs
+    side by side, its tiles drawn in order from the card's ``peer_gather``
+    counters, in the widest word dividing ``own``, every slot and the
+    chunk's (or half's) bytes.  A rank's output is whole only once every
+    rank has pushed: the caller's next barrier gives that."""
+    name = "peer_all_gather_bidir" if bidir else "peer_all_gather"
+    n = len(outs)
+    size = _check_parts(name, outs, rank)
+    chunk = own.numel()
+    if size != n * chunk or own.dtype != outs[0].dtype or \
+            own.device != outs[0].device:
+        raise ValueError(f"{name}: {chunk} elements of {own.dtype} on "
+                         f"{own.device} into {n} outputs of {size} "
+                         f"{outs[0].dtype} on {outs[0].device}")
+    if bidir and chunk % 2:
+        raise ValueError(f"{name} splits chunks in half, got {chunk} "
+                         "elements")
+    if own.device.type == "cpu":
+        peer_all_gather_push_plain(own, outs, rank, bidir)
+        return
+    _check_cuda(name, own)
+    halves = 2 if bidir else 1
+    nbytes = chunk * own.element_size()
+    word = _widest_word(nbytes // halves, own.data_ptr(),
+                        *(o.data_ptr() + rank * nbytes for o in outs))
+    counters = row_copy_counters("peer_gather", own.device)
+    err = _build.entry("peer_collectives", "peer_gather_push")(
+        own.data_ptr(), _table_ptr(name, outs), counters.data_ptr(), n, rank,
+        nbytes, halves, word, _stream_of(own))
+    _build.check(name, err)
+    kernels.LAUNCHES[name] += 1
 
 
 #: the ops whose peer form pulls a whole buffer with peer_copy, each
@@ -1118,15 +1210,18 @@ class PeerBuffers:
 
 
 def _peer_chain(buffers: PeerBuffers, rank: int, iters: int, peers: str,
-                load: Callable, execution: Callable) -> Callable:
+                load: Callable, execution: Callable,
+                finish: Callable | None = None) -> Callable:
     """The card's step of a peer op: ``load(x)`` puts the input into this
     rank's symmetric buffer once a step; each execution meets the ranks of
     set ``peers`` at a barrier before it reads a peer, then
     ``execution(cur, last)`` reads the peers' input buffer ``cur`` (the
-    two alternate) and writes this rank's other one, or a new tensor at
-    the last execution, whose result the step returns; a last barrier
-    keeps a peer's next step from overwriting what this rank still
-    reads."""
+    two alternate) and writes the other one (this rank's, or with a push
+    every rank's), or a new tensor at the last execution, whose result
+    the step returns; a last barrier keeps a peer's next step from
+    overwriting what this rank still reads, and completes the last push.
+    ``finish`` (when given) takes the step's result after that barrier:
+    a copy of a symmetric buffer, which a later step overwrites."""
     def barrier():
         peer_barrier(buffers.pads, buffers.generation, rank, peers=peers)
 
@@ -1137,7 +1232,7 @@ def _peer_chain(buffers: PeerBuffers, rank: int, iters: int, peers: str,
             barrier()
             out = execution(j % 2, j == iters - 1)
         barrier()
-        return out
+        return out if finish is None else finish(out)
 
     return step
 
@@ -1163,17 +1258,34 @@ def _dist_allreduce_step(world: DistWorld, elems: int, chunk: int,
     the owned chunks, the peer kernels' two data launches.
 
     On the card the input is copied into this rank's symmetric buffer
-    once a step; each execution meets every rank at a barrier before it
-    reads their inputs and again before it reads their owned chunks, and
-    writes its gather into the other input buffer (the last one into a new
-    tensor, which the step returns).  Every rank reads every rank's input
-    and owned chunk, so the all-rank barrier orders each read after the
-    write it needs and each write after the last read of what it
-    overwrites; a last barrier keeps a peer's next step from overwriting
-    what this rank still reads.  On the CPU the peer kernels' plain
-    versions run on what gloo's collectives bring: the n parts of the
-    owned chunk (``all_to_all_single``), then the owned chunks (an
-    all-gather)."""
+    once a step; each execution meets every rank at a barrier, reduces
+    chunk d of every rank's input buffer j%2 into its mid, meets every
+    rank again, and pushes its mid into slot d (chunk d) of every rank's
+    input buffer 1-j%2; the last execution pulls the mids into a new
+    tensor instead.  Pulling there beat pushing and returning a copy of
+    the whole output after the last barrier: 1.978-1.983 ms an execution
+    at -i 5 against 2.210-2.212, 8 ranks x 256 MiB in the one-card
+    loopback (NVIDIA H100 80GB HBM3, 700 W; ``python -m
+    tpu_perf_torch.tools.peer_designs --parts steps``, which times the
+    other way as an edit of this source).
+
+    Hazards on the card.  Slot d of every rank's input buffers is written
+    by rank d's pushes, and by each rank's copy-in, which fills its own
+    buffer 0; the reduce of rank d reads slot d of every rank's buffer
+    j%2, which rank d pushed itself at j-1 (stream order) or rank s's
+    copy-in wrote before s signalled barrier 0.  A rank's output is whole
+    only once every rank has pushed into it: barrier j+1, which each rank
+    signals after its push of j.  A push at j overwrites slot d of buffer
+    1-j%2, which only rank d read (at j-1), and the next step's copy-in
+    overwrites buffer 0 after the step's last barrier, which every rank
+    signals after its last push.  Rank d's mid is read by the pull of a
+    last execution after the second barrier of j, which d signals after
+    its reduce, and is next written at j+1, after barrier j+1, which
+    every puller signals after its pull.  The step's result is a new
+    tensor, which no push reaches.  On the CPU the peer
+    kernels' plain versions run on what gloo's collectives bring: the n
+    parts of the owned chunk (``all_to_all_single``), then the owned
+    chunks (the pull gather's plain version)."""
     from tpu_perf_torch.parallel.multihost import _all_gather_tensor
 
     n, rank = world.n, world.rank
@@ -1195,12 +1307,15 @@ def _dist_allreduce_step(world: DistWorld, elems: int, chunk: int,
     ins = [buffers["in0"], buffers["in1"]]
     reads = _chunk_tables(ins, rank, chunk)
     mids = PeerParts(buffers["mid"])
+    outs = [PeerParts(parts) for parts in ins]
 
-    def execution(cur, last):
+    def execution(cur, final):
         peer_reduce_scatter(reads[cur], rank, scale=inv, out=mids[rank])
         peer_barrier(buffers.pads, buffers.generation, rank)
-        return peer_all_gather(mids, out=_fresh(world, elems, tdtype)
-                               if last else ins[1 - cur][rank])
+        if final:
+            return peer_all_gather(mids, out=_fresh(world, elems, tdtype))
+        peer_all_gather_push(mids[rank], outs[1 - cur], rank)
+        return ins[1 - cur][rank]
 
     return _peer_chain(buffers, rank, iters, "all", ins[0][rank].copy_,
                        execution)
@@ -1444,12 +1559,28 @@ def _dist_gather_step(op: str, world: DistWorld, chunk: int, iters: int,
     (``peer_all_gather_bidir``) on one rank: per execution one gather of
     every rank's own chunk, then the JAX carry, the own chunk taken back
     out.  On the card each rank keeps two symmetric gathered buffers
-    (``n * chunk``) and each execution gathers into the other one, reading
-    rank s's chunk s of the current one: the carry's own chunk is read in
-    place, so no slice copy runs between executions, and the step returns
-    the own chunk of its last gather.  Every rank reads every rank's
-    buffer: the argument of :func:`_dist_all_to_all_step`, with all-rank
-    barriers.  On the CPU an all-gather brings the owned chunks."""
+    (``n * chunk``); each execution pushes this rank's own chunk, slot d
+    of its current buffer, into slot d of every rank's other buffer (the
+    bidirectional op in half-chunks, both ways round the ring): the
+    carry's own chunk is read in place, so no slice copy runs between
+    executions.  The last execution pushes too, and the step returns a
+    copy of the own slot taken after its last barrier.  That beat pulling
+    every rank's own slot into a new tensor at the last execution: 0.929-
+    0.933 ms an execution of ``pl_all_gather`` at -i 5 against 0.944-0.952,
+    8 ranks x 256 MiB in the one-card loopback (NVIDIA H100 80GB HBM3, 700
+    W; ``python -m tpu_perf_torch.tools.peer_designs --parts steps``,
+    which times the pull as an edit of this source).
+
+    Hazards on the card.  Slot d of any rank's gathered buffers is written
+    only by rank d (its pushes, and its copy-in into its own buffer 0) and
+    read only by rank d (its own chunk, pushed at the next execution and
+    copied at the end).  So the pushes of one execution never touch what
+    another rank reads, and every rank's output is whole at the next
+    barrier, which each rank signals after its push.  The step's result
+    is a copy of the own slot, taken after the last barrier and before
+    the next step's copy-in in this rank's stream, in a tensor no push
+    reaches.  On the CPU an all-gather brings the owned chunks and the
+    pull gather's plain version runs on them."""
     from tpu_perf_torch.parallel.multihost import _all_gather_tensor
 
     n, rank = world.n, world.rank
@@ -1472,15 +1603,15 @@ def _dist_gather_step(op: str, world: DistWorld, chunk: int, iters: int,
 
     buffers = _inputs(world, n * chunk, tdtype)
     gathered = [buffers["in0"], buffers["in1"]]
-    owns = [PeerParts(_sub(p, s * chunk, chunk) for s, p in enumerate(parts))
-            for parts in gathered]
+    outs = [PeerParts(parts) for parts in gathered]
 
-    def execution(cur, last):
-        return gather(owns[cur], out=_fresh(world, n * chunk, tdtype)
-                      if last else gathered[1 - cur][rank])[mine]
+    def execution(cur, final):
+        peer_all_gather_push(gathered[cur][rank][mine], outs[1 - cur], rank,
+                             bidir=op == "pl_all_gather_bidir")
+        return gathered[1 - cur][rank][mine]
 
     return _peer_chain(buffers, rank, iters, "all",
-                       gathered[0][rank][mine].copy_, execution)
+                       gathered[0][rank][mine].copy_, execution, torch.clone)
 
 
 def _rs_chunk(nbytes: int, itemsize: int, n: int) -> int:

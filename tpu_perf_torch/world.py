@@ -157,6 +157,38 @@ class DistWorld:
         return [None if v == -math.inf else v for v in t.tolist()]
 
 
+class LoopbackMemory:
+    """The symmetric allocations of an n-rank loopback (n ranks in one
+    process on one card), every rank's ``DistWorld.peer_memory``: the
+    k-th ``PeerBuffers`` each rank makes gets the k-th set of n zeroed
+    allocations, one a rank, made when the first rank asks and kept as
+    long as this object."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.n, self.device = n, device
+        self._sets: list[list[torch.Tensor]] = []
+        self._asked = [0] * n
+
+    def __call__(self, rank: int, nbytes: int) -> tuple[int, list[int]]:
+        k = self._asked[rank]
+        self._asked[rank] += 1
+        if k == len(self._sets):
+            self._sets.append([torch.zeros(nbytes, dtype=torch.uint8,
+                                           device=self.device)
+                               for _ in range(self.n)])
+        ptrs = [t.data_ptr() for t in self._sets[k]]
+        return ptrs[rank], ptrs
+
+
+def loopback_ranks(n: int, device: torch.device) -> list[DistWorld]:
+    """The n ranks of a loopback world on ``device``: each a DistWorld
+    whose symmetric buffers one shared :class:`LoopbackMemory` gives."""
+    memory = LoopbackMemory(n, device)
+    return [DistWorld(rank=r, n=n, local_rank=0, device=device,
+                      mesh=make_mesh(n=n), peer_memory=memory)
+            for r in range(n)]
+
+
 def dist_world(device: torch.device, mesh: Mesh | None = None) -> DistWorld:
     """This process' :class:`DistWorld` in the joined default group
     (:func:`tpu_perf_torch.parallel.initialize_distributed`); ``mesh``
