@@ -60,7 +60,11 @@ exits non-zero):
    and 256 MiB under block and fused, with each window's device time and
    idle share; a ``monitor --fence fused`` daemon rotating its logs every
    second into a ``TPU_PERF_INGEST=local:`` sink (the rotated files must
-   arrive there and leave the log folder, no row lost); and ``report``,
+   arrive there and leave the log folder, no row lost); a ``monitor
+   --fence trace`` daemon at 4 KiB, 300 visits and 100 with a 2 ms host
+   stall around the lo leg's graph replay (every pair positive, the
+   stalled lo legs within 10% of the plain ones, its lat_us beside the
+   fused fence's), and the trace graphs' memory at 8 x 256 MiB; ``report``,
    ``--compare-pallas`` and ``--format json`` over the block paths' logs;
    then the rest of the reference's run surface: ``run -x --window W`` at
    the default buffer for W = 1, 8 and 256 (rows at one nbytes, iters
@@ -124,8 +128,15 @@ exits non-zero):
    design of ``tpu_perf_torch.tools.gather_designs`` and the own-shard
    carry of ``pl_all_gather``), and print them as one JSON line.
 
-The last line is ``{"ok": true, "device": {...}}``.  The script imports
-nothing of JAX and nothing of the JAX package ``tpu_perf``.
+The last line is ``{"ok": true, "device": {...}}``.  A phase that raises
+ends the run with one ``chip_smoke: FAILED in phase <name> after <s> s:
+<type>: <message>`` line, exit code 1 and no result line.  The script
+imports nothing of JAX and nothing of the JAX package ``tpu_perf``.
+
+Across the cards of one host (never in the default run, which needs one
+card)::
+
+    python3 -c "import chip_smoke as c; c.across_cards(4)"
 """
 
 from __future__ import annotations
@@ -1504,6 +1515,9 @@ REPORT_DIR: str | None = None
 BLOCK_ROWS: list = []
 #: per-rank sizes of the fused phase for every op but the main path's
 FUSED_BYTES = (4096, 16 * 1024**2)
+#: the fused phase's pl_allreduce lat_us p50 at 4 KiB a rank, -i ITERS,
+#: beside which the trace daemon prints its own
+FUSED_LAT_4K: list = []
 #: ops whose fused output is held within RTOL (they compute); the others
 #: move bytes and are held exactly
 ARITH_OPS = ("pl_allreduce", "pl_reduce_scatter", "allreduce",
@@ -1607,6 +1621,8 @@ def phase_fused() -> None:
               f"{', '.join(checked)}")
         if op == "pl_allreduce":
             fused_rows = rows
+    FUSED_LAT_4K[:] = [_median([r.lat_us for r in fused_rows
+                                if r.nbytes == 4096])]
     for nbytes, metric in ((4096, "lat_us"), (MAIN_BYTES, "busbw_gbps")):
         fused = _median([getattr(r, metric) for r in fused_rows
                          if r.nbytes == nbytes])
@@ -1629,9 +1645,10 @@ def phase_fences() -> None:
     base = ["run", "--op", "pl_allreduce", "-b", "4K", "-i", str(ITERS),
             "-r", str(RUNS)]
     got, rows, _ = _drive(base + ["--fence", "auto"], "run --fence auto")
-    # the trace fence's pair: lo and hi (4x) executions, a warm-up and
-    # RUNS measured pairs
-    want = (1 + RUNS) * 5 * ITERS
+    # the trace fence's pair: lo and hi (4x) executions, launched through
+    # the wrappers twice, by the eager warm-up and by the legs' captures;
+    # the warm-up pair and the RUNS measured pairs are graph replays
+    want = 2 * 5 * ITERS
     if (got["direct_reduce_scatter"], got["direct_all_gather"]) != (want, want):
         fail(f"run --fence auto: launches {got}, want {want} of each kernel")
     if len(rows) != RUNS or any(r.lat_us <= 0 for r in rows):
@@ -1694,7 +1711,8 @@ def phase_profile() -> None:
 def phase_daemon() -> None:
     """monitor --fence fused with rotation every second and a local ingest
     sink: the rotated logs arrive in the sink and leave the log folder,
-    and no row is lost."""
+    and no row is lost; then the trace daemon (:func:`_trace_daemon`) and
+    what a trace point's graphs hold (:func:`_trace_graph_bytes`)."""
     import glob
     import tempfile
 
@@ -1750,24 +1768,6 @@ def phase_daemon() -> None:
                  f"{ {r.mode for r in ext} }")
         lat = {nb: _median([r.lat_us for r in ext if r.nbytes == nb])
                for nb in (4096, 16 * 1024**2)}
-        # a trace-fenced daemon: each visit one (lo, hi) pair of event
-        # pairs on the device clock, after one warm-up pair
-        kernels.reset_counts()
-        rc = cli.main(["monitor", "--op", "pl_allreduce", "-b", "4K", "-i",
-                       str(ITERS), "--fence", "trace", "--max-runs", "20",
-                       "-l", os.path.join(root, "trace")])
-        want = 21 * 5 * ITERS
-        trace_rows = []
-        for path in glob.glob(os.path.join(root, "trace", "tpu-*.log")):
-            with open(path) as fh:
-                trace_rows += [ResultRow.from_csv(ln) for ln in fh
-                               if ln.strip()]
-        if (rc != 0 or {k: v for k, v in kernels.LAUNCHES.items() if v} != {
-                "direct_reduce_scatter": want, "direct_all_gather": want}
-                or sorted(r.run_id for r in trace_rows) != list(range(1, 21))
-                or {r.mode for r in trace_rows} != {"daemon"}):
-            fail(f"monitor --fence trace: rc {rc}, launches "
-                 f"{kernels.LAUNCHES}, {len(trace_rows)} rows")
         print(f"daemon: {what} --sweep 4K,16M --max-runs {DAEMON_RUNS} "
               f"--log-refresh-sec 1: {wall:.1f} s, "
               f"{len(arrived) // 2} rotated file pair(s) ingested into the "
@@ -1775,9 +1775,128 @@ def phase_daemon() -> None:
               f"files stay), all {DAEMON_RUNS} rows mode=daemon, launches "
               f"{ {k: v for k, v in got.items() if v} } (warm-up and "
               f"capture only); lat p50 {lat[4096]:.2f} us at 4 KiB, "
-              f"{lat[16 * 1024**2]:.2f} us at 16 MiB a rank; monitor --fence "
-              f"trace: 20 visits, lat p50 "
-              f"{_median([r.lat_us for r in trace_rows]):.2f} us at 4 KiB")
+              f"{lat[16 * 1024**2]:.2f} us at 16 MiB a rank")
+        _trace_daemon(os.path.join(root, "trace"), lat[4096])
+    _trace_graph_bytes()
+
+
+def _trace_graph_bytes() -> None:
+    """What a trace point's two leg graphs hold at the sweep's largest
+    points (a daemon keeps one pair a point for its life): pl_allreduce
+    and overlap_ring at 8 ranks x MAIN_BYTES (2 GiB a buffer), -i ITERS."""
+    import torch
+
+    from tpu_perf_torch.config import Options
+    from tpu_perf_torch.runner import build_point_pair
+    from tpu_perf_torch.timing import TraceRunner
+    from tpu_perf_torch.world import SimWorld, resolve_device
+
+    said = []
+    world = SimWorld(8, resolve_device())
+    for op in ("pl_allreduce", "overlap_ring"):
+        opts = Options(op=op, iters=ITERS, fence="trace")
+        built, built_hi = build_point_pair(opts, world, op, MAIN_BYTES)
+        runner = TraceRunner(built.step, built_hi.step, built.example_input,
+                             built.iters, built_hi.iters)
+        runner.warm()
+        x = built.example_input
+        said.append(f"{op} {runner.graph_bytes / 2**30:.2f} GiB beside its "
+                    f"{x.numel() * x.element_size() / 2**30:.2f} GiB input, "
+                    f"slope {runner.sample() * 1e3:.4f} ms an execution")
+        runner.close()
+        del built, built_hi, runner, x
+    torch.cuda.empty_cache()
+    print(f"daemon: a trace point's leg graphs at 8 ranks x {MAIN_BYTES} B, "
+          f"-i {ITERS}: " + "; ".join(said))
+
+
+#: the trace daemon's visits, plain and with the lo leg stalled, and the
+#: stall: a host sleep before and after each replay of the lo leg
+TRACE_VISITS, TRACE_STALLED_VISITS, TRACE_STALL_S = 300, 100, 0.002
+
+
+def _trace_daemon(logs: str, fused_lat_us: float) -> None:
+    """monitor --fence trace at 4 KiB a rank: TRACE_VISITS visits, then
+    TRACE_STALLED_VISITS with a host stall around every replay of the lo
+    leg.  Each visit is one replay of each leg's graph: every pair must be
+    positive, the launches must be the warm-up's and the captures' only,
+    and the stalled lo legs' median must lie within 10% of the plain
+    ones'.  Prints the trace lat_us beside the fused daemon's."""
+    import glob
+
+    from tpu_perf_torch import cli, kernels, timing
+    from tpu_perf_torch.schema import ResultRow
+
+    legs: list[tuple[float, float]] = []
+    plain_pair, plain_replay = timing.TraceRunner.pair, \
+        timing.TraceRunner.replay
+
+    def pair(self):
+        legs.append(plain_pair(self))
+        return legs[-1]
+
+    def stalled(self, leg):
+        if leg == "lo":
+            time.sleep(TRACE_STALL_S)
+        plain_replay(self, leg)
+        if leg == "lo":
+            time.sleep(TRACE_STALL_S)
+
+    # every kernel of the point: lo and hi (4x) executions, each launched
+    # by the eager warm-up and by its leg's capture; the visits replay
+    want = 2 * 5 * ITERS
+    lo_ms, lats = {}, {}
+    timing.TraceRunner.pair = pair
+    try:
+        for label, visits in (("plain", TRACE_VISITS),
+                              ("stalled", TRACE_STALLED_VISITS)):
+            if label == "stalled":
+                timing.TraceRunner.replay = stalled
+            folder = os.path.join(logs, label)
+            legs.clear()
+            kernels.reset_counts()
+            rc = cli.main(["monitor", "--op", "pl_allreduce", "-b", "4K",
+                           "-i", str(ITERS), "--fence", "trace",
+                           "--max-runs", str(visits), "--stats-every",
+                           str(visits), "-l", folder])
+            rows = []
+            for path in glob.glob(os.path.join(folder, "tpu-*.log")):
+                with open(path) as fh:
+                    rows += [ResultRow.from_csv(ln) for ln in fh
+                             if ln.strip()]
+            what = f"monitor --fence trace, {visits} {label} visits"
+            launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            if (rc != 0 or launched != {"direct_reduce_scatter": want,
+                                        "direct_all_gather": want}
+                    or sorted(r.run_id for r in rows)
+                    != list(range(1, visits + 1))
+                    or {r.mode for r in rows} != {"daemon"}):
+                fail(f"{what}: rc {rc}, launches {launched}, "
+                     f"{len(rows)} rows")
+            bad = [p for p in legs if p[1] <= p[0]]
+            if len(legs) != visits or bad:
+                fail(f"{what}: {len(legs)} pairs, non-positive {bad[:5]}")
+            lo_ms[label] = _median([lo for lo, _ in legs]) * 1e3
+            lats[label] = _median([r.lat_us for r in rows])
+    finally:
+        timing.TraceRunner.pair = plain_pair
+        timing.TraceRunner.replay = plain_replay
+    drift = lo_ms["stalled"] / lo_ms["plain"] - 1
+    if abs(drift) > 0.10:
+        fail(f"monitor --fence trace: the lo leg's median {lo_ms['plain']:.4f}"
+             f" ms, {lo_ms['stalled']:.4f} ms with a {TRACE_STALL_S * 1e3:g} "
+             "ms host stall around its replay: the stall entered the leg")
+    print(f"daemon: monitor --fence trace -b 4K -i {ITERS}, pl_allreduce at "
+          f"8 ranks: {TRACE_VISITS} visits and {TRACE_STALLED_VISITS} with a "
+          f"{TRACE_STALL_S * 1e3:g} ms host stall around each lo replay, "
+          f"every pair positive; lo leg median {lo_ms['plain']:.4f} ms, "
+          f"stalled {lo_ms['stalled']:.4f} ms ({drift:+.1%}); launches "
+          f"{want} of each kernel a run (warm-up and captures only); trace "
+          f"lat p50 {lats['plain']:.2f} us (stalled {lats['stalled']:.2f}) "
+          f"beside the fused daemon's {fused_lat_us:.2f} us (-i 10) at 4 KiB "
+          f"(trace / fused {lats['plain'] / fused_lat_us:.3f})"
+          + "".join(f" and the fused run's {f:.2f} us (-i {ITERS}; trace / "
+                    f"fused {lats['plain'] / f:.3f})" for f in FUSED_LAT_4K))
 
 
 def phase_report() -> None:
@@ -3138,6 +3257,583 @@ def ipc_across_cards(cards: int) -> int:
     return 0
 
 
+# --- the multi-rank world across cards (run by across_cards, never by main)
+
+#: every op a multi-rank world runs, held against the sim chain across
+#: the cards: the library ops, every pl_* op on the peer kernels, the
+#: local instruments
+CARDS_OPS = ("allreduce", "all_gather", "reduce_scatter", "all_to_all",
+             "broadcast", "broadcast_psum", "barrier", "ring", "halo",
+             "exchange", "ppermute", "pingpong", "pingpong_unidir",
+             "hbm_stream", *PEER_OPS, "pl_hbm_stream", "pl_hbm_copy",
+             "pl_hbm_read", "pl_hbm_write")
+#: ops whose output is held within RTOL (sums, the stream's multiply-add)
+CARDS_ARITH = ("allreduce", "reduce_scatter", "barrier", "hbm_stream",
+               "pl_allreduce", "pl_reduce_scatter", "pl_hbm_stream",
+               "hier_allreduce")
+CARDS_BYTES, CARDS_STEPS = (4108, 16 * 1024**2), 2
+#: the push chains: (per-rank bytes, steps), every step's output bit for
+#: bit the first one's
+PUSH_OPS = ("pl_allreduce", "pl_all_gather", "pl_all_gather_bidir")
+PUSH_CHAINS = ((4096, 2000), (4108, 2000), (16 * 1024**2, 1000),
+               (MAIN_BYTES, 300))
+#: the timed sizes a rank, and the launches a graph holds at each
+CARDS_TIMED = ((MAIN_BYTES, 10), (4096, 100))
+#: NVLink's rate each way a card (H100 SXM: 18 links of 25 GB/s)
+LINK_BYTES_PER_S = 450e9
+CARDS_LIMIT_S = 900
+#: the CLI runs across the cards: the family, its sweep and the daemon's
+CARDS_SWEEP = "4K,16M"
+CARDS_DAEMON_RUNS = 3000
+
+
+def _nccl_world(device: str):
+    """Join the world torchrun's variables name (NCCL on the card, gloo on
+    the CPU) and return this rank's DistWorld."""
+    import torch
+
+    from tpu_perf_torch.parallel import initialize_distributed
+    from tpu_perf_torch.world import dist_world
+
+    if not initialize_distributed(device=device):
+        fail("across cards: no world to join")
+    return dist_world(torch.device(device))
+
+
+def _sim_row(op: str, n: int, nbytes: int, dev, mesh=None):
+    """Rank-major rows of ``op``'s sim chain (ITERS executions) on ``dev``:
+    what a multi-rank world's ranks must hold."""
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.world import SimWorld
+
+    built = build_op(op, SimWorld(n, dev, mesh), nbytes, ITERS)
+    out = built.step(built.example_input)
+    return out.reshape(n, -1)
+
+
+def _cards_ops(world) -> int:
+    """Every op of CARDS_OPS at CARDS_BYTES, CARDS_STEPS steps each, and
+    hier_allreduce on a 2 x 2 (dcn, ici) mesh: this rank's output of each
+    step against its row of the sim chain (within RTOL for the sums,
+    exact otherwise), and each pl_* op's launches its path's.  Returns
+    the cases held."""
+    import torch
+
+    from tpu_perf_torch import kernels
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.parallel import make_hybrid_mesh
+    from tpu_perf_torch.world import dist_world
+
+    n, rank, dev = world.n, world.rank, world.device
+    cases = 0
+    for op, w in [(op, world) for op in CARDS_OPS] + [
+            ("hier_allreduce", dist_world(dev, make_hybrid_mesh(
+                n=n, per_node=n // 2)))]:
+        # the sim chain first: its kernels count apart from the op's
+        wants = {nbytes: _sim_row(op, n, nbytes, dev, w.mesh)[rank]
+                 for nbytes in CARDS_BYTES}
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        kernels.reset_counts()
+        for nbytes in CARDS_BYTES:
+            want = wants[nbytes]
+            built = build_op(op, w, nbytes, ITERS)
+            for step in range(CARDS_STEPS):
+                got = built.step(built.example_input).reshape(-1)
+                what = (f"across {n} cards, rank {rank}: {op} at {nbytes} B,"
+                        f" step {step}")
+                if op in CARDS_ARITH:
+                    check_close(what, got, want, "float32")
+                else:
+                    check_exact(what, got, want)
+                cases += 1
+            del built
+        if op in PEER_PATHS and dev.type == "cuda":
+            got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            want = peer_launches(op, n, rank, len(CARDS_BYTES) * CARDS_STEPS)
+            if got != want or any(kernels.PLAIN_CALLS.values()):
+                fail(f"across {n} cards, rank {rank}: {op} launched {got}, "
+                     f"want {want}; plain calls {kernels.PLAIN_CALLS}")
+    return cases
+
+
+def _push_chains(world) -> list[str]:
+    """The push steps replayed from a CUDA graph PUSH_CHAINS times at each
+    size, each replay's output compared on the card with the eager step's
+    (itself held against the sim chain): every step bit for bit."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import build_op
+
+    n, rank, dev = world.n, world.rank, world.device
+    said = []
+    for op in PUSH_OPS:
+        for nbytes, steps in PUSH_CHAINS:
+            built = build_op(op, world, nbytes, ITERS)
+            x = built.example_input
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                want = built.step(x).clone()
+            torch.cuda.synchronize(dev)
+            sim = _sim_row(op, n, nbytes, dev)[rank]
+            what = f"push chain {op} at {nbytes} B, rank {rank}"
+            if op in CARDS_ARITH:
+                check_close(what, want.reshape(-1), sim, "float32")
+            else:
+                check_exact(what, want.reshape(-1), sim)
+            del sim
+            differed = torch.zeros((), dtype=torch.int64, device=dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                y = built.step(x)
+                differed.add_((y != want).any().to(torch.int64))
+            del y
+            for _ in range(steps):
+                graph.replay()
+            torch.cuda.synchronize(dev)
+            if int(differed) != 0:
+                fail(f"{what}: {int(differed)} of {steps} steps differed "
+                     "from the eager step")
+            said.append(f"{op}@{nbytes}: {steps} steps, 0 differed")
+            del graph, built, want
+    return said
+
+
+def _rank_max_ms(world, ms: float) -> float:
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([ms], dtype=torch.float64, device=world.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def _per_launch_ms(world, launch, k: int, *, graph: bool = True,
+                   replays: int = 5) -> float:
+    """Device ms a call of ``launch()``: k calls captured into a CUDA
+    graph (or, with ``graph`` False, issued eagerly back to back) after
+    one eager call on the capture stream, replayed ``replays`` times
+    after one warm replay; the ranks start together (one host barrier)
+    and the slowest rank's time is returned."""
+    import torch
+    import torch.distributed as dist
+
+    dev = world.device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.synchronize(dev)
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            for _ in range(k):
+                launch()
+
+        def run():
+            g.replay()
+    else:
+        def run():
+            for _ in range(k):
+                launch()
+    with torch.cuda.stream(side):
+        run()
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(replays):
+            run()
+        e1.record()
+    torch.cuda.synchronize(dev)
+    return _rank_max_ms(world, e0.elapsed_time(e1) / (replays * k))
+
+
+def _cards_bound(memory_bytes: int, link_bytes: int) -> dict:
+    """The larger of the card's memory time and its link time (each way)."""
+    hbm, _ = card_rates()
+    mem_ms = memory_bytes / hbm * 1e3
+    link_ms = link_bytes / LINK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(mem_ms, link_ms),
+            "bound_by": "link" if link_ms >= mem_ms else "memory",
+            "memory_ms": mem_ms, "link_ms": link_ms}
+
+
+def _cards_timing(world, nbytes: int, k: int) -> list[dict]:
+    """Each peer kernel at ``nbytes`` a rank across the cards (chained
+    launches from a graph; the barrier kernels as they run, each launch
+    meeting the ranks) beside its NCCL call on the same cards, with the
+    bound of each."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    n, rank, dev = world.n, world.rank, world.device
+    f32 = torch.float32
+    chunk = nbytes // 4 // n
+    elems = n * chunk
+    half = n // 2
+    b = pr.PeerBuffers(world, {"x": (elems, f32), "mid": (chunk, f32),
+                               "out": (elems, f32), "stage": (elems, f32)})
+    xs, mids, outs, stage = (b["x"], b["mid"], b["out"], b["stage"])
+    xs[rank].copy_(torch.arange(elems, dtype=f32, device=dev) % 251 + rank)
+    mids[rank].copy_(xs[rank][:chunk])
+    own, out = xs[rank], outs[rank]
+    rs_parts = pr.PeerParts(pr._sub(p, rank * chunk, chunk) for p in xs)
+    mid_parts, out_parts = pr.PeerParts(mids), pr.PeerParts(outs)
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    x_lib = own.clone()
+    y_lib = torch.empty_like(x_lib)
+    c_lib = torch.empty(chunk, dtype=f32, device=dev)
+    one = torch.ones(1, dtype=f32, device=dev)
+    ring_to, ring_from = (rank + 1) % n, (rank - 1) % n
+    partner = (rank + half) % n
+
+    def p2p(pairs):
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend if send else dist.irecv, t, peer)
+            for send, t, peer in pairs])
+        for r in reqs:
+            r.wait()
+
+    def pingpong():
+        pr.peer_barrier(b.pads, b.generation, rank, peers="pair")
+        if rank >= half:
+            pr.peer_copy("peer_pingpong", xs[partner], out=stage[rank])
+            pr.peer_copy("peer_pingpong", own, out=out)
+        pr.peer_barrier(b.pads, b.generation, rank, peers="pair")
+        if rank < half:
+            pr.peer_copy("peer_pingpong", stage[partner], out=out)
+
+    def nccl_pingpong():
+        if rank < half:
+            p2p([(True, x_lib, partner)])
+            p2p([(False, y_lib, partner)])
+        else:
+            p2p([(False, y_lib, partner)])
+            p2p([(True, y_lib, partner)])
+
+    isz = 4
+    move = _cards_bound(2 * elems * isz, elems * isz)
+    cases = [
+        ("peer_reduce_scatter", 599,
+         lambda: pr.peer_reduce_scatter(rs_parts, rank, scale=1.0 / n,
+                                        out=mids[rank]),
+         "reduce_scatter_tensor (graph)", True,
+         lambda: dist.reduce_scatter_tensor(c_lib, x_lib),
+         _cards_bound((n * chunk + chunk) * isz, (n - 1) * chunk * isz)),
+        ("peer_all_gather", 481,
+         lambda: pr.peer_all_gather_push(mids[rank], out_parts, rank),
+         "all_gather_into_tensor (graph)", True,
+         lambda: dist.all_gather_into_tensor(y_lib, c_lib),
+         _cards_bound((chunk + n * chunk) * isz, (n - 1) * chunk * isz)),
+        ("peer_all_gather_bidir", 430,
+         lambda: pr.peer_all_gather_push(mids[rank], out_parts, rank,
+                                         bidir=True),
+         "all_gather_into_tensor (graph)", True,
+         lambda: dist.all_gather_into_tensor(y_lib, c_lib),
+         _cards_bound((chunk + n * chunk) * isz, (n - 1) * chunk * isz)),
+        ("peer_ring", 345,
+         lambda: pr.peer_copy("peer_ring", xs[ring_from], out=out),
+         "batch_isend_irecv, ring", False,
+         lambda: p2p([(True, x_lib, ring_to), (False, y_lib, ring_from)]),
+         move),
+        ("peer_exchange", 365,
+         lambda: pr.peer_copy("peer_exchange", xs[partner], out=out),
+         "batch_isend_irecv, pair", False,
+         lambda: p2p([(True, x_lib, partner), (False, y_lib, partner)]),
+         move),
+        ("peer_pingpong", 385, pingpong,
+         "isend / irecv there and back", False, nccl_pingpong,
+         _cards_bound(3 * elems * isz, elems * isz)),
+        ("peer_all_to_all", 291,
+         lambda: pr.peer_all_to_all(rs_parts, out=out),
+         "all_to_all_single", False,
+         lambda: dist.all_to_all_single(y_lib, x_lib),
+         _cards_bound(2 * elems * isz, (n - 1) * chunk * isz)),
+        ("peer_barrier", 278,
+         lambda: pr.peer_barrier(b.pads, b.generation, rank),
+         "all_reduce of one element (graph)", True,
+         lambda: dist.all_reduce(one),
+         _cards_bound(2 * n * 4, (n - 1) * 4)),
+        ("peer_barrier_copy", 329,
+         lambda: pr.peer_barrier(b.pads, b.generation, rank,
+                                 copy=(own[:1], out[:1])),
+         "all_reduce of one element (graph)", True,
+         lambda: dist.all_reduce(one),
+         _cards_bound(2 * n * 4 + 2 * isz, (n - 1) * 4)),
+    ]
+    rows = []
+    for name, line, kernel, lib_name, lib_graph, lib, bound in cases:
+        rows.append({
+            "name": name, "bytes_a_rank": nbytes, "ranks": n,
+            "replaces": f"tpu_perf/ops/pallas_ring.py:{line}",
+            "ms": _per_launch_ms(world, kernel, k),
+            "library_call": lib_name,
+            "library_ms": _per_launch_ms(world, lib, k, graph=lib_graph),
+            **bound})
+    # every barrier the timings launched met every rank: one more round
+    # leaves each rank's generation equal to the others'
+    gens = torch.zeros(n, dtype=torch.int64, device=dev)
+    pr.peer_barrier(b.pads, b.generation, rank)
+    gens[rank] = int(b.generation)
+    dist.all_reduce(gens)
+    if len(set(gens.tolist())) != 1:
+        fail(f"across {n} cards: barrier generations {gens.tolist()}")
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    del b
+    return rows
+
+
+def cards_rank(device: str = "cuda") -> None:
+    """One rank of across_cards' world, joined from torchrun's variables:
+    every op against the sim chain (:func:`_cards_ops`), then on the card
+    the push chains and the peer kernels' times beside NCCL's.  Rank 0
+    prints the results, the timings as one CARDS_KERNELS json line."""
+    import torch
+
+    from tpu_perf_torch.parallel.multihost import leave_world
+
+    t0 = time.perf_counter()
+    world = _nccl_world(device)
+    n, rank = world.n, world.rank
+    cases = _cards_ops(world)
+    said = [f"every op of {len(CARDS_OPS)} and hier_allreduce on a 2 x "
+            f"{n // 2} mesh at {CARDS_BYTES}, {CARDS_STEPS} steps: the sim "
+            f"chain's row ({cases} cases on this rank; sums within RTOL, "
+            f"the rest bit for bit), each pl_* op's launches its path's "
+            f"({time.perf_counter() - t0:.1f} s)"]
+    rows = []
+    if world.device.type == "cuda":
+        said += [f"push chain {s}" for s in _push_chains(world)]
+        for nbytes, k in CARDS_TIMED:
+            rows += _cards_timing(world, nbytes, k)
+        torch.cuda.synchronize()
+    if rank == 0:
+        for line in said:
+            print(f"cards: {line}")
+        for r in rows:
+            print(f"cards: {r['name']} at {r['bytes_a_rank']} B a rank x "
+                  f"{n}: {r['ms']:.4f} ms, NCCL {r['library_call']} "
+                  f"{r['library_ms']:.4f} ms (kernel / NCCL "
+                  f"{r['ms'] / r['library_ms']:.3f}), bound "
+                  f"{r['bound_ms']:.4f} ms by {r['bound_by']} (memory "
+                  f"{r['memory_ms']:.4f}, link {r['link_ms']:.4f}), "
+                  f"{r['bound_ms'] / r['ms']:.1%} of it")
+        print("CARDS_KERNELS " + json.dumps(rows), flush=True)
+    leave_world()
+
+
+def _rank_env(rank: int, n: int, port: int, per_node: int,
+              **more) -> dict:
+    env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
+               LOCAL_RANK=str(rank % per_node),
+               LOCAL_WORLD_SIZE=str(per_node), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port))
+    env.update(more)
+    return env
+
+
+def _procs(cmds: list, envs: list, what: str, limit: float) -> list:
+    """Run the processes of one world to their end under a wall-clock
+    limit; any rank's failure fails the smoke with its output's tail.
+    Returns (stdout, stderr) each."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(c, cwd=here, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c, e in zip(cmds, envs)]
+    try:
+        outs = [p.communicate(timeout=limit) for p in procs]
+    except subprocess.TimeoutExpired:
+        fail(f"{what}: no end within {limit} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{what}: process {i} exited {p.returncode}:\n"
+                 f"{out[-3000:]}\n{err[-4000:]}")
+    return outs
+
+
+def _torchrun(n: int, argv: list, what: str, device: str, **env) -> list:
+    """``torchrun --nproc-per-node n -m tpu_perf_torch <argv> --distributed``
+    as a user runs it; every rank must end with rc 0 (torchrun's own)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(n), "--master-addr", "127.0.0.1", "--master-port",
+           str(_free_port()), "-m", "tpu_perf_torch", *argv,
+           "--distributed", "--device", device]
+    (out, err), = _procs([cmd], [dict(os.environ, **env)], what,
+                         CARDS_LIMIT_S)
+    return [out, err]
+
+
+def _logged_rows(folder: str, prefix: str = "tpu") -> dict:
+    """Every rank's rows in ``folder``, by rank (from the file names)."""
+    import glob
+
+    from tpu_perf_torch.schema import LegacyRow, ResultRow
+
+    parse = ResultRow.from_csv if prefix == "tpu" else LegacyRow.from_csv
+    rows: dict[int, list] = {}
+    for path in glob.glob(os.path.join(folder, f"{prefix}-*.log")):
+        rank = int(os.path.basename(path).split("-")[-3])
+        with open(path) as fh:
+            rows.setdefault(rank, []).extend(
+                parse(ln) for ln in fh if ln.strip())
+    return rows
+
+
+def _cards_cli(n: int, device: str) -> list[str]:
+    """The CLI across the cards: a run over every op of CARDS_OPS (rows
+    identical on every rank, the heartbeats' triple from rank 0 alone); a
+    -l daemon rotating every second into a local sink (no row of any rank
+    lost, passes fired by local rank 0 alone, skipping the node's n live
+    writers); and hier_allreduce on two nodes of n / 2 cards each
+    (``--hybrid-mesh``)."""
+    import tempfile
+
+    from tpu_perf_torch.config import Options
+    from tpu_perf_torch.runner import sizes_for
+
+    said = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-cards-") as root:
+        logs = os.path.join(root, "run")
+        t0 = time.perf_counter()
+        family = ",".join(CARDS_OPS)
+        _, err = _torchrun(n, [
+            "run", "--op", family, "--sweep", CARDS_SWEEP, "-i", str(ITERS),
+            "-r", str(RUNS), "--stats-every", str(RUNS),
+            "--heartbeat-format", "json", "-l", logs],
+            f"torchrun run --distributed over {len(CARDS_OPS)} ops", device)
+        rows = _logged_rows(logs)
+        if sorted(rows) != list(range(n)):
+            fail(f"across cards: rows of ranks {sorted(rows)}")
+        keys = [sorted((r.op, r.nbytes, r.run_id, r.time_ms)
+                       for r in rows[k]) for k in range(n)]
+        points = sum(len(sizes_for(Options(sweep=CARDS_SWEEP, op=op)))
+                     for op in CARDS_OPS)
+        want = points * RUNS
+        if any(k != keys[0] for k in keys) or len(keys[0]) != want:
+            fail(f"across cards: rows differ between ranks or are not "
+                 f"{want}: {[len(k) for k in keys]}")
+        beats = [json.loads(ln) for ln in err.splitlines()
+                 if ln.startswith("{")]
+        bad = [b for b in beats if not b.get("hosts") or not (
+            b["hosts"]["min"] <= b["hosts"]["avg"] <= b["hosts"]["max"])]
+        if len(beats) != points or bad:
+            fail(f"across cards: {len(beats)} heartbeats, bad {bad[:3]}")
+        said.append(f"run --distributed over {len(CARDS_OPS)} ops at "
+                    f"{CARDS_SWEEP}: {want} rows, identical on the {n} "
+                    f"ranks; {len(beats)} heartbeats from rank 0, hosts min "
+                    f"<= avg <= max ({time.perf_counter() - t0:.1f} s)")
+        logs, sink = os.path.join(root, "daemon"), os.path.join(root, "sink")
+        passes = os.path.join(root, "passes")
+        t0 = time.perf_counter()
+        cmd = (f'echo "$LOCAL_RANK" >> {passes} && exec {sys.executable} -m '
+               f"tpu_perf_torch ingest -d {logs} -f {n}")
+        _torchrun(n, ["monitor", "--op", "pl_allreduce,allreduce",
+                      "--sweep", "4K", "-i", str(ITERS), "--max-runs",
+                      str(CARDS_DAEMON_RUNS), "--log-refresh-sec", "1",
+                      "-l", logs], "torchrun monitor --distributed -l",
+                  device, TPU_PERF_INGEST=f"local:{sink}",
+                  TPU_PERF_INGEST_CMD=cmd)
+        with open(passes) as fh:
+            fired = fh.read().split()
+        got = {}
+        for prefix in ("tcp", "tpu"):
+            arrived, left = (_logged_rows(sink, prefix),
+                             _logged_rows(logs, prefix))
+            for k in range(n):
+                ids = sorted(r.run_id for r in arrived.get(k, []) +
+                             left.get(k, []))
+                if ids != list(range(1, CARDS_DAEMON_RUNS + 1)) or \
+                        not arrived.get(k):
+                    fail(f"across cards: the daemon's {prefix} rows of rank "
+                         f"{k}: {len(ids)} of {CARDS_DAEMON_RUNS}, "
+                         f"{len(arrived.get(k, []))} in the sink")
+            got[prefix] = sum(len(v) for v in arrived.values())
+        if not fired or set(fired) != {"0"}:
+            fail(f"across cards: ingest passes fired by local ranks {fired}")
+        said.append(f"monitor --distributed -l rotating every second: every "
+                    f"rank's {CARDS_DAEMON_RUNS} rows of each family kept "
+                    f"({got} in the sink), {len(fired)} passes, all fired by "
+                    f"local rank 0 ({time.perf_counter() - t0:.1f} s)")
+        # two nodes of n / 2 cards: each node's processes see its cards
+        # only, as torchrun's ranks on two hosts would
+        t0 = time.perf_counter()
+        per_node, port = n // 2, _free_port()
+        logs = os.path.join(root, "hier")
+        argv = [sys.executable, "-m", "tpu_perf_torch", "run",
+                "--distributed", "--hybrid-mesh", "--op", "hier_allreduce",
+                "-b", str(HIER_BYTES), "-i", str(ITERS), "-r", str(RUNS),
+                "--device", device, "-l", logs]
+        envs = []
+        for r in range(n):
+            node = r // per_node
+            cards = ",".join(str(node * per_node + i) for i in range(per_node))
+            envs.append(_rank_env(r, n, port, per_node,
+                                  CUDA_VISIBLE_DEVICES=cards))
+        _procs([argv] * n, envs, "--hybrid-mesh hier_allreduce", CARDS_LIMIT_S)
+        rows = _logged_rows(logs)
+        lat = [[r.lat_us for r in rows.get(k, [])] for k in range(n)]
+        if any(len(v) != RUNS or v != lat[0] for v in lat):
+            fail(f"across cards: hier_allreduce rows {lat}")
+        said.append(f"--hybrid-mesh (2 nodes x {per_node} cards): "
+                    f"hier_allreduce at {HIER_BYTES} B, lat p50 "
+                    f"{_median(lat[0]):.1f} us, rows identical on the {n} "
+                    f"ranks ({time.perf_counter() - t0:.1f} s)")
+    return said
+
+
+def across_cards(cards: int, device: str = "cuda") -> int:
+    """The multi-rank world across ``cards`` cards of one host, one rank a
+    card on NCCL (never run by main, which needs one card); on a host with
+    four cards::
+
+        python3 -c "import chip_smoke as c; c.across_cards(4)"
+
+    Builds the kernels; runs :func:`cards_rank` in a world of ``cards``
+    processes (every op against the sim chain, the push chains, each peer
+    kernel timed beside its NCCL call); then the CLI through torchrun
+    (:func:`_cards_cli`).  Prints each card's name and power limit, the
+    results, and ``{"ok": true, "cards": N}`` last.  ``device`` "cpu"
+    rehearses the world and the CLI on gloo (no push chain, no timing)."""
+    import torch
+
+    t0 = time.perf_counter()
+    if device == "cuda":
+        if torch.cuda.device_count() < cards:
+            fail(f"across cards: {cards} cards asked, "
+                 f"{torch.cuda.device_count()} visible")
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), flush=True)
+        from tpu_perf_torch.kernels import _build
+
+        _build.build_all()
+    port = _free_port()
+    code = f"import chip_smoke; chip_smoke.cards_rank({device!r})"
+    outs = _procs([[sys.executable, "-c", code]] * cards,
+                  [_rank_env(r, cards, port, cards) for r in range(cards)],
+                  f"the world of {cards} cards", CARDS_LIMIT_S)
+    for line in outs[0][0].splitlines():
+        print(line, flush=True)
+    for line in _cards_cli(cards, device):
+        print(f"cards: {line}", flush=True)
+    print(f"cards: total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "cards": cards}))
+    return 0
+
+
 def _loopback_world(xs, chunk: int):
     """Per-rank buffers of an n-rank loopback: each rank's input is its own
     allocation (``xs``), as are its owned chunk, output, pad, generation
@@ -3919,12 +4615,38 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+#: the phase main() is in, and when it began (perf_counter seconds)
+PHASE = ["setup", 0.0]
+
+
 def main() -> int:
+    """Every phase, then the kernels' JSON line and the ok line.  A phase
+    that raises ends the run: one ``chip_smoke: FAILED in phase <name>
+    after <s> s: <type>: <message>`` line on stdout, the traceback (and
+    the message whole, with any child process's stderr tail) on stderr,
+    exit code 1 and no result line."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    PHASE[:] = ["setup", time.perf_counter()]
+    try:
+        return _main(torch)
+    except Exception as e:  # noqa: BLE001 — named, then the run fails
+        import traceback
+
+        name, t0 = PHASE
+        first = str(e).strip().splitlines()[0] if str(e).strip() else ""
+        traceback.print_exc(file=sys.stderr)
+        sys.stderr.flush()
+        print(f"chip_smoke: FAILED in phase {name} after "
+              f"{time.perf_counter() - t0:.1f} s: {type(e).__name__}: "
+              f"{first[:600]}", flush=True)
+        return 1
+
+
+def _main(torch) -> int:
     # the port itself; in a directory without the repository this import
     # fails and the script exits non-zero before printing any result
     import tpu_perf_torch  # noqa: F401
@@ -3942,9 +4664,10 @@ def main() -> int:
     phase_s = {}
 
     def timed(name, fn):
-        t0 = time.perf_counter()
+        PHASE[:] = [name, time.perf_counter()]
         result = fn()
-        phase_s[name] = round(time.perf_counter() - t0, 1)
+        phase_s[name] = round(time.perf_counter() - PHASE[1], 1)
+        PHASE[:] = ["kernels", time.perf_counter()]
         return result
 
     global REPORT_DIR

@@ -48,8 +48,9 @@ def test_no_module_of_the_port_imports_jax_or_tpu_perf():
 #: the modules of the fences, report and daemon slice, of the run surface
 #: (the group topology, the external launcher, the C baseline), of the
 #: compute instruments, the stream engine, contend and bench, of the
-#: multi-rank world (the meshes and the multi-process world), and the peer
-#: kernels' design tool
+#: multi-rank world (the meshes and the multi-process world), the peer
+#: kernels' design tool, and the tool of the trace fence's pairs and the
+#: profiler's windows
 SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.ingest", "tpu_perf_torch.ingest.pipeline",
                  "tpu_perf_torch.timing", "tpu_perf_torch.driver",
@@ -61,7 +62,8 @@ SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.grid", "tpu_perf_torch.selftest",
                  "tpu_perf_torch.parallel", "tpu_perf_torch.parallel.mesh",
                  "tpu_perf_torch.parallel.multihost",
-                 "tpu_perf_torch.tools.peer_designs")
+                 "tpu_perf_torch.tools.peer_designs",
+                 "tpu_perf_torch.tools.fence_windows")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

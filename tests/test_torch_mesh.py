@@ -509,8 +509,14 @@ def test_dry_run_keeps_its_message(capsys):
 
 
 def test_mesh_with_the_mpi_backend_is_not_yet_ported(capsys):
-    assert cli.main(["run", "--backend", "mpi", "--mesh", "2", "-x"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    # ported now: the C baseline's world is the ranks the mesh names, as
+    # the JAX package plans it (tests/test_torch_mesh_flags.py holds every
+    # plan against JAX's)
+    assert cli.main(["run", "--backend", "mpi", "--mesh", "2", "-x",
+                     "--dry-run"]) == 0
+    out = capsys.readouterr()
+    assert "not yet ported" not in out.err
+    assert "mpi_perf_shim -np 2 -- -x 1" in out.out + out.err
 
 
 def test_mesh_shape_and_axes_must_match():

@@ -86,12 +86,31 @@ def _add_world_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dtype", default="float32")
 
 
+def _add_mesh_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh", default=None,
+                   help="mesh shape over the ranks, e.g. 8 or 2x4")
+    p.add_argument("--axes", default=None, help="axis names, e.g. dcn,ici")
+
+
 def _sim_ranks(args: argparse.Namespace) -> int:
     """--sim-ranks, or its default: a process of a distributed world holds
     one rank."""
     if args.sim_ranks is not None:
         return args.sim_ranks
     return 1 if getattr(args, "distributed", False) else DEF_SIM_RANKS
+
+
+def _sim_world(args: argparse.Namespace):
+    """The sim world of ``grid`` and ``selftest``: --sim-ranks ranks on
+    the card (or the CPU), laid over ``--mesh`` / ``--axes`` when given,
+    as ``run`` lays them."""
+    from tpu_perf_torch.parallel import make_mesh
+    from tpu_perf_torch.world import SimWorld, resolve_device
+
+    n = _sim_ranks(args)
+    shape, axes = _parse_mesh(args)
+    mesh = make_mesh(shape, axes, n=n) if shape else None
+    return SimWorld(n, resolve_device(args.device), mesh)
 
 
 def _parse_mesh(args: argparse.Namespace) -> tuple[tuple[int, ...],
@@ -137,10 +156,6 @@ def _options_from(args: argparse.Namespace, **overrides) -> Options:
 
 def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
     opts = _options_from(args, num_runs=-1 if infinite else args.runs)
-    if opts.backend == "mpi" and (opts.mesh_shape or opts.hybrid_mesh):
-        # the shim runs the JAX default of 2 x ppn ranks on one axis
-        raise NotImplementedError(
-            "--backend mpi with a mesh: not yet ported, see ROADMAP")
     if opts.backend == "mpi":
         # before anything of the card: the C baseline runs on the host,
         # and must run where no card is visible
@@ -162,20 +177,25 @@ def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
 
     from tpu_perf_torch.driver import Driver
 
-    on_rotate = None
+    ingest = None
     if opts.logfolder:
         # the ingest pass (both families, through the `ingest` subcommand)
         # runs in its own process, so a slow pass never stalls the next
         # measured run, as the reference forks its uploader
-        # (mpi_perf.c:363-364); TPU_PERF_INGEST_CMD overrides the command
+        # (mpi_perf.c:363-364); TPU_PERF_INGEST_CMD overrides the command.
+        # The driver hooks it where the node's local rank 0 runs, with the
+        # node's live writers skipped (Driver.ingest_skip)
         from tpu_perf_torch.ingest import SubprocessIngest, ingest_command
 
-        on_rotate = SubprocessIngest(ingest_command(opts.logfolder, opts.ppn))
+        def ingest(skip_newest: int):
+            return SubprocessIngest(ingest_command(opts.logfolder,
+                                                   skip_newest))
+    driver = Driver(opts, ingest=ingest)
     try:
-        rows = Driver(opts, on_rotate=on_rotate).run()
+        rows = driver.run()
     finally:
-        if on_rotate is not None:
-            on_rotate.finish()
+        if driver.on_rotate is not None:
+            driver.on_rotate.finish()
     if args.csv or not opts.logfolder:
         _print_rows(rows)
     return 0
@@ -381,9 +401,8 @@ def _cmd_report(args: argparse.Namespace) -> int:
 def _cmd_grid(args: argparse.Namespace) -> int:
     from tpu_perf_torch.config import new_job_id
     from tpu_perf_torch.grid import grid_caption, grid_to_markdown, run_grid
-    from tpu_perf_torch.world import SimWorld, resolve_device
 
-    world = SimWorld(_sim_ranks(args), resolve_device(args.device))
+    world = _sim_world(args)
     source = ("--spec-tflops" if args.spec_tflops is not None
               else "--spec-gbps" if args.spec_gbps is not None
               else "not given")
@@ -493,9 +512,8 @@ def _cmd_ops(_args: argparse.Namespace) -> int:
 
 def _cmd_selftest(args: argparse.Namespace) -> int:
     from tpu_perf_torch.selftest import format_results, run_selftest
-    from tpu_perf_torch.world import SimWorld, resolve_device
 
-    world = SimWorld(_sim_ranks(args), resolve_device(args.device))
+    world = _sim_world(args)
     ops = [o.strip() for o in args.ops.split(",") if o.strip()] if args.ops else None
     results = run_selftest(world, ops=ops, nbytes=parse_size(args.size),
                            dtype=args.dtype, iters=args.iters)
@@ -594,9 +612,7 @@ def _add_run_flags(p: argparse.ArgumentParser) -> None:
                    default=LOG_REFRESH_TIME_SEC)
     p.add_argument("--csv", action="store_true",
                    help="print extended rows as CSV to stdout")
-    p.add_argument("--mesh", default=None,
-                   help="mesh shape over the ranks, e.g. 8 or 2x4")
-    p.add_argument("--axes", default=None, help="axis names, e.g. dcn,ici")
+    _add_mesh_flags(p)
     p.add_argument("--distributed", action="store_true",
                    help="join a torch.distributed world, one process a rank "
                         "(torchrun's RANK / WORLD_SIZE / LOCAL_RANK / "
@@ -700,6 +716,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_grid.add_argument("-l", "--logfolder", default=None,
                         help="also write every cell's raw rows here "
                              "(extended schema)")
+    _add_mesh_flags(p_grid)
     _add_world_flags(p_grid)
     p_grid.set_defaults(func=_cmd_grid)
 
@@ -747,6 +764,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_self.add_argument("-i", "--iters", type=int, default=1,
                         help="chained iterations (exercises the carry)")
     p_self.add_argument("--ops", default=None, help="comma-separated subset")
+    _add_mesh_flags(p_self)
     _add_world_flags(p_self)
     p_self.set_defaults(func=_cmd_selftest)
 

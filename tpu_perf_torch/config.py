@@ -199,11 +199,6 @@ class Options:
             raise ValueError(
                 "distributed joins a torch.distributed world; "
                 f"backend={self.backend!r} launches its own ranks")
-        if self.distributed and self.streams > 1:
-            raise ValueError(
-                "overlapped dispatch (--streams) is not yet ported to a "
-                "distributed world (a rank's collectives and barriers keep "
-                "one order on one stream), see ROADMAP")
         if self.device not in (None, "cuda", "cpu"):
             raise ValueError(
                 f"device must be 'cuda' or 'cpu', got {self.device!r}")

@@ -6,7 +6,9 @@ rotating CSV logs (port of ``tpu_perf/driver.py``).
 * with a logfolder, rows go out in both schemas: legacy rows to
   ``tcp-*.log`` (mpi_perf.c:550-554) and extended rows to ``tpu-*.log``;
   files rotate every ``log_refresh_sec`` (mpi_perf.c:16,479), and each
-  rotation of the legacy log fires the ingest hook (mpi_perf.c:483-490);
+  rotation of the legacy log fires the ingest hook (mpi_perf.c:483-490),
+  in one process a node (its local rank 0, mpi_perf.c:359-362), whose
+  pass skips the node's live writers;
 * every ``stats_every`` runs a min/max/avg/p50 heartbeat goes to stderr
   (mpi_perf.c:564-568);
 * ``--heartbeat-format json`` prints the heartbeat as one JSON object a
@@ -32,7 +34,8 @@ rotating CSV logs (port of ``tpu_perf/driver.py``).
   by rank, every rank enters the heartbeat's cross-rank min/max/avg
   triple and rank 0 alone prints it, and the peer of the pair topology
   (its IP from the rank-card allgather) is the legacy rows' remote and
-  ``extern``'s peer.
+  ``extern``'s peer; with ``--streams K`` each lane's collectives ride
+  a process group of the lane's own.
 
 The chaos, push and span paths of the JAX driver are not ported yet
 (ROADMAP).
@@ -62,7 +65,7 @@ from tpu_perf_torch.schema import (
 )
 from tpu_perf_torch.topology import validate_groups
 from tpu_perf_torch.timing import (
-    FusedPoint, FusedRunner, RunTimes, fence, measure_overhead,
+    FusedPoint, FusedRunner, RunTimes, TraceRunner, fence, measure_overhead,
     resolve_fence, slope_sample, time_trace,
 )
 from tpu_perf_torch.traceparse import profile_window
@@ -166,6 +169,7 @@ class Driver:
                  clock: Callable[[], float] = time.time,
                  perf_clock: Callable[[], float] = time.perf_counter,
                  on_rotate: Callable[[], None] | None = None,
+                 ingest: Callable[[int], Callable[[], None]] | None = None,
                  err=None):
         self.world = world_for(opts)
         if opts.fence == "auto":
@@ -195,6 +199,11 @@ class Driver:
 
                 _, peer = pair_for_rank(self.rank, self.n_hosts)
                 self.peer_ip = self._peer_ips[peer]
+        if not self.fires_ingest:
+            on_rotate = None
+        elif ingest is not None and on_rotate is None:
+            on_rotate = ingest(self.ingest_skip)
+        self.on_rotate = on_rotate
         self.log: RotatingCsvLog | None = None
         self.ext_log: RotatingCsvLog | None = None
         if opts.logfolder:
@@ -230,6 +239,30 @@ class Driver:
         self._window_points: dict[tuple[str, int], int] = {}
         if opts.group1_file:
             self._validate_group_file(opts.group1_file)
+
+    @property
+    def fires_ingest(self) -> bool:
+        """Whether this process hooks the ingest to its log's rotation:
+        one process a node does, its local rank 0 (mpi_perf.c:359-362; the
+        JAX package's rank 0 on one host).  One pass a rotation of every
+        rank would race the others, each deleting files another is still
+        reading."""
+        if not is_dist(self.world):
+            return True
+        from tpu_perf_torch.parallel.multihost import local_rank
+
+        return local_rank() == 0
+
+    @property
+    def ingest_skip(self) -> int:
+        """The newest files of each family the ingest leaves alone: ``-p``,
+        and at least the node's live writers in a distributed world (one
+        open log a family a rank; ``LOCAL_WORLD_SIZE``)."""
+        if not is_dist(self.world):
+            return self.opts.ppn
+        from tpu_perf_torch.parallel.multihost import local_world_size
+
+        return max(self.opts.ppn, local_world_size())
 
     def _validate_group_file(self, path: str) -> None:
         """The reference's group-size check (mpi_perf.c:399-419): group-1
@@ -272,12 +305,30 @@ class Driver:
                 self.ext_log.close()
         return self.result_rows
 
-    def _build(self, op: str, nbytes: int):
-        """One point's (built, built_hi) pair; extern builds nothing."""
+    def _build(self, op: str, nbytes: int, world=None):
+        """One point's (built, built_hi) pair in ``world`` (the job's by
+        default); extern builds nothing."""
         if op == "extern":
             return _ExternOp("extern", nbytes, self.opts.iters,
                              self.world.n), None
-        return build_point_pair(self.opts, self.world, op, nbytes)
+        return build_point_pair(self.opts, world or self.world, op, nbytes)
+
+    def _lane_worlds(self, k: int) -> list:
+        """The world each of ``k`` lanes builds its steps in.  In a
+        multi-process world every lane past the first gets a process group
+        of its own over every rank (made in the same order on every rank),
+        so two lanes' collectives in flight at once never share a
+        communicator; the pl_* ops' peer buffers are each point's own.
+        The sim world's lanes share it."""
+        if not is_dist(self.world):
+            return [self.world] * k
+        import torch.distributed as dist
+
+        ranks = list(range(self.world.n))
+        return [self.world] + [
+            dataclasses.replace(self.world, group=dist.new_group(ranks),
+                                _axis_groups={})
+            for _ in range(k - 1)]
 
     def _extern_command(self, nbytes: int) -> str:
         """The external client/server command for this process, from the
@@ -322,11 +373,9 @@ class Driver:
         if isinstance(built_hi, FusedRunner):
             # a fused daemon visit: one replay of the point's one-run graph
             return built_hi.chunk(1)[0]
-        if self.opts.fence == "trace":
-            # a daemon visit: one (lo, hi) event pair on the device clock
-            times = time_trace(built.step, built_hi.step, built.example_input,
-                               built.iters, built_hi.iters, 1, warmup_runs=0)
-            return times.samples[0] * built.iters
+        if isinstance(built_hi, TraceRunner):
+            # a trace daemon visit: one replay of each leg's graph
+            return built_hi.sample() * built.iters
         if built_hi is not None:  # slope
             s = slope_sample(built.step, built_hi.step, built.example_input,
                              built_hi.example_input,
@@ -384,14 +433,17 @@ class Driver:
         are built and warmed serially before it starts.  The rows carry
         exactly the serial sweep's coordinates, plus each row's 1-based
         lane in the stream column.  Each wave's runs are one window under
-        --profile-dir."""
+        --profile-dir.  In a multi-process world each lane's collectives
+        ride a process group of the lane's own (:meth:`_lane_worlds`),
+        and each run's lane times are their maxima over the ranks."""
         from tpu_perf_torch.streams.engine import StreamEngine
         from tpu_perf_torch.streams.plans import wave_plan
 
+        worlds = self._lane_worlds(k)
         for w, wave in enumerate(wave_plan(plan, k)):
             lanes = []
             for lane, (op, nbytes) in wave:
-                built, built_hi = self._build(op, nbytes)
+                built, built_hi = self._build(op, nbytes, worlds[lane])
                 self._warm(built, built_hi)
                 lanes.append((lane, built))
             engine = StreamEngine(len(lanes), fence_mode=self.opts.fence,
@@ -407,10 +459,14 @@ class Driver:
                                         built.example_input, label=built.name)
                     walls = engine.fence_all()
                     self.stream_totals["wall_s"] += self.perf_clock() - t0
-                    for lane, built in lanes:
+                    # each lane's time its maximum over the ranks, after
+                    # the run's last fence
+                    times = max_over_ranks(
+                        self.world, [walls[lane] for lane, _ in lanes])
+                    for (lane, built), t in zip(lanes, times):
                         self.stream_totals["window_s"] += walls[lane]
-                        self._record_run(built, run_id, walls[lane],
-                                         windows[lane], stream=lane + 1)
+                        self._record_run(built, run_id, t, windows[lane],
+                                         stream=lane + 1)
 
     def _run_daemon(self, plan: list[tuple[str, int]]) -> None:
         """Infinite monitoring: one measured run per visit, round-robin
@@ -421,7 +477,8 @@ class Driver:
         for the daemon's life.  Points whose example inputs have the same
         spec share one buffer; a fused daemon holds one warmed runner (a
         private working buffer and a one-run graph) per point and never
-        captures again."""
+        captures again, a trace daemon one pair of leg graphs per point
+        (:class:`~tpu_perf_torch.timing.TraceRunner`)."""
         canon: dict[tuple, object] = {}
         points = []
         for op, nbytes in plan:
@@ -441,8 +498,12 @@ class Driver:
                 built_hi = FusedRunner(built_hi, built,
                                        perf_clock=self.perf_clock)
                 built_hi.warm()
+            elif self.opts.fence == "trace":
+                built_hi = TraceRunner(built.step, built_hi.step, keep,
+                                       built.iters, built_hi.iters)
+                built_hi.warm(self.opts.warmup_runs)
             else:
-                self._warm(built, built_hi)  # trace visits skip their own
+                self._warm(built, built_hi)
             points.append((built, built_hi))
         self._print_residency(points, len(canon))
         window: list[float] = []
@@ -457,7 +518,8 @@ class Driver:
     def _print_residency(self, points, n_inputs: int) -> None:
         """What the daemon holds on the device for its whole life: the
         bytes of each point's input (shared by the points of one spec)
-        and, under the fused fence, of its private working buffer."""
+        and, under the fused fence, of its private working buffer; under
+        the trace fence, of its leg graphs' memory pool."""
         held = []
         for built, built_hi in points:
             if isinstance(built, _ExternOp):
@@ -466,11 +528,13 @@ class Driver:
             nb = x.numel() * x.element_size()
             if isinstance(built_hi, FusedRunner):
                 nb += nb  # the runner's working copy of the input
+            elif isinstance(built_hi, TraceRunner):
+                nb += built_hi.graph_bytes
             held.append(f"{built.name}/{built.nbytes}={nb}")
         print(f"[tpu-perf-torch] daemon: {len(points)} points, {n_inputs} "
               f"input buffer(s); bytes each point holds (input, and its "
-              f"working copy under fused): {', '.join(held) or 'none'}",
-              file=self.err, flush=True)
+              f"working copy under fused or its graphs' pool under trace): "
+              f"{', '.join(held) or 'none'}", file=self.err, flush=True)
 
     def _record_run(self, built: BuiltOp, run_id: int, t: float | None,
                     window: list[float], *, stream: int = 0) -> None:

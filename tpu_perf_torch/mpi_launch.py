@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import fcntl
+import math
 import os
 import pathlib
 import shlex
@@ -151,9 +152,11 @@ def plan_command(opts: Options, nbytes: int, *,
     """The exact argv for one mpi-backend measurement point.
 
     mpirun when ``hosts`` is set (np = hosts * ppn; the pairwise kernels
-    need -f, as run-mpi-monitor.sh:53-56); the shim otherwise (its -f is
-    generated for the shim's shimhost names), at the two shim hosts'
-    flows: 2 * ppn ranks."""
+    need -f, as run-mpi-monitor.sh:53-56; a ``--mesh`` must name that
+    many ranks); the shim otherwise (its -f is generated for the shim's
+    shimhost names), at the two shim hosts' flows, 2 * ppn ranks, or for
+    a collective the ranks a ``--mesh`` names (``--mesh 1`` runs
+    ``hbm_stream`` on one uncontended rank)."""
     coll = opts.op in _COLLECTIVE_OPS
     if hosts:
         if not coll and not opts.group1_file:
@@ -164,15 +167,29 @@ def plan_command(opts: Options, nbytes: int, *,
         n_hosts = len([h for h in hosts.split(",") if h])
         if n_hosts < 1:
             raise ValueError(f"--hosts {hosts!r} names no hosts")
+        np = n_hosts * opts.ppn
+        if opts.mesh_shape and math.prod(opts.mesh_shape) != np:
+            # the world size comes from the host topology here; a --mesh
+            # that disagrees would run another collective than asked for
+            raise ValueError(
+                f"--mesh {'x'.join(map(str, opts.mesh_shape))} conflicts "
+                f"with --hosts x ppn = {np} ranks; drop --mesh or adjust -p"
+            )
         env_args = ["-x", "TPU_PERF_INGEST_CMD"] if opts.logfolder else []
         return [
-            "mpirun", "-np", str(n_hosts * opts.ppn), "--host", hosts,
+            "mpirun", "-np", str(np), "--host", hosts,
             "--map-by", f"ppr:{opts.ppn}:node", *env_args,
             str(BUILD_DIR / "mpi_perf"), *driver_argv(opts, nbytes),
         ]
     if not coll and not opts.group1_file:
         opts = dataclasses.replace(opts, group1_file=_shim_group_file())
-    np = max(2, 2 * opts.ppn) if coll else 2 * opts.ppn
+    if not coll:
+        np = 2 * opts.ppn
+    elif opts.mesh_shape and (math.prod(opts.mesh_shape) > 1
+                              or opts.op == "hbm_stream"):
+        np = math.prod(opts.mesh_shape)
+    else:
+        np = max(2, 2 * opts.ppn)
     return [str(BUILD_DIR / "mpi_perf_shim"), "-np", str(np), "--",
             *driver_argv(opts, nbytes)]
 

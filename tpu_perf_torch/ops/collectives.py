@@ -546,9 +546,13 @@ def _overlap_ring(world: SimWorld, dtype: str, elems: int):
         with torch.cuda.stream(side):
             moved = shift_rows(comm, 1)
         y = torch.addmm(bias, comp, q, alpha=alpha)
+        # the join: the current stream waits for the shift before this
+        # iteration's tensors can be freed, and the side stream waits for
+        # the current one before it allocates again, so no block is reused
+        # while the other stream still reads it; a record_stream here would
+        # keep every iteration's blocks from reuse under graph capture (the
+        # trace fence's legs held 54 GiB at 8 x 256 MiB)
         cur.wait_stream(side)
-        comm.record_stream(side)
-        moved.record_stream(cur)
         return moved, y
 
     def post(carry):
@@ -793,16 +797,55 @@ DIST_BODIES: dict[str, Callable] = {
 }
 
 
+def _dist_overlap_ring(world: DistWorld, dtype: str, elems: int):
+    # the sim world's iteration on one rank of many: the ring shift of the
+    # first r elements through the library's ppermute and the gemm of the
+    # rank's m x m block.  On a card the shift runs on a side stream that
+    # forks from the current stream and joins it after the product, so the
+    # two can overlap; on the CPU (gloo) they run one after the other.
+    r, m = _overlap_split(elems)
+    q, alpha, bias = _gemm_operands(m, dtype, world.device)
+    perm = ring_permutation(world.n)
+    side = (torch.cuda.Stream(world.device) if world.device.type == "cuda"
+            else None)
+
+    def pre(x):
+        return x[:r].contiguous(), x[r:].reshape(m, m)
+
+    def body(carry):
+        comm, comp = carry
+        if side is None:
+            return (_ppermute(world, comm, perm),
+                    torch.addmm(bias, comp, q, alpha=alpha))
+        cur = torch.cuda.current_stream(world.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            moved = _ppermute(world, comm, perm)
+        y = torch.addmm(bias, comp, q, alpha=alpha)
+        cur.wait_stream(side)  # the join orders reuse (see _overlap_ring)
+        return moved, y
+
+    def post(carry):
+        comm, comp = carry
+        return torch.cat([comm, comp.reshape(-1)])
+
+    return pre, body, post
+
+
 def _dist_step(op: str, world: DistWorld, dtype: str, elems: int,
                iters: int) -> Callable:
     """The step of a non-``pl_*`` op on one rank of a multi-process world:
-    the library bodies above, or, for the ops whose function is each
-    rank's own (and ``overlap_ring`` in a world of one), the sim world's
-    body at one rank on this rank's buffer."""
+    the library bodies above, ``overlap_ring``'s shift through the
+    library's ppermute beside its product, or, for the ops whose function
+    is each rank's own (and ``overlap_ring`` in a world of one), the sim
+    world's body at one rank on this rank's buffer."""
     if op in DIST_BODIES:
         body, in_place = DIST_BODIES[op](world, DTYPES[dtype])
         return chained(body, iters, pre=(lambda x: x.clone()) if in_place
                        else None)
+    if op == "overlap_ring" and world.n > 1:
+        pre, body, post = _dist_overlap_ring(world, dtype, elems)
+        return chained(body, iters, pre, post)
     if op not in _LOCAL_OPS and world.n > 1:
         raise NotImplementedError(
             f"{op} across {world.n} ranks is not yet ported, see ROADMAP")

@@ -10,9 +10,12 @@ timed call ends in a fence:
 * ``slope``    — two readback-fenced runs at ``iters`` and
   ``iters * SLOPE_ITERS_FACTOR`` executions; the difference over the extra
   executions cancels every constant cost (launch, fence round trip);
-* ``trace``    — the device's own clock: CUDA events recorded around each
-  run of the (lo, hi) pair, slope-disciplined like ``slope``.  It stands
-  in for the JAX package's ``jax.profiler`` device lane;
+* ``trace``    — the device's own clock: each leg of the (lo, hi) pair is
+  one device program, a CUDA graph captured once with its start and end
+  events inside it (:class:`TraceRunner`), slope-disciplined like
+  ``slope``.  A replay launches the leg's kernels with no host gap, so
+  no host time enters either leg: the counterpart of the JAX package's
+  per-leg module durations read from the ``jax.profiler`` device lane;
 * ``fused``    — a point's whole run budget in one device dispatch: the
   runs are captured once into a CUDA graph (one graph per distinct chunk
   size of :func:`fused_chunk_plan`) and the graph is replayed, so no host
@@ -41,6 +44,9 @@ import torch
 SLOPE_ITERS_FACTOR = 4
 #: re-measurements of a slope pair that came out non-positive
 _SLOPE_RETRIES = 3
+#: the trace fence's lead-in before each leg's start event, in clock
+#: cycles (about 50 us at an H100's 1.98 GHz boost)
+LEAD_IN_CYCLES = 100_000
 
 
 class DegenerateSlopeError(RuntimeError):
@@ -196,6 +202,116 @@ def time_slope(
     return RunTimes(samples=samples, warmup_s=warmup_s)
 
 
+class TraceRunner:
+    """One sweep point's trace pair, each leg one device program.
+
+    ``warm()`` runs each leg once eagerly on a side stream (this builds
+    the kernels and allocates that stream's device counters: nothing of
+    that may happen under capture), then captures each leg, on the same
+    stream, as a CUDA graph that runs a short device spin (its lead-in,
+    :meth:`lead_in`), records its own start event, runs the leg's
+    ``iters`` executions and records its end event.  Both graphs
+    share one memory pool: they replay in the order they were captured
+    and never at once, and nothing reads their outputs.  ``pair()``
+    replays lo, then hi, fences once and returns the two legs' device
+    durations: the events ride the replays, so a host stall before,
+    between or after the replays lands in neither leg, and the slope
+    ``(d_hi - d_lo) / (iters_hi - iters_lo)`` cancels a replay's constant
+    cost.  ``graph_bytes`` is what the captures added to the card's
+    reserved memory (the pool), held until ``close()``.
+
+    ``replay(leg)`` is the one host call a leg makes in a measured pair;
+    a caller that wants a stall around a leg wraps it."""
+
+    def __init__(self, step_lo: Callable, step_hi: Callable, x,
+                 iters_lo: int, iters_hi: int):
+        if not x.is_cuda:
+            raise ValueError(
+                "the trace fence times with CUDA events and needs a CUDA "
+                "device")
+        if iters_hi <= iters_lo:
+            raise ValueError(
+                f"need iters_hi > iters_lo, got {iters_lo}, {iters_hi}")
+        self.steps = {"lo": step_lo, "hi": step_hi}
+        self.x = x
+        self.d_iters = iters_hi - iters_lo
+        self.warmup_s = 0.0
+        self.graph_bytes = 0
+        self.pairs = 0
+        self._graphs: dict[str, tuple] = {}
+
+    def warm(self, replays: int = 1) -> None:
+        """Eager run, captures, then ``replays`` unrecorded pairs (at
+        least one)."""
+        t0 = time.perf_counter()
+        dev = self.x.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for step in self.steps.values():
+                step(self.x)
+        torch.cuda.synchronize(dev)
+        # a capture empties the allocator's cache first: empty it here, so
+        # that the reserved memory's growth is the graphs' pool alone
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        pool = torch.cuda.graph_pool_handle()
+        for leg, step in self.steps.items():
+            events = (torch.cuda.Event(enable_timing=True, external=True),
+                      torch.cuda.Event(enable_timing=True, external=True))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=side):
+                self.lead_in(leg)
+                events[0].record()
+                step(self.x)
+                events[1].record()
+            self._graphs[leg] = (graph, events)
+        self.graph_bytes = torch.cuda.memory_reserved(dev) - reserved
+        for _ in range(max(1, replays)):
+            for leg in self.steps:
+                self.replay(leg)
+        torch.cuda.synchronize(dev)
+        self.warmup_s = time.perf_counter() - t0
+
+    def lead_in(self, leg: str) -> None:
+        """Device work a leg's graph runs before its start event: a spin
+        of :data:`LEAD_IN_CYCLES` clock cycles.  A replay's first node
+        waits for the launch to start up, now and then for 0.1-0.7 ms
+        (more often once the profiler has traced the process); with the
+        start event first, that wait entered the lo leg and made a pair
+        non-positive, 1 in 2000 visits of a 4 KiB daemon.  Behind the
+        spin it lands before the start event."""
+        torch.cuda._sleep(LEAD_IN_CYCLES)
+
+    def replay(self, leg: str) -> None:
+        self._graphs[leg][0].replay()
+
+    def pair(self) -> tuple[float, float]:
+        """One measured (lo, hi) pair: the legs' device seconds."""
+        if not self._graphs:
+            self.warm()
+        self.replay("lo")
+        self.replay("hi")
+        torch.cuda.synchronize(self.x.device)
+        self.pairs += 1
+        return tuple(ev[0].elapsed_time(ev[1]) * 1e-3
+                     for _, ev in (self._graphs["lo"], self._graphs["hi"]))
+
+    def sample(self) -> float:
+        """One pair's slope: device seconds per execution.  On the device
+        clock a longer leg cannot be faster: a non-positive pair raises."""
+        d_lo, d_hi = self.pair()
+        if d_hi <= d_lo:
+            raise RuntimeError(
+                f"device-time slope pair {self.pairs - 1} is non-positive "
+                f"({d_lo:.6f} -> {d_hi:.6f} s)")
+        return (d_hi - d_lo) / self.d_iters
+
+    def close(self) -> None:
+        """Free the graphs and their memory pool."""
+        self._graphs.clear()
+
+
 def time_trace(
     step_lo: Callable,
     step_hi: Callable,
@@ -207,46 +323,19 @@ def time_trace(
     warmup_runs: int = 1,
 ) -> RunTimes:
     """Per-execution time via the two-point slope on the DEVICE clock:
-    CUDA events around each (lo, hi) run pair, all recorded on the current
-    stream and read after one synchronize.  Each sample is
-    ``(dur_hi - dur_lo) / (iters_hi - iters_lo)``, which cancels the
-    per-run constants the events still enclose.  Samples are per single
-    execution, like :func:`time_slope`."""
-    if not x.is_cuda:
-        raise ValueError(
-            "the trace fence times with CUDA events and needs a CUDA device")
-    if iters_hi <= iters_lo:
-        raise ValueError(f"need iters_hi > iters_lo, got {iters_lo}, {iters_hi}")
+    ``num_runs`` pairs of a :class:`TraceRunner` (each leg one graph
+    replay) after ``warmup_runs`` unrecorded ones; its graphs are freed
+    before it returns.  Samples are per single execution, like
+    :func:`time_slope`."""
     if num_runs <= 0:
         raise ValueError(f"num_runs must be positive, got {num_runs}")
-    t0 = time.perf_counter()
-    for _ in range(warmup_runs):
-        fence(step_lo(x), "readback")
-        fence(step_hi(x), "readback")
-    warmup_s = time.perf_counter() - t0
-    pairs = []
-    for _ in range(num_runs):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        step_lo(x)
-        ev[1].record()
-        ev[2].record()
-        step_hi(x)
-        ev[3].record()
-        pairs.append(ev)
-    torch.cuda.synchronize(x.device)
-    d_iters = iters_hi - iters_lo
-    samples = []
-    for i, ev in enumerate(pairs):
-        d_lo = ev[0].elapsed_time(ev[1]) * 1e-3
-        d_hi = ev[2].elapsed_time(ev[3]) * 1e-3
-        if d_hi <= d_lo:
-            # on the device clock a longer run cannot be faster
-            raise RuntimeError(
-                f"device-time slope pair {i} is non-positive "
-                f"({d_lo:.6f} -> {d_hi:.6f} s)")
-        samples.append((d_hi - d_lo) / d_iters)
-    return RunTimes(samples=samples, warmup_s=warmup_s)
+    runner = TraceRunner(step_lo, step_hi, x, iters_lo, iters_hi)
+    try:
+        runner.warm(warmup_runs)
+        samples = [runner.sample() for _ in range(num_runs)]
+    finally:
+        runner.close()
+    return RunTimes(samples=samples, warmup_s=runner.warmup_s)
 
 
 def fused_chunk_plan(num_runs: int, chunks: int = 1) -> tuple[int, ...]:

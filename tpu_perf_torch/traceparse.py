@@ -26,6 +26,7 @@ import gzip
 import json
 import os
 import tempfile
+import time
 
 import torch
 
@@ -42,27 +43,50 @@ class TraceUnavailableError(TraceParseError):
     events only)."""
 
 
+#: host seconds a card's profiled window stays open after its work has
+#: finished and the card is fenced, before the profiler stops
+SETTLE_S = 0.01
+
+
 @contextlib.contextmanager
 def profile_window(trace_dir: str | None, name: str, device: torch.device):
     """Trace the enclosed window with ``torch.profiler`` (host events, and
     the card's with a CUDA ``device``) and keep it as
     ``<trace_dir>/<name>-<unique>.json``; with ``trace_dir`` None, trace
-    nothing.  The unique suffix keeps two windows of one name apart."""
+    nothing.  The unique suffix keeps two windows of one name apart.
+
+    On a card the window is bracketed so that it loses no device event:
+    the card is idle when the profiler starts, the profiler passes one
+    warm-up step before the window opens, and after the window the card
+    is fenced and the trace held open for :data:`SETTLE_S` before it
+    stops.  A short window entered and left without these lost all its
+    kernels now and then: on an H100, 1 of 400 4 KiB windows bare, with
+    the warm-up step alone, and with the settle alone, 0 of 400 with
+    both; 9 of 10 bare when the profiler tears its device tracing down
+    after every trace (``TEARDOWN_CUPTI=1``), 0 of 10 with either
+    (``python -m tpu_perf_torch.tools.fence_windows --part windows``)."""
     if trace_dir is None:
         yield None
         return
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
+    on_card = device.type == "cuda"
+    if on_card:
         activities.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
     os.makedirs(trace_dir, exist_ok=True)
     fd, path = tempfile.mkstemp(prefix=f"{name}-", suffix=".json",
                                 dir=trace_dir)
     os.close(fd)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+        prof.step()  # the warm-up step ends: the window opens
         yield path
-    prof.export_chrome_trace(path)
+        if on_card:
+            torch.cuda.synchronize(device)
+            time.sleep(SETTLE_S)
 
 
 def read_events(path: str) -> list[dict]:
