@@ -793,8 +793,8 @@ def check_peer_gather_kernels() -> None:
     the card holds), also from sources one element into their storage,
     which together take all four words: every rank's push (whole chunks,
     and half-chunks where the chunk is even) and pull (the same) against
-    the sim gather ``direct_all_gather``, and every rank's pull
-    all-to-all against the sim ``all_to_all``.  Each output is the one
+    the sim gather ``direct_all_gather``, and every rank's all-to-all,
+    pushed and pulled, against the sim ``all_to_all``.  Each output is the one
     PEER_REPLAYS replays of its graph wrote, and the ``peer_gather``
     counters are zero after every launch.  The inputs are drawn on the
     card from a seeded generator (the largest are hundreds of MB)."""
@@ -841,7 +841,8 @@ def check_peer_gather_kernels() -> None:
                         what = f"pull{' bidir' * bidir} {at}"
                         got = _replayed(lambda: [
                             pr.peer_all_gather_bidir(parts, r, out=out[r])
-                            if bidir else pr.peer_all_gather(parts, out=out[r])
+                            if bidir else pr.peer_all_gather(parts, r,
+                                                             out=out[r])
                             for r in range(n)], out, "peer_gather", what)
                         check_exact(what, got, want)
                         cases += 2
@@ -849,16 +850,27 @@ def check_peer_gather_kernels() -> None:
                         n, n * chunk)
                     rows = [pr.PeerParts(x.view(n, n, chunk)[:, r].unbind(0))
                             for r in range(n)]
+                    want = pr.all_to_all(x.clone())
                     what = f"pull all-to-all {at}"
                     got = _replayed(lambda: [pr.peer_all_to_all(
-                        rows[r], out=out[r]) for r in range(n)], out,
+                        rows[r], r, out=out[r]) for r in range(n)], out,
                         "peer_gather", what)
-                    check_exact(what, got, pr.all_to_all(x.clone()))
-                    cases += 1
+                    check_exact(what, got, want)
+                    words |= {pr._widest_word(
+                        chunk * isz, x[r].data_ptr(), *(
+                            o.data_ptr() + r * chunk * isz for o in outs))
+                        for r in range(n)}
+                    what = f"push all-to-all {at}"
+                    got = _replayed(lambda: [pr.peer_all_to_all_push(
+                        x[r], outs, r) for r in range(n)], out,
+                        "peer_gather", what)
+                    check_exact(what, got, want)
+                    cases += 2
     if words != {16, 4, 2, 1}:
         fail(f"peer gathers: the cases took the words {sorted(words)}")
     print(f"check: {cases} peer gather cases (push and pull, whole and "
-          "half-chunks, and the all-to-all) at 1, 2, 5 and 8 ranks at their "
+          "half-chunks, and the all-to-all pushed and pulled) at 1, 2, 5 "
+          "and 8 ranks at their "
           "tiles' edges, in words 16, 4, 2 and 1, equal the sim kernels bit "
           f"for bit after {PEER_REPLAYS} replays of each one's graph; the "
           "peer_gather counters zero after every launch")
@@ -2582,7 +2594,7 @@ def check_counter_race(rounds: int = RACE_ROUNDS) -> None:
 
         def kern(_):
             for r in range(n):
-                peer_all_to_all(rows[r], out=out[r])
+                peer_all_to_all(rows[r], r, out=out[r])
             return out
 
         return kern, lambda _: all_to_all_plain(x), x
@@ -2795,7 +2807,8 @@ DIST_OPS = ("allreduce,all_gather,reduce_scatter,all_to_all,broadcast,"
 DIST_SWEEP = "4K:16M"
 #: op -> {kernel: (launches an execution, launches a step besides)} of
 #: each pl_* path on a rank of a multi-rank world (the pingpong's copies
-#: are group 0's: group 1 adds its local copy, see peer_launches)
+#: are group 0's, leg 1 pushed and the last leg 2 pulled: group 1 copies
+#: its own and pushes leg 2 but the last, see peer_launches)
 PEER_PATHS = {
     "pl_allreduce": {"peer_reduce_scatter": (1, 0), "peer_all_gather": (1, 0),
                      "peer_barrier": (2, 1)},
@@ -2803,7 +2816,7 @@ PEER_PATHS = {
                           "peer_barrier": (1, 1)},
     "pl_ring": {"peer_ring": (1, 0), "peer_barrier": (1, 1)},
     "pl_exchange": {"peer_exchange": (1, 0), "peer_barrier": (1, 1)},
-    "pl_pingpong": {"peer_pingpong": (1, 0), "peer_barrier": (2, 1)},
+    "pl_pingpong": {"peer_pingpong": (1, 1), "peer_barrier": (2, 1)},
     "pl_barrier": {"peer_barrier_copy": (1, 0)},
     "pl_all_to_all": {"peer_all_to_all": (1, 0), "peer_barrier": (1, 1)},
     "pl_all_gather": {"peer_all_gather": (1, 0), "peer_barrier": (1, 1)},
@@ -2857,11 +2870,11 @@ def _free_port() -> int:
 def peer_launches(op: str, n: int, rank: int, steps: int) -> dict:
     """A rank's launches over ``steps`` steps of ``op`` at ITERS
     executions each, by kernel: PEER_PATHS, group 1 of the pingpong with
-    its local copy besides its leg."""
+    its local copy besides its leg and no leg at the last execution."""
     want = {}
     for name, (per_exec, per_step) in PEER_PATHS[op].items():
         if op == "pl_pingpong" and name == "peer_pingpong" and rank >= n // 2:
-            per_exec = 2
+            per_exec, per_step = 2, -1
         want[name] = steps * (per_exec * ITERS + per_step)
     return want
 
@@ -3183,7 +3196,9 @@ def ipc_world(n: int, rank: int, port: int, cards: int = 1) -> None:
         # no rank frees its pad while a peer may still signal it
         dist.barrier()
         del buffers
+    said = _ipc_pushes(world)
     kernels.reset_counts()
+    print(f"rank {rank} of {n}: {said}")
     print(f"rank {rank} of {n}: every pl_* op across {n} processes on "
           f"{min(n, cards)} card(s) through CUDA IPC at {IPC_BYTES[0]} B and 16 MiB, "
           f"{IPC_STEPS} steps each: bit for bit the sim kernels, each op's "
@@ -3191,6 +3206,66 @@ def ipc_world(n: int, rank: int, port: int, cards: int = 1) -> None:
           "set: the pads and generation count them")
     print("IPC_LAUNCHES " + json.dumps(totals))
     dist.destroy_process_group()
+
+
+def _ipc_pushes(world, chunk: int = 1027) -> str:
+    """The all-to-all's push and its pull in this rank's order, and the
+    pingpong's pushed legs, across the processes of an IPC world (chunk
+    odd: four-byte words), each rank's output (and group 1's stage) bit
+    for bit the plain versions' on every rank's input.  Returns what it
+    held."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+    from tpu_perf_torch.ops.collectives import example_input
+    from tpu_perf_torch.world import SimWorld
+
+    n, rank, dev = world.n, world.rank, world.device
+    half, elems, f32 = n // 2, n * chunk, torch.float32
+    rows = example_input(SimWorld(n, dev), elems, "float32")
+    b = pr.PeerBuffers(world, {"x": (elems, f32), "out": (elems, f32),
+                               "stage": (elems, f32)})
+    xs, outs, stages = b["x"], b["out"], b["stage"]
+    xs[rank].copy_(rows[rank])
+    what = f"ipc world of {n}, rank {rank}"
+
+    def fence():
+        # every rank's launches done: a push is whole in its peer's buffer
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    fence()
+    pr.peer_all_to_all_push(xs[rank], pr.PeerParts(outs), rank)
+    fence()
+    want = [torch.zeros_like(rows[0]) for _ in range(n)]
+    for s in range(n):
+        pr.peer_all_to_all_push_plain(rows[s], want, s)
+    check_exact(f"{what}: peer_all_to_all pushed", outs[rank], want[rank])
+    got = pr.peer_all_to_all(pr.PeerParts(pr._sub(x, rank * chunk, chunk)
+                                          for x in xs), rank)
+    check_exact(f"{what}: peer_all_to_all pulled", got,
+                pr.peer_all_to_all_plain(
+                    [r.view(n, chunk)[rank] for r in rows], rank))
+    fence()
+    if rank < half:  # leg 1: into the partner's stage
+        pr.peer_copy("peer_pingpong", xs[rank], out=stages[rank + half])
+    fence()
+    if rank >= half:  # leg 2: the stage back into the partner's output
+        check_exact(f"{what}: the pingpong's stage after leg 1",
+                    stages[rank], pr.peer_copy_plain("peer_pingpong",
+                                                     rows[rank - half]))
+        pr.peer_copy("peer_pingpong", stages[rank], out=outs[rank - half])
+    fence()
+    if rank < half:
+        check_exact(f"{what}: the pingpong's output after leg 2",
+                    outs[rank], pr.peer_copy_plain("peer_pingpong",
+                                                   rows[rank]))
+    fence()
+    del b
+    return ("the all-to-all pushed and pulled, and the pingpong's pushed "
+            f"legs, at {chunk} elements a chunk: their plain versions' bit "
+            "for bit")
 
 
 def _ipc_worlds(cards: int = 1) -> dict:
@@ -3274,7 +3349,8 @@ CARDS_ARITH = ("allreduce", "reduce_scatter", "barrier", "hbm_stream",
 CARDS_BYTES, CARDS_STEPS = (4108, 16 * 1024**2), 2
 #: the push chains: (per-rank bytes, steps), every step's output bit for
 #: bit the first one's
-PUSH_OPS = ("pl_allreduce", "pl_all_gather", "pl_all_gather_bidir")
+PUSH_OPS = ("pl_allreduce", "pl_all_gather", "pl_all_gather_bidir",
+            "pl_all_to_all", "pl_pingpong")
 PUSH_CHAINS = ((4096, 2000), (4108, 2000), (16 * 1024**2, 1000),
                (MAIN_BYTES, 300))
 #: the timed sizes a rank, and the launches a graph holds at each
@@ -3461,6 +3537,23 @@ def _cards_bound(memory_bytes: int, link_bytes: int) -> dict:
             "memory_ms": mem_ms, "link_ms": link_ms}
 
 
+def _serial_bound(*legs: tuple[int, int]) -> dict:
+    """The schedule bound of legs that run one after another, each leg's
+    (memory bytes, link bytes) on the busiest card: the sum of their
+    _cards_bound."""
+    parts = [_cards_bound(*leg) for leg in legs]
+    return {"bound_ms": sum(p["bound_ms"] for p in parts),
+            "bound_by": " and ".join(sorted({p["bound_by"] for p in parts})),
+            "memory_ms": sum(p["memory_ms"] for p in parts),
+            "link_ms": sum(p["link_ms"] for p in parts)}
+
+
+def _latency_bound(memory_bytes: int, link_bytes: int) -> dict:
+    """A barrier's bound: its bytes' time (far below a signal's round
+    trip), marked latency-bound, so that no share of it is printed."""
+    return {**_cards_bound(memory_bytes, link_bytes), "bound_by": "latency"}
+
+
 def _cards_timing(world, nbytes: int, k: int) -> list[dict]:
     """Each peer kernel at ``nbytes`` a rank across the cards (chained
     launches from a graph; the barrier kernels as they run, each launch
@@ -3501,13 +3594,14 @@ def _cards_timing(world, nbytes: int, k: int) -> list[dict]:
             r.wait()
 
     def pingpong():
+        # the step's execution: leg 1 pushed by group 0 under group 1's
+        # local copy, leg 2 pushed back by group 1
+        pr.peer_barrier(b.pads, b.generation, rank, peers="pair")
+        pr.peer_copy("peer_pingpong", own,
+                     out=stage[partner] if rank < half else out)
         pr.peer_barrier(b.pads, b.generation, rank, peers="pair")
         if rank >= half:
-            pr.peer_copy("peer_pingpong", xs[partner], out=stage[rank])
-            pr.peer_copy("peer_pingpong", own, out=out)
-        pr.peer_barrier(b.pads, b.generation, rank, peers="pair")
-        if rank < half:
-            pr.peer_copy("peer_pingpong", stage[partner], out=out)
+            pr.peer_copy("peer_pingpong", stage[rank], out=outs[partner])
 
     def nccl_pingpong():
         if rank < half:
@@ -3519,6 +3613,9 @@ def _cards_timing(world, nbytes: int, k: int) -> list[dict]:
 
     isz = 4
     move = _cards_bound(2 * elems * isz, elems * isz)
+    gather_bound = _cards_bound((chunk + n * chunk) * isz,
+                                (n - 1) * chunk * isz)
+    a2a_bound = _cards_bound(2 * elems * isz, (n - 1) * chunk * isz)
     cases = [
         ("peer_reduce_scatter", 599,
          lambda: pr.peer_reduce_scatter(rs_parts, rank, scale=1.0 / n,
@@ -3529,8 +3626,12 @@ def _cards_timing(world, nbytes: int, k: int) -> list[dict]:
         ("peer_all_gather", 481,
          lambda: pr.peer_all_gather_push(mids[rank], out_parts, rank),
          "all_gather_into_tensor (graph)", True,
-         lambda: dist.all_gather_into_tensor(y_lib, c_lib),
-         _cards_bound((chunk + n * chunk) * isz, (n - 1) * chunk * isz)),
+         lambda: dist.all_gather_into_tensor(y_lib, c_lib), gather_bound),
+        # pl_allreduce's last execution: the pull in each rank's order
+        ("peer_all_gather pulled", 481,
+         lambda: pr.peer_all_gather(mid_parts, rank, out=out),
+         "all_gather_into_tensor (graph)", True,
+         lambda: dist.all_gather_into_tensor(y_lib, c_lib), gather_bound),
         ("peer_all_gather_bidir", 430,
          lambda: pr.peer_all_gather_push(mids[rank], out_parts, rank,
                                          bidir=True),
@@ -3547,25 +3648,32 @@ def _cards_timing(world, nbytes: int, k: int) -> list[dict]:
          "batch_isend_irecv, pair", False,
          lambda: p2p([(True, x_lib, partner), (False, y_lib, partner)]),
          move),
+        # two legs in series: leg 1 lands in group 1's stage while group 1
+        # copies its own (3 buffers through its memory), leg 2 crosses back
         ("peer_pingpong", 385, pingpong,
          "isend / irecv there and back", False, nccl_pingpong,
-         _cards_bound(3 * elems * isz, elems * isz)),
+         _serial_bound((3 * elems * isz, elems * isz),
+                       (elems * isz, elems * isz))),
         ("peer_all_to_all", 291,
-         lambda: pr.peer_all_to_all(rs_parts, out=out),
+         lambda: pr.peer_all_to_all_push(own, out_parts, rank),
          "all_to_all_single", False,
-         lambda: dist.all_to_all_single(y_lib, x_lib),
-         _cards_bound(2 * elems * isz, (n - 1) * chunk * isz)),
+         lambda: dist.all_to_all_single(y_lib, x_lib), a2a_bound),
+        # pl_all_to_all's last execution: the pull in each rank's order
+        ("peer_all_to_all pulled", 291,
+         lambda: pr.peer_all_to_all(rs_parts, rank, out=out),
+         "all_to_all_single", False,
+         lambda: dist.all_to_all_single(y_lib, x_lib), a2a_bound),
         ("peer_barrier", 278,
          lambda: pr.peer_barrier(b.pads, b.generation, rank),
          "all_reduce of one element (graph)", True,
          lambda: dist.all_reduce(one),
-         _cards_bound(2 * n * 4, (n - 1) * 4)),
+         _latency_bound(2 * n * 4, (n - 1) * 4)),
         ("peer_barrier_copy", 329,
          lambda: pr.peer_barrier(b.pads, b.generation, rank,
                                  copy=(own[:1], out[:1])),
          "all_reduce of one element (graph)", True,
          lambda: dist.all_reduce(one),
-         _cards_bound(2 * n * 4 + 2 * isz, (n - 1) * 4)),
+         _latency_bound(2 * n * 4 + 2 * isz, (n - 1) * 4)),
     ]
     rows = []
     for name, line, kernel, lib_name, lib_graph, lib, bound in cases:
@@ -3618,13 +3726,15 @@ def cards_rank(device: str = "cuda") -> None:
         for line in said:
             print(f"cards: {line}")
         for r in rows:
+            bound = ("latency-bound" if r["bound_by"] == "latency" else
+                     f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                     f"(memory {r['memory_ms']:.4f}, link "
+                     f"{r['link_ms']:.4f}), {r['bound_ms'] / r['ms']:.1%} "
+                     "of it")
             print(f"cards: {r['name']} at {r['bytes_a_rank']} B a rank x "
                   f"{n}: {r['ms']:.4f} ms, NCCL {r['library_call']} "
                   f"{r['library_ms']:.4f} ms (kernel / NCCL "
-                  f"{r['ms'] / r['library_ms']:.3f}), bound "
-                  f"{r['bound_ms']:.4f} ms by {r['bound_by']} (memory "
-                  f"{r['memory_ms']:.4f}, link {r['link_ms']:.4f}), "
-                  f"{r['bound_ms'] / r['ms']:.1%} of it")
+                  f"{r['ms'] / r['library_ms']:.3f}), {bound}")
         print("CARDS_KERNELS " + json.dumps(rows), flush=True)
     leave_world()
 
@@ -4105,10 +4215,12 @@ def _loopback_steps(n: int, op: str, nbytes: int, dtype: str) -> None:
 def _loopback_kernels(n: int, dtype: str, chunk: int) -> None:
     """Each new peer kernel at n ranks, every rank's launch on its own
     stream, against its plain version on the same parts: the copies from
-    the ring's and the pair's source, the all-to-all over chunk r of every
-    rank's input, the bidirectional gather (chunk even) and the tiled
-    reduce-scatter (floats); then the ring and pair barriers, and the
-    all-rank one with its tail copy, two rounds each, against theirs."""
+    the ring's and the pair's source (the pingpong's also pushed to the
+    partner, its legs), the all-to-all over chunk r of every rank's input,
+    pulled in each rank's order and pushed, the bidirectional gather
+    (chunk even) and the tiled reduce-scatter (floats); then the ring and
+    pair barriers, and the all-rank one with its tail copy, two rounds
+    each, against theirs."""
     import torch
 
     from tpu_perf_torch.ops import pallas_ring as pr
@@ -4126,11 +4238,30 @@ def _loopback_kernels(n: int, dtype: str, chunk: int) -> None:
         for r in range(n):
             check_exact(f"{what}: rank {r} {name}", outs[r],
                         pr.peer_copy_plain(name, xs[(r - shift) % n]))
-    _on_streams(w, lambda r: pr.peer_all_to_all(parts[r], out=outs[r]))
+    # the pingpong's legs push: rank r stores into its partner's buffer
+    for o in outs:
+        o.zero_()
+    _on_streams(w, lambda r: pr.peer_copy("peer_pingpong", xs[r],
+                                          out=outs[(r + n // 2) % n]))
     torch.cuda.synchronize()
     for r in range(n):
-        check_exact(f"{what}: rank {r} peer_all_to_all", outs[r],
-                    pr.peer_all_to_all_plain(list(parts[r])))
+        check_exact(f"{what}: rank {r} peer_pingpong pushed", outs[r],
+                    pr.peer_copy_plain("peer_pingpong", xs[(r - n // 2) % n]))
+    _on_streams(w, lambda r: pr.peer_all_to_all(parts[r], r, out=outs[r]))
+    torch.cuda.synchronize()
+    for r in range(n):
+        check_exact(f"{what}: rank {r} peer_all_to_all pulled", outs[r],
+                    pr.peer_all_to_all_plain(list(parts[r]), r))
+    for o in outs:
+        o.zero_()
+    dsts = pr.PeerParts(outs)
+    _on_streams(w, lambda r: pr.peer_all_to_all_push(xs[r], dsts, r))
+    torch.cuda.synchronize()
+    want = [torch.zeros_like(o) for o in outs]
+    for r in range(n):
+        pr.peer_all_to_all_push_plain(xs[r], want, r)
+    check_exact(f"{what}: peer_all_to_all pushed", torch.stack(outs),
+                torch.stack(want))
     if chunk % 2 == 0:
         _on_streams(w, lambda r: pr.peer_all_gather_bidir(
             parts[0], r, out=outs[r]))
@@ -4216,7 +4347,7 @@ def _loopback_timing() -> list[dict]:
             w["mids"][r], w["outs"], r))
 
     def ag_pull():
-        _on_streams(w, lambda r: pr.peer_all_gather(w["mids"],
+        _on_streams(w, lambda r: pr.peer_all_gather(w["mids"], r,
                                                     out=w["outs"][r]))
 
     def barrier():
@@ -4354,8 +4485,9 @@ def _loopback_timing_new(w, xs, rows, full, red,
                          source: str) -> tuple[list[dict], dict]:
     """This slice's kernels at 8 ranks x MAIN_BYTES: the ring's and the
     exchange's copies, a pingpong execution (two pair barriers and its
-    legs, as the step runs it), the all-to-all, the bidirectional gather
-    of the owned chunks, and pl_barrier's barrier with its tail copy,
+    pushed legs, as the step runs it), the all-to-all (pushed, and
+    pulled beside it), the bidirectional gather of the owned chunks, and
+    pl_barrier's barrier with its tail copy,
     each first held against the sim kernel's function on the same rows,
     its max abs err on its row; returns those rows and the ring and pair
     barriers' times from graphs."""
@@ -4381,26 +4513,23 @@ def _loopback_timing_new(w, xs, rows, full, red,
             name, xs[(r - shift) % n]))
 
     def pingpong():
+        # leg 1 pushed by group 0 under group 1's local copy, leg 2 pushed
+        # back by group 1
         def one(r):
             pr.peer_barrier(w["pads"], w["gens"][r], r, peers="pair")
-            if r >= half:
-                pr.peer_copy("peer_pingpong", xs[r - half], out=stage[r])
-                pr.peer_copy("peer_pingpong", xs[r], out=full[r])
+            pr.peer_copy("peer_pingpong", xs[r],
+                         out=stage[r + half] if r < half else full[r])
             pr.peer_barrier(w["pads"], w["gens"][r], r, peers="pair")
-            if r < half:
-                pr.peer_copy("peer_pingpong", stage[r + half], out=full[r])
+            if r >= half:
+                pr.peer_copy("peer_pingpong", stage[r], out=full[r - half])
 
         _on_streams(w, one)
 
     def plain_pingpong():
-        def one(r):
-            if r >= half:
-                pr.peer_copy_plain("peer_pingpong", xs[r - half], stage[r])
-                pr.peer_copy_plain("peer_pingpong", xs[r], full[r])
-
-        _on_streams(w, one)
         _on_streams(w, lambda r: pr.peer_copy_plain(
-            "peer_pingpong", stage[r + half], full[r]) if r < half else None)
+            "peer_pingpong", xs[r], stage[r + half] if r < half else full[r]))
+        _on_streams(w, lambda r: pr.peer_copy_plain(
+            "peer_pingpong", stage[r], full[r - half]) if r >= half else None)
 
     entries = []
     for name, replaces, shift in (("peer_ring", 345, 1),
@@ -4435,18 +4564,29 @@ def _loopback_timing_new(w, xs, rows, full, red,
         "schedule_bound_ms": _bound(3 * half * 2 * elems * isz, 0)["bound_ms"],
         "sim_kernel_ms": cuda_ms(lambda: pr.pingpong(rows), 10)})
 
-    def a2a():
-        _on_streams(w, lambda r: pr.peer_all_to_all(parts[r], out=full[r]))
+    full_parts = pr.PeerParts(full)
 
-    a2a()
-    torch.cuda.synchronize()
-    a2a_err = check_exact("loopback at 8 x 256 MiB: peer_all_to_all",
-                          torch.stack(full), pr.all_to_all(rows))
+    def a2a():
+        _on_streams(w, lambda r: pr.peer_all_to_all_push(xs[r], full_parts,
+                                                         r))
+
+    def a2a_pull():
+        _on_streams(w, lambda r: pr.peer_all_to_all(parts[r], r, out=full[r]))
+
+    for launch, how in ((a2a_pull, "pulled"), (a2a, "pushed")):
+        for o in full:
+            o.zero_()
+        launch()
+        torch.cuda.synchronize()
+        a2a_err = check_exact(f"loopback at 8 x 256 MiB: peer_all_to_all "
+                              f"{how}", torch.stack(full), pr.all_to_all(rows))
     entries.append({
         "name": "peer_all_to_all", "route": "cuda", "source": source,
         "replaces": "tpu_perf/ops/pallas_ring.py:291", "max_abs_err": a2a_err,
-        "ms": cuda_ms(a2a, 10), "plain_ms": cuda_ms(lambda: _on_streams(
-            w, lambda r: pr.peer_all_to_all_plain(parts[r])), 3, 1),
+        "ms": cuda_ms(a2a, 10), "pull_ms": cuda_ms(a2a_pull, 10),
+        "plain_ms": cuda_ms(lambda: _on_streams(
+            w, lambda r: pr.peer_all_to_all_push_plain(
+                xs[r], full_parts, r)), 3, 1),
         **move_bound,
         "library_ms": cuda_ms(lambda: rows.view(n, n, chunk).transpose(
             0, 1).contiguous(), 10),
@@ -4593,6 +4733,10 @@ def loopback() -> None:
                   f"{k['cat_ms']:.4f} ms (kernel / cat "
                   f"{k['ms'] / k['cat_ms']:.4f}), expand copy "
                   f"{k['library_ms']:.4f} ms, the pull gather "
+                  f"{k['pull_ms']:.4f} ms (push / pull "
+                  f"{k['ms'] / k['pull_ms']:.4f})")
+        if k["name"] == "peer_all_to_all":
+            print(f"{k['name']}: the pull in each rank's order "
                   f"{k['pull_ms']:.4f} ms (push / pull "
                   f"{k['ms'] / k['pull_ms']:.4f})")
         if "tiled_ms" in k:

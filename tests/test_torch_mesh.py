@@ -605,8 +605,9 @@ def _threaded_barrier(cond):
     return barrier
 
 
-#: the steps whose gathers push on the card
-PUSH_OPS = ("pl_allreduce", "pl_all_gather", "pl_all_gather_bidir")
+#: the steps whose gathers (or all-to-all) push on the card
+PUSH_OPS = ("pl_allreduce", "pl_all_gather", "pl_all_gather_bidir",
+            "pl_all_to_all")
 
 
 def _steps_in_threads(op, n, monkeypatch, steps=3, fresh=False):
@@ -631,10 +632,10 @@ def _steps_in_threads(op, n, monkeypatch, steps=3, fresh=False):
     pushed = []
     for name in ("peer_copy", "peer_all_to_all", "peer_all_gather",
                  "peer_all_gather_bidir", "peer_reduce_scatter",
-                 "peer_all_gather_push"):
+                 "peer_all_gather_push", "peer_all_to_all_push"):
         def paused(*a, _fn=getattr(tpr, name), _name=name, **k):
             time.sleep(random.random() * 2e-3)
-            if _name == "peer_all_gather_push":
+            if _name in ("peer_all_gather_push", "peer_all_to_all_push"):
                 pushed.append(a[2])
             return _fn(*a, **k)
 
@@ -683,8 +684,9 @@ def test_card_steps_match_the_sim_chain_with_ranks_in_threads(op, n,
     # three chained steps with random pauses around every data launch:
     # the barriers alone order the ranks, so a missing one shows as a
     # mismatch with the sim world's chain (exactly, float32); the gathers
-    # of pl_allreduce and the two all-gathers push through the push's
-    # plain version, which writes into the other ranks' buffers
+    # of pl_allreduce and the two all-gathers, and the all-to-all, push
+    # through the push's plain version, which writes into the other
+    # ranks' buffers (as the pingpong's legs do through peer_copy)
     got, wants, pushed = _steps_in_threads(op, n, monkeypatch)
     assert torch.equal(got[-1], wants[-1])
     assert pushed == (set(range(n)) if op in PUSH_OPS else set())
@@ -719,3 +721,91 @@ def test_the_designs_tools_step_edits_match_the_sim_chain(op, tmp_path,
     for k, (g, want) in enumerate(zip(got, wants)):
         assert torch.equal(g, want), f"step {k}'s result changed"
     assert pushed == {0, 1}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("op", ["pl_all_to_all", "pl_pingpong"])
+def test_the_designs_tools_new_step_edits_match_the_sim_chain(op, n,
+                                                              monkeypatch):
+    # the all-to-all's and the pingpong's last execution pushed, with the
+    # step returning a copy (the designs tool's edits of pallas_ring.py),
+    # is the same chain, and each step's result outlives the later steps
+    import tempfile
+    from pathlib import Path
+
+    from tpu_perf_torch.tools import peer_designs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        edited = peer_designs.load_steps(
+            peer_designs.step_designs(Path(tmp))[op])
+    monkeypatch.setattr(sys.modules[__name__], "tpr", edited)
+    got, wants, pushed = _steps_in_threads(op, n, monkeypatch, steps=4,
+                                           fresh=True)
+    for k, (g, want) in enumerate(zip(got, wants)):
+        assert torch.equal(g, want), f"step {k}'s result changed"
+    assert pushed == (set(range(n)) if op == "pl_all_to_all" else set())
+
+
+@pytest.mark.parametrize("n", [2, 4, 6])
+def test_the_pingpong_step_pushes_both_legs(n, monkeypatch):
+    # on the card each leg stores into the partner's memory: group 0
+    # copies its input into group 1's stage, group 1 its stage into group
+    # 0's input buffer and its own input into its output; only group 0's
+    # last leg 2 pulls, into a new tensor.  Each copy is named by the
+    # rank that launched it (the rank of the thread's last barrier) and
+    # the ranks whose memory holds its source and destination
+    import threading
+
+    module = sys.modules[__name__]
+    local, regions, copies = threading.local(), [], []
+    make_barrier, copy = module._threaded_barrier, tpr.peer_copy
+
+    def recording_barrier(cond):
+        inner = make_barrier(cond)
+
+        def barrier(pads, generation, rank, **kw):
+            local.rank = rank
+            return inner(pads, generation, rank, **kw)
+        return barrier
+
+    class Recorded(module._CpuRegions):
+        def __init__(self, n):
+            super().__init__(n)
+            regions.append(self)
+
+    def owner(ptr):
+        # the rank whose memory holds ptr; -1 for a new tensor
+        for reg in regions:
+            for per_rank in reg.sets:
+                for s, region in enumerate(per_rank):
+                    if 0 <= ptr - region.data_ptr() < region.numel():
+                        return s
+        return -1
+
+    def logged(name, src, *, out=None):
+        copies.append((local.rank, owner(src.data_ptr()),
+                       owner(out.data_ptr())))
+        return copy(name, src, out=out)
+
+    monkeypatch.setattr(module, "_threaded_barrier", recording_barrier)
+    monkeypatch.setattr(module, "_CpuRegions", Recorded)
+    monkeypatch.setattr(tpr, "peer_copy", logged)
+    steps, half = 2, n // 2
+    got, wants, _ = _steps_in_threads("pl_pingpong", n, monkeypatch,
+                                      steps=steps)
+    assert torch.equal(got[-1], wants[-1])
+    partner = {r: (r + half) % n for r in range(n)}
+    pushes = [c for c in copies if c[1] == c[0] and c[2] == partner[c[0]]]
+    pulls = [c for c in copies if c[1] != c[0]]
+    local_copies = [c for c in copies if c[1] == c[0] and c[2] in (c[0], -1)]
+    # -i 3 a step: group 0 pushes 3 legs and pulls the last leg 2; group 1
+    # pushes 2 legs and copies its own input 3 times
+    assert sorted(pushes) == sorted(
+        (r, r, partner[r]) for r in range(n)
+        for _ in range(steps * (3 if r < half else 2)))
+    assert sorted(pulls) == sorted((r, partner[r], -1)
+                                   for r in range(half) for _ in range(steps))
+    assert sorted(local_copies) == sorted(
+        (r, r, -1 if k == 2 else r) for r in range(half, n)
+        for k in range(3) for _ in range(steps))
+    assert len(copies) == len(pushes) + len(pulls) + len(local_copies)

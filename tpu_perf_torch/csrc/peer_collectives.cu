@@ -32,15 +32,17 @@
 //                 kernel's and to JAX's.
 //   peer_gather:  out_s[d*chunk : (d+1)*chunk] = own for every rank s
 //                 (push: the rank stores its own chunk into its slot of
-//                 every rank's output, as the TPU kernels send theirs), or
-//                 out[s*chunk : (s+1)*chunk] = parts[s][0 : chunk] for
-//                 every rank s (pull: the all-to-all, and a gather into a
-//                 tensor no peer can reach).  In the half-chunk mode the
-//                 first halves go clockwise (push to d+k, pull from d-k)
-//                 and the second counter-clockwise; the output is the
-//                 same.
-//   peer_copy:    dst = src, one peer's buffer (or the rank's own) pulled
-//                 into the rank's own.
+//                 every rank's output, as the TPU kernels send theirs; the
+//                 all-to-all's push stores chunk s of its input there,
+//                 own[s*chunk : (s+1)*chunk]), or out[s*chunk : (s+1)*chunk]
+//                 = parts[s][0 : chunk] for every rank s (pull: a gather
+//                 or an all-to-all into a tensor no peer can reach).  In
+//                 the half-chunk mode the first halves go clockwise (push
+//                 to d+k, pull from d-k) and the second counter-clockwise;
+//                 the output is the same.
+//   peer_copy:    dst = src: a peer's buffer (or the rank's own) pulled
+//                 into the rank's own, or the rank's own pushed into a
+//                 peer's (the pingpong's legs).
 //   peer_barrier: the rank signals slot d of the pad of every rank of its
 //                 set with its barrier generation and waits until the
 //                 slot of each of them in its own pad holds it; then,
@@ -144,12 +146,29 @@
 // takes all_gather.cu's order: a source tile, then its n destinations,
 // so L2 serves the rereads; each rank starts at its own output (s = d, d
 // + 1, ...), so across cards no output takes every rank's first stores.
+// The all-to-all's push takes the same order, the TPU kernel's (its
+// transfers go to d + 1 + j, all started before any is awaited): at any
+// moment every card stores into every card, though each destination's
+// source tile is its own (chunk s), with no L2 reuse.  The whole-chunk
+// pull starts at the rank's own part too and takes the sources fastest
+// (s = d, d + 1, ... for each tile), so every card's memory serves every
+// reader at once.  Across four cards at 256 MiB a rank the push took
+// 0.5605 ms (all_to_all_single 0.6806), the pull 0.6200-0.6280; the pull
+// in address order (s = 0, 1, ..., tile by tile: every rank read rank
+// 0's chunk first, one card's link serving n - 1 readers) 0.9576-0.9850,
+// and the pages fastest from s = d 0.9333-0.9577, the ranks drifting
+// out of step onto one source (4 x NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.across_cards and python -m tpu_perf_torch.tools.peer_designs
+// --parts a2a).  In the one-card loopback the address order was the
+// faster pull (1.15 against 1.49 ms for the gather at 8 x 256 MiB): there
+// the ranks read one tile at once from L2.
 // At 8 x 256 MiB in the one-card loopback the push takes 0.874-0.875 ms
 // (82% of the gather's bound; the sim gather 0.846-0.853), torch.cat of
 // the chunks on every rank's stream 1.447-1.462 and the expand copy
-// 1.707-1.726; the pull on the same tiles 1.149-1.158, as a grid-stride
-// loop 1.46-1.48 (each rank reads all n chunks: n * n in the loopback)
-// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py).
+// 1.707-1.726; the pull on the same tiles 1.149-1.158 in address order,
+// 1.49 staggered, as a grid-stride loop 1.46-1.48 (each rank reads all n
+// chunks: n * n in the loopback) (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -333,18 +352,22 @@ peer_reduce_elems(const T* const* __restrict__ parts, T* __restrict__ out,
 // ragged).  Ring step k of half h names rank s: in push mode s = rank + k
 // for h == 0 (clockwise) and rank - k for h == 1 (counter-clockwise), mod
 // n; in pull mode the other way round, s = rank - k and rank + k, and s =
-// k when halves == 1 (the output in address order).
+// rank + k when halves == 1.
 //   push: tile u = (p, h, k), k fastest: tile p of half h of this rank's
-//     own part is stored into slot `rank` of rank s's output, table[s]
-//     (its base).  The n stores of one source tile run side by side, so
-//     the first reads it from device memory and the others find it in L2.
-//   pull: tile u = (k, h, p), p fastest: tile p of half h of table[s] is
+//     part for rank s, own + s * stride (stride 0: the own chunk, every
+//     time; the all-to-all's `words`: chunk s of its input), is stored
+//     into slot `rank` of rank s's output, table[s] (its base).  In the
+//     gather the n stores of one source tile run side by side, so the
+//     first reads it from device memory and the others find it in L2.
+//   pull, halves == 1: tile u = (p, k), k fastest: tile p of table[s] is
 //     stored into slot s of out.
+//   pull, halves == 2: tile u = (k, h, p), p fastest: tile p of half h of
+//     table[s] is stored into slot s of out.
 template <typename W>
 __global__ void __launch_bounds__(kThreads)
 peer_gather(W* const* __restrict__ table, const W* __restrict__ own,
             W* __restrict__ out, unsigned int* counters, int n, int rank,
-            long long words, int halves, int push) {
+            long long words, int halves, int push, long long stride) {
   __shared__ W* ptrs[kMaxRanks];
   for (int k = threadIdx.x; k < n; k += blockDim.x) ptrs[k] = table[k];
   __syncthreads();
@@ -352,10 +375,12 @@ peer_gather(W* const* __restrict__ table, const W* __restrict__ own,
   const long long len = words / halves;
   const unsigned int per_half = (unsigned int)((len + tile - 1) / tile);
   const unsigned int un = (unsigned int)n;
+  // the ranks fastest: every card reaches every card at once
+  const bool ranks_fastest = push || halves == 1;
   row_copy::for_each_tile(
       counters, un * (unsigned int)halves * per_half, [&](unsigned int u) {
         unsigned int k, q, p;
-        if (push) {
+        if (ranks_fastest) {
           k = u % un;
           q = u / un;
         } else {
@@ -364,7 +389,7 @@ peer_gather(W* const* __restrict__ table, const W* __restrict__ own,
         }
         const int h = (int)(q % (unsigned int)halves);
         q /= (unsigned int)halves;
-        if (push) {
+        if (ranks_fastest) {
           p = q;
         } else {
           k = q;
@@ -375,10 +400,10 @@ peer_gather(W* const* __restrict__ table, const W* __restrict__ own,
         const long long t0 = (long long)p * tile;
         if (push) {
           const int s = h == 0 ? ahead : behind;
-          row_copy::copy_tile<true>(own + at, ptrs[s] + rank * words + at,
-                                    len, t0);
+          row_copy::copy_tile<true>(own + s * stride + at,
+                                    ptrs[s] + rank * words + at, len, t0);
         } else {
-          const int s = halves == 1 ? (int)k : (h == 0 ? behind : ahead);
+          const int s = halves == 1 ? ahead : (h == 0 ? behind : ahead);
           row_copy::copy_tile<true>(ptrs[s] + at, out + s * words + at, len,
                                     t0);
         }
@@ -517,7 +542,7 @@ int launch_reduce(const void* table, void* out, void* counters, int n,
 template <typename W>
 int launch_gather(const void* table, const void* own, void* out,
                   void* counters, int n, int rank, long long chunk_bytes,
-                  int halves, int push, cudaStream_t stream) {
+                  int halves, int push, int scatter, cudaStream_t stream) {
   static int resident_cache[row_copy::kMaxDevices] = {0};
   constexpr long long tile = row_copy::kTileWords<W>;
   const long long words = chunk_bytes / (long long)sizeof(W);
@@ -529,7 +554,8 @@ int launch_gather(const void* table, const void* own, void* out,
   peer_gather<W><<<grid, kThreads, 0, stream>>>(
       static_cast<W* const*>(const_cast<void*>(table)),
       static_cast<const W*>(own), static_cast<W*>(out),
-      static_cast<unsigned int*>(counters), n, rank, words, halves, push);
+      static_cast<unsigned int*>(counters), n, rank, words, halves, push,
+      scatter ? words : 0);
   return (int)cudaGetLastError();
 }
 
@@ -553,10 +579,12 @@ bool is_word(int word) {
   return word == 16 || word == 4 || word == 2 || word == 1;
 }
 
-// One gather launch in the word `word`, after the entries' common checks.
+// One gather launch in the word `word`, after the entries' common checks;
+// `scatter` (a push) stores chunk s of own into rank s's output.
 int gather_by_word(const void* table, const void* own, void* out,
                    void* counters, int n, int rank, long long chunk_bytes,
-                   int halves, int word, int push, void* stream) {
+                   int halves, int word, int push, int scatter,
+                   void* stream) {
   if (n < 1 || n > kMaxRanks || rank < 0 || rank >= n ||
       (halves != 1 && halves != 2) || !is_word(word) || chunk_bytes < 0 ||
       chunk_bytes % ((long long)halves * word)) {
@@ -565,10 +593,10 @@ int gather_by_word(const void* table, const void* own, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long b = chunk_bytes;
   switch (word) {
-    case 16: return launch_gather<uint4>(table, own, out, counters, n, rank, b, halves, push, s);
-    case 4: return launch_gather<uint32_t>(table, own, out, counters, n, rank, b, halves, push, s);
-    case 2: return launch_gather<uint16_t>(table, own, out, counters, n, rank, b, halves, push, s);
-    default: return launch_gather<uint8_t>(table, own, out, counters, n, rank, b, halves, push, s);
+    case 16: return launch_gather<uint4>(table, own, out, counters, n, rank, b, halves, push, scatter, s);
+    case 4: return launch_gather<uint32_t>(table, own, out, counters, n, rank, b, halves, push, scatter, s);
+    case 2: return launch_gather<uint16_t>(table, own, out, counters, n, rank, b, halves, push, scatter, s);
+    default: return launch_gather<uint8_t>(table, own, out, counters, n, rank, b, halves, push, scatter, s);
   }
 }
 
@@ -614,21 +642,36 @@ extern "C" int peer_gather_push(const void* own, const void* table,
                                 long long chunk_bytes, int halves, int word,
                                 void* stream) {
   return gather_by_word(table, own, nullptr, counters, n, rank, chunk_bytes,
-                        halves, word, 1, stream);
+                        halves, word, 1, 0, stream);
 }
 
-// Rank `rank`'s pull gather (the all-to-all, and the gathers into a
-// tensor no peer can reach): `table` is a device array of n pointers,
-// entry s at the part rank s gives this rank (its owned chunk, or its
-// chunk `rank`), chunk_bytes each, pulled into out[s * chunk_bytes ...];
-// halves 2 pulls the first halves from rank - k and the second from rank
-// + k.  word divides every pointer, out and chunk_bytes / halves; counters
-// as peer_gather_push's.
+// Rank `rank`'s push all-to-all: chunk s of its input `own` (n chunks of
+// chunk_bytes) is stored into bytes [rank * chunk_bytes, (rank + 1) *
+// chunk_bytes) of rank s's output, for every s; `table` is a device array
+// of the n outputs' bases.  word (16, 4, 2 or 1) divides own, every
+// destination slot and chunk_bytes; counters as peer_gather_push's.  A
+// rank's output is whole once every rank's push is done: the caller's
+// next barrier.
+extern "C" int peer_all_to_all_push(const void* own, const void* table,
+                                    void* counters, int n, int rank,
+                                    long long chunk_bytes, int word,
+                                    void* stream) {
+  return gather_by_word(table, own, nullptr, counters, n, rank, chunk_bytes,
+                        1, word, 1, 1, stream);
+}
+
+// Rank `rank`'s pull gather (a gather or an all-to-all into a tensor no
+// peer can reach): `table` is a device array of n pointers, entry s at
+// the part rank s gives this rank (its owned chunk, or its chunk `rank`),
+// chunk_bytes each, pulled into out[s * chunk_bytes ...], the sources
+// taken from rank + k; halves 2 pulls the first halves from rank - k and
+// the second from rank + k.  word divides every pointer, out and
+// chunk_bytes / halves; counters as peer_gather_push's.
 extern "C" int peer_gather_pull(const void* table, void* out, void* counters,
                                 int n, int rank, long long chunk_bytes,
                                 int halves, int word, void* stream) {
   return gather_by_word(table, nullptr, out, counters, n, rank, chunk_bytes,
-                        halves, word, 0, stream);
+                        halves, word, 0, 0, stream);
 }
 
 // dst = src, nbytes; word (16, 4, 2 or 1) divides both pointers and nbytes;

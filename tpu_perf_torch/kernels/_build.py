@@ -82,6 +82,10 @@ _EXTRA_ENTRIES = {
     ("peer_collectives", "peer_copy"): [_P, _P, _P, _L, _I, _P],
     ("peer_collectives", "peer_barrier"): [_P, _P, _I, _I, _I, _P, _P, _L,
                                            _P],
+    # the all-to-all's push: (own, table, counters, n, rank, chunk_bytes,
+    # word, stream)
+    ("peer_collectives", "peer_all_to_all_push"): [_P, _P, _P, _I, _I, _L,
+                                                   _I, _P],
     # (&ctas): the barrier CTAs the card holds at once
     ("peer_collectives", "peer_barrier_capacity"): [ctypes.POINTER(_I)],
     # a rank's symmetric allocation and its IPC handle: (bytes, &ptr),

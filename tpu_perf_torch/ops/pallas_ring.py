@@ -738,8 +738,8 @@ def _check_out(name: str, out: torch.Tensor | None, numel: int,
     if out is None:
         return torch.empty(numel, dtype=dtype, device=device)
     _check_cuda(name, out)
-    if out.numel() != numel or out.dtype != dtype:
-        raise ValueError(f"{name}: out {tuple(out.shape)} {out.dtype} for "
+    if _numel(out) != numel or out.dtype != dtype:
+        raise ValueError(f"{name}: out of {_numel(out)} {out.dtype} for "
                          f"{numel} elements of {dtype}")
     return out
 
@@ -805,18 +805,35 @@ def peer_reduce_scatter(parts, rank: int, *, scale: float = 1.0,
     return out
 
 
-def peer_all_gather_plain(parts: list[torch.Tensor]) -> torch.Tensor:
-    """The peer all-gather in plain PyTorch: the n owned chunks in rank
-    order."""
-    kernels.PLAIN_CALLS["peer_all_gather"] += 1
-    return torch.cat(list(parts))
+def pull_order(n: int, rank: int) -> list[int]:
+    """The ranks a whole-chunk pull of rank ``rank`` reads, in the order
+    it takes each tile: its own part first, then ``rank + 1``, ``rank +
+    2``, ... (mod n), so that across cards the n ranks start at n
+    different sources."""
+    return [(rank + k) % n for k in range(n)]
 
 
-def peer_all_to_all_plain(parts: list[torch.Tensor]) -> torch.Tensor:
+def _pull_plain(name: str, parts: list[torch.Tensor],
+                rank: int) -> torch.Tensor:
+    # the parts read in pull_order, stored in rank order
+    kernels.PLAIN_CALLS[name] += 1
+    read = {s: parts[s] for s in pull_order(len(parts), rank)}
+    return torch.cat([read[s] for s in range(len(parts))])
+
+
+def peer_all_gather_plain(parts: list[torch.Tensor],
+                          rank: int = 0) -> torch.Tensor:
+    """The peer all-gather in plain PyTorch: the n owned chunks, read in
+    :func:`pull_order` from rank ``rank``, in rank order (``torch.cat``)."""
+    return _pull_plain("peer_all_gather", parts, rank)
+
+
+def peer_all_to_all_plain(parts: list[torch.Tensor],
+                          rank: int = 0) -> torch.Tensor:
     """The peer all-to-all in plain PyTorch: ``parts[s]`` is rank s's chunk
-    for this rank; they land in rank order, ``out[s] = x_s[rank]``."""
-    kernels.PLAIN_CALLS["peer_all_to_all"] += 1
-    return torch.cat(list(parts))
+    for this rank, read in :func:`pull_order` from rank ``rank``; they
+    land in rank order, ``out[s] = x_s[rank]``."""
+    return _pull_plain("peer_all_to_all", parts, rank)
 
 
 def bidir_order(n: int, rank: int) -> list[tuple[int, int, int]]:
@@ -856,52 +873,54 @@ def peer_all_gather_bidir_plain(parts: list[torch.Tensor],
 
 
 def _launch_gather(name: str, parts, out: torch.Tensor | None, chunk: int,
-                   rank: int | None = None) -> torch.Tensor:
-    # one launch of the pull gather: whole parts in rank order, or (rank
-    # given) half-chunks in both ring directions from rank
+                   rank: int, halves: int = 1) -> torch.Tensor:
+    # one launch of the pull gather: whole parts from rank + k (sources
+    # fastest), or half-chunks in both ring directions from rank
     n, dtype = len(parts), parts[0].dtype
     out = _check_out(name, out, n * chunk, dtype, parts[0].device)
-    halves = 1 if rank is None else 2
     nbytes = chunk * dtype.itemsize
     word = _widest_word(nbytes // halves, out.data_ptr(),
                         *(p.data_ptr() for p in parts))
     counters = row_copy_counters("peer_gather", out.device)
     err = _build.entry("peer_collectives", "peer_gather_pull")(
         _table_ptr(name, parts), out.data_ptr(), counters.data_ptr(), n,
-        rank or 0, nbytes, halves, word, _stream_of(out))
+        rank, nbytes, halves, word, _stream_of(out))
     _build.check(name, err)
     kernels.LAUNCHES[name] += 1
     return out
 
 
-def peer_all_gather(parts, *, out: torch.Tensor | None = None
-                    ) -> torch.Tensor:
-    """A rank's pull all-gather: ``parts[s]`` is rank s's owned chunk;
-    returns (into ``out`` when given, which no peer need reach) the n
-    chunks in rank order, ``(n*chunk,)``.  One launch that pulls every
-    peer's chunk into this rank's output, its 8 KB tiles in output order
-    from the card's ``peer_gather`` counters; on the card ``parts`` is a
+def peer_all_gather(parts, rank: int = 0, *,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """Rank ``rank``'s pull all-gather: ``parts[s]`` is rank s's owned
+    chunk; returns (into ``out`` when given, which no peer need reach) the
+    n chunks in rank order, ``(n*chunk,)``.  One launch that pulls every
+    peer's chunk into this rank's output, its 8 KB tiles drawn in order
+    from the card's ``peer_gather`` counters, each tile of the n sources
+    side by side in :func:`pull_order`; on the card ``parts`` is a
     :class:`PeerParts`.  :func:`peer_all_gather_push` is the same gather
     with each rank reading only its own chunk."""
-    chunk = _check_parts("peer_all_gather", parts)
+    chunk = _check_parts("peer_all_gather", parts, rank)
     if parts[0].device.type == "cpu":
-        got = peer_all_gather_plain(parts)
+        got = peer_all_gather_plain(parts, rank)
         return got if out is None else out.copy_(got)
-    return _launch_gather("peer_all_gather", parts, out, chunk)
+    return _launch_gather("peer_all_gather", parts, out, chunk, rank)
 
 
-def peer_all_to_all(parts, *, out: torch.Tensor | None = None
-                    ) -> torch.Tensor:
-    """A rank's all-to-all: ``parts[s]`` is rank s's chunk for this rank
-    (chunk ``rank`` of its input); returns (into ``out`` when given) the n
-    chunks in rank order, ``out[s] = x_s[rank]``.  The pull gather's one
-    launch over this table (a push would move the same bytes); on the
-    card ``parts`` is a :class:`PeerParts`."""
-    chunk = _check_parts("peer_all_to_all", parts)
+def peer_all_to_all(parts, rank: int = 0, *,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """Rank ``rank``'s pull all-to-all: ``parts[s]`` is rank s's chunk for
+    this rank (chunk ``rank`` of its input); returns (into ``out`` when
+    given, which no peer need reach) the n chunks in rank order, ``out[s]
+    = x_s[rank]``.  The pull gather's one launch over this table, in
+    :func:`pull_order`; on the card ``parts`` is a :class:`PeerParts`.
+    :func:`peer_all_to_all_push` is the same function with each rank
+    storing into its peers' outputs."""
+    chunk = _check_parts("peer_all_to_all", parts, rank)
     if parts[0].device.type == "cpu":
-        got = peer_all_to_all_plain(parts)
+        got = peer_all_to_all_plain(parts, rank)
         return got if out is None else out.copy_(got)
-    return _launch_gather("peer_all_to_all", parts, out, chunk)
+    return _launch_gather("peer_all_to_all", parts, out, chunk, rank)
 
 
 def peer_all_gather_bidir(parts, rank: int, *,
@@ -920,7 +939,8 @@ def peer_all_gather_bidir(parts, rank: int, *,
     if parts[0].device.type == "cpu":
         got = peer_all_gather_bidir_plain(parts, rank)
         return got if out is None else out.copy_(got)
-    return _launch_gather("peer_all_gather_bidir", parts, out, chunk, rank)
+    return _launch_gather("peer_all_gather_bidir", parts, out, chunk, rank,
+                          halves=2)
 
 
 def peer_all_gather_push_plain(own: torch.Tensor, outs: list[torch.Tensor],
@@ -935,6 +955,19 @@ def peer_all_gather_push_plain(own: torch.Tensor, outs: list[torch.Tensor],
     for _, h, s in push_order(len(outs), rank, bidir):
         lo = rank * chunk + h * width
         outs[s][lo:lo + width] = own[h * width:(h + 1) * width]
+
+
+def _check_push(name: str, own: torch.Tensor, outs, rank: int,
+                chunk: int) -> None:
+    # n outputs of n chunks, this rank among them, own of the outputs'
+    # dtype and card
+    n = len(outs)
+    size = _check_parts(name, outs, rank)
+    if size != n * chunk or own.dtype != outs[0].dtype or \
+            own.device != outs[0].device:
+        raise ValueError(f"{name}: {own.numel()} elements of {own.dtype} on "
+                         f"{own.device} into {n} outputs of {size} "
+                         f"{outs[0].dtype} on {outs[0].device}")
 
 
 def peer_all_gather_push(own: torch.Tensor, outs, rank: int, *,
@@ -953,13 +986,8 @@ def peer_all_gather_push(own: torch.Tensor, outs, rank: int, *,
     rank has pushed: the caller's next barrier gives that."""
     name = "peer_all_gather_bidir" if bidir else "peer_all_gather"
     n = len(outs)
-    size = _check_parts(name, outs, rank)
     chunk = own.numel()
-    if size != n * chunk or own.dtype != outs[0].dtype or \
-            own.device != outs[0].device:
-        raise ValueError(f"{name}: {chunk} elements of {own.dtype} on "
-                         f"{own.device} into {n} outputs of {size} "
-                         f"{outs[0].dtype} on {outs[0].device}")
+    _check_push(name, own, outs, rank, chunk)
     if bidir and chunk % 2:
         raise ValueError(f"{name} splits chunks in half, got {chunk} "
                          "elements")
@@ -979,7 +1007,53 @@ def peer_all_gather_push(own: torch.Tensor, outs, rank: int, *,
     kernels.LAUNCHES[name] += 1
 
 
-#: the ops whose peer form pulls a whole buffer with peer_copy, each
+def peer_all_to_all_push_plain(own: torch.Tensor, outs: list[torch.Tensor],
+                               rank: int) -> None:
+    """The all-to-all's push in plain PyTorch: chunk s of ``own`` into
+    slot ``rank`` of each destination ``outs[s]``, in :func:`push_order`;
+    no other element of any destination is written."""
+    kernels.PLAIN_CALLS["peer_all_to_all"] += 1
+    chunk = own.numel() // len(outs)
+    for _, _, s in push_order(len(outs), rank):
+        outs[s][rank * chunk:(rank + 1) * chunk] = own[s * chunk:
+                                                       (s + 1) * chunk]
+
+
+def peer_all_to_all_push(own: torch.Tensor, outs, rank: int) -> None:
+    """Rank ``rank``'s push all-to-all, the TPU kernel's schedule: stores
+    chunk s of its input ``own`` (``(n*chunk,)``) into slot ``rank``
+    (elements ``[rank*chunk, (rank+1)*chunk)``) of rank s's output
+    ``outs[s]`` (``(n*chunk,)``: this rank's a tensor, a peer's a
+    :class:`RemoteBuffer`; on the card a :class:`PeerParts`), so that
+    ``outs[s][r] = x_r[s]`` once every rank has pushed: the caller's next
+    barrier gives that.  One launch, counted as ``peer_all_to_all``, its 8
+    KB tiles drawn in order from the card's ``peer_gather`` counters, the
+    destinations fastest in :func:`push_order` (every card stores into
+    every card at once, as the TPU kernel starts all its transfers), in
+    the widest word dividing ``own``, every slot and the chunk's bytes."""
+    name = "peer_all_to_all"
+    n = len(outs)
+    if own.numel() % n:
+        raise ValueError(f"{name}: {own.numel()} elements are not {n} "
+                         "chunks")
+    chunk = own.numel() // n
+    _check_push(name, own, outs, rank, chunk)
+    if own.device.type == "cpu":
+        peer_all_to_all_push_plain(own, outs, rank)
+        return
+    _check_cuda(name, own)
+    nbytes = chunk * own.element_size()
+    word = _widest_word(nbytes, own.data_ptr(),
+                        *(o.data_ptr() + rank * nbytes for o in outs))
+    counters = row_copy_counters("peer_gather", own.device)
+    err = _build.entry("peer_collectives", "peer_all_to_all_push")(
+        own.data_ptr(), _table_ptr(name, outs), counters.data_ptr(), n, rank,
+        nbytes, word, _stream_of(own))
+    _build.check(name, err)
+    kernels.LAUNCHES[name] += 1
+
+
+#: the ops whose peer form copies a whole buffer with peer_copy, each
 #: counted apart (one source, as ring and exchange share p2p_shift.cu)
 PEER_COPIES = ("peer_ring", "peer_exchange", "peer_pingpong")
 
@@ -996,9 +1070,11 @@ def peer_copy(name: str, src, *, out: torch.Tensor | None = None
     """``out = src`` for the op that ``name`` counts (one of
     :data:`PEER_COPIES`): ``src`` is a peer's buffer (a
     :class:`RemoteBuffer`) or this rank's own tensor, ``out`` this rank's
-    (a new tensor when not given).  One launch that pulls it in the widest
-    word dividing both addresses and the length, its 8 KB tiles drawn in
-    order from the card's ``peer_copy`` counters; it never waits."""
+    (a new tensor when not given) or, for a push, a peer's.  One launch
+    that copies it in the widest word dividing both addresses and the
+    length, its 8 KB tiles drawn in order from the card's ``peer_copy``
+    counters; it never waits.  A pushed copy is whole in the peer's
+    buffer once the caller's next barrier has passed."""
     if name not in PEER_COPIES:
         raise ValueError(f"peer_copy counts one of {PEER_COPIES}, got {name!r}")
     if src.device.type == "cpu":
@@ -1010,7 +1086,7 @@ def peer_copy(name: str, src, *, out: torch.Tensor | None = None
     counters = row_copy_counters("peer_copy", out.device)
     err = _build.entry("peer_collectives", "peer_copy")(
         src.data_ptr(), out.data_ptr(), counters.data_ptr(), nbytes, word,
-        _stream_of(out))
+        _stream_of(src if isinstance(out, RemoteBuffer) else out))
     _build.check(name, err)
     kernels.LAUNCHES[name] += 1
     return out
@@ -1262,12 +1338,14 @@ def _dist_allreduce_step(world: DistWorld, elems: int, chunk: int,
     chunk d of every rank's input buffer j%2 into its mid, meets every
     rank again, and pushes its mid into slot d (chunk d) of every rank's
     input buffer 1-j%2; the last execution pulls the mids into a new
-    tensor instead.  Pulling there beat pushing and returning a copy of
-    the whole output after the last barrier: 1.978-1.983 ms an execution
-    at -i 5 against 2.210-2.212, 8 ranks x 256 MiB in the one-card
-    loopback (NVIDIA H100 80GB HBM3, 700 W; ``python -m
-    tpu_perf_torch.tools.peer_designs --parts steps``, which times the
-    other way as an edit of this source).
+    tensor instead, its sources from rank d on (:func:`pull_order`).
+    Pulling there beat pushing and returning a copy of the whole output
+    after the last barrier: 1.2357-1.2461 ms an execution at -i 5 against
+    1.2617-1.2647 across four cards at 256 MiB a rank, 2.0550-2.0555
+    against 2.2167-2.2171 in the one-card loopback of 8 ranks (NVIDIA H100
+    80GB HBM3, 700 W; ``python -m tpu_perf_torch.tools.peer_designs
+    --parts steps``, which times the other way as an edit of this
+    source).
 
     Hazards on the card.  Slot d of every rank's input buffers is written
     by rank d's pushes, and by each rank's copy-in, which fills its own
@@ -1299,7 +1377,7 @@ def _dist_allreduce_step(world: DistWorld, elems: int, chunk: int,
             else:
                 owned = torch.empty(n, chunk, dtype=tdtype)
                 _all_gather_tensor(owned.view(-1), mine, group=world.group)
-            return peer_all_gather(list(owned))
+            return peer_all_gather(list(owned), rank)
 
         return _chain(execution, iters)
 
@@ -1313,7 +1391,8 @@ def _dist_allreduce_step(world: DistWorld, elems: int, chunk: int,
         peer_reduce_scatter(reads[cur], rank, scale=inv, out=mids[rank])
         peer_barrier(buffers.pads, buffers.generation, rank)
         if final:
-            return peer_all_gather(mids, out=_fresh(world, elems, tdtype))
+            return peer_all_gather(mids, rank, out=_fresh(world, elems,
+                                                          tdtype))
         peer_all_gather_push(mids[rank], outs[1 - cur], rank)
         return ins[1 - cur][rank]
 
@@ -1397,30 +1476,40 @@ def _dist_shift_step(op: str, world: DistWorld, elems: int, iters: int,
 def _dist_pingpong_step(world: DistWorld, elems: int, iters: int,
                         tdtype: torch.dtype) -> Callable:
     """``pl_pingpong`` on one rank: the round trip between partners d and
-    d+n/2 as two serial legs, each a pull, so that no data kernel waits.
-    Per execution: a pair barrier; group 1 (d >= n/2) pulls its partner's
-    input into its stage (leg 1) and copies its own input into its output
-    (the TPU kernel's local copy); a pair barrier; group 0 pulls its
-    partner's stage into its output (leg 2).  The op is the identity on
-    both groups.  Launches an execution: two barriers, and one copy in
-    group 0, two in group 1; a step adds its last barrier.
+    d+n/2 as two serial legs, each a push, the TPU kernel's schedule, so
+    that no data kernel waits.  Per execution: a pair barrier; group 0 (d
+    < n/2) pushes its input into group 1's stage (leg 1) while group 1
+    copies its own input into its output (the TPU kernel's local copy,
+    under leg 1); a pair barrier; group 1 pushes its stage into group 0's
+    output (leg 2).  The last execution's leg 2 is group 0's pull of the
+    stage into a new tensor instead.  The op is the identity on both
+    groups.  Launches an execution: two pair barriers, one copy in group 0
+    (two at the last execution) and two in group 1 (one at the last); a
+    step adds its last barrier.  Across four cards at 256 MiB a rank an
+    execution took 1.4478-1.4481 ms, where pulled legs took 1.6228-1.6236
+    with the local copy (0.18 alone) in series and 1.5135-1.5139 with it
+    under leg 2; the last pull beat pushing leg 2 and returning a copy,
+    1.4845-1.4853 ms an execution at -i 5 against 1.5212-1.5225 (NVIDIA
+    H100 80GB HBM3, 700 W; ``python -m tpu_perf_torch.tools.peer_designs
+    --parts pingpong,steps``).
 
-    Hazards on the card.  Partners read only each other's buffers: group
-    1 group 0's input, group 0 group 1's stage.  Leg 1 of execution j reads
-    group 0's input buffer j%2, written (copy-in, or leg 2 of j-1) before
-    group 0 signalled the first barrier of j, and overwrites group 1's
-    stage, which group 0 last read in leg 2 of j-1, also before that
-    signal.  Leg 2 reads the stage after the second barrier, which group 1
-    signals after leg 1.  Group 0's output, its input buffer 1-j%2, was
-    last read by leg 1 of j-1, before group 1 signalled the second barrier
-    of j-1, and is next read by leg 1 of j+1.  Across steps the buffers
-    alone would need no last barrier, but the step's end does: group 1
-    leaves the last execution at its second barrier while group 0's leg 2
-    still reads group 1's stage, so a rank that drops the step (and with
-    it the buffers) before the last barrier would free memory a partner
-    still reads.  The last pair barrier, as every other reading op's,
-    keeps each rank in the step until its partner's last read is done.
-    On the CPU each leg is a ``batch_isend_irecv`` and the plain version
+    Hazards on the card.  Group 0's input buffers are written by its
+    copy-in and by its partner's leg 2, and read by its own leg 1; group
+    1's stage is written by its partner's leg 1 and read by its own leg 2
+    and the partner's last pull; group 1's input buffers are its own
+    alone.  Leg 1 of execution j reads group 0's buffer j%2, which leg 2
+    of j-1 wrote before group 1 signalled the first barrier of j (or the
+    copy-in), and overwrites the stage, which group 1 last read in leg 2
+    of j-1, also before that signal.  Leg 2 reads the stage after the
+    second barrier, which group 0 signals after leg 1, and writes group
+    0's buffer 1-j%2, which group 0 last read in leg 1 of j-1, before it
+    signalled the first barrier of j; group 0 reads it next in leg 1 of
+    j+1, after the first barrier of j+1, which group 1 signals after leg
+    2.  The last pull reads the stage after the second barrier; the step's
+    last pair barrier, which group 0 signals after that pull, keeps group
+    1 in the step (and its stage alive) until the read is done, and the
+    next step's leg 1 comes after group 0's pull in its own stream.  On
+    the CPU each leg is a ``batch_isend_irecv`` and the plain version
     copies what it brings."""
     from tpu_perf_torch.ops.collectives import _ppermute
     from tpu_perf_torch.topology import one_way_permutation
@@ -1446,13 +1535,16 @@ def _dist_pingpong_step(world: DistWorld, elems: int, iters: int,
     ins, stage = [buffers["in0"], buffers["in1"]], buffers["stage"]
     partner = (rank + n // 2) % n
 
-    def execution(cur, last):
-        out = _fresh(world, elems, tdtype) if last else ins[1 - cur][rank]
+    def execution(cur, final):
+        out = _fresh(world, elems, tdtype) if final else ins[1 - cur][rank]
         if group1:
-            peer_copy("peer_pingpong", ins[cur][partner], out=stage[rank])
             peer_copy("peer_pingpong", ins[cur][rank], out=out)
+        else:
+            peer_copy("peer_pingpong", ins[cur][rank], out=stage[partner])
         peer_barrier(buffers.pads, buffers.generation, rank, peers="pair")
-        if not group1:
+        if group1 and not final:
+            peer_copy("peer_pingpong", stage[rank], out=ins[1 - cur][partner])
+        elif not group1 and final:
             peer_copy("peer_pingpong", stage[partner], out=out)
         return out
 
@@ -1501,25 +1593,53 @@ def _dist_barrier_step(world: DistWorld, iters: int,
 
 def _dist_all_to_all_step(world: DistWorld, elems: int, chunk: int,
                           iters: int, tdtype: torch.dtype) -> Callable:
-    """``pl_all_to_all`` on one rank, ``out[s] = x_s[d]``: per execution
-    one ``peer_all_to_all``, the gather over the table of every rank's
-    chunk d of its input, after an all-rank barrier (the TPU kernel's
-    ``_global_barrier``).  Every rank reads every rank's input, so the
-    shift's argument holds with every rank as source and reader: a read
-    of buffer j%2 follows its write, and the write of buffer 1-j%2 its
-    last read, across barrier j; a last barrier closes the step.  On the
-    CPU ``all_to_all_single`` brings the n chunks."""
+    """``pl_all_to_all`` on one rank, ``out[s] = x_s[d]``: per execution,
+    after an all-rank barrier (the TPU kernel's ``_global_barrier``), one
+    ``peer_all_to_all_push``: rank d stores chunk s of its input buffer
+    j%2 into slot d of rank s's buffer 1-j%2, the destinations staggered
+    (s = d, d+1, ...), as the TPU kernel sends chunk s to device s.  The
+    last execution pulls chunk d of every rank's buffer j%2 into a new
+    tensor instead, its sources staggered the same way.  Across four
+    cards at 256 MiB a rank the push took 0.5605 ms a launch, the pull
+    0.6200-0.6280 (in address order, the PRs before, 0.9576-0.9850); at
+    the last execution the pull beat pushing and returning a copy:
+    0.6133-0.6148 ms an execution at -i 5 against 0.6389-0.6400, and
+    1.7666-1.7674 against 2.0508-2.0516 in the one-card loopback of 8
+    ranks (NVIDIA H100 80GB HBM3, 700 W; ``python -m
+    tpu_perf_torch.tools.peer_designs --parts a2a,steps``).
+
+    Hazards on the card.  Slot d of any rank's input buffers is written
+    only by rank d (its pushes) and by the buffer's own rank (its copy-in,
+    which fills its buffer 0 whole); rank s reads its own buffer (every
+    chunk, to push it on) and, at the last execution, chunk d of every
+    rank's.  A push of rank d at j reads its own buffer j%2, whose slot s
+    rank s pushed at j-1 before it signalled barrier j (or d's copy-in
+    wrote), and writes slot d of rank s's buffer 1-j%2, which rank s last
+    read at j-1 (its push, or nothing), before it signalled barrier j: d
+    passed barrier j only after both.  So the pushes of one execution
+    never touch what another rank reads, and a rank's output is whole at
+    the next barrier, which every rank signals after its push.  The last
+    pull reads buffer j%2 of every rank after barrier j; the step's last
+    barrier, which every puller signals after its pull, keeps the next
+    step's copy-in (buffer 0) and pushes (buffer 1, after the next step's
+    first barrier) off what it reads, and the step's result is a new
+    tensor, which no push reaches.  On the CPU ``all_to_all_single``
+    brings the n chunks and the pull's plain version stores them."""
     n, rank = world.n, world.rank
     if _gloo_path(world):
         return _chain(lambda x: peer_all_to_all(
-            list(_all_to_all_cpu(world, x, chunk))), iters)
+            list(_all_to_all_cpu(world, x, chunk)), rank), iters)
     buffers = _inputs(world, elems, tdtype)
     ins = [buffers["in0"], buffers["in1"]]
+    outs = [PeerParts(parts) for parts in ins]
     reads = _chunk_tables(ins, rank, chunk)
 
-    def execution(cur, last):
-        return peer_all_to_all(reads[cur], out=_fresh(world, elems, tdtype)
-                               if last else ins[1 - cur][rank])
+    def execution(cur, final):
+        if final:
+            return peer_all_to_all(reads[cur], rank,
+                                   out=_fresh(world, elems, tdtype))
+        peer_all_to_all_push(ins[cur][rank], outs[1 - cur], rank)
+        return ins[1 - cur][rank]
 
     return _peer_chain(buffers, rank, iters, "all", ins[0][rank].copy_,
                        execution)
@@ -1588,7 +1708,7 @@ def _dist_gather_step(op: str, world: DistWorld, chunk: int, iters: int,
 
     def gather(parts, out=None):
         if op == "pl_all_gather":
-            return peer_all_gather(parts, out=out)
+            return peer_all_gather(parts, rank, out=out)
         return peer_all_gather_bidir(parts, rank, out=out)
 
     if _gloo_path(world):

@@ -1,10 +1,19 @@
-"""Time the designs of the peer reduce-scatter and the peer barrier, and
-the gather steps' two last executions, on one card.
+"""Time the designs of the peer kernels and of the push steps' last
+executions, on one card or, under torchrun, across the cards of a host.
 
-Run from the repository root on a machine with an NVIDIA Hopper GPU::
+Run from the repository root on a machine with NVIDIA Hopper GPUs::
 
     python -m tpu_perf_torch.tools.peer_designs [--parts reduce,barrier,steps]
         [--reduce 1x4,2x2] [--tma 4096x2,8192x2] [--reps 10] [--rounds 3]
+    python -m tpu_perf_torch.tools.peer_designs --parts a2a,pingpong,steps
+    torchrun --nproc-per-node 4 -m tpu_perf_torch.tools.peer_designs \
+        --parts a2a,pingpong,steps
+
+On one card the ranks are a loopback (every rank's buffers its own
+allocations, every rank's launch on its own stream); under torchrun each
+process is a rank on card ``LOCAL_RANK`` of an NCCL world, its buffers
+opened by its peers through CUDA IPC, and only the parts a2a, pingpong
+and steps run.
 
 1. Writes each design's copy of ``csrc/peer_collectives.cu`` (with the
    shared headers) under ``tpu_perf_torch/_build/peer_designs/`` and
@@ -29,17 +38,31 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU::
    barriers of every variant, and of as many empty launches (the floor),
    all replayed together, in turns, ``--rounds`` times: the time a
    barrier; every variant's pads and generations must count its rounds.
-4. ``steps``: ``pl_allreduce`` and ``pl_all_gather`` at -i 5 in the
-   loopback of 8 ranks at 4 KiB and 256 MiB, each rank's step a CUDA
-   graph, as shipped and with the other way of the last execution (an
-   edit of ``ops/pallas_ring.py``, :data:`STEP_DESIGNS`: pulling into a
-   new tensor, or pushing and returning a copy), each output held to the
-   sim kernels' step first: the time an execution.
+4. ``steps``: ``pl_allreduce``, ``pl_all_gather``, ``pl_all_to_all``
+   and ``pl_pingpong`` at -i 5 (8 ranks in the loopback, the world's
+   ranks across cards) at 4 KiB and 256 MiB a rank, each rank's step a
+   CUDA graph, as shipped and with the other way of the last execution
+   (an edit of ``ops/pallas_ring.py``, :data:`STEP_DESIGNS`: pulling into
+   a new tensor, or pushing and returning a copy), each output held to
+   the sim kernels' step first: the time an execution.
+5. ``a2a``: the all-to-all at 256 MiB and 4 KiB a rank: the push
+   (``peer_all_to_all_push``) and the pull over chunk d of every rank's
+   input in its three tile orders (:data:`PULL_DESIGNS`: the shipped
+   source and edits of it), each output first held bit for bit to the
+   sim ``all_to_all``; across cards beside NCCL's ``all_to_all_single``.
+6. ``pingpong``: an execution of each schedule of :data:`PINGPONG_DESIGNS`
+   (pair barrier, leg 1, pair barrier, leg 2) at 256 MiB and 4 KiB a
+   rank, each first held bit for bit (every rank's output its input,
+   group 1's stage its partner's input), across cards beside NCCL's
+   isend / irecv there and back; and at 256 MiB the parts one by one:
+   each leg, pulled and pushed, group 1's local copy, a pair barrier.
 
 Each time is the mean device time of ``--reps`` back-to-back executions
-(every rank's launch, or every rank's graph) between two CUDA events.
-Prints the card's name and power limit, one line per measurement, and a
-JSON summary as the last line.
+(every rank's launch, or every rank's graph) between two CUDA events;
+across cards every rank starts after a host barrier and the slowest
+rank's time is kept.  Prints the card's name and power limit (every
+card's across cards), one line per measurement, and a JSON summary as
+the last line (rank 0 alone across cards).
 """
 
 from __future__ import annotations
@@ -299,7 +322,8 @@ def barrier_designs(out_dir) -> dict:
 #: returns a copy; the edit pulls every rank's own slot into a new tensor.
 ALLREDUCE_LAST_PULL = """\
         if final:
-            return peer_all_gather(mids, out=_fresh(world, elems, tdtype))
+            return peer_all_gather(mids, rank, out=_fresh(world, elems,
+                                                          tdtype))
 """
 ALLREDUCE_CHAIN = """\
     return _peer_chain(buffers, rank, iters, "all", ins[0][rank].copy_,
@@ -319,6 +343,35 @@ GATHER_LAST_PULL = """\
             return gather(owns[cur], out=_fresh(world, n * chunk, tdtype))[mine]
         peer_all_gather_push(gathered[cur][rank][mine]"""
 GATHER_CHAIN = "gathered[0][rank][mine].copy_, execution, torch.clone)"
+#: pl_all_to_all's last execution pulls chunk d of every rank's input
+#: into a new tensor; the edit pushes, and the step returns a copy.
+A2A_LAST_PULL = """\
+        if final:
+            return peer_all_to_all(reads[cur], rank,
+                                   out=_fresh(world, elems, tdtype))
+"""
+A2A_CHAIN = """\
+    return _peer_chain(buffers, rank, iters, "all", ins[0][rank].copy_,
+                       execution)
+
+
+def _dist_reduce_scatter_step"""
+#: pl_pingpong's last execution pulls leg 2 into a new tensor; the edit
+#: pushes it into group 0's input buffer, and group 0's step returns a
+#: copy
+PINGPONG_OUT = """\
+        out = _fresh(world, elems, tdtype) if final else ins[1 - cur][rank]
+"""
+PINGPONG_LEG2 = """\
+        if group1 and not final:
+            peer_copy("peer_pingpong", stage[rank], out=ins[1 - cur][partner])
+        elif not group1 and final:
+            peer_copy("peer_pingpong", stage[partner], out=out)
+"""
+PINGPONG_CHAIN = """\
+    return _peer_chain(buffers, rank, iters, "pair", ins[0][rank].copy_,
+                       execution)
+"""
 STEP_DESIGNS = {
     "pl_allreduce": ("last pull", "last copy", [
         (ALLREDUCE_LAST_PULL, ""),
@@ -327,6 +380,21 @@ STEP_DESIGNS = {
     "pl_all_gather": ("last copy", "last pull", [
         (GATHER_PUSH, GATHER_LAST_PULL),
         (GATHER_CHAIN, GATHER_CHAIN.replace(", torch.clone", ""))]),
+    "pl_all_to_all": ("last pull", "last copy", [
+        (A2A_LAST_PULL, ""),
+        (A2A_CHAIN, A2A_CHAIN.replace("execution)",
+                                      "execution, torch.clone)"))]),
+    "pl_pingpong": ("last pull", "last copy", [
+        (PINGPONG_OUT, """\
+        out = (_fresh(world, elems, tdtype) if final and group1
+               else ins[1 - cur][rank])
+"""),
+        (PINGPONG_LEG2, """\
+        if group1:
+            peer_copy("peer_pingpong", stage[rank], out=ins[1 - cur][partner])
+"""),
+        (PINGPONG_CHAIN, PINGPONG_CHAIN.replace("execution)", """execution,
+                       None if group1 else torch.clone)"""))]),
 }
 
 
@@ -387,6 +455,30 @@ def designs(out_dir, reduce: str, tma: str = "") -> dict:
     return found
 
 
+#: the shipped pull's tile order (csrc/peer_collectives.cu, peer_gather)
+#: and the edits that give the others: whole-chunk pulls take the sources
+#: fastest from the rank on, or the pages fastest from the rank on, or
+#: the pages fastest from rank 0 on, the address order (the earlier pull)
+RANKS_FASTEST = "  const bool ranks_fastest = push || halves == 1;"
+PULL_SOURCE = ("          const int s = halves == 1 ? ahead : "
+               "(h == 0 ? behind : ahead);")
+PAGES_FASTEST = (RANKS_FASTEST, "  const bool ranks_fastest = push;")
+PULL_DESIGNS = {
+    "pull, sources fastest from the rank on (shipped)": [],
+    "pull, pages fastest from the rank on": [PAGES_FASTEST],
+    "pull, pages fastest in address order (earlier)": [
+        PAGES_FASTEST, (PULL_SOURCE, PULL_SOURCE.replace(
+            "halves == 1 ? ahead", "halves == 1 ? (int)k"))],
+}
+
+
+def pull_designs(out_dir) -> dict:
+    """The pull's edited sources, ``name -> (source file, defines)``."""
+    return {name: write_design(out_dir / f"pull_{k}", SOURCE, [],
+                               source_edits=edits)
+            for k, (name, edits) in enumerate(PULL_DESIGNS.items()) if edits}
+
+
 def _on_streams(streams, launch) -> None:
     # launch(r) on each rank's stream, forked from and joined to the
     # current one
@@ -416,14 +508,16 @@ def _graphs(streams, launch, count: int) -> list:
     return graphs
 
 
-def _barrier_entries(jobs: list) -> dict:
-    # each barrier variant's peer_barrier entry, from its built library
+def _entries(libs: dict, symbol: str) -> dict:
+    # each design's C entry `symbol` of peer_collectives, from its library
     from tpu_perf_torch.kernels import _build
 
-    argtypes = _build._EXTRA_ENTRIES[("peer_collectives", "peer_barrier")]
+    main_symbol, main_argtypes = _build._ENTRIES["peer_collectives"]
+    argtypes = (main_argtypes if symbol == main_symbol
+                else _build._EXTRA_ENTRIES[("peer_collectives", symbol)])
     entries = {}
-    for name, _, lib, _ in jobs:
-        fn = ctypes.CDLL(str(lib)).peer_barrier
+    for name, lib in libs.items():
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         entries[name] = fn
     return entries
@@ -477,73 +571,405 @@ def time_barriers(entries: dict, args, say, results) -> None:
                                    f"want {count}")
 
 
-def time_steps(out_dir, args, say, results) -> None:
-    """Each op of :data:`STEP_DESIGNS` at -i 5 in the 8-rank loopback at 4
-    KiB and 256 MiB, each rank's step one CUDA graph, shipped and edited;
-    each output first held bit for bit to the sim kernels' step."""
+class Ranks:
+    """The ranks this process drives, and how it times them: every rank of
+    a one-card loopback, a stream a rank (``worlds`` from
+    ``loopback_ranks``), or under torchrun this process' own rank of a
+    world across cards (``worlds`` its one DistWorld).  ``ranks[i]`` is
+    the i-th driven rank's world."""
+
+    def __init__(self, worlds: list):
+        import torch
+
+        self.worlds = worlds
+        self.n = worlds[0].n
+        self.device = worlds[0].device
+        self.across = worlds[0].peer_memory is None
+        self.streams = [torch.cuda.Stream(self.device) for _ in worlds]
+
+    def __iter__(self):
+        return iter(self.worlds)
+
+    def each(self, launch) -> None:
+        """``launch(i, rank)`` for each driven rank on its stream, forked
+        from and joined to the current one."""
+        _on_streams(self.streams,
+                    lambda i: launch(i, self.worlds[i].rank))
+
+    def sync(self) -> None:
+        """The card idle, and across cards every rank's too."""
+        import torch
+
+        torch.cuda.synchronize(self.device)
+        if self.across:
+            import torch.distributed as dist
+
+            dist.barrier()
+            torch.cuda.synchronize(self.device)
+
+    def ms(self, fn, reps: int) -> float:
+        """Device ms a call of ``fn`` (after one warm call): the mean of
+        ``reps`` back-to-back calls, the slowest rank's across cards."""
+        import torch
+
+        if not self.across:
+            return cuda_ms(fn, reps)
+        import torch.distributed as dist
+
+        fn()
+        self.sync()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize(self.device)
+        t = torch.tensor([e0.elapsed_time(e1) / reps], dtype=torch.float64,
+                         device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t.item())
+
+    def timed(self, launch, count: int, reps: int) -> float:
+        """Device ms a ``launch(i, rank)`` of every driven rank: each
+        rank's CUDA graph of ``count`` launches (captured on its stream
+        after one eager launch of every rank) replayed together."""
+        self.each(launch)
+        self.sync()
+        graphs = _graphs(self.streams, lambda i: launch(
+            i, self.worlds[i].rank), count)
+        ms = self.ms(lambda: _on_streams(
+            self.streams, lambda i: graphs[i].replay()), reps) / count
+        self.sync()
+        return ms
+
+    def eager(self, launch, count: int, reps: int) -> float:
+        """Device ms a ``launch(i, rank)`` of every driven rank, ``count``
+        back to back a call, eagerly (a rank may launch nothing)."""
+        ms = self.ms(lambda: self.each(
+            lambda i, r: [launch(i, r) for _ in range(count)]), reps) / count
+        self.sync()
+        return ms
+
+    def check(self, what: str, got: list, want: list) -> None:
+        """Each driven rank's ``got[i]`` bit for bit its ``want[i]``."""
+        import torch
+
+        self.sync()
+        for g, w, world in zip(got, want, self.worlds):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"{what}: rank {world.rank} is not the "
+                                   "plain version's")
+
+
+def _rows(ranks, elems: int):
+    """The sim world's input rows of the ranks (``example_input``) and the
+    driven ranks' own rows."""
+    from tpu_perf_torch.ops.collectives import example_input
+    from tpu_perf_torch.world import SimWorld
+
+    rows = example_input(SimWorld(ranks.n, ranks.device), elems, "float32")
+    return rows, [rows[w.rank] for w in ranks]
+
+
+def _turns(ranks, what: str, cases: dict, args, say, results) -> None:
+    # every case once a round, --rounds rounds: case() gives its ms
+    for rd in range(args.rounds):
+        for name, case in cases.items():
+            ms = case()
+            results.setdefault(what, {}).setdefault(name, []).append(ms)
+            say(f"{what} round {rd}: {name} {ms:.4f} ms")
+
+
+#: the sizes a rank the a2a and pingpong parts time, and the launches (or
+#: executions) a graph holds at each
+TIMED = ((256 * MIB, 10), (4096, 100))
+
+
+def time_a2a(ranks, pulls: dict, args, say, results) -> None:
+    """The all-to-all's designs at each size of TIMED: the push and each
+    pull of ``pulls`` (name -> the design's ``peer_gather_pull`` entry),
+    each first held bit for bit to the sim all-to-all's rows; across cards
+    NCCL's ``all_to_all_single`` on the same input beside them.  Then
+    each pull as the gather's (``pl_allreduce``'s last execution: every
+    rank reads the same chunk of every rank), held to the chunks in rank
+    order, across cards beside ``all_gather_into_tensor``."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    n = ranks.n
+    for nbytes, count in TIMED:
+        chunk = nbytes // 4 // n
+        elems = n * chunk
+        bufs = [pr.PeerBuffers(w, {"x": (elems, torch.float32),
+                                   "out": (elems, torch.float32)})
+                for w in ranks]
+        rows, own = _rows(ranks, elems)
+        want = [pr.all_to_all(rows)[w.rank].clone() for w in ranks]
+        gathered = [rows[:, :chunk].reshape(-1).clone()] * len(bufs)
+        del rows
+        for b, w, x in zip(bufs, ranks, own):
+            b["x"][w.rank].copy_(x)
+        outs = [pr.PeerParts(b["out"]) for b in bufs]
+        reads = [pr.PeerParts(pr._sub(p, w.rank * chunk, chunk)
+                              for p in b["x"]) for b, w in zip(bufs, ranks)]
+        firsts = [pr.PeerParts(pr._sub(p, 0, chunk) for p in b["x"])
+                  for b in bufs]
+        nb = chunk * 4
+
+        def push(i, r):
+            pr.peer_all_to_all_push(bufs[i]["x"][r], outs[i], r)
+
+        def pull(entry, tables):
+            def one(i, r):
+                out = bufs[i]["out"][r]
+                word = pr._widest_word(nb, out.data_ptr(), *(
+                    p.data_ptr() for p in tables[i]))
+                counters = pr.row_copy_counters("peer_gather", ranks.device)
+                pr._build.check("pull design", entry(
+                    tables[i].table.data_ptr(), out.data_ptr(),
+                    counters.data_ptr(), n, r, nb, 1, word,
+                    pr._stream_of(out)))
+            return one
+
+        designs = {"push": (push, want),
+                   **{name: (pull(e, reads), want)
+                      for name, e in pulls.items()},
+                   **{f"gather, {name}": (pull(e, firsts), gathered)
+                      for name, e in pulls.items()}}
+        cases = {}
+        for name, (launch, expect) in designs.items():
+            ranks.sync()
+            for b, w in zip(bufs, ranks):
+                b["out"][w.rank].zero_()
+            ranks.sync()
+            ranks.each(launch)
+            ranks.check(f"all-to-all {name} at {nbytes} B a rank",
+                        [b["out"][w.rank] for b, w in zip(bufs, ranks)],
+                        expect)
+            cases[name] = (lambda launch=launch: ranks.timed(
+                launch, count, args.reps))
+        if ranks.across:
+            import torch.distributed as dist
+
+            x, y = own[0].clone(), torch.empty_like(own[0])
+            cases["NCCL all_to_all_single"] = lambda: ranks.eager(
+                lambda i, r: dist.all_to_all_single(y, x), count, args.reps)
+            cases["NCCL all_gather_into_tensor (graph)"] = (
+                lambda: ranks.timed(lambda i, r: dist.all_gather_into_tensor(
+                    y, x[:chunk]), count, args.reps))
+        _turns(ranks, f"all-to-all at {nbytes} B a rank x {n}", cases, args,
+               say, results)
+        ranks.sync()
+        del bufs, outs, reads, firsts
+
+
+#: the pingpong's schedules: name -> (leg 1, local copy early, leg 2), each
+#: leg "pull" or "push"; the local copy is group 1's, under leg 1 (early)
+#: or under leg 2
+PINGPONG_DESIGNS = {
+    "pushed legs, local copy under leg 1 (shipped)": ("push", True, "push"),
+    "pulled legs, local copy before the second barrier (earlier)": (
+        "pull", True, "pull"),
+    "pulled legs, local copy under leg 2": ("pull", False, "pull"),
+}
+
+
+def time_pingpong(ranks, args, say, results) -> None:
+    """The pingpong's schedules (:data:`PINGPONG_DESIGNS`) at each size of
+    TIMED: an execution a launch (pair barrier, leg 1 and group 1's local
+    copy, pair barrier, leg 2), each first held bit for bit; across cards
+    NCCL's isend / irecv there and back beside them; at the first size the
+    parts one by one (each leg pulled and pushed, the local copy, eagerly;
+    a pair barrier from graphs)."""
+    import torch
+
+    from tpu_perf_torch.ops import pallas_ring as pr
+
+    n, half = ranks.n, ranks.n // 2
+    for nbytes, count in TIMED:
+        elems = nbytes // 4
+        bufs = [pr.PeerBuffers(w, {"x": (elems, torch.float32),
+                                   "out": (elems, torch.float32),
+                                   "stage": (elems, torch.float32)})
+                for w in ranks]
+        rows, own = _rows(ranks, elems)
+        for b, w, x in zip(bufs, ranks, own):
+            b["x"][w.rank].copy_(x)
+        group1 = [i for i, w in enumerate(ranks) if w.rank >= half]
+
+        def copy(src, dst):
+            pr.peer_copy("peer_pingpong", src, out=dst)
+
+        def leg1(i, r, how):
+            b = bufs[i]
+            if how == "push" and r < half:
+                copy(b["x"][r], b["stage"][r + half])
+            elif how == "pull" and r >= half:
+                copy(b["x"][r - half], b["stage"][r])
+
+        def leg2(i, r, how):
+            b = bufs[i]
+            if how == "push" and r >= half:
+                copy(b["stage"][r], b["out"][r - half])
+            elif how == "pull" and r < half:
+                copy(b["stage"][r + half], b["out"][r])
+
+        def local(i, r):
+            if r >= half:
+                copy(bufs[i]["x"][r], bufs[i]["out"][r])
+
+        def barrier(i, r):
+            pr.peer_barrier(bufs[i].pads, bufs[i].generation, r, peers="pair")
+
+        def execution(design):
+            first, early, second = design
+
+            def one(i, r):
+                barrier(i, r)
+                leg1(i, r, first)
+                if early:
+                    local(i, r)
+                barrier(i, r)
+                leg2(i, r, second)
+                if not early:
+                    local(i, r)
+            return one
+
+        cases = {}
+        for name, design in PINGPONG_DESIGNS.items():
+            ranks.sync()
+            for b, w in zip(bufs, ranks):
+                b["out"][w.rank].zero_()
+                b["stage"][w.rank].zero_()
+            ranks.sync()
+            ranks.each(execution(design))
+            what = f"pingpong {name} at {nbytes} B a rank"
+            ranks.check(what, [b["out"][w.rank] for b, w in zip(bufs, ranks)],
+                        own)
+            ranks.check(f"{what}: group 1's stage", [
+                bufs[i]["stage"][ranks.worlds[i].rank] for i in group1], [
+                rows[ranks.worlds[i].rank - half] for i in group1])
+            cases[name] = (lambda design=design: ranks.timed(
+                execution(design), count, args.reps))
+        del rows
+        if ranks.across:
+            import torch.distributed as dist
+
+            x, y = own[0].clone(), torch.empty_like(own[0])
+
+            def nccl(i, r):
+                # group 0 sends and takes it back; group 1 returns it
+                legs = (((True, x), (False, y)) if r < half
+                        else ((False, y), (True, y)))
+                for send, buf in legs:
+                    for q in dist.batch_isend_irecv([dist.P2POp(
+                            dist.isend if send else dist.irecv, buf,
+                            (r + half) % n)]):
+                        q.wait()
+
+            cases["NCCL isend / irecv there and back"] = lambda: ranks.eager(
+                nccl, count, args.reps)
+        if nbytes == TIMED[0][0]:
+            for how in ("pull", "push"):
+                cases[f"leg 1 alone, {how}ed"] = (
+                    lambda how=how: ranks.eager(
+                        lambda i, r: leg1(i, r, how), count, args.reps))
+                cases[f"leg 2 alone, {how}ed"] = (
+                    lambda how=how: ranks.eager(
+                        lambda i, r: leg2(i, r, how), count, args.reps))
+            cases["group 1's local copy alone"] = lambda: ranks.eager(
+                local, count, args.reps)
+            cases["a pair barrier alone"] = lambda: ranks.timed(
+                barrier, 100, args.reps)
+        _turns(ranks, f"pingpong at {nbytes} B a rank x {n}", cases, args,
+               say, results)
+        ranks.sync()
+        del bufs
+
+
+def time_steps(steps_paths: dict, ranks, args, say, results) -> None:
+    """Each op of :data:`STEP_DESIGNS` at -i 5 at 4 KiB and 256 MiB a rank,
+    each driven rank's step one CUDA graph, shipped and edited (the
+    edited module of ``steps_paths[op]``); each output first held bit for
+    bit to its row of the sim kernels' step."""
     import torch
 
     from tpu_perf_torch.ops import pallas_ring as pr
     from tpu_perf_torch.ops.collectives import example_input
     from tpu_perf_torch.world import SimWorld, loopback_ranks
 
-    dev = torch.device("cuda", torch.cuda.current_device())
-    n, iters = 8, 5
-    streams = [torch.cuda.Stream(dev) for _ in range(n)]
-    edited = step_designs(out_dir)
+    dev, n, iters = ranks.device, ranks.n, 5
     for op, (shipped, other, _) in STEP_DESIGNS.items():
-        modules = {shipped: pr, other: load_steps(edited[op])}
+        modules = {shipped: pr, other: load_steps(steps_paths[op])}
         for nbytes in (4096, 256 * MIB):
             elems, chunk, _ = pr._pallas_sizes(op, n, nbytes, 4)
             sim = SimWorld(n, dev)
             rows = example_input(sim, elems, "float32")
             want = pr.build_pallas_step(op, sim, nbytes, iters)[0](rows)
-            xs = [rows[r].clone() for r in range(n)]
+            want = [want[w.rank].clone() for w in ranks]
+            xs = [rows[w.rank].clone() for w in ranks]
+            del rows
             cases = {}
             for name, mod in modules.items():
                 # each module keeps its own tile counters
-                mod.warm_loopback_streams(streams, dev, n * chunk * 4)
-                if op == "pl_allreduce":
-                    steps = [mod._dist_allreduce_step(
-                        w, elems, chunk, iters, torch.float32)
-                        for w in loopback_ranks(n, dev)]
-                else:
-                    steps = [mod._dist_gather_step(
-                        op, w, chunk, iters, torch.float32)
-                        for w in loopback_ranks(n, dev)]
-                outs = [None] * n
+                mod.warm_loopback_streams(ranks.streams, dev, n * chunk * 4)
+                # a loopback's steps share a memory of their own
+                worlds = (ranks.worlds if ranks.across
+                          else loopback_ranks(n, dev))
+                step = {"pl_allreduce": lambda w: mod._dist_allreduce_step(
+                            w, elems, chunk, iters, torch.float32),
+                        "pl_all_to_all": lambda w: mod._dist_all_to_all_step(
+                            w, elems, chunk, iters, torch.float32),
+                        "pl_pingpong": lambda w: mod._dist_pingpong_step(
+                            w, elems, iters, torch.float32)}.get(
+                    op, lambda w: mod._dist_gather_step(
+                        op, w, chunk, iters, torch.float32))
+                steps = [step(w) for w in worlds]
+                outs = [None] * len(steps)
 
-                def eager(r, steps=steps, outs=outs):
-                    outs[r] = steps[r](xs[r])
+                def eager(i, r, steps=steps, outs=outs):
+                    outs[i] = steps[i](xs[i])
 
-                _on_streams(streams, eager)
-                torch.cuda.synchronize()
-                if not torch.equal(torch.stack(outs), want):
-                    raise RuntimeError(f"{op} at {nbytes} B, {name}: "
-                                       "not the sim kernels' step")
+                ranks.each(eager)
+                ranks.check(f"{op} at {nbytes} B, {name}: the sim kernels' "
+                            "step", outs, want)
                 # the graphs replay into the steps' symmetric buffers, which
-                # the steps' loopback memory frees with them: a graph kept
-                # without its steps writes freed memory (an illegal address)
-                cases[name] = (_graphs(
-                    streams, lambda r, steps=steps: steps[r](xs[r]), 1),
-                    steps)
-            what = f"{op} at {nbytes} B a rank, 8 ranks, -i {iters}"
+                # the steps' memory frees with them: a graph kept without
+                # its steps writes freed memory (an illegal address)
+                graphs = _graphs(ranks.streams, lambda i, steps=steps: steps[
+                    i](xs[i]), 1)
+                cases[name] = (graphs, steps)
+            what = f"{op} at {nbytes} B a rank, {n} ranks, -i {iters}"
             for rd in range(args.rounds):
                 for name, (graphs, _) in cases.items():
-                    ms = cuda_ms(lambda g=graphs: _on_streams(
-                        streams, lambda r: g[r].replay()), args.reps) / iters
+                    ms = ranks.ms(lambda g=graphs: _on_streams(
+                        ranks.streams, lambda i: g[i].replay()),
+                        args.reps) / iters
                     results.setdefault(what, {}).setdefault(name, []).append(
                         ms)
                     say(f"{what} round {rd}: {name} {ms:.4f} ms an "
                         "execution")
+            ranks.sync()
             del cases
-            torch.cuda.synchronize()
+
+
+def _smi(index: int | None) -> str:
+    # the card's name and power limit (every card's when index is None)
+    cmd = ["nvidia-smi", "--query-gpu=name,power.limit",
+           "--format=csv,noheader"]
+    if index is not None:
+        cmd.append(f"--id={index}")
+    return subprocess.run(cmd, capture_output=True, text=True,
+                          check=True).stdout.strip()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parts", default="reduce,barrier,steps",
-                    help="what to time: reduce, barrier, steps")
+                    help="what to time: reduce, barrier, steps, a2a, "
+                    "pingpong (across cards: steps, a2a, pingpong)")
     ap.add_argument("--reduce", default="1x4,1x8,2x2,2x4,4x1,4x2",
                     help="units x CTAs an SM of the reduce-scatter")
     ap.add_argument("--tma", default="4096x2,4096x3,8192x2,2048x4",
@@ -554,6 +980,12 @@ def main(argv=None) -> int:
                     help="barriers in each rank's graph")
     args = ap.parse_args(argv)
     chosen = set(args.parts.split(","))
+    unknown = chosen - {"reduce", "barrier", "steps", "a2a", "pingpong"}
+    if unknown:
+        ap.error(f"unknown parts {sorted(unknown)}")
+    across = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if across and chosen & {"reduce", "barrier"}:
+        ap.error("across cards the parts are steps, a2a and pingpong")
     # one hardware queue a stream, so that no rank's launch queues behind
     # another rank's waiting barrier, and every kernel loaded when its
     # library is (a kernel loaded at its first launch waits for the card,
@@ -570,40 +1002,74 @@ def main(argv=None) -> int:
     from tpu_perf_torch.kernels import _build
     from tpu_perf_torch.ops import pallas_ring as pr
     from tpu_perf_torch.ops.collectives import example_input
-    from tpu_perf_torch.world import SimWorld
+    from tpu_perf_torch.world import SimWorld, dist_world, loopback_ranks
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-         f"--id={torch.cuda.current_device()}"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi)
+    lead = True
+    if across:
+        import torch.distributed as dist
+
+        from tpu_perf_torch.parallel import initialize_distributed
+        from tpu_perf_torch.parallel.multihost import leave_world
+
+        initialize_distributed(device="cuda")
+        lead = dist.get_rank() == 0
+    smi = _smi(None if across else torch.cuda.current_device())
+    if lead:
+        print(smi, flush=True)
+    card = smi.splitlines()[0]
 
     def say(line: str) -> None:
-        print(f"{line} ({smi})")
+        if lead:
+            print(f"{line} ({card})", flush=True)
 
     out_dir = _build.BUILD_DIR / "peer_designs"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    found = designs(out_dir, args.reduce, args.tma) if "reduce" in chosen \
-        else {}
-    barriers = barrier_designs(out_dir) if "barrier" in chosen else {}
-    _build.build_all()
-    jobs = start_variants(
-        {name: (src, "peer_collectives", defines)
-         for name, (src, defines) in {**found, **barriers}.items()})
-    entries = finish_variants(jobs)
+    made = [None]
+    if lead:
+        # one process writes and builds the designs; the others load them
+        shutil.rmtree(out_dir, ignore_errors=True)
+        found = designs(out_dir, args.reduce, args.tma) if "reduce" in \
+            chosen else {}
+        barriers = barrier_designs(out_dir) if "barrier" in chosen else {}
+        pulls = pull_designs(out_dir) if "a2a" in chosen else {}
+        _build.build_all()
+        jobs = start_variants(
+            {name: (src, "peer_collectives", defines) for name, (
+                src, defines) in {**found, **barriers, **pulls}.items()})
+        finish_variants(jobs)
+        libs = {name: lib for name, _, lib, _ in jobs}
+        made[0] = {
+            "reduce": {k: libs[k] for k in found},
+            "barrier": {k: libs[k] for k in barriers},
+            "a2a": {k: libs[k] for k in pulls},
+            "steps": step_designs(out_dir) if "steps" in chosen else {}}
+    if across:
+        dist.broadcast_object_list(made)
+    made = made[0]
+    dev = torch.device("cuda", torch.cuda.current_device())
     results = {}
-    if barriers:
-        time_barriers(_barrier_entries(
-            [job for job in jobs if job[0] in barriers]), args, say, results)
-    if "steps" in chosen:
-        time_steps(out_dir, args, say, results)
+    if made["barrier"]:
+        time_barriers(_entries(made["barrier"], "peer_barrier"), args, say,
+                      results)
+    if chosen & {"steps", "a2a", "pingpong"}:
+        ranks = Ranks([dist_world(dev)] if across else loopback_ranks(8, dev))
+        if "a2a" in chosen:
+            pulls = _entries(made["a2a"], "peer_gather_pull")
+            pulls[next(iter(PULL_DESIGNS))] = _build.entry(
+                "peer_collectives", "peer_gather_pull")
+            time_a2a(ranks, pulls, args, say, results)
+        if "pingpong" in chosen:
+            time_pingpong(ranks, args, say, results)
+        if "steps" in chosen:
+            time_steps(made["steps"], ranks, args, say, results)
+    if across:
+        leave_world()
     if "reduce" not in chosen:
-        print(json.dumps({"card": smi, "reps": args.reps, "ms": results}))
+        if lead:
+            print(json.dumps({"card": smi, "reps": args.reps, "ms": results}))
         return 0
-    entries = {name: e for name, e in entries.items() if name in found}
+    entries = _entries(made["reduce"], "peer_reduce_scatter")
     entries["shipped"] = _build.entry("peer_collectives")
 
-    dev = torch.device("cuda", torch.cuda.current_device())
     n = 8
     chunk = 256 * MIB // 4 // n
     rows = example_input(SimWorld(n, dev), n * chunk, "float32")
