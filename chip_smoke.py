@@ -1825,6 +1825,10 @@ def _trace_graph_bytes() -> None:
 #: the trace daemon's visits, plain and with the lo leg stalled, and the
 #: stall: a host sleep before and after each replay of the lo leg
 TRACE_VISITS, TRACE_STALLED_VISITS, TRACE_STALL_S = 300, 100, 0.002
+#: the trace gate's pin: this many more plain visits, every pair positive
+#: and no gate timed out; the lo legs above STALL_FACTOR times their
+#: median are counted
+PIN_VISITS, STALL_FACTOR = 10000, 2.0
 
 
 def _trace_daemon(logs: str, fused_lat_us: float) -> None:
@@ -1840,10 +1844,13 @@ def _trace_daemon(logs: str, fused_lat_us: float) -> None:
     from tpu_perf_torch.schema import ResultRow
 
     legs: list[tuple[float, float]] = []
+    runners = []
     plain_pair, plain_replay = timing.TraceRunner.pair, \
         timing.TraceRunner.replay
 
     def pair(self):
+        if self not in runners:
+            runners.append(self)
         legs.append(plain_pair(self))
         return legs[-1]
 
@@ -1857,15 +1864,16 @@ def _trace_daemon(logs: str, fused_lat_us: float) -> None:
     # every kernel of the point: lo and hi (4x) executions, each launched
     # by the eager warm-up and by its leg's capture; the visits replay
     want = 2 * 5 * ITERS
-    lo_ms, lats = {}, {}
+    lo_ms, lats, pin = {}, {}, {}
     timing.TraceRunner.pair = pair
     try:
-        for label, visits in (("plain", TRACE_VISITS),
+        for label, visits in (("plain", TRACE_VISITS), ("pin", PIN_VISITS),
                               ("stalled", TRACE_STALLED_VISITS)):
             if label == "stalled":
                 timing.TraceRunner.replay = stalled
             folder = os.path.join(logs, label)
             legs.clear()
+            runners.clear()
             kernels.reset_counts()
             rc = cli.main(["monitor", "--op", "pl_allreduce", "-b", "4K",
                            "-i", str(ITERS), "--fence", "trace",
@@ -1888,8 +1896,16 @@ def _trace_daemon(logs: str, fused_lat_us: float) -> None:
             bad = [p for p in legs if p[1] <= p[0]]
             if len(legs) != visits or bad:
                 fail(f"{what}: {len(legs)} pairs, non-positive {bad[:5]}")
+            missed = sum(r.missed() for r in runners)
+            if missed:
+                fail(f"{what}: {missed} trace gates opened on their timeout")
             lo_ms[label] = _median([lo for lo, _ in legs]) * 1e3
             lats[label] = _median([r.lat_us for r in rows])
+            if label == "pin":
+                los = sorted(lo for lo, _ in legs)
+                slow = [lo for lo in los if lo > STALL_FACTOR * los[
+                    len(los) // 2]]
+                pin = {"max_ms": los[-1] * 1e3, "stalled": len(slow)}
     finally:
         timing.TraceRunner.pair = plain_pair
         timing.TraceRunner.replay = plain_replay
@@ -1898,6 +1914,10 @@ def _trace_daemon(logs: str, fused_lat_us: float) -> None:
         fail(f"monitor --fence trace: the lo leg's median {lo_ms['plain']:.4f}"
              f" ms, {lo_ms['stalled']:.4f} ms with a {TRACE_STALL_S * 1e3:g} "
              "ms host stall around its replay: the stall entered the leg")
+    print(f"daemon: the trace gate's pin: {PIN_VISITS} more visits, every "
+          f"pair positive, no gate timed out; {pin['stalled']} lo legs above "
+          f"{STALL_FACTOR:g} x their median {lo_ms['pin']:.4f} ms (the "
+          f"largest {pin['max_ms']:.4f} ms) ({CARD})")
     print(f"daemon: monitor --fence trace -b 4K -i {ITERS}, pl_allreduce at "
           f"8 ranks: {TRACE_VISITS} visits and {TRACE_STALLED_VISITS} with a "
           f"{TRACE_STALL_S * 1e3:g} ms host stall around each lo replay, "
@@ -2799,6 +2819,269 @@ def phase_bench() -> None:
           + f"; contention slowdown {c['slowdown']:.3f} ({CARD})")
 
 
+# --- adaptive runs, the compile pipeline, contend along axes ---------------
+
+#: the adaptive stop rule of the adaptive phase: a point stops once its 95%
+#: interval is within 5%, after 5 runs and by 50 at most
+ADAPTIVE = ("--ci-rel", "0.05", "--min-runs", "5", "--max-runs", "50")
+MIN_RUNS, MAX_RUNS, CI_REL = 5, 50, 0.05
+#: the pipeline runs' sweep, each in a process of its own
+PIPE_SWEEP = "4K:16M"
+#: contend along the axes of the sim mesh: the victim's bytes a rank, runs
+MESH_CONTEND_BYTES, MESH_CONTEND_RUNS = 16 * 1024**2, 10
+
+
+def _logged_run(argv: list[str], what: str, logdir: str):
+    """One ``cli.main`` run into ``logdir`` with the counters set to 0 just
+    before it and read just after; returns (launches, rows, the phase
+    sidecar, wall s)."""
+    import glob
+
+    from tpu_perf_torch import cli, kernels
+    from tpu_perf_torch.schema import ResultRow
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["-l", logdir])
+    wall = time.perf_counter() - t0
+    got, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_CALLS)
+    if rc != 0:
+        fail(f"{what} exited {rc}")
+    if any(plain.values()):
+        fail(f"{what}: plain versions called {plain}")
+    rows = []
+    for path in sorted(glob.glob(os.path.join(logdir, "tpu-*.log"))):
+        with open(path) as fh:
+            rows += [ResultRow.from_csv(ln) for ln in fh if ln.strip()]
+    sides = glob.glob(os.path.join(logdir, "phase-*.json"))
+    if len(sides) != 1:
+        fail(f"{what}: phase sidecars {sides}")
+    with open(sides[0]) as fh:
+        side = json.load(fh)
+    return got, rows, side, wall
+
+
+def _phase_line(side: dict) -> str:
+    ph = side["phase"]
+    return (f"wall {side['wall_s']:.3f} s: compile {ph['compile_s']:.3f}, "
+            f"measure {ph['measure_s']:.3f}, log {ph['log_s']:.3f} s")
+
+
+def phase_adaptive() -> None:
+    """``run --op pl_allreduce --sweep 4K:256M --ci-rel 0.05 --min-runs 5
+    --max-runs 50`` at 8 sim ranks under block and fused: every point's
+    runs within the bounds, its interval within 5% wherever it stopped
+    early, the launches those runs' (block: the warm-up and each run;
+    fused: the eager chunk and the capture), the savings and the phase
+    split from the sidecar; then pl_allreduce's output at 4 KiB and
+    16 MiB a rank against its plain versions on the same input."""
+    import tempfile
+
+    import torch
+
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.world import SimWorld
+
+    for fence in ("block", "fused"):
+        what = f"run --fence {fence} --ci-rel 0.05"
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-adaptive-") as d:
+            got, rows, side, wall = _logged_run(
+                ["run", "--op", "pl_allreduce", "--sim-ranks", "8",
+                 "--sweep", SWEEP, "-i", str(ITERS), "--fence", fence,
+                 *ADAPTIVE], what, d)
+        points = {}
+        for r in rows:
+            points.setdefault(r.nbytes, []).append(r)
+        early = []
+        for nb, pts in points.items():
+            last = max(pts, key=lambda r: r.run_id)
+            if (not MIN_RUNS <= last.runs_taken <= MAX_RUNS
+                    or {r.runs_requested for r in pts} != {MAX_RUNS}):
+                fail(f"{what} at {nb} B: runs_taken {last.runs_taken}, "
+                     f"requested {sorted({r.runs_requested for r in pts})}")
+            if last.run_id < MAX_RUNS:
+                early.append(last.run_id)
+                if not 0 < last.ci_rel <= CI_REL:
+                    fail(f"{what} at {nb} B: stopped after {last.run_id} "
+                         f"runs at ci_rel {last.ci_rel}")
+        taken = sum(max(r.run_id for r in pts) for pts in points.values())
+        # block: one warm-up run and each measured run; fused: the eager
+        # first chunk and the capture of the one chunk size (5 runs each)
+        per_point = {"block": None, "fused": 2 * MIN_RUNS * ITERS}[fence]
+        want = ((len(points) + taken) * ITERS if per_point is None
+                else len(points) * per_point)
+        launched = {k: v for k, v in got.items() if v}
+        if launched != {"direct_reduce_scatter": want,
+                        "direct_all_gather": want}:
+            fail(f"{what}: launches {launched}, want {want} of each")
+        a = side["adaptive"]
+        if (a["points"] != len(points) or a["runs_requested"] !=
+                len(points) * MAX_RUNS or a["runs_attempted"] != taken):
+            fail(f"{what}: the sidecar's adaptive totals {a}")
+        print(f"adaptive: pl_allreduce --sweep {SWEEP} at 8 ranks, -i "
+              f"{ITERS}, --fence {fence}, --ci-rel {CI_REL} --min-runs "
+              f"{MIN_RUNS} --max-runs {MAX_RUNS}: {len(points)} points, "
+              f"{taken} runs of {a['runs_requested']} ({a['runs_saved']} "
+              f"saved, {len(early)} points stopped early), wall saved "
+              f"{a['wall_saved_s']:.4f} s; {_phase_line(side)} "
+              f"(the run {wall:.1f} s); launches {want} of each kernel "
+              f"({CARD})")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    errs = []
+    for nbytes in (4096, 16 * 1024**2):
+        card = build_op("pl_allreduce", SimWorld(8, dev), nbytes, ITERS)
+        plain = build_op("pl_allreduce", SimWorld(8, torch.device("cpu")),
+                         nbytes, ITERS)
+        check_exact(f"the adaptive path's input at {nbytes} B",
+                    card.example_input.cpu(), plain.example_input)
+        errs.append(check_close(
+            f"pl_allreduce at {nbytes} B/rank against its plain versions",
+            card.step(card.example_input).cpu(),
+            plain.step(plain.example_input), "float32"))
+    print(f"adaptive: pl_allreduce at 4 KiB and 16 MiB a rank, -i {ITERS}: "
+          f"the kernels against their plain versions on the same input, "
+          f"max abs err {max(errs):.3e}")
+
+
+_PIPE_CHILD = ("import json, sys; from tpu_perf_torch import cli, kernels; "
+               "from tpu_perf_torch.kernels import _build; "
+               "rc = cli.main(sys.argv[1:]); print('PIPE ' + json.dumps("
+               "{'rc': rc, 'launches': kernels.LAUNCHES, "
+               "'builds': _build.BUILDS}))")
+
+
+def phase_pipeline() -> None:
+    """The compile pipeline against the serial run, each in a process of
+    its own over PIPE_SWEEP (pl_allreduce, 8 sim ranks, block): serial
+    into a fresh ``--compile-cache`` A, ``--precompile 2`` into a fresh B
+    (the worker builds the kernels), ``--precompile auto`` into A again (a
+    second process on one cache builds no kernel).  The rows' (op, nbytes,
+    iters, run_id) and the launches must be the serial run's; each run's
+    phase split is printed beside its wall."""
+    import tempfile
+
+    from tpu_perf_torch.schema import ResultRow
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    _release_cache("pipeline: before its processes")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-pipe-") as root:
+        for label, flags, cache in (("serial", [], "a"),
+                                    ("precompile 2", ["--precompile", "2"],
+                                     "b"),
+                                    ("precompile auto",
+                                     ["--precompile", "auto"], "a")):
+            logs = os.path.join(root, label.replace(" ", "-"))
+            argv = ["run", "--op", "pl_allreduce", "--sim-ranks", "8",
+                    "--sweep", PIPE_SWEEP, "-i", str(ITERS), "-r", str(RUNS),
+                    "--compile-cache", os.path.join(root, cache), "-l", logs,
+                    *flags]
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-c", _PIPE_CHILD, *argv],
+                                 cwd=here, capture_output=True, text=True,
+                                 timeout=300)
+            proc_s = time.perf_counter() - t0
+            lines = [ln for ln in out.stdout.splitlines()
+                     if ln.startswith("PIPE ")]
+            if out.returncode != 0 or len(lines) != 1:
+                fail(f"pipeline: {label} exited {out.returncode}:\n"
+                     f"{out.stderr[-3000:]}")
+            res = json.loads(lines[0][5:])
+            rows, side = [], None
+            for name in sorted(os.listdir(logs)):
+                with open(os.path.join(logs, name)) as fh:
+                    if name.startswith("tpu-"):
+                        rows += [ResultRow.from_csv(ln) for ln in fh
+                                 if ln.strip()]
+                    elif name.startswith("phase-"):
+                        side = json.load(fh)
+            if res["rc"] != 0 or side is None:
+                fail(f"pipeline: {label}: rc {res['rc']}, sidecar {side}")
+            runs[label] = (res, rows, side, proc_s)
+    coords = {k: [(r.op, r.nbytes, r.iters, r.run_id) for r in v[1]]
+              for k, v in runs.items()}
+    launches = {k: {n: c for n, c in v[0]["launches"].items() if c}
+                for k, v in runs.items()}
+    builds = {k: v[0]["builds"] for k, v in runs.items()}
+    if (len({json.dumps(c) for c in coords.values()}) != 1
+            or len({json.dumps(x, sort_keys=True)
+                    for x in launches.values()}) != 1):
+        fail(f"pipeline: rows or launches differ from the serial run's: "
+             f"{ {k: len(c) for k, c in coords.items()} }, {launches}")
+    if (builds["serial"] < 1 or builds["precompile 2"] != builds["serial"]
+            or builds["precompile auto"] != 0):
+        fail(f"pipeline: kernel builds {builds}: the second process on a "
+             "compile cache must build none")
+    said = []
+    for label, (res, rows, side, proc_s) in runs.items():
+        ph = side["phase"]
+        hidden = max(0.0, ph["compile_s"] + ph["measure_s"] + ph["log_s"]
+                     - side["wall_s"])
+        said.append(f"{label}: {_phase_line(side)}, compile hidden "
+                    f"{hidden:.3f} s ({hidden / max(ph['compile_s'], 1e-9):.1%}"
+                    f" of it), {builds[label]} nvcc builds"
+                    + (f", depth {side['precompile_depth']}"
+                       if "precompile_depth" in side else "")
+                    + f" (process {proc_s:.1f} s)")
+    print(f"pipeline: pl_allreduce --sweep {PIPE_SWEEP} at 8 ranks, -i "
+          f"{ITERS} -r {RUNS}, each a process of its own: "
+          + "; ".join(said) + f"; rows and launches "
+          f"{launches['serial']} the serial run's ({CARD})")
+
+
+def phase_contend_axes() -> None:
+    """contend on a 2 x 4 sim mesh (dcn, ici): allreduce at
+    MESH_CONTEND_BYTES a rank along each axis, loaded by allreduce along
+    the other axis and along its own, and by hbm_stream; each row's
+    columns, and the slowdowns."""
+    import tempfile
+
+    from tpu_perf_torch import cli, kernels
+    from tpu_perf_torch.report import aggregate, interference_matrix
+    from tpu_perf_torch.schema import ResultRow
+
+    said = []
+    for victim, load, load_axis in (("ici", "allreduce", "dcn"),
+                                    ("ici", "allreduce", "ici"),
+                                    ("dcn", "allreduce", "ici"),
+                                    ("dcn", "allreduce", "dcn"),
+                                    ("ici", "hbm_stream", None)):
+        what = (f"contend --mesh 2x4 --victim-axis {victim} --load {load}"
+                + (f" --load-axis {load_axis}" if load_axis else ""))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-axes-") as d:
+            kernels.reset_counts()
+            argv = ["contend", "--mesh", "2x4", "--axes", "dcn,ici", "--op",
+                    "allreduce", "--load", load, "--victim-axis", victim,
+                    "-b", str(MESH_CONTEND_BYTES), "-i", str(ITERS), "-r",
+                    str(MESH_CONTEND_RUNS), "-l", d]
+            if load_axis:
+                argv += ["--load-axis", load_axis]
+            rc = cli.main(argv)
+            rows = []
+            for name in os.listdir(d):
+                with open(os.path.join(d, name)) as fh:
+                    rows += [ResultRow.from_csv(ln) for ln in fh
+                             if ln.strip()]
+        idle = [r for r in rows if not r.load]
+        loaded = [r for r in rows if r.load]
+        if (rc != 0 or len(idle) != MESH_CONTEND_RUNS
+                or len(loaded) != MESH_CONTEND_RUNS
+                or {(r.load, r.stream) for r in loaded} != {(load, 1)}
+                or {r.n_devices for r in rows} != {8}
+                or any(kernels.PLAIN_CALLS.values())):
+            fail(f"{what}: rc {rc}, {len(idle)} idle and {len(loaded)} "
+                 f"loaded rows")
+        [cell] = interference_matrix(aggregate(rows))
+        said.append(f"victim along {victim} under {load}"
+                    + (f" along {load_axis}" if load_axis else "")
+                    + f": idle {cell.idle.lat_us['p50']:.1f} us, loaded "
+                    f"{cell.loaded.lat_us['p50']:.1f} us, x"
+                    f"{cell.slowdown:.3f}")
+    print(f"contend: allreduce at {MESH_CONTEND_BYTES} B/rank on a 2 x 4 sim "
+          f"mesh (dcn, ici), -i {ITERS} -r {MESH_CONTEND_RUNS}, p50 lat: "
+          + "; ".join(said) + f" ({CARD})")
+
+
 # --- the multi-rank world ---------------------------------------------------
 
 #: the NCCL world of one's library ops: no kernel of the port
@@ -3199,6 +3482,8 @@ def ipc_world(n: int, rank: int, port: int, cards: int = 1) -> None:
     said = _ipc_pushes(world)
     kernels.reset_counts()
     print(f"rank {rank} of {n}: {said}")
+    if n == 4:
+        _ipc_contend(rank, dev)
     print(f"rank {rank} of {n}: every pl_* op across {n} processes on "
           f"{min(n, cards)} card(s) through CUDA IPC at {IPC_BYTES[0]} B and 16 MiB, "
           f"{IPC_STEPS} steps each: bit for bit the sim kernels, each op's "
@@ -3206,6 +3491,38 @@ def ipc_world(n: int, rank: int, port: int, cards: int = 1) -> None:
           "set: the pads and generation count them")
     print("IPC_LAUNCHES " + json.dumps(totals))
     dist.destroy_process_group()
+
+
+#: contend in the IPC world of 4 on a 2 x 2 mesh: (victim axis, load
+#: axis), the victim's bytes a rank, runs
+IPC_CONTEND = (("ici", "dcn"), ("dcn", "ici"))
+IPC_CONTEND_BYTES, IPC_CONTEND_RUNS = 1024 * 1024, 5
+
+
+def _ipc_contend(rank: int, dev) -> None:
+    """contend in the IPC world of 4 processes on a 2 x 2 mesh (dcn,
+    ici): allreduce along one axis loaded by allreduce along the other,
+    each lane on process groups of its own (gloo carries them: NCCL
+    refuses two ranks on one card).  Prints each race's rows as
+    IPC_CONTEND json; every rank's must be the same (each run's time its
+    maximum over the ranks)."""
+    from tpu_perf_torch.config import Options
+    from tpu_perf_torch.parallel import make_mesh
+    from tpu_perf_torch.streams.contend import run_contend
+    from tpu_perf_torch.world import DistWorld
+
+    world = DistWorld(rank=rank, n=4, local_rank=0, device=dev,
+                      mesh=make_mesh((2, 2), ("dcn", "ici"), n=4))
+    for victim, load_axis in IPC_CONTEND:
+        opts = Options(op="allreduce", load="allreduce",
+                       buff_sz=IPC_CONTEND_BYTES, iters=ITERS,
+                       num_runs=IPC_CONTEND_RUNS)
+        rows = run_contend(opts, world=world, axis=victim,
+                           load_axis=load_axis)
+        print("IPC_CONTEND " + json.dumps({
+            "victim": victim, "rank": rank,
+            "rows": [(r.load, r.stream, r.n_devices, r.nbytes, r.time_ms)
+                     for r in rows]}))
 
 
 def _ipc_pushes(world, chunk: int = 1027) -> str:
@@ -3276,6 +3593,7 @@ def _ipc_worlds(cards: int = 1) -> dict:
     ``python3 -c "import chip_smoke as c; c.ipc_across_cards(4)"``."""
     here = os.path.dirname(os.path.abspath(__file__))
     totals = {}
+    contended: dict[str, dict] = {}
     for n in IPC_RANKS:
         port = _free_port()
         t0 = time.perf_counter()
@@ -3302,10 +3620,33 @@ def _ipc_worlds(cards: int = 1) -> dict:
                 if line.startswith("IPC_LAUNCHES "):
                     for k, v in json.loads(line.split(" ", 1)[1]).items():
                         totals[k] = totals.get(k, 0) + v
+                elif line.startswith("IPC_CONTEND "):
+                    race = json.loads(line.split(" ", 1)[1])
+                    contended.setdefault(race["victim"], {})[
+                        race["rank"]] = race["rows"]
                 else:
                     print(f"distributed: {line}")
         print(f"distributed: the ipc world of {n} on {min(n, cards)} "
               f"card(s) in {time.perf_counter() - t0:.1f} s")
+    said = []
+    for victim, load_axis in IPC_CONTEND:
+        ranks = contended.get(victim, {})
+        rows = ranks.get(0, [])
+        if (sorted(ranks) != [0, 1, 2, 3]
+                or any(v != rows for v in ranks.values())
+                or len(rows) != 2 * IPC_CONTEND_RUNS
+                or {tuple(r[:3]) for r in rows}
+                != {("", 0, 4), ("allreduce", 1, 4)}):
+            fail(f"ipc world of 4: contend along {victim}: rows by rank "
+                 f"{ {k: len(v) for k, v in ranks.items()} }")
+        idle = _median([r[4] for r in rows if not r[0]])
+        loaded = _median([r[4] for r in rows if r[0]])
+        said.append(f"allreduce along {victim} under allreduce along "
+                    f"{load_axis}: x{loaded / idle:.3f}")
+    print(f"distributed: contend in the ipc world of 4 on one card, mesh "
+          f"2 x 2 (gloo), {IPC_CONTEND_BYTES} B/rank, -i {ITERS} -r "
+          f"{IPC_CONTEND_RUNS}, rows identical on the 4 ranks: "
+          + "; ".join(said))
     return totals
 
 
@@ -3900,6 +4241,57 @@ def _cards_cli(n: int, device: str) -> list[str]:
                     f"hier_allreduce at {HIER_BYTES} B, lat p50 "
                     f"{_median(lat[0]):.1f} us, rows identical on the {n} "
                     f"ranks ({time.perf_counter() - t0:.1f} s)")
+        # the adaptive stop rule across the cards: each rank's samples its
+        # own, every rank's runs the same (the vote)
+        t0 = time.perf_counter()
+        logs = os.path.join(root, "adaptive")
+        _torchrun(n, ["run", "--op", "pl_allreduce,allreduce", "--sweep",
+                      CARDS_SWEEP, "-i", str(ITERS), *ADAPTIVE, "-l", logs],
+                  "torchrun run --distributed --ci-rel", device)
+        rows = _logged_rows(logs)
+        taken = {k: sorted((r.op, r.nbytes, r.run_id, r.runs_taken)
+                           for r in rows.get(k, [])) for k in range(n)}
+        lasts = {}
+        for op, nb, run_id, _ in taken[0]:
+            lasts[(op, nb)] = max(lasts.get((op, nb), 0), run_id)
+        if (sorted(rows) != list(range(n))
+                or any(v != taken[0] for v in taken.values())
+                or not all(MIN_RUNS <= k <= MAX_RUNS
+                           for k in lasts.values())):
+            fail(f"across cards: --ci-rel runs differ between ranks or "
+                 f"leave their bounds: {lasts}, rows by rank "
+                 f"{ {k: len(v) for k, v in taken.items()} }")
+        said.append(f"run --distributed --ci-rel {CI_REL} --min-runs "
+                    f"{MIN_RUNS} --max-runs {MAX_RUNS}: runs a point "
+                    + ", ".join(f"{op}@{nb} {k}" for (op, nb), k
+                                in sorted(lasts.items()))
+                    + f", the same on the {n} ranks "
+                    f"({time.perf_counter() - t0:.1f} s)")
+        # contend on a 2 x 2 mesh across the cards, each axis in turn
+        for victim, other in (("ici", "dcn"), ("dcn", "ici")):
+            t0 = time.perf_counter()
+            logs = os.path.join(root, f"contend-{victim}")
+            _torchrun(n, ["contend", "--mesh", "2x2", "--axes", "dcn,ici",
+                          "--op", "allreduce", "--load", "allreduce",
+                          "--victim-axis", victim, "--load-axis", other,
+                          "-b", str(MESH_CONTEND_BYTES), "-i", str(ITERS),
+                          "-r", str(MESH_CONTEND_RUNS), "-l", logs],
+                      f"torchrun contend --victim-axis {victim}", device)
+            rows = _logged_rows(logs)
+            got = {k: [(r.load, r.stream, r.time_ms) for r in rows.get(k, [])]
+                   for k in range(n)}
+            if (any(v != got[0] for v in got.values())
+                    or len(got[0]) != 2 * MESH_CONTEND_RUNS):
+                fail(f"across cards: contend along {victim}: rows "
+                     f"{ {k: len(v) for k, v in got.items()} }")
+            idle = _median([t for ld, _, t in got[0] if not ld])
+            loaded = _median([t for ld, _, t in got[0] if ld])
+            said.append(f"contend on 2 x 2: allreduce at "
+                        f"{MESH_CONTEND_BYTES} B along {victim} under "
+                        f"allreduce along {other}: idle {idle:.4f} ms, "
+                        f"loaded {loaded:.4f} ms, x{loaded / idle:.3f}, "
+                        f"rows identical on the {n} ranks "
+                        f"({time.perf_counter() - t0:.1f} s)")
     return said
 
 
@@ -4832,6 +5224,9 @@ def _main(torch) -> int:
         timed("compute", phase_compute)
         timed("streams", phase_streams)
         timed("bench", phase_bench)
+        timed("adaptive", phase_adaptive)
+        timed("pipeline", phase_pipeline)
+        timed("contend", phase_contend_axes)
         _, peer_rows = timed("distributed", phase_distributed)
     finally:
         shutil.rmtree(REPORT_DIR, ignore_errors=True)

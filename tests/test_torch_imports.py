@@ -63,7 +63,10 @@ SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.parallel", "tpu_perf_torch.parallel.mesh",
                  "tpu_perf_torch.parallel.multihost",
                  "tpu_perf_torch.tools.peer_designs",
-                 "tpu_perf_torch.tools.fence_windows")
+                 "tpu_perf_torch.tools.fence_windows",
+                 "tpu_perf_torch.adaptive", "tpu_perf_torch.health",
+                 "tpu_perf_torch.health.stats",
+                 "tpu_perf_torch.compilepipe")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -153,7 +156,9 @@ def test_build_module_names_every_cuda_source_and_its_c_entry():
                       "peer_barrier_copy"), "peer_collectives")}
     cuda_kernels = set(kernels.KERNELS) - {"stream"}
     assert ({source_of.get(k, k) for k in cuda_kernels}
-            == set(_build._ENTRIES))
+            == set(_build._ENTRIES) - set(_build.HELPERS))
+    # the timing layer's helpers count no launches and port no TPU kernel
+    assert not set(_build.HELPERS) & set(kernels.KERNELS)
 
 
 def test_row_copy_tiles_are_the_sources():

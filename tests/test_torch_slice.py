@@ -96,8 +96,11 @@ def test_cli_writes_both_log_families(tmp_path, capsys):
     assert cli.main(["run", "--op", "pl_allreduce", "-b", "4K", "-i", "2",
                      "-r", "3", "-l", str(tmp_path), "--device", "cpu"]) == 0
     assert capsys.readouterr().out == ""  # a logfolder without --csv
-    names = sorted(os.listdir(tmp_path))
+    # the two log families, and beside them the run's phase sidecar
+    names = sorted(n for n in os.listdir(tmp_path) if n.endswith(".log"))
     assert [n.split("-")[0] for n in names] == ["tcp", "tpu"]
+    assert [n.split("-")[0] for n in os.listdir(tmp_path)
+            if not n.endswith(".log")] == ["phase"]
     tcp = (tmp_path / names[0]).read_text().splitlines()
     tpu = (tmp_path / names[1]).read_text().splitlines()
     legacy = [jschema.LegacyRow.from_csv(ln) for ln in tcp]

@@ -436,8 +436,10 @@ def test_json_heartbeat_keys_and_points_match_jax(kw, eight_devices):
     for g, w in zip(got, want):
         assert set(g) <= set(w)
         assert {"event", "run", "window", "samples", "dropped", "points",
-                "total_ms", "min_ms", "max_ms", "avg_ms",
+                "phase", "total_ms", "min_ms", "max_ms", "avg_ms",
                 "p50_ms"} == set(g)
+        # the harness' phases so far, JAX's three keys
+        assert set(g["phase"]) == set(w["phase"])
         for k in ("event", "run", "window", "samples", "dropped", "points"):
             assert g[k] == w[k], k
         assert g["window"] == jschema.window_index(g["run"], kw["stats_every"])

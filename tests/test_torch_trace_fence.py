@@ -2,10 +2,15 @@
 a failing ``chip_smoke.py`` that names its phase.
 
 Each leg of a trace pair is one CUDA graph with its start and end events
-inside it (``timing.TraceRunner``).  With ``torch.cuda`` stubbed by a
-recorder, a measured pair must be one replay a leg and one fence, with no
-event recorded and no step launched by the host between a leg's events:
-a host stall then cannot enter a leg.  No card is needed.
+inside it (``timing.TraceRunner``), the lo leg behind the trace gate
+(``timing.TraceGate``).  With ``torch.cuda`` and the gate stubbed by a
+recorder, a measured pair must be one replay a leg, the gate's opening
+and one fence, with no event recorded and no step launched by the host
+between a leg's events: a host stall then cannot enter a leg.  The
+recorder's card starts a graph when its replay is submitted unless a
+closed gate holds it, and a host preempted halfway through submitting a
+graph that already runs stalls it: behind the gate such a stall enters
+neither leg.  No card is needed.
 """
 
 import contextlib
@@ -31,9 +36,30 @@ class _Recorder:
         self.durations = durations
         self.capturing = None
         self.clock = 0.0
+        # graphs submitted but held behind a closed gate, in stream order
+        self.pending = []
+        # host ms a submission is preempted halfway, by leg
+        self.preempt = {}
 
     def install(self, monkeypatch):
         rec = self
+
+        class Gate:
+            def __init__(self, device):
+                pass
+
+            def wait(self):
+                rec.log.append(("gate", rec.capturing))
+                if rec.capturing is not None:
+                    rec.capturing.gated = True
+
+            def open(self):
+                rec.log.append(("open",))
+                held, rec.pending = rec.pending, []
+                for g in held:
+                    g.run(started=False)
+
+        monkeypatch.setattr(timing, "TraceGate", Gate)
 
         class Event:
             def __init__(self, enable_timing=False, external=False):
@@ -53,12 +79,26 @@ class _Recorder:
             def __init__(self):
                 self.events = []
                 self.leg = None
+                self.gated = False
 
             def replay(self):
                 rec.log.append(("replay", self.leg))
+                if self.gated or rec.pending:
+                    # the card holds it (and what follows on its stream)
+                    # until the gate opens: by then it is all submitted
+                    rec.pending.append(self)
+                    rec.clock += rec.preempt.get(self.leg, 0.0)
+                else:
+                    self.run(started=True)
+
+            def run(self, started):
                 start, end = self.events
                 start.t = rec.clock
                 rec.clock += rec.durations[self.leg][0]
+                if started:
+                    # the card runs the part submitted so far, then waits
+                    # for the preempted host to submit the rest
+                    rec.clock += rec.preempt.get(self.leg, 0.0)
                 end.t = rec.clock
                 rec.durations[self.leg].append(
                     rec.durations[self.leg].pop(0))
@@ -122,28 +162,56 @@ def test_a_trace_visit_puts_no_host_call_inside_a_leg(monkeypatch):
     # lo takes 1 ms of device time, hi 3 ms, at 5 and 20 executions
     rec, runner = _runner(monkeypatch, {"lo": [1.0], "hi": [3.0]})
     runner.warm()
-    # the warm-up: one eager run of each leg, then each leg captured: its
-    # lead-in spin, then the leg between its own two events; then one
-    # unrecorded pair of replays
-    captures = rec.log[rec.log.index(("step", "hi")) + 1:]
-    assert rec.log[:2] == [("step", "lo"), ("step", "hi")]
-    for leg in ("lo", "hi"):
+    # the warm-up: one eager run of each leg and one eager open gate, then
+    # each leg captured: the lo leg's gate, its lead-in spin, then the leg
+    # between its own two events; then one unrecorded pair of replays
+    assert rec.log[:5] == [("step", "lo"), ("step", "hi"), ("open",),
+                           ("gate", None), ("sync",)]
+    captures = rec.log[5:]
+    for leg, head in (("lo", ["gate", "spin"]), ("hi", ["spin"])):
         i = captures.index(("capture",))
         g = runner._graphs[leg][0]
-        assert captures[i:i + 6] == [
-            ("capture",), ("spin", g), ("record", g), ("step", leg),
-            ("record", g), ("captured",)]
-        captures = captures[i + 6:]
-    assert captures == [("replay", "lo"), ("replay", "hi"), ("sync",)]
+        want = [("capture",), *[(h, g) for h in head], ("record", g),
+                ("step", leg), ("record", g), ("captured",)]
+        assert captures[i:i + len(want)] == want
+        captures = captures[i + len(want):]
+    assert captures == [("replay", "lo"), ("replay", "hi"), ("open",),
+                        ("sync",)]
     for visit in range(3):
         rec.log.clear()
         per_exec = runner.sample()
-        # one replay a leg, one fence after both, then the events' reads:
-        # no event recorded and no step launched by the host
-        assert rec.log == [("replay", "lo"), ("replay", "hi"), ("sync",),
-                           ("elapsed",), ("elapsed",)]
+        # one replay a leg, the gate's opening, one fence after both, then
+        # the events' reads: no event recorded and no step launched by
+        # the host
+        assert rec.log == [("replay", "lo"), ("replay", "hi"), ("open",),
+                           ("sync",), ("elapsed",), ("elapsed",)]
         assert per_exec == pytest.approx((3.0 - 1.0) * 1e-3 / 15)
     assert runner.pairs == 3
+
+
+def test_a_host_preempted_mid_submission_stalls_no_gated_leg(monkeypatch):
+    # the host is preempted for 50 ms halfway through submitting each leg:
+    # behind the gate the card starts lo only once both legs are on its
+    # queue, so neither leg waits for the host
+    rec, runner = _runner(monkeypatch, {"lo": [1.0], "hi": [3.0]})
+    runner.warm()
+    rec.preempt = {"lo": 50.0, "hi": 50.0}
+    for _ in range(3):
+        assert runner.pair() == pytest.approx((1e-3, 3e-3))
+        assert runner.sample() == pytest.approx((3.0 - 1.0) * 1e-3 / 15)
+
+
+def test_without_the_gate_a_preempted_submission_stalls_the_lo_leg(
+        monkeypatch):
+    # the fence before the gate: the card starts lo at its replay and waits
+    # inside it for the rest of the submission, and the pair goes
+    # non-positive
+    rec, runner = _runner(monkeypatch, {"lo": [1.0], "hi": [3.0]})
+    monkeypatch.setattr(runner, "head", runner.lead_in)
+    runner.warm()
+    rec.preempt = {"lo": 50.0}
+    with pytest.raises(RuntimeError, match="non-positive"):
+        runner.sample()
 
 
 def test_a_stall_around_a_replay_stays_out_of_the_leg(monkeypatch):
@@ -182,8 +250,10 @@ def test_time_trace_frees_its_graphs_after_its_pairs(monkeypatch):
                               5, 20, 4, warmup_runs=2)
     assert times.samples == pytest.approx([1e-3 / 15] * 4)
     assert closed == [4]
-    # two unrecorded pairs in the warm-up, four measured
+    # two unrecorded pairs in the warm-up, four measured, each opening the
+    # gate once
     assert rec.log.count(("replay", "lo")) == 6
+    assert rec.log.count(("open",)) == 1 + 6
 
 
 def test_the_trace_runner_needs_a_card_and_two_trip_counts():

@@ -3,7 +3,8 @@ one-device set).  Prints ONE JSON line::
 
     {"metric": ..., "value": N, "unit": ..., "vs_peak": N, "runs_valid": N,
      "runs_dropped": N, "card": {...}, "metrics": [{...}, ...],
-     "dispatch_overhead": {...}, "contention": {...}}
+     "phases": {...}, "adaptive": {...}, "dispatch_overhead": {...},
+     "contention": {...}}
 
 The top-level fields are the first instrument's; ``metrics`` carries every
 instrument, labelled as the JAX package labels them:
@@ -24,6 +25,14 @@ product rate); on the CPU it is null, and an unknown card raises.  The
 port defends no plateau floor yet, so each instrument takes one pass.
 The fence is ``trace`` on the card and ``slope`` on the CPU; a failed
 device-time capture raises, it never falls back.
+
+``phases`` is the benchmark's own compile / measure / log split and wall
+(:class:`tpu_perf_torch.compilepipe.PhaseTimer`).  Each instrument's run
+budget is a cap: a point stops once the CI of its running mean is within
+2% at 95% confidence (:mod:`tpu_perf_torch.adaptive`), and ``adaptive``
+sums what that saved.  The trace fence keeps its fixed budget (its legs
+are captured once for it), so on the card only the fences that stop
+early add to ``adaptive``, which is left out when nothing did.
 
 ``dispatch_overhead`` prices the host's turn-taking at 8, 512 and 4096 B
 of ``hbm_stream``: one fenced dispatch a run (``host_us``), the runs on 4
@@ -60,6 +69,20 @@ CONTEND_NBYTES, CONTEND_RUNS, CONTEND_ITERS = 262144, 12, 4
 #: rank, and the ring all-reduce (sim ranks, bytes per rank, iters, runs)
 STREAM_POINT = (256 * _MIB, 20, 5)
 ALLREDUCE_POINT = (8, 4 * _MIB, 20, 5)
+#: the early stop's target and its first vote (the JAX package's): a
+#: published number's interval within 2%
+ADAPTIVE_CI, ADAPTIVE_MIN_RUNS = 0.02, 5
+
+
+def _adaptive(runs: int):
+    """The early-stop policy for a budget of ``runs``, or None when the
+    budget is not above the first vote."""
+    if runs <= ADAPTIVE_MIN_RUNS:
+        return None
+    from tpu_perf_torch.adaptive import AdaptiveConfig
+
+    return AdaptiveConfig(ci_rel=ADAPTIVE_CI, min_runs=ADAPTIVE_MIN_RUNS,
+                          max_runs=runs)
 
 
 def card_label(device) -> dict:
@@ -107,7 +130,19 @@ def _fence(world: SimWorld) -> str:
     return "trace" if world.device.type == "cuda" else "slope"
 
 
-def _best_of_points(world: SimWorld, points) -> tuple:
+def _run(opts: Options, world: SimWorld, nbytes: int, phases,
+         adaptive_log: list) -> object:
+    """run_point with the job's phase timer and the early stop, its
+    verdict kept in ``adaptive_log``."""
+    point = run_point(opts, world, nbytes, phases=phases,
+                      adaptive=_adaptive(opts.num_runs))
+    if point.adaptive is not None:
+        adaptive_log.append(point.adaptive)
+    return point
+
+
+def _best_of_points(world: SimWorld, points, phases,
+                    adaptive_log: list) -> tuple:
     """Measure every (label, op, nbytes, iters, dtype, runs, to_value)
     point once; returns the best p50 as (value, label, fence, valid,
     dropped).  A point whose slope samples were all lost is skipped; no
@@ -119,12 +154,14 @@ def _best_of_points(world: SimWorld, points) -> tuple:
                        fence=fence, dtype=dtype, sim_ranks=world.n,
                        device=world.device.type)
         try:
-            point = run_point(opts, world, nbytes)
+            point = _run(opts, world, nbytes, phases, adaptive_log)
         except DegenerateSlopeError:
             continue
         rows = point.rows(opts.uuid, backend=world.backend)
         p50 = percentile([to_value(r) for r in rows], 50)
-        candidates.append((p50, label, fence, len(rows), runs - len(rows)))
+        taken = (point.adaptive["attempted"] if point.adaptive is not None
+                 else runs)
+        candidates.append((p50, label, fence, len(rows), taken - len(rows)))
     if not candidates:
         raise RuntimeError("bench: every measurement lost all its slope "
                            "samples to timing noise")
@@ -132,12 +169,12 @@ def _best_of_points(world: SimWorld, points) -> tuple:
 
 
 def _p50_busbw(op: str, world: SimWorld, nbytes: int, iters: int,
-               runs: int) -> dict:
+               runs: int, phases, adaptive_log: list) -> dict:
     fence = _fence(world)
     opts = Options(op=op, iters=iters, num_runs=runs, warmup_runs=2,
                    fence=fence, sim_ranks=world.n,
                    device=world.device.type)
-    point = run_point(opts, world, nbytes)
+    point = _run(opts, world, nbytes, phases, adaptive_log)
     rows = point.rows(opts.uuid, backend=world.backend)
     busbw = sorted(r.busbw_gbps for r in rows)[len(rows) // 2]
     return {"op": op, "backend": world.backend, "n_devices": world.n,
@@ -221,6 +258,12 @@ def contention(world: SimWorld, nbytes=CONTEND_NBYTES, runs=CONTEND_RUNS,
 
 
 def main(device: str | None = None) -> dict:
+    from tpu_perf_torch.compilepipe import PhaseTimer
+
+    # the benchmark's own compile / measure / log split
+    phases = PhaseTimer()
+    phases.start()
+    adaptive_log: list[dict] = []
     dev = resolve_device(device)
     card = card_label(dev)
     spec = card_entry(dev)
@@ -230,7 +273,7 @@ def main(device: str | None = None) -> dict:
         v, label, fence, valid, dropped = _best_of_points(one, [
             (f"{op}_busbw_p50@{s}MiB[1dev]", op, s * _MIB, i, "float32",
              STREAM_RUNS, lambda r: r.busbw_gbps)
-            for s, i in STREAM_POINTS])
+            for s, i in STREAM_POINTS], phases, adaptive_log)
         instruments.append(instrument(label, v, "GB/s", spec, "hbm",
                                       "float32", fence, valid, dropped))
     mxu_bytes = MXU_M * MXU_M * 2
@@ -238,15 +281,16 @@ def main(device: str | None = None) -> dict:
     v, label, fence, valid, dropped = _best_of_points(one, [
         (f"mxu_gemm_tflops_p50@m{MXU_M}bf16[1dev]", "mxu_gemm", mxu_bytes,
          MXU_ITERS, "bfloat16", MXU_RUNS,
-         lambda r: flops / (r.lat_us * 1e-6) / 1e12)])
+         lambda r: flops / (r.lat_us * 1e-6) / 1e12)], phases,
+        adaptive_log)
     instruments.append(instrument(label, v, "TFLOP/s", spec, "mxu",
                                   "bfloat16", fence, valid, dropped))
     nbytes, iters, runs = STREAM_POINT
-    own = [_p50_busbw(op, one, nbytes, iters, runs)
+    own = [_p50_busbw(op, one, nbytes, iters, runs, phases, adaptive_log)
            for op in ("pl_hbm_stream", "hbm_stream")]
     n, nbytes, iters, runs = ALLREDUCE_POINT
     own.append(_p50_busbw("pl_allreduce", SimWorld(n, dev), nbytes, iters,
-                          runs))
+                          runs, phases, adaptive_log))
     metrics = instruments + own
     for m in metrics:
         m["card"] = card
@@ -256,5 +300,18 @@ def main(device: str | None = None) -> dict:
     payload["metrics"] = metrics
     payload["dispatch_overhead"] = dispatch_overhead(one)
     payload["contention"] = contention(one)
+    phases.stop()
+    payload["phases"] = {**phases.snapshot(),
+                         "wall_s": round(phases.wall_s, 3)}
+    if adaptive_log:
+        # what the early stop handed back across every measurement;
+        # runs_attempted is budget consumed, dropped runs included
+        payload["adaptive"] = {
+            "ci_rel": ADAPTIVE_CI,
+            "points": len(adaptive_log),
+            "runs_requested": sum(a["requested"] for a in adaptive_log),
+            "runs_attempted": sum(a["attempted"] for a in adaptive_log),
+            "runs_saved": sum(a["saved"] for a in adaptive_log),
+        }
     print(json.dumps(payload))
     return payload

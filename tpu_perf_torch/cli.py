@@ -42,6 +42,11 @@ world, one process a rank (``torchrun``); ``--mesh`` / ``--axes`` and
         --streams 4
     python -m tpu_perf_torch contend --op allreduce --load hbm_stream -b 256K \
         -i 4 -r 12 -l /tmp/logs; python -m tpu_perf_torch report /tmp/logs
+    python -m tpu_perf_torch contend --mesh 2x4 --axes dcn,ici --op allreduce \
+        --load allreduce --victim-axis ici --load-axis dcn -b 1M
+    python -m tpu_perf_torch run --op pl_allreduce --sweep 4K:256M \
+        --ci-rel 0.05 --min-runs 5 --max-runs 50 --precompile auto \
+        --compile-cache /tmp/kcache -l /tmp/logs
     python -m tpu_perf_torch ops
     python -m tpu_perf_torch chips
     python -m tpu_perf_torch selftest
@@ -73,6 +78,21 @@ class _ZeroOne(argparse.Action):
 
     def __call__(self, parser, namespace, value, option_string=None):
         setattr(namespace, self.dest, (value or "1") == "1")
+
+
+def _precompile_arg(value: str):
+    """``--precompile N|auto``: a depth, or ``auto``."""
+    if value == "auto":
+        return value
+    try:
+        n = int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--precompile takes a depth N >= 0 or 'auto', got {value!r}")
+    if n < 0:
+        raise argparse.ArgumentTypeError(
+            f"--precompile depth must be >= 0, got {n}")
+    return n
 
 
 def _add_world_flags(p: argparse.ArgumentParser) -> None:
@@ -144,7 +164,12 @@ def _options_from(args: argparse.Namespace, **overrides) -> Options:
         sweep=args.sweep,
         dtype=args.dtype, fence=args.fence, fused_chunks=args.fused_chunks,
         measure_dispatch=args.measure_dispatch, profile_dir=args.profile_dir,
-        max_runs=args.max_runs,
+        max_runs=args.max_runs, ci_rel=args.ci_rel,
+        ci_confidence=args.ci_confidence, ci_statistic=args.ci_statistic,
+        min_runs=args.min_runs,
+        precompile=1 if args.precompile == "auto" else args.precompile,
+        precompile_auto=args.precompile == "auto",
+        compile_cache=args.compile_cache,
         stats_every=args.stats_every, log_refresh_sec=args.log_refresh_sec,
         streams=args.streams, sim_ranks=_sim_ranks(args), device=args.device,
         mesh_shape=mesh_shape, mesh_axes=mesh_axes,
@@ -236,10 +261,6 @@ def _cmd_contend(args: argparse.Namespace) -> int:
               f"{args.split}", file=sys.stderr)
         return 2
     refused = [
-        (args.victim_axis is not None or args.load_axis is not None,
-         "--victim-axis / --load-axis need the multi-card world"),
-        (args.distributed or args.hybrid_mesh or bool(args.mesh),
-         "contend in a multi-rank world or on a mesh"),
         (args.synthetic is not None,
          "--synthetic needs the fault injector's seeded series"),
         (args.algo != "native", f"--algo {args.algo} needs the arena"),
@@ -258,20 +279,39 @@ def _cmd_contend(args: argparse.Namespace) -> int:
               "stream engine dispatches in-process steps; the C baseline "
               "has no dispatch lanes)", file=sys.stderr)
         return 2
+    if args.ci_rel is not None or args.precompile != 0:
+        print("tpu-perf-torch: error: --ci-rel / --precompile apply to "
+              "run/monitor (contend races fixed run counts, idle and "
+              "loaded alike)", file=sys.stderr)
+        return 2
+    if args.hybrid_mesh and args.mesh:
+        print("tpu-perf-torch: error: --hybrid-mesh and --mesh are exclusive",
+              file=sys.stderr)
+        return 2
     opts = _options_from(
         args, load=f"split:{args.split}" if args.split else args.load)
-    rows = run_contend(opts)
+    from tpu_perf_torch.runner import world_for
+    from tpu_perf_torch.world import is_dist
+
+    world = world_for(opts)
+    rows = run_contend(opts, world=world, axis=args.victim_axis,
+                       load_axis=args.load_axis)
+    rank = world.rank if is_dist(world) else 0
     if opts.logfolder:
         # the rotating extended-row family, so `report <folder>` renders
         # the interference matrix from this job
         from tpu_perf_torch.driver import RotatingCsvLog
 
-        log = RotatingCsvLog(opts.logfolder, opts.uuid, 0,
+        log = RotatingCsvLog(opts.logfolder, opts.uuid, rank,
                              refresh_sec=opts.log_refresh_sec,
                              prefix=EXT_PREFIX)
         for row in rows:
             log.write_row(row)
         log.close()
+    if rank != 0:
+        # every rank holds the same rows (each run's time its maximum
+        # over the ranks); rank 0 prints them
+        return 0
     if args.csv or not opts.logfolder:
         _print_rows(rows)
     from tpu_perf_torch.report import aggregate, interference_matrix
@@ -373,7 +413,8 @@ def _cmd_report(args: argparse.Namespace) -> int:
         print(f"tpu-perf-torch: no result files match {args.target!r}",
               file=sys.stderr)
         return 1
-    points = report.stream_aggregate(paths)
+    # one streaming pass folds the curves and the adaptive verdicts
+    points, adaptive = report.stream_report(paths)
     if args.compare or args.compare_pallas:
         if args.format != "markdown" or (args.compare and args.compare_pallas):
             print("tpu-perf-torch: error: --compare/--compare-pallas render "
@@ -395,6 +436,16 @@ def _cmd_report(args: argparse.Namespace) -> int:
         if interference:
             print("\n### Interference matrix\n")
             print(report.interference_to_markdown(interference))
+        # the harness' own phases (the phase-*.json sidecars beside the
+        # logs) and the early stop's savings (rows with runs_requested),
+        # each only when there is one
+        entries = report.read_phases(args.target)
+        if entries:
+            print("\n### Harness phases\n")
+            print(report.phases_to_markdown(entries))
+        if adaptive:
+            print("\n### Adaptive savings\n")
+            print(report.adaptive_to_markdown(adaptive))
     return 0
 
 
@@ -602,7 +653,33 @@ def _add_run_flags(p: argparse.ArgumentParser) -> None:
                         "measured window here (finite runs)")
     p.add_argument("--max-runs", type=int, default=None, metavar="N",
                    help="daemon mode (monitor, -r -1): stop after N "
-                        "measured runs (the soak/CI safety valve)")
+                        "measured runs (the soak/CI safety valve); on a "
+                        "finite run with --ci-rel, each point's run cap "
+                        "(default: -r)")
+    p.add_argument("--ci-rel", type=float, default=None, metavar="FRAC",
+                   help="adaptive sampling: stop each point once the "
+                        "relative half-width of its confidence interval "
+                        "falls under FRAC (e.g. 0.05), bounded by "
+                        "--min-runs / --max-runs; block, readback, slope "
+                        "and fused (a chunk a vote) fences, finite runs")
+    p.add_argument("--ci-confidence", type=float, default=0.95,
+                   help="the interval's confidence: 0.90, 0.95 or 0.99")
+    p.add_argument("--ci-statistic", choices=("mean", "p50"),
+                   default="mean",
+                   help="the stop rule's target: the mean (t interval) or "
+                        "the median (order-statistic interval; the mean "
+                        "under --fence fused)")
+    p.add_argument("--min-runs", type=int, default=5, metavar="N",
+                   help="samples before the stop rule is asked")
+    p.add_argument("--precompile", type=_precompile_arg, default=0,
+                   metavar="N|auto",
+                   help="build the host half of up to N upcoming points "
+                        "(nvcc, host constants) on a worker thread while "
+                        "the main thread measures; auto tunes N from the "
+                        "compile / measure phase ratio")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="keep the kernel builds (nvcc libraries, Triton's "
+                        "cache) in DIR, so a later process builds none")
     p.add_argument("--stats-every", type=int, default=1000)
     p.add_argument("--heartbeat-format", choices=HEARTBEAT_FORMATS,
                    default="human",
@@ -734,9 +811,13 @@ def build_parser() -> argparse.ArgumentParser:
     p_ct.add_argument("--split", type=int, default=0, metavar="K",
                       help="split-channel lanes (not yet ported)")
     p_ct.add_argument("--victim-axis", default=None, metavar="AXIS",
-                      help="the victim's mesh axis (not yet ported)")
+                      help="mesh axis the victim runs along (default: "
+                           "every axis)")
     p_ct.add_argument("--load-axis", default=None, metavar="AXIS",
-                      help="the load's mesh axis (not yet ported)")
+                      help="mesh axis a collective load runs along: the "
+                           "victim's for shared-fabric contention, another "
+                           "for the disjoint-axis control (default: every "
+                           "axis)")
     p_ct.add_argument("--synthetic", type=float, default=None,
                       metavar="SECONDS",
                       help="seeded synthetic samples (not yet ported)")

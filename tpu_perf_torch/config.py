@@ -9,7 +9,10 @@ fused fence's chunk count, ``-p`` flows per node, the windowed ``-x``
 external launcher, ``--backend mpi``, the JSON heartbeat, ``--streams``
 (overlapped dispatch), ``contend``'s background ``load``, and the mesh
 and multi-process flags (``--mesh`` / ``--axes``, ``--distributed``,
-``--hybrid-mesh``).  The additions are the sim world's rank count and the
+``--hybrid-mesh``), the adaptive stop rule (``--ci-rel``,
+``--ci-confidence``, ``--ci-statistic``, ``--min-runs``, ``--max-runs`` as
+its cap) and the compile pipeline (``--precompile``,
+``--compile-cache``).  The additions are the sim world's rank count and the
 device; ``backend`` names ``torch`` where the JAX package names ``jax``.
 """
 
@@ -87,7 +90,26 @@ class Options:
                                       # overhead_us (block/readback)
     profile_dir: str | None = None    # --profile-dir: torch.profiler traces
     max_runs: int | None = None       # --max-runs: the daemon stops after
-                                      # this many measured runs
+                                      # this many measured runs; on a
+                                      # finite run, the adaptive cap (with
+                                      # --ci-rel; None = -r)
+    ci_rel: float | None = None       # --ci-rel: stop each point once the
+                                      # relative half-width of its CI falls
+                                      # under this (tpu_perf_torch.adaptive);
+                                      # None = the fixed -r budget
+    ci_confidence: float = 0.95       # --ci-confidence: 0.90 / 0.95 / 0.99
+    ci_statistic: str = "mean"        # --ci-statistic: mean (t interval)
+                                      # or p50 (order-statistic interval)
+    min_runs: int = 5                 # --min-runs: samples before the stop
+                                      # rule is asked
+    precompile: int = 0               # --precompile N: build the host half
+                                      # of up to N upcoming points on a
+                                      # worker thread (0 = serial builds)
+    precompile_auto: bool = False     # --precompile auto: the depth follows
+                                      # the compile / measure phase ratio;
+                                      # `precompile` is then its start (1)
+    compile_cache: str | None = None  # --compile-cache DIR: kernel builds
+                                      # (nvcc, Triton) kept in DIR
     streams: int = 1                  # --streams K: keep up to K sweep
                                       # points in flight, each on its own
                                       # CUDA stream, fenced in dispatch
@@ -168,13 +190,50 @@ class Options:
             )
         if self.max_runs is not None and self.max_runs < 1:
             raise ValueError(f"max_runs must be >= 1, got {self.max_runs}")
-        if self.max_runs is not None and not self.infinite:
-            # on a finite run --max-runs is the JAX package's adaptive
-            # cap, and adaptive runs are not ported yet
+        if (self.max_runs is not None and self.ci_rel is None
+                and not self.infinite):
+            # on a finite run nothing consults the cap without the
+            # controller; ignoring it would run the -r budget unasked
             raise ValueError(
-                "max_runs on a finite run is the adaptive cap, and adaptive "
-                "runs are not yet ported (use -r for a fixed budget; in "
-                "daemon mode --max-runs keeps its stop-after-N meaning)"
+                "max_runs on a finite run is the adaptive cap and needs "
+                "--ci-rel (use -r for a fixed budget; in daemon mode "
+                "--max-runs keeps its stop-after-N meaning)"
+            )
+        if self.ci_rel is not None and not 0.0 < self.ci_rel < 1.0:
+            raise ValueError(f"ci_rel must be in (0, 1), got {self.ci_rel}")
+        from tpu_perf_torch.adaptive import (
+            SUPPORTED_CONFIDENCES, SUPPORTED_STATISTICS,
+        )
+
+        if self.ci_confidence not in SUPPORTED_CONFIDENCES:
+            raise ValueError(
+                f"ci_confidence must be one of {SUPPORTED_CONFIDENCES}, "
+                f"got {self.ci_confidence}"
+            )
+        if self.ci_statistic not in SUPPORTED_STATISTICS:
+            raise ValueError(
+                f"ci_statistic must be one of {SUPPORTED_STATISTICS}, "
+                f"got {self.ci_statistic!r}"
+            )
+        if self.ci_statistic != "mean" and self.ci_rel is None:
+            raise ValueError(
+                "ci_statistic selects the adaptive stop rule's target "
+                "and needs --ci-rel (nothing else consults it)"
+            )
+        if self.min_runs < 2:
+            raise ValueError(
+                f"min_runs must be >= 2 (a variance needs two samples), "
+                f"got {self.min_runs}"
+            )
+        if self.precompile < 0:
+            raise ValueError(
+                f"precompile must be >= 0 (0 = serial builds), got "
+                f"{self.precompile}"
+            )
+        if self.precompile_auto and self.precompile < 1:
+            raise ValueError(
+                "precompile auto needs a positive initial depth (the CLI "
+                "maps --precompile auto to 1)"
             )
         if self.dtype not in SUPPORTED_DTYPES:
             raise ValueError(

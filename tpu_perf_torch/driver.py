@@ -35,7 +35,19 @@ rotating CSV logs (port of ``tpu_perf/driver.py``).
   triple and rank 0 alone prints it, and the peer of the pair topology
   (its IP from the rank-card allgather) is the legacy rows' remote and
   ``extern``'s peer; with ``--streams K`` each lane's collectives ride
-  a process group of the lane's own.
+  a process group of the lane's own;
+* ``--ci-rel`` stops each finite point early once its CI is tight
+  enough (:mod:`tpu_perf_torch.adaptive`): one observation a run under
+  block, readback and slope, one a chunk under fused, every rank voting
+  after each; it is bypassed, loudly, under the trace fence, the daemon,
+  ``--streams`` above 1, ``extern`` and a budget not above
+  ``--min-runs``;
+* the harness times its own phases (``compile`` / ``measure`` / ``log``,
+  :class:`~tpu_perf_torch.compilepipe.PhaseTimer`): the JSON heartbeat's
+  ``phase`` key and a ``phase-<job>-<rank>.json`` sidecar beside the logs;
+  ``--precompile N|auto`` builds the host half of the next points on a
+  worker thread (:class:`~tpu_perf_torch.compilepipe.CompilePipeline`),
+  and ``--compile-cache DIR`` keeps the kernel builds in DIR.
 
 The chaos, push and span paths of the JAX driver are not ported yet
 (ROADMAP).
@@ -52,12 +64,16 @@ import sys
 import time
 from typing import Callable
 
+from tpu_perf_torch.compilepipe import (
+    CompilePipeline, CompileSpec, PhaseTimer, enable_compile_cache, prepare,
+)
 from tpu_perf_torch.config import Options
 from tpu_perf_torch.metrics import summarize
 from tpu_perf_torch.ops.collectives import BuiltOp
 from tpu_perf_torch.runner import (
-    SweepPointResult, build_point_pair, max_over_ranks, ops_for_options,
-    run_point_fused, sizes_for, world_for,
+    SweepPointResult, build_point_pair, fused_plan_for, max_over_ranks,
+    ops_for_options, point_controller, run_point_fused, sizes_for,
+    without_p50, world_for,
 )
 from tpu_perf_torch.schema import (
     EXT_PREFIX, LEGACY_PREFIX, LegacyRow, ResultRow, timestamp_now,
@@ -171,6 +187,9 @@ class Driver:
                  on_rotate: Callable[[], None] | None = None,
                  ingest: Callable[[int], Callable[[], None]] | None = None,
                  err=None):
+        if opts.compile_cache:
+            # before any kernel builds, the precompile worker's included
+            enable_compile_cache(opts.compile_cache)
         self.world = world_for(opts)
         if opts.fence == "auto":
             # resolved once for the whole job, by the device
@@ -239,6 +258,86 @@ class Driver:
         self._window_points: dict[tuple[str, int], int] = {}
         if opts.group1_file:
             self._validate_group_file(opts.group1_file)
+        # the harness' own phases: compile / measure / log seconds, the
+        # precompile worker's builds added from its thread
+        self.phases = PhaseTimer(perf_clock=perf_clock)
+        self._recorded = 0  # runs recorded, dropped ones included
+        self._adaptive_cfg = self._adaptive_config()
+        # runs_attempted is budget consumed (recorded + dropped); the rows'
+        # runs_taken counts recorded samples only
+        self.adaptive_totals = {
+            "points": 0, "runs_requested": 0, "runs_attempted": 0,
+            "runs_saved": 0, "wall_saved_s": 0.0,
+        }
+        # the fused fence's chunk plan, decided once for the job so every
+        # rank of a world walks the same dispatches
+        self._fused_plan: tuple[int, ...] | None = None
+        if opts.fence == "fused":
+            cfg = self._adaptive_cfg
+            self._fused_plan = (1,) if opts.infinite else fused_plan_for(
+                opts, budget=cfg.max_runs if cfg is not None else None,
+                min_runs=cfg.min_runs if cfg is not None else None)
+        self.fused_totals = {"points": 0, "measure_dispatches": 0, "runs": 0}
+        # --precompile auto: the look-ahead follows the phase ratio, its
+        # cap the card's free memory
+        self._pipe_tuner = None
+        if opts.precompile_auto:
+            from tpu_perf_torch.adaptive import PrecompileTuner, hbm_depth_cap
+
+            cap = hbm_depth_cap(self._max_point_bytes(),
+                                device=self.world.device)
+            if cap != 8:
+                print(f"[tpu-perf-torch] precompile auto: depth cap {cap} "
+                      "from the card's free memory", file=self.err)
+            self._pipe_tuner = PrecompileTuner(initial=opts.precompile,
+                                               max_depth=cap)
+
+    def _adaptive_config(self):
+        """The job's early-stop policy under ``--ci-rel``, or None: bypassed
+        (and said so) where an early stop cannot apply."""
+        opts = self.opts
+        if opts.ci_rel is None:
+            return None
+        budget = opts.max_runs or opts.num_runs
+        bypass = None
+        if opts.infinite:
+            bypass = ("daemon mode (one run a point a cycle; no per-point "
+                      "budget to trim)")
+        elif opts.fence == "trace":
+            bypass = ("the trace fence (a point's leg graphs are captured "
+                      "once for its whole budget; --fence fused stops "
+                      "early a chunk at a time)")
+        elif opts.streams > 1:
+            bypass = ("overlapped dispatch (--streams: one lane stopping "
+                      "early would break the wave's fence order across "
+                      "ranks)")
+        elif opts.extern_cmd:
+            bypass = "extern mode (a print-only run measures no kernel)"
+        elif budget <= opts.min_runs:
+            bypass = (f"a budget of {budget} run(s) (not above --min-runs "
+                      f"{opts.min_runs}: nothing to save)")
+        if bypass is not None:
+            print(f"[tpu-perf-torch] adaptive sampling (--ci-rel) bypassed "
+                  f"under {bypass}: fixed budget", file=self.err)
+            return None
+        from tpu_perf_torch.adaptive import AdaptiveConfig
+
+        cfg = AdaptiveConfig(ci_rel=opts.ci_rel,
+                             confidence=opts.ci_confidence,
+                             min_runs=opts.min_runs, max_runs=budget,
+                             statistic=opts.ci_statistic)
+        return without_p50(cfg, self.err) if opts.fence == "fused" else cfg
+
+    def _max_point_bytes(self) -> int:
+        """The largest point the sweep holds, the unit the memory cap
+        divides the free memory by."""
+        try:
+            return max(nbytes for op in ops_for_options(self.opts)
+                       for nbytes in sizes_for(self.opts, op))
+        except ValueError:
+            # a bad family fails later, on the build path, with its own
+            # error
+            return self.opts.buff_sz
 
     @property
     def fires_ingest(self) -> bool:
@@ -290,6 +389,15 @@ class Driver:
                 "load is raced by `tpu-perf-torch contend`")
         plan = [(op, nbytes) for op in ops_for_options(self.opts)
                 for nbytes in sizes_for(self.opts, op)]
+        self.phases.start()
+        pipeline = None
+        if self.opts.precompile > 0 and not self.opts.extern_cmd:
+            # one worker builds the host half of the next `precompile`
+            # points while this thread measures
+            pipeline = CompilePipeline(
+                prepare, [self._spec(op, nbytes) for op, nbytes in plan],
+                depth=self.opts.precompile, phases=self.phases, err=self.err)
+        self._pipeline = pipeline
         try:
             if self.opts.infinite:
                 self._run_daemon(plan)
@@ -299,11 +407,114 @@ class Driver:
                 for op, nbytes in plan:
                     self._run_finite(op, nbytes)
         finally:
+            if pipeline is not None:
+                pipeline.close()
             if self.log is not None:
                 self.log.close()
             if self.ext_log is not None:
                 self.ext_log.close()
+            self.phases.stop()
+            self._write_phases()
         return self.result_rows
+
+    def _spec(self, op: str, nbytes: int) -> CompileSpec:
+        """A point's build identity, the pipeline's key."""
+        kind = "dist" if is_dist(self.world) else "sim"
+        return CompileSpec.make(
+            op, nbytes, self.opts.iters, dtype=self.opts.dtype,
+            window=self.opts.window, fused=self._fused_plan or (),
+            world=f"{kind}/{self.world.n}/{self.world.device.type}")
+
+    def _point(self, op: str, nbytes: int, world=None):
+        """One ready-to-warm point: its host half from the pipeline when
+        one runs (the wait for it is not compile work: the worker charged
+        its build), then the build on this thread, charged to compile."""
+        if self._pipeline is not None:
+            self._pipeline.get(self._spec(op, nbytes))
+        with self.phases.phase("compile"):
+            return self._build(op, nbytes, world)
+
+    def _tune_precompile(self) -> None:
+        """--precompile auto: fold the cumulative phase ratio into the
+        pipeline's depth after a point."""
+        if self._pipeline is None or self._pipe_tuner is None:
+            return
+        snap = self.phases.snapshot()
+        depth = self._pipe_tuner.update(snap["compile_s"], snap["measure_s"])
+        if depth != self._pipeline.depth:
+            print(f"[tpu-perf-torch] precompile auto: look-ahead depth -> "
+                  f"{depth} (compile {snap['compile_s']:.3f}s / measure "
+                  f"{snap['measure_s']:.3f}s)", file=self.err)
+            self._pipeline.set_depth(depth)
+
+    def _write_phases(self) -> None:
+        """The ``phase-<job>-<rank>.json`` sidecar beside the logs: the
+        phase totals and wall clock, the pipeline's depth, the fused fence's
+        dispatch audit, the adaptive totals, the lanes' totals and the
+        kernel builds this process ran.  Written atomically (a temporary
+        file, then ``os.replace``) once a run was recorded (a job that
+        fails before its first run leaves its folder empty); a failed
+        write is said, never fatal."""
+        if not self.opts.logfolder or not self._recorded:
+            return
+        from tpu_perf_torch.kernels import _build
+
+        path = os.path.join(self.opts.logfolder,
+                            f"phase-{self.opts.uuid}-{self.rank}.json")
+        data = {
+            "job_id": self.opts.uuid,
+            "rank": self.rank,
+            "backend": self.world.backend,
+            "op": self.opts.op,
+            "precompile": ("auto" if self.opts.precompile_auto
+                           else self.opts.precompile),
+            "wall_s": round(self.phases.wall_s, 6),
+            "phase": self.phases.snapshot(),
+            "kernel_builds": _build.BUILDS,
+        }
+        if self._pipe_tuner is not None:
+            data["precompile_depth"] = self._pipe_tuner.depth
+        if self.opts.fence == "fused":
+            data["fused"] = dict(self.fused_totals,
+                                 plan=list(self._fused_plan or ()),
+                                 trace=False)
+        if self._adaptive_cfg is not None:
+            data["adaptive"] = self._adaptive_snapshot()
+        if self.stream_totals["waves"]:
+            data["streams"] = {k: (round(v, 6) if isinstance(v, float) else v)
+                               for k, v in self.stream_totals.items()}
+        try:
+            os.makedirs(self.opts.logfolder, exist_ok=True)
+            tmp = path + ".tmp"
+            with open(tmp, "w") as fh:
+                json.dump(data, fh, sort_keys=True)
+                fh.write("\n")
+            os.replace(tmp, path)
+        except OSError as e:
+            print(f"[tpu-perf-torch] phase sidecar write failed: {e}",
+                  file=self.err)
+
+    def _adaptive_snapshot(self) -> dict:
+        return {k: (round(v, 6) if isinstance(v, float) else v)
+                for k, v in self.adaptive_totals.items()}
+
+    def _note_adaptive_point(self, built, controller) -> None:
+        """Fold a finished point's controller verdict into the job's
+        totals, and say what it saved."""
+        s = controller.summary()
+        self.adaptive_totals["points"] += 1
+        self.adaptive_totals["runs_requested"] += s["requested"]
+        self.adaptive_totals["runs_attempted"] += s["attempted"]
+        self.adaptive_totals["runs_saved"] += s["saved"]
+        # the runs not taken would have cost about the point's mean each
+        self.adaptive_totals["wall_saved_s"] += \
+            s["saved"] * (controller.welford.mean if s["taken"] else 0.0)
+        if s["saved"] > 0:
+            ci = "n/a" if s["ci_rel"] is None else f"{s['ci_rel']:.2%}"
+            print(f"[tpu-perf-torch] adaptive: {built.name}/{built.nbytes} "
+                  f"stopped after {s['attempted']}/{s['requested']} runs "
+                  f"(ci_rel {ci} <= target {self._adaptive_cfg.ci_rel:.2%})",
+                  file=self.err)
 
     def _build(self, op: str, nbytes: int, world=None):
         """One point's (built, built_hi) pair in ``world`` (the job's by
@@ -311,7 +522,8 @@ class Driver:
         if op == "extern":
             return _ExternOp("extern", nbytes, self.opts.iters,
                              self.world.n), None
-        return build_point_pair(self.opts, world or self.world, op, nbytes)
+        return build_point_pair(self.opts, world or self.world, op, nbytes,
+                                fused_plan=self._fused_plan)
 
     def _lane_worlds(self, k: int) -> list:
         """The world each of ``k`` lanes builds its steps in.  In a
@@ -394,27 +606,57 @@ class Driver:
                               built.example_input.device)
 
     def _run_finite(self, op: str, nbytes: int) -> None:
-        built, built_hi = self._build(op, nbytes)
-        runs = range(self.opts.num_runs)
+        built, built_hi = self._point(op, nbytes)
+        controller = None
+        if (self._adaptive_cfg is not None
+                and not isinstance(built, _ExternOp)):
+            controller = point_controller(self._adaptive_cfg, self.world)
+        # the controller's state as of each run: (requested, taken, ci_rel)
+        states: list[tuple] = []
         if isinstance(built, _ExternOp):
-            times = [self._measure(built, None) for _ in runs]
+            with self.phases.phase("measure"):
+                times = [self._measure(built, None)
+                         for _ in range(self.opts.num_runs)]
         elif isinstance(built_hi, FusedPoint):
-            # the whole budget in one graph replay a chunk, per-run device
-            # times from the events inside the graph
-            times = run_point_fused(self.opts, built, built_hi,
-                                    perf_clock=self.perf_clock).samples
+            # the whole budget in one graph replay a chunk (a chunk a stop
+            # vote under --ci-rel), per-run device times from the events
+            # inside the graph
+            times = run_point_fused(
+                self.opts, built, built_hi, perf_clock=self.perf_clock,
+                controller=_Recording(controller, states)
+                if controller is not None else None,
+                phases=self.phases).samples
+            self.fused_totals["points"] += 1
+            self.fused_totals["runs"] += len(times)
+            self.fused_totals["measure_dispatches"] += _chunks_for(
+                built_hi.plan, len(times))
         elif self.opts.fence == "trace":
             # one batch of event pairs covers the point's whole budget
-            with self._profile(built):
+            with self.phases.phase("measure"), self._profile(built):
                 per_exec = time_trace(built.step, built_hi.step,
                                       built.example_input, built.iters,
                                       built_hi.iters, self.opts.num_runs,
                                       warmup_runs=self.opts.warmup_runs)
             times = [t * built.iters for t in per_exec.samples]
         else:
-            self._warm(built, built_hi)
+            with self.phases.phase("compile"):
+                self._warm(built, built_hi)
+            budget = (self._adaptive_cfg.max_runs if controller is not None
+                      else self.opts.num_runs)
+            times = []
             with self._profile(built):
-                times = [self._measure(built, built_hi) for _ in runs]
+                while len(times) < budget:
+                    with self.phases.phase("measure"):
+                        t = self._measure(built, built_hi)
+                    times.append(t)
+                    if controller is None:
+                        continue
+                    # after the run's fence, outside its window: every
+                    # rank observes and votes after every run
+                    controller.observe(t)
+                    states.append(_state(controller))
+                    if controller.should_stop(len(times)):
+                        break
         # after the point's last fence, outside every timed window
         window: list[float] = []
         for run_id, t in enumerate(max_over_ranks(self.world, times),
@@ -422,7 +664,11 @@ class Driver:
             if t is None:
                 print(f"[tpu-perf-torch] run {run_id}: slope sample lost "
                       "to noise, skipped", file=self.err)
-            self._record_run(built, run_id, t, window)
+            self._record_run(built, run_id, t, window,
+                             adaptive=states[run_id - 1] if states else None)
+        if controller is not None:
+            self._note_adaptive_point(built, controller)
+        self._tune_precompile()
 
     def _run_overlapped(self, plan: list[tuple[str, int]], k: int) -> None:
         """The overlapped finite sweep (``--streams K``): the plan's points
@@ -443,8 +689,9 @@ class Driver:
         for w, wave in enumerate(wave_plan(plan, k)):
             lanes = []
             for lane, (op, nbytes) in wave:
-                built, built_hi = self._build(op, nbytes, worlds[lane])
-                self._warm(built, built_hi)
+                built, built_hi = self._point(op, nbytes, worlds[lane])
+                with self.phases.phase("compile"):
+                    self._warm(built, built_hi)
                 lanes.append((lane, built))
             engine = StreamEngine(len(lanes), fence_mode=self.opts.fence,
                                   perf_clock=self.perf_clock)
@@ -454,10 +701,12 @@ class Driver:
                                 self.world.device):
                 for run_id in range(1, self.opts.num_runs + 1):
                     t0 = self.perf_clock()
-                    for lane, built in lanes:
-                        engine.dispatch(lane, built.step,
-                                        built.example_input, label=built.name)
-                    walls = engine.fence_all()
+                    with self.phases.phase("measure"):
+                        for lane, built in lanes:
+                            engine.dispatch(lane, built.step,
+                                            built.example_input,
+                                            label=built.name)
+                        walls = engine.fence_all()
                     self.stream_totals["wall_s"] += self.perf_clock() - t0
                     # each lane's time its maximum over the ranks, after
                     # the run's last fence
@@ -467,6 +716,7 @@ class Driver:
                         self.stream_totals["window_s"] += walls[lane]
                         self._record_run(built, run_id, t, windows[lane],
                                          stream=lane + 1)
+            self._tune_precompile()
 
     def _run_daemon(self, plan: list[tuple[str, int]]) -> None:
         """Infinite monitoring: one measured run per visit, round-robin
@@ -482,7 +732,8 @@ class Driver:
         canon: dict[tuple, object] = {}
         points = []
         for op, nbytes in plan:
-            built, built_hi = self._build(op, nbytes)
+            built, built_hi = self._point(op, nbytes)
+            self._tune_precompile()
             if isinstance(built, _ExternOp):
                 points.append((built, None))
                 continue
@@ -494,16 +745,18 @@ class Driver:
                     built_hi = dataclasses.replace(built_hi,
                                                    example_input=keep)
                 del x
-            if isinstance(built_hi, FusedPoint):
-                built_hi = FusedRunner(built_hi, built,
-                                       perf_clock=self.perf_clock)
-                built_hi.warm()
-            elif self.opts.fence == "trace":
-                built_hi = TraceRunner(built.step, built_hi.step, keep,
-                                       built.iters, built_hi.iters)
-                built_hi.warm(self.opts.warmup_runs)
-            else:
-                self._warm(built, built_hi)
+            with self.phases.phase("compile"):
+                if isinstance(built_hi, FusedPoint):
+                    built_hi = FusedRunner(built_hi, built,
+                                           perf_clock=self.perf_clock)
+                    built_hi.warm()
+                    self.fused_totals["points"] += 1
+                elif self.opts.fence == "trace":
+                    built_hi = TraceRunner(built.step, built_hi.step, keep,
+                                           built.iters, built_hi.iters)
+                    built_hi.warm(self.opts.warmup_runs)
+                else:
+                    self._warm(built, built_hi)
             points.append((built, built_hi))
         self._print_residency(points, len(canon))
         window: list[float] = []
@@ -511,7 +764,11 @@ class Driver:
         while self.opts.max_runs is None or run_id < self.opts.max_runs:
             run_id += 1
             built, built_hi = points[(run_id - 1) % len(points)]
-            t = self._measure(built, built_hi)
+            with self.phases.phase("measure"):
+                t = self._measure(built, built_hi)
+            if isinstance(built_hi, FusedRunner):
+                self.fused_totals["measure_dispatches"] += 1
+                self.fused_totals["runs"] += 1
             self._record_run(built, run_id,
                              max_over_ranks(self.world, [t])[0], window)
 
@@ -537,7 +794,20 @@ class Driver:
               f"{', '.join(held) or 'none'}", file=self.err, flush=True)
 
     def _record_run(self, built: BuiltOp, run_id: int, t: float | None,
-                    window: list[float], *, stream: int = 0) -> None:
+                    window: list[float], *, stream: int = 0,
+                    adaptive: tuple | None = None) -> None:
+        """One run's bookkeeping (rotation, emission, the heartbeat
+        boundary), charged to the log phase.  ``adaptive`` is the
+        controller's (requested, taken, ci_rel) as of this run, stamped
+        into the row."""
+        self._recorded += 1
+        with self.phases.phase("log"):
+            self._record_run_inner(built, run_id, t, window, stream,
+                                   adaptive)
+
+    def _record_run_inner(self, built, run_id: int, t: float | None,
+                          window: list[float], stream: int,
+                          adaptive: tuple | None) -> None:
         for log in (self.log, self.ext_log):
             if log is not None:
                 log.maybe_rotate()
@@ -545,7 +815,7 @@ class Driver:
             window.append(t)
             key = (built.name, built.nbytes)
             self._window_points[key] = self._window_points.get(key, 0) + 1
-            self._emit(built, run_id, t, stream=stream)
+            self._emit(built, run_id, t, stream=stream, adaptive=adaptive)
         else:
             self.dropped += 1
         if run_id % self.opts.stats_every == 0:
@@ -575,11 +845,17 @@ class Driver:
                 "window": window_index(run_id, self.opts.stats_every),
                 "samples": len(samples),
                 "dropped": self.dropped,
+                # the harness' own phases so far: compile is compile
+                # work, the precompile worker's overlapped share included
+                "phase": self.phases.snapshot(),
                 "points": {
                     f"{op}/{nbytes}": n
                     for (op, nbytes), n in sorted(self._window_points.items())
                 },
             }
+            if self._adaptive_cfg is not None:
+                # the completed points' savings so far
+                data["adaptive"] = self._adaptive_snapshot()
             if samples:
                 s = summarize(samples)
                 data.update(
@@ -611,7 +887,7 @@ class Driver:
             file=self.err, flush=True)
 
     def _emit(self, built: BuiltOp, run_id: int, t: float, *,
-              stream: int = 0) -> None:
+              stream: int = 0, adaptive: tuple | None = None) -> None:
         point = SweepPointResult(
             op=built.name, nbytes=built.nbytes, iters=built.iters,
             n_devices=built.n_devices,
@@ -622,6 +898,13 @@ class Driver:
             mode="daemon" if self.opts.infinite else "oneshot")
         rrow = point.rows(self.opts.uuid, backend=self.world.backend)[0]
         rrow = dataclasses.replace(rrow, run_id=run_id, stream=stream)
+        if adaptive is not None:
+            # the controller as of this run: a point's last row carries its
+            # stop verdict (report's adaptive-savings table reads it)
+            requested, taken, ci = adaptive
+            rrow = dataclasses.replace(
+                rrow, runs_requested=requested, runs_taken=taken,
+                ci_rel=0.0 if not math.isfinite(ci) else round(ci, 6))
         lrow = LegacyRow(
             timestamp=timestamp_now(),
             job_id=self.opts.uuid,
@@ -643,3 +926,35 @@ class Driver:
             self.log.write_row(lrow)
         if self.ext_log is not None:
             self.ext_log.write_row(rrow)
+
+
+def _state(controller) -> tuple:
+    """A controller's (requested, taken, ci_rel) now: a row's columns."""
+    return controller.requested, controller.taken, controller.ci_rel()
+
+
+class _Recording:
+    """A controller that also keeps its state as of each run, for the
+    runs of a fused chunk (every run of a chunk carries the state that
+    includes the chunk)."""
+
+    def __init__(self, controller, states: list):
+        self._c, self._states = controller, states
+
+    def observe_chunk(self, mean: float, reps: int) -> None:
+        self._c.observe_chunk(mean, reps)
+        self._states.extend([_state(self._c)] * reps)
+
+    def should_stop(self, runs_done: int) -> bool:
+        return self._c.should_stop(runs_done)
+
+
+def _chunks_for(plan: tuple[int, ...], runs: int) -> int:
+    """The dispatches a fused point made to take ``runs`` runs of
+    ``plan``'s chunks (fewer than the plan's when it stopped early)."""
+    done = 0
+    for i, reps in enumerate(plan, start=1):
+        done += reps
+        if done >= runs:
+            return i
+    return len(plan)

@@ -21,6 +21,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -59,7 +60,13 @@ _ENTRIES = {
     # stream)
     "peer_collectives": ("peer_reduce_scatter",
                          [_P, _P, _P, _I, _I, _L, _I, _F, _I, _I, _P]),
+    # the trace fence's gate (timing.TraceRunner), no TPU kernel's port:
+    # (flag, seen, missed, timeout_ns, stream)
+    "trace_gate": ("trace_gate", [_P, _P, _P, _L, _P]),
 }
+#: sources that build no counted kernel: the timing layer's helpers (the
+#: trace fence's gate), which port no TPU kernel
+HELPERS = ("trace_gate",)
 #: further C entry points of a source, beside its kernel's: (source,
 #: symbol) -> argument types
 _EXTRA_ENTRIES = {
@@ -98,6 +105,9 @@ _EXTRA_ENTRIES = {
 }
 
 _loaded: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+#: nvcc builds this process has run (a process that finds every library
+#: fresh, in a ``--compile-cache`` directory say, runs none)
+BUILDS = 0
 
 
 def _nvcc() -> str:
@@ -125,9 +135,10 @@ def _stale(name: str) -> bool:
 
 def _start(name: str) -> tuple[subprocess.Popen, Path]:
     BUILD_DIR.mkdir(exist_ok=True)
-    # build under a private name, then rename: a concurrent loader never
-    # sees a half-written library
-    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
+    # build under a private name (this process and thread's: the compile
+    # pipeline's worker builds beside the main thread), then rename: a
+    # concurrent loader never sees a half-written library
+    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.{threading.get_ident()}.so"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
@@ -136,7 +147,9 @@ def _start(name: str) -> tuple[subprocess.Popen, Path]:
 
 
 def _finish(name: str, proc: subprocess.Popen, tmp: Path) -> None:
+    global BUILDS
     out, _ = proc.communicate()
+    BUILDS += 1
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
     os.replace(tmp, _lib_path(name))
@@ -150,6 +163,18 @@ def build_all() -> float:
     for name, proc, tmp in jobs:
         _finish(name, proc, tmp)
     return time.perf_counter() - t0
+
+
+def compile_sources(names) -> int:
+    """Build the stale sources of ``names``, one nvcc each, all started
+    together, loading nothing: host work alone (the compile pipeline's
+    worker calls it while the main thread may be capturing a CUDA graph).
+    Returns how many it built."""
+    jobs = [(name, *_start(name)) for name in dict.fromkeys(names)
+            if _stale(name)]
+    for name, proc, tmp in jobs:
+        _finish(name, proc, tmp)
+    return len(jobs)
 
 
 def entry(name: str, symbol: str | None = None):

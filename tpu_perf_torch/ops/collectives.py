@@ -601,6 +601,16 @@ OP_BUILDERS: dict[str, Callable] = {
 # hier_allreduce axis of one rank, which has no group, is local.
 
 
+def _global_rank(world: DistWorld, rank: int) -> int:
+    """The default group's rank of ``rank`` of the world's group (a
+    point-to-point peer and a broadcast's source are named by it)."""
+    if world.group is None:
+        return rank
+    import torch.distributed as dist
+
+    return dist.get_global_rank(world.group, rank)
+
+
 def _ppermute(world: DistWorld, x: torch.Tensor,
               perm: list[tuple[int, int]]) -> torch.Tensor:
     """XLA's ppermute on this rank: the buffer its source sent it, or zeros
@@ -616,9 +626,11 @@ def _ppermute(world: DistWorld, x: torch.Tensor,
         if s == d == rank:
             out.copy_(x)
         elif s == rank:
-            ops.append(dist.P2POp(dist.isend, x, d, world.group))
+            ops.append(dist.P2POp(dist.isend, x, _global_rank(world, d),
+                                  world.group))
         elif d == rank:
-            ops.append(dist.P2POp(dist.irecv, out, s, world.group))
+            ops.append(dist.P2POp(dist.irecv, out, _global_rank(world, s),
+                                  world.group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -683,8 +695,10 @@ def _dist_broadcast(world: DistWorld, dtype: torch.dtype):
     # the library's own broadcast from rank 0, in place
     import torch.distributed as dist
 
+    src = _global_rank(world, 0)
+
     def body(x):
-        dist.broadcast(x, src=0, group=world.group)
+        dist.broadcast(x, src=src, group=world.group)
         return x
 
     return body, True
@@ -849,14 +863,7 @@ def _dist_step(op: str, world: DistWorld, dtype: str, elems: int,
     if op not in _LOCAL_OPS and world.n > 1:
         raise NotImplementedError(
             f"{op} across {world.n} ranks is not yet ported, see ROADMAP")
-    one = SimWorld(1, world.device)
-    if op in CARRY_BUILDERS:
-        pre, body, post = CARRY_BUILDERS[op](one, dtype, elems)
-        return chained(body, iters, lambda x: pre(x.view(1, -1)),
-                       lambda c: post(c).view(-1))
-    body = OP_BUILDERS[op](one, DTYPES[dtype])
-    return chained(body, iters, lambda x: x.unsqueeze(0),
-                   lambda x: x.squeeze(0))
+    return _local_step(op, world.device, dtype, elems, iters)
 
 
 def chained(call: Callable, iters: int, pre: Callable | None = None,
@@ -897,14 +904,119 @@ def build_fused_step(built: BuiltOp, reps: int) -> Callable:
     return fused
 
 
+def host_constants(op: str, nbytes: int, dtype: str, n: int) -> None:
+    """Compute the host-side constants a build of ``op`` at ``nbytes`` on
+    ``n`` ranks will ask for (``mxu_gemm`` and ``overlap_ring``'s
+    orthogonal matrix, a QR of up to 4096 x 4096 on the host), touching
+    no device: the compile pipeline's worker runs it ahead of the build."""
+    if op not in ("mxu_gemm", "overlap_ring") or dtype not in DTYPES:
+        return
+    elems, _ = payload_elems(op, nbytes, n, DTYPES[dtype].itemsize)
+    m = (math.isqrt(elems) if op == "mxu_gemm"
+         else _overlap_split(elems)[1])
+    _ortho(m)
+
+
 def known_ops() -> list[str]:
     from tpu_perf_torch.ops.pallas_ring import PALLAS_OPS
 
     return sorted([*OP_BUILDERS, *CARRY_BUILDERS]) + list(PALLAS_OPS)
 
 
+def _axes_of(world: SimWorld | DistWorld,
+             axis: str | tuple[str, ...] | None) -> tuple[str, ...]:
+    """``axis`` as a tuple of the world's axis names (None: every axis, in
+    the mesh's order; the JAX package's ``_flat_axes``)."""
+    if axis is None:
+        return tuple(world.axis_names)
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    unknown = [a for a in axes if a not in world.axis_names]
+    if unknown or not axes:
+        raise ValueError(
+            f"axis {axis!r} names no axis of the mesh {world.axis_names}")
+    return axes
+
+
+def _local_step(op: str, device, dtype: str, elems: int,
+                iters: int) -> Callable:
+    """The step of a library op on one rank alone, on this rank's
+    ``(elems,)`` buffer: the sim world's body at one rank (a collective
+    over one rank moves nothing across ranks)."""
+    one = SimWorld(1, device)
+    if op in CARRY_BUILDERS:
+        pre, body, post = CARRY_BUILDERS[op](one, dtype, elems)
+        return chained(body, iters, lambda x: pre(x.view(1, -1)),
+                       lambda c: post(c).view(-1))
+    body = OP_BUILDERS[op](one, DTYPES[dtype])
+    return chained(body, iters, lambda x: x.unsqueeze(0),
+                   lambda x: x.squeeze(0))
+
+
+def _sim_step(op: str, world: SimWorld, dtype: str, elems: int,
+              iters: int) -> Callable:
+    if op in CARRY_BUILDERS:
+        pre, body, post = CARRY_BUILDERS[op](world, dtype, elems)
+        return chained(body, iters, pre, post)
+    return chained(OP_BUILDERS[op](world, DTYPES[dtype]), iters)
+
+
+def _along_axes(op: str, world: SimWorld | DistWorld, axes: tuple[str, ...],
+                nbytes: int, iters: int, dtype: str, window: int,
+                reuse_input: torch.Tensor | None) -> BuiltOp:
+    """A library op along ``axes`` of the world's mesh (the JAX package's
+    ``build_op(..., axis=)``): k ranks a group, where k is the product of
+    the axes' sizes, each group's ranks holding the k shards of one global
+    input (replicated over the other axes, as ``P(axes)`` shards it).
+
+    In a multi-process world this rank runs the op on its axis group
+    (:meth:`DistWorld.along`, the groups made once a world).  In the sim
+    world every group runs it: the rows are held group by group (row j is
+    member ``j % k`` of group ``j // k`` of ``mesh.groups(axes)``), and
+    each step runs the k-rank step on each group's block in turn."""
+    if op == "hier_allreduce" and len(axes) != 2:
+        raise ValueError(
+            f"hier_allreduce needs a 2-axis (dcn, ici) mesh, got {axes}")
+    if op in _PAIRWISE and len(axes) != 1:
+        raise ValueError(f"{op} needs a single mesh axis, got {axes}")
+    if is_dist(world):
+        sub = world.along(axes)
+    else:
+        groups = world.mesh.groups(axes)
+        sub = SimWorld(len(groups[0]), world.device)
+    k = sub.n
+    if op in _NEEDS_EVEN and k % 2:
+        raise ValueError(f"{op} needs an even device count, got {k}")
+    elems, actual = payload_elems(op, nbytes, k, DTYPES[dtype].itemsize)
+    if is_dist(world):
+        step = (_local_step(op, world.device, dtype, elems, iters) if k == 1
+                else _dist_step(op, sub, dtype, elems, iters))
+        x = example_input(sub, elems, dtype, window=window)
+    else:
+        g = len(groups)
+        one = _sim_step(op, sub, dtype, elems, iters)
+
+        def step(x):
+            blocks = x.view(g, k, *x.shape[1:])
+            return torch.stack([one(blocks[i]) for i in range(g)]).view(
+                x.shape)
+
+        x = example_input(sub, elems, dtype, window=window)
+        x = x.repeat(g, *([1] * (x.dim() - 1)))
+    if reuse_input is not None:
+        if (reuse_input.shape != x.shape or reuse_input.dtype != x.dtype
+                or reuse_input.device != x.device):
+            raise ValueError(
+                f"reuse_input spec mismatch: have {tuple(reuse_input.shape)}/"
+                f"{reuse_input.dtype}/{reuse_input.device}, need "
+                f"{tuple(x.shape)}/{x.dtype}/{x.device}")
+        x = reuse_input
+    return BuiltOp(name=op, step=step, example_input=x, nbytes=actual,
+                   n_devices=k, iters=iters * window)
+
+
 def build_op(op: str, world: SimWorld | DistWorld, nbytes: int, iters: int, *,
              dtype: str = "float32", window: int = 1,
+             axis: str | tuple[str, ...] | None = None,
              reuse_input: torch.Tensor | None = None) -> BuiltOp:
     """Build the measurement step for ``op`` at message size ``nbytes``.
 
@@ -916,7 +1028,13 @@ def build_op(op: str, world: SimWorld | DistWorld, nbytes: int, iters: int, *,
 
     ``reuse_input`` adopts an existing example buffer (the slope and trace
     fences build one op at two trip counts; the fill is identical, so one
-    buffer serves both)."""
+    buffer serves both).
+
+    ``axis`` runs the op along one axis (or a tuple of axes) of the
+    world's mesh, as the JAX package's ``build_op(..., axis=)`` does: the
+    row's ``n_devices`` is the axes' rank count (:func:`_along_axes`).
+    The ``pl_*`` ops keep the JAX rule, a single-axis mesh only, so their
+    axis can only be that one."""
     from tpu_perf_torch.ops.pallas_ring import PALLAS_OPS, build_pallas_step
 
     if op not in known_ops():
@@ -937,6 +1055,14 @@ def build_op(op: str, world: SimWorld | DistWorld, nbytes: int, iters: int, *,
         raise ValueError(f"window must be >= 1, got {window}")
     if window > 1 and op not in ("exchange", "ppermute"):
         raise ValueError(f"window only applies to exchange/ppermute, got {op!r}")
+    if axis is not None:
+        axes = _axes_of(world, axis)
+        if (op in PALLAS_OPS and len(world.axis_names) == 1
+                and len(axes) != 1):
+            raise ValueError(f"pallas ops need a single mesh axis, got {axes}")
+        if op not in PALLAS_OPS and axes != tuple(world.axis_names):
+            return _along_axes(op, world, axes, nbytes, iters, dtype, window,
+                               reuse_input)
     axes = world.axis_names
     if op == "hier_allreduce" and len(axes) != 2:
         raise ValueError(
@@ -953,11 +1079,8 @@ def build_op(op: str, world: SimWorld | DistWorld, nbytes: int, iters: int, *,
         elems, actual = payload_elems(op, nbytes, world.n, itemsize)
         if is_dist(world):
             step = _dist_step(op, world, dtype, elems, iters)
-        elif op in CARRY_BUILDERS:
-            pre, body, post = CARRY_BUILDERS[op](world, dtype, elems)
-            step = chained(body, iters, pre, post)
         else:
-            step = chained(OP_BUILDERS[op](world, DTYPES[dtype]), iters)
+            step = _sim_step(op, world, dtype, elems, iters)
     if reuse_input is not None:
         rows = () if is_dist(world) else (world.n,)
         want = (*rows, window, elems) if window > 1 else (*rows, elems)

@@ -78,6 +78,32 @@ PALLAS_OPS = (
     "pl_all_to_all",
 )
 
+#: the CUDA sources (``csrc/<name>.cu``) each op launches in the sim world;
+#: in a multi-rank world every op but the local instruments launches
+#: ``peer_collectives`` (``pl_hbm_stream`` is Triton, built at its first
+#: launch)
+SIM_SOURCES = {
+    "pl_ring": ("p2p_shift",), "pl_exchange": ("p2p_shift",),
+    "pl_all_gather": ("all_gather",), "pl_all_gather_bidir": ("all_gather",),
+    "pl_reduce_scatter": ("reduce_scatter",),
+    "pl_allreduce": ("reduce_scatter", "all_gather"),
+    "pl_pingpong": ("pingpong",), "pl_hbm_copy": ("hbm_copy",),
+    "pl_hbm_stream": (), "pl_hbm_read": ("hbm_read",),
+    "pl_hbm_write": ("hbm_write",), "pl_barrier": ("barrier",),
+    "pl_all_to_all": ("all_to_all",),
+}
+
+
+def sources_for(op: str, dist: bool = False) -> tuple[str, ...]:
+    """The CUDA sources ``op`` launches, in the sim world or (``dist``) in
+    a multi-rank world; none for a library op."""
+    if op not in SIM_SOURCES:
+        return ()
+    if dist and op not in _LOCAL_PALLAS_OPS:
+        return ("peer_collectives",)
+    return SIM_SOURCES[op]
+
+
 #: the JAX package's chunk-rounding tile (its VMEM accumulation tile):
 #: reduce-scatter chunks above it round up to a multiple of it.  It decides
 #: ``nbytes`` on the curve keys, so it stays the JAX value; the CUDA

@@ -47,12 +47,28 @@ class Mesh:
         """The rank lists along axis ``name``: each holds the ranks whose
         other coordinates agree, in the axis' order (the groups a
         collective over that axis runs in)."""
-        k = self.axis_names.index(name)
-        groups: dict[tuple, list[int]] = {}
+        return self.groups((name,))
+
+    def groups(self, axes: tuple[str, ...]) -> list[list[int]]:
+        """The rank lists along ``axes``: each holds the ranks whose
+        coordinates on the other axes agree, row-major over ``axes`` in
+        the order given (the order the JAX package's ``P(axes)`` shards a
+        global array in), the groups in row-major order of the other
+        coordinates."""
+        unknown = [a for a in axes if a not in self.axis_names]
+        if unknown or len(set(axes)) != len(axes):
+            raise ValueError(
+                f"axes {axes} are not distinct axes of the mesh "
+                f"{self.axis_names}")
+        idx = [self.axis_names.index(a) for a in axes]
+        others = [i for i in range(len(self.shape)) if i not in idx]
+        groups: dict[tuple, list] = {}
         for r in range(self.size):
             c = self.coords(r)
-            groups.setdefault(c[:k] + c[k + 1:], []).append(r)
-        return list(groups.values())
+            groups.setdefault(tuple(c[i] for i in others), []).append(
+                (tuple(c[i] for i in idx), r))
+        return [[r for _, r in sorted(members)]
+                for members in groups.values()]
 
 
 def make_mesh(shape: tuple[int, ...] = (), axis_names: tuple[str, ...] = (),

@@ -872,3 +872,194 @@ def to_csv(points: list[CurvePoint]) -> str:
         )
     return "\n".join(lines)
 
+
+# --- the harness phases and the adaptive savings (the JAX package's
+# report.py:1574-1755) ---
+
+
+def read_phases(target: str) -> list[dict]:
+    """The ``phase-<job>-<rank>.json`` sidecars the Driver writes beside
+    the rotating logs (``driver.Driver._write_phases``): one a (job,
+    rank), each with the run's compile / measure / log totals and wall
+    clock.  A folder is scanned; a file target looks beside it; a glob
+    finds none.  A torn or foreign JSON file is skipped: the phase table
+    never blocks the curve tables."""
+    import json
+
+    if os.path.isdir(target):
+        folder = target
+    elif os.path.isfile(target):
+        folder = os.path.dirname(os.path.abspath(target))
+    else:
+        return []
+    out = []
+    for path in sorted(glob.glob(os.path.join(folder, "phase-*.json"))):
+        try:
+            with open(path) as fh:
+                data = json.load(fh)
+        except (OSError, ValueError):
+            continue
+        if isinstance(data, dict) and isinstance(data.get("phase"), dict):
+            out.append(data)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveSavingsPoint:
+    """One adaptively sampled point's budget verdict, rebuilt from its rows
+    alone: the runs_requested / runs_taken / ci_rel columns stream a run
+    at a time, so the point's last row (its largest run_id) carries the
+    controller's stop state.  Dropped runs write no row, so trailing
+    dropped runs read low here; the sidecar's totals are exact."""
+
+    job_id: str
+    backend: str
+    op: str
+    nbytes: int
+    dtype: str
+    runs_requested: int
+    runs_attempted: int   # final row's run_id: budget consumed
+    runs_taken: int       # recorded samples
+    ci_rel: float         # achieved relative CI half-width at stop
+    wall_saved_s: float   # (requested - attempted) x mean run time
+
+
+def adaptive_savings(rows: list[ResultRow]) -> list[AdaptiveSavingsPoint]:
+    """Group adaptive rows (runs_requested > 0) a point and read each
+    point's last row; fixed-budget rows (runs_requested 0) are left out.
+    The job is part of the key: two jobs in one folder give two
+    verdicts a point."""
+    groups: dict[tuple, list[ResultRow]] = {}
+    for row in rows:
+        if row.runs_requested <= 0:
+            continue
+        groups.setdefault(
+            (row.job_id, row.backend, row.op, row.nbytes, row.dtype), []
+        ).append(row)
+    out = []
+    for (job_id, backend, op, nbytes, dtype), grp in sorted(groups.items()):
+        final = max(grp, key=lambda r: r.run_id)
+        saved = max(0, final.runs_requested - final.run_id)
+        mean_s = sum(r.time_ms for r in grp) / len(grp) / 1e3
+        out.append(AdaptiveSavingsPoint(
+            job_id=job_id, backend=backend, op=op, nbytes=nbytes,
+            dtype=dtype,
+            runs_requested=final.runs_requested,
+            runs_attempted=final.run_id,
+            runs_taken=final.runs_taken,
+            ci_rel=final.ci_rel,
+            wall_saved_s=saved * mean_s,
+        ))
+    return out
+
+
+def _fold_adaptive(state: dict, row: ResultRow) -> None:
+    """Fold one streamed row into the per-point adaptive state: the last
+    row so far, the sample count and the time sum (memory a point, never
+    a row)."""
+    if row.runs_requested <= 0:
+        return
+    key = (row.job_id, row.backend, row.op, row.nbytes, row.dtype)
+    st = state.get(key)
+    if st is None:
+        state[key] = [row, 1, row.time_ms]
+        return
+    if row.run_id > st[0].run_id:
+        st[0] = row
+    st[1] += 1
+    st[2] += row.time_ms
+
+
+def _adaptive_points(state: dict) -> list[AdaptiveSavingsPoint]:
+    out = []
+    for (job_id, backend, op, nbytes, dtype), (final, n, time_sum) in \
+            sorted(state.items()):
+        saved = max(0, final.runs_requested - final.run_id)
+        out.append(AdaptiveSavingsPoint(
+            job_id=job_id, backend=backend, op=op, nbytes=nbytes,
+            dtype=dtype,
+            runs_requested=final.runs_requested,
+            runs_attempted=final.run_id,
+            runs_taken=final.runs_taken,
+            ci_rel=final.ci_rel,
+            wall_saved_s=saved * (time_sum / n / 1e3),
+        ))
+    return out
+
+
+def stream_report(paths: Iterable[str], *, err=None):
+    """One streaming pass folding both report states, the curve points and
+    the adaptive-savings verdicts: ``(points, savings)``, each what its
+    own reader gives."""
+    groups: dict[tuple, dict] = {}
+    state: dict[tuple, list] = {}
+    for r in stream_rows(paths, err=err):
+        _fold_curve(groups, r)
+        _fold_adaptive(state, r)
+    return _curve_points(groups), _adaptive_points(state)
+
+
+def adaptive_to_markdown(points: list[AdaptiveSavingsPoint]) -> str:
+    """The "Adaptive savings" table: what the early stop handed back a
+    point, with a totals row."""
+    lines = [
+        "| job | backend | op | size | dtype | runs requested "
+        "| runs attempted | runs saved | CI achieved | wall saved (s) |",
+        "|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    tot_req = tot_att = 0
+    tot_wall = 0.0
+    for p in points:
+        saved = p.runs_requested - p.runs_attempted
+        tot_req += p.runs_requested
+        tot_att += p.runs_attempted
+        tot_wall += p.wall_saved_s
+        lines.append(
+            f"| {p.job_id[:8]} | {p.backend} | {p.op} "
+            f"| {format_size(p.nbytes)} "
+            f"| {p.dtype} | {p.runs_requested} | {p.runs_attempted} "
+            f"| {saved} | {p.ci_rel:.2%} | {p.wall_saved_s:.3f} |"
+        )
+    pct = (f"{(tot_req - tot_att) / tot_req:.0%}" if tot_req else "—")
+    lines.append(
+        f"| **total** | | | | | {tot_req} | {tot_att} "
+        f"| {tot_req - tot_att} ({pct}) | | {tot_wall:.3f} |"
+    )
+    return "\n".join(lines)
+
+
+def phases_to_markdown(entries: list[dict]) -> str:
+    """The phase sidecars as the report's harness-overhead table.
+
+    ``compile/wall`` is compile work over wall clock: under
+    ``--precompile`` the worker's builds overlap measurement, so the
+    ratio can exceed what a serial run shows, and that excess is the
+    overlap won.  A fused job's sidecar carries its dispatch audit: the
+    ``dispatches`` column reads measured dispatches over points (1/1 a
+    point on a fixed budget, more under ``--ci-rel``'s chunks)."""
+    fused = any(isinstance(e.get("fused"), dict) for e in entries)
+    head = ("| job | rank | precompile | wall (s) | compile (s) "
+            "| measure (s) | log (s) | compile/wall |")
+    sep = "|---|---|---|---|---|---|---|---|"
+    if fused:
+        head += " dispatches |"
+        sep += "---|"
+    lines = [head, sep]
+    for e in entries:
+        ph = e.get("phase", {})
+        wall = e.get("wall_s") or 0.0
+        compile_s = ph.get("compile_s", 0.0)
+        ratio = f"{compile_s / wall:.0%}" if wall else "—"
+        line = (
+            f"| {str(e.get('job_id', ''))[:8]} | {e.get('rank', 0)} "
+            f"| {e.get('precompile', 0)} | {wall:.3f} "
+            f"| {compile_s:.3f} | {ph.get('measure_s', 0.0):.3f} "
+            f"| {ph.get('log_s', 0.0):.3f} | {ratio} |"
+        )
+        if fused:
+            fu = e.get("fused")
+            cell = (f"{fu['measure_dispatches']}/{fu['points']}"
+                    if isinstance(fu, dict) else "—")
+            line += f" {cell} |"
+        lines.append(line)
+    return "\n".join(lines)

@@ -137,6 +137,12 @@ class SweepPointResult:
     times: RunTimes
     dtype: str = "float32"
     mode: str = "oneshot"  # "oneshot" | "daemon"
+    #: the adaptive verdict (``--ci-rel``): the budget a fixed schedule
+    #: would burn and the achieved relative CI (0: a fixed-budget point);
+    #: ``adaptive`` the controller's summary
+    runs_requested: int = 0
+    ci_rel: float = 0.0
+    adaptive: dict | None = None
 
     def rows(self, job_id: str, backend: str) -> list[ResultRow]:
         no_payload = is_latency_only(self.op, self.n_devices)
@@ -166,18 +172,28 @@ class SweepPointResult:
                 dtype=self.dtype,
                 mode=self.mode,
                 overhead_us=self.times.overhead_s * 1e6,
+                runs_requested=self.runs_requested,
+                runs_taken=run_id if self.runs_requested else 0,
+                ci_rel=self.ci_rel if self.runs_requested else 0.0,
             ))
         return out
 
 
-def fused_plan_for(opts: Options, *,
-                   budget: int | None = None) -> tuple[int, ...]:
+def fused_plan_for(opts: Options, *, budget: int | None = None,
+                   min_runs: int | None = None) -> tuple[int, ...]:
     """The fused fence's chunk plan for one job: ``budget`` defaults to
-    the -r budget (a daemon visit is one run); ``--fused-chunks`` 0 is
-    one dispatch a point."""
+    the -r budget (a daemon visit is one run).  ``min_runs`` is passed only
+    when an adaptive controller will run, and makes the automatic chunk
+    count ``ceil(budget / min_runs)``, so the stop vote fires once a chunk
+    and first after min_runs runs; otherwise ``--fused-chunks`` 0 is one
+    dispatch a point.  An explicit ``--fused-chunks`` overrides both."""
     if budget is None:
         budget = 1 if opts.infinite else opts.num_runs
-    return fused_chunk_plan(budget, max(1, opts.fused_chunks))
+    chunks = opts.fused_chunks
+    if chunks < 1:
+        chunks = 1 if min_runs is None else max(
+            1, -(-budget // max(1, min_runs)))
+    return fused_chunk_plan(budget, chunks)
 
 
 def build_fused_point(built: BuiltOp, plan: tuple[int, ...]) -> FusedPoint:
@@ -187,16 +203,20 @@ def build_fused_point(built: BuiltOp, plan: tuple[int, ...]) -> FusedPoint:
         reps: build_fused_step(built, reps) for reps in sorted(set(plan))})
 
 
-def build_point_pair(opts: Options, world: SimWorld, op: str, nbytes: int
+def build_point_pair(opts: Options, world: SimWorld, op: str, nbytes: int,
+                     *, fused_plan: tuple[int, ...] | None = None
                      ) -> tuple[BuiltOp, BuiltOp | FusedPoint | None]:
     """One point's (lo, hi) op pair for the configured fence: hi is the
     same op at ``iters * SLOPE_ITERS_FACTOR`` executions under slope/trace
     (sharing lo's example buffer), the point's :class:`FusedPoint` under
-    fused, else None."""
+    fused (``fused_plan``, default the options' fixed-budget plan), else
+    None."""
     built = build_op(op, world, nbytes, opts.iters, dtype=opts.dtype,
                      window=opts.window)
     if opts.fence == "fused":
-        return built, build_fused_point(built, fused_plan_for(opts))
+        return built, build_fused_point(
+            built, fused_plan if fused_plan is not None
+            else fused_plan_for(opts))
     built_hi = None
     if opts.fence in ("slope", "trace"):
         built_hi = build_op(op, world, nbytes,
@@ -206,30 +226,121 @@ def build_point_pair(opts: Options, world: SimWorld, op: str, nbytes: int
     return built, built_hi
 
 
+def point_controller(config, world):
+    """A point's adaptive controller (``tpu_perf_torch.adaptive``) in
+    ``world``: in a multi-process world its stop votes are all-reduced over
+    the ranks; the sim world's one process votes alone."""
+    from tpu_perf_torch.adaptive import PointController
+
+    return PointController(config, n_hosts=world.n if is_dist(world) else 1)
+
+
+def without_p50(config, err=None):
+    """``config`` with the mean statistic where it asked for p50: a fused
+    chunk observes its mean only, and a median of means is not the run
+    median.  Said on ``err`` (stderr by default), never silently."""
+    if config is None or config.statistic != "p50":
+        return config
+    import sys
+
+    print("[tpu-perf-torch] --ci-statistic p50 is not available under "
+          "--fence fused (a captured chunk observes its mean only, and a "
+          "median of means is not the run median): using the mean "
+          "statistic", file=err if err is not None else sys.stderr)
+    return dataclasses.replace(config, statistic="mean")
+
+
 def run_point_fused(opts: Options, built: BuiltOp, fp: FusedPoint, *,
-                    perf_clock: Callable[[], float] = time.perf_counter
-                    ) -> RunTimes:
+                    perf_clock: Callable[[], float] = time.perf_counter,
+                    controller=None, phases=None) -> RunTimes:
     """One finite point under the fused fence: warm (capture), then one
     measured dispatch per chunk (one by default), the measured window kept
-    as a trace under --profile-dir.  The point's graphs are freed before
-    it returns, so the next point's fit beside nothing of this one."""
+    as a trace under --profile-dir.  With an adaptive ``controller`` each
+    chunk's mean is one observation, and the stop vote fires after each
+    chunk.  The point's graphs are freed before it returns, so the next
+    point's fit beside nothing of this one."""
+    from tpu_perf_torch.compilepipe import PhaseTimer
+
+    phases = phases if phases is not None else PhaseTimer(perf_clock)
     runner = FusedRunner(fp, built, perf_clock=perf_clock)
     try:
-        runner.warm()
+        with phases.phase("compile"):
+            runner.warm()
         samples: list[float] = []
         with profile_window(opts.profile_dir, f"{built.name}-{built.nbytes}",
                             built.example_input.device):
             for reps in fp.plan:
-                samples.extend(runner.chunk(reps))
+                with phases.phase("measure"):
+                    chunk = runner.chunk(reps)
+                samples.extend(chunk)
+                if controller is not None:
+                    controller.observe_chunk(sum(chunk) / reps, reps)
+                    if controller.should_stop(len(samples)):
+                        break
     finally:
         runner.close()
     return RunTimes(samples=samples, warmup_s=runner.warmup_s)
 
 
+def _adaptive_run_times(opts: Options, built: BuiltOp,
+                        built_hi: BuiltOp | None, controller) -> RunTimes:
+    """The adaptive loop of block / readback / slope: one fenced run a
+    round, warmed and fenced as time_step / time_slope do, stopped by the
+    controller (its vote after each run's fence, outside the window).
+    Samples are whole runs, per execution under slope."""
+    from tpu_perf_torch.timing import fence, measure_overhead, slope_sample
+
+    x = built.example_input
+    slope = built_hi is not None
+    fmode = "readback" if slope else opts.fence
+    t0 = time.perf_counter()
+    for _ in range(max(1, opts.warmup_runs)):
+        fence(built.step(x), fmode)
+        if slope:
+            fence(built_hi.step(x), fmode)
+    warmup_s = time.perf_counter() - t0
+    overhead_s = 0.0
+    if opts.measure_dispatch and not slope:
+        overhead_s = measure_overhead(x, fence_mode=fmode)
+    samples: list[float] = []
+    runs = 0
+    while True:
+        runs += 1
+        if slope:
+            t = slope_sample(built.step, built_hi.step, x, x,
+                             built_hi.iters - built.iters)
+        else:
+            t0 = time.perf_counter()
+            fence(built.step(x), fmode)
+            t = time.perf_counter() - t0
+        controller.observe(t)
+        if t is not None:
+            samples.append(t)
+        if controller.should_stop(runs):
+            break
+    if slope and not samples:
+        from tpu_perf_torch.timing import DegenerateSlopeError
+
+        raise DegenerateSlopeError(
+            "slope timing produced no valid samples (t_hi never exceeded "
+            "t_lo) — the measured kernel is lost in timing noise; raise "
+            "iters or use more runs")
+    return RunTimes(samples=samples, warmup_s=warmup_s,
+                    overhead_s=overhead_s)
+
+
 def run_point(opts: Options, world: SimWorld | DistWorld, nbytes: int, *,
-              op: str | None = None) -> SweepPointResult:
+              op: str | None = None, phases=None,
+              adaptive=None) -> SweepPointResult:
     """Measure one sweep point: ``opts.num_runs`` runs of ``opts.iters``
-    chained executions each."""
+    chained executions each.  ``phases`` (a compilepipe.PhaseTimer) takes
+    the point's compile / measure split.  ``adaptive`` (an
+    adaptive.AdaptiveConfig) early-stops the block, readback, slope and
+    fused fences (its max_runs the budget); the trace fence keeps its
+    fixed budget (its pairs' graphs are captured once for the budget)."""
+    from tpu_perf_torch.compilepipe import PhaseTimer
+
+    phases = phases if phases is not None else PhaseTimer()
     if opts.fence == "auto":
         opts = dataclasses.replace(
             opts, fence=resolve_fence(opts.fence, world.device))
@@ -238,27 +349,54 @@ def run_point(opts: Options, world: SimWorld | DistWorld, nbytes: int, *,
         raise ValueError(
             "extern mode is print-only and runs through "
             "tpu_perf_torch.driver.Driver")
-    built, built_hi = build_point_pair(opts, world, op, nbytes)
+    if opts.fence == "trace":
+        adaptive = None
+    elif opts.fence == "fused":
+        adaptive = without_p50(adaptive)
+    plan = None
+    if opts.fence == "fused" and adaptive is not None:
+        plan = fused_plan_for(opts, budget=adaptive.max_runs,
+                              min_runs=adaptive.min_runs)
+    with phases.phase("compile"):
+        built, built_hi = build_point_pair(opts, world, op, nbytes,
+                                           fused_plan=plan)
     x = built.example_input
+    controller = (point_controller(adaptive, world) if adaptive is not None
+                  else None)
     if opts.fence == "fused":
-        times = run_point_fused(opts, built, built_hi)
+        times = run_point_fused(opts, built, built_hi, controller=controller,
+                                phases=phases)
+    elif controller is not None:
+        with phases.phase("measure"):
+            times = _adaptive_run_times(opts, built, built_hi, controller)
+        if built_hi is not None:  # slope samples are per execution
+            times = dataclasses.replace(
+                times, samples=[t * built.iters for t in times.samples])
     elif opts.fence in ("slope", "trace"):
         timer = time_trace if opts.fence == "trace" else time_slope
-        per_exec = timer(built.step, built_hi.step, x, built.iters,
-                         built_hi.iters, opts.num_runs,
-                         warmup_runs=opts.warmup_runs)
+        with phases.phase("measure"):
+            per_exec = timer(built.step, built_hi.step, x, built.iters,
+                             built_hi.iters, opts.num_runs,
+                             warmup_runs=opts.warmup_runs)
         times = RunTimes(samples=[t * built.iters for t in per_exec.samples],
                          warmup_s=per_exec.warmup_s)
     else:
-        times = time_step(built.step, x, opts.num_runs,
-                          warmup_runs=opts.warmup_runs, fence_mode=opts.fence,
-                          measure_dispatch=opts.measure_dispatch)
+        with phases.phase("measure"):
+            times = time_step(built.step, x, opts.num_runs,
+                              warmup_runs=opts.warmup_runs,
+                              fence_mode=opts.fence,
+                              measure_dispatch=opts.measure_dispatch)
     if is_dist(world):
         times = dataclasses.replace(
             times, samples=max_over_ranks(world, times.samples))
+    kw = {}
+    if controller is not None:
+        summary = controller.summary()
+        kw = dict(runs_requested=summary["requested"],
+                  ci_rel=summary["ci_rel"] or 0.0, adaptive=summary)
     return SweepPointResult(op=op, nbytes=built.nbytes, iters=built.iters,
                             n_devices=built.n_devices, times=times,
-                            dtype=opts.dtype)
+                            dtype=opts.dtype, **kw)
 
 
 def sizes_for(opts: Options, op: str | None = None) -> list[int]:

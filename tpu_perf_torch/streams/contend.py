@@ -5,8 +5,11 @@ Two shapes of load ride the :class:`~tpu_perf_torch.streams.engine.StreamEngine`
 
 * a compute load (``--load mxu_gemm|hbm_stream``): the victim raced
   against the roofline instruments, reused as load generators;
-* a sibling op (``--load <any ported op>``): a second op on the same sim
-  world, so two kernels share the card's memory system at once.
+* a sibling op (``--load <any ported op>``): a second op at once, on the
+  same mesh axis as the victim (the two share the fabric) or, on a
+  multi-axis mesh, on another one (``--load-axis``), in the sim world
+  (two ops sharing the card's memory system) or across the ranks of a
+  multi-process world.
 
 Every point runs twice: an idle baseline (the victim alone on its lane;
 rows with an empty ``load`` column and ``stream`` 0) and the loaded run
@@ -16,12 +19,16 @@ the load alone.  The report's
 interference matrix divides the two.  The plan is a pure function of the
 options: sizes in order, idle then loaded, fixed run counts, dispatch
 order load then victim (the load is in flight before the victim starts),
-fence order victim then load (the victim's wall is the measurement).
+fence order victim then load (the victim's wall is the measurement), so
+every rank of a multi-process world walks it alike.  There each lane's
+collectives ride process groups of the lane's own, one a (lane, axis),
+made in the same order on every rank, so two communicators in flight at
+once never meet in different orders; each row's time is its maximum
+over the ranks, taken after the point's last fence.
 
 Not ported yet (ROADMAP): the split-channel shape (``--split K``), which
-needs the linkmap planner; the axis flags, which need the multi-card
-world; ``--synthetic``, which needs the fault injector; and the arena's
-``--algo``.
+needs the linkmap planner; ``--synthetic``, which needs the fault
+injector; and the arena's ``--algo``.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import time
 from tpu_perf_torch.config import Options
 from tpu_perf_torch.schema import ResultRow
 from tpu_perf_torch.streams.engine import StreamEngine
-from tpu_perf_torch.world import SimWorld
+from tpu_perf_torch.world import DistWorld, SimWorld, is_dist
 
 #: the compute-kernel load generators (bench's roofline bodies)
 COMPUTE_LOADS = ("mxu_gemm", "hbm_stream")
@@ -59,12 +66,16 @@ def _rows_for(samples, *, opts: Options, op: str, nbytes: int, iters: int,
             for r in point.rows(opts.uuid, backend=backend)]
 
 
-def run_contend(opts: Options, *, world: SimWorld | None = None,
+def run_contend(opts: Options, *, world: SimWorld | DistWorld | None = None,
+                axis: str | None = None, load_axis: str | None = None,
                 perf_clock=time.perf_counter) -> list[ResultRow]:
-    """Run the contention plan on ``world`` (default: the options' sim
-    world); returns every row, idle and loaded."""
+    """Run the contention plan on ``world`` (default: the options' world);
+    returns every row, idle and loaded.  ``axis`` and ``load_axis`` pick
+    the victim's and the load's mesh axes (None: every axis, the
+    shared-fabric default; naming two different axes of a multi-axis mesh
+    races the disjoint-axis shape)."""
     from tpu_perf_torch.ops.collectives import known_ops
-    from tpu_perf_torch.runner import sizes_for, world_for
+    from tpu_perf_torch.runner import max_over_ranks, sizes_for, world_for
 
     load = opts.load
     if not load:
@@ -88,10 +99,16 @@ def run_contend(opts: Options, *, world: SimWorld | None = None,
         raise ValueError(
             f"unknown load op {load!r}; known: {sorted(known_ops())}")
     world = world if world is not None else world_for(opts)
+    load_world = _lane_world(world)
     rows: list[ResultRow] = []
     for nbytes in sizes_for(opts, opts.op):
         idle, loaded, idle_warm, loaded_warm, actual = _measure_race(
-            opts, world, nbytes, load, perf_clock=perf_clock)
+            opts, world, load_world, nbytes, load, axis=axis,
+            load_axis=load_axis, perf_clock=perf_clock)
+        # each run's time its maximum over the ranks, after the point's
+        # last fence
+        idle = max_over_ranks(world, idle)
+        loaded = max_over_ranks(world, loaded)
         common = dict(opts=opts, op=opts.op, nbytes=actual,
                       iters=opts.iters, n_devices=world.n,
                       backend=world.backend)
@@ -103,8 +120,21 @@ def run_contend(opts: Options, *, world: SimWorld | None = None,
     return rows
 
 
-def _measure_race(opts: Options, world: SimWorld, nbytes: int, load: str,
-                  *, perf_clock):
+def _lane_world(world):
+    """The load lane's world: in a multi-process world a process group of
+    its own over every rank (and axis groups of its own, made when the
+    load is built), so the load's collectives never share a communicator
+    with the victim's; the sim world's lanes share it."""
+    if not is_dist(world):
+        return world
+    import torch.distributed as dist
+
+    return dataclasses.replace(world, group=dist.new_group(list(
+        range(world.n))), _axis_groups={})
+
+
+def _measure_race(opts: Options, world, load_world, nbytes: int, load: str,
+                  *, axis, load_axis, perf_clock):
     """The victim on lane 0 raced against the load on lane 1.  Returns
     (idle samples, loaded samples, idle and loaded warm-up seconds,
     victim nbytes).  The loaded warm-up is one unrecorded race, so the
@@ -113,8 +143,10 @@ def _measure_race(opts: Options, world: SimWorld, nbytes: int, load: str,
     from tpu_perf_torch.ops.collectives import build_op
     from tpu_perf_torch.timing import fence
 
-    victim = build_op(opts.op, world, nbytes, opts.iters, dtype=opts.dtype)
-    load_built = build_op(load, world, nbytes, opts.iters, dtype=opts.dtype)
+    victim = build_op(opts.op, world, nbytes, opts.iters, dtype=opts.dtype,
+                      axis=axis)
+    load_built = build_op(load, load_world, nbytes, opts.iters,
+                          dtype=opts.dtype, axis=load_axis)
     engine = StreamEngine(2, fence_mode=opts.fence, perf_clock=perf_clock)
     x, lx = victim.example_input, load_built.example_input
     t0 = perf_clock()
@@ -132,7 +164,6 @@ def _measure_race(opts: Options, world: SimWorld, nbytes: int, load: str,
 
     alone()
     idle = [alone() for _ in range(opts.num_runs)]
-
 
     def race() -> float:
         engine.dispatch(1, load_built.step, lx, label=load)

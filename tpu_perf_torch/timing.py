@@ -47,6 +47,39 @@ _SLOPE_RETRIES = 3
 #: the trace fence's lead-in before each leg's start event, in clock
 #: cycles (about 50 us at an H100's 1.98 GHz boost)
 LEAD_IN_CYCLES = 100_000
+#: how long the trace gate holds the card for the host's flag before it
+#: opens anyway (and counts the miss), nanoseconds
+GATE_TIMEOUT_NS = 1_000_000_000
+
+
+class TraceGate:
+    """The trace pair's gate (``csrc/trace_gate.cu``): a one-thread kernel
+    captured as the first node of the lo leg's graph, which holds the card
+    until the host raises its flag (pinned host memory) by one.  The host
+    raises it after it has replayed both legs, so every kernel of the pair
+    is on the card's queue before the first one runs: a host thread
+    preempted halfway through submitting a graph can no longer stall a
+    leg between two of its kernels.  ``missed`` counts the gates that
+    timed out (GATE_TIMEOUT_NS) instead of seeing the flag."""
+
+    def __init__(self, device: torch.device):
+        self.flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+        self.seen = torch.zeros(1, dtype=torch.int32, device=device)
+        self.missed = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def wait(self) -> None:
+        """Launch the gate on the current stream (under capture: a node)."""
+        from tpu_perf_torch.kernels import _build
+
+        stream = torch.cuda.current_stream(self.seen.device)
+        err = _build.entry("trace_gate")(
+            self.flag.data_ptr(), self.seen.data_ptr(),
+            self.missed.data_ptr(), GATE_TIMEOUT_NS, stream.cuda_stream)
+        _build.check("trace_gate", err)
+
+    def open(self) -> None:
+        """Raise the host's flag by one: the next waiting gate opens."""
+        self.flag += 1
 
 
 class DegenerateSlopeError(RuntimeError):
@@ -208,17 +241,20 @@ class TraceRunner:
     ``warm()`` runs each leg once eagerly on a side stream (this builds
     the kernels and allocates that stream's device counters: nothing of
     that may happen under capture), then captures each leg, on the same
-    stream, as a CUDA graph that runs a short device spin (its lead-in,
-    :meth:`lead_in`), records its own start event, runs the leg's
-    ``iters`` executions and records its end event.  Both graphs
-    share one memory pool: they replay in the order they were captured
-    and never at once, and nothing reads their outputs.  ``pair()``
-    replays lo, then hi, fences once and returns the two legs' device
-    durations: the events ride the replays, so a host stall before,
-    between or after the replays lands in neither leg, and the slope
-    ``(d_hi - d_lo) / (iters_hi - iters_lo)`` cancels a replay's constant
-    cost.  ``graph_bytes`` is what the captures added to the card's
-    reserved memory (the pool), held until ``close()``.
+    stream, as a CUDA graph that runs its head (:meth:`head`: the lo leg's
+    :class:`TraceGate`, then a short device spin, :meth:`lead_in`),
+    records its own start event, runs the leg's ``iters`` executions and
+    records its end event.  Both graphs share one memory pool: they replay
+    in the order they were captured and never at once, and nothing reads
+    their outputs.  ``pair()`` replays lo, then hi, opens the gate, fences
+    once and returns the two legs' device durations: the events ride the
+    replays, so a host stall before, between or after the replays lands
+    in neither leg; the gate keeps the card from starting lo before both
+    replays are submitted, so a stall in the middle of a submission lands
+    in neither leg either; and the slope ``(d_hi - d_lo) / (iters_hi -
+    iters_lo)`` cancels a replay's constant cost.  ``graph_bytes`` is what
+    the captures added to the card's reserved memory (the pool), held
+    until ``close()``.
 
     ``replay(leg)`` is the one host call a leg makes in a measured pair;
     a caller that wants a stall around a leg wraps it."""
@@ -239,6 +275,7 @@ class TraceRunner:
         self.graph_bytes = 0
         self.pairs = 0
         self._graphs: dict[str, tuple] = {}
+        self.gate: TraceGate | None = None
 
     def warm(self, replays: int = 1) -> None:
         """Eager run, captures, then ``replays`` unrecorded pairs (at
@@ -250,6 +287,11 @@ class TraceRunner:
         with torch.cuda.stream(side):
             for step in self.steps.values():
                 step(self.x)
+        self.gate = TraceGate(dev)
+        # the gate's first launch, eager and open, loads its module
+        self.gate.open()
+        with torch.cuda.stream(side):
+            self.gate.wait()
         torch.cuda.synchronize(dev)
         # a capture empties the allocator's cache first: empty it here, so
         # that the reserved memory's growth is the graphs' pool alone
@@ -261,17 +303,23 @@ class TraceRunner:
                       torch.cuda.Event(enable_timing=True, external=True))
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=pool, stream=side):
-                self.lead_in(leg)
+                self.head(leg)
                 events[0].record()
                 step(self.x)
                 events[1].record()
             self._graphs[leg] = (graph, events)
         self.graph_bytes = torch.cuda.memory_reserved(dev) - reserved
         for _ in range(max(1, replays)):
-            for leg in self.steps:
-                self.replay(leg)
+            self._replay_pair()
         torch.cuda.synchronize(dev)
         self.warmup_s = time.perf_counter() - t0
+
+    def head(self, leg: str) -> None:
+        """What a leg's graph runs before its start event: the lo leg's
+        gate, then the lead-in."""
+        if leg == "lo":
+            self.gate.wait()
+        self.lead_in(leg)
 
     def lead_in(self, leg: str) -> None:
         """Device work a leg's graph runs before its start event: a spin
@@ -286,16 +334,26 @@ class TraceRunner:
     def replay(self, leg: str) -> None:
         self._graphs[leg][0].replay()
 
+    def _replay_pair(self) -> None:
+        """Both legs' replays, then the gate's opening: the host's calls of
+        one pair, in order."""
+        self.replay("lo")
+        self.replay("hi")
+        self.gate.open()
+
     def pair(self) -> tuple[float, float]:
         """One measured (lo, hi) pair: the legs' device seconds."""
         if not self._graphs:
             self.warm()
-        self.replay("lo")
-        self.replay("hi")
+        self._replay_pair()
         torch.cuda.synchronize(self.x.device)
         self.pairs += 1
         return tuple(ev[0].elapsed_time(ev[1]) * 1e-3
                      for _, ev in (self._graphs["lo"], self._graphs["hi"]))
+
+    def missed(self) -> int:
+        """Gates that opened on their timeout, not on the host's flag."""
+        return int(self.gate.missed.item()) if self.gate is not None else 0
 
     def sample(self) -> float:
         """One pair's slope: device seconds per execution.  On the device
@@ -310,6 +368,7 @@ class TraceRunner:
     def close(self) -> None:
         """Free the graphs and their memory pool."""
         self._graphs.clear()
+        self.gate = None
 
 
 def time_trace(

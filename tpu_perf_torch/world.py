@@ -126,20 +126,34 @@ class DistWorld:
     def axis_names(self) -> tuple[str, ...]:
         return self.mesh.axis_names
 
-    def axis_group(self, axis: str) -> tuple[object, list[int]]:
-        """``(group, ranks)`` of this rank along mesh axis ``axis``: the
-        ranks whose other coordinates equal this rank's.  Every rank makes
-        every group of the axis in the same order (``new_group`` is a
-        collective of the whole world) the first time the axis is asked
-        for; a group of one rank is None and its collectives are local."""
-        if axis not in self._axis_groups:
+    def axis_group(self, axis: str | tuple[str, ...]
+                   ) -> tuple[object, list[int]]:
+        """``(group, ranks)`` of this rank along mesh axis ``axis`` (or
+        the axes of a tuple, row-major in its order): the ranks whose
+        other coordinates equal this rank's.  Every rank makes every group
+        of the axis in the same order (``new_group`` is a collective of
+        the whole world) the first time the axis is asked for; a group of
+        one rank is None and its collectives are local."""
+        key = (axis,) if isinstance(axis, str) else tuple(axis)
+        if key not in self._axis_groups:
             import torch.distributed as dist
 
-            for ranks in self.mesh.axis_groups(axis):
+            for ranks in self.mesh.groups(key):
                 group = dist.new_group(ranks) if len(ranks) > 1 else None
                 if self.rank in ranks:
-                    self._axis_groups[axis] = (group, ranks)
-        return self._axis_groups[axis]
+                    self._axis_groups[key] = (group, ranks)
+        return self._axis_groups[key]
+
+    def along(self, axis: str | tuple[str, ...]) -> "DistWorld":
+        """This rank's world along ``axis``: its group's ranks as a world
+        of their own (``rank`` its index there, collectives on the axis
+        group, one axis ``"x"``).  A group of one rank is a world of one
+        with no group: its ops run locally."""
+        group, ranks = self.axis_group(axis)
+        n = len(ranks)
+        return DistWorld(rank=ranks.index(self.rank), n=n,
+                         local_rank=self.local_rank, device=self.device,
+                         mesh=make_mesh(n=n), group=group)
 
     def max_over_ranks(self, samples: list[float | None]
                        ) -> list[float | None]:
