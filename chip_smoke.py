@@ -64,7 +64,20 @@ exits non-zero):
    --fence trace`` daemon at 4 KiB, 300 visits and 100 with a 2 ms host
    stall around the lo leg's graph replay (every pair positive, the
    stalled lo legs within 10% of the plain ones, its lat_us beside the
-   fused fence's), and the trace graphs' memory at 8 x 256 MiB; ``report``,
+   fused fence's), and the trace graphs' memory at 8 x 256 MiB; the
+   fleet-health monitor and its chaos judge (``health``): the JAX
+   acceptance soak on ``--synthetic`` run on the card and on the CPU (the
+   ``chaos-*.log`` ledgers byte-identical, the same events, ``chaos
+   verify`` 5/5), a real-timing ``chaos --fence fused`` soak of
+   ``pl_allreduce`` at 4 KiB and 16 MiB with a fault of every kind and a
+   ``corrupt`` one through the selftest, under ``--spans`` and
+   ``--health-textfile`` (verify exits 0, every row, event and ledger
+   entry joins one run span, the Chrome trace validates, the textfile
+   holds a gauge set a point, the two kernels' launches are the warm-ups',
+   the captures' and the corrupt pass's), then, printed and not gated, a
+   fault-free ``monitor --health`` of 5000 visits at 4 KiB under fused and
+   trace (events by kind, distinct sample values) and ``--spans``' cost to
+   lat_us at 4 KiB under block and fused; ``report``,
    ``--compare-pallas`` and ``--format json`` over the block paths' logs;
    then the rest of the reference's run surface: ``run -x --window W`` at
    the default buffer for W = 1, 8 and 256 (rows at one nbytes, iters
@@ -137,6 +150,7 @@ Across the cards of one host (never in the default run, which needs one
 card)::
 
     python3 -c "import chip_smoke as c; c.across_cards(4)"
+    python3 -c "import chip_smoke as c; c.cards_chaos(4)"   # the skew soak
 """
 
 from __future__ import annotations
@@ -1929,6 +1943,337 @@ def _trace_daemon(logs: str, fused_lat_us: float) -> None:
           f"(trace / fused {lats['plain'] / fused_lat_us:.3f})"
           + "".join(f" and the fused run's {f:.2f} us (-i {ITERS}; trace / "
                     f"fused {lats['plain'] / f:.3f})" for f in FUSED_LAT_4K))
+
+
+#: the health phase: the synthetic twin's flags and schedule (the JAX
+#: package's chaos acceptance soak), run on the card and on the CPU
+HEALTH_TWIN_SPEC = {"faults": [
+    {"kind": "spike", "op": "ring", "nbytes": 32, "start": 60, "end": 80,
+     "magnitude": 30.0},
+    {"kind": "drop_run", "op": "ring", "nbytes": 8, "start": 81, "end": 120},
+    {"kind": "hook_fail", "start": 130, "end": 135},
+    {"kind": "delay", "op": "ring", "nbytes": 32, "start": 150, "end": 400,
+     "magnitude": 3.0},
+    {"kind": "flatline", "op": "ring", "nbytes": 8, "start": 200, "end": 400},
+]}
+HEALTH_TWIN_ARGS = ("--synthetic", "0.001", "--seed", "7", "--op", "ring",
+                    "--sweep", "8,32", "-i", "1", "--stats-every", "20",
+                    "--health-warmup", "20", "--max-runs", "400")
+#: the real-timing soak: pl_allreduce fused at 4 KiB and 16 MiB a rank,
+#: round robin (odd runs 4 KiB, even 16 MiB), one fault of each kind;
+#: the per-sample faults sit on 16 MiB, whose samples a quantized event
+#: timer does not repeat, and the delay follows the baseline's warm-up
+#: closely, so a regression the card raises by itself has little time to
+#: stand where the delay begins
+HEALTH_BIG = 16 * 1024**2
+HEALTH_REAL_SPEC = {"faults": [
+    {"kind": "spike", "op": "pl_allreduce", "nbytes": HEALTH_BIG,
+     "start": 101, "end": 120, "magnitude": 30.0},
+    {"kind": "delay", "op": "pl_allreduce", "nbytes": HEALTH_BIG,
+     "start": 131, "end": 250, "magnitude": 3.0},
+    {"kind": "flatline", "op": "pl_allreduce", "nbytes": HEALTH_BIG,
+     "start": 301, "end": 400},
+    {"kind": "drop_run", "op": "pl_allreduce", "nbytes": 4096, "start": 401,
+     "end": 450},
+    {"kind": "hook_fail", "start": 460, "end": 465},
+    {"kind": "corrupt", "op": "pl_allreduce"},
+]}
+HEALTH_REAL_RUNS, HEALTH_STATS = 500, 50
+#: the fault-free soaks (does a quantized timer flatline, does card noise
+#: spike) and the --spans tax runs
+HEALTH_SOAK_VISITS, SPANS_TAX_RUNS = 5000, 500
+
+
+def _jsonl(folder: str, prefix: str) -> list[dict]:
+    import glob
+
+    out = []
+    for path in sorted(glob.glob(os.path.join(folder, f"{prefix}-*.log"))):
+        with open(path) as fh:
+            out += [json.loads(ln) for ln in fh if ln.strip()]
+    return out
+
+
+def _rows_in(folder: str) -> list:
+    import glob
+
+    from tpu_perf_torch.schema import ResultRow
+
+    rows = []
+    for path in glob.glob(os.path.join(folder, "tpu-*.log")):
+        with open(path) as fh:
+            rows += [ResultRow.from_csv(ln) for ln in fh if ln.strip()]
+    return rows
+
+
+def _ledger_bytes(folder: str) -> bytes:
+    import glob
+
+    return b"".join(open(p, "rb").read() for p in sorted(
+        glob.glob(os.path.join(folder, "chaos-*.log"))))
+
+
+def _verify(folder: str, what: str) -> str:
+    """chaos verify over ``folder``: its markdown, failing unless it exits 0."""
+    import contextlib
+    import io
+
+    from tpu_perf_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["chaos", "verify", folder])
+    out = buf.getvalue()
+    if rc != 0:
+        fail(f"{what}: chaos verify exited {rc}:\n{out}")
+    return out
+
+
+def _health_twin(root: str) -> str:
+    """Gate 1: the synthetic soak on the card and on the CPU writes the
+    same ledger bytes and the same events, and chaos verify catches all
+    five faults."""
+    from tpu_perf_torch import cli
+
+    spec = os.path.join(root, "twin.json")
+    with open(spec, "w") as fh:
+        json.dump(HEALTH_TWIN_SPEC, fh)
+    sides = {}
+    for device in ("cuda", "cpu"):
+        folder = os.path.join(root, f"twin-{device}")
+        rc = cli.main(["chaos", "--faults", spec, *HEALTH_TWIN_ARGS,
+                       "--device", device, "-l", folder])
+        if rc != 0:
+            fail(f"chaos --synthetic on {device} exited {rc}")
+        events = [(e["kind"], e["op"], e["nbytes"], e["run_id"],
+                   e["severity"], e["observed"], e["baseline"])
+                  for e in _jsonl(folder, "health")]
+        sides[device] = (_ledger_bytes(folder), events, folder)
+    (lc, ec, folder), (lp, ep, _) = sides["cuda"], sides["cpu"]
+    if not lc or lc != lp:
+        fail(f"chaos --synthetic: the ledgers differ between the card and "
+             f"the CPU ({len(lc)} and {len(lp)} bytes)")
+    if ec != ep or not ec:
+        fail(f"chaos --synthetic: events differ: card {ec}, CPU {ep}")
+    out = _verify(folder, "chaos --synthetic")
+    if "5/5 fault(s) caught" not in out:
+        fail(f"chaos --synthetic: verify did not catch all five:\n{out}")
+    return (f"synthetic twin (the JAX acceptance soak, 400 runs): ledger "
+            f"{len(lc)} B identical on the card and the CPU, {len(ec)} "
+            f"events identical, verify 5/5 caught")
+
+
+def _textfile_points(path: str) -> dict:
+    """The Prometheus textfile's series, by metric name: each a list of
+    (labels, value); a line that does not parse fails."""
+    import re
+
+    series: dict = {}
+    with open(path) as fh:
+        for ln in fh:
+            ln = ln.strip()
+            if not ln or ln.startswith("#"):
+                continue
+            m = re.fullmatch(r"([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)",
+                             ln)
+            if not m:
+                fail(f"health textfile: unparseable line {ln!r}")
+            series.setdefault(m.group(1), []).append(
+                (m.group(2) or "", float(m.group(3))))
+    return series
+
+
+def _health_real(root: str) -> tuple[str, list[str]]:
+    """Gates 2-4: the fused pl_allreduce soak with every fault kind, real
+    timing, --spans and --health-textfile: verify exits 0 with no critical
+    miss, every row, event and ledger entry joins exactly one run span,
+    the Chrome trace validates, and the textfile holds one gauge set a
+    point.  The launches are the two points' warm-ups and captures and
+    the corrupt pass's one execution."""
+    import glob
+
+    from tpu_perf_torch import cli, kernels
+    from tpu_perf_torch.faults import read_ledger
+    from tpu_perf_torch.health.events import HealthEvent
+    from tpu_perf_torch.spans import read_span_records
+    from tpu_perf_torch.trace import (
+        join_completeness, to_chrome_trace, validate_chrome_trace,
+    )
+
+    spec = os.path.join(root, "real.json")
+    with open(spec, "w") as fh:
+        json.dump(HEALTH_REAL_SPEC, fh)
+    folder = os.path.join(root, "real")
+    prom = os.path.join(root, "health.prom")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["chaos", "--faults", spec, "--seed", "7", "--op",
+                   "pl_allreduce", "--sweep", "4K,16M", "--fence", "fused",
+                   "--max-runs", str(HEALTH_REAL_RUNS), "--stats-every",
+                   str(HEALTH_STATS), "--spans", "--health-textfile", prom,
+                   "-l", folder])
+    wall = time.perf_counter() - t0
+    got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    what = "chaos --fence fused, real timing"
+    if rc != 0:
+        fail(f"{what} exited {rc}")
+    if got != {"direct_reduce_scatter": 41, "direct_all_gather": 41}:
+        fail(f"{what}: launches {got}")
+    out = _verify(folder, what)
+    if "0 critical miss(es)" not in out:
+        fail(f"{what}: a critical fault was missed:\n{out}")
+    verdicts = [ln for ln in out.splitlines() if ln.startswith("| ")
+                and ln.split("|")[1].strip().isdigit()]
+    spans = read_span_records(sorted(glob.glob(
+        os.path.join(folder, "spans-*.log"))))
+    rows = _rows_in(folder)
+    events = [HealthEvent(**e) for e in _jsonl(folder, "health")]
+    ledger = read_ledger(sorted(glob.glob(
+        os.path.join(folder, "chaos-*.log"))))
+    missing = join_completeness(spans, rows=rows, events=events,
+                                ledger=ledger)
+    if missing or not rows:
+        fail(f"{what}: {len(missing)} records join no run span (or more "
+             f"than one): {missing[:5]}")
+    problems = validate_chrome_trace(to_chrome_trace(spans))
+    if problems:
+        fail(f"{what}: the Chrome trace does not validate: {problems[:5]}")
+    series = _textfile_points(prom)
+    for name in ("tpu_perf_health_lat_p50_us", "tpu_perf_health_lat_p99_us",
+                 "tpu_perf_health_busbw_gbps",
+                 "tpu_perf_health_samples_total",
+                 "tpu_perf_health_point_severity"):
+        sizes = sorted(lbl for lbl, _ in series.get(name, []))
+        if (len(sizes) != 2 or not any('nbytes="4096"' in s for s in sizes)
+                or not any(f'nbytes="{HEALTH_BIG}"' in s for s in sizes)):
+            fail(f"health textfile: {name} series {sizes}")
+    kinds = {}
+    for e in events:
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    said = (f"real timing: chaos --fence fused pl_allreduce 4K,16M, "
+            f"{HEALTH_REAL_RUNS} visits, {len(HEALTH_REAL_SPEC['faults'])} "
+            f"faults: verify exit 0, 0 critical misses ({wall:.1f} s); "
+            f"events {kinds}; {len(spans)} spans, every one of "
+            f"{len(rows)} rows, {len(events)} events and {len(ledger)} "
+            f"ledger records joins one run span, the Chrome trace "
+            f"validates; textfile {len(series)} metrics, one gauge set a "
+            f"point; launches {got}")
+    return said, verdicts
+
+
+def _samples_by_point() -> tuple[dict, object]:
+    """Patch HealthMonitor.observe to keep every raw sample it judges, by
+    point; returns (samples, restore)."""
+    from tpu_perf_torch.health import monitor
+
+    samples: dict = {}
+    plain = monitor.HealthMonitor.observe
+
+    def observe(self, op, nbytes, iters, n_devices, run_id, t, span_id=""):
+        samples.setdefault((op, nbytes), []).append(t)
+        return plain(self, op, nbytes, iters, n_devices, run_id, t,
+                     span_id=span_id)
+
+    monitor.HealthMonitor.observe = observe
+
+    def restore():
+        monitor.HealthMonitor.observe = plain
+
+    return samples, restore
+
+
+def _longest_repeat(values: list) -> int:
+    best = run = 0
+    last = None
+    for v in values:
+        run = run + 1 if v == last else 1
+        last = v
+        best = max(best, run)
+    return best
+
+
+def _health_soaks(root: str) -> list[str]:
+    """Printed, not gated: a fault-free monitor --health of
+    HEALTH_SOAK_VISITS visits at 4 KiB under fused and under trace, its
+    events by kind and each point's distinct sample values and longest run
+    of identical samples (the flatline detector fires at 20)."""
+    from tpu_perf_torch import cli
+
+    said = []
+    for fence in ("fused", "trace"):
+        folder = os.path.join(root, f"soak-{fence}")
+        samples, restore = _samples_by_point()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["monitor", "--op", "pl_allreduce", "-b", "4K",
+                           "--fence", fence, "--health", "--max-runs",
+                           str(HEALTH_SOAK_VISITS), "--stats-every",
+                           str(HEALTH_SOAK_VISITS), "-l", folder])
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"monitor --health --fence {fence} exited {rc}")
+        kinds, alarms = {}, []
+        for e in _jsonl(folder, "health"):
+            kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+            if e["kind"] != "recovered":
+                alarms.append(f"{e['kind']} at run {e['run_id']}: "
+                              f"{e['observed'] * 1e6:.3f} us against "
+                              f"{e['baseline'] * 1e6:.3f}")
+        pts = ", ".join(
+            f"{op}/{nb}: {len(v)} samples, {len(set(v))} distinct, longest "
+            f"identical run {_longest_repeat(v)}, p50 "
+            f"{_median(v) * 1e6:.3f} us"
+            for (op, nb), v in sorted(samples.items()))
+        said.append(f"fault-free monitor --health --fence {fence} -b 4K, "
+                    f"{HEALTH_SOAK_VISITS} visits ({wall:.1f} s): events "
+                    f"{kinds or 'none'} ({'; '.join(alarms) or 'none'}); "
+                    f"{pts}")
+    return said
+
+
+def _spans_tax(root: str) -> list[str]:
+    """Printed, not gated: pl_allreduce lat_us p50 at 4 KiB under block and
+    fused, with --spans off and on, in turns off, on, off, on."""
+    from tpu_perf_torch import cli
+
+    said = []
+    for fence in ("block", "fused"):
+        p50 = {"off": [], "on": []}
+        for i, side in enumerate(("off", "on", "off", "on")):
+            folder = os.path.join(root, f"tax-{fence}-{i}")
+            rc = cli.main(["run", "--op", "pl_allreduce", "-b", "4K", "-r",
+                           str(SPANS_TAX_RUNS), "--fence", fence, "-l",
+                           folder] + (["--spans"] if side == "on" else []))
+            if rc != 0:
+                fail(f"run --fence {fence} --spans {side} exited {rc}")
+            p50[side].append(_median([r.lat_us for r in _rows_in(folder)]))
+        said.append(f"--spans tax, pl_allreduce -b 4K -r {SPANS_TAX_RUNS} "
+                    f"--fence {fence}: lat p50 off "
+                    + ", ".join(f"{v:.3f}" for v in p50["off"]) + " us, on "
+                    + ", ".join(f"{v:.3f}" for v in p50["on"]) + " us")
+    return said
+
+
+def phase_health() -> None:
+    """The fleet-health monitor and its chaos judge on the card: the
+    synthetic twin (gate 1), the real-timing fused soak with every fault
+    kind under --spans and --health-textfile (gates 2-4), then, printed
+    and never gated, the fault-free soaks' events and sample values and
+    the --spans tax."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-health-") as root:
+        print(f"health: {_health_twin(root)}", flush=True)
+        said, verdicts = _health_real(root)
+        print(f"health: {said}", flush=True)
+        for ln in verdicts:
+            print(f"health: verdict {ln}", flush=True)
+        for ln in _health_soaks(root) + _spans_tax(root):
+            print(f"health: {ln} ({CARD})", flush=True)
+    print(f"health: phase wall {time.perf_counter() - t0:.1f} s")
 
 
 def phase_report() -> None:
@@ -4295,6 +4640,88 @@ def _cards_cli(n: int, device: str) -> list[str]:
     return said
 
 
+#: the skew soak across the cards: allreduce at 4 KiB and 16 MiB a rank
+#: round robin under the fused fence, the last rank entering late by up
+#: to CARDS_SKEW_US in visits 101-300
+CARDS_SKEW_US, CARDS_SKEW_RUNS, CARDS_SKEW_STATS = 1000.0, 400, 50
+
+
+def _cards_chaos(n: int, device: str) -> list[str]:
+    """A `chaos` soak through torchrun with one ``skew`` fault on the last
+    rank, real timing: every other rank's samples must carry the wait, so
+    chaos verify must catch the fault through the regression events of
+    each victim rank."""
+    import tempfile
+
+    from tpu_perf_torch.health.events import HealthEvent
+
+    straggler = n - 1
+    spec = {"faults": [{"kind": "skew", "op": "allreduce",
+                        "rank": straggler, "magnitude": CARDS_SKEW_US,
+                        "start": 101, "end": 300}]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-skew-") as root:
+        path, folder = os.path.join(root, "skew.json"), os.path.join(
+            root, "logs")
+        with open(path, "w") as fh:
+            json.dump(spec, fh)
+        t0 = time.perf_counter()
+        fence = "fused"
+        _torchrun(n, ["chaos", "--faults", path, "--op", "allreduce",
+                      "--sweep", "4K,16M", "-i", str(ITERS), "--fence",
+                      fence, "--max-runs", str(CARDS_SKEW_RUNS),
+                      "--stats-every", str(CARDS_SKEW_STATS), "-l", folder],
+                  f"torchrun chaos, a skew fault on rank {straggler}",
+                  device)
+        wall = time.perf_counter() - t0
+        out = _verify(folder, "chaos with a skew fault across the cards")
+        if "1/1 fault(s) caught" not in out:
+            fail(f"across cards: the skew fault was not caught:\n{out}")
+        events = [HealthEvent(**e) for e in _jsonl(folder, "health")]
+        victims = sorted({e.rank for e in events if e.kind == "regression"
+                          and 101 <= e.run_id <= 300 + 2 * CARDS_SKEW_STATS
+                          and e.rank != straggler})
+        if victims != [r for r in range(n) if r != straggler]:
+            fail(f"across cards: regression events on victim ranks "
+                 f"{victims}, events {[(e.rank, e.kind, e.run_id) for e in events]}")
+        rows = _logged_rows(folder)
+        lat = {}
+        for nb in (4096, 16 * 1024**2):
+            for label, lo, hi in (("before", 61, 100), ("during", 101, 300)):
+                lat[(nb, label)] = _median([
+                    r.lat_us for r in rows.get(0, [])
+                    if r.nbytes == nb and lo <= r.run_id <= hi])
+        kinds = {}
+        for e in events:
+            kinds[(e.rank, e.kind)] = kinds.get((e.rank, e.kind), 0) + 1
+    return [f"chaos --fence {fence}, allreduce 4K,16M, skew on rank "
+            f"{straggler} up to {CARDS_SKEW_US:g} us in visits 101-300: "
+            f"verify 1/1 caught, regression events on victim ranks "
+            f"{victims}; events by (rank, kind) {kinds}; rank 0 lat p50 "
+            + ", ".join(f"{nb} B {label} {v:.2f} us"
+                        for (nb, label), v in lat.items())
+            + f" ({wall:.1f} s)"]
+
+
+def cards_chaos(cards: int, device: str = "cuda") -> int:
+    """The skew soak alone (:func:`_cards_chaos`); on a host with four
+    cards: ``python3 -c "import chip_smoke as c; c.cards_chaos(4)"``."""
+    if device == "cuda":
+        print(card_line_all(), flush=True)
+    for line in _cards_chaos(cards, device):
+        print(f"cards: {line}", flush=True)
+    print(json.dumps({"ok": True, "cards": cards}))
+    return 0
+
+
+def card_line_all() -> str:
+    """Every visible card's name and power limit, as nvidia-smi gives
+    them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
 def across_cards(cards: int, device: str = "cuda") -> int:
     """The multi-rank world across ``cards`` cards of one host, one rank a
     card on NCCL (never run by main, which needs one card); on a host with
@@ -4305,7 +4732,7 @@ def across_cards(cards: int, device: str = "cuda") -> int:
     Builds the kernels; runs :func:`cards_rank` in a world of ``cards``
     processes (every op against the sim chain, the push chains, each peer
     kernel timed beside its NCCL call); then the CLI through torchrun
-    (:func:`_cards_cli`).  Prints each card's name and power limit, the
+    (:func:`_cards_cli`) and the skew soak (:func:`_cards_chaos`).  Prints each card's name and power limit, the
     results, and ``{"ok": true, "cards": N}`` last.  ``device`` "cpu"
     rehearses the world and the CLI on gloo (no push chain, no timing)."""
     import torch
@@ -4315,10 +4742,7 @@ def across_cards(cards: int, device: str = "cuda") -> int:
         if torch.cuda.device_count() < cards:
             fail(f"across cards: {cards} cards asked, "
                  f"{torch.cuda.device_count()} visible")
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip(), flush=True)
+        print(card_line_all(), flush=True)
         from tpu_perf_torch.kernels import _build
 
         _build.build_all()
@@ -4329,7 +4753,7 @@ def across_cards(cards: int, device: str = "cuda") -> int:
                   f"the world of {cards} cards", CARDS_LIMIT_S)
     for line in outs[0][0].splitlines():
         print(line, flush=True)
-    for line in _cards_cli(cards, device):
+    for line in _cards_cli(cards, device) + _cards_chaos(cards, device):
         print(f"cards: {line}", flush=True)
     print(f"cards: total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "cards": cards}))
@@ -5219,6 +5643,7 @@ def _main(torch) -> int:
         timed("fences", phase_fences)
         timed("profile", phase_profile)
         timed("daemon", phase_daemon)
+        timed("health", phase_health)
         timed("report", phase_report)
         timed("surface", phase_surface)
         timed("compute", phase_compute)

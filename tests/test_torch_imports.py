@@ -66,7 +66,15 @@ SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.tools.fence_windows",
                  "tpu_perf_torch.adaptive", "tpu_perf_torch.health",
                  "tpu_perf_torch.health.stats",
-                 "tpu_perf_torch.compilepipe")
+                 "tpu_perf_torch.compilepipe", "tpu_perf_torch.spans",
+                 "tpu_perf_torch.health.detect",
+                 "tpu_perf_torch.health.events",
+                 "tpu_perf_torch.health.exporter",
+                 "tpu_perf_torch.health.monitor", "tpu_perf_torch.trace",
+                 "tpu_perf_torch.trace.export", "tpu_perf_torch.faults",
+                 "tpu_perf_torch.faults.spec",
+                 "tpu_perf_torch.faults.injector",
+                 "tpu_perf_torch.faults.conformance")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -112,6 +120,9 @@ def no_card(monkeypatch):
     ["run", "--op", "hbm_stream", "--device", "cuda"],
     ["selftest"],
     ["bench"],
+    # a synthetic soak still builds and warms its points on the card
+    ["chaos", "--synthetic", "0.001", "--max-runs", "2", "--op", "ring",
+     "-b", "64"],
 ])
 def test_entry_points_without_a_card_raise(no_card, argv):
     with pytest.raises(NoDeviceError, match="--device cpu"):

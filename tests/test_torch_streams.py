@@ -265,7 +265,9 @@ def test_run_contend_refusals(kw, err, match):
     # the shapes still to port stay refused
     ["--split", "2", "--victim-axis", "x"],
     ["--load", "hbm_stream", "--load-axis", "x", "--algo", "ring"],
-    ["--load", "hbm_stream", "--synthetic", "0.001"],
+    # --synthetic runs (tests/test_torch_chaos.py); the push plane's
+    # flags stay refused
+    ["--load", "hbm_stream", "--push-textfile", "push.prom"],
     ["--load", "hbm_stream", "--algo", "ring"],
 ])
 def test_contend_flags_not_yet_ported(flags, capsys):

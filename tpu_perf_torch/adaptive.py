@@ -29,6 +29,7 @@ achieved value.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable
@@ -272,21 +273,29 @@ class PointController:
             return False
         return self.ci_rel() <= self.config.ci_rel
 
-    def should_stop(self, runs_done: int) -> bool:
+    def should_stop(self, runs_done: int, *, tracer=None) -> bool:
         """The lockstep decision for this round; in a multi-process world
         EVERY rank calls it after every run, and it may enter a
         collective.  Before ``min_runs`` no rank can stop (taken <=
         runs_done < min_runs), and ``runs_done`` is the same on every
-        rank, so those rounds skip the vote on every rank alike."""
+        rank, so those rounds skip the vote on every rank alike.
+        ``tracer`` (spans.SpanTracer) records each vote that is taken (a
+        collective, or the injected test vote) as a ``stop_vote`` span
+        around the exchange alone."""
         if runs_done < self.config.min_runs:
             return False
         local = self._local_stop(runs_done)
-        if self._vote is not None:
-            stop = self._vote(local)
-        elif self.n_hosts > 1:
-            stop = vote_all(local, self._group)
-        else:
-            stop = local
+        voting = self._vote is not None or self.n_hosts > 1
+        ctx = (tracer.span("stop_vote", run_id=runs_done, local=local)
+               if tracer is not None and voting
+               else contextlib.nullcontext())
+        with ctx:  # a vote that raises still closes, and marks, the span
+            if self._vote is not None:
+                stop = self._vote(local)
+            elif self.n_hosts > 1:
+                stop = vote_all(local, self._group)
+            else:
+                stop = local
         if stop and self.stopped_at is None:
             self.stopped_at = runs_done
         return stop

@@ -1,6 +1,7 @@
 """Command-line interface (port of the ``run``, ``monitor``, ``contend``,
-``ingest``, ``report``, ``grid``, ``ops``, ``chips``, ``selftest`` and
-``bench`` subcommands of ``tpu_perf/cli.py``).
+``chaos``, ``chaos verify``, ``health``, ``ingest``, ``report``, ``grid``,
+``ops``, ``chips``, ``selftest`` and ``bench`` subcommands of
+``tpu_perf/cli.py``).
 
 Flag letters keep the reference's meanings (mpi_perf.c:273-339) where the
 port has them: ``-i`` iters, ``-b`` buffer size, ``-r`` runs, ``-l`` log
@@ -47,6 +48,13 @@ world, one process a rank (``torchrun``); ``--mesh`` / ``--axes`` and
     python -m tpu_perf_torch run --op pl_allreduce --sweep 4K:256M \
         --ci-rel 0.05 --min-runs 5 --max-runs 50 --precompile auto \
         --compile-cache /tmp/kcache -l /tmp/logs
+    python -m tpu_perf_torch monitor --op pl_allreduce --sweep 4K,16M \
+        --fence fused --health --spans -l /tmp/logs --max-runs 5000
+    python -m tpu_perf_torch chaos --faults spec.json --seed 7 \
+        --op pl_allreduce --sweep 4K,16M --fence fused --max-runs 4000 \
+        -l /tmp/chaos; python -m tpu_perf_torch chaos verify /tmp/chaos
+    python -m tpu_perf_torch health /tmp/logs
+    python -m tpu_perf_torch report /tmp/chaos --compare-chaos
     python -m tpu_perf_torch ops
     python -m tpu_perf_torch chips
     python -m tpu_perf_torch selftest
@@ -57,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 import sys
 
 from tpu_perf_torch.config import (
@@ -64,7 +73,7 @@ from tpu_perf_torch.config import (
     HEARTBEAT_FORMATS, LOG_REFRESH_TIME_SEC, Options,
 )
 from tpu_perf_torch.extern_launch import DEFAULT_TEMPLATE
-from tpu_perf_torch.schema import RESULT_HEADER
+from tpu_perf_torch.schema import HEALTH_PREFIX, RESULT_HEADER
 from tpu_perf_torch.sweep import DEF_BUF_SZ, format_size, parse_size
 
 
@@ -153,6 +162,10 @@ def _parse_mesh(args: argparse.Namespace) -> tuple[tuple[int, ...],
 
 def _options_from(args: argparse.Namespace, **overrides) -> Options:
     """The run flags as Options; ``overrides`` win."""
+    if args.push_url or args.push_textfile or args.push_queue:
+        raise NotImplementedError(
+            "the push plane (--push/--push-textfile/--push-queue) is not "
+            "yet ported, see ROADMAP item 3b")
     mesh_shape, mesh_axes = _parse_mesh(args)
     kw = dict(
         logfolder=args.logfolder, iters=args.iters, ppn=args.ppn,
@@ -174,6 +187,13 @@ def _options_from(args: argparse.Namespace, **overrides) -> Options:
         streams=args.streams, sim_ranks=_sim_ranks(args), device=args.device,
         mesh_shape=mesh_shape, mesh_axes=mesh_axes,
         distributed=args.distributed, hybrid_mesh=args.hybrid_mesh,
+        spans=args.spans, spans_sample=args.spans_sample,
+        health=args.health, health_threshold=args.health_threshold,
+        health_warmup=args.health_warmup,
+        health_textfile=args.health_textfile,
+        # the chaos knobs (`chaos` and `contend --synthetic` set them)
+        faults=getattr(args, "_fault_spec", None), fault_seed=args.seed,
+        synthetic_s=getattr(args, "synthetic", None),
     )
     kw.update(overrides)
     return Options(**kw)
@@ -200,10 +220,19 @@ def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
               file=sys.stderr)
         return 2
 
+    import os
+
     from tpu_perf_torch.driver import Driver
 
+    # a chaos soak with no real ingest backend keeps its rotated logs:
+    # the default pass deletes what it ingests, and `chaos verify` needs
+    # the ledger and the events after the soak
+    chaos_keep_logs = (
+        getattr(args, "_chaos", False)
+        and os.environ.get("TPU_PERF_INGEST", "none") in ("", "none")
+        and not os.environ.get("TPU_PERF_INGEST_CMD"))
     ingest = None
-    if opts.logfolder:
+    if opts.logfolder and not chaos_keep_logs:
         # the ingest pass (both families, through the `ingest` subcommand)
         # runs in its own process, so a slow pass never stalls the next
         # measured run, as the reference forks its uploader
@@ -235,6 +264,8 @@ def _print_rows(rows) -> None:
         header += ",span_id,algo,skew_us,imbalance,stream,load"
     elif any(r.stream > 0 for r in rows):
         header += ",span_id,algo,skew_us,imbalance,stream"
+    elif any(r.span_id for r in rows):
+        header += ",span_id"
     width = header.count(",") + 1
     print(header)
     for row in rows:
@@ -260,14 +291,10 @@ def _cmd_contend(args: argparse.Namespace) -> int:
         print(f"tpu-perf-torch: error: --split needs K >= 2 lanes, got "
               f"{args.split}", file=sys.stderr)
         return 2
-    refused = [
-        (args.synthetic is not None,
-         "--synthetic needs the fault injector's seeded series"),
-        (args.algo != "native", f"--algo {args.algo} needs the arena"),
-    ]
-    for hit, why in refused:
-        if hit:
-            raise NotImplementedError(f"{why}: not yet ported, see ROADMAP")
+    if args.algo != "native":
+        raise NotImplementedError(
+            f"--algo {args.algo} needs the arena: not yet ported, see "
+            "ROADMAP")
     if args.streams != 1:
         # contend's lane count comes from the load shape (2 for a race)
         print("tpu-perf-torch: error: --streams applies to run/monitor "
@@ -293,10 +320,41 @@ def _cmd_contend(args: argparse.Namespace) -> int:
     from tpu_perf_torch.runner import world_for
     from tpu_perf_torch.world import is_dist
 
-    world = world_for(opts)
-    rows = run_contend(opts, world=world, axis=args.victim_axis,
-                       load_axis=args.load_axis)
-    rank = world.rank if is_dist(world) else 0
+    world, n_devices, rank = None, None, 0
+    if opts.synthetic_s is not None:
+        # no device is touched: the seeded series is the timing source,
+        # so the rank count is stated, not found
+        if not opts.mesh_shape:
+            print("tpu-perf-torch: error: --synthetic contend needs an "
+                  "explicit --mesh shape (no devices are raced)",
+                  file=sys.stderr)
+            return 2
+        n_devices = math.prod(opts.mesh_shape)
+    else:
+        world = world_for(opts)
+        rank = world.rank if is_dist(world) else 0
+    tracer = None
+    if opts.spans:
+        if not opts.logfolder:
+            print("tpu-perf-torch: error: --spans needs -l/--logfolder "
+                  "(spans ride the rotating-log families)", file=sys.stderr)
+            return 2
+        from tpu_perf_torch.driver import RotatingCsvLog
+        from tpu_perf_torch.schema import SPANS_PREFIX
+        from tpu_perf_torch.spans import SpanTracer
+
+        tracer = SpanTracer(
+            opts.uuid, rank=rank,
+            log=RotatingCsvLog(opts.logfolder, opts.uuid, rank,
+                               refresh_sec=10**9, prefix=SPANS_PREFIX,
+                               lazy=True))
+    try:
+        rows = run_contend(opts, world=world, axis=args.victim_axis,
+                           load_axis=args.load_axis, n_devices=n_devices,
+                           tracer=tracer, err=sys.stderr)
+    finally:
+        if tracer is not None:
+            tracer.close()
     if opts.logfolder:
         # the rotating extended-row family, so `report <folder>` renders
         # the interference matrix from this job
@@ -321,6 +379,176 @@ def _cmd_contend(args: argparse.Namespace) -> int:
         print(f"[tpu-perf-torch contend] {cell.op} @ {cell.nbytes} B under "
               f"{cell.load}: slowdown {slow}", file=sys.stderr)
     return 0
+
+
+def _load_faults(args: argparse.Namespace) -> list | None:
+    """The --faults / --fault schedule; None (after the error is printed)
+    when the spec file is unreadable."""
+    from tpu_perf_torch.faults import load_spec, parse_fault_arg
+
+    try:
+        faults = list(load_spec(args.faults)) if args.faults else []
+    except OSError as e:
+        print(f"tpu-perf-torch: cannot read fault spec: {e}", file=sys.stderr)
+        return None
+    faults += [parse_fault_arg(s) for s in args.fault or []]
+    return faults
+
+
+def _cmd_chaos(args: argparse.Namespace) -> int:
+    """A bounded (or infinite) daemon soak with fault injection: the
+    monitor path with a seeded FaultInjector in the Driver and the health
+    monitor forced on (chaos without the judge detects nothing)."""
+    if args.backend == "mpi":
+        print("tpu-perf-torch: error: chaos drives the torch backend (the "
+              "injector wraps the in-process run loop; the C backend has "
+              "no injection point)", file=sys.stderr)
+        return 2
+    faults = _load_faults(args)
+    if faults is None:
+        return 2
+    args._fault_spec = faults
+    args.health = True
+    args._chaos = True  # _cmd_run keeps the rotated logs for verify
+    return _cmd_run(args, infinite=True)
+
+
+def _cmd_chaos_verify(args: argparse.Namespace) -> int:
+    """Join a soak's ledger (chaos-*.log) against its health events
+    (health-*.log), and its spans (spans-*.log) when traced: a verdict a
+    fault, a precision / recall row a detector.  Exit 5 on a missed
+    critical fault (or, with --fail-on-false-alarm, on a false alarm)."""
+    import os
+
+    from tpu_perf_torch.faults import (
+        read_ledger, report_to_json, report_to_markdown, run_conformance,
+    )
+    from tpu_perf_torch.health.events import read_events
+    from tpu_perf_torch.report import collect_paths
+    from tpu_perf_torch.schema import CHAOS_PREFIX, SPANS_PREFIX
+    from tpu_perf_torch.spans import read_span_records
+
+    # include_open: a killed soak leaves its active lazy logs as .open
+    ledger_paths = collect_paths(args.target, prefix=CHAOS_PREFIX,
+                                 include_open=True)
+    if os.path.isdir(args.target):
+        event_dirs = [args.target]
+    else:
+        # a file or glob names the ledger; the events and spans are found
+        # next to each ledger file
+        event_dirs = sorted(
+            {os.path.dirname(os.path.abspath(p)) for p in ledger_paths})
+    if not ledger_paths:
+        print(f"tpu-perf-torch: no chaos ledger matches {args.target!r} — "
+              "run `tpu-perf-torch chaos` with a logfolder first",
+              file=sys.stderr)
+        return 1
+
+    def beside(prefix: str) -> list[str]:
+        return sorted({p for d in event_dirs
+                       for p in collect_paths(d, prefix=prefix,
+                                              include_open=True)})
+
+    span_paths = beside(SPANS_PREFIX)
+    try:
+        records = read_ledger(ledger_paths)
+        events = read_events(beside(HEALTH_PREFIX))
+        spans = read_span_records(span_paths) if span_paths else []
+        report = run_conformance(records, events, grace_runs=args.grace_runs,
+                                 spans=spans)
+    except ValueError as e:
+        print(f"tpu-perf-torch: bad chaos artifacts: {e}", file=sys.stderr)
+        return 1
+    if args.textfile:
+        # written even when the gate below fails; a failed write is said,
+        # never fatal
+        import time
+
+        from tpu_perf_torch.faults.conformance import (
+            render_conformance_textfile,
+        )
+        from tpu_perf_torch.health.exporter import write_textfile
+
+        try:
+            write_textfile(args.textfile, render_conformance_textfile(
+                report, now=time.time()))
+        except OSError as e:
+            print(f"tpu-perf-torch: conformance textfile write failed: {e}",
+                  file=sys.stderr)
+    print(report_to_json(report) if args.format == "json"
+          else report_to_markdown(report))
+    failures = []
+    if report.missed_critical:
+        failures.append(
+            f"{len(report.missed_critical)} critical fault(s) MISSED "
+            f"(spec {[v.spec_index for v in report.missed_critical]})")
+    if args.fail_on_false_alarm and report.false_alarms:
+        failures.append(
+            f"{len(report.false_alarms)} false alarm(s) on a gate that "
+            "allows none")
+    if failures:
+        print(f"tpu-perf-torch: chaos conformance failed: "
+              f"{'; '.join(failures)}", file=sys.stderr)
+        return 5
+    return 0
+
+
+def _cmd_health(args: argparse.Namespace) -> int:
+    """Replay health-*.log events (the live daemon's .open file too) into
+    the per-point summary table, or the raw events as JSON."""
+    from tpu_perf_torch.health.events import (
+        events_to_json, events_to_markdown, read_events, summarize_events,
+    )
+    from tpu_perf_torch.report import collect_paths
+
+    paths = collect_paths(args.target, prefix=HEALTH_PREFIX,
+                          include_open=True)
+    if not paths:
+        print(f"tpu-perf-torch: no health logs match {args.target!r}",
+              file=sys.stderr)
+        return 1
+    try:
+        # a torn final line is skipped with a warning; corruption
+        # mid-file is an error
+        events = read_events(paths)
+    except ValueError as e:
+        print(f"tpu-perf-torch: bad health event log: {e}", file=sys.stderr)
+        return 1
+    print(events_to_json(events) if args.format == "json"
+          else events_to_markdown(summarize_events(events)))
+    return 0
+
+
+def _anomaly_context(target: str) -> None:
+    """The report's anomaly-context section (a --spans soak's folder): a
+    row a health event, with its run span and the rotations, ingest passes
+    and builds that overlapped it."""
+    import os
+
+    if not os.path.isdir(target):
+        return
+    from tpu_perf_torch.health.events import read_events
+    from tpu_perf_torch.report import collect_paths
+    from tpu_perf_torch.schema import SPANS_PREFIX
+    from tpu_perf_torch.spans import read_span_records
+    from tpu_perf_torch.trace import anomaly_context, anomaly_to_markdown
+
+    span_paths = collect_paths(target, prefix=SPANS_PREFIX,
+                               include_open=True)
+    event_paths = collect_paths(target, prefix=HEALTH_PREFIX,
+                                include_open=True)
+    if not (span_paths and event_paths):
+        return
+    try:
+        ctx = anomaly_context(read_events(event_paths),
+                              read_span_records(span_paths))
+    except ValueError as e:
+        print(f"tpu-perf-torch: skipping anomaly context: {e}",
+              file=sys.stderr)
+        return
+    if ctx:
+        print("\n### Anomaly context\n")
+        print(anomaly_to_markdown(ctx))
 
 
 def _cmd_ingest(args: argparse.Namespace) -> int:
@@ -357,8 +585,9 @@ def _cmd_report(args: argparse.Namespace) -> int:
     from tpu_perf_torch import report
     from tpu_perf_torch.schema import LEGACY_PREFIX
 
+    compares = (args.compare, args.compare_pallas, args.compare_chaos)
     if args.legacy:
-        if (args.compare or args.compare_pallas or args.diff is not None
+        if (any(compares) or args.diff is not None
                 or args.format != "markdown"):
             print("tpu-perf-torch: error: --legacy renders markdown only "
                   "and is exclusive with --compare*/--diff", file=sys.stderr)
@@ -372,7 +601,7 @@ def _cmd_report(args: argparse.Namespace) -> int:
             report.read_legacy_rows(paths))))
         return 0
     if args.diff is not None:
-        if args.compare or args.compare_pallas or args.format != "markdown":
+        if any(compares) or args.format != "markdown":
             print("tpu-perf-torch: error: --diff renders markdown only and "
                   "is exclusive with --compare*", file=sys.stderr)
             return 2
@@ -415,14 +644,23 @@ def _cmd_report(args: argparse.Namespace) -> int:
         return 1
     # one streaming pass folds the curves and the adaptive verdicts
     points, adaptive = report.stream_report(paths)
-    if args.compare or args.compare_pallas:
-        if args.format != "markdown" or (args.compare and args.compare_pallas):
-            print("tpu-perf-torch: error: --compare/--compare-pallas render "
-                  "markdown only and are mutually exclusive", file=sys.stderr)
+    if any(compares):
+        if args.format != "markdown" or sum(map(bool, compares)) > 1:
+            print("tpu-perf-torch: error: --compare/--compare-pallas/"
+                  "--compare-chaos render markdown only and are mutually "
+                  "exclusive", file=sys.stderr)
             return 2
         if args.compare_pallas:
             print(report.compare_pallas_to_markdown(
                 report.compare_pallas(points)))
+        elif args.compare_chaos:
+            cmp = report.compare_chaos(points)
+            if not cmp:
+                print("tpu-perf-torch: no chaos-mode rows in the target "
+                      "(run `tpu-perf-torch chaos` with a fault schedule "
+                      "and a logfolder first)", file=sys.stderr)
+                return 1
+            print(report.compare_chaos_to_markdown(cmp))
         else:
             print(report.compare_to_markdown(report.compare(points)))
         return 0
@@ -446,6 +684,9 @@ def _cmd_report(args: argparse.Namespace) -> int:
         if adaptive:
             print("\n### Adaptive savings\n")
             print(report.adaptive_to_markdown(adaptive))
+        # a --spans soak's health events beside what the harness was
+        # doing when each fired
+        _anomaly_context(args.target)
     return 0
 
 
@@ -689,6 +930,44 @@ def _add_run_flags(p: argparse.ArgumentParser) -> None:
                    default=LOG_REFRESH_TIME_SEC)
     p.add_argument("--csv", action="store_true",
                    help="print extended rows as CSV to stdout")
+    p.add_argument("--health", action="store_true",
+                   help="online fleet health: per-(op, size, dtype) "
+                        "streaming baselines with step/spike/flatline/"
+                        "capture-loss detectors; events land in rotating "
+                        "health-*.log files (JSONL) beside the rows and "
+                        "ride the same ingest pass")
+    p.add_argument("--health-threshold", type=float, default=0.5,
+                   metavar="REL",
+                   help="relative step-regression threshold: alert when "
+                        "the short-term EWMA exceeds the long-run median "
+                        "by this fraction (default 0.5 = +50%%)")
+    p.add_argument("--health-warmup", type=int, default=30, metavar="N",
+                   help="baseline samples per point before it is judged")
+    p.add_argument("--health-textfile", default=None, metavar="PATH",
+                   help="write the gauges (p50/p99 latency, busbw, drop "
+                        "rate, severity) to this Prometheus textfile at "
+                        "every heartbeat boundary (rank 0 only)")
+    p.add_argument("--spans", action="store_true",
+                   help="harness span tracing: job/sweep/point/run spans "
+                        "and the build/warmup/fence/rotation/ingest-hook/"
+                        "stop-vote/inject activity to the spans-*.log "
+                        "family, the run span stamped into rows and "
+                        "health events; off, rows and chaos ledgers are "
+                        "byte-identical")
+    p.add_argument("--spans-sample", type=int, default=1, metavar="N",
+                   help="daemon span retention: every Nth run's whole span "
+                        "tree; other runs keep their run span, and rotate/"
+                        "ingest/inject/heartbeat/error spans are always "
+                        "kept (default 1 = everything)")
+    p.add_argument("--push", default=None, metavar="URL", dest="push_url",
+                   help="live telemetry push plane (not yet ported)")
+    p.add_argument("--push-textfile", default=None, metavar="PATH",
+                   help="the push plane's textfile (not yet ported)")
+    p.add_argument("--push-queue", type=int, default=0, metavar="N",
+                   help="the push plane's queue bound (not yet ported)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="the chaos injector's seed: same seed + spec => "
+                        "the same perturbations and chaos-*.log ledger")
     _add_mesh_flags(p)
     p.add_argument("--distributed", action="store_true",
                    help="join a torch.distributed world, one process a rank "
@@ -714,6 +993,59 @@ def build_parser() -> argparse.ArgumentParser:
     p_mon = sub.add_parser("monitor", help="infinite monitoring daemon (-r -1)")
     _add_run_flags(p_mon)  # --max-runs is the daemon's safety valve
     p_mon.set_defaults(func=lambda a: _cmd_run(a, infinite=True))
+
+    p_chaos = sub.add_parser(
+        "chaos",
+        help="fault-injected daemon soak; `chaos verify <dir>` judges "
+             "detector conformance")
+    chaos_sub = p_chaos.add_subparsers(dest="chaos_cmd")
+    p_cver = chaos_sub.add_parser(
+        "verify",
+        help="join the injection ledger (chaos-*.log) against the health "
+             "events: a caught/missed verdict a fault and a precision/"
+             "recall row a detector")
+    p_cver.add_argument("target", help="log folder (or glob/file) holding "
+                                       "chaos-*.log + health-*.log")
+    p_cver.add_argument("--format", choices=("markdown", "json"),
+                        default="markdown")
+    p_cver.add_argument("--grace-runs", type=int, default=None, metavar="N",
+                        help="runs past a fault's last injection an event "
+                             "still counts as its detection (default 2x "
+                             "the soak's stats_every)")
+    p_cver.add_argument("--fail-on-false-alarm", action="store_true",
+                        help="also exit 5 when any event is not "
+                             "attributable to an injected fault")
+    p_cver.add_argument("--textfile", default=None, metavar="PATH",
+                        help="also write per-detector caught/missed/false-"
+                             "alarm gauges and a last-verify timestamp to "
+                             "this Prometheus textfile")
+    p_cver.set_defaults(func=_cmd_chaos_verify)
+    _add_run_flags(p_chaos)
+    p_chaos.add_argument("--faults", default=None, metavar="SPEC.json",
+                         help="fault schedule (tpu_perf_torch.faults.spec "
+                              "JSON); omit for a fault-free soak")
+    p_chaos.add_argument("--fault", action="append", default=None,
+                         metavar="KIND[:OP[:NBYTES[:START-END[:MAG]]]]",
+                         help="one inline fault (repeatable), appended to "
+                              "the --faults schedule; e.g. "
+                              "delay:ring:32:100-400:2.0")
+    p_chaos.add_argument("--synthetic", type=float, default=None,
+                         metavar="SECONDS",
+                         help="replace measured samples with a seeded "
+                              "series around this base latency (points "
+                              "are still built and warmed on the device)")
+    p_chaos.set_defaults(func=_cmd_chaos)  # --max-runs bounds the soak
+
+    p_health = sub.add_parser(
+        "health", help="replay health-*.log events into a per-point "
+                       "summary table")
+    p_health.add_argument("target",
+                          help="file, log folder, or glob of health-*.log")
+    p_health.add_argument("--format", choices=("markdown", "json"),
+                          default="markdown",
+                          help="markdown = the summary table; json = the "
+                               "raw events as a JSON array")
+    p_health.set_defaults(func=_cmd_health)
 
     p_ing = sub.add_parser("ingest", help="one telemetry ingest pass")
     p_ing.add_argument("-d", "--folder", default=DEFAULT_LOG_DIR)
@@ -741,6 +1073,10 @@ def build_parser() -> argparse.ArgumentParser:
     p_rep.add_argument("--compare-pallas", action="store_true",
                        help="pivot each pl_* kernel against its library "
                             "counterpart per (op, size)")
+    p_rep.add_argument("--compare-chaos", action="store_true",
+                       help="pivot chaos-mode rows (a fault-injected soak) "
+                            "against the clean soak of the same spec per "
+                            "(op, size)")
     p_rep.add_argument("--legacy", action="store_true",
                        help="aggregate reference-schema tcp-*.log rows "
                             "(wall-time stats per measurement config)")
@@ -820,7 +1156,10 @@ def build_parser() -> argparse.ArgumentParser:
                            "axis)")
     p_ct.add_argument("--synthetic", type=float, default=None,
                       metavar="SECONDS",
-                      help="seeded synthetic samples (not yet ported)")
+                      help="no device raced: seeded samples around this "
+                           "base latency, the loaded ones the idle series "
+                           "times a modeled contention factor (needs "
+                           "--mesh for the rank count)")
     p_ct.add_argument("--algo", default="native",
                       help="the victim's decomposition (only native is "
                            "ported)")

@@ -194,12 +194,19 @@ class CompilePipeline:
         *,
         depth: int = 2,
         phases: PhaseTimer | None = None,
+        tracer=None,  # spans.SpanTracer: each worker build is a "build"
+        #               span on the worker track
         err=None,
     ):
         if depth < 1:
             raise ValueError(f"look-ahead depth must be >= 1, got {depth}")
         self._build = build
         self._plan = list(plan)
+        if tracer is None:
+            from tpu_perf_torch.spans import NULL_TRACER
+
+            tracer = NULL_TRACER
+        self._tracer = tracer
         if not self._plan:
             raise ValueError("empty build plan")
         self._pending = Counter(self._plan)  # guarded by _cond
@@ -243,7 +250,7 @@ class CompilePipeline:
                 ctx = (self._phases.phase("compile")
                        if self._phases is not None else contextlib.nullcontext())
                 art, exc = None, None
-                with ctx:
+                with ctx, self._span(key):
                     try:
                         art = self._build(key)
                     except BaseException as e:  # noqa: BLE001 -- surfaces
@@ -258,6 +265,14 @@ class CompilePipeline:
             with self._cond:
                 self._done = True
                 self._cond.notify_all()
+
+    def _span(self, key):
+        """The worker build's span; a CompileSpec-like key labels it
+        (op, nbytes), anything else is carried as its repr."""
+        op, nbytes = getattr(key, "op", None), getattr(key, "nbytes", None)
+        if op is not None:
+            return self._tracer.span("build", op=op, nbytes=nbytes)
+        return self._tracer.span("build", key=repr(key))
 
     @property
     def depth(self) -> int:

@@ -11,8 +11,10 @@ external launcher, ``--backend mpi``, the JSON heartbeat, ``--streams``
 and multi-process flags (``--mesh`` / ``--axes``, ``--distributed``,
 ``--hybrid-mesh``), the adaptive stop rule (``--ci-rel``,
 ``--ci-confidence``, ``--ci-statistic``, ``--min-runs``, ``--max-runs`` as
-its cap) and the compile pipeline (``--precompile``,
-``--compile-cache``).  The additions are the sim world's rank count and the
+its cap), the compile pipeline (``--precompile``,
+``--compile-cache``), the health monitor (``--health*``), span tracing
+(``--spans``, ``--spans-sample``) and fault injection (``chaos``'s
+schedule, ``--seed``, ``--synthetic``).  The additions are the sim world's rank count and the
 device; ``backend`` names ``torch`` where the JAX package names ``jax``.
 """
 
@@ -129,6 +131,30 @@ class Options:
     hybrid_mesh: bool = False         # --hybrid-mesh: (dcn, ici) over the
                                       # nodes and their local ranks
     device: str | None = None         # None = "cuda"; "cpu" only when asked
+    # --- harness span tracing (tpu_perf_torch.spans) ---
+    spans: bool = False               # --spans: job/sweep/point/run spans
+                                      # and the harness' activity, to the
+                                      # spans-*.log family; each row and
+                                      # health event carries its run span
+    spans_sample: int = 1             # --spans-sample N: a daemon keeps
+                                      # every Nth run's whole span tree,
+                                      # the other runs their run span
+                                      # (rotate/ingest/inject/heartbeat
+                                      # and error spans always)
+    # --- fleet health (tpu_perf_torch.health) ---
+    health: bool = False              # --health: per-point baselines and
+                                      # detectors, health-*.log events
+    health_threshold: float = 0.5     # relative step-regression threshold
+                                      # (EWMA against the long-run median)
+    health_warmup: int = 30           # samples before a point is judged
+    health_textfile: str | None = None  # Prometheus textfile of the gauges
+    # --- fault injection (tpu_perf_torch.faults) ---
+    faults: object = None             # a JSON spec path (str) or a
+                                      # list[FaultSpec]; None = none
+    fault_seed: int = 0               # --seed: the injector's RNG root
+    synthetic_s: float | None = None  # --synthetic: a seeded series around
+                                      # this latency (s) replaces every
+                                      # measured sample
 
     def __post_init__(self) -> None:
         if self.iters <= 0:
@@ -277,7 +303,11 @@ class Options:
             if self.extern_cmd:
                 raise ValueError(
                     "extern mode runs no kernel; --streams does not apply")
-            if self.infinite:
+            if self.infinite and not (
+                    self.faults or self.synthetic_s is not None):
+                # a chaos soak is exempt: the driver runs it serially,
+                # and says so (the ledger's byte-identity is defined over
+                # the serial dispatch sequence)
                 raise ValueError(
                     "overlapped dispatch applies to finite sweeps; the "
                     "daemon's round-robin is one visit (one dispatch) at "
@@ -288,6 +318,12 @@ class Options:
                     f"tolerates concurrent lanes (block/readback); the "
                     f"{self.fence!r} fence's batched/paired capture "
                     f"assumes its program is alone in flight")
+            if self._wants_skew():
+                raise ValueError(
+                    "arrival skew staggers one program's entry per run; "
+                    "under --streams the lanes already overlap, so the "
+                    "staggered-entry measurement is unimplementable — "
+                    "run the skew axis serially")
         if self.load:
             if self.backend != "torch":
                 raise ValueError(
@@ -300,10 +336,69 @@ class Options:
                 raise ValueError(
                     "contention runs (--load) are finite measurements; "
                     "daemon mode does not race a background load")
+        if isinstance(self.faults, str):
+            # a spec path is parsed once, here (dataclasses.replace runs
+            # this again, on the parsed list)
+            from tpu_perf_torch.faults import load_spec
+
+            try:
+                self.faults = load_spec(self.faults)
+            except OSError as e:
+                raise ValueError(f"cannot read fault spec: {e}") from None
+        if self._wants_skew():
+            # per-run entry stagger needs a dispatch a run: a finite
+            # fused point replays its whole budget as one graph, a finite
+            # trace point one capture pair.  A fused daemon visit is one
+            # replay of a one-run graph, so a stagger before it lands
+            # between the graph's events of every rank that waits
+            if self.fence == "fused" and not self.infinite:
+                raise ValueError(
+                    "arrival skew (skew faults) cannot run on a finite "
+                    "--fence fused sweep: a point's whole run budget is "
+                    "one graph replay, so per-run entry stagger is "
+                    "unimplementable there (a fused daemon replays one "
+                    "run a visit and supports skew)")
+            if self.fence == "trace" and not self.infinite:
+                raise ValueError(
+                    "arrival skew (skew faults) cannot run under the "
+                    "finite trace fence: one batched capture covers the "
+                    "point's whole budget, so per-run entry stagger is "
+                    "unimplementable there (daemon-mode trace captures "
+                    "per run and supports skew)")
+            if self.backend != "torch":
+                raise ValueError(
+                    "arrival skew staggers the in-process torch dispatch; "
+                    f"it does not apply to backend={self.backend!r}")
+            if self.extern_cmd:
+                raise ValueError(
+                    "extern mode runs no kernel; arrival skew does not "
+                    "apply")
+        if self.spans_sample < 1:
+            raise ValueError(
+                f"spans_sample must be >= 1 (1 = keep every run's "
+                f"spans), got {self.spans_sample}")
+        if self.health_threshold <= 0:
+            raise ValueError(
+                f"health_threshold must be positive, got "
+                f"{self.health_threshold}")
+        if self.health_warmup < 1:
+            raise ValueError(
+                f"health_warmup must be >= 1, got {self.health_warmup}")
+        if self.synthetic_s is not None and self.synthetic_s <= 0:
+            raise ValueError(
+                f"synthetic_s must be positive seconds, got "
+                f"{self.synthetic_s}")
         if self.uni_dir and self.nonblocking:
             # the reference picks one kernel by if / else if
             # (mpi_perf.c:506-523); the conflict is made loud instead
             raise ValueError("uni_dir and nonblocking are mutually exclusive")
+
+    def _wants_skew(self) -> bool:
+        """True when the schedule holds a ``skew`` fault (the
+        ``--skew-spread`` axis waits for the arena and scenarios:
+        ROADMAP)."""
+        return any(getattr(f, "kind", None) == "skew"
+                   for f in self.faults or ())
 
     @property
     def infinite(self) -> bool:

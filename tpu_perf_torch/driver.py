@@ -47,14 +47,27 @@ rotating CSV logs (port of ``tpu_perf/driver.py``).
   ``phase`` key and a ``phase-<job>-<rank>.json`` sidecar beside the logs;
   ``--precompile N|auto`` builds the host half of the next points on a
   worker thread (:class:`~tpu_perf_torch.compilepipe.CompilePipeline`),
-  and ``--compile-cache DIR`` keeps the kernel builds in DIR.
+  and ``--compile-cache DIR`` keeps the kernel builds in DIR;
+* ``--spans`` records the harness' own spans (:mod:`tpu_perf_torch.spans`:
+  job, sweep, point, run, measure, fence, warmup, build, stop_vote,
+  rotate, ingest_hook, inject, heartbeat, dispatch, stream_fence) into
+  the ``spans-*.log`` family, and stamps each row and health event with
+  its run span;
+* ``--health`` judges every recorded run against its point's streaming
+  baseline (:mod:`tpu_perf_torch.health`): events to ``health-*.log``,
+  gauges to ``--health-textfile``;
+* ``chaos`` (a fault schedule, or ``--synthetic``) consults a seeded
+  :class:`~tpu_perf_torch.faults.FaultInjector` each run: ``skew`` faults
+  stagger the dispatch, the others perturb or drop the measured sample,
+  fail the ingest hook, or corrupt the selftest's read-back output, and
+  the injections go to the ``chaos-*.log`` ledger.
 
-The chaos, push and span paths of the JAX driver are not ported yet
-(ROADMAP).
+The push plane of the JAX driver is not ported yet (ROADMAP item 3b).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -76,9 +89,10 @@ from tpu_perf_torch.runner import (
     without_p50, world_for,
 )
 from tpu_perf_torch.schema import (
-    EXT_PREFIX, LEGACY_PREFIX, LegacyRow, ResultRow, timestamp_now,
-    window_index,
+    CHAOS_PREFIX, EXT_PREFIX, HEALTH_PREFIX, LEGACY_PREFIX, SPANS_PREFIX,
+    LegacyRow, ResultRow, timestamp_now, window_index,
 )
+from tpu_perf_torch.spans import NULL_TRACER, SpanTracer
 from tpu_perf_torch.topology import validate_groups
 from tpu_perf_torch.timing import (
     FusedPoint, FusedRunner, RunTimes, TraceRunner, fence, measure_overhead,
@@ -108,13 +122,20 @@ class RotatingCsvLog:
     """Append-only CSV log with timed rotation (mpi_perf.c:479-497).
     ``on_rotate`` fires after each rotation closes the old file, never on
     the first open; a hook that raises is reported on stderr and counted
-    in ``hook_failures``, and never stops the caller: the files it left
-    are retried at the next rotation."""
+    in ``hook_failures`` (the driver turns each into a health event), and
+    never stops the caller: the files it left are retried at the next
+    rotation.
+
+    A ``lazy`` log (the sparse JSONL families: health, chaos, spans) opens
+    only when a row is written, keeps its active file under a ``.open``
+    suffix (so every ``<prefix>-*.log`` on disk is finished), and stays
+    closed after a rotation until the next row."""
 
     def __init__(self, folder: str, uuid: str, rank: int, *,
                  refresh_sec: int, clock: Callable[[], float] = time.time,
                  prefix: str = LEGACY_PREFIX,
-                 on_rotate: Callable[[], None] | None = None):
+                 on_rotate: Callable[[], None] | None = None,
+                 lazy: bool = False):
         self.folder = folder
         self.uuid = uuid
         self.rank = rank
@@ -122,6 +143,7 @@ class RotatingCsvLog:
         self.clock = clock
         self.prefix = prefix
         self.on_rotate = on_rotate
+        self.lazy = lazy
         self.hook_failures = 0
         self._fh = None
         self._opened_at = None
@@ -132,18 +154,48 @@ class RotatingCsvLog:
             self.folder,
             log_file_name(self.uuid, self.rank, self.clock(), prefix=self.prefix),
         )
+        if self.lazy:
+            # the close renames .open over the bare name, so a rotation
+            # within one second must not reuse (and overwrite) an earlier
+            # file's name; the CSV families just append to it
+            base, i = path, 0
+            while os.path.exists(path) or os.path.exists(path + ".open"):
+                i += 1
+                path = f"{base[:-len('.log')]}-{i}.log"
+            path += ".open"
         self._fh = open(path, "a")
         self._opened_at = self.clock()
 
-    def maybe_rotate(self) -> bool:
-        """Open on first use; close and reopen when the refresh period has
-        elapsed, firing the hook in between.  Returns True on a rotation."""
+    def _close_current(self) -> None:
+        """Close the active file; a lazy log drops the ``.open`` suffix, so
+        the finished file becomes visible to ingest as <prefix>-*.log."""
         if self._fh is None:
-            self._open()
+            return
+        path = self._fh.name
+        self._fh.close()
+        self._fh = None
+        if self.lazy and path.endswith(".open"):
+            os.replace(path, path[: -len(".open")])
+
+    def maybe_rotate(self) -> bool:
+        """Open on first use (a lazy log does not); rotate when the refresh
+        period has elapsed.  Returns True on a rotation."""
+        if self._fh is None:
+            if not self.lazy:
+                self._open()
             return False
         if self.clock() - self._opened_at < self.refresh_sec:
             return False
-        self._fh.close()
+        return self.rotate_now()
+
+    def rotate_now(self) -> bool:
+        """Close, fire the hook and reopen, whatever the clock (a
+        ``hook_fail`` fault forces its rotation at a set run, so the
+        failure's run does not depend on the wall clock).  A no-op while
+        nothing is open: the first open is not a rotation."""
+        if self._fh is None:
+            return False
+        self._close_current()
         if self.on_rotate is not None:
             try:
                 self.on_rotate()
@@ -152,19 +204,18 @@ class RotatingCsvLog:
                 self.hook_failures += 1
                 print(f"[tpu-perf-torch] ingest hook failed: {e}",
                       file=sys.stderr)
-        self._open()
+        if not self.lazy:
+            self._open()
         return True
 
-    def write_row(self, row: LegacyRow | ResultRow) -> None:
+    def write_row(self, row) -> None:
         if self._fh is None:
             self._open()
         self._fh.write(row.to_csv() + "\n")
         self._fh.flush()
 
     def close(self) -> None:
-        if self._fh is not None:
-            self._fh.close()
-            self._fh = None
+        self._close_current()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,6 +274,72 @@ class Driver:
         elif ingest is not None and on_rotate is None:
             on_rotate = ingest(self.ingest_skip)
         self.on_rotate = on_rotate
+        # the span tracer (--spans): off, the inert NULL_TRACER (no clock
+        # reads, no bytes); its clock is perf_clock, so an injected clock
+        # makes the records deterministic
+        self.tracer = NULL_TRACER
+        if opts.spans:
+            span_log = None
+            if opts.logfolder:
+                span_log = RotatingCsvLog(
+                    opts.logfolder, opts.uuid, self.rank,
+                    refresh_sec=opts.log_refresh_sec, clock=clock,
+                    prefix=SPANS_PREFIX, lazy=True)
+            else:
+                print("[tpu-perf-torch] --spans without a logfolder keeps "
+                      "spans in memory only (no spans-*.log)", file=self.err)
+            self.tracer = SpanTracer(
+                opts.uuid, rank=self.rank, log=span_log,
+                # a daemon must not grow without bound
+                retain=not opts.infinite,
+                perf_ns=lambda: int(perf_clock() * 1e9),
+                sample=opts.spans_sample)
+        # the fault injector (chaos: a schedule, or --synthetic alone for
+        # the fault-free soak), its ledger the chaos-*.log family
+        self.injector = None
+        if opts.faults is not None or opts.synthetic_s is not None:
+            from tpu_perf_torch.faults import FaultInjector
+
+            ledger = None
+            if opts.logfolder:
+                ledger = RotatingCsvLog(
+                    opts.logfolder, opts.uuid, self.rank,
+                    refresh_sec=opts.log_refresh_sec, clock=clock,
+                    prefix=CHAOS_PREFIX, lazy=True)
+            self.injector = FaultInjector(
+                list(opts.faults or ()), seed=opts.fault_seed,
+                stats_every=opts.stats_every, ledger=ledger,
+                synthetic_s=opts.synthetic_s, rank=self.rank, err=self.err)
+            self.injector.write_meta()
+        if (self.injector is not None and self.injector.has_skew()
+                and not self.injector.synthetic):
+            # a skew fault no peer process can observe would be a planted
+            # fault no detector can catch
+            if self.n_hosts == 1:
+                raise ValueError(
+                    "skew fault(s) on a single-process job with real "
+                    "timing: the entry stagger is real but no peer "
+                    "process exists to observe it, so the injection is "
+                    "undetectable by construction — use --synthetic "
+                    "for the modeled victim cost, or run multi-process "
+                    "(--distributed)")
+            phantom = [f.rank for f in opts.faults or ()
+                       if f.kind == "skew" and f.rank is not None
+                       and f.rank >= self.n_hosts]
+            if phantom:
+                raise ValueError(
+                    f"skew fault(s) name straggler rank(s) {phantom} "
+                    f"beyond the real world (n_hosts={self.n_hosts}): "
+                    "real timing cannot model a phantom straggler, so "
+                    "those specs could never fire — use --synthetic, "
+                    "or run on enough ranks to seat the named rank")
+        # the ingest hook: the chaos wrapper inside (hook_fail faults
+        # raise through it, even with no real ingest configured), the
+        # tracer outermost (an injected failure is an error span)
+        hook = on_rotate
+        if self.injector is not None and self.fires_ingest:
+            hook = self.injector.wrap_hook(hook)
+        hook = self.tracer.wrap_hook(hook)
         self.log: RotatingCsvLog | None = None
         self.ext_log: RotatingCsvLog | None = None
         if opts.logfolder:
@@ -231,7 +348,7 @@ class Driver:
             self.log = RotatingCsvLog(
                 opts.logfolder, opts.uuid, self.rank,
                 refresh_sec=opts.log_refresh_sec, clock=clock,
-                prefix=LEGACY_PREFIX, on_rotate=on_rotate)
+                prefix=LEGACY_PREFIX, on_rotate=hook)
             self.ext_log = RotatingCsvLog(
                 opts.logfolder, opts.uuid, self.rank,
                 refresh_sec=opts.log_refresh_sec, clock=clock,
@@ -247,8 +364,10 @@ class Driver:
         self.legacy_rows: list[LegacyRow] = []
         # (op, nbytes) -> the launch floor of --measure-dispatch, seconds
         self._overhead_s: dict[tuple[str, int], float] = {}
-        # runs whose slope sample was lost to noise, over the whole job
+        # runs dropped (a slope sample lost to noise, a drop_run fault),
+        # over the whole job
         self.dropped = 0
+        self._hook_failures_seen = 0  # polled to emit hook_fail events
         # the overlapped sweep's self-audit (--streams K): window_s sums
         # the lanes' dispatch-to-fence windows, wall_s the waves' host
         # walls; with lanes really in flight together window_s > wall_s
@@ -269,6 +388,32 @@ class Driver:
             "points": 0, "runs_requested": 0, "runs_attempted": 0,
             "runs_saved": 0, "wall_saved_s": 0.0,
         }
+        # the last completed point's achieved CI (the exporter's gauge)
+        self._adaptive_last_ci = 0.0
+        # the health monitor (--health): events to the health-*.log
+        # family, gauges to a Prometheus textfile from rank 0 alone
+        self.health = None
+        if opts.health:
+            from tpu_perf_torch.health import HealthConfig, HealthMonitor
+
+            event_log = None
+            if opts.logfolder:
+                event_log = RotatingCsvLog(
+                    opts.logfolder, opts.uuid, self.rank,
+                    refresh_sec=opts.log_refresh_sec, clock=clock,
+                    prefix=HEALTH_PREFIX, lazy=True)
+            self.health = HealthMonitor(
+                HealthConfig(threshold=opts.health_threshold,
+                             warmup=opts.health_warmup),
+                job_id=opts.uuid, dtype=opts.dtype, rank=self.rank,
+                stats_every=opts.stats_every, event_log=event_log,
+                textfile=opts.health_textfile if self.rank == 0 else None,
+                err=self.err, phase_source=self.phases.snapshot,
+                adaptive_source=lambda: (
+                    dict(self.adaptive_totals,
+                         last_ci_rel=self._adaptive_last_ci)
+                    if self._adaptive_cfg is not None else None),
+                push_source=None)
         # the fused fence's chunk plan, decided once for the job so every
         # rank of a world walks the same dispatches
         self._fused_plan: tuple[int, ...] | None = None
@@ -300,7 +445,10 @@ class Driver:
             return None
         budget = opts.max_runs or opts.num_runs
         bypass = None
-        if opts.infinite:
+        if self.injector is not None:
+            bypass = ("--faults/--synthetic (a fixed run sequence keeps "
+                      "the chaos ledger byte-identical)")
+        elif opts.infinite:
             bypass = ("daemon mode (one run a point a cycle; no per-point "
                       "budget to trim)")
         elif opts.fence == "trace":
@@ -389,6 +537,15 @@ class Driver:
                 "load is raced by `tpu-perf-torch contend`")
         plan = [(op, nbytes) for op in ops_for_options(self.opts)
                 for nbytes in sizes_for(self.opts, op)]
+        streams = self.opts.streams
+        if streams > 1 and self.injector is not None:
+            # the ledger's byte-identity is defined over the serial
+            # dispatch sequence
+            print("[tpu-perf-torch] overlapped dispatch (--streams) "
+                  "bypassed under --faults/--synthetic: the chaos ledger's "
+                  "a/b byte-identity is defined over the serial dispatch "
+                  "sequence", file=self.err)
+            streams = 1
         self.phases.start()
         pipeline = None
         if self.opts.precompile > 0 and not self.opts.extern_cmd:
@@ -396,16 +553,26 @@ class Driver:
             # points while this thread measures
             pipeline = CompilePipeline(
                 prepare, [self._spec(op, nbytes) for op, nbytes in plan],
-                depth=self.opts.precompile, phases=self.phases, err=self.err)
+                depth=self.opts.precompile, phases=self.phases,
+                tracer=self.tracer, err=self.err)
         self._pipeline = pipeline
+        completed = False
         try:
-            if self.opts.infinite:
-                self._run_daemon(plan)
-            elif self.opts.streams > 1:
-                self._run_overlapped(plan, self.opts.streams)
-            else:
-                for op, nbytes in plan:
-                    self._run_finite(op, nbytes)
+            # job -> sweep, the root of the span tree; worker builds (no
+            # stack of their own) parent to the sweep span
+            with self.tracer.span("job", op=self.opts.op,
+                                  backend=self.opts.backend):
+                with self.tracer.span("sweep", points=len(plan),
+                                      infinite=self.opts.infinite) as sweep:
+                    self.tracer.set_anchor(sweep or None)
+                    if self.opts.infinite:
+                        self._run_daemon(plan)
+                    elif streams > 1:
+                        self._run_overlapped(plan, streams)
+                    else:
+                        for op, nbytes in plan:
+                            self._run_finite(op, nbytes)
+            completed = True
         finally:
             if pipeline is not None:
                 pipeline.close()
@@ -413,9 +580,44 @@ class Driver:
                 self.log.close()
             if self.ext_log is not None:
                 self.ext_log.close()
+            if self.health is not None:
+                # the final partial window judged, the gauges flushed
+                self.health.close()
+            if self.injector is not None:
+                if completed and self.rank == 0:
+                    # an aborted soak's corrupt faults go unverified, and
+                    # conformance reports them missed
+                    try:
+                        self._run_corrupt_selftest()
+                    except Exception as e:  # noqa: BLE001
+                        print(f"[tpu-perf-torch chaos] corrupt-payload "
+                              f"selftest failed to run: {e}", file=self.err,
+                              flush=True)
+                self.injector.close()
+            self.tracer.close()
             self.phases.stop()
             self._write_phases()
         return self.result_rows
+
+    def _run_corrupt_selftest(self) -> None:
+        """The corrupt faults' verification: the selftest of each named op
+        with the injector's bit flip on the host copy of its output; the
+        read-back validation must FAIL.  The verdicts go to the ledger
+        for `chaos verify`.  A distributed world's rank 0 runs it in a
+        sim world of as many ranks on its own card (no peer takes part)."""
+        ops = self.injector.corrupt_ops()
+        if not ops:
+            return
+        from tpu_perf_torch.selftest import format_results, run_selftest
+        from tpu_perf_torch.world import SimWorld
+
+        world = (SimWorld(self.world.n, self.world.device)
+                 if is_dist(self.world) else self.world)
+        results = run_selftest(world, ops=ops, dtype=self.opts.dtype,
+                               injector=self.injector)
+        self.injector.record_selftest(results)
+        print("[tpu-perf-torch chaos] corrupt-payload selftest:\n"
+              + format_results(results), file=self.err, flush=True)
 
     def _spec(self, op: str, nbytes: int) -> CompileSpec:
         """A point's build identity, the pipeline's key."""
@@ -431,7 +633,8 @@ class Driver:
         its build), then the build on this thread, charged to compile."""
         if self._pipeline is not None:
             self._pipeline.get(self._spec(op, nbytes))
-        with self.phases.phase("compile"):
+        with self.phases.phase("compile"), \
+                self.tracer.span("build", op=op, nbytes=nbytes):
             return self._build(op, nbytes, world)
 
     def _tune_precompile(self) -> None:
@@ -502,6 +705,7 @@ class Driver:
         """Fold a finished point's controller verdict into the job's
         totals, and say what it saved."""
         s = controller.summary()
+        self._adaptive_last_ci = s["ci_rel"] or 0.0
         self.adaptive_totals["points"] += 1
         self.adaptive_totals["runs_requested"] += s["requested"]
         self.adaptive_totals["runs_attempted"] += s["attempted"]
@@ -559,21 +763,26 @@ class Driver:
             ppn=self.opts.ppn, buff_sz=nbytes, iters=self.opts.iters)
 
     def _warm(self, built: BuiltOp, built_hi: BuiltOp | None) -> None:
-        fmode = "readback" if built_hi is not None else self.opts.fence
-        for _ in range(max(1, self.opts.warmup_runs)):
-            fence(built.step(built.example_input), fmode)
-            if built_hi is not None:
-                fence(built_hi.step(built_hi.example_input), fmode)
-        if self.opts.measure_dispatch and built_hi is None:
-            # once a point, after the warm-up, outside every timed window,
-            # fenced as the samples are; slope rows skip it (the slope
-            # cancels constant costs)
-            self._overhead_s[(built.name, built.nbytes)] = measure_overhead(
-                built.example_input, fence_mode=fmode)
+        with self.tracer.span("warmup", op=built.name, nbytes=built.nbytes):
+            fmode = "readback" if built_hi is not None else self.opts.fence
+            for _ in range(max(1, self.opts.warmup_runs)):
+                fence(built.step(built.example_input), fmode)
+                if built_hi is not None:
+                    fence(built_hi.step(built_hi.example_input), fmode)
+            if self.opts.measure_dispatch and built_hi is None:
+                # once a point, after the warm-up, outside every timed
+                # window, fenced as the samples are; slope rows skip it
+                # (the slope cancels constant costs)
+                self._overhead_s[(built.name, built.nbytes)] = \
+                    measure_overhead(built.example_input, fence_mode=fmode)
 
     def _measure(self, built: BuiltOp, built_hi) -> float | None:
         """One run's wall time for `iters` executions under opts.fence;
-        None when a slope sample is lost to timing noise."""
+        None when a slope sample is lost to timing noise.  Under
+        ``--synthetic`` the injector's seeded series replaces the sample
+        (the point was still built and warmed on the device)."""
+        if self.injector is not None and self.injector.synthetic:
+            return self.injector.synthetic_sample(built.name, built.nbytes)
         if isinstance(built, _ExternOp):
             # print-only, as the reference's commented-out system() call:
             # the command goes to stderr every run and the run records the
@@ -584,6 +793,8 @@ class Driver:
             return self.perf_clock() - t0
         if isinstance(built_hi, FusedRunner):
             # a fused daemon visit: one replay of the point's one-run graph
+            self.fused_totals["measure_dispatches"] += 1
+            self.fused_totals["runs"] += 1
             return built_hi.chunk(1)[0]
         if isinstance(built_hi, TraceRunner):
             # a trace daemon visit: one replay of each leg's graph
@@ -595,8 +806,42 @@ class Driver:
                              perf_clock=self.perf_clock)
             return None if s is None else s * built.iters
         t0 = self.perf_clock()
-        fence(built.step(built.example_input), self.opts.fence)
-        return self.perf_clock() - t0
+        out = built.step(built.example_input)
+        # the fence wait as its own span; its record is written after the
+        # window's end read, so the write never enters the sample
+        with self.tracer.span("fence", defer=True, mode=self.opts.fence):
+            fence(out, self.opts.fence)
+        t = self.perf_clock() - t0
+        self.tracer.flush()
+        return t
+
+    def _measure_skewed(self, built, built_hi, run_id: int) -> float | None:
+        """One measured run with a staggered entry: this rank sleeps its
+        drawn ``skew`` arrival before the dispatch, so the collective
+        really sees imbalanced arrival, then measures from its own entry.
+        In a multi-process world the ranks that wait carry the straggler's
+        lateness in their samples (inside the graph's events under the
+        fused fence); the synthetic source has no peers, so the modeled
+        wait is added to its sample instead.  A fired skew injection is
+        an ``inject`` span over the stagger."""
+        if self.injector is None or not self.injector.has_skew():
+            return self._measure(built, built_hi)
+        fired0 = self.injector.fired_total
+        t0 = self.tracer.now() if self.tracer.enabled else 0
+        own, cost = self.injector.entry_skew(built.name, built.nbytes, run_id,
+                                             n_ranks=self.n_hosts)
+        synthetic = self.injector.synthetic
+        if own > 0.0 and not synthetic:
+            time.sleep(own)
+        if self.tracer.enabled and self.injector.fired_total > fired0:
+            self.tracer.emit(
+                "inject", t0, self.tracer.now() - t0, run_id=run_id,
+                op=built.name, fired=self.injector.fired_total - fired0,
+                skew=True)
+        t = self._measure(built, built_hi)
+        if t is not None and cost > 0.0 and synthetic:
+            t += cost
+        return t
 
     def _profile(self, built: BuiltOp):
         """The point's measured window, kept as a trace under
@@ -607,17 +852,34 @@ class Driver:
 
     def _run_finite(self, op: str, nbytes: int) -> None:
         built, built_hi = self._point(op, nbytes)
+        extern = isinstance(built, _ExternOp)
+        fused = isinstance(built_hi, FusedPoint)
+        trace = self.opts.fence == "trace" and not extern
+        if not (extern or fused or trace):
+            # the fused runner and the trace capture warm themselves
+            with self.phases.phase("compile"):
+                self._warm(built, built_hi)
+        with self.tracer.span("point", op=op, nbytes=nbytes):
+            self._measure_point(built, built_hi, extern=extern, fused=fused,
+                                trace=trace)
+        self._tune_precompile()
+
+    def _measure_point(self, built, built_hi, *, extern: bool, fused: bool,
+                       trace: bool) -> None:
+        """One finite point: every run measured, then every run recorded
+        (after the point's last fence, each time its maximum over the
+        ranks).  A run of the per-run fences is a ``run`` span around its
+        measure, whose id its row and events carry; the fused and trace
+        fences' run spans are laid out at the record, from the runs'
+        device times (fused) or around the record (trace)."""
         controller = None
-        if (self._adaptive_cfg is not None
-                and not isinstance(built, _ExternOp)):
+        if self._adaptive_cfg is not None and not extern:
             controller = point_controller(self._adaptive_cfg, self.world)
         # the controller's state as of each run: (requested, taken, ci_rel)
         states: list[tuple] = []
-        if isinstance(built, _ExternOp):
-            with self.phases.phase("measure"):
-                times = [self._measure(built, None)
-                         for _ in range(self.opts.num_runs)]
-        elif isinstance(built_hi, FusedPoint):
+        span_ids: list[str] = []  # each per-run-fence run's span
+        starts: list[tuple[float, int]] = []  # fused: (chunk start, reps)
+        if fused:
             # the whole budget in one graph replay a chunk (a chunk a stop
             # vote under --ci-rel), per-run device times from the events
             # inside the graph
@@ -625,38 +887,50 @@ class Driver:
                 self.opts, built, built_hi, perf_clock=self.perf_clock,
                 controller=_Recording(controller, states)
                 if controller is not None else None,
-                phases=self.phases).samples
+                phases=self.phases, tracer=self.tracer, starts=starts
+            ).samples
             self.fused_totals["points"] += 1
             self.fused_totals["runs"] += len(times)
             self.fused_totals["measure_dispatches"] += _chunks_for(
                 built_hi.plan, len(times))
-        elif self.opts.fence == "trace":
-            # one batch of event pairs covers the point's whole budget
-            with self.phases.phase("measure"), self._profile(built):
+        elif trace:
+            # one batch of leg graphs covers the point's whole budget
+            with self.phases.phase("measure"), self._profile(built), \
+                    self.tracer.span("measure", op=built.name,
+                                     nbytes=built.nbytes):
                 per_exec = time_trace(built.step, built_hi.step,
                                       built.example_input, built.iters,
                                       built_hi.iters, self.opts.num_runs,
                                       warmup_runs=self.opts.warmup_runs)
             times = [t * built.iters for t in per_exec.samples]
         else:
-            with self.phases.phase("compile"):
-                self._warm(built, built_hi)
             budget = (self._adaptive_cfg.max_runs if controller is not None
                       else self.opts.num_runs)
             times = []
-            with self._profile(built):
+            with (contextlib.nullcontext() if extern
+                  else self._profile(built)):
                 while len(times) < budget:
-                    with self.phases.phase("measure"):
-                        t = self._measure(built, built_hi)
-                    times.append(t)
-                    if controller is None:
-                        continue
-                    # after the run's fence, outside its window: every
-                    # rank observes and votes after every run
-                    controller.observe(t)
-                    states.append(_state(controller))
-                    if controller.should_stop(len(times)):
+                    run_id = len(times) + 1
+                    with self.tracer.run_span(run_id, op=built.name,
+                                              nbytes=built.nbytes) as sid:
+                        with self.phases.phase("measure"), \
+                                self.tracer.span("measure", run_id=run_id):
+                            t = self._measure_skewed(built, built_hi, run_id)
+                        span_ids.append(sid)
+                        times.append(t)
+                        stop = False
+                        if controller is not None:
+                            # after the run's fence, outside its window:
+                            # every rank observes and votes after every
+                            # run
+                            controller.observe(t)
+                            states.append(_state(controller))
+                            stop = controller.should_stop(
+                                len(times), tracer=self.tracer)
+                    if stop:
                         break
+        geometry = (_fused_geometry(starts, times)
+                    if fused and self.tracer.enabled else None)
         # after the point's last fence, outside every timed window
         window: list[float] = []
         for run_id, t in enumerate(max_over_ranks(self.world, times),
@@ -664,11 +938,23 @@ class Driver:
             if t is None:
                 print(f"[tpu-perf-torch] run {run_id}: slope sample lost "
                       "to noise, skipped", file=self.err)
-            self._record_run(built, run_id, t, window,
-                             adaptive=states[run_id - 1] if states else None)
+            record = dict(adaptive=states[run_id - 1] if states else None)
+            if trace:
+                with self.tracer.run_span(run_id, op=built.name,
+                                          nbytes=built.nbytes) as sid:
+                    self._record_run(built, run_id, t, window, span_id=sid,
+                                     **record)
+                continue
+            if span_ids:
+                sid = span_ids[run_id - 1]
+            elif geometry is not None:
+                sid = self.tracer.emit_run(run_id, *geometry[run_id - 1],
+                                           op=built.name, nbytes=built.nbytes)
+            else:
+                sid = ""
+            self._record_run(built, run_id, t, window, span_id=sid, **record)
         if controller is not None:
             self._note_adaptive_point(built, controller)
-        self._tune_precompile()
 
     def _run_overlapped(self, plan: list[tuple[str, int]], k: int) -> None:
         """The overlapped finite sweep (``--streams K``): the plan's points
@@ -694,14 +980,19 @@ class Driver:
                     self._warm(built, built_hi)
                 lanes.append((lane, built))
             engine = StreamEngine(len(lanes), fence_mode=self.opts.fence,
+                                  tracer=self.tracer,
                                   perf_clock=self.perf_clock)
             windows: dict[int, list[float]] = {lane: [] for lane, _ in lanes}
             self.stream_totals["waves"] += 1
             with profile_window(self.opts.profile_dir, f"streams{k}-wave{w}",
-                                self.world.device):
+                                self.world.device), \
+                    self.tracer.span("point", streams=len(lanes),
+                                     ops=",".join(b.name for _, b in lanes)):
                 for run_id in range(1, self.opts.num_runs + 1):
                     t0 = self.perf_clock()
-                    with self.phases.phase("measure"):
+                    with self.phases.phase("measure"), \
+                            self.tracer.span("measure", run_id=run_id,
+                                             streams=len(lanes)):
                         for lane, built in lanes:
                             engine.dispatch(lane, built.step,
                                             built.example_input,
@@ -749,12 +1040,16 @@ class Driver:
                 if isinstance(built_hi, FusedPoint):
                     built_hi = FusedRunner(built_hi, built,
                                            perf_clock=self.perf_clock)
-                    built_hi.warm()
+                    with self.tracer.span("warmup", op=built.name,
+                                          nbytes=built.nbytes, fused=True):
+                        built_hi.warm()
                     self.fused_totals["points"] += 1
                 elif self.opts.fence == "trace":
                     built_hi = TraceRunner(built.step, built_hi.step, keep,
                                            built.iters, built_hi.iters)
-                    built_hi.warm(self.opts.warmup_runs)
+                    with self.tracer.span("warmup", op=built.name,
+                                          nbytes=built.nbytes):
+                        built_hi.warm(self.opts.warmup_runs)
                 else:
                     self._warm(built, built_hi)
             points.append((built, built_hi))
@@ -764,13 +1059,14 @@ class Driver:
         while self.opts.max_runs is None or run_id < self.opts.max_runs:
             run_id += 1
             built, built_hi = points[(run_id - 1) % len(points)]
-            with self.phases.phase("measure"):
-                t = self._measure(built, built_hi)
-            if isinstance(built_hi, FusedRunner):
-                self.fused_totals["measure_dispatches"] += 1
-                self.fused_totals["runs"] += 1
-            self._record_run(built, run_id,
-                             max_over_ranks(self.world, [t])[0], window)
+            with self.tracer.run_span(run_id, op=built.name,
+                                      nbytes=built.nbytes) as sid:
+                with self.phases.phase("measure"), \
+                        self.tracer.span("measure", run_id=run_id):
+                    t = self._measure_skewed(built, built_hi, run_id)
+                self._record_run(built, run_id,
+                                 max_over_ranks(self.world, [t])[0], window,
+                                 span_id=sid)
 
     def _print_residency(self, points, n_inputs: int) -> None:
         """What the daemon holds on the device for its whole life: the
@@ -795,31 +1091,83 @@ class Driver:
 
     def _record_run(self, built: BuiltOp, run_id: int, t: float | None,
                     window: list[float], *, stream: int = 0,
-                    adaptive: tuple | None = None) -> None:
-        """One run's bookkeeping (rotation, emission, the heartbeat
-        boundary), charged to the log phase.  ``adaptive`` is the
-        controller's (requested, taken, ci_rel) as of this run, stamped
-        into the row."""
+                    adaptive: tuple | None = None,
+                    span_id: str = "") -> None:
+        """One run's bookkeeping (injection, rotation, emission, health,
+        the heartbeat boundary), charged to the log phase.  ``adaptive``
+        is the controller's (requested, taken, ci_rel) as of this run,
+        stamped into the row; ``span_id`` (the run's span, --spans) is
+        stamped into the row and any health event the run raises."""
         self._recorded += 1
         with self.phases.phase("log"):
             self._record_run_inner(built, run_id, t, window, stream,
-                                   adaptive)
+                                   adaptive, span_id)
 
     def _record_run_inner(self, built, run_id: int, t: float | None,
                           window: list[float], stream: int,
-                          adaptive: tuple | None) -> None:
-        for log in (self.log, self.ext_log):
-            if log is not None:
-                log.maybe_rotate()
+                          adaptive: tuple | None, span_id: str) -> None:
+        if self.injector is not None:
+            # the injection point: the sample is perturbed (or dropped)
+            # before anything sees it, as a sick link would feed them
+            fired0 = self.injector.fired_total
+            t0 = self.tracer.now() if self.tracer.enabled else 0
+            t = self.injector.apply(built.name, built.nbytes, run_id, t)
+            if self.tracer.enabled and self.injector.fired_total > fired0:
+                self.tracer.emit(
+                    "inject", t0, self.tracer.now() - t0, run_id=run_id,
+                    op=built.name, fired=self.injector.fired_total - fired0)
+        rot0 = self.tracer.now() if self.tracer.enabled else 0
+        rotated = False
+        if self.log is not None:
+            rotated = self.log.maybe_rotate()
+            if (self.injector is not None
+                    and self.injector.take_forced_rotation() and not rotated):
+                # a hook_fail fault forces its rotation at its window's
+                # first run, whatever the refresh period
+                rotated = self.log.rotate_now()
+            if self.log.hook_failures > self._hook_failures_seen:
+                self._hook_failures_seen = self.log.hook_failures
+                if self.health is not None:
+                    # a failing telemetry upload is degradation too
+                    self.health.observe_hook_fail(run_id, span_id=span_id)
+        if self.ext_log is not None:
+            self.ext_log.maybe_rotate()
+        if self.health is not None:
+            self.health.maybe_rotate()
+        if self.injector is not None:
+            self.injector.maybe_rotate()
+        self.tracer.maybe_rotate()
+        if self.tracer.enabled and rotated:
+            # the rotation that fired the ingest pass; the hook's own run
+            # is a nested ingest_hook span (tracer.wrap_hook)
+            self.tracer.emit("rotate", rot0, self.tracer.now() - rot0,
+                             run_id=run_id)
         if t is not None:
             window.append(t)
             key = (built.name, built.nbytes)
             self._window_points[key] = self._window_points.get(key, 0) + 1
-            self._emit(built, run_id, t, stream=stream, adaptive=adaptive)
+            self._emit(built, run_id, t, stream=stream, adaptive=adaptive,
+                       span_id=span_id)
+            if self.health is not None:
+                self.health.observe(built.name, built.nbytes, built.iters,
+                                    built.n_devices, run_id, t,
+                                    span_id=span_id)
         else:
             self.dropped += 1
+            if self.health is not None:
+                self.health.observe_drop(built.name, run_id)
         if run_id % self.opts.stats_every == 0:
-            self._heartbeat(run_id, window)
+            # in a multi-process world the boundary's allreduce is a
+            # barrier, so every rank's heartbeat span ends together
+            with self.tracer.span(
+                    "heartbeat", run_id=run_id,
+                    window=window_index(run_id, self.opts.stats_every),
+                    collective=self.n_hosts > 1):
+                self._heartbeat(run_id, window)
+            if self.health is not None:
+                # capture loss over the window's drops, the gauges
+                # refreshed
+                self.health.heartbeat(run_id)
             window.clear()
             self._window_points.clear()
 
@@ -887,17 +1235,24 @@ class Driver:
             file=self.err, flush=True)
 
     def _emit(self, built: BuiltOp, run_id: int, t: float, *,
-              stream: int = 0, adaptive: tuple | None = None) -> None:
+              stream: int = 0, adaptive: tuple | None = None,
+              span_id: str = "") -> None:
+        # a fault soak's rows are deliberately perturbed: mode "chaos"
+        # keeps them off the clean curves (report --compare-chaos joins
+        # the two)
+        mode = ("chaos" if self.injector is not None and self.injector.faults
+                else "daemon" if self.opts.infinite else "oneshot")
         point = SweepPointResult(
             op=built.name, nbytes=built.nbytes, iters=built.iters,
             n_devices=built.n_devices,
             times=RunTimes(samples=[t], warmup_s=0.0,
                            overhead_s=self._overhead_s.get(
                                (built.name, built.nbytes), 0.0)),
-            dtype=self.opts.dtype,
-            mode="daemon" if self.opts.infinite else "oneshot")
+            dtype=self.opts.dtype, mode=mode)
         rrow = point.rows(self.opts.uuid, backend=self.world.backend)[0]
-        rrow = dataclasses.replace(rrow, run_id=run_id, stream=stream)
+        # span_id "" (tracing off) keeps the row's pre-span width
+        rrow = dataclasses.replace(rrow, run_id=run_id, stream=stream,
+                                   span_id=span_id)
         if adaptive is not None:
             # the controller as of this run: a point's last row carries its
             # stop verdict (report's adaptive-savings table reads it)
@@ -945,8 +1300,24 @@ class _Recording:
         self._c.observe_chunk(mean, reps)
         self._states.extend([_state(self._c)] * reps)
 
-    def should_stop(self, runs_done: int) -> bool:
-        return self._c.should_stop(runs_done)
+    def should_stop(self, runs_done: int, *, tracer=None) -> bool:
+        return self._c.should_stop(runs_done, tracer=tracer)
+
+
+def _fused_geometry(starts: list[tuple[float, int]],
+                    times: list[float]) -> list[tuple[int, int]]:
+    """Each fused run's (start_ns, dur_ns): the chunk's device times laid
+    end to end from the chunk's host start."""
+    out: list[tuple[int, int]] = []
+    i = 0
+    for t0, reps in starts:
+        cursor = int(t0 * 1e9)
+        for t in times[i:i + reps]:
+            dur = int(t * 1e9)
+            out.append((cursor, dur))
+            cursor += dur
+        i += reps
+    return out
 
 
 def _chunks_for(plan: tuple[int, ...], runs: int) -> int:

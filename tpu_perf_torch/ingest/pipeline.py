@@ -21,11 +21,11 @@ Backends:
   test/air-gapped stand-in.
 * :class:`NullBackend` — discard (ingest == delete).
 
-The port writes two rotating-log families, legacy ``tcp-*`` CSV and
-extended ``tpu-*`` CSV (:data:`PREFIXES`); one
-:func:`run_all_ingest_passes` sweeps both.  The JAX package's JSONL
-families (health, chaos, linkmap, spans, fleet, tune) come with their
-modules.
+The port writes five rotating-log families (:data:`PREFIXES`): legacy
+``tcp-*`` CSV, extended ``tpu-*`` CSV, and the JSONL ``health-*`` events,
+``chaos-*`` ledger and ``spans-*`` records; one
+:func:`run_all_ingest_passes` sweeps them all.  The JAX package's
+linkmap, fleet and tune families come with their modules.
 
 A file whose ingest keeps failing (a poison row the table mapping
 rejects, re-failing every pass forever) is **quarantined** after
@@ -48,10 +48,16 @@ import shutil
 import subprocess
 import sys
 
-from tpu_perf_torch.schema import EXT_PREFIX, LEGACY_PREFIX
+from tpu_perf_torch.schema import (
+    ALL_PREFIXES, CHAOS_PREFIX, EXT_PREFIX, HEALTH_PREFIX, LEGACY_PREFIX,
+    SPANS_PREFIX,
+)
 
 #: the rotating-log families this package writes
-PREFIXES = (LEGACY_PREFIX, EXT_PREFIX)
+PREFIXES = ALL_PREFIXES
+#: the JSONL families: lazy logs whose active file is ``<name>.open``, so
+#: every ``<prefix>-*.log`` on disk is finished
+LAZY_PREFIXES = (HEALTH_PREFIX, CHAOS_PREFIX, SPANS_PREFIX)
 
 
 class IngestBackend:
@@ -78,6 +84,10 @@ class LocalDirBackend(IngestBackend):
 #: extended-schema (tpu-*.log) rows carry 18 columns and cannot land in
 #: the reference's 11-column PerfLogsMPI table; they get their own
 TPU_TABLE = "PerfLogsTPU"
+#: the JSONL families' tables (JSON ingestion format), the JAX package's
+HEALTH_TABLE = "HealthEventsTPU"
+CHAOS_TABLE = "ChaosEventsTPU"
+SPANS_TABLE = "SpanEventsTPU"
 
 
 class KustoBackend(IngestBackend):
@@ -86,11 +96,15 @@ class KustoBackend(IngestBackend):
     Default database/table match the reference: ``WarpPPE.PerfLogsMPI``
     (kusto_ingest.py:25), CSV format, managed-identity auth (:27).  Files
     are routed by schema: legacy ``tcp-*`` rows into ``table``, extended
-    ``tpu-*`` rows into ``table_ext``.
+    ``tpu-*`` rows into ``table_ext``, and the JSONL families (JSON
+    format) into ``table_health``, ``table_chaos`` and ``table_spans``.
     """
 
     def __init__(self, ingest_uri: str, database: str = "WarpPPE",
-                 table: str = "PerfLogsMPI", table_ext: str = TPU_TABLE):
+                 table: str = "PerfLogsMPI", table_ext: str = TPU_TABLE,
+                 table_health: str = HEALTH_TABLE,
+                 table_chaos: str = CHAOS_TABLE,
+                 table_spans: str = SPANS_TABLE):
         try:
             from azure.identity import ManagedIdentityCredential  # noqa: F401
             from azure.kusto.data import KustoConnectionStringBuilder
@@ -111,11 +125,22 @@ class KustoBackend(IngestBackend):
         self._props_ext = IngestionProperties(
             database=database, table=table_ext, data_format=DataFormat.CSV
         )
+        self._props_family = {
+            prefix: IngestionProperties(database=database, table=t,
+                                        data_format=DataFormat.JSON)
+            for prefix, t in ((HEALTH_PREFIX, table_health),
+                              (CHAOS_PREFIX, table_chaos),
+                              (SPANS_PREFIX, table_spans))
+        }
 
     def ingest(self, path: str) -> None:
-        props = (self._props_ext
-                 if os.path.basename(path).startswith(EXT_PREFIX)
-                 else self._props)
+        name = os.path.basename(path)
+        props = self._props
+        for prefix, p in self._props_family.items():
+            if name.startswith(prefix + "-"):
+                props = p
+        if name.startswith(EXT_PREFIX + "-"):
+            props = self._props_ext
         self._client.ingest_from_file(path, ingestion_properties=props)
 
 
@@ -298,14 +323,20 @@ def run_all_ingest_passes(
     skip_newest: int = 10,
     backend: IngestBackend | None = None,
 ) -> int:
-    """One pass over every rotating-log family (tcp-*, tpu-*) — what one
-    `tpu-perf-torch ingest` invocation sweeps; returns the total.  Both
-    families apply ``skip_newest`` (the reference's flow heuristic: the
-    newest N files are still being written)."""
+    """One pass over every rotating-log family (tcp-*, tpu-*, health-*,
+    chaos-*, spans-*) — what one `tpu-perf-torch ingest` invocation
+    sweeps; returns the total.  The CSV families apply ``skip_newest``
+    (the reference's flow heuristic: the newest N files are still being
+    written).  The JSONL families do not: their lazy logs keep the
+    active file under a ``.open`` suffix, so every ``<prefix>-*.log`` on
+    disk is finished, and the count heuristic would starve them (a
+    sparse family's newest file can stay newest forever)."""
     backend = backend or NullBackend()
     return sum(
-        run_ingest_pass(folder, skip_newest=skip_newest, backend=backend,
-                        prefix=prefix)
+        run_ingest_pass(
+            folder,
+            skip_newest=0 if prefix in LAZY_PREFIXES else skip_newest,
+            backend=backend, prefix=prefix)
         for prefix in PREFIXES
     )
 
@@ -395,7 +426,8 @@ def build_backend_from_env() -> IngestBackend:
 
     * unset or ``none``  -> :class:`NullBackend`
     * ``local:<dir>``    -> :class:`LocalDirBackend`
-    * ``kusto:<uri>[,db[,table[,table_ext]]]`` -> :class:`KustoBackend`
+    * ``kusto:<uri>[,db[,table[,table_ext[,table_health[,table_chaos
+      [,table_spans]]]]]]`` -> :class:`KustoBackend`
     """
     spec = os.environ.get("TPU_PERF_INGEST", "none")
     if spec in ("", "none"):
@@ -409,7 +441,8 @@ def build_backend_from_env() -> IngestBackend:
         parts = rest.split(",")
         if not parts[0]:
             raise ValueError(
-                "TPU_PERF_INGEST=kusto:<ingest-uri>[,db[,table[,table_ext]]]"
+                "TPU_PERF_INGEST=kusto:<ingest-uri>[,db[,table[,table_ext"
+                "[,table_health[,table_chaos[,table_spans]]]]]]"
             )
-        return KustoBackend(*parts[:4])
+        return KustoBackend(*parts[:7])
     raise ValueError(f"unknown TPU_PERF_INGEST backend {spec!r}")

@@ -123,6 +123,15 @@ def alg_bandwidth_gbps(nbytes: int, seconds: float) -> float:
     return nbytes * 1e-9 / seconds
 
 
+#: kernels whose bus factor is another op's
+_METRIC_ALIASES = {"hier_allreduce": "allreduce"}
+
+
+def metric_op(op: str) -> str:
+    """Resolve a kernel name to the op that carries its bus factor."""
+    return _METRIC_ALIASES.get(op, op)
+
+
 def bus_bandwidth_gbps(op: str, nbytes: int, seconds: float, n_devices: int) -> float:
     """Bus bandwidth in GB/s for one execution of ``op`` on ``nbytes``."""
     try:

@@ -5,12 +5,13 @@ writes).
 Feed it rotated ``tpu-*.log`` files (or ``run --csv`` stdout) and get the
 (op, nbytes) -> {p50 latency, bus bandwidth} curves, the accelerator-vs-MPI
 pivot (``compare``), each ``pl_*`` kernel beside its library op
-(``compare_pallas``), and the diff of two artifacts.  The pivots keep this
-package's backends, ``torch`` (one rank) and ``torch-sim`` (the sim
-world), where the JAX package's keep ``jax``; so does the interference
-matrix of ``contend``'s loaded rows against their idle twins.  The
-chaos, arena, hier, straggler, scenario, imbalance, adaptive, phases and
-push views wait for their modules (ROADMAP).
+(``compare_pallas``), a chaos soak's curves beside a clean soak's
+(``compare_chaos``), the adaptive savings, the harness phases, and the
+diff of two artifacts.  The pivots keep this package's backends,
+``torch`` (one rank) and ``torch-sim`` (the sim world), where the JAX
+package's keep ``jax``; so does the interference matrix of ``contend``'s
+loaded rows against their idle twins.  The arena, hier, straggler,
+scenario, imbalance and push views wait for their modules (ROADMAP).
 """
 
 from __future__ import annotations
@@ -396,6 +397,95 @@ def compare(points: list[CurvePoint]) -> list[ComparePoint]:
                                 torch=slot.get("torch"),
                                 mpi=slot.get("mpi")))
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ChaosComparePoint:
+    """One (op, nbytes, dtype) key with a chaos soak's curve and a clean
+    soak's curve side by side (the JAX package's): the injected
+    degradation in the curve tables, not only in the event stream.
+    Ratios read >1 as 'chaos worse': latency chaos/clean, bandwidth
+    clean/chaos."""
+
+    op: str
+    nbytes: int
+    chaos: CurvePoint | None
+    clean: CurvePoint | None
+    dtype: str = "float32"
+
+    @property
+    def latency_ratio(self) -> float | None:
+        if self.chaos is None or self.clean is None:
+            return None
+        clean_lat = self.clean.lat_us["p50"]
+        return self.chaos.lat_us["p50"] / clean_lat if clean_lat else None
+
+    @property
+    def busbw_ratio(self) -> float | None:
+        if self.chaos is None or self.clean is None:
+            return None
+        chaos_bw = self.chaos.busbw_gbps["p50"]
+        return self.clean.busbw_gbps["p50"] / chaos_bw if chaos_bw else None
+
+
+def _chaos_clean_pref(p: CurvePoint) -> tuple:
+    """Which clean point pairs against a chaos soak: a clean daemon soak
+    first (it runs as hot as the chaos soak does; a one-shot counterpart
+    would manufacture degradation), then the fullest fabric."""
+    return (p.mode == "daemon", p.n_devices)
+
+
+def compare_chaos(points: list[CurvePoint]) -> list[ChaosComparePoint]:
+    """Pivot this package's points into per-(op, nbytes, dtype) chaos-
+    vs-clean pairs.  Chaos rows are the ``mode == "chaos"`` curves the
+    fault-injected driver emits; the clean side prefers a daemon soak of
+    the same spec over a one-shot run.  Keys with no chaos row are
+    dropped; a chaos key with no clean counterpart keeps a one-sided row
+    so a missing control soak is visible."""
+    chaos_pts: dict[tuple, CurvePoint] = {}
+    clean_pts: dict[tuple, CurvePoint] = {}
+    for p in points:
+        if (p.backend not in TORCH_BACKENDS or p.algo != "native"
+                or p.skew_us or p.imbalance > 1 or p.load):
+            continue
+        key = (p.op, p.nbytes, p.dtype)
+        if p.mode == "chaos":
+            cur = chaos_pts.get(key)
+            if cur is None or p.n_devices > cur.n_devices:
+                chaos_pts[key] = p
+        else:
+            cur = clean_pts.get(key)
+            if cur is None or _chaos_clean_pref(p) > _chaos_clean_pref(cur):
+                clean_pts[key] = p
+    return [
+        ChaosComparePoint(op=op, nbytes=nbytes, dtype=dtype,
+                          chaos=cp, clean=clean_pts.get((op, nbytes, dtype)))
+        for (op, nbytes, dtype), cp in sorted(chaos_pts.items())
+    ]
+
+
+def compare_chaos_to_markdown(cmp: list[ChaosComparePoint]) -> str:
+    lines = [
+        "| op | size | dtype | clean lat p50 (us) | chaos lat p50 (us) "
+        "| chaos/clean lat | clean busbw p50 (GB/s) "
+        "| chaos busbw p50 (GB/s) | clean/chaos bw | devices clean/chaos "
+        "| clean mode |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    fmt = _fmt
+    for c in cmp:
+        cl, ch = c.clean, c.chaos
+        lines.append(
+            f"| {c.op} | {format_size(c.nbytes)} | {c.dtype} "
+            f"| {fmt(cl.lat_us['p50'] if cl else None, '.2f')} "
+            f"| {fmt(ch.lat_us['p50'] if ch else None, '.2f')} "
+            f"| {fmt(c.latency_ratio, '.3g')} "
+            f"| {fmt(cl.busbw_gbps['p50'] if cl else None)} "
+            f"| {fmt(ch.busbw_gbps['p50'] if ch else None)} "
+            f"| {fmt(c.busbw_ratio, '.3g')} | {_devices_cell(cl, ch)} "
+            f"| {cl.mode if cl else '—'} |"
+        )
+    return "\n".join(lines)
 
 
 

@@ -252,30 +252,42 @@ def without_p50(config, err=None):
 
 def run_point_fused(opts: Options, built: BuiltOp, fp: FusedPoint, *,
                     perf_clock: Callable[[], float] = time.perf_counter,
-                    controller=None, phases=None) -> RunTimes:
+                    controller=None, phases=None, tracer=None,
+                    starts: list | None = None) -> RunTimes:
     """One finite point under the fused fence: warm (capture), then one
     measured dispatch per chunk (one by default), the measured window kept
     as a trace under --profile-dir.  With an adaptive ``controller`` each
     chunk's mean is one observation, and the stop vote fires after each
     chunk.  The point's graphs are freed before it returns, so the next
-    point's fit beside nothing of this one."""
+    point's fit beside nothing of this one.  ``tracer`` records the
+    warm-up, each chunk's measure and the stop votes; ``starts`` gets each
+    chunk's (host start, reps), from which the caller lays out the runs'
+    spans."""
     from tpu_perf_torch.compilepipe import PhaseTimer
+    from tpu_perf_torch.spans import NULL_TRACER
 
     phases = phases if phases is not None else PhaseTimer(perf_clock)
+    tracer = tracer if tracer is not None else NULL_TRACER
     runner = FusedRunner(fp, built, perf_clock=perf_clock)
     try:
-        with phases.phase("compile"):
+        with phases.phase("compile"), tracer.span(
+                "warmup", op=built.name, nbytes=built.nbytes, fused=True):
             runner.warm()
         samples: list[float] = []
         with profile_window(opts.profile_dir, f"{built.name}-{built.nbytes}",
                             built.example_input.device):
             for reps in fp.plan:
-                with phases.phase("measure"):
+                with phases.phase("measure"), tracer.span(
+                        "measure", op=built.name, nbytes=built.nbytes,
+                        reps=reps):
+                    t0 = perf_clock()
                     chunk = runner.chunk(reps)
+                if starts is not None:
+                    starts.append((t0, reps))
                 samples.extend(chunk)
                 if controller is not None:
                     controller.observe_chunk(sum(chunk) / reps, reps)
-                    if controller.should_stop(len(samples)):
+                    if controller.should_stop(len(samples), tracer=tracer):
                         break
     finally:
         runner.close()

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import json
 
 LEGACY_HEADER = (
     "Timestamp,JobId,Rank,VMCount,LocalIP,RemoteIP,NumOfFlows,"
@@ -27,6 +28,15 @@ LEGACY_HEADER = (
 #: ingest/report pass reads both packages' folders)
 LEGACY_PREFIX = "tcp"
 EXT_PREFIX = "tpu"
+HEALTH_PREFIX = "health"  # JSONL health events (tpu_perf_torch.health)
+CHAOS_PREFIX = "chaos"    # JSONL fault-injection ledger (tpu_perf_torch.faults)
+SPANS_PREFIX = "spans"    # JSONL harness spans (tpu_perf_torch.spans)
+
+#: every rotating-log family this package writes, the ones one ingest
+#: pass sweeps (the JAX package's linkmap, fleet and tune families wait
+#: for their subsystems: ROADMAP)
+ALL_PREFIXES = (LEGACY_PREFIX, EXT_PREFIX, HEALTH_PREFIX, CHAOS_PREFIX,
+                SPANS_PREFIX)
 
 RESULT_HEADER = (
     "timestamp,job_id,backend,op,nbytes,iters,run_id,n_devices,"
@@ -35,9 +45,44 @@ RESULT_HEADER = (
 )
 
 
+class JsonlRecord:
+    """Free-form JSONL row of the lazy log families: duck-typed as a row
+    (``to_csv`` is the JSON line), so a JSONL family's log is a
+    RotatingCsvLog.  Record types share a stream through the required
+    ``record`` discriminator; subclasses set ``FAMILY`` for messages."""
+
+    __slots__ = ("data",)
+    FAMILY = "jsonl"
+
+    def __init__(self, **data):
+        if "record" not in data:
+            raise ValueError(
+                f"{self.FAMILY} records need a 'record' discriminator"
+            )
+        self.data = data
+
+    def to_json(self) -> str:
+        return json.dumps(self.data, sort_keys=True)
+
+    to_csv = to_json  # the RotatingCsvLog row interface
+
+    @classmethod
+    def from_json(cls, line: str):
+        try:
+            data = json.loads(line)
+        except json.JSONDecodeError:
+            raise ValueError(
+                f"bad {cls.FAMILY} record line: {line!r}"
+            ) from None
+        if not isinstance(data, dict) or "record" not in data:
+            raise ValueError(f"not a {cls.FAMILY} record: {line!r}")
+        return cls(**data)
+
+
 def window_index(run_id: int, stats_every: int) -> int:
     """Heartbeat-window index of a run: runs ``1..stats_every`` and the
-    boundary heartbeat that covers them share window 0."""
+    boundary heartbeat that covers them share window 0.  Health events,
+    JSON heartbeats and chaos ledger records all join on it."""
     return max(0, run_id - 1) // max(1, stats_every)
 
 
@@ -205,3 +250,33 @@ def decorate_op(op: str, algo: str = "", skew_us: int = 0,
     if load:
         op = f"{op}&{load}"
     return op
+
+
+def parse_op_label(label: str) -> tuple[str, str, int, int, str]:
+    """The inverse of :func:`decorate_op`: ``(op, algo, skew_us,
+    imbalance, load)`` of a decorated label, with ``("", 0, 1, "")``
+    coordinates for an undecorated one.  Coordinates strip in reverse
+    append order, so ``load`` (appended last) strips first."""
+    rest = str(label)
+    load = ""
+    head, sep, tail = rest.rpartition("&")
+    if sep and tail:
+        rest, load = head, tail
+    imbalance = 1
+    head, sep, tail = rest.rpartition("%")
+    if sep and tail.isdigit():
+        rest, imbalance = head, int(tail)
+    skew_us = 0
+    head, sep, tail = rest.rpartition("@")
+    if sep and tail.endswith("us") and tail[:-2].isdigit():
+        rest, skew_us = head, int(tail[:-2])
+    algo = ""
+    if rest.endswith("]") and "[" in rest:
+        rest, _, algo = rest[:-1].partition("[")
+    return rest, algo, skew_us, imbalance, load
+
+
+def base_op(label: str) -> str:
+    """Every experiment coordinate stripped off a decorated label
+    (``allreduce[ring]@500us%8`` -> ``allreduce``)."""
+    return parse_op_label(label)[0]

@@ -291,9 +291,16 @@ def _skip_reason(op: str, n: int, axes: tuple[str, ...] = ("x",)
 
 
 def run_selftest(world, *, ops: list[str] | None = None, nbytes: int = 4096,
-                 dtype: str = "float32", iters: int = 1) -> list[SelftestResult]:
+                 dtype: str = "float32", iters: int = 1,
+                 injector=None) -> list[SelftestResult]:
     """Validate each op's payload numerics on ``world``; never raises per
-    op — failures land in the result list so every op is checked."""
+    op — failures land in the result list so every op is checked.
+
+    ``injector`` (tpu_perf_torch.faults.FaultInjector) corrupts the host
+    copy of the output of each op named by a ``corrupt`` fault before the
+    comparison, never the device buffer: the chaos harness's proof that
+    this validation catches a payload-corrupting fabric (a corrupted op
+    must come back FAIL)."""
     from tpu_perf_torch.ops.collectives import (
         FLOAT_ONLY_OPS, build_op, is_float_dtype,
     )
@@ -330,6 +337,10 @@ def run_selftest(world, *, ops: list[str] | None = None, nbytes: int = 4096,
             # the CPU from_world shares the tensor's memory
             x_native = from_world(built.example_input.clone()).reshape(n, -1)
             got = from_world(built.step(built.example_input)).reshape(n, -1)
+            if injector is not None:
+                # the rx corruption point, on a copy read back from the
+                # card (corrupt_payload copies before it flips a bit)
+                got = injector.corrupt_payload(op, got).reshape(n, -1)
             # integers compose in the native dtype so wraparound matches
             want = x_native if is_int else x_native.astype(np.float64)
             for _ in range(iters):

@@ -26,9 +26,13 @@ made in the same order on every rank, so two communicators in flight at
 once never meet in different orders; each row's time is its maximum
 over the ranks, taken after the point's last fence.
 
+Under ``--synthetic`` no step is built or run: the samples are the fault
+injector's seeded series, a loaded sample the idle series' times
+:data:`SYNTHETIC_CONTENTION` (a documented, modeled slowdown, the JAX
+package's), so a gate can assert "slowdown > 1" byte-stably.
+
 Not ported yet (ROADMAP): the split-channel shape (``--split K``), which
-needs the linkmap planner; ``--synthetic``, which needs the fault
-injector; and the arena's ``--algo``.
+needs the linkmap planner, and the arena's ``--algo``.
 """
 
 from __future__ import annotations
@@ -37,12 +41,17 @@ import dataclasses
 import time
 
 from tpu_perf_torch.config import Options
-from tpu_perf_torch.schema import ResultRow
+from tpu_perf_torch.schema import ResultRow, decorate_op
 from tpu_perf_torch.streams.engine import StreamEngine
 from tpu_perf_torch.world import DistWorld, SimWorld, is_dist
 
 #: the compute-kernel load generators (bench's roofline bodies)
 COMPUTE_LOADS = ("mxu_gemm", "hbm_stream")
+
+#: the synthetic timing source's modeled contention factor: a loaded
+#: victim's seeded sample is the idle series times this (modeled, not
+#: measured)
+SYNTHETIC_CONTENTION = 1.6
 
 #: fences a concurrent race can use: per run, tolerant of other lanes in
 #: flight (the paired and captured fences assume a quiet card)
@@ -68,12 +77,15 @@ def _rows_for(samples, *, opts: Options, op: str, nbytes: int, iters: int,
 
 def run_contend(opts: Options, *, world: SimWorld | DistWorld | None = None,
                 axis: str | None = None, load_axis: str | None = None,
+                n_devices: int | None = None, tracer=None, err=None,
                 perf_clock=time.perf_counter) -> list[ResultRow]:
     """Run the contention plan on ``world`` (default: the options' world);
     returns every row, idle and loaded.  ``axis`` and ``load_axis`` pick
     the victim's and the load's mesh axes (None: every axis, the
     shared-fabric default; naming two different axes of a multi-axis mesh
-    races the disjoint-axis shape)."""
+    races the disjoint-axis shape).  Under ``--synthetic`` no world is
+    made: ``n_devices`` states the rank count.  ``tracer`` records the
+    engine's dispatch and fence spans."""
     from tpu_perf_torch.ops.collectives import known_ops
     from tpu_perf_torch.runner import max_over_ranks, sizes_for, world_for
 
@@ -95,23 +107,47 @@ def run_contend(opts: Options, *, world: SimWorld | DistWorld | None = None,
             "split-channel contention (--split K) is not yet ported: it "
             "needs the linkmap planner's link-disjoint schedules; see "
             "ROADMAP")
-    if load not in known_ops():
-        raise ValueError(
-            f"unknown load op {load!r}; known: {sorted(known_ops())}")
-    world = world if world is not None else world_for(opts)
-    load_world = _lane_world(world)
+    injector = None
+    if opts.synthetic_s is not None or opts.faults:
+        from tpu_perf_torch.faults import FaultInjector
+
+        injector = FaultInjector(
+            list(opts.faults or ()), seed=opts.fault_seed,
+            stats_every=opts.stats_every, synthetic_s=opts.synthetic_s,
+            err=err)
+    synthetic = injector is not None and injector.synthetic
+    if synthetic:
+        if n_devices is None:
+            raise ValueError("synthetic contend needs an explicit n_devices")
+        n_dev, backend = int(n_devices), (
+            "torch-sim" if n_devices > 1 else "torch")
+    else:
+        if load not in known_ops():
+            raise ValueError(
+                f"unknown load op {load!r}; known: {sorted(known_ops())}")
+        world = world if world is not None else world_for(opts)
+        load_world = _lane_world(world)
+        n_dev, backend = world.n, world.backend
     rows: list[ResultRow] = []
     for nbytes in sizes_for(opts, opts.op):
-        idle, loaded, idle_warm, loaded_warm, actual = _measure_race(
-            opts, world, load_world, nbytes, load, axis=axis,
-            load_axis=load_axis, perf_clock=perf_clock)
-        # each run's time its maximum over the ranks, after the point's
-        # last fence
-        idle = max_over_ranks(world, idle)
-        loaded = max_over_ranks(world, loaded)
+        if synthetic:
+            idle = [injector.synthetic_sample(decorate_op(opts.op), nbytes)
+                    for _ in range(opts.num_runs)]
+            loaded = [injector.synthetic_sample(
+                decorate_op(opts.op, load=load), nbytes)
+                * SYNTHETIC_CONTENTION for _ in range(opts.num_runs)]
+            idle_warm = loaded_warm = 0.0
+            actual = nbytes
+        else:
+            idle, loaded, idle_warm, loaded_warm, actual = _measure_race(
+                opts, world, load_world, nbytes, load, axis=axis,
+                load_axis=load_axis, tracer=tracer, perf_clock=perf_clock)
+            # each run's time its maximum over the ranks, after the
+            # point's last fence
+            idle = max_over_ranks(world, idle)
+            loaded = max_over_ranks(world, loaded)
         common = dict(opts=opts, op=opts.op, nbytes=actual,
-                      iters=opts.iters, n_devices=world.n,
-                      backend=world.backend)
+                      iters=opts.iters, n_devices=n_dev, backend=backend)
         rows.extend(_rows_for(idle, load="", stream=0, warmup_s=idle_warm,
                               **common))
         # the victim rides lane 0; rows carry the 1-based lane
@@ -134,7 +170,7 @@ def _lane_world(world):
 
 
 def _measure_race(opts: Options, world, load_world, nbytes: int, load: str,
-                  *, axis, load_axis, perf_clock):
+                  *, axis, load_axis, tracer, perf_clock):
     """The victim on lane 0 raced against the load on lane 1.  Returns
     (idle samples, loaded samples, idle and loaded warm-up seconds,
     victim nbytes).  The loaded warm-up is one unrecorded race, so the
@@ -147,7 +183,8 @@ def _measure_race(opts: Options, world, load_world, nbytes: int, load: str,
                       axis=axis)
     load_built = build_op(load, load_world, nbytes, opts.iters,
                           dtype=opts.dtype, axis=load_axis)
-    engine = StreamEngine(2, fence_mode=opts.fence, perf_clock=perf_clock)
+    engine = StreamEngine(2, fence_mode=opts.fence, tracer=tracer,
+                          perf_clock=perf_clock)
     x, lx = victim.example_input, load_built.example_input
     t0 = perf_clock()
     for _ in range(max(1, opts.warmup_runs)):

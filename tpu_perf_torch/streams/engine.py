@@ -19,7 +19,10 @@ Two consumers:
 
 The engine never decides what to dispatch (:mod:`tpu_perf_torch.streams.plans`
 does), a lane holds at most one step, and ``fence_all`` drains lanes in
-dispatch order.
+dispatch order.  With a tracer each launch is a ``dispatch`` span and each
+wait a ``stream_fence`` span on the lane's ``s<id>.`` ID lane; both close
+inside some lane's timed window, so their records are written once no lane
+is in flight (:meth:`~tpu_perf_torch.spans.SpanTracer.flush`).
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ class StreamEngine:
     against monitoring readers (``in_flight``)."""
 
     def __init__(self, n_streams: int, *, fence_mode: str = "block",
+                 tracer=None,
                  perf_clock: Callable[[], float] = time.perf_counter):
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
@@ -88,6 +92,11 @@ class StreamEngine:
         self.n_streams = n_streams
         self.fence_mode = fence_mode
         self._clock = perf_clock
+        if tracer is None:
+            from tpu_perf_torch.spans import NULL_TRACER
+
+            tracer = NULL_TRACER
+        self.tracer = tracer
         self._lock = threading.Lock()
         self._inflight: dict[int, _InFlight] = {}
         self._seq = 0
@@ -126,15 +135,17 @@ class StreamEngine:
                     "fence it before dispatching again")
         lane = self._lane(stream_id, x)
         done = None
-        if lane is None:
-            t0 = self._clock()
-            out = step(x)
-        else:
-            x.record_stream(lane)
-            t0 = self._clock()
-            out = _on(lane, step, x)
-            done = self._done[stream_id]
-            done.record(lane)
+        with self.tracer.stream_span(stream_id, "dispatch", defer=True,
+                                     label=label):
+            if lane is None:
+                t0 = self._clock()
+                out = step(x)
+            else:
+                x.record_stream(lane)
+                t0 = self._clock()
+                out = _on(lane, step, x)
+                done = self._done[stream_id]
+                done.record(lane)
         with self._lock:
             self._seq += 1
             self._inflight[stream_id] = _InFlight(
@@ -151,16 +162,22 @@ class StreamEngine:
         if entry is None:
             raise RuntimeError(f"stream {stream_id} has nothing in flight to "
                                "fence")
-        if entry.lane is None:
-            fence(entry.out, self.fence_mode)
-        elif self.fence_mode == "block":
-            entry.done.synchronize()
-        else:
-            # the copy to the host goes on the lane, behind its step
-            _on(entry.lane, fence, entry.out, "readback")
+        with self.tracer.stream_span(stream_id, "stream_fence", defer=True,
+                                     label=entry.label):
+            if entry.lane is None:
+                fence(entry.out, self.fence_mode)
+            elif self.fence_mode == "block":
+                entry.done.synchronize()
+            else:
+                # the copy to the host goes on the lane, behind its step
+                _on(entry.lane, fence, entry.out, "readback")
         t = self._clock() - entry.t0
         with self._lock:
             del self._inflight[stream_id]
+            idle = not self._inflight
+        if idle:
+            # after every lane's window has closed
+            self.tracer.flush()
         return t
 
     def fence_all(self) -> dict[int, float]:
