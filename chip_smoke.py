@@ -3427,6 +3427,376 @@ def phase_contend_axes() -> None:
           + "; ".join(said) + f" ({CARD})")
 
 
+# --- the arena, the v-ops and the scenarios ------------------------------
+
+#: the arena's sizes a rank (4 KiB, 4 MiB, 256 MiB), the v-ops' and the
+#: scenarios' (4 KiB, 4 MiB), and the run counts
+ARENA_BYTES = (4096, 4 * 1024**2, MAIN_BYTES)
+V_BYTES = (4096, 4 * 1024**2)
+ARENA_RUNS = 5
+#: the fused arena daemon's visits (round robin over native and the four
+#: allreduce algorithms)
+ARENA_VISITS = 500
+#: the arena collectives and the v-ops
+ARENA_OPS = ("allreduce", "all_gather", "reduce_scatter", "all_to_all")
+V_OPS = ("allgatherv", "reduce_scatter_v", "all_to_all_v", "seg_allreduce")
+SCENARIOS = "tp-allreduce-burst,moe-dispatch-combine,pipeline-chain"
+
+
+def _int_fill(x):
+    """An integer-valued float fill of ``x``'s shape (every partial sum of
+    it is exact in float32, so any order of addition gives one answer)."""
+    import torch
+
+    return (torch.arange(x.numel(), device=x.device) % 7).to(
+        x.dtype).view(x.shape)
+
+
+def _held_to_native(what, built, native) -> None:
+    """``built``'s step against ``native``'s on one integer-valued fill:
+    equal to the bit (gated)."""
+    import torch
+
+    x = _int_fill(built.example_input)
+    got = built.step(x.clone())
+    want = native.step(x.clone())
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{what}: differs from the native op on an integer-valued "
+             f"fill (max abs err {max_abs_err(got, want):.3g})")
+
+
+def _arena_rows(argv: list[str], what: str, logdir: str) -> list:
+    """One ``cli.main`` run into ``logdir``; its rows, which the port's
+    schema must parse (gated)."""
+    from tpu_perf_torch import cli
+
+    t0 = time.perf_counter()
+    rc = cli.main(argv + ["-l", logdir])
+    if rc != 0:
+        fail(f"{what} exited {rc}")
+    rows = _rows_in(logdir)
+    if not rows or any(r.lat_us <= 0 for r in rows):
+        fail(f"{what}: {len(rows)} rows, or a non-positive lat_us")
+    print(f"arena: {what}: {len(rows)} rows in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def phase_arena() -> None:
+    """The arena, the v-ops and the scenarios on the card, sim world of 8
+    ranks, float32.  Gated: every algorithm of every arena collective at
+    ARENA_BYTES a rank, every hier* composition on a 2 x 4 sim mesh, each
+    v-schedule at imbalance 1 and 8, the scenarios' inners: each output
+    equal to the native op's on an integer-valued fill; the rows of
+    ``arena``, ``run --algo all`` on the mesh, the v-ops' and the
+    scenarios' sweeps parse; one scenario and one algorithm replay from
+    a CUDA graph (--fence fused) to their eager output.  Printed: the
+    crossover, hierarchy, imbalance and scenario tables."""
+    import tempfile
+
+    from tpu_perf_torch import report
+    from tpu_perf_torch.arena import algos_for_op, hierarchy, valgos
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.parallel import make_mesh
+    from tpu_perf_torch.scenarios.compose import build_scenario_op
+    from tpu_perf_torch.scenarios.spec import BUILTIN_SCENARIOS
+    from tpu_perf_torch.world import SimWorld, resolve_device
+
+    dev = resolve_device()
+    world = SimWorld(8, dev)
+    mesh = SimWorld(8, dev, make_mesh((2, 4), ("dcn", "ici"), n=8))
+    held = 0
+    for nbytes in ARENA_BYTES:
+        for op in ARENA_OPS:
+            native = build_op(op, world, nbytes, 1)
+            for algo in algos_for_op(op, 8):
+                _held_to_native(f"{op}[{algo}] at {nbytes} B/rank",
+                                build_op(op, world, nbytes, 1, algo=algo),
+                                native)
+                held += 1
+            if nbytes == MAIN_BYTES:
+                continue
+            native = build_op(op, mesh, nbytes, 1)
+            for algo in hierarchy.hier_algos_for(op, (("dcn", 2),
+                                                      ("ici", 4))):
+                _held_to_native(f"{op}[{algo}] at {nbytes} B/rank",
+                                build_op(op, mesh, nbytes, 1, algo=algo),
+                                native)
+                held += 1
+        _release_cache(f"arena at {nbytes} B/rank")
+    for nbytes in V_BYTES:
+        for op in V_OPS:
+            for ratio in (1, 8):
+                native = build_op(op, world, nbytes, 1, imbalance=ratio)
+                for algo in valgos.v_algos_for_op(op, 8):
+                    _held_to_native(
+                        f"{op}[{algo}]%{ratio} at {nbytes} B/rank",
+                        build_op(op, world, nbytes, 1, algo=algo,
+                                 imbalance=ratio), native)
+                    held += 1
+        for name in ("tp-allreduce-burst", "moe-dispatch-combine"):
+            spec = BUILTIN_SCENARIOS[name]
+            native = build_scenario_op(spec, world, nbytes, 1)
+            for inner in ("ring", "binomial", "bruck", "rhd"):
+                from tpu_perf_torch.scenarios.compose import (
+                    scenario_inner_covered,
+                )
+
+                if scenario_inner_covered(spec, inner):
+                    _held_to_native(f"scenario {name}+{inner} at {nbytes} "
+                                    "B/rank", build_scenario_op(
+                                        spec, world, nbytes, 1,
+                                        inner=inner), native)
+                    held += 1
+    print(f"arena: {held} algorithm outputs equal to the native op's on an "
+          "integer-valued fill", flush=True)
+    sweep = ",".join(str(b) for b in ARENA_BYTES)
+    vsweep = ",".join(str(b) for b in V_BYTES)
+    common = ["-i", str(ITERS), "-r", str(ARENA_RUNS)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-arena-") as root:
+        rows = _arena_rows(["arena", "--sweep", sweep] + common,
+                           f"arena --sweep {sweep}", f"{root}/arena")
+        rows += _arena_rows(
+            ["run", "--mesh", "2x4", "--axes", "dcn,ici", "--op",
+             "allreduce,all_gather,reduce_scatter", "--algo", "all",
+             "--sweep", vsweep] + common,
+            "run --mesh 2x4 --algo all", f"{root}/hier")
+        rows += _arena_rows(
+            ["run", "--op", ",".join(V_OPS), "--algo", "all",
+             "--imbalance", "1,8", "--sweep", vsweep] + common,
+            "run --op <the v-ops> --algo all --imbalance 1,8",
+            f"{root}/vops")
+        rows += _arena_rows(
+            ["scenario", SCENARIOS, "--imbalance", "1,8", "--sweep",
+             vsweep] + common, f"scenario {SCENARIOS}", f"{root}/scn")
+        rows += _arena_rows(
+            ["scenario", "tp-allreduce-burst", "--algo", "ring",
+             "--sweep", vsweep] + common, "scenario --algo ring",
+            f"{root}/scn-ring")
+        # the graph fences over arena steps: each trace leg and each fused
+        # daemon visit a graph replay of library schedules
+        _arena_rows(["run", "--op", "allreduce,all_to_all_v", "--algo",
+                     "ring", "--fence", "trace", "-b", "4K"] + common,
+                    "run --algo ring --fence trace", f"{root}/trace")
+        _arena_rows(["monitor", "--op", "allreduce", "--algo", "all",
+                     "--fence", "fused", "-b", "4K", "--max-runs",
+                     str(ARENA_VISITS)],
+                    f"monitor --algo all --fence fused, {ARENA_VISITS} "
+                    "visits", f"{root}/daemon")
+        points = report.aggregate(rows)
+        print(f"arena: p50 lat_us by algorithm ({CARD}):\n"
+              + _by_algorithm(points), flush=True)
+        for title, table, render in (
+                ("crossover", report.compare_arena,
+                 report.arena_to_markdown),
+                ("hierarchy", report.hier_traffic,
+                 report.hier_traffic_to_markdown),
+                ("imbalance cost", report.imbalance_cost,
+                 report.imbalance_to_markdown),
+                ("scenario steps", report.scenario_steps,
+                 report.scenario_to_markdown)):
+            got = table(points)
+            if not got:
+                fail(f"arena: no {title} table from the rows")
+            print(f"arena: {title} table ({CARD}):\n{render(got)}",
+                  flush=True)
+    _arena_fused(world)
+    _release_cache("arena")
+
+
+def _by_algorithm(points) -> str:
+    """One line a (op, size, imbalance, spread): every algorithm's p50
+    lat_us, native first (a hierarchical one keyed by its mesh)."""
+    slots: dict[tuple, dict] = {}
+    for p in points:
+        slots.setdefault((p.op, p.nbytes, p.imbalance, p.skew_us), {})[
+            p.algo] = p.lat_us["p50"]
+    lines = []
+    for (op, nbytes, imb, skew), algos in sorted(slots.items()):
+        order = sorted(algos, key=lambda a: (a != "native", a))
+        lines.append(
+            f"{op}@{nbytes}" + (f"%{imb}" if imb > 1 else "")
+            + (f"@{skew}us" if skew else "") + ": "
+            + ", ".join(f"{a} {algos[a]:.2f}" for a in order))
+    return "\n".join(lines)
+
+
+def _arena_fused(world) -> None:
+    """One algorithm and one scenario under --fence fused: each point's
+    graph replayed twice, each replay equal to the eager chain from the
+    buffer it started at (gated), and their device times."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.runner import build_fused_point
+    from tpu_perf_torch.scenarios.compose import build_scenario_op
+    from tpu_perf_torch.scenarios.spec import BUILTIN_SCENARIOS
+    from tpu_perf_torch.timing import FusedRunner
+
+    said = []
+    for what, built in (
+            ("allreduce[ring]", build_op("allreduce", world, 4096, ITERS,
+                                         algo="ring")),
+            ("scenario moe-dispatch-combine%8", build_scenario_op(
+                BUILTIN_SCENARIOS["moe-dispatch-combine"], world,
+                4 * 1024**2, ITERS, imbalance=8))):
+        runner = FusedRunner(build_fused_point(built, (RUNS,)), built)
+        try:
+            runner.warm()
+            for _ in range(2):
+                start = runner.buffer.clone()
+                times = runner.chunk(RUNS)
+                want = start
+                for _ in range(RUNS):
+                    want = built.step(want)
+                torch.cuda.synchronize()
+                if not torch.allclose(runner.buffer, want, rtol=1e-6,
+                                      atol=0):
+                    fail(f"fused {what}: the replay differs from the eager "
+                         "chain")
+        finally:
+            runner.close()
+        said.append(f"{what} {_median(times) * 1e3:.4f} ms a run")
+    print("arena: --fence fused replays equal to their eager chains: "
+          + "; ".join(said) + f" ({CARD})", flush=True)
+
+
+# --- the push plane ---------------------------------------------------------
+
+#: the push phase's block run and daemon, and the tee's cost runs
+PUSH_RUNS, PUSH_VISITS, PUSH_TAX_RUNS = 500, 2000, 500
+
+
+class _Collector:
+    """A loopback http.server sink: every NDJSON line kept by family."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.got: dict[str, list[str]] = {}
+        collector = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(n).decode()
+                fam = self.headers.get("X-TpuPerf-Family", "?")
+                collector.got.setdefault(fam, []).extend(body.splitlines())
+                self.send_response(204)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+
+def _lines(folder: str, prefix: str) -> list[str]:
+    import glob
+
+    out = []
+    for path in sorted(glob.glob(os.path.join(folder, f"{prefix}-*.log"))):
+        with open(path) as fh:
+            out += [ln.rstrip("\n") for ln in fh if ln.strip()]
+    return out
+
+
+def _delivered(what, folder, collector, families) -> str:
+    """Every durable line of ``families`` arrived, and the sidecar says
+    0 dropped, 0 spooled (gated)."""
+    import glob
+
+    said = []
+    for fam in families:
+        durable = _lines(folder, fam)
+        got = collector.got.get(fam, [])
+        if fam == "spans":
+            # the sender's own push spans of its last flush are written
+            # after the plane closed: the durable log holds them, no tee
+            def kept(lines):
+                return [ln for ln in lines
+                        if json.loads(ln).get("kind") != "push"]
+
+            durable, got = kept(durable), kept(got)
+        if sorted(got) != sorted(durable) or not durable:
+            fail(f"{what}: {len(got)} {fam} lines arrived of "
+                 f"{len(durable)} written")
+        said.append(f"{len(durable)} {fam}")
+    (side,) = glob.glob(os.path.join(folder, "phase-*.json"))
+    with open(side) as fh:
+        push = json.load(fh)["push"]
+    if push["dropped"] or push["spooled"] or push["queued"]:
+        fail(f"{what}: push counters {push}")
+    return f"{what}: " + ", ".join(said) + f" delivered, 0 dropped"
+
+
+def phase_push() -> None:
+    """The push plane on the card's runs: a 4 KiB block run and a short
+    --health --spans daemon teed into a loopback http.server; gated: every
+    row, event and span arrives after close, with 0 dropped.  Printed:
+    the tee's cost to the block run's median lat_us, in turns off, on,
+    off, on, as the --spans tax is printed."""
+    import tempfile
+
+    from tpu_perf_torch import cli
+
+    collector = _Collector()
+    said = []
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-push-") as root:
+            folder = f"{root}/run"
+            if cli.main(["run", "--op", "pl_allreduce", "-b", "4K", "-r",
+                         str(PUSH_RUNS), "-l", folder, "--push",
+                         collector.url]) != 0:
+                fail("run --push exited non-zero")
+            said.append(_delivered(f"run -r {PUSH_RUNS}", folder, collector,
+                                   ("tpu", "tcp")))
+            collector.got.clear()
+            folder = f"{root}/daemon"
+            if cli.main(["monitor", "--op", "pl_allreduce", "-b", "4K",
+                         "--fence", "fused", "--max-runs", str(PUSH_VISITS),
+                         "--health", "--health-warmup", "30", "--spans",
+                         "--spans-sample", "10", "-l", folder, "--push",
+                         collector.url]) != 0:
+                fail("monitor --push exited non-zero")
+            fams = ["tpu", "tcp", "spans"]
+            if _lines(folder, "health"):
+                fams.append("health")
+            said.append(_delivered(f"monitor --fence fused {PUSH_VISITS} "
+                                   "visits", folder, collector, fams))
+            p50 = {"off": [], "on": []}
+            for i, side in enumerate(("off", "on", "off", "on")):
+                folder = f"{root}/tax-{i}"
+                argv = ["run", "--op", "pl_allreduce", "-b", "4K", "-r",
+                        str(PUSH_TAX_RUNS), "-l", folder]
+                if side == "on":
+                    argv += ["--push", collector.url]
+                if cli.main(argv) != 0:
+                    fail(f"run --push {side} exited non-zero")
+                p50[side].append(
+                    _median([r.lat_us for r in _rows_in(folder)]))
+            said.append(f"--push tax, pl_allreduce -b 4K -r {PUSH_TAX_RUNS} "
+                        "--fence block: lat p50 off "
+                        + ", ".join(f"{v:.3f}" for v in p50["off"])
+                        + " us, on " + ", ".join(f"{v:.3f}"
+                                                 for v in p50["on"]) + " us")
+    finally:
+        collector.close()
+    for ln in said:
+        print(f"push: {ln} ({CARD})", flush=True)
+
+
 # --- the multi-rank world ---------------------------------------------------
 
 #: the NCCL world of one's library ops: no kernel of the port
@@ -4640,6 +5010,60 @@ def _cards_cli(n: int, device: str) -> list[str]:
     return said
 
 
+#: the arena across the cards: sizes a rank, runs, and the spreads
+CARDS_ARENA_SWEEP = f"4096,{MAIN_BYTES}"
+CARDS_ARENA_RUNS = 5
+CARDS_SPREADS = "0,250us,1ms"
+
+
+def _cards_arena(n: int, device: str) -> list[str]:
+    """Printed, and gated on nothing but the rows: the arena over the
+    cards (every algorithm of every arena collective beside the native
+    NCCL call, at 4 KiB and 256 MiB a rank), the hier* compositions on
+    a 2 x 2 mesh, and ``--skew-spread 0,250us,1ms`` with its straggler
+    table; each run's rows identical on every rank."""
+    import tempfile
+
+    from tpu_perf_torch import report
+
+    said = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-cards-arena-") as root:
+        for name, argv, table, render in (
+                ("arena", ["arena", "--sweep", CARDS_ARENA_SWEEP],
+                 report.compare_arena, report.arena_to_markdown),
+                ("hier on 2 x 2", ["run", "--mesh", "2x2", "--axes",
+                                   "dcn,ici", "--op",
+                                   "allreduce,all_gather,reduce_scatter",
+                                   "--algo", "all", "--sweep",
+                                   CARDS_ARENA_SWEEP],
+                 report.hier_traffic, report.hier_traffic_to_markdown),
+                ("skew spread", ["run", "--op", "allreduce", "-b", "4K",
+                                 "--skew-spread", CARDS_SPREADS],
+                 report.straggler_cost, report.straggler_to_markdown)):
+            t0 = time.perf_counter()
+            logs = os.path.join(root, name.split()[0])
+            _torchrun(n, argv + ["-i", str(ITERS), "-r",
+                                 str(CARDS_ARENA_RUNS), "-l", logs],
+                      f"torchrun {name}", device)
+            rows = _logged_rows(logs)
+            keys = {k: [(r.op, r.algo, r.nbytes, r.skew_us, r.time_ms)
+                        for r in v] for k, v in rows.items()}
+            if (sorted(keys) != list(range(n))
+                    or any(v != keys[0] for v in keys.values())
+                    or not keys[0]):
+                fail(f"across cards: {name}: rows differ between ranks "
+                     f"{ {k: len(v) for k, v in keys.items()} }")
+            points = report.aggregate(rows[0])
+            got = table(points)
+            said.append(f"{name}: p50 lat_us by algorithm:\n"
+                        + _by_algorithm(points))
+            said.append(f"{name} over {'NCCL' if device == 'cuda' else 'gloo'}"
+                        f" ({len(keys[0])} rows a rank, identical on the "
+                        f"{n} ranks, {time.perf_counter() - t0:.1f} s):\n"
+                        + (render(got) if got else "(no table)"))
+    return said
+
+
 #: the skew soak across the cards: allreduce at 4 KiB and 16 MiB a rank
 #: round robin under the fused fence, the last rank entering late by up
 #: to CARDS_SKEW_US in visits 101-300
@@ -4732,7 +5156,8 @@ def across_cards(cards: int, device: str = "cuda") -> int:
     Builds the kernels; runs :func:`cards_rank` in a world of ``cards``
     processes (every op against the sim chain, the push chains, each peer
     kernel timed beside its NCCL call); then the CLI through torchrun
-    (:func:`_cards_cli`) and the skew soak (:func:`_cards_chaos`).  Prints each card's name and power limit, the
+    (:func:`_cards_cli`), the skew soak (:func:`_cards_chaos`) and the
+    arena with the spread axis (:func:`_cards_arena`).  Prints each card's name and power limit, the
     results, and ``{"ok": true, "cards": N}`` last.  ``device`` "cpu"
     rehearses the world and the CLI on gloo (no push chain, no timing)."""
     import torch
@@ -4753,7 +5178,8 @@ def across_cards(cards: int, device: str = "cuda") -> int:
                   f"the world of {cards} cards", CARDS_LIMIT_S)
     for line in outs[0][0].splitlines():
         print(line, flush=True)
-    for line in _cards_cli(cards, device) + _cards_chaos(cards, device):
+    for line in (_cards_cli(cards, device) + _cards_chaos(cards, device)
+                 + _cards_arena(cards, device)):
         print(f"cards: {line}", flush=True)
     print(f"cards: total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "cards": cards}))
@@ -5652,6 +6078,8 @@ def _main(torch) -> int:
         timed("adaptive", phase_adaptive)
         timed("pipeline", phase_pipeline)
         timed("contend", phase_contend_axes)
+        timed("arena", phase_arena)
+        timed("push", phase_push)
         _, peer_rows = timed("distributed", phase_distributed)
     finally:
         shutil.rmtree(REPORT_DIR, ignore_errors=True)

@@ -194,8 +194,15 @@ def test_render_textfile_is_byte_identical(severity):
 
 
 def test_push_gauges_wait_for_the_push_plane():
-    with pytest.raises(NotImplementedError, match="3b"):
-        texp.render_textfile([], {}, {}, push={"sent": 1})
+    # the push plane is ported: its gauges ride the health textfile in
+    # the JAX package's lines
+    from tpu_perf.health import exporter as jexp
+
+    push = {"sent": 7, "dropped": 1, "retried": 2, "spooled": 3,
+            "replayed": 4, "queued": 5, "spool_depth": 6, "backoff": 1}
+    ours = texp.render_textfile([], {}, {}, push=push)
+    assert ours == jexp.render_textfile([], {}, {}, push=push)
+    assert "tpu_perf_push_dropped_total 1" in ours
 
 
 def test_health_subcommand_output_is_jaxs(tmp_path, capsys):

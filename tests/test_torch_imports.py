@@ -74,7 +74,17 @@ SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.trace.export", "tpu_perf_torch.faults",
                  "tpu_perf_torch.faults.spec",
                  "tpu_perf_torch.faults.injector",
-                 "tpu_perf_torch.faults.conformance")
+                 "tpu_perf_torch.faults.conformance",
+                 "tpu_perf_torch.push", "tpu_perf_torch.push.plane",
+                 "tpu_perf_torch.push.sinks", "tpu_perf_torch.push.spool",
+                 "tpu_perf_torch.arena", "tpu_perf_torch.arena.spmd",
+                 "tpu_perf_torch.arena.algorithms",
+                 "tpu_perf_torch.arena.hierarchy",
+                 "tpu_perf_torch.arena.valgos",
+                 "tpu_perf_torch.scenarios", "tpu_perf_torch.scenarios.spec",
+                 "tpu_perf_torch.scenarios.vops",
+                 "tpu_perf_torch.scenarios.compose",
+                 "tpu_perf_torch.tools.soak_spikes")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

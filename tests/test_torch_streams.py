@@ -262,18 +262,27 @@ def test_run_contend_refusals(kw, err, match):
 @pytest.mark.parametrize("flags", [
     ["--split", "2"],
     # the axis flags run (tests/test_torch_contend_axes.py); beside them
-    # the shapes still to port stay refused
+    # the split-channel shape, still to port, stays refused
     ["--split", "2", "--victim-axis", "x"],
+    # the arena's --algo and the push plane are ported: these run
     ["--load", "hbm_stream", "--load-axis", "x", "--algo", "ring"],
-    # --synthetic runs (tests/test_torch_chaos.py); the push plane's
-    # flags stay refused
     ["--load", "hbm_stream", "--push-textfile", "push.prom"],
     ["--load", "hbm_stream", "--algo", "ring"],
 ])
-def test_contend_flags_not_yet_ported(flags, capsys):
-    assert cli.main(["contend", "-b", "4K", "--device", "cpu"] + flags) == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "ROADMAP" in err
+def test_contend_flags_not_yet_ported(flags, capsys, tmp_path,
+                                      monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    rc = cli.main(["contend", "-b", "4K", "--device", "cpu", "--csv"]
+                  + flags)
+    out, err = capsys.readouterr()
+    if "--split" in flags:
+        assert rc == 2
+        assert "not yet ported" in err and "ROADMAP" in err
+        return
+    assert rc == 0, err
+    rows = [ln.split(",") for ln in out.splitlines()[1:]]
+    algos = {r[19] for r in rows}
+    assert algos == ({"ring"} if "--algo" in flags else {""})
 
 
 @pytest.mark.parametrize("flags,match", [

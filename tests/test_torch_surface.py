@@ -211,10 +211,12 @@ def test_ops_for_options_matches_jax(kw):
 
 @pytest.mark.parametrize("op", ["seg_allreduce,allreduce", "allgatherv,ring"])
 def test_a_family_naming_an_op_not_yet_ported_is_refused(op):
-    assert jrunner.ops_for_options(jconfig.Options(op=op))
-    with pytest.raises(ValueError, match="unknown op") as e:
-        ops_for_options(Options(op=op))
-    assert "not ported yet" in str(e.value)
+    # the v-ops are ported now: a family naming one is JAX's family, and
+    # only an unknown name is refused
+    assert ops_for_options(Options(op=op)) == \
+        jrunner.ops_for_options(jconfig.Options(op=op))
+    with pytest.raises(ValueError, match="unknown op"):
+        ops_for_options(Options(op=op + ",not_an_op"))
 
 
 def test_finite_family_runs_op_major_in_the_jax_order(tmp_path,

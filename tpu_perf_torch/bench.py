@@ -4,7 +4,8 @@ one-device set).  Prints ONE JSON line::
     {"metric": ..., "value": N, "unit": ..., "vs_peak": N, "runs_valid": N,
      "runs_dropped": N, "card": {...}, "metrics": [{...}, ...],
      "phases": {...}, "adaptive": {...}, "dispatch_overhead": {...},
-     "contention": {...}}
+     "contention": {...}, "push_overhead": {...}, "hier_vs_flat": {...},
+     "scenario_step": {...}, "vopt_vs_ring": {...}}
 
 The top-level fields are the first instrument's; ``metrics`` carries every
 instrument, labelled as the JAX package labels them:
@@ -40,7 +41,13 @@ lanes of the stream engine in waves (``overlapped_us``) and one replay of
 a CUDA graph of every run (``fused_us``).  ``contention`` is one cell of
 the interference matrix: ``allreduce`` at 256 KiB idle against raced
 under an ``hbm_stream`` load, through ``contend``'s own runner, on one
-rank.  Every number is labelled with the card's name and power limit.
+rank.  The JAX package's arena instruments follow, with its keys, in the
+sim world of 8 ranks: ``hier_vs_flat`` (the ``hier`` allreduce on a 2 x 4
+mesh against the native one), ``scenario_step`` (the tp-allreduce-burst
+step against four single allreduces), ``vopt_vs_ring`` (the doubling
+allgatherv against the ring at ratios 2 and 8); and ``push_overhead``,
+the push plane's tee on the record path (host only).  Every number is
+labelled with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -257,6 +264,177 @@ def contention(world: SimWorld, nbytes=CONTEND_NBYTES, runs=CONTEND_RUNS,
     }
 
 
+#: the arena instruments' sim world, sizes, runs and iterations (the JAX
+#: package's sizes and budgets)
+ARENA_RANKS = 8
+HIER_SIZES, HIER_RUNS, HIER_ITERS = (4096, 262144), 8, 4
+SCENARIO_SIZES, SCENARIO_RUNS, SCENARIO_ITERS = (4096, 65536), 8, 2
+VOPT_SIZES, VOPT_RATIOS, VOPT_RUNS, VOPT_ITERS = (4096, 262144), (2, 8), 8, 4
+#: push_overhead: rows written a side
+PUSH_ROWS = 20000
+
+
+def _p50_wall(built, runs: int) -> float:
+    from tpu_perf_torch.timing import time_step
+
+    return percentile(time_step(built.step, built.example_input, runs,
+                                warmup_runs=2).samples, 50)
+
+
+def hier_vs_flat(device, sizes=HIER_SIZES, runs=HIER_RUNS,
+                 iters=HIER_ITERS, n: int = ARENA_RANKS) -> dict:
+    """The hierarchical allreduce (reduce_scatter over ici, allreduce over
+    dcn, all_gather over ici; :mod:`tpu_perf_torch.arena.hierarchy`)
+    against the native one on a 2 x (n/2) sim mesh: per-size p50 walls,
+    flat / hier (> 1: the composition wins) and the modeled slow-axis
+    traffic reduction."""
+    from tpu_perf_torch.arena.hierarchy import dcn_bound_bytes, flat_dcn_bytes
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.parallel import make_mesh
+
+    world = SimWorld(n, device, make_mesh((2, n // 2), ("dcn", "ici"), n=n))
+    pairs = (("dcn", 2), ("ici", n // 2))
+    points = []
+    for nbytes in sizes:
+        flat = build_op("allreduce", world, nbytes, iters)
+        hier = build_op("allreduce", world, nbytes, iters, algo="hier")
+        flat_t, hier_t = _p50_wall(flat, runs), _p50_wall(hier, runs)
+        points.append({
+            "nbytes": nbytes,
+            "flat_us": flat_t * 1e6,
+            "hier_us": hier_t * 1e6,
+            "speedup": flat_t / hier_t if hier_t > 0 else 0.0,
+            "dcn_reduction": (flat_dcn_bytes("allreduce", nbytes, n)
+                              / dcn_bound_bytes("allreduce", nbytes, pairs)),
+        })
+    return {"mesh": f"2x({n // 2})", "algo": hier.algo, "points": points,
+            "speedup_p50": percentile([p["speedup"] for p in points], 50)}
+
+
+def scenario_step(device, sizes=SCENARIO_SIZES, runs=SCENARIO_RUNS,
+                  iters=SCENARIO_ITERS, n: int = ARENA_RANKS) -> dict:
+    """The composition's cost: the tp-allreduce-burst step (four chained
+    allreduces in one step) against four times the single allreduce's
+    step at the same size; ``overhead`` burst / (L x isolated)."""
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.scenarios.compose import build_scenario_op
+    from tpu_perf_torch.scenarios.spec import BUILTIN_SCENARIOS
+
+    world = SimWorld(n, device)
+    spec = BUILTIN_SCENARIOS["tp-allreduce-burst"]
+    layers = spec.phases[0].repeat
+    points = []
+    for nbytes in sizes:
+        burst_t = _p50_wall(build_scenario_op(spec, world, nbytes, iters),
+                            runs)
+        single_t = _p50_wall(build_op("allreduce", world, nbytes, iters),
+                             runs)
+        points.append({
+            "nbytes": nbytes,
+            "burst_us": burst_t * 1e6,
+            "isolated_sum_us": single_t * layers * 1e6,
+            "overhead": (burst_t / (single_t * layers)
+                         if single_t > 0 else 0.0),
+        })
+    return {"scenario": spec.name, "layers": layers, "points": points,
+            "overhead_p50": percentile([p["overhead"] for p in points], 50)}
+
+
+def vopt_vs_ring(device, sizes=VOPT_SIZES, ratios=VOPT_RATIOS,
+                 runs=VOPT_RUNS, iters=VOPT_ITERS,
+                 n: int = ARENA_RANKS) -> dict:
+    """The doubling allgatherv (:mod:`tpu_perf_torch.arena.valgos`)
+    against the per-origin ring at the hot-rank ratios: per-(size, ratio)
+    p50 walls, ring / doubling (> 1: doubling wins), the modeled wire
+    delta and the rounds each takes."""
+    import math
+
+    from tpu_perf_torch.arena.valgos import allgatherv_wire_elems
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.scenarios.vops import v_counts
+
+    world = SimWorld(n, device)
+    points = []
+    for nbytes in sizes:
+        for ratio in ratios:
+            ring_t = _p50_wall(build_op("allgatherv", world, nbytes, iters,
+                                        imbalance=ratio), runs)
+            opt_t = _p50_wall(build_op("allgatherv", world, nbytes, iters,
+                                       imbalance=ratio, algo="doubling"),
+                              runs)
+            counts = v_counts("allgatherv", nbytes, n, 4, ratio)[0]
+            points.append({
+                "nbytes": nbytes,
+                "imbalance": ratio,
+                "ring_us": ring_t * 1e6,
+                "opt_us": opt_t * 1e6,
+                "speedup": ring_t / opt_t if opt_t > 0 else 0.0,
+                "wire_delta": (allgatherv_wire_elems("doubling", counts)
+                               / allgatherv_wire_elems("ring", counts)),
+            })
+    return {"op": "allgatherv", "algo": "doubling", "n_devices": n,
+            "rounds_ring": n - 1, "rounds_opt": math.ceil(math.log2(n)),
+            "points": points,
+            "speedup_p50": percentile([p["speedup"] for p in points], 50)}
+
+
+def push_overhead(n: int = PUSH_ROWS) -> dict:
+    """The push plane's tee on the record path: one row written ``n``
+    times through a RotatingCsvLog three ways, ns a record: no tee, a
+    tee into a plane whose sender is parked (the record path's own
+    cost), and a tee into a running plane with a discarding sink (a
+    saturating writer racing the sender for the GIL)."""
+    import os
+    import tempfile
+
+    from tpu_perf_torch.driver import RotatingCsvLog
+    from tpu_perf_torch.push.plane import PushPlane
+    from tpu_perf_torch.schema import EXT_PREFIX, ResultRow
+
+    row = ResultRow(
+        timestamp="2026-01-01 00:00:00.000", job_id="bench-push",
+        backend="torch", op="ring", nbytes=4096, iters=1, run_id=1,
+        n_devices=8, lat_us=100.0, algbw_gbps=1.0, busbw_gbps=1.0,
+        time_ms=0.1, mode="oneshot")
+
+    class _Discard:
+        def send(self, family, lines):
+            pass
+
+    out = {}
+    with tempfile.TemporaryDirectory() as folder:
+        for side, started in (("off", None), ("tee", False),
+                              ("concurrent", True)):
+            plane = tee = None
+            if started is not None:
+                plane = PushPlane([_Discard()], job_id="bench-push",
+                                  spool_dir=folder, maxlen=n,
+                                  start=started)
+                tee = plane.tee_for(EXT_PREFIX)
+            log = RotatingCsvLog(folder, f"bench-{side}", 0,
+                                 refresh_sec=10**9, tee=tee,
+                                 prefix=EXT_PREFIX)
+            try:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    log.write_row(row)
+                wall = time.perf_counter() - t0
+            finally:
+                log.close()
+                if plane is not None:
+                    plane.close()
+            if started:
+                totals = plane.totals()
+                out["concurrent_dropped"] = totals["dropped"]
+                out["concurrent_sent"] = totals["sent"]
+            out[f"{side}_ns_per_record"] = wall / n * 1e9
+            for f in os.listdir(folder):
+                os.remove(os.path.join(folder, f))
+    out["tee_marginal_ns"] = (out["tee_ns_per_record"]
+                              - out["off_ns_per_record"])
+    return out
+
+
 def main(device: str | None = None) -> dict:
     from tpu_perf_torch.compilepipe import PhaseTimer
 
@@ -300,6 +478,10 @@ def main(device: str | None = None) -> dict:
     payload["metrics"] = metrics
     payload["dispatch_overhead"] = dispatch_overhead(one)
     payload["contention"] = contention(one)
+    payload["push_overhead"] = push_overhead()
+    payload["hier_vs_flat"] = hier_vs_flat(dev)
+    payload["scenario_step"] = scenario_step(dev)
+    payload["vopt_vs_ring"] = vopt_vs_ring(dev)
     phases.stop()
     payload["phases"] = {**phases.snapshot(),
                          "wall_s": round(phases.wall_s, 3)}

@@ -1,7 +1,7 @@
-"""Command-line interface (port of the ``run``, ``monitor``, ``contend``,
-``chaos``, ``chaos verify``, ``health``, ``ingest``, ``report``, ``grid``,
-``ops``, ``chips``, ``selftest`` and ``bench`` subcommands of
-``tpu_perf/cli.py``).
+"""Command-line interface (port of the ``run``, ``monitor``, ``arena``,
+``scenario``, ``contend``, ``chaos``, ``chaos verify``, ``health``,
+``ingest``, ``push replay``, ``report``, ``grid``, ``ops``, ``chips``,
+``selftest`` and ``bench`` subcommands of ``tpu_perf/cli.py``).
 
 Flag letters keep the reference's meanings (mpi_perf.c:273-339) where the
 port has them: ``-i`` iters, ``-b`` buffer size, ``-r`` runs, ``-l`` log
@@ -55,6 +55,12 @@ world, one process a rank (``torchrun``); ``--mesh`` / ``--axes`` and
         -l /tmp/chaos; python -m tpu_perf_torch chaos verify /tmp/chaos
     python -m tpu_perf_torch health /tmp/logs
     python -m tpu_perf_torch report /tmp/chaos --compare-chaos
+    python -m tpu_perf_torch arena --sweep 4K,4M,256M -l /tmp/arena
+    python -m tpu_perf_torch run --op allgatherv --algo all --imbalance 1,8
+    python -m tpu_perf_torch scenario moe-dispatch-combine --imbalance 1,8
+    python -m tpu_perf_torch monitor --op pl_allreduce -b 4K -l /tmp/logs \
+        --push http://127.0.0.1:8080; python -m tpu_perf_torch push replay \
+        /tmp/logs --url http://127.0.0.1:8080
     python -m tpu_perf_torch ops
     python -m tpu_perf_torch chips
     python -m tpu_perf_torch selftest
@@ -74,7 +80,9 @@ from tpu_perf_torch.config import (
 )
 from tpu_perf_torch.extern_launch import DEFAULT_TEMPLATE
 from tpu_perf_torch.schema import HEALTH_PREFIX, RESULT_HEADER
-from tpu_perf_torch.sweep import DEF_BUF_SZ, format_size, parse_size
+from tpu_perf_torch.sweep import (
+    DEF_BUF_SZ, format_size, parse_imbalance, parse_size, parse_skew_spread,
+)
 
 
 class _ZeroOne(argparse.Action):
@@ -162,14 +170,32 @@ def _parse_mesh(args: argparse.Namespace) -> tuple[tuple[int, ...],
 
 def _options_from(args: argparse.Namespace, **overrides) -> Options:
     """The run flags as Options; ``overrides`` win."""
-    if args.push_url or args.push_textfile or args.push_queue:
-        raise NotImplementedError(
-            "the push plane (--push/--push-textfile/--push-queue) is not "
-            "yet ported, see ROADMAP item 3b")
+    if (args.algo_artifact or args.tune_margin is not None
+            or args.tune_max_age is not None):
+        from tpu_perf_torch.runner import _AUTO_REFUSAL
+
+        raise NotImplementedError(_AUTO_REFUSAL)
     mesh_shape, mesh_axes = _parse_mesh(args)
+    # the scenario selection: the `scenario` subcommand's positional or
+    # the shared --scenario flag; either implies op="scenario" when the op
+    # was left at its default (a conflicting --op stays an Options error)
+    scenario = getattr(args, "_scenario", ())
+    if not scenario and args.scenario:
+        scenario = tuple(s.strip() for s in args.scenario.split(",")
+                         if s.strip())
+    op = args.op
+    if scenario and op == "pingpong":
+        op = "scenario"
     kw = dict(
         logfolder=args.logfolder, iters=args.iters, ppn=args.ppn,
-        buff_sz=parse_size(args.size), num_runs=args.runs, op=args.op,
+        buff_sz=parse_size(args.size), num_runs=args.runs, op=op,
+        algo=args.algo, scenario=scenario,
+        skew_spread=(parse_skew_spread(args.skew_spread)
+                     if args.skew_spread else ()),
+        imbalance=(parse_imbalance(args.imbalance)
+                   if args.imbalance else ()),
+        push_url=args.push_url, push_textfile=args.push_textfile,
+        push_queue=args.push_queue,
         uni_dir=args.unidir, nonblocking=args.nonblocking,
         extern_cmd=args.extern_cmd, window=args.window,
         group1_file=args.group1_file, n_group1=args.group1_hosts,
@@ -256,14 +282,21 @@ def _cmd_run(args: argparse.Namespace, *, infinite: bool = False) -> int:
 
 
 def _print_rows(rows) -> None:
-    """The rows as one rectangular CSV table: lane rows (``--streams``)
-    carry the trailing columns up to ``stream``, loaded rows (``contend``)
-    up to ``load``, and every row pads to the header's width."""
+    """The rows as one rectangular CSV table: the header carries the
+    trailing columns up to the widest row's (span, algo, skew, imbalance,
+    the lane of ``--streams``, the load of ``contend``), and every row
+    pads to its width."""
     header = RESULT_HEADER
     if any(r.load for r in rows):
         header += ",span_id,algo,skew_us,imbalance,stream,load"
     elif any(r.stream > 0 for r in rows):
         header += ",span_id,algo,skew_us,imbalance,stream"
+    elif any(r.imbalance > 1 for r in rows):
+        header += ",span_id,algo,skew_us,imbalance"
+    elif any(r.skew_us for r in rows):
+        header += ",span_id,algo,skew_us"
+    elif any(r.algo for r in rows):
+        header += ",span_id,algo"
     elif any(r.span_id for r in rows):
         header += ",span_id"
     width = header.count(",") + 1
@@ -271,6 +304,89 @@ def _print_rows(rows) -> None:
     for row in rows:
         parts = row.to_csv().split(",")
         print(",".join(parts + [""] * (width - len(parts))))
+
+
+def _cmd_scenario(args: argparse.Namespace) -> int:
+    """A model-step scenario sweep: the run path with op='scenario' and
+    the selection riding the algo coordinate (one label a scenario), so
+    the daemon, --ci-rel, --precompile, chaos and skew all apply."""
+    if args.list_scenarios:
+        from tpu_perf_torch.scenarios.spec import BUILTIN_SCENARIOS
+
+        for name, spec in sorted(BUILTIN_SCENARIOS.items()):
+            phases = " -> ".join(p.label for p in spec.phases)
+            print(f"{name}: {phases}\n    {spec.summary}")
+        return 0
+    flag = args.scenario
+    if args.names and flag and flag != args.names:
+        print(f"tpu-perf-torch: error: positional scenarios {args.names!r} "
+              f"and --scenario {flag!r} conflict (name the selection "
+              "once)", file=sys.stderr)
+        return 2
+    names = args.names or flag
+    if not names:
+        print("tpu-perf-torch: error: name at least one scenario (or "
+              "--list for the catalog)", file=sys.stderr)
+        return 2
+    if args.op != "pingpong":
+        print(f"tpu-perf-torch: error: --op {args.op!r} conflicts with a "
+              "scenario selection (scenarios run under op='scenario'; "
+              "drop --op, or use `tpu-perf-torch run` for plain kernels)",
+              file=sys.stderr)
+        return 2
+    args.op = "scenario"
+    args._scenario = tuple(s.strip() for s in names.split(",")
+                           if s.strip())
+    return _cmd_run(args, infinite=args.runs == -1)
+
+
+def _cmd_push_replay(args: argparse.Namespace) -> int:
+    """Deliver every live dead-letter spool in the folder to a sink,
+    deleting each file only after its batch is accepted.  Quarantined
+    spools (``.spool.quarantined``, the dead-letter default) need
+    ``ingest --requeue`` first."""
+    import os
+
+    from tpu_perf_torch.ingest.pipeline import list_quarantined
+    from tpu_perf_torch.push import (
+        HttpSink, live_spool_files, parse_spool_family, read_spool,
+    )
+
+    files = live_spool_files(args.folder)
+    if not files:
+        n_q = sum(1 for p in list_quarantined(args.folder)
+                  if parse_spool_family(p) is not None)
+        print(f"tpu-perf-torch: no live spool files in {args.folder}"
+              + (f" ({n_q} quarantined — requeue with `tpu-perf-torch "
+                 f"ingest --folder {args.folder} --requeue` first)" if n_q
+                 else ""), file=sys.stderr)
+        return 0
+    sink = HttpSink(args.url, timeout=args.timeout)
+    replayed = failed = 0
+    for path, family in files:
+        try:
+            lines = read_spool(path)
+        except OSError as e:
+            print(f"tpu-perf-torch: cannot read {os.path.basename(path)}: "
+                  f"{e}", file=sys.stderr)
+            failed += 1
+            continue
+        if lines:
+            try:
+                sink.send(family, lines)
+            except Exception as e:  # noqa: BLE001 — the file is kept
+                print(f"tpu-perf-torch: replay FAILED for "
+                      f"{os.path.basename(path)}: {e} (file kept)",
+                      file=sys.stderr)
+                failed += 1
+                continue
+        os.remove(path)
+        replayed += 1
+        print(f"tpu-perf-torch: replayed {len(lines)} {family} record(s) "
+              f"from {os.path.basename(path)}", file=sys.stderr)
+    print(f"tpu-perf-torch: {replayed} spool file(s) replayed, {failed} "
+          f"failed", file=sys.stderr)
+    return 1 if failed else 0
 
 
 def _cmd_contend(args: argparse.Namespace) -> int:
@@ -291,10 +407,6 @@ def _cmd_contend(args: argparse.Namespace) -> int:
         print(f"tpu-perf-torch: error: --split needs K >= 2 lanes, got "
               f"{args.split}", file=sys.stderr)
         return 2
-    if args.algo != "native":
-        raise NotImplementedError(
-            f"--algo {args.algo} needs the arena: not yet ported, see "
-            "ROADMAP")
     if args.streams != 1:
         # contend's lane count comes from the load shape (2 for a race)
         print("tpu-perf-torch: error: --streams applies to run/monitor "
@@ -681,9 +793,32 @@ def _cmd_report(args: argparse.Namespace) -> int:
         if entries:
             print("\n### Harness phases\n")
             print(report.phases_to_markdown(entries))
+        # the push plane's counters from the same sidecars, when a --push
+        # job wrote them
+        if any(isinstance(e.get("push"), dict) for e in entries):
+            print("\n### Push plane\n")
+            print(report.push_to_markdown(entries))
         if adaptive:
             print("\n### Adaptive savings\n")
             print(report.adaptive_to_markdown(adaptive))
+        # the arena's, the hierarchy's, the arrival spread's, the
+        # scenarios' and the imbalance axis' views, each only when its
+        # rows exist (the JAX package's sections, in its order)
+        for title, table, render in (
+                ("Arena crossover", report.compare_arena,
+                 report.arena_to_markdown),
+                ("Hierarchical DCN traffic model", report.hier_traffic,
+                 report.hier_traffic_to_markdown),
+                ("Straggler cost", report.straggler_cost,
+                 report.straggler_to_markdown),
+                ("Scenario steps", report.scenario_steps,
+                 report.scenario_to_markdown),
+                ("Imbalance cost", report.imbalance_cost,
+                 report.imbalance_to_markdown)):
+            got = table(points)
+            if got:
+                print(f"\n### {title}\n")
+                print(render(got))
         # a --spans soak's health events beside what the harness was
         # doing when each fired
         _anomaly_context(args.target)
@@ -864,8 +999,50 @@ def _add_run_flags(p: argparse.ArgumentParser) -> None:
                         "round-robins over every (op, size) point; -u / "
                         "-x pick the kernel when it is the default "
                         "pingpong")
+    p.add_argument("--algo", default="native",
+                   help="collective decomposition(s) to run "
+                        "(tpu_perf_torch.arena): native (the library call, "
+                        "default), one of ring/rhd/bruck/binomial (one "
+                        "axis), hier/hier-<inner> (the composed "
+                        "slow-axis-minimal algorithms on a 2-axis dcn,ici "
+                        "mesh, keyed per mesh-axis tuple), a v-schedule "
+                        "of the v-ops (sortring, doubling, vhier, ring, "
+                        "or a flat allreduce inner for seg_allreduce), a "
+                        "comma family, or 'all': native and every "
+                        "registered algorithm the op and world allow, "
+                        "raced head to head (the `arena` default).  "
+                        "'auto' is not ported yet (ROADMAP.md section 1 "
+                        "item 3)")
+    p.add_argument("--algo-artifact", default=None, metavar="PATH",
+                   help="--algo auto's selection artifact (not ported "
+                        "yet: ROADMAP.md section 1 item 3)")
+    p.add_argument("--tune-margin", type=float, default=None,
+                   metavar="RATIO",
+                   help="--algo auto's confidence floor (not ported yet)")
+    p.add_argument("--tune-max-age", type=float, default=None,
+                   metavar="SEC",
+                   help="--algo auto's staleness bound (not ported yet)")
     p.add_argument("--sweep", default=None,
                    help="size sweep, e.g. 8:1G or 8,64K,4M")
+    p.add_argument("--skew-spread", default=None, metavar="LIST",
+                   help="arrival-spread sweep axis (e.g. 0,250us,1ms; bare "
+                        "numbers are us): every point is measured once a "
+                        "spread, each run's entry staggered, the last "
+                        "rank exactly the spread late, the others at "
+                        "seeded arrivals in [0, spread).  Rows carry it "
+                        "in skew_us; `report` renders the straggler-cost "
+                        "table (include 0).  Not on a finite --fence "
+                        "fused or trace sweep")
+    p.add_argument("--scenario", default=None, metavar="NAMES",
+                   help="sweep model-step scenarios (built-in names or "
+                        "spec.json paths; implies --op scenario): each "
+                        "scenario's phases run as one step a point")
+    p.add_argument("--imbalance", default=None, metavar="LIST",
+                   help="uneven-payload sweep axis (integer ratios, e.g. "
+                        "1,2,8): the v-ops and v-phase scenarios are "
+                        "built once a ratio, the last rank carrying ratio "
+                        "times the base chunk.  Rows carry it; `report` "
+                        "renders the imbalance-cost table (include 1)")
     p.add_argument("--fence", choices=FENCE_MODES, default="block",
                    help="timing fence (tpu_perf_torch.timing); auto picks "
                         "trace (device clock) on a card and slope on the "
@@ -960,11 +1137,20 @@ def _add_run_flags(p: argparse.ArgumentParser) -> None:
                         "ingest/inject/heartbeat/error spans are always "
                         "kept (default 1 = everything)")
     p.add_argument("--push", default=None, metavar="URL", dest="push_url",
-                   help="live telemetry push plane (not yet ported)")
+                   help="live telemetry push plane: tee every record "
+                        "family (rows, health events, spans; never the "
+                        "chaos ledger) after its durable write into a "
+                        "bounded queue a background thread POSTs as "
+                        "NDJSON to URL/v1/<Table>, with timeout, retry "
+                        "and jittered backoff, a dead-letter spool beside "
+                        "the logs (`ingest --requeue`, `push replay`) and "
+                        "overflow drops counted, never a measurement stall")
     p.add_argument("--push-textfile", default=None, metavar="PATH",
-                   help="the push plane's textfile (not yet ported)")
+                   help="live Prometheus textfile of the push plane's "
+                        "meters, refreshed every sender cycle (rank 0)")
     p.add_argument("--push-queue", type=int, default=0, metavar="N",
-                   help="the push plane's queue bound (not yet ported)")
+                   help="the push plane's tee-queue bound in records "
+                        "(default 10000); overflow drops are counted")
     p.add_argument("--seed", type=int, default=0,
                    help="the chaos injector's seed: same seed + spec => "
                         "the same perturbations and chaos-*.log ledger")
@@ -993,6 +1179,34 @@ def build_parser() -> argparse.ArgumentParser:
     p_mon = sub.add_parser("monitor", help="infinite monitoring daemon (-r -1)")
     _add_run_flags(p_mon)  # --max-runs is the daemon's safety valve
     p_mon.set_defaults(func=lambda a: _cmd_run(a, infinite=True))
+
+    p_arena = sub.add_parser(
+        "arena",
+        help="collective-algorithm arena: hand-built allreduce / "
+             "all_gather / reduce_scatter / all_to_all decompositions "
+             "(ring, recursive halving/doubling, Bruck, binomial; on a "
+             "2-axis dcn,ici mesh the hier* compositions) raced against "
+             "the native call; `report` renders the crossover table")
+    _add_run_flags(p_arena)
+    p_arena.set_defaults(func=_cmd_run, op="allreduce,all_gather,"
+                         "reduce_scatter,all_to_all", algo="all")
+
+    p_scn = sub.add_parser(
+        "scenario",
+        help="model-step scenario sweep (tpu_perf_torch.scenarios): a "
+             "named phase sequence (TP allreduce burst, MoE dispatch / "
+             "combine, pipeline chain, or a spec.json) run as one step a "
+             "point; --imbalance sweeps the v-phases' payload ratio "
+             "(--list for the catalog)")
+    p_scn.add_argument("names", nargs="?", default=None,
+                       metavar="NAME[,NAME|SPEC.json]",
+                       help="scenarios to sweep: built-in names and/or "
+                            "JSON spec paths, comma-separated")
+    p_scn.add_argument("--list", action="store_true",
+                       dest="list_scenarios",
+                       help="list the built-in scenario catalog and exit")
+    _add_run_flags(p_scn)
+    p_scn.set_defaults(func=_cmd_scenario)
 
     p_chaos = sub.add_parser(
         "chaos",
@@ -1145,7 +1359,8 @@ def build_parser() -> argparse.ArgumentParser:
                       help="background load: a compute kernel (mxu_gemm, "
                            "hbm_stream) or any op from `ops`")
     p_ct.add_argument("--split", type=int, default=0, metavar="K",
-                      help="split-channel lanes (not yet ported)")
+                      help="split-channel lanes (not ported yet: "
+                           "ROADMAP.md section 1 item 3)")
     p_ct.add_argument("--victim-axis", default=None, metavar="AXIS",
                       help="mesh axis the victim runs along (default: "
                            "every axis)")
@@ -1160,12 +1375,28 @@ def build_parser() -> argparse.ArgumentParser:
                            "base latency, the loaded ones the idle series "
                            "times a modeled contention factor (needs "
                            "--mesh for the rank count)")
-    p_ct.add_argument("--algo", default="native",
-                      help="the victim's decomposition (only native is "
-                           "ported)")
     # the default victim: the bandwidth-bound collective the interference
     # question is usually asked about
     p_ct.set_defaults(func=_cmd_contend, op="allreduce")
+
+    p_push = sub.add_parser(
+        "push",
+        help="push plane tooling (the plane rides `run --push URL`): "
+             "`push replay` delivers dead-letter spool files to a sink")
+    push_sub = p_push.add_subparsers(dest="push_cmd", required=True)
+    p_pr = push_sub.add_parser(
+        "replay",
+        help="POST every live spool file's records to the sink, deleting "
+             "each file only after its batch is accepted (quarantined "
+             "spools need `ingest --requeue` first)")
+    p_pr.add_argument("folder", help="the log folder holding push-*.spool "
+                                     "dead letters")
+    p_pr.add_argument("--url", required=True, metavar="URL",
+                      help="push sink base URL (records go to "
+                           "URL/v1/<Table>)")
+    p_pr.add_argument("--timeout", type=float, default=5.0, metavar="SEC",
+                      help="per-request timeout (default 5 s)")
+    p_pr.set_defaults(func=_cmd_push_replay)
 
     p_ops = sub.add_parser("ops", help="list measurement ops")
     p_ops.set_defaults(func=_cmd_ops)

@@ -80,7 +80,26 @@ class Options:
                                       # unchecked; mpi_perf.c:287-289)
     backend: str = "torch"            # BACKENDS
     heartbeat_format: str = "human"   # HEARTBEAT_FORMATS
+    algo: str = "native"              # --algo: the decomposition(s) to run
+                                      # (tpu_perf_torch.arena): "native",
+                                      # one algorithm, a comma family, or
+                                      # "all" (native and every registered
+                                      # algorithm the op and world allow)
     sweep: str | None = None          # e.g. "8:1G"; None = single buff_sz point
+    skew_spread: tuple[int, ...] = () # --skew-spread: arrival spreads in
+                                      # us; every (op, algo, size) point is
+                                      # measured once a spread, each run's
+                                      # entry staggered (the last rank
+                                      # exactly the spread late, the rest
+                                      # seeded in [0, spread)); rows carry
+                                      # it in skew_us; () = synchronized
+    imbalance: tuple[int, ...] = ()   # --imbalance: max/min per-rank
+                                      # payload ratios of the v-ops and
+                                      # scenarios (a build coordinate);
+                                      # () = balanced only
+    scenario: tuple = ()              # `scenario`: the selected scenarios
+                                      # (built-in names or spec.json
+                                      # paths), resolved to ScenarioSpec
     dtype: str = "float32"
     log_refresh_sec: int = LOG_REFRESH_TIME_SEC
     stats_every: int = STATS_EVERY_RUNS
@@ -155,6 +174,15 @@ class Options:
     synthetic_s: float | None = None  # --synthetic: a seeded series around
                                       # this latency (s) replaces every
                                       # measured sample
+    # --- the live telemetry push plane (tpu_perf_torch.push) ---
+    push_url: str | None = None       # --push: NDJSON HTTP base URL; every
+                                      # family but the chaos ledger teed
+                                      # into a bounded queue a background
+                                      # thread sends to <url>/v1/<Table>
+    push_textfile: str | None = None  # --push-textfile: the plane's live
+                                      # Prometheus textfile (rank 0)
+    push_queue: int = 0               # --push-queue: the tee queue's bound
+                                      # in records (0: push.DEFAULT_QUEUE)
 
     def __post_init__(self) -> None:
         if self.iters <= 0:
@@ -188,6 +216,45 @@ class Options:
             "exchange", "ppermute",
         ):
             raise ValueError("window > 1 requires the windowed kernel (-x or op=exchange)")
+        if not self.algo:
+            raise ValueError("algo must not be empty (use 'native')")
+        if self.algo == "auto":
+            from tpu_perf_torch.runner import _AUTO_REFUSAL
+
+            raise NotImplementedError(_AUTO_REFUSAL)
+        if self.algo != "native":
+            # the arena's decompositions are torch programs: an --algo on
+            # the C baseline would label rows with an algorithm that
+            # never ran
+            if self.backend != "torch":
+                raise ValueError(
+                    f"algo={self.algo!r} applies to the torch backend "
+                    f"(the arena races library decompositions), got "
+                    f"backend={self.backend!r}")
+            if self.extern_cmd:
+                raise ValueError("extern mode runs no kernel; --algo "
+                                 "does not apply")
+            if self.window > 1:
+                raise ValueError("window does not apply to arena "
+                                 "algorithms")
+        if self.push_queue < 0:
+            raise ValueError(
+                f"push_queue must be >= 0 (0 = default), got "
+                f"{self.push_queue}")
+        if self.push_queue and not self.push_url:
+            # a knob nothing consults is loud: a --push-textfile-only
+            # plane tees nothing, so its queue is never used
+            raise ValueError(
+                "push_queue sizes the push plane's tee queue and needs "
+                "--push URL to enable delivery (a --push-textfile-only "
+                "plane tees no records)")
+        if (self.push_url or self.push_textfile) and self.backend != "torch":
+            # the C backend's driver builds no plane: an inert --push
+            # would read as telemetry flowing
+            raise ValueError(
+                "the push plane (--push/--push-textfile) rides the torch "
+                f"driver's record plane; backend={self.backend!r} has no "
+                "tee boundary")
         if self.heartbeat_format not in HEARTBEAT_FORMATS:
             raise ValueError(
                 "heartbeat_format must be 'human' or 'json', "
@@ -336,6 +403,56 @@ class Options:
                 raise ValueError(
                     "contention runs (--load) are finite measurements; "
                     "daemon mode does not race a background load")
+        if any(s < 0 for s in self.skew_spread):
+            raise ValueError(
+                f"skew spread values must be >= 0 us, got "
+                f"{self.skew_spread}")
+        if any(int(r) != r or r < 1 for r in self.imbalance):
+            raise ValueError(
+                f"imbalance ratios must be integers >= 1 (max/min "
+                f"per-rank payload), got {self.imbalance}")
+        if self.scenario:
+            # names and paths resolved once, here (replace() re-runs this
+            # on the resolved specs, which pass through)
+            from tpu_perf_torch.scenarios.spec import resolve_scenarios
+
+            self.scenario = resolve_scenarios(self.scenario)
+            if self.op != "scenario":
+                raise ValueError(
+                    "a scenario selection runs under op='scenario' (the "
+                    "`tpu-perf-torch scenario` subcommand sets it); got "
+                    f"op={self.op!r}")
+            if self.backend != "torch":
+                raise ValueError(
+                    "scenarios compose torch phases; "
+                    f"backend={self.backend!r} has no composition path")
+            if self.extern_cmd:
+                raise ValueError(
+                    "extern mode runs no kernel; scenarios do not apply")
+            if self.window > 1:
+                raise ValueError("window does not apply to scenarios")
+        elif self.op == "scenario":
+            raise ValueError(
+                "op='scenario' needs a scenario selection (use "
+                "`tpu-perf-torch scenario NAME` or a spec.json path)")
+        if any(r > 1 for r in self.imbalance):
+            from tpu_perf_torch.scenarios.vops import IMBALANCE_OPS
+
+            capable = set(IMBALANCE_OPS) | {"scenario"}
+            ops = [o.strip() for o in self.op.split(",") if o.strip()]
+            bad = [o for o in ops if o not in capable]
+            if bad:
+                raise ValueError(
+                    f"--imbalance applies to the v-variant ops "
+                    f"{IMBALANCE_OPS} and to scenarios; op(s) {bad} "
+                    f"have no uneven-payload schedule")
+            if self.scenario and not any(
+                    sc.uses_imbalance for sc in self.scenario):
+                raise ValueError(
+                    f"none of the selected scenarios "
+                    f"({[sc.name for sc in self.scenario]}) has a "
+                    f"v-variant phase; the imbalance axis would decorate "
+                    f"rows while changing nothing")
         if isinstance(self.faults, str):
             # a spec path is parsed once, here (dataclasses.replace runs
             # this again, on the parsed list)
@@ -353,18 +470,18 @@ class Options:
             # between the graph's events of every rank that waits
             if self.fence == "fused" and not self.infinite:
                 raise ValueError(
-                    "arrival skew (skew faults) cannot run on a finite "
-                    "--fence fused sweep: a point's whole run budget is "
-                    "one graph replay, so per-run entry stagger is "
-                    "unimplementable there (a fused daemon replays one "
-                    "run a visit and supports skew)")
+                    "arrival skew (--skew-spread / skew faults) cannot "
+                    "run on a finite --fence fused sweep: a point's "
+                    "whole run budget is one graph replay, so per-run "
+                    "entry stagger is unimplementable there (a fused "
+                    "daemon replays one run a visit and supports skew)")
             if self.fence == "trace" and not self.infinite:
                 raise ValueError(
-                    "arrival skew (skew faults) cannot run under the "
-                    "finite trace fence: one batched capture covers the "
-                    "point's whole budget, so per-run entry stagger is "
-                    "unimplementable there (daemon-mode trace captures "
-                    "per run and supports skew)")
+                    "arrival skew (--skew-spread / skew faults) cannot "
+                    "run under the finite trace fence: one batched "
+                    "capture covers the point's whole budget, so per-run "
+                    "entry stagger is unimplementable there (daemon-mode "
+                    "trace captures per run and supports skew)")
             if self.backend != "torch":
                 raise ValueError(
                     "arrival skew staggers the in-process torch dispatch; "
@@ -394,9 +511,10 @@ class Options:
             raise ValueError("uni_dir and nonblocking are mutually exclusive")
 
     def _wants_skew(self) -> bool:
-        """True when the schedule holds a ``skew`` fault (the
-        ``--skew-spread`` axis waits for the arena and scenarios:
-        ROADMAP)."""
+        """True when the job staggers collective entry: a non-zero
+        ``--skew-spread`` value, or a ``skew`` fault in the schedule."""
+        if any(self.skew_spread):
+            return True
         return any(getattr(f, "kind", None) == "skew"
                    for f in self.faults or ())
 

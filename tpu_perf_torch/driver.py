@@ -62,7 +62,11 @@ rotating CSV logs (port of ``tpu_perf/driver.py``).
   fail the ingest hook, or corrupt the selftest's read-back output, and
   the injections go to the ``chaos-*.log`` ledger.
 
-The push plane of the JAX driver is not ported yet (ROADMAP item 3b).
+* ``--push URL`` / ``--push-textfile PATH`` tee every record family but
+  the chaos ledger, after its durable write, into the push plane
+  (:mod:`tpu_perf_torch.push`): a bounded queue that a background thread
+  sends as NDJSON to ``URL/v1/<Table>``, spooling what it cannot deliver;
+  its counters ride the heartbeat, the phase sidecar and the exporter.
 """
 
 from __future__ import annotations
@@ -83,14 +87,15 @@ from tpu_perf_torch.compilepipe import (
 from tpu_perf_torch.config import Options
 from tpu_perf_torch.metrics import summarize
 from tpu_perf_torch.ops.collectives import BuiltOp
+from tpu_perf_torch.push.plane import NULL_PUSHER
 from tpu_perf_torch.runner import (
-    SweepPointResult, build_point_pair, fused_plan_for, max_over_ranks,
-    ops_for_options, point_controller, run_point_fused, sizes_for,
-    without_p50, world_for,
+    SweepPointResult, algos_for_options, build_point_pair, fused_plan_for,
+    max_over_ranks, ops_for_options, point_controller, run_point_fused,
+    sizes_for, without_p50, world_for,
 )
 from tpu_perf_torch.schema import (
     CHAOS_PREFIX, EXT_PREFIX, HEALTH_PREFIX, LEGACY_PREFIX, SPANS_PREFIX,
-    LegacyRow, ResultRow, timestamp_now, window_index,
+    LegacyRow, ResultRow, decorate_op, timestamp_now, window_index,
 )
 from tpu_perf_torch.spans import NULL_TRACER, SpanTracer
 from tpu_perf_torch.topology import validate_groups
@@ -135,7 +140,8 @@ class RotatingCsvLog:
                  refresh_sec: int, clock: Callable[[], float] = time.time,
                  prefix: str = LEGACY_PREFIX,
                  on_rotate: Callable[[], None] | None = None,
-                 lazy: bool = False):
+                 lazy: bool = False,
+                 tee: Callable[[str], None] | None = None):
         self.folder = folder
         self.uuid = uuid
         self.rank = rank
@@ -144,6 +150,10 @@ class RotatingCsvLog:
         self.prefix = prefix
         self.on_rotate = on_rotate
         self.lazy = lazy
+        #: the push plane's per-family tee (--push): each written line is
+        #: also handed here, after the durable write; None (always for the
+        #: chaos ledger) leaves the write path as it was
+        self.tee = tee
         self.hook_failures = 0
         self._fh = None
         self._opened_at = None
@@ -211,11 +221,27 @@ class RotatingCsvLog:
     def write_row(self, row) -> None:
         if self._fh is None:
             self._open()
-        self._fh.write(row.to_csv() + "\n")
+        line = row.to_csv()
+        self._fh.write(line + "\n")
         self._fh.flush()
+        if self.tee is not None:
+            # the push plane's tee, after the durable write: an enqueue
+            self.tee(line)
 
     def close(self) -> None:
         self._close_current()
+
+
+def _op_label(built, skew_us: int = 0) -> str:
+    """The op name with the arena decomposition, the arrival spread and
+    the payload imbalance folded in (``allreduce[ring]@500us``,
+    ``allgatherv%8``, ``scenario[moe-dispatch-combine]%8``): what the
+    health baselines, the drop counts and the heartbeat's points key on,
+    so one daemon racing several algorithms, spreads or ratios never
+    blends their latency streams.  The injector and the rows keep the raw
+    op name; rows carry the coordinates in their own columns."""
+    return decorate_op(built.name, getattr(built, "algo", "native"),
+                       skew_us, getattr(built, "imbalance", 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,6 +320,26 @@ class Driver:
                 retain=not opts.infinite,
                 perf_ns=lambda: int(perf_clock() * 1e9),
                 sample=opts.spans_sample)
+        # the push plane (--push / --push-textfile): every family but the
+        # chaos ledger teed at its write boundary into a bounded queue a
+        # background thread drains; off, the inert NULL_PUSHER (no thread,
+        # no clock reads)
+        self.pusher = NULL_PUSHER
+        if opts.push_url or opts.push_textfile:
+            from tpu_perf_torch.push import plane_from_options
+
+            self.pusher = plane_from_options(
+                opts, rank=self.rank, tracer=self.tracer, err=self.err)
+            if opts.push_url and not opts.logfolder:
+                print("[tpu-perf-torch push] no logfolder: the dead-letter "
+                      "spool is disabled — batches that exhaust their "
+                      "retries are dropped (counted in the gauges)",
+                      file=self.err)
+            span_log = getattr(self.tracer, "log", None)
+            if span_log is not None:
+                # the plane's own push spans need the tracer: the tee
+                # attaches after both exist
+                span_log.tee = self.pusher.tee_for(SPANS_PREFIX)
         # the fault injector (chaos: a schedule, or --synthetic alone for
         # the fault-free soak), its ledger the chaos-*.log family
         self.injector = None
@@ -333,6 +379,15 @@ class Driver:
                     "real timing cannot model a phantom straggler, so "
                     "those specs could never fire — use --synthetic, "
                     "or run on enough ranks to seat the named rank")
+        if any(opts.skew_spread) and self.n_hosts == 1 and (
+                self.injector is None or not self.injector.synthetic):
+            # the arrival-spread axis in one process with real timing: the
+            # stagger is real, but no peer process waits for it
+            print("[tpu-perf-torch] arrival skew on a single-process job: "
+                  "the entry stagger is real but no peer process exists "
+                  "to wait for it, so measured samples carry no straggler "
+                  "cost — use --synthetic for the modeled cost, or run "
+                  "multi-process (--distributed)", file=self.err)
         # the ingest hook: the chaos wrapper inside (hook_fail faults
         # raise through it, even with no real ingest configured), the
         # tracer outermost (an injected failure is an error span)
@@ -348,11 +403,12 @@ class Driver:
             self.log = RotatingCsvLog(
                 opts.logfolder, opts.uuid, self.rank,
                 refresh_sec=opts.log_refresh_sec, clock=clock,
-                prefix=LEGACY_PREFIX, on_rotate=hook)
+                prefix=LEGACY_PREFIX, on_rotate=hook,
+                tee=self.pusher.tee_for(LEGACY_PREFIX))
             self.ext_log = RotatingCsvLog(
                 opts.logfolder, opts.uuid, self.rank,
                 refresh_sec=opts.log_refresh_sec, clock=clock,
-                prefix=EXT_PREFIX)
+                prefix=EXT_PREFIX, tee=self.pusher.tee_for(EXT_PREFIX))
         if opts.profile_dir and opts.infinite:
             print("[tpu-perf-torch] --profile-dir is ignored in daemon mode "
                   "(a trace kept per visit would grow without bound); "
@@ -401,7 +457,8 @@ class Driver:
                 event_log = RotatingCsvLog(
                     opts.logfolder, opts.uuid, self.rank,
                     refresh_sec=opts.log_refresh_sec, clock=clock,
-                    prefix=HEALTH_PREFIX, lazy=True)
+                    prefix=HEALTH_PREFIX, lazy=True,
+                    tee=self.pusher.tee_for(HEALTH_PREFIX))
             self.health = HealthMonitor(
                 HealthConfig(threshold=opts.health_threshold,
                              warmup=opts.health_warmup),
@@ -413,7 +470,8 @@ class Driver:
                     dict(self.adaptive_totals,
                          last_ci_rel=self._adaptive_last_ci)
                     if self._adaptive_cfg is not None else None),
-                push_source=None)
+                push_source=lambda: (self.pusher.totals()
+                                     if self.pusher.enabled else None))
         # the fused fence's chunk plan, decided once for the job so every
         # rank of a world walks the same dispatches
         self._fused_plan: tuple[int, ...] | None = None
@@ -535,8 +593,7 @@ class Driver:
             raise ValueError(
                 "load is not valid on the run/monitor path; background "
                 "load is raced by `tpu-perf-torch contend`")
-        plan = [(op, nbytes) for op in ops_for_options(self.opts)
-                for nbytes in sizes_for(self.opts, op)]
+        plan = self._plan()
         streams = self.opts.streams
         if streams > 1 and self.injector is not None:
             # the ledger's byte-identity is defined over the serial
@@ -552,7 +609,8 @@ class Driver:
             # one worker builds the host half of the next `precompile`
             # points while this thread measures
             pipeline = CompilePipeline(
-                prepare, [self._spec(op, nbytes) for op, nbytes in plan],
+                prepare, [self._spec(op, nbytes, algo, imb)
+                          for op, algo, nbytes, imb in _builds(plan)],
                 depth=self.opts.precompile, phases=self.phases,
                 tracer=self.tracer, err=self.err)
         self._pipeline = pipeline
@@ -570,8 +628,8 @@ class Driver:
                     elif streams > 1:
                         self._run_overlapped(plan, streams)
                     else:
-                        for op, nbytes in plan:
-                            self._run_finite(op, nbytes)
+                        for build, skews in _builds(plan).items():
+                            self._run_finite(*build, skews)
             completed = True
         finally:
             if pipeline is not None:
@@ -594,6 +652,9 @@ class Driver:
                               f"selftest failed to run: {e}", file=self.err,
                               flush=True)
                 self.injector.close()
+            # after every record producer closed (their last writes tee),
+            # before the tracer closes (the final flush emits push spans)
+            self.pusher.close()
             self.tracer.close()
             self.phases.stop()
             self._write_phases()
@@ -619,23 +680,67 @@ class Driver:
         print("[tpu-perf-torch chaos] corrupt-payload selftest:\n"
               + format_results(results), file=self.err, flush=True)
 
-    def _spec(self, op: str, nbytes: int) -> CompileSpec:
+    def _plan(self) -> list[tuple[str, str, int, int, int]]:
+        """The job's points as ``(op, algo, nbytes, imbalance, skew_us)``,
+        op-major: each op's decompositions (``--algo``), each one's sizes,
+        each size's imbalance ratios (a build coordinate), each ratio's
+        arrival spreads (``--skew-spread``, the innermost: a skewed point
+        runs the synchronized point's build)."""
+        n_coll = self.world.n
+        mesh_axes = self._collective_mesh_axes()
+        skews = tuple(self.opts.skew_spread) or (0,)
+        ratios = tuple(self.opts.imbalance) or (1,)
+        plan = []
+        for op in ops_for_options(self.opts):
+            for algo in algos_for_options(self.opts, op, n_coll,
+                                          err=self.err, mesh_axes=mesh_axes):
+                point_ratios = ratios
+                if op == "scenario" and any(r > 1 for r in ratios):
+                    from tpu_perf_torch.scenarios.compose import (
+                        spec_for_label,
+                    )
+
+                    spec = spec_for_label(self.opts.scenario, algo)
+                    if not spec.uses_imbalance:
+                        print(f"[tpu-perf-torch] scenario {spec.name} has "
+                              f"no v-variant phase: measuring the balanced "
+                              f"point only (the imbalance axis applies to "
+                              f"its v-variant peers)", file=self.err)
+                        point_ratios = (1,)
+                for nbytes in sizes_for(self.opts, op):
+                    for imb in point_ratios:
+                        for skew_us in skews:
+                            plan.append((op, algo, nbytes, imb, skew_us))
+        return plan
+
+    def _collective_mesh_axes(self) -> tuple[tuple[str, int], ...]:
+        """The collective mesh-axis tuple as (name, size) pairs: the
+        hierarchical algorithms' coordinate."""
+        mesh = self.world.mesh
+        if mesh is None:
+            return (("x", self.world.n),)
+        return tuple((a, mesh.axis_size(a)) for a in mesh.axis_names)
+
+    def _spec(self, op: str, nbytes: int, algo: str = "native",
+              imbalance: int = 1) -> CompileSpec:
         """A point's build identity, the pipeline's key."""
         kind = "dist" if is_dist(self.world) else "sim"
         return CompileSpec.make(
             op, nbytes, self.opts.iters, dtype=self.opts.dtype,
             window=self.opts.window, fused=self._fused_plan or (),
+            algo=algo, imbalance=imbalance,
             world=f"{kind}/{self.world.n}/{self.world.device.type}")
 
-    def _point(self, op: str, nbytes: int, world=None):
+    def _point(self, op: str, nbytes: int, world=None, algo: str = "native",
+               imbalance: int = 1):
         """One ready-to-warm point: its host half from the pipeline when
         one runs (the wait for it is not compile work: the worker charged
         its build), then the build on this thread, charged to compile."""
         if self._pipeline is not None:
-            self._pipeline.get(self._spec(op, nbytes))
+            self._pipeline.get(self._spec(op, nbytes, algo, imbalance))
         with self.phases.phase("compile"), \
                 self.tracer.span("build", op=op, nbytes=nbytes):
-            return self._build(op, nbytes, world)
+            return self._build(op, nbytes, world, algo, imbalance)
 
     def _tune_precompile(self) -> None:
         """--precompile auto: fold the cumulative phase ratio into the
@@ -686,6 +791,9 @@ class Driver:
         if self.stream_totals["waves"]:
             data["streams"] = {k: (round(v, 6) if isinstance(v, float) else v)
                                for k, v in self.stream_totals.items()}
+        if self.pusher.enabled:
+            # written after pusher.close(): the job's final counters
+            data["push"] = self.pusher.totals()
         try:
             os.makedirs(self.opts.logfolder, exist_ok=True)
             tmp = path + ".tmp"
@@ -720,14 +828,16 @@ class Driver:
                   f"(ci_rel {ci} <= target {self._adaptive_cfg.ci_rel:.2%})",
                   file=self.err)
 
-    def _build(self, op: str, nbytes: int, world=None):
+    def _build(self, op: str, nbytes: int, world=None, algo: str = "native",
+               imbalance: int = 1):
         """One point's (built, built_hi) pair in ``world`` (the job's by
         default); extern builds nothing."""
         if op == "extern":
             return _ExternOp("extern", nbytes, self.opts.iters,
                              self.world.n), None
         return build_point_pair(self.opts, world or self.world, op, nbytes,
-                                fused_plan=self._fused_plan)
+                                fused_plan=self._fused_plan, algo=algo,
+                                imbalance=imbalance)
 
     def _lane_worlds(self, k: int) -> list:
         """The world each of ``k`` lanes builds its steps in.  In a
@@ -815,25 +925,62 @@ class Driver:
         self.tracer.flush()
         return t
 
-    def _measure_skewed(self, built, built_hi, run_id: int) -> float | None:
+    def _entry_skew(self, built, run_id: int,
+                    skew_us: int) -> tuple[float, float]:
+        """One run's total arrival skew at the entry boundary,
+        ``(own_stagger_s, victim_cost_s)``: the sweep axis's arrivals
+        (``skew_us``, :func:`~tpu_perf_torch.faults.injector.
+        axis_arrivals_us`, drawn over the real ranks, the last one the
+        straggler) and any scheduled ``skew`` faults' (drawn over the
+        injector's fault world), summed rank by rank before the worst is
+        taken: two sources' worst arrivals can land on different ranks,
+        so their costs do not add, their arrivals do.  Both are seeded,
+        so every rank computes every rank's arrival without a message."""
+        from tpu_perf_torch.faults.injector import (
+            axis_arrivals_us, reduce_arrivals, skew_world,
+        )
+
+        totals: dict[int, float] = {}
+        if skew_us:
+            axis_us = axis_arrivals_us(
+                self.opts.fault_seed, built.name, built.nbytes, skew_us,
+                run_id, world=skew_world(self.n_hosts, self.rank))
+            for r, v in axis_us.items():
+                totals[r] = totals.get(r, 0.0) + v
+        if self.injector is not None and self.injector.has_skew():
+            fault_us = self.injector.skew_arrivals_us(
+                built.name, built.nbytes, run_id,
+                world=self.injector.skew_fault_world(
+                    self.n_hosts, built.name, built.nbytes, run_id))
+            if fault_us is not None:
+                for r, v in fault_us.items():
+                    totals[r] = totals.get(r, 0.0) + v
+        if not totals:
+            return 0.0, 0.0
+        return reduce_arrivals(totals, self.rank)
+
+    def _measure_skewed(self, built, built_hi, run_id: int,
+                        skew_us: int = 0) -> float | None:
         """One measured run with a staggered entry: this rank sleeps its
-        drawn ``skew`` arrival before the dispatch, so the collective
-        really sees imbalanced arrival, then measures from its own entry.
-        In a multi-process world the ranks that wait carry the straggler's
+        arrival (the ``--skew-spread`` axis's and any ``skew`` fault's,
+        :meth:`_entry_skew`) before the dispatch, so the collective really
+        sees imbalanced arrival, then measures from its own entry.  In a
+        multi-process world the ranks that wait carry the straggler's
         lateness in their samples (inside the graph's events under the
         fused fence); the synthetic source has no peers, so the modeled
         wait is added to its sample instead.  A fired skew injection is
         an ``inject`` span over the stagger."""
-        if self.injector is None or not self.injector.has_skew():
+        if skew_us == 0 and (self.injector is None
+                             or not self.injector.has_skew()):
             return self._measure(built, built_hi)
-        fired0 = self.injector.fired_total
+        fired0 = self.injector.fired_total if self.injector else 0
         t0 = self.tracer.now() if self.tracer.enabled else 0
-        own, cost = self.injector.entry_skew(built.name, built.nbytes, run_id,
-                                             n_ranks=self.n_hosts)
-        synthetic = self.injector.synthetic
+        own, cost = self._entry_skew(built, run_id, skew_us)
+        synthetic = self.injector is not None and self.injector.synthetic
         if own > 0.0 and not synthetic:
             time.sleep(own)
-        if self.tracer.enabled and self.injector.fired_total > fired0:
+        if (self.tracer.enabled and self.injector is not None
+                and self.injector.fired_total > fired0):
             self.tracer.emit(
                 "inject", t0, self.tracer.now() - t0, run_id=run_id,
                 op=built.name, fired=self.injector.fired_total - fired0,
@@ -850,8 +997,11 @@ class Driver:
                               f"{built.name}-{built.nbytes}",
                               built.example_input.device)
 
-    def _run_finite(self, op: str, nbytes: int) -> None:
-        built, built_hi = self._point(op, nbytes)
+    def _run_finite(self, op: str, algo: str, nbytes: int, imbalance: int,
+                    skews: tuple[int, ...] = (0,)) -> None:
+        """One build point, measured once per arrival spread."""
+        built, built_hi = self._point(op, nbytes, algo=algo,
+                                      imbalance=imbalance)
         extern = isinstance(built, _ExternOp)
         fused = isinstance(built_hi, FusedPoint)
         trace = self.opts.fence == "trace" and not extern
@@ -859,13 +1009,16 @@ class Driver:
             # the fused runner and the trace capture warm themselves
             with self.phases.phase("compile"):
                 self._warm(built, built_hi)
-        with self.tracer.span("point", op=op, nbytes=nbytes):
-            self._measure_point(built, built_hi, extern=extern, fused=fused,
-                                trace=trace)
+        for skew_us in skews:
+            with self.tracer.span("point", op=op, nbytes=nbytes,
+                                  **_coords(built, skew_us)):
+                self._measure_point(built, built_hi, extern=extern,
+                                    fused=fused, trace=trace,
+                                    skew_us=skew_us)
         self._tune_precompile()
 
     def _measure_point(self, built, built_hi, *, extern: bool, fused: bool,
-                       trace: bool) -> None:
+                       trace: bool, skew_us: int = 0) -> None:
         """One finite point: every run measured, then every run recorded
         (after the point's last fence, each time its maximum over the
         ranks).  A run of the per-run fences is a ``run`` span around its
@@ -915,7 +1068,8 @@ class Driver:
                                               nbytes=built.nbytes) as sid:
                         with self.phases.phase("measure"), \
                                 self.tracer.span("measure", run_id=run_id):
-                            t = self._measure_skewed(built, built_hi, run_id)
+                            t = self._measure_skewed(built, built_hi, run_id,
+                                                     skew_us)
                         span_ids.append(sid)
                         times.append(t)
                         stop = False
@@ -943,7 +1097,7 @@ class Driver:
                 with self.tracer.run_span(run_id, op=built.name,
                                           nbytes=built.nbytes) as sid:
                     self._record_run(built, run_id, t, window, span_id=sid,
-                                     **record)
+                                     skew_us=skew_us, **record)
                 continue
             if span_ids:
                 sid = span_ids[run_id - 1]
@@ -952,7 +1106,8 @@ class Driver:
                                            op=built.name, nbytes=built.nbytes)
             else:
                 sid = ""
-            self._record_run(built, run_id, t, window, span_id=sid, **record)
+            self._record_run(built, run_id, t, window, span_id=sid,
+                             skew_us=skew_us, **record)
         if controller is not None:
             self._note_adaptive_point(built, controller)
 
@@ -972,10 +1127,11 @@ class Driver:
         from tpu_perf_torch.streams.plans import wave_plan
 
         worlds = self._lane_worlds(k)
-        for w, wave in enumerate(wave_plan(plan, k)):
+        for w, wave in enumerate(wave_plan(list(_builds(plan)), k)):
             lanes = []
-            for lane, (op, nbytes) in wave:
-                built, built_hi = self._point(op, nbytes, worlds[lane])
+            for lane, (op, algo, nbytes, imb) in wave:
+                built, built_hi = self._point(op, nbytes, worlds[lane],
+                                              algo=algo, imbalance=imb)
                 with self.phases.phase("compile"):
                     self._warm(built, built_hi)
                 lanes.append((lane, built))
@@ -1009,9 +1165,10 @@ class Driver:
                                          stream=lane + 1)
             self._tune_precompile()
 
-    def _run_daemon(self, plan: list[tuple[str, int]]) -> None:
+    def _run_daemon(self, plan: list[tuple]) -> None:
         """Infinite monitoring: one measured run per visit, round-robin
-        over every (op, nbytes) point of the plan, so a family
+        over every point of the plan (an arrival spread of a build is a
+        point of its own on the same warmed build), so a family
         (``--op a,b,c``) rotates the whole instrument set through one
         daemon.  Every point is built (and warmed) before run 1, so a bad
         combination fails before any row is written, and stays resident
@@ -1022,11 +1179,14 @@ class Driver:
         (:class:`~tpu_perf_torch.timing.TraceRunner`)."""
         canon: dict[tuple, object] = {}
         points = []
-        for op, nbytes in plan:
-            built, built_hi = self._point(op, nbytes)
+        resident = []  # each build once, whatever its spreads
+        for (op, algo, nbytes, imb), skews in _builds(plan).items():
+            built, built_hi = self._point(op, nbytes, algo=algo,
+                                          imbalance=imb)
             self._tune_precompile()
             if isinstance(built, _ExternOp):
-                points.append((built, None))
+                resident.append((built, None))
+                points += [(built, None, skew_us) for skew_us in skews]
                 continue
             x = built.example_input
             keep = canon.setdefault((tuple(x.shape), x.dtype, x.device), x)
@@ -1052,21 +1212,23 @@ class Driver:
                         built_hi.warm(self.opts.warmup_runs)
                 else:
                     self._warm(built, built_hi)
-            points.append((built, built_hi))
-        self._print_residency(points, len(canon))
+            resident.append((built, built_hi))
+            points += [(built, built_hi, skew_us) for skew_us in skews]
+        self._print_residency(resident, len(canon))
         window: list[float] = []
         run_id = 0
         while self.opts.max_runs is None or run_id < self.opts.max_runs:
             run_id += 1
-            built, built_hi = points[(run_id - 1) % len(points)]
+            built, built_hi, skew_us = points[(run_id - 1) % len(points)]
             with self.tracer.run_span(run_id, op=built.name,
                                       nbytes=built.nbytes) as sid:
                 with self.phases.phase("measure"), \
                         self.tracer.span("measure", run_id=run_id):
-                    t = self._measure_skewed(built, built_hi, run_id)
+                    t = self._measure_skewed(built, built_hi, run_id,
+                                             skew_us)
                 self._record_run(built, run_id,
                                  max_over_ranks(self.world, [t])[0], window,
-                                 span_id=sid)
+                                 span_id=sid, skew_us=skew_us)
 
     def _print_residency(self, points, n_inputs: int) -> None:
         """What the daemon holds on the device for its whole life: the
@@ -1083,7 +1245,7 @@ class Driver:
                 nb += nb  # the runner's working copy of the input
             elif isinstance(built_hi, TraceRunner):
                 nb += built_hi.graph_bytes
-            held.append(f"{built.name}/{built.nbytes}={nb}")
+            held.append(f"{_op_label(built)}/{built.nbytes}={nb}")
         print(f"[tpu-perf-torch] daemon: {len(points)} points, {n_inputs} "
               f"input buffer(s); bytes each point holds (input, and its "
               f"working copy under fused or its graphs' pool under trace): "
@@ -1092,20 +1254,24 @@ class Driver:
     def _record_run(self, built: BuiltOp, run_id: int, t: float | None,
                     window: list[float], *, stream: int = 0,
                     adaptive: tuple | None = None,
-                    span_id: str = "") -> None:
+                    span_id: str = "", skew_us: int = 0) -> None:
         """One run's bookkeeping (injection, rotation, emission, health,
         the heartbeat boundary), charged to the log phase.  ``adaptive``
         is the controller's (requested, taken, ci_rel) as of this run,
         stamped into the row; ``span_id`` (the run's span, --spans) is
-        stamped into the row and any health event the run raises."""
+        stamped into the row and any health event the run raises;
+        ``skew_us`` (the arrival-spread coordinate) is stamped into the
+        row and folded into the health and heartbeat label
+        (:func:`_op_label`)."""
         self._recorded += 1
         with self.phases.phase("log"):
             self._record_run_inner(built, run_id, t, window, stream,
-                                   adaptive, span_id)
+                                   adaptive, span_id, skew_us)
 
     def _record_run_inner(self, built, run_id: int, t: float | None,
                           window: list[float], stream: int,
-                          adaptive: tuple | None, span_id: str) -> None:
+                          adaptive: tuple | None, span_id: str,
+                          skew_us: int = 0) -> None:
         if self.injector is not None:
             # the injection point: the sample is perturbed (or dropped)
             # before anything sees it, as a sick link would feed them
@@ -1142,20 +1308,23 @@ class Driver:
             # is a nested ingest_hook span (tracer.wrap_hook)
             self.tracer.emit("rotate", rot0, self.tracer.now() - rot0,
                              run_id=run_id)
+        label = _op_label(built, skew_us)
         if t is not None:
             window.append(t)
-            key = (built.name, built.nbytes)
+            key = (label, built.nbytes)
             self._window_points[key] = self._window_points.get(key, 0) + 1
             self._emit(built, run_id, t, stream=stream, adaptive=adaptive,
-                       span_id=span_id)
+                       span_id=span_id, skew_us=skew_us)
             if self.health is not None:
-                self.health.observe(built.name, built.nbytes, built.iters,
+                # keyed on the decorated label: algorithms, spreads and
+                # ratios run apart by design, so one baseline each
+                self.health.observe(label, built.nbytes, built.iters,
                                     built.n_devices, run_id, t,
                                     span_id=span_id)
         else:
             self.dropped += 1
             if self.health is not None:
-                self.health.observe_drop(built.name, run_id)
+                self.health.observe_drop(label, run_id)
         if run_id % self.opts.stats_every == 0:
             # in a multi-process world the boundary's allreduce is a
             # barrier, so every rank's heartbeat span ends together
@@ -1204,6 +1373,10 @@ class Driver:
             if self._adaptive_cfg is not None:
                 # the completed points' savings so far
                 data["adaptive"] = self._adaptive_snapshot()
+            if self.pusher.enabled:
+                # the push plane's counters: where a collector learns the
+                # live plane itself is losing records
+                data["push"] = self.pusher.totals()
             if samples:
                 s = summarize(samples)
                 data.update(
@@ -1236,7 +1409,7 @@ class Driver:
 
     def _emit(self, built: BuiltOp, run_id: int, t: float, *,
               stream: int = 0, adaptive: tuple | None = None,
-              span_id: str = "") -> None:
+              span_id: str = "", skew_us: int = 0) -> None:
         # a fault soak's rows are deliberately perturbed: mode "chaos"
         # keeps them off the clean curves (report --compare-chaos joins
         # the two)
@@ -1248,11 +1421,13 @@ class Driver:
             times=RunTimes(samples=[t], warmup_s=0.0,
                            overhead_s=self._overhead_s.get(
                                (built.name, built.nbytes), 0.0)),
-            dtype=self.opts.dtype, mode=mode)
+            dtype=self.opts.dtype, mode=mode,
+            algo=getattr(built, "algo", "native"),
+            imbalance=getattr(built, "imbalance", 1))
         rrow = point.rows(self.opts.uuid, backend=self.world.backend)[0]
         # span_id "" (tracing off) keeps the row's pre-span width
         rrow = dataclasses.replace(rrow, run_id=run_id, stream=stream,
-                                   span_id=span_id)
+                                   span_id=span_id, skew_us=skew_us)
         if adaptive is not None:
             # the controller as of this run: a point's last row carries its
             # stop verdict (report's adaptive-savings table reads it)
@@ -1281,6 +1456,30 @@ class Driver:
             self.log.write_row(lrow)
         if self.ext_log is not None:
             self.ext_log.write_row(rrow)
+
+
+def _coords(built, skew_us: int = 0) -> dict:
+    """A point span's coordinates beyond (op, nbytes): the algorithm, the
+    imbalance and the arrival spread, each only when not the default."""
+    out: dict = {}
+    if getattr(built, "algo", "native") != "native":
+        out["algo"] = built.algo
+    if getattr(built, "imbalance", 1) != 1:
+        out["imbalance"] = built.imbalance
+    if skew_us:
+        out["skew_us"] = skew_us
+    return out
+
+
+def _builds(plan) -> dict[tuple, tuple[int, ...]]:
+    """The plan's builds, ``(op, algo, nbytes, imbalance)`` -> the arrival
+    spreads each is measured at, in plan order (a skewed point runs the
+    synchronized point's build)."""
+    out: dict[tuple, tuple[int, ...]] = {}
+    for op, algo, nbytes, imb, skew_us in plan:
+        key = (op, algo, nbytes, imb)
+        out[key] = out.get(key, ()) + (skew_us,)
+    return out
 
 
 def _state(controller) -> tuple:

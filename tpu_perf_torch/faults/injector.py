@@ -83,6 +83,53 @@ def _arrival_mult(shape: str, rnd: random.Random) -> float:
     return rnd.random()
 
 
+def axis_skew(seed: int, op: str, nbytes: int, spread_us: int,
+              run_id: int, *, rank: int = 0,
+              n_ranks: int = 1) -> tuple[float, float]:
+    """The sweep-axis arrival scenario (``--skew-spread``): one run's
+    ``(own_stagger_s, victim_cost_s)`` at arrival spread ``spread_us``.
+
+    The scenario is the paper's question made literal ("what does a
+    1 ms straggler cost?", arXiv 1804.05349): the world's LAST rank is
+    the designated straggler and arrives at exactly the spread — the
+    envelope is pinned, so the measured cost prices a ``spread``-late
+    straggler, not a random sub-spread one — while every other rank
+    draws a seeded uniform arrival in ``[0, spread_us)`` (key: seed,
+    op, nbytes, spread, rank, run).  Arrivals are stateless hashes, so
+    every rank computes every other's without wire exchange (lockstep
+    by construction).  ``own_stagger_s`` is how long this rank delays
+    its dispatch; ``victim_cost_s`` is the arrival wait the collective
+    observes from this rank's seat — spread minus its own arrival —
+    which the synthetic timing source folds into the sample (real
+    multi-host runs observe it physically and add nothing).  A world
+    smaller than :data:`MIN_SKEW_WORLD` is padded so a single-host
+    sweep still has a straggler to wait for (the phantom last rank)."""
+    if spread_us <= 0:
+        return 0.0, 0.0
+    arrivals = axis_arrivals_us(seed, op, nbytes, spread_us, run_id,
+                                world=skew_world(n_ranks, rank))
+    return reduce_arrivals(arrivals, rank)
+
+
+def axis_arrivals_us(seed: int, op: str, nbytes: int, spread_us: int,
+                     run_id: int, *, world) -> dict[int, float]:
+    """Every rank's axis arrival for one run, in µs — the last rank of
+    ``world`` is the designated straggler at exactly the spread, the
+    rest draw uniformly in ``[0, spread)``.  Exposed per rank (not
+    pre-reduced to a cost) so the driver can SUM arrivals across
+    sources — the axis plus any scheduled skew faults — before taking
+    the worst: per-source costs do not add (two sources' worst arrivals
+    can land on different ranks), combined arrivals do."""
+    straggler = max(world)
+    return {
+        r: (float(spread_us) if r == straggler
+            else spread_us * random.Random(
+                f"{seed}:skewaxis:{op}:{nbytes}:{spread_us}:{r}:{run_id}"
+            ).random())
+        for r in world
+    }
+
+
 class InjectedHookFailure(RuntimeError):
     """Raised by the chaos-wrapped ingest hook while a ``hook_fail``
     fault window is active — a distinct type so logs attribute the

@@ -76,12 +76,16 @@ class GridCell:
 
 def _check_ops(ops: list[str], compute: bool) -> None:
     from tpu_perf_torch.ops.collectives import known_ops
+    from tpu_perf_torch.scenarios.vops import V_OPS
 
     if not ops:
         raise ValueError("grid needs at least one op")
-    unknown = [o for o in ops if o not in known_ops()]
+    # the v-ops are no grid instruments, as in the JAX package: their
+    # cells would need an imbalance coordinate the grid does not sweep
+    known = [o for o in known_ops() if o not in V_OPS]
+    unknown = [o for o in ops if o not in known]
     if unknown:
-        raise ValueError(f"unknown op(s) {unknown}; known: {known_ops()}")
+        raise ValueError(f"unknown op(s) {unknown}; known: {known}")
     if compute:
         # mixing compute and bandwidth instruments would judge half the
         # cells on a meaningless axis

@@ -73,8 +73,8 @@ def render_textfile(
     carries, plus ``last_ci_rel``) adds the adaptive engine's
     runs-handed-back counter and the most recent point's achieved CI —
     a collector watches the budget saved without parsing heartbeats.
-    ``push`` (the push plane's meters) waits for that plane (ROADMAP
-    item 3b); it must be None."""
+    ``push`` (the push plane's meters) renders the plane's gauges
+    (push.sinks.push_gauge_lines)."""
     lines = []
 
     def family(name: str, help_: str, kind: str = "gauge") -> None:
@@ -164,9 +164,11 @@ def render_textfile(
             f" {float(adaptive.get('last_ci_rel', 0.0)):.6g}"
         )
     if push is not None:
-        raise NotImplementedError(
-            "push-plane gauges: the push plane is not yet ported, see "
-            "ROADMAP item 3b")
+        # the push plane's self-observation (tpu_perf_torch.push, --push):
+        # one metric vocabulary shared with the plane's own live textfile
+        from tpu_perf_torch.push.sinks import push_gauge_lines
+
+        lines.extend(push_gauge_lines(push))
     return "\n".join(lines) + "\n"
 
 

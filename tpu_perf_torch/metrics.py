@@ -63,10 +63,21 @@ _BUS_FACTORS = {
     # print-only external launcher (mpi_perf.c:147-168): nothing crosses the
     # wire; rows record only the wall time, like the reference's CSV does
     "extern": lambda n: 0.0,
+    # a composed scenario step chains several collectives over several
+    # windows, so no one bus factor is honest: its rows carry the step's
+    # wall time and lat_us only
+    "scenario": lambda n: 0.0,
 }
 
-# hier_allreduce is allreduce over a (dcn, ici) mesh: the same wire math
-_BUS_FACTORS["hier_allreduce"] = _BUS_FACTORS["allreduce"]
+# hier_allreduce is allreduce over a (dcn, ici) mesh: the same wire math;
+# the v-ops move their balanced counterparts' aggregate volume at the
+# row's size semantics
+for _op, _like in (("hier_allreduce", "allreduce"),
+                   ("allgatherv", "all_gather"),
+                   ("reduce_scatter_v", "reduce_scatter"),
+                   ("all_to_all_v", "all_to_all"),
+                   ("seg_allreduce", "allreduce")):
+    _BUS_FACTORS[_op] = _BUS_FACTORS[_like]
 
 KNOWN_OPS = tuple(sorted(_BUS_FACTORS))
 
@@ -124,12 +135,32 @@ def alg_bandwidth_gbps(nbytes: int, seconds: float) -> float:
 
 
 #: kernels whose bus factor is another op's
-_METRIC_ALIASES = {"hier_allreduce": "allreduce"}
+_METRIC_ALIASES = {"hier_allreduce": "allreduce",
+                   "allgatherv": "all_gather",
+                   "reduce_scatter_v": "reduce_scatter",
+                   "all_to_all_v": "all_to_all",
+                   "seg_allreduce": "allreduce"}
 
 
 def metric_op(op: str) -> str:
     """Resolve a kernel name to the op that carries its bus factor."""
     return _METRIC_ALIASES.get(op, op)
+
+
+def imbalance_volume_scale(op: str, imbalance: int, n_devices: int) -> float:
+    """Wire-volume correction for the v-ops whose moved bytes shrink with
+    imbalance at a fixed row nbytes (the JAX package's): ``all_to_all_v``
+    fills (n-1+ratio)/(n*ratio) of its slot matrix, and ``seg_allreduce``
+    reduces ceil(n/ratio) of its n segments.  The runner multiplies it
+    into busbw, so busbw stays the bytes that crossed the wire."""
+    r = max(1, int(imbalance))
+    if r == 1 or n_devices <= 1:
+        return 1.0
+    if op == "all_to_all_v":
+        return (n_devices - 1 + r) / (n_devices * r)
+    if op == "seg_allreduce":
+        return -(-n_devices // r) / n_devices
+    return 1.0
 
 
 def bus_bandwidth_gbps(op: str, nbytes: int, seconds: float, n_devices: int) -> float:

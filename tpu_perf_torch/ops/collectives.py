@@ -32,7 +32,12 @@ the mean, not the sum).  The ops of this slice:
   mesh: a reduce-scatter over ``ici``, an all-reduce over ``dcn``, an
   all-gather over ``ici``, times 1/n;
 * the ``pl_*`` ops — the hand-written kernels, built by
-  :func:`tpu_perf_torch.ops.pallas_ring.build_pallas_step`.
+  :func:`tpu_perf_torch.ops.pallas_ring.build_pallas_step`;
+* an ``algo`` other than ``native``, and the v-ops ``allgatherv``,
+  ``reduce_scatter_v``, ``all_to_all_v`` and ``seg_allreduce`` — the
+  JAX package's ``ppermute`` schedules (:mod:`tpu_perf_torch.arena`,
+  :mod:`tpu_perf_torch.scenarios.vops`), library operations with the
+  same sizes and carries.
 
 In a multi-process world (:class:`tpu_perf_torch.world.DistWorld`) each
 rank holds its own ``(elems,)`` buffer and the library ops are
@@ -83,6 +88,12 @@ class BuiltOp:
     nbytes: int  # actual message size in bytes (after rounding)
     n_devices: int
     iters: int  # messages a step moves: executions * window
+    #: the arena decomposition (``native``: the library call), keyed for a
+    #: hierarchical one; for a scenario, its label (rows render native as
+    #: the empty algo column)
+    algo: str = "native"
+    #: the v-ops' and scenarios' per-rank payload ratio (1: balanced)
+    imbalance: int = 1
 
 
 # mxu_gemm's matrix side: multiples of 128, capped at 4096 (the JAX
@@ -154,6 +165,7 @@ def payload_elems(op: str, nbytes: int, n: int, itemsize: int) -> tuple[int, int
 #: measure another computation (the JAX package's list, restricted to the
 #: ported ops)
 FLOAT_ONLY_OPS = ("allreduce", "barrier", "hier_allreduce", "reduce_scatter",
+                  "reduce_scatter_v", "seg_allreduce",
                   "mxu_gemm", "overlap_ring", "hbm_read", "pl_allreduce",
                   "pl_reduce_scatter")
 #: the point-to-point ops whose pair permutation needs an even rank count
@@ -919,8 +931,96 @@ def host_constants(op: str, nbytes: int, dtype: str, n: int) -> None:
 
 def known_ops() -> list[str]:
     from tpu_perf_torch.ops.pallas_ring import PALLAS_OPS
+    from tpu_perf_torch.scenarios.vops import V_OPS
 
-    return sorted([*OP_BUILDERS, *CARRY_BUILDERS]) + list(PALLAS_OPS)
+    return (sorted([*OP_BUILDERS, *CARRY_BUILDERS]) + list(PALLAS_OPS)
+            + list(V_OPS))
+
+
+def check_reuse(reuse: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``reuse`` when it has ``x``'s shape, dtype and device (the slope
+    and trace fences' shared example buffer), else a loud error."""
+    if (reuse.shape != x.shape or reuse.dtype != x.dtype
+            or reuse.device != x.device):
+        raise ValueError(
+            f"reuse_input spec mismatch: have {tuple(reuse.shape)}/"
+            f"{reuse.dtype}/{reuse.device}, need {tuple(x.shape)}/"
+            f"{x.dtype}/{x.device}")
+    return reuse
+
+
+def _arena_build(op: str, world: SimWorld | DistWorld, nbytes: int,
+                 iters: int, dtype: str, algo: str, imbalance: int
+                 ) -> tuple[Callable, int, int, str]:
+    """``(step, elems, actual_nbytes, algo)`` of an arena decomposition or
+    a v-op over the world's axes (:mod:`tpu_perf_torch.arena`): the
+    schedules of the JAX package's ``build_op`` in the stacked per-device
+    view, each permutation a row permutation in the sim world and a
+    ``batch_isend_irecv`` across processes.  ``algo`` comes back keyed for
+    a hierarchical composition (``hier-ring:dcn=2+ici=4``)."""
+    from tpu_perf_torch.arena.spmd import Ranks
+    from tpu_perf_torch.scenarios.vops import V_OPS, v_body_builder, v_counts
+
+    axes = tuple(world.axis_names)
+    n = world.n
+    hier = vhier = False
+    if algo != "native":
+        from tpu_perf_torch.arena.hierarchy import is_hier
+        from tpu_perf_torch.arena.valgos import is_vhier
+
+        hier, vhier = is_hier(algo), is_vhier(algo)
+    if ((op in V_OPS and not vhier and algo != "native")
+            or (algo != "native" and not hier and not vhier)):
+        if len(axes) != 1:
+            # the flat schedules run over one axis; a native v-op runs
+            # over the whole mesh as one row-major axis
+            raise ValueError(f"{op} needs a single mesh axis, got {axes}")
+    rk = Ranks(world)
+    tdtype = DTYPES[dtype]
+    itemsize = tdtype.itemsize
+    sizes = tuple(rk.axis_size(a) for a in axes)
+    if op in V_OPS:
+        # the per-rank counts are a build coordinate: drawn once here
+        # from the static rank count and ratio
+        counts, offsets, elems, actual = v_counts(op, nbytes, n, itemsize,
+                                                  imbalance)
+        if vhier:
+            from tpu_perf_torch.arena.valgos import (
+                resolve_vhier, vhier_body_builder,
+            )
+
+            algo = resolve_vhier(op, algo, axes, sizes)
+            body = vhier_body_builder(op, algo)(
+                rk, axes, sizes, n, elems, counts, offsets, tdtype)
+        elif algo != "native":
+            from tpu_perf_torch.arena.valgos import v_body_builder_for
+
+            body = v_body_builder_for(op, algo, n)(
+                rk, axes, n, elems, counts, offsets, tdtype)
+        else:
+            body = v_body_builder(op)(rk, axes, n, elems, counts, offsets,
+                                      tdtype)
+    else:
+        elems, actual = payload_elems(op, nbytes, n, itemsize)
+        if hier:
+            from tpu_perf_torch.arena.hierarchy import (
+                hier_body_builder, resolve_hier,
+            )
+
+            algo = resolve_hier(op, algo, axes, sizes)
+            body = hier_body_builder(op, algo)(rk, axes, sizes, n, elems,
+                                               tdtype)
+        else:
+            from tpu_perf_torch.arena import arena_body_builder
+
+            body = arena_body_builder(op, algo, n)(rk, axes[0], n, elems,
+                                                   tdtype)
+    if is_dist(world):
+        step = chained(body, iters, lambda x: x.view(1, -1),
+                       lambda x: x.reshape(-1))
+    else:
+        step = chained(body, iters)
+    return step, elems, actual, algo
 
 
 def _axes_of(world: SimWorld | DistWorld,
@@ -962,7 +1062,8 @@ def _sim_step(op: str, world: SimWorld, dtype: str, elems: int,
 
 def _along_axes(op: str, world: SimWorld | DistWorld, axes: tuple[str, ...],
                 nbytes: int, iters: int, dtype: str, window: int,
-                reuse_input: torch.Tensor | None) -> BuiltOp:
+                reuse_input: torch.Tensor | None, algo: str = "native",
+                imbalance: int = 1) -> BuiltOp:
     """A library op along ``axes`` of the world's mesh (the JAX package's
     ``build_op(..., axis=)``): k ranks a group, where k is the product of
     the axes' sizes, each group's ranks holding the k shards of one global
@@ -972,28 +1073,44 @@ def _along_axes(op: str, world: SimWorld | DistWorld, axes: tuple[str, ...],
     (:meth:`DistWorld.along`, the groups made once a world).  In the sim
     world every group runs it: the rows are held group by group (row j is
     member ``j % k`` of group ``j // k`` of ``mesh.groups(axes)``), and
-    each step runs the k-rank step on each group's block in turn."""
+    each step runs the k-rank step on each group's block in turn.  An
+    arena step (``algo``, a v-op) is built for the k-rank world of the
+    axes, with their names and sizes."""
     if op == "hier_allreduce" and len(axes) != 2:
         raise ValueError(
             f"hier_allreduce needs a 2-axis (dcn, ici) mesh, got {axes}")
     if op in _PAIRWISE and len(axes) != 1:
         raise ValueError(f"{op} needs a single mesh axis, got {axes}")
+    from tpu_perf_torch.parallel.mesh import make_mesh
+    from tpu_perf_torch.scenarios.vops import V_OPS
+
     if is_dist(world):
         sub = world.along(axes)
     else:
         groups = world.mesh.groups(axes)
-        sub = SimWorld(len(groups[0]), world.device)
+        sub = SimWorld(len(groups[0]), world.device, make_mesh(
+            tuple(world.mesh.axis_size(a) for a in axes), axes,
+            n=len(groups[0])))
     k = sub.n
     if op in _NEEDS_EVEN and k % 2:
         raise ValueError(f"{op} needs an even device count, got {k}")
-    elems, actual = payload_elems(op, nbytes, k, DTYPES[dtype].itemsize)
-    if is_dist(world):
+    arena = op in V_OPS or algo != "native"
+    if arena:
+        one, elems, actual, algo = _arena_build(op, sub, nbytes, iters,
+                                                dtype, algo, imbalance)
+    else:
+        elems, actual = payload_elems(op, nbytes, k, DTYPES[dtype].itemsize)
+    if is_dist(world) and arena:
+        step = one
+        x = example_input(sub, elems, dtype)
+    elif is_dist(world):
         step = (_local_step(op, world.device, dtype, elems, iters) if k == 1
                 else _dist_step(op, sub, dtype, elems, iters))
         x = example_input(sub, elems, dtype, window=window)
     else:
         g = len(groups)
-        one = _sim_step(op, sub, dtype, elems, iters)
+        if not arena:
+            one = _sim_step(op, sub, dtype, elems, iters)
 
         def step(x):
             blocks = x.view(g, k, *x.shape[1:])
@@ -1003,21 +1120,17 @@ def _along_axes(op: str, world: SimWorld | DistWorld, axes: tuple[str, ...],
         x = example_input(sub, elems, dtype, window=window)
         x = x.repeat(g, *([1] * (x.dim() - 1)))
     if reuse_input is not None:
-        if (reuse_input.shape != x.shape or reuse_input.dtype != x.dtype
-                or reuse_input.device != x.device):
-            raise ValueError(
-                f"reuse_input spec mismatch: have {tuple(reuse_input.shape)}/"
-                f"{reuse_input.dtype}/{reuse_input.device}, need "
-                f"{tuple(x.shape)}/{x.dtype}/{x.device}")
-        x = reuse_input
+        x = check_reuse(reuse_input, x)
     return BuiltOp(name=op, step=step, example_input=x, nbytes=actual,
-                   n_devices=k, iters=iters * window)
+                   n_devices=k, iters=iters * window, algo=algo,
+                   imbalance=int(imbalance))
 
 
 def build_op(op: str, world: SimWorld | DistWorld, nbytes: int, iters: int, *,
              dtype: str = "float32", window: int = 1,
              axis: str | tuple[str, ...] | None = None,
-             reuse_input: torch.Tensor | None = None) -> BuiltOp:
+             reuse_input: torch.Tensor | None = None,
+             algo: str = "native", imbalance: int = 1) -> BuiltOp:
     """Build the measurement step for ``op`` at message size ``nbytes``.
 
     ``window`` (``exchange`` / ``ppermute`` only) stacks W buffers that
@@ -1034,13 +1147,30 @@ def build_op(op: str, world: SimWorld | DistWorld, nbytes: int, iters: int, *,
     world's mesh, as the JAX package's ``build_op(..., axis=)`` does: the
     row's ``n_devices`` is the axes' rank count (:func:`_along_axes`).
     The ``pl_*`` ops keep the JAX rule, a single-axis mesh only, so their
-    axis can only be that one."""
+    axis can only be that one.
+
+    ``algo`` selects the implementation, as in the JAX package:
+    ``native`` is the library call, anything else a hand-built
+    decomposition of the arena (:mod:`tpu_perf_torch.arena`) with the same
+    sizing and carry.  ``imbalance`` is the v-ops' per-rank payload ratio
+    (:mod:`tpu_perf_torch.scenarios.vops`), a build coordinate; above 1 on
+    any other op it is an error."""
     from tpu_perf_torch.ops.pallas_ring import PALLAS_OPS, build_pallas_step
+    from tpu_perf_torch.scenarios.vops import V_OPS
 
     if op not in known_ops():
         raise ValueError(f"unknown op {op!r}; known: {known_ops()}")
     if iters <= 0:
         raise ValueError(f"iters must be positive, got {iters}")
+    if int(imbalance) != imbalance or imbalance < 1:
+        raise ValueError(
+            f"imbalance ratio must be an integer >= 1 (max/min per-rank "
+            f"payload), got {imbalance!r}")
+    if imbalance > 1 and op not in V_OPS:
+        raise ValueError(
+            f"imbalance applies to the v-variant ops {V_OPS} (and to "
+            f"scenarios, via `tpu-perf-torch scenario`); {op!r} has no "
+            f"uneven-payload schedule")
     if dtype not in DTYPES:
         raise ValueError(
             f"unsupported dtype {dtype!r}; supported: {SUPPORTED_DTYPES}")
@@ -1049,6 +1179,13 @@ def build_op(op: str, world: SimWorld | DistWorld, nbytes: int, iters: int, *,
             f"{op} reduces/multiplies its payload and needs a float dtype, "
             f"got {dtype} (byte-movement ops accept any dtype)"
         )
+    if algo != "native":
+        if op in PALLAS_OPS:
+            raise ValueError(
+                f"algo applies to the library collectives, not the pl_* "
+                f"kernels (got {op!r}; race pl_* ops via compare-pallas)")
+        if window != 1:
+            raise ValueError("window does not apply to arena algorithms")
     if op in PALLAS_OPS and window != 1:
         raise ValueError("window does not apply to pallas ops")
     if window < 1:
@@ -1062,8 +1199,17 @@ def build_op(op: str, world: SimWorld | DistWorld, nbytes: int, iters: int, *,
             raise ValueError(f"pallas ops need a single mesh axis, got {axes}")
         if op not in PALLAS_OPS and axes != tuple(world.axis_names):
             return _along_axes(op, world, axes, nbytes, iters, dtype, window,
-                               reuse_input)
+                               reuse_input, algo, imbalance)
     axes = world.axis_names
+    if op in V_OPS or algo != "native":
+        step, elems, actual, algo = _arena_build(op, world, nbytes, iters,
+                                                 dtype, algo, imbalance)
+        x = example_input(world, elems, dtype)
+        if reuse_input is not None:
+            x = check_reuse(reuse_input, x)
+        return BuiltOp(name=op, step=step, example_input=x, nbytes=actual,
+                       n_devices=world.n, iters=iters, algo=algo,
+                       imbalance=int(imbalance))
     if op == "hier_allreduce" and len(axes) != 2:
         raise ValueError(
             f"hier_allreduce needs a 2-axis (dcn, ici) mesh, got {axes}")

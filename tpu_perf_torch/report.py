@@ -659,6 +659,639 @@ def compare_to_markdown(cmp: list[ComparePoint]) -> str:
 
 
 @dataclasses.dataclass(frozen=True)
+class ArenaCrossoverPoint:
+    """One (collective, nbytes, dtype) key with every raced
+    decomposition's curve side by side — the arena's verdict row.
+
+    ``entries`` maps algorithm name (``native`` included when present)
+    to its pivoted curve point.  ``best`` is the fastest algorithm by
+    p50 latency (at a fixed (op, nbytes) the latency and bandwidth
+    rankings coincide — both derive from the same per-op time — so one
+    judged metric suffices); ties break lexicographically so a
+    synthetic soak's verdict is deterministic.  ``native_vs_best`` is
+    native p50 latency over the best p50 latency: > 1 means a
+    hand-built schedule beat the native lowering at this size.
+
+    ``skew_us`` is the arrival-spread coordinate: an arena race under
+    ``--skew-spread`` verdicts per (size, spread), because the best
+    algorithm CHANGES under imbalanced arrival (arXiv 1804.05349 — the
+    whole reason the axis exists); 0 = synchronized entry, the
+    pre-skew table unchanged.  ``imbalance`` is the payload-ratio
+    coordinate the same way (arXiv 2006.13112: the best decomposition
+    changes under uneven per-rank payloads); scenario rows land here
+    too — op ``scenario`` with one entry per scenario label.  ``load``
+    is the contention coordinate the same way again (arXiv 2305.10612:
+    decompositions differ in how they degrade under concurrent
+    traffic, so the LOADED winner is its own verdict); "" = idle
+    fabric, the pre-contention table unchanged."""
+
+    op: str
+    nbytes: int
+    dtype: str
+    entries: dict[str, CurvePoint]
+    skew_us: int = 0
+    imbalance: int = 1
+    load: str = ""
+
+    @property
+    def best(self) -> tuple[str, CurvePoint]:
+        return min(sorted(self.entries.items()),
+                   key=lambda kv: kv[1].lat_us["p50"])
+
+    @property
+    def native_vs_best(self) -> float | None:
+        native = self.entries.get("native")
+        if native is None:
+            return None
+        best_lat = self.best[1].lat_us["p50"]
+        return native.lat_us["p50"] / best_lat if best_lat else None
+
+    @property
+    def margin(self) -> float | None:
+        """Best-vs-runner-up p50 ratio (>= 1): the verdict's confidence
+        — 1.0 is a coin flip, 1.5 a decisive win.  None for a one-sided
+        slot (a single algorithm with no native control raced nothing),
+        so a low-confidence verdict is visible in the report table, not
+        just inside the tuner's selection artifact."""
+        if len(self.entries) < 2:
+            return None
+        lats = sorted(p.lat_us["p50"] for p in self.entries.values())
+        return lats[1] / lats[0] if lats[0] else None
+
+    @property
+    def mesh_axes(self) -> tuple[tuple[str, int], ...] | None:
+        """The mesh-axis tuple this slot raced on, recovered from any
+        keyed hierarchical entry's algo string (the arena registry keys
+        hier* per mesh-axis tuple, so the rows are self-describing);
+        None for a flat-only slot — native rows carry only n_devices."""
+        from tpu_perf_torch.arena.hierarchy import hier_axis_pairs
+
+        for algo in sorted(self.entries):
+            pairs = hier_axis_pairs(algo)
+            if pairs:
+                return pairs
+        return None
+
+    @property
+    def mesh(self) -> str:
+        """The crossover table's mesh-shape cell (``2x(4)`` / ``flat``)."""
+        from tpu_perf_torch.arena.hierarchy import mesh_shape_label
+
+        return mesh_shape_label(self.mesh_axes)
+
+
+def compare_arena(points: list[CurvePoint]) -> list[ArenaCrossoverPoint]:
+    """Pivot torch-backend points into the per-size best-algorithm
+    crossover table: one row per (op, nbytes, dtype) that any arena
+    algorithm measured, every algorithm's curve in its slot, native
+    included for the ratio.  Chaos-mode rows are excluded (injected
+    degradation must not crown a winner); when one algorithm has
+    several device counts / modes at a key, the one-shot largest-mesh
+    point wins the slot, exactly like compare().  Keys with no arena
+    row are dropped — this view exists for arena experiments; a key
+    missing its native row keeps a one-sided row (ratio —) so a
+    missing control is visible rather than silently absent."""
+    slots: dict[tuple, dict[str, CurvePoint]] = {}
+    for p in points:
+        if p.backend not in TORCH_BACKENDS or p.mode == "chaos":
+            continue
+        # skew_us, imbalance, and load are crossover DIMENSIONS, not
+        # exclusions: the papers' claim is that the winner changes
+        # under arrival skew (1804.05349), payload imbalance
+        # (2006.13112), and concurrent load (2305.10612), so each
+        # coordinate verdicts separately against its own entries
+        op, algo = p.op, p.algo
+        if p.op == "scenario":
+            # scenario rows race per-phase INNERS, not scenarios
+            # against each other (two scenarios are two workloads, not
+            # two implementations of one): the slot is the decorated
+            # scenario, the entries its inners — a native-only
+            # scenario never renders here (scenario_steps owns it)
+            from tpu_perf_torch.scenarios.compose import split_scenario_label
+
+            name, inner = split_scenario_label(p.algo)
+            op, algo = f"scenario[{name}]", inner
+        slot = slots.setdefault(
+            (op, p.nbytes, p.dtype, p.skew_us, p.imbalance, p.load), {})
+        cur = slot.get(algo)
+        if cur is None or _pivot_pref(p) > _pivot_pref(cur):
+            slot[algo] = p
+    return [
+        ArenaCrossoverPoint(op=op, nbytes=nbytes, dtype=dtype,
+                            entries=dict(slot), skew_us=skew_us,
+                            imbalance=imbalance, load=load)
+        for (op, nbytes, dtype, skew_us, imbalance, load), slot
+        in sorted(slots.items())
+        if any(a != "native" for a in slot)
+    ]
+
+
+def arena_to_markdown(cmp: list[ArenaCrossoverPoint]) -> str:
+    """The crossover table: per size (and, under --skew-spread, per
+    arrival spread), who won and by how much.  The ``native/best``
+    column IS the harness's answer to "where does a hand-built schedule
+    beat the native lowering on this chip" — > 1 above the crossover,
+    1.00 (native wins) below it.  The spread column appears only when
+    any skewed verdict exists, so every pre-skew table stays
+    byte-identical; with it, "under 500 µs stagger switch from ring to
+    binomial at ≤ 1 MiB" is one row's verdict.
+
+    The mesh column appears only when any slot raced a hierarchical
+    (mesh-keyed) algorithm, so every flat-arena table stays
+    byte-identical too; with it, "on 2x(4), hier beats flat above
+    256 KiB" is one row's verdict with the mesh shape it holds on."""
+    skewed = any(c.skew_us for c in cmp)
+    meshed = any(c.mesh_axes for c in cmp)
+    imbalanced = any(c.imbalance > 1 for c in cmp)
+    # the contention column appears only when any loaded verdict exists
+    # (tpu-perf-torch contend --algo), so every idle-arena table stays
+    # byte-identical; with it, "idle the ring wins but under hbm_stream
+    # load native holds" is two rows' verdicts side by side
+    loaded = any(c.load for c in cmp)
+    head = "| op | size | dtype |"
+    sep = "|---|---|---|"
+    if meshed:
+        head += " mesh |"
+        sep += "---|"
+    if skewed:
+        head += " spread (us) |"
+        sep += "---|"
+    if imbalanced:
+        head += " imbalance |"
+        sep += "---|"
+    if loaded:
+        head += " load |"
+        sep += "---|"
+    head += (" algorithms | best | best lat p50 (us) "
+             "| best busbw p50 (GB/s) | native lat p50 (us) "
+             "| native/best | margin | verdict |")
+    sep += "---|---|---|---|---|---|---|---|"
+    lines = [head, sep]
+    fmt = _fmt
+    for c in cmp:
+        algo, point = c.best
+        native = c.entries.get("native")
+        verdict = ("native holds" if algo == "native"
+                   else f"{algo} wins")
+        cells = f"| {c.op} | {format_size(c.nbytes)} | {c.dtype} "
+        if meshed:
+            cells += f"| {c.mesh} "
+        if skewed:
+            cells += f"| {c.skew_us} "
+        if imbalanced:
+            cells += f"| {c.imbalance} "
+        if loaded:
+            cells += f"| {c.load or 'idle'} "
+        lines.append(
+            cells
+            + f"| {','.join(sorted(c.entries))} | {algo} "
+            f"| {point.lat_us['p50']:.2f} "
+            f"| {fmt(point.busbw_gbps['p50'])} "
+            f"| {fmt(native.lat_us['p50'] if native else None, '.2f')} "
+            f"| {fmt(c.native_vs_best, '.3g')} "
+            f"| {fmt(c.margin, '.3g')} | {verdict} |"
+        )
+    return "\n".join(lines)
+
+
+@dataclasses.dataclass(frozen=True)
+class HierTrafficPoint:
+    """One hierarchical curve point priced against the bytes-per-axis
+    model (tpu_perf_torch.arena.hierarchy): the DCN-traffic bound of the
+    composition next to the measured time, with the flat lowering's
+    bound and measured time alongside — the table that answers whether
+    the measured win tracks the modeled DCN reduction."""
+
+    op: str
+    nbytes: int
+    dtype: str
+    algo: str                 # the keyed hier algorithm
+    mesh_axes: tuple[tuple[str, int], ...]
+    hier: CurvePoint
+    native: CurvePoint | None
+    dcn_bytes_hier: float     # the composition's DCN bound (model)
+    dcn_bytes_flat: float     # the flat schedule's DCN exposure (model)
+
+    @property
+    def dcn_reduction(self) -> float | None:
+        """flat/hier modeled DCN bytes (> 1 = the hierarchy keeps that
+        factor off the slow hop)."""
+        if self.dcn_bytes_hier <= 0:
+            return None
+        return self.dcn_bytes_flat / self.dcn_bytes_hier
+
+    @property
+    def native_vs_hier(self) -> float | None:
+        """Measured native/hier p50 latency (> 1 = hier faster)."""
+        if self.native is None:
+            return None
+        hier_lat = self.hier.lat_us["p50"]
+        return self.native.lat_us["p50"] / hier_lat if hier_lat else None
+
+
+def hier_traffic(points: list[CurvePoint]) -> list[HierTrafficPoint]:
+    """Pivot torch-backend points into the per-(op, size, hier-algorithm)
+    DCN-model table: every hierarchical curve point next to the same
+    key's native curve and both sides' modeled DCN bytes.  Chaos and
+    skewed rows are excluded (the model prices synchronized clean
+    entry); pivot preferences match compare_arena's.
+
+    The native control must match the hier point's DEVICE COUNT — the
+    keyed algo proves the hier side's mesh, and ratioing it against a
+    native curve from a different-sized fabric would compare two
+    machines while claiming one.  One residual ambiguity the row
+    schema cannot resolve: native rows carry no mesh shape, so a
+    folder mixing a flat-N and an NxM native sweep at the SAME device
+    count pairs whichever point the oneshot/largest-mesh preference
+    keeps — keep per-job folders when that distinction matters."""
+    from tpu_perf_torch.arena.hierarchy import (
+        dcn_bound_bytes, flat_dcn_bytes, hier_axis_pairs,
+    )
+
+    hier_pts: dict[tuple, CurvePoint] = {}
+    native_pts: dict[tuple, CurvePoint] = {}
+    for p in points:
+        if (p.backend not in TORCH_BACKENDS or p.mode == "chaos" or p.skew_us
+                or p.imbalance > 1 or p.load):
+            continue
+        if p.algo == "native":
+            key = (p.op, p.nbytes, p.dtype, p.n_devices)
+            cur = native_pts.get(key)
+            if cur is None or _pivot_pref(p) > _pivot_pref(cur):
+                native_pts[key] = p
+        elif hier_axis_pairs(p.algo):
+            key = (p.op, p.nbytes, p.dtype, p.algo)
+            cur = hier_pts.get(key)
+            if cur is None or _pivot_pref(p) > _pivot_pref(cur):
+                hier_pts[key] = p
+    out = []
+    for (op, nbytes, dtype, algo), hp in sorted(hier_pts.items()):
+        pairs = hier_axis_pairs(algo)
+        n = hp.n_devices
+        out.append(HierTrafficPoint(
+            op=op, nbytes=nbytes, dtype=dtype, algo=algo,
+            mesh_axes=pairs, hier=hp,
+            native=native_pts.get((op, nbytes, dtype, n)),
+            dcn_bytes_hier=dcn_bound_bytes(op, nbytes, pairs),
+            dcn_bytes_flat=flat_dcn_bytes(op, nbytes, n),
+        ))
+    return out
+
+
+def hier_traffic_to_markdown(cmp: list[HierTrafficPoint]) -> str:
+    """The bytes-per-axis verdict table: modeled DCN bound (hier vs
+    flat) next to measured p50 time.  The model columns are per-device
+    payload volume crossing the slow axis — payload/n_slice for the
+    composition vs payload*(n-1)/n for the flat schedule — so the
+    ``dcn x`` factor is the headroom the slow hop hands back and
+    ``native/hier`` is how much of it this fabric's speed ratio
+    actually realizes at this size."""
+    lines = [
+        "| op | size | dtype | mesh | algo | dcn B/dev (hier) "
+        "| dcn B/dev (flat) | dcn x | hier lat p50 (us) "
+        "| native lat p50 (us) | native/hier |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    from tpu_perf_torch.arena.hierarchy import mesh_shape_label
+
+    fmt = _fmt
+    for c in cmp:
+        lines.append(
+            f"| {c.op} | {format_size(c.nbytes)} | {c.dtype} "
+            f"| {mesh_shape_label(c.mesh_axes)} | {c.algo} "
+            f"| {c.dcn_bytes_hier:.4g} | {c.dcn_bytes_flat:.4g} "
+            f"| {fmt(c.dcn_reduction, '.3g')} "
+            f"| {c.hier.lat_us['p50']:.2f} "
+            f"| {fmt(c.native.lat_us['p50'] if c.native else None, '.2f')} "
+            f"| {fmt(c.native_vs_hier, '.3g')} |"
+        )
+    return "\n".join(lines)
+
+
+@dataclasses.dataclass(frozen=True)
+class StragglerCostPoint:
+    """One skewed curve point paired against its synchronized-entry
+    baseline — the straggler-cost verdict row: "what does a 1 ms
+    straggler cost an allreduce at 256 MiB on this mesh?" is
+    ``slowdown`` at (op=allreduce, size=256M, spread=1000).
+
+    ``slowdown`` is skewed p50 latency over zero-skew p50 latency
+    (> 1 = the straggler costs that factor); None when the sweep
+    measured no spread-0 baseline for the key."""
+
+    op: str
+    nbytes: int
+    dtype: str
+    skew_us: int
+    skewed: CurvePoint
+    base: CurvePoint | None
+    algo: str = "native"
+
+    @property
+    def slowdown(self) -> float | None:
+        if self.base is None:
+            return None
+        base_lat = self.base.lat_us["p50"]
+        return self.skewed.lat_us["p50"] / base_lat if base_lat else None
+
+
+def straggler_cost(points: list[CurvePoint]) -> list[StragglerCostPoint]:
+    """Pivot torch-backend points into the per-(op, size, spread)
+    straggler-cost table: every skewed curve point paired with the same
+    key's spread-0 baseline.  Chaos-mode rows are excluded (a
+    fault-perturbed sample must not masquerade as arrival cost); the
+    algorithm is part of the key, so an arena skew sweep reports each
+    decomposition's straggler sensitivity separately.  Keys with no
+    skewed row are dropped (this view exists for skew sweeps); a
+    skewed key with no spread-0 counterpart keeps a one-sided row so a
+    missing baseline is visible rather than silently absent."""
+    skewed: dict[tuple, CurvePoint] = {}
+    base: dict[tuple, CurvePoint] = {}
+    for p in points:
+        if (p.backend not in TORCH_BACKENDS or p.mode == "chaos" or p.imbalance > 1
+                or p.load):
+            continue
+        key = (p.op, p.nbytes, p.dtype, p.algo)
+        table = skewed if p.skew_us else base
+        k = key + ((p.skew_us,) if p.skew_us else ())
+        cur = table.get(k)
+        if cur is None or _pivot_pref(p) > _pivot_pref(cur):
+            table[k] = p
+    return [
+        StragglerCostPoint(
+            op=op, nbytes=nbytes, dtype=dtype, skew_us=skew_us,
+            skewed=sp, base=base.get((op, nbytes, dtype, algo)),
+            algo=algo,
+        )
+        for (op, nbytes, dtype, algo, skew_us), sp in sorted(skewed.items())
+    ]
+
+
+def straggler_to_markdown(cmp: list[StragglerCostPoint]) -> str:
+    """The straggler-cost table: per (op, size), the slowdown factor at
+    each measured arrival spread vs synchronized entry.  Slowdowns
+    shrink as sizes grow (a fixed stagger amortizes over a longer
+    transfer) — the crossover from latency-dominated to
+    bandwidth-dominated skew cost is the table's shape."""
+    lines = [
+        "| op | size | dtype | spread (us) | sync lat p50 (us) "
+        "| skewed lat p50 (us) | slowdown | skewed busbw p50 (GB/s) "
+        "| mode |",
+        "|---|---|---|---|---|---|---|---|---|",
+    ]
+    fmt = _fmt
+    for c in cmp:
+        lines.append(
+            f"| {_op_cell(c.op, c.algo)} | {format_size(c.nbytes)} "
+            f"| {c.dtype} | {c.skew_us} "
+            f"| {fmt(c.base.lat_us['p50'] if c.base else None, '.2f')} "
+            f"| {c.skewed.lat_us['p50']:.2f} "
+            f"| {fmt(c.slowdown, '.3g')} "
+            f"| {fmt(c.skewed.busbw_gbps['p50'])} "
+            f"| {_mode_cell(c.base, c.skewed)} |"
+        )
+    return "\n".join(lines)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioStepPoint:
+    """One model-step scenario point (tpu_perf_torch.scenarios): its measured
+    step-time distribution, the balanced-equivalent baseline when the
+    point swept imbalance, and the modeled per-phase attribution.
+
+    ``phases`` is the composition layer's wire model resolved from the
+    BUILT-IN catalog (a custom JSON scenario's rows cannot recover the
+    foreign spec, so its attribution cell renders a dash); ``cost`` is
+    skewed-vs-balanced p50 step time (> 1 = the imbalance costs that
+    factor) — the v-variant cost-vs-balanced-equivalent verdict."""
+
+    name: str
+    inner: str                # per-phase arena inner ("native" = none)
+    nbytes: int
+    dtype: str
+    imbalance: int
+    point: CurvePoint
+    base: CurvePoint | None   # the imbalance-1 twin (None when absent
+    #                           or when this IS the balanced point)
+    phases: list[dict] | None
+
+    @property
+    def cost(self) -> float | None:
+        if self.base is None or self.imbalance == 1:
+            return None
+        base_lat = self.base.lat_us["p50"]
+        return self.point.lat_us["p50"] / base_lat if base_lat else None
+
+
+def scenario_steps(points: list[CurvePoint]) -> list[ScenarioStepPoint]:
+    """Pivot scenario rows (op == "scenario") into the per-(scenario,
+    size, imbalance) step table.  Chaos-mode rows are excluded
+    (perturbed samples must not price a model step); skewed rows keep
+    their own coordinate out of this table (straggler_cost owns the
+    skew view).  Imbalanced points pair against the same label's
+    ratio-1 twin for the cost-vs-balanced column."""
+    from tpu_perf_torch.scenarios.compose import phase_plan, split_scenario_label
+    from tpu_perf_torch.scenarios.spec import BUILTIN_SCENARIOS
+    from tpu_perf_torch.metrics import DTYPE_ITEMSIZE
+
+    slots: dict[tuple, CurvePoint] = {}
+    for p in points:
+        if (p.backend not in TORCH_BACKENDS or p.op != "scenario"
+                or p.mode == "chaos" or p.skew_us or p.load):
+            continue
+        key = (p.algo, p.nbytes, p.dtype, p.imbalance)
+        cur = slots.get(key)
+        if cur is None or _pivot_pref(p) > _pivot_pref(cur):
+            slots[key] = p
+    out = []
+    for (label, nbytes, dtype, imbalance), p in sorted(slots.items()):
+        name, inner = split_scenario_label(label)
+        spec = BUILTIN_SCENARIOS.get(name)
+        phases = None
+        if spec is not None:
+            try:
+                phases = phase_plan(
+                    spec, nbytes, p.n_devices,
+                    itemsize=DTYPE_ITEMSIZE.get(dtype, 4),
+                    imbalance=imbalance)
+            except ValueError:
+                phases = None  # foreign geometry: render without shares
+        base = None
+        if imbalance > 1:
+            # the balanced twin's nbytes differs by rounding (the
+            # quantum follows the ratio), so pair on the label alone
+            # at the nearest balanced size
+            twins = [q for (lbl, _, dt, imb), q in slots.items()
+                     if lbl == label and dt == dtype and imb == 1]
+            if twins:
+                base = min(twins, key=lambda q: abs(q.nbytes - nbytes))
+        out.append(ScenarioStepPoint(
+            name=name, inner=inner, nbytes=nbytes, dtype=dtype,
+            imbalance=imbalance, point=p, base=base, phases=phases,
+        ))
+    return out
+
+
+def _phases_cell(phases: list[dict] | None) -> str:
+    """The attribution cell: each phase's modeled share of the step's
+    wire volume (``allreduce x4 100%``; a dash for foreign specs)."""
+    if not phases:
+        return "—"
+    return " + ".join(f"{e['phase']} {e['share']:.0%}" for e in phases)
+
+
+def scenario_to_markdown(cmp: list[ScenarioStepPoint]) -> str:
+    """The "Scenario steps" table: per-scenario p50/p95 step time with
+    modeled per-phase attribution and the cost-vs-balanced-equivalent
+    ratio for imbalance-swept points."""
+    lines = [
+        "| scenario | inner | size | dtype | imbalance | runs "
+        "| step p50 (us) | step p95 (us) | vs balanced | mode "
+        "| phase attribution (modeled wire share) |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    fmt = _fmt
+    for c in cmp:
+        lines.append(
+            f"| {c.name} | {c.inner} | {format_size(c.nbytes)} "
+            f"| {c.dtype} | {c.imbalance} | {c.point.runs} "
+            f"| {c.point.lat_us['p50']:.2f} | {c.point.lat_us['p95']:.2f} "
+            f"| {fmt(c.cost, '.3g')} | {c.point.mode} "
+            f"| {_phases_cell(c.phases)} |"
+        )
+    return "\n".join(lines)
+
+
+@dataclasses.dataclass(frozen=True)
+class ImbalanceCostPoint:
+    """One imbalanced v-variant curve point paired against its balanced
+    (ratio-1) twin — "what does a ratio-8 hot rank cost an allgatherv
+    at 4 MiB on this mesh?" is ``cost`` at (op=allgatherv, size≈4M,
+    imbalance=8).  The twin is the nearest-size ratio-1 point of the
+    same (op, dtype, algo): sizes differ slightly by count rounding."""
+
+    op: str
+    nbytes: int
+    dtype: str
+    imbalance: int
+    imbalanced: CurvePoint
+    base: CurvePoint | None
+    algo: str = "native"
+    # arena annotations, filled only when several algos raced the same
+    # (op, dtype, size, ratio) coordinate: the coordinate's fastest algo
+    # by imbalanced p50, its speedup over the native row, and how many
+    # algos competed (1 = no race — the markdown renders dashes and the
+    # extra columns disappear entirely for pre-arena artifacts)
+    best_algo: str = ""
+    best_vs_native: float | None = None
+    raced: int = 1
+
+    @property
+    def cost(self) -> float | None:
+        if self.base is None:
+            return None
+        base_lat = self.base.lat_us["p50"]
+        return self.imbalanced.lat_us["p50"] / base_lat if base_lat \
+            else None
+
+
+def imbalance_cost(points: list[CurvePoint]) -> list[ImbalanceCostPoint]:
+    """Pivot torch-backend v-variant points into the per-(op, size,
+    ratio) imbalance-cost table: every imbalance > 1 curve point
+    (scenario rows excluded — scenario_steps owns them) paired with
+    the same key's balanced twin.  Chaos and skewed rows are excluded;
+    a ratio with no balanced counterpart keeps a one-sided row so a
+    missing baseline is visible rather than silently absent."""
+    imb: dict[tuple, CurvePoint] = {}
+    base: dict[tuple, list[CurvePoint]] = {}
+    for p in points:
+        if (p.backend not in TORCH_BACKENDS or p.mode == "chaos" or p.skew_us
+                or p.op == "scenario" or p.load):
+            continue
+        if p.imbalance > 1:
+            key = (p.op, p.dtype, p.algo, p.nbytes, p.imbalance)
+            cur = imb.get(key)
+            if cur is None or _pivot_pref(p) > _pivot_pref(cur):
+                imb[key] = p
+        else:
+            base.setdefault((p.op, p.dtype, p.algo), []).append(p)
+    out = []
+    for (op, dtype, algo, nbytes, ratio), p in sorted(imb.items()):
+        twins = base.get((op, dtype, algo), [])
+        twin = min(twins, key=lambda q: abs(q.nbytes - nbytes)) \
+            if twins else None
+        out.append(ImbalanceCostPoint(
+            op=op, nbytes=nbytes, dtype=dtype, imbalance=ratio,
+            imbalanced=p, base=twin, algo=algo,
+        ))
+    # annotate algo races: v_counts sizes buffers from (op, ratio, n)
+    # alone, so every algo of one coordinate lands on the same nbytes
+    # and the group key needs no size fuzzing
+    groups: dict[tuple, list[int]] = {}
+    for i, c in enumerate(out):
+        groups.setdefault((c.op, c.dtype, c.nbytes, c.imbalance), []).append(i)
+    for idxs in groups.values():
+        if len(idxs) < 2:
+            continue
+        best = min(idxs, key=lambda i: (out[i].imbalanced.lat_us["p50"],
+                                        out[i].algo))
+        native_lat = next(
+            (out[i].imbalanced.lat_us["p50"] for i in idxs
+             if out[i].algo == "native"), None)
+        ratio = (out[best].imbalanced.lat_us["p50"] / native_lat) \
+            if native_lat else None
+        for i in idxs:
+            out[i] = dataclasses.replace(
+                out[i], best_algo=out[best].algo,
+                best_vs_native=ratio, raced=len(idxs))
+    return out
+
+
+def imbalance_to_markdown(cmp: list[ImbalanceCostPoint]) -> str:
+    """The imbalance-cost table: per (op, size), the slowdown factor at
+    each measured payload ratio vs the balanced equivalent (same
+    aggregate volume, even per-rank split).  The hot rank serializes
+    the schedule's longest chain, so costs grow with ratio and shrink
+    with size as bandwidth terms dominate — the shape is the verdict.
+
+    When the arena raced several algos at an imbalanced coordinate, two
+    extra columns appear: the coordinate's fastest algo and its p50
+    speedup over native (< 1 means the optimized schedule wins).  Rows
+    where only one algo raced show dashes; artifacts with no races at
+    all render the legacy 9-column table byte-identically."""
+    raced_any = any(c.raced > 1 for c in cmp)
+    lines = [
+        "| op | size | dtype | imbalance | balanced lat p50 (us) "
+        "| imbalanced lat p50 (us) | cost | imbalanced busbw p50 (GB/s) "
+        "| mode |" if not raced_any else
+        "| op | size | dtype | imbalance | balanced lat p50 (us) "
+        "| imbalanced lat p50 (us) | cost | imbalanced busbw p50 (GB/s) "
+        "| mode | best algo | best/naive |",
+        "|---|---|---|---|---|---|---|---|---|" if not raced_any else
+        "|---|---|---|---|---|---|---|---|---|---|---|",
+    ]
+    fmt = _fmt
+    for c in cmp:
+        row = (
+            f"| {_op_cell(c.op, c.algo)} | {format_size(c.nbytes)} "
+            f"| {c.dtype} | {c.imbalance} "
+            f"| {fmt(c.base.lat_us['p50'] if c.base else None, '.2f')} "
+            f"| {c.imbalanced.lat_us['p50']:.2f} "
+            f"| {fmt(c.cost, '.3g')} "
+            f"| {fmt(c.imbalanced.busbw_gbps['p50'])} "
+            f"| {_mode_cell(c.base, c.imbalanced)} |"
+        )
+        if raced_any:
+            row += (
+                f" {c.best_algo or '—'} "
+                f"| {fmt(c.best_vs_native, '.3g')} |"
+                if c.raced > 1 else " — | — |"
+            )
+        lines.append(row)
+    return "\n".join(lines)
+
+
+@dataclasses.dataclass(frozen=True)
 class InterferencePoint:
     """One cell of the interference matrix: a victim point under one
     background load against its idle twin (same op, size, dtype, algo;
@@ -1152,4 +1785,30 @@ def phases_to_markdown(entries: list[dict]) -> str:
                     if isinstance(fu, dict) else "—")
             line += f" {cell} |"
         lines.append(line)
+    return "\n".join(lines)
+
+
+def push_to_markdown(entries: list[dict]) -> str:
+    """Render the phase sidecars' push-plane counters as the report's
+    "Push plane" table (entries without a ``push`` block — push-off
+    jobs — are skipped by the caller).  The one-line read: sent is the
+    live deliveries, dropped/spooled is every record that did NOT go
+    live (dropped = lost to the bounded queue, counted; spooled = on
+    disk awaiting requeue+replay), and a non-zero spool depth means
+    undelivered telemetry is sitting next to the logs right now."""
+    lines = [
+        "| job | rank | sent | dropped | retried | spooled | replayed "
+        "| spool depth |",
+        "|---|---|---|---|---|---|---|---|",
+    ]
+    for e in entries:
+        p = e.get("push")
+        if not isinstance(p, dict):
+            continue
+        lines.append(
+            f"| {str(e.get('job_id', ''))[:8]} | {e.get('rank', 0)} "
+            f"| {p.get('sent', 0)} | {p.get('dropped', 0)} "
+            f"| {p.get('retried', 0)} | {p.get('spooled', 0)} "
+            f"| {p.get('replayed', 0)} | {p.get('spool_depth', 0)} |"
+        )
     return "\n".join(lines)

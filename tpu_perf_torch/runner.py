@@ -15,7 +15,8 @@ from typing import Callable, Iterator
 
 from tpu_perf_torch.config import Options
 from tpu_perf_torch.metrics import (
-    alg_bandwidth_gbps, bus_bandwidth_gbps, is_latency_only, latency_us,
+    alg_bandwidth_gbps, bus_bandwidth_gbps, imbalance_volume_scale,
+    is_latency_only, latency_us,
 )
 from tpu_perf_torch.ops.collectives import (
     DTYPES, BuiltOp, build_fused_step, build_op,
@@ -35,10 +36,6 @@ _ROUND_TRIP_OPS = ("pingpong", "pl_pingpong")
 #: ops whose payload is fixed whatever -b / --sweep ask (sweeping them
 #: would time the identical kernel once per size)
 FIXED_PAYLOAD_OPS = ("barrier", "pl_barrier")
-#: the JAX package's uneven-payload ops (tpu_perf/scenarios/vops.py), named
-#: in the unknown-op error
-NOT_PORTED_V_OPS = ("allgatherv", "reduce_scatter_v", "all_to_all_v",
-                    "seg_allreduce")
 
 
 def op_for_options(opts: Options) -> str:
@@ -80,12 +77,116 @@ def ops_for_options(opts: Options) -> list[str]:
     if unknown:
         raise ValueError(
             f"unknown op(s) {unknown} in family {opts.op!r}; "
-            f"known: {sorted(known_ops())} (the v-ops {NOT_PORTED_V_OPS} "
-            "are not ported yet)"
+            f"known: {sorted(known_ops())}"
         )
     if opts.extern_cmd:
         raise ValueError("extern mode runs a single op, not a family")
     return ops
+
+
+def algos_for_options(opts: Options, op: str, n_devices: int, err=None,
+                      mesh_axes=None) -> list[str]:
+    """The decompositions the job runs for one kernel (``--algo``), the
+    JAX package's expansion without ``auto``.
+
+    ``native`` (the default) keeps the library call alone; ``all``
+    expands to native plus every registered arena algorithm compatible
+    with this op at this rank count (incompatible pow2-only entries are
+    skipped with a note); an explicit name or comma family validates
+    strictly: an algorithm the op lacks, an unknown name, or a mesh it
+    cannot run on fails here, before any kernel has run.  ``mesh_axes``
+    is the collective mesh-axis tuple as (name, size) pairs: on a
+    multi-axis mesh ``all`` races native against the keyed ``hier*``
+    (``vhier``) compositions; on a single-axis mesh an explicit ``hier*``
+    request degrades loudly to native.  For the ``scenario`` op the
+    labels are the selected scenarios' (``scenario_algos_for``)."""
+    if opts.algo == "auto":
+        raise NotImplementedError(_AUTO_REFUSAL)
+    if op == "scenario":
+        from tpu_perf_torch.scenarios.compose import scenario_algos_for
+
+        return scenario_algos_for(opts, n_devices, err=err)
+    spec = opts.algo
+    if spec == "native":
+        return ["native"]
+    import sys
+
+    from tpu_perf_torch.arena import (
+        ARENA_COLLECTIVES, algos_for_op, arena_body_builder, hierarchy,
+        valgos,
+    )
+    from tpu_perf_torch.scenarios.vops import V_OPS
+
+    multi = mesh_axes is not None and len(mesh_axes) >= 2
+    if spec == "all":
+        if op in V_OPS:
+            if multi:
+                return ["native"] + valgos.vhier_algos_for(
+                    op, tuple(mesh_axes), err=err)
+            return ["native"] + valgos.v_algos_for_op(op, n_devices,
+                                                      err=err)
+        if op not in ARENA_COLLECTIVES:
+            if err is not None:
+                print(f"[tpu-perf-torch] arena: {op} has no registered "
+                      f"decompositions; running the native call only",
+                      file=err)
+            return ["native"]
+        if multi:
+            if err is not None:
+                print(f"[tpu-perf-torch] arena: {op} on the multi-axis "
+                      f"mesh {tuple(mesh_axes)} races native vs the hier* "
+                      f"compositions (the flat single-axis schedules are "
+                      f"skipped; name one axis to race them)", file=err)
+            return ["native"] + hierarchy.hier_algos_for(
+                op, tuple(mesh_axes), err=err)
+        return ["native"] + algos_for_op(op, n_devices, err=err)
+    algos = [a.strip() for a in spec.split(",") if a.strip()]
+    if not algos:
+        raise ValueError(f"empty algo family {spec!r}")
+    resolved: list[str] = []
+    for a in algos:
+        if a == "native":
+            resolved.append(a)
+        elif hierarchy.is_hier(a) or valgos.is_vhier(a):
+            if not multi:
+                print(f"[tpu-perf-torch] arena: {a} needs a 2-axis "
+                      f"(slow, fast) mesh and this job's collective axis "
+                      f"is flat; running the native call in its place "
+                      f"(--mesh DxI --axes dcn,ici builds the two-axis "
+                      f"mesh)", file=err if err is not None else sys.stderr)
+                resolved.append("native")
+            else:
+                names = tuple(n for n, _ in mesh_axes)
+                sizes = tuple(s for _, s in mesh_axes)
+                resolve = (valgos.resolve_vhier if valgos.is_vhier(a)
+                           else hierarchy.resolve_hier)
+                resolved.append(resolve(op, a, names, sizes))
+        else:
+            if multi:
+                raise ValueError(
+                    f"algo {a!r} is a single-axis flat decomposition "
+                    f"and this job's collective axes are "
+                    f"{tuple(mesh_axes)}; race hier*/vhier/native on a "
+                    f"multi-axis mesh, or name one axis")
+            if op in V_OPS:
+                valgos.v_body_builder_for(op, a, n_devices)  # raises
+            else:
+                arena_body_builder(op, a, n_devices)  # raises
+            resolved.append(a)
+    # a hier -> native fallback can repeat an explicit native: one plan
+    # slot per decomposition, the first spelling wins
+    out: list[str] = []
+    for a in resolved:
+        if a not in out:
+            out.append(a)
+    return out
+
+
+#: what a refused crossover-tuner flag says
+_AUTO_REFUSAL = (
+    "--algo auto, --algo-artifact, --tune-margin and --tune-max-age (the "
+    "crossover auto-tuner) are not ported yet, see ROADMAP.md section 1 "
+    "item 3 (linkmap and the tuner)")
 
 
 def world_for(opts: Options) -> SimWorld | DistWorld:
@@ -143,10 +244,16 @@ class SweepPointResult:
     runs_requested: int = 0
     ci_rel: float = 0.0
     adaptive: dict | None = None
+    algo: str = "native"   # arena decomposition; rows render "" for native
+    imbalance: int = 1     # per-rank payload ratio; rows render it above 1
 
     def rows(self, job_id: str, backend: str) -> list[ResultRow]:
         no_payload = is_latency_only(self.op, self.n_devices)
         round_trip = self.op in _ROUND_TRIP_OPS
+        # the v-ops whose moved volume shrinks with imbalance at a fixed
+        # row nbytes report wire bytes in busbw, not buffer bytes
+        vol_scale = imbalance_volume_scale(self.op, self.imbalance,
+                                           self.n_devices)
         out = []
         for run_id, t in enumerate(self.times.samples, start=1):
             per_op = t / self.iters
@@ -166,7 +273,7 @@ class SweepPointResult:
                 lat_us=latency_us(t, self.iters, round_trip=round_trip),
                 algbw_gbps=0.0 if no_payload
                 else alg_bandwidth_gbps(self.nbytes, per_op),
-                busbw_gbps=bus_bandwidth_gbps(
+                busbw_gbps=vol_scale * bus_bandwidth_gbps(
                     self.op, self.nbytes, per_op, self.n_devices),
                 time_ms=t * 1e3,
                 dtype=self.dtype,
@@ -175,6 +282,8 @@ class SweepPointResult:
                 runs_requested=self.runs_requested,
                 runs_taken=run_id if self.runs_requested else 0,
                 ci_rel=self.ci_rel if self.runs_requested else 0.0,
+                algo="" if self.algo == "native" else self.algo,
+                imbalance=self.imbalance,
             ))
         return out
 
@@ -204,25 +313,54 @@ def build_fused_point(built: BuiltOp, plan: tuple[int, ...]) -> FusedPoint:
 
 
 def build_point_pair(opts: Options, world: SimWorld, op: str, nbytes: int,
-                     *, fused_plan: tuple[int, ...] | None = None
+                     *, fused_plan: tuple[int, ...] | None = None,
+                     algo: str = "native", imbalance: int = 1
                      ) -> tuple[BuiltOp, BuiltOp | FusedPoint | None]:
     """One point's (lo, hi) op pair for the configured fence: hi is the
     same op at ``iters * SLOPE_ITERS_FACTOR`` executions under slope/trace
     (sharing lo's example buffer), the point's :class:`FusedPoint` under
     fused (``fused_plan``, default the options' fixed-budget plan), else
-    None."""
-    built = build_op(op, world, nbytes, opts.iters, dtype=opts.dtype,
-                     window=opts.window)
+    None.  ``algo`` selects an arena decomposition (for the ``scenario``
+    op, the scenario's label, built by the composition layer);
+    ``imbalance`` is the point's per-rank payload ratio."""
+
+    from tpu_perf_torch.scenarios.vops import V_OPS
+
+    if (is_dist(world) and opts.fence in ("fused", "trace")
+            and (algo != "native" or op in V_OPS or op == "scenario")):
+        # their permutations are batch_isend_irecv calls, and NCCL's
+        # point-to-point calls under CUDA graph capture are unproven here:
+        # refused, never measured some other way
+        raise NotImplementedError(
+            f"{op}{'' if algo == 'native' else f'[{algo}]'} across "
+            f"processes runs its permutations as batch_isend_irecv, which "
+            f"the {opts.fence} fence would capture into a CUDA graph: not "
+            "supported (run it under --fence block or readback)")
+
+    def build(n_iters: int, reuse=None) -> BuiltOp:
+        if op == "scenario":
+            from tpu_perf_torch.scenarios.compose import (
+                build_scenario_op, spec_for_label, split_scenario_label,
+            )
+
+            _, inner = split_scenario_label(algo)
+            return build_scenario_op(
+                spec_for_label(opts.scenario, algo), world, nbytes, n_iters,
+                dtype=opts.dtype, imbalance=imbalance, inner=inner,
+                reuse_input=reuse)
+        return build_op(op, world, nbytes, n_iters, dtype=opts.dtype,
+                        window=opts.window, reuse_input=reuse, algo=algo,
+                        imbalance=imbalance)
+
+    built = build(opts.iters)
     if opts.fence == "fused":
         return built, build_fused_point(
             built, fused_plan if fused_plan is not None
             else fused_plan_for(opts))
     built_hi = None
     if opts.fence in ("slope", "trace"):
-        built_hi = build_op(op, world, nbytes,
-                            opts.iters * SLOPE_ITERS_FACTOR,
-                            dtype=opts.dtype, window=opts.window,
-                            reuse_input=built.example_input)
+        built_hi = build(opts.iters * SLOPE_ITERS_FACTOR,
+                         reuse=built.example_input)
     return built, built_hi
 
 
@@ -343,7 +481,8 @@ def _adaptive_run_times(opts: Options, built: BuiltOp,
 
 def run_point(opts: Options, world: SimWorld | DistWorld, nbytes: int, *,
               op: str | None = None, phases=None,
-              adaptive=None) -> SweepPointResult:
+              adaptive=None, algo: str = "native",
+              imbalance: int = 1) -> SweepPointResult:
     """Measure one sweep point: ``opts.num_runs`` runs of ``opts.iters``
     chained executions each.  ``phases`` (a compilepipe.PhaseTimer) takes
     the point's compile / measure split.  ``adaptive`` (an
@@ -371,7 +510,8 @@ def run_point(opts: Options, world: SimWorld | DistWorld, nbytes: int, *,
                               min_runs=adaptive.min_runs)
     with phases.phase("compile"):
         built, built_hi = build_point_pair(opts, world, op, nbytes,
-                                           fused_plan=plan)
+                                           fused_plan=plan, algo=algo,
+                                           imbalance=imbalance)
     x = built.example_input
     controller = (point_controller(adaptive, world) if adaptive is not None
                   else None)
@@ -408,7 +548,8 @@ def run_point(opts: Options, world: SimWorld | DistWorld, nbytes: int, *,
                   ci_rel=summary["ci_rel"] or 0.0, adaptive=summary)
     return SweepPointResult(op=op, nbytes=built.nbytes, iters=built.iters,
                             n_devices=built.n_devices, times=times,
-                            dtype=opts.dtype, **kw)
+                            dtype=opts.dtype, algo=built.algo,
+                            imbalance=built.imbalance, **kw)
 
 
 def sizes_for(opts: Options, op: str | None = None) -> list[int]:

@@ -31,8 +31,10 @@ injector's seeded series, a loaded sample the idle series' times
 :data:`SYNTHETIC_CONTENTION` (a documented, modeled slowdown, the JAX
 package's), so a gate can assert "slowdown > 1" byte-stably.
 
-Not ported yet (ROADMAP): the split-channel shape (``--split K``), which
-needs the linkmap planner, and the arena's ``--algo``.
+``--algo`` races the victim's arena decompositions (native first), each
+idle and under the load; rows carry the algorithm.  Not ported yet
+(ROADMAP.md section 1 item 3): the split-channel shape (``--split K``),
+which needs the linkmap planner.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ CONTEND_FENCES = ("block", "readback")
 
 def _rows_for(samples, *, opts: Options, op: str, nbytes: int, iters: int,
               n_devices: int, backend: str, load: str, stream: int,
-              warmup_s: float) -> list[ResultRow]:
+              warmup_s: float, algo: str = "native") -> list[ResultRow]:
     """Rows for one (point, load) group through the one row factory
     (runner.SweepPointResult.rows), stamped with the contention
     coordinates."""
@@ -70,7 +72,7 @@ def _rows_for(samples, *, opts: Options, op: str, nbytes: int, iters: int,
     point = SweepPointResult(
         op=op, nbytes=nbytes, iters=iters, n_devices=n_devices,
         times=RunTimes(samples=list(samples), warmup_s=warmup_s),
-        dtype=opts.dtype, mode="oneshot")
+        dtype=opts.dtype, mode="oneshot", algo=algo)
     return [dataclasses.replace(r, load=load, stream=stream)
             for r in point.rows(opts.uuid, backend=backend)]
 
@@ -87,7 +89,9 @@ def run_contend(opts: Options, *, world: SimWorld | DistWorld | None = None,
     made: ``n_devices`` states the rank count.  ``tracer`` records the
     engine's dispatch and fence spans."""
     from tpu_perf_torch.ops.collectives import known_ops
-    from tpu_perf_torch.runner import max_over_ranks, sizes_for, world_for
+    from tpu_perf_torch.runner import (
+        algos_for_options, max_over_ranks, sizes_for, world_for,
+    )
 
     load = opts.load
     if not load:
@@ -105,8 +109,8 @@ def run_contend(opts: Options, *, world: SimWorld | DistWorld | None = None,
     if load.startswith("split:"):
         raise NotImplementedError(
             "split-channel contention (--split K) is not yet ported: it "
-            "needs the linkmap planner's link-disjoint schedules; see "
-            "ROADMAP")
+            "needs the linkmap planner's link-disjoint schedules, see "
+            "ROADMAP.md section 1 item 3 (linkmap and the tuner)")
     injector = None
     if opts.synthetic_s is not None or opts.faults:
         from tpu_perf_torch.faults import FaultInjector
@@ -129,30 +133,37 @@ def run_contend(opts: Options, *, world: SimWorld | DistWorld | None = None,
         load_world = _lane_world(world)
         n_dev, backend = world.n, world.backend
     rows: list[ResultRow] = []
-    for nbytes in sizes_for(opts, opts.op):
-        if synthetic:
-            idle = [injector.synthetic_sample(decorate_op(opts.op), nbytes)
+    # --algo races the victim's decompositions, each under the load (the
+    # best algorithm under load is not always the idle winner)
+    for algo in algos_for_options(opts, opts.op, n_dev, err=err):
+        for nbytes in sizes_for(opts, opts.op):
+            if synthetic:
+                idle = [injector.synthetic_sample(
+                    decorate_op(opts.op, algo), nbytes)
                     for _ in range(opts.num_runs)]
-            loaded = [injector.synthetic_sample(
-                decorate_op(opts.op, load=load), nbytes)
-                * SYNTHETIC_CONTENTION for _ in range(opts.num_runs)]
-            idle_warm = loaded_warm = 0.0
-            actual = nbytes
-        else:
-            idle, loaded, idle_warm, loaded_warm, actual = _measure_race(
-                opts, world, load_world, nbytes, load, axis=axis,
-                load_axis=load_axis, tracer=tracer, perf_clock=perf_clock)
-            # each run's time its maximum over the ranks, after the
-            # point's last fence
-            idle = max_over_ranks(world, idle)
-            loaded = max_over_ranks(world, loaded)
-        common = dict(opts=opts, op=opts.op, nbytes=actual,
-                      iters=opts.iters, n_devices=n_dev, backend=backend)
-        rows.extend(_rows_for(idle, load="", stream=0, warmup_s=idle_warm,
-                              **common))
-        # the victim rides lane 0; rows carry the 1-based lane
-        rows.extend(_rows_for(loaded, load=load, stream=1,
-                              warmup_s=loaded_warm, **common))
+                loaded = [injector.synthetic_sample(
+                    decorate_op(opts.op, algo, load=load), nbytes)
+                    * SYNTHETIC_CONTENTION for _ in range(opts.num_runs)]
+                idle_warm = loaded_warm = 0.0
+                actual = nbytes
+            else:
+                idle, loaded, idle_warm, loaded_warm, actual = \
+                    _measure_race(opts, world, load_world, nbytes, load,
+                                  axis=axis, load_axis=load_axis,
+                                  tracer=tracer, perf_clock=perf_clock,
+                                  algo=algo)
+                # each run's time its maximum over the ranks, after the
+                # point's last fence
+                idle = max_over_ranks(world, idle)
+                loaded = max_over_ranks(world, loaded)
+            common = dict(opts=opts, op=opts.op, nbytes=actual,
+                          iters=opts.iters, n_devices=n_dev,
+                          backend=backend, algo=algo)
+            rows.extend(_rows_for(idle, load="", stream=0,
+                                  warmup_s=idle_warm, **common))
+            # the victim rides lane 0; rows carry the 1-based lane
+            rows.extend(_rows_for(loaded, load=load, stream=1,
+                                  warmup_s=loaded_warm, **common))
     return rows
 
 
@@ -170,7 +181,8 @@ def _lane_world(world):
 
 
 def _measure_race(opts: Options, world, load_world, nbytes: int, load: str,
-                  *, axis, load_axis, tracer, perf_clock):
+                  *, axis, load_axis, tracer, perf_clock,
+                  algo: str = "native"):
     """The victim on lane 0 raced against the load on lane 1.  Returns
     (idle samples, loaded samples, idle and loaded warm-up seconds,
     victim nbytes).  The loaded warm-up is one unrecorded race, so the
@@ -180,7 +192,7 @@ def _measure_race(opts: Options, world, load_world, nbytes: int, load: str,
     from tpu_perf_torch.timing import fence
 
     victim = build_op(opts.op, world, nbytes, opts.iters, dtype=opts.dtype,
-                      axis=axis)
+                      axis=axis, algo=algo)
     load_built = build_op(load, load_world, nbytes, opts.iters,
                           dtype=opts.dtype, axis=load_axis)
     engine = StreamEngine(2, fence_mode=opts.fence, tracer=tracer,

@@ -1,5 +1,6 @@
 """Message-size sweep generation (copy of ``tpu_perf/sweep.py``'s sweep
-parser and size formatter).
+parser, size formatter and the arrival-spread and imbalance axis
+parsers).
 
 The reference benchmarks a single buffer size per invocation
 (``DEF_BUF_SZ = 456131`` at mpi_perf.c:14; 4 MiB in scripts/run-1-pair.sh:9).
@@ -83,3 +84,47 @@ def parse_sweep(spec: str, *, align: int = 1) -> list[int]:
     if align > 1:
         sizes = sorted({-(-s // align) * align for s in sizes})
     return sizes
+
+
+_TIME_SUFFIX_US = {"": 1, "us": 1, "ms": 1000, "s": 1000_000}
+
+
+def parse_time_us(text: str) -> int:
+    """Parse a human duration like ``500``, ``250us``, ``1ms``, ``2s``
+    into integer microseconds (bare numbers are µs — the repo's latency
+    unit)."""
+    m = re.fullmatch(r"\s*(\d+)\s*(us|ms|s)?\s*", str(text).lower())
+    if not m:
+        raise ValueError(f"unparseable duration: {text!r}")
+    return int(m.group(1)) * _TIME_SUFFIX_US[m.group(2) or ""]
+
+
+def parse_skew_spread(spec: str) -> tuple[int, ...]:
+    """Parse the ``--skew-spread`` axis: a comma list of arrival
+    spreads (``0,250us,1ms``), kept in the given order — like sizes,
+    the list IS the sweep axis.  Include 0 to measure the synchronized
+    baseline the straggler-cost table divides by."""
+    spreads = tuple(parse_time_us(s) for s in str(spec).split(",")
+                    if s.strip())
+    if not spreads:
+        raise ValueError(f"empty skew spread {spec!r}")
+    return spreads
+
+
+def parse_imbalance(spec: str) -> tuple[int, ...]:
+    """Parse the ``--imbalance`` axis: a comma list of integer max/min
+    per-rank payload ratios (``1,2,8``), kept in the given order — like
+    sizes, the list IS the sweep axis.  Include 1 to measure the
+    balanced baseline the imbalance-cost table divides by."""
+    parts = [s.strip() for s in str(spec).split(",") if s.strip()]
+    if not parts:
+        raise ValueError(f"empty imbalance axis {spec!r}")
+    ratios = []
+    for s in parts:
+        if not s.isdigit() or int(s) < 1:
+            raise ValueError(
+                f"imbalance ratios are integers >= 1 (max/min per-rank "
+                f"payload), got {s!r} in {spec!r}"
+            )
+        ratios.append(int(s))
+    return tuple(ratios)

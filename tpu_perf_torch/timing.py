@@ -50,6 +50,10 @@ LEAD_IN_CYCLES = 100_000
 #: how long the trace gate holds the card for the host's flag before it
 #: opens anyway (and counts the miss), nanoseconds
 GATE_TIMEOUT_NS = 1_000_000_000
+#: whether a fused graph starts behind a :class:`TraceGate`
+#: (:class:`FusedRunner`); False times the graphs as they were before the
+#: gate (``tools.soak_spikes``'s ``fused0``)
+FUSED_GATE = True
 
 
 class TraceGate:
@@ -459,6 +463,7 @@ class FusedRunner:
         self._x: torch.Tensor | None = None
         self._side = None  # the warm run's and the captures' stream
         self._graphs: dict[int, tuple[torch.cuda.CUDAGraph, list]] = {}
+        self.gate: TraceGate | None = None
 
     @property
     def buffer(self) -> torch.Tensor | None:
@@ -473,6 +478,8 @@ class FusedRunner:
         # captured on the stream the eager run warmed: the kernels' device
         # counters are per stream, and the warm run made this one's
         with torch.cuda.graph(graph, stream=self._side):
+            if self.gate is not None:
+                self.gate.wait()
             events[0].record()
             y = self.point.programs[reps](
                 x, on_run=lambda i: events[i + 1].record())
@@ -492,11 +499,17 @@ class FusedRunner:
             side.wait_stream(torch.cuda.current_stream(self._x.device))
             with torch.cuda.stream(side):
                 self._x.copy_(self.point.programs[first](self._x))
+            if FUSED_GATE:
+                # the gate's first launch, eager and open, loads its module
+                self.gate = TraceGate(self._x.device)
+                self.gate.open()
+                with torch.cuda.stream(side):
+                    self.gate.wait()
             torch.cuda.current_stream(self._x.device).wait_stream(side)
             torch.cuda.synchronize(self._x.device)
             for reps in sorted(set(self.point.plan)):
                 self._capture(reps)
-            self._graphs[first][0].replay()
+            self._replay(first)
         else:
             self._x = self.point.programs[first](self._x)
         fence(self._x)
@@ -510,11 +523,21 @@ class FusedRunner:
         self.dispatches += 1
         t0 = self.perf_clock()
         if self._x.is_cuda:
-            self._graphs[reps][0].replay()
+            self._replay(reps)
         else:
             self._x = self.point.programs[reps](self._x)
         fence(self._x)
         return self.perf_clock() - t0
+
+    def _replay(self, reps: int) -> None:
+        """The chunk's replay, then the gate's opening."""
+        self._graphs[reps][0].replay()
+        if self.gate is not None:
+            self.gate.open()
+
+    def missed(self) -> int:
+        """Gates that opened on their timeout, not on the host's flag."""
+        return int(self.gate.missed.item()) if self.gate is not None else 0
 
     def chunk(self, reps: int) -> list[float]:
         """One measured dispatch of ``reps`` whole runs; returns the runs'
@@ -532,3 +555,4 @@ class FusedRunner:
         working buffer."""
         self._graphs.clear()
         self._x = None
+        self.gate = None

@@ -58,3 +58,46 @@ def pair_permutation(n: int) -> list[tuple[int, int]]:
         perm.append((i, i + half))
         perm.append((i + half, i))
     return perm
+
+
+# --- keyed mesh-axis tuples (the hierarchical arena algorithms) ----
+# ``hier-ring:dcn=2+ici=4``: the algo string carries the axes and their
+# sizes, so rows and labels are self-describing about their mesh.
+
+#: separator between axis segments of a keyed mesh-axis tuple
+AXIS_TUPLE_SEP = "+"
+
+
+def format_axis_tuple(pairs) -> str:
+    """``(("dcn", 2), ("ici", 4))`` -> ``"dcn=2+ici=4"`` — the keyed
+    mesh-axis-tuple spelling rows and labels carry.  ``name=size``
+    segments keep the grammar unambiguous for axis names that end in
+    digits (the auto-named ``ax0``/``ax1`` axes)."""
+    pairs = tuple((str(a), int(s)) for a, s in pairs)
+    if not pairs:
+        raise ValueError("empty axis tuple")
+    for name, size in pairs:
+        if not name or AXIS_TUPLE_SEP in name or "=" in name \
+                or ":" in name or "," in name:
+            raise ValueError(f"bad axis name {name!r}")
+        if size <= 0:
+            raise ValueError(f"axis {name!r} needs a positive size, "
+                             f"got {size}")
+    return AXIS_TUPLE_SEP.join(f"{a}={s}" for a, s in pairs)
+
+
+def parse_axis_tuple(spec: str) -> tuple[tuple[str, int], ...]:
+    """Inverse of :func:`format_axis_tuple`: ``"dcn=2+ici=4"`` ->
+    ``(("dcn", 2), ("ici", 4))``.  Raises on anything else — a keyed
+    algo name that does not parse must fail loudly, never degrade into
+    a silently different mesh."""
+    parts = str(spec).split(AXIS_TUPLE_SEP)
+    pairs = []
+    for part in parts:
+        name, eq, size = part.partition("=")
+        if not eq or not name or not size.isdigit() or int(size) <= 0:
+            raise ValueError(f"unparseable axis tuple {spec!r} "
+                             f"(expected name=size{AXIS_TUPLE_SEP}"
+                             f"name=size, e.g. dcn=2+ici=4)")
+        pairs.append((name, int(size)))
+    return tuple(pairs)
