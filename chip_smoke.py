@@ -106,7 +106,17 @@ exits non-zero):
    under ``mxu_gemm``, ``hbm_stream`` and ``pl_hbm_copy``, rendered by
    ``report``'s interference matrix; and ``bench`` once (its JSON line,
    the JAX one-device labels, each ratio against the detected card's
-   entry); then the multi-rank world: ``run --distributed`` in an NCCL
+   entry); the arena, the v-ops and the scenarios (``arena``) and the
+   push plane (``push``); linkmap and the crossover tuner (``linkmap``, 8
+   sim ranks on a 2 x 4 mesh: the probe step against ppermute's plain
+   result, a neighbor sweep's records a link each, a planted delay
+   graded dead with its rank, op and ``link_degraded`` event, exit 6,
+   ``--all-pairs`` over the 56 ordered pairs and ``--concurrent`` with the
+   planted link re-probed serially, ``tune`` over a v-op arena run, ``run
+   --algo auto`` on the artifact's winners, ``tune --check`` 0 and 10, the
+   split lanes against the single channel and ``contend --split 2``;
+   printed: each link's p50 and GB/s, ``auto_vs_native``); then the
+   multi-rank world: ``run --distributed`` in an NCCL
    world of one (this process, torchrun's variables set for one rank)
    over the library collectives and ``ring`` (rows with backend torch,
    ``dist.get_backend()`` nccl, no kernel of the port), then each ``pl_*``
@@ -3800,6 +3810,274 @@ def phase_push() -> None:
 # --- the multi-rank world ---------------------------------------------------
 
 #: the NCCL world of one's library ops: no kernel of the port
+#: the linkmap phase (one card, 8 sim ranks): the sweep's mesh, bytes a
+#: probe, iters and runs a link; the planted fault's link and factor over
+#: the link's own time
+LINK_MESH, LINK_SHAPE = "2x4", (2, 4)
+LINK_BYTES, LINK_ITERS, LINK_RUNS = 4 * 1024**2, 10, 5
+LINK_FAULTED, LINK_PAIR_FAULTED = "link:(0,1)>(0,2)", "link:(3)>(5)"
+LINK_FACTOR = 100.0
+#: tune -> --algo auto: the v-ops at one hot-rank ratio and two sizes
+TUNE_OPS, TUNE_SWEEP, TUNE_RATIO = "allgatherv,reduce_scatter_v", "4K,4M", 8
+#: contend --split: the payload and the lanes
+SPLIT_BYTES, SPLIT_K = 4 * 1024**2, 2
+
+
+def _cli_quiet(argv: list[str], what: str, rcs=(0,)) -> int:
+    """``cli.main(argv)`` with its stdout kept out of the smoke's; the
+    exit code must be one of ``rcs`` (gated)."""
+    import contextlib
+    import io
+
+    from tpu_perf_torch import cli
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv)
+    if rc not in rcs:
+        fail(f"{what} exited {rc}, not one of {rcs}")
+    return rc
+
+
+def _linkmap_logs(folder: str, links: list, what: str):
+    """A sweep's records: one meta, then one probe and one verdict record
+    a directed link of the plan (gated); returns (meta, probes, verdicts),
+    the last two by (src, dst)."""
+    recs = _jsonl(folder, "linkmap")
+    metas = [r for r in recs if r["record"] == "meta"]
+    probes = {(r["src"], r["dst"]): r for r in recs
+              if r["record"] == "probe"}
+    verdicts = {(r["src"], r["dst"]): r for r in recs
+                if r["record"] == "verdict"}
+    n_probe = sum(r["record"] == "probe" for r in recs)
+    n_verdict = sum(r["record"] == "verdict" for r in recs)
+    if (len(metas) != 1 or sorted(probes) != sorted(links)
+            or sorted(verdicts) != sorted(links)
+            or n_probe != len(links) or n_verdict != len(links)):
+        fail(f"linkmap: {what}: {len(metas)} meta, {n_probe} probe and "
+             f"{n_verdict} verdict records for the plan's {len(links)} "
+             "links")
+    return metas[0], probes, verdicts
+
+
+def _check_probe_outputs(world) -> int:
+    """The probe step's output on the card against ppermute's plain result
+    on the make_fill input (``out[dst] = x[src]``, every other row zero,
+    chained ``iters`` times; numpy on the host): one link alone at iters
+    1, and each schedule of the plan as one permutation at LINK_ITERS.
+    Exact (a copy)."""
+    import numpy as np
+
+    from tpu_perf_torch.linkmap import LinkProber, all_links, plan_mesh_links
+
+    plan = plan_mesh_links(LINK_SHAPE, ("ax0", "ax1"))
+    cases = [([(p.src, p.dst)], 1) for p in all_links(plan)[:3]]
+    cases += [(sched.perm(), LINK_ITERS) for sched in plan]
+    for perm, iters in cases:
+        prober = LinkProber(world, nbytes=LINK_BYTES, iters=iters)
+        x = prober.example_input()
+        want = x.cpu().numpy()
+        for _ in range(iters):
+            out = np.zeros_like(want)
+            out[[d for _, d in perm]] = want[[s for s, _ in perm]]
+            want = out
+        got = prober.step(perm)(x).cpu().numpy()
+        if not np.array_equal(got, want):
+            fail(f"linkmap: the probe of {perm} x {iters} differs from "
+                 "ppermute's plain result on the fill")
+    return len(cases)
+
+
+def _check_split_lanes(world) -> None:
+    """K split-channel lanes pinned to one schedule, each moving its slice
+    of every rank's payload, reassembled rank by rank: equal to the
+    single-channel full-payload output on the same payload (exact)."""
+    import torch
+
+    from tpu_perf_torch.linkmap import plan_mesh_links
+    from tpu_perf_torch.streams.contend import build_split_steps
+
+    sched = plan_mesh_links((world.n,), ("x",))[0]
+    (single, _, whole, _), = build_split_steps(world, SPLIT_BYTES, ITERS, 1,
+                                              schedules=[sched])
+    lanes = build_split_steps(world, SPLIT_BYTES, ITERS, SPLIT_K,
+                              schedules=[sched])
+    widths = [nb // 4 for _, _, nb, _ in lanes]
+    if sum(widths) != whole // 4:
+        fail(f"split lanes move {sum(widths)} elements a rank, the single "
+             f"channel {whole // 4}")
+    full = torch.arange(world.n * sum(widths), dtype=torch.float32,
+                        device=world.device).view(world.n, -1)
+    outs, lo = [], 0
+    for (step, _, _, _), w in zip(lanes, widths):
+        outs.append(step(full[:, lo:lo + w].contiguous()))
+        lo += w
+    if not torch.equal(torch.cat(outs, dim=1), single(full)):
+        fail(f"contend --split {SPLIT_K}: the lanes' concatenated output "
+             "differs from the single-channel full-payload output")
+
+
+def _tune_then_auto(root: str) -> list[str]:
+    """An arena run of the v-ops at one ratio, ``tune`` over its rows,
+    ``run --algo auto`` at the same points (every row's algorithm the
+    artifact's winner there, gated) and ``tune --check`` against the
+    artifact (0) and against a copy with the most decisive winner swapped
+    for its runner-up (10).  Returns the printed lines."""
+    import dataclasses
+
+    from tpu_perf_torch.tuner import read_artifact, write_artifact
+
+    common = ["--op", TUNE_OPS, "--imbalance", str(TUNE_RATIO), "--sweep",
+              TUNE_SWEEP, "-i", str(ITERS), "-r", str(ARENA_RUNS)]
+    arena, sel = f"{root}/arena", f"{root}/sel.json"
+    _arena_rows(["run", "--algo", "all"] + common,
+                f"run --op {TUNE_OPS} --algo all", arena)
+    _cli_quiet(["tune", "-d", arena, "-o", sel], "tune")
+    art = read_artifact(sel)
+    if not art.entries:
+        fail("tune: the artifact holds no winner")
+    winner = {(e.op, e.nbytes, e.imbalance): e.winner for e in art.entries}
+    rows = _arena_rows(["run", "--algo", "auto", "--algo-artifact", sel,
+                        "--tune-margin", "1.0"] + common,
+                       "run --algo auto", f"{root}/auto")
+    wrong = [(r.op, r.nbytes, r.algo) for r in rows
+             if (r.algo or "native") != winner.get(
+                 (r.op, r.nbytes, r.imbalance))]
+    if wrong:
+        fail(f"--algo auto: rows off the artifact's winners: {wrong[:4]}")
+    _cli_quiet(["tune", "-d", arena, "--check", sel], "tune --check", (0,))
+    best = max(art.entries, key=lambda e: e.margin)
+    swapped = [dataclasses.replace(e, winner=e.runner_up) if e is best
+               else e for e in art.entries]
+    drifted = f"{root}/drifted.json"
+    write_artifact(dataclasses.replace(art, entries=tuple(swapped)), drifted)
+    margin = min(1.02, best.margin)
+    _cli_quiet(["tune", "-d", arena, "--check", drifted, "--margin",
+                str(margin)], "tune --check against a swapped winner",
+               (10,))
+    table = ", ".join(f"{e.op}@{e.nbytes} B {e.winner} ({e.margin:.3f}x, "
+                      f"native/best {e.native_vs_best:.3f}x)"
+                      for e in art.entries)
+    return [f"tune: {len(art.entries)} winner(s), "
+            f"{sum(e.winner != 'native' for e in art.entries)} not native: "
+            f"{table}",
+            f"--algo auto: {len(rows)} rows, each the artifact's winner; "
+            f"tune --check 0 against the artifact, 10 against "
+            f"{best.op}@{best.nbytes} B swapped to {best.runner_up} "
+            f"(--margin {margin:g})"]
+
+
+def phase_linkmap() -> None:
+    """linkmap and the tuner on the card, sim world of 8 ranks on a 2 x 4
+    mesh, float32.  Gated: the probe step against ppermute's plain result;
+    the neighbor sweep's records (one probe and one verdict a directed
+    link of the plan, its exit code 6 exactly when a link is non-ok); a
+    delay of LINK_FACTOR times on one link graded dead with its rank and
+    op, exit 6 and a link_degraded event; --all-pairs covering the 56
+    ordered pairs; --concurrent with a planted fault, its link re-probed
+    serially and dead; tune -> --algo auto -> tune --check 0 / 10; the
+    split lanes against the single channel and contend --split.  Printed:
+    each link's p50 and GB/s, the clean sweep's non-ok links, the split
+    race's slowdown, auto_vs_native."""
+    import tempfile
+
+    from tpu_perf_torch import bench
+    from tpu_perf_torch.linkmap import (
+        LinkProber, all_links, plan_all_pairs, plan_mesh_links,
+    )
+    from tpu_perf_torch.metrics import percentile
+    from tpu_perf_torch.parallel import make_mesh
+    from tpu_perf_torch.world import SimWorld, resolve_device
+
+    dev = resolve_device()
+    axes = ("ax0", "ax1")
+    world = SimWorld(8, dev, make_mesh(LINK_SHAPE, axes, n=8))
+    plan = plan_mesh_links(LINK_SHAPE, axes)
+    links = [(p.src, p.dst) for p in all_links(plan)]
+    checked = _check_probe_outputs(world)
+    # each link's p50 (the CLI's records carry the mean)
+    res = LinkProber(world, nbytes=LINK_BYTES, iters=LINK_ITERS,
+                     runs=LINK_RUNS).probe(plan)
+    p50 = {r.probe.op: percentile(r.samples, 50) / LINK_ITERS
+           for r in res.probes}
+    print(f"linkmap: {checked} probe outputs equal to ppermute's plain "
+          f"result; per link at {LINK_BYTES} B x {LINK_ITERS} iters "
+          f"({CARD}): " + ", ".join(f"{op} {t * 1e6:.2f} us "
+                                    f"{LINK_BYTES / t / 1e9:.1f} GB/s"
+                                    for op, t in p50.items()), flush=True)
+    sweep = ["linkmap", "--mesh", LINK_MESH, "-b", str(LINK_BYTES), "-i",
+             str(LINK_ITERS), "-r", str(LINK_RUNS), "--fence", "block"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-linkmap-") as root:
+        rc = _cli_quiet(sweep + ["-l", f"{root}/clean"], "linkmap",
+                        (0, 6))
+        _, _, verdicts = _linkmap_logs(f"{root}/clean", links, "clean sweep")
+        sick = [f"{v['op']} {v['verdict']} ({v['detail']})"
+                for v in verdicts.values() if v["verdict"] != "ok"]
+        if (rc == 6) != bool(sick):
+            fail(f"linkmap exited {rc} with {len(sick)} non-ok link(s)")
+        print(f"linkmap: clean sweep, {len(links)} links, exit {rc}, "
+              f"non-ok: {sick or 'none'}", flush=True)
+        # a planted delay: the link graded dead, its rank and op named
+        folder = f"{root}/fault"
+        _cli_quiet(sweep + ["-l", folder, "--fault",
+                            f"delay:{LINK_FAULTED}::1-:{LINK_FACTOR - 1:g}"],
+                   "linkmap with a planted delay", (6,))
+        _, _, verdicts = _linkmap_logs(folder, links, "planted delay")
+        hit = [v for v in verdicts.values() if v["op"] == LINK_FAULTED]
+        if len(hit) != 1 or hit[0]["verdict"] != "dead" or hit[0]["rank"]:
+            fail(f"linkmap: the delayed link graded {hit}")
+        events = [e for e in _jsonl(folder, "health")
+                  if e["kind"] == "link_degraded"
+                  and e["op"] == LINK_FAULTED]
+        if len(events) != 1 or events[0]["severity"] != "critical":
+            fail(f"linkmap: link_degraded events for {LINK_FAULTED}: "
+                 f"{events}")
+        # every ordered pair, then the same plan concurrently with a fault
+        pairs = [(p.src, p.dst) for p in all_links(plan_all_pairs(8))]
+        if len(set(pairs)) != 56:
+            fail(f"linkmap --all-pairs plans {len(set(pairs))} links")
+        _cli_quiet(sweep + ["--all-pairs", "-l", f"{root}/pairs"],
+                   "linkmap --all-pairs", (0, 6))
+        _linkmap_logs(f"{root}/pairs", pairs, "--all-pairs")
+        folder = f"{root}/concurrent"
+        _cli_quiet(sweep + ["--all-pairs", "--concurrent", "-l", folder,
+                            "--fault", f"delay:{LINK_PAIR_FAULTED}::1-:"
+                            f"{LINK_FACTOR - 1:g}"],
+                   "linkmap --all-pairs --concurrent", (6,))
+        meta, probes, verdicts = _linkmap_logs(folder, pairs, "--concurrent")
+        # the concurrent walk spends LINK_RUNS run ids a round; a link
+        # re-probed serially has its samples after them
+        batch_end = LINK_RUNS * len(plan_all_pairs(8))
+        serial = sorted(r["op"] for r in probes.values()
+                        if r["first_run"] > batch_end)
+        hit = [v for v in verdicts.values() if v["op"] == LINK_PAIR_FAULTED]
+        if (not meta["concurrent"] or LINK_PAIR_FAULTED not in serial
+                or hit[0]["verdict"] != "dead"
+                or probes[(3, 5)]["samples"] != LINK_RUNS):
+            fail(f"linkmap --concurrent: re-probed {serial}, the faulted "
+                 f"link graded {hit}")
+        print(f"linkmap: --all-pairs 56 links; --concurrent re-probed "
+              f"{len(serial)} flagged link(s) serially ({serial}), the "
+              "planted one dead", flush=True)
+        for line in _tune_then_auto(root):
+            print(line, flush=True)
+        _check_split_lanes(SimWorld(8, dev))
+        folder = f"{root}/split"
+        _cli_quiet(["contend", "--op", "ppermute", "--split", str(SPLIT_K),
+                    "-b", str(SPLIT_BYTES), "-i", str(ITERS), "-r",
+                    str(ARENA_RUNS), "-l", folder], "contend --split")
+        from tpu_perf_torch.report import aggregate, interference_matrix
+
+        cells = interference_matrix(aggregate(_rows_in(folder)))
+        if not cells or cells[0].load != f"split:{SPLIT_K}":
+            fail(f"contend --split {SPLIT_K}: no split cell in its rows")
+        print(f"contend --split {SPLIT_K}: lanes equal to the single "
+              f"channel; ppermute at {SPLIT_BYTES} B: split / single "
+              f"{cells[0].slowdown:.4f}x ({CARD})", flush=True)
+    print(f"bench auto_vs_native ({CARD}): "
+          f"{json.dumps(bench.auto_vs_native(dev))}", flush=True)
+    _release_cache("linkmap")
+
+
 DIST_OPS = ("allreduce,all_gather,reduce_scatter,all_to_all,broadcast,"
             "broadcast_psum,barrier,ring")
 DIST_SWEEP = "4K:16M"
@@ -4809,6 +5087,14 @@ def _procs(cmds: list, envs: list, what: str, limit: float) -> list:
     """Run the processes of one world to their end under a wall-clock
     limit; any rank's failure fails the smoke with its output's tail.
     Returns (stdout, stderr) each."""
+    return [(out, err) for out, err, _ in _run_procs(cmds, envs, what,
+                                                     limit)]
+
+
+def _run_procs(cmds: list, envs: list, what: str, limit: float,
+               rcs=(0,)) -> list:
+    """:func:`_procs` with the exit codes ``rcs`` allowed: (stdout,
+    stderr, exit code) each."""
     here = os.path.dirname(os.path.abspath(__file__))
     procs = [subprocess.Popen(c, cwd=here, env=e, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
@@ -4823,10 +5109,10 @@ def _procs(cmds: list, envs: list, what: str, limit: float) -> list:
                 p.kill()
                 p.wait()
     for i, (p, (out, err)) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
+        if p.returncode not in rcs:
             fail(f"{what}: process {i} exited {p.returncode}:\n"
                  f"{out[-3000:]}\n{err[-4000:]}")
-    return outs
+    return [(out, err, p.returncode) for p, (out, err) in zip(procs, outs)]
 
 
 def _torchrun(n: int, argv: list, what: str, device: str, **env) -> list:
@@ -5064,6 +5350,154 @@ def _cards_arena(n: int, device: str) -> list[str]:
     return said
 
 
+#: linkmap across the cards: bytes a probe (the latency and the bandwidth
+#: regime), iters and runs a link
+CARDS_LINK_BYTES, CARDS_LINK_ITERS, CARDS_LINK_RUNS = (4096, MAIN_BYTES), 10, 5
+#: auto_vs_native across the cards: the allreduce sizes and the runs
+CARDS_TUNE_SWEEP, CARDS_TUNE_RUNS = "4096,262144", 8
+
+
+def _cards_linkmap_run(n: int, argv: list[str], what: str, device: str,
+                       folder: str, links: list) -> tuple[int, dict]:
+    """One linkmap sweep across the cards, a process a card (torchrun's
+    variables set by hand, so each rank's exit code is its own): every
+    rank must exit alike, 0 or 6; rank 0 alone writes, one probe and one
+    verdict record a link.  Returns (exit code, verdicts by link)."""
+    import glob
+
+    port = _free_port()
+    cmd = [sys.executable, "-m", "tpu_perf_torch", "linkmap", *argv,
+           "--distributed", "--device", device, "-l", folder]
+    procs = _run_procs([cmd] * n, [_rank_env(r, n, port, n)
+                                   for r in range(n)],
+                       what, CARDS_LIMIT_S, rcs=(0, 6))
+    rcs = {p[2] for p in procs}
+    writers = {int(os.path.basename(p).split("-")[-3])
+               for p in glob.glob(os.path.join(folder, "linkmap-*.log"))}
+    if len(rcs) != 1 or writers != {0}:
+        fail(f"across cards: {what}: exit codes {rcs}, records written by "
+             f"ranks {writers}")
+    _, _, verdicts = _linkmap_logs(folder, links, what)
+    rc = rcs.pop()
+    if (rc == 6) != any(v["verdict"] != "ok" for v in verdicts.values()):
+        fail(f"across cards: {what} exited {rc} against its verdicts")
+    return rc, verdicts
+
+
+def _cards_auto_vs_native(n: int, device: str, root: str) -> str:
+    """auto_vs_native across the cards: every allreduce decomposition
+    raced against NCCL's at CARDS_TUNE_SWEEP (torchrun, rows identical on
+    the ranks), folded through the tuner's build_selection and resolved
+    back as --algo auto resolves it: native / selected p50."""
+    import io
+
+    from tpu_perf_torch import report
+    from tpu_perf_torch.tuner import LoadedSelection, build_selection
+
+    logs = os.path.join(root, "tune")
+    _torchrun(n, ["run", "--op", "allreduce", "--algo", "all", "--sweep",
+                  CARDS_TUNE_SWEEP, "-i", str(ITERS), "-r",
+                  str(CARDS_TUNE_RUNS), "-l", logs],
+              "torchrun run --algo all for auto_vs_native", device)
+    points = report.aggregate(_logged_rows(logs)[0])
+    art = build_selection(points, generated="", generated_unix=0.0)
+    sel = LoadedSelection(art, err=io.StringIO())
+    p50 = {(p.nbytes, p.algo or "native"): p.lat_us["p50"] for p in points}
+    out = []
+    for e in art.entries:
+        pick = sel.resolve("allreduce", e.nbytes, "float32", n_devices=n,
+                           err=io.StringIO())
+        native = p50[(e.nbytes, "native")]
+        chosen = p50.get((e.nbytes, pick), native)
+        out.append(f"{e.nbytes} B: selected {pick}, native {native:.2f} us, "
+                   f"selected {chosen:.2f} us, speedup "
+                   f"{native / chosen:.4f}x (margin {e.margin:.3f}x)")
+    return "auto_vs_native over the cards: " + "; ".join(out)
+
+
+def _cards_linkmap(n: int, device: str) -> list[str]:
+    """linkmap across the cards, one rank a card: the neighbor plan on a
+    2 x 2 mesh (graded against the card's NVLink rate each way, the
+    default there), --all-pairs over every directed card pair at
+    CARDS_LINK_BYTES (the 4 KiB sweep without a roofline, the large one
+    against the NVLink rate, given: all-pairs has no default), the mesh
+    sweep again (the first sweep of a fresh process beside a later one),
+    --concurrent, contend --split 2 and auto_vs_native.  Gated: every
+    sweep's records (one probe and one verdict a link, rank 0 the only
+    writer) and every rank's exit code alike; the rest is printed."""
+    import tempfile
+
+    from tpu_perf_torch.linkmap import all_links, plan_all_pairs, plan_mesh_links
+    from tpu_perf_torch.report import aggregate, interference_matrix
+
+    pairs = [(p.src, p.dst) for p in all_links(plan_all_pairs(n))]
+    said = []
+    common = ["-i", str(CARDS_LINK_ITERS), "-r", str(CARDS_LINK_RUNS)]
+    big = str(CARDS_LINK_BYTES[-1])
+    mesh = [(p.src, p.dst)
+            for p in all_links(plan_mesh_links((2, 2), ("ax0", "ax1")))]
+
+    def mesh_sweep(root: str, which: str) -> str:
+        rc, verdicts = _cards_linkmap_run(
+            n, ["--mesh", "2x2", "-b", big] + common,
+            f"linkmap --mesh 2x2 ({which})", device,
+            os.path.join(root, f"mesh-{which}"), mesh)
+        return (f"linkmap --mesh 2x2 at {big} B ({which}), {len(mesh)} "
+                f"links, exit {rc}: " + ", ".join(
+                    f"{v['op']} {v['bw_gbps']:.1f} GB/s {v['verdict']}"
+                    for v in verdicts.values()))
+
+    nvlink = "0"
+    if device == "cuda":
+        from tpu_perf_torch.chips import card_spec
+
+        nvlink = f"{card_spec().nvlink_gbps:g}"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-cards-lm-") as root:
+        said.append(mesh_sweep(root, "first"))
+        for nbytes in CARDS_LINK_BYTES:
+            t0 = time.perf_counter()
+            off = ["--roofline-gbps",
+                   "0" if nbytes < 1024**2 else nvlink]
+            rc, verdicts = _cards_linkmap_run(
+                n, ["--all-pairs", "-b", str(nbytes)] + common + off,
+                f"linkmap --all-pairs -b {nbytes}", device,
+                os.path.join(root, f"pairs{nbytes}"), pairs)
+            said.append(
+                f"linkmap --all-pairs at {nbytes} B, {len(pairs)} links, "
+                f"exit {rc} ({time.perf_counter() - t0:.1f} s): " + ", ".join(
+                    f"{v['op']} {v['lat_us']:.2f} us {v['bw_gbps']:.1f} GB/s"
+                    + (f" {v['roofline_frac']:.3f} of the roofline"
+                       if v["roofline_frac"] is not None else "")
+                    + ("" if v["verdict"] == "ok" else f" {v['verdict']}")
+                    for v in verdicts.values()))
+        said.append(mesh_sweep(root, "again"))
+        folder = os.path.join(root, "concurrent")
+        rc, verdicts = _cards_linkmap_run(
+            n, ["--all-pairs", "--concurrent", "-b", big] + common,
+            "linkmap --all-pairs --concurrent", device, folder, pairs)
+        probes = [r for r in _jsonl(folder, "linkmap")
+                  if r["record"] == "probe"]
+        rounds = CARDS_LINK_RUNS * len(plan_all_pairs(n))
+        batches = sorted({(r["first_run"], round(r["lat_us"], 3))
+                          for r in probes if r["first_run"] <= rounds})
+        said.append(f"linkmap --all-pairs --concurrent at {big} B, exit "
+                    f"{rc}: a round's batch " + ", ".join(
+                        f"{lat:.2f} us" for _, lat in batches)
+                    + f"; {sum(r['first_run'] > rounds for r in probes)} "
+                    "link(s) re-probed serially")
+        logs = os.path.join(root, "split")
+        _torchrun(n, ["contend", "--op", "ppermute", "--split", "2", "-b",
+                      big, "-i", str(ITERS), "-r", str(CARDS_LINK_RUNS),
+                      "-l", logs], "torchrun contend --split 2", device)
+        cells = interference_matrix(aggregate(_logged_rows(logs)[0]))
+        said.append("contend --split 2, ppermute at " + big + " B: split / "
+                    "single " + ", ".join(
+                        f"{c.slowdown:.4f}x" for c in cells
+                        if c.slowdown is not None))
+        said.append(_cards_auto_vs_native(n, device, root))
+    return said
+
+
 #: the skew soak across the cards: allreduce at 4 KiB and 16 MiB a rank
 #: round robin under the fused fence, the last rank entering late by up
 #: to CARDS_SKEW_US in visits 101-300
@@ -5137,6 +5571,20 @@ def cards_chaos(cards: int, device: str = "cuda") -> int:
     return 0
 
 
+def cards_linkmap(cards: int, device: str = "cuda") -> int:
+    """linkmap and the tuner across the cards alone
+    (:func:`_cards_linkmap`); on a host with four cards: ``python3 -c
+    "import chip_smoke as c; c.cards_linkmap(4)"``."""
+    t0 = time.perf_counter()
+    if device == "cuda":
+        print(card_line_all(), flush=True)
+    for line in _cards_linkmap(cards, device):
+        print(f"cards: {line}", flush=True)
+    print(f"cards: total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "cards": cards}))
+    return 0
+
+
 def card_line_all() -> str:
     """Every visible card's name and power limit, as nvidia-smi gives
     them."""
@@ -5156,8 +5604,9 @@ def across_cards(cards: int, device: str = "cuda") -> int:
     Builds the kernels; runs :func:`cards_rank` in a world of ``cards``
     processes (every op against the sim chain, the push chains, each peer
     kernel timed beside its NCCL call); then the CLI through torchrun
-    (:func:`_cards_cli`), the skew soak (:func:`_cards_chaos`) and the
-    arena with the spread axis (:func:`_cards_arena`).  Prints each card's name and power limit, the
+    (:func:`_cards_cli`), the skew soak (:func:`_cards_chaos`), the
+    arena with the spread axis (:func:`_cards_arena`) and linkmap with the
+    tuner (:func:`_cards_linkmap`).  Prints each card's name and power limit, the
     results, and ``{"ok": true, "cards": N}`` last.  ``device`` "cpu"
     rehearses the world and the CLI on gloo (no push chain, no timing)."""
     import torch
@@ -5179,7 +5628,8 @@ def across_cards(cards: int, device: str = "cuda") -> int:
     for line in outs[0][0].splitlines():
         print(line, flush=True)
     for line in (_cards_cli(cards, device) + _cards_chaos(cards, device)
-                 + _cards_arena(cards, device)):
+                 + _cards_arena(cards, device)
+                 + _cards_linkmap(cards, device)):
         print(f"cards: {line}", flush=True)
     print(f"cards: total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "cards": cards}))
@@ -6080,6 +6530,7 @@ def _main(torch) -> int:
         timed("contend", phase_contend_axes)
         timed("arena", phase_arena)
         timed("push", phase_push)
+        timed("linkmap", phase_linkmap)
         _, peer_rows = timed("distributed", phase_distributed)
     finally:
         shutil.rmtree(REPORT_DIR, ignore_errors=True)

@@ -257,17 +257,26 @@ def test_an_algorithm_on_a_hand_written_kernel_is_refused():
 
 
 def test_the_auto_tuner_flags_are_refused_naming_the_roadmap(capsys):
+    # the tuner is ported: what its flags still refuse is what JAX's
+    # refuse (a misused flag), and nothing names the roadmap any more
+    from tpu_perf import cli as jcli
     from tpu_perf_torch import cli
 
-    for argv in (["--algo", "auto"], ["--algo-artifact", "a.json"],
-                 ["--tune-margin", "1.1"], ["--tune-max-age", "60"]):
-        assert cli.main(["run", "--op", "allreduce", "--device", "cpu",
-                         *argv]) == 2
-        err = capsys.readouterr().err
-        assert "ROADMAP.md section 1 item 3" in err, argv
-    assert cli.main(["contend", "--split", "2", "--op", "ppermute",
+    for argv, said in ((["--algo", "auto"], "--algo-artifact PATH"),
+                       (["--algo-artifact", "a.json"],
+                        "only with --algo auto"),
+                       (["--tune-margin", "0.5"], "tune_margin"),
+                       (["--tune-max-age", "-60"], "tune_max_age")):
+        for main in (cli.main, jcli.main):
+            assert main(["run", "--op", "allreduce", "--device", "cpu",
+                         *argv] if main is cli.main else
+                        ["run", "--op", "allreduce", *argv]) == 2
+            err = capsys.readouterr().err
+            assert said in err and "ROADMAP" not in err, argv
+    assert cli.main(["contend", "--split", "1", "--op", "ppermute",
                      "--device", "cpu"]) == 2
-    assert "ROADMAP.md section 1 item 3" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "K >= 2" in err and "ROADMAP" not in err
 
 
 def test_an_arena_run_writes_jaxs_rows_and_the_crossover(tmp_path, capsys,

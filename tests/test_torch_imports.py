@@ -84,7 +84,12 @@ SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.scenarios", "tpu_perf_torch.scenarios.spec",
                  "tpu_perf_torch.scenarios.vops",
                  "tpu_perf_torch.scenarios.compose",
-                 "tpu_perf_torch.tools.soak_spikes")
+                 "tpu_perf_torch.tools.soak_spikes",
+                 "tpu_perf_torch.linkmap", "tpu_perf_torch.linkmap.plan",
+                 "tpu_perf_torch.linkmap.probe",
+                 "tpu_perf_torch.linkmap.grade",
+                 "tpu_perf_torch.linkmap.report", "tpu_perf_torch.tuner",
+                 "tpu_perf_torch.tuner.artifact")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -133,6 +138,11 @@ def no_card(monkeypatch):
     # a synthetic soak still builds and warms its points on the card
     ["chaos", "--synthetic", "0.001", "--max-runs", "2", "--op", "ring",
      "-b", "64"],
+    # a real linkmap probes the card (only --synthetic touches none)
+    ["linkmap", "--mesh", "2x4", "-b", "4K"],
+    ["run", "--op", "allreduce", "--algo", "auto", "--algo-artifact",
+     "sel.json"],
+    ["contend", "--op", "ppermute", "--split", "2", "-b", "4K"],
 ])
 def test_entry_points_without_a_card_raise(no_card, argv):
     with pytest.raises(NoDeviceError, match="--device cpu"):

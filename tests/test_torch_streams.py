@@ -250,8 +250,11 @@ def test_contend_rows_have_the_jax_coordinates(eight_devices):
     (dict(load="hbm_stream", op="allreduce,ring"), ValueError,
      "single victim op"),
     (dict(load="hbm_stream", fence="slope"), ValueError, "per-run fence"),
-    (dict(load="split:2", op="ppermute"), NotImplementedError,
-     "not yet ported"),
+    # the split-channel shape is ported: what it still refuses is JAX's
+    # (the id is the case's name from before the port)
+    pytest.param(dict(load="split:2", op="allreduce"), ValueError,
+                 "slices a ppermute payload",
+                 id="kw4-NotImplementedError-not yet ported"),
 ])
 def test_run_contend_refusals(kw, err, match):
     opts = Options(**{"op": "allreduce", "device": "cpu", **kw})
@@ -260,10 +263,11 @@ def test_run_contend_refusals(kw, err, match):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--split", "2"],
-    # the axis flags run (tests/test_torch_contend_axes.py); beside them
-    # the split-channel shape, still to port, stays refused
-    ["--split", "2", "--victim-axis", "x"],
+    # the split-channel shape is ported and runs on a ppermute victim
+    ["--split", "2", "--op", "ppermute"],
+    # the axis flags run (tests/test_torch_contend_axes.py), beside the
+    # split-channel shape too
+    ["--split", "2", "--op", "ppermute", "--victim-axis", "x"],
     # the arena's --algo and the push plane are ported: these run
     ["--load", "hbm_stream", "--load-axis", "x", "--algo", "ring"],
     ["--load", "hbm_stream", "--push-textfile", "push.prom"],
@@ -275,14 +279,13 @@ def test_contend_flags_not_yet_ported(flags, capsys, tmp_path,
     rc = cli.main(["contend", "-b", "4K", "--device", "cpu", "--csv"]
                   + flags)
     out, err = capsys.readouterr()
-    if "--split" in flags:
-        assert rc == 2
-        assert "not yet ported" in err and "ROADMAP" in err
-        return
     assert rc == 0, err
     rows = [ln.split(",") for ln in out.splitlines()[1:]]
     algos = {r[19] for r in rows}
     assert algos == ({"ring"} if "--algo" in flags else {""})
+    if "--split" in flags:
+        assert {r[23] for r in rows} == {"", "split:2"}
+        assert {r[22] for r in rows} <= {"", "0"}  # no single lane
 
 
 @pytest.mark.parametrize("flags,match", [

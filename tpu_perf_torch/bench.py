@@ -5,7 +5,8 @@ one-device set).  Prints ONE JSON line::
      "runs_dropped": N, "card": {...}, "metrics": [{...}, ...],
      "phases": {...}, "adaptive": {...}, "dispatch_overhead": {...},
      "contention": {...}, "push_overhead": {...}, "hier_vs_flat": {...},
-     "scenario_step": {...}, "vopt_vs_ring": {...}}
+     "scenario_step": {...}, "auto_vs_native": {...},
+     "vopt_vs_ring": {...}}
 
 The top-level fields are the first instrument's; ``metrics`` carries every
 instrument, labelled as the JAX package labels them:
@@ -44,7 +45,11 @@ under an ``hbm_stream`` load, through ``contend``'s own runner, on one
 rank.  The JAX package's arena instruments follow, with its keys, in the
 sim world of 8 ranks: ``hier_vs_flat`` (the ``hier`` allreduce on a 2 x 4
 mesh against the native one), ``scenario_step`` (the tp-allreduce-burst
-step against four single allreduces), ``vopt_vs_ring`` (the doubling
+step against four single allreduces), ``auto_vs_native`` (every buildable
+allreduce decomposition raced against the native call at 4 KiB and 256
+KiB, folded through the tuner's own ``build_selection`` and resolved
+back through ``LoadedSelection`` as ``--algo auto`` resolves them: the
+native / selected p50 speedup), ``vopt_vs_ring`` (the doubling
 allgatherv against the ring at ratios 2 and 8); and ``push_overhead``,
 the push plane's tee on the record path (host only).  Every number is
 labelled with the card's name and power limit.
@@ -269,6 +274,7 @@ def contention(world: SimWorld, nbytes=CONTEND_NBYTES, runs=CONTEND_RUNS,
 ARENA_RANKS = 8
 HIER_SIZES, HIER_RUNS, HIER_ITERS = (4096, 262144), 8, 4
 SCENARIO_SIZES, SCENARIO_RUNS, SCENARIO_ITERS = (4096, 65536), 8, 2
+TUNE_SIZES, TUNE_RUNS, TUNE_ITERS = (4096, 262144), 8, 4
 VOPT_SIZES, VOPT_RATIOS, VOPT_RUNS, VOPT_ITERS = (4096, 262144), (2, 8), 8, 4
 #: push_overhead: rows written a side
 PUSH_ROWS = 20000
@@ -338,6 +344,79 @@ def scenario_step(device, sizes=SCENARIO_SIZES, runs=SCENARIO_RUNS,
         })
     return {"scenario": spec.name, "layers": layers, "points": points,
             "overhead_p50": percentile([p["overhead"] for p in points], 50)}
+
+
+def auto_vs_native(device, sizes=TUNE_SIZES, runs=TUNE_RUNS,
+                   iters=TUNE_ITERS, n: int = ARENA_RANKS) -> dict | None:
+    """The measure->select loop priced end to end: every buildable
+    allreduce decomposition raced against the native call at each size,
+    the rows folded through the tuner's own ``build_selection`` (the
+    verdict path `tune` runs), each size resolved back through
+    ``LoadedSelection`` as ``--algo auto`` resolves it at plan time, and
+    the native / selected p50 speedup (>= 1: auto never picks a slower
+    measured algorithm).  ``margin`` records how decisive the crossover
+    was.  None in a world of one (no collective to race)."""
+    import io
+
+    from tpu_perf_torch.arena.algorithms import algos_for_op
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.report import aggregate
+    from tpu_perf_torch.schema import ResultRow, timestamp_now
+    from tpu_perf_torch.timing import time_step
+    from tpu_perf_torch.tuner import LoadedSelection, build_selection
+
+    if n < 2:
+        return None
+    world = SimWorld(n, device)
+    rows, p50s = [], {}
+    for nbytes in sizes:
+        for algo in ["native"] + algos_for_op("allreduce", n):
+            try:
+                built = build_op("allreduce", world, nbytes, iters,
+                                 algo=algo)
+            except (ValueError, RuntimeError):
+                continue
+            lats_us = [t / iters * 1e6 for t in time_step(
+                built.step, built.example_input, runs,
+                warmup_runs=2).samples]
+            p50s[(nbytes, algo)] = percentile(lats_us, 50)
+            rows += [ResultRow(
+                timestamp=timestamp_now(), job_id="bench-tune",
+                backend=world.backend, op="allreduce", nbytes=nbytes,
+                iters=iters, run_id=i + 1, n_devices=n, lat_us=lat,
+                algbw_gbps=0.0, busbw_gbps=0.0, time_ms=lat * iters / 1e3,
+                mode="oneshot", algo="" if algo == "native" else algo)
+                for i, lat in enumerate(lats_us)]
+    art = build_selection(
+        aggregate(rows),
+        generated=time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        generated_unix=time.time(), source="bench")
+    if not art.entries:
+        return None
+    sel = LoadedSelection(art, err=io.StringIO())
+    by_key = {(e.op, e.nbytes): e for e in art.entries}
+    points = []
+    for nbytes in sizes:
+        if (nbytes, "native") not in p50s:
+            continue
+        pick = sel.resolve("allreduce", nbytes, "float32", n_devices=n,
+                           err=io.StringIO())
+        entry = by_key.get(("allreduce", nbytes))
+        native = p50s[(nbytes, "native")]
+        chosen = p50s.get((nbytes, pick), native)
+        points.append({
+            "nbytes": nbytes,
+            "selected": pick,
+            "native_us": native,
+            "selected_us": chosen,
+            "speedup": native / chosen if chosen > 0 else 0.0,
+            "margin": entry.margin if entry is not None else 0.0,
+            "algos_raced": len([a for (nb, a) in p50s if nb == nbytes]),
+        })
+    if not points:
+        return None
+    return {"op": "allreduce", "n_devices": n, "points": points,
+            "speedup_p50": percentile([p["speedup"] for p in points], 50)}
 
 
 def vopt_vs_ring(device, sizes=VOPT_SIZES, ratios=VOPT_RATIOS,
@@ -481,6 +560,9 @@ def main(device: str | None = None) -> dict:
     payload["push_overhead"] = push_overhead()
     payload["hier_vs_flat"] = hier_vs_flat(dev)
     payload["scenario_step"] = scenario_step(dev)
+    auto = auto_vs_native(dev)
+    if auto is not None:
+        payload["auto_vs_native"] = auto
     payload["vopt_vs_ring"] = vopt_vs_ring(dev)
     phases.stop()
     payload["phases"] = {**phases.snapshot(),

@@ -4,8 +4,8 @@
 The table is keyed by the name ``torch.cuda.get_device_name()`` reports.
 Its peaks are the published ones of NVIDIA's "H100 Tensor Core GPU"
 data sheet, dense rates without sparsity, at each form factor's full
-power limit: device-memory bandwidth, bf16 tensor-core rate and float32
-rate outside the tensor cores.  A card set below its power limit runs
+power limit: device-memory bandwidth, bf16 tensor-core rate, float32
+rate outside the tensor cores and one direction of a card pair's NVLink.  A card set below its power limit runs
 slower under load, so every number measured against these peaks is
 written beside the card's power limit.
 
@@ -36,17 +36,24 @@ class CardSpec:
     hbm_gbps: float    # device-memory bandwidth, GB/s
     bf16_tflops: float  # dense bf16 tensor-core rate
     f32_tflops: float  # float32 outside the tensor cores
+    # one direction of one card pair's NVLink, GB/s (the linkmap roofline,
+    # the counterpart of the JAX table's per-link ici_gbps); None where
+    # the data sheet gives no figure for a pair
+    nvlink_gbps: float | None = None
     # the grid's degraded-window floor; None until measured on the card
     stream_floor_gbps: float | None = None
 
 
 CARDS: dict[str, CardSpec] = {c.kind: c for c in (
+    # SXM: 900 GB/s of NVLink a card, 450 each way to the NVSwitch fabric
     CardSpec("h100-sxm", "NVIDIA H100 80GB HBM3", hbm_gbps=3350.0,
-             bf16_tflops=989.0, f32_tflops=67.0),
+             bf16_tflops=989.0, f32_tflops=67.0, nvlink_gbps=450.0),
+    # PCIe and NVL: 600 GB/s over the NVLink bridge of a card pair, 300
+    # each way (an unbridged pair talks over PCIe: --roofline-gbps)
     CardSpec("h100-pcie", "NVIDIA H100 PCIe", hbm_gbps=2000.0,
-             bf16_tflops=756.0, f32_tflops=51.0),
+             bf16_tflops=756.0, f32_tflops=51.0, nvlink_gbps=300.0),
     CardSpec("h100-nvl", "NVIDIA H100 NVL", hbm_gbps=3900.0,
-             bf16_tflops=835.0, f32_tflops=60.0),
+             bf16_tflops=835.0, f32_tflops=60.0, nvlink_gbps=300.0),
 )}
 
 _BY_NAME = {c.device_name.lower(): c for c in CARDS.values()}

@@ -1,7 +1,8 @@
 """Command-line interface (port of the ``run``, ``monitor``, ``arena``,
 ``scenario``, ``contend``, ``chaos``, ``chaos verify``, ``health``,
-``ingest``, ``push replay``, ``report``, ``grid``, ``ops``, ``chips``,
-``selftest`` and ``bench`` subcommands of ``tpu_perf/cli.py``).
+``ingest``, ``push replay``, ``report``, ``grid``, ``linkmap``,
+``linkmap report``, ``tune``, ``ops``, ``chips``, ``selftest`` and
+``bench`` subcommands of ``tpu_perf/cli.py``).
 
 Flag letters keep the reference's meanings (mpi_perf.c:273-339) where the
 port has them: ``-i`` iters, ``-b`` buffer size, ``-r`` runs, ``-l`` log
@@ -61,6 +62,14 @@ world, one process a rank (``torchrun``); ``--mesh`` / ``--axes`` and
     python -m tpu_perf_torch monitor --op pl_allreduce -b 4K -l /tmp/logs \
         --push http://127.0.0.1:8080; python -m tpu_perf_torch push replay \
         /tmp/logs --url http://127.0.0.1:8080
+    python -m tpu_perf_torch linkmap --mesh 2x4 -b 4M -l /tmp/lm
+    python -m tpu_perf_torch linkmap report /tmp/lm
+    torchrun --nproc-per-node 4 -m tpu_perf_torch linkmap --distributed \
+        --all-pairs -b 256M
+    python -m tpu_perf_torch tune -d /tmp/arena -o sel.json
+    python -m tpu_perf_torch run --op allreduce --sweep 4K,4M --algo auto \
+        --algo-artifact sel.json
+    python -m tpu_perf_torch contend --op ppermute --split 2 -b 4M
     python -m tpu_perf_torch ops
     python -m tpu_perf_torch chips
     python -m tpu_perf_torch selftest
@@ -170,11 +179,6 @@ def _parse_mesh(args: argparse.Namespace) -> tuple[tuple[int, ...],
 
 def _options_from(args: argparse.Namespace, **overrides) -> Options:
     """The run flags as Options; ``overrides`` win."""
-    if (args.algo_artifact or args.tune_margin is not None
-            or args.tune_max_age is not None):
-        from tpu_perf_torch.runner import _AUTO_REFUSAL
-
-        raise NotImplementedError(_AUTO_REFUSAL)
     mesh_shape, mesh_axes = _parse_mesh(args)
     # the scenario selection: the `scenario` subcommand's positional or
     # the shared --scenario flag; either implies op="scenario" when the op
@@ -190,6 +194,8 @@ def _options_from(args: argparse.Namespace, **overrides) -> Options:
         logfolder=args.logfolder, iters=args.iters, ppn=args.ppn,
         buff_sz=parse_size(args.size), num_runs=args.runs, op=op,
         algo=args.algo, scenario=scenario,
+        algo_artifact=args.algo_artifact, tune_margin=args.tune_margin,
+        tune_max_age=args.tune_max_age,
         skew_spread=(parse_skew_spread(args.skew_spread)
                      if args.skew_spread else ()),
         imbalance=(parse_imbalance(args.imbalance)
@@ -392,7 +398,8 @@ def _cmd_push_replay(args: argparse.Namespace) -> int:
 def _cmd_contend(args: argparse.Namespace) -> int:
     """The contention race (tpu_perf_torch.streams.contend): a victim op
     against a concurrent load on the stream engine's lanes, a compute
-    kernel (--load mxu_gemm / hbm_stream) or a sibling op (--load OP).
+    kernel (--load mxu_gemm / hbm_stream), a sibling op (--load OP), or
+    K split-channel ppermute lanes against the single channel (--split K).
     Every point is measured idle and loaded in one job, so `report`
     renders the interference matrix from the rows."""
     from tpu_perf_torch.schema import EXT_PREFIX
@@ -490,6 +497,385 @@ def _cmd_contend(args: argparse.Namespace) -> int:
         slow = "—" if cell.slowdown is None else f"{cell.slowdown:.3g}x"
         print(f"[tpu-perf-torch contend] {cell.op} @ {cell.nbytes} B under "
               f"{cell.load}: slowdown {slow}", file=sys.stderr)
+    return 0
+
+
+def _linkmap_world(args: argparse.Namespace, shape, axes):
+    """The world a real linkmap sweep probes: this rank of a joined
+    ``--distributed`` world (every card pair a link), or the sim ranks of
+    one card laid over ``--mesh`` (default: --sim-ranks on one axis)."""
+    from tpu_perf_torch.runner import world_for
+
+    n = args.sim_ranks
+    if n is None and not args.distributed:
+        n = math.prod(shape) if shape else DEF_SIM_RANKS
+    elif n is None:
+        n = 1  # a process of a distributed world holds one rank
+    return world_for(Options(device=args.device, sim_ranks=n,
+                             mesh_shape=shape, mesh_axes=axes,
+                             distributed=args.distributed))
+
+
+def _linkmap_roofline(args: argparse.Namespace, world, axes):
+    """``(roofline GB/s or None, its axes or None)``: an explicit
+    --roofline-gbps applies to every probed axis (0 disables); else, as
+    the JAX package rules, none for a synthetic or all-pairs sweep or a
+    dcn* axis, and the detected card's NVLink rate for the other axes of
+    a multi-process world on cards.  The sim world has no link (a probe
+    is a memory copy), so it grades by its peers alone, with a note."""
+    roofline, roofline_axes = args.roofline_gbps, None
+    if roofline is None and world is not None and not args.all_pairs:
+        from tpu_perf_torch.world import is_dist
+
+        fast_axes = tuple(a for a in axes if not a.lower().startswith("dcn"))
+        if not is_dist(world) or world.device.type != "cuda":
+            what = ("the sim world's ranks share one card, so a probe is a "
+                    "memory copy" if not is_dist(world)
+                    else "a CPU world has no NVLink")
+            if not is_dist(world) or world.rank == 0:
+                    print(f"tpu-perf-torch: linkmap: no default roofline "
+                      f"({what}); links are graded against their peers "
+                      "alone (give --roofline-gbps to grade against a "
+                      "spec)", file=sys.stderr)
+        elif fast_axes:
+            from tpu_perf_torch.chips import card_spec
+
+            roofline = card_spec().nvlink_gbps
+            if len(fast_axes) < len(axes):
+                roofline_axes = fast_axes
+    return (None if roofline == 0 else roofline), roofline_axes
+
+
+def _cmd_linkmap(args: argparse.Namespace) -> int:
+    """One probe sweep: plan the mesh's links, measure each, grade against
+    the roofline + row/col MAD, render, persist, and surface sick links as
+    link_degraded health events.  Across processes every rank probes and
+    grades the same reduced samples and returns the same code; rank 0
+    alone writes and prints."""
+    from tpu_perf_torch.config import new_job_id
+    from tpu_perf_torch.linkmap import (
+        GradeConfig, LinkProber, grade, linkmap_to_json, linkmap_to_markdown,
+        meta_record, plan_all_pairs, plan_mesh_links,
+    )
+
+    for flag, v in (("--roofline-gbps", args.roofline_gbps),
+                    ("--dcn-roofline-gbps", args.dcn_roofline_gbps)):
+        if v is not None and v < 0:
+            # checked before the sweep: a long probe must not be thrown
+            # away over an argv typo (only 0 is the "disable" spelling)
+            print(f"tpu-perf-torch: error: {flag} must be >= 0 (0 "
+                  f"disables), got {v:g}", file=sys.stderr)
+            return 2
+    faults = _load_faults(args)
+    if faults is None:
+        return 2
+    if any(f.kind == "skew" for f in faults):
+        # a probe is one timed ppermute, not a lockstep collective the
+        # ranks enter independently: a skew fault would be a silent no-op
+        print("tpu-perf-torch: error: skew faults apply to the run loop's "
+              "collective entry (run/monitor/chaos), not to linkmap "
+              "probes", file=sys.stderr)
+        return 2
+    synthetic = args.synthetic is not None
+    injector = None
+    if faults or synthetic:
+        from tpu_perf_torch.faults import FaultInjector
+
+        injector = FaultInjector(faults, seed=args.seed,
+                                 synthetic_s=args.synthetic)
+    shape, axes = _parse_mesh(args)
+    world, rank = None, 0
+    if synthetic:
+        # no device is touched: the seeded series is the timing source, so
+        # the sweep's shape is stated, not found
+        if not shape:
+            print("tpu-perf-torch: error: --synthetic linkmap needs an "
+                  "explicit --mesh shape (no devices are probed)",
+                  file=sys.stderr)
+            return 2
+        n = math.prod(shape)
+    else:
+        from tpu_perf_torch.parallel.mesh import make_mesh
+        from tpu_perf_torch.world import is_dist
+
+        world = _linkmap_world(args, shape, axes)
+        mesh = world.mesh if world.mesh is not None else make_mesh(n=world.n)
+        shape, axes, n = tuple(mesh.shape), tuple(mesh.axis_names), world.n
+        rank = world.rank if is_dist(world) else 0
+    if args.all_pairs:
+        schedules, mode = plan_all_pairs(n), "allpairs"
+    else:
+        schedules = plan_mesh_links(shape, axes, wrap=not args.no_wrap)
+        mode = "neighbor"
+    if not schedules:
+        print(f"tpu-perf-torch: mesh {shape} has no links to probe",
+              file=sys.stderr)
+        return 1
+    roofline, roofline_axes = _linkmap_roofline(args, world, axes)
+    # GradeConfig validates every grading knob before the sweep
+    cfg = GradeConfig(
+        roofline_gbps=roofline, roofline_axes=roofline_axes,
+        dcn_roofline_gbps=args.dcn_roofline_gbps or None,
+        roofline_floor=args.roofline_floor, mad_z=args.mad_z,
+        rel_threshold=args.rel_threshold, dead_ratio=args.dead_ratio)
+    if args.compile_cache:
+        from tpu_perf_torch.compilepipe import enable_compile_cache
+
+        enable_compile_cache(args.compile_cache)
+    job_id = new_job_id()  # before the sweep: spans and records share it
+    tracer = None
+    if args.spans:
+        if not args.logfolder:
+            print("tpu-perf-torch: error: --spans needs -l/--logfolder "
+                  "(spans ride the rotating-log families)", file=sys.stderr)
+            return 2
+        if rank == 0:
+            from tpu_perf_torch.driver import RotatingCsvLog
+            from tpu_perf_torch.schema import SPANS_PREFIX
+            from tpu_perf_torch.spans import SpanTracer
+
+            tracer = SpanTracer(job_id, rank=0, log=RotatingCsvLog(
+                args.logfolder, job_id, 0, refresh_sec=10**9,
+                prefix=SPANS_PREFIX, lazy=True))
+    prober = LinkProber(
+        world, nbytes=parse_size(args.size), iters=args.iters,
+        runs=args.runs, fence=args.fence, dtype=args.dtype,
+        injector=injector, n_devices=n, precompile=args.precompile,
+        tracer=tracer, err=sys.stderr)
+    try:
+        result = prober.probe(schedules, concurrent=args.concurrent)
+        # a concurrent sweep's flagged links are re-measured serially
+        # before the final grading, so the verdicts name the sick link
+        # and not its whole schedule (--no-bisect keeps the batch bounds)
+        if result.concurrent and not args.no_bisect:
+            result, n_bisected = prober.bisect_flagged(result, cfg)
+            if n_bisected and rank == 0:
+                print(f"[tpu-perf-torch linkmap] re-probed {n_bisected} "
+                      f"flagged link(s) serially (auto-bisection)",
+                      file=sys.stderr)
+    finally:
+        if tracer is not None:
+            tracer.close()
+    verdicts = grade(result, cfg)
+    sick = [v for v in verdicts if v.verdict != "ok"]
+    if rank != 0:
+        return 6 if sick else 0
+    meta = meta_record(result, job_id=job_id, config=cfg,
+                       seed=args.seed if injector is not None else None,
+                       mode=mode)
+    probe_recs = [r.to_record() for r in result.probes]
+    verdict_recs = [v.to_record() for v in verdicts]
+    if args.logfolder:
+        _write_linkmap_logs(args, job_id, [meta, *probe_recs,
+                                           *verdict_recs], sick, result)
+    if args.push:
+        # the live counterpart of -l: one shot, loud on failure, never
+        # fatal (the durable records make a failed push re-runnable)
+        from tpu_perf_torch.push import push_records_once
+        from tpu_perf_torch.schema import LINKMAP_PREFIX
+
+        push_records_once(
+            args.push, LINKMAP_PREFIX,
+            [r.to_json() for r in [meta, *probe_recs, *verdict_recs]],
+            err=sys.stderr)
+    if args.format == "json":
+        print(linkmap_to_json(meta.data, [r.data for r in probe_recs],
+                              [v.data for v in verdict_recs]))
+    else:
+        print(linkmap_to_markdown(meta.data, [v.data for v in verdict_recs]))
+    # exit 6: the linkmap gate code — a sick link fails CI/cron wrappers
+    return 6 if sick else 0
+
+
+def _write_linkmap_logs(args: argparse.Namespace, job_id: str, records,
+                        sick, result) -> None:
+    """One finished linkmap-*.log a sweep, and a link_degraded health
+    event a sick link (its baseline the verdict's own reference: the peer
+    median for a MAD verdict, the roofline's latency for a roofline
+    one)."""
+    from tpu_perf_torch.driver import RotatingCsvLog
+    from tpu_perf_torch.schema import LINKMAP_PREFIX
+
+    log = RotatingCsvLog(args.logfolder, job_id, 0, refresh_sec=10**9,
+                         prefix=LINKMAP_PREFIX, lazy=True)
+    try:
+        for rec in records:
+            log.write_row(rec)
+    finally:
+        log.close()
+    if not sick:
+        return
+    from tpu_perf_torch.health import HealthConfig, HealthMonitor
+
+    monitor = HealthMonitor(
+        HealthConfig(), job_id=job_id, dtype=args.dtype,
+        event_log=RotatingCsvLog(args.logfolder, job_id, 0,
+                                 refresh_sec=10**9, prefix=HEALTH_PREFIX,
+                                 lazy=True))
+    # a traced sweep's events point at the probe's probe_schedule span
+    span_by_op = {r.probe.op: r.span_id for r in result.probes}
+    try:
+        for v in sick:
+            monitor.observe_link(
+                v.op, result.nbytes, v.run_id, (v.lat_us or 0.0) * 1e-6,
+                (v.baseline_us or 0.0) * 1e-6,
+                severity="critical" if v.verdict == "dead" else "warning",
+                rank=v.rank, span_id=span_by_op.get(v.op, ""))
+    finally:
+        monitor.close()
+
+
+def _cmd_linkmap_report(args: argparse.Namespace) -> int:
+    """Replay durable linkmap-*.log records into the rendering the live
+    sweep prints (heatmap + verdict table, or the JSON artifact);
+    ``--diff BASE.json`` also gates each link's latency against a prior
+    sweep's artifact."""
+    from tpu_perf_torch.linkmap import (
+        diff_linkmaps, linkdiff_summary, linkdiff_to_markdown,
+        linkmap_to_json, linkmap_to_markdown, load_linkmap_artifact,
+        read_linkmap,
+    )
+    from tpu_perf_torch.report import collect_paths
+    from tpu_perf_torch.schema import LINKMAP_PREFIX
+
+    paths = collect_paths(args.target, prefix=LINKMAP_PREFIX,
+                          include_open=True)
+    if not paths:
+        print(f"tpu-perf-torch: no linkmap logs match {args.target!r}",
+              file=sys.stderr)
+        return 1
+    try:
+        meta, probes, verdicts = read_linkmap(paths)
+    except ValueError as e:
+        print(f"tpu-perf-torch: bad linkmap logs: {e}", file=sys.stderr)
+        return 1
+    if not verdicts:
+        # a sweep killed mid-write graded nothing: replaying it as exit 0
+        # would pass the sick-link gate
+        print("tpu-perf-torch: linkmap logs hold no verdict records (sweep "
+              "killed before grading?) — re-run the sweep", file=sys.stderr)
+        return 1
+    diffs = None
+    if args.diff:
+        # the cross-sweep gate: a link degraded past the threshold since
+        # the base sweep can still sit inside its own sweep's MAD band
+        try:
+            _, base_verdicts = load_linkmap_artifact(args.diff)
+            diffs = diff_linkmaps(base_verdicts, verdicts,
+                                  threshold_pct=args.diff_threshold)
+        except (OSError, ValueError) as e:
+            print(f"tpu-perf-torch: bad linkmap diff base: {e}",
+                  file=sys.stderr)
+            return 2
+    if args.format == "json":
+        print(linkmap_to_json(
+            meta, probes, verdicts,
+            diff=None if diffs is None else {
+                "base": args.diff, "threshold_pct": args.diff_threshold,
+                "links": diffs}))
+    else:
+        print(linkmap_to_markdown(meta, verdicts))
+        if diffs is not None:
+            print(f"\n### Link diff vs {args.diff}\n")
+            print(linkdiff_to_markdown(diffs))
+            print()
+            print(linkdiff_summary(diffs, args.diff_threshold))
+    if diffs is not None and any(d["diff"] == "degraded" for d in diffs):
+        return 6
+    return 6 if any(v["verdict"] != "ok" for v in verdicts) else 0
+
+
+def _cmd_tune(args: argparse.Namespace) -> int:
+    """Close the measure->select loop: fold arena/contend rows into the
+    versioned selection artifact `--algo auto` reads (build mode), or
+    re-grade fresh rows against a published artifact and exit 10 when a
+    measured crossover moved against it (--check, the drift gate)."""
+    import time as _time
+
+    from tpu_perf_torch.report import collect_paths, stream_aggregate
+    from tpu_perf_torch.tuner import (
+        build_selection, check_drift, current_device_kind, read_artifact,
+        write_artifact,
+    )
+
+    # include_open: a killed arena soak's active log still carries rows
+    paths = collect_paths(args.logdir, include_open=True)
+    if not paths:
+        print(f"tpu-perf-torch: no result files match {args.logdir!r}",
+              file=sys.stderr)
+        return 1
+    points = stream_aggregate(paths, err=sys.stderr)
+    now = _time.time()
+    fresh = build_selection(
+        points,
+        generated=_time.strftime("%Y-%m-%dT%H:%M:%SZ", _time.gmtime(now)),
+        generated_unix=now, device_kind=current_device_kind(),
+        source=args.logdir)
+    if not fresh.entries:
+        print(f"tpu-perf-torch: no arena verdicts in {args.logdir!r} — tune "
+              "needs rows that raced at least one non-native algorithm "
+              "(e.g. `tpu-perf-torch arena -l LOGDIR`)", file=sys.stderr)
+        return 1
+    if args.check:
+        try:
+            published = read_artifact(args.check)
+        except (OSError, ValueError) as e:
+            print(f"tpu-perf-torch: cannot read published artifact: {e}",
+                  file=sys.stderr)
+            return 2
+        findings = check_drift(published, fresh, margin_min=args.margin)
+        for f in findings:
+            print(f"tpu-perf-torch: crossover drift: {f.describe()}",
+                  file=sys.stderr)
+        if findings:
+            # exit 10: the tuner drift-gate code (linkmap's is 6)
+            print(f"tpu-perf-torch: {len(findings)} crossover(s) moved "
+                  f"against {args.check!r} — re-run `tpu-perf-torch tune` "
+                  "to republish", file=sys.stderr)
+            return 10
+        print(f"tpu-perf-torch: no crossover drift against {args.check!r} "
+              f"({len(fresh.entries)} fresh verdict(s) re-graded)",
+              file=sys.stderr)
+        return 0
+    write_artifact(fresh, args.output)
+    print(f"tpu-perf-torch: wrote selection artifact ({len(fresh.entries)} "
+          f"winner(s)) to {args.output}", file=sys.stderr)
+    from tpu_perf_torch.schema import decorate_op
+
+    print("| op | size | dtype | winner | p50 (us) | margin "
+          "| native/best | samples |")
+    print("|---|---|---|---|---|---|---|---|")
+    for e in fresh.entries:
+        op = decorate_op(e.op, skew_us=e.skew_us, imbalance=e.imbalance,
+                         load=e.load)
+        margin = f"{e.margin:.3g}x" if e.margin else "one-sided"
+        print(f"| {op} | {format_size(e.nbytes)} | {e.dtype} | {e.winner} "
+              f"| {e.winner_p50_us:.2f} | {margin} "
+              f"| {e.native_vs_best:.3g}x | {e.samples} |")
+    if args.logfolder or args.push_url:
+        from tpu_perf_torch.config import new_job_id
+        from tpu_perf_torch.schema import TUNE_PREFIX
+
+        job_id = new_job_id()
+        records = fresh.to_records(job_id)
+        if args.logfolder:
+            # one finished tune-*.log a publish (lazy until closed)
+            from tpu_perf_torch.driver import RotatingCsvLog
+
+            log = RotatingCsvLog(args.logfolder, job_id, 0,
+                                 refresh_sec=10**9, prefix=TUNE_PREFIX,
+                                 lazy=True)
+            try:
+                for rec in records:
+                    log.write_row(rec)
+            finally:
+                log.close()
+        if args.push_url:
+            from tpu_perf_torch.push import push_records_once
+
+            push_records_once(args.push_url, TUNE_PREFIX,
+                              [r.to_json() for r in records],
+                              err=sys.stderr)
     return 0
 
 
@@ -919,14 +1305,16 @@ def _cmd_chips(args: argparse.Namespace) -> int:
               "it (give --spec-gbps)")
     found = resolve_card(name) if name is not None else None
     print("| card | torch device name | HBM GB/s | bf16 dense TFLOP/s "
-          "| f32 TFLOP/s | stream floor |")
-    print("|---|---|---|---|---|---|")
+          "| f32 TFLOP/s | NVLink GB/s each way | stream floor |")
+    print("|---|---|---|---|---|---|---|")
     for spec in CARDS.values():
         mark = " (detected)" if spec is found else ""
         floor = ("not measured" if spec.stream_floor_gbps is None
                  else f"{spec.stream_floor_gbps:g}")
+        nvlink = "—" if spec.nvlink_gbps is None else f"{spec.nvlink_gbps:g}"
         print(f"| {spec.kind}{mark} | {spec.device_name} | {spec.hbm_gbps:g} "
-              f"| {spec.bf16_tflops:g} | {spec.f32_tflops:g} | {floor} |")
+              f"| {spec.bf16_tflops:g} | {spec.f32_tflops:g} | {nvlink} "
+              f"| {floor} |")
     return 0
 
 
@@ -1011,17 +1399,28 @@ def _add_run_flags(p: argparse.ArgumentParser) -> None:
                         "comma family, or 'all': native and every "
                         "registered algorithm the op and world allow, "
                         "raced head to head (the `arena` default).  "
-                        "'auto' is not ported yet (ROADMAP.md section 1 "
-                        "item 3)")
+                        "'auto' runs at each sweep point the winner a "
+                        "`tune` selection artifact (--algo-artifact) "
+                        "published for it, resolved statically at plan "
+                        "time with a loud native fallback on unmeasured, "
+                        "low-margin, stale or foreign points")
     p.add_argument("--algo-artifact", default=None, metavar="PATH",
-                   help="--algo auto's selection artifact (not ported "
-                        "yet: ROADMAP.md section 1 item 3)")
-    p.add_argument("--tune-margin", type=float, default=None,
+                   help="--algo auto's selection artifact (the versioned "
+                        "winner table `tune` writes), loaded once at plan "
+                        "time: every point resolves to its published "
+                        "winner (nearest measured size bucket) or loudly "
+                        "to native")
+    p.add_argument("--tune-margin", type=float, default=1.02,
                    metavar="RATIO",
-                   help="--algo auto's confidence floor (not ported yet)")
-    p.add_argument("--tune-max-age", type=float, default=None,
+                   help="--algo auto's confidence floor: an entry whose "
+                        "winner beat the runner-up by less than RATIO "
+                        "(p50 ratio) runs native with a note (default "
+                        "1.02 = 2%%)")
+    p.add_argument("--tune-max-age", type=float, default=0.0,
                    metavar="SEC",
-                   help="--algo auto's staleness bound (not ported yet)")
+                   help="--algo auto's staleness bound: an artifact older "
+                        "than SEC runs native everywhere, loudly (default "
+                        "0 = never stale; judged once at plan time)")
     p.add_argument("--sweep", default=None,
                    help="size sweep, e.g. 8:1G or 8,64K,4M")
     p.add_argument("--skew-spread", default=None, metavar="LIST",
@@ -1351,16 +1750,20 @@ def build_parser() -> argparse.ArgumentParser:
         "contend",
         help="contention race (tpu_perf_torch.streams.contend): a victim op "
              "against a concurrent load on the stream engine's lanes, a "
-             "compute kernel (--load mxu_gemm/hbm_stream) or a sibling op "
-             "(--load OP); every point is measured idle and loaded so "
+             "compute kernel (--load mxu_gemm/hbm_stream), a sibling op "
+             "(--load OP) or K split-channel lanes (--split K); every point "
+             "is measured idle and loaded so "
              "`report` renders the interference matrix")
     _add_run_flags(p_ct)
     p_ct.add_argument("--load", default="", metavar="OP",
                       help="background load: a compute kernel (mxu_gemm, "
                            "hbm_stream) or any op from `ops`")
     p_ct.add_argument("--split", type=int, default=0, metavar="K",
-                      help="split-channel lanes (not ported yet: "
-                           "ROADMAP.md section 1 item 3)")
+                      help="split-channel shape (op ppermute): the payload "
+                           "cut into K slices, each on its own concurrent "
+                           "ppermute lane along one of the linkmap "
+                           "planner's link-disjoint ring shifts, against "
+                           "the single-channel full payload")
     p_ct.add_argument("--victim-axis", default=None, metavar="AXIS",
                       help="mesh axis the victim runs along (default: "
                            "every axis)")
@@ -1397,6 +1800,167 @@ def build_parser() -> argparse.ArgumentParser:
     p_pr.add_argument("--timeout", type=float, default=5.0, metavar="SEC",
                       help="per-request timeout (default 5 s)")
     p_pr.set_defaults(func=_cmd_push_replay)
+
+    p_lm = sub.add_parser(
+        "linkmap",
+        help="per-link probe sweep: plan the mesh's directed links, time "
+             "each through the fences, grade against the card's NVLink "
+             "roofline (across cards) and the row/col MAD, and localize "
+             "sick links (exit 6 on any non-ok link); `linkmap report "
+             "<dir>` replays the durable linkmap-*.log records")
+    lm_sub = p_lm.add_subparsers(dest="linkmap_cmd")
+    p_lmr = lm_sub.add_parser(
+        "report",
+        help="replay linkmap-*.log records into the heatmap + verdict "
+             "table (or the JSON artifact)")
+    p_lmr.add_argument("target",
+                       help="file, log folder, or glob of linkmap-*.log")
+    p_lmr.add_argument("--format", choices=("markdown", "json"),
+                       default="markdown")
+    p_lmr.add_argument("--diff", default=None, metavar="BASE.json",
+                       help="also diff this sweep's per-link latencies "
+                            "against a prior sweep's `linkmap --format "
+                            "json` artifact and exit 6 on any link "
+                            "degraded past --diff-threshold (a slowly "
+                            "dying link degrades against itself, not its "
+                            "peers)")
+    p_lmr.add_argument("--diff-threshold", type=float, default=30.0,
+                       metavar="PCT",
+                       help="latency-rise gate for --diff, percent "
+                            "(default 30)")
+    p_lmr.set_defaults(func=_cmd_linkmap_report)
+    p_lm.add_argument("-b", "--size", default="4M",
+                      help="per-probe message size (default 4M)")
+    p_lm.add_argument("-i", "--iters", type=int, default=10,
+                      help="chained ppermutes per timed sample")
+    p_lm.add_argument("-r", "--runs", type=int, default=5,
+                      help="samples per link (the per-link statistic is "
+                           "their MEAN: intermittent stalls stay visible)")
+    p_lm.add_argument("--fence", choices=("block", "readback"),
+                      default="block",
+                      help="timing fence per sample (per-link probes are "
+                           "single timed calls; constant overheads cancel "
+                           "in the grader's cross-link comparison)")
+    p_lm.add_argument("--mesh", default=None,
+                      help="mesh shape, e.g. 2x4 (required with "
+                           "--synthetic; default: every rank on one axis)")
+    p_lm.add_argument("--axes", default=None, help="axis names, e.g. dcn,ici")
+    _add_world_flags(p_lm)
+    p_lm.add_argument("--distributed", action="store_true",
+                      help="probe the links between the ranks of a "
+                           "torch.distributed world (one process a card, "
+                           "from torchrun's variables): one NVLink "
+                           "direction a probe")
+    p_lm.add_argument("-l", "--logfolder", default=None,
+                      help="persist meta/probe/verdict records as a "
+                           "linkmap-*.log file (swept by `ingest` into its "
+                           "own table) and surface non-ok links as "
+                           "link_degraded health events")
+    p_lm.add_argument("--all-pairs", action="store_true",
+                      help="mpiGraph-style all-ordered-pairs tournament "
+                           "instead of per-axis neighbor links")
+    p_lm.add_argument("--no-wrap", action="store_true",
+                      help="line fabric: skip the wraparound links")
+    p_lm.add_argument("--precompile", type=int, default=0, metavar="N",
+                      help="build up to N upcoming probe programs' host "
+                           "halves on a worker thread while the current "
+                           "probe measures; 0 = inline")
+    p_lm.add_argument("--compile-cache", default=None, metavar="DIR",
+                      help="kernel build cache directory, as on run (a "
+                           "probe builds no kernel)")
+    p_lm.add_argument("--spans", action="store_true",
+                      help="trace each schedule walk as a probe_schedule "
+                           "span to spans-*.log next to the linkmap "
+                           "records (needs -l); probe records carry the "
+                           "enclosing span id")
+    p_lm.add_argument("--concurrent", action="store_true",
+                      help="drive each schedule as ONE ppermute (probes "
+                           "are link-disjoint by construction): per-link "
+                           "values are upper bounds; flagged links are "
+                           "then re-probed serially before grading")
+    p_lm.add_argument("--no-bisect", action="store_true",
+                      help="skip the concurrent sweep's re-probing and "
+                           "grade the raw batch upper bounds")
+    p_lm.add_argument("--synthetic", type=float, default=None,
+                      metavar="SECONDS",
+                      help="seeded per-link timing series around this "
+                           "base latency instead of real probes: "
+                           "deterministic gates, no device touched")
+    p_lm.add_argument("--seed", type=int, default=0,
+                      help="synthetic/fault seed")
+    p_lm.add_argument("--faults", default=None, metavar="SPEC.json",
+                      help="fault schedule injected into the probe "
+                           "stream; target one link by op name "
+                           "(link:(1,2)>(1,3)) and/or one rank")
+    p_lm.add_argument("--fault", action="append", default=None,
+                      metavar="KIND[:OP[:NBYTES[:START-END[:MAG]]]]",
+                      help="one inline fault (repeatable)")
+    p_lm.add_argument("--roofline-gbps", type=float, default=None,
+                      help="per-link bandwidth spec to grade against "
+                           "(default: the card's NVLink rate each way, on "
+                           "the non-dcn axes of a multi-process world on "
+                           "cards; none for the sim world, --all-pairs and "
+                           "--synthetic; 0 disables; an explicit value "
+                           "applies to everything probed)")
+    p_lm.add_argument("--dcn-roofline-gbps", type=float, default=None,
+                      help="per-link bandwidth spec for the dcn*-named "
+                           "axes (default: MAD-only grading there)")
+    p_lm.add_argument("--roofline-floor", type=float, default=0.5,
+                      metavar="FRAC",
+                      help="links under this fraction of the roofline "
+                           "grade slow (default 0.5)")
+    p_lm.add_argument("--mad-z", type=float, default=6.0,
+                      help="robust z bar for row/col MAD outliers")
+    p_lm.add_argument("--rel-threshold", type=float, default=0.25,
+                      metavar="REL",
+                      help="AND-gate on the MAD verdict: also need this "
+                           "relative excess over the peer median "
+                           "(default 0.25 = +25%%)")
+    p_lm.add_argument("--dead-ratio", type=float, default=10.0,
+                      help="mean this many times the peer median grades "
+                           "dead instead of slow")
+    p_lm.add_argument("--format", choices=("markdown", "json"),
+                      default="markdown")
+    p_lm.add_argument("--push", default=None, metavar="URL",
+                      help="also POST the sweep's linkmap records (NDJSON) "
+                           "to URL/v1/LinkMapTPU once grading finishes: "
+                           "one shot, loud on failure, never fatal")
+    p_lm.set_defaults(func=_cmd_linkmap)
+
+    p_tune = sub.add_parser(
+        "tune",
+        help="close the measure->select loop: fold arena/contend rows into "
+             "the versioned selection artifact `--algo auto` reads, or "
+             "(--check) re-grade fresh rows against a published artifact "
+             "and exit 10 on crossover drift")
+    p_tune.add_argument("-d", "--logdir", required=True, metavar="TARGET",
+                        help="rows to fold: a log folder (its tpu-*.log "
+                             "files, the active .open included), one file, "
+                             "or a glob, as `report` takes")
+    p_tune.add_argument("-o", "--output", default="selection.json",
+                        metavar="PATH",
+                        help="artifact path (atomic write; default "
+                             "selection.json); ignored under --check")
+    p_tune.add_argument("--check", default=None, metavar="ARTIFACT",
+                        help="drift gate: re-grade the fresh rows' verdicts "
+                             "against this published artifact and exit 10 "
+                             "when a measured crossover moved against it "
+                             "with a convincing margin (--margin)")
+    p_tune.add_argument("--margin", type=float, default=1.02,
+                        metavar="RATIO",
+                        help="--check's noise floor: a flip counts only "
+                             "when the fresh winner's best-vs-runner-up "
+                             "p50 ratio clears RATIO (default 1.02)")
+    p_tune.add_argument("-l", "--logfolder", default=None,
+                        help="also persist the artifact as tune-*.log "
+                             "records (swept by `ingest` into "
+                             "TuneSelectionTPU)")
+    p_tune.add_argument("--push", default=None, metavar="URL",
+                        dest="push_url",
+                        help="also POST the artifact records (NDJSON) to "
+                             "URL/v1/TuneSelectionTPU; one shot, loud on "
+                             "failure, never fatal")
+    p_tune.set_defaults(func=_cmd_tune)
 
     p_ops = sub.add_parser("ops", help="list measurement ops")
     p_ops.set_defaults(func=_cmd_ops)

@@ -85,6 +85,21 @@ class Options:
                                       # one algorithm, a comma family, or
                                       # "all" (native and every registered
                                       # algorithm the op and world allow)
+                                      # or "auto" (each point's winner in
+                                      # the selection artifact)
+    algo_artifact: str | None = None  # --algo-artifact: the selection
+                                      # artifact `--algo auto` resolves
+                                      # points against (`tune` makes it);
+                                      # required with auto, an error with
+                                      # any other --algo
+    tune_margin: float = 1.02         # --tune-margin: an entry whose
+                                      # best-vs-runner-up p50 ratio falls
+                                      # below this runs native (loud)
+    tune_max_age: float = 0.0         # --tune-max-age SECONDS: the
+                                      # artifact's staleness horizon,
+                                      # judged once at load; 0 = none (a
+                                      # plan never flips on wall time
+                                      # unless asked)
     sweep: str | None = None          # e.g. "8:1G"; None = single buff_sz point
     skew_spread: tuple[int, ...] = () # --skew-spread: arrival spreads in
                                       # us; every (op, algo, size) point is
@@ -218,10 +233,6 @@ class Options:
             raise ValueError("window > 1 requires the windowed kernel (-x or op=exchange)")
         if not self.algo:
             raise ValueError("algo must not be empty (use 'native')")
-        if self.algo == "auto":
-            from tpu_perf_torch.runner import _AUTO_REFUSAL
-
-            raise NotImplementedError(_AUTO_REFUSAL)
         if self.algo != "native":
             # the arena's decompositions are torch programs: an --algo on
             # the C baseline would label rows with an algorithm that
@@ -237,6 +248,30 @@ class Options:
             if self.window > 1:
                 raise ValueError("window does not apply to arena "
                                  "algorithms")
+        if self.algo == "auto":
+            if not self.algo_artifact:
+                raise ValueError(
+                    "--algo auto resolves sweep points against a "
+                    "selection artifact; name one with --algo-artifact "
+                    "PATH (produce it with `tpu-perf-torch tune`)")
+            if self.load:
+                raise ValueError(
+                    "--algo auto applies to run/monitor/chaos/scenario; "
+                    "a contention race (--load) names its algorithms "
+                    "explicitly")
+        elif self.algo_artifact:
+            # an artifact that resolves nothing is an inert knob: loud
+            raise ValueError(
+                f"--algo-artifact applies only with --algo auto (got "
+                f"--algo {self.algo!r})")
+        if self.tune_margin < 1.0:
+            raise ValueError(
+                f"tune_margin is a best-vs-runner-up ratio and must be "
+                f">= 1.0, got {self.tune_margin}")
+        if self.tune_max_age < 0:
+            raise ValueError(
+                f"tune_max_age must be >= 0 seconds (0 = no staleness "
+                f"check), got {self.tune_max_age}")
         if self.push_queue < 0:
             raise ValueError(
                 f"push_queue must be >= 0 (0 = default), got "

@@ -685,11 +685,16 @@ class Driver:
         op-major: each op's decompositions (``--algo``), each one's sizes,
         each size's imbalance ratios (a build coordinate), each ratio's
         arrival spreads (``--skew-spread``, the innermost: a skewed point
-        runs the synchronized point's build)."""
+        runs the synchronized point's build).  Under ``--algo auto`` the
+        artifact's winner may change with the point, so the walk is
+        op-major, then size, ratio and the winning algorithms
+        (:meth:`_auto_plan`)."""
         n_coll = self.world.n
         mesh_axes = self._collective_mesh_axes()
         skews = tuple(self.opts.skew_spread) or (0,)
         ratios = tuple(self.opts.imbalance) or (1,)
+        if self.opts.algo == "auto":
+            return self._auto_plan(n_coll, mesh_axes, skews, ratios)
         plan = []
         for op in ops_for_options(self.opts):
             for algo in algos_for_options(self.opts, op, n_coll,
@@ -711,6 +716,59 @@ class Driver:
                     for imb in point_ratios:
                         for skew_us in skews:
                             plan.append((op, algo, nbytes, imb, skew_us))
+        return plan
+
+    def _auto_plan(self, n_coll: int, mesh_axes, skews: tuple[int, ...],
+                   ratios: tuple[int, ...]
+                   ) -> list[tuple[str, str, int, int, int]]:
+        """``--algo auto``'s plan.  The selection artifact is loaded ONCE,
+        here: staleness and fingerprint foreignness are judged at load
+        (the only wall-clock read, and only under --tune-max-age), so
+        every per-point resolve is a static lookup and the same artifact
+        bytes give the same plan on every rank.  Each (op, size, ratio)
+        point groups its arrival spreads by the algorithm that won them:
+        one entry a winning algorithm and spread, measured only at the
+        spreads it won."""
+        import time as _time
+
+        from tpu_perf_torch.tuner import current_device_kind, load_artifact
+
+        selection = load_artifact(
+            self.opts.algo_artifact, n_devices=n_coll,
+            device_kind=current_device_kind(),
+            max_age_sec=self.opts.tune_max_age,
+            now=_time.time() if self.opts.tune_max_age else None,
+            err=self.err)
+        plan = []
+        for op in ops_for_options(self.opts):
+            if op == "scenario" and any(r > 1 for r in ratios):
+                for spec in self.opts.scenario:
+                    if not spec.uses_imbalance:
+                        print(f"[tpu-perf-torch] scenario {spec.name} has "
+                              f"no v-variant phase: measuring the balanced "
+                              f"point only (the imbalance axis applies to "
+                              f"its v-variant peers)", file=self.err)
+            for nbytes in sizes_for(self.opts, op):
+                for imb in ratios:
+                    by_algo: dict[str, list[int]] = {}
+                    for skew_us in skews:
+                        for algo in algos_for_options(
+                                self.opts, op, n_coll, err=self.err,
+                                mesh_axes=mesh_axes, nbytes=nbytes,
+                                skew_us=skew_us, imbalance=imb,
+                                selection=selection):
+                            by_algo.setdefault(algo, []).append(skew_us)
+                    for algo, sks in by_algo.items():
+                        if op == "scenario" and imb > 1:
+                            from tpu_perf_torch.scenarios.compose import (
+                                spec_for_label,
+                            )
+
+                            if not spec_for_label(self.opts.scenario,
+                                                  algo).uses_imbalance:
+                                continue
+                        plan.extend((op, algo, nbytes, imb, sk)
+                                    for sk in sks)
         return plan
 
     def _collective_mesh_axes(self) -> tuple[tuple[str, int], ...]:

@@ -78,8 +78,8 @@ class HealthMonitor:
         #                     savings dict (or None while no controller
         #                     runs): runs-saved counter + last achieved
         #                     CI land next to the phase gauges
-        push_source=None,  # () -> the push plane's meters; None until
-        #                     that plane is ported (ROADMAP item 3b)
+        push_source=None,  # () -> the push plane's meters (--push);
+        #                     None when no plane runs
     ):
         self.config = config
         self.job_id = job_id
@@ -154,6 +154,30 @@ class HealthMonitor:
         f = Finding("hook_fail", "warning", 1.0, 0.0, unit="failures")
         return [self._emit(f, op="ingest_hook", nbytes=0, run_id=run_id,
                            span_id=span_id)]
+
+    def observe_link(
+        self,
+        op: str,
+        nbytes: int,
+        run_id: int,
+        observed: float,
+        baseline: float,
+        *,
+        severity: str = "warning",
+        rank: int | None = None,
+        span_id: str = "",
+    ) -> list[HealthEvent]:
+        """A linkmap sweep graded one link non-ok: surface it as a
+        ``link_degraded`` health event, "link (2,3)>(3,3) slow, rank 1"
+        rather than a bare curve regression.  ``op`` is the probe's link
+        name (``link:(2,3)>(3,3)``), ``rank`` the link's owning rank (its
+        source's), which may differ from the rank running the sweep.
+        Stateless per sweep, like hook_fail: each graded sweep speaks for
+        itself."""
+        self._last_run_id = max(self._last_run_id, run_id)
+        f = Finding("link_degraded", severity, observed, baseline)
+        return [self._emit(f, op=op, nbytes=nbytes, run_id=run_id,
+                           rank=rank, span_id=span_id)]
 
     def heartbeat(self, run_id: int) -> list[HealthEvent]:
         """Stats-boundary work: capture-loss judgement over the window's

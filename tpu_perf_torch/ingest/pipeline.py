@@ -21,11 +21,12 @@ Backends:
   test/air-gapped stand-in.
 * :class:`NullBackend` — discard (ingest == delete).
 
-The port writes five rotating-log families (:data:`PREFIXES`): legacy
+The port writes seven rotating-log families (:data:`PREFIXES`): legacy
 ``tcp-*`` CSV, extended ``tpu-*`` CSV, and the JSONL ``health-*`` events,
-``chaos-*`` ledger and ``spans-*`` records; one
-:func:`run_all_ingest_passes` sweeps them all.  The JAX package's
-linkmap, fleet and tune families come with their modules.
+``chaos-*`` ledger, ``linkmap-*`` probes and verdicts, ``spans-*``
+records and ``tune-*`` selection records; one
+:func:`run_all_ingest_passes` sweeps them all.  The JAX package's fleet
+family comes with its module.
 
 A file whose ingest keeps failing (a poison row the table mapping
 rejects, re-failing every pass forever) is **quarantined** after
@@ -50,14 +51,15 @@ import sys
 
 from tpu_perf_torch.schema import (
     ALL_PREFIXES, CHAOS_PREFIX, EXT_PREFIX, HEALTH_PREFIX, LEGACY_PREFIX,
-    SPANS_PREFIX,
+    LINKMAP_PREFIX, SPANS_PREFIX, TUNE_PREFIX,
 )
 
 #: the rotating-log families this package writes
 PREFIXES = ALL_PREFIXES
 #: the JSONL families: lazy logs whose active file is ``<name>.open``, so
 #: every ``<prefix>-*.log`` on disk is finished
-LAZY_PREFIXES = (HEALTH_PREFIX, CHAOS_PREFIX, SPANS_PREFIX)
+LAZY_PREFIXES = (HEALTH_PREFIX, CHAOS_PREFIX, LINKMAP_PREFIX, SPANS_PREFIX,
+                 TUNE_PREFIX)
 
 
 class IngestBackend:
@@ -87,7 +89,9 @@ TPU_TABLE = "PerfLogsTPU"
 #: the JSONL families' tables (JSON ingestion format), the JAX package's
 HEALTH_TABLE = "HealthEventsTPU"
 CHAOS_TABLE = "ChaosEventsTPU"
+LINKMAP_TABLE = "LinkMapTPU"
 SPANS_TABLE = "SpanEventsTPU"
+TUNE_TABLE = "TuneSelectionTPU"
 
 
 class KustoBackend(IngestBackend):
@@ -97,14 +101,19 @@ class KustoBackend(IngestBackend):
     (kusto_ingest.py:25), CSV format, managed-identity auth (:27).  Files
     are routed by schema: legacy ``tcp-*`` rows into ``table``, extended
     ``tpu-*`` rows into ``table_ext``, and the JSONL families (JSON
-    format) into ``table_health``, ``table_chaos`` and ``table_spans``.
+    format) into ``table_health``, ``table_chaos``, ``table_linkmap``,
+    ``table_spans`` and ``table_tune``, in the JAX package's positional
+    order (its ``table_fleet``, between spans and tune there, comes with
+    the fleet family).
     """
 
     def __init__(self, ingest_uri: str, database: str = "WarpPPE",
                  table: str = "PerfLogsMPI", table_ext: str = TPU_TABLE,
                  table_health: str = HEALTH_TABLE,
                  table_chaos: str = CHAOS_TABLE,
-                 table_spans: str = SPANS_TABLE):
+                 table_linkmap: str = LINKMAP_TABLE,
+                 table_spans: str = SPANS_TABLE,
+                 table_tune: str = TUNE_TABLE):
         try:
             from azure.identity import ManagedIdentityCredential  # noqa: F401
             from azure.kusto.data import KustoConnectionStringBuilder
@@ -130,7 +139,9 @@ class KustoBackend(IngestBackend):
                                         data_format=DataFormat.JSON)
             for prefix, t in ((HEALTH_PREFIX, table_health),
                               (CHAOS_PREFIX, table_chaos),
-                              (SPANS_PREFIX, table_spans))
+                              (LINKMAP_PREFIX, table_linkmap),
+                              (SPANS_PREFIX, table_spans),
+                              (TUNE_PREFIX, table_tune))
         }
 
     def ingest(self, path: str) -> None:
@@ -427,7 +438,8 @@ def build_backend_from_env() -> IngestBackend:
     * unset or ``none``  -> :class:`NullBackend`
     * ``local:<dir>``    -> :class:`LocalDirBackend`
     * ``kusto:<uri>[,db[,table[,table_ext[,table_health[,table_chaos
-      [,table_spans]]]]]]`` -> :class:`KustoBackend`
+      [,table_linkmap[,table_spans[,table_tune]]]]]]]]`` ->
+      :class:`KustoBackend`
     """
     spec = os.environ.get("TPU_PERF_INGEST", "none")
     if spec in ("", "none"):
@@ -442,7 +454,8 @@ def build_backend_from_env() -> IngestBackend:
         if not parts[0]:
             raise ValueError(
                 "TPU_PERF_INGEST=kusto:<ingest-uri>[,db[,table[,table_ext"
-                "[,table_health[,table_chaos[,table_spans]]]]]]"
+                "[,table_health[,table_chaos[,table_linkmap[,table_spans"
+                "[,table_tune]]]]]]]]"
             )
-        return KustoBackend(*parts[:7])
+        return KustoBackend(*parts[:9])
     raise ValueError(f"unknown TPU_PERF_INGEST backend {spec!r}")

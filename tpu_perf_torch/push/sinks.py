@@ -36,22 +36,25 @@ import urllib.request
 
 from tpu_perf_torch.health.exporter import labels, write_textfile
 from tpu_perf_torch.ingest.pipeline import (
-    HEALTH_TABLE, SPANS_TABLE, TPU_TABLE,
+    HEALTH_TABLE, LINKMAP_TABLE, SPANS_TABLE, TPU_TABLE, TUNE_TABLE,
 )
 from tpu_perf_torch.schema import (
-    CHAOS_PREFIX, EXT_PREFIX, HEALTH_PREFIX, LEGACY_PREFIX, SPANS_PREFIX,
+    CHAOS_PREFIX, EXT_PREFIX, HEALTH_PREFIX, LEGACY_PREFIX, LINKMAP_PREFIX,
+    SPANS_PREFIX, TUNE_PREFIX,
 )
 
 #: family prefix -> endpoint table name, mirroring the ingest
 #: pipeline's per-family Kusto routing (KustoBackend.ingest) so the
 #: live and batch paths share one table convention.  Every family of
-#: schema.ALL_PREFIXES routes here or is tee-free (the JAX package's
-#: linkmap, fleet and tune families are not ported yet).
+#: schema.ALL_PREFIXES routes here or is tee-free (of the JAX package's
+#: families only the fleet's is not ported yet).
 PUSH_ROUTES = {
     LEGACY_PREFIX: "PerfLogsMPI",  # the reference's default table
     EXT_PREFIX: TPU_TABLE,
     HEALTH_PREFIX: HEALTH_TABLE,
+    LINKMAP_PREFIX: LINKMAP_TABLE,
     SPANS_PREFIX: SPANS_TABLE,
+    TUNE_PREFIX: TUNE_TABLE,
 }
 
 #: families that must NEVER tee: the chaos ledger's byte-identity

@@ -85,9 +85,10 @@ def ops_for_options(opts: Options) -> list[str]:
 
 
 def algos_for_options(opts: Options, op: str, n_devices: int, err=None,
-                      mesh_axes=None) -> list[str]:
+                      mesh_axes=None, *, nbytes=None, skew_us=0,
+                      imbalance=1, selection=None) -> list[str]:
     """The decompositions the job runs for one kernel (``--algo``), the
-    JAX package's expansion without ``auto``.
+    JAX package's expansion.
 
     ``native`` (the default) keeps the library call alone; ``all``
     expands to native plus every registered arena algorithm compatible
@@ -99,9 +100,21 @@ def algos_for_options(opts: Options, op: str, n_devices: int, err=None,
     multi-axis mesh ``all`` races native against the keyed ``hier*``
     (``vhier``) compositions; on a single-axis mesh an explicit ``hier*``
     request degrades loudly to native.  For the ``scenario`` op the
-    labels are the selected scenarios' (``scenario_algos_for``)."""
+    labels are the selected scenarios' (``scenario_algos_for``).
+
+    ``auto`` (the crossover auto-tuner, :mod:`tpu_perf_torch.tuner`)
+    resolves the point named by ``nbytes`` / ``skew_us`` / ``imbalance``
+    against the loaded ``selection`` artifact: a static plan-time lookup
+    (never rank- or clock-conditioned), the nearest measured size
+    bucket, falling back loudly to native on a stale, foreign, missing
+    or low-margin entry, or on a winner this mesh cannot build.  A
+    caller without per-point coordinates fails here, before any kernel
+    has run."""
     if opts.algo == "auto":
-        raise NotImplementedError(_AUTO_REFUSAL)
+        return _auto_algos(opts, op, n_devices, err=err,
+                           mesh_axes=mesh_axes, nbytes=nbytes,
+                           skew_us=skew_us, imbalance=imbalance,
+                           selection=selection)
     if op == "scenario":
         from tpu_perf_torch.scenarios.compose import scenario_algos_for
 
@@ -182,11 +195,88 @@ def algos_for_options(opts: Options, op: str, n_devices: int, err=None,
     return out
 
 
-#: what a refused crossover-tuner flag says
-_AUTO_REFUSAL = (
-    "--algo auto, --algo-artifact, --tune-margin and --tune-max-age (the "
-    "crossover auto-tuner) are not ported yet, see ROADMAP.md section 1 "
-    "item 3 (linkmap and the tuner)")
+def _auto_algos(opts: Options, op: str, n_devices: int, *, err,
+                mesh_axes, nbytes, skew_us, imbalance,
+                selection) -> list[str]:
+    """--algo auto's plan-time consultation: the artifact's winner for
+    ONE sweep point (one label per selected scenario on the scenario
+    op).  A winner the current mesh cannot build falls back loudly to
+    native: the artifact was fingerprint-matched at load, so this only
+    fires on a hand-edited or cross-tree artifact, but a plan must never
+    die (or silently relabel) on one."""
+    if selection is None:
+        raise ValueError(
+            "--algo auto resolves against a loaded selection artifact and "
+            "this path did not provide one (load it with "
+            "tpu_perf_torch.tuner.load_artifact; run/monitor/chaos/"
+            "scenario plans do)")
+    if nbytes is None:
+        raise ValueError(
+            "--algo auto resolves per sweep point and this path plans per "
+            "op with no point coordinates; it must pass nbytes/skew_us/"
+            "imbalance (run/monitor/chaos/scenario plans do)")
+    if op == "scenario":
+        from tpu_perf_torch.arena import ALGORITHM_NAMES
+        from tpu_perf_torch.arena.algorithms import POW2_ONLY
+        from tpu_perf_torch.scenarios.compose import (
+            scenario_algo_label, scenario_inner_covered,
+        )
+
+        labels = []
+        for spec in opts.scenario:
+            winner = selection.resolve(
+                f"scenario[{spec.name}]", nbytes, opts.dtype,
+                skew_us=skew_us, imbalance=imbalance,
+                n_devices=n_devices, margin_min=opts.tune_margin, err=err)
+            if winner not in ("", "native"):
+                pow2_bad = (winner in POW2_ONLY
+                            and n_devices & (n_devices - 1))
+                if (winner not in ALGORITHM_NAMES
+                        or not scenario_inner_covered(spec, winner)
+                        or pow2_bad):
+                    selection.note_once(
+                        ("scenario-unbuildable", spec.name, winner),
+                        f"artifact winner {winner!r} is not a usable "
+                        f"per-phase inner for scenario {spec.name} at "
+                        f"{n_devices} devices: --algo auto runs the "
+                        f"native composition there", err)
+                    winner = "native"
+            labels.append(scenario_algo_label(spec, winner))
+        return labels
+    from tpu_perf_torch.arena import arena_body_builder, hierarchy, valgos
+    from tpu_perf_torch.scenarios.vops import V_OPS
+
+    winner = selection.resolve(
+        op, nbytes, opts.dtype, skew_us=skew_us, imbalance=imbalance,
+        n_devices=n_devices, margin_min=opts.tune_margin, err=err)
+    if winner in ("", "native"):
+        return ["native"]
+    multi = mesh_axes is not None and len(mesh_axes) >= 2
+    try:
+        if hierarchy.is_hier(winner) or valgos.is_vhier(winner):
+            if not multi:
+                raise ValueError(
+                    "hier/vhier winner on a flat collective axis")
+            names = tuple(n for n, _ in mesh_axes)
+            sizes = tuple(s for _, s in mesh_axes)
+            if valgos.is_vhier(winner):
+                return [valgos.resolve_vhier(op, winner, names, sizes)]
+            return [hierarchy.resolve_hier(op, winner, names, sizes)]
+        if multi:
+            raise ValueError("flat winner on a multi-axis mesh")
+        if op in V_OPS:
+            # v-op winners validate through the v-registry: the balanced
+            # catalog knows nothing about them
+            valgos.v_body_builder_for(op, winner, n_devices)
+        else:
+            arena_body_builder(op, winner, n_devices)
+    except (ValueError, KeyError) as e:
+        selection.note_once(
+            ("unbuildable", op, winner),
+            f"artifact winner {winner!r} for {op} cannot build on this "
+            f"mesh ({e}): --algo auto runs the native call there", err)
+        return ["native"]
+    return [winner]
 
 
 def world_for(opts: Options) -> SimWorld | DistWorld:

@@ -30,13 +30,15 @@ LEGACY_PREFIX = "tcp"
 EXT_PREFIX = "tpu"
 HEALTH_PREFIX = "health"  # JSONL health events (tpu_perf_torch.health)
 CHAOS_PREFIX = "chaos"    # JSONL fault-injection ledger (tpu_perf_torch.faults)
+LINKMAP_PREFIX = "linkmap"  # JSONL link probes/verdicts (tpu_perf_torch.linkmap)
 SPANS_PREFIX = "spans"    # JSONL harness spans (tpu_perf_torch.spans)
+TUNE_PREFIX = "tune"      # JSONL tuner selection records (tpu_perf_torch.tuner)
 
 #: every rotating-log family this package writes, the ones one ingest
-#: pass sweeps (the JAX package's linkmap, fleet and tune families wait
-#: for their subsystems: ROADMAP)
+#: pass sweeps, in the JAX package's order (its fleet family waits for
+#: the fleet subsystem: ROADMAP)
 ALL_PREFIXES = (LEGACY_PREFIX, EXT_PREFIX, HEALTH_PREFIX, CHAOS_PREFIX,
-                SPANS_PREFIX)
+                LINKMAP_PREFIX, SPANS_PREFIX, TUNE_PREFIX)
 
 RESULT_HEADER = (
     "timestamp,job_id,backend,op,nbytes,iters,run_id,n_devices,"

@@ -1,7 +1,7 @@
 """The contention race: a victim op measured under a concurrent load (port
 of ``tpu_perf/streams/contend.py``).
 
-Two shapes of load ride the :class:`~tpu_perf_torch.streams.engine.StreamEngine`:
+Three shapes of load ride the :class:`~tpu_perf_torch.streams.engine.StreamEngine`:
 
 * a compute load (``--load mxu_gemm|hbm_stream``): the victim raced
   against the roofline instruments, reused as load generators;
@@ -9,7 +9,15 @@ Two shapes of load ride the :class:`~tpu_perf_torch.streams.engine.StreamEngine`
   same mesh axis as the victim (the two share the fabric) or, on a
   multi-axis mesh, on another one (``--load-axis``), in the sim world
   (two ops sharing the card's memory system) or across the ranks of a
-  multi-process world.
+  multi-process world;
+* split-channel (``--split K``, op ``ppermute``): the payload cut into K
+  slices, each moved by its own concurrent ppermute lane along one of
+  the linkmap planner's link-disjoint ring shifts
+  (:func:`tpu_perf_torch.linkmap.plan.plan_mesh_links`), so the lanes
+  never contend with one another while K is at most the schedule count.
+  Its idle baseline is the single-channel full-payload ``ppermute``; a
+  loaded sample is the whole K-lane wave's wall, first dispatch to last
+  fence (rows with ``load=split:K`` and no single lane, ``stream`` 0).
 
 Every point runs twice: an idle baseline (the victim alone on its lane;
 rows with an empty ``load`` column and ``stream`` 0) and the loaded run
@@ -32,9 +40,7 @@ injector's seeded series, a loaded sample the idle series' times
 package's), so a gate can assert "slowdown > 1" byte-stably.
 
 ``--algo`` races the victim's arena decompositions (native first), each
-idle and under the load; rows carry the algorithm.  Not ported yet
-(ROADMAP.md section 1 item 3): the split-channel shape (``--split K``),
-which needs the linkmap planner.
+idle and under the load; rows carry the algorithm.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import time
 from tpu_perf_torch.config import Options
 from tpu_perf_torch.schema import ResultRow, decorate_op
 from tpu_perf_torch.streams.engine import StreamEngine
+from tpu_perf_torch.streams.plans import lane_schedules, split_slices
 from tpu_perf_torch.world import DistWorld, SimWorld, is_dist
 
 #: the compute-kernel load generators (bench's roofline bodies)
@@ -58,6 +65,74 @@ SYNTHETIC_CONTENTION = 1.6
 #: fences a concurrent race can use: per run, tolerant of other lanes in
 #: flight (the paired and captured fences assume a quiet card)
 CONTEND_FENCES = ("block", "readback")
+
+
+def _split_k(load: str) -> int:
+    """K of a ``split:K`` load spelling; 0 for every other load."""
+    if not load.startswith("split:"):
+        return 0
+    tail = load.split(":", 1)[1]
+    if not tail.isdigit() or int(tail) < 2:
+        raise ValueError(
+            f"split-channel load must be 'split:K' with K >= 2, got "
+            f"{load!r}")
+    return int(tail)
+
+
+def _flat(world):
+    """``world`` as one flat axis ``x`` over its ranks in row-major order
+    (plan indices are ranks): the sim world's rows, or this rank of a
+    multi-process world on its own group's ranks."""
+    from tpu_perf_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n=world.n)
+    if is_dist(world):
+        return dataclasses.replace(world, mesh=mesh, _axis_groups={})
+    return SimWorld(world.n, world.device, mesh)
+
+
+def build_split_steps(world, nbytes: int, iters: int, k: int, *,
+                      dtype: str = "float32", schedules=None,
+                      lane_worlds=None):
+    """Build the K split-channel ppermute lanes.
+
+    Returns ``[(step, example, slice_nbytes, sched_name), ...]``: lane
+    ``i`` moves slice ``i`` of the payload (:func:`split_slices`) along
+    schedule ``i``'s permutation (:func:`lane_schedules` over the linkmap
+    planner's link-disjoint rounds; pass ``schedules`` to pin them — the
+    parity check races K lanes of the SAME schedule against the
+    single-channel full-payload spelling), ``iters`` chained ppermutes an
+    execution (:meth:`tpu_perf_torch.arena.spmd.Ranks.ppermute`).  The
+    example is the make_fill input of the slice in the arena's stacked
+    view: ``(n, elems)`` sim rows, or this rank's ``(1, elems)``.
+    ``lane_worlds`` gives lane i its own world (a process group of its
+    own across processes); default: ``world`` for every lane."""
+    from tpu_perf_torch.arena.spmd import Ranks
+    from tpu_perf_torch.linkmap.plan import plan_mesh_links
+    from tpu_perf_torch.ops.collectives import DTYPES, example_input
+
+    n = world.n
+    if schedules is None:
+        schedules = plan_mesh_links((n,), ("x",), wrap=True)
+    lanes = lane_schedules(schedules, k)
+    itemsize = DTYPES[dtype].itemsize
+    sizes = split_slices(nbytes, k, itemsize=itemsize)
+    out = []
+    for i, (sched, slice_nbytes) in enumerate(zip(lanes, sizes)):
+        lane_world = _flat(world if lane_worlds is None
+                           else lane_worlds[i])
+        ranks = Ranks(lane_world)
+        perm = sched.perm()
+
+        def step(x, _perm=perm, _ranks=ranks):
+            for _ in range(iters):
+                x = _ranks.ppermute(x, "x", _perm)
+            return x
+
+        example = example_input(lane_world, slice_nbytes // itemsize,
+                                dtype).view(ranks.rows, -1)
+        out.append((step, example, slice_nbytes, sched.name))
+    return out
 
 
 def _rows_for(samples, *, opts: Options, op: str, nbytes: int, iters: int,
@@ -106,11 +181,11 @@ def run_contend(opts: Options, *, world: SimWorld | DistWorld | None = None,
             f"({'|'.join(CONTEND_FENCES)}), got {opts.fence!r}")
     if opts.infinite:
         raise ValueError("contend is a finite measurement (-r N)")
-    if load.startswith("split:"):
-        raise NotImplementedError(
-            "split-channel contention (--split K) is not yet ported: it "
-            "needs the linkmap planner's link-disjoint schedules, see "
-            "ROADMAP.md section 1 item 3 (linkmap and the tuner)")
+    split_k = _split_k(load)
+    if split_k and opts.op != "ppermute":
+        raise ValueError(
+            f"split-channel contention slices a ppermute payload; got "
+            f"op={opts.op!r}")
     injector = None
     if opts.synthetic_s is not None or opts.faults:
         from tpu_perf_torch.faults import FaultInjector
@@ -126,11 +201,12 @@ def run_contend(opts: Options, *, world: SimWorld | DistWorld | None = None,
         n_dev, backend = int(n_devices), (
             "torch-sim" if n_devices > 1 else "torch")
     else:
-        if load not in known_ops():
+        if not split_k and load not in known_ops():
             raise ValueError(
-                f"unknown load op {load!r}; known: {sorted(known_ops())}")
+                f"unknown load op {load!r}; known: {sorted(known_ops())} "
+                f"(or split:K)")
         world = world if world is not None else world_for(opts)
-        load_world = _lane_world(world)
+        load_world = None if split_k else _lane_world(world)
         n_dev, backend = world.n, world.backend
     rows: list[ResultRow] = []
     # --algo races the victim's decompositions, each under the load (the
@@ -146,6 +222,12 @@ def run_contend(opts: Options, *, world: SimWorld | DistWorld | None = None,
                     * SYNTHETIC_CONTENTION for _ in range(opts.num_runs)]
                 idle_warm = loaded_warm = 0.0
                 actual = nbytes
+            elif split_k:
+                idle, loaded, idle_warm, loaded_warm, actual = \
+                    _measure_split(opts, world, nbytes, split_k,
+                                   tracer=tracer, perf_clock=perf_clock)
+                idle = max_over_ranks(world, idle)
+                loaded = max_over_ranks(world, loaded)
             else:
                 idle, loaded, idle_warm, loaded_warm, actual = \
                     _measure_race(opts, world, load_world, nbytes, load,
@@ -161,8 +243,11 @@ def run_contend(opts: Options, *, world: SimWorld | DistWorld | None = None,
                           backend=backend, algo=algo)
             rows.extend(_rows_for(idle, load="", stream=0,
                                   warmup_s=idle_warm, **common))
-            # the victim rides lane 0; rows carry the 1-based lane
-            rows.extend(_rows_for(loaded, load=load, stream=1,
+            # the victim rides lane 0; rows carry the 1-based lane.
+            # Split-channel rows aggregate the whole K-lane wave, so they
+            # carry no single lane (stream 0)
+            rows.extend(_rows_for(loaded, load=load,
+                                  stream=0 if split_k else 1,
                                   warmup_s=loaded_warm, **common))
     return rows
 
@@ -226,3 +311,46 @@ def _measure_race(opts: Options, world, load_world, nbytes: int, load: str,
     loaded_warm = perf_clock() - t0
     loaded = [race() for _ in range(opts.num_runs)]
     return idle, loaded, warm, loaded_warm, victim.nbytes
+
+
+def _measure_split(opts: Options, world, nbytes: int, k: int, *, tracer,
+                   perf_clock):
+    """The split-channel shape: the single-channel full-payload ppermute
+    (the idle baseline) against K concurrent slice lanes on link-disjoint
+    schedules.  The loaded sample is the whole wave's wall, first
+    dispatch to last fence: the time the split spelling takes to move the
+    same payload.  Across processes lane i > 0 rides a process group of
+    its own (:func:`_lane_world`)."""
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.timing import fence
+
+    single = build_op(opts.op, world, nbytes, opts.iters, dtype=opts.dtype)
+    lane_worlds = [world] + [_lane_world(world) for _ in range(k - 1)]
+    lanes = build_split_steps(world, nbytes, opts.iters, k,
+                              dtype=opts.dtype, lane_worlds=lane_worlds)
+    engine = StreamEngine(k, fence_mode=opts.fence, tracer=tracer,
+                          perf_clock=perf_clock)
+    x = single.example_input
+    t0 = perf_clock()
+    for _ in range(max(1, opts.warmup_runs)):
+        fence(single.step(x), opts.fence)
+        for step, example, _, _ in lanes:
+            fence(step(example), opts.fence)
+    warm = perf_clock() - t0
+    idle = []
+    for _ in range(opts.num_runs):
+        t0 = perf_clock()
+        fence(single.step(x), opts.fence)
+        idle.append(perf_clock() - t0)
+
+    def wave() -> float:
+        t0 = perf_clock()
+        for lane, (step, example, _, name) in enumerate(lanes):
+            engine.dispatch(lane, step, example, label=f"split[{name}]")
+        engine.fence_all()
+        return perf_clock() - t0
+
+    # one unrecorded wave: each lane's first dispatch makes its stream
+    loaded_warm = wave()
+    loaded = [wave() for _ in range(opts.num_runs)]
+    return idle, loaded, warm, loaded_warm, single.nbytes
