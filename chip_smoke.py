@@ -115,7 +115,13 @@ exits non-zero):
    planted link re-probed serially, ``tune`` over a v-op arena run, ``run
    --algo auto`` on the artifact's winners, ``tune --check`` 0 and 10, the
    split lanes against the single channel and ``contend --split 2``;
-   printed: each link's p50 and GB/s, ``auto_vs_native``); then the
+   printed: each link's p50 and GB/s, ``auto_vs_native``); the fleet plane
+   (``fleet``: four host folders from fused daemons on the card, one
+   beside a neighbour process, one a ``chaos`` soak; ``fleet report`` exits
+   9 naming the neighbour's host alone, its drain hook acts, rate-limits
+   and fails into one critical ``drain_fail``, ``--tune-out`` crowns the
+   linkmap phase's ``tune`` winners; ``fleet timeline`` and ``timeline``
+   ``--check`` export every host's spans; ``lint`` exits 0); then the
    multi-rank world: ``run --distributed`` in an NCCL
    world of one (this process, torchrun's variables set for one rank)
    over the library collectives and ``ring`` (rows with backend torch,
@@ -3932,6 +3938,11 @@ def _tune_then_auto(root: str) -> list[str]:
     _arena_rows(["run", "--algo", "all"] + common,
                 f"run --op {TUNE_OPS} --algo all", arena)
     _cli_quiet(["tune", "-d", arena, "-o", sel], "tune")
+    if TUNE_KEPT is not None:  # the fleet phase's --tune-out input
+        import shutil
+
+        shutil.copytree(arena, os.path.join(TUNE_KEPT, "arena-host"))
+        shutil.copy(sel, os.path.join(TUNE_KEPT, "sel.json"))
     art = read_artifact(sel)
     if not art.entries:
         fail("tune: the artifact holds no winner")
@@ -4076,6 +4087,312 @@ def phase_linkmap() -> None:
     print(f"bench auto_vs_native ({CARD}): "
           f"{json.dumps(bench.auto_vs_native(dev))}", flush=True)
     _release_cache("linkmap")
+
+
+#: fleet: host folders filled by daemons on the card, FLEET_RUNS visits
+#: each over the family's 6 points; a neighbour process keeps the card
+#: busy under FLEET_PLANTED's daemon (the planted slowness: a delay fault
+#: would make its rows chaos rows, which the grader never judges)
+FLEET_OPS, FLEET_SWEEP, FLEET_RUNS = "pl_allreduce,allreduce", "4K,4M,256M", 240
+FLEET_HOSTS, FLEET_PLANTED = ("host-a", "host-b", "host-c"), "host-c"
+FLEET_CHAOS = "host-d"
+FLEET_LIMIT_S = 120
+#: the linkmap phase's arena rows and tune artifact, kept for the fleet
+#: phase's --tune-out (None: the fleet phase makes its own)
+TUNE_KEPT: str | None = None
+
+_NEIGHBOUR = (
+    "import os, sys, torch\n"
+    "x = torch.ones(1 << 28, device='cuda'); y = torch.empty_like(x)\n"
+    "torch.cuda.synchronize(); open(sys.argv[1], 'w').close()\n"
+    "while not os.path.exists(sys.argv[2]):\n"
+    "    for _ in range(8):\n"
+    "        y.copy_(x)\n"
+    "    torch.cuda.synchronize()\n")
+
+
+def _fleet_daemon(folder: str, what: str, extra=()) -> float:
+    """One host's daemon into ``folder`` through ``cli.main``; its wall."""
+    t0 = time.perf_counter()
+    _cli_quiet(["monitor", "--op", FLEET_OPS, "--sweep", FLEET_SWEEP, "-i",
+                str(ITERS), "--sim-ranks", "8", "--fence", "fused",
+                "--spans", "--health", "--max-runs", str(FLEET_RUNS),
+                "--stats-every", "60", "--log-refresh-sec", "3600", "-l",
+                folder, *extra], what)
+    return time.perf_counter() - t0
+
+
+def _fleet_hosts(root: str) -> dict:
+    """Fill the host folders; the planted host's daemon runs beside a
+    neighbour process copying 1 GiB on the card.  Returns each host's
+    daemon wall."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ready, stop = f"{root}/.neighbour-ready", f"{root}/.neighbour-stop"
+    walls = {}
+    for host in FLEET_HOSTS:
+        folder = f"{root}/{host}"
+        if host != FLEET_PLANTED:
+            walls[host] = _fleet_daemon(folder, f"monitor on {host}")
+            continue
+        proc = subprocess.Popen([sys.executable, "-c", _NEIGHBOUR, ready,
+                                 stop], cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            t0 = time.perf_counter()
+            while not os.path.exists(ready):
+                if proc.poll() is not None or \
+                        time.perf_counter() - t0 > FLEET_LIMIT_S:
+                    fail(f"fleet: the neighbour process never started: "
+                         f"{proc.communicate()[1][-2000:]}")
+                time.sleep(0.1)
+            walls[host] = _fleet_daemon(
+                folder, f"monitor on {host} beside a neighbour")
+        finally:
+            open(stop, "w").close()
+            try:
+                proc.communicate(timeout=FLEET_LIMIT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    # a chaos soak's host: its delayed rows are chaos rows, never graded
+    t0 = time.perf_counter()
+    _cli_quiet(["chaos", "--op", FLEET_OPS, "--sweep", FLEET_SWEEP, "-i",
+                str(ITERS), "--sim-ranks", "8", "--fence", "fused",
+                "--spans", "--max-runs", str(FLEET_RUNS // 2),
+                "--stats-every", "60", "--log-refresh-sec", "3600", "--fault",
+                "delay:pl_allreduce::1-:2", "-l", f"{root}/{FLEET_CHAOS}"],
+               f"chaos on {FLEET_CHAOS}")
+    walls[FLEET_CHAOS] = time.perf_counter() - t0
+    return walls
+
+
+def _fleet_report(argv: list[str], what: str, rcs=(9,)) -> tuple[int, str]:
+    import contextlib
+    import io
+
+    from tpu_perf_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["fleet", "report", *argv])
+    if rc not in rcs:
+        fail(f"fleet: {what} exited {rc}, not one of {rcs}:\n"
+             f"{buf.getvalue()[-3000:]}")
+    return rc, buf.getvalue()
+
+
+def _drain_records(folder: str) -> list[dict]:
+    return [r for r in _jsonl(folder, "fleet") if r["record"] == "drain"]
+
+
+def _timeline_spans(argv: list[str], what: str) -> int:
+    """``argv`` (a ``timeline`` or ``fleet timeline`` with ``--check``
+    and ``-o``) must exit 0; returns the export's span events."""
+    _cli_quiet(argv, what)
+    with open(argv[argv.index("-o") + 1]) as fh:
+        data = json.load(fh)
+    from tpu_perf_torch.trace import validate_chrome_trace
+
+    problems = validate_chrome_trace(data)
+    if problems:
+        fail(f"fleet: {what}: {problems[:3]}")
+    return sum(e.get("ph") == "X" for e in data["traceEvents"])
+
+
+def phase_fleet() -> None:
+    """The fleet plane, ``timeline`` and ``lint`` on the card.  Three host
+    folders from fused ``monitor --spans --health`` daemons of the family
+    (8 sim ranks, 4K / 4M / 256M), one of them beside a neighbour process
+    that keeps the card busy, and a fourth from a ``chaos`` soak with a
+    delay on ``pl_allreduce``.  Gated: ``fleet report`` exits 9 with the
+    planted host sick and no other; ``--drain-hook true`` writes an
+    invoked drain record, a second pass inside ``--drain-interval`` runs no
+    hook, and a hook exiting 1 on a fresh copy raises one critical
+    ``drain_fail`` event; ``--tune-out`` over the linkmap phase's arena rows
+    crowns that phase's ``tune`` winners; ``fleet timeline --check`` and
+    ``timeline --check`` exit 0 with the hosts' span counts; ``lint`` on the
+    port's tree exits 0.  Printed: the phase's wall, rows folded a second,
+    the hosts' p50s at 4 KiB."""
+    global TUNE_KEPT
+    import shutil
+    import tempfile
+
+    from tpu_perf_torch.report import collect_paths
+    from tpu_perf_torch.spans import read_span_records
+    from tpu_perf_torch.tuner import read_artifact
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-fleet-") as work:
+        root = f"{work}/fleet"
+        walls = _fleet_hosts(root)
+        t0 = time.perf_counter()
+        _, out = _fleet_report([root, "--format", "json", "-o",
+                                f"{work}/fleet.json", "--textfile",
+                                f"{work}/fleet.prom", "-l",
+                                f"{work}/rollup"], "fleet report")
+        report_s = time.perf_counter() - t0
+        data = json.loads(out)
+        sick = data["summary"]["sick_hosts"]
+        if sick != [FLEET_PLANTED]:
+            fail(f"fleet: sick hosts {sick}, not [{FLEET_PLANTED}]: "
+                 + str([(v["host"], v["op"], v["nbytes"], v["verdict"],
+                         v["rel"]) for v in data["verdicts"]]))
+        rows = sum(h["rows"] for h in data["hosts"])
+        chaos = next(h for h in data["hosts"] if h["host"] == FLEET_CHAOS)
+        if not chaos["chaos_injections"] or chaos["sick"]:
+            fail(f"fleet: the chaos host {chaos}")
+        p50: dict = {}
+        for c in data["curves"]:
+            p50.setdefault((c["op"], c["nbytes"]), {})[c["host"]] = \
+                c["lat_us"]["p50"]
+        slow = [f"{v['op']}@{v['nbytes']} +{v['rel']:.3f}"
+                for v in data["verdicts"] if v["verdict"] != "ok"]
+        # the drain hook: invoked, then rate-limited, then failing afresh
+        rc, _ = _fleet_report([root, "--drain-hook", "true", "-l",
+                               f"{work}/drain1"], "--drain-hook true")
+        got = [(d["host"], d["action"], d["rc"])
+               for d in _drain_records(f"{work}/drain1")]
+        if got != [(FLEET_PLANTED, "invoked", 0)]:
+            fail(f"fleet: --drain-hook true wrote {got}")
+        marker = f"{work}/hook-ran"
+        _fleet_report([root, "--drain-hook", f"touch {marker}", "-l",
+                       f"{work}/drain2"], "a second --drain-hook pass")
+        got = [(d["host"], d["action"]) for d in
+               _drain_records(f"{work}/drain2")]
+        if got != [(FLEET_PLANTED, "rate-limited")] or \
+                os.path.exists(marker):
+            fail(f"fleet: a pass inside --drain-interval wrote {got} "
+                 f"(hook ran: {os.path.exists(marker)})")
+        fresh = f"{work}/fresh"
+        shutil.copytree(root, fresh, ignore=shutil.ignore_patterns(
+            ".drain-state.json"))
+        _fleet_report([fresh, "--drain-hook", "false", "-l",
+                       f"{work}/drain3"], "--drain-hook false")
+        events = [(e["kind"], e["severity"], e["op"])
+                  for e in _jsonl(f"{work}/drain3", "health")]
+        if events != [("drain_fail", "critical", f"drain:{FLEET_PLANTED}")]:
+            fail(f"fleet: a failing hook raised {events}")
+        # --tune-out over the linkmap phase's arena rows: its winners
+        kept = TUNE_KEPT
+        if kept is None or not os.path.exists(f"{kept}/sel.json"):
+            # run alone: the linkmap phase's tune, into this phase's folder
+            kept = f"{work}/tune"
+            os.makedirs(kept)
+            TUNE_KEPT, before = kept, TUNE_KEPT
+            try:
+                _tune_then_auto(f"{work}/tune-run")
+            finally:
+                TUNE_KEPT = before
+        troot = f"{work}/tune-root"
+        os.makedirs(troot)
+        shutil.copytree(f"{kept}/arena-host", f"{troot}/arena-host")
+        _fleet_report([troot, "--tune-out", f"{work}/fleet-sel.json"],
+                      "fleet report --tune-out", (0,))
+        want = {(e.op, e.nbytes, e.imbalance): e.winner
+                for e in read_artifact(f"{kept}/sel.json").entries}
+        got = {(e.op, e.nbytes, e.imbalance): e.winner
+               for e in read_artifact(f"{work}/fleet-sel.json").entries}
+        if got != want:
+            fail(f"fleet: --tune-out crowned {got}, tune {want}")
+        # the timelines: every host's spans, joins complete
+        spans = {h: len(read_span_records(collect_paths(
+            f"{root}/{h}", prefix="spans", include_open=True)))
+            for h in (*FLEET_HOSTS, FLEET_CHAOS)}
+        n = _timeline_spans(["fleet", "timeline", root, "--check", "-o",
+                             f"{work}/fleet-timeline.json"],
+                            "fleet timeline --check")
+        if n != sum(spans.values()):
+            fail(f"fleet: fleet timeline exported {n} spans, the hosts "
+                 f"hold {spans}")
+        host = FLEET_HOSTS[0]
+        m = _timeline_spans(["timeline", f"{root}/{host}", "--check", "-o",
+                             f"{work}/timeline.json"], "timeline --check")
+        if m != spans[host]:
+            fail(f"fleet: timeline exported {m} spans, {host} holds "
+                 f"{spans[host]}")
+    _cli_quiet(["lint"], "lint on the port's tree")
+    walls_s = ", ".join(f"{h} {t:.1f} s" for h, t in walls.items())
+    print(f"fleet ({CARD}): {len(walls)} hosts ({walls_s}), sick {sick} "
+          f"(exit 9; its slow points {slow}), {rows} rows folded in "
+          f"{report_s:.3f} s ({rows / report_s:.0f} rows/s); p50 us by "
+          "point, hosts " + "/".join((*FLEET_HOSTS, FLEET_CHAOS)) + ": "
+          + ", ".join(f"{op}@{nb} " + "/".join(
+              f"{hosts.get(h, float('nan')):.2f}"
+              for h in (*FLEET_HOSTS, FLEET_CHAOS))
+              for (op, nb), hosts in sorted(p50.items()))
+          + f"; drain: invoked, rate-limited, drain_fail; --tune-out "
+          f"{len(got)} winners = tune's; fleet timeline {n} spans "
+          f"({spans}), timeline {m}; lint 0; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    _release_cache("fleet")
+
+
+def _cards_fleet(n: int, device: str) -> list[str]:
+    """A torchrun ``monitor --spans`` world across the cards, then
+    ``timeline`` over its folder.  Gated: every rank gets a clock offset
+    from the heartbeat anchors (none left on its own clock, none on the
+    run-span fallback), and the aligned export is valid.  Printed: each
+    rank's offset and the residual skew of the aligned heartbeat
+    boundaries."""
+    import contextlib
+    import io
+    import tempfile
+
+    from tpu_perf_torch import cli
+    from tpu_perf_torch.fleet.timeline import align_spans, clock_offsets
+    from tpu_perf_torch.report import collect_paths
+    from tpu_perf_torch.spans import read_span_records
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-fleet-cards-") as d:
+        folder = os.path.join(d, "logs")
+        _torchrun(n, ["monitor", "--op", "allreduce", "--sweep", "4K,16M",
+                      "-i", str(ITERS), "--fence", "block", "--max-runs",
+                      "400", "--stats-every", "20", "--spans", "-l", folder],
+                  "torchrun monitor --spans", device)
+        spans = read_span_records(collect_paths(folder, prefix="spans",
+                                                include_open=True))
+        err = io.StringIO()
+        offsets = clock_offsets(spans, err=err)
+        ranks = sorted(r for _, r in offsets)
+        if ranks != list(range(n)) or err.getvalue():
+            fail(f"across cards: clock offsets for ranks {ranks}: "
+                 f"{err.getvalue()}")
+        ends: dict = {}
+        for s in align_spans(spans, offsets):
+            if s["kind"] == "heartbeat":
+                ends.setdefault(s["attrs"]["run_id"], []).append(
+                    s["t_start_ns"] + s["dur_ns"])
+        skew = sorted(max(e) - min(e) for e in ends.values()
+                      if len(e) == n)
+        if not skew:
+            fail("across cards: no heartbeat boundary holds every rank")
+        out = os.path.join(d, "timeline.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["timeline", folder, "-o", out])
+        if rc != 0:
+            fail(f"across cards: timeline exited {rc}")
+    return [f"timeline over a torchrun monitor --spans world of {n}: "
+            "clock offsets (ns) " + ", ".join(
+                f"rank {r} {offsets[k]}" for k in sorted(offsets)
+                for r in [k[1]])
+            + f"; residual skew of {len(skew)} aligned heartbeat "
+            f"boundaries: median {skew[len(skew) // 2] / 1e3:.1f} us, "
+            f"max {skew[-1] / 1e3:.1f} us"]
+
+
+def cards_fleet(cards: int, device: str = "cuda") -> int:
+    """The timeline's clock alignment across the cards alone
+    (:func:`_cards_fleet`); on a host with four cards: ``python3 -c
+    "import chip_smoke as c; c.cards_fleet(4)"`` (``device`` "cpu"
+    rehearses it on gloo)."""
+    t0 = time.perf_counter()
+    if device == "cuda":
+        print(card_line_all(), flush=True)
+    for line in _cards_fleet(cards, device):
+        print(f"cards: {line}", flush=True)
+    print(f"cards: total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "cards": cards}))
+    return 0
 
 
 DIST_OPS = ("allreduce,all_gather,reduce_scatter,all_to_all,broadcast,"
@@ -5629,7 +5946,8 @@ def across_cards(cards: int, device: str = "cuda") -> int:
         print(line, flush=True)
     for line in (_cards_cli(cards, device) + _cards_chaos(cards, device)
                  + _cards_arena(cards, device)
-                 + _cards_linkmap(cards, device)):
+                 + _cards_linkmap(cards, device)
+                 + _cards_fleet(cards, device)):
         print(f"cards: {line}", flush=True)
     print(f"cards: total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "cards": cards}))
@@ -6506,11 +6824,12 @@ def _main(torch) -> int:
         PHASE[:] = ["kernels", time.perf_counter()]
         return result
 
-    global REPORT_DIR
+    global REPORT_DIR, TUNE_KEPT
     import shutil
     import tempfile
 
     REPORT_DIR = tempfile.mkdtemp(prefix="chip_smoke-report-")
+    TUNE_KEPT = tempfile.mkdtemp(prefix="chip_smoke-tune-")
     try:
         designs = timed("build", phase_build)
         timed("check", phase_check)
@@ -6531,9 +6850,11 @@ def _main(torch) -> int:
         timed("arena", phase_arena)
         timed("push", phase_push)
         timed("linkmap", phase_linkmap)
+        timed("fleet", phase_fleet)
         _, peer_rows = timed("distributed", phase_distributed)
     finally:
         shutil.rmtree(REPORT_DIR, ignore_errors=True)
+        shutil.rmtree(TUNE_KEPT, ignore_errors=True)
     timed("selftest", phase_selftest)
     timed("grid", phase_grid)
     for label, per_rank in (("4MiB", HEADLINE_BYTES), ("256MiB", MAIN_BYTES)):

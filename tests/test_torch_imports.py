@@ -89,7 +89,15 @@ SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.linkmap.probe",
                  "tpu_perf_torch.linkmap.grade",
                  "tpu_perf_torch.linkmap.report", "tpu_perf_torch.tuner",
-                 "tpu_perf_torch.tuner.artifact")
+                 "tpu_perf_torch.tuner.artifact", "tpu_perf_torch.fleet",
+                 "tpu_perf_torch.fleet.collect", "tpu_perf_torch.fleet.drain",
+                 "tpu_perf_torch.fleet.report", "tpu_perf_torch.fleet.rollup",
+                 "tpu_perf_torch.fleet.timeline", "tpu_perf_torch.analysis",
+                 "tpu_perf_torch.analysis.astutil",
+                 "tpu_perf_torch.analysis.engine",
+                 "tpu_perf_torch.analysis.findings",
+                 "tpu_perf_torch.analysis.manifest",
+                 "tpu_perf_torch.analysis.rules")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

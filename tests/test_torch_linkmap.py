@@ -14,6 +14,7 @@ multi-process world on cards and none in the sim world; and a gloo world
 of 3 processes grades alike on every rank while rank 0 alone writes.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -500,6 +501,72 @@ def test_bisection_re_probes_the_flagged_link_serially():
     assert prober.bisect_flagged(prober.probe(plan[:1]))[1] == 0
 
 
+class _BatchBound(LinkProber):
+    """A prober on a loaded host: a concurrent batch's wall is 20 times a
+    serial probe's (the batch moves its links one after another on
+    shared engines, and the host is busy)."""
+
+    _batch = False
+
+    def _probe_concurrent(self, *args, **kw):
+        self._batch = True
+        try:
+            return super()._probe_concurrent(*args, **kw)
+        finally:
+            self._batch = False
+
+    def _timed(self, step) -> float:
+        step(self.example_input())
+        return 20e-6 if self._batch else 1e-6
+
+
+@pytest.mark.parametrize("n,link", [(2, (1, 0)), (3, (1, 2)), (8, (3, 5))])
+def test_bisection_grades_the_re_probed_link_against_serial_peers(n, link):
+    """The planted 100x link, re-probed serially, is graded against peers
+    re-probed the same way: dead, where its serial samples against the
+    peers' batch bounds (20x a serial probe) would read 5x, slow."""
+    target = probe_op_name((link[0],), (link[1],))
+    prober = _BatchBound(SimWorld(n, CPU), nbytes=64, iters=1, runs=3,
+                         injector=FaultInjector([FaultSpec(
+                             kind="delay", op=target, magnitude=99.0)]))
+    plan = plan_all_pairs(n)
+    result = prober.probe(plan, concurrent=True)
+    merged, flagged = prober.bisect_flagged(result)
+    assert flagged == 1
+    verdicts = {(v.src, v.dst): v.verdict for v in grade(merged)}
+    assert verdicts.pop(link) == "dead"
+    assert set(verdicts.values()) == {"ok"}
+    serial = {(r.probe.src, r.probe.dst) for r in merged.probes
+              if r.first_run > 3 * len(plan)}
+    from tpu_perf_torch.linkmap.grade import peer_links
+    assert serial == {link} | peer_links(result, {link})
+    assert len(serial) < len(merged.probes) or n < 4
+    # batch bounds alone under the re-probed link: it reads 5x, slow
+    only = dataclasses.replace(merged, probes=[
+        r if (r.probe.src, r.probe.dst) == link else
+        next(q for q in result.probes if q.probe == r.probe)
+        for r in merged.probes])
+    assert {(v.src, v.dst): v.verdict for v in grade(only)}[link] == "slow"
+
+
+class _Ramp(LinkProber):
+    """A prober whose steps ramp like a new gloo or NCCL channel: each
+    step's first three exchanges take 50x the steady time."""
+
+    def _timed(self, step) -> float:
+        step(self.example_input())
+        self._calls[id(step)] = self._calls.get(id(step), 0) + 1
+        return 50e-6 if self._calls[id(step)] <= 3 else 1e-6
+
+
+def test_each_probe_warms_up_past_the_channels_ramp():
+    prober = _Ramp(SimWorld(4, CPU), nbytes=64, iters=1, runs=3)
+    prober._calls = {}
+    result = prober.probe(plan_all_pairs(4))
+    assert {t for r in result.probes for t in r.samples} == {1e-6}
+    assert {v.verdict for v in grade(result)} == {"ok"}
+
+
 def test_precompile_walks_the_serial_order_on_host_halves():
     plan = plan_mesh_links((2, 4))
     world = SimWorld(8, CPU)
@@ -714,21 +781,24 @@ def test_the_default_roofline_follows_jaxs_rule(monkeypatch, capsys):
 
 def test_the_families_route_as_jaxs(tmp_path):
     from tpu_perf.ingest import pipeline as jpl
+    from tpu_perf.push.sinks import PUSH_ROUTES as JROUTES
+    from tpu_perf.schema import ALL_PREFIXES as JALL
+    from tpu_perf.schema import FLEET_PREFIX as JF
     from tpu_perf.schema import LINKMAP_PREFIX as JL
     from tpu_perf.schema import TUNE_PREFIX as JT
     from tpu_perf_torch.ingest import pipeline as pl
     from tpu_perf_torch.push.sinks import PUSH_ROUTES
     from tpu_perf_torch.schema import (
-        ALL_PREFIXES, LINKMAP_PREFIX, TUNE_PREFIX,
+        ALL_PREFIXES, FLEET_PREFIX, LINKMAP_PREFIX, TUNE_PREFIX,
     )
 
-    assert (LINKMAP_PREFIX, TUNE_PREFIX) == (JL, JT)
-    assert ALL_PREFIXES == tuple(p for p in __import__(
-        "tpu_perf.schema", fromlist=["x"]).ALL_PREFIXES if p != "fleet")
-    assert (pl.LINKMAP_TABLE, pl.TUNE_TABLE) == (jpl.LINKMAP_TABLE,
-                                                jpl.TUNE_TABLE)
+    assert (LINKMAP_PREFIX, TUNE_PREFIX, FLEET_PREFIX) == (JL, JT, JF)
+    assert ALL_PREFIXES == JALL  # the fleet family included
+    assert (pl.LINKMAP_TABLE, pl.TUNE_TABLE, pl.FLEET_TABLE) == (
+        jpl.LINKMAP_TABLE, jpl.TUNE_TABLE, jpl.FLEET_TABLE)
     assert PUSH_ROUTES[LINKMAP_PREFIX] == pl.LINKMAP_TABLE
     assert PUSH_ROUTES[TUNE_PREFIX] == pl.TUNE_TABLE
+    assert PUSH_ROUTES == JROUTES
 
     class Spy:
         def __init__(self):
@@ -737,14 +807,14 @@ def test_the_families_route_as_jaxs(tmp_path):
         def ingest(self, path):
             self.paths.append(path)
 
-    for name in ("linkmap-u-0-a.log", "tune-u-0-a.log"):
+    for name in ("linkmap-u-0-a.log", "tune-u-0-a.log", "fleet-u-0-a.log"):
         (tmp_path / name).write_text('{"record": "meta"}\n')
     (tmp_path / "linkmap-u-0-b.log.open").write_text('{"record": "meta"}\n')
     spy = Spy()
     assert pl.run_all_ingest_passes(str(tmp_path), skip_newest=5,
-                                    backend=spy) == 2
+                                    backend=spy) == 3
     assert sorted(p.split("/")[-1] for p in spy.paths) == [
-        "linkmap-u-0-a.log", "tune-u-0-a.log"]
+        "fleet-u-0-a.log", "linkmap-u-0-a.log", "tune-u-0-a.log"]
 
 
 def test_a_link_event_is_jaxs(tmp_path):
@@ -770,13 +840,16 @@ def test_a_link_event_is_jaxs(tmp_path):
 
 # --- a gloo world of 3 processes ------------------------------------------
 
-_WORKER = """
+#: each sample 20 chained 4 KiB messages (~2-3 ms on gloo, longer than a
+#: loaded host's scheduling stalls), 5 a link
+RUNS = 5
+_WORKER = f"""
 import sys
 from tpu_perf_torch import cli
 sys.exit(cli.main(["linkmap", "--distributed", "--device", "cpu",
-                   "--all-pairs", "-b", "4K", "-i", "2", "-r", "3",
+                   "--all-pairs", "-b", "4K", "-i", "20", "-r", "{RUNS}",
                    "--concurrent", "-l", sys.argv[1], "--fault",
-                   f"delay:{sys.argv[2]}::1-:99"]))
+                   f"delay:{{sys.argv[2]}}::1-:99"]))
 """
 
 
@@ -784,6 +857,12 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def _tails(procs, outs) -> str:
+    """Every rank's exit code and the tail of its stderr, for a failure."""
+    return "\n".join(f"rank {r} rc {p.returncode}:\n{err[-2000:]}"
+                     for r, (p, (_, err)) in enumerate(zip(procs, outs)))
 
 
 @pytest.mark.parametrize("n,link", [(2, (1, 0)), (3, (1, 2))])
@@ -815,7 +894,7 @@ def test_a_gloo_world_grades_alike_and_rank_0_writes(tmp_path, n, link):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    assert [p.returncode for p in procs] == [6] * n, outs[0][1][-3000:]
+    assert [p.returncode for p in procs] == [6] * n, _tails(procs, outs)
     assert all(out == "" for out, _ in outs[1:])  # rank 0 alone prints
     files = sorted(p.name for p in logs.iterdir())
     assert all(f.split("-")[-3] == "0" for f in files), files
@@ -826,11 +905,13 @@ def test_a_gloo_world_grades_alike_and_rank_0_writes(tmp_path, n, link):
     assert len(meta) == 1 and meta[0]["concurrent"] and meta[0]["n"] == n
     assert sorted(verdicts) == [(i, j) for i in range(n) for j in range(n)
                                 if i != j]
-    assert verdicts[link]["verdict"] == "dead"
+    probes = [r for r in recs if r["record"] == "probe"]
+    evidence = json.dumps({"verdicts": list(verdicts.values()),
+                           "probes": probes}, indent=1)
+    assert verdicts[link]["verdict"] == "dead", evidence
     assert verdicts[link]["rank"] == 1 and verdicts[link]["host"] == "rank1"
-    probe = next(r for r in recs if r["record"] == "probe"
-                 and (r["src"], r["dst"]) == link)
-    assert probe["first_run"] > 3 * len(plan_all_pairs(n))
+    probe = next(r for r in probes if (r["src"], r["dst"]) == link)
+    assert probe["first_run"] > RUNS * len(plan_all_pairs(n)), evidence
     events = _logs(logs, "health", drop=())
     assert [(e["op"], e["rank"], e["severity"]) for e in events
             if e["op"] == op] == [(op, 1, "critical")]

@@ -651,7 +651,8 @@ def _cmd_linkmap(args: argparse.Namespace) -> int:
             result, n_bisected = prober.bisect_flagged(result, cfg)
             if n_bisected and rank == 0:
                 print(f"[tpu-perf-torch linkmap] re-probed {n_bisected} "
-                      f"flagged link(s) serially (auto-bisection)",
+                      f"flagged link(s) serially, with their grading "
+                      f"peers (auto-bisection)",
                       file=sys.stderr)
     finally:
         if tracer is not None:
@@ -989,6 +990,455 @@ def _cmd_chaos_verify(args: argparse.Namespace) -> int:
               f"{'; '.join(failures)}", file=sys.stderr)
         return 5
     return 0
+
+
+def _audit_join(target: str, spans: list[dict],
+                rank: int | None = None) -> tuple[list[str], str]:
+    """The join-completeness audit over one record folder: every result
+    row, health event, and chaos ledger entry must resolve to exactly
+    one enclosing run span.  Returns ``(problems, summary)`` — shared
+    by `timeline --check` and `fleet timeline --check` (per host)."""
+    import os
+    import re
+
+    from tpu_perf_torch.faults import read_ledger
+    from tpu_perf_torch.health.events import read_events
+    from tpu_perf_torch.report import collect_paths, read_rows
+    from tpu_perf_torch.schema import CHAOS_PREFIX, EXT_PREFIX, HEALTH_PREFIX
+    from tpu_perf_torch.trace import join_completeness
+
+    def job_rank_of(path: str):
+        # <prefix>-<uuid>-<rank>-<YYYYmmdd-HHMMSS>[-i].log[.open] —
+        # uuid and timestamp both carry dashes, so anchor on the
+        # timestamp shape (driver.log_file_name)
+        m = re.match(
+            r"[a-z]+-(.+)-(\d+)-\d{8}-\d{6}(?:-\d+)?\.log(?:\.open)?$",
+            os.path.basename(path))
+        return (m.group(1), int(m.group(2))) if m else (None, 0)
+
+    # rows and ledger records carry no rank column and the ledger no
+    # job column (the file name carries both); span IDs are unique
+    # per (job, rank), not across them — so the join audits each
+    # (job, rank)'s record files against its own spans
+    row_paths = collect_paths(target, prefix=EXT_PREFIX)
+    ledger_paths = collect_paths(target, prefix=CHAOS_PREFIX,
+                                 include_open=True)
+    events = read_events(collect_paths(
+        target, prefix=HEALTH_PREFIX, include_open=True))
+    keys = sorted(
+        {job_rank_of(p) for p in row_paths + ledger_paths}
+        | {(ev.job_id, ev.rank) for ev in events},
+        key=lambda k: (str(k[0]), k[1]),
+    )
+    if rank is not None:
+        # the span set is already rank-filtered; audit only that rank's
+        # records too, or every other rank's records would spuriously
+        # fail against the filtered spans
+        keys = [k for k in keys if k[1] == rank]
+    problems: list[str] = []
+    n_rows = n_fault = 0
+    for job, rk in keys:
+        rows = read_rows([p for p in row_paths
+                          if job_rank_of(p) == (job, rk)])
+        lpaths = [p for p in ledger_paths
+                  if job_rank_of(p) == (job, rk)]
+        ledger = read_ledger(lpaths) if lpaths else []
+        n_rows += len(rows)
+        n_fault += sum(1 for r in ledger if r.get("record") == "fault")
+        problems += join_completeness(
+            spans, rows=rows,
+            events=[ev for ev in events
+                    if (ev.job_id, ev.rank) == (job, rk)],
+            ledger=ledger, rank=rk, job_id=job,
+        )
+    summary = (f"{n_rows} row(s), {len(events)} event(s), {n_fault} "
+               "ledger entr(ies) each resolve to one run span (untraced "
+               "jobs, if any, make no claim)")
+    return problems, summary
+
+
+def _align_ranks(spans: list[dict]) -> list[dict]:
+    """Merge-time clock alignment: processes launched seconds apart
+    disagree by seconds of perf-counter epoch, so raw-merged ranks draw
+    concurrent work far apart.  Offsets are anchored on the heartbeat
+    collectives' shared boundaries (fleet.timeline.clock_offsets); a
+    single-rank export is untouched (offset 0 by construction)."""
+    from tpu_perf_torch.fleet.timeline import align_spans, clock_offsets
+
+    offsets = clock_offsets(spans)
+    moved = sum(1 for v in offsets.values() if v)
+    if moved:
+        print(f"tpu-perf-torch: aligned {moved} process clock(s) onto the "
+              "job's reference clock (heartbeat-boundary anchors; "
+              "--no-align exports raw clocks)", file=sys.stderr)
+        return align_spans(spans, offsets)
+    return spans
+
+
+def _cmd_timeline(args: argparse.Namespace) -> int:
+    """Export harness trace spans (spans-*.log, from --spans) to Chrome
+    trace-event JSON.  All ranks found in the target merge into one
+    timeline (pid = rank) unless --rank filters — with per-process
+    clock-skew alignment anchored on the heartbeat collectives (ranks
+    of one job are launched seconds apart; their perf-counter epochs
+    differ by exactly that); --check additionally runs the
+    join-completeness audit against the sibling row/event/ledger files
+    (exit 7 on an incomplete join)."""
+    import os
+
+    from tpu_perf_torch.report import collect_paths
+    from tpu_perf_torch.schema import SPANS_PREFIX
+    from tpu_perf_torch.spans import read_span_records
+    from tpu_perf_torch.trace import chrome_trace_json, write_timeline
+
+    paths = collect_paths(args.target, prefix=SPANS_PREFIX,
+                          include_open=True)
+    if not paths:
+        print(f"tpu-perf-torch: no span logs match {args.target!r} — run with "
+              "--spans and a logfolder first", file=sys.stderr)
+        return 1
+    try:
+        spans = read_span_records(paths)
+    except ValueError as e:
+        print(f"tpu-perf-torch: bad span log: {e}", file=sys.stderr)
+        return 1
+    if args.rank is not None:
+        spans = [s for s in spans if s.get("rank") == args.rank]
+        if not spans:
+            print(f"tpu-perf-torch: no spans for rank {args.rank}",
+                  file=sys.stderr)
+            return 1
+    rc = 0
+    if args.check:
+        if not os.path.isdir(args.target):
+            print("tpu-perf-torch: error: --check needs a directory target "
+                  "(the sibling row/event/ledger files)", file=sys.stderr)
+            return 2
+        problems, summary = _audit_join(args.target, spans,
+                                        rank=args.rank)
+        if problems:
+            for p in problems:
+                print(f"tpu-perf-torch: join incomplete: {p}", file=sys.stderr)
+            rc = 7  # the timeline still exports: evidence beats silence
+        else:
+            print(f"tpu-perf-torch: join complete: {summary}", file=sys.stderr)
+    if not args.no_align:
+        # AFTER the join audit (joins key on IDs, not clocks) and
+        # BEFORE export: the rendered geometry is what alignment fixes
+        spans = _align_ranks(spans)
+    content = chrome_trace_json(spans)
+    if args.output:
+        # atomic, like the phase sidecar: a collector uploading the
+        # artifact mid-export must never see a torn JSON file
+        write_timeline(args.output, content)
+        print(f"tpu-perf-torch: wrote {len(spans)} span(s) to {args.output} "
+              "(load in https://ui.perfetto.dev)", file=sys.stderr)
+    else:
+        print(content, end="")
+    return rc
+
+
+def _cmd_fleet_report(args: argparse.Namespace) -> int:
+    """The cross-host collector (reads files only: no CUDA context, no
+    ``--device``; a collector host may have no card): walk every host
+    folder under the fleet
+    root (streaming — bounded memory over any row count), roll up
+    per-(host, op, size) percentiles, grade hosts against their peers
+    through the linkmap MAD machinery, detect fleet-wide shifts against
+    a baseline artifact, and render markdown / the JSON artifact / the
+    Prometheus staleness textfile.  Exit 9 when grading named a sick
+    host or a fleet-wide shift (and, with --fail-on-stale, a stale
+    host)."""
+    from tpu_perf_torch.fleet import (
+        FleetGradeConfig, build_report, load_baseline_artifact,
+        render_textfile, report_to_json, report_to_markdown,
+        write_fleet_records,
+    )
+    from tpu_perf_torch.health.exporter import write_textfile
+
+    # validate the grading knobs BEFORE walking a potentially huge
+    # fleet root (the linkmap precedent: an argv typo costs an instant
+    # error, not a minutes-long discarded pass) — ValueError lands in
+    # main()'s exit-2 path
+    cfg = FleetGradeConfig(
+        mad_z=args.mad_z, rel_threshold=args.rel_threshold,
+        min_hosts=args.min_hosts, shift_threshold=args.shift_threshold,
+        stale_after=args.stale_after,
+    )
+    baseline = None
+    if args.baseline:
+        try:
+            baseline = load_baseline_artifact(args.baseline)
+        except (OSError, ValueError) as e:
+            print(f"tpu-perf-torch: cannot read fleet baseline: {e}",
+                  file=sys.stderr)
+            return 2
+    rep = build_report(args.root, config=cfg, baseline=baseline)
+    if not rep.hosts:
+        print(f"tpu-perf-torch: no host record folders under {args.root!r} "
+              "(a fleet root holds one subfolder of rotating logs per "
+              "host)", file=sys.stderr)
+        return 1
+    if args.format == "json":
+        print(report_to_json(rep))
+    else:
+        print(report_to_markdown(rep))
+    if args.output:
+        # the machine artifact is ALWAYS the JSON form (it is the next
+        # report's --baseline food), whatever stdout rendered; atomic
+        # like every artifact write
+        from tpu_perf_torch.trace import write_timeline as _atomic_write
+
+        _atomic_write(args.output, report_to_json(rep) + "\n")
+        print(f"tpu-perf-torch: wrote fleet artifact to {args.output}",
+              file=sys.stderr)
+    if args.textfile:
+        # reported, never fatal: the verdict below must not be replaced
+        # by a permissions traceback (the exporter stance)
+        try:
+            write_textfile(args.textfile, render_textfile(rep))
+        except OSError as e:
+            print(f"tpu-perf-torch: fleet textfile write failed: {e}",
+                  file=sys.stderr)
+    # the merged fleet selection: per-host winner tables folded into ONE
+    # tuner artifact (majority winners) — --tune-out persists it for
+    # `--algo auto` consumers, --push tees its records through the live
+    # plane's tune route next to the fleet rollup records
+    merged = None
+    if args.tune_out or (args.push and rep.tune_majority):
+        import time as _time
+
+        from tpu_perf_torch.fleet.rollup import merge_fleet_selection
+        from tpu_perf_torch.tuner.artifact import smi_device_kind
+
+        merged = merge_fleet_selection(
+            rep.hosts,
+            generated=_time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                     _time.gmtime(rep.now)),
+            generated_unix=rep.now,
+            device_kind=smi_device_kind(),
+            source=f"fleet:{args.root}")
+    if args.tune_out:
+        from tpu_perf_torch.tuner import write_artifact
+
+        write_artifact(merged, args.tune_out)
+        print(f"tpu-perf-torch: wrote merged fleet selection artifact "
+              f"({len(merged.entries)} entries, "
+              f"{len(rep.tune_disagreements)} disagreement(s)) to "
+              f"{args.tune_out}", file=sys.stderr)
+    from tpu_perf_torch.config import new_job_id
+
+    job_id = new_job_id()
+    # --drain-hook: the sick-host verdict ACTS — the operator-supplied
+    # scheduler-drain command runs once per graded-sick host, rate-
+    # limited per host through the fleet root's state sidecar, each
+    # execution spanned (with -l) and failures health-evented.  Runs
+    # BEFORE the rollup records are written so the drain outcomes land
+    # in the same fleet-*.log the verdict does.
+    drains = []
+    if args.drain_hook and rep.sick_hosts:
+        from tpu_perf_torch.fleet.drain import run_drain_hooks
+        from tpu_perf_torch.spans import NULL_TRACER, SpanTracer
+
+        tracer = NULL_TRACER
+        span_log = None
+        if args.logfolder:
+            from tpu_perf_torch.driver import RotatingCsvLog
+            from tpu_perf_torch.schema import SPANS_PREFIX
+
+            span_log = RotatingCsvLog(
+                args.logfolder, job_id, 0, refresh_sec=10**9,
+                prefix=SPANS_PREFIX, lazy=True)
+            tracer = SpanTracer(job_id, rank=0, log=span_log)
+        try:
+            drains = run_drain_hooks(
+                args.root, rep.sick_hosts, args.drain_hook,
+                interval=args.drain_interval, err=sys.stderr,
+                tracer=tracer)
+        finally:
+            tracer.close()
+        failed = [d for d in drains if d.action == "failed"]
+        if failed and args.logfolder:
+            from tpu_perf_torch.driver import RotatingCsvLog
+            from tpu_perf_torch.health import HealthConfig, HealthMonitor
+            from tpu_perf_torch.schema import HEALTH_PREFIX
+
+            event_log = RotatingCsvLog(
+                args.logfolder, job_id, 0, refresh_sec=10**9,
+                prefix=HEALTH_PREFIX, lazy=True)
+            monitor = HealthMonitor(HealthConfig(), job_id=job_id,
+                                    dtype="none", event_log=event_log)
+            try:
+                for d in failed:
+                    # a drain that silently did not happen leaves the
+                    # scheduler placing work on a condemned host —
+                    # critical, and queryable next to the verdict
+                    monitor.observe_drain_fail(d.host)
+            finally:
+                monitor.close()
+    if args.logfolder:
+        write_fleet_records(args.logfolder, rep, job_id=job_id,
+                            drains=drains)
+    if args.push:
+        # the live half: the same records the fleet-*.log carries,
+        # POSTed now (one-shot; the durable file is the source of
+        # truth, so a failed push is loud and re-runnable, never fatal)
+        from tpu_perf_torch.fleet import fleet_records
+        from tpu_perf_torch.push import push_records_once
+        from tpu_perf_torch.schema import FLEET_PREFIX
+
+        push_records_once(
+            args.push, FLEET_PREFIX,
+            [r.to_json() for r in fleet_records(rep, job_id=job_id,
+                                                drains=drains)],
+            err=sys.stderr)
+        if merged is not None and merged.entries:
+            from tpu_perf_torch.schema import TUNE_PREFIX
+
+            push_records_once(
+                args.push, TUNE_PREFIX,
+                [r.to_json() for r in merged.to_records(job_id)],
+                err=sys.stderr)
+    failures = []
+    if rep.sick_hosts:
+        failures.append(
+            f"{len(rep.sick_hosts)} host(s) graded sick: "
+            f"{', '.join(rep.sick_hosts)}")
+    if rep.shifts:
+        failures.append(f"{len(rep.shifts)} fleet-wide shift(s) vs "
+                        "baseline")
+    if args.fail_on_stale and rep.stale_hosts:
+        failures.append(
+            f"{len(rep.stale_hosts)} stale host(s): "
+            f"{', '.join(rep.stale_hosts)}")
+    if failures:
+        # exit 9: the fleet gate code (report --diff 3, grid 4, chaos
+        # verify 5, linkmap 6, timeline join 7, lint 8)
+        print(f"tpu-perf-torch: fleet unhealthy: {'; '.join(failures)}",
+              file=sys.stderr)
+        return 9
+    return 0
+
+
+def _cmd_fleet_timeline(args: argparse.Namespace) -> int:
+    """Stitch every host's spans-*.log into ONE Perfetto view: each
+    (host, job, rank) lane is its own process track, and ranks of one
+    distributed job are clock-aligned on their shared heartbeat
+    boundaries — a multi-host stall reads as one timeline, not N
+    disjoint ones.  --check audits join completeness per host folder
+    (exit 7 on any incomplete join)."""
+    from tpu_perf_torch.fleet import discover_hosts, stitch_hosts
+    from tpu_perf_torch.report import collect_paths
+    from tpu_perf_torch.schema import SPANS_PREFIX
+    from tpu_perf_torch.spans import read_span_records
+    from tpu_perf_torch.trace import chrome_trace_json, write_timeline
+
+    hosts = discover_hosts(args.root)
+    if not hosts:
+        print(f"tpu-perf-torch: no host record folders under {args.root!r}",
+              file=sys.stderr)
+        return 1
+    host_spans: dict[str, list[dict]] = {}
+    for host, folder in sorted(hosts.items()):
+        paths = collect_paths(folder, prefix=SPANS_PREFIX,
+                              include_open=True)
+        if not paths:
+            continue
+        try:
+            host_spans[host] = read_span_records(paths)
+        except ValueError as e:
+            # one hard-killed host's corrupt log must not blind the
+            # stitched view to the other N-1 — the incident being
+            # diagnosed is exactly when the rest of the fleet's
+            # timeline matters (same stance as the report collector's
+            # per-host read problems)
+            print(f"tpu-perf-torch: bad span log on host {host}: {e} — "
+                  "host skipped, stitching the rest", file=sys.stderr)
+    if not host_spans:
+        print(f"tpu-perf-torch: no span logs in any host folder under "
+              f"{args.root!r} — run the daemons with --spans",
+              file=sys.stderr)
+        return 1
+    rc = 0
+    if args.check:
+        ok_summaries = []
+        for host in sorted(host_spans):
+            problems, summary = _audit_join(hosts[host],
+                                            host_spans[host])
+            if problems:
+                for p in problems:
+                    print(f"tpu-perf-torch: host {host}: join incomplete: {p}",
+                          file=sys.stderr)
+                rc = 7
+            else:
+                ok_summaries.append(f"{host}: {summary}")
+        for line in ok_summaries:
+            print(f"tpu-perf-torch: join complete: {line}", file=sys.stderr)
+    spans, names = stitch_hosts(host_spans, align=not args.no_align)
+    content = chrome_trace_json(spans, names)
+    if args.output:
+        write_timeline(args.output, content)
+        print(f"tpu-perf-torch: wrote {len(spans)} span(s) from "
+              f"{len(host_spans)} host(s) to {args.output} "
+              "(load in https://ui.perfetto.dev)", file=sys.stderr)
+    else:
+        print(content, end="")
+    return rc
+
+
+def _cmd_lint(args: argparse.Namespace) -> int:
+    """Run the static invariant analyzer (tpu_perf_torch.analysis) over the
+    tree.  Exit 0 when every finding is baselined (or none exist), 8 on
+    any unbaselined finding — the CI gate's contract — and 2 on
+    configuration errors (bad manifest/rule/baseline), via main()'s
+    ValueError path."""
+    import os
+
+    from tpu_perf_torch.analysis import (
+        default_manifest_path, default_root, lint_tree, load_manifest,
+        render_baseline, render_json, render_rule_catalog, render_text,
+        resolve_rules,
+    )
+
+    if args.list_rules:
+        print(render_rule_catalog(), end="")
+        return 0
+    manifest_path = args.manifest or default_manifest_path()
+    root = os.path.abspath(args.root) if args.root else default_root()
+    try:
+        manifest = load_manifest(manifest_path, root)
+    except OSError as e:
+        raise ValueError(f"cannot read manifest: {e}") from None
+    rules = resolve_rules(args.rule)
+    baseline = args.baseline
+    if args.write_baseline and not baseline:
+        raise ValueError("--write-baseline requires --baseline PATH")
+    if baseline is not None and not os.path.exists(baseline) \
+            and not args.write_baseline:
+        raise ValueError(f"baseline file not found: {baseline}")
+    try:
+        result = lint_tree(
+            root, manifest, rules=rules,
+            baseline_path=baseline
+            if baseline and os.path.exists(baseline) else None,
+        )
+    except OSError as e:
+        raise ValueError(str(e)) from None
+    if args.write_baseline:
+        try:
+            with open(baseline, "w") as fh:
+                fh.write(render_baseline(result.findings))
+        except OSError as e:
+            # configuration error -> exit 2, like every other bad path
+            raise ValueError(f"cannot write baseline: {e}") from None
+        print(f"tpu-perf-torch: wrote {len(result.findings)} finding(s) to "
+              f"{baseline}", file=sys.stderr)
+        return 0
+    if args.format == "json":
+        print(render_json(result), end="")
+    else:
+        print(render_text(result), end="")
+    return 8 if result.unbaselined else 0
 
 
 def _cmd_health(args: argparse.Namespace) -> int:
@@ -1926,6 +2376,184 @@ def build_parser() -> argparse.ArgumentParser:
                            "to URL/v1/LinkMapTPU once grading finishes: "
                            "one shot, loud on failure, never fatal")
     p_lm.set_defaults(func=_cmd_linkmap)
+
+    p_tl = sub.add_parser(
+        "timeline",
+        help="export harness trace spans (spans-*.log, from --spans) to "
+             "Chrome trace-event JSON loadable in Perfetto: main thread, "
+             "compile-pipeline worker, and ingest hook as separate "
+             "tracks, ranks merged as processes",
+    )
+    p_tl.add_argument("target",
+                      help="file, log folder, or glob of spans-*.log")
+    p_tl.add_argument("-o", "--output", default=None, metavar="PATH",
+                      help="write the trace JSON here (atomically) "
+                           "instead of stdout")
+    p_tl.add_argument("--rank", type=int, default=None,
+                      help="export only this rank's spans (default: "
+                           "merge all ranks found in the target)")
+    p_tl.add_argument("--check", action="store_true",
+                      help="also audit join completeness: every result "
+                           "row, health event, and chaos ledger entry in "
+                           "the folder must resolve to exactly one "
+                           "enclosing run span (exit 7 otherwise; "
+                           "directory targets only)")
+    p_tl.add_argument("--no-align", action="store_true",
+                      help="skip per-process clock alignment (by "
+                           "default, ranks launched seconds apart are "
+                           "aligned onto one clock via the heartbeat "
+                           "collectives' shared boundaries)")
+    p_tl.set_defaults(func=_cmd_timeline)
+
+    p_fleet = sub.add_parser(
+        "fleet",
+        help="fleet observability plane: `fleet report <root>` walks N "
+             "hosts' record folders (streaming) into topology-aware "
+             "rollups — cross-host MAD grading names the worst hosts, "
+             "a baseline artifact exposes fleet-wide shifts, staleness "
+             "gauges land in a Prometheus textfile (exit 9 on sick "
+             "hosts); `fleet timeline <root>` stitches every host's "
+             "spans into one clock-aligned Perfetto view",
+    )
+    fleet_sub = p_fleet.add_subparsers(dest="fleet_cmd", required=True)
+    p_fr = fleet_sub.add_parser(
+        "report",
+        help="collect + grade the fleet root (one subfolder of rotating "
+             "logs per host)",
+    )
+    p_fr.add_argument("root", help="fleet root directory (one host "
+                                   "record folder per subdirectory)")
+    p_fr.add_argument("--format", choices=("markdown", "json"),
+                      default="markdown")
+    p_fr.add_argument("-o", "--output", default=None, metavar="PATH",
+                      help="also write the JSON artifact here "
+                           "(atomically) — the next report's --baseline "
+                           "input, whatever --format rendered")
+    p_fr.add_argument("--textfile", default=None, metavar="PATH",
+                      help="write per-host last-seen/staleness/sick "
+                           "gauges and fleet totals to this Prometheus "
+                           "textfile (node-exporter convention)")
+    p_fr.add_argument("-l", "--logfolder", default=None,
+                      help="persist the rollup as fleet-*.log records "
+                           "(the seventh rotating family, swept by "
+                           "`ingest` into FleetRollupTPU)")
+    p_fr.add_argument("--baseline", default=None, metavar="FLEET.json",
+                      help="a previous fleet artifact: points whose "
+                           "FLEET median moved beyond --shift-threshold "
+                           "are flagged as fleet-wide shifts — the "
+                           "regression every host's local baseline "
+                           "absorbs silently")
+    p_fr.add_argument("--stale-after", type=float, default=3600.0,
+                      metavar="SEC",
+                      help="a host whose newest record is older than "
+                           "this is stale (default 3600)")
+    p_fr.add_argument("--fail-on-stale", action="store_true",
+                      help="also exit 9 when any host is stale")
+    p_fr.add_argument("--mad-z", type=float, default=6.0,
+                      help="robust z bar for a host vs its peers "
+                           "(the linkmap grader's core, host-scoped)")
+    p_fr.add_argument("--rel-threshold", type=float, default=0.25,
+                      metavar="REL",
+                      help="AND-gate on the host verdict: also need "
+                           "this relative excess over the peer median "
+                           "(default 0.25 = +25%%)")
+    p_fr.add_argument("--min-hosts", type=int, default=3,
+                      metavar="N",
+                      help="hosts that must have measured a point "
+                           "before it is cross-host graded (default 3; "
+                           "two hosts cannot outvote each other)")
+    p_fr.add_argument("--shift-threshold", type=float, default=0.25,
+                      metavar="REL",
+                      help="fleet-median move vs --baseline that flags "
+                           "a fleet-wide shift (default 0.25 = +25%%)")
+    p_fr.add_argument("--drain-hook", default=None, metavar="CMD",
+                      help="run this shell command once per graded-sick "
+                           "host (the host name appended as one quoted "
+                           "argument and exported as "
+                           "TPU_PERF_SICK_HOST), so exit 9 ACTS — e.g. "
+                           "--drain-hook 'kubectl drain'.  Rate-limited "
+                           "per host (--drain-interval) through a "
+                           ".drain-state.json sidecar in the fleet "
+                           "root; executions are spanned and recorded "
+                           "as drain records (with -l), failures "
+                           "health-evented — and never fatal to the "
+                           "report")
+    p_fr.add_argument("--drain-interval", type=float, default=3600.0,
+                      metavar="SEC",
+                      help="minimum seconds between drain-hook "
+                           "invocations for one host (default 3600): a "
+                           "cron'd report must not re-drain a host "
+                           "every pass")
+    p_fr.add_argument("--push", default=None, metavar="URL",
+                      help="also POST the rollup records (NDJSON) to "
+                           "this push-plane endpoint "
+                           "(URL/v1/FleetRollupTPU) — the live "
+                           "counterpart of the -l fleet-*.log write; "
+                           "one-shot, loud on failure, never fatal.  "
+                           "Merged selection records (see --tune-out) "
+                           "ride the same pass to "
+                           "URL/v1/TuneSelectionTPU")
+    p_fr.add_argument("--tune-out", default=None, metavar="PATH",
+                      help="also fold every host's crossover winner "
+                           "table into ONE merged fleet selection "
+                           "artifact (majority winners; hosts whose "
+                           "local winner disagrees are named in the "
+                           "report) and write it here — `--algo auto` "
+                           "food, like `tpu-perf-torch tune` but fleet-wide")
+    p_fr.set_defaults(func=_cmd_fleet_report)
+    p_ft = fleet_sub.add_parser(
+        "timeline",
+        help="stitch every host's spans-*.log into one Perfetto view "
+             "(clock-aligned on heartbeat boundaries; one process "
+             "track per (host, rank))",
+    )
+    p_ft.add_argument("root", help="fleet root directory")
+    p_ft.add_argument("-o", "--output", default=None, metavar="PATH",
+                      help="write the trace JSON here (atomically) "
+                           "instead of stdout")
+    p_ft.add_argument("--check", action="store_true",
+                      help="audit join completeness per host folder "
+                           "(exit 7 on any incomplete join)")
+    p_ft.add_argument("--no-align", action="store_true",
+                      help="skip clock alignment (raw per-process "
+                           "clocks)")
+    p_ft.set_defaults(func=_cmd_fleet_timeline)
+
+
+
+    p_lint = sub.add_parser(
+        "lint",
+        help="static invariant analyzer (tpu_perf_torch.analysis): prove the "
+             "determinism (R1), lockstep (R2), family-contract (R3), "
+             "schema-drift (R4), and guarded-by (R5) contracts at parse "
+             "time; exit 8 on any unbaselined finding",
+    )
+    p_lint.add_argument("root", nargs="?", default=None,
+                        help="tree to lint (default: the repo root "
+                             "containing the tpu_perf_torch package)")
+    p_lint.add_argument("--manifest", default=None, metavar="PATH",
+                        help="zone manifest (default: the checked-in "
+                             "tpu_perf_torch/analysis/manifest.json)")
+    p_lint.add_argument("--rule", action="append", default=None,
+                        metavar="ID",
+                        help="run only these rules (id or name, "
+                             "comma-splittable, repeatable; default all)")
+    p_lint.add_argument("--format", choices=("text", "json"),
+                        default="text",
+                        help="json = the machine-consumption schema "
+                             "documented in docs/design.md")
+    p_lint.add_argument("--baseline", default=None, metavar="PATH",
+                        help="fingerprint baseline: findings listed there "
+                             "do not fail the lint (the shipped "
+                             "tpu_perf_torch/analysis/baseline.json is empty "
+                             "by contract)")
+    p_lint.add_argument("--write-baseline", action="store_true",
+                        help="write the current findings to --baseline "
+                             "and exit 0 (adopting the linter on a "
+                             "pre-existing tree)")
+    p_lint.add_argument("--list-rules", action="store_true",
+                        help="print the rule catalog with per-rule docs")
+    p_lint.set_defaults(func=_cmd_lint)
 
     p_tune = sub.add_parser(
         "tune",

@@ -287,8 +287,12 @@ class Driver:
         self.peer_ip = self.ip
         self._peer_ips = [self.ip]
         if self.n_hosts > 1:
-            from tpu_perf_torch.parallel import exchange_ips
+            from tpu_perf_torch.parallel import exchange_ips, share_job_id
 
+            # one job ID for every rank of the world, rank 0's (the
+            # reference broadcasts its options, UUID included)
+            self.opts = opts = dataclasses.replace(
+                opts, uuid=share_job_id(opts.uuid))
             self._peer_ips = exchange_ips(self.ip)
             if self.n_hosts % 2 == 0:
                 from tpu_perf_torch.extern_launch import pair_for_rank

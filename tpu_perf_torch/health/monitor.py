@@ -155,6 +155,18 @@ class HealthMonitor:
         return [self._emit(f, op="ingest_hook", nbytes=0, run_id=run_id,
                            span_id=span_id)]
 
+    def observe_drain_fail(self, host: str, run_id: int = 0,
+                           span_id: str = "") -> list[HealthEvent]:
+        """A `fleet report --drain-hook` invocation failed for a sick
+        host: surface it as a health event — a drain that silently did
+        NOT happen leaves the scheduler placing work on a host the
+        grader already condemned.  ``op`` is the synthetic
+        ``drain:<host>`` point (the hook belongs to the control plane,
+        not to any kernel — the hook_fail precedent)."""
+        f = Finding("drain_fail", "critical", 1.0, 0.0, unit="failures")
+        return [self._emit(f, op=f"drain:{host}", nbytes=0,
+                           run_id=run_id, span_id=span_id)]
+
     def observe_link(
         self,
         op: str,

@@ -201,6 +201,32 @@ def _population(r: ProbeResult, idx: _AxisIndex,
     return pop
 
 
+def peer_links(result: LinkMapResult, links: set[tuple[int, int]],
+               config: GradeConfig | None = None) -> set[tuple[int, int]]:
+    """The links in the grading population of each of ``links`` (the
+    peers :func:`_population` takes their times from), ``links``
+    themselves excluded: a link measured anew must be graded against
+    peers measured the same way."""
+    cfg = config or GradeConfig()
+    by_axis: dict[str, dict[tuple[int, int], float]] = {}
+    for r in result.probes:
+        if r.mean_s is not None:
+            by_axis.setdefault(r.probe.axis, {})[
+                (r.probe.src, r.probe.dst)] = r.mean_s
+    peers: set[tuple[int, int]] = set()
+    for r in result.probes:
+        src, dst = r.probe.src, r.probe.dst
+        if (src, dst) not in links or r.probe.axis not in by_axis:
+            continue
+        idx = _AxisIndex(by_axis[r.probe.axis])
+        keys = [(src, d) for d, _ in idx.rows.get(src, ()) if d != dst]
+        keys += [(s, dst) for s, _ in idx.cols.get(dst, ()) if s != src]
+        if len(keys) < cfg.min_population:
+            keys = [k for k in idx.times if k != (src, dst)]
+        peers.update(keys)
+    return peers - links
+
+
 def _roofline_for(axis: str, cfg: GradeConfig) -> float | None:
     """The per-axis roofline: dcn*-named axes (the make_mesh naming
     convention, any case) get their OWN spec when ``dcn_roofline_gbps``

@@ -201,6 +201,15 @@ class ProbeProgram:
                    dst=torch.tensor([d for _, d in perm], dtype=torch.long))
 
 
+#: untimed runs of each probe before its samples: a new step's first
+#: exchanges carry the channel's ramp (gloo and NCCL set up a pair's
+#: buffers over its first few sends; in a gloo world of 3 the first three
+#: samples after one warm-up ran 2-13x the rest), which the mean of a few
+#: samples would otherwise carry into the grade.  JAX warms up once, for
+#: its compile; a probe's ramp on a TPU ends there.
+PROBE_WARMUP_RUNS = 3
+
+
 class LinkProber:
     """Drive a plan's schedules; collect per-link samples."""
 
@@ -213,7 +222,7 @@ class LinkProber:
         runs: int = 5,
         fence: str = "block",
         dtype: str = "float32",
-        warmup_runs: int = 1,
+        warmup_runs: int = PROBE_WARMUP_RUNS,
         injector=None,   # tpu_perf_torch.faults.FaultInjector or None
         n_devices: int | None = None,  # synthetic mode (world is None)
         perf_clock: Callable[[], float] = time.perf_counter,
@@ -470,31 +479,39 @@ class LinkProber:
     def bisect_flagged(self, result: LinkMapResult,
                        config=None) -> tuple[LinkMapResult, int]:
         """Concurrent-mode auto-bisection: re-probe every flagged link
-        serially, then let the caller grade the merged result.
+        serially, with its grading peers, then let the caller grade the
+        merged result.
 
         A concurrent sweep attributes each schedule's BATCH wall to every
         probe in it, so one sick link drags its whole schedule.  Grade
         the concurrent result, take every non-ok link, and re-measure
-        just those as one-probe serial schedules — O(flagged), not
-        O(links).  Returns ``(merged result, flagged count)``; the merged
-        result keeps ``concurrent=True`` (the surviving ok links are
-        still batch bounds) while the re-probed links carry exact serial
-        samples.  No-op (count 0) for serial/synthetic results and for
-        sweeps grading clean.  Every rank grades the same reduced
-        samples, so every rank re-probes the same links in the same
-        order.
+        just those, and the row/col peers each is graded against, as
+        one-probe serial schedules — O(flagged × peers), not O(links).
+        The peers go with it because a batch wall is no serial time: in
+        the sim world and across gloo or NCCL processes a batch moves its
+        links one after another on shared engines, so it takes several
+        times one link's serial time, more on a loaded host, and a serial
+        sample graded against batch bounds looks faster than it is (a
+        100x link graded ``slow``, not ``dead``).  Returns ``(merged
+        result, flagged count)``; the merged result keeps
+        ``concurrent=True`` (the links not re-probed are still batch
+        bounds) while the re-probed links carry exact serial samples.
+        No-op (count 0) for serial/synthetic results and for sweeps
+        grading clean.  Every rank grades the same reduced samples, so
+        every rank re-probes the same links in the same order.
         """
         if not result.concurrent:
             return result, 0
-        from tpu_perf_torch.linkmap.grade import grade
+        from tpu_perf_torch.linkmap.grade import grade, peer_links
 
         flagged = {(v.src, v.dst) for v in grade(result, config)
                    if v.verdict != "ok"}
         if not flagged:
             return result, 0
+        again = flagged | peer_links(result, flagged, config)
         merged: list[ProbeResult] = []
         for r in result.probes:
-            if (r.probe.src, r.probe.dst) not in flagged:
+            if (r.probe.src, r.probe.dst) not in again:
                 merged.append(r)
                 continue
             sub = self.probe(

@@ -1278,7 +1278,10 @@ class PeerBuffers:
         # the buffers
         import weakref
 
-        n, rank, dev = world.n, world.rank, world.device
+        # the world size apart from the rank: the `if n > 1` gate below
+        # holds on every rank alike, so every rank meets the gather
+        n = world.n
+        rank, dev = world.rank, world.device
         entry = functools.partial(_build.entry, "peer_collectives")
         own = ctypes.c_void_p()
         with torch.cuda.device(dev):

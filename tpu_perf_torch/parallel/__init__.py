@@ -12,4 +12,5 @@ from tpu_perf_torch.parallel.multihost import (  # noqa: F401
     initialize_distributed,
     leave_world,
     make_hybrid_mesh,
+    share_job_id,
 )

@@ -189,6 +189,22 @@ def exchange_ips(ip: str) -> list[str]:
     return [bytes(b for b in row if b).decode() for row in rows]
 
 
+def share_job_id(job_id: str) -> str:
+    """Rank 0's job ID on every rank: the reference mints its run UUID
+    while parsing the options on rank 0 and broadcasts them, so every
+    rank's rows and records carry one ``JobId`` (mpi_perf.c:335-338,
+    :394-422), and the timeline aligns a job's ranks on their shared
+    heartbeat boundaries.  Single process: ``job_id``."""
+    if world_size() == 1:
+        return job_id
+    raw = job_id.encode()[:64]
+    buf = torch.zeros(64, dtype=torch.uint8)
+    buf[:len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
+    buf = buf.to(_wire_device())
+    dist.broadcast(buf, src=0)
+    return bytes(b for b in buf.cpu().tolist() if b).decode()
+
+
 def allreduce_times(t_seconds: float | list[float]) -> dict[str, float]:
     """The reference's ``MPI_Allreduce`` MIN/MAX/SUM triple
     (mpi_perf.c:560-562) over every rank, of one sample or a whole stats

@@ -36,24 +36,25 @@ import urllib.request
 
 from tpu_perf_torch.health.exporter import labels, write_textfile
 from tpu_perf_torch.ingest.pipeline import (
-    HEALTH_TABLE, LINKMAP_TABLE, SPANS_TABLE, TPU_TABLE, TUNE_TABLE,
+    FLEET_TABLE, HEALTH_TABLE, LINKMAP_TABLE, SPANS_TABLE, TPU_TABLE,
+    TUNE_TABLE,
 )
 from tpu_perf_torch.schema import (
-    CHAOS_PREFIX, EXT_PREFIX, HEALTH_PREFIX, LEGACY_PREFIX, LINKMAP_PREFIX,
-    SPANS_PREFIX, TUNE_PREFIX,
+    CHAOS_PREFIX, EXT_PREFIX, FLEET_PREFIX, HEALTH_PREFIX, LEGACY_PREFIX,
+    LINKMAP_PREFIX, SPANS_PREFIX, TUNE_PREFIX,
 )
 
 #: family prefix -> endpoint table name, mirroring the ingest
 #: pipeline's per-family Kusto routing (KustoBackend.ingest) so the
 #: live and batch paths share one table convention.  Every family of
-#: schema.ALL_PREFIXES routes here or is tee-free (of the JAX package's
-#: families only the fleet's is not ported yet).
+#: schema.ALL_PREFIXES routes here or is tee-free.
 PUSH_ROUTES = {
     LEGACY_PREFIX: "PerfLogsMPI",  # the reference's default table
     EXT_PREFIX: TPU_TABLE,
     HEALTH_PREFIX: HEALTH_TABLE,
     LINKMAP_PREFIX: LINKMAP_TABLE,
     SPANS_PREFIX: SPANS_TABLE,
+    FLEET_PREFIX: FLEET_TABLE,
     TUNE_PREFIX: TUNE_TABLE,
 }
 

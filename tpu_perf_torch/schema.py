@@ -32,13 +32,13 @@ HEALTH_PREFIX = "health"  # JSONL health events (tpu_perf_torch.health)
 CHAOS_PREFIX = "chaos"    # JSONL fault-injection ledger (tpu_perf_torch.faults)
 LINKMAP_PREFIX = "linkmap"  # JSONL link probes/verdicts (tpu_perf_torch.linkmap)
 SPANS_PREFIX = "spans"    # JSONL harness spans (tpu_perf_torch.spans)
+FLEET_PREFIX = "fleet"    # JSONL fleet rollup records (tpu_perf_torch.fleet)
 TUNE_PREFIX = "tune"      # JSONL tuner selection records (tpu_perf_torch.tuner)
 
 #: every rotating-log family this package writes, the ones one ingest
-#: pass sweeps, in the JAX package's order (its fleet family waits for
-#: the fleet subsystem: ROADMAP)
+#: pass sweeps, in the JAX package's order
 ALL_PREFIXES = (LEGACY_PREFIX, EXT_PREFIX, HEALTH_PREFIX, CHAOS_PREFIX,
-                LINKMAP_PREFIX, SPANS_PREFIX, TUNE_PREFIX)
+                LINKMAP_PREFIX, SPANS_PREFIX, FLEET_PREFIX, TUNE_PREFIX)
 
 RESULT_HEADER = (
     "timestamp,job_id,backend,op,nbytes,iters,run_id,n_devices,"

@@ -74,6 +74,7 @@ SAMPLE_KEEP_KINDS = frozenset(("run", "rotate", "ingest_hook", "inject",
 
 
 def _default_perf_ns() -> int:
+    # tpuperf: allow-clock(injectable default only — every determinism consumer passes perf_ns; span IDs come from lane counters, never this clock)
     return time.perf_counter_ns()
 
 

@@ -83,6 +83,7 @@ class StreamEngine:
 
     def __init__(self, n_streams: int, *, fence_mode: str = "block",
                  tracer=None,
+                 # tpuperf: allow-clock(injectable default only — the driver and the contend runner pass their perf_clock; stream plans and lane order never derive from this clock)
                  perf_clock: Callable[[], float] = time.perf_counter):
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
@@ -98,8 +99,8 @@ class StreamEngine:
             tracer = NULL_TRACER
         self.tracer = tracer
         self._lock = threading.Lock()
-        self._inflight: dict[int, _InFlight] = {}
-        self._seq = 0
+        self._inflight: dict[int, _InFlight] = {}  # tpuperf: guarded-by(_lock)
+        self._seq = 0  # tpuperf: guarded-by(_lock)
         self._lanes: dict[int, torch.cuda.Stream] = {}
         self._done: dict[int, torch.cuda.Event] = {}  # a lane's event,
         # recorded after each of its steps

@@ -11,6 +11,7 @@ durable ``spans-*.log`` records into consumables:
   visible instead of inferred from phase sums;
 * :func:`validate_chrome_trace` — the structural check the CI gate runs
   on an exported artifact;
+* :func:`write_timeline` — the atomic write of an exported artifact;
 * :func:`resolve_run_span` / :func:`join_completeness` — the exact
   cross-family join: every result row, health event, and chaos ledger
   entry resolves to exactly one enclosing run span;
@@ -32,4 +33,5 @@ from tpu_perf_torch.trace.export import (  # noqa: F401
     resolve_run_span,
     to_chrome_trace,
     validate_chrome_trace,
+    write_timeline,
 )

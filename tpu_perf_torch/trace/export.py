@@ -29,6 +29,7 @@ contract tests/test_spans.py pins).
 from __future__ import annotations
 
 import json
+import os
 from typing import Iterable
 
 _TRACKS = {0: "main", 1: "precompile-worker", 2: "ingest-hook"}
@@ -137,6 +138,18 @@ def validate_chrome_trace(data) -> list[str]:
                if isinstance(e, dict)):
         problems.append("no complete (X) span events")
     return problems
+
+
+def write_timeline(path: str, content: str) -> None:
+    """Atomic artifact write (tmp + rename): a collector or Perfetto
+    upload that races the export never reads a torn JSON file — same
+    contract as the Prometheus textfile and the phase sidecar."""
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as fh:
+        fh.write(content)
+    os.replace(tmp, path)
 
 
 def _narrow(hits: list[dict], op: str | None,

@@ -269,6 +269,22 @@ def current_device_kind() -> str:
     return torch.cuda.get_device_name()
 
 
+def smi_device_kind() -> str:
+    """The first card's name as ``nvidia-smi`` gives it (the name
+    ``torch.cuda.get_device_name`` returns), without loading CUDA in this
+    process: a file-reading command (``fleet report --tune-out``) makes no
+    context.  "" when no ``nvidia-smi`` or no card answers."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return ""
+    return out.splitlines()[0].strip() if out.strip() else ""
+
+
 class LoadedSelection:
     """A selection artifact judged for use on THIS job: staleness and
     fingerprint foreignness are decided once at construction (with the
