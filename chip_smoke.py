@@ -106,7 +106,9 @@ exits non-zero):
    under ``mxu_gemm``, ``hbm_stream`` and ``pl_hbm_copy``, rendered by
    ``report``'s interference matrix; and ``bench`` once (its JSON line,
    the JAX one-device labels, each ratio against the detected card's
-   entry); the arena, the v-ops and the scenarios (``arena``) and the
+   entry, ``vs_baseline`` against its nominals and ``below_plateau_floor``
+   exactly under its floors, then JAX's instruments again beside a process
+   copying 1 GiB on the card, printed with their passes); the arena, the v-ops and the scenarios (``arena``) and the
    push plane (``push``); linkmap and the crossover tuner (``linkmap``, 8
    sim ranks on a 2 x 4 mesh: the probe step against ppermute's plain
    result, a neighbor sweep's records a link each, a planted delay
@@ -144,8 +146,9 @@ exits non-zero):
    from graphs, bit for bit the sim kernels' chain; then their times at 8
    x 256 MiB beside the sim kernels');
 6. run ``grid --spec hbm`` over the eight local memory ops at 256 MiB and
-   1 GiB and print its verdict table, and show the read sweep's time
-   growing with the bytes it reads;
+   1 GiB and print its verdict table (every verdict held to the card's
+   stream floor: ``hbm_read``, a reduction, reads under it), and show the
+   read sweep's time growing with the bytes it reads;
 7. time each kernel at the main path's largest shape beside its bound
    (from the card's published rates in ``tpu_perf_torch.chips``), its
    plain version and one PyTorch library call (the row gather ``x[idx]``
@@ -167,6 +170,7 @@ card)::
 
     python3 -c "import chip_smoke as c; c.across_cards(4)"
     python3 -c "import chip_smoke as c; c.cards_chaos(4)"   # the skew soak
+    python3 -c "import chip_smoke as c; c.cards_bench(4)"   # bench, NCCL
 """
 
 from __future__ import annotations
@@ -1135,11 +1139,12 @@ def phase_grid() -> None:
     argv = ["grid", "--op", GRID_OPS, "--sizes", "256M,1G", "--iters", "8,32",
             "--spec", "hbm", "--sim-ranks", "1"]
     t0 = time.perf_counter()
-    rc = cli.main(argv)
-    if rc != 0:
-        fail(f"{' '.join(argv)} exited {rc}")
+    cells, table = _judged_grid(argv, "hbm")
+    print(table.rstrip())
     print(f"grid: {len(GRID_OPS.split(','))} ops x 2 sizes x 2 iters judged "
-          f"in {time.perf_counter() - t0:.1f} s")
+          f"in {time.perf_counter() - t0:.1f} s; degraded under the floor: "
+          + (", ".join(f"{c.op} {c.nbytes >> 20}M x{c.iters} ({c.p50:.1f})"
+                       for c in cells if c.verdict == "degraded") or "none"))
     # the read sweep's time grows with the bytes it reads: a sweep whose
     # reads were dropped would take the same time at any size
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1154,6 +1159,59 @@ def phase_grid() -> None:
           "bytes")
     if ratio < 3:
         fail(f"hbm_read time grew only x{ratio:.2f} for 4x the bytes")
+
+
+def _judged_grid(argv: list[str], family: str, dtype: str = "float32"):
+    """``grid --spec`` through the CLI, its cells kept: the caption must
+    name the card table's floor for ``family`` (and ``dtype``), every
+    cell's verdict must follow the rule under it, and every op must have
+    an ok cell (exit code 0), but for ``hbm_read`` under the stream floor:
+    it may have none when every cell of it is degraded, and then the exit
+    code must be 4.  Returns (cells, the table)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tpu_perf_torch import cli, grid
+    from tpu_perf_torch.chips import card_peak, card_spec
+
+    spec = card_spec(torch.cuda.get_device_name(0))
+    peak = card_peak(spec, family, dtype)
+    floor = (spec.stream_floor_gbps if family == "hbm"
+             else spec.mxu_floor_tflops.get(dtype))
+    unit = "GB/s" if family == "hbm" else "TFLOP/s"
+    kept = []
+    plain = grid.run_grid
+
+    def keeping(*a, **kw):
+        kept.extend(plain(*a, **kw))
+        return kept
+
+    out = io.StringIO()
+    grid.run_grid = keeping
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        grid.run_grid = plain
+    table = out.getvalue()
+    floor_s = (f"floor {floor:g} {unit}" if floor is not None
+               else "floor none")
+    wrong = [c for c in kept if c.verdict != "failed"
+             and c.verdict != grid.judge(c.p50, peak, floor, p75=c.p75)]
+    no_ok = {c.op for c in kept} - {c.op for c in kept if c.verdict == "ok"}
+    # the stream floor is the stream and triad plateaus'; hbm_read, a
+    # reduction, reads under it on a healthy card, so it alone may go
+    # without an ok cell, and only when every cell of it is degraded
+    excused = {op for op in no_ok if family == "hbm" and op == "hbm_read"
+               and all(c.verdict == "degraded" for c in kept if c.op == op)}
+    if (floor_s not in table or wrong or no_ok - excused
+            or rc != (4 if excused else 0)):
+        fail(f"{' '.join(argv)} exited {rc} (ops without an ok cell: "
+             f"{sorted(no_ok)}, of them excused: {sorted(excused)}), "
+             f"verdicts off the rule under {floor_s}: {wrong}:\n{table}")
+    return kept, table
 
 
 def _bound(nbytes: int, ops: int) -> dict:
@@ -2818,22 +2876,14 @@ def _compute_path(dtype: str) -> None:
 
 def _compute_grid() -> None:
     """grid --spec mxu over two sizes in bfloat16 and float32, each judged
-    against the card's peak for its dtype."""
-    import contextlib
-    import io
-
-    from tpu_perf_torch import cli
-
+    against the card's peak and floor for its dtype."""
     for dtype, sizes in (("bfloat16", "8M,32M"), ("float32", "16M,64M")):
         argv = ["grid", "--op", "mxu_gemm", "--sizes", sizes, "--iters",
                 "10,20", "-r", "5", "--fence", "trace", "--spec", "mxu",
                 "--dtype", dtype, "--sim-ranks", "1"]
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(argv)
-        table = out.getvalue()
-        if rc != 0 or "TFLOP/s spec ceiling" not in table:
-            fail(f"{' '.join(argv)} exited {rc}:\n{table}")
+        _, table = _judged_grid(argv, "mxu", dtype)
+        if "TFLOP/s spec ceiling" not in table:
+            fail(f"{' '.join(argv)}:\n{table}")
         print(f"compute: {' '.join(argv)}:\n{table.rstrip()}")
 
 
@@ -3137,16 +3187,60 @@ def phase_streams() -> None:
     _contend()
 
 
+def _bench_constants(spec, label: str) -> tuple:
+    """The (nominal, floor) a bench instrument of the JAX set is held to."""
+    if label.startswith("mxu_gemm"):
+        return (spec.mxu_nominal_tflops.get("bfloat16"),
+                spec.mxu_floor_tflops.get("bfloat16"))
+    nominal = (spec.stream_nominal_gbps if label.startswith("hbm_stream")
+               else spec.triad_nominal_gbps)
+    return nominal, spec.stream_floor_gbps
+
+
+def _check_instruments(inst: list, spec, what: str) -> str:
+    """The degraded-window rule on bench's JAX instruments: vs_baseline is
+    value / nominal, below_plateau_floor is there exactly when value <
+    floor, and then every pass was taken.  Returns a line of the values,
+    passes and markers."""
+    from tpu_perf_torch import bench
+
+    out = []
+    for m, (label, _, _) in zip(inst, BENCH_LABELS):
+        nominal, floor = _bench_constants(spec, label)
+        want = None if nominal is None else m["value"] / nominal
+        got = m["vs_baseline"]
+        if (want is None) != (got is None) or (
+                want is not None and abs(got - want) > 1e-3 * want):
+            fail(f"{what}: {m['metric']} vs_baseline {got}, value / nominal "
+                 f"{want}")
+        below = floor is not None and m["value"] < floor
+        if m.get("below_plateau_floor", False) != below or (
+                below and m["passes"] != bench.PASSES) or not (
+                1 <= m["passes"] <= bench.PASSES):
+            fail(f"{what}: {m['metric']} {m['value']} against floor {floor}: "
+                 f"marker {m.get('below_plateau_floor')}, {m['passes']} "
+                 "passes")
+        out.append(f"{m['metric']} {m['value']:.1f} {m['unit']} "
+                   f"(vs_baseline {got}, floor {floor}, "
+                   f"{m['passes']} passes"
+                   + (", below_plateau_floor" if below else "") + ")")
+    return "; ".join(out)
+
+
 def phase_bench() -> None:
     """``bench`` once through the CLI: its JSON line, the JAX one-device
-    labels, and each ratio against the detected card's entry."""
+    labels, each ratio against the detected card's entry and the
+    degraded-window rule; then JAX's instruments again beside a neighbour
+    process (printed, and held to the same rule)."""
     import contextlib
     import io
 
     import torch
 
-    from tpu_perf_torch import cli
+    from tpu_perf_torch import bench, cli
     from tpu_perf_torch.chips import card_peak, card_spec
+    from tpu_perf_torch.compilepipe import PhaseTimer
+    from tpu_perf_torch.tools.plateaus import neighbour
 
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -3166,6 +3260,7 @@ def phase_bench() -> None:
                 or abs(m["vs_peak"] - want) > 1e-3 * want):
             fail(f"bench: {m} against {label} and the {spec.kind} "
                  f"{family} peak")
+    rule = _check_instruments(inst, spec, "bench")
     d, c = payload["dispatch_overhead"], payload["contention"]
     if len(d["points"]) != 3 or not c["slowdown"] > 0:
         fail(f"bench: dispatch_overhead {d}, contention {c}")
@@ -3178,6 +3273,15 @@ def phase_bench() -> None:
                       f"{p['overlapped_us']:.2f}/{p['fused_us']:.2f}"
                       for p in d["points"])
           + f"; contention slowdown {c['slowdown']:.3f} ({CARD})")
+    print(f"bench: the {spec.kind} constants ("
+          f"{'measured' if spec.defended else 'derived'}): {rule}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    with neighbour():
+        near = bench.jax_instruments(dev, PhaseTimer(), [])
+    print(f"bench beside a neighbour copying 1 GiB "
+          f"({time.perf_counter() - t0:.1f} s): "
+          f"{_check_instruments(near, spec, 'bench beside a neighbour')}")
 
 
 # --- adaptive runs, the compile pipeline, contend along axes ---------------
@@ -4101,16 +4205,6 @@ FLEET_LIMIT_S = 120
 #: phase's --tune-out (None: the fleet phase makes its own)
 TUNE_KEPT: str | None = None
 
-_NEIGHBOUR = (
-    "import os, sys, torch\n"
-    "x = torch.ones(1 << 28, device='cuda'); y = torch.empty_like(x)\n"
-    "torch.cuda.synchronize(); open(sys.argv[1], 'w').close()\n"
-    "while not os.path.exists(sys.argv[2]):\n"
-    "    for _ in range(8):\n"
-    "        y.copy_(x)\n"
-    "    torch.cuda.synchronize()\n")
-
-
 def _fleet_daemon(folder: str, what: str, extra=()) -> float:
     """One host's daemon into ``folder`` through ``cli.main``; its wall."""
     t0 = time.perf_counter()
@@ -4126,34 +4220,17 @@ def _fleet_hosts(root: str) -> dict:
     """Fill the host folders; the planted host's daemon runs beside a
     neighbour process copying 1 GiB on the card.  Returns each host's
     daemon wall."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    ready, stop = f"{root}/.neighbour-ready", f"{root}/.neighbour-stop"
+    from tpu_perf_torch.tools.plateaus import neighbour
+
     walls = {}
     for host in FLEET_HOSTS:
         folder = f"{root}/{host}"
         if host != FLEET_PLANTED:
             walls[host] = _fleet_daemon(folder, f"monitor on {host}")
             continue
-        proc = subprocess.Popen([sys.executable, "-c", _NEIGHBOUR, ready,
-                                 stop], cwd=here, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        try:
-            t0 = time.perf_counter()
-            while not os.path.exists(ready):
-                if proc.poll() is not None or \
-                        time.perf_counter() - t0 > FLEET_LIMIT_S:
-                    fail(f"fleet: the neighbour process never started: "
-                         f"{proc.communicate()[1][-2000:]}")
-                time.sleep(0.1)
+        with neighbour(FLEET_LIMIT_S):
             walls[host] = _fleet_daemon(
                 folder, f"monitor on {host} beside a neighbour")
-        finally:
-            open(stop, "w").close()
-            try:
-                proc.communicate(timeout=FLEET_LIMIT_S)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
     # a chaos soak's host: its delayed rows are chaos rows, never graded
     t0 = time.perf_counter()
     _cli_quiet(["chaos", "--op", FLEET_OPS, "--sweep", FLEET_SWEEP, "-i",
@@ -5896,6 +5973,100 @@ def cards_linkmap(cards: int, device: str = "cuda") -> int:
     if device == "cuda":
         print(card_line_all(), flush=True)
     for line in _cards_linkmap(cards, device):
+        print(f"cards: {line}", flush=True)
+    print(f"cards: total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "cards": cards}))
+    return 0
+
+
+#: wall-clock limit of each torchrun of cards_bench, seconds
+CARDS_BENCH_LIMIT_S = 480
+#: JAX's n >= 2 payload keys (tpu_perf/bench.py's main); hier_vs_flat
+#: only for n >= 4 and even
+CARDS_BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "runs_valid",
+                    "runs_dropped", "metrics", "phases", "dispatch_overhead",
+                    "push_overhead", "contention", "scenario_step",
+                    "auto_vs_native", "vopt_vs_ring")
+
+
+def _cards_bench(n: int, device: str) -> list[str]:
+    """``bench`` across the cards as a user runs it (torchrun, a process a
+    card, NCCL): one JSON line from rank 0, headed by the allreduce busbw
+    at 4 MiB a rank over the n cards, with JAX's n >= 2 keys; beside it a
+    second world's headline and NCCL's all_reduce timed eagerly
+    (``tools.plateaus --nccl``)."""
+    import torch
+
+    from tpu_perf_torch.chips import card_spec
+
+    lines = []
+    for argv, what in ((["tpu_perf_torch", "bench"], "bench"),
+                       (["tpu_perf_torch.tools.plateaus", "--nccl"],
+                        "the headline and NCCL's all_reduce")):
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc-per-node", str(n), "--master-addr", "127.0.0.1",
+               "--master-port", str(_free_port()), "-m", *argv,
+               "--device", device]
+        t0 = time.perf_counter()
+        (out, err), = _procs([cmd], [dict(os.environ)],
+                             f"torchrun {' '.join(argv)}",
+                             CARDS_BENCH_LIMIT_S)
+        json_lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if len(json_lines) != 1:
+            fail(f"across cards: {what}: {len(json_lines)} JSON lines:\n"
+                 f"{out[-3000:]}\n{err[-3000:]}")
+        lines.append((json.loads(json_lines[0]), time.perf_counter() - t0))
+    (payload, wall), (nccl, _) = lines
+    h, e = nccl["headline"], nccl["eager"]
+    head = payload["metrics"][0]
+    want_keys = set(CARDS_BENCH_KEYS) | (
+        {"hier_vs_flat"} if n >= 4 and n % 2 == 0 else set())
+    own = payload["metrics"][1]
+    if (payload["metric"] != f"allreduce_busbw_p50@4MiB[{n}dev]"
+            or not want_keys <= set(payload) or len(payload["card"]) != n
+            or (own["op"], own["n_devices"], own["backend"])
+            != ("pl_allreduce", n, "torch")):
+        fail(f"across cards: bench's line: {json.dumps(payload)[:3000]}")
+    nominal = None
+    if device == "cuda":
+        nominal = card_spec(torch.cuda.get_device_name(0)
+                            ).allreduce_nominal_gbps
+    want = None if nominal is None else payload["value"] / nominal
+    got = payload["vs_baseline"]
+    if (want is None) != (got is None) or (
+            want is not None and abs(got - want) > 1e-3 * want):
+        fail(f"across cards: vs_baseline {got}, value / nominal {want}")
+    arena = {k: payload[k].get("speedup_p50", payload[k].get("overhead_p50"))
+             for k in ("hier_vs_flat", "scenario_step", "auto_vs_native",
+                       "vopt_vs_ring") if k in payload}
+    return [f"bench over {n} cards in {wall:.1f} s: {payload['metric']} "
+            f"{payload['value']:.2f} GB/s (vs_baseline {got}, vs_peak "
+            f"{payload['vs_peak']}, fence {head['fence']}, "
+            f"{head['runs_valid']} runs); pl_allreduce "
+            f"{own['busbw_gbps_p50']:.2f} GB/s busbw (fence {own['fence']}); "
+            f"a second world: the headline {h['busbw_gbps_p50']:.2f} GB/s "
+            f"({h['fence']}, {h['runs_valid']} runs), NCCL's all_reduce "
+            f"timed eagerly at {e['nbytes']} B a rank, {e['iters']} calls a "
+            f"run: p50 {e['busbw_gbps_p50']:.2f} GB/s busbw "
+            f"({e['busbw_gbps_min']:.2f}-{e['busbw_gbps_max']:.2f} over "
+            f"{e['runs']} runs); arena "
+            f"({payload['arena_fence']} fence) {arena}; cards "
+            f"{payload['card']}",
+            "bench's line: " + json.dumps(payload)]
+
+
+def cards_bench(cards: int, device: str = "cuda") -> int:
+    """``bench`` across the cards alone (:func:`_cards_bench`); never part
+    of the default run.  On a host with four cards: ``python3 -c "import
+    chip_smoke as c; c.cards_bench(4)"`` (builds the kernels first);
+    ``device`` "cpu" rehearses it on gloo."""
+    t0 = time.perf_counter()
+    if device == "cuda":
+        print(card_line_all(), flush=True)
+        from tpu_perf_torch.kernels import _build
+
+        _build.build_all()
+    for line in _cards_bench(cards, device):
         print(f"cards: {line}", flush=True)
     print(f"cards: total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "cards": cards}))

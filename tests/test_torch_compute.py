@@ -259,17 +259,21 @@ def _patched_card(monkeypatch, name):
 def test_grid_spec_mxu_takes_the_detected_cards_peak(name, dtype,
                                                      monkeypatch, capsys):
     _patched_card(monkeypatch, name)
-    peak = chips.card_peak(chips.card_spec(name), "mxu", dtype)
+    spec = chips.card_spec(name)
+    peak = chips.card_peak(spec, "mxu", dtype)
     rc = cli.main(["grid", "--op", "mxu_gemm", "--sizes", "32K", "--iters",
                    "1", "-r", "2", "--fence", "block", "--spec", "mxu",
                    "--dtype", dtype, "--device", "cpu", "--sim-ranks", "1"])
     out = capsys.readouterr().out
-    assert rc == 0
+    # the card's floor comes with its peak: the CPU's product rate is far
+    # under it, so the cell is degraded and no operating point is chosen
+    assert rc == 4
     assert f"TFLOP/s spec ceiling {peak:g} TFLOP/s ({name}, card table, " \
-        f"{dtype})" in out
+        f"{dtype}); floor {spec.mxu_floor_tflops[dtype]:g} TFLOP/s" in out
     # 32K asks for m = 128: the m x m operand in the dtype
     size = "64K" if dtype == "float32" else "32K"
-    assert f"| mxu_gemm | {size} | {dtype} |" in out and "chosen" in out
+    assert f"| mxu_gemm | {size} | {dtype} |" in out
+    assert "| degraded |" in out and "chosen" not in out
 
 
 def test_grid_spec_mxu_on_an_unknown_card_raises(monkeypatch, capsys):

@@ -56,10 +56,20 @@ def test_no_card_raises_rather_than_guessing(monkeypatch):
 
 
 def test_no_entry_has_a_floor():
-    # the JAX floors are v5e ratios; none is copied until a grid on the
-    # card defends one
+    # the JAX floors are v5e ratios, TPU figures: no entry carries one.
+    # The SXM's floors were measured on the card; the other entries' are
+    # the SXM's floor-to-peak ratios times their own peaks
+    import tpu_perf.chips as jchips
+
+    v5e = jchips.V5E
+    sxm = chips.CARDS["h100-sxm"]
+    assert sxm.defended
     for spec in chips.CARDS.values():
-        assert spec.stream_floor_gbps is None
+        assert spec.defended is (spec is sxm)
+        assert spec.stream_floor_gbps / spec.hbm_gbps != pytest.approx(
+            v5e.stream_floor_gbps / v5e.hbm_gbps, rel=0.01)
+        assert spec.stream_floor_gbps / spec.hbm_gbps == pytest.approx(
+            sxm.stream_floor_gbps / sxm.hbm_gbps, abs=0.5 / spec.hbm_gbps)
 
 
 # --- verdicts and table against the JAX package -------------------------
@@ -205,7 +215,9 @@ def test_chips_cli_marks_the_resolved_card(capsys):
     assert cli.main(["chips", "--kind", "NVIDIA H100 NVL"]) == 0
     out = capsys.readouterr().out
     assert "| h100-nvl (detected) | NVIDIA H100 NVL | 3900 |" in out
-    assert out.count("not measured") == len(chips.CARDS)
+    # one measured entry, the others derived from it
+    assert out.count("| measured |") == 1
+    assert out.count("| derived |") == len(chips.CARDS) - 1
     assert cli.main(["chips", "--kind", "NVIDIA A100-SXM4-80GB"]) == 0
     assert "is not in the table" in capsys.readouterr().out
 

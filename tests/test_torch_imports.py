@@ -97,7 +97,8 @@ SLICE_MODULES = ("tpu_perf_torch.report", "tpu_perf_torch.traceparse",
                  "tpu_perf_torch.analysis.engine",
                  "tpu_perf_torch.analysis.findings",
                  "tpu_perf_torch.analysis.manifest",
-                 "tpu_perf_torch.analysis.rules")
+                 "tpu_perf_torch.analysis.rules",
+                 "tpu_perf_torch.tools.plateaus")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

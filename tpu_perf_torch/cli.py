@@ -1670,8 +1670,8 @@ def _cmd_grid(args: argparse.Namespace) -> int:
               else "--spec-gbps" if args.spec_gbps is not None
               else "not given")
     if args.chip_spec_family:
-        # the card table's peak for the judged metric (and, for mxu, the
-        # run's dtype); explicit flags win.  An unknown card raises.
+        # the card table's peak and floor for the judged metric (and, for
+        # mxu, the run's dtype); explicit flags win.  An unknown card raises.
         from tpu_perf_torch.chips import card_peak, card_spec
 
         spec = card_spec()
@@ -1682,9 +1682,20 @@ def _cmd_grid(args: argparse.Namespace) -> int:
                 source = f"{spec.device_name}, card table"
             if args.floor_gbps is None:
                 args.floor_gbps = spec.stream_floor_gbps
-        elif args.spec_tflops is None:
-            args.spec_tflops = peak
-            source = f"{spec.device_name}, card table, {args.dtype}"
+        else:
+            if args.spec_tflops is None:
+                args.spec_tflops = peak
+                source = f"{spec.device_name}, card table, {args.dtype}"
+            if args.floor_tflops is None:
+                args.floor_tflops = spec.mxu_floor_tflops.get(args.dtype)
+        print(f"[tpu-perf-torch] grid specs from card table: {spec.kind} "
+              f"({'measured' if spec.defended else 'derived'} floors)",
+              file=sys.stderr)
+        if args.chip_spec_family == "hbm":
+            print("[tpu-perf-torch] the stream floor is the hbm_stream / "
+                  "hbm_triad plateaus'; other ops are judged against it as "
+                  "well (hbm_read, a reduction, reads under it on a healthy "
+                  "card)", file=sys.stderr)
     compute = args.spec_tflops is not None or args.floor_tflops is not None
     sizes = [parse_size(s) for s in args.sizes.split(",") if s.strip()]
     iters_list = [int(s) for s in args.iters.split(",") if s.strip()]
@@ -1754,17 +1765,29 @@ def _cmd_chips(args: argparse.Namespace) -> int:
         print(f"card {name!r} is not in the table; grid --spec hbm refuses "
               "it (give --spec-gbps)")
     found = resolve_card(name) if name is not None else None
+    def cell(value) -> str:
+        return "—" if value is None else f"{value:g}"
+
+    def by_dtype(table: dict) -> str:
+        return " / ".join(cell(table.get(dt)) for dt in ("bfloat16",
+                                                          "float32"))
+
     print("| card | torch device name | HBM GB/s | bf16 dense TFLOP/s "
-          "| f32 TFLOP/s | NVLink GB/s each way | stream floor |")
-    print("|---|---|---|---|---|---|---|")
+          "| f32 TFLOP/s | NVLink GB/s each way | stream nominal "
+          "| triad nominal | stream floor | mxu nominal bf16 / f32 "
+          "| mxu floor bf16 / f32 | allreduce nominal | floors |")
+    print("|---|---|---|---|---|---|---|---|---|---|---|---|---|")
     for spec in CARDS.values():
         mark = " (detected)" if spec is found else ""
-        floor = ("not measured" if spec.stream_floor_gbps is None
-                 else f"{spec.stream_floor_gbps:g}")
-        nvlink = "—" if spec.nvlink_gbps is None else f"{spec.nvlink_gbps:g}"
         print(f"| {spec.kind}{mark} | {spec.device_name} | {spec.hbm_gbps:g} "
-              f"| {spec.bf16_tflops:g} | {spec.f32_tflops:g} | {nvlink} "
-              f"| {floor} |")
+              f"| {spec.bf16_tflops:g} | {spec.f32_tflops:g} "
+              f"| {cell(spec.nvlink_gbps)} | {cell(spec.stream_nominal_gbps)} "
+              f"| {cell(spec.triad_nominal_gbps)} "
+              f"| {cell(spec.stream_floor_gbps)} "
+              f"| {by_dtype(spec.mxu_nominal_tflops)} "
+              f"| {by_dtype(spec.mxu_floor_tflops)} "
+              f"| {cell(spec.allreduce_nominal_gbps)} "
+              f"| {'measured' if spec.defended else 'derived'} |")
     return 0
 
 
@@ -2169,26 +2192,31 @@ def build_parser() -> argparse.ArgumentParser:
     p_grid.add_argument("--fence", choices=FENCE_MODES, default="slope")
     p_grid.add_argument("--spec", choices=("hbm", "mxu"), default=None,
                         dest="chip_spec_family",
-                        help="take the judged metric's ceiling from the "
-                             "detected card's entry (tpu_perf_torch.chips): "
+                        help="take the judged metric's ceiling and floor "
+                             "from the detected card's entry "
+                             "(tpu_perf_torch.chips): "
                              "hbm = busbw against its device-memory peak, "
                              "mxu = TFLOP/s against its product peak for "
                              "--dtype (bf16/f16: tensor cores; f32: the "
-                             "float32 rate, TF32 off); explicit --spec-gbps "
-                             "/ --spec-tflops override")
+                             "float32 rate, TF32 off); explicit --spec-* "
+                             "/ --floor-* override")
     p_grid.add_argument("--spec-gbps", type=float, default=None,
                         help="physical busbw ceiling (H100 SXM: 3350); p50 "
                              "above it = unphysical")
     p_grid.add_argument("--floor-gbps", type=float, default=None,
-                        help="plateau floor; p50 below it = degraded (none "
-                             "by default: no floor is defended yet)")
+                        help="plateau floor; p50 below it = degraded "
+                             "(--spec hbm: the card's stream floor, measured "
+                             "on hbm_stream / hbm_triad and applied to every "
+                             "--op: hbm_read reads under it on a healthy "
+                             "card)")
     p_grid.add_argument("--spec-tflops", type=float, default=None,
                         help="judge cells on TFLOP/s against this compute "
                              "ceiling instead of bus bandwidth (H100 SXM "
                              "bf16: 989, f32: 67); compute instruments only")
     p_grid.add_argument("--floor-tflops", type=float, default=None,
                         help="compute plateau floor; p50 below it = "
-                             "degraded (none by default)")
+                             "degraded (--spec mxu: the card's floor for "
+                             "--dtype)")
     p_grid.add_argument("-l", "--logfolder", default=None,
                         help="also write every cell's raw rows here "
                              "(extended schema)")

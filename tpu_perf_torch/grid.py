@@ -14,9 +14,13 @@ the JAX package's:
   ceiling: timing jitter, or a cache standing in for device memory (an
   H100's 50 MB L2 holds a chained small buffer; take ``--spec hbm`` grids
   at 256 MiB and above);
-* ``degraded``  — p50 below the floor.  The port has no defended floor
-  yet (:mod:`tpu_perf_torch.chips`), and with a floor of ``None`` no cell
-  is judged degraded;
+* ``degraded``  — p50 below the floor: with ``--spec hbm`` the card's
+  stream floor (the ``hbm_stream`` / ``hbm_triad`` plateaus', applied to
+  every op as JAX's grid applies it: ``hbm_read``, a reduction, reads
+  under it on a healthy card), with ``--spec mxu`` its mxu floor for the
+  dtype, each measured on the H100 SXM (derived for the other cards) in
+  :mod:`tpu_perf_torch.chips`; with a floor of ``None`` no cell is judged
+  degraded;
 * ``ok``        — everything else; the ok cell with the narrowest
   relative interquartile range, among those within
   ``_CHOSEN_P50_FRACTION`` of the op's best p50, is chosen.

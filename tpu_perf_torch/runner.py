@@ -523,11 +523,13 @@ def run_point_fused(opts: Options, built: BuiltOp, fp: FusedPoint, *,
 
 
 def _adaptive_run_times(opts: Options, built: BuiltOp,
-                        built_hi: BuiltOp | None, controller) -> RunTimes:
+                        built_hi: BuiltOp | None, controller,
+                        keep_lost: bool = False) -> RunTimes:
     """The adaptive loop of block / readback / slope: one fenced run a
     round, warmed and fenced as time_step / time_slope do, stopped by the
     controller (its vote after each run's fence, outside the window).
-    Samples are whole runs, per execution under slope."""
+    Samples are whole runs, per execution under slope; ``keep_lost`` keeps
+    a lost slope sample as None (time_slope's)."""
     from tpu_perf_torch.timing import fence, measure_overhead, slope_sample
 
     x = built.example_input
@@ -554,7 +556,7 @@ def _adaptive_run_times(opts: Options, built: BuiltOp,
             fence(built.step(x), fmode)
             t = time.perf_counter() - t0
         controller.observe(t)
-        if t is not None:
+        if t is not None or keep_lost:
             samples.append(t)
         if controller.should_stop(runs):
             break
@@ -610,17 +612,30 @@ def run_point(opts: Options, world: SimWorld | DistWorld, nbytes: int, *,
                                 phases=phases)
     elif controller is not None:
         with phases.phase("measure"):
-            times = _adaptive_run_times(opts, built, built_hi, controller)
+            times = _adaptive_run_times(opts, built, built_hi, controller,
+                                        keep_lost=is_dist(world))
         if built_hi is not None:  # slope samples are per execution
             times = dataclasses.replace(
-                times, samples=[t * built.iters for t in times.samples])
-    elif opts.fence in ("slope", "trace"):
-        timer = time_trace if opts.fence == "trace" else time_slope
+                times, samples=[None if t is None else t * built.iters
+                                for t in times.samples])
+    elif opts.fence == "trace":
         with phases.phase("measure"):
-            per_exec = timer(built.step, built_hi.step, x, built.iters,
-                             built_hi.iters, opts.num_runs,
-                             warmup_runs=opts.warmup_runs)
+            per_exec = time_trace(built.step, built_hi.step, x, built.iters,
+                                  built_hi.iters, opts.num_runs,
+                                  warmup_runs=opts.warmup_runs)
         times = RunTimes(samples=[t * built.iters for t in per_exec.samples],
+                         warmup_s=per_exec.warmup_s)
+    elif opts.fence == "slope":
+        # across processes a lost sample stays None until the ranks'
+        # maximum below: a rank that dropped it alone would reduce a list
+        # of another length than its peers'
+        with phases.phase("measure"):
+            per_exec = time_slope(built.step, built_hi.step, x, built.iters,
+                                  built_hi.iters, opts.num_runs,
+                                  warmup_runs=opts.warmup_runs,
+                                  keep_lost=is_dist(world))
+        times = RunTimes(samples=[None if t is None else t * built.iters
+                                  for t in per_exec.samples],
                          warmup_s=per_exec.warmup_s)
     else:
         with phases.phase("measure"):
@@ -629,8 +644,16 @@ def run_point(opts: Options, world: SimWorld | DistWorld, nbytes: int, *,
                               fence_mode=opts.fence,
                               measure_dispatch=opts.measure_dispatch)
     if is_dist(world):
-        times = dataclasses.replace(
-            times, samples=max_over_ranks(world, times.samples))
+        samples = [t for t in max_over_ranks(world, times.samples)
+                   if t is not None]
+        if not samples:
+            from tpu_perf_torch.timing import DegenerateSlopeError
+
+            raise DegenerateSlopeError(
+                "slope timing produced no valid samples on any rank — the "
+                "measured kernel is lost in timing noise; raise iters or "
+                "use more runs")
+        times = dataclasses.replace(times, samples=samples)
     kw = {}
     if controller is not None:
         summary = controller.summary()

@@ -211,10 +211,13 @@ def time_slope(
     num_runs: int,
     *,
     warmup_runs: int = 1,
+    keep_lost: bool = False,
 ) -> RunTimes:
     """Per-execution time via the two-point slope, readback-fenced.
     Samples are *per single execution*; callers multiply by their iters
-    for whole-run times."""
+    for whole-run times.  ``keep_lost`` keeps a lost sample as None and
+    raises nothing: a multi-process world reduces the runs over its ranks
+    first, so that every rank keeps the same ones."""
     if iters_hi <= iters_lo:
         raise ValueError(f"need iters_hi > iters_lo, got {iters_lo}, {iters_hi}")
     if num_runs <= 0:
@@ -228,7 +231,7 @@ def time_slope(
     samples = []
     for _ in range(num_runs):
         s = slope_sample(step_lo, step_hi, x, x, d_iters)
-        if s is not None:
+        if s is not None or keep_lost:
             samples.append(s)
     if not samples:
         raise DegenerateSlopeError(
