@@ -171,11 +171,13 @@ card)::
     python3 -c "import chip_smoke as c; c.across_cards(4)"
     python3 -c "import chip_smoke as c; c.cards_chaos(4)"   # the skew soak
     python3 -c "import chip_smoke as c; c.cards_bench(4)"   # bench, NCCL
+    python3 -c "import chip_smoke as c; c.cards_arena_fenced(4)"  # p2p, graphs
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3332,6 +3334,15 @@ def _phase_line(side: dict) -> str:
             f"measure {ph['measure_s']:.3f}, log {ph['log_s']:.3f} s")
 
 
+def ci_rel_accepted(ci_rel: float, target: float = CI_REL) -> bool:
+    """Whether a point that stopped early stopped where the controller
+    may stop it: a finite interval within ``target``.  Two equal chunk
+    means give a zero-width interval, 0.0, as the JAX package's
+    ``adaptive.ci_rel`` gives it; a degenerate stream (a mean <= 0, fewer
+    than two samples) gives ``inf``, which never meets the target."""
+    return math.isfinite(ci_rel) and 0.0 <= ci_rel <= target
+
+
 def phase_adaptive() -> None:
     """``run --op pl_allreduce --sweep 4K:256M --ci-rel 0.05 --min-runs 5
     --max-runs 50`` at 8 sim ranks under block and fused: every point's
@@ -3366,9 +3377,13 @@ def phase_adaptive() -> None:
                      f"requested {sorted({r.runs_requested for r in pts})}")
             if last.run_id < MAX_RUNS:
                 early.append(last.run_id)
-                if not 0 < last.ci_rel <= CI_REL:
+                if not ci_rel_accepted(last.ci_rel):
                     fail(f"{what} at {nb} B: stopped after {last.run_id} "
                          f"runs at ci_rel {last.ci_rel}")
+                if last.ci_rel == 0.0:
+                    print(f"adaptive: {what} at {nb} B stopped after "
+                          f"{last.run_id} runs at ci_rel 0.0: equal chunk "
+                          "means", flush=True)
         taken = sum(max(r.run_id for r in pts) for pts in points.values())
         # block: one warm-up run and each measured run; fused: the eager
         # first chunk and the capture of the one chunk size (5 runs each)
@@ -5411,6 +5426,10 @@ def _cards_timing(world, nbytes: int, k: int) -> list[dict]:
             "ms": _per_launch_ms(world, kernel, k),
             "library_call": lib_name,
             "library_ms": _per_launch_ms(world, lib, k, graph=lib_graph),
+            # the point-to-point yardsticks from a graph too, as the
+            # kernels are timed: their eager figure carries launch gaps
+            "library_graph_ms": None if lib_graph
+            else _per_launch_ms(world, lib, k),
             **bound})
     # every barrier the timings launched met every rank: one more round
     # leaves each rank's generation equal to the others'
@@ -5451,20 +5470,32 @@ def cards_rank(device: str = "cuda") -> None:
             rows += _cards_timing(world, nbytes, k)
         torch.cuda.synchronize()
     if rank == 0:
-        for line in said:
+        for line in said + _timing_lines(rows, n):
             print(f"cards: {line}")
-        for r in rows:
-            bound = ("latency-bound" if r["bound_by"] == "latency" else
-                     f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-                     f"(memory {r['memory_ms']:.4f}, link "
-                     f"{r['link_ms']:.4f}), {r['bound_ms'] / r['ms']:.1%} "
-                     "of it")
-            print(f"cards: {r['name']} at {r['bytes_a_rank']} B a rank x "
-                  f"{n}: {r['ms']:.4f} ms, NCCL {r['library_call']} "
-                  f"{r['library_ms']:.4f} ms (kernel / NCCL "
-                  f"{r['ms'] / r['library_ms']:.3f}), {bound}")
         print("CARDS_KERNELS " + json.dumps(rows), flush=True)
     leave_world()
+
+
+def _timing_lines(rows: list[dict], n: int) -> list[str]:
+    """A line a :func:`_cards_timing` row: the kernel beside its NCCL
+    call (a point-to-point call eager and from a graph) and its bound."""
+    lines = []
+    for r in rows:
+        bound = ("latency-bound" if r["bound_by"] == "latency" else
+                 f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                 f"(memory {r['memory_ms']:.4f}, link "
+                 f"{r['link_ms']:.4f}), {r['bound_ms'] / r['ms']:.1%} "
+                 "of it")
+        graph = r.get("library_graph_ms")
+        lib = (f"NCCL {r['library_call']} {r['library_ms']:.4f} ms (eager), "
+               f"{graph:.4f} ms (graph) (kernel / NCCL "
+               f"{r['ms'] / r['library_ms']:.3f} / {r['ms'] / graph:.3f})"
+               if graph is not None else
+               f"NCCL {r['library_call']} {r['library_ms']:.4f} ms (kernel "
+               f"/ NCCL {r['ms'] / r['library_ms']:.3f})")
+        lines.append(f"{r['name']} at {r['bytes_a_rank']} B a rank x {n}: "
+                     f"{r['ms']:.4f} ms, {lib}, {bound}")
+    return lines
 
 
 def _rank_env(rank: int, n: int, port: int, per_node: int,
@@ -5509,15 +5540,32 @@ def _run_procs(cmds: list, envs: list, what: str, limit: float,
     return [(out, err, p.returncode) for p, (out, err) in zip(procs, outs)]
 
 
+def _on_free_port(launch, what: str):
+    """``launch(port)`` on a free rendezvous port, and once more on
+    another when the port was taken between its pick and torchrun's bind
+    (EADDRINUSE): a failure to start the world, said on stderr, not a
+    failure of the run."""
+    try:
+        return launch(_free_port())
+    except RuntimeError as e:
+        if "EADDRINUSE" not in str(e):
+            raise
+        print(f"{what}: the rendezvous port was taken before torchrun "
+              "bound it; once more on another", file=sys.stderr, flush=True)
+        return launch(_free_port())
+
+
 def _torchrun(n: int, argv: list, what: str, device: str, **env) -> list:
     """``torchrun --nproc-per-node n -m tpu_perf_torch <argv> --distributed``
     as a user runs it; every rank must end with rc 0 (torchrun's own)."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-           str(n), "--master-addr", "127.0.0.1", "--master-port",
-           str(_free_port()), "-m", "tpu_perf_torch", *argv,
-           "--distributed", "--device", device]
-    (out, err), = _procs([cmd], [dict(os.environ, **env)], what,
-                         CARDS_LIMIT_S)
+    def launch(port: int):
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc-per-node", str(n), "--master-addr", "127.0.0.1",
+               "--master-port", str(port), "-m", "tpu_perf_torch", *argv,
+               "--distributed", "--device", device]
+        return _procs([cmd], [dict(os.environ, **env)], what, CARDS_LIMIT_S)
+
+    (out, err), = _on_free_port(launch, what)
     return [out, err]
 
 
@@ -5742,6 +5790,236 @@ def _cards_arena(n: int, device: str) -> list[str]:
                         f"{n} ranks, {time.perf_counter() - t0:.1f} s):\n"
                         + (render(got) if got else "(no table)"))
     return said
+
+
+#: the point-to-point schedules across the cards under each fence: the
+#: runs (name, argv), the sizes a rank with their -i and -r (256 MiB at
+#: one execution a run: a graph holds every receive buffer it captures
+#: until its capture ends), and the fences side by side
+CARDS_FENCED_RUNS = (
+    ("algorithms", ["run", "--op", "allreduce,ring,halo,exchange,ppermute,"
+                    "pingpong,pingpong_unidir", "--algo", "all"]),
+    ("v-op", ["run", "--op", "allgatherv", "--imbalance", "8", "--algo",
+              "all"]),
+    ("scenarios", ["scenario", "tp-allreduce-burst,moe-dispatch-combine"]),
+)
+CARDS_FENCED_SIZES = ((4096, ITERS, CARDS_ARENA_RUNS), (MAIN_BYTES, 1, 3))
+CARDS_FENCES = ("block", "fused", "trace")
+#: the fused replays held against their eager chains: bytes a rank, runs a
+#: chunk
+CARDS_CHAIN_BYTES, CARDS_CHAIN_RUNS = (4096, 16 * 1024**2), 3
+#: the longest a rank of the fenced world may take over one command (or
+#: the chains, or the timings) before it dumps its stack and exits
+CARDS_STEP_LIMIT_S = 240
+
+
+def _fences_for(device: str) -> tuple[str, ...]:
+    # the trace fence times with CUDA events: a gloo rehearsal skips it
+    return CARDS_FENCES if device == "cuda" else CARDS_FENCES[:2]
+
+
+def _cards_fused_chains(world, chain_bytes) -> list[str]:
+    """One algorithm, one v-op, one scenario and one native point-to-point
+    op under --fence fused across the ranks: each point's graph (on the
+    CPU, its chunk run eagerly) replayed twice, each replay equal to the
+    eager chain from the buffer it started at (float sums within the sim
+    world's rtol 1e-6, the byte-moving ops exactly), and their times."""
+    import torch
+
+    from tpu_perf_torch.ops.collectives import build_op
+    from tpu_perf_torch.runner import build_fused_point
+    from tpu_perf_torch.scenarios.compose import build_scenario_op
+    from tpu_perf_torch.scenarios.spec import BUILTIN_SCENARIOS
+    from tpu_perf_torch.timing import FusedRunner
+
+    said = []
+    for nbytes in chain_bytes:
+        for what, sums, built in (
+                ("allreduce[ring]", True,
+                 build_op("allreduce", world, nbytes, ITERS, algo="ring")),
+                ("allgatherv[doubling]%8", False,
+                 build_op("allgatherv", world, nbytes, ITERS,
+                          algo="doubling", imbalance=8)),
+                ("scenario moe-dispatch-combine%8", True, build_scenario_op(
+                    BUILTIN_SCENARIOS["moe-dispatch-combine"], world,
+                    nbytes, ITERS, imbalance=8)),
+                ("ring", False, build_op("ring", world, nbytes, ITERS))):
+            runner = FusedRunner(build_fused_point(built,
+                                                   (CARDS_CHAIN_RUNS,)),
+                                 built)
+            try:
+                runner.warm()
+                for _ in range(2):
+                    start = runner.buffer.clone()
+                    times = runner.chunk(CARDS_CHAIN_RUNS)
+                    want = start
+                    for _ in range(CARDS_CHAIN_RUNS):
+                        want = built.step(want)
+                    same = (torch.allclose(runner.buffer, want, rtol=1e-6,
+                                           atol=0) if sums
+                            else torch.equal(runner.buffer, want))
+                    if not same:
+                        fail(f"across cards: fused {what} at {nbytes} B: "
+                             "the replay differs from the eager chain")
+            finally:
+                runner.close()
+            ms = _rank_max_ms(world, _median(times) * 1e3)
+            said.append(f"{what}@{nbytes} {ms:.4f} ms a run")
+    return said
+
+
+def cards_fenced_rank(device: str = "cuda", timing: bool = False,
+                      sizes=CARDS_FENCED_SIZES,
+                      chain_bytes=CARDS_CHAIN_BYTES) -> None:
+    """One rank of :func:`_cards_arena_fenced`'s world: the fused replays
+    against their eager chains, then every run of CARDS_FENCED_RUNS at
+    each size under each fence through ``cli.main``, one command after
+    another in the world joined once (a command leaves a world it did not
+    join alone); with ``timing`` on the card, the peer kernels beside
+    NCCL's calls too (:func:`_cards_timing`).  Writes its exit codes and
+    lines to ``$CARDS_FENCED_OUT/rank<r>.json``.  ``sizes`` and
+    ``chain_bytes`` are the parent's (a rehearsal cuts them)."""
+    import faulthandler
+
+    from tpu_perf_torch import cli
+    from tpu_perf_torch.parallel.multihost import leave_world
+
+    out = os.environ["CARDS_FENCED_OUT"]
+    world = _nccl_world(device)
+    # a rank that hangs dumps its stack and exits: the parent then fails
+    # with the tail of every rank's output
+    faulthandler.dump_traceback_later(CARDS_STEP_LIMIT_S, exit=True)
+    said = _cards_fused_chains(world, chain_bytes)
+    rcs = {}
+    for fence in _fences_for(device):
+        for nbytes, iters, runs in sizes:
+            for name, argv in CARDS_FENCED_RUNS:
+                key = f"{fence}/{nbytes}/{name}"
+                with open(os.path.join(out, f"at{world.rank}"), "w") as fh:
+                    fh.write(key)
+                faulthandler.dump_traceback_later(CARDS_STEP_LIMIT_S,
+                                                  exit=True)
+                rcs[key] = cli.main(argv + [
+                    "-b", str(nbytes), "-i", str(iters), "-r", str(runs),
+                    "--fence", fence, "--distributed", "--device", device,
+                    "-l", os.path.join(out, key.replace("/", "-"))])
+    rows = []
+    if timing and world.device.type == "cuda":
+        for nbytes, k in CARDS_TIMED:
+            rows += _cards_timing(world, nbytes, k)
+    faulthandler.cancel_dump_traceback_later()
+    with open(os.path.join(out, f"rank{world.rank}.json"), "w") as fh:
+        json.dump({"rcs": rcs, "said": said, "timing": rows}, fh)
+    leave_world()
+
+
+def _cards_arena_fenced(n: int, device: str, timing: bool = False
+                        ) -> list[str]:
+    """The point-to-point schedules across the cards under the device
+    fences (a world of ``n`` processes through torchrun, NCCL a process a
+    card): every allreduce algorithm the registry builds at n, allgatherv
+    at ratio 8 with every v-schedule, the scenarios tp-allreduce-burst and
+    moe-dispatch-combine, and the six native point-to-point ops, each at
+    4 KiB and 256 MiB a rank under block, fused and trace.  Gated: every
+    command exits 0 on every rank, each run's rows are identical on every
+    rank, every row's lat_us is positive, and the fused replays equal
+    their eager chains (:func:`_cards_fused_chains`).  Printed: each
+    case's p50 lat_us under the three fences side by side."""
+    import contextlib
+    import tempfile
+
+    from tpu_perf_torch import report
+
+    said = []
+    fences = _fences_for(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-fenced-") as root:
+        t0 = time.perf_counter()
+        what = f"the fenced schedules across {n} cards"
+
+        def launch(port: int):
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--nproc-per-node", str(n), "--master-addr", "127.0.0.1",
+                   "--master-port", str(port), "--no-python",
+                   sys.executable, "-c",
+                   f"import chip_smoke; chip_smoke.cards_fenced_rank("
+                   f"{device!r}, {timing!r}, {CARDS_FENCED_SIZES!r}, "
+                   f"{CARDS_CHAIN_BYTES!r})"]
+            return _procs([cmd], [dict(os.environ, CARDS_FENCED_OUT=root)],
+                          what, CARDS_LIMIT_S)
+
+        try:
+            _on_free_port(launch, what)
+        except RuntimeError as e:
+            at = {}
+            for r in range(n):
+                with contextlib.suppress(OSError), \
+                        open(os.path.join(root, f"at{r}")) as fh:
+                    at[r] = fh.read()
+            raise RuntimeError(f"{e}\nthe command each rank was in: {at}")
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(root, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        bad = {k: v for rk in ranks for k, v in rk["rcs"].items() if v != 0}
+        if bad:
+            fail(f"across cards: fenced runs exited {bad}")
+        p50: dict[tuple, dict] = {}
+        total = 0
+        for key in ranks[0]["rcs"]:
+            fence = key.split("/")[0]
+            rows = _logged_rows(os.path.join(root, key.replace("/", "-")))
+            keys = {k: [(r.op, r.algo, r.nbytes, r.imbalance, r.run_id,
+                         r.time_ms) for r in v] for k, v in rows.items()}
+            if (sorted(keys) != list(range(n))
+                    or any(v != keys[0] for v in keys.values())
+                    or not keys[0]):
+                fail(f"across cards: {key}: rows differ between ranks "
+                     f"{ {k: len(v) for k, v in keys.items()} }")
+            if any(not r.lat_us > 0 for r in rows[0]):
+                fail(f"across cards: {key}: a row's lat_us is not positive")
+            total += len(keys[0])
+            for p in report.aggregate(rows[0]):
+                p50.setdefault((p.op, p.algo, p.nbytes, p.imbalance),
+                               {})[fence] = p.lat_us["p50"]
+        said.append(f"fused replays equal to their eager chains across the "
+                    f"{n} ranks: " + "; ".join(ranks[0]["said"]))
+        lines = []
+        for (op, algo, nbytes, imb), by in sorted(p50.items()):
+            lines.append(
+                f"{op}" + (f"[{algo}]" if algo not in ("", "native")
+                           else "")
+                + (f"%{imb}" if imb > 1 else "") + f"@{nbytes}: "
+                + ", ".join(f"{f} {by[f]:.2f}" if f in by else f"{f} -"
+                            for f in fences))
+        said.append(f"point-to-point schedules under {', '.join(fences)}"
+                    f" ({total} rows, identical on the {n} ranks, every "
+                    f"lat_us positive, {time.perf_counter() - t0:.1f} s); "
+                    f"p50 lat_us a case, {' / '.join(fences)} ("
+                    + (card_line_all().replace("\n", "; ")
+                       if device == "cuda" else "gloo on the CPU") + "):\n"
+                    + "\n".join(lines))
+        if ranks[0]["timing"]:
+            said += _timing_lines(ranks[0]["timing"], n)
+            said.append("CARDS_KERNELS " + json.dumps(ranks[0]["timing"]))
+    return said
+
+
+def cards_arena_fenced(cards: int, device: str = "cuda") -> int:
+    """:func:`_cards_arena_fenced` alone, with the peer kernels' times
+    beside NCCL's calls (eager and from a graph); on a host with four
+    cards: ``python3 -c "import chip_smoke as c; c.cards_arena_fenced(4)"``.
+    ``device`` "cpu" rehearses it on gloo (no graph, no timing)."""
+    t0 = time.perf_counter()
+    if device == "cuda":
+        print(card_line_all(), flush=True)
+        from tpu_perf_torch.kernels import _build
+
+        _build.build_all()
+    for line in _cards_arena_fenced(cards, device, timing=device == "cuda"):
+        print(f"cards: {line}", flush=True)
+    print(f"cards: total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "cards": cards}))
+    return 0
 
 
 #: linkmap across the cards: bytes a probe (the latency and the bandwidth
@@ -6093,8 +6371,10 @@ def across_cards(cards: int, device: str = "cuda") -> int:
     processes (every op against the sim chain, the push chains, each peer
     kernel timed beside its NCCL call); then the CLI through torchrun
     (:func:`_cards_cli`), the skew soak (:func:`_cards_chaos`), the
-    arena with the spread axis (:func:`_cards_arena`) and linkmap with the
-    tuner (:func:`_cards_linkmap`).  Prints each card's name and power limit, the
+    arena with the spread axis (:func:`_cards_arena`), the point-to-point
+    schedules under block, fused and trace (:func:`_cards_arena_fenced`),
+    linkmap with the tuner (:func:`_cards_linkmap`) and the fleet plane
+    (:func:`_cards_fleet`).  Prints each card's name and power limit, the
     results, and ``{"ok": true, "cards": N}`` last.  ``device`` "cpu"
     rehearses the world and the CLI on gloo (no push chain, no timing)."""
     import torch
@@ -6117,6 +6397,7 @@ def across_cards(cards: int, device: str = "cuda") -> int:
         print(line, flush=True)
     for line in (_cards_cli(cards, device) + _cards_chaos(cards, device)
                  + _cards_arena(cards, device)
+                 + _cards_arena_fenced(cards, device)
                  + _cards_linkmap(cards, device)
                  + _cards_fleet(cards, device)):
         print(f"cards: {line}", flush=True)

@@ -151,6 +151,43 @@ def test_chunk_observations_are_jaxs(chunk, seed):
         tad.PointController(tad.AdaptiveConfig()).observe_chunk(1.0, 0)
 
 
+def _smoke_module():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_gate",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_equal_chunk_means_stop_at_a_zero_interval_as_jaxs_do():
+    # --ci-rel 0.05 --min-runs 2: two equal positive chunk means give a
+    # zero standard deviation, so both controllers stop at ci_rel 0.0
+    # (the smoke's adaptive gate refused that stop once on the card)
+    for mod in (tad, jad):
+        c = mod.PointController(mod.AdaptiveConfig(ci_rel=0.05, min_runs=2,
+                                                   max_runs=50))
+        c.observe_chunk(1.25e-3, 1)
+        assert not c.should_stop(1) and c.ci_rel() == math.inf
+        c.observe_chunk(1.25e-3, 1)
+        assert c.ci_rel() == 0.0
+        assert c.should_stop(2) and c.stopped_at == 2
+        assert c.summary()["ci_rel"] == 0.0
+        # a degenerate stream never meets the target: a mean <= 0, or a
+        # single sample
+        for means in ([0.0, 0.0], [-1e-3, -1e-3], [2e-3]):
+            d = mod.PointController(mod.AdaptiveConfig(ci_rel=0.05,
+                                                       min_runs=2))
+            for m in means:
+                d.observe_chunk(m, 1)
+            assert d.ci_rel() == math.inf, (mod.__name__, means)
+    accepted = _smoke_module().ci_rel_accepted
+    assert accepted(0.0) and accepted(0.05) and accepted(0.0123)
+    for bad in (math.inf, -math.inf, math.nan, 0.0500001, 0.2, -1e-9):
+        assert not accepted(bad), bad
+
+
 def test_the_vote_is_injectable_and_unanimous():
     votes = []
 

@@ -40,6 +40,9 @@ class _Recorder:
         self.pending = []
         # host ms a submission is preempted halfway, by leg
         self.preempt = {}
+        # device ms a lo leg waits at its first collective for the last
+        # rank's replay to start (across processes)
+        self.skew = 0.0
 
     def install(self, monkeypatch):
         rec = self
@@ -80,6 +83,7 @@ class _Recorder:
                 self.events = []
                 self.leg = None
                 self.gated = False
+                self.aligned = False
 
             def replay(self):
                 rec.log.append(("replay", self.leg))
@@ -93,7 +97,12 @@ class _Recorder:
 
             def run(self, started):
                 start, end = self.events
+                # the wait for the last rank: before the start event when
+                # the leg's head met the ranks, else inside the leg
+                wait = rec.skew if self.leg == "lo" else 0.0
+                rec.clock += wait if self.aligned else 0.0
                 start.t = rec.clock
+                rec.clock += 0.0 if self.aligned else wait
                 rec.clock += rec.durations[self.leg][0]
                 if started:
                     # the card runs the part submitted so far, then waits
@@ -135,6 +144,12 @@ class _Recorder:
                 empty_cache=lambda: None,
                 graph_pool_handle=lambda: object()).items():
             monkeypatch.setattr(torch.cuda, name, value)
+
+    def align(self):
+        """The ranks' meeting (``DistWorld.rendezvous``)."""
+        self.log.append(("align", self.capturing))
+        if self.capturing is not None:
+            self.capturing.aligned = True
 
     def step(self, leg):
         def run(x):
@@ -230,6 +245,46 @@ def test_a_stall_around_a_replay_stays_out_of_the_leg(monkeypatch):
 
     runner.replay = stalled
     assert runner.pair() == pytest.approx((1e-3, 3e-3))
+
+
+def test_across_processes_each_leg_meets_the_ranks_before_its_start(
+        monkeypatch):
+    # a rank whose replay starts 5 ms before the last rank's waits for it
+    # at its lo leg's first collective; its hi leg starts in step with
+    # the peers.  Without the meeting the wait lands inside the lo leg
+    # and the pair goes non-positive
+    rec = _Recorder({"lo": [1.0], "hi": [3.0]})
+    rec.install(monkeypatch)
+
+    def runner(align):
+        return timing.TraceRunner(rec.step("lo"), rec.step("hi"),
+                                  _CardTensor(), 5, 20, align=align)
+
+    loose = runner(None)
+    loose.warm()
+    rec.skew = 5.0
+    with pytest.raises(RuntimeError, match="non-positive"):
+        loose.sample()
+    rec.skew = 0.0
+    rec.log.clear()
+    met = runner(rec.align)
+    met.warm()
+    # the meeting runs once eagerly (its communicator), then in each
+    # leg's head after the gate and before the lead-in and start event
+    assert rec.log[:3] == [("step", "lo"), ("step", "hi"), ("align", None)]
+    captures = rec.log[3:]
+    for leg, head in (("lo", ["gate", "align", "spin"]),
+                      ("hi", ["align", "spin"])):
+        i = captures.index(("capture",))
+        g = met._graphs[leg][0]
+        want = [("capture",), *[(h, g) for h in head], ("record", g),
+                ("step", leg), ("record", g), ("captured",)]
+        assert captures[i:i + len(want)] == want
+        captures = captures[i + len(want):]
+    rec.skew = 5.0
+    for _ in range(3):
+        assert met.pair() == pytest.approx((1e-3, 3e-3))
+        assert met.sample() == pytest.approx((3.0 - 1.0) * 1e-3 / 15)
 
 
 def test_a_non_positive_trace_pair_still_raises(monkeypatch):
@@ -338,3 +393,31 @@ def test_the_smoke_prints_its_phases_failure_not_a_setup_failure(
     assert out.startswith("chip_smoke: FAILED in phase setup after ")
     assert "FileNotFoundError: nvidia-smi" in out
     assert io.StringIO(out).read().count("\n") == 1
+
+
+def test_a_world_whose_port_was_taken_starts_once_more(capsys):
+    # the four-card worlds pick a free port, then torchrun binds it: a
+    # port taken in between (EADDRINUSE) is tried once more on another;
+    # any other failure, or a second taken port, is the smoke's failure
+    smoke = _smoke()
+    ports = []
+
+    def taken_once(port):
+        ports.append(port)
+        if len(ports) == 1:
+            smoke.fail("torchrun: process 0 exited 1: ... EADDRINUSE ...")
+        return "ran"
+
+    assert smoke._on_free_port(taken_once, "a world") == "ran"
+    assert len(ports) == 2
+    assert "once more on another" in capsys.readouterr().err
+
+    def always_taken(port):
+        smoke.fail("EADDRINUSE")
+
+    def broken(port):
+        smoke.fail("process 0 exited 1: a rank disagreed")
+
+    for launch in (always_taken, broken):
+        with pytest.raises(RuntimeError):
+            smoke._on_free_port(launch, "a world")

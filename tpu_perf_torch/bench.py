@@ -75,10 +75,10 @@ through the tuner's own ``build_selection`` and resolved back through
 ``LoadedSelection`` as ``--algo auto`` resolves them: the native /
 selected p50 speedup), ``vopt_vs_ring`` (the doubling allgatherv against
 the ring at ratios 2 and 8).  They time host walls under the block fence
-(``arena_fence``), the fence an arena step accepts across processes,
-each run's wall its maximum over the ranks.  ``push_overhead`` is the
-push plane's tee on the record path (host only).  Every number is
-labelled with the card's name and power limit.
+(``arena_fence``), as the JAX package's instruments time theirs with
+``time_step``, each run's wall its maximum over the ranks.
+``push_overhead`` is the push plane's tee on the record path (host
+only).  Every number is labelled with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -339,8 +339,8 @@ VOPT_SIZES, VOPT_RATIOS, VOPT_RUNS, VOPT_ITERS = (4096, 262144), (2, 8), 8, 4
 PUSH_ROWS = 20000
 
 
-#: the fence the arena instruments time under (an arena step across
-#: processes is refused under fused and trace)
+#: the fence the arena instruments time under: host walls, as the JAX
+#: package's instruments time theirs (``time_step``)
 ARENA_FENCE = "block"
 
 

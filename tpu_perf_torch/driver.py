@@ -91,7 +91,7 @@ from tpu_perf_torch.push.plane import NULL_PUSHER
 from tpu_perf_torch.runner import (
     SweepPointResult, algos_for_options, build_point_pair, fused_plan_for,
     max_over_ranks, ops_for_options, point_controller, run_point_fused,
-    sizes_for, without_p50, world_for,
+    sizes_for, trace_align, without_p50, world_for,
 )
 from tpu_perf_torch.schema import (
     CHAOS_PREFIX, EXT_PREFIX, HEALTH_PREFIX, LEGACY_PREFIX, SPANS_PREFIX,
@@ -1116,7 +1116,8 @@ class Driver:
                 per_exec = time_trace(built.step, built_hi.step,
                                       built.example_input, built.iters,
                                       built_hi.iters, self.opts.num_runs,
-                                      warmup_runs=self.opts.warmup_runs)
+                                      warmup_runs=self.opts.warmup_runs,
+                                      align=trace_align(self.world))
             times = [t * built.iters for t in per_exec.samples]
         else:
             budget = (self._adaptive_cfg.max_runs if controller is not None
@@ -1268,7 +1269,8 @@ class Driver:
                     self.fused_totals["points"] += 1
                 elif self.opts.fence == "trace":
                     built_hi = TraceRunner(built.step, built_hi.step, keep,
-                                           built.iters, built_hi.iters)
+                                           built.iters, built_hi.iters,
+                                           align=trace_align(self.world))
                     with self.tracer.span("warmup", op=built.name,
                                           nbytes=built.nbytes):
                         built_hi.warm(self.opts.warmup_runs)

@@ -627,7 +627,11 @@ def _ppermute(world: DistWorld, x: torch.Tensor,
               perm: list[tuple[int, int]]) -> torch.Tensor:
     """XLA's ppermute on this rank: the buffer its source sent it, or zeros
     when no rank sends to it; its own pair is a local copy, never a send
-    to itself.  One ``batch_isend_irecv``."""
+    to itself.  One ``batch_isend_irecv``, whose ``wait()`` on NCCL makes
+    the current stream wait for NCCL's (no host block, unless
+    ``TORCH_NCCL_BLOCKING_WAIT`` is set), so the fused and trace fences
+    capture it into their graphs; their warm run, eager, makes the
+    communicator's connections first."""
     import torch.distributed as dist
 
     rank = world.rank

@@ -309,6 +309,13 @@ def world_for(opts: Options) -> SimWorld | DistWorld:
     return SimWorld(n, device, mesh)
 
 
+def trace_align(world):
+    """The trace fence's meeting of the ranks (``TraceRunner``'s
+    ``align``): a multi-process world's rendezvous, None in one
+    process."""
+    return world.rendezvous() if is_dist(world) else None
+
+
 def max_over_ranks(world, samples: list[float | None]
                    ) -> list[float | None]:
     """A point's run times, each its maximum over the ranks of a
@@ -413,19 +420,6 @@ def build_point_pair(opts: Options, world: SimWorld, op: str, nbytes: int,
     None.  ``algo`` selects an arena decomposition (for the ``scenario``
     op, the scenario's label, built by the composition layer);
     ``imbalance`` is the point's per-rank payload ratio."""
-
-    from tpu_perf_torch.scenarios.vops import V_OPS
-
-    if (is_dist(world) and opts.fence in ("fused", "trace")
-            and (algo != "native" or op in V_OPS or op == "scenario")):
-        # their permutations are batch_isend_irecv calls, and NCCL's
-        # point-to-point calls under CUDA graph capture are unproven here:
-        # refused, never measured some other way
-        raise NotImplementedError(
-            f"{op}{'' if algo == 'native' else f'[{algo}]'} across "
-            f"processes runs its permutations as batch_isend_irecv, which "
-            f"the {opts.fence} fence would capture into a CUDA graph: not "
-            "supported (run it under --fence block or readback)")
 
     def build(n_iters: int, reuse=None) -> BuiltOp:
         if op == "scenario":
@@ -622,7 +616,8 @@ def run_point(opts: Options, world: SimWorld | DistWorld, nbytes: int, *,
         with phases.phase("measure"):
             per_exec = time_trace(built.step, built_hi.step, x, built.iters,
                                   built_hi.iters, opts.num_runs,
-                                  warmup_runs=opts.warmup_runs)
+                                  warmup_runs=opts.warmup_runs,
+                                  align=trace_align(world))
         times = RunTimes(samples=[t * built.iters for t in per_exec.samples],
                          warmup_s=per_exec.warmup_s)
     elif opts.fence == "slope":

@@ -264,10 +264,19 @@ class TraceRunner:
     until ``close()``.
 
     ``replay(leg)`` is the one host call a leg makes in a measured pair;
-    a caller that wants a stall around a leg wraps it."""
+    a caller that wants a stall around a leg wraps it.
+
+    ``align``, in a multi-process world, meets the ranks on the device
+    (:meth:`~tpu_perf_torch.world.DistWorld.rendezvous`): each leg's head
+    runs it before the lead-in, so a leg's window opens once every rank
+    has arrived.  Without it the lo leg of a rank whose replay started
+    first holds its wait for the last rank, and its hi leg, which starts
+    in step with the peers, holds none: the pair can come out
+    non-positive."""
 
     def __init__(self, step_lo: Callable, step_hi: Callable, x,
-                 iters_lo: int, iters_hi: int):
+                 iters_lo: int, iters_hi: int, *,
+                 align: Callable[[], None] | None = None):
         if not x.is_cuda:
             raise ValueError(
                 "the trace fence times with CUDA events and needs a CUDA "
@@ -277,6 +286,7 @@ class TraceRunner:
                 f"need iters_hi > iters_lo, got {iters_lo}, {iters_hi}")
         self.steps = {"lo": step_lo, "hi": step_hi}
         self.x = x
+        self.align = align
         self.d_iters = iters_hi - iters_lo
         self.warmup_s = 0.0
         self.graph_bytes = 0
@@ -294,6 +304,8 @@ class TraceRunner:
         with torch.cuda.stream(side):
             for step in self.steps.values():
                 step(self.x)
+            if self.align is not None:
+                self.align()
         self.gate = TraceGate(dev)
         # the gate's first launch, eager and open, loads its module
         self.gate.open()
@@ -323,9 +335,11 @@ class TraceRunner:
 
     def head(self, leg: str) -> None:
         """What a leg's graph runs before its start event: the lo leg's
-        gate, then the lead-in."""
+        gate, the ranks' meeting (``align``), then the lead-in."""
         if leg == "lo":
             self.gate.wait()
+        if self.align is not None:
+            self.align()
         self.lead_in(leg)
 
     def lead_in(self, leg: str) -> None:
@@ -387,15 +401,17 @@ def time_trace(
     num_runs: int,
     *,
     warmup_runs: int = 1,
+    align: Callable[[], None] | None = None,
 ) -> RunTimes:
     """Per-execution time via the two-point slope on the DEVICE clock:
     ``num_runs`` pairs of a :class:`TraceRunner` (each leg one graph
-    replay) after ``warmup_runs`` unrecorded ones; its graphs are freed
-    before it returns.  Samples are per single execution, like
-    :func:`time_slope`."""
+    replay, behind ``align`` across processes) after ``warmup_runs``
+    unrecorded ones; its graphs are freed before it returns.  Samples are
+    per single execution, like :func:`time_slope`."""
     if num_runs <= 0:
         raise ValueError(f"num_runs must be positive, got {num_runs}")
-    runner = TraceRunner(step_lo, step_hi, x, iters_lo, iters_hi)
+    runner = TraceRunner(step_lo, step_hi, x, iters_lo, iters_hi,
+                         align=align)
     try:
         runner.warm(warmup_runs)
         samples = [runner.sample() for _ in range(num_runs)]

@@ -155,6 +155,20 @@ class DistWorld:
                          local_rank=self.local_rank, device=self.device,
                          mesh=make_mesh(n=n), group=group)
 
+    def rendezvous(self):
+        """The ranks' meeting on the device, for the trace fence's legs
+        (``timing.TraceRunner``'s ``align``): a call launches a
+        one-element all-reduce on the world's group on the current
+        stream, so a CUDA graph captures it as any collective and its
+        kernel ends once every rank has launched its own.  None in a
+        world of one."""
+        if self.n == 1:
+            return None
+        import torch.distributed as dist
+
+        token = torch.zeros(1, dtype=torch.float32, device=self.device)
+        return lambda: dist.all_reduce(token, group=self.group)
+
     def max_over_ranks(self, samples: list[float | None]
                        ) -> list[float | None]:
         """Each sample replaced by its maximum over the ranks, in one
